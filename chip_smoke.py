@@ -5,85 +5,58 @@
 Phases, each of which raises on failure:
 
 1. device  — needs a CUDA card; prints its name and power limit,
-2. build   — compiles the march kernel K1 from ``vrt_torch/csrc/``,
+2. build   — compiles the march kernel K1 and the gather library (GP-A,
+             GP-B, GP-C) from ``vrt_torch/csrc/``, one nvcc each, in
+             parallel, and prints ptxas' register and spill lines,
 3. K1      — K1 against its plain-torch twin on the flagship scene
              (resolution 7, chebyshev, bf16): 480x270 primary rays and the
              directional shadow rays cast from their hits; then every K1
              launch of one 1920x1080 frame (primary, shadow and bounce
-             passes) against the twin on the same inputs, both timed,
+             passes) against the twin on the same inputs, both timed;
+             then the same for one 1080p frame in cube mode and one with
+             the debug overlay,
 4. frame   — the 1920x1080 flagship frame three times after a warm-up,
-             with K1's launch count over those frames,
+             with K1's launch count over those frames; then the same in
+             cube mode and with the debug overlay,
 5. anchor  — the 160x90 frame against the image ``vrt`` renders on the CPU
-             (``tests/fixtures/flagship_r7_cheb_bf16_160x90.npy``),
+             (``tests/fixtures/flagship_r7_cheb_bf16_160x90.npy``), and the
+             160x90 cube-mode unlit frame against its own ``vrt`` fixture,
 6. profile — one 1080p frame under ``torch.profiler``: device busy time,
-             K1's share of it, and the kernels that take the most time.
+             K1's share of it, and the kernels that take the most time,
+7. gather  — the gather probe (``vrt_torch.apps.probe_gather``): every
+             case once through its kernel on every load path, with the
+             launches counted, then each output against its plain version
+             (equal, or the run fails) and both timed.
 
-The line before the last is a JSON object with K1's launches on the main
-path, its largest disagreement with the twin, and both march times; the
-last line is ``{"ok": true, "device": {...}}``.  There is no CPU path.
+The line before the last is a JSON object with every kernel's launches on
+its main path, its largest disagreement with its plain version, and both
+times; the last line is ``{"ok": true, "device": {...}}``.  There is no
+CPU path.
 """
 
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                        "flagship_r7_cheb_bf16_160x90.npy")
+CUBE_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                            "flagship_r7_cheb_bf16_cube_unlit_160x90.npy")
 LANE_BUDGET = 1e-3    # share of lanes whose hit or kind may differ
 T_RTOL = 1e-4         # t on lanes where both agree on the hit
 FRAME_W, FRAME_H = 1920, 1080
-
-
-def _card():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def _device_ms(fn, reps):
-    """Mean device time in ms of ``fn()`` over ``reps`` back-to-back runs
-    after one warm-up run, from CUDA events."""
-    import torch
-
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def _kernel_ms(fn, reps=20):
-    """Mean device time in ms of one K1 launch ``fn()``.  A spin kernel
-    holds the stream while the host queues the ``reps`` launches, so the
-    events see them back to back, without the host's launch overhead."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+TWIN_BUDGET_S = 60.0  # twin time over a frame's passes before 960x540
 
 
 def _compare(tag, a, b):
     """K1 hits ``a`` against twin hits ``b``; returns max |dt| on lanes
-    where both hit with the same kind."""
+    where both hit with the same kind.  On lanes where hit and kind agree,
+    the steps, t_in, t_out and face normal (NaN equal to NaN) must be
+    equal, and on hit lanes the cell too."""
     import torch
 
     agree = (a.hit == b.hit) & (a.kind == b.kind)
@@ -94,10 +67,15 @@ def _compare(tag, a, b):
         if both.any() else 0.0
     cells = bool(torch.equal(a.cell[both], b.cell[both]))
     steps = bool(torch.equal(a.steps[agree], b.steps[agree]))
+    brackets = bool(torch.equal(a.t_in[agree], b.t_in[agree])
+                    and torch.equal(a.t_out[agree], b.t_out[agree]))
+    fa, fb = a.face_normal[agree], b.face_normal[agree]
+    faces = bool(((fa == fb) | (torch.isnan(fa) & torch.isnan(fb))).all())
     err = dt.max().item() if both.any() else 0.0
     print(f"K1 vs twin [{tag}]: lanes={a.hit.numel()} hits={int(a.hit.sum())}"
           f" hit/kind flips={flips:.2e} max|dt|={err:.3e} max rel dt={rel:.3e}"
-          f" cells equal={cells} steps equal={steps}", flush=True)
+          f" cells equal={cells} steps equal={steps} t_in/t_out equal="
+          f"{brackets} face normals equal={faces}", flush=True)
     if flips > LANE_BUDGET:
         raise AssertionError(f"{tag}: {flips:.2e} of lanes flip hit/kind")
     if rel > T_RTOL:
@@ -106,7 +84,59 @@ def _compare(tag, a, b):
         raise AssertionError(f"{tag}: hit cells differ")
     if not steps:
         raise AssertionError(f"{tag}: step counts differ")
+    if not brackets:
+        raise AssertionError(f"{tag}: t_in or t_out differ")
+    if not faces:
+        raise AssertionError(f"{tag}: face normals differ")
     return err
+
+
+def _frame_passes(scene, mode, w, h, tag, twin_budget_s=None):
+    """Every K1 launch of one ``w`` x ``h`` frame in ``mode``, kept with
+    its inputs and the output the frame used, then held against the twin
+    on the same inputs; both timed.  Returns (max |dt|, K1 ms per pass,
+    twin ms per pass), or None once the twin's total passes
+    ``twin_budget_s``."""
+    import torch
+
+    from vrt_torch.kernels import march as k1
+    from vrt_torch.kernels._timing import device_ms
+    from vrt_torch.march.march import march_lanes_reference
+    from vrt_torch.render.renderer import render_image
+
+    frame_passes = []
+    launch = k1.march_lanes_cuda
+
+    def recording(*args):
+        h = launch(*args)
+        frame_passes.append((args, h))
+        return h
+
+    k1.march_lanes_cuda = recording
+    try:
+        render_image(scene, w, h, mode)
+    finally:
+        k1.march_lanes_cuda = launch
+    torch.cuda.synchronize()
+    if len(frame_passes) != _expected_passes(scene):
+        raise AssertionError(f"the {tag} frame launched K1 "
+                             f"{len(frame_passes)} times, expected "
+                             f"{_expected_passes(scene)}")
+    err, k1_ms, tw_ms = 0.0, [], []
+    for i, (args, h_k1) in enumerate(frame_passes):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        h_tw = march_lanes_reference(*args)
+        end.record()
+        end.synchronize()
+        tw_ms.append(start.elapsed_time(end))
+        err = max(err, _compare(f"{tag} pass {i}", h_k1, h_tw))
+        k1_ms.append(device_ms(lambda: launch(*args), 20))
+        del h_tw
+        if twin_budget_s is not None and sum(tw_ms) > 1e3 * twin_budget_s:
+            return None
+    return err, k1_ms, tw_ms
 
 
 def _profile(render, sync, frame_ms, top=8):
@@ -167,7 +197,10 @@ def main():
     sys.path.insert(0, ROOT)
     import numpy as np
 
+    from vrt_torch.apps import probe_gather as probe
+    from vrt_torch.kernels import gather as gk
     from vrt_torch.kernels import march as k1
+    from vrt_torch.kernels._timing import device_ms
     from vrt_torch.march.march import march_lanes_reference
     from vrt_torch.render.camera import camera_rays
     from vrt_torch.render.gpuscene import RenderMode
@@ -177,7 +210,7 @@ def main():
     from vrt_torch.scenes import flagship_scene
 
     # ---- 1. device ---------------------------------------------------------
-    card = _card()
+    card = probe.card()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     print(f"card: {card}", flush=True)
@@ -187,12 +220,16 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # ---- 2. build ----------------------------------------------------------
+    # ---- 2. build: one nvcc per source, all started together ---------------
     t0 = time.perf_counter()
-    log = k1.build()
-    print(f"K1 build: {time.perf_counter() - t0:.1f}s", flush=True)
-    for line in log.strip().splitlines():
-        print(f"  nvcc: {line}", flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        logs = {"K1 (march.cu)": pool.submit(k1.build),
+                "gather (gather.cu)": pool.submit(gk.build)}
+        logs = {name: f.result() for name, f in logs.items()}
+    print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
+    for name, log in logs.items():
+        for line in log.strip().splitlines():
+            print(f"  nvcc {name}: {line}", flush=True)
 
     # ---- 3. K1 against the twin -------------------------------------------
     t0 = time.perf_counter()
@@ -201,6 +238,8 @@ def main():
     print(f"scene build: {time.perf_counter() - t0:.1f}s, corners "
           f"{tuple(corners.shape)} {corners.dtype}", flush=True)
     mode = RenderMode()
+    cube = RenderMode(interp=False)
+    overlay = RenderMode(debug_overlay=True)
 
     def rays(w, h):
         return camera_rays(scene.cam_pos, scene.cam_rot, scene.cam_fov, w, h)
@@ -209,7 +248,7 @@ def main():
     t_max = torch.full((o.shape[0],), RADIANCE_TMAX, device=dev)
     h_k1, inst = march_scene(scene, o, d, t_max)
     h_tw, _ = march_scene(scene, o, d, t_max,
-                          lane_marcher=_twin(march_lanes_reference))
+                          lane_marcher=march_lanes_reference)
     sync()
     err = _compare("primary 480x270", h_k1, h_tw)
     t, _, _ = resolve_scene(scene, o, d, h_k1, inst)
@@ -218,82 +257,79 @@ def main():
     s_max = torch.where(h_k1.hit, DIR_SHADOW_TMAX, -float("inf"))
     s_k1, _ = march_scene(scene, so, sd, s_max)
     s_tw, _ = march_scene(scene, so, sd, s_max,
-                          lane_marcher=_twin(march_lanes_reference))
+                          lane_marcher=march_lanes_reference)
     sync()
     err = max(err, _compare("dir shadow 480x270", s_k1, s_tw))
 
-    # Every K1 launch of one 1080p frame (primary, shadow and bounce
-    # passes), kept with its inputs and the output the frame used; each is
-    # then held against the twin on the same inputs and both are timed.
-    frame_passes = []
-    launch = k1.march_lanes_cuda
-
-    def recording(*args):
-        h = launch(*args)
-        frame_passes.append((args, h))
-        return h
-
-    k1.march_lanes_cuda = recording
-    try:
-        render_image(scene, FRAME_W, FRAME_H, mode)
-    finally:
-        k1.march_lanes_cuda = launch
-    sync()
-    if len(frame_passes) != _expected_passes(scene):
-        raise AssertionError(f"the 1080p frame launched K1 "
-                             f"{len(frame_passes)} times, expected "
-                             f"{_expected_passes(scene)}")
-    k1_ms, tw_ms = [], []
-    for i, (args, h_k1) in enumerate(frame_passes):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        h_tw = march_lanes_reference(*args)
-        end.record()
-        end.synchronize()
-        tw_ms.append(start.elapsed_time(end))
-        err = max(err, _compare(f"1080p frame pass {i}", h_k1, h_tw))
-        k1_ms.append(_kernel_ms(lambda: launch(*args)))
-        del h_tw
+    e, k1_ms, tw_ms = _frame_passes(scene, mode, FRAME_W, FRAME_H,
+                                    "1080p frame")
+    err = max(err, e)
     ms, plain_ms = sum(k1_ms), sum(tw_ms)
     prim = scene.num_instances
     o, d = rays(FRAME_W, FRAME_H)
     t_max = torch.full((o.shape[0],), RADIANCE_TMAX, device=dev)
-    scene_ms = _device_ms(lambda: march_scene(scene, o, d, t_max), 5)
+    scene_ms = device_ms(lambda: march_scene(scene, o, d, t_max), 5,
+                         hold=False)
     print(f"K1 device time per pass of the 1080p frame on {card}: "
           f"{', '.join(f'{t:.4f}' for t in k1_ms)} ms = {ms:.4f} ms per "
           f"frame, the {prim} primary passes {sum(k1_ms[:prim]):.4f} ms; "
           f"twin on the same lanes {', '.join(f'{t:.2f}' for t in tw_ms)} "
           f"ms = {plain_ms:.2f} ms; primary march_scene with K1 "
           f"{scene_ms:.2f} ms", flush=True)
-    del o, d, t_max, frame_passes
+    del o, d, t_max
 
-    # ---- 4. the frame ------------------------------------------------------
-    img = render_image(scene, FRAME_W, FRAME_H, mode)     # warm-up
-    sync()
-    k1.LAUNCHES = 0
-    frames = []
-    for _ in range(3):
+    # the cube-mode and overlay frames, every launch against the twin
+    mode_ms = {}
+    for tag, m in (("cube", cube), ("overlay", overlay)):
+        got = _frame_passes(scene, m, FRAME_W, FRAME_H, f"1080p {tag}",
+                            twin_budget_s=TWIN_BUDGET_S)
+        size = "1920x1080"
+        if got is None:
+            print(f"the twin passed {TWIN_BUDGET_S:.0f} s on the 1080p "
+                  f"{tag} frame: comparing its passes at 960x540 instead",
+                  flush=True)
+            got = _frame_passes(scene, m, 960, 540, f"960x540 {tag}")
+            size = "960x540"
+        e, m_ms, m_tw = got
+        err = max(err, e)
+        mode_ms[tag] = (sum(m_ms), sum(m_tw))
+        print(f"K1 device time per pass of the {size} {tag} frame on "
+              f"{card}: {', '.join(f'{t:.4f}' for t in m_ms)} ms = "
+              f"{sum(m_ms):.4f} ms per frame; twin "
+              f"{', '.join(f'{t:.2f}' for t in m_tw)} ms = "
+              f"{sum(m_tw):.2f} ms", flush=True)
+
+    # ---- 4. the frames -----------------------------------------------------
+    def frames(m, tag):
+        img = render_image(scene, FRAME_W, FRAME_H, m)     # warm-up
         sync()
-        t0 = time.perf_counter()
-        img = render_image(scene, FRAME_W, FRAME_H, mode)
-        sync()
-        frames.append(time.perf_counter() - t0)
-    launches = k1.LAUNCHES
-    expected = 3 * _expected_passes(scene)
-    if not bool(torch.isfinite(img).all()):
-        raise AssertionError("1080p frame has non-finite pixels")
-    if tuple(img.shape) != (FRAME_H, FRAME_W, 4):
-        raise AssertionError(f"frame shape {tuple(img.shape)}")
-    if launches < expected:
-        raise AssertionError(f"K1 launched {launches} times in 3 frames, "
-                             f"expected >= {expected}")
-    frame_s = statistics.median(frames)
-    print(f"1080p frame on {card}: median {frame_s * 1e3:.1f} ms "
-          f"(runs {', '.join(f'{f * 1e3:.1f}' for f in frames)} ms), "
-          f"{FRAME_W * FRAME_H / frame_s:.0f} rays/s; K1 launches "
-          f"{launches} in 3 frames (>= {expected})", flush=True)
-    del img
+        k1.LAUNCHES = 0
+        runs = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            img = render_image(scene, FRAME_W, FRAME_H, m)
+            sync()
+            runs.append(time.perf_counter() - t0)
+        launches = k1.LAUNCHES
+        expected = 3 * _expected_passes(scene)
+        if not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"1080p {tag} frame has non-finite pixels")
+        if tuple(img.shape) != (FRAME_H, FRAME_W, 4):
+            raise AssertionError(f"{tag} frame shape {tuple(img.shape)}")
+        if launches < expected:
+            raise AssertionError(f"K1 launched {launches} times in 3 {tag} "
+                                 f"frames, expected >= {expected}")
+        median = statistics.median(runs)
+        print(f"1080p {tag} frame on {card}: median {median * 1e3:.1f} ms "
+              f"(runs {', '.join(f'{f * 1e3:.1f}' for f in runs)} ms), "
+              f"{FRAME_W * FRAME_H / median:.0f} rays/s; K1 launches "
+              f"{launches} in 3 frames (>= {expected})", flush=True)
+        return median, launches
+
+    frame_s, launches = frames(mode, "interp")
+    _, cube_launches = frames(cube, "cube")
+    _, overlay_launches = frames(overlay, "overlay")
 
     # ---- 5. anchored to the JAX reference ----------------------------------
     want = np.load(FIXTURE)
@@ -308,28 +344,81 @@ def main():
           f" (< 0.01), pixels off > 0.1 {outl:.2e} (< 0.03)", flush=True)
     if not (q90 < 0.015 and mean < 0.01 and outl < 0.03):
         raise AssertionError("160x90 frame disagrees with the vrt fixture")
+    want = np.load(CUBE_FIXTURE)
+    got = render_image(scene, 160, 90, RenderMode(interp=False, lit=False))
+    got = got[..., :3].cpu().numpy()
+    if not np.isfinite(got).all():
+        raise AssertionError("160x90 cube frame has non-finite pixels")
+    diff = np.abs(got - want)
+    q98 = float(np.quantile(diff, 0.98))
+    mean = float(diff.mean())
+    outl = float((diff.max(axis=-1) > 0.05).mean())
+    print(f"160x90 cube unlit vs vrt fixture: q98 {q98:.2e} (< 6e-3), mean "
+          f"{mean:.2e} (< 2.5e-3), pixels off > 0.05 {outl:.2e} (< 0.005)",
+          flush=True)
+    if not (q98 < 6e-3 and mean < 2.5e-3 and outl < 0.005):
+        raise AssertionError("160x90 cube frame disagrees with the vrt "
+                             "fixture")
 
     # ---- 6. where the time goes ---------------------------------------------
     _profile(lambda: render_image(scene, FRAME_W, FRAME_H, mode), sync,
              frame_s * 1e3)
+    del scene
 
+    # ---- 7. the gather probe ------------------------------------------------
+    t0 = time.perf_counter()
+    cases = [(c, probe.to_device(c, dev)) for c in probe.CASES]
+    sync()
+    print(f"gather probe data: {len(cases)} cases, "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    for name in gk.LAUNCHES:
+        gk.LAUNCHES[name] = 0
+    outs = [probe.launch_all(c, gathers) for c, gathers in cases]
+    sync()
+    gp_launches = dict(gk.LAUNCHES)
+    for name, n in gp_launches.items():
+        if n == 0:
+            raise AssertionError(f"the gather probe never launched {name}")
+    results = []
+    for (c, gathers), out in zip(cases, outs):
+        results += probe.check_and_time(
+            c, gathers, out, log=lambda s: print(s, flush=True))
+    del cases, outs
+    print(f"gather probe on {card}: {len(results)} case-paths, every kernel "
+          f"equal to its plain version; launches {gp_launches}", flush=True)
+
+    gp = []
+    for name, first in (("GP-A", "scripts/probe_gather.py:47"),
+                        ("GP-B", "scripts/probe_gather.py:79"),
+                        ("GP-C", "scripts/probe_gather4.py:158")):
+        rows = [r for r in results if r["kernel"] == name
+                and r["path"] in ("-", "ldg")]
+        gp.append({
+            "name": name, "route": "cuda",
+            "source": "vrt_torch/csrc/gather.cu", "replaces": first,
+            "also_replaces": sorted({r["replaces"] for r in results
+                                     if r["kernel"] == name and r["pallas"]}
+                                    - {first}),
+            "launches": gp_launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in results
+                               if r["kernel"] == name),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows)})
     print(json.dumps({"kernels": [{
         "name": "K1 march", "route": "cuda",
         "source": "vrt_torch/csrc/march.cu",
         "replaces": "scripts/pallas_march.py:85",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms}]}), flush=True)
+        "modes": ["interp", "cube", "debug_overlay"],
+        "launches": launches + cube_launches + overlay_launches,
+        "launches_by_mode": {"interp": launches, "cube": cube_launches,
+                             "debug_overlay": overlay_launches},
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "cube_ms": mode_ms["cube"][0], "cube_plain_ms": mode_ms["cube"][1],
+        "overlay_ms": mode_ms["overlay"][0],
+        "overlay_plain_ms": mode_ms["overlay"][1]}] + gp}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0
-
-
-def _twin(reference):
-    """``march_lanes``-shaped adapter around the plain twin."""
-    def marcher(vols, vol_ids, o, d, t_max, interp=True,
-                debug_overlay=False):
-        return reference(vols, vol_ids, o, d, t_max)
-    return marcher
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""K1, the CUDA march, against its plain-torch twin.
+"""K1, the CUDA march, and the gather probe's kernels GP-A, GP-B and GP-C,
+against their plain-torch versions.
 
 This file imports no JAX, so it also runs where the card is:
 
@@ -8,7 +9,10 @@ The tests marked ``gpu`` skip where there is no CUDA card.  On the card K1
 is built with --fmad=false and sums in the twin's order, so hit and kind
 may differ on at most 0.1% of lanes (the budget ``chip_smoke.py`` holds it
 to); where both hit with the same kind, t agrees to rtol 1e-4 and the cell
-and step count exactly.
+and step count exactly.  The same holds in cube mode and with the debug
+overlay.  The gathers are exact: each kernel equals its plain version
+(``torch.equal``) on every case and load path of the probe at the Pallas
+probes' small shapes.
 """
 
 import numpy as np
@@ -82,7 +86,11 @@ def test_cpu_tensors_take_the_twin():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("config", sorted(CONFIGS))
-def test_k1_matches_twin_on_card(config):
+@pytest.mark.parametrize("interp,debug", [(True, False), (False, False),
+                                          (True, True), (False, True)],
+                         ids=["interp", "cube", "interp-overlay",
+                              "cube-overlay"])
+def test_k1_matches_twin_on_card(config, interp, debug):
     from vrt_torch.kernels import march as k1
 
     dev = _card()
@@ -90,11 +98,15 @@ def test_k1_matches_twin_on_card(config):
     ts = flagship_scene(res, mode, dtype, device=dev)
     o, d, t_max, vid = (x.to(dev) for x in random_lanes(7, 65536))
     before = k1.LAUNCHES
-    got = tmarch.march_lanes(ts.volumes, vid, o, d, t_max)
+    got = tmarch.march_lanes(ts.volumes, vid, o, d, t_max, interp, debug)
     assert k1.LAUNCHES == before + 1
-    want = tmarch.march_lanes_reference(ts.volumes, vid, o, d, t_max)
+    want = tmarch.march_lanes_reference(ts.volumes, vid, o, d, t_max,
+                                        interp, debug)
     torch.cuda.synchronize()
     assert_hits_close(got, want)
+    if not interp or debug:
+        for f in ("t_in", "t_out"):
+            assert torch.equal(getattr(got, f), getattr(want, f))
 
 
 @pytest.mark.gpu
@@ -111,6 +123,9 @@ def test_k1_rejects_bad_inputs_on_card():
     with pytest.raises(ValueError):
         k1.march_lanes_cuda(ts.volumes, vid, o.t().contiguous().t(), d,
                             t_max)
+    ts.volumes.sdf = ts.volumes.sdf[:, :-1].contiguous()
+    with pytest.raises(ValueError):
+        k1.march_lanes_cuda(ts.volumes, vid, o, d, t_max, interp=False)
 
 
 @pytest.mark.gpu
@@ -131,3 +146,56 @@ def test_frame_on_card_matches_cpu(config):
     assert np.quantile(diff, 0.98) < 6e-3
     assert diff.mean() < 2.5e-3
     assert (diff.max(axis=-1) > 0.05).mean() < 0.005
+
+
+@pytest.mark.gpu
+def test_gather_kernels_match_plain_on_card():
+    """Every Pallas-probe case of the gather probe, on every load path:
+    kernel == plain version, and one launch per gather."""
+    from vrt_torch.apps import probe_gather as P
+    from vrt_torch.kernels import gather as G
+
+    dev = _card()
+    for case in P.CASES:
+        if not case.pallas:
+            continue
+        gathers = P.to_device(case, dev)
+        want = P.run_plain(case, gathers)
+        for path in P.paths(case, gathers):
+            before = G.LAUNCHES[case.kernel]
+            got = P.run_kernel(case, gathers, path)
+            torch.cuda.synchronize()
+            assert G.LAUNCHES[case.kernel] == before + len(gathers)
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and torch.equal(a, b), \
+                    (case.name, path)
+
+
+@pytest.mark.gpu
+def test_gather_wrappers_reject_bad_inputs_on_card():
+    from vrt_torch.kernels import gather as G
+
+    dev = _card()
+    src = torch.rand(512, 8, device=dev)
+    idx = torch.randint(0, 512, (64,), dtype=torch.int32, device=dev)
+    cases = [
+        lambda: G.row_gather_cuda(src, idx.long()),             # idx dtype
+        lambda: G.row_gather_cuda(src.double(), idx),           # src dtype
+        lambda: G.row_gather_cuda(src, idx.cpu()),              # device
+        lambda: G.row_gather_cuda(src.t(), idx),                # layout
+        lambda: G.row_gather_cuda(src[:, :3].contiguous(), idx, path="v16"),
+        lambda: G.row_gather_cuda(torch.rand(65536, 8, device=dev), idx,
+                                  path="smem"),                 # too big
+        lambda: G.row_gather_cuda(src.bfloat16(), idx, iters=2,
+                                  reduce="sum"),                # sum of bf16
+        lambda: G.take_along_axis_cuda(src, idx[:, None], 0),   # shape
+        lambda: G.take_along_axis_cuda(src, idx[None, :8], 2),  # axis
+        lambda: G.onehot_gather_cuda(torch.rand(500, 8, device=dev), idx),
+        lambda: G.onehot_gather_cuda(src[:, :4].contiguous(), idx),
+        lambda: G.onehot_gather_cuda(src, idx[:, None]),
+    ]
+    before = dict(G.LAUNCHES)
+    for i, call in enumerate(cases):
+        with pytest.raises(ValueError):
+            call()
+    assert G.LAUNCHES == before

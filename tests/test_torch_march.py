@@ -66,12 +66,12 @@ def random_lanes(seed, n=6144):
     return o, d, t_max, vid
 
 
-def assert_march_close(got, want, budget=LANE_BUDGET):
+def assert_march_close(got, want, budget=LANE_BUDGET, min_hits=100):
     """Both MarchHits as numpy dicts."""
     agree = (got["hit"] == want["hit"]) & (got["kind"] == want["kind"])
     assert agree.mean() >= 1.0 - budget, 1.0 - agree.mean()
     both = agree & want["hit"]
-    assert both.sum() > 100
+    assert both.sum() > min_hits
     np.testing.assert_allclose(got["t"][both], want["t"][both], rtol=1e-4)
     np.testing.assert_array_equal(got["cell"][both], want["cell"][both])
     np.testing.assert_allclose(got["face_normal"][both],
@@ -197,16 +197,53 @@ class TestMarchTwin:
                                       pk.cell.numpy()[both])
 
     def test_dispatch(self, stacked):
+        """On the CPU every mode goes to the twin; K1's wrapper refuses CPU
+        tensors instead of falling back."""
         _, ts = stacked
-        o, d, t_max, vid = (torch.from_numpy(x) for x in random_lanes(1, 8))
-        with pytest.raises(NotImplementedError):
-            tmarch.march_lanes(ts.volumes, vid, o, d, t_max, interp=False)
-        with pytest.raises(NotImplementedError):
-            tmarch.march_lanes(ts.volumes, vid, o, d, t_max,
-                               debug_overlay=True)
+        o, d, t_max, vid = (torch.from_numpy(x) for x in random_lanes(1, 64))
+        for interp, debug in [(True, False), (False, False), (True, True)]:
+            got = tmarch.march_lanes(ts.volumes, vid, o, d, t_max,
+                                     interp=interp, debug_overlay=debug)
+            want = tmarch.march_lanes_reference(ts.volumes, vid, o, d, t_max,
+                                                interp, debug)
+            assert_march_close(hit_np(got), hit_np(want), budget=0.0,
+                               min_hits=1)
         with pytest.raises(ValueError):
             from vrt_torch.kernels import march as k1
             k1.march_lanes_cuda(ts.volumes, vid, o, d, t_max)
+
+    @pytest.mark.parametrize("interp,debug", [(False, False), (True, True),
+                                              (False, True)],
+                             ids=["cube", "interp-overlay", "cube-overlay"])
+    def test_cube_and_overlay_match_vrt(self, stacked, interp, debug):
+        """Cube mode and the debug overlay against vrt's march_lanes on the
+        same lanes: hit and kind on every lane; where they agree, t_in,
+        t_out, the cell, the face normal (NaN for the zero-sign-triple
+        entry face) and steps exactly; t to rtol 1e-4 (XLA's CPU FMAs can
+        move an interp root's last bits; cube and overlay hits take a node
+        entry t, which is exact)."""
+        vs, ts = stacked
+        o, d, t_max, vid = random_lanes(2)
+        want = _vrt_march_lanes(vs.volumes, jnp.asarray(vid), jnp.asarray(o),
+                                jnp.asarray(d), jnp.asarray(t_max),
+                                interp=interp, debug_overlay=debug)
+        got = tmarch.march_lanes(ts.volumes, torch.from_numpy(vid),
+                                 torch.from_numpy(o), torch.from_numpy(d),
+                                 torch.from_numpy(t_max), interp=interp,
+                                 debug_overlay=debug)
+        fields = ("hit", "t", "kind", "cell", "face_normal", "steps", "t_in",
+                  "t_out")
+        w, g = hit_np(want, fields), hit_np(got, fields)
+        kinds = set(np.unique(w["kind"][w["hit"]]))
+        assert (4 if not interp else 1) in kinds, kinds
+        if debug:
+            assert 5 in kinds, kinds
+        assert_march_close(g, w)
+        agree = (g["hit"] == w["hit"]) & (g["kind"] == w["kind"])
+        for f in ("t_in", "t_out"):
+            np.testing.assert_array_equal(g[f][agree], w[f][agree])
+        exact = agree & w["hit"] & (w["kind"] != 1)
+        np.testing.assert_array_equal(g["t"][exact], w["t"][exact])
 
 
 class TestMarchScene:

@@ -7,8 +7,13 @@ textured two-instance scene with point and spot lights.  vrt renders its
 unchunked path.  Thresholds: ``_assert_close`` of tests/test_golden_full.py
 (q98 < 6e-3, mean < 2.5e-3, under 0.5% of pixels off by more than 0.05) for
 the f32 scenes, and the wider ``TestGoldenBenchedConfig`` ones for bf16.
-Also checked: the 160x90 fixture ``chip_smoke.py`` holds the card against
-still equals vrt's render, and the shading modules match vrt's.
+All 8 render modes (``RenderMode.from_enum``) and the debug overlay are
+held against vrt as ``TestGoldenAllModes``, ``TestGoldenTextured`` and
+``TestDebugOverlay`` hold vrt against the scalar oracle: cube-lit frames go
+through ``_assert_cube_lit`` (the oracle, with its shadow-acne masking),
+the other modes through ``_assert_close`` against vrt's frame.  Also
+checked: the two 160x90 fixtures ``chip_smoke.py`` holds the card against
+still equal vrt's renders, and the shading modules match vrt's.
 """
 
 import os
@@ -19,7 +24,8 @@ import pytest
 import torch
 
 import __graft_entry__ as ge
-from tests.test_golden_full import _checker, _scene_pair
+from tests.test_golden_full import (_assert_close, _assert_cube_lit,
+                                    _checker, _np_scene, _scene_pair)
 from tests.test_torch_host import scene_fields
 from vrt.render.gpuscene import RenderMode as VMode
 from vrt.render.gpuscene import build_scene as vbuild
@@ -36,8 +42,10 @@ from vrt_torch.shade import texture as ttex
 
 torch.set_num_threads(2)
 
-FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
-                       "flagship_r7_cheb_bf16_160x90.npy")
+FIXTURES = {
+    "flagship_r7_cheb_bf16_160x90.npy": VMode(),
+    "flagship_r7_cheb_bf16_cube_unlit_160x90.npy": VMode(interp=False,
+                                                         lit=False)}
 
 
 def assert_close_f32(got, want, tag):
@@ -56,7 +64,9 @@ def assert_close_bf16(got, want, tag):
     assert (diff.max(axis=-1) > 0.1).mean() < 0.03, tag
 
 
-def _textured_scene():
+def _textured_scene(notex=False):
+    """The scene of ``TestGoldenTextured`` (``TestGoldenAllModes`` with
+    ``notex``) and its scalar-oracle twin."""
     (sphere, slab, instances, cam_pos, cam_rot, light_dir, point, spot,
      env) = _scene_pair()
     albedo_tex = _checker(8, (1.0, 1.0, 1.0), (0.45, 0.45, 0.45))
@@ -64,14 +74,19 @@ def _textured_scene():
     normal_tex = np.full((8, 8, 3), (0.5, 0.5, 1.0), np.float32)
     normal_tex[::2, :, 0] = 0.58
     normal_tex[1::2, :, 1] = 0.42
-    return vbuild(
-        [sphere, slab], instances,
-        camera=dict(position=cam_pos, rotation=cam_rot, fov=60.0),
-        dir_light=dict(direction=light_dir, strength=5.0),
-        point_lights=[point], spot_lights=[spot], env=env,
+    tex = {} if notex else dict(
         textures=np.stack([albedo_tex, normal_tex, rm_tex]),
         tex_sizes=np.asarray([[8, 8]] * 3, np.int32),
         texture_ids=[(0, 1, 2), (0, 1, 2)])
+    vs = vbuild(
+        [sphere, slab], instances,
+        camera=dict(position=cam_pos, rotation=cam_rot, fov=60.0),
+        dir_light=dict(direction=light_dir, strength=5.0),
+        point_lights=[point], spot_lights=[spot], env=env, **tex)
+    np_scene = _np_scene(sphere, slab, instances, light_dir, point, spot,
+                         env, textures=None if notex else
+                         (albedo_tex, normal_tex, rm_tex))
+    return vs, np_scene, cam_pos, cam_rot
 
 
 SCENES = {
@@ -81,7 +96,7 @@ SCENES = {
         lambda: ge._flagship_scene(resolution=7, accel_mode="chebyshev",
                                    march_dtype=jnp.bfloat16),
         assert_close_bf16),
-    "textured-point-spot": (_textured_scene, assert_close_f32),
+    "textured-point-spot": (lambda: _textured_scene()[0], assert_close_f32),
 }
 
 
@@ -99,7 +114,7 @@ def test_frame_matches_vrt(name):
 
 
 def test_unlit_notex_frame_matches_vrt():
-    vs = _textured_scene()
+    vs = _textured_scene()[0]
     mode = dict(lit=False, textured=False)
     want = np.asarray(vrender(vs, 48, 48, VMode(**mode)))[..., :3]
     got = render_image(scene_from_numpy(scene_fields(vs)), 48, 48,
@@ -122,27 +137,103 @@ def test_empty_scene_matches_vrt():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
-def test_fixture_is_vrt_render():
-    """The fixture is vrt.render_image of the benched configuration at
-    160x90 on the CPU.  Compared with a fresh render: a pixel may move only
-    by float rounding (1e-5), so the fixture cannot drift from vrt."""
-    want = np.load(FIXTURE)
+def _check_fixture(name):
+    """A fixture is vrt.render_image of the benched configuration at
+    160x90 on the CPU, in its mode.  Compared with a fresh render: a pixel
+    may move only by float rounding (1e-5), so a fixture cannot drift from
+    vrt."""
+    want = np.load(os.path.join(os.path.dirname(__file__), "fixtures", name))
     assert want.shape == (90, 160, 3) and want.dtype == np.float32
     vs = ge._flagship_scene(resolution=7, accel_mode="chebyshev",
                             march_dtype=jnp.bfloat16)
-    got = np.asarray(vrender(vs, 160, 90, VMode()))[..., :3]
+    got = np.asarray(vrender(vs, 160, 90, FIXTURES[name]))[..., :3]
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
-def test_modes_not_ported_raise():
+def test_fixture_is_vrt_render():
+    _check_fixture("flagship_r7_cheb_bf16_160x90.npy")
+
+
+def test_cube_fixture_is_vrt_render():
+    _check_fixture("flagship_r7_cheb_bf16_cube_unlit_160x90.npy")
+
+
+def test_cube_mode_and_overlay_render():
     vs = ge._flagship_scene(resolution=3)
     ts = scene_from_numpy(scene_fields(vs))
     for mode in (RenderMode(interp=False), RenderMode(debug_overlay=True)):
-        with pytest.raises(NotImplementedError):
-            render_image(ts, 8, 8, mode)
+        assert render_image(ts, 8, 8, mode).shape == (8, 8, 4)
+
+
+def test_voxel_colors_raise():
+    """Per-voxel colours come with the fit (M8)."""
+    vs = ge._flagship_scene(resolution=3)
+    ts = scene_from_numpy(scene_fields(vs))
     ts.use_voxel_colors = True
     with pytest.raises(NotImplementedError):
         render_image(ts, 8, 8, RenderMode())
+
+
+def test_from_enum_matches_vrt():
+    for m in range(8):
+        want = VMode.from_enum(m)
+        got = RenderMode.from_enum(m)
+        assert (got.interp, got.textured, got.lit, got.debug_overlay) == (
+            want.interp, want.textured, want.lit, want.debug_overlay), m
+
+
+def _mode_frame(notex, size, interp, lit):
+    vs, np_scene, cam_pos, cam_rot = _textured_scene(notex)
+    mode = dict(interp=interp, lit=lit, textured=not notex)
+    got = render_image(scene_from_numpy(scene_fields(vs)), size, size,
+                       RenderMode(**mode)).numpy()[..., :3]
+    assert np.isfinite(got).all()
+    tag = f"notex={notex} interp={interp} lit={lit}"
+    if interp or not lit:
+        want = np.asarray(vrender(vs, size, size, VMode(**mode)))[..., :3]
+        _assert_close(got, want, tag)
+    else:
+        _assert_cube_lit(got, np_scene, size, size, cam_pos, cam_rot,
+                         textured=not notex)
+
+
+MODES = [(True, True), (True, False), (False, True), (False, False)]
+
+
+class TestAllModes:
+    """``TestGoldenAllModes``: the untextured modes at 64x64."""
+
+    @pytest.mark.parametrize("interp,lit", MODES)
+    def test_notex_modes_64(self, interp, lit):
+        _mode_frame(True, 64, interp, lit)
+
+
+class TestTexturedModes:
+    """``TestGoldenTextured``: the textured modes at 48x48."""
+
+    @pytest.mark.parametrize("interp,lit", MODES)
+    def test_textured_modes_48(self, interp, lit):
+        _mode_frame(False, 48, interp, lit)
+
+
+class TestDebugOverlay:
+    """``TestDebugOverlay`` of tests/test_render.py on the port, and the
+    overlay frame against vrt's under ``_assert_close``."""
+
+    def test_octree_bounds_drawn_red(self):
+        from tests.test_render import _simple_scene
+
+        vs = _simple_scene()
+        ts = scene_from_numpy(scene_fields(vs))
+        img = render_image(ts, 49, 49, RenderMode(debug_overlay=True)).numpy()
+        plain = render_image(ts, 49, 49, RenderMode()).numpy()
+        assert np.isfinite(img).all()
+        red = (0.5 ** (1 / 2.2))
+        red_px = (np.abs(img[..., 0] - red) < 1e-3) & (img[..., 1] < 1e-3)
+        assert red_px.sum() > 10
+        assert not np.allclose(img, plain)
+        want = np.asarray(vrender(vs, 49, 49, VMode(debug_overlay=True)))
+        _assert_close(img[..., :3], want[..., :3], "debug overlay")
 
 
 class TestShade:

@@ -1,21 +1,26 @@
-// K1 — the isosurface march, one thread per ray lane, for Hopper (sm_90a).
+// K1 — the voxel march, one thread per ray lane, for Hopper (sm_90a).
 //
 // Replaces the retired Pallas TPU kernel scripts/pallas_march.py::_kernel
 // and the XLA while-loop vrt/march/march.py::_march_core (_march_begin ->
-// _march_run -> _march_finish) in interp mode.  It computes what
-// vrt_torch.march.march.march_lanes_reference computes, lane for lane:
-// per-lane volume ids over stacked volumes, octree or chebyshev skip nodes,
-// f32 or bf16 corner tables of 8 or 9 channels (the first 8 are read), the
-// slab entry with its +0.01 bias and the ReverseRay no-op branch, the
-// solid-entry report, <= 255 node steps with the +0.1 exit bias, the
-// trilinear cubic and its bracketed root on surface cells, and the red
-// exhausted hit at t = 10.
+// _march_run -> _march_finish), in interp and cube mode and with the debug
+// overlay.  It computes what vrt_torch.march.march.march_lanes_reference
+// computes, lane for lane: per-lane volume ids over stacked volumes, octree
+// or chebyshev skip nodes, f32 or bf16 corner tables of 8 or 9 channels
+// (the first 8 are read), the slab entry with its +0.01 bias and the
+// ReverseRay no-op branch, <= 255 node steps with the +0.1 exit bias, and
+// the red exhausted hit at t = 10.  Interp mode adds the solid-entry
+// report and the trilinear cubic with its bracketed root on surface cells;
+// cube mode instead hits the first voxel of density <= 0 (read from the f32
+// voxel table, N = C + 1 per axis) at its node-entry t, with the face
+// normal of the last crossing.  The overlay reports node-border hits.  The
+// three choices are template flags, so each variant compiles on its own.
 //
 // What bounds it: each step is a chain of dependent random reads — the
 // 1-byte accel value of the current cell, then on surface cells its 16 or
-// 32-byte corner row — from tables larger than the 50 MB L2 at the
-// flagship size (2 x 128^3 cells: 4 MB of accel, 67 MB of bf16 corners).
-// So it is latency-bound, not bandwidth- or FLOP-bound.
+// 32-byte corner row (in cube mode one 4-byte density) — from tables larger
+// than the 50 MB L2 at the flagship size (2 x 128^3 cells: 4 MB of accel,
+// 67 MB of bf16 corners, 17 MB of f32 densities).  So it is latency-bound,
+// not bandwidth- or FLOP-bound.
 //
 // This first version stays simple: one thread per ray with no shared
 // memory, __ldg row loads, and every lane retiring on its own (lane
@@ -34,6 +39,9 @@ constexpr float kExhaustedT = 10.0f;
 constexpr int kKindSurface = 1;
 constexpr int kKindSolidEntry = 2;
 constexpr int kKindExhausted = 3;
+constexpr int kKindCube = 4;
+constexpr int kKindDebug = 5;
+constexpr float kLineThickness = 0.5f;
 
 // Corner order (0,0,0),(1,0,0),(0,1,0),(1,1,0),(0,0,1),(1,0,1),(0,1,1),
 // (1,1,1): bit k of the corner index is the offset on axis k.
@@ -90,6 +98,7 @@ struct Params {
   const float* extends;    // [V]
   const uint8_t* accel;    // [V*C^3] packed, skips clamped to 127
   const void* corners;     // [V*C^3, ch] f32 or bf16
+  const float* sdf;        // [V*N^3] voxel densities, N = C + 1
   int cc;                  // C: cells per axis of the padded tables
   int ch;                  // corner-table channels, 8 or 9
   long long lanes;
@@ -135,16 +144,49 @@ __device__ __forceinline__ bool node_box(const Lane& L, const int c[3],
   return valid;
 }
 
-// Node exit t with the reference's nested-if tie-break.
+// Node exit t and its axis with the reference's nested-if tie-break.
 __device__ __forceinline__ float exit_t(const Lane& L, const float lo[3],
-                                        const float hi[3]) {
+                                        const float hi[3], int* axis) {
   float tm[3];
   for (int k = 0; k < 3; ++k) {
     const float sel = L.d[k] > 0.0f ? hi[k] : lo[k];
     tm[k] = L.d[k] != 0.0f ? (sel - L.o[k]) * L.inv[k] : 1e5f;
   }
-  if (tm[0] < tm[1]) return tm[0] < tm[2] ? tm[0] : tm[2];
+  if (tm[0] < tm[1]) {
+    *axis = tm[0] < tm[2] ? 0 : 2;
+    return tm[0] < tm[2] ? tm[0] : tm[2];
+  }
+  *axis = tm[1] < tm[2] ? 1 : 2;
   return tm[1] < tm[2] ? tm[1] : tm[2];
+}
+
+// Box-face normal at pos(t - 0.1): +1 beyond +ext, -1 beyond -ext, else 0,
+// then HLSL-normalized (a zero triple gives NaN, as in the reference).
+__device__ __forceinline__ void entry_face(const Lane& L, float t,
+                                           float n[3]) {
+  for (int k = 0; k < 3; ++k) {
+    const float rp = L.o[k] + L.d[k] * (t - 0.1f);
+    n[k] = sgn(rp - L.ext);
+    if (n[k] < 0.0f) n[k] = rp < -L.ext ? -1.0f : 0.0f;
+  }
+  const float norm = sqrtf((n[0] * n[0] + n[1] * n[1]) + n[2] * n[2]);
+  for (int k = 0; k < 3; ++k) n[k] = n[k] / norm;
+}
+
+// The debug overlay's test: pos lies within kLineThickness of two faces of
+// the node box, inside the box grown by kLineThickness.
+__device__ __forceinline__ bool hits_node_bounds(const float pos[3],
+                                                 const float lo[3],
+                                                 const float hi[3]) {
+  bool inside = true;
+  bool b[3];
+  for (int k = 0; k < 3; ++k) {
+    inside = inside && pos[k] >= lo[k] - kLineThickness &&
+             pos[k] <= hi[k] + kLineThickness;
+    b[k] = fabsf(pos[k] - lo[k]) <= kLineThickness ||
+           fabsf(pos[k] - hi[k]) <= kLineThickness;
+  }
+  return inside && (((b[0] || b[1]) && b[2]) || ((b[1] || b[2]) && b[0]));
 }
 
 __device__ __forceinline__ void pos_to_cell(const Lane& L, const float p[3],
@@ -201,7 +243,7 @@ __device__ bool surface_intersection(float A, float B, float C, float D,
   return immediate || (!no_hit && *t_hit > 0.0f);
 }
 
-template <typename T, bool kCheb>
+template <typename T, bool kCheb, bool kInterp, bool kDebug>
 __global__ void __launch_bounds__(256) march_kernel(const Params p) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
@@ -222,6 +264,8 @@ __global__ void __launch_bounds__(256) march_kernel(const Params p) {
   const long long vol_base = static_cast<long long>(v) * cc * cc * cc;
   const uint8_t* accel = p.accel + vol_base;
   const T* corners = static_cast<const T*>(p.corners) + vol_base * p.ch;
+  const long long nn = cc + 1;
+  const float* sdf = p.sdf + static_cast<long long>(v) * nn * nn * nn;
 
   // accel / corner reads of a cell; out-of-range cells read 0
   auto accel_at = [&](const int c[3]) -> int {
@@ -235,6 +279,13 @@ __global__ void __launch_bounds__(256) march_kernel(const Params p) {
                        c[0] + 1 < L.n && c[1] + 1 < L.n && c[2] + 1 < L.n;
     const T* row = corners + ((c[0] * cc + c[1]) * cc + c[2]) * p.ch;
     for (int j = 0; j < 8; ++j) v8[j] = valid ? load_corner<T>(row + j) : 0.0f;
+  };
+  // cube mode's voxel density; out-of-range voxels read 0
+  auto density_at = [&](const int c[3]) -> float {
+    if (c[0] < 0 || c[1] < 0 || c[2] < 0 || c[0] >= L.n || c[1] >= L.n ||
+        c[2] >= L.n)
+      return 0.0f;
+    return __ldg(sdf + (c[0] * nn + c[1]) * nn + c[2]);
   };
 
   // ---- slab entry (_march_begin) -----------------------------------------
@@ -259,9 +310,10 @@ __global__ void __launch_bounds__(256) march_kernel(const Params p) {
   }
   float lo[3], hi[3];
   bool has_surf;
+  int axis;
   const bool valid0 = node_box<kCheb>(L, cell, accel_at(cell), &has_surf,
                                       lo, hi);
-  float cell_exit = pos_branch ? t_enter_b : -exit_t(L, lo, hi) + 0.01f;
+  float cell_exit = pos_branch ? t_enter_b : -exit_t(L, lo, hi, &axis) + 0.01f;
 
   // the no-hit result, derived from the origin as the reference derives it
   const float zf = L.o[0] * 0.0f;
@@ -273,7 +325,11 @@ __global__ void __launch_bounds__(256) march_kernel(const Params p) {
   float face[3] = {L.o[0] * 0.0f, L.o[1] * 0.0f, L.o[2] * 0.0f};
 
   bool active = ok;
-  if (ok) {
+  // cube mode: the face normal of the last crossing, seeded with the entry
+  // face (vrt's where(pos_branch, t_enter_b, t_enter) is t_enter_b)
+  float cur_face[3] = {0.0f, 0.0f, 0.0f};
+  if (!kInterp) entry_face(L, t_enter_b, cur_face);
+  if (kInterp && ok) {
     float v8[8];
     corners_at(cell, v8);
     bool solid = valid0;
@@ -281,21 +337,11 @@ __global__ void __launch_bounds__(256) march_kernel(const Params p) {
     if (solid) {
       active = false;
       if (t_enter_b >= 0.0f && t_enter_b <= t_max) {
-        // box-face normal at pos(t_enter_b - 0.1), HLSL-normalized
-        float s[3];
-        for (int k = 0; k < 3; ++k) {
-          const float rp = L.o[k] + L.d[k] * (t_enter_b - 0.1f);
-          s[k] = sgn(rp - L.ext);
-          if (s[k] < 0.0f) s[k] = rp < -L.ext ? -1.0f : 0.0f;
-        }
-        const float norm = sqrtf((s[0] * s[0] + s[1] * s[1]) + s[2] * s[2]);
         hit = true;
         t_best = t_enter_b;
         kind = kKindSolidEntry;
-        for (int k = 0; k < 3; ++k) {
-          cell_best[k] = cell[k];
-          face[k] = s[k] / norm;
-        }
+        entry_face(L, t_enter_b, face);
+        for (int k = 0; k < 3; ++k) cell_best[k] = cell[k];
       }
     }
   }
@@ -309,10 +355,44 @@ __global__ void __launch_bounds__(256) march_kernel(const Params p) {
       break;
     }
     const float cell_enter = cell_exit;
-    const bool valid = node_box<kCheb>(L, cell, accel_at(cell), &has_surf,
-                                       lo, hi);
-    const float new_exit = exit_t(L, lo, hi) + 0.1f;
-    if (valid && has_surf) {
+    const bool valid_cell = node_box<kCheb>(L, cell, accel_at(cell),
+                                            &has_surf, lo, hi);
+    const bool valid =
+        kInterp ? valid_cell
+                : (cell[0] >= 0 && cell[1] >= 0 && cell[2] >= 0 &&
+                   cell[0] < L.n && cell[1] < L.n && cell[2] < L.n);
+    if (kDebug && valid) {
+      float pos[3];
+      for (int k = 0; k < 3; ++k) pos[k] = L.o[k] + L.d[k] * cell_enter;
+      if (hits_node_bounds(pos, lo, hi)) {
+        if (cell_enter >= 0.0f && cell_enter <= t_max) {
+          hit = true;
+          t_best = cell_enter;
+          kind = kKindDebug;
+        }
+        active = false;
+        break;
+      }
+    }
+    const float new_exit = exit_t(L, lo, hi, &axis) + 0.1f;
+    if (!kInterp) {
+      if (valid && density_at(cell) <= 0.0f) {
+        if (cell_enter >= 0.0f && cell_enter <= t_max) {
+          hit = true;
+          t_best = cell_enter;
+          kind = kKindCube;
+          for (int k = 0; k < 3; ++k) {
+            cell_best[k] = cell[k];
+            face[k] = cur_face[k];
+          }
+        }
+        active = false;
+        break;
+      }
+      // the face normal of the crossing about to be taken
+      for (int k = 0; k < 3; ++k)
+        cur_face[k] = -sgn(L.d[k]) * (k == axis ? 1.0f : 0.0f);
+    } else if (valid && has_surf) {
       // surface nodes are single cells: the x-extent is the cell size
       const float size = hi[0] - lo[0];
       float a1[3], b1[3];
@@ -386,11 +466,23 @@ __global__ void __launch_bounds__(256) march_kernel(const Params p) {
   }
 }
 
-template <typename T, bool kCheb>
+template <typename T, bool kCheb, bool kInterp, bool kDebug>
 void launch(const Params& p, cudaStream_t stream) {
   const int block = 256;
   const long long grid = (p.lanes + block - 1) / block;
-  march_kernel<T, kCheb><<<static_cast<unsigned>(grid), block, 0, stream>>>(p);
+  march_kernel<T, kCheb, kInterp, kDebug>
+      <<<static_cast<unsigned>(grid), block, 0, stream>>>(p);
+}
+
+template <typename T, bool kCheb>
+void launch_mode(const Params& p, int interp, int debug, cudaStream_t s) {
+  if (interp) {
+    if (debug) launch<T, kCheb, true, true>(p, s);
+    else launch<T, kCheb, true, false>(p, s);
+  } else {
+    if (debug) launch<T, kCheb, false, true>(p, s);
+    else launch<T, kCheb, false, false>(p, s);
+  }
 }
 
 }  // namespace
@@ -399,20 +491,21 @@ void launch(const Params& p, cudaStream_t stream) {
 extern "C" int vrt_march_lanes(
     const float* o, const float* d, const float* t_max,
     const int32_t* vol_ids, const int32_t* n, const float* cell_size,
-    const float* extends, const uint8_t* accel, const void* corners, int cc,
-    int ch, int bf16, int chebyshev, long long lanes, uint8_t* hit, float* t,
-    int32_t* kind, int32_t* cell, float* t_in, float* t_out, float* face,
-    int32_t* steps, void* stream) {
-  Params p{o,  d,     t_max, vol_ids, n,    cell_size, extends, accel,
-           corners, cc, ch, lanes,   hit,  t,    kind,      cell,    t_in,
-           t_out,  face,  steps};
+    const float* extends, const uint8_t* accel, const void* corners,
+    const float* sdf, int cc, int ch, int bf16, int chebyshev, int interp,
+    int debug, long long lanes, uint8_t* hit, float* t, int32_t* kind,
+    int32_t* cell, float* t_in, float* t_out, float* face, int32_t* steps,
+    void* stream) {
+  Params p{o,      d,  t_max, vol_ids, n,    cell_size, extends, accel,
+           corners, sdf, cc, ch,     lanes, hit,  t,         kind,    cell,
+           t_in,   t_out, face, steps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    if (chebyshev) launch<uint16_t, true>(p, s);
-    else launch<uint16_t, false>(p, s);
+    if (chebyshev) launch_mode<uint16_t, true>(p, interp, debug, s);
+    else launch_mode<uint16_t, false>(p, interp, debug, s);
   } else {
-    if (chebyshev) launch<float, true>(p, s);
-    else launch<float, false>(p, s);
+    if (chebyshev) launch_mode<float, true>(p, interp, debug, s);
+    else launch_mode<float, false>(p, interp, debug, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

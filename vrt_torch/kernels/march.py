@@ -1,11 +1,12 @@
 """K1: build, bind and launch the CUDA march (``vrt_torch/csrc/march.cu``).
 
-The source is compiled by hand with ``nvcc`` into a shared library with a
-plain C interface and loaded with ``ctypes``.  The library goes at first use
-into ``build/vrt_torch_kernels/`` under the checkout, named by a hash of the
-source and flags, so an edited source is rebuilt.  ``--fmad=false`` keeps
-every multiply and add separately rounded, as in the eager twin
-(``vrt_torch.march.march.march_lanes_reference``).
+The source is built by ``vrt_torch.kernels._build`` (nvcc by hand, a plain
+C interface, ctypes) with ``--fmad=false`` besides, which keeps every
+multiply and add separately rounded, as in the eager twin
+(``vrt_torch.march.march.march_lanes_reference``).  K1 reads the u8 accel
+and the corner table in every mode, and in cube mode the f32 voxel table
+``sdf`` ([V,N,N,N], N = C + 1) as well; the wrapper passes and checks
+``sdf`` in every mode.
 
 ``LAUNCHES`` counts the kernel's launches: a run can show that its frames
 went through K1.
@@ -14,33 +15,17 @@ went through K1.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from vrt_torch.kernels import _build
 from vrt_torch.march.types import DeviceVolume, MarchHit
 
 LAUNCHES = 0
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "march.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vrt_torch_kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
-              "-Xptxas", "-v"]
+NVCC_FLAGS = ["--fmad=false"]
 
 _lib = None
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: K1 builds only where the CUDA "
-                       "toolkit is installed")
 
 
 def build() -> str:
@@ -50,23 +35,10 @@ def build() -> str:
     global _lib
     if _lib is not None:
         return ""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = BUILD_DIR / f"libvrt_march_{tag[:16]}.so"
-    log = ""
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib, log = _build.build("march.cu", NVCC_FLAGS)
     fn = lib.vrt_march_lanes
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = ([ptr] * 9 + [i32, i32, i32, i32, ctypes.c_longlong]
+    fn.argtypes = ([ptr] * 10 + [i32] * 6 + [ctypes.c_longlong]
                    + [ptr] * 8 + [ptr])
     fn.restype = i32
     _lib = lib
@@ -85,10 +57,13 @@ def _check(x: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"K1: {name} is not contiguous")
 
 
-def march_lanes_cuda(vols: DeviceVolume, vol_ids, o, d, t_max) -> MarchHit:
+def march_lanes_cuda(vols: DeviceVolume, vol_ids, o, d, t_max,
+                     interp: bool = True,
+                     debug_overlay: bool = False) -> MarchHit:
     """Launch K1 on ``torch.cuda.current_stream()``: march lanes against
-    per-lane volumes of a stacked DeviceVolume (interp mode).  Raises on
-    any input K1 does not take; never falls back."""
+    per-lane volumes of a stacked DeviceVolume, in interp or cube mode,
+    with or without the debug overlay.  Raises on any input K1 does not
+    take; never falls back."""
     global LAUNCHES
 
     if o.device.type != "cuda":
@@ -115,8 +90,9 @@ def march_lanes_cuda(vols: DeviceVolume, vol_ids, o, d, t_max) -> MarchHit:
     _check(vols.accel_u8, "accel_u8", torch.uint8, (nv, cc, cc, cc), dev)
     _check(vols.corners, "corners", vols.corners.dtype,
            (nv, cc, cc, cc, ch), dev)
+    _check(vols.sdf, "sdf", torch.float32, (nv,) + (cc + 1,) * 3, dev)
 
-    hit =torch.empty(lanes, dtype=torch.bool, device=dev)
+    hit = torch.empty(lanes, dtype=torch.bool, device=dev)
     t = torch.empty(lanes, dtype=torch.float32, device=dev)
     kind = torch.empty(lanes, dtype=torch.int32, device=dev)
     cell = torch.empty((lanes, 3), dtype=torch.int32, device=dev)
@@ -135,9 +111,10 @@ def march_lanes_cuda(vols: DeviceVolume, vol_ids, o, d, t_max) -> MarchHit:
         o.data_ptr(), d.data_ptr(), t_max.data_ptr(), vol_ids.data_ptr(),
         vols.n.data_ptr(), vols.cell_size.data_ptr(),
         vols.extends.data_ptr(), vols.accel_u8.data_ptr(),
-        vols.corners.data_ptr(),
+        vols.corners.data_ptr(), vols.sdf.data_ptr(),
         cc, ch, int(vols.corners.dtype == torch.bfloat16),
-        int(vols.accel_mode == "chebyshev"), lanes,
+        int(vols.accel_mode == "chebyshev"), int(bool(interp)),
+        int(bool(debug_overlay)), lanes,
         hit.data_ptr(), t.data_ptr(), kind.data_ptr(), cell.data_ptr(),
         t_in.data_ptr(), t_out.data_ptr(), face.data_ptr(),
         steps.data_ptr(), stream)

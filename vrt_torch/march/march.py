@@ -1,5 +1,5 @@
 """Batched DDA ray march through voxel SDF volumes (port of
-``vrt.march.march``, interp mode).
+``vrt.march.march``: interp and cube mode, and the debug overlay).
 
 ``march_lanes`` is the dispatcher the renderer calls: CUDA tensors go to
 the hand-written kernel K1 (``vrt_torch/csrc/march.cu`` through
@@ -14,7 +14,14 @@ plain-torch twin of ``vrt``'s ``_march_begin`` -> ``_march_run`` ->
 - a fully solid entry cell reports a hit at the biased entry t with a
   box-face normal (NaN when the face sign triple is zero),
 - hits are accepted iff t in [0, t_max], but any report stops the lane,
-- 255-step cap: exhausted lanes report an unlit red hit at t = 10.
+- 255-step cap: exhausted lanes report an unlit red hit at t = 10,
+- cube mode (``interp=False``): a voxel is valid while ``cell < n`` (not
+  ``cell + 1 < n``), there is no solid-entry check, a voxel of density
+  <= 0 is hit at the node's entry t with the face normal of the last
+  crossing, seeded with the volume-entry face,
+- the debug overlay: a lane whose node-entry point lies on a skip node's
+  border (``LINE_THICKNESS``) reports an unlit red hit there, before the
+  node's exit is taken, in both modes.
 """
 
 from __future__ import annotations
@@ -22,9 +29,11 @@ from __future__ import annotations
 import torch
 
 from vrt_torch.march import isosurface as iso
-from vrt_torch.march.types import (DeviceVolume, MarchHit, KIND_EXHAUSTED,
+from vrt_torch.march.types import (DeviceVolume, MarchHit, KIND_CUBE,
+                                   KIND_DEBUG, KIND_EXHAUSTED,
                                    KIND_SOLID_ENTRY, KIND_SURFACE)
 
+LINE_THICKNESS = 0.5  # debug-overlay border of a skip node
 MAX_ITERATIONS = 255
 EXHAUSTED_T = 10.0
 
@@ -92,6 +101,17 @@ def node_box_from_accel(cell, av, accel_mode, n_v, h_l, h_v, ext_v):
     return valid, has_surface, node_lo, node_hi
 
 
+def _hits_node_bounds(pos, node_lo, node_hi, thickness=LINE_THICKNESS):
+    """Whether ``pos`` lies within ``thickness`` of two faces of the node
+    box (on an edge of it), inside the box grown by ``thickness``."""
+    inside = torch.all((pos >= node_lo - thickness)
+                       & (pos <= node_hi + thickness), dim=-1)
+    b = ((torch.abs(pos - node_lo) <= thickness)
+         | (torch.abs(pos - node_hi) <= thickness))
+    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
+    return inside & (((bx | by) & bz) | ((by | bz) & bx))
+
+
 def _entry_face_normal(o, d, t_enter, ext_v):
     """Box-face normal at entry, evaluated at pos(t_enter - 0.1): +1 on
     axes beyond +ext, -1 beyond -ext, else 0; then HLSL-normalized (a zero
@@ -106,13 +126,14 @@ def _entry_face_normal(o, d, t_enter, ext_v):
 
 class _Tables:
     """Per-lane fetchers over a stacked DeviceVolume: out-of-range cells
-    read accel 0 and zero corners."""
+    read accel 0, zero corners and zero density."""
 
     def __init__(self, vols: DeviceVolume):
         self.cc = vols.accel.shape[1]
         self.accel = vols.accel_u8.reshape(-1)
         ch = vols.corners.shape[-1]
         self.corners = vols.corners.reshape(-1, ch)
+        self.sdf = vols.sdf
 
     def _index(self, cell, vid):
         ic = torch.clamp(cell, 0, self.cc - 1)
@@ -130,14 +151,19 @@ class _Tables:
         rows = self.corners[self._index(cell, vid)][..., :8].float()
         return torch.where(valid[..., None], rows, 0.0)
 
+    def density_at(self, cell, vid, n):
+        return iso.make_stacked_fetch(self.sdf, n, vid)(cell)
 
-def march_lanes_reference(vols: DeviceVolume, vol_ids, o, d,
-                          t_max) -> MarchHit:
+
+def march_lanes_reference(vols: DeviceVolume, vol_ids, o, d, t_max,
+                          interp: bool = True,
+                          debug_overlay: bool = False) -> MarchHit:
     """Plain-torch march of lanes against per-lane volumes of a stacked
-    DeviceVolume (interp mode): a masked loop of at most 255 iterations
-    over all lanes, ending early once no lane is active.  Returns a
-    ``MarchHit`` with per-lane ``steps``.  This is K1's twin: the CPU path
-    and the reference K1 is held against on the card."""
+    DeviceVolume: a masked loop of at most 255 iterations over all lanes,
+    ending early once no lane is active.  ``interp=False`` is cube mode;
+    ``debug_overlay`` draws skip-node borders.  Returns a ``MarchHit`` with
+    per-lane ``steps``.  This is K1's twin: the CPU path and the reference
+    K1 is held against on the card."""
     vid = vol_ids.to(torch.int32)
     n_l = vols.n[vid.long()]
     h_l = vols.cell_size[vid.long()]
@@ -163,17 +189,25 @@ def march_lanes_reference(vols: DeviceVolume, vol_ids, o, d,
     cell_exit = torch.where(pos_branch, t_enter_b, -fwd_exit + 0.01)
 
     res = MarchHit.none_like(o)
+    # vrt seeds cube mode's face at where(pos_branch, t_enter_b, t_enter),
+    # which is t_enter_b on both branches
     entry_norm = _entry_face_normal(o, d, t_enter_b, ext_v)
-    solid0 = torch.all(tab.corners_at(cell, vid, n_l) < 0.0, dim=-1)
-    rep = ok & valid0 & solid0
-    acc = rep & (t_enter_b >= 0.0) & (t_enter_b <= t_max)
-    res.hit = res.hit | acc
-    res.t = torch.where(acc, t_enter_b, res.t)
-    res.kind = torch.where(acc, KIND_SOLID_ENTRY, res.kind)
-    res.cell = torch.where(acc[:, None], cell, res.cell)
-    res.face_normal = torch.where(acc[:, None], entry_norm, res.face_normal)
-    active = ok & ~rep
+    if interp:
+        solid0 = torch.all(tab.corners_at(cell, vid, n_l) < 0.0, dim=-1)
+        rep = ok & valid0 & solid0
+        acc = rep & (t_enter_b >= 0.0) & (t_enter_b <= t_max)
+        res.hit = res.hit | acc
+        res.t = torch.where(acc, t_enter_b, res.t)
+        res.kind = torch.where(acc, KIND_SOLID_ENTRY, res.kind)
+        res.cell = torch.where(acc[:, None], cell, res.cell)
+        res.face_normal = torch.where(acc[:, None], entry_norm,
+                                      res.face_normal)
+        active = ok & ~rep
+    else:
+        face = entry_norm
+        active = ok
     steps = torch.zeros_like(vid)
+    eye = torch.eye(3, device=o.device)
 
     # ---- _march_run -----------------------------------------------------
     # Lane activity only decreases, so a lane active at iteration ``it``
@@ -188,40 +222,67 @@ def march_lanes_reference(vols: DeviceVolume, vol_ids, o, d,
         av = tab.accel_at(cell, vid, n_l)
         valid, has_surf, node_lo, node_hi = node_box_from_accel(
             cell, av, mode, n_v, h_l, h_v, ext_v)
-        exit_t, _ = _exit_with_axis(o, d, node_lo, node_hi)
+        if not interp:
+            valid = torch.all((cell >= 0) & (cell < n_v), dim=-1)
+
+        if debug_overlay:
+            dbg = act2 & valid & _hits_node_bounds(
+                o + d * cell_enter[:, None], node_lo, node_hi)
+            dacc = dbg & (cell_enter >= 0.0) & (cell_enter <= t_max)
+            res.hit = res.hit | dacc
+            res.t = torch.where(dacc, cell_enter, res.t)
+            res.kind = torch.where(dacc, KIND_DEBUG, res.kind)
+            act2 = act2 & ~dbg
+
+        exit_t, exit_ax = _exit_with_axis(o, d, node_lo, node_hi)
         new_exit = exit_t + 0.1
         next_cell = pos_to_cell(o + d * new_exit[:, None])
 
-        cand = act2 & valid & has_surf
-        root_hit = torch.zeros_like(cand)
-        t_hit = torch.zeros_like(cell_enter)
-        lanes = cand.nonzero().squeeze(1)
-        if lanes.numel():
-            # the root only matters on candidate lanes; elementwise math on
-            # that subset gives the same values as on every lane
-            c_cell, c_o, c_d = cell[lanes], o[lanes], d[lanes]
-            c_in, c_out = cell_enter[lanes], new_exit[lanes]
-            # surface nodes are single cells: their box is cubic, so the
-            # x-extent is the cell-space normalization (== h there)
-            size = (node_hi[lanes, 0] - node_lo[lanes, 0])[:, None]
-            p_in = c_o + c_d * c_in[:, None]
-            p_out = c_o + c_d * c_out[:, None]
-            base = c_cell.to(torch.float32) * h_v[lanes] - ext_v[lanes]
-            a1 = (p_in - base) / size
-            b1 = (p_out - base) / size - a1
-            v8 = tab.corners_at(c_cell, vid[lanes], n_l[lanes])
-            A, B, C, D = iso.cubic_coefficients(v8, a1, b1)
-            rh, th = iso.surface_intersection(A, B, C, D, c_in, c_out)
-            root_hit[lanes] = rh
-            t_hit[lanes] = th
-        rep = cand & root_hit
-        acc = rep & (t_hit >= 0.0) & (t_hit <= t_max)
-        res.hit = res.hit | acc
-        res.t = torch.where(acc, t_hit, res.t)
-        res.kind = torch.where(acc, KIND_SURFACE, res.kind)
-        res.cell = torch.where(acc[:, None], cell, res.cell)
-        res.t_in = torch.where(acc, cell_enter, res.t_in)
-        res.t_out = torch.where(acc, new_exit, res.t_out)
+        if interp:
+            cand = act2 & valid & has_surf
+            root_hit = torch.zeros_like(cand)
+            t_hit = torch.zeros_like(cell_enter)
+            lanes = cand.nonzero().squeeze(1)
+            if lanes.numel():
+                # the root only matters on candidate lanes; elementwise
+                # math on that subset gives the same values as on every
+                # lane.  Surface nodes are single cells: their box is
+                # cubic, so the x-extent is the cell-space normalization
+                # (== h there)
+                c_cell, c_o, c_d = cell[lanes], o[lanes], d[lanes]
+                c_in, c_out = cell_enter[lanes], new_exit[lanes]
+                size = (node_hi[lanes, 0] - node_lo[lanes, 0])[:, None]
+                p_in = c_o + c_d * c_in[:, None]
+                p_out = c_o + c_d * c_out[:, None]
+                base = c_cell.to(torch.float32) * h_v[lanes] - ext_v[lanes]
+                a1 = (p_in - base) / size
+                b1 = (p_out - base) / size - a1
+                v8 = tab.corners_at(c_cell, vid[lanes], n_l[lanes])
+                A, B, C, D = iso.cubic_coefficients(v8, a1, b1)
+                rh, th = iso.surface_intersection(A, B, C, D, c_in, c_out)
+                root_hit[lanes] = rh
+                t_hit[lanes] = th
+            rep = cand & root_hit
+            acc = rep & (t_hit >= 0.0) & (t_hit <= t_max)
+            res.hit = res.hit | acc
+            res.t = torch.where(acc, t_hit, res.t)
+            res.kind = torch.where(acc, KIND_SURFACE, res.kind)
+            res.cell = torch.where(acc[:, None], cell, res.cell)
+            res.t_in = torch.where(acc, cell_enter, res.t_in)
+            res.t_out = torch.where(acc, new_exit, res.t_out)
+        else:
+            dens = tab.density_at(cell, vid, n_l)
+            rep = act2 & valid & (dens <= 0.0)
+            acc = rep & (cell_enter >= 0.0) & (cell_enter <= t_max)
+            res.hit = res.hit | acc
+            res.t = torch.where(acc, cell_enter, res.t)
+            res.kind = torch.where(acc, KIND_CUBE, res.kind)
+            res.cell = torch.where(acc[:, None], cell, res.cell)
+            res.face_normal = torch.where(acc[:, None], face,
+                                          res.face_normal)
+            # the face normal of the crossing about to be taken
+            step_norm = -iso.sign(d) * eye[exit_ax.long()]
+            face = torch.where((act2 & ~rep)[:, None], step_norm, face)
 
         active = act2 & valid & ~rep
         cell = torch.where(active[:, None], next_cell, cell)
@@ -246,13 +307,12 @@ def march_lanes(vols: DeviceVolume, vol_ids, o, d, t_max,
     ``vols`` is stacked over a leading V axis; ``vol_ids`` i32 [L] picks a
     volume per lane; o, d f32 [L,3] in object space; t_max f32 [L].  On a
     CUDA device this launches K1; on the CPU it runs the plain twin."""
-    if not interp or debug_overlay:
-        raise NotImplementedError(
-            "cube mode and the debug overlay are not ported yet (M7)")
     if o.device.type == "cuda":
         from vrt_torch.kernels import march as k1
 
-        return k1.march_lanes_cuda(vols, vol_ids, o, d, t_max)
+        return k1.march_lanes_cuda(vols, vol_ids, o, d, t_max, interp,
+                                   debug_overlay)
     if o.device.type != "cpu":
         raise ValueError(f"no march for device {o.device}")
-    return march_lanes_reference(vols, vol_ids, o, d, t_max)
+    return march_lanes_reference(vols, vol_ids, o, d, t_max, interp,
+                                 debug_overlay)

@@ -39,6 +39,14 @@ class RenderMode:
     # draw collapsed-octree node bounds unlit red
     debug_overlay: bool = False
 
+    @classmethod
+    def from_enum(cls, mode: int) -> "RenderMode":
+        """The reference's ``EVRenderMode``: 0 Interp, 1 Interp_Unlit,
+        2 Interp_NoTex, 3 Interp_NoTex_Unlit, 4 Cube, 5 Cube_Unlit,
+        6 Cube_NoTex, 7 Cube_NoTex_Unlit."""
+        return cls(interp=mode < 4, textured=(mode % 4) < 2,
+                   lit=(mode % 2) == 0)
+
 
 @dataclasses.dataclass
 class GPUScene:

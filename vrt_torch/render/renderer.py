@@ -154,10 +154,11 @@ def resolve_scene(scene: GPUScene, o_w, d_w, hit: MarchHit, inst):
 
 def trace_shadow(scene: GPUScene, o_w, d_w, max_dist, depth: int,
                  interp: bool, relevant=None):
-    """Boolean occlusion trace: any accepted hit within [0, max_dist]
-    blocks; recursion-capped rays return un-blocked.  ``relevant`` masks
-    lanes whose result the caller discards (their t_max becomes -inf, so
-    they retire at the slab test)."""
+    """Boolean occlusion trace in the frame's march mode, without the
+    debug overlay: any accepted hit within [0, max_dist] blocks;
+    recursion-capped rays return un-blocked.  ``relevant`` masks lanes
+    whose result the caller discards (their t_max becomes -inf, so they
+    retire at the slab test)."""
     if depth >= MAX_RAY_RECURSION_DEPTH:
         return torch.zeros(o_w.shape[0], dtype=torch.bool, device=o_w.device)
     if relevant is not None:
@@ -299,9 +300,6 @@ def trace_radiance(scene: GPUScene, o_w, d_w, depth: int, mode: RenderMode,
     dev = o_w.device
     if depth >= MAX_RAY_RECURSION_DEPTH:
         return torch.zeros((r, 3), device=dev)
-    if not mode.interp or mode.debug_overlay:
-        raise NotImplementedError(
-            "cube mode and the debug overlay are not ported yet (M7)")
 
     t_max = torch.full((r,), RADIANCE_TMAX, device=dev)
     if active is not None:
