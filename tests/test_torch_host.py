@@ -36,11 +36,14 @@ from vrt_torch.volume import sdf as tsdf
 torch.set_num_threads(2)
 
 CONFIGS = {"octree-f32": dict(accel_mode="octree"),
-           "chebyshev-bf16": dict(accel_mode="chebyshev", bf16=True)}
+           "chebyshev-bf16": dict(accel_mode="chebyshev", bf16=True),
+           "octree-f32-colors": dict(accel_mode="octree", use_colors=True)}
 
 
 def scene_fields(obj):
-    """A vrt dataclass (GPUScene / DeviceVolume) as nested numpy leaves."""
+    """A vrt dataclass (GPUScene / DeviceVolume) as nested numpy leaves,
+    every field carried: the per-voxel colours and their corner-packed
+    view (None where vrt left it unpacked) among them."""
     out = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
@@ -82,11 +85,13 @@ def _csg(mod):
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
 def scene_pair(request):
     cfg = CONFIGS[request.param]
+    colors = cfg.get("use_colors", False)
     vs = ge._flagship_scene(resolution=5, accel_mode=cfg["accel_mode"],
                             march_dtype=jnp.bfloat16 if cfg.get("bf16")
-                            else None)
+                            else None, use_colors=colors)
     ts = flagship_scene(5, cfg["accel_mode"],
-                        torch.bfloat16 if cfg.get("bf16") else None)
+                        torch.bfloat16 if cfg.get("bf16") else None,
+                        use_colors=colors)
     return vs, ts
 
 
@@ -238,13 +243,34 @@ class TestScene:
             assert_same(vols.accel_u8.reshape(-1), want, "accel_u8")
 
     def test_voxel_colors_not_ported(self):
-        with pytest.raises(NotImplementedError):
-            from vrt_torch.render.gpuscene import build_scene
-            from vrt_torch.volume.volume import VoxelVolume
-            vol = VoxelVolume.from_generator(tsdf.Sphere(radius=50.0), 3,
-                                             100.0)
-            build_scene([vol], [{"volume": 0}], camera={},
-                        voxel_colors=np.zeros((1, 9, 9, 9, 3), np.float32))
+        """Per-voxel colours, unported before the fit (M8), now build as in
+        vrt: the colour grid and its corner-packed view in the corner
+        table's dtype, equal to vrt's bit for bit."""
+        from vrt.render.gpuscene import build_scene as vbuild
+        from vrt.volume.volume import VoxelVolume as VVolume
+        from vrt_torch.render.gpuscene import build_scene
+        from vrt_torch.volume.volume import VoxelVolume
+
+        colors = np.random.default_rng(3).uniform(
+            size=(1, 9, 9, 9, 3)).astype(np.float32)
+        kw = dict(camera={}, voxel_colors=colors)
+        ts = build_scene([VoxelVolume.from_generator(
+            tsdf.Sphere(radius=50.0), 3, 100.0)], [{"volume": 0}],
+            march_dtype=torch.bfloat16, **kw)
+        vs = vbuild([VVolume.from_generator(vsdf.Sphere(radius=50.0), 3,
+                                            100.0)], [{"volume": 0}],
+                    march_dtype=jnp.bfloat16, **kw)
+        assert ts.use_voxel_colors and vs.use_voxel_colors
+        assert ts.voxel_color_corners.dtype == torch.bfloat16
+        assert_same(ts.voxel_colors, vs.voxel_colors, "voxel_colors")
+        assert_same(ts.voxel_color_corners, vs.voxel_color_corners,
+                    "voxel_color_corners")
+        # a bridged scene whose packed view vrt left out gets one packed
+        fields = scene_fields(vs)
+        fields["voxel_color_corners"] = None
+        bridged = scene_from_numpy(fields)
+        assert torch.equal(bridged.voxel_color_corners,
+                           ts.voxel_color_corners)
 
 
 class TestRaysAndTransforms:

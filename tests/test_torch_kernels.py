@@ -1,5 +1,6 @@
-"""K1, the CUDA march, and the gather probe's kernels GP-A, GP-B and GP-C,
-against their plain-torch versions.
+"""K1, the CUDA march, the gather probe's kernels GP-A, GP-B and GP-C, and
+K3, the row gather with its scatter-add backward, against their plain-torch
+versions.
 
 This file imports no JAX, so it also runs where the card is:
 
@@ -12,7 +13,13 @@ to); where both hit with the same kind, t agrees to rtol 1e-4 and the cell
 and step count exactly.  The same holds in cube mode and with the debug
 overlay.  The gathers are exact: each kernel equals its plain version
 (``torch.equal``) on every case and load path of the probe at the Pallas
-probes' small shapes.
+probes' small shapes.  K3's gather is exact too, on both load paths; its
+scatter adds with f32 atomics in an order that changes from run to run, so
+it is held to 1e-5 * max|sum| of a float64 ``index_add_`` (and a bf16
+table's gradient to that plus its one bf16 rounding).  The fit's loss and
+gradients through K1 and K3 on the card agree with the CPU's to rtol 1e-5
+(loss), a cosine of 1 - 1e-6 and 1e-3 * max|g| per gradient: the card
+rounds the shading's transcendentals and sums in its own order.
 """
 
 import numpy as np
@@ -199,3 +206,113 @@ def test_gather_wrappers_reject_bad_inputs_on_card():
         with pytest.raises(ValueError):
             call()
     assert G.LAUNCHES == before
+
+
+K3_CASES = {"f32x8": (torch.float32, 8, 8), "f32x9": (torch.float32, 9, 8),
+            "bf16x8": (torch.bfloat16, 8, 8),
+            "bf16x9": (torch.bfloat16, 9, 8),
+            "f32x24": (torch.float32, 24, 24),
+            "bf16x24": (torch.bfloat16, 24, 24)}
+
+
+def _k3_inputs(dtype, ch, out_ch, offset, dev, rows=4096, lanes=200_000):
+    """A [rows, ch] table whose base is ``offset`` elements into its
+    storage (an offset of 1 breaks 16-byte alignment), indices in
+    [-1, rows) with a hot row, and cotangents."""
+    gen = torch.Generator().manual_seed(3)
+    flat = torch.randn(rows * ch + offset, generator=gen).to(dtype).to(dev)
+    table = flat[offset:].view(rows, ch)
+    idx = torch.randint(-1, rows, (lanes,), generator=gen, dtype=torch.int32)
+    idx[:5000] = 7
+    g = torch.randn(lanes, out_ch, generator=gen)
+    return table, idx.to(dev), g.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_k3_matches_plain_on_card(case, offset):
+    """K3 through ``gather_rows`` (autograd): the gather equals its plain
+    version, the table's gradient is the scatter-add; one launch each."""
+    from vrt_torch.kernels import rows as K3
+
+    dev = _card()
+    dtype, ch, out_ch = K3_CASES[case]
+    table, idx, g = _k3_inputs(dtype, ch, out_ch, offset, dev)
+    aligned = offset == 0 and (ch * table.element_size()) % 16 == 0
+    assert K3.load_path(table, out_ch) == ("v16" if aligned else "ldg")
+    t = table.detach().requires_grad_(True)
+    before = dict(K3.LAUNCHES)
+    got = K3.gather_rows(t, idx, out_ch)
+    (grad,) = torch.autograd.grad(got, t, g)
+    torch.cuda.synchronize()
+    assert K3.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    assert torch.equal(got, K3.gather_rows_reference(table, idx, out_ch))
+    exact = K3.scatter_rows_reference(g, idx, table.shape[0], ch,
+                                      torch.float64)
+    scale = exact.abs().max().item()
+    assert grad.dtype == dtype and grad.shape == table.shape
+    err = (grad.double() - exact).abs()
+    if dtype == torch.bfloat16:
+        err = err - 2.0 ** -8 * exact.abs()
+    assert err.max().item() <= 1e-5 * scale
+    assert torch.equal(grad[:, out_ch:], torch.zeros_like(grad[:, out_ch:]))
+
+
+@pytest.mark.gpu
+def test_k3_rejects_bad_inputs_on_card():
+    from vrt_torch.kernels import rows as K3
+
+    dev = _card()
+    table, idx, g = _k3_inputs(torch.float32, 9, 8, 0, dev, lanes=64)
+    cases = [
+        lambda: K3.gather_rows_cuda(table, idx.long(), 8),          # dtype
+        lambda: K3.gather_rows_cuda(table.double(), idx, 8),        # dtype
+        lambda: K3.gather_rows_cuda(table, idx.cpu(), 8),           # device
+        lambda: K3.gather_rows_cuda(table.t(), idx, 8),             # layout
+        lambda: K3.gather_rows_cuda(table, idx[:, None], 8),        # shape
+        lambda: K3.gather_rows_cuda(table, idx, 6),                 # out_ch
+        lambda: K3.gather_rows_cuda(table, idx, 12),                # out_ch
+        lambda: K3.scatter_rows_cuda(g.double(), idx, 4096, 9),     # dtype
+        lambda: K3.scatter_rows_cuda(g[:10], idx, 4096, 9),         # lanes
+        lambda: K3.scatter_rows_cuda(g, idx, 4096, 4),              # width
+        lambda: K3.scatter_rows_cuda(g, idx.cpu(), 4096, 9),        # device
+    ]
+    before = dict(K3.LAUNCHES)
+    for call in cases:
+        with pytest.raises(ValueError):
+            call()
+    assert K3.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_fit_grads_on_card_match_cpu():
+    """The fit loss (config6's camera, targets 0.25) and its gradients in
+    the SDF and the colours on the flagship at resolution 4 with colours,
+    64x36, through K1 and K3 on the card against the same on the CPU."""
+    from vrt_torch.diff.fit import (_value_and_grad, graft_params,
+                                    rebuild_accel, render_views)
+
+    dev = _card()
+    cams = [dict(position=(320.0, 0.0, 40.0), rotation=(0.0, 0.0, 1.0, 0.0),
+                 fov=60.0)]
+    out = []
+    for device in (dev, torch.device("cpu")):
+        scene = flagship_scene(4, use_colors=True, device=device)
+
+        def loss(p):
+            s = rebuild_accel(graft_params(scene, p))
+            return torch.mean((render_views(s, cams, 64, 36, RenderMode())
+                               - 0.25) ** 2)
+
+        out.append(_value_and_grad(loss, {"sdf": scene.volumes.sdf,
+                                          "voxel_colors": scene.voxel_colors}))
+    (got_loss, got), (want_loss, want) = out
+    assert float(got_loss) == pytest.approx(float(want_loss), rel=1e-5)
+    for k in want:
+        a = want[k].double().ravel()
+        b = got[k].double().cpu().ravel()
+        assert torch.isfinite(b).all(), k
+        cos = float(a @ b / (a.norm() * b.norm()))
+        assert cos >= 1.0 - 1e-6, (k, 1.0 - cos)
+        assert float((a - b).abs().max()) <= 1e-3 * float(a.abs().max()), k

@@ -166,12 +166,18 @@ def test_cube_mode_and_overlay_render():
 
 
 def test_voxel_colors_raise():
-    """Per-voxel colours come with the fit (M8)."""
-    vs = ge._flagship_scene(resolution=3)
+    """Per-voxel colours, which raised before the fit (M8), now render:
+    the lit and the unlit frame of a scene with random colours against
+    vrt's, under ``_assert_close``'s thresholds."""
+    from tests.test_torch_grad import _sphere_scene
+
+    vs = _sphere_scene(use_colors=True)
     ts = scene_from_numpy(scene_fields(vs))
-    ts.use_voxel_colors = True
-    with pytest.raises(NotImplementedError):
-        render_image(ts, 8, 8, RenderMode())
+    assert ts.use_voxel_colors
+    for mode in (dict(), dict(lit=False)):
+        want = np.asarray(vrender(vs, 32, 32, VMode(**mode)))[..., :3]
+        got = render_image(ts, 32, 32, RenderMode(**mode)).numpy()[..., :3]
+        assert_close_f32(got, want, f"voxel colours {mode}")
 
 
 def test_from_enum_matches_vrt():

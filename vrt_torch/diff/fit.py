@@ -1,0 +1,249 @@
+"""Differentiable fitting: optimize the SDF, per-voxel colours, material
+constants or the camera from pixel losses (port of ``vrt.diff.fit``).
+
+Pixel losses reach the SDF through resolve's IFT-at-the-root term and the
+central-difference normal, both read from the corner table, which is
+repacked from the SDF inside the step (``pack_cell_corners`` on the
+device, differentiable through its slices); colours reach the colour grid
+through its corner-packed view.  On CUDA tensors both tables are read by
+K3 (``vrt_torch.kernels.rows``), whose backward scatter-adds the corner
+cotangents.  The march runs under ``torch.no_grad()`` and is never re-run
+by the backward.  The octree accel is rebuilt from the current SDF on the
+device every step (``rebuild_accel``), so the fitted geometry is always
+marched consistently.
+
+Parameters are dicts of tensors; a step is a plain function
+``step(params, opt_state, ...) -> (params, opt_state, loss)`` with the
+optimizer of ``vrt_torch.diff.optim``.  There is no chunked frame: the
+whole view is one batch of rays (``vrt``'s chunked, deferred, remat'd fit
+frame computes the same loss and gradients, tests/test_grad.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Sequence
+
+import torch
+
+from vrt_torch.core import quat as vq
+from vrt_torch.diff.optim import adam, apply_updates
+from vrt_torch.march.types import pack_cell_corners
+from vrt_torch.render.camera import camera_rays
+from vrt_torch.render.gpuscene import (GPUScene, RenderMode,
+                                       pack_voxel_color_corners)
+from vrt_torch.render.renderer import tonemap, trace_radiance
+from vrt_torch.volume.accel import build_accel
+
+
+def graft_params(scene: GPUScene, params: Dict,
+                 repack: bool = True) -> GPUScene:
+    """The scene with ``params`` grafted in.
+
+    Keys: 'sdf' [V,N,N,N] (the corner table is repacked from it,
+    differentiably, keeping the folded accel channel; ``rebuild_accel``
+    rebuilds the accel itself), 'voxel_colors' [V,N,N,N,3] (its packed view
+    is repacked), and any other field of the scene by name ('tint',
+    'roughness', 'metallic', 'cam_pos', 'cam_rot', light fields).
+    ``repack=False`` leaves the corner table stale, for a caller that
+    calls ``rebuild_accel`` next (``graft_and_rebuild``)."""
+    vols = scene.volumes
+    if "sdf" in params:
+        corners = vols.corners
+        if repack:
+            accel_ch = (corners[..., 8].to(torch.int32)
+                        if corners.shape[-1] > 8 else None)
+            corners = pack_cell_corners(params["sdf"], accel_ch,
+                                        corners.dtype)
+        vols = dataclasses.replace(vols, sdf=params["sdf"], corners=corners)
+    scene = dataclasses.replace(scene, volumes=vols)
+    direct = {k: v for k, v in params.items()
+              if k != "sdf" and hasattr(scene, k)}
+    if direct:
+        scene = dataclasses.replace(scene, **direct)
+    if "voxel_colors" in params and scene.voxel_color_corners is not None:
+        scene = dataclasses.replace(
+            scene, voxel_color_corners=pack_voxel_color_corners(
+                params["voxel_colors"], scene.voxel_color_corners.dtype))
+    return scene
+
+
+def rebuild_accel(scene: GPUScene) -> GPUScene:
+    """Rebuild what the march derives from the (possibly updated) SDF, on
+    its device: the octree accel (``accel_mode`` becomes 'octree', and the
+    volume derives its u8 accel anew) and the corner table, repacked
+    differentiably with the new accel folded in where the table has a 9th
+    channel.  All volumes share the padded resolution."""
+    vols = scene.volumes
+    sdf = vols.sdf
+    resolution = (sdf.shape[-1] - 1).bit_length() - 1
+    with torch.no_grad():
+        accel = build_accel(sdf.detach(), resolution)
+    corners = vols.corners
+    corners = pack_cell_corners(
+        sdf, accel if corners.shape[-1] > 8 else None, corners.dtype)
+    return dataclasses.replace(
+        scene, volumes=dataclasses.replace(vols, accel=accel,
+                                           corners=corners,
+                                           accel_mode="octree"))
+
+
+def graft_and_rebuild(scene: GPUScene, params: Dict) -> GPUScene:
+    """``rebuild_accel(graft_params(scene, params))`` with the corner table
+    packed once, by ``rebuild_accel``: the scene a fit step renders."""
+    return rebuild_accel(graft_params(scene, params, repack=False))
+
+
+def _f32(x, device):
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def render_views(scene: GPUScene, cams: Sequence[Dict], width: int,
+                 height: int, mode: RenderMode):
+    """One tonemapped image per camera dict {position, rotation, fov}:
+    [C, H*W, 3].  Camera values may be tensors that require grad."""
+    dev = scene.cam_pos.device
+    imgs = []
+    for cam in cams:
+        o, d = camera_rays(_f32(cam["position"], dev),
+                           _f32(cam["rotation"], dev),
+                           _f32(cam.get("fov", 60.0), dev), width, height)
+        imgs.append(tonemap(trace_radiance(scene, o, d, 0, mode)))
+    return torch.stack(imgs)
+
+
+def _value_and_grad(loss_fn, params: Dict):
+    """(loss, grads) of ``loss_fn(leaves)`` at ``params``; a parameter the
+    loss does not reach gets a zero gradient."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss = loss_fn(leaves)
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    grads = {k: torch.zeros_like(v) if g is None else g
+             for (k, v), g in zip(leaves.items(), grads)}
+    return loss.detach(), grads
+
+
+def make_fit_step(scene: GPUScene, cams: Sequence[Dict], width: int,
+                  height: int, mode: RenderMode, optimizer):
+    """Single-device fit step factory.
+
+    step(params, opt_state, targets [C,H*W,3]) -> (params, opt_state, loss)
+    """
+
+    def step(params, opt_state, targets):
+        def loss_fn(p):
+            s = graft_and_rebuild(scene, p)
+            imgs = render_views(s, cams, width, height, mode)
+            return torch.mean((imgs - targets) ** 2)
+
+        loss, grads = _value_and_grad(loss_fn, params)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, loss
+
+    return step
+
+
+def make_fit_step_view(scene: GPUScene, width: int, height: int,
+                       mode: RenderMode, optimizer,
+                       light_follows_camera: bool = False,
+                       sdf_smooth: float = 0.0):
+    """Single-view fit step factory with the camera as a step argument.
+
+    step(params, opt_state, cam_pos [3], cam_rot [4], cam_fov [], target
+    [H*W,3]) -> (params, opt_state, loss)
+
+    ``light_follows_camera`` points the directional light along the
+    camera's forward vector (a headlamp: the light sits at the camera,
+    ``dir_light_dir`` = -forward); targets must be rendered with the same
+    per-view light.  ``sdf_smooth`` blends ``smooth3`` into the SDF
+    *update* (not the field) at that strength."""
+
+    def step(params, opt_state, cam_pos, cam_rot, cam_fov, target):
+        dev = scene.cam_pos.device
+        cam_rot = _f32(cam_rot, dev)
+
+        def loss_fn(p):
+            s = graft_and_rebuild(scene, p)
+            if light_follows_camera:
+                s = dataclasses.replace(
+                    s, dir_light_dir=-vq.forward_vector(cam_rot))
+            cam = [dict(position=cam_pos, rotation=cam_rot, fov=cam_fov)]
+            imgs = render_views(s, cam, width, height, mode)
+            return torch.mean((imgs[0] - target) ** 2)
+
+        loss, grads = _value_and_grad(loss_fn, params)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        if sdf_smooth and "sdf" in updates:
+            updates = dict(updates, sdf=smooth3(updates["sdf"], sdf_smooth))
+        return apply_updates(params, updates), opt_state, loss
+
+    return step
+
+
+def smooth3(x, alpha: float):
+    """``(1-alpha)*x + alpha*blur(x)`` for a separable 3-tap [1/4, 1/2,
+    1/4] blur over the grid axes 1-3 of [V,N,N,N(,C)], edges replicated."""
+    y = x
+    for ax in (1, 2, 3):
+        n = y.shape[ax]
+        lo = torch.index_select(
+            y, ax, torch.tensor([0] + list(range(n - 1)), device=y.device))
+        hi = torch.index_select(
+            y, ax, torch.tensor(list(range(1, n)) + [n - 1], device=y.device))
+        y = 0.25 * lo + 0.5 * y + 0.25 * hi
+    return (1.0 - alpha) * x + alpha * y
+
+
+def upsample_params(params: Dict) -> Dict:
+    """Coarse-to-fine transfer: 'sdf' and 'voxel_colors' grids go from
+    n = 2^r + 1 to 2^(r+1) + 1 per axis by exact trilinear refinement (even
+    planes copy, odd planes average their neighbours); values transfer
+    unscaled.  Other parameters pass through."""
+
+    def up_axis(x, ax):
+        n = x.shape[ax]
+        mid = 0.5 * (x.narrow(ax, 0, n - 1) + x.narrow(ax, 1, n - 1))
+        shape = list(x.shape)
+        shape[ax] = 2 * n - 1
+        out = x.new_zeros(shape)
+        even = [slice(None)] * x.ndim
+        odd = [slice(None)] * x.ndim
+        even[ax] = slice(0, 2 * n - 1, 2)
+        odd[ax] = slice(1, 2 * n - 1, 2)
+        out[tuple(even)] = x
+        out[tuple(odd)] = mid
+        return out
+
+    out = {}
+    for k, v in params.items():
+        if k in ("sdf", "voxel_colors"):
+            with torch.no_grad():
+                for ax in (1, 2, 3):
+                    v = up_axis(v, ax)
+        out[k] = v
+    return out
+
+
+def psnr(img, ref):
+    """Peak signal-to-noise ratio of tonemapped [..., 3] images in [0, 1]
+    (mse clamped at 1e-12)."""
+    mse = torch.mean((img - ref) ** 2)
+    return -10.0 * torch.log10(torch.clamp_min(mse, 1e-12))
+
+
+def fit(scene: GPUScene, params: Dict, cams: Sequence[Dict], targets,
+        width: int, height: int, mode: RenderMode = RenderMode(),
+        steps: int = 100, learning_rate: float = 1e-2, log_every: int = 0):
+    """Adam-fit ``params`` to multi-view ``targets``; returns the fitted
+    params and the loss of every step."""
+    optimizer = adam(learning_rate)
+    opt_state = optimizer.init(params)
+    step = make_fit_step(scene, cams, width, height, mode, optimizer)
+    losses = []
+    for i in range(steps):
+        params, opt_state, loss = step(params, opt_state, targets)
+        if log_every and i % log_every == 0:
+            print(f"step {i}: loss {float(loss):.6f}", flush=True)
+        losses.append(loss)
+    return params, [float(v) for v in losses]

@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vrt_torch.kernels.rows import gather_rows
+
 # Cell corner order v1..v8 = (0,0,0),(1,0,0),(0,1,0),(1,1,0),(0,0,1),(1,0,1),
 # (0,1,1),(1,1,1) — the reference's VOXEL_COORDS.
 CORNERS = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [1, 1, 0],
@@ -190,8 +192,10 @@ def make_stacked_fetch(sdf_stacked, n_per_ray, vol_per_ray):
 def make_stacked_corner_fetch(corners, n_per_ray, vol_per_ray):
     """Per-cell corner fetch from the packed [V,C,C,C,8|9] table with
     per-ray volume selection: one row gather per cell, the first 8
-    channels as float32.  Cells shaped [R, ..., 3]; out-of-range cells read
-    zeros."""
+    channels as float32, differentiable in ``corners``.  Cells shaped
+    [R, ..., 3]; out-of-range cells read zeros and get no gradient.  The
+    gather is K3 on CUDA tensors and its plain version on CPU tensors
+    (``vrt_torch.kernels.rows.gather_rows``)."""
     cc = corners.shape[1]
     ch = corners.shape[-1]
     flat = corners.reshape(-1, ch)
@@ -202,7 +206,8 @@ def make_stacked_corner_fetch(corners, n_per_ray, vol_per_ray):
         v = vol_per_ray.reshape(vol_per_ray.shape + (1,) * extra)
         valid = torch.all((cell >= 0) & (cell + 1 < n[..., None]), dim=-1)
         ic = torch.clamp(cell, 0, cc - 1)
-        rows = flat[_flat_index(v, ic, cc).long()][..., :8].float()
-        return torch.where(valid[..., None], rows, 0.0)
+        idx = torch.where(valid, _flat_index(v, ic, cc), -1).to(torch.int32)
+        rows = gather_rows(flat, idx.reshape(-1), 8)
+        return rows.reshape(cell.shape[:-1] + (8,))
 
     return cfetch

@@ -26,24 +26,33 @@ KIND_DEBUG = 5        # debug overlay: octree-node border (unlit red)
 FUSE_BUDGET_BYTES = 24_000_000
 
 
-def pack_cell_corners(sdf: np.ndarray, accel: np.ndarray | None = None,
+def pack_cell_corners(sdf, accel=None,
                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """[N,N,N] SDF -> [N-1,N-1,N-1,8|9] per-cell corner values in the
-    reference corner order, with the packed accel appended as a 9th channel
-    when given.  bf16 tables clamp skip distances to 127 so the accel
-    channel stays exactly representable.  Rounds to ``dtype`` with
-    round-to-nearest-even, as ``vrt`` does through ml_dtypes.  Returns a
-    CPU tensor."""
+    """[..., N,N,N] SDF -> [..., N-1,N-1,N-1, 8|9] per-cell corner values
+    in the reference corner order, with the packed accel appended as a 9th
+    channel when given.  bf16 tables clamp skip distances to 127 so the
+    accel channel stays exactly representable.  Rounds to ``dtype`` with
+    round-to-nearest-even, as ``vrt`` does through ml_dtypes.
+
+    A numpy ``sdf`` (host assembly; float32, as ``vrt`` casts it) gives a
+    CPU tensor.  A tensor ``sdf`` (the fit's in-step repack) gives a tensor
+    on its device, differentiable in ``sdf`` through the slices; ``accel``
+    is then an integer tensor."""
     from vrt_torch.march.isosurface import CORNERS
 
-    c = sdf.shape[0] - 1
-    chans = [np.asarray(sdf[dx:dx + c, dy:dy + c, dz:dz + c], np.float32)
+    if not isinstance(sdf, torch.Tensor):
+        return pack_cell_corners(
+            torch.from_numpy(np.asarray(sdf, np.float32)),
+            None if accel is None else torch.from_numpy(np.asarray(accel)),
+            dtype)
+    c = sdf.shape[-1] - 1
+    chans = [sdf[..., dx:dx + c, dy:dy + c, dz:dz + c].to(dtype)
              for dx, dy, dz in CORNERS]
     if accel is not None:
         if torch.finfo(dtype).bits < 32:
-            accel = (np.minimum(accel >> 1, 127) << 1) | (accel & 1)
-        chans.append(accel.astype(np.float32))
-    return torch.from_numpy(np.stack(chans, axis=-1)).to(dtype)
+            accel = (torch.clamp_max(accel >> 1, 127) << 1) | (accel & 1)
+        chans.append(accel.to(dtype))
+    return torch.stack(chans, dim=-1)
 
 
 def _accel_u8(accel):

@@ -8,7 +8,8 @@ One dataclass of stacked tensors on one device:
 - instances: volume index + rotate-scale-translate transform
   (world = diag(scale) . R(v) + position),
 - light banks fixed at 5 point + 5 spot lights with Python-level counts,
-- a texture atlas and an environment cube map.
+- a texture atlas and an environment cube map,
+- the per-voxel colour field (the fit's albedo) and its corner-packed view.
 
 ``build_scene`` assembles it from host data with an explicit ``device``;
 ``scene_from_numpy`` rebuilds a ``vrt`` scene's state from its leaves.
@@ -103,15 +104,38 @@ class GPUScene:
     tex_sizes: torch.Tensor         # i32 [T,2] (h,w)
     env: torch.Tensor               # f32 [6,E,E,3]
 
+    # per-voxel colour field (the fit's albedo; dummy [V,1,1,1,3] when
+    # unused) and its corner-packed view (``pack_voxel_color_corners``,
+    # None when unused), kept in sync by ``vrt_torch.diff.fit``
+    voxel_colors: torch.Tensor = None               # f32 [V,N,N,N,3]
+    voxel_color_corners: torch.Tensor | None = None  # [V,N,N,N,8,3]
+
     num_point: int = 0
     num_spot: int = 0
     any_reflective: bool = False
-    # per-voxel colours (the fit's albedo field) are not ported yet (M8)
     use_voxel_colors: bool = False
 
     @property
     def num_instances(self) -> int:
         return self.inst_volume.shape[0]
+
+
+def pack_voxel_color_corners(colors, dtype=None):
+    """[V,N,N,N,3] per-voxel colours -> [V,N,N,N,8,3] per-cell corner rows
+    (``CORNERS`` order) over one zero pad plane, so the trilinear albedo
+    sample reads one 24-channel row per hit cell and its backward scatters
+    one.  Corners in the pad plane read zero, as the per-corner valid mask
+    of an unpacked sample would give.  numpy in, CPU tensor out; a tensor
+    in gives a tensor on its device, differentiable in ``colors``.
+    ``dtype`` defaults to the colours' own."""
+    from vrt_torch.march.isosurface import CORNERS
+
+    if not isinstance(colors, torch.Tensor):
+        colors = torch.from_numpy(np.asarray(colors))
+    n = colors.shape[1]
+    cp = torch.nn.functional.pad(colors, (0, 0, 0, 1, 0, 1, 0, 1))
+    chans = [cp[:, dx:dx + n, dy:dy + n, dz:dz + n] for dx, dy, dz in CORNERS]
+    return torch.stack(chans, dim=-2).to(dtype or colors.dtype)
 
 
 def _default_textures():
@@ -142,12 +166,11 @@ def build_scene(volumes: Sequence,  # VoxelVolume
     dir_light: {rotation or direction, strength}.
     point/spot light dicts mirror the reference's light fields; spot angles
     become half-angle cosines cos(angle/2), cos(falloff/2).
+    voxel_colors: [V,N,N,N,3] per-voxel albedo, which replaces tint *
+    texture; always corner-packed, in ``march_dtype``.
     """
     if not volumes:
         raise ValueError("a scene needs at least one volume")
-    if voxel_colors is not None:
-        raise NotImplementedError(
-            "per-voxel colours are not ported yet (M8)")
     n_max = max(v.n_voxels for v in volumes)
     # volumes stack into one table, so they share the fold budget
     budget = FUSE_BUDGET_BYTES // len(volumes)
@@ -273,6 +296,13 @@ def build_scene(volumes: Sequence,  # VoxelVolume
         spot_cos_falloff=dev(scf), spot_pos=dev(sp), spot_fwd=dev(sf),
         textures=dev(tex, np.float32), tex_sizes=dev(sizes, np.int32),
         env=dev(env, np.float32),
+        voxel_colors=(dev(voxel_colors, np.float32) if voxel_colors is not None
+                      else torch.zeros((vcount, 1, 1, 1, 3), device=device)),
+        voxel_color_corners=(
+            pack_voxel_color_corners(np.asarray(voxel_colors, np.float32),
+                                     march_dtype).to(device)
+            if voxel_colors is not None else None),
+        use_voxel_colors=voxel_colors is not None,
         num_point=min(len(point_lights), MAX_POINT_LIGHTS),
         num_spot=min(len(spot_lights), MAX_SPOT_LIGHTS),
         any_reflective=bool(any(v.material.roughness < 0.3
@@ -298,8 +328,10 @@ def scene_from_numpy(fields: dict, device: torch.device | str = "cpu"
 
     ``fields`` maps each field name of ``GPUScene`` to a numpy array, the
     static fields to Python values, and ``"volumes"`` to a dict of the
-    ``DeviceVolume`` fields (``accel_mode`` a string).  Fields the port
-    does not carry (the voxel-colour tables) are ignored."""
+    ``DeviceVolume`` fields (``accel_mode`` a string).  A scene with
+    per-voxel colours whose corner-packed view ``vrt`` left out (it packs
+    under a size budget) gets one packed here, in the corner table's dtype:
+    the port always samples the packed view."""
     vf = fields["volumes"]
     if vf.get("corners") is None:
         raise ValueError("the port marches the packed corner table; the "
@@ -315,6 +347,9 @@ def scene_from_numpy(fields: dict, device: torch.device | str = "cpu"
             continue
         if f.name in _STATIC:
             kw[f.name] = type(f.default)(fields[f.name])
-        else:
+        elif fields[f.name] is not None:
             kw[f.name] = _to_tensor(fields[f.name], device)
+    if kw["use_voxel_colors"] and "voxel_color_corners" not in kw:
+        kw["voxel_color_corners"] = pack_voxel_color_corners(
+            kw["voxel_colors"], vols.corners.dtype)
     return GPUScene(volumes=vols, **kw)

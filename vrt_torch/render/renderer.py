@@ -8,7 +8,12 @@
   depth-0/1/2 radiance traces with masked reflection lanes and boolean
   shadow traces,
 - shading is the reference's closest-hit Cook-Torrance with point and spot
-  lights, the env miss lookup, and Reinhard + gamma tonemapping.
+  lights, the env miss lookup, and Reinhard + gamma tonemapping; with
+  per-voxel colours the albedo is their trilinear sample at the hit.
+
+The frame is differentiable in the scene's tensors: the march runs under
+``torch.no_grad()`` (its hits are piecewise constant in the SDF, as under
+``vrt``'s ``stop_gradient``), and autograd records resolve and shading.
 
 Like ``vrt`` it uses the spot light's own colour (the reference's
 ``g_spotLightsCB[pi]`` indexing bug is not reproduced).
@@ -19,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from vrt_torch.core import quat as vq
+from vrt_torch.kernels.rows import gather_rows
 from vrt_torch.march import isosurface as iso
 from vrt_torch.march.march import march_lanes, ray_aabb
 from vrt_torch.march.resolve import resolve_hits
@@ -73,8 +79,15 @@ def march_scene(scene: GPUScene, o_w, d_w, t_max, interp: bool = True,
     Returns (hit: MarchHit with object-space brackets of the winning
     instance and ``steps`` summed over passes, inst: i32 [R] winning
     instance id, -1 when none).  ``lane_marcher`` overrides the
-    per-candidate march (signature of ``march_lanes``)."""
-    lane_marcher = lane_marcher or march_lanes
+    per-candidate march (signature of ``march_lanes``).  Runs under
+    ``torch.no_grad()``: nothing it returns carries a gradient."""
+    with torch.no_grad():
+        return _march_scene(scene, o_w, d_w, t_max, interp, debug_overlay,
+                            lane_marcher or march_lanes)
+
+
+def _march_scene(scene, o_w, d_w, t_max, interp, debug_overlay,
+                 lane_marcher):
     r = o_w.shape[0]
     dev = o_w.device
     n_inst = scene.num_instances
@@ -152,6 +165,30 @@ def resolve_scene(scene: GPUScene, o_w, d_w, hit: MarchHit, inst):
     return resolve_hits(cfetch, pr["cell_size"], pr["extends"], o, d, hit)
 
 
+def _voxel_color_sample(scene: GPUScene, pr, hit: MarchHit, o_w, d_w, t):
+    """Trilinear sample of the per-voxel colour field at the hit point,
+    from one 24-channel row of the corner-packed colours per hit cell (K3
+    on CUDA tensors), with the per-corner valid mask after the gather."""
+    o, d = _world_to_object(pr["pos"], pr["rot"], pr["scale"], o_w, d_w)
+    h = pr["cell_size"]
+    cell = hit.cell
+    cell_base = cell.to(torch.float32) * h[..., None] \
+        - pr["extends"][..., None]
+    p = (o + d * t[..., None] - cell_base) / h[..., None]
+    corners = torch.as_tensor(iso.CORNERS, device=cell.device)
+    idx = cell[:, None, :] + corners[None]                     # [R,8,3]
+    valid = torch.all((idx >= 0) & (idx < pr["n"][:, None, None]), dim=-1)
+    pcc = scene.voxel_color_corners
+    cn = pcc.shape[1]
+    ic = torch.clamp(cell, 0, cn - 1)
+    lin = iso._flat_index(pr["vol"], ic, cn).to(torch.int32)
+    rows = gather_rows(pcc.reshape(-1, 24), lin, 24).reshape(-1, 8, 3)
+    cvals = torch.where(valid[..., None], rows, 0.0)
+    w = torch.abs((1.0 - corners.to(torch.float32))[None] - p[:, None, :])
+    w = (w[..., 0] * w[..., 1]) * w[..., 2]                    # [R,8]
+    return torch.sum(w[..., None] * cvals, dim=1)
+
+
 def trace_shadow(scene: GPUScene, o_w, d_w, max_dist, depth: int,
                  interp: bool, relevant=None):
     """Boolean occlusion trace in the frame's march mode, without the
@@ -171,8 +208,6 @@ def _shade_lit(scene: GPUScene, o_w, d_w, t, n_obj, inst, hit: MarchHit,
                depth: int, mode: RenderMode):
     """Closest-hit lit shading: shadowed directional light, mirror bounce
     for roughness < 0.3 (traced inline), point and spot lights."""
-    if scene.use_voxel_colors:
-        raise NotImplementedError("per-voxel colours are not ported yet (M8)")
     pr = _per_ray_instance(scene, inst)
     vol_id = pr["vol"]
     dev = o_w.device
@@ -210,6 +245,9 @@ def _shade_lit(scene: GPUScene, o_w, d_w, t, n_obj, inst, hit: MarchHit,
         roughness = torch.clamp(scene.roughness[vol_id], 0.0, 1.0)
         metallic = torch.clamp(scene.metallic[vol_id], 0.0, 1.0)
         n_shade = n_obj
+
+    if scene.use_voxel_colors:
+        albedo = _voxel_color_sample(scene, pr, hit, o_w, d_w, t)
 
     n_w = _object_normal_to_world(pr["rot"], pr["scale"], n_shade)
     wo = -d_w
@@ -275,10 +313,11 @@ def _shade_lit(scene: GPUScene, o_w, d_w, t, n_obj, inst, hit: MarchHit,
 
 def _shade_unlit_mode(scene: GPUScene, o_w, d_w, t, n_obj, inst,
                       hit: MarchHit, mode: RenderMode):
-    """Unlit closest hit: tinted albedo only."""
-    if scene.use_voxel_colors:
-        raise NotImplementedError("per-voxel colours are not ported yet (M8)")
+    """Unlit closest hit: tinted albedo only (the per-voxel colour
+    sample where the scene has one)."""
     pr = _per_ray_instance(scene, inst)
+    if scene.use_voxel_colors:
+        return _voxel_color_sample(scene, pr, hit, o_w, d_w, t)
     vol_id = pr["vol"]
     tint = scene.tint[vol_id][..., :3]
     if mode.textured:

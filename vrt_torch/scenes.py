@@ -8,10 +8,13 @@ import torch
 
 def flagship_scene(resolution: int = 5, accel_mode: str = "octree",
                    march_dtype: torch.dtype | None = None,
-                   device: torch.device | str = "cpu"):
+                   device: torch.device | str = "cpu",
+                   use_colors: bool = False):
     """Two instances — a roughness-0.1 reflective sphere and a CSG box
     minus a sphere — an 8x8 sky cube, and a directional light with shadows
-    (the parameters of ``__graft_entry__._flagship_scene``)."""
+    (the parameters of ``__graft_entry__._flagship_scene``).  With
+    ``use_colors`` both volumes carry per-voxel colours of 0.5, the fit's
+    albedo field (``vrt/apps/bench.py``'s config6 and config4 scenes)."""
     from vrt_torch.core import quat as vq
     from vrt_torch.core.material import Material
     from vrt_torch.render.gpuscene import build_scene
@@ -32,6 +35,10 @@ def flagship_scene(resolution: int = 5, accel_mode: str = "octree",
     env[:] = (0.25, 0.45, 0.85)
 
     cam_rot = vq.from_euler_degrees(0.0, 180.0, 0.0)
+    colors = None
+    if use_colors:
+        n = sphere.n_voxels
+        colors = np.full((2, n, n, n, 3), 0.5, np.float32)
     return build_scene(
         [sphere, box],
         [{"volume": 0, "position": (0.0, -70.0, 0.0)},
@@ -42,4 +49,4 @@ def flagship_scene(resolution: int = 5, accel_mode: str = "octree",
                 "fov": 60.0},
         dir_light={"direction": np.asarray(vq.forward_vector(
             vq.from_euler_degrees(0.0, 45.0, -30.0))), "strength": 6.0},
-        env=env, device=device)
+        env=env, voxel_colors=colors, device=device)

@@ -1,4 +1,4 @@
-"""Traversal acceleration fields (port of ``vrt.volume.accel``, numpy).
+"""Traversal acceleration fields (port of ``vrt.volume.accel``).
 
 The collapsed octree as a dense per-cell skip level, or the chessboard
 distance map, packed with the per-cell surface flag:
@@ -10,55 +10,73 @@ distance map, packed with the per-cell surface flag:
 - chebyshev: ``skip`` is the L-inf distance in cells to the nearest surface
   cell, capped at 127; the node is the cube of half-extent ``skip - 1``
   centred on ``c``.
+
+The host builds them from numpy arrays.  ``cell_corner_signs_differ``,
+``build_skip_level`` and ``build_accel`` also take tensors of any leading
+shape ([..., N,N,N]): the fit rebuilds the octree accel on the device every
+step (the max-pools are a reshape and ``amax``), bit for bit ``vrt``'s.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def cell_corner_signs_differ(sdf):
     """Per-cell surface flag: the three-valued sign differs among the 8
     cell corners (an exactly-zero corner differs from both signs)."""
-    s = np.sign(sdf)
-    s000 = s[:-1, :-1, :-1]
-    diff = np.zeros(s000.shape, dtype=bool)
+    if isinstance(sdf, torch.Tensor):
+        s = torch.sign(sdf)
+        s000 = s[..., :-1, :-1, :-1]
+        diff = torch.zeros(s000.shape, dtype=torch.bool, device=s.device)
+    else:
+        s = np.sign(sdf)
+        s000 = s[..., :-1, :-1, :-1]
+        diff = np.zeros(s000.shape, dtype=bool)
+    c = s.shape[-1] - 1
     for dx in (0, 1):
         for dy in (0, 1):
             for dz in (0, 1):
                 if dx == dy == dz == 0:
                     continue
-                corner = s[dx:dx + s000.shape[0],
-                           dy:dy + s000.shape[1],
-                           dz:dz + s000.shape[2]]
+                corner = s[..., dx:dx + c, dy:dy + c, dz:dz + c]
                 diff = diff | (corner != s000)
     return diff
 
 
 def build_skip_level(has_surface, max_level: int):
-    """Skip-level field from the per-cell surface flag: bool [C,C,C] with
-    C = 2^max_level -> int32 [C,C,C] in [0, max_level]."""
-    c = has_surface.shape[0]
-    occ = has_surface.astype(np.int32)
-    level = np.zeros_like(occ)
-    block = occ
+    """Skip-level field from the per-cell surface flag: bool [..., C,C,C]
+    with C = 2^max_level -> int32 [..., C,C,C] in [0, max_level]; a numpy
+    flag gives a numpy field."""
+    if not isinstance(has_surface, torch.Tensor):
+        return build_skip_level(torch.from_numpy(np.asarray(has_surface)),
+                                max_level).numpy()
+    c = has_surface.shape[-1]
+    lead = has_surface.shape[:-3]
+    block = has_surface.to(torch.int32)
+    level = torch.zeros_like(block)
     for lvl in range(1, max_level + 1):
         side = c >> lvl
         if side < 1:
             break
         # 2x2x2 max-pool of the previous level's block occupancy.
-        block = block.reshape(side, 2, side, 2, side, 2).max(axis=(1, 3, 5))
-        free = block == 0
-        free_cells = np.repeat(np.repeat(np.repeat(
-            free, 1 << lvl, 0), 1 << lvl, 1), 1 << lvl, 2)
-        level = np.where(free_cells, lvl, level)
+        block = block.reshape(*lead, side, 2, side, 2, side, 2).amax(
+            dim=(-5, -3, -1))
+        free_cells = block == 0
+        for ax in (-3, -2, -1):
+            free_cells = free_cells.repeat_interleave(1 << lvl, dim=ax)
+        level = level.masked_fill(free_cells, lvl)
     return level
 
 
 def build_accel(sdf, resolution: int):
-    """Packed octree accel field for one volume: int32 [C,C,C]."""
+    """Packed octree accel field: int32 [C,C,C] from a numpy [N,N,N] SDF,
+    or [..., C,C,C] on the device from a tensor [..., N,N,N]."""
     has_surface = cell_corner_signs_differ(sdf)
     skip = build_skip_level(has_surface, resolution)
+    if isinstance(has_surface, torch.Tensor):
+        return (skip << 1) | has_surface.to(torch.int32)
     return (skip << 1) | has_surface.astype(np.int32)
 
 
