@@ -140,7 +140,8 @@ class TestDeviceTables:
         """The rebuilt scene's accel, u8 accel, corner table and mode."""
         vs = ge._flagship_scene(resolution=4, accel_mode="chebyshev")
         want = vfit.rebuild_accel(vs).volumes
-        got = tfit.rebuild_accel(scene_from_numpy(scene_fields(vs))).volumes
+        got = tfit.rebuild_accel(
+            scene_from_numpy(scene_fields(vs), device="cpu")).volumes
         assert got.accel_mode == want.accel_mode == "octree"
         assert_same(got.accel, want.accel, "accel")
         assert_same(got.corners, want.corners, "corners")
@@ -150,7 +151,8 @@ class TestDeviceTables:
     def test_graft_and_rebuild_equals_the_chain(self):
         """One pack (``graft_and_rebuild``) gives the scene and the SDF
         gradient of ``rebuild_accel(graft_params(...))``, which packs twice."""
-        ts = scene_from_numpy(scene_fields(ge._flagship_scene(resolution=3)))
+        ts = scene_from_numpy(
+            scene_fields(ge._flagship_scene(resolution=3)), device="cpu")
         sdf = ts.volumes.sdf.detach() + 0.5
         w = torch.from_numpy(np.random.default_rng(4).normal(
             size=tuple(ts.volumes.corners.shape)).astype(np.float32))
@@ -338,7 +340,8 @@ def test_vrt_checkpoint_resumes_in_port(tmp_path):
     _assert_state_equal(apply_updates(p, tu), s2,
                         optax.apply_updates(vp, vu), vs2)
     assert tckpt.params_from_numpy(
-        {k: np.asarray(v) for k, v in vp.items()})["sdf"].dtype \
+        {k: np.asarray(v) for k, v in vp.items()},
+        device="cpu")["sdf"].dtype \
         == torch.float32
 
 
@@ -366,7 +369,7 @@ def test_three_fit_steps_match_vrt():
     largest (Adam turns a near-zero gradient's rounding noise into a full
     step of either sign)."""
     vs = ge._flagship_scene(resolution=3, use_colors=True)
-    ts = scene_from_numpy(scene_fields(vs))
+    ts = scene_from_numpy(scene_fields(vs), device="cpu")
     cams = FIT_CAMS
     targets = np.full((1, 24 * 24, 3), 0.25, np.float32)
     vstep = vfit.make_fit_step(vs, cams, 24, 24, VMode(), optax.adam(1e-2))
@@ -417,7 +420,7 @@ def test_fit_converges():
                 "rotation": tq.from_euler_degrees(0.0, 180.0, 0.0)},
         dir_light={"direction": tq.forward_vector(
             tq.from_euler_degrees(0.0, 45.0, -30.0)), "strength": 3.0},
-        voxel_colors=colors)
+        voxel_colors=colors, device="cpu")
     cams = [dict(position=(300.0, 0.0, 0.0),
                  rotation=tq.from_euler_degrees(0.0, 180.0, 0.0), fov=60.0)]
     with torch.no_grad():
@@ -476,7 +479,7 @@ def test_fit_fixture_is_vrt_grad(flagship_fit_grads):
 
 def test_fit_grads_match_vrt(flagship_fit_grads):
     vs, want_loss, want = flagship_fit_grads
-    ts = scene_from_numpy(scene_fields(vs))
+    ts = scene_from_numpy(scene_fields(vs), device="cpu")
     params = {"sdf": ts.volumes.sdf, "voxel_colors": ts.voxel_colors}
 
     def loss(p):
@@ -491,7 +494,7 @@ def test_fit_grads_match_vrt(flagship_fit_grads):
     # the same scene built by the port itself
     from vrt_torch.scenes import flagship_scene
 
-    own = flagship_scene(4, use_colors=True)
+    own = flagship_scene(4, use_colors=True, device="cpu")
     assert torch.equal(own.voxel_color_corners, ts.voxel_color_corners)
     assert torch.equal(own.volumes.corners, ts.volumes.corners)
 

@@ -119,7 +119,7 @@ class TestHitTGradient:
 
     def test_ift_matches_finite_difference(self):
         vol = TVolume.from_generator(TS.Sphere(radius=50.0), 4, 100.0)
-        dv = DeviceVolume.from_volume(vol)
+        dv = DeviceVolume.from_volume(vol, device="cpu")
         rng = np.random.default_rng(5)
         dirs = rng.normal(size=(6, 3)).astype(np.float32)
         dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
@@ -164,7 +164,8 @@ class TestHitTGradient:
     def test_forward_value_is_the_march_t(self):
         """The IFT correction is zero-valued: with a graph recorded, the
         frame's pixels equal the no-graph frame's bit for bit."""
-        ts = scene_from_numpy(scene_fields(_sphere_scene(use_colors=True)))
+        ts = scene_from_numpy(
+            scene_fields(_sphere_scene(use_colors=True)), device="cpu")
         loss = _port_loss(ts)
         params = {"sdf": ts.volumes.sdf.clone().requires_grad_(True)}
         assert float(loss(params).detach()) == _value(loss, params)
@@ -175,7 +176,7 @@ class TestPixelGradients:
     the port, at ``tests/test_grad.py``'s thresholds."""
 
     def test_sdf_pixel_grad_vs_fd(self):
-        ts = scene_from_numpy(scene_fields(_sphere_scene()))
+        ts = scene_from_numpy(scene_fields(_sphere_scene()), device="cpu")
         loss = _port_loss(ts)
         _, g = tfit._value_and_grad(loss, {"sdf": ts.volumes.sdf})
         g = g["sdf"].numpy()
@@ -192,7 +193,8 @@ class TestPixelGradients:
             assert fd == pytest.approx(float(g[idx]), rel=0.15, abs=5e-4), idx
 
     def test_voxel_color_grad_vs_fd(self):
-        ts = scene_from_numpy(scene_fields(_sphere_scene(use_colors=True)))
+        ts = scene_from_numpy(
+            scene_fields(_sphere_scene(use_colors=True)), device="cpu")
         loss = _port_loss(ts)
         _, g = tfit._value_and_grad(loss, {"voxel_colors": ts.voxel_colors})
         g = g["voxel_colors"].numpy()
@@ -208,7 +210,7 @@ class TestPixelGradients:
         assert fd == pytest.approx(float(g[idx]), rel=0.05, abs=1e-5)
 
     def test_camera_pos_grad_vs_fd(self):
-        ts = scene_from_numpy(scene_fields(_sphere_scene()))
+        ts = scene_from_numpy(scene_fields(_sphere_scene()), device="cpu")
         base = ts.cam_pos.numpy()
         loss = _port_loss(ts)
         _, g = tfit._value_and_grad(loss, {"cam_pos": ts.cam_pos})
@@ -227,7 +229,7 @@ class TestPixelGradients:
                     fd == pytest.approx(float(g[axis]), rel=0.5, abs=2e-3)
 
     def test_tint_grad(self):
-        ts = scene_from_numpy(scene_fields(_sphere_scene()))
+        ts = scene_from_numpy(scene_fields(_sphere_scene()), device="cpu")
         _, g = tfit._value_and_grad(_port_loss(ts), {"tint": ts.tint})
         g = g["tint"].numpy()
         assert np.isfinite(g).all() and np.abs(g).max() > 1e-4
@@ -247,7 +249,7 @@ def sphere_grads():
 
 def test_grads_match_vrt(sphere_grads):
     vs, want_loss, want = sphere_grads
-    ts = scene_from_numpy(scene_fields(vs))
+    ts = scene_from_numpy(scene_fields(vs), device="cpu")
     params = {"sdf": ts.volumes.sdf, "voxel_colors": ts.voxel_colors,
               "cam_pos": ts.cam_pos}
     got_loss, got = tfit._value_and_grad(_port_loss(ts), params)
@@ -262,7 +264,7 @@ def test_bf16_table_grads_match_vrt():
     vs = _sphere_scene(use_colors=True, march_dtype=jnp.bfloat16)
     params = {"sdf": vs.volumes.sdf, "voxel_colors": vs.voxel_colors}
     want_loss, want = jax.jit(jax.value_and_grad(_vrt_loss(vs, 16, 16)))(params)
-    ts = scene_from_numpy(scene_fields(vs))
+    ts = scene_from_numpy(scene_fields(vs), device="cpu")
     assert ts.volumes.corners.dtype == torch.bfloat16
     assert ts.voxel_color_corners.dtype == torch.bfloat16
     got_loss, got = tfit._value_and_grad(
@@ -279,7 +281,7 @@ def test_fit_step_view_matches_vrt():
     views (the second looks away from the volume) against vrt's, losses
     to rtol 1e-4."""
     vs = _sphere_scene(use_colors=True)
-    ts = scene_from_numpy(scene_fields(vs))
+    ts = scene_from_numpy(scene_fields(vs), device="cpu")
     kw = dict(light_follows_camera=True, sdf_smooth=0.3)
     vstep = vfit.make_fit_step_view(vs, 16, 16, VMode(), optax.adam(1e-2),
                                     **kw)

@@ -91,7 +91,7 @@ def scene_pair(request):
                             else None, use_colors=colors)
     ts = flagship_scene(5, cfg["accel_mode"],
                         torch.bfloat16 if cfg.get("bf16") else None,
-                        use_colors=colors)
+                        use_colors=colors, device="cpu")
     return vs, ts
 
 
@@ -206,14 +206,14 @@ class TestScene:
         # the benched configuration keeps 8 channels (no accel fold)
         vs = ge._flagship_scene(resolution=6, accel_mode="chebyshev",
                                 march_dtype=jnp.bfloat16)
-        ts = flagship_scene(6, "chebyshev", torch.bfloat16)
+        ts = flagship_scene(6, "chebyshev", torch.bfloat16, device="cpu")
         assert ts.volumes.corners.shape == vs.volumes.corners.shape
         assert_same(ts.volumes.corners, vs.volumes.corners, "corners r6")
         assert_same(ts.volumes.accel, vs.volumes.accel, "accel r6")
 
     def test_scene_from_numpy_equals_build_scene(self, scene_pair):
         vs, ts = scene_pair
-        bridged = scene_from_numpy(scene_fields(vs))
+        bridged = scene_from_numpy(scene_fields(vs), device="cpu")
         for f in dataclasses.fields(ts.volumes):
             a, b = getattr(bridged.volumes, f.name), getattr(ts.volumes,
                                                              f.name)
@@ -237,7 +237,7 @@ class TestScene:
 
         vs, ts = scene_pair
         want = np.asarray(_accel_u8(vs.volumes.accel))
-        bridged = scene_from_numpy(scene_fields(vs))
+        bridged = scene_from_numpy(scene_fields(vs), device="cpu")
         for vols in (ts.volumes, bridged.volumes):
             assert vols.accel_u8.shape == vols.accel.shape
             assert_same(vols.accel_u8.reshape(-1), want, "accel_u8")
@@ -256,7 +256,7 @@ class TestScene:
         kw = dict(camera={}, voxel_colors=colors)
         ts = build_scene([VoxelVolume.from_generator(
             tsdf.Sphere(radius=50.0), 3, 100.0)], [{"volume": 0}],
-            march_dtype=torch.bfloat16, **kw)
+            march_dtype=torch.bfloat16, device="cpu", **kw)
         vs = vbuild([VVolume.from_generator(vsdf.Sphere(radius=50.0), 3,
                                             100.0)], [{"volume": 0}],
                     march_dtype=jnp.bfloat16, **kw)
@@ -268,7 +268,7 @@ class TestScene:
         # a bridged scene whose packed view vrt left out gets one packed
         fields = scene_fields(vs)
         fields["voxel_color_corners"] = None
-        bridged = scene_from_numpy(fields)
+        bridged = scene_from_numpy(fields, device="cpu")
         assert torch.equal(bridged.voxel_color_corners,
                            ts.voxel_color_corners)
 
@@ -330,3 +330,19 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 20, proc.stdout
+
+
+def test_constructors_default_to_the_card():
+    """The port's entry points run on the card unless the caller asks for
+    the CPU: every constructor of device state defaults to ``cuda`` (as the
+    fit CLI's ``--device`` does)."""
+    import inspect
+
+    from vrt_torch.diff.checkpoint import params_from_numpy
+    from vrt_torch.render.gpuscene import build_scene
+
+    for fn in (flagship_scene, build_scene, scene_from_numpy,
+               ttypes.DeviceVolume.from_volume, params_from_numpy):
+        default = inspect.signature(fn).parameters["device"].default
+        assert torch.device(default).type == "cuda", (fn.__qualname__,
+                                                      default)

@@ -1,6 +1,6 @@
-"""K1, the CUDA march, the gather probe's kernels GP-A, GP-B and GP-C, and
-K3, the row gather with its scatter-add backward, against their plain-torch
-versions.
+"""K1, the CUDA march (per lane and over a whole scene), the fused resolve,
+the gather probe's kernels GP-A, GP-B and GP-C, and K3, the row gather with
+its scatter-add backward, against their plain-torch versions.
 
 This file imports no JAX, so it also runs where the card is:
 
@@ -11,7 +11,11 @@ is built with --fmad=false and sums in the twin's order, so hit and kind
 may differ on at most 0.1% of lanes (the budget ``chip_smoke.py`` holds it
 to); where both hit with the same kind, t agrees to rtol 1e-4 and the cell
 and step count exactly.  The same holds in cube mode and with the debug
-overlay.  The gathers are exact: each kernel equals its plain version
+overlay, and for the scene march, whose winning instance and summed steps
+must also agree on those lanes and whose any-hit variant must equal the
+plain version's ``hit`` within the same budget.  The fused resolve is built
+the same way and must equal the plain ``resolve_scene_reference`` bit for
+bit (NaN equal to NaN).  The gathers are exact: each kernel equals its plain version
 (``torch.equal``) on every case and load path of the probe at the Pallas
 probes' small shapes.  K3's gather is exact too, on both load paths; its
 scatter adds with f32 atomics in an order that changes from run to run, so
@@ -22,11 +26,14 @@ gradients through K1 and K3 on the card agree with the CPU's to rtol 1e-5
 rounds the shading's transcendentals and sums in its own order.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from vrt_torch.march import march as tmarch
+from vrt_torch.render import renderer as tren
 from vrt_torch.render.gpuscene import RenderMode
 from vrt_torch.render.renderer import render_image
 from vrt_torch.scenes import flagship_scene
@@ -80,7 +87,7 @@ def test_cpu_tensors_take_the_twin():
     CPU tensors instead of falling back."""
     from vrt_torch.kernels import march as k1
 
-    ts = flagship_scene(4)
+    ts = flagship_scene(4, device="cpu")
     o, d, t_max, vid = random_lanes(0, 512)
     before = k1.LAUNCHES
     got = tmarch.march_lanes(ts.volumes, vid, o, d, t_max)
@@ -135,6 +142,213 @@ def test_k1_rejects_bad_inputs_on_card():
         k1.march_lanes_cuda(ts.volumes, vid, o, d, t_max, interp=False)
 
 
+MODES = pytest.mark.parametrize(
+    "interp,debug", [(True, False), (False, False), (True, True),
+                     (False, True)],
+    ids=["interp", "cube", "interp-overlay", "cube-overlay"])
+
+
+def _crowd(res, mode, dtype, n_inst, dev):
+    """The flagship's two volumes under ``n_inst`` instances: 1, the
+    sphere alone; 2, the flagship; 12, ``vrt/apps/bench.py``'s grid pulled
+    together until boxes overlap, with instance 1 moved onto instance 0
+    (equal entry t: the stable order decides), instance 5 rotated and
+    scaled, and instance 3 inactive."""
+    scene = flagship_scene(res, mode, dtype, device=dev)
+    if n_inst == 2:
+        return scene
+    pos = np.zeros((n_inst, 3), np.float32)
+    for i in range(n_inst):
+        gx, gy = divmod(i, 4)
+        pos[i] = (-110.0 * gx, 120.0 * (gy - 1.5), 60.0 * ((i % 3) - 1))
+    rot = np.tile(np.asarray([0.0, 0.0, 0.0, 1.0], np.float32), (n_inst, 1))
+    scale = np.ones((n_inst, 3), np.float32)
+    active = np.ones(n_inst, bool)
+    if n_inst > 5:
+        pos[1] = pos[0]
+        rot[5] = (0.0, 0.0, np.sin(0.3), np.cos(0.3))
+        scale[5] = (1.2, 0.8, 1.0)
+        active[3] = False
+    return dataclasses.replace(
+        scene,
+        inst_volume=(torch.arange(n_inst, dtype=torch.int32) % 2).to(dev),
+        inst_pos=torch.from_numpy(pos).to(dev),
+        inst_rot=torch.from_numpy(rot).to(dev),
+        inst_scale=torch.from_numpy(scale).to(dev),
+        inst_active=torch.from_numpy(active).to(dev))
+
+
+def scene_rays(seed, n, dev):
+    """World rays aimed into the cloud of instances from outside and
+    inside, a third with finite t_max clamps and a tenth with -inf."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    dist = rng.uniform(40.0, 500.0, size=(n, 1)).astype(np.float32)
+    aim = rng.normal(scale=(80.0, 150.0, 50.0), size=(n, 3))
+    o = (-d * dist + aim - (100.0, 0.0, 0.0)).astype(np.float32)
+    t_max = np.where(rng.uniform(size=n) < 0.35,
+                     rng.uniform(0.0, 600.0, size=n), 1e4).astype(np.float32)
+    t_max[rng.uniform(size=n) < 0.1] = -np.inf
+    return [torch.from_numpy(x).to(dev) for x in (o, d, t_max)]
+
+
+def test_scene_wrappers_refuse_cpu_tensors():
+    """On the CPU the dispatchers run the plain versions; the scene march's
+    and the fused resolve's wrappers refuse CPU tensors instead of falling
+    back, and launch nothing."""
+    from vrt_torch.kernels import march as k1
+    from vrt_torch.kernels import resolve as kr
+
+    ts = flagship_scene(4, device="cpu")
+    o, d, t_max = scene_rays(0, 256, "cpu")
+    before = (k1.LAUNCHES, k1.SCENE_LAUNCHES, kr.LAUNCHES)
+    hit, inst = tren.march_scene(ts, o, d, t_max)
+    want, winst = tren.march_scene_reference(ts, o, d, t_max)
+    assert torch.equal(hit.hit, want.hit) and torch.equal(inst, winst)
+    assert hit.hit.any()
+    assert torch.equal(tren.march_scene_any_hit(ts, o, d, t_max), want.hit)
+    got = tren.resolve_scene(ts, o, d, hit, inst)
+    for a, b in zip(got, tren.resolve_scene_reference(ts, o, d, hit, inst)):
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+    with pytest.raises(ValueError):
+        k1.march_scene_cuda(ts, o, d, t_max)
+    with pytest.raises(ValueError):
+        k1.march_scene_cuda(ts, o, d, t_max, any_hit=True)
+    with pytest.raises(ValueError):
+        kr.resolve_scene_cuda(ts, o, d, hit, inst)
+    assert (k1.LAUNCHES, k1.SCENE_LAUNCHES, kr.LAUNCHES) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_inst", [1, 2, 12])
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+@MODES
+def test_scene_march_matches_plain_on_card(config, interp, debug, n_inst):
+    """One launch of the scene march against its plain version (the
+    candidate loop over the twin) on the same rays, and the any-hit
+    variant against the plain version's ``hit``."""
+    from vrt_torch.kernels import march as k1
+
+    dev = _card()
+    res, mode, dtype = CONFIGS[config]
+    ts = _crowd(res, mode, dtype, n_inst, dev)
+    o, d, t_max = scene_rays(5, 65536, dev)
+    before = (k1.LAUNCHES, k1.SCENE_LAUNCHES)
+    got, inst = tren.march_scene(ts, o, d, t_max, interp, debug)
+    assert (k1.LAUNCHES, k1.SCENE_LAUNCHES) == (before[0], before[1] + 1)
+    want, winst = tren.march_scene(ts, o, d, t_max, interp, debug,
+                                   lane_marcher=tmarch.march_lanes_reference)
+    torch.cuda.synchronize()
+    assert_hits_close(got, want)
+    agree = (got.hit == want.hit) & (got.kind == want.kind)
+    assert torch.equal(inst[agree], winst[agree])
+    assert torch.equal(inst >= 0, got.hit)
+    if n_inst == 12:
+        winners = set(winst[want.hit].unique().tolist())
+        assert {0, 1, 5} <= winners and 3 not in winners, winners
+    if not debug:
+        any_hit = tren.march_scene_any_hit(ts, o, d, t_max, interp)
+        assert k1.SCENE_LAUNCHES == before[1] + 2
+        flips = (any_hit != want.hit).float().mean().item()
+        assert any_hit.dtype == torch.bool and flips <= LANE_BUDGET
+
+
+RESOLVE_TABLES = {"f32x8": (None, 8), "f32x9": (None, 9),
+                  "bf16x8": (torch.bfloat16, 8),
+                  "bf16x9": (torch.bfloat16, 9)}
+
+
+def _with_table(scene, ch, offset):
+    """``scene`` with its corner table cut to ``ch`` channels and based
+    ``offset`` elements into its storage (1 breaks 16-byte alignment)."""
+    corners = scene.volumes.corners[..., :ch]
+    flat = torch.empty(corners.numel() + offset, dtype=corners.dtype,
+                       device=corners.device)
+    table = flat[offset:].view(corners.shape)
+    table.copy_(corners)
+    return dataclasses.replace(
+        scene, volumes=dataclasses.replace(scene.volumes, corners=table))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("table", sorted(RESOLVE_TABLES))
+@pytest.mark.parametrize("interp,debug", [(True, False), (False, False),
+                                          (True, True)],
+                         ids=["interp", "cube", "interp-overlay"])
+def test_fused_resolve_matches_plain_on_card(table, offset, interp, debug):
+    """The fused resolve against ``resolve_scene_reference`` on the hits of
+    a scene march over 12 instances, some lanes with ``inst = -1``: equal
+    bit for bit.  The dispatcher takes the kernel when no graph is
+    recorded and K3's differentiable path when the table requires one."""
+    from vrt_torch.kernels import resolve as kr
+    from vrt_torch.kernels import rows as k3
+
+    dev = _card()
+    dtype, ch = RESOLVE_TABLES[table]
+    ts = _with_table(_crowd(5, "chebyshev", dtype, 12, dev), ch, offset)
+    corners = ts.volumes.corners
+    aligned = offset == 0 and (ch * corners.element_size()) % 16 == 0
+    assert kr.load_path(corners) == ("v16" if aligned else "ldg")
+    o, d, t_max = scene_rays(6, 65536, dev)
+    hit, inst = tren.march_scene(ts, o, d, t_max, interp, debug)
+    inst[::5] = -1
+    assert int((hit.hit & (inst < 0)).sum()) > 100
+    before = (kr.LAUNCHES, k3.LAUNCHES["K3 gather"])
+    got = tren.resolve_scene(ts, o, d, hit, inst)
+    assert (kr.LAUNCHES, k3.LAUNCHES["K3 gather"]) == (before[0] + 1,
+                                                       before[1])
+    with torch.no_grad():
+        want = tren.resolve_scene_reference(ts, o, d, hit, inst)
+    torch.cuda.synchronize()
+    kinds = set(hit.kind[hit.hit].unique().tolist())
+    assert kinds >= ({1, 5} if debug else {1} if interp else {4}), kinds
+    for name, a, b in zip(("t", "normal", "unlit"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        same = (a == b) | ((a != a) & (b != b))
+        assert bool(same.all()), (name, int((~same).sum()))
+    corners.requires_grad_(True)
+    before = (kr.LAUNCHES, k3.LAUNCHES["K3 gather"])
+    tren.resolve_scene(ts, o, d, hit, inst)
+    assert (kr.LAUNCHES, k3.LAUNCHES["K3 gather"]) == (before[0],
+                                                       before[1] + 1)
+
+
+@pytest.mark.gpu
+def test_scene_wrappers_reject_bad_inputs_on_card():
+    from vrt_torch.kernels import march as k1
+    from vrt_torch.kernels import resolve as kr
+
+    dev = _card()
+    ts = _crowd(4, "octree", None, 2, dev)
+    o, d, t_max = scene_rays(1, 64, dev)
+    hit, inst = tren.march_scene(ts, o, d, t_max)
+    crowd = _crowd(4, "octree", None, 33, dev)
+    sliced = dataclasses.replace(ts, inst_pos=ts.inst_pos.t().contiguous().t())
+    cases = [
+        lambda: k1.march_scene_cuda(ts, o.cpu(), d, t_max),         # device
+        lambda: k1.march_scene_cuda(ts, o.double(), d, t_max),      # dtype
+        lambda: k1.march_scene_cuda(ts, o, d.t().contiguous().t(), t_max),
+        lambda: k1.march_scene_cuda(ts, o, d, t_max[:-1]),          # shape
+        lambda: k1.march_scene_cuda(crowd, o, d, t_max),            # > 32
+        lambda: k1.march_scene_cuda(sliced, o, d, t_max),           # layout
+        lambda: k1.march_scene_cuda(ts, o, d, t_max, debug_overlay=True,
+                                    any_hit=True),
+        lambda: kr.resolve_scene_cuda(ts, o.cpu(), d, hit, inst),   # device
+        lambda: kr.resolve_scene_cuda(ts, o, d, hit, inst.long()),  # dtype
+        lambda: kr.resolve_scene_cuda(ts, o, d.t().contiguous().t(), hit,
+                                      inst),                        # layout
+        lambda: kr.resolve_scene_cuda(ts, o, d, hit, inst[:-1]),    # shape
+        lambda: kr.resolve_scene_cuda(sliced, o, d, hit, inst),     # layout
+    ]
+    before = (k1.LAUNCHES, k1.SCENE_LAUNCHES, kr.LAUNCHES)
+    for call in cases:
+        with pytest.raises(ValueError):
+            call()
+    assert (k1.LAUNCHES, k1.SCENE_LAUNCHES, kr.LAUNCHES) == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("config", ["r5-octree-f32", "r7-cheb-bf16"])
 def test_frame_on_card_matches_cpu(config):
@@ -146,8 +360,8 @@ def test_frame_on_card_matches_cpu(config):
     res, mode, dtype = CONFIGS[config]
     got = render_image(flagship_scene(res, mode, dtype, device=dev), 64, 64,
                        RenderMode()).cpu().numpy()
-    want = render_image(flagship_scene(res, mode, dtype), 64, 64,
-                        RenderMode()).numpy()
+    want = render_image(flagship_scene(res, mode, dtype, device="cpu"), 64,
+                        64, RenderMode()).numpy()
     assert np.isfinite(got).all()
     diff = np.abs(got - want)
     assert np.quantile(diff, 0.98) < 6e-3

@@ -92,11 +92,23 @@ def hit_np(h, fields=("hit", "t", "kind", "cell", "face_normal", "steps")):
     return out
 
 
+_PAIRS = {}
+
+
+def _pair(config):
+    """The flagship at resolution 5 in ``config``, as (vrt scene, the
+    port's scene on the CPU); built once per config."""
+    if config not in _PAIRS:
+        mode, dtype = CONFIGS[config]
+        vs = ge._flagship_scene(resolution=5, accel_mode=mode,
+                                march_dtype=dtype)
+        _PAIRS[config] = vs, scene_from_numpy(scene_fields(vs), device="cpu")
+    return _PAIRS[config]
+
+
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
 def stacked(request):
-    mode, dtype = CONFIGS[request.param]
-    vs = ge._flagship_scene(resolution=5, accel_mode=mode, march_dtype=dtype)
-    return vs, scene_from_numpy(scene_fields(vs))
+    return _pair(request.param)
 
 
 _vrt_march_lanes = jax.jit(vmarch.march_lanes,
@@ -138,7 +150,7 @@ class TestMarchTwin:
         slab = S.Box(extends=(500.0, 500.0, 10.0))
         vol = VoxelVolume.from_generator(slab, 7, 100.0)
         vs = vbuild([vol], [{"volume": 0}], camera={}, accel_mode=accel_mode)
-        ts = scene_from_numpy(scene_fields(vs))
+        ts = scene_from_numpy(scene_fields(vs), device="cpu")
         o = np.asarray([[-150.0, -149.7, 12.2], [-150.0, -149.2, 11.6],
                         [-150.0, -150.0, 30.0], [-150.0, 3.0, 0.0],
                         [20.0, 160.0, -5.0], [-150.0, 3.0, 0.0]], np.float32)
@@ -287,6 +299,157 @@ class TestMarchScene:
         assert tren.trace_shadow(ts, torch.from_numpy(so),
                                  torch.from_numpy(sd), torch.from_numpy(sm),
                                  3, True).sum() == 0
+
+
+def _crowd_scene(name):
+    """vrt scenes of many instances over two resolution-4 volumes.
+    "overlap": a sphere and a holed box at the same position (equal boxes,
+    so equal entry t: the stable order decides), a rotated, scaled sphere
+    overlapping them, and an inactive box in front of all three.
+    "twelve": ``vrt/apps/bench.py``'s 12-instance grid."""
+    from vrt.core import quat as vq
+    from vrt.render.gpuscene import build_scene as vbuild
+    from vrt.volume import sdf as S
+    from vrt.volume.volume import VoxelVolume
+
+    sphere = VoxelVolume.from_generator(S.Sphere(radius=45.0), 4, 100.0)
+    csg = S.CSG(shape=S.Box(extends=(40.0, 40.0, 40.0)))
+    csg.add_child(S.Sphere(radius=50.0), S.SUBTRACT)
+    box = VoxelVolume.from_generator(csg, 4, 100.0)
+    if name == "overlap":
+        insts = [{"volume": 0, "position": (0.0, -20.0, 0.0)},
+                 {"volume": 1, "position": (0.0, -20.0, 0.0)},
+                 {"volume": 0, "position": (30.0, 40.0, 10.0),
+                  "rotation": np.asarray(vq.from_euler_degrees(0.0, 30.0,
+                                                               10.0)),
+                  "scale": (1.2, 0.8, 1.0)},
+                 {"volume": 1, "position": (150.0, 0.0, 30.0)}]
+        active = [True, True, True, False]
+        cam = {"position": (320.0, 0.0, 40.0), "fov": 60.0}
+    else:
+        insts = []
+        for i in range(12):
+            gx, gy = divmod(i, 4)
+            insts.append({"volume": i % 2,
+                          "position": (-160.0 * gx, 170.0 * (gy - 1.5),
+                                       60.0 * ((i % 3) - 1))})
+        active = [True] * 12
+        cam = {"position": (430.0, 0.0, 60.0), "fov": 70.0}
+    cam["rotation"] = np.asarray(vq.from_euler_degrees(0.0, 180.0, 0.0))
+    vs = vbuild([sphere, box], insts, camera=cam, accel_mode="chebyshev")
+    return dataclasses.replace(vs, inst_active=jnp.asarray(active))
+
+
+def _torch_hit(vh):
+    """A vrt MarchHit as the port's, on the CPU."""
+    from vrt_torch.march.types import MarchHit
+
+    return MarchHit(**{f.name: torch.from_numpy(np.array(getattr(vh, f.name)))
+                       for f in dataclasses.fields(MarchHit)})
+
+
+_vrt_march_scene = jax.jit(vren.march_scene, static_argnames=(
+    "interp", "debug_overlay", "lane_marcher"))
+
+
+class TestSceneMarchPlain:
+    """``march_scene_reference`` (the scene march kernel's plain version)
+    and the no-graph ``resolve_scene`` against vrt's.  Same tolerances as
+    above: hit, kind, cell, the winning instance and the summed steps agree
+    on every lane, t to rtol 1e-4 (XLA's CPU FMAs)."""
+
+    @pytest.mark.parametrize("interp", [True, False], ids=["interp", "cube"])
+    @pytest.mark.parametrize("name", ["overlap", "twelve"])
+    def test_matches_vrt_march_scene(self, name, interp):
+        from vrt.render.camera import camera_rays
+
+        vs = _crowd_scene(name)
+        ts = scene_from_numpy(scene_fields(vs), device="cpu")
+        o, d = camera_rays(vs.cam_pos, vs.cam_rot, vs.cam_fov, 56, 56)
+        o, d = np.array(o), np.array(d)
+        rng = np.random.default_rng(11)
+        r = o.shape[0]
+        t_max = np.where(rng.uniform(size=r) < 0.2,
+                         rng.uniform(200.0, 500.0, size=r),
+                         1e4).astype(np.float32)
+        t_max[rng.uniform(size=r) < 0.1] = -np.inf
+        vh, vinst = _vrt_march_scene(vs, jnp.asarray(o), jnp.asarray(d),
+                                     jnp.asarray(t_max), interp)
+        args = (ts, torch.from_numpy(o), torch.from_numpy(d),
+                torch.from_numpy(t_max), interp)
+        th, tinst = tren.march_scene(*args)
+        w, g = hit_np(vh), hit_np(th)
+        for f in ("hit", "kind", "cell", "steps"):
+            np.testing.assert_array_equal(g[f], w[f], err_msg=f)
+        np.testing.assert_array_equal(tinst.numpy(), np.asarray(vinst))
+        hit = w["hit"]
+        np.testing.assert_allclose(g["t"][hit], w["t"][hit], rtol=1e-4)
+        assert np.isinf(g["t"][~hit]).all()
+        assert not hit[np.isneginf(t_max)].any()
+        winners = set(np.unique(np.asarray(vinst)[hit]))
+        if name == "overlap":
+            # both of the tied pair win somewhere, the inactive one never
+            assert winners == {0, 1, 2}, winners
+            assert (hit & (t_max < 1e4)).sum() > 20
+        else:
+            assert len(winners) >= 10, winners
+        # the any-hit variant's plain version is the hit field
+        any_hit = tren.march_scene_any_hit(*args)
+        assert any_hit.dtype == torch.bool
+        np.testing.assert_array_equal(any_hit.numpy(), g["hit"])
+
+    @pytest.mark.parametrize("case,config", [("slab", None)] + [
+        (c, k) for c in ("overlay", "cube") for k in sorted(CONFIGS)])
+    def test_no_graph_resolve_matches_vrt(self, case, config):
+        """``resolve_scene`` with nothing to differentiate, on every hit
+        kind (surface, solid entry, exhausted on the slab; debug with the
+        overlay; cube), with ``inst = -1`` on some lanes, against vrt's on
+        the same hits: unlit equal, t and the normal to rtol 1e-5 (f32 on
+        both sides, no root to refine)."""
+        from vrt.render.camera import camera_rays
+
+        if case == "slab":
+            from vrt.render.gpuscene import build_scene as vbuild
+            from vrt.volume import sdf as S
+            from vrt.volume.volume import VoxelVolume
+
+            vol = VoxelVolume.from_generator(
+                S.Box(extends=(500.0, 500.0, 10.0)), 7, 100.0)
+            vs = vbuild([vol], [{"volume": 0}], camera={})
+            ts = scene_from_numpy(scene_fields(vs), device="cpu")
+            o = np.asarray([[-150.0, -149.7, 12.2], [-150.0, -149.2, 11.6],
+                            [-150.0, -150.0, 30.0], [-150.0, 3.0, 0.0],
+                            [20.0, 160.0, -5.0], [-150.0, 3.0, 0.0]],
+                           np.float32)
+            d = np.asarray([[1.0, 1.0, 0.0], [1.0, 1.0, 0.0],
+                            [1.0, 1.0, -0.1], [1.0, 0.01, 0.02],
+                            [0.1, -2.0, 0.0], [1.0, 0.01, 0.02]], np.float32)
+            interp, overlay, kinds = True, False, {1, 2, 3}
+        else:
+            vs, ts = _pair(config)
+            o, d = camera_rays(vs.cam_pos, vs.cam_rot, vs.cam_fov, 40, 40)
+            o, d = np.array(o), np.array(d)
+            interp, overlay = case == "overlay", case == "overlay"
+            kinds = {1, 5} if overlay else {4}
+        t_max = np.full(o.shape[0], 1e4, np.float32)
+        vh, vinst = _vrt_march_scene(vs, jnp.asarray(o), jnp.asarray(d),
+                                     jnp.asarray(t_max), interp,
+                                     debug_overlay=overlay)
+        assert set(np.unique(np.asarray(vh.kind))) >= kinds
+        inst = np.array(vinst)
+        inst[::3] = -1
+        assert (inst[np.asarray(vh.hit)] == -1).any()
+        vt, vn, vu = vren.resolve_scene(vs, jnp.asarray(o), jnp.asarray(d),
+                                        vh, jnp.asarray(inst))
+        with torch.no_grad():
+            tt, tn, tu = tren.resolve_scene(
+                ts, torch.from_numpy(o), torch.from_numpy(d), _torch_hit(vh),
+                torch.from_numpy(inst))
+        np.testing.assert_array_equal(tu.numpy(), np.asarray(vu))
+        np.testing.assert_allclose(tt.numpy(), np.asarray(vt), rtol=1e-5)
+        hit = np.asarray(vh.hit)
+        np.testing.assert_allclose(tn.numpy()[hit], np.asarray(vn)[hit],
+                                   rtol=1e-5, atol=1e-6, equal_nan=True)
 
 
 class TestIsosurface:

@@ -105,8 +105,8 @@ def test_frame_matches_vrt(name):
     make, check = SCENES[name]
     vs = make()
     want = np.asarray(vrender(vs, 64, 64, VMode()))
-    got = render_image(scene_from_numpy(scene_fields(vs)), 64, 64,
-                       RenderMode()).numpy()
+    ts = scene_from_numpy(scene_fields(vs), device="cpu")
+    got = render_image(ts, 64, 64, RenderMode()).numpy()
     assert got.shape == want.shape == (64, 64, 4)
     assert np.isfinite(got).all()
     np.testing.assert_array_equal(got[..., 3], 1.0)
@@ -117,8 +117,8 @@ def test_unlit_notex_frame_matches_vrt():
     vs = _textured_scene()[0]
     mode = dict(lit=False, textured=False)
     want = np.asarray(vrender(vs, 48, 48, VMode(**mode)))[..., :3]
-    got = render_image(scene_from_numpy(scene_fields(vs)), 48, 48,
-                       RenderMode(**mode)).numpy()[..., :3]
+    ts = scene_from_numpy(scene_fields(vs), device="cpu")
+    got = render_image(ts, 48, 48, RenderMode(**mode)).numpy()[..., :3]
     assert_close_f32(got, want, "unlit notex")
 
 
@@ -132,8 +132,8 @@ def test_empty_scene_matches_vrt():
     vs = vbuild([vol], [], camera=dict(position=(300.0, 0.0, 0.0)),
                 env=_env_pattern())
     want = np.asarray(vrender(vs, 32, 32, VMode()))
-    got = render_image(scene_from_numpy(scene_fields(vs)), 32, 32,
-                       RenderMode()).numpy()
+    ts = scene_from_numpy(scene_fields(vs), device="cpu")
+    got = render_image(ts, 32, 32, RenderMode()).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
@@ -160,7 +160,7 @@ def test_cube_fixture_is_vrt_render():
 
 def test_cube_mode_and_overlay_render():
     vs = ge._flagship_scene(resolution=3)
-    ts = scene_from_numpy(scene_fields(vs))
+    ts = scene_from_numpy(scene_fields(vs), device="cpu")
     for mode in (RenderMode(interp=False), RenderMode(debug_overlay=True)):
         assert render_image(ts, 8, 8, mode).shape == (8, 8, 4)
 
@@ -172,7 +172,7 @@ def test_voxel_colors_raise():
     from tests.test_torch_grad import _sphere_scene
 
     vs = _sphere_scene(use_colors=True)
-    ts = scene_from_numpy(scene_fields(vs))
+    ts = scene_from_numpy(scene_fields(vs), device="cpu")
     assert ts.use_voxel_colors
     for mode in (dict(), dict(lit=False)):
         want = np.asarray(vrender(vs, 32, 32, VMode(**mode)))[..., :3]
@@ -191,8 +191,8 @@ def test_from_enum_matches_vrt():
 def _mode_frame(notex, size, interp, lit):
     vs, np_scene, cam_pos, cam_rot = _textured_scene(notex)
     mode = dict(interp=interp, lit=lit, textured=not notex)
-    got = render_image(scene_from_numpy(scene_fields(vs)), size, size,
-                       RenderMode(**mode)).numpy()[..., :3]
+    ts = scene_from_numpy(scene_fields(vs), device="cpu")
+    got = render_image(ts, size, size, RenderMode(**mode)).numpy()[..., :3]
     assert np.isfinite(got).all()
     tag = f"notex={notex} interp={interp} lit={lit}"
     if interp or not lit:
@@ -230,7 +230,7 @@ class TestDebugOverlay:
         from tests.test_render import _simple_scene
 
         vs = _simple_scene()
-        ts = scene_from_numpy(scene_fields(vs))
+        ts = scene_from_numpy(scene_fields(vs), device="cpu")
         img = render_image(ts, 49, 49, RenderMode(debug_overlay=True)).numpy()
         plain = render_image(ts, 49, 49, RenderMode()).numpy()
         assert np.isfinite(img).all()

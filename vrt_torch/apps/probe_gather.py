@@ -38,6 +38,7 @@ R20 = 1 << 20                      # rays of the scripts' XLA cases
 FLAGSHIP_ROWS = 2 * T3             # the flagship's two stacked volumes
 FLAGSHIP_LANES = 1920 * 1080       # one 1080p frame's primary lanes
 HASH = 2654435761                  # probe_gather.py's multiplicative law
+HBM_RATE = 3.35e12                 # bytes/s, the H100's published peak
 
 
 @dataclasses.dataclass
@@ -290,10 +291,43 @@ def launch_all(case, gathers):
             for path in paths(case, gathers)}
 
 
+def _least_bytes(g, rounds):
+    """The bytes one gather must move: every index read and every output
+    element written once, and of the table one row per lookup, or the
+    whole table where the lookups outnumber its rows."""
+    src, idx = g["src"], g["idx"]
+    # GP-C writes f32 rows of the bf16 rows it reads
+    out_bytes = idx.numel() * (2 if g["kernel"] == "GP-C" else 1) \
+        * _row_bytes(g)
+    table = min(idx.numel() * rounds * _row_bytes(g),
+                src.numel() * src.element_size())
+    return idx.numel() * idx.element_size() + out_bytes + table
+
+
+def _library(gathers):
+    """The one PyTorch call per gather that computes the same function
+    (``take_along_dim`` for GP-A, ``src[idx]`` for GP-B and, on the table
+    rounded to bf16, for GP-C), with its int64 indices made beforehand; a
+    yardstick that the port never calls."""
+    calls = []
+    for g in gathers:
+        idx = g["idx"].long()
+        if g["kernel"] == "GP-A":
+            calls.append(lambda s=g["src"], i=idx, a=g["axis"]:
+                         torch.take_along_dim(s, i, dim=a))
+        else:
+            src = g["src"].bfloat16().float() if g["kernel"] == "GP-C" \
+                else g["src"]
+            calls.append(lambda s=src, i=idx: s[i])
+    return lambda: [c() for c in calls]
+
+
 def check_and_time(case, gathers, outs, reps=20, log=print):
     """Hold the kernel's outputs ``outs`` ({path: outputs}) against the
-    plain version's, raising on any difference, then time both.  Returns
-    one result dict per path."""
+    plain version's, raising on any difference, then time both, and the
+    library call where the case has one (no rounds).  Returns one result
+    dict per path, with the least time the card could take for the case's
+    bytes (``bound_ms``)."""
     want = run_plain(case, gathers)
     torch.cuda.synchronize()
     looped = any(g.get("iters") for g in gathers)
@@ -302,6 +336,8 @@ def check_and_time(case, gathers, outs, reps=20, log=print):
     rounds = max(1, max(g.get("iters", 0) for g in gathers))
     rows = sum(g["idx"].numel() for g in gathers) * rounds
     nbytes = sum(g["idx"].numel() * _row_bytes(g) for g in gathers) * rounds
+    bound_ms = 1e3 * sum(_least_bytes(g, rounds) for g in gathers) / HBM_RATE
+    library_ms = None if looped else device_ms(_library(gathers), reps)
     results = []
     for path, got in outs.items():
         err = 0.0
@@ -315,11 +351,14 @@ def check_and_time(case, gathers, outs, reps=20, log=print):
         log(f"probe {case.name:26s} {case.kernel} {path:4s} equal "
             f"rows={rows} row_bytes={nbytes // rows} kernel {ms:.4f} ms "
             f"{rows / ms / 1e3:.1f} M rows/s {nbytes / ms / 1e6:.1f} GB/s; "
-            f"plain {plain_ms:.4f} ms {rows / plain_ms / 1e3:.1f} M rows/s")
+            f"plain {plain_ms:.4f} ms {rows / plain_ms / 1e3:.1f} M rows/s; "
+            f"bound {bound_ms:.5f} ms; library "
+            + ("none" if library_ms is None else f"{library_ms:.4f} ms"))
         results.append(dict(name=case.name, kernel=case.kernel, path=path,
                             replaces=case.replaces, pallas=case.pallas,
                             rows=rows, bytes=nbytes, ms=ms,
-                            plain_ms=plain_ms, max_abs_err=err))
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            library_ms=library_ms, max_abs_err=err))
     return results
 
 

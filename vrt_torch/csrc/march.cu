@@ -1,38 +1,63 @@
-// K1 — the voxel march, one thread per ray lane, for Hopper (sm_90a).
+// K1 -- the voxel march, for Hopper (sm_90a): one device function that
+// marches a ray through one volume, and two kernels around it.
 //
-// Replaces the retired Pallas TPU kernel scripts/pallas_march.py::_kernel
-// and the XLA while-loop vrt/march/march.py::_march_core (_march_begin ->
-// _march_run -> _march_finish), in interp and cube mode and with the debug
-// overlay.  It computes what vrt_torch.march.march.march_lanes_reference
-// computes, lane for lane: per-lane volume ids over stacked volumes, octree
-// or chebyshev skip nodes, f32 or bf16 corner tables of 8 or 9 channels
-// (the first 8 are read), the slab entry with its +0.01 bias and the
-// ReverseRay no-op branch, <= 255 node steps with the +0.1 exit bias, and
-// the red exhausted hit at t = 10.  Interp mode adds the solid-entry
-// report and the trilinear cubic with its bracketed root on surface cells;
-// cube mode instead hits the first voxel of density <= 0 (read from the f32
-// voxel table, N = C + 1 per axis) at its node-entry t, with the face
-// normal of the last crossing.  The overlay reports node-border hits.  The
-// three choices are template flags, so each variant compiles on its own.
+// vrt_march_lanes, one thread per ray lane, replaces the retired Pallas TPU
+// kernel scripts/pallas_march.py::_kernel and the XLA while-loop
+// vrt/march/march.py::_march_core (_march_begin -> _march_run ->
+// _march_finish), in interp and cube mode and with the debug overlay.  It
+// computes what vrt_torch.march.march.march_lanes_reference computes, lane
+// for lane: per-lane volume ids over stacked volumes, octree or chebyshev
+// skip nodes, f32 or bf16 corner tables of 8 or 9 channels (the first 8 are
+// read), the slab entry with its +0.01 bias and the ReverseRay no-op branch,
+// <= 255 node steps with the +0.1 exit bias, and the red exhausted hit at
+// t = 10.  Interp mode adds the solid-entry report and the trilinear cubic
+// with its bracketed root on surface cells; cube mode instead hits the first
+// voxel of density <= 0 (read from the f32 voxel table, N = C + 1 per axis)
+// at its node-entry t, with the face normal of the last crossing.  The
+// overlay reports node-border hits.  The three choices are template flags,
+// so each variant compiles on its own.
 //
-// What bounds it: each step is a chain of dependent random reads — the
+// vrt_march_scene, one thread per world ray, replaces the XLA loop
+// vrt/render/renderer.py::march_scene (no Pallas kernel stands behind it):
+// the closest hit over the scene's <= 32 instances.  It computes what
+// vrt_torch.render.renderer.march_scene_reference computes with K1 as its
+// lane marcher: every instance's world -> object transform and slab test,
+// the candidates ordered by entry t (a stable insertion sort, so ties keep
+// the lower instance index), then the candidates marched in that order, each
+// with its own 255-step budget and its t_max clamped to the best hit so far.
+// With kAnyHit (shadow rays) it writes one boolean and stops at the first
+// candidate that hits.
+//
+// What bounds them: each step is a chain of dependent random reads -- the
 // 1-byte accel value of the current cell, then on surface cells its 16 or
-// 32-byte corner row (in cube mode one 4-byte density) — from tables larger
+// 32-byte corner row (in cube mode one 4-byte density) -- from tables larger
 // than the 50 MB L2 at the flagship size (2 x 128^3 cells: 4 MB of accel,
-// 67 MB of bf16 corners, 17 MB of f32 densities).  So it is latency-bound,
-// not bandwidth- or FLOP-bound.
+// 67 MB of bf16 corners, 17 MB of f32 densities).  So the march itself is
+// latency-bound, not bandwidth- or FLOP-bound.  Around it a launch moves 32 B
+// in and 45 B out per lane (28 B in and 49 B out per ray for the scene
+// march), 160 MB at 1920x1080: 0.048 ms at 3.35 TB/s before any table byte.
+// What the per-lane kernel cost at its boundary was larger than either: one
+// launch per candidate instance, each paying those bytes again, between them
+// [I,R,3] stacks of object-space rays, a stable sort over [I,R] and per-pass
+// gathers and selects in eager PyTorch (28 ms of sorts per 1080p frame).
 //
-// This first version stays simple: one thread per ray with no shared
-// memory, __ldg row loads, and every lane retiring on its own (lane
-// activity only decreases, so this equals the reference's shared loop).
-// It is built with --fmad=false so that every operation rounds like the
+// What the design does about it: the candidate loop runs inside the thread.
+// Keys and candidate order live in a 32-entry per-thread array, the
+// object-space ray of a candidate is recomputed when it is marched (a few
+// dozen flops against a round trip through device memory), a candidate whose
+// entry t is not below the best hit is never marched (the plain version
+// marches it with t_max = -inf, where it retires at the slab test with 0
+// steps and no hit), and a shadow trace writes 1 byte per ray instead of 49.
+// Within a candidate the march stays as simple as before: one thread per
+// ray with no shared memory, __ldg row loads, every lane retiring on its
+// own.  Built with --fmad=false so that every operation rounds like the
 // eager twin; sums run in the twin's order.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "scene.cuh"
 
 namespace {
+
+using namespace vrt;
 
 constexpr int kMaxIterations = 255;
 constexpr float kExhaustedT = 10.0f;
@@ -49,59 +74,24 @@ __device__ __forceinline__ int corner_bit(int i, int k) {
   return (i >> k) & 1;
 }
 
-// jnp.sign: NaN stays NaN (a NaN never compares equal or <= 0).
-__device__ __forceinline__ float sgn(float x) {
-  if (isnan(x)) return x;
-  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
-}
-
-// NaN-propagating max / min (jnp.maximum, jnp.max).
-__device__ __forceinline__ float nmax(float a, float b) {
-  if (isnan(a)) return a;
-  if (isnan(b)) return b;
-  return a < b ? b : a;
-}
-__device__ __forceinline__ float nmin(float a, float b) {
-  if (isnan(a)) return a;
-  if (isnan(b)) return b;
-  return b < a ? b : a;
-}
-
-__device__ __forceinline__ float sum8(const float p[8]) {
-  return ((p[0] + p[4]) + (p[2] + p[6])) + ((p[1] + p[5]) + (p[3] + p[7]));
-}
-
 __device__ __forceinline__ float eval_cubic(float t, float A, float B,
                                             float C, float D) {
   return ((A * t + B) * t + C) * t + D;
 }
 
-template <typename T>
-__device__ __forceinline__ float load_corner(const T* p);
-template <>
-__device__ __forceinline__ float load_corner<float>(const float* p) {
-  return __ldg(p);
-}
-// bf16 rows travel as raw 16-bit words: bf16 -> f32 is exact as u16 << 16.
-template <>
-__device__ __forceinline__ float load_corner<uint16_t>(const uint16_t* p) {
-  return __uint_as_float(static_cast<uint32_t>(__ldg(p)) << 16);
-}
+// What a march reports for one ray.
+struct Hit {
+  bool hit;
+  float t;
+  int kind;
+  int cell[3];
+  float t_in, t_out;
+  float face[3];
+  int steps;
+};
 
-struct Params {
-  const float* o;          // [L,3]
-  const float* d;          // [L,3]
-  const float* t_max;      // [L]
-  const int32_t* vol_ids;  // [L]
-  const int32_t* n;        // [V] voxels per axis
-  const float* cell_size;  // [V]
-  const float* extends;    // [V]
-  const uint8_t* accel;    // [V*C^3] packed, skips clamped to 127
-  const void* corners;     // [V*C^3, ch] f32 or bf16
-  const float* sdf;        // [V*N^3] voxel densities, N = C + 1
-  int cc;                  // C: cells per axis of the padded tables
-  int ch;                  // corner-table channels, 8 or 9
-  long long lanes;
+// Where a kernel writes its rays' hits (the fields of MarchHit).
+struct HitOut {
   uint8_t* hit;
   float* t;
   int32_t* kind;
@@ -111,6 +101,20 @@ struct Params {
   float* face;
   int32_t* steps;
 };
+
+__device__ __forceinline__ void store_hit(const HitOut& out, long long i,
+                                          const Hit& h) {
+  out.hit[i] = h.hit ? 1 : 0;
+  out.t[i] = h.t;
+  out.kind[i] = h.kind;
+  out.t_in[i] = h.t_in;
+  out.t_out[i] = h.t_out;
+  out.steps[i] = h.steps;
+  for (int k = 0; k < 3; ++k) {
+    out.cell[3 * i + k] = h.cell[k];
+    out.face[3 * i + k] = h.face[k];
+  }
+}
 
 struct Lane {
   float o[3], d[3], inv[3];
@@ -243,29 +247,49 @@ __device__ bool surface_intersection(float A, float B, float C, float D,
   return immediate || (!no_hit && *t_hit > 0.0f);
 }
 
-template <typename T, bool kCheb, bool kInterp, bool kDebug>
-__global__ void __launch_bounds__(256) march_kernel(const Params p) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= p.lanes) return;
+// The slab test of ray_aabb against the box [-ext, ext]^3: (intersects,
+// t_enter, t_exit), with 1/d = -inf where d == 0.
+__device__ __forceinline__ bool slab_test(const float o[3], const float d[3],
+                                          float ext, float t_max,
+                                          float* t_enter, float* t_exit) {
+  float te = 0.0f, tx = 0.0f;
+  for (int k = 0; k < 3; ++k) {
+    const float inv = d[k] != 0.0f ? 1.0f / d[k] : -INFINITY;
+    const float s_min = d[k] > 0.0f ? -ext : ext;
+    const float s_max = d[k] > 0.0f ? ext : -ext;
+    const float a = (s_min - o[k]) * inv;
+    const float b = (s_max - o[k]) * inv;
+    te = k == 0 ? a : nmax(te, a);
+    tx = k == 0 ? b : nmin(tx, b);
+  }
+  *t_enter = te;
+  *t_exit = tx;
+  return (tx > te) && (tx >= 0.0f) && (te <= t_max);
+}
 
+// One ray (object-space o, d) through volume v of the stacked tables: what
+// march_lanes_reference computes for one lane.
+template <typename T, bool kCheb, bool kInterp, bool kDebug>
+__device__ __forceinline__ void march_lane(const Tables& tb, int v,
+                                           const float o[3],
+                                           const float d[3], float t_max,
+                                           Hit* out) {
   Lane L;
   for (int k = 0; k < 3; ++k) {
-    L.o[k] = p.o[3 * i + k];
-    L.d[k] = p.d[3 * i + k];
+    L.o[k] = o[k];
+    L.d[k] = d[k];
     L.inv[k] = L.d[k] != 0.0f ? 1.0f / L.d[k] : -INFINITY;
   }
-  const float t_max = p.t_max[i];
-  const int v = p.vol_ids[i];
-  L.n = p.n[v];
-  L.h = p.cell_size[v];
-  L.ext = p.extends[v];
-  const long long cc = p.cc;
+  L.n = __ldg(tb.n + v);
+  L.h = __ldg(tb.cell_size + v);
+  L.ext = __ldg(tb.extends + v);
+  const long long cc = tb.cc;
+  const int ch = tb.ch;
   const long long vol_base = static_cast<long long>(v) * cc * cc * cc;
-  const uint8_t* accel = p.accel + vol_base;
-  const T* corners = static_cast<const T*>(p.corners) + vol_base * p.ch;
+  const uint8_t* accel = tb.accel + vol_base;
+  const T* corners = static_cast<const T*>(tb.corners) + vol_base * ch;
   const long long nn = cc + 1;
-  const float* sdf = p.sdf + static_cast<long long>(v) * nn * nn * nn;
+  const float* sdf = tb.sdf + static_cast<long long>(v) * nn * nn * nn;
 
   // accel / corner reads of a cell; out-of-range cells read 0
   auto accel_at = [&](const int c[3]) -> int {
@@ -277,7 +301,7 @@ __global__ void __launch_bounds__(256) march_kernel(const Params p) {
   auto corners_at = [&](const int c[3], float v8[8]) {
     const bool valid = c[0] >= 0 && c[1] >= 0 && c[2] >= 0 &&
                        c[0] + 1 < L.n && c[1] + 1 < L.n && c[2] + 1 < L.n;
-    const T* row = corners + ((c[0] * cc + c[1]) * cc + c[2]) * p.ch;
+    const T* row = corners + ((c[0] * cc + c[1]) * cc + c[2]) * ch;
     for (int j = 0; j < 8; ++j) v8[j] = valid ? load_corner<T>(row + j) : 0.0f;
   };
   // cube mode's voxel density; out-of-range voxels read 0
@@ -289,16 +313,8 @@ __global__ void __launch_bounds__(256) march_kernel(const Params p) {
   };
 
   // ---- slab entry (_march_begin) -----------------------------------------
-  float t_enter = 0.0f, t_exit = 0.0f;
-  for (int k = 0; k < 3; ++k) {
-    const float s_min = L.d[k] > 0.0f ? -L.ext : L.ext;
-    const float s_max = L.d[k] > 0.0f ? L.ext : -L.ext;
-    const float a = (s_min - L.o[k]) * L.inv[k];
-    const float b = (s_max - L.o[k]) * L.inv[k];
-    t_enter = k == 0 ? a : nmax(t_enter, a);
-    t_exit = k == 0 ? b : nmin(t_exit, b);
-  }
-  const bool ok = (t_exit > t_enter) && (t_exit >= 0.0f) && (t_enter <= t_max);
+  float t_enter, t_exit;
+  const bool ok = slab_test(L.o, L.d, L.ext, t_max, &t_enter, &t_exit);
   const bool pos_branch = t_enter >= 0.0f;
   const float t_enter_b = pos_branch ? t_enter + 0.01f : t_enter;
   int cell[3];
@@ -454,40 +470,195 @@ __global__ void __launch_bounds__(256) march_kernel(const Params p) {
     face[2] = 0.0f;
   }
 
-  p.hit[i] = hit ? 1 : 0;
-  p.t[i] = t_best;
-  p.kind[i] = kind;
-  p.t_in[i] = t_in_best;
-  p.t_out[i] = t_out_best;
-  p.steps[i] = steps;
+  out->hit = hit;
+  out->t = t_best;
+  out->kind = kind;
+  out->t_in = t_in_best;
+  out->t_out = t_out_best;
+  out->steps = steps;
   for (int k = 0; k < 3; ++k) {
-    p.cell[3 * i + k] = cell_best[k];
-    p.face[3 * i + k] = face[k];
+    out->cell[k] = cell_best[k];
+    out->face[k] = face[k];
   }
 }
+
+struct LaneParams {
+  const float* o;          // [L,3] object space
+  const float* d;          // [L,3]
+  const float* t_max;      // [L]
+  const int32_t* vol_ids;  // [L]
+  Tables tb;
+  long long lanes;
+  HitOut out;
+};
 
 template <typename T, bool kCheb, bool kInterp, bool kDebug>
-void launch(const Params& p, cudaStream_t stream) {
-  const int block = 256;
-  const long long grid = (p.lanes + block - 1) / block;
-  march_kernel<T, kCheb, kInterp, kDebug>
-      <<<static_cast<unsigned>(grid), block, 0, stream>>>(p);
+__global__ void __launch_bounds__(256) march_kernel(const LaneParams p) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= p.lanes) return;
+  float o[3], d[3];
+  for (int k = 0; k < 3; ++k) {
+    o[k] = p.o[3 * i + k];
+    d[k] = p.d[3 * i + k];
+  }
+  Hit h;
+  march_lane<T, kCheb, kInterp, kDebug>(p.tb, p.vol_ids[i], o, d, p.t_max[i],
+                                        &h);
+  store_hit(p.out, i, h);
 }
 
-template <typename T, bool kCheb>
-void launch_mode(const Params& p, int interp, int debug, cudaStream_t s) {
+constexpr int kMaxInstances = 32;
+
+struct SceneParams {
+  const float* o_w;    // [R,3] world space
+  const float* d_w;    // [R,3]
+  const float* t_max;  // [R]
+  Instances inst;
+  Tables tb;
+  long long rays;
+  HitOut out;       // only out.hit is written with kAnyHit
+  int32_t* winner;  // [R] winning instance, -1 for none
+};
+
+// march_scene_reference for one ray.  A candidate is live when its instance
+// is active, its box is hit within t_max (ok) and its entry t lies below the
+// best hit so far; its key is that entry t, or +inf when not ok.  An ok
+// candidate's key is never +inf or NaN (t_exit > t_enter would fail), so
+// "live" is "key < best_t", and as keys ascend and best_t only falls, the
+// first dead candidate ends the loop.
+template <typename T, bool kCheb, bool kInterp, bool kDebug, bool kAnyHit>
+__global__ void __launch_bounds__(256) march_scene_kernel(
+    const SceneParams p) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= p.rays) return;
+  float o_w[3], d_w[3], o[3], d[3];
+  for (int k = 0; k < 3; ++k) {
+    o_w[k] = p.o_w[3 * i + k];
+    d_w[k] = p.d_w[3 * i + k];
+  }
+  const float t_max = p.t_max[i];
+
+  // candidates in entry-t order: a stable insertion sort (an equal key stays
+  // behind the lower instance index, as argsort(stable=True) leaves it)
+  float key[kMaxInstances];
+  uint8_t order[kMaxInstances];
+  for (int a = 0; a < p.inst.count; ++a) {
+    world_to_object(p.inst, a, o_w, d_w, o, d);
+    const float ext = __ldg(p.tb.extends + __ldg(p.inst.volume + a));
+    float t_enter, t_exit;
+    const bool ok = slab_test(o, d, ext, t_max, &t_enter, &t_exit) &&
+                    __ldg(p.inst.active + a) != 0;
+    const float ka = ok ? t_enter : INFINITY;
+    int j = a;
+    for (; j > 0 && key[j - 1] > ka; --j) {
+      key[j] = key[j - 1];
+      order[j] = order[j - 1];
+    }
+    key[j] = ka;
+    order[j] = static_cast<uint8_t>(a);
+  }
+
+  // the no-hit result, derived from the world origin as the reference
+  // derives it
+  const float zf = o_w[0] * 0.0f;
+  Hit best;
+  best.hit = false;
+  best.t = zf + INFINITY;
+  best.kind = 0;
+  best.t_in = zf;
+  best.t_out = zf;
+  best.steps = 0;
+  for (int k = 0; k < 3; ++k) {
+    best.cell[k] = 0;
+    best.face[k] = o_w[k] * 0.0f;
+  }
+  int winner = -1;
+  float best_t = INFINITY;
+  int steps = 0;
+  for (int j = 0; j < p.inst.count && key[j] < best_t; ++j) {
+    const int a = order[j];
+    world_to_object(p.inst, a, o_w, d_w, o, d);
+    Hit h;
+    march_lane<T, kCheb, kInterp, kDebug>(p.tb, __ldg(p.inst.volume + a), o,
+                                          d, nmin(t_max, best_t), &h);
+    steps += h.steps;
+    if (h.hit && h.t < best_t) {
+      best = h;
+      winner = a;
+      best_t = h.t;
+      // once a candidate wins, hit stays true whatever follows
+      if (kAnyHit) break;
+    }
+  }
+  if (kAnyHit) {
+    p.out.hit[i] = best.hit ? 1 : 0;
+    return;
+  }
+  best.steps = steps;
+  store_hit(p.out, i, best);
+  p.winner[i] = winner;
+}
+
+unsigned grid_for(long long n) {
+  return static_cast<unsigned>((n + 255) / 256);
+}
+
+// Calls f.go<T, kCheb, kInterp, kDebug>() with the table type, the accel
+// mode, the march mode and the overlay as compile-time flags.
+template <typename T, bool kCheb, typename F>
+void by_mode(const F& f, int interp, int debug) {
   if (interp) {
-    if (debug) launch<T, kCheb, true, true>(p, s);
-    else launch<T, kCheb, true, false>(p, s);
+    if (debug) f.template go<T, kCheb, true, true>();
+    else f.template go<T, kCheb, true, false>();
   } else {
-    if (debug) launch<T, kCheb, false, true>(p, s);
-    else launch<T, kCheb, false, false>(p, s);
+    if (debug) f.template go<T, kCheb, false, true>();
+    else f.template go<T, kCheb, false, false>();
   }
 }
+
+template <typename F>
+void by_table(const F& f, int bf16, int chebyshev, int interp, int debug) {
+  if (bf16) {
+    if (chebyshev) by_mode<uint16_t, true>(f, interp, debug);
+    else by_mode<uint16_t, false>(f, interp, debug);
+  } else {
+    if (chebyshev) by_mode<float, true>(f, interp, debug);
+    else by_mode<float, false>(f, interp, debug);
+  }
+}
+
+struct LaunchLanes {
+  LaneParams p;
+  cudaStream_t stream;
+  template <typename T, bool kCheb, bool kInterp, bool kDebug>
+  void go() const {
+    march_kernel<T, kCheb, kInterp, kDebug>
+        <<<grid_for(p.lanes), 256, 0, stream>>>(p);
+  }
+};
+
+struct LaunchScene {
+  SceneParams p;
+  bool any_hit;  // never with the overlay: vrt_march_scene refuses it
+  cudaStream_t stream;
+  template <typename T, bool kCheb, bool kInterp, bool kDebug>
+  void go() const {
+    const unsigned grid = grid_for(p.rays);
+    if (any_hit)
+      march_scene_kernel<T, kCheb, kInterp, false, true>
+          <<<grid, 256, 0, stream>>>(p);
+    else
+      march_scene_kernel<T, kCheb, kInterp, kDebug, false>
+          <<<grid, 256, 0, stream>>>(p);
+  }
+};
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 on success).
+// One thread per object-space lane.  Returns cudaGetLastError() after the
+// launch (0 on success).
 extern "C" int vrt_march_lanes(
     const float* o, const float* d, const float* t_max,
     const int32_t* vol_ids, const int32_t* n, const float* cell_size,
@@ -496,16 +667,38 @@ extern "C" int vrt_march_lanes(
     int debug, long long lanes, uint8_t* hit, float* t, int32_t* kind,
     int32_t* cell, float* t_in, float* t_out, float* face, int32_t* steps,
     void* stream) {
-  Params p{o,      d,  t_max, vol_ids, n,    cell_size, extends, accel,
-           corners, sdf, cc, ch,     lanes, hit,  t,         kind,    cell,
-           t_in,   t_out, face, steps};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    if (chebyshev) launch_mode<uint16_t, true>(p, interp, debug, s);
-    else launch_mode<uint16_t, false>(p, interp, debug, s);
-  } else {
-    if (chebyshev) launch_mode<float, true>(p, interp, debug, s);
-    else launch_mode<float, false>(p, interp, debug, s);
-  }
+  const LaneParams p{
+      o, d, t_max, vol_ids,
+      Tables{n, cell_size, extends, accel, corners, sdf, cc, ch}, lanes,
+      HitOut{hit, t, kind, cell, t_in, t_out, face, steps}};
+  by_table(LaunchLanes{p, static_cast<cudaStream_t>(stream)}, bf16, chebyshev,
+           interp, debug);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One thread per world ray over the scene's instances (at most 32).  With
+// any_hit only ``hit`` is written (the other outputs may be null); the
+// overlay has no any-hit variant.  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a combination it does not take.
+extern "C" int vrt_march_scene(
+    const float* o_w, const float* d_w, const float* t_max,
+    const int32_t* inst_volume, const float* inst_pos, const float* inst_rot,
+    const float* inst_scale, const uint8_t* inst_active, int n_inst,
+    const int32_t* n, const float* cell_size, const float* extends,
+    const uint8_t* accel, const void* corners, const float* sdf, int cc,
+    int ch, int bf16, int chebyshev, int interp, int debug, int any_hit,
+    long long rays, uint8_t* hit, float* t, int32_t* kind, int32_t* cell,
+    float* t_in, float* t_out, float* face, int32_t* steps, int32_t* winner,
+    void* stream) {
+  if (n_inst < 1 || n_inst > kMaxInstances || (any_hit && debug))
+    return cudaErrorInvalidValue;
+  const SceneParams p{
+      o_w, d_w, t_max,
+      Instances{inst_volume, inst_pos, inst_rot, inst_scale, inst_active,
+                n_inst},
+      Tables{n, cell_size, extends, accel, corners, sdf, cc, ch}, rays,
+      HitOut{hit, t, kind, cell, t_in, t_out, face, steps}, winner};
+  by_table(LaunchScene{p, any_hit != 0, static_cast<cudaStream_t>(stream)},
+           bf16, chebyshev, interp, debug);
   return static_cast<int>(cudaGetLastError());
 }

@@ -91,7 +91,7 @@ def load_checkpoint(path: str, params_like, opt_state_like):
 
 
 def params_from_numpy(arrays: Dict[str, np.ndarray],
-                      device: torch.device | str = "cpu"):
+                      device: torch.device | str = "cuda"):
     """``vrt``'s parameter arrays (numpy, bf16 as ml_dtypes) as the port's
     parameter dict on ``device``."""
     return {k: _to_tensor(v, device) for k, v in arrays.items()}

@@ -3,9 +3,10 @@
 A source under ``vrt_torch/csrc/`` is compiled by hand with ``nvcc`` into a
 shared library with a plain C interface and loaded with ``ctypes``.  The
 library goes at first use into ``build/vrt_torch_kernels/`` under the
-checkout, named by a hash of the source and flags, so an edited source is
-rebuilt.  ``-Xptxas -v`` makes ptxas print each kernel's registers, shared
-memory and spills; ``build`` returns that log.
+checkout, named by a hash of the source, the headers it includes and the
+flags, so an edited source is rebuilt.  ``-Xptxas -v`` makes ptxas print
+each kernel's registers, shared memory and spills; ``build`` returns that
+log.
 """
 
 from __future__ import annotations
@@ -31,13 +32,16 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
-def build(source: str, extra_flags=()) -> tuple[ctypes.CDLL, str]:
+def build(source: str, extra_flags=(), headers=()
+          ) -> tuple[ctypes.CDLL, str]:
     """Compile ``csrc/<source>`` (when its library is missing) and load it.
-    Returns the library and the compiler's output ("" when the library was
-    already built)."""
+    ``headers`` names the files under ``csrc/`` that the source includes:
+    they are hashed with it.  Returns the library and the compiler's output
+    ("" when the library was already built)."""
     path = CSRC / source
     flags = BASE_FLAGS + list(extra_flags)
-    src = path.read_bytes()
+    src = path.read_bytes() + b"".join((CSRC / h).read_bytes()
+                                       for h in headers)
     tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     so = BUILD_DIR / f"lib{path.stem}_{tag[:16]}.so"
     log = ""

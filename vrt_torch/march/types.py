@@ -95,7 +95,7 @@ class DeviceVolume:
                     accel_mode: str = "octree",
                     march_dtype: torch.dtype | None = None,
                     fuse_budget_bytes: int | None = None,
-                    device: torch.device | str = "cpu") -> "DeviceVolume":
+                    device: torch.device | str = "cuda") -> "DeviceVolume":
         """Host-side (numpy) assembly, then one transfer per array."""
         n = vol.n_voxels
         pad_n = pad_to or n

@@ -11,8 +11,9 @@ One dataclass of stacked tensors on one device:
 - a texture atlas and an environment cube map,
 - the per-voxel colour field (the fit's albedo) and its corner-packed view.
 
-``build_scene`` assembles it from host data with an explicit ``device``;
-``scene_from_numpy`` rebuilds a ``vrt`` scene's state from its leaves.
+``build_scene`` assembles it from host data and ``scene_from_numpy``
+rebuilds a ``vrt`` scene's state from its leaves, both on ``device``, which
+defaults to the card (``"cuda"``): pass ``device="cpu"`` for CPU work.
 """
 
 from __future__ import annotations
@@ -158,7 +159,7 @@ def build_scene(volumes: Sequence,  # VoxelVolume
                 voxel_colors: np.ndarray | None = None,
                 accel_mode: str = "octree",
                 march_dtype: torch.dtype | None = None,
-                device: torch.device | str = "cpu") -> GPUScene:
+                device: torch.device | str = "cuda") -> GPUScene:
     """Assemble a GPUScene from host data on ``device``.
 
     instances: dicts {volume: int, position, rotation(quat xyzw), scale}.
@@ -322,7 +323,7 @@ def _to_tensor(x, device) -> torch.Tensor:
 _STATIC = ("num_point", "num_spot", "any_reflective", "use_voxel_colors")
 
 
-def scene_from_numpy(fields: dict, device: torch.device | str = "cpu"
+def scene_from_numpy(fields: dict, device: torch.device | str = "cuda"
                      ) -> GPUScene:
     """Build a GPUScene from the leaves of a ``vrt`` GPUScene.
 

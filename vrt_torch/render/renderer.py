@@ -2,8 +2,14 @@
 ``vrt.render.renderer``, the unchunked inline path).
 
 - the TLAS over per-instance AABBs is a loop over the (<= 20) instances in
-  entry-t order: each candidate pass marches every ray in its object space
-  with its own 255-step budget, clamped to the closest hit so far,
+  entry-t order: each candidate is marched in its object space with its own
+  255-step budget, clamped to the closest hit so far.  On CUDA tensors that
+  loop runs inside one kernel launch per trace (K1's scene march); its plain
+  version ``march_scene_reference`` runs one pass over all rays per
+  candidate,
+- hit resolve (t, normal, unlit) is one fused kernel on CUDA tensors when no
+  autograd graph is recorded, and plain PyTorch over K3's row gather
+  otherwise (``resolve_scene``),
 - the recursive ``TraceRay`` tree (recursion cap 3) recurses inline:
   depth-0/1/2 radiance traces with masked reflection lanes and boolean
   shadow traces,
@@ -67,34 +73,81 @@ def _object_normal_to_world(rot, scale, n_obj):
     return vq.rotate(rot, n_obj) * scale
 
 
+def _no_instances(o_w):
+    """The all-miss result of a scene without instances."""
+    r = o_w.shape[0]
+    hit = MarchHit.none_like(o_w)
+    hit.steps = torch.zeros(r, dtype=torch.int32, device=o_w.device)
+    return hit, torch.full((r,), -1, dtype=torch.int32, device=o_w.device)
+
+
 def march_scene(scene: GPUScene, o_w, d_w, t_max, interp: bool = True,
                 debug_overlay: bool = False, lane_marcher=None):
     """Closest hit across all active instances — the TLAS equivalent.
 
     Per ray, candidate instances are ordered by AABB entry t and marched
-    one pass at a time; pass j's t_max is clamped to the best hit so far,
+    one at a time; candidate j's t_max is clamped to the best hit so far,
     and each candidate gets its own 255-step budget.  Ties in entry t keep
     the lower instance index (stable sort).
 
     Returns (hit: MarchHit with object-space brackets of the winning
-    instance and ``steps`` summed over passes, inst: i32 [R] winning
-    instance id, -1 when none).  ``lane_marcher`` overrides the
-    per-candidate march (signature of ``march_lanes``).  Runs under
-    ``torch.no_grad()``: nothing it returns carries a gradient."""
-    with torch.no_grad():
-        return _march_scene(scene, o_w, d_w, t_max, interp, debug_overlay,
-                            lane_marcher or march_lanes)
+    instance and ``steps`` summed over candidates, inst: i32 [R] winning
+    instance id, -1 when none).  CUDA tensors go to K1's scene march, one
+    launch for the whole trace (``kernels.march.march_scene_cuda``); CPU
+    tensors go to its plain version ``march_scene_reference``.
+    ``lane_marcher`` (signature of ``march_lanes``) selects the plain
+    version's candidate loop on any device, with that per-candidate march.
+    Runs under ``torch.no_grad()``: nothing it returns carries a
+    gradient."""
+    if lane_marcher is not None or o_w.device.type == "cpu":
+        return march_scene_reference(scene, o_w, d_w, t_max, interp,
+                                     debug_overlay,
+                                     lane_marcher or march_lanes)
+    if scene.num_instances == 0:
+        return _no_instances(o_w)
+    return _scene_march_kernel(scene, o_w, d_w, t_max, interp, debug_overlay)
 
 
-def _march_scene(scene, o_w, d_w, t_max, interp, debug_overlay,
-                 lane_marcher):
+def march_scene_any_hit(scene: GPUScene, o_w, d_w, t_max,
+                        interp: bool = True):
+    """Whether each ray hits anything within [0, t_max]: bool [R], the
+    ``hit`` of ``march_scene``'s result without the debug overlay.  On CUDA
+    tensors K1's scene march writes only this and stops at the first
+    candidate that hits; on CPU tensors it is read off the plain version."""
+    if o_w.device.type == "cpu":
+        return march_scene_reference(scene, o_w, d_w, t_max, interp)[0].hit
+    if scene.num_instances == 0:
+        return _no_instances(o_w)[0].hit
+    return _scene_march_kernel(scene, o_w, d_w, t_max, interp, any_hit=True)
+
+
+def _scene_march_kernel(scene, o_w, d_w, t_max, interp, debug_overlay=False,
+                        any_hit=False):
+    if o_w.device.type != "cuda":
+        raise ValueError(f"no scene march for device {o_w.device}")
+    from vrt_torch.kernels import march as k1
+
+    return k1.march_scene_cuda(scene, o_w.contiguous(), d_w.contiguous(),
+                               t_max.contiguous(), interp, debug_overlay,
+                               any_hit=any_hit)
+
+
+@torch.no_grad()
+def march_scene_reference(scene: GPUScene, o_w, d_w, t_max,
+                          interp: bool = True, debug_overlay: bool = False,
+                          lane_marcher=march_lanes):
+    """The plain version of the scene march (port of
+    ``vrt.render.renderer.march_scene``): per-instance transforms and slab
+    tests, a stable ``argsort`` of the entry t, and one ``lane_marcher``
+    pass over all rays per candidate.  A candidate that is not live (its
+    box is missed, its instance inactive, or its entry t not below the best
+    hit so far) is marched with t_max = -inf and retires at the slab
+    test."""
     r = o_w.shape[0]
     dev = o_w.device
     n_inst = scene.num_instances
     if n_inst == 0:
-        hit = MarchHit.none_like(o_w)
-        hit.steps = torch.zeros(r, dtype=torch.int32, device=dev)
-        return hit, torch.full((r,), -1, dtype=torch.int32, device=dev)
+        return _no_instances(o_w)
 
     o_objs, d_objs, oks, keys = [], [], [], []
     ext_i = scene.volumes.extends[scene.inst_volume.long()]      # [I]
@@ -157,7 +210,39 @@ def _per_ray_instance(scene: GPUScene, inst):
 
 def resolve_scene(scene: GPUScene, o_w, d_w, hit: MarchHit, inst):
     """(t, object-space normal, unlit) for scene hits, read from the
-    packed corner table (f32 or bf16)."""
+    packed corner table (f32 or bf16).
+
+    Dispatches on the device and on autograd's state.  CUDA tensors with
+    no graph to record (grad mode is off, or neither the corner table, nor
+    the rays, nor the instance transforms require a gradient) go to the
+    fused resolve kernel (``kernels.resolve.resolve_scene_cuda``).  CUDA
+    tensors with a graph to record (a fit step) go through
+    ``resolve_scene_reference``, whose row gather is K3 with its
+    scatter-add backward: the fused kernel has no backward yet.  CPU
+    tensors go to ``resolve_scene_reference``, the kernel's plain version.
+    A launch that fails raises; nothing falls back."""
+    if o_w.device.type == "cuda" and not _records_graph(scene, o_w, d_w):
+        from vrt_torch.kernels import resolve as kr
+
+        return kr.resolve_scene_cuda(scene, o_w.contiguous(),
+                                     d_w.contiguous(), hit, inst)
+    if o_w.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no resolve for device {o_w.device}")
+    return resolve_scene_reference(scene, o_w, d_w, hit, inst)
+
+
+def _records_graph(scene: GPUScene, o_w, d_w) -> bool:
+    """Whether resolve's result would carry a gradient."""
+    return torch.is_grad_enabled() and any(
+        x.requires_grad for x in (scene.volumes.corners, o_w, d_w,
+                                  scene.inst_pos, scene.inst_rot,
+                                  scene.inst_scale))
+
+
+def resolve_scene_reference(scene: GPUScene, o_w, d_w, hit: MarchHit, inst):
+    """``resolve_scene`` in plain PyTorch, differentiable in the corner
+    table, the rays and the instance transforms (port of
+    ``vrt.render.renderer.resolve_scene``)."""
     pr = _per_ray_instance(scene, inst)
     o, d = _world_to_object(pr["pos"], pr["rot"], pr["scale"], o_w, d_w)
     cfetch = iso.make_stacked_corner_fetch(scene.volumes.corners, pr["n"],
@@ -200,8 +285,7 @@ def trace_shadow(scene: GPUScene, o_w, d_w, max_dist, depth: int,
         return torch.zeros(o_w.shape[0], dtype=torch.bool, device=o_w.device)
     if relevant is not None:
         max_dist = torch.where(relevant, max_dist, -_INF)
-    hit, _ = march_scene(scene, o_w, d_w, max_dist, interp)
-    return hit.hit
+    return march_scene_any_hit(scene, o_w, d_w, max_dist, interp)
 
 
 def _shade_lit(scene: GPUScene, o_w, d_w, t, n_obj, inst, hit: MarchHit,

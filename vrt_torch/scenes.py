@@ -8,7 +8,7 @@ import torch
 
 def flagship_scene(resolution: int = 5, accel_mode: str = "octree",
                    march_dtype: torch.dtype | None = None,
-                   device: torch.device | str = "cpu",
+                   device: torch.device | str = "cuda",
                    use_colors: bool = False):
     """Two instances — a roughness-0.1 reflective sphere and a CSG box
     minus a sphere — an 8x8 sky cube, and a directional light with shadows
