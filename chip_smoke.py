@@ -7,8 +7,9 @@ Phases, each of which raises on failure:
 1. device  -- needs a CUDA card; prints its name and power limit,
 2. build   -- compiles the march K1 (per-lane and scene kernels), the
              gather library (GP-A, GP-B, GP-C), the row gather K3 and the
-             fused resolve from ``vrt_torch/csrc/``, one nvcc each, all in
-             parallel, and prints ptxas' register and spill lines,
+             fused resolve (forward and backward) from ``vrt_torch/csrc/``,
+             one nvcc each, all in parallel, and prints ptxas' register and
+             spill lines,
 3. kernels -- every kernel against its plain version on the inputs the
              flagship scene (resolution 7, chebyshev, bf16) and config6 give
              it, both timed, with the least time the card could take for the
@@ -22,14 +23,22 @@ Phases, each of which raises on failure:
              step against ``march_scene_reference`` over the twin (hit, kind,
              t, cell, brackets, face normal, steps, winning instance), the
              any-hit launches against its ``hit``;
-             the fused resolve: the three launches of a 1080p frame against
+             the fused resolve: the three launches of a 1080p frame, and the
+             three of a 1080p config6 fit step (a graph is recorded), against
              ``resolve_scene_reference`` with a plain gather (equal, NaN
              equal to NaN);
-             K3: every launch of one 1080p frame on the candidate-loop path
-             and of one config6 fit step against the plain versions (gathers
-             equal, scatters within 1e-5 * max|sum| of a float64
-             ``index_add_``), and against the library calls ``src[idx]`` and
-             ``index_add_``,
+             the fused resolve's backward: the three launches of that fit
+             step against ``resolve_scene_backward_reference`` on the same
+             saved inputs and cotangents (ray gradients within 1e-5 * max|g|,
+             the table's within 1e-5 * max|sum| of the closed form summed in
+             float64);
+             K3: every launch of one 1080p frame on the candidate-loop path,
+             of one config6 fit step, and of that step with resolve on the
+             plain path (the 9-channel corner rows) against the plain
+             versions (gathers equal, scatters within 1e-5 * max|sum| of a
+             float64 ``index_add_``), each scatter on its own path and, where
+             that is the 16-byte one, on the scalar path too, and against the
+             library calls ``src[idx]`` and ``index_add_``,
 4. frame   -- the 1920x1080 flagship frame three times after a warm-up, in
              interp mode, in cube mode and with the overlay, with the launch
              counts of those frames (per frame 5 scene marches, 3 fused
@@ -52,10 +61,13 @@ Phases, each of which raises on failure:
              the flagship at resolution 6 with per-voxel colours, SDF and
              colours optimized by Adam (lr 1e-2) towards zero targets; one
              warm-up step, then three timed, with the launches per step (5
-             scene marches, 6 K3 gathers, 6 K3 scatters), peak device memory
-             and the losses; the step on the candidate-loop path against the
-             default path (old, new, new, old, medians of 3); a profile of
-             one step; the card's loss and gradients at 64x36 against
+             scene marches, 3 fused resolves forward and 3 backward, 3 K3
+             gathers and 3 K3 scatters for the colour rows, no per-lane K1),
+             peak device memory and the losses; the step with resolve on the
+             plain path over K3 against the default path (old, new, new, old,
+             medians of 3), with the device ops, busy time and peak memory
+             of a step on either; the card's loss and gradients at 64x36
+             (through the backward kernel) against
              ``vrt``'s (``tests/fixtures/fit_flagship_r4_colors_64x36.npz``);
              then ``python -m vrt_torch.apps.fit`` at its defaults, whose
              last loss must be under a quarter of its first.
@@ -96,9 +108,16 @@ LANE_FLOPS, STEP_FLOPS, SURFACE_FLOPS, INSTANCE_FLOPS = 60, 32, 380, 90
 # the fused resolve, from csrc/resolve.cu: six trilinear samples and the
 # normal on a surface lane
 RESOLVE_FLOPS = 420
+# the backward, from csrc/resolve.cu: the weights and their derivatives,
+# three fields with nine derivatives, F'(t0), the normal's and the hit
+# point's pull-back and the 56 products of the row cotangents
+RESOLVE_BWD_FLOPS = 900
 # K3's f32 atomics add in another order on every run: its scatter is held
-# to SCATTER_RTOL * max|sum| of an exact (float64) sum
+# to SCATTER_RTOL * max|sum| of an exact (float64) sum; so are the table
+# gradients of the fused resolve's backward, and its ray gradients to
+# RAY_GRAD_RTOL * max|g| of the plain closed form (another order of sums)
 SCATTER_RTOL = 1e-5
+RAY_GRAD_RTOL = 1e-5
 # config6's camera (vrt/apps/bench.py bench_fit)
 FIT_CAMS = [dict(position=(320.0, 0.0, 40.0), rotation=(0.0, 0.0, 1.0, 0.0),
                  fov=60.0)]
@@ -195,6 +214,21 @@ def _candidate_loop_path():
     finally:
         (tren.march_scene, tren.march_scene_any_hit,
          tren.resolve_scene) = saved
+
+
+@contextlib.contextmanager
+def _plain_resolve_path():
+    """The renderer with resolve in plain PyTorch under autograd, over K3's
+    gather and scatter: the path a fit step took before the fused resolve
+    had a backward."""
+    from vrt_torch.render import renderer as tren
+
+    saved = tren.resolve_scene
+    tren.resolve_scene = tren.resolve_scene_reference
+    try:
+        yield
+    finally:
+        tren.resolve_scene = saved
 
 
 @contextlib.contextmanager
@@ -359,25 +393,14 @@ def _resolve_bound(scene, hit, inst):
     the ray and its instance (28 B) on surface and solid-entry hits; the
     cell (12 B) on surface hits, and each distinct corner row that their
     six neighbours name, once."""
-    import torch
-
     from vrt_torch.march.resolve import _OFFS7
 
     vols = scene.volumes
     rays = hit.kind.numel()
-    surf = hit.kind == 1
-    n_surf = int(surf.sum())
+    n_surf = int((hit.kind == 1).sum())
     n_solid = int((hit.kind == 2).sum())
     n_debug = int((hit.kind == 5).sum())
-    vol = scene.inst_volume[inst[surf].clamp_min(0).long()].long()
-    cells = hit.cell[surf][:, None, :].long() + torch.as_tensor(
-        _OFFS7[1:], device=surf.device).long()
-    n = vols.n[vol].long()[:, None, None]
-    valid = ((cells >= 0) & (cells + 1 < n)).all(-1)
-    cc = vols.corners.shape[1]
-    flat = ((vol[:, None] * cc + cells[..., 0]) * cc + cells[..., 1]) * cc \
-        + cells[..., 2]
-    rows = int(torch.unique(flat[valid]).numel())
+    rows = _surface_rows(scene, hit, inst, _OFFS7[1:])
     row_bytes = vols.corners.shape[-1] * vols.corners.element_size()
     nbytes = (rays * (8 + 17) + (rays - n_surf - n_debug) * 12
               + (n_surf + n_solid) * 28 + n_surf * 12 + rows * row_bytes)
@@ -442,15 +465,134 @@ def _resolve_calls(run, expected, tag):
                 bound=_sum_bounds(bounds))
 
 
+def _surface_rows(scene, hit, inst, offsets):
+    """How many distinct corner rows the surface hits name through
+    ``offsets`` (cells relative to the hit cell), out-of-range ones left
+    out."""
+    import torch
+
+    vols = scene.volumes
+    surf = hit.kind == 1
+    vol = scene.inst_volume[inst[surf].clamp_min(0).long()].long()
+    cells = hit.cell[surf][:, None, :].long() + torch.as_tensor(
+        offsets, device=surf.device).long()
+    n = vols.n[vol].long()[:, None, None]
+    valid = ((cells >= 0) & (cells + 1 < n)).all(-1)
+    cc = vols.corners.shape[1]
+    flat = ((vol[:, None] * cc + cells[..., 0]) * cc + cells[..., 1]) * cc \
+        + cells[..., 2]
+    return int(torch.unique(flat[valid]).numel())
+
+
+def _resolve_bwd_bound(scene, hit, inst, rays_grad, table_grad):
+    """The backward's bound, from what these hits need: per ray the kind
+    read (4 B) and, with ``rays_grad``, the two ray gradients written
+    (24 B); the ray, its instance and g_t (32 B) on surface and solid-entry
+    hits; t, the cell and g_normal (28 B) on surface hits, and each distinct
+    corner row that the hit cell and its six neighbours name, once; with
+    ``table_grad`` the f32 accumulator written once."""
+    from vrt_torch.march.resolve import _OFFS7
+
+    corners = scene.volumes.corners
+    rays = hit.kind.numel()
+    n_surf = int((hit.kind == 1).sum())
+    n_solid = int((hit.kind == 2).sum())
+    rows = _surface_rows(scene, hit, inst, _OFFS7)
+    row_bytes = corners.shape[-1] * corners.element_size()
+    nbytes = (rays * (4 + 24 * int(rays_grad)) + (n_surf + n_solid) * 32
+              + n_surf * 28 + rows * row_bytes
+              + corners.numel() * 4 * int(table_grad))
+    return _bound(nbytes, n_surf * RESOLVE_BWD_FLOPS)
+
+
+def _resolve_bwd_calls(run, expected, tag):
+    """Every launch of the fused resolve's backward in ``run()`` (a fit
+    step), kept with its saved inputs, its cotangents and the output ``run``
+    used, then held against its plain version
+    (``resolve_scene_backward_reference``, the closed form) on the same
+    inputs: the ray gradients (where the launch was asked for them: the
+    primary rays of a fixed camera need none) within ``RAY_GRAD_RTOL * max|g|``, the table's
+    within ``SCATTER_RTOL * max|sum|`` of the closed form summed in float64,
+    all finite.  Both timed.  Returns dict(launches, max_abs_err (of the
+    table), ray_err, ms, plain_ms (lists), bound)."""
+    import torch
+
+    from vrt_torch.kernels import resolve as kr
+    from vrt_torch.kernels._timing import device_ms
+    from vrt_torch.render.renderer import resolve_scene_backward_reference
+
+    with _recording(kr, "resolve_scene_backward_cuda") as calls:
+        run()
+    torch.cuda.synchronize()
+    if len(calls) != expected:
+        raise AssertionError(f"the {tag} launched the fused resolve's "
+                             f"backward {len(calls)} times, expected "
+                             f"{expected}")
+    err, ray_err, ms, plain_ms, bounds = 0.0, 0.0, [], [], []
+    for i, (args, kwargs, got) in enumerate(calls):
+        scene, o_w, d_w, hit, inst, g_t, g_n = args[:7]
+        rays_grad, table_grad = args[7:] + tuple(kwargs.values())
+        if not table_grad or (got[0] is None) == rays_grad:
+            raise AssertionError(f"{tag} backward {i}: outputs do not "
+                                 f"follow ({rays_grad}, {table_grad})")
+        want = resolve_scene_backward_reference(*args[:7],
+                                                acc_dtype=torch.float64)
+        rel = [0.0]
+        for name, a, b in zip(("g_o_w", "g_d_w"), got, want):
+            if not rays_grad:
+                break
+            scale = b.abs().max().item()
+            e = (a - b).abs().max().item()
+            rel.append(e / scale if scale > 0 else e)
+            if not (bool(torch.isfinite(a).all())
+                    and e <= RAY_GRAD_RTOL * scale):
+                raise AssertionError(f"{tag} backward {i}: {name} off by "
+                                     f"{e:.3e} > {RAY_GRAD_RTOL} * "
+                                     f"{scale:.3e}")
+        scale = want[2].abs().max().item()
+        e = (got[2].double() - want[2]).abs().max().item()
+        if not (bool(torch.isfinite(got[2]).all())
+                and e <= SCATTER_RTOL * scale and scale > 0):
+            raise AssertionError(f"{tag} backward {i}: the table gradient is "
+                                 f"off by {e:.3e} > {SCATTER_RTOL} * "
+                                 f"{scale:.3e}")
+        err, ray_err = max(err, e), max(ray_err, *rel)
+        del want
+        ms.append(device_ms(
+            lambda: kr.resolve_scene_backward_cuda(*args, **kwargs), 20))
+        plain_ms.append(device_ms(
+            lambda: resolve_scene_backward_reference(*args[:7]), 3))
+        bounds.append(_resolve_bwd_bound(scene, hit, inst, rays_grad,
+                                         table_grad))
+        kinds = torch.bincount(hit.kind, minlength=6).tolist()
+        print(f"fused resolve backward vs plain [{tag} {i}]: rays "
+              f"{o_w.shape[0]} kinds {kinds} cotangents non-zero on "
+              f"{int(((g_t != 0) | (g_n != 0).any(-1)).sum())} rays; ray "
+              f"gradients "
+              + (f"within {max(rel):.2e} * max|g|" if rays_grad
+                 else "not asked for")
+              + f", table within "
+              f"{e / scale:.2e} * max|sum|; kernel {ms[-1]:.4f} ms, plain "
+              f"{plain_ms[-1]:.4f} ms, bound {bounds[-1]['bound_ms']:.4f} ms "
+              f"({bounds[-1]['bytes']} B)", flush=True)
+    return dict(launches=len(calls), max_abs_err=err, ray_err=ray_err, ms=ms,
+                plain_ms=plain_ms, bound=_sum_bounds(bounds))
+
+
 def _k3_calls(run, tag):
     """Every K3 launch of ``run()``, kept with its inputs and the output
     ``run`` used, then held against the plain version on the same inputs:
     each gather equal to ``gather_rows_reference``, each scatter within
     ``SCATTER_RTOL * max|sum|`` of ``scatter_rows_reference`` in float64;
     kernel, plain version (f32) and library call (``table[idx]`` with its
-    cast, ``index_add_``; int64 indices made beforehand) timed.  Returns
-    {"gather" | "scatter": dict(launches, max_abs_err, ms, plain_ms,
-    library_ms, bound)}, the times summed over the launches."""
+    cast, ``index_add_``; int64 indices made beforehand) timed.  A scatter
+    that took the 16-byte path ("v4") is launched on the scalar path too, on
+    a copy of its cotangents based 4 bytes off alignment, held to the same
+    float64 sum and timed.  Returns {"gather" | "scatter" | "scatter_scalar":
+    dict(launches, max_abs_err, ms, plain_ms, library_ms, bound)}, the times
+    summed over the launches; "scatter" holds the launches as ``run`` made
+    them (with ``paths``, the path of each), "scatter_scalar" the scalar
+    launches, those of ``run`` and the repeats."""
     import torch
 
     from vrt_torch.kernels import rows as k3
@@ -476,10 +618,12 @@ def _k3_calls(run, tag):
         k3.gather_rows_cuda, k3.scatter_rows_cuda = gather, scatter
     torch.cuda.synchronize()
     out = {}
+    scalar = dict(launches=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                  library_ms=0.0, bounds=[])
     for op, launch, plain in (
             ("gather", gather, k3.gather_rows_reference),
             ("scatter", scatter, k3.scatter_rows_reference)):
-        err, ms, plain_ms, lib_ms, bounds = 0.0, [], [], [], []
+        err, ms, plain_ms, lib_ms, bounds, paths = 0.0, [], [], [], [], []
         for i, (args, got) in enumerate(calls[op]):
             idx = args[1]
             idx64 = idx.clamp_min(0).long()
@@ -505,12 +649,12 @@ def _k3_calls(run, tag):
                                          f"{e:.3e} > {SCATTER_RTOL} * "
                                          f"{scale:.3e}")
                 err = max(err, e)
-                shape = f"{tuple(grad.shape)} -> ({rows}, {ch})"
+                paths.append(k3.scatter_path(grad, ch))
+                shape = f"{tuple(grad.shape)} -> ({rows}, {ch}) {paths[-1]}"
                 # times the call only: it adds masked lanes into row 0
                 acc = torch.zeros((rows, grad.shape[1]), device=grad.device)
                 library = lambda: acc.index_add_(0, idx64, grad)  # noqa: E731
                 nbytes = idx.numel() * 4 + grad.numel() * 4 + rows * ch * 4
-            del want
             ms.append(device_ms(lambda: launch(*args), 10))
             plain_ms.append(device_ms(lambda: plain(*args), 10))
             lib_ms.append(device_ms(library, 10))
@@ -520,9 +664,41 @@ def _k3_calls(run, tag):
                   f" ms, library {lib_ms[-1]:.4f} ms, bound "
                   f"{bounds[-1]['bound_ms']:.4f} ms ({nbytes} B, {touched} "
                   f"rows touched)", flush=True)
+            if op == "scatter":
+                scalar_ms = ms[-1]
+                if paths[-1] == "v4":
+                    # the same cotangents, 4 bytes off 16-byte alignment
+                    off = torch.empty(grad.numel() + 1, device=grad.device)
+                    off = off[1:].view(grad.shape).copy_(grad)
+                    if k3.scatter_path(off, ch) != "scalar":
+                        raise AssertionError("no scalar path for an "
+                                             "unaligned cotangent")
+                    e = (launch(off, idx, rows, ch).double()
+                         - want).abs().max().item()
+                    if not e <= SCATTER_RTOL * scale:
+                        raise AssertionError(
+                            f"{tag}: K3 scatter {i} on the scalar path off "
+                            f"by {e:.3e} > {SCATTER_RTOL} * {scale:.3e}")
+                    scalar_ms = device_ms(
+                        lambda: launch(off, idx, rows, ch), 10)
+                    print(f"K3 scatter [{tag} {i}] on the scalar path: "
+                          f"kernel {scalar_ms:.4f} ms against {ms[-1]:.4f} "
+                          f"ms on v4, within {e / scale:.2e} * max|sum|",
+                          flush=True)
+                scalar["launches"] += 1
+                scalar["max_abs_err"] = max(scalar["max_abs_err"], e)
+                scalar["ms"] += scalar_ms
+                scalar["plain_ms"] += plain_ms[-1]
+                scalar["library_ms"] += lib_ms[-1]
+                scalar["bounds"].append(bounds[-1])
+            del want
         out[op] = dict(launches=len(calls[op]), max_abs_err=err,
                        ms=sum(ms), plain_ms=sum(plain_ms),
                        library_ms=sum(lib_ms), bound=_sum_bounds(bounds))
+        if op == "scatter":
+            out[op]["paths"] = paths
+    scalar["bound"] = _sum_bounds(scalar.pop("bounds"))
+    out["scatter_scalar"] = scalar
     return out
 
 
@@ -550,11 +726,13 @@ def _resolves(scene):
     return cap if scene.any_reflective else 1
 
 
-def _expected_k3(scene):
-    """K3 gathers a fit step (or a frame on the candidate-loop path)
-    makes: one resolve per radiance level, and one colour sample per lit
-    level with per-voxel colours."""
-    return _resolves(scene) * (2 if scene.use_voxel_colors else 1)
+def _expected_k3(scene, plain_resolve=False):
+    """K3 gathers a frame or a fit step makes (and, under a graph, as many
+    scatters): one colour sample per lit radiance level with per-voxel
+    colours and, with resolve on the plain path (``plain_resolve``), one
+    more per resolve."""
+    return _resolves(scene) * (int(scene.use_voxel_colors)
+                               + int(plain_resolve))
 
 
 def _expected_passes(scene):
@@ -585,8 +763,9 @@ def _config6(dev, w=FRAME_W, h=FRAME_H):
 
 def _profile(render, sync, frame_ms, top=8, what="one 1080p frame"):
     """Device time of one ``render()`` by kernel and by the torch operator
-    that launched it, from torch.profiler.  Returns the operators that
-    took device time, or None where the profiler saw none."""
+    that launched it, from torch.profiler.  Returns dict(ops (the
+    operators that took device time), busy_ms, device_ops), or None where
+    the profiler saw none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -624,7 +803,8 @@ def _profile(render, sync, frame_ms, top=8, what="one 1080p frame"):
                   and e.self_device_time_total > 0), reverse=True)
     for ms, count, key, shapes in ops[:top]:
         print(f"  op {ms:8.2f} ms {count:5d}x {key} {shapes}", flush=True)
-    return {op[2] for op in ops}
+    return dict(ops={op[2] for op in ops}, busy_ms=busy,
+                device_ops=sum(r[1] for r in rows))
 
 
 def _list(ms):
@@ -671,12 +851,19 @@ def main():
         logs = {"K1 (march.cu)": pool.submit(k1.build),
                 "gather (gather.cu)": pool.submit(gk.build),
                 "K3 (rows.cu)": pool.submit(k3.build),
-                "fused resolve (resolve.cu)": pool.submit(kr.build)}
+                "fused resolve, forward and backward (resolve.cu)":
+                pool.submit(kr.build)}
         logs = {name: f.result() for name, f in logs.items()}
     print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
     for name, log in logs.items():
         for line in log.strip().splitlines():
             print(f"  nvcc {name}: {line}", flush=True)
+    spills = [line for line in logs["fused resolve, forward and backward "
+                                    "(resolve.cu)"].splitlines()
+              if "spill" in line and "0 bytes spill stores, 0 bytes spill "
+              "loads" not in line]
+    print(f"fused resolve: {len(spills)} kernels spill registers"
+          + "".join(f"\n  {line.strip()}" for line in spills), flush=True)
 
     # ---- 3. every kernel against its plain version --------------------------
     t0 = time.perf_counter()
@@ -778,26 +965,53 @@ def main():
               f"{got['bound']['bound_ms']:.4f} ms ({got['bound']['bytes']} "
               f"B, by {got['bound']['bound_by']})", flush=True)
 
-    # the fused resolve: the three launches of a 1080p frame
+    # the fused resolve: the three launches of a 1080p frame, and the three
+    # of a config6 fit step (under a graph) with their three backwards
     fused = _resolve_calls(frame(mode), _resolves(scene), "1080p frame")
+    fused_fit = _resolve_calls(lambda: fit[1](*fit[2:]), _resolves(fit[0]),
+                               "config6 fit step")
+    bwd = _resolve_bwd_calls(lambda: fit[1](*fit[2:]), _resolves(fit[0]),
+                             "config6 fit step")
+    print(f"fused resolve on the config6 fit step on {card}: forward "
+          f"{fused_fit['ms']:.4f} ms in {fused_fit['launches']} launches "
+          f"(bound {fused_fit['bound']['bound_ms']:.4f} ms), backward "
+          f"{_list(bwd['ms'])} ms = {sum(bwd['ms']):.4f} ms; plain closed "
+          f"form {_list(bwd['plain_ms'])} ms = {sum(bwd['plain_ms']):.4f} ms; "
+          f"bound {bwd['bound']['bound_ms']:.4f} ms ({bwd['bound']['bytes']} "
+          f"B, by {bwd['bound']['bound_by']})", flush=True)
 
-    # K3: every launch of one 1080p frame on the candidate-loop path and of
-    # one config6 fit step
+    # K3: every launch of one 1080p frame on the candidate-loop path, of one
+    # config6 fit step (the colour rows) and of that step with resolve on the
+    # plain path (the 9-channel corner rows too)
     def old_frame():
         with _candidate_loop_path():
             render_image(scene, FRAME_W, FRAME_H, mode)
 
     k3_frame = _k3_calls(old_frame, "1080p frame, candidate-loop path")
-    if k3_frame["gather"]["launches"] != _expected_k3(scene):
+    if k3_frame["gather"]["launches"] != _expected_k3(scene, True):
         raise AssertionError(f"the 1080p frame launched K3 "
                              f"{k3_frame['gather']['launches']} times, "
-                             f"expected {_expected_k3(scene)}")
+                             f"expected {_expected_k3(scene, True)}")
     k3_fit = _k3_calls(lambda: fit[1](*fit[2:]), "config6 fit step")
-    for op in ("gather", "scatter"):
-        if k3_fit[op]["launches"] != _expected_k3(fit[0]):
-            raise AssertionError(f"the config6 fit step launched K3 {op} "
-                                 f"{k3_fit[op]['launches']} times, "
-                                 f"expected {_expected_k3(fit[0])}")
+
+    def plain_step():
+        with _plain_resolve_path():
+            fit[1](*fit[2:])
+
+    k3_plain = _k3_calls(plain_step, "config6 fit step, plain resolve")
+    for got, plain_resolve in ((k3_fit, False), (k3_plain, True)):
+        for op in ("gather", "scatter"):
+            if got[op]["launches"] != _expected_k3(fit[0], plain_resolve):
+                raise AssertionError(
+                    f"the config6 fit step launched K3 {op} "
+                    f"{got[op]['launches']} times, expected "
+                    f"{_expected_k3(fit[0], plain_resolve)}")
+    if set(k3_fit["scatter"]["paths"]) != {"v4"}:
+        raise AssertionError(f"the colour rows' scatters took "
+                             f"{k3_fit['scatter']['paths']}")
+    if sorted(set(k3_plain["scatter"]["paths"])) != ["scalar", "v4"]:
+        raise AssertionError(f"the plain resolve path's scatters took "
+                             f"{k3_plain['scatter']['paths']}")
     del fit
     print(f"K3 device time on {card}: 1080p frame gathers "
           f"{k3_frame['gather']['ms']:.4f} ms (plain "
@@ -811,18 +1025,30 @@ def main():
           f"{k3_fit['scatter']['ms']:.4f} ms (plain "
           f"{k3_fit['scatter']['plain_ms']:.4f}, library "
           f"{k3_fit['scatter']['library_ms']:.4f}, bound "
-          f"{k3_fit['scatter']['bound']['bound_ms']:.4f} ms), max scatter "
-          f"error {k3_fit['scatter']['max_abs_err']:.3e}", flush=True)
+          f"{k3_fit['scatter']['bound']['bound_ms']:.4f} ms), the same "
+          f"scatters on the scalar path "
+          f"{k3_fit['scatter_scalar']['ms']:.4f} ms, max scatter error "
+          f"{k3_fit['scatter']['max_abs_err']:.3e}; the step with resolve on "
+          f"the plain path: gathers {k3_plain['gather']['ms']:.4f} ms (bound "
+          f"{k3_plain['gather']['bound']['bound_ms']:.4f} ms), scatters "
+          f"{k3_plain['scatter']['ms']:.4f} ms (bound "
+          f"{k3_plain['scatter']['bound']['bound_ms']:.4f} ms)", flush=True)
 
     # ---- 4. the frames -----------------------------------------------------
     def zero_counts():
-        k1.LAUNCHES = k1.SCENE_LAUNCHES = kr.LAUNCHES = 0
+        k1.LAUNCHES = k1.SCENE_LAUNCHES = 0
+        _reset(kr.LAUNCHES)
         _reset(k3.LAUNCHES)
+        _reset(k3.SCATTER_LAUNCHES)
 
     def counts():
         return dict(k1=k1.LAUNCHES, scene=k1.SCENE_LAUNCHES,
-                    resolve=kr.LAUNCHES, gather=k3.LAUNCHES["K3 gather"],
-                    scatter=k3.LAUNCHES["K3 scatter"])
+                    resolve=kr.LAUNCHES["forward"],
+                    resolve_bwd=kr.LAUNCHES["backward"],
+                    gather=k3.LAUNCHES["K3 gather"],
+                    scatter=k3.LAUNCHES["K3 scatter"],
+                    scatter_v4=k3.SCATTER_LAUNCHES["v4"],
+                    scatter_scalar=k3.SCATTER_LAUNCHES["scalar"])
 
     def timed(run, n):
         run()                                              # warm-up
@@ -848,7 +1074,8 @@ def main():
             runs.append(time.perf_counter() - t0)
         got = counts()
         want = dict(k1=0, scene=3 * _traces(scene),
-                    resolve=3 * _resolves(scene), gather=0, scatter=0)
+                    resolve=3 * _resolves(scene), resolve_bwd=0, gather=0,
+                    scatter=0, scatter_v4=0, scatter_scalar=0)
         if not bool(torch.isfinite(img).all()):
             raise AssertionError(f"1080p {tag} frame has non-finite pixels")
         if tuple(img.shape) != (FRAME_H, FRAME_W, 4):
@@ -889,7 +1116,7 @@ def main():
               flush=True)
     old_counts = counts()
     if old_counts["k1"] != 2 * 2 * 6 * _expected_passes(scene) or \
-            old_counts["gather"] != 2 * 2 * 6 * _expected_k3(scene):
+            old_counts["gather"] != 2 * 2 * 6 * _expected_k3(scene, True):
         raise AssertionError(f"launches of the paired frames {old_counts}")
 
     # ---- 5. anchored to the JAX reference ----------------------------------
@@ -922,8 +1149,8 @@ def main():
                              "fixture")
 
     # ---- 6. where the time goes ---------------------------------------------
-    ops = _profile(frame(mode), sync, frame_s * 1e3)
-    if ops is not None and "aten::sort" in ops:
+    prof = _profile(frame(mode), sync, frame_s * 1e3)
+    if prof is not None and "aten::sort" in prof["ops"]:
         raise AssertionError("the 1080p frame still sorts on the device")
     del scene
 
@@ -975,14 +1202,19 @@ def main():
           f"{n_rays / step_s:.0f} rays/s forward+backward; peak "
           f"max_memory_allocated {peak / 2**30:.2f} GiB; losses "
           f"{', '.join(f'{v:.6f}' for v in losses)} (warm-up first); per "
-          f"step scene march {fit_counts['scene'] / 3:g}, K3 gathers "
+          f"step scene march {fit_counts['scene'] / 3:g}, fused resolve "
+          f"forward {fit_counts['resolve'] / 3:g} and backward "
+          f"{fit_counts['resolve_bwd'] / 3:g}, K3 gathers "
           f"{fit_counts['gather'] / 3:g}, K3 scatters "
-          f"{fit_counts['scatter'] / 3:g}, per-lane K1 "
-          f"{fit_counts['k1'] / 3:g}, fused resolve "
-          f"{fit_counts['resolve'] / 3:g}", flush=True)
-    want = dict(k1=0, scene=3 * _traces(fit_scene), resolve=0,
+          f"{fit_counts['scatter'] / 3:g} ({fit_counts['scatter_v4'] / 3:g} "
+          f"on the 16-byte path), per-lane K1 {fit_counts['k1'] / 3:g}",
+          flush=True)
+    want = dict(k1=0, scene=3 * _traces(fit_scene),
+                resolve=3 * _resolves(fit_scene),
+                resolve_bwd=3 * _resolves(fit_scene),
                 gather=3 * _expected_k3(fit_scene),
-                scatter=3 * _expected_k3(fit_scene))
+                scatter=3 * _expected_k3(fit_scene),
+                scatter_v4=3 * _expected_k3(fit_scene), scatter_scalar=0)
     if fit_counts != want:
         raise AssertionError(f"launches in 3 fit steps {fit_counts}, "
                              f"expected {want}")
@@ -995,20 +1227,58 @@ def main():
             raise AssertionError(f"the fit did not move {k}")
     del start
 
-    # the step on the candidate-loop path against the default path; every
-    # run starts from the same parameters and optimizer state
+    # the step with resolve on the plain path over K3 (what a step took
+    # before the fused resolve had a backward) against the default path;
+    # every run starts from the same parameters and optimizer state
     def one_step():
         return step(params, state, targets)[2]
 
+    def old_step():
+        with _plain_resolve_path():
+            return one_step()
+
+    zero_counts()
     meds = []
-    for run in (old(one_step), one_step, one_step, old(one_step)):
+    for run in (old_step, one_step, one_step, old_step):
         meds.append(statistics.median(timed(run, 3)[0]) * 1e3)
-    print(f"config6 fit step on {card}, candidate-loop path against the "
-          f"scene march, medians of 3 in the order old, new, new, old: "
+    print(f"config6 fit step on {card}, resolve on the plain path over K3 "
+          f"against the fused resolve and its backward, medians of 3 in the "
+          f"order old, new, new, old: "
           f"{', '.join(f'{t:.2f}' for t in meds)} ms", flush=True)
     paired["fit"] = meds
-    _profile(lambda: step(params, state, targets), sync, step_s * 1e3,
-             what="one config6 fit step")
+    plain_counts = counts()
+    want = dict(k1=0, scene=16 * _traces(fit_scene),
+                resolve=8 * _resolves(fit_scene),
+                resolve_bwd=8 * _resolves(fit_scene),
+                gather=8 * _expected_k3(fit_scene)
+                + 8 * _expected_k3(fit_scene, True),
+                scatter=8 * _expected_k3(fit_scene)
+                + 8 * _expected_k3(fit_scene, True),
+                scatter_v4=16 * _expected_k3(fit_scene),
+                scatter_scalar=8 * _resolves(fit_scene))
+    if plain_counts != want:
+        raise AssertionError(f"launches of the paired fit steps "
+                             f"{plain_counts}, expected {want}")
+    sides = {}
+    for tag, run in (("old", old_step), ("new", one_step)):
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        sync()
+        side_peak = torch.cuda.max_memory_allocated()
+        prof = _profile(run, sync, step_s * 1e3,
+                        what=f"one config6 fit step ({tag}: resolve "
+                        + ("on the plain path over K3)" if tag == "old"
+                           else "through its two kernels)"))
+        sides[tag] = dict(peak_gib=side_peak / 2**30,
+                          **({} if prof is None else
+                             {"busy_ms": prof["busy_ms"],
+                              "device_ops": prof["device_ops"]}))
+        print(f"config6 fit step on {card}, {tag}: peak "
+              f"max_memory_allocated {side_peak / 2**30:.2f} GiB"
+              + ("" if prof is None else
+                 f", device busy {prof['busy_ms']:.1f} ms in "
+                 f"{prof['device_ops']} device ops"), flush=True)
     del fit_scene, step, params, state, targets
 
     # the card's fit loss and gradients against vrt's (CPU) on the fixture
@@ -1022,9 +1292,15 @@ def main():
         return torch.mean((render_views(s, FIT_CAMS, 64, 36, RenderMode())
                            - 0.25) ** 2)
 
+    zero_counts()
     got_loss, grads = _value_and_grad(
         small_loss, {"sdf": small.volumes.sdf,
                      "voxel_colors": small.voxel_colors})
+    small_counts = counts()
+    if (small_counts["resolve"], small_counts["resolve_bwd"],
+            small_counts["scatter_scalar"]) != (
+            _resolves(small), _resolves(small), 0):
+        raise AssertionError(f"the 64x36 fit's launches {small_counts}")
     want_loss = float(fixture["loss"])
     rel = abs(float(got_loss) - want_loss) / abs(want_loss)
     print(f"fit loss at 64x36 vs vrt fixture: {float(got_loss):.8f} vs "
@@ -1124,11 +1400,29 @@ def main():
                      "vrt/render/renderer.py:210, XLA ops: no Pallas "
                      "kernel)",
          "launches": frame_counts["resolve"] + cube_counts["resolve"]
-         + overlay_counts["resolve"],
+         + overlay_counts["resolve"] + fit_counts["resolve"],
+         "launches_by_path": {"frames": frame_counts["resolve"]
+                              + cube_counts["resolve"]
+                              + overlay_counts["resolve"],
+                              "fit_steps": fit_counts["resolve"]},
          "max_abs_err": fused["max_abs_err"], "ms": fused["ms"],
          "plain_ms": fused["plain_ms"],
          "plain_over_k3_ms": fused["over_k3_ms"],
-         **bound_keys(fused["bound"]), "library_ms": None},
+         **bound_keys(fused["bound"]), "library_ms": None,
+         "fit_step": {"ms": fused_fit["ms"],
+                      "plain_ms": fused_fit["plain_ms"],
+                      "plain_over_k3_ms": fused_fit["over_k3_ms"],
+                      **bound_keys(fused_fit["bound"])}},
+        {"name": "fused resolve backward", "route": "cuda",
+         "source": "vrt_torch/csrc/resolve.cu",
+         "replaces": "vrt/march/resolve.py:61 (XLA's transpose of "
+                     "resolve_hits and of its row gather, "
+                     "vrt/march/isosurface.py:204: no Pallas kernel)",
+         "launches": fit_counts["resolve_bwd"],
+         "max_abs_err": bwd["max_abs_err"],
+         "max_ray_grad_err_over_max": bwd["ray_err"],
+         "ms": sum(bwd["ms"]), "plain_ms": sum(bwd["plain_ms"]),
+         **bound_keys(bwd["bound"]), "library_ms": None},
         {"name": "K3 gather", "route": "cuda",
          "source": "vrt_torch/csrc/rows.cu",
          "replaces": "vrt/march/isosurface.py:181 (take_rows, an XLA "
@@ -1136,7 +1430,8 @@ def main():
          "launches": fit_counts["gather"],
          "launches_by_path": {"fit_steps": fit_counts["gather"],
                               "candidate_loop_frames":
-                              old_counts["gather"]},
+                              old_counts["gather"],
+                              "paired_fit_steps": plain_counts["gather"]},
          "max_abs_err": 0.0, "ms": k3_fit["gather"]["ms"],
          "plain_ms": k3_fit["gather"]["plain_ms"],
          **bound_keys(k3_fit["gather"]["bound"]),
@@ -1144,18 +1439,46 @@ def main():
          "frame": {"ms": k3_frame["gather"]["ms"],
                    "plain_ms": k3_frame["gather"]["plain_ms"],
                    "library_ms": k3_frame["gather"]["library_ms"],
-                   **bound_keys(k3_frame["gather"]["bound"])}},
-        {"name": "K3 scatter", "route": "cuda",
+                   **bound_keys(k3_frame["gather"]["bound"])},
+         "plain_resolve_step": {
+             "ms": k3_plain["gather"]["ms"],
+             "plain_ms": k3_plain["gather"]["plain_ms"],
+             "library_ms": k3_plain["gather"]["library_ms"],
+             **bound_keys(k3_plain["gather"]["bound"])}},
+        {"name": "K3 scatter (v4)", "route": "cuda",
          "source": "vrt_torch/csrc/rows.cu",
          "replaces": "vrt/march/isosurface.py:204 (_take_rows_bwd, an XLA "
                      "scatter-add: no Pallas kernel)",
-         "launches": fit_counts["scatter"],
+         "path": "16-byte vector reductions: the colour rows of a fit step",
+         "launches": fit_counts["scatter_v4"],
          "max_abs_err": k3_fit["scatter"]["max_abs_err"],
          "ms": k3_fit["scatter"]["ms"],
          "plain_ms": k3_fit["scatter"]["plain_ms"],
          **bound_keys(k3_fit["scatter"]["bound"]),
-         "library_ms": k3_fit["scatter"]["library_ms"]}] + gp,
-        "paired_ms_old_new_new_old": paired}), flush=True)
+         "library_ms": k3_fit["scatter"]["library_ms"]},
+        {"name": "K3 scatter (scalar)", "route": "cuda",
+         "source": "vrt_torch/csrc/rows.cu",
+         "replaces": "vrt/march/isosurface.py:204 (_take_rows_bwd, an XLA "
+                     "scatter-add: no Pallas kernel)",
+         "path": "one f32 atomic per element: the 9-channel corner rows of "
+                 "a fit step with resolve on the plain path (0 launches on "
+                 "the default step); ms, plain_ms, bound and library_ms are "
+                 "of the default step's colour-row scatters forced onto "
+                 "this path",
+         "launches": plain_counts["scatter_scalar"],
+         "max_abs_err": max(k3_fit["scatter_scalar"]["max_abs_err"],
+                            k3_plain["scatter_scalar"]["max_abs_err"]),
+         "ms": k3_fit["scatter_scalar"]["ms"],
+         "plain_ms": k3_fit["scatter_scalar"]["plain_ms"],
+         **bound_keys(k3_fit["scatter_scalar"]["bound"]),
+         "library_ms": k3_fit["scatter_scalar"]["library_ms"],
+         "plain_resolve_step": {
+             "ms": k3_plain["scatter"]["ms"],
+             "plain_ms": k3_plain["scatter"]["plain_ms"],
+             "library_ms": k3_plain["scatter"]["library_ms"],
+             **bound_keys(k3_plain["scatter"]["bound"])}}] + gp,
+        "paired_ms_old_new_new_old": paired,
+        "config6_step_old_new": sides}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0

@@ -1,6 +1,6 @@
-"""K1, the CUDA march (per lane and over a whole scene), the fused resolve,
-the gather probe's kernels GP-A, GP-B and GP-C, and K3, the row gather with
-its scatter-add backward, against their plain-torch versions.
+"""K1, the CUDA march (per lane and over a whole scene), the fused resolve
+and its backward, the gather probe's kernels GP-A, GP-B and GP-C, and K3, the
+row gather with its scatter-add backward, against their plain-torch versions.
 
 This file imports no JAX, so it also runs where the card is:
 
@@ -15,10 +15,15 @@ overlay, and for the scene march, whose winning instance and summed steps
 must also agree on those lanes and whose any-hit variant must equal the
 plain version's ``hit`` within the same budget.  The fused resolve is built
 the same way and must equal the plain ``resolve_scene_reference`` bit for
-bit (NaN equal to NaN).  The gathers are exact: each kernel equals its plain version
+bit (NaN equal to NaN), with or without a graph.  Its backward sums in
+the closed form's order and adds the corner cotangents with f32 atomics: the
+ray gradients are held to 1e-5 * max|g| of the plain closed form
+(``resolve_scene_backward_reference``) on the same tensors, the table's to
+1e-5 * max|sum| of that closed form summed in float64.  The gathers are exact: each kernel equals its plain version
 (``torch.equal``) on every case and load path of the probe at the Pallas
 probes' small shapes.  K3's gather is exact too, on both load paths; its
-scatter adds with f32 atomics in an order that changes from run to run, so
+scatter adds with f32 atomics (one per element, or one 16-byte vector
+reduction per four channels) in an order that changes from run to run, so
 it is held to 1e-5 * max|sum| of a float64 ``index_add_`` (and a bf16
 table's gradient to that plus its one bf16 rounding).  The fit's loss and
 gradients through K1 and K3 on the card agree with the CPU's to rtol 1e-5
@@ -202,7 +207,7 @@ def test_scene_wrappers_refuse_cpu_tensors():
 
     ts = flagship_scene(4, device="cpu")
     o, d, t_max = scene_rays(0, 256, "cpu")
-    before = (k1.LAUNCHES, k1.SCENE_LAUNCHES, kr.LAUNCHES)
+    before = (k1.LAUNCHES, k1.SCENE_LAUNCHES, dict(kr.LAUNCHES))
     hit, inst = tren.march_scene(ts, o, d, t_max)
     want, winst = tren.march_scene_reference(ts, o, d, t_max)
     assert torch.equal(hit.hit, want.hit) and torch.equal(inst, winst)
@@ -217,6 +222,8 @@ def test_scene_wrappers_refuse_cpu_tensors():
         k1.march_scene_cuda(ts, o, d, t_max, any_hit=True)
     with pytest.raises(ValueError):
         kr.resolve_scene_cuda(ts, o, d, hit, inst)
+    with pytest.raises(ValueError):
+        kr.resolve_scene_backward_cuda(ts, o, d, hit, inst, hit.t, d)
     assert (k1.LAUNCHES, k1.SCENE_LAUNCHES, kr.LAUNCHES) == before
 
 
@@ -280,8 +287,10 @@ def _with_table(scene, ch, offset):
 def test_fused_resolve_matches_plain_on_card(table, offset, interp, debug):
     """The fused resolve against ``resolve_scene_reference`` on the hits of
     a scene march over 12 instances, some lanes with ``inst = -1``: equal
-    bit for bit.  The dispatcher takes the kernel when no graph is
-    recorded and K3's differentiable path when the table requires one."""
+    bit for bit, without a graph and with one (the table requires a
+    gradient).  The dispatcher takes the kernel both times and K3 never;
+    instance transforms that require a gradient take the plain path over
+    K3."""
     from vrt_torch.kernels import resolve as kr
     from vrt_torch.kernels import rows as k3
 
@@ -295,24 +304,176 @@ def test_fused_resolve_matches_plain_on_card(table, offset, interp, debug):
     hit, inst = tren.march_scene(ts, o, d, t_max, interp, debug)
     inst[::5] = -1
     assert int((hit.hit & (inst < 0)).sum()) > 100
-    before = (kr.LAUNCHES, k3.LAUNCHES["K3 gather"])
-    got = tren.resolve_scene(ts, o, d, hit, inst)
-    assert (kr.LAUNCHES, k3.LAUNCHES["K3 gather"]) == (before[0] + 1,
-                                                       before[1])
     with torch.no_grad():
         want = tren.resolve_scene_reference(ts, o, d, hit, inst)
-    torch.cuda.synchronize()
     kinds = set(hit.kind[hit.hit].unique().tolist())
     assert kinds >= ({1, 5} if debug else {1} if interp else {4}), kinds
-    for name, a, b in zip(("t", "normal", "unlit"), got, want):
-        assert a.dtype == b.dtype and a.shape == b.shape, name
-        same = (a == b) | ((a != a) & (b != b))
-        assert bool(same.all()), (name, int((~same).sum()))
-    corners.requires_grad_(True)
-    before = (kr.LAUNCHES, k3.LAUNCHES["K3 gather"])
-    tren.resolve_scene(ts, o, d, hit, inst)
+    for graph in (False, True):
+        corners.requires_grad_(graph)
+        before = (dict(kr.LAUNCHES), dict(k3.LAUNCHES))
+        got = tren.resolve_scene(ts, o, d, hit, inst)
+        torch.cuda.synchronize()
+        assert kr.LAUNCHES == {"forward": before[0]["forward"] + 1,
+                               "backward": before[0]["backward"]}
+        assert k3.LAUNCHES == before[1]
+        assert got[0].requires_grad == graph
+        assert got[1].requires_grad == graph and not got[2].requires_grad
+        for name, a, b in zip(("t", "normal", "unlit"), got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            same = (a == b) | ((a != a) & (b != b))
+            assert bool(same.all()), (name, graph, int((~same).sum()))
+    corners.requires_grad_(False)
+    moving = dataclasses.replace(
+        ts, inst_pos=ts.inst_pos.clone().requires_grad_(True))
+    before = (dict(kr.LAUNCHES), k3.LAUNCHES["K3 gather"])
+    t, _, _ = tren.resolve_scene(moving, o, d, hit, inst)
+    assert t.requires_grad
     assert (kr.LAUNCHES, k3.LAUNCHES["K3 gather"]) == (before[0],
                                                        before[1] + 1)
+
+
+def _special_lanes(ts, o, d, hit, inst, seed, group=200):
+    """Overwrite some lanes of a march's rays and hits (``group`` surface
+    lanes per case) with the cases the backward treats apart; returns the
+    lanes by name.  Only what the backward reads (rays, kind, t, cell,
+    inst) is touched."""
+    rng = np.random.default_rng(seed)
+    dev = o.device
+    surface = (hit.kind == 1).nonzero().ravel()
+    assert surface.numel() > 7 * group
+    pick = surface[torch.from_numpy(rng.permutation(surface.numel())).to(dev)]
+    lanes = {name: pick[group * i:group * (i + 1)] for i, name in enumerate(
+        ("bad_t", "zero_d_axis", "unsafe", "edge_low", "edge_high", "tie",
+         "solid"))}
+    hit.t[lanes["bad_t"][:group // 2]] = float("inf")
+    hit.t[lanes["bad_t"][group // 2:]] = float("nan")
+    d[lanes["zero_d_axis"], 1] = 0.0
+    d[lanes["unsafe"]] = 0.0                 # F'(t0) = 0: no IFT term
+    hit.cell[lanes["edge_low"], 0] = 0       # the -x neighbour is outside
+    n = ts.volumes.n[ts.inst_volume[inst.clamp_min(0).long()].long()]
+    hit.cell[lanes["edge_high"], 2] = n[lanes["edge_high"]] - 2
+    # solid entries: a symmetric ray ties the x and y slabs of instance 0
+    # (not rotated, unit scale, whole-numbered position: exact in f32);
+    # random rays never tie
+    for name in ("tie", "solid"):
+        hit.kind[lanes[name]] = 2
+    o[lanes["tie"]] = ts.inst_pos[0] + o.new_tensor([-300.0, -300.0, 7.0])
+    d[lanes["tie"]] = d.new_tensor([1.0, 1.0, 0.0])
+    inst[lanes["tie"]] = 0
+    d[lanes["solid"][:group // 4], 2] = 0.0
+    return lanes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_inst", [1, 2, 12])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("table", sorted(RESOLVE_TABLES))
+def test_resolve_backward_matches_plain_on_card(table, offset, n_inst):
+    """The fused resolve's backward against its plain version, the closed
+    form ``resolve_scene_backward_reference``, on the same CUDA tensors: the
+    hits of a scene march, some lanes with ``inst = -1``, and the special
+    lanes (non-finite t, a zero component of d, F'(t0) = 0, an out-of-range
+    neighbour, solid entries with and without a tie).  Ray gradients within
+    1e-5 * max|g|, the table's within 1e-5 * max|sum| of the closed form
+    summed in float64; finite everywhere; zero off the surface and
+    solid-entry lanes."""
+    from vrt_torch.kernels import resolve as kr
+    from vrt_torch.kernels import rows as k3
+
+    dev = _card()
+    dtype, ch = RESOLVE_TABLES[table]
+    ts = _with_table(_crowd(5, "chebyshev", dtype, n_inst, dev), ch, offset)
+    o, d, t_max = scene_rays(8, 65536, dev)
+    hit, inst = tren.march_scene(ts, o, d, t_max)
+    inst[::5] = -1
+    lanes = _special_lanes(ts, o, d, hit, inst, 2)
+    gen = torch.Generator().manual_seed(4)
+    g_t = torch.randn(o.shape[0], generator=gen).to(dev)
+    g_n = torch.randn(o.shape, generator=gen).to(dev)
+    g_t[::7] = 0.0
+    g_n[::7] = 0.0
+
+    before = (dict(kr.LAUNCHES), dict(k3.LAUNCHES))
+    g_o, g_d, acc = kr.resolve_scene_backward_cuda(ts, o, d, hit, inst, g_t,
+                                                   g_n)
+    torch.cuda.synchronize()
+    assert kr.LAUNCHES == {"forward": before[0]["forward"],
+                           "backward": before[0]["backward"] + 1}
+    assert k3.LAUNCHES == before[1]
+    w_o, w_d, w_acc = tren.resolve_scene_backward_reference(
+        ts, o, d, hit, inst, g_t, g_n, acc_dtype=torch.float64)
+    for name, a, b in (("g_o_w", g_o, w_o), ("g_d_w", g_d, w_d)):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        scale = b.abs().max().item()
+        assert scale > 0
+        assert (a - b).abs().max().item() <= 1e-5 * scale, name
+        carries = (hit.kind == 1) | (hit.kind == 2)
+        assert not bool(a[~carries].any()), name
+    for name, idx in lanes.items():
+        if name != "unsafe":
+            assert bool((g_o[idx] != 0).any()), name
+    tie = lanes["tie"][g_t[lanes["tie"]] != 0]
+    assert torch.equal(g_o[tie, 0], -0.5 * g_t[tie])
+    assert torch.equal(g_o[tie, 1], -0.5 * g_t[tie])
+    assert not bool(g_o[tie, 2].any())
+    assert acc.dtype == torch.float32 and acc.shape == w_acc.shape
+    assert bool(torch.isfinite(acc).all())
+    scale = w_acc.abs().max().item()
+    assert scale > 0
+    assert (acc.double() - w_acc).abs().max().item() <= 1e-5 * scale
+    assert not bool(acc[:, 8:].any())
+
+    # an output nobody needs is skipped
+    only_rays = kr.resolve_scene_backward_cuda(ts, o, d, hit, inst, g_t, g_n,
+                                               table_grad=False)
+    only_table = kr.resolve_scene_backward_cuda(ts, o, d, hit, inst, g_t,
+                                                g_n, rays_grad=False)
+    torch.cuda.synchronize()
+    assert only_rays[2] is None and torch.equal(only_rays[0], g_o)
+    assert torch.equal(only_rays[1], g_d)
+    assert only_table[0] is None and only_table[1] is None
+    assert (only_table[2].double() - w_acc).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("table", ["f32x9", "bf16x8"])
+def test_resolve_scene_grads_on_card_match_autograd(table):
+    """``resolve_scene`` under a graph on the card (``ResolveScene``: both
+    kernels) against autograd through ``resolve_scene_reference`` over K3 on
+    the same tensors: gradients in the rays within 1e-5 * max|g|, in the
+    table within 1e-5 * max|g| plus one rounding of its dtype."""
+    from vrt_torch.kernels import resolve as kr
+
+    dev = _card()
+    dtype, ch = RESOLVE_TABLES[table]
+    ts = _with_table(_crowd(5, "chebyshev", dtype, 12, dev), ch, 0)
+    o, d, t_max = scene_rays(9, 65536, dev)
+    hit, inst = tren.march_scene(ts, o, d, t_max)
+    gen = torch.Generator().manual_seed(5)
+    g_t = torch.randn(o.shape[0], generator=gen).to(dev)
+    g_n = torch.randn(o.shape, generator=gen).to(dev)
+    grads = []
+    for fn in (tren.resolve_scene, tren.resolve_scene_reference):
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in (o, d, ts.volumes.corners)]
+        scene = dataclasses.replace(ts, volumes=dataclasses.replace(
+            ts.volumes, corners=leaves[2]))
+        before = dict(kr.LAUNCHES)
+        t, n, _ = fn(scene, leaves[0], leaves[1], hit, inst)
+        grads.append(torch.autograd.grad([t, n], leaves, [g_t, g_n]))
+        launched = {k: kr.LAUNCHES[k] - before[k] for k in before}
+        assert launched == ({"forward": 1, "backward": 1}
+                            if fn is tren.resolve_scene
+                            else {"forward": 0, "backward": 0})
+    torch.cuda.synchronize()
+    for name, a, b in zip(("o_w", "d_w", "corners"), *grads):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        scale = b.abs().max().item()
+        err = (a.double() - b.double()).abs()
+        if name == "corners" and dtype == torch.bfloat16:
+            err = err - 2.0 ** -7 * b.double().abs()
+        assert scale > 0 and err.max().item() <= 1e-5 * scale, name
 
 
 @pytest.mark.gpu
@@ -326,6 +487,9 @@ def test_scene_wrappers_reject_bad_inputs_on_card():
     hit, inst = tren.march_scene(ts, o, d, t_max)
     crowd = _crowd(4, "octree", None, 33, dev)
     sliced = dataclasses.replace(ts, inst_pos=ts.inst_pos.t().contiguous().t())
+    halved = dataclasses.replace(ts, volumes=dataclasses.replace(
+        ts.volumes, corners=ts.volumes.corners.half()))
+    bwd, g_t = kr.resolve_scene_backward_cuda, hit.t
     cases = [
         lambda: k1.march_scene_cuda(ts, o.cpu(), d, t_max),         # device
         lambda: k1.march_scene_cuda(ts, o.double(), d, t_max),      # dtype
@@ -341,8 +505,15 @@ def test_scene_wrappers_reject_bad_inputs_on_card():
                                       inst),                        # layout
         lambda: kr.resolve_scene_cuda(ts, o, d, hit, inst[:-1]),    # shape
         lambda: kr.resolve_scene_cuda(sliced, o, d, hit, inst),     # layout
+        lambda: bwd(ts, o.cpu(), d, hit, inst, g_t, d),             # device
+        lambda: bwd(ts, o, d, hit, inst, g_t.double(), d),          # dtype
+        lambda: bwd(ts, o, d, hit, inst.long(), g_t, d),            # dtype
+        lambda: bwd(ts, o, d, hit, inst, g_t, d.t().contiguous().t()),
+        lambda: bwd(ts, o, d, hit, inst, g_t[:-1], d),              # shape
+        lambda: bwd(sliced, o, d, hit, inst, g_t, d),               # layout
+        lambda: bwd(halved, o, d, hit, inst, g_t, d),               # table
     ]
-    before = (k1.LAUNCHES, k1.SCENE_LAUNCHES, kr.LAUNCHES)
+    before = (k1.LAUNCHES, k1.SCENE_LAUNCHES, dict(kr.LAUNCHES))
     for call in cases:
         with pytest.raises(ValueError):
             call()
@@ -471,6 +642,38 @@ def test_k3_matches_plain_on_card(case, offset):
         err = err - 2.0 ** -8 * exact.abs()
     assert err.max().item() <= 1e-5 * scale
     assert torch.equal(grad[:, out_ch:], torch.zeros_like(grad[:, out_ch:]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("case", ["f32x8", "f32x9", "f32x24"])
+def test_k3_scatter_paths_on_card(case, offset):
+    """``scatter_rows_cuda`` on both of its paths against a float64
+    ``index_add_``: 16-byte vector reductions where the rows of the
+    cotangents and of the accumulator and the cotangents' base are 16-byte
+    aligned, one scalar atomic per element otherwise; zero quads and zero
+    elements are skipped on either."""
+    from vrt_torch.kernels import rows as K3
+
+    dev = _card()
+    _, ch, out_ch = K3_CASES[case]
+    _, idx, g = _k3_inputs(torch.float32, ch, out_ch, 0, dev)
+    g[::3] = 0.0
+    g[1::3, :4] = 0.0
+    flat = torch.empty(g.numel() + offset, device=dev)
+    grad = flat[offset:].view(g.shape)
+    grad.copy_(g)
+    aligned = offset == 0 and ch % 4 == 0
+    assert K3.scatter_path(grad, ch) == ("v4" if aligned else "scalar")
+    before = K3.LAUNCHES["K3 scatter"]
+    got = K3.scatter_rows_cuda(grad, idx, 4096, ch)
+    torch.cuda.synchronize()
+    assert K3.LAUNCHES["K3 scatter"] == before + 1
+    exact = K3.scatter_rows_reference(grad, idx, 4096, ch, torch.float64)
+    scale = exact.abs().max().item()
+    assert got.dtype == torch.float32 and got.shape == exact.shape
+    assert (got.double() - exact).abs().max().item() <= 1e-5 * scale
+    assert not bool(got[:, out_ch:].any())
 
 
 @pytest.mark.gpu

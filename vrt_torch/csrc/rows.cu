@@ -30,12 +30,17 @@
 //   not 16-byte aligned and is read one element at a time with __ldg.
 //   bf16 widens to f32 exactly (a shift of its 16 bits).  The output row is
 //   written as float4s (out_ch is a multiple of 4).
-// - scatter: one thread per cotangent element, coalesced reads of g, one
-//   f32 atomicAdd each into the row's channel.  A zero cotangent adds
-//   nothing and is skipped (x + 0 == x, and +0 + -0 == +0), which drops the
-//   lanes whose pixels the loss does not see.  Atomics add in another
-//   order on every run, so the result agrees with an exact sum to rounding,
-//   not bit for bit.
+// - scatter: coalesced reads of g, f32 atomics into the row.  A zero
+//   cotangent adds nothing and is skipped (x + 0 == x, and +0 + -0 == +0),
+//   which drops the lanes whose pixels the loss does not see.  Where the
+//   rows of g and of acc and the base of g are multiples of 16 bytes (the
+//   24-float colour rows) one thread takes four channels: one float4 read,
+//   nothing issued when all four are zero, else one 16-byte vector
+//   reduction (red.global.add.v4.f32, new with sm_90), a quarter of the
+//   threads and of the atomic requests.  Other rows (8 of 9 channels) take
+//   one thread and one scalar atomicAdd per element.  Atomics add in
+//   another order on every run, so the result agrees with an exact sum to
+//   rounding, not bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -135,6 +140,29 @@ __global__ void __launch_bounds__(kBlock) scatter_rows_kernel(
   if (g != 0.0f) atomicAdd(p.acc + static_cast<long long>(i) * p.ch + c, g);
 }
 
+// The 16-byte path: thread e takes channels 4 * (e % quads) .. + 3 of lane
+// e / quads.  The caller checks that out_ch and ch are multiples of 4 and
+// that grad is 16-byte aligned (acc is, as a fresh allocation).
+__global__ void __launch_bounds__(kBlock) scatter_rows_v4_kernel(
+    const ScatterParams p) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  const int quads = p.out_ch / 4;
+  if (e >= p.lanes * quads) return;
+  const long long l = e / quads;
+  const int c = 4 * static_cast<int>(e - l * quads);
+  const int i = __ldg(p.idx + l);
+  if (i >= p.rows) __trap();
+  if (i < 0) return;
+  const float4 g = reinterpret_cast<const float4*>(p.grad)[e];
+  if (g.x == 0.0f && g.y == 0.0f && g.z == 0.0f && g.w == 0.0f) return;
+  float* dst = p.acc + static_cast<long long>(i) * p.ch + c;
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};"
+               :
+               : "l"(dst), "f"(g.x), "f"(g.y), "f"(g.z), "f"(g.w)
+               : "memory");
+}
+
 unsigned grid_for(long long n) {
   return static_cast<unsigned>((n + kBlock - 1) / kBlock);
 }
@@ -163,14 +191,20 @@ extern "C" int vrt_gather_rows(const void* table, const int32_t* idx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The scatter: acc[idx[l], c] += grad[l, c] for c < out_ch.  Returns
-// cudaGetLastError().
+// The scatter: acc[idx[l], c] += grad[l, c] for c < out_ch.  v4 1 takes
+// the 16-byte path (the caller checks that ch and out_ch are multiples of 4
+// and that grad and acc are 16-byte aligned).  Returns cudaGetLastError().
 extern "C" int vrt_scatter_rows(const float* grad, const int32_t* idx,
                                 float* acc, long long rows, long long lanes,
-                                int ch, int out_ch, void* stream) {
-  if (out_ch > ch) return cudaErrorInvalidValue;
+                                int ch, int out_ch, int v4, void* stream) {
+  if (out_ch > ch || (v4 && (ch % 4 != 0 || out_ch % 4 != 0)))
+    return cudaErrorInvalidValue;
   const ScatterParams p{grad, idx, acc, rows, lanes, ch, out_ch};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  scatter_rows_kernel<<<grid_for(lanes * out_ch), kBlock, 0, s>>>(p);
+  if (v4)
+    scatter_rows_v4_kernel<<<grid_for(lanes * (out_ch / 4)), kBlock, 0, s>>>(
+        p);
+  else
+    scatter_rows_kernel<<<grid_for(lanes * out_ch), kBlock, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

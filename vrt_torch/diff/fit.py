@@ -5,9 +5,10 @@ Pixel losses reach the SDF through resolve's IFT-at-the-root term and the
 central-difference normal, both read from the corner table, which is
 repacked from the SDF inside the step (``pack_cell_corners`` on the
 device, differentiable through its slices); colours reach the colour grid
-through its corner-packed view.  On CUDA tensors both tables are read by
-K3 (``vrt_torch.kernels.rows``), whose backward scatter-adds the corner
-cotangents.  The march runs under ``torch.no_grad()`` and is never re-run
+through its corner-packed view.  On CUDA tensors the corner table is read
+by the fused resolve, whose backward kernel adds the corner cotangents
+(``vrt_torch.kernels.resolve.ResolveScene``), and the colour table by K3
+(``vrt_torch.kernels.rows``), whose backward is a scatter-add.  The march runs under ``torch.no_grad()`` and is never re-run
 by the backward.  The octree accel is rebuilt from the current SDF on the
 device every step (``rebuild_accel``), so the fitted geometry is always
 marched consistently.

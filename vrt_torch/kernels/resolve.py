@@ -1,18 +1,34 @@
-"""The fused resolve, forward: build, bind and launch
+"""The fused resolve, forward and backward: build, bind and launch
 ``vrt_torch/csrc/resolve.cu``.
 
     resolve_scene_cuda(scene, o_w, d_w, hit, inst)
         -> (t f32 [R], object-space normal f32 [R,3], unlit bool [R])
+    resolve_scene_backward_cuda(scene, o_w, d_w, hit, inst, g_t, g_normal)
+        -> (g_o_w f32 [R,3], g_d_w f32 [R,3], g_corners f32 [V*C^3, ch])
+    ResolveScene.apply(o_w, d_w, corners, scene, hit, inst)
+        -> (t, normal, unlit), differentiable in o_w, d_w and corners
 
-One thread per ray computes what
+Forward: one thread per ray computes what
 ``vrt_torch.render.renderer.resolve_scene_reference`` (its plain version)
-computes for a frame that records no autograd graph; the [R,7,8] corner
-rows of the plain version never reach device memory.  It has no backward:
-``renderer.resolve_scene`` sends a frame that records a graph through the
-plain version, whose row gather is K3.  Built with ``--fmad=false`` like K1,
-so every operation rounds as in eager PyTorch and the two agree bit for bit.
+computes; the [R,7,8] corner rows of the plain version never reach device
+memory.  Backward: one thread per ray computes what
+``renderer.resolve_scene_backward_reference`` (its plain version, the
+closed form of ``march.resolve.resolve_hits_backward``) computes, from the
+rays, the hit's kind, t and cell and the two cotangents: it re-reads the 7
+rows on surface lanes, keeps every intermediate in registers and adds the
+corner cotangents into an f32 accumulator with atomics.  Built with
+``--fmad=false`` like K1, so the forward rounds as eager PyTorch does and
+equals its plain version bit for bit; the backward sums in another order
+than autograd and its atomics in an order that changes from run to run, so
+it agrees with its plain version to rounding.
 
-``LAUNCHES`` counts the kernel's launches.
+``ResolveScene`` is what ``renderer.resolve_scene`` calls.  On CUDA tensors
+its forward and backward are the two kernels; on CPU tensors, and only
+there, their plain versions.  It returns no gradient for the instance
+transforms: ``renderer.resolve_scene`` keeps a caller that wants one on
+the plain path.
+
+``LAUNCHES`` counts the launches of each kernel.
 """
 
 from __future__ import annotations
@@ -26,7 +42,7 @@ from vrt_torch.kernels.march import _check as _check_tensor
 from vrt_torch.kernels.march import _stream
 from vrt_torch.march.types import MarchHit
 
-LAUNCHES = 0
+LAUNCHES = {"forward": 0, "backward": 0}
 
 NVCC_FLAGS = ["--fmad=false"]
 
@@ -45,6 +61,10 @@ def build() -> str:
                                       + [i32] * 4 + [ctypes.c_longlong]
                                       + [ptr] * 3 + [ptr])
     lib.vrt_resolve_scene.restype = i32
+    lib.vrt_resolve_scene_bwd.argtypes = ([ptr] * 12 + [i32] + [ptr] * 4
+                                          + [i32] * 4 + [ctypes.c_longlong]
+                                          + [ptr] * 3 + [ptr])
+    lib.vrt_resolve_scene_bwd.restype = i32
     _lib = lib
     return log
 
@@ -62,16 +82,11 @@ def load_path(corners) -> str:
     return "v16" if aligned else "ldg"
 
 
-def resolve_scene_cuda(scene, o_w, d_w, hit: MarchHit, inst):
-    """Launch the fused resolve on ``torch.cuda.current_stream()`` for the
-    hits ``(hit, inst)`` of ``march_scene`` on world rays ``o_w``, ``d_w``
-    against ``scene`` (a GPUScene).  Records no autograd graph.  Raises on
-    any input the kernel does not take; never falls back."""
-    global LAUNCHES
-
+def _check_inputs(scene, o_w, d_w, hit: MarchHit, inst, who):
+    """Check what both kernels read; returns (device, rays, the instance
+    table's four tensors and its length)."""
     if o_w.device.type != "cuda":
-        raise ValueError(f"the fused resolve runs on CUDA tensors, got "
-                         f"{o_w.device}")
+        raise ValueError(f"{who} runs on CUDA tensors, got {o_w.device}")
     dev = o_w.device
     rays = o_w.shape[0]
     _check(o_w, "o_w", torch.float32, (rays, 3), dev)
@@ -80,7 +95,6 @@ def resolve_scene_cuda(scene, o_w, d_w, hit: MarchHit, inst):
     _check(hit.kind, "hit.kind", torch.int32, (rays,), dev)
     _check(hit.t, "hit.t", torch.float32, (rays,), dev)
     _check(hit.cell, "hit.cell", torch.int32, (rays, 3), dev)
-    _check(hit.face_normal, "hit.face_normal", torch.float32, (rays, 3), dev)
     vols = scene.volumes
     nv = vols.n.shape[0]
     cc = vols.corners.shape[1]
@@ -98,19 +112,42 @@ def resolve_scene_cuda(scene, o_w, d_w, hit: MarchHit, inst):
     n_inst = scene.num_instances
     if n_inst == 0:
         # every ray is a miss: one identity instance of volume 0 stands in
-        inst_volume = torch.zeros(1, dtype=torch.int32, device=dev)
-        inst_pos = torch.zeros((1, 3), device=dev)
-        inst_rot = torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=dev)
-        inst_scale = torch.ones((1, 3), device=dev)
+        table = (torch.zeros(1, dtype=torch.int32, device=dev),
+                 torch.zeros((1, 3), device=dev),
+                 torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=dev),
+                 torch.ones((1, 3), device=dev))
         n_inst = 1
     else:
-        inst_volume, inst_pos = scene.inst_volume, scene.inst_pos
-        inst_rot, inst_scale = scene.inst_rot, scene.inst_scale
-        _check(inst_volume, "inst_volume", torch.int32, (n_inst,), dev)
-        _check(inst_pos, "inst_pos", torch.float32, (n_inst, 3), dev)
-        _check(inst_rot, "inst_rot", torch.float32, (n_inst, 4), dev)
-        _check(inst_scale, "inst_scale", torch.float32, (n_inst, 3), dev)
+        table = (scene.inst_volume, scene.inst_pos, scene.inst_rot,
+                 scene.inst_scale)
+        _check(table[0], "inst_volume", torch.int32, (n_inst,), dev)
+        _check(table[1], "inst_pos", torch.float32, (n_inst, 3), dev)
+        _check(table[2], "inst_rot", torch.float32, (n_inst, 4), dev)
+        _check(table[3], "inst_scale", torch.float32, (n_inst, 3), dev)
+    return dev, rays, table, n_inst
 
+
+def _scene_args(scene, table, n_inst):
+    """The instance table and the volume tables as both C functions take
+    them."""
+    vols = scene.volumes
+    corners = vols.corners
+    return (*(x.data_ptr() for x in table), n_inst, vols.n.data_ptr(),
+            vols.cell_size.data_ptr(), vols.extends.data_ptr(),
+            corners.data_ptr(), corners.shape[1], corners.shape[-1],
+            int(corners.dtype == torch.bfloat16),
+            int(load_path(corners) == "v16"))
+
+
+def resolve_scene_cuda(scene, o_w, d_w, hit: MarchHit, inst):
+    """Launch the fused resolve on ``torch.cuda.current_stream()`` for the
+    hits ``(hit, inst)`` of ``march_scene`` on world rays ``o_w``, ``d_w``
+    against ``scene`` (a GPUScene).  Records no autograd graph
+    (``ResolveScene`` adds it).  Raises on any input the kernel does not
+    take; never falls back."""
+    dev, rays, table, n_inst = _check_inputs(scene, o_w, d_w, hit, inst,
+                                             "the fused resolve")
+    _check(hit.face_normal, "hit.face_normal", torch.float32, (rays, 3), dev)
     t = torch.empty(rays, dtype=torch.float32, device=dev)
     normal = torch.empty((rays, 3), dtype=torch.float32, device=dev)
     unlit = torch.empty(rays, dtype=torch.bool, device=dev)
@@ -120,14 +157,105 @@ def resolve_scene_cuda(scene, o_w, d_w, hit: MarchHit, inst):
     err = _lib.vrt_resolve_scene(
         o_w.data_ptr(), d_w.data_ptr(), inst.data_ptr(),
         hit.kind.data_ptr(), hit.t.data_ptr(), hit.cell.data_ptr(),
-        hit.face_normal.data_ptr(), inst_volume.data_ptr(),
-        inst_pos.data_ptr(), inst_rot.data_ptr(), inst_scale.data_ptr(),
-        n_inst, vols.n.data_ptr(), vols.cell_size.data_ptr(),
-        vols.extends.data_ptr(), vols.corners.data_ptr(), cc, ch,
-        int(vols.corners.dtype == torch.bfloat16),
-        int(load_path(vols.corners) == "v16"), rays, t.data_ptr(),
-        normal.data_ptr(), unlit.data_ptr(), _stream(dev))
+        hit.face_normal.data_ptr(), *_scene_args(scene, table, n_inst), rays,
+        t.data_ptr(), normal.data_ptr(), unlit.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"fused resolve launch failed: cudaError {err}")
-    LAUNCHES += 1
+    LAUNCHES["forward"] += 1
     return t, normal, unlit
+
+
+def resolve_scene_backward_cuda(scene, o_w, d_w, hit: MarchHit, inst, g_t,
+                                g_normal, rays_grad: bool = True,
+                                table_grad: bool = True):
+    """Launch the fused resolve's backward on
+    ``torch.cuda.current_stream()``: the cotangents ``g_t`` [R] and
+    ``g_normal`` [R,3] of ``resolve_scene_cuda``'s t and normal, pulled
+    back to the world rays and to the corner table (an f32 [V*C^3, ch]
+    buffer, zeroed here and added into by atomics; the caller casts it to
+    the table's dtype).  Reads ``hit.kind``, ``hit.t`` and ``hit.cell``
+    only.  ``rays_grad=False`` / ``table_grad=False`` skip an output nobody
+    needs and return None for it.  Raises on any input the kernel does not
+    take; never falls back."""
+    dev, rays, table, n_inst = _check_inputs(scene, o_w, d_w, hit, inst,
+                                             "the fused resolve's backward")
+    _check(g_t, "g_t", torch.float32, (rays,), dev)
+    _check(g_normal, "g_normal", torch.float32, (rays, 3), dev)
+    corners = scene.volumes.corners
+    ch = corners.shape[-1]
+    g_o_w = g_d_w = acc = None
+    if rays_grad:
+        g_o_w = torch.empty((rays, 3), dtype=torch.float32, device=dev)
+        g_d_w = torch.empty((rays, 3), dtype=torch.float32, device=dev)
+    if table_grad:
+        acc = torch.zeros((corners.numel() // ch, ch), dtype=torch.float32,
+                          device=dev)
+    if rays == 0 or not (rays_grad or table_grad):
+        return g_o_w, g_d_w, acc
+    build()
+    err = _lib.vrt_resolve_scene_bwd(
+        o_w.data_ptr(), d_w.data_ptr(), inst.data_ptr(),
+        hit.kind.data_ptr(), hit.t.data_ptr(), hit.cell.data_ptr(),
+        g_t.data_ptr(), g_normal.data_ptr(),
+        *_scene_args(scene, table, n_inst), rays,
+        g_o_w.data_ptr() if rays_grad else None,
+        g_d_w.data_ptr() if rays_grad else None,
+        acc.data_ptr() if table_grad else None, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"fused resolve backward launch failed: "
+                           f"cudaError {err}")
+    LAUNCHES["backward"] += 1
+    return g_o_w, g_d_w, acc
+
+
+class ResolveScene(torch.autograd.Function):
+    """``resolve_scene`` with its gradient in the world rays and the
+    corner table: the two kernels on CUDA tensors, their plain versions on
+    CPU tensors.  ``corners`` is ``scene.volumes.corners`` (passed apart so
+    that autograd sees it).  Saves the rays, the table and the hit's kind,
+    t and cell: no rows, no weights."""
+
+    @staticmethod
+    def forward(ctx, o_w, d_w, corners, scene, hit, inst):
+        if corners is not scene.volumes.corners:
+            raise ValueError("ResolveScene: corners must be the scene's "
+                             "corner table")
+        if o_w.device.type == "cuda":
+            t, normal, unlit = resolve_scene_cuda(scene, o_w, d_w, hit, inst)
+        else:
+            from vrt_torch.render.renderer import resolve_scene_reference
+
+            # no graph is recorded inside forward: this is the plain
+            # version as a frame without a graph runs it
+            t, normal, unlit = resolve_scene_reference(scene, o_w, d_w, hit,
+                                                       inst)
+        ctx.save_for_backward(o_w, d_w, corners, inst, hit.kind, hit.t,
+                              hit.cell)
+        ctx.scene = scene
+        ctx.mark_non_differentiable(unlit)
+        return t, normal, unlit
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_t, g_normal, _g_unlit):
+        o_w, d_w, corners, inst, kind, t, cell = ctx.saved_tensors
+        rays_grad = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
+        table_grad = ctx.needs_input_grad[2]
+        hit = MarchHit(hit=None, t=t, kind=kind, cell=cell, t_in=None,
+                       t_out=None, face_normal=None, steps=None)
+        if o_w.device.type == "cuda":
+            g_o_w, g_d_w, acc = resolve_scene_backward_cuda(
+                ctx.scene, o_w, d_w, hit, inst, g_t.contiguous(),
+                g_normal.contiguous(), rays_grad, table_grad)
+        else:
+            from vrt_torch.render.renderer import \
+                resolve_scene_backward_reference
+
+            g_o_w, g_d_w, acc = resolve_scene_backward_reference(
+                ctx.scene, o_w, d_w, hit, inst, g_t, g_normal)
+        g_corners = None
+        if table_grad:
+            g_corners = acc.to(corners.dtype).reshape(corners.shape)
+        return (g_o_w if ctx.needs_input_grad[0] else None,
+                g_d_w if ctx.needs_input_grad[1] else None, g_corners,
+                None, None, None)

@@ -1,5 +1,5 @@
-"""K3: the row gather of resolve and of the voxel-colour sample, with a
-scatter-add backward (``vrt_torch/csrc/rows.cu``).
+"""K3: the row gather of the voxel-colour sample (and of resolve where it
+runs in plain PyTorch), with a scatter-add backward (``vrt_torch/csrc/rows.cu``).
 
     gather_rows(table [M, ch] f32|bf16, idx i32 [L], out_ch) -> f32 [L, out_ch]
 
@@ -15,7 +15,8 @@ as ``vrt``'s ``_take_rows_bwd`` accumulates (``vrt/march/isosurface.py``).
 tensors to ``gather_rows_reference`` (``table[idx]`` with the mask,
 differentiated by autograd).  The ``*_cuda`` wrappers check device, dtype,
 shape and contiguity, raise on what the kernels do not take, never fall
-back, and count their launches in ``LAUNCHES``.
+back, and count their launches in ``LAUNCHES`` (the scatter's by path in
+``SCATTER_LAUNCHES`` too).
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import torch
 from vrt_torch.kernels import _build
 
 LAUNCHES = {"K3 gather": 0, "K3 scatter": 0}
+# the scatter's launches again, by the path ``scatter_path`` named
+SCATTER_LAUNCHES = {"v4": 0, "scalar": 0}
 _ELEM = {torch.float32: 4, torch.bfloat16: 2}
 
 _lib = None
@@ -41,7 +44,7 @@ def build() -> str:
     lib, log = _build.build("rows.cu")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.vrt_gather_rows.argtypes = [ptr] * 3 + [i64, i64] + [i32] * 4 + [ptr]
-    lib.vrt_scatter_rows.argtypes = [ptr] * 3 + [i64, i64, i32, i32, ptr]
+    lib.vrt_scatter_rows.argtypes = [ptr] * 3 + [i64, i64] + [i32] * 3 + [ptr]
     lib.vrt_gather_rows.restype = i32
     lib.vrt_scatter_rows.restype = i32
     _lib = lib
@@ -95,6 +98,17 @@ def load_path(table, out_ch: int) -> str:
     return "v16" if aligned else "ldg"
 
 
+def scatter_path(grad, ch: int) -> str:
+    """The scatter's path for cotangents ``grad`` [L, out_ch] into rows of
+    ``ch`` channels: "v4" (one 16-byte vector reduction per four channels)
+    where the rows of ``grad`` and of the accumulator and the base of
+    ``grad`` are 16-byte aligned, else "scalar" (one f32 atomic per
+    element)."""
+    aligned = (grad.shape[1] % 4 == 0 and ch % 4 == 0
+               and grad.data_ptr() % 16 == 0)
+    return "v4" if aligned else "scalar"
+
+
 def gather_rows_cuda(table, idx, out_ch: int):
     """Launch K3's gather on ``torch.cuda.current_stream()``; no autograd
     (``GatherRows`` adds it)."""
@@ -130,7 +144,8 @@ def gather_rows_cuda(table, idx, out_ch: int):
 def scatter_rows_cuda(grad, idx, rows: int, ch: int):
     """Launch K3's scatter: a new zeroed f32 [rows, ch] buffer with
     ``grad[l]`` added into row ``idx[l]`` (its first ``grad.shape[1]``
-    channels) by f32 atomics, for every ``idx[l] >= 0``."""
+    channels) by f32 atomics, for every ``idx[l] >= 0``, on the path
+    ``scatter_path`` names."""
     who = "K3 scatter"
     if grad.device.type != "cuda":
         raise ValueError(f"{who} runs on CUDA tensors, got {grad.device}")
@@ -148,12 +163,14 @@ def scatter_rows_cuda(grad, idx, rows: int, ch: int):
     if idx.shape[0] == 0:
         return acc
     build()
+    path = scatter_path(grad, ch)
     err = _lib.vrt_scatter_rows(grad.data_ptr(), idx.data_ptr(),
                                 acc.data_ptr(), rows, idx.shape[0], ch,
-                                out_ch, _stream(dev))
+                                out_ch, int(path == "v4"), _stream(dev))
     if err != 0:
         raise RuntimeError(f"{who} launch failed: cudaError {err}")
     LAUNCHES[who] += 1
+    SCATTER_LAUNCHES[path] += 1
     return acc
 
 

@@ -189,6 +189,18 @@ def make_stacked_fetch(sdf_stacked, n_per_ray, vol_per_ray):
     return fetch
 
 
+def stacked_corner_index(cell, n_per_ray, vol_per_ray, cc: int):
+    """Row index i32 into the packed [V*C^3, ch] corner table for cells
+    shaped [R, ..., 3] with per-ray volume selection; -1 where the cell is
+    out of range (cell < 0 or cell + 1 >= n)."""
+    extra = cell.ndim - 2
+    n = n_per_ray.reshape(n_per_ray.shape + (1,) * extra)
+    v = vol_per_ray.reshape(vol_per_ray.shape + (1,) * extra)
+    valid = torch.all((cell >= 0) & (cell + 1 < n[..., None]), dim=-1)
+    ic = torch.clamp(cell, 0, cc - 1)
+    return torch.where(valid, _flat_index(v, ic, cc), -1).to(torch.int32)
+
+
 def make_stacked_corner_fetch(corners, n_per_ray, vol_per_ray):
     """Per-cell corner fetch from the packed [V,C,C,C,8|9] table with
     per-ray volume selection: one row gather per cell, the first 8
@@ -201,12 +213,7 @@ def make_stacked_corner_fetch(corners, n_per_ray, vol_per_ray):
     flat = corners.reshape(-1, ch)
 
     def cfetch(cell):
-        extra = cell.ndim - 2
-        n = n_per_ray.reshape(n_per_ray.shape + (1,) * extra)
-        v = vol_per_ray.reshape(vol_per_ray.shape + (1,) * extra)
-        valid = torch.all((cell >= 0) & (cell + 1 < n[..., None]), dim=-1)
-        ic = torch.clamp(cell, 0, cc - 1)
-        idx = torch.where(valid, _flat_index(v, ic, cc), -1).to(torch.int32)
+        idx = stacked_corner_index(cell, n_per_ray, vol_per_ray, cc)
         rows = gather_rows(flat, idx.reshape(-1), 8)
         return rows.reshape(cell.shape[:-1] + (8,))
 

@@ -7,9 +7,8 @@
   loop runs inside one kernel launch per trace (K1's scene march); its plain
   version ``march_scene_reference`` runs one pass over all rays per
   candidate,
-- hit resolve (t, normal, unlit) is one fused kernel on CUDA tensors when no
-  autograd graph is recorded, and plain PyTorch over K3's row gather
-  otherwise (``resolve_scene``),
+- hit resolve (t, normal, unlit) is one fused kernel on CUDA tensors, with a
+  backward kernel of its own where a graph is recorded (``resolve_scene``),
 - the recursive ``TraceRay`` tree (recursion cap 3) recurses inline:
   depth-0/1/2 radiance traces with masked reflection lanes and boolean
   shadow traces,
@@ -30,10 +29,12 @@ from __future__ import annotations
 import torch
 
 from vrt_torch.core import quat as vq
-from vrt_torch.kernels.rows import gather_rows
+from vrt_torch.kernels.rows import (gather_rows, gather_rows_reference,
+                                    scatter_rows_reference)
 from vrt_torch.march import isosurface as iso
 from vrt_torch.march.march import march_lanes, ray_aabb
-from vrt_torch.march.resolve import resolve_hits
+from vrt_torch.march.resolve import (_OFFS7, resolve_hits,
+                                      resolve_hits_backward)
 from vrt_torch.march.types import MarchHit
 from vrt_torch.render.gpuscene import GPUScene, RenderMode
 from vrt_torch.shade import brdf as _brdf
@@ -210,44 +211,73 @@ def _per_ray_instance(scene: GPUScene, inst):
 
 def resolve_scene(scene: GPUScene, o_w, d_w, hit: MarchHit, inst):
     """(t, object-space normal, unlit) for scene hits, read from the
-    packed corner table (f32 or bf16).
+    packed corner table (f32 or bf16), differentiable in the table and the
+    rays.
 
-    Dispatches on the device and on autograd's state.  CUDA tensors with
-    no graph to record (grad mode is off, or neither the corner table, nor
-    the rays, nor the instance transforms require a gradient) go to the
-    fused resolve kernel (``kernels.resolve.resolve_scene_cuda``).  CUDA
-    tensors with a graph to record (a fit step) go through
-    ``resolve_scene_reference``, whose row gather is K3 with its
-    scatter-add backward: the fused kernel has no backward yet.  CPU
-    tensors go to ``resolve_scene_reference``, the kernel's plain version.
-    A launch that fails raises; nothing falls back."""
-    if o_w.device.type == "cuda" and not _records_graph(scene, o_w, d_w):
-        from vrt_torch.kernels import resolve as kr
-
-        return kr.resolve_scene_cuda(scene, o_w.contiguous(),
-                                     d_w.contiguous(), hit, inst)
+    The rule of the dispatch, on the inputs alone: a caller whose instance
+    transforms (``inst_pos``, ``inst_rot``, ``inst_scale``) require a
+    gradient goes through ``resolve_scene_reference`` under autograd (on
+    CUDA tensors over K3's row gather), because ``ResolveScene`` returns no
+    gradient for them; no entry point of the port makes them leaves.
+    Everything else goes to ``kernels.resolve.ResolveScene``: on CUDA
+    tensors the fused resolve kernel and, where a graph is recorded, its
+    backward kernel; on CPU tensors their plain versions
+    (``resolve_scene_reference`` without a graph and the closed form
+    ``resolve_scene_backward_reference``).  A build or launch that fails
+    raises; nothing falls back."""
     if o_w.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no resolve for device {o_w.device}")
-    return resolve_scene_reference(scene, o_w, d_w, hit, inst)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (scene.inst_pos, scene.inst_rot,
+                                      scene.inst_scale)):
+        return resolve_scene_reference(scene, o_w, d_w, hit, inst)
+    from vrt_torch.kernels.resolve import ResolveScene
 
-
-def _records_graph(scene: GPUScene, o_w, d_w) -> bool:
-    """Whether resolve's result would carry a gradient."""
-    return torch.is_grad_enabled() and any(
-        x.requires_grad for x in (scene.volumes.corners, o_w, d_w,
-                                  scene.inst_pos, scene.inst_rot,
-                                  scene.inst_scale))
+    return ResolveScene.apply(o_w.contiguous(), d_w.contiguous(),
+                              scene.volumes.corners, scene, hit, inst)
 
 
 def resolve_scene_reference(scene: GPUScene, o_w, d_w, hit: MarchHit, inst):
-    """``resolve_scene`` in plain PyTorch, differentiable in the corner
-    table, the rays and the instance transforms (port of
-    ``vrt.render.renderer.resolve_scene``)."""
+    """``resolve_scene`` in plain PyTorch, differentiable by autograd in
+    the corner table, the rays and the instance transforms (port of
+    ``vrt.render.renderer.resolve_scene``): the plain version of the fused
+    resolve kernel."""
     pr = _per_ray_instance(scene, inst)
     o, d = _world_to_object(pr["pos"], pr["rot"], pr["scale"], o_w, d_w)
     cfetch = iso.make_stacked_corner_fetch(scene.volumes.corners, pr["n"],
                                            pr["vol"])
     return resolve_hits(cfetch, pr["cell_size"], pr["extends"], o, d, hit)
+
+
+@torch.no_grad()
+def resolve_scene_backward_reference(scene: GPUScene, o_w, d_w,
+                                     hit: MarchHit, inst, g_t, g_normal,
+                                     acc_dtype=torch.float32):
+    """The vector-Jacobian product of ``resolve_scene_reference`` in the
+    rays and the corner table, in closed form: -> (g_o_w f32 [R,3], g_d_w
+    f32 [R,3], g_corners [V*C^3, ch]) for the cotangents ``g_t`` [R] and
+    ``g_normal`` [R,3].  The plain version of the fused resolve's backward
+    kernel: ``resolve_hits_backward`` per ray in object space, the
+    transpose of ``_world_to_object`` for the rays, and
+    ``scatter_rows_reference`` for the table (summed in ``acc_dtype``; the
+    caller casts once to the table's dtype).  Only ``hit.kind``, ``hit.t``
+    and ``hit.cell`` are read."""
+    pr = _per_ray_instance(scene, inst)
+    o, d = _world_to_object(pr["pos"], pr["rot"], pr["scale"], o_w, d_w)
+    corners = scene.volumes.corners
+    cc, ch = corners.shape[1], corners.shape[-1]
+    flat = corners.reshape(-1, ch)
+    offs = torch.as_tensor(_OFFS7, device=o_w.device)
+    idx = iso.stacked_corner_index(hit.cell[:, None, :] + offs, pr["n"],
+                                   pr["vol"], cc).reshape(-1)
+    rows7 = gather_rows_reference(flat, idx, 8).reshape(-1, 7, 8)
+    g_o, g_d, g_rows7 = resolve_hits_backward(
+        rows7, pr["cell_size"], pr["extends"], o, d, hit, g_t, g_normal)
+    g_o_w = vq.rotate(pr["rot"], g_o) / pr["scale"]
+    g_d_w = vq.rotate(pr["rot"], g_d) / pr["scale"]
+    g_corners = scatter_rows_reference(g_rows7.reshape(-1, 8), idx,
+                                       flat.shape[0], ch, acc_dtype)
+    return g_o_w, g_d_w, g_corners
 
 
 def _voxel_color_sample(scene: GPUScene, pr, hit: MarchHit, o_w, d_w, t):
