@@ -6,10 +6,10 @@ Phases, each of which raises on failure:
 
 1. device  -- needs a CUDA card; prints its name and power limit,
 2. build   -- compiles the march K1 (per-lane and scene kernels), the
-             gather library (GP-A, GP-B, GP-C), the row gather K3 and the
-             fused resolve (forward and backward) from ``vrt_torch/csrc/``,
-             one nvcc each, all in parallel, and prints ptxas' register and
-             spill lines,
+             gather library (GP-A, GP-B, GP-C), the row gather K3, the fused
+             resolve (forward and backward) and the two shade kernels K4 from
+             ``vrt_torch/csrc/``, one nvcc each, all in parallel, and prints
+             ptxas' register and spill lines,
 3. kernels -- every kernel against its plain version on the inputs the
              flagship scene (resolution 7, chebyshev, bf16) and config6 give
              it, both timed, with the least time the card could take for the
@@ -27,6 +27,14 @@ Phases, each of which raises on failure:
              three of a 1080p config6 fit step (a graph is recorded), against
              ``resolve_scene_reference`` with a plain gather (equal, NaN
              equal to NaN);
+             the two shade kernels K4 (surface, then combine): every launch
+             of the three 1080p frames, of an unlit 1080p frame and of 480x270
+             frames of a textured scene with two point lights and a spot
+             light, without and with per-voxel colours, against the plain
+             stages ``shade_surface_reference`` / ``shade_combine_reference``
+             on the same inputs (floats within 1e-5 + 1e-4 * |plain| on every
+             lane, the gate and the ``t_max = -inf`` masks as lane flips
+             under 0.1% of lanes; the outputs that are bit-equal are named);
              the fused resolve's backward: the three launches of that fit
              step against ``resolve_scene_backward_reference`` on the same
              saved inputs and cotangents (ray gradients within 1e-5 * max|g|,
@@ -42,16 +50,21 @@ Phases, each of which raises on failure:
 4. frame   -- the 1920x1080 flagship frame three times after a warm-up, in
              interp mode, in cube mode and with the overlay, with the launch
              counts of those frames (per frame 5 scene marches, 3 fused
-             resolves, no per-lane K1 launch, no K3 gather); then the frame
-             on the candidate-loop path (per-lane K1 launches between eager
-             glue, resolve through K3) against the default path in one call,
-             in the order old, new, new, old, medians of 5,
+             resolves, 3 + 3 shade launches, no per-lane K1 launch, no K3
+             gather); then the frame on the candidate-loop path (per-lane K1
+             launches between eager glue, resolve through K3) against the
+             default path, and the frame with eager shading (the plain
+             stages) against the two shade kernels, each in one call in the
+             order old, new, new, old, medians of 5,
 5. anchor  -- the 160x90 frame against the image ``vrt`` renders on the CPU
              (``tests/fixtures/flagship_r7_cheb_bf16_160x90.npy``), and the
              160x90 cube-mode unlit frame against its own ``vrt`` fixture,
+             both through the shade kernels,
 6. profile -- one 1080p frame under ``torch.profiler``: device busy time,
              the kernels' shares of it, the operators that take the most
-             time, and no ``aten::sort`` among them,
+             time; at most 400 device operations, no ``aten::sort``, no
+             ``aten::index`` and no ``aten::cat`` of ray-sized tensors among
+             them,
 7. gather  -- the gather probe (``vrt_torch.apps.probe_gather``): every
              case once through its kernel on every load path, with the
              launches counted, then each output against its plain version
@@ -62,10 +75,12 @@ Phases, each of which raises on failure:
              colours optimized by Adam (lr 1e-2) towards zero targets; one
              warm-up step, then three timed, with the launches per step (5
              scene marches, 3 fused resolves forward and 3 backward, 3 K3
-             gathers and 3 K3 scatters for the colour rows, no per-lane K1),
+             gathers and 3 K3 scatters for the colour rows, no per-lane K1, no
+             shade kernel: a step shades on the plain stages under autograd),
              peak device memory and the losses; the step with resolve on the
              plain path over K3 against the default path (old, new, new, old,
-             medians of 3), with the device ops, busy time and peak memory
+             medians of 3), with the device ops (the default step's held to
+             what it took before the shade kernels), busy time and peak memory
              of a step on either; the card's loss and gradients at 64x36
              (through the backward kernel) against
              ``vrt``'s (``tests/fixtures/fit_flagship_r4_colors_64x36.npz``);
@@ -77,12 +92,13 @@ Phases, each of which raises on failure:
              same scene built by ``build_scene`` directly, bit for bit.
              ``Engine(instance, 1920, 1080)`` over it, the objects moving
              every frame: 12 frames pipelined and 12 synchronous, each with 5
-             scene marches, 3 fused resolves, no per-lane K1 and no K3 launch;
+             scene marches, 3 fused resolves, 3 + 3 shade launches, no per-lane
+             K1 and no K3 launch;
              after every incremental ``sync_gpu`` the volume, accel, texture
              and env tensors are the ones before it, and a ``set_voxel``
-             forces a rebuild; every scene-march and fused-resolve launch of
-             the loop's first and last frame against its plain version, as in
-             phase 3; ``last_frame`` is uint8 [1080, 1920, 4] and equals the
+             forces a rebuild; every scene-march, fused-resolve and shade
+             launch of the loop's first and last frame against its plain
+             version, as in phase 3; ``last_frame`` is uint8 [1080, 1920, 4] and equals the
              UNORM of ``render_image`` on the same synced scene; ms per
              frame, per incremental and full sync, per resize + UNORM +
              readback, the upload of the per-frame constants as one pinned
@@ -94,6 +110,11 @@ Phases, each of which raises on failure:
              back equal to ``engine.last_frame``) and
              ``vrt_torch.apps.render`` on ``assets/torus.vox`` with
              ``assets/skybox.dds``.
+Last, two yardsticks that the port uses nowhere: the 1080p frame with eager
+shading captured into one CUDA graph and replayed (the run fails unless the
+capture succeeds and the replay gives the eager frame), and ``torch.compile``
+of the two plain stages on that frame's inputs (reported as not measured
+where it does not compile).
 
 The line before the last is a JSON object with every kernel's launches on
 its path, its largest disagreement with its plain version, its time, the
@@ -135,6 +156,26 @@ RESOLVE_FLOPS = 420
 # three fields with nine derivatives, F'(t0), the normal's and the hit
 # point's pull-back and the 56 products of the row cotangents
 RESOLVE_BWD_FLOPS = 900
+# the two shade kernels, from csrc/shade.cu, per hit lane: the surface
+# kernel's frame (hit point, transforms, world normal, mirror ray), one
+# triplanar sample of 12 taps, the colour sample, one point or spot light;
+# the combine kernel's Cook-Torrance term per light, the env lookup per miss
+# lane, Reinhard and gamma per pixel
+SHADE_FLOPS = dict(surface=170, tri_sample=190, colors=260, light=45,
+                   radiance=115, env=60, tonemap=30)
+# a float of a shade kernel against its plain stage: torch's reductions over
+# 3, 4 and 8 elements and its pow round in an order of their own, and a
+# comparison that feeds a select (a texel's floor, the cube face, a light's
+# floor) may flip, so a float is held to SHADE_ATOL + SHADE_RTOL * |plain| on
+# all but SHADE_FLOAT_BUDGET of the lanes; the record's booleans (the gate,
+# the t_max = -inf masks) may flip on LANE_BUDGET of them
+SHADE_RTOL, SHADE_ATOL = 1e-4, 1e-5
+SHADE_FLOAT_BUDGET = 0.0
+# device operations of a 1080p frame (3,111 before the shade kernels), and
+# of a config6 fit step, which the shade kernels must not touch: its 6,681
+# less the full / zeros / where of the levels whose shadows are not traced
+FRAME_OPS_MAX = 400
+FIT_STEP_OPS = range(6681 - 12, 6681 + 1)
 # K3's f32 atomics add in another order on every run: its scatter is held
 # to SCATTER_RTOL * max|sum| of an exact (float64) sum; so are the table
 # gradients of the fused resolve's backward, and its ray gradients to
@@ -725,6 +766,396 @@ def _k3_calls(run, tag):
     return out
 
 
+def _beyond(a, b, lanes=None):
+    """A float output ``a`` of a shade kernel against its plain version's
+    ``b``, over ``lanes`` (a bool mask over the rays; default all): the share
+    of lanes where an element differs by more than ``SHADE_ATOL +
+    SHADE_RTOL * |b|`` (NaN equal to NaN), the largest difference on the
+    other lanes, and whether every element is bit-equal."""
+    if lanes is not None:
+        a, b = a[lanes], b[lanes]
+    if a.numel() == 0:
+        return 0.0, 0.0, True
+    same = (a == b) | ((a != a) & (b != b))
+    diff = (a - b).abs().masked_fill(same, 0.0)
+    off = ~(diff <= SHADE_ATOL + SHADE_RTOL * b.abs())
+    bad = off.reshape(off.shape[0], -1).any(-1)
+    worst = diff.masked_fill(off, 0.0).max().item()
+    return bad.float().mean().item(), worst, bool(same.all())
+
+
+def _surface_bound(scene, args):
+    """The surface kernel's bound from what this launch's data needs, per
+    lane kind.  A hit lane reads its flag and instance (5 B), the ray and t
+    (28 B) where the mode places the hit point, the normal (12 B) where it
+    is lit or textured, with per-voxel colours the cell and a colour row (no
+    more than the table), and writes the whole record.  A miss lane reads
+    its flag, and where the level spawns traces the ray (24 B), and writes
+    only what those traces read: the shadow origin, the mirror ray and its
+    gate, a t_max per light and a direction per point and spot light.  The
+    textures once."""
+    _, o_w, _, _, _, hit, _, mode, bounce, shadows = args
+    rays = o_w.shape[0]
+    hits = int(hit.hit.sum())
+    lit = mode.lit
+    bounce, shadows = bool(bounce) and lit, bool(shadows) and lit
+    colors = scene.use_voxel_colors
+    sampled = mode.textured and (lit or not colors)
+    n_shadow = scene.num_point + scene.num_spot
+    traced = (13 if bounce else 0) \
+        + (4 * (1 + n_shadow) + 12 * n_shadow if shadows else 0)
+    hit_in = 5 + (28 if lit or sampled or colors else 0) \
+        + (12 if lit or sampled else 0)
+    hit_out = 12 + (36 + traced if lit else 0)
+    miss_in, miss_out = (25, 12 + traced) if traced else (1, 0)
+    nbytes = hits * (hit_in + hit_out) + (rays - hits) * (miss_in + miss_out)
+    flops = SHADE_FLOPS["surface"]
+    if sampled:
+        nbytes += scene.textures.numel() * 4
+        samples = (0 if colors else 1) + (2 if lit else 0)
+        flops += samples * SHADE_FLOPS["tri_sample"]
+    if colors:
+        pcc = scene.voxel_color_corners
+        nbytes += hits * 12 + min(hits * 24 * pcc.element_size(),
+                                  pcc.numel() * pcc.element_size())
+        flops += SHADE_FLOPS["colors"]
+    if lit and shadows:
+        flops += n_shadow * SHADE_FLOPS["light"]
+    return _bound(nbytes, hits * flops)
+
+
+def _combine_bound(scene, args):
+    """The combine kernel's bound: per ray the direction and the two flags
+    read (14 B) and the pixel written; on hit lanes the record it needs
+    (the albedo; in lit mode the other 36 B, with a bounce the mirror ray
+    and its radiance, one flag per shadow traced); the normal on
+    unlit-attribute lanes; four env texels per miss lane (no more than the
+    cube)."""
+    _, rec, d_w, _, hit_mask, unlit_attr, refl_rgb, blocked, mode, final = \
+        args
+    rays = d_w.shape[0]
+    hits = int(hit_mask.sum())
+    lit_hits = hits - int((hit_mask & unlit_attr).sum())
+    per_hit = 12
+    lights = 0
+    if mode.lit:
+        lights = 1 + scene.num_point + scene.num_spot
+        per_hit += 36 + (24 if refl_rgb is not None else 0) \
+            + (len(blocked) if blocked is not None else 0)
+        lights += 1 if refl_rgb is not None else 0
+    nbytes = (rays * (14 + (16 if final else 12)) + lit_hits * per_hit
+              + (hits - lit_hits) * 12
+              + min((rays - hits) * 48, scene.env.numel() * 4))
+    flops = (lit_hits * lights * SHADE_FLOPS["radiance"]
+             + (rays - hits) * SHADE_FLOPS["env"]
+             + (rays * SHADE_FLOPS["tonemap"] if final else 0))
+    return _bound(nbytes, flops)
+
+
+def _shade_calls(run, expected, tag):
+    """Every launch of the two shade kernels in ``run()`` (a frame), kept
+    with its inputs and the output ``run`` used, then held against its plain
+    stage (``shade_surface_reference``, ``shade_combine_reference``) on the
+    same inputs; both timed with the stream held, with the bound.  The
+    surface record's floats are held on hit lanes (the shadow origin on
+    all lanes of a level that spawns traces), its gate and its ``t_max =
+    -inf`` masks as lane flips on all lanes; the combine stage's radiance or
+    pixels on all lanes, against the plain stage on the kernel's own record.
+    A float may be off by more than ``SHADE_ATOL + SHADE_RTOL * |plain|`` on
+    at most ``SHADE_FLOAT_BUDGET`` of the lanes, a boolean may flip on
+    ``LANE_BUDGET`` of them.  Fails unless each kernel launched ``expected``
+    times.  Returns {"surface" | "combine": dict(launches, max_abs_err,
+    lanes_beyond (the largest share of lanes on which a float was beyond the
+    tolerance), bit_equal (outputs equal on every lane), ms, plain_ms (lists,
+    per launch), bound)}."""
+    import torch
+
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.kernels._timing import device_ms
+    from vrt_torch.render.renderer import (shade_combine_reference,
+                                           shade_surface_reference)
+
+    with _recording(k4, "shade_surface_cuda") as surf, \
+            _recording(k4, "shade_combine_cuda") as comb:
+        run()
+    torch.cuda.synchronize()
+    if (len(surf), len(comb)) != (expected, expected):
+        raise AssertionError(f"the {tag} launched the shade kernels "
+                             f"{len(surf)} + {len(comb)} times, expected "
+                             f"{expected} + {expected}")
+    out = {}
+
+    def hold(what, i, name, share, worst, state, boolean=False):
+        if share > (LANE_BUDGET if boolean else SHADE_FLOAT_BUDGET):
+            raise AssertionError(f"{tag} {what} {i}: {name} differs from the "
+                                 f"plain stage on {share:.2e} of lanes")
+        state["err"] = max(state["err"], worst)
+        if not boolean:
+            state["share"] = max(state["share"], share)
+
+    state = dict(err=0.0, share=0.0)
+    ms, plain_ms, bounds = [], [], []
+    equal, differ = set(), set()
+    for i, (args, _, got) in enumerate(surf):
+        scene, hit = args[0], args[5]
+        with torch.no_grad():
+            want = shade_surface_reference(*args)
+        on = hit.hit
+        # a level that spawns no trace leaves a miss lane's origin unwritten
+        spawns = args[7].lit and (args[8] or args[9])
+        fields = [("albedo", on), ("shadow_origin", None if spawns else on),
+                  ("n_w", on), ("roughness", on), ("metallic", on),
+                  ("k", on), ("refl_dir", on)]
+        pairs = [(f, getattr(got, f), getattr(want, f), m)
+                 for f, m in fields]
+        for j, (a, b) in enumerate(zip(got.shadow_dir or (),
+                                       want.shadow_dir or ())):
+            pairs.append((f"shadow_dir[{j}]", a, b, on))
+        for j, (a, b) in enumerate(zip(got.shadow_tmax or (),
+                                       want.shadow_tmax or ())):
+            dead = (torch.isinf(a), torch.isinf(b))
+            flips = (dead[0] != dead[1]).float().mean().item()
+            hold("surface", i, f"shadow_tmax[{j}] = -inf", flips, 0.0, state,
+                 boolean=True)
+            pairs.append((f"shadow_tmax[{j}]", a, b, ~dead[0] & ~dead[1]))
+        if (got.gate is None) != (want.gate is None) or \
+                (got.shadow_tmax is None) != (want.shadow_tmax is None):
+            raise AssertionError(f"{tag} surface {i}: the record's optional "
+                                 f"fields differ from the plain stage's")
+        if got.gate is not None:
+            flips = (got.gate != want.gate).float().mean().item()
+            hold("surface", i, "gate", flips, 0.0, state, boolean=True)
+        for name, a, b, lanes in pairs:
+            if (a is None) != (b is None):
+                raise AssertionError(f"{tag} surface {i}: {name} is set on "
+                                     f"one side only")
+            if a is None:
+                continue
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"{tag} surface {i}: {name} is "
+                                     f"{a.dtype} {tuple(a.shape)}")
+            share, worst, same = _beyond(a, b, lanes)
+            hold("surface", i, name, share, worst, state)
+            (equal if same else differ).add(name.split("[")[0])
+        del want
+        ms.append(device_ms(lambda: k4.shade_surface_cuda(*args), 20))
+        with torch.no_grad():
+            plain_ms.append(device_ms(
+                lambda: shade_surface_reference(*args), 2))
+        bounds.append(_surface_bound(scene, args))
+        print(f"shade surface vs plain [{tag} {i}]: rays {on.numel()} hits "
+              f"{int(on.sum())} lit={args[7].lit} bounce={args[8]} shadows="
+              f"{args[9]}; kernel {ms[-1]:.4f} ms, plain {plain_ms[-1]:.4f} "
+              f"ms, bound {bounds[-1]['bound_ms']:.4f} ms "
+              f"({bounds[-1]['bytes']} B, by {bounds[-1]['bound_by']})",
+              flush=True)
+    out["surface"] = dict(launches=len(surf), max_abs_err=state["err"],
+                          lanes_beyond=state["share"], bit_equal=sorted(equal - differ),
+                          rounded=sorted(differ), ms=ms, plain_ms=plain_ms,
+                          bound=_sum_bounds(bounds))
+
+    state = dict(err=0.0, share=0.0)
+    ms, plain_ms, bounds, all_same = [], [], [], True
+    for i, (args, _, got) in enumerate(comb):
+        with torch.no_grad():
+            want = shade_combine_reference(*args)
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{tag} combine {i}: the output is "
+                                 f"{got.dtype} {tuple(got.shape)}")
+        share, worst, same = _beyond(got, want)
+        hold("combine", i, "the radiance", share, worst, state)
+        all_same = all_same and same
+        del want
+        ms.append(device_ms(lambda: k4.shade_combine_cuda(*args), 20))
+        with torch.no_grad():
+            plain_ms.append(device_ms(
+                lambda: shade_combine_reference(*args), 2))
+        bounds.append(_combine_bound(args[0], args))
+        print(f"shade combine vs plain [{tag} {i}]: rays {got.shape[0]} "
+              f"final={args[9]} bounce={args[6] is not None} shadows="
+              f"{0 if args[7] is None else len(args[7])}; kernel "
+              f"{ms[-1]:.4f} ms, plain {plain_ms[-1]:.4f} ms, bound "
+              f"{bounds[-1]['bound_ms']:.4f} ms ({bounds[-1]['bytes']} B, by "
+              f"{bounds[-1]['bound_by']})", flush=True)
+    out["combine"] = dict(launches=len(comb), max_abs_err=state["err"],
+                          lanes_beyond=state["share"], bit_equal=["rgb"] if all_same else [],
+                          rounded=[] if all_same else ["rgb"], ms=ms,
+                          plain_ms=plain_ms, bound=_sum_bounds(bounds))
+    for name, got in out.items():
+        print(f"shade {name} on the {tag}: {got['launches']} launches, "
+              f"{_list(got['ms'])} ms = {sum(got['ms']):.4f} ms; plain "
+              f"{sum(got['plain_ms']):.2f} ms; bound "
+              f"{got['bound']['bound_ms']:.4f} ms ({got['bound']['bytes']} "
+              f"B, by {got['bound']['bound_by']}); largest difference on the "
+              f"lanes within tolerance {got['max_abs_err']:.3e}, floats beyond "
+              f"it on at most {got['lanes_beyond']:.2e} of lanes; bit-equal "
+              f"outputs {got['bit_equal']}, rounded {got['rounded']}",
+              flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def _eager_shading():
+    """The renderer with every level's shading on the plain stages (eager
+    PyTorch, about a thousand launches a level): what a frame took before
+    the two shade kernels."""
+    from vrt_torch.render import renderer as tren
+
+    saved = tren.shade_stages
+    tren.shade_stages = lambda *_: (tren.shade_surface_reference,
+                                    tren.shade_combine_reference)
+    try:
+        yield
+    finally:
+        tren.shade_stages = saved
+
+
+@contextlib.contextmanager
+def _cached_constants():
+    """``torch.tensor`` / ``torch.as_tensor`` of host data onto the card, and
+    a Python list used as an index (``x[..., [2, 0, 1]]``), answered from a
+    cache after the first call: the eager stages build their small constants
+    from Python lists, and a copy from pageable memory cannot be captured
+    into a CUDA graph."""
+    import numpy as np
+    import torch
+
+    saved = (torch.tensor, torch.as_tensor, torch.Tensor.__getitem__)
+    cache = {}
+
+    def getitem(self, idx):
+        if self.device.type == "cuda" and isinstance(idx, tuple) and \
+                any(isinstance(i, list) for i in idx):
+            idx = tuple(cached(saved[0])(i, dtype=torch.long,
+                                         device=self.device)
+                        if isinstance(i, list) else i for i in idx)
+        return saved[2](self, idx)
+
+    def cached(make):
+        def fn(data, *args, **kwargs):
+            dev = kwargs.get("device")
+            if isinstance(data, torch.Tensor) or dev is None or \
+                    torch.device(dev).type != "cuda":
+                return make(data, *args, **kwargs)
+            blob = np.asarray(data)
+            key = (make.__name__, blob.tobytes(), blob.shape, str(blob.dtype),
+                   str(args), str(sorted(kwargs.items())))
+            if key not in cache:
+                cache[key] = make(data, *args, **kwargs)
+            return cache[key]
+        return fn
+
+    torch.tensor, torch.as_tensor = cached(saved[0]), cached(saved[1])
+    torch.Tensor.__getitem__ = getitem
+    try:
+        yield
+    finally:
+        torch.tensor, torch.as_tensor, torch.Tensor.__getitem__ = saved
+
+
+def _graph_yardstick(render, sync, card):
+    """The yardstick of the shade kernels: the frame with eager shading
+    captured once into a CUDA graph and replayed, so that its thousands of
+    launches cost the host nothing.  Timed, used nowhere in the port.
+    Returns the replay's median ms; a capture or replay that fails, or a
+    replayed frame that is not the eager frame, fails the run."""
+    import torch
+
+    with _eager_shading(), torch.no_grad():
+        want = render()
+        with _cached_constants():
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                for _ in range(2):
+                    render()
+            torch.cuda.current_stream().wait_stream(stream)
+            sync()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                img = render()
+    sync()
+    runs = []
+    for _ in range(6):
+        sync()
+        t0 = time.perf_counter()
+        graph.replay()
+        sync()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    if not torch.equal(img, want):
+        raise AssertionError("the replayed graph does not give the eager "
+                             "frame")
+    med = statistics.median(runs[1:])
+    print(f"yardstick on {card}: the 1080p frame with eager shading as "
+          f"one CUDA graph replays in {med:.2f} ms (runs "
+          f"{', '.join(f'{r:.2f}' for r in runs[1:])} ms), equal to the "
+          f"eager frame", flush=True)
+    return med
+
+
+def _compile_yardstick(render, sync, card, limit_s=420):
+    """The second yardstick: ``torch.compile`` of the two plain stages, each
+    timed on the inputs of every launch of one 1080p frame beside the kernel
+    on the same inputs.  Used nowhere in the port.  Returns {"surface" |
+    "combine": dict(ms, kernel_ms (summed over the frame's launches),
+    compile_s)}, or None for a stage that does not compile within
+    ``limit_s`` seconds in all (then nothing is measured)."""
+    import signal
+
+    import torch
+
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.kernels._timing import device_ms
+    from vrt_torch.render.renderer import (shade_combine_reference,
+                                           shade_surface_reference)
+
+    with _recording(k4, "shade_surface_cuda") as surf, \
+            _recording(k4, "shade_combine_cuda") as comb, torch.no_grad():
+        render()
+    sync()
+
+    def too_long(*_):
+        raise TimeoutError(f"no result within {limit_s} s")
+
+    out = {}
+    before = signal.signal(signal.SIGALRM, too_long)
+    signal.alarm(limit_s)
+    try:
+        for name, plain, kernel, calls in (
+                ("surface", shade_surface_reference, k4.shade_surface_cuda,
+                 surf),
+                ("combine", shade_combine_reference, k4.shade_combine_cuda,
+                 comb)):
+            out[name] = None
+            try:
+                t0 = time.perf_counter()
+                compiled = torch.compile(plain)
+                with torch.no_grad():
+                    compiled(*calls[0][0])
+                    sync()
+                    compile_s = time.perf_counter() - t0
+                    ms = [device_ms(lambda: compiled(*args), 5)
+                          for args, _, _ in calls]
+                kernel_ms = [device_ms(lambda: kernel(*args), 20)
+                             for args, _, _ in calls]
+                out[name] = dict(ms=sum(ms), kernel_ms=sum(kernel_ms),
+                                 compile_s=compile_s)
+                print(f"yardstick on {card}: torch.compile of the plain "
+                      f"{name} stage on the 1080p frame's {len(calls)} "
+                      f"launches {_list(ms)} ms = {sum(ms):.4f} ms (compiled "
+                      f"in {compile_s:.0f} s) against the kernel's "
+                      f"{_list(kernel_ms)} ms = {sum(kernel_ms):.4f} ms",
+                      flush=True)
+            except Exception as e:  # a yardstick: reported, not fatal
+                print(f"yardstick: torch.compile of the plain {name} stage "
+                      f"gave no time ({type(e).__name__}: {str(e)[:200]}): "
+                      f"not measured", flush=True)
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, before)
+    return out
+
+
 def _reset(counts):
     for name in counts:
         counts[name] = 0
@@ -742,11 +1173,12 @@ def _traces(scene):
     return levels + shadowed * lights
 
 
-def _resolves(scene):
-    """Resolves one frame makes: one per radiance level."""
+def _resolves(scene, lit=True):
+    """Resolves one frame makes, and launches of each shade kernel: one per
+    radiance level (the mirror bounce needs lit mode)."""
     from vrt_torch.render.renderer import MAX_RAY_RECURSION_DEPTH as cap
 
-    return cap if scene.any_reflective else 1
+    return cap if scene.any_reflective and lit else 1
 
 
 def _expected_k3(scene, plain_resolve=False):
@@ -816,6 +1248,7 @@ def _profile(render, sync, frame_ms, top=8, what="one 1080p frame"):
           f"K1 {share('march_kernel', 'march_scene_kernel')}; "
           f"K3 {share('rows_kernel')}; "
           f"fused resolve {share('resolve_kernel')}; "
+          f"shade {share('surface_kernel', 'combine_kernel')}; "
           f"{sum(r[1] for r in rows)} device ops", flush=True)
     for ms, count, key in rows[:top]:
         print(f"  kernel {ms:8.2f} ms {count:5d}x {key[:80]}", flush=True)
@@ -827,6 +1260,7 @@ def _profile(render, sync, frame_ms, top=8, what="one 1080p frame"):
     for ms, count, key, shapes in ops[:top]:
         print(f"  op {ms:8.2f} ms {count:5d}x {key} {shapes}", flush=True)
     return dict(ops={op[2] for op in ops}, busy_ms=busy,
+                op_shapes=[(op[2], op[3]) for op in ops],
                 device_ops=sum(r[1] for r in rows))
 
 
@@ -915,8 +1349,9 @@ def _engine_path(dev, card, sync, zero_counts, counts):
                     voxel_colors=g.voxel_colors)
 
     want_counts = dict(k1=0, scene=5, resolve=3, resolve_bwd=0, gather=0,
-                       scatter=0, scatter_v4=0, scatter_scalar=0)
-    launches = dict(scene=0, resolve=0)
+                       scatter=0, scatter_v4=0, scatter_scalar=0, surface=3,
+                       combine=3)
+    launches = dict(scene=0, resolve=0, surface=0, combine=0)
     held = {}
 
     def loop(pipelined, frames, tag):
@@ -941,8 +1376,8 @@ def _engine_path(dev, card, sync, zero_counts, counts):
                 raise AssertionError(f"launches of {tag} engine frame "
                                      f"{len(runs) - 1}: {got}, expected "
                                      f"{want_counts}")
-            launches["scene"] += got["scene"]
-            launches["resolve"] += got["resolve"]
+            for name in launches:
+                launches[name] += got[name]
             now = tensors(engine._gpu_scene)
             if before is not None:
                 for name, t in now.items():
@@ -954,15 +1389,17 @@ def _engine_path(dev, card, sync, zero_counts, counts):
             ptrs = {name: t.data_ptr() for name, t in now.items()}
 
         def held_frame(which):
-            # every scene-march and fused-resolve launch of this frame
-            # against its plain version on the same inputs
+            # every scene-march, fused-resolve and shade launch of this
+            # frame against its plain version on the same inputs
             box = {}
+            name = f"{tag} engine frame {which}"
 
             def marches():
-                box["scene"] = _scene_calls(one_frame, 5,
-                                            f"{tag} engine frame {which}")
-            box["fused"] = _resolve_calls(marches, 3,
-                                          f"{tag} engine frame {which}")
+                box["scene"] = _scene_calls(one_frame, 5, name)
+
+            def resolves():
+                box["fused"] = _resolve_calls(marches, 3, name)
+            box["shade"] = _shade_calls(resolves, 3, name)
             held[(tag, which)] = box
 
         sync()
@@ -996,7 +1433,8 @@ def _engine_path(dev, card, sync, zero_counts, counts):
               f"{med:.1f} ms/frame over {len(steady)} frames (runs "
               f"{', '.join(f'{r * 1e3:.1f}' for r in steady)} ms), "
               f"{FRAME_W * FRAME_H / med * 1e3:.0f} rays/s; per frame scene "
-              f"march 5, fused resolve 3, per-lane K1 0, K3 0; volume, "
+              f"march 5, fused resolve 3, shade surface 3 and combine 3, "
+              f"per-lane K1 0, K3 0; volume, "
               f"accel, texture and env tensors kept by every incremental "
               f"sync; last_frame uint8 {last.shape} equal to the UNORM of "
               f"render_image", flush=True)
@@ -1146,7 +1584,8 @@ def _engine_path(dev, card, sync, zero_counts, counts):
             str(FRAME_H), "--out", out])
         demo_s = time.perf_counter() - t0
         got = counts()
-        if (got["scene"], got["resolve"], got["k1"]) != (8 * 5, 8 * 3, 0):
+        if (got["scene"], got["resolve"], got["surface"], got["combine"],
+                got["k1"]) != (8 * 5, 8 * 3, 8 * 3, 8 * 3, 0):
             raise AssertionError(f"the demo's launches {got}")
         names = sorted(os.listdir(out))
         pngs = [read_png(os.path.join(out, n)) for n in names]
@@ -1162,9 +1601,10 @@ def _engine_path(dev, card, sync, zero_counts, counts):
               f"{FRAME_W}x{FRAME_H} on {card}: {len(names)} PNGs in "
               f"{demo_s:.1f}s, the last equal "
               f"to engine.last_frame; launches {got['scene']} scene "
-              f"marches, {got['resolve']} fused resolves", flush=True)
-        launches["demo_scene"] = got["scene"]
-        launches["demo_resolve"] = got["resolve"]
+              f"marches, {got['resolve']} fused resolves, {got['surface']} + "
+              f"{got['combine']} shade launches", flush=True)
+        for name in ("scene", "resolve", "surface", "combine"):
+            launches[f"demo_{name}"] = got[name]
 
         png = os.path.join(tmp, "torus.png")
         zero_counts()
@@ -1178,19 +1618,23 @@ def _engine_path(dev, card, sync, zero_counts, counts):
         img = read_png(png)
         colours = len(np.unique(img.reshape(-1, 4), axis=0))
         if img.shape != (FRAME_H, FRAME_W, 4) or colours < 100 or \
-                got["scene"] < 1 or got["resolve"] < 1 or got["k1"] != 0:
+                got["scene"] < 1 or got["resolve"] < 1 or got["k1"] != 0 or \
+                got["surface"] < 1 or got["combine"] != got["surface"]:
             raise AssertionError(f"the render CLI's PNG: {img.shape}, "
                                  f"{colours} colours, launches {got}")
         print(f"python -m vrt_torch.apps.render assets/torus.vox --env "
               f"assets/skybox.dds at {FRAME_W}x{FRAME_H} on {card}: {colours} "
               f"distinct colours, {render_s:.1f}s; launches {got['scene']} "
-              f"scene marches, {got['resolve']} fused resolves", flush=True)
-        launches["render_scene"] = got["scene"]
-        launches["render_resolve"] = got["resolve"]
+              f"scene marches, {got['resolve']} fused resolves, "
+              f"{got['surface']} + {got['combine']} shade launches",
+              flush=True)
+        for name in ("scene", "resolve", "surface", "combine"):
+            launches[f"render_{name}"] = got[name]
 
     first = held[("pipelined", "first")]
     return dict(launches=launches, numbers=numbers, held=held,
-                scene=first["scene"], fused=first["fused"])
+                scene=first["scene"], fused=first["fused"],
+                shade=first["shade"])
 
 
 def _list(ms):
@@ -1212,13 +1656,14 @@ def main():
     from vrt_torch.kernels import march as k1
     from vrt_torch.kernels import resolve as kr
     from vrt_torch.kernels import rows as k3
+    from vrt_torch.kernels import shade as k4
     from vrt_torch.march.march import march_lanes, march_lanes_reference
     from vrt_torch.render.camera import camera_rays
     from vrt_torch.render.gpuscene import RenderMode
     from vrt_torch.render.renderer import (DIR_SHADOW_TMAX, RADIANCE_TMAX,
                                            march_scene, march_scene_any_hit,
                                            render_image, resolve_scene)
-    from vrt_torch.scenes import flagship_scene
+    from vrt_torch.scenes import flagship_scene, shading_scene
 
     # ---- 1. device ---------------------------------------------------------
     card = probe.card()
@@ -1233,23 +1678,27 @@ def main():
 
     # ---- 2. build: one nvcc per source, all started together ---------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         logs = {"K1 (march.cu)": pool.submit(k1.build),
                 "gather (gather.cu)": pool.submit(gk.build),
                 "K3 (rows.cu)": pool.submit(k3.build),
                 "fused resolve, forward and backward (resolve.cu)":
-                pool.submit(kr.build)}
+                pool.submit(kr.build),
+                "K4 shade, surface and combine (shade.cu)":
+                pool.submit(k4.build)}
         logs = {name: f.result() for name, f in logs.items()}
     print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
     for name, log in logs.items():
         for line in log.strip().splitlines():
             print(f"  nvcc {name}: {line}", flush=True)
-    spills = [line for line in logs["fused resolve, forward and backward "
-                                    "(resolve.cu)"].splitlines()
-              if "spill" in line and "0 bytes spill stores, 0 bytes spill "
-              "loads" not in line]
-    print(f"fused resolve: {len(spills)} kernels spill registers"
-          + "".join(f"\n  {line.strip()}" for line in spills), flush=True)
+    for name in ("fused resolve, forward and backward (resolve.cu)",
+                 "K4 shade, surface and combine (shade.cu)"):
+        spills = [line for line in logs[name].splitlines()
+                  if "spill" in line and "0 bytes spill stores, 0 bytes "
+                  "spill loads" not in line]
+        print(f"{name}: {len(spills)} kernels spill registers"
+              + "".join(f"\n  {line.strip()}" for line in spills),
+              flush=True)
 
     # ---- 3. every kernel against its plain version --------------------------
     t0 = time.perf_counter()
@@ -1366,6 +1815,23 @@ def main():
           f"bound {bwd['bound']['bound_ms']:.4f} ms ({bwd['bound']['bytes']} "
           f"B, by {bwd['bound']['bound_by']})", flush=True)
 
+    # the two shade kernels: every launch of the three 1080p frames and of an
+    # unlit one, and of 480x270 frames of a scene with textures, two point
+    # lights and a spot light, without and with per-voxel colours
+    unlit = RenderMode(lit=False)
+    shade_runs = {}
+    for tag, m in (("interp", mode), ("cube", cube), ("overlay", overlay),
+                   ("unlit", unlit)):
+        shade_runs[tag] = _shade_calls(frame(m), _resolves(scene, m.lit),
+                                       f"1080p {tag} frame")
+    for tag, colors in (("lights", False), ("lights_colors", True)):
+        busy = shading_scene(6, 2, 1, colors=colors, device=dev)
+        shade_runs[tag] = _shade_calls(
+            lambda: render_image(busy, SMALL_W, SMALL_H, mode),
+            _resolves(busy), f"480x270 textured frame with 2 point lights "
+            f"and a spot light, colours={colors}")
+        del busy
+
     # K3: every launch of one 1080p frame on the candidate-loop path, of one
     # config6 fit step (the colour rows) and of that step with resolve on the
     # plain path (the 9-channel corner rows too)
@@ -1426,6 +1892,7 @@ def main():
         _reset(kr.LAUNCHES)
         _reset(k3.LAUNCHES)
         _reset(k3.SCATTER_LAUNCHES)
+        _reset(k4.LAUNCHES)
 
     def counts():
         return dict(k1=k1.LAUNCHES, scene=k1.SCENE_LAUNCHES,
@@ -1434,7 +1901,9 @@ def main():
                     gather=k3.LAUNCHES["K3 gather"],
                     scatter=k3.LAUNCHES["K3 scatter"],
                     scatter_v4=k3.SCATTER_LAUNCHES["v4"],
-                    scatter_scalar=k3.SCATTER_LAUNCHES["scalar"])
+                    scatter_scalar=k3.SCATTER_LAUNCHES["scalar"],
+                    surface=k4.LAUNCHES["surface"],
+                    combine=k4.LAUNCHES["combine"])
 
     def timed(run, n):
         run()                                              # warm-up
@@ -1461,7 +1930,9 @@ def main():
         got = counts()
         want = dict(k1=0, scene=3 * _traces(scene),
                     resolve=3 * _resolves(scene), resolve_bwd=0, gather=0,
-                    scatter=0, scatter_v4=0, scatter_scalar=0)
+                    scatter=0, scatter_v4=0, scatter_scalar=0,
+                    surface=3 * _resolves(scene),
+                    combine=3 * _resolves(scene))
         if not bool(torch.isfinite(img).all()):
             raise AssertionError(f"1080p {tag} frame has non-finite pixels")
         if tuple(img.shape) != (FRAME_H, FRAME_W, 4):
@@ -1474,7 +1945,8 @@ def main():
               f"(runs {', '.join(f'{f * 1e3:.1f}' for f in runs)} ms), "
               f"{FRAME_W * FRAME_H / median:.0f} rays/s; launches in 3 "
               f"frames: scene march {got['scene']}, fused resolve "
-              f"{got['resolve']}, per-lane K1 {got['k1']}, K3 gathers "
+              f"{got['resolve']}, shade surface {got['surface']} and combine "
+              f"{got['combine']}, per-lane K1 {got['k1']}, K3 gathers "
               f"{got['gather']}", flush=True)
         return median, got
 
@@ -1505,7 +1977,30 @@ def main():
             old_counts["gather"] != 2 * 2 * 6 * _expected_k3(scene, True):
         raise AssertionError(f"launches of the paired frames {old_counts}")
 
+    # eager shading (the plain stages) against the two shade kernels, in one
+    # call; the old side launches no shade kernel
+    def eager(run):
+        def go():
+            with _eager_shading():
+                return run()
+        return go
+
+    zero_counts()
+    for tag, m in (("interp", mode), ("cube", cube)):
+        meds = []
+        for run in (eager(frame(m)), frame(m), frame(m), eager(frame(m))):
+            meds.append(statistics.median(timed(run, 5)[0]) * 1e3)
+        paired[f"shade_{tag}"] = meds
+        print(f"1080p {tag} frame on {card}, eager shading against the two "
+              f"shade kernels, medians of 5 in the order old, new, new, old: "
+              f"{', '.join(f'{t:.2f}' for t in meds)} ms", flush=True)
+    got = counts()
+    if (got["surface"], got["combine"]) != (2 * 2 * 6 * _resolves(scene),) * 2 \
+            or got["scene"] != 2 * 4 * 6 * _traces(scene):
+        raise AssertionError(f"launches of the paired shading frames {got}")
+
     # ---- 5. anchored to the JAX reference ----------------------------------
+    zero_counts()
     want = np.load(FIXTURE)
     got = render_image(scene, 160, 90, mode)[..., :3].cpu().numpy()
     if not np.isfinite(got).all():
@@ -1533,11 +2028,33 @@ def main():
     if not (q98 < 6e-3 and mean < 2.5e-3 and outl < 0.005):
         raise AssertionError("160x90 cube frame disagrees with the vrt "
                              "fixture")
+    got = counts()
+    if (got["surface"], got["combine"]) != (_resolves(scene) + 1,) * 2:
+        raise AssertionError(f"the fixture frames' shade launches {got}")
 
     # ---- 6. where the time goes ---------------------------------------------
     prof = _profile(frame(mode), sync, frame_s * 1e3)
     if prof is not None and "aten::sort" in prof["ops"]:
         raise AssertionError("the 1080p frame still sorts on the device")
+    frame_ops = None
+    if prof is not None:
+        # what is left is camera_rays and the glue of trace_radiance: no
+        # gather from a table, and no cat but camera_basis' of 3-vectors
+        import re
+
+        frame_ops = prof["device_ops"]
+        wide_cats = [shapes for op, shapes in prof["op_shapes"]
+                     if op == "aten::cat" and
+                     max(map(int, re.findall(r"\d+", shapes) or [0])) > 4096]
+        print(f"1080p frame: {frame_ops} device ops (at most "
+              f"{FRAME_OPS_MAX}); operators with device time: "
+              f"{sorted(prof['ops'])}", flush=True)
+        if frame_ops > FRAME_OPS_MAX or "aten::index" in prof["ops"] or \
+                wide_cats:
+            raise AssertionError(f"the 1080p frame: {frame_ops} device ops, "
+                                 f"operators {sorted(prof['ops'])}, cats of "
+                                 f"{wide_cats}")
+    flagship = scene
     del scene
 
     # ---- 7. the gather probe ------------------------------------------------
@@ -1593,14 +2110,16 @@ def main():
           f"{fit_counts['resolve_bwd'] / 3:g}, K3 gathers "
           f"{fit_counts['gather'] / 3:g}, K3 scatters "
           f"{fit_counts['scatter'] / 3:g} ({fit_counts['scatter_v4'] / 3:g} "
-          f"on the 16-byte path), per-lane K1 {fit_counts['k1'] / 3:g}",
-          flush=True)
+          f"on the 16-byte path), per-lane K1 {fit_counts['k1'] / 3:g}, "
+          f"shade kernels {fit_counts['surface'] + fit_counts['combine']} "
+          f"(a step shades on the plain stages under autograd)", flush=True)
     want = dict(k1=0, scene=3 * _traces(fit_scene),
                 resolve=3 * _resolves(fit_scene),
                 resolve_bwd=3 * _resolves(fit_scene),
                 gather=3 * _expected_k3(fit_scene),
                 scatter=3 * _expected_k3(fit_scene),
-                scatter_v4=3 * _expected_k3(fit_scene), scatter_scalar=0)
+                scatter_v4=3 * _expected_k3(fit_scene), scatter_scalar=0,
+                surface=0, combine=0)
     if fit_counts != want:
         raise AssertionError(f"launches in 3 fit steps {fit_counts}, "
                              f"expected {want}")
@@ -1641,7 +2160,8 @@ def main():
                 scatter=8 * _expected_k3(fit_scene)
                 + 8 * _expected_k3(fit_scene, True),
                 scatter_v4=16 * _expected_k3(fit_scene),
-                scatter_scalar=8 * _resolves(fit_scene))
+                scatter_scalar=8 * _resolves(fit_scene), surface=0,
+                combine=0)
     if plain_counts != want:
         raise AssertionError(f"launches of the paired fit steps "
                              f"{plain_counts}, expected {want}")
@@ -1665,6 +2185,12 @@ def main():
               + ("" if prof is None else
                  f", device busy {prof['busy_ms']:.1f} ms in "
                  f"{prof['device_ops']} device ops"), flush=True)
+        if tag == "new" and prof is not None and \
+                prof["device_ops"] not in FIT_STEP_OPS:
+            raise AssertionError(
+                f"a config6 fit step takes {prof['device_ops']} device ops, "
+                f"expected {FIT_STEP_OPS[0]} to {FIT_STEP_OPS[-1]}: the "
+                f"shade kernels must leave the step as it was")
     del fit_scene, step, params, state, targets
 
     # the card's fit loss and gradients against vrt's (CPU) on the fixture
@@ -1727,6 +2253,14 @@ def main():
         scene_err = max(scene_err, box["scene"]["max_abs_err"])
     eng_launches = eng["launches"]
 
+    # ---- the yardsticks of the shade kernels, after every phase
+    def flagship_frame():
+        return render_image(flagship, FRAME_W, FRAME_H, mode)
+
+    graph_ms = _graph_yardstick(flagship_frame, sync, card)
+    compiled = _compile_yardstick(flagship_frame, sync, card)
+    del flagship
+
     def bound_keys(b):
         return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
                 "bound_bytes": b["bytes"], "bound_operations": b["flops"]}
@@ -1763,6 +2297,13 @@ def main():
                      demo_cli=eng_launches["demo_scene"],
                      render_cli=eng_launches["render_scene"])
     eng_scene, eng_fused = eng["scene"], eng["fused"]
+
+    def shade_paths(stage):
+        return {"frames": frame_counts[stage] + cube_counts[stage]
+                + overlay_counts[stage], "fit_steps": fit_counts[stage],
+                "engine_frames": eng_launches[stage],
+                "demo_cli": eng_launches[f"demo_{stage}"],
+                "render_cli": eng_launches[f"render_{stage}"]}
     print(json.dumps({"kernels": [{
         "name": "K1 march", "route": "cuda",
         "source": "vrt_torch/csrc/march.cu",
@@ -1829,6 +2370,43 @@ def main():
          "max_ray_grad_err_over_max": bwd["ray_err"],
          "ms": sum(bwd["ms"]), "plain_ms": sum(bwd["plain_ms"]),
          **bound_keys(bwd["bound"]), "library_ms": None},
+        *({"name": f"K4 shade {stage}", "route": "cuda",
+           "source": "vrt_torch/csrc/shade.cu",
+           "replaces": replaces,
+           "launches": sum(by.values()), "launches_by_path": by,
+           "max_abs_err": max(g[stage]["max_abs_err"]
+                              for g in list(shade_runs.values())
+                              + [box["shade"]
+                                 for box in eng["held"].values()]),
+           "tolerance": {"rtol": SHADE_RTOL, "atol": SHADE_ATOL,
+                         "lanes_beyond": SHADE_FLOAT_BUDGET,
+                         "boolean_flips": LANE_BUDGET},
+           "lanes_beyond": max(g[stage]["lanes_beyond"]
+                               for g in list(shade_runs.values())
+                               + [box["shade"]
+                                  for box in eng["held"].values()]),
+           "bit_equal_outputs": shade_runs["interp"][stage]["bit_equal"],
+           "rounded_outputs": shade_runs["interp"][stage]["rounded"],
+           "ms": sum(shade_runs["interp"][stage]["ms"]),
+           "plain_ms": sum(shade_runs["interp"][stage]["plain_ms"]),
+           **bound_keys(shade_runs["interp"][stage]["bound"]),
+           "library_ms": None,
+           "by_path": {t: {"ms": sum(g[stage]["ms"]),
+                           "plain_ms": sum(g[stage]["plain_ms"]),
+                           **bound_keys(g[stage]["bound"])}
+                       for t, g in list(shade_runs.items())
+                       + [("engine_frame", eng["shade"])]}}
+          for stage, replaces, by in (
+              ("surface",
+               "vrt/render/renderer.py:306 (_shade_lit's head with "
+               "_per_ray_instance :182, _voxel_color_sample :229, "
+               "_shade_unlit_mode :447, vrt/shade/texture.py:69, XLA-fused "
+               "jnp: no Pallas kernel)", shade_paths("surface")),
+              ("combine",
+               "vrt/render/renderer.py:306 (_shade_lit's tail with the "
+               "selects of trace_radiance :478, tonemap :607, "
+               "vrt/shade/brdf.py:66, lights.py:8, texture.py:150, "
+               "XLA-fused jnp: no Pallas kernel)", shade_paths("combine")))),
         {"name": "K3 gather", "route": "cuda",
          "source": "vrt_torch/csrc/rows.cu",
          "replaces": "vrt/march/isosurface.py:181 (take_rows, an XLA "
@@ -1884,6 +2462,9 @@ def main():
              "library_ms": k3_plain["scatter"]["library_ms"],
              **bound_keys(k3_plain["scatter"]["bound"])}}] + gp,
         "paired_ms_old_new_new_old": paired,
+        "frame_device_ops": frame_ops,
+        "eager_frame_as_cuda_graph_ms": graph_ms,
+        "plain_stages_under_torch_compile": compiled,
         "config6_step_old_new": sides,
         "engine": eng["numbers"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

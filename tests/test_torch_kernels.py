@@ -852,3 +852,249 @@ def test_scene_graph_on_card_matches_cpu():
     diff = np.abs(frames[0] - frames[1])
     assert np.quantile(diff, 0.98) < 6e-3 and diff.mean() < 2.5e-3
     assert (diff.max(axis=-1) > 0.05).mean() < 0.005
+
+
+# ---- K4: the two shade kernels on the card ----------------------------------
+#
+# Built with --fmad=false in the plain stages' operation order; torch's own
+# reductions over 3, 4 and 8 elements and its pow round in an order of their
+# own, and a comparison that feeds a select may flip, so a float is held to
+# SHADE_ATOL + SHADE_RTOL * |plain| on all but SHADE_FLOAT_BUDGET of the lanes
+# and a boolean may flip on LANE_BUDGET of them (the budgets ``chip_smoke.py``
+# holds them to).
+
+SHADE_RTOL, SHADE_ATOL = 1e-4, 1e-5
+SHADE_FLOAT_BUDGET = 0.0
+SHADE_MODES = {f"mode{m}": RenderMode.from_enum(m) for m in range(8)}
+SHADE_MODES["overlay"] = RenderMode(debug_overlay=True)
+LIGHT_SETS = {"no-lights": (0, 0), "point-spot": (1, 1),
+              "two-points-spot": (2, 1), "five-five": (5, 5)}
+
+
+def _lanes_beyond(a, b, lanes=None):
+    if lanes is not None:
+        a, b = a[lanes], b[lanes]
+    if a.numel() == 0:
+        return 0.0
+    same = (a == b) | ((a != a) & (b != b))
+    diff = (a - b).abs().masked_fill(same, 0.0)
+    off = ~(diff <= SHADE_ATOL + SHADE_RTOL * b.abs())
+    return off.reshape(off.shape[0], -1).any(-1).float().mean().item()
+
+
+def _held_stages(seen):
+    """A stage pair that launches each kernel, holds it against its plain
+    stage on the same inputs and hands on the kernel's result."""
+    def surface(*args):
+        got = tren._shade_surface_kernel(*args)
+        want = tren.shade_surface_reference(*args)
+        on = args[5].hit
+        # a level that spawns no trace leaves a miss lane's origin unwritten
+        spawns = args[7].lit and (args[8] or args[9])
+        for f in dataclasses.fields(got):
+            a, b = getattr(got, f.name), getattr(want, f.name)
+            if f.name == "lights":      # the plain stage's alone
+                assert a is None
+                continue
+            assert (a is None) == (b is None), f.name
+            if a is None:
+                continue
+            if f.name == "gate":
+                assert (a != b).float().mean().item() <= LANE_BUDGET
+            elif f.name == "shadow_tmax":
+                assert len(a) == len(b)
+                for x, y in zip(a, b):
+                    dead = torch.isinf(x), torch.isinf(y)
+                    assert (dead[0] != dead[1]).float().mean().item() \
+                        <= LANE_BUDGET
+                    assert _lanes_beyond(x, y, ~dead[0] & ~dead[1]) \
+                        <= SHADE_FLOAT_BUDGET
+            elif f.name == "shadow_dir":
+                assert len(a) == len(b)
+                for x, y in zip(a, b):
+                    assert _lanes_beyond(x, y, on) <= SHADE_FLOAT_BUDGET
+            else:
+                assert a.dtype == b.dtype and a.shape == b.shape, f.name
+                lanes = None if f.name == "shadow_origin" and spawns else on
+                assert _lanes_beyond(a, b, lanes) <= SHADE_FLOAT_BUDGET, \
+                    f.name
+        seen["surface"] += 1
+        return got
+
+    def combine(*args):
+        got = tren._shade_combine_kernel(*args)
+        want = tren.shade_combine_reference(*args)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert _lanes_beyond(got, want) <= SHADE_FLOAT_BUDGET
+        seen["combine"] += 1
+        return got
+
+    return lambda *_: (surface, combine)
+
+
+def _render_held(scene, width, height, mode):
+    from vrt_torch.kernels import shade as k4
+
+    seen = dict(surface=0, combine=0)
+    before = dict(k4.LAUNCHES)
+    plain = tren.shade_stages
+    tren.shade_stages = _held_stages(seen)
+    try:
+        with torch.no_grad():
+            img = render_image(scene, width, height, mode)
+    finally:
+        tren.shade_stages = plain
+    torch.cuda.synchronize()
+    levels = 3 if mode.lit and scene.any_reflective else 1
+    assert seen == dict(surface=levels, combine=levels)
+    assert k4.LAUNCHES == {k: before[k] + levels for k in before}
+    assert img.shape == (height, width, 4)
+    assert bool(torch.isfinite(img).all()) and bool((img[..., 3] == 1).all())
+    return img
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lights", sorted(LIGHT_SETS))
+@pytest.mark.parametrize("mode", sorted(SHADE_MODES))
+def test_shade_kernels_match_plain_on_card(mode, lights):
+    """Every launch of both kernels in a 480x270 frame of the textured scene
+    against its plain stage, per render mode and light set."""
+    from vrt_torch.scenes import shading_scene
+
+    dev = _card()
+    points, spots = LIGHT_SETS[lights]
+    scene = shading_scene(5, points, spots, device=dev)
+    img = _render_held(scene, 480, 270, SHADE_MODES[mode])
+    assert img[..., :3].std().item() > 0.02
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["colours-f32", "colours-bf16",
+                                  "non-reflective", "empty", "default-1x1"])
+def test_shade_kernels_on_card_cases(case):
+    """Per-voxel colours from an f32 and a bf16 table (lit and unlit), a
+    scene without reflective material (one level, no bounce record), the
+    scene without instances, and the flagship's default 1x1 textures."""
+    from vrt_torch.scenes import shading_scene
+
+    dev = _card()
+    if case.startswith("colours"):
+        dtype = torch.bfloat16 if case.endswith("bf16") else None
+        scene = shading_scene(5, 2, 1, colors=True, march_dtype=dtype,
+                              device=dev)
+        assert scene.voxel_color_corners.dtype == (dtype or torch.float32)
+    elif case == "non-reflective":
+        scene = shading_scene(5, 1, 1, reflective=False, device=dev)
+        assert not scene.any_reflective
+    elif case == "empty":
+        full = shading_scene(4, 1, 1, device=dev)
+        scene = dataclasses.replace(
+            full, inst_volume=full.inst_volume[:0],
+            inst_pos=full.inst_pos[:0], inst_rot=full.inst_rot[:0],
+            inst_scale=full.inst_scale[:0],
+            inst_active=full.inst_active[:0])
+    else:
+        scene = flagship_scene(5, device=dev)
+    for mode in (RenderMode(), RenderMode(lit=False),
+                 RenderMode(textured=False)):
+        _render_held(scene, 480, 270, mode)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fixture,mode,limits", [
+    ("flagship_r7_cheb_bf16_160x90.npy", RenderMode(),
+     (0.90, 0.015, 0.01, 0.1, 0.03)),
+    ("flagship_r7_cheb_bf16_cube_unlit_160x90.npy",
+     RenderMode(interp=False, lit=False), (0.98, 6e-3, 2.5e-3, 0.05, 0.005))],
+    ids=["interp-lit", "cube-unlit"])
+def test_fixture_frames_through_shade_kernels(fixture, mode, limits):
+    """The 160x90 frames ``vrt`` rendered on the CPU, through the kernels on
+    the card, under the thresholds ``chip_smoke.py`` holds them to."""
+    import os
+
+    from vrt_torch.kernels import shade as k4
+
+    dev = _card()
+    want = np.load(os.path.join(os.path.dirname(__file__), "fixtures",
+                                fixture))
+    scene = flagship_scene(7, "chebyshev", torch.bfloat16, device=dev)
+    before = k4.LAUNCHES["combine"]
+    got = render_image(scene, 160, 90, mode)[..., :3].cpu().numpy()
+    assert k4.LAUNCHES["combine"] == before + (3 if mode.lit else 1)
+    q, q_max, mean_max, off, off_max = limits
+    diff = np.abs(got - want)
+    assert np.isfinite(got).all()
+    assert np.quantile(diff, q) < q_max
+    assert diff.mean() < mean_max
+    assert (diff.max(axis=-1) > off).mean() < off_max
+
+
+@pytest.mark.gpu
+def test_shade_dispatch_on_card():
+    """CUDA tensors take the kernels; a graph through a tensor the level
+    reads takes the plain stages, launching no shade kernel."""
+    from vrt_torch.kernels import shade as k4
+
+    dev = _card()
+    scene = flagship_scene(4, device=dev)
+    before = dict(k4.LAUNCHES)
+    base = render_image(scene, 64, 36, RenderMode())
+    assert k4.LAUNCHES == {k: v + 3 for k, v in before.items()}
+    tint = scene.tint.clone().requires_grad_(True)
+    img = render_image(dataclasses.replace(scene, tint=tint), 64, 36,
+                       RenderMode())
+    assert k4.LAUNCHES == {k: v + 3 for k, v in before.items()}
+    assert img.requires_grad and not base.requires_grad
+    torch.testing.assert_close(img.detach(), base, rtol=1e-4, atol=2e-5)
+    with torch.no_grad():
+        render_image(dataclasses.replace(scene, tint=tint), 64, 36,
+                     RenderMode())
+    assert k4.LAUNCHES == {k: v + 6 for k, v in before.items()}
+
+
+@pytest.mark.gpu
+def test_shade_wrappers_reject_bad_inputs_on_card():
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.render.camera import camera_rays
+
+    dev = _card()
+    scene = flagship_scene(4, device=dev)
+    mode = RenderMode()
+    o, d = camera_rays(scene.cam_pos, scene.cam_rot, scene.cam_fov, 32, 18)
+    o = o.contiguous()
+    t_max = torch.full((o.shape[0],), tren.RADIANCE_TMAX, device=dev)
+    hit, inst = tren.march_scene(scene, o, d, t_max)
+    t, n_obj, unlit = tren.resolve_scene(scene, o, d, hit, inst)
+    rec = k4.shade_surface_cuda(scene, o, d, t, n_obj, hit, inst, mode, True,
+                                True)
+    before = dict(k4.LAUNCHES)
+    blocked = [torch.zeros(o.shape[0], dtype=torch.bool, device=dev)]
+    bad_surface = [
+        lambda: k4.shade_surface_cuda(scene, o.double(), d, t, n_obj, hit,
+                                      inst, mode, True, True),
+        lambda: k4.shade_surface_cuda(scene, o, d[:-1], t, n_obj, hit, inst,
+                                      mode, True, True),
+        lambda: k4.shade_surface_cuda(scene, o, d, t, n_obj.cpu(), hit, inst,
+                                      mode, True, True),
+        lambda: k4.shade_surface_cuda(scene, o, d, t, n_obj, hit,
+                                      inst.long(), mode, True, True),
+        lambda: k4.shade_surface_cuda(
+            scene, o, d, torch.stack([t, t], -1)[:, 0], n_obj, hit, inst,
+            mode, True, True)]
+    bad_combine = [
+        lambda: k4.shade_combine_cuda(scene, rec, d, n_obj, hit.hit.int(),
+                                      unlit, None, blocked, mode),
+        lambda: k4.shade_combine_cuda(scene, rec, d, n_obj, hit.hit, unlit,
+                                      None, blocked * 2, mode),
+        lambda: k4.shade_combine_cuda(scene, rec, d, n_obj, hit.hit, unlit,
+                                      d.double(), blocked, mode),
+        lambda: k4.shade_combine_cuda(
+            scene, dataclasses.replace(rec, n_w=rec.n_w[:, :2]), d, n_obj,
+            hit.hit, unlit, None, blocked, mode)]
+    for call in bad_surface + bad_combine:
+        with pytest.raises(ValueError):
+            call()
+    assert k4.LAUNCHES == before
+    out = k4.shade_combine_cuda(scene, rec, d, n_obj, hit.hit, unlit, None,
+                                blocked, mode, final=True)
+    assert out.shape == (o.shape[0], 4)

@@ -1,0 +1,472 @@
+"""The two stages of a level's shading (``shade_surface_reference`` then
+``shade_combine_reference``, the plain versions of the shade kernels)
+against vrt on the CPU, and the rule that picks between the stage pairs.
+
+- one level on the same hits, from seeded scenes: the stage pair against
+  vrt's ``_shade_lit`` / ``_shade_unlit_mode`` + the selects of
+  ``trace_radiance`` + ``tonemap`` in all 8 render modes, on the hit lanes
+  the port's march and resolve give (passed to vrt as numpy).  Tolerance:
+  1e-4 relative + 1e-5 absolute on linear radiance — XLA's CPU backend
+  contracts multiply-adds into FMAs where eager torch rounds each operation
+  (ROADMAP Queue 3), which moves a Cook-Torrance term in its last bits;
+- whole frames at 32x32 (march, shadows and the bounce inside) with 0, 1
+  and 2 point and spot lights, per-voxel colours on and off, a scene
+  without reflective material and the empty scene against ``vrt``'s
+  ``render_image`` under the thresholds of tests/test_golden_full.py;
+- the surface record's shapes and dtypes per flag set;
+- the dispatch rule ``shade_stages``: CPU tensors take the plain pair; CUDA
+  tensors the kernel pair unless a graph is recorded through a tensor the
+  level reads, one case per such tensor; another device raises;
+- a fit step runs the plain pair and gives the loss and gradients of the
+  64x36 fixture ``chip_smoke.py`` holds the card against;
+- a tracer that overrides only ``march`` and ``resolve`` renders the default
+  tracer's frame through the stages;
+- the wrappers raise on a wrong device, dtype or shape.
+"""
+
+import dataclasses
+import os
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.test_golden_full import _assert_close, _checker, _scene_pair
+from tests.test_torch_host import scene_fields
+from vrt.march.types import MarchHit as VHit
+from vrt.render import renderer as vren
+from vrt.render.gpuscene import RenderMode as VMode
+from vrt.render.gpuscene import build_scene as vbuild
+from vrt_torch.diff.fit import (_value_and_grad, graft_and_rebuild,
+                                render_views)
+from vrt_torch.kernels import shade as k4
+from vrt_torch.march.types import MarchHit, SurfaceRecord
+from vrt_torch.render import renderer as tren
+from vrt_torch.render.camera import camera_rays
+from vrt_torch.render.gpuscene import RenderMode, scene_from_numpy
+from vrt_torch.scenes import flagship_scene
+
+torch.set_num_threads(2)
+
+FIT_FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
+                           "fit_flagship_r4_colors_64x36.npz")
+FIT_CAMS = [dict(position=(320.0, 0.0, 40.0), rotation=(0.0, 0.0, 1.0, 0.0),
+                 fov=60.0)]
+
+
+def _vrt_scene(points=1, spots=1, colors=False, reflective=True,
+               instances=True):
+    """The two-instance scene of tests/test_golden_full.py with checker
+    textures, ``points`` point and ``spots`` spot lights and, with
+    ``colors``, seeded per-voxel colours, built by vrt."""
+    (sphere, slab, inst, cam_pos, cam_rot, light_dir, point, spot,
+     env) = _scene_pair()
+    if not reflective:
+        sphere.material.roughness = 0.45
+    albedo_tex = _checker(8, (1.0, 1.0, 1.0), (0.45, 0.45, 0.45))
+    rm_tex = _checker(8, (1.0, 1.0, 0.0), (0.75, 0.5, 0.0))
+    normal_tex = np.full((8, 8, 3), (0.5, 0.5, 1.0), np.float32)
+    normal_tex[::2, :, 0] = 0.58
+    normal_tex[1::2, :, 1] = 0.42
+    second_point = dict(point, position=(120.0, 90.0, 160.0),
+                        color=(0.5, 1.0, 0.6, 1.0), intensity=45.0)
+    second_spot = dict(spot, position=(170.0, -60.0, 150.0),
+                       color=(1.0, 0.9, 0.3, 1.0), intensity=70.0)
+    voxel_colors = None
+    if colors:
+        n = sphere.n_voxels
+        voxel_colors = np.random.default_rng(3).uniform(
+            0.1, 0.9, size=(2, n, n, n, 3)).astype(np.float32)
+    return vbuild(
+        [sphere, slab], inst if instances else [],
+        camera=dict(position=cam_pos, rotation=cam_rot, fov=60.0),
+        dir_light=dict(direction=light_dir, strength=5.0),
+        point_lights=[point, second_point][:points],
+        spot_lights=[spot, second_spot][:spots], env=env,
+        textures=np.stack([albedo_tex, normal_tex, rm_tex]),
+        tex_sizes=np.asarray([[8, 8]] * 3, np.int32),
+        texture_ids=[(0, 1, 2), (0, 1, 2)], voxel_colors=voxel_colors)
+
+
+def _level_inputs(ts, mode, width=48, height=32):
+    """The port's primary rays, their march and their resolve."""
+    o, d = camera_rays(ts.cam_pos, ts.cam_rot, ts.cam_fov, width, height)
+    o = o.contiguous()
+    t_max = torch.full((o.shape[0],), tren.RADIANCE_TMAX)
+    hit, inst = tren.march_scene(ts, o, d, t_max, mode.interp,
+                                 debug_overlay=mode.debug_overlay)
+    t, n_obj, unlit_attr = tren.resolve_scene(ts, o, d, hit, inst)
+    return o, d, hit, inst, t, n_obj, unlit_attr
+
+
+# ---- one level against vrt ----------------------------------------------------
+
+@pytest.fixture(scope="module")
+def lit_scenes():
+    vs = _vrt_scene()
+    return vs, scene_from_numpy(scene_fields(vs), device="cpu")
+
+
+@pytest.mark.parametrize("mode_id", range(8))
+def test_stage_pair_matches_vrt_level(lit_scenes, mode_id):
+    """A level without traces of its own (depth 2: no shadow ray, no
+    bounce): the stage pair, tonemapped, against vrt's shading of the same
+    hits."""
+    vs, ts = lit_scenes
+    mode = RenderMode.from_enum(mode_id)
+    vmode = VMode.from_enum(mode_id)
+    o, d, hit, inst, t, n_obj, unlit_attr = _level_inputs(ts, mode)
+    assert 100 < int(hit.hit.sum()) < hit.hit.numel()
+
+    rec = tren.shade_surface_reference(ts, o, d, t, n_obj, hit, inst, mode,
+                                       False, False)
+    got = tren.shade_combine_reference(ts, rec, d, n_obj, hit.hit, unlit_attr,
+                                       None, None, mode, final=True)
+    assert got.shape == (o.shape[0], 4) and bool((got[:, 3] == 1.0).all())
+    lin = tren.shade_combine_reference(ts, rec, d, n_obj, hit.hit, unlit_attr,
+                                       None, None, mode)
+
+    # vrt on the same hits: the sanitising and the selects of trace_radiance
+    # around _shade_lit / _shade_unlit_mode at depth 2
+    vhit = VHit(**{f: jnp.asarray(getattr(hit, f).numpy())
+                   for f in ("hit", "t", "kind", "cell", "t_in", "t_out",
+                             "face_normal")})
+    jo, jd, jinst = (jnp.asarray(x.numpy()) for x in (o, d, inst))
+    jt = jnp.where(vhit.hit, jnp.asarray(t.numpy()), 0.0)
+    jn = jnp.where(vhit.hit[:, None], jnp.asarray(n_obj.numpy()),
+                   jnp.asarray([0.0, 0.0, 1.0]))
+    if vmode.lit:
+        shaded = vren._shade_lit(vs, jo, jd, jt, jn, jinst, vhit, 2, vmode)[0]
+    else:
+        shaded = vren._shade_unlit_mode(vs, jo, jd, jt, jn, jinst, vhit,
+                                        vmode)
+    shaded = jnp.where(jnp.asarray(unlit_attr.numpy())[:, None], jn, shaded)
+    want = jnp.where(vhit.hit[:, None], shaded,
+                     vren._tex.sample_env(vs.env, jd))
+    np.testing.assert_allclose(lin.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(got[:, :3].numpy(),
+                               np.asarray(vren.tonemap(want)), rtol=1e-4,
+                               atol=2e-5)
+
+
+# ---- whole frames against vrt --------------------------------------------------
+
+FRAMES = {
+    "no-lights-nonreflective": dict(points=0, spots=0, reflective=False),
+    "one-point-one-spot": dict(points=1, spots=1),
+    "two-points-two-spots-colours": dict(points=2, spots=2, colors=True),
+    "empty-scene": dict(points=1, spots=1, instances=False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FRAMES))
+def test_frame_through_stages_matches_vrt(name):
+    vs = _vrt_scene(**FRAMES[name])
+    ts = scene_from_numpy(scene_fields(vs), device="cpu")
+    assert ts.num_point == FRAMES[name]["points"]
+    assert ts.use_voxel_colors == FRAMES[name].get("colors", False)
+    assert ts.any_reflective == FRAMES[name].get("reflective", True)
+    seen = []
+    plain = tren.shade_stages
+
+    def spy(*args):
+        seen.append(plain(*args))
+        return seen[-1]
+
+    tren.shade_stages = spy
+    try:
+        got = tren.render_image(ts, 32, 32, RenderMode()).numpy()
+    finally:
+        tren.shade_stages = plain
+    levels = 3 if ts.any_reflective else 1
+    assert seen == [(tren.shade_surface_reference,
+                     tren.shade_combine_reference)] * levels
+    want = np.asarray(vren.render_image(vs, 32, 32, VMode()))
+    assert got.shape == want.shape == (32, 32, 4)
+    assert np.isfinite(got).all() and (got[..., 3] == 1.0).all()
+    if ts.num_instances == 0:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    else:
+        _assert_close(got[..., :3], want[..., :3], name)
+
+
+# ---- the surface record ----------------------------------------------------------
+
+@pytest.mark.parametrize("lit,bounce,shadows", [
+    (True, True, True), (True, False, True), (True, False, False),
+    (False, False, False)])
+def test_surface_record_shapes(lit_scenes, lit, bounce, shadows):
+    ts = lit_scenes[1]
+    mode = RenderMode(lit=lit)
+    o, d, hit, inst, t, n_obj, _ = _level_inputs(ts, mode, 16, 12)
+    rec = tren.shade_surface_reference(ts, o, d, t, n_obj, hit, inst, mode,
+                                       bounce, shadows)
+    assert isinstance(rec, SurfaceRecord)
+    r = o.shape[0]
+    want = dict(albedo=(r, 3))
+    if lit:
+        want.update(shadow_origin=(r, 3), n_w=(r, 3), roughness=(r,),
+                    metallic=(r,), k=(r,))
+    if bounce:
+        want.update(refl_dir=(r, 3), gate=(r,))
+    for f in dataclasses.fields(SurfaceRecord):
+        x = getattr(rec, f.name)
+        if f.name in ("shadow_tmax", "shadow_dir", "lights"):
+            continue
+        assert (x is None) == (f.name not in want), f.name
+        if x is not None:
+            assert tuple(x.shape) == want[f.name], f.name
+            assert x.dtype == (torch.bool if f.name == "gate"
+                               else torch.float32), f.name
+    if shadows:
+        lights = ts.num_point + ts.num_spot
+        assert len(rec.shadow_tmax) == 1 + lights
+        assert len(rec.shadow_dir) == lights
+        assert all(x.shape == (r,) and x.dtype == torch.float32
+                   and not x.requires_grad for x in rec.shadow_tmax)
+        assert all(x.shape == (r, 3) for x in rec.shadow_dir)
+        # each light's direction, distance and intensity, kept for the
+        # combine stage
+        assert len(rec.lights) == lights
+        for (sdir, dist, inten), x in zip(rec.lights, rec.shadow_dir):
+            assert torch.equal(sdir, x)
+            assert dist.shape == inten.shape == (r,)
+        # a miss lane's shadow is never read
+        for x in rec.shadow_tmax:
+            assert bool((x[~hit.hit] == -float("inf")).all())
+        assert bool((rec.shadow_tmax[0][hit.hit]
+                     == tren.DIR_SHADOW_TMAX).all())
+    else:
+        assert rec.shadow_tmax is None and rec.shadow_dir is None
+        assert rec.lights is None
+
+
+# ---- the dispatch rule -------------------------------------------------------------
+
+def _fake(device="cuda", requires_grad=False):
+    """What ``shade_stages`` looks at in a tensor."""
+    return types.SimpleNamespace(device=types.SimpleNamespace(type=device),
+                                 requires_grad=requires_grad)
+
+
+def _fake_level(device="cuda", grad_on=None):
+    """(scene, o_w, d_w, t, n_obj) of stand-ins on ``device``; the one
+    named ``grad_on`` requires a gradient."""
+    def make(name):
+        return _fake(device, name == grad_on)
+    scene = types.SimpleNamespace(
+        volumes=types.SimpleNamespace(corners=make("corners")),
+        **{f: make(f) for f in tren._SHADED_FIELDS})
+    return (scene,) + tuple(make(n) for n in ("o_w", "d_w", "t", "n_obj"))
+
+
+PLAIN = (tren.shade_surface_reference, tren.shade_combine_reference)
+KERNELS = (tren._shade_surface_kernel, tren._shade_combine_kernel)
+GRAD_CARRIERS = ("o_w", "d_w", "t", "n_obj", "corners") + tren._SHADED_FIELDS
+
+
+def test_shaded_fields_are_scene_tensors():
+    ts = flagship_scene(3, device="cpu")
+    for f in tren._SHADED_FIELDS:
+        assert getattr(ts, f) is None or isinstance(getattr(ts, f),
+                                                    torch.Tensor), f
+    assert {"tint", "voxel_color_corners", "inst_rot", "point_pos",
+            "spot_fwd", "dir_light_dir", "env"} <= set(tren._SHADED_FIELDS)
+
+
+@pytest.mark.parametrize("name", GRAD_CARRIERS)
+def test_dispatch_takes_autograd_for(name):
+    """CUDA tensors with a graph through ``name``: the plain pair; the same
+    tensors without a graph being recorded: the kernels."""
+    assert tren.shade_stages(*_fake_level(grad_on=name)) == PLAIN
+    with torch.no_grad():
+        assert tren.shade_stages(*_fake_level(grad_on=name)) == KERNELS
+
+
+def test_dispatch_by_device():
+    assert tren.shade_stages(*_fake_level()) == KERNELS
+    assert tren.shade_stages(*_fake_level("cpu")) == PLAIN
+    with torch.no_grad():
+        assert tren.shade_stages(*_fake_level("cpu")) == PLAIN
+    with pytest.raises(ValueError):
+        tren.shade_stages(*_fake_level("meta"))
+    # a missing optional table (no per-voxel colours) carries no graph
+    level = _fake_level()
+    level[0].voxel_color_corners = None
+    assert tren.shade_stages(*level) == KERNELS
+
+
+def test_resolve_shares_the_rule():
+    """``resolve_scene``'s test of the instance transforms is the same
+    function."""
+    assert tren._needs_autograd(_fake(requires_grad=True))
+    assert not tren._needs_autograd(_fake(), None)
+    with torch.no_grad():
+        assert not tren._needs_autograd(_fake(requires_grad=True))
+
+
+def test_fit_step_takes_the_plain_pair_and_the_fixture():
+    """A fit step's levels all shade on the plain pair under autograd, and
+    its loss and gradients are the fixture's (vrt's, on the CPU)."""
+    scene = flagship_scene(4, use_colors=True, device="cpu")
+    fixture = np.load(FIT_FIXTURE)
+    seen = []
+    plain = tren.shade_stages
+
+    def spy(*args):
+        seen.append((plain(*args), args[3].requires_grad))
+        return seen[-1][0]
+
+    def loss(p):
+        s = graft_and_rebuild(scene, p)
+        return torch.mean((render_views(s, FIT_CAMS, 64, 36, RenderMode())
+                           - 0.25) ** 2)
+
+    tren.shade_stages = spy
+    try:
+        got, grads = _value_and_grad(
+            loss, {"sdf": scene.volumes.sdf,
+                   "voxel_colors": scene.voxel_colors})
+    finally:
+        tren.shade_stages = plain
+    assert seen == [(PLAIN, True)] * 3
+    np.testing.assert_allclose(float(got), float(fixture["loss"]), rtol=1e-5)
+    for k, g in grads.items():
+        a = fixture[f"grad_{k}"].astype(np.float64).ravel()
+        b = g.double().numpy().ravel()
+        cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
+        assert cos >= 1.0 - 1e-6, (k, 1.0 - cos)
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(a).max(), k
+
+
+# ---- the seam -----------------------------------------------------------------------
+
+def test_tracer_with_march_and_resolve_only(lit_scenes):
+    """A tracer in vrt's shape (no ``march_any_hit``) whose results are not
+    contiguous renders the default tracer's frame: the stages take what the
+    seam returns and write what it traces next."""
+    ts = lit_scenes[1]
+    calls = dict(march=0, resolve=0)
+
+    def strided(x):
+        return torch.stack([x, x], dim=-1)[..., 0]
+
+    class Tracer(tren.SceneTracer):
+        def march(self, scene, o_w, d_w, t_max, interp, debug_overlay=False):
+            calls["march"] += 1
+            assert o_w.shape == d_w.shape and t_max.shape == o_w.shape[:1]
+            hit, inst = tren.march_scene(scene, o_w, d_w, t_max, interp,
+                                         debug_overlay=debug_overlay)
+            return dataclasses.replace(hit, hit=strided(hit.hit),
+                                       cell=strided(hit.cell)), strided(inst)
+
+        def resolve(self, scene, o_w, d_w, hit, inst):
+            calls["resolve"] += 1
+            t, n, unlit = tren.resolve_scene(scene, o_w, d_w, hit, inst)
+            return strided(t), strided(n), strided(unlit)
+
+    for mode in (RenderMode(), RenderMode(lit=False)):
+        base = tren.render_image(ts, 24, 16, mode)
+        assert torch.equal(tren.render_image(ts, 24, 16, mode,
+                                             tracer=Tracer()), base)
+    # lit: 3 levels and (1 + 1 + 1) shadow traces at two of them; unlit: 1
+    assert calls == dict(march=3 + 6 + 1, resolve=3 + 1)
+
+
+def test_render_image_is_a_view_of_the_last_stage(lit_scenes):
+    ts = lit_scenes[1]
+    img = tren.render_image(ts, 16, 12, RenderMode())
+    assert img.shape == (12, 16, 4) and img._base is not None
+    o, d = camera_rays(ts.cam_pos, ts.cam_rot, ts.cam_fov, 16, 12)
+    rgb = tren.trace_radiance(ts, o, d, 0, RenderMode())
+    assert rgb.shape == (16 * 12, 3)
+    assert torch.equal(tren.tonemap(rgb).reshape(12, 16, 3), img[..., :3])
+
+
+# ---- the wrappers' checks --------------------------------------------------------------
+
+class TestWrapperChecks:
+    """Without a card only the checks run: a CPU tensor never reaches a
+    launch, and a tensor of the wrong dtype or shape is named."""
+
+    def _level(self, ts):
+        mode = RenderMode()
+        o, d, hit, inst, t, n_obj, unlit = _level_inputs(ts, mode, 8, 6)
+        return mode, o, d, hit, inst, t, n_obj, unlit
+
+    def test_cpu_tensors_raise(self, lit_scenes):
+        ts = lit_scenes[1]
+        mode, o, d, hit, inst, t, n_obj, unlit = self._level(ts)
+        with pytest.raises(ValueError, match="CUDA"):
+            k4.shade_surface_cuda(ts, o, d, t, n_obj, hit, inst, mode, True,
+                                  True)
+        rec = tren.shade_surface_reference(ts, o, d, t, n_obj, hit, inst,
+                                           mode, False, False)
+        with pytest.raises(ValueError, match="CUDA"):
+            k4.shade_combine_cuda(ts, rec, d, n_obj, hit.hit, unlit, None,
+                                  None, mode)
+        assert k4.LAUNCHES == {"surface": 0, "combine": 0}
+
+    @pytest.mark.parametrize("bad,match", [
+        (lambda x: x.double(), "dtype"),
+        (lambda x: x[:-1], "shape"),
+        (lambda x: torch.stack([x, x], -1)[..., 0], "contiguous"),
+        (lambda x: x.to("meta"), "is on")])
+    def test_check_names_the_fault(self, bad, match):
+        x = torch.zeros((6, 3))
+        k4._check(x, "d_w", torch.float32, (6, 3), x.device)
+        with pytest.raises(ValueError, match=match):
+            k4._check(bad(x), "d_w", torch.float32, (6, 3), x.device)
+
+    def test_light_tables_are_checked(self, lit_scenes):
+        ts = lit_scenes[1]
+        assert len(k4._light_ptrs(ts, ts.tint.device)) == 15
+        with pytest.raises(ValueError, match="point_pos"):
+            k4._light_ptrs(dataclasses.replace(
+                ts, point_pos=ts.point_pos[:, :2]), ts.tint.device)
+        with pytest.raises(ValueError, match="lights"):
+            k4._light_ptrs(dataclasses.replace(ts, num_point=6),
+                           ts.tint.device)
+
+
+def test_build_scene_tables_are_contiguous():
+    """The kernels index every table by its shape alone: ``build_scene``
+    makes a strided host array (a cube map as the DDS reader hands it out)
+    contiguous on its way to the device."""
+    from vrt_torch.render.gpuscene import build_scene
+    from vrt_torch.scenes import flagship_volumes
+
+    env = np.random.default_rng(0).uniform(
+        size=(4, 4, 3, 6)).astype(np.float32).transpose(3, 0, 1, 2)
+    tex = np.ones((3, 2, 2, 2), np.float32).transpose(3, 1, 2, 0)
+    assert not env.flags.c_contiguous and not tex.flags.c_contiguous
+    ts = build_scene(list(flagship_volumes(3)), [{"volume": 0}],
+                     camera={"position": (300.0, 0.0, 0.0)}, env=env,
+                     textures=tex, tex_sizes=np.asarray([[2, 2]] * 2),
+                     device="cpu")
+    assert ts.env.is_contiguous() and ts.textures.is_contiguous()
+    assert ts.tex_sizes.dtype == torch.int32
+    np.testing.assert_array_equal(ts.env.numpy(), env)
+    for f in dataclasses.fields(ts):
+        x = getattr(ts, f.name)
+        if isinstance(x, torch.Tensor):
+            assert x.is_contiguous(), f.name
+
+
+def test_march_hit_is_what_the_stages_read():
+    """The stages read ``hit.hit`` and, with per-voxel colours,
+    ``hit.cell``: a hit that carries nothing else shades the same."""
+    ts = flagship_scene(3, device="cpu")
+    mode = RenderMode()
+    o, d, hit, inst, t, n_obj, unlit = _level_inputs(ts, mode, 12, 8)
+    bare = MarchHit(hit=hit.hit, t=None, kind=None, cell=hit.cell, t_in=None,
+                    t_out=None, face_normal=None)
+    a = tren.shade_surface_reference(ts, o, d, t, n_obj, hit, inst, mode,
+                                     True, True)
+    b = tren.shade_surface_reference(ts, o, d, t, n_obj, bare, inst, mode,
+                                     True, True)
+    assert torch.equal(a.albedo, b.albedo) and torch.equal(a.n_w, b.n_w)
+    assert torch.equal(a.gate, b.gate)

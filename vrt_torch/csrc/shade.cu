@@ -1,0 +1,884 @@
+// The frame's shading for Hopper (sm_90a), two kernels a radiance level, one
+// thread a ray: vrt_shade_surface before the traces the level spawns and
+// vrt_shade_combine after them.
+//
+// They replace no Pallas kernel: vrt leaves shading to XLA, which fuses
+// vrt/render/renderer.py::_per_ray_instance, _voxel_color_sample, _shade_lit,
+// _shade_unlit_mode, the selects of trace_radiance and tonemap with
+// vrt/shade/brdf.py, lights.py and texture.py into a few loops.  Eager PyTorch
+// runs the same lines one launch an operation, about a thousand launches a
+// level over [R] and [R,3] tensors, with per-ray gathers from tables of two
+// rows.  The kernels compute what
+// vrt_torch.render.renderer.shade_surface_reference and
+// shade_combine_reference (their plain versions) compute.
+//
+// ---- surface ----------------------------------------------------------------
+//
+// From the march's hit / instance (and hit cell, with per-voxel colours) and
+// the resolve's t / object-space normal: the hit point and the shadow origin,
+// the material there (triplanar albedo, roughness / metallic and tangent-normal
+// samples: 36 taps, or the trilinear colour sample of one 24-channel row), the
+// world normal, with a bounce the mirror direction and its gate, and the
+// shadow rays of the level: per light a t_max (-inf where nobody reads the
+// shadow), per point and spot light a direction.  Every reader discards a miss
+// lane: it reads the hit flag and the ray alone and writes only what the
+// level's traces take, a closed gate, t_max = -inf and, as the rays the seam
+// still marches, its own origin and direction (a ray without direction never
+// leaves a box it starts in, whatever its t_max).  Its material (albedo,
+// normal, roughness, metallic, k) is left unwritten: the combine kernel reads
+// the record on hit lanes only.
+//
+// ---- combine ----------------------------------------------------------------
+//
+// From the surface record, the bounce's radiance and the shadow traces'
+// booleans: the mirror term, the directional, point and spot lights
+// (Cook-Torrance GGX; distance and intensity recomputed from the record), the
+// unlit-attribute select, the env cube lookup on miss lanes and, for the
+// primary rays, Reinhard + gamma into an [R,4] frame with alpha 1.
+//
+// What bounds them: bytes.  In a lit textured level without point or spot
+// lights the surface kernel reads 45 B and writes 65 B on a hit lane, reads
+// 25 B and writes 29 B on a miss lane (1 B and nothing at a level that spawns
+// no trace); the combine kernel reads 14 B a ray and about 85 B more on a hit
+// lane and writes 12 or 16 B.  The 2,073,600 primary rays of the flagship
+// frame, one in sixteen a hit, move about 0.12 GB and 0.07 GB, 0.04 and 0.02
+// ms at 3.35 TB/s, against some 1,500 f32 operations a hit ray (0.003 ms at
+// 67 TFLOP/s).  The tables
+// (instances, materials, lights, texture sizes) are a few hundred bytes.
+//
+// What the design does about it: every intermediate stays in registers; the
+// tables are staged once a block in shared memory, so no ray gathers from
+// device memory but for its texture taps, its colour row and its env taps; a
+// miss lane returns after its stores; the texture and colour work is
+// compiled out by template flag where the mode has none, so no variant
+// spills.  Built with --fmad=false and every sum written in the plain
+// version's order; torch's own reductions (sum and vector_norm over 3, 4 and 8
+// elements) and pow may round in another order, so a result agrees with the
+// plain version to a few ulp, not bit for bit, and a comparison that feeds a
+// select (a texel's floor, the cube face, the gate, a light's floor) may flip
+// on a lane in a million.
+
+#include "scene.cuh"
+
+namespace {
+
+using namespace vrt;
+
+constexpr int kThreads = 256;
+constexpr int kMaxLights = 5;         // MAX_POINT_LIGHTS, MAX_SPOT_LIGHTS
+constexpr int kMaxBlocked = 1 + 2 * kMaxLights;
+constexpr float kPi = 3.141592f;      // shade/brdf.py PI, deliberately short
+constexpr float kF0Diel = 0.04f;
+constexpr float kShadowBrightness = 0.0f;
+constexpr float kDirShadowTmax = 5000.0f;
+
+// rows of the staged tables, in 4-byte words
+constexpr int kInstRow = 12;   // pos 3, rot 4, scale 3, volume
+constexpr int kVolRow = 16;    // n, cell_size, extends, tint 3, roughness,
+                               // metallic, k, tex_scale 2, albedo / normal /
+                               // rm texture ids
+constexpr int kPointRow = 12;  // pos 3, intensity, att_l, att_e, colour 3
+constexpr int kSpotRow = 16;   // pos 3, fwd 3, intensity, att_l, att_e,
+                               // cos_angle, cos_falloff, colour 3
+
+struct Materials {
+  const int32_t* n;         // [V] voxels per axis
+  const float* cell_size;   // [V]
+  const float* extends;     // [V]
+  const float* tint;        // [V,4]
+  const float* roughness;   // [V]
+  const float* metallic;    // [V]
+  const float* k;           // [V]
+  const float* tex_scale;   // [V,2]
+  const int32_t* albedo_tex;
+  const int32_t* normal_tex;
+  const int32_t* rm_tex;
+  int count;
+};
+
+struct Lights {
+  const float* dir;             // [3]
+  const float* dir_strength;    // []
+  const float* point_pos;       // [5,3]
+  const float* point_intensity; // [5]
+  const float* point_att_l;
+  const float* point_att_e;
+  const float* point_color;     // [5,4]
+  const float* spot_pos;        // [5,3]
+  const float* spot_fwd;        // [5,3]
+  const float* spot_intensity;
+  const float* spot_att_l;
+  const float* spot_att_e;
+  const float* spot_cos_angle;
+  const float* spot_cos_falloff;
+  const float* spot_color;      // [5,4]
+  int points;
+  int spots;
+};
+
+__device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
+  return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2];
+}
+
+// torch.clamp / clamp_min / clamp_max: NaN stays NaN.
+__device__ __forceinline__ float clamp01(float x) {
+  return nmin(nmax(x, 0.0f), 1.0f);
+}
+
+// The lights into shared memory: 4 words of the directional light, then the
+// point rows, then the spot rows.
+__device__ __forceinline__ void stage_lights(float* sh, const Lights& l) {
+  const int words = 4 + l.points * kPointRow + l.spots * kSpotRow;
+  for (int w = threadIdx.x; w < words; w += blockDim.x) {
+    float v = 0.0f;
+    if (w < 3) {
+      v = l.dir[w];
+    } else if (w == 3) {
+      v = l.dir_strength[0];
+    } else if (w < 4 + l.points * kPointRow) {
+      const int i = (w - 4) / kPointRow, c = (w - 4) % kPointRow;
+      if (c < 3) v = l.point_pos[3 * i + c];
+      else if (c == 3) v = l.point_intensity[i];
+      else if (c == 4) v = l.point_att_l[i];
+      else if (c == 5) v = l.point_att_e[i];
+      else if (c < 9) v = l.point_color[4 * i + (c - 6)];
+    } else {
+      const int r = w - 4 - l.points * kPointRow;
+      const int i = r / kSpotRow, c = r % kSpotRow;
+      if (c < 3) v = l.spot_pos[3 * i + c];
+      else if (c < 6) v = l.spot_fwd[3 * i + (c - 3)];
+      else if (c == 6) v = l.spot_intensity[i];
+      else if (c == 7) v = l.spot_att_l[i];
+      else if (c == 8) v = l.spot_att_e[i];
+      else if (c == 9) v = l.spot_cos_angle[i];
+      else if (c == 10) v = l.spot_cos_falloff[i];
+      else if (c < 14) v = l.spot_color[4 * i + (c - 11)];
+    }
+    sh[w] = v;
+  }
+}
+
+// shade/lights.py point_light_intensity.
+__device__ __forceinline__ float attenuate(float intensity, float dist,
+                                           float att_l, float att_e) {
+  return intensity / ((1.0f + att_l * dist) + (att_e * dist) * dist);
+}
+
+// renderer.py _point_light / _spot_light from a staged row: the direction to
+// the light (zero where the distance is), the distance and the intensity.
+__device__ __forceinline__ void light_at(const float* row, bool spot,
+                                         const float so[3], float sdir[3],
+                                         float& dist, float& inten) {
+  float delta[3];
+  for (int c = 0; c < 3; ++c) delta[c] = row[c] - so[c];
+  dist = sqrtf(dot3(delta, delta));
+  for (int c = 0; c < 3; ++c)
+    sdir[c] = dist != 0.0f ? delta[c] / dist : 0.0f;
+  if (!spot) {
+    inten = attenuate(row[3], dist, row[4], row[5]);
+    return;
+  }
+  // shade/lights.py spot_light_intensity
+  float to[3];
+  for (int c = 0; c < 3; ++c) to[c] = so[c] - row[c];
+  const float norm = sqrtf(dot3(to, to));
+  for (int c = 0; c < 3; ++c) to[c] = to[c] / norm;
+  const float cs = dot3(row + 3, to);
+  const float cos_angle = row[9], cos_falloff = row[10];
+  const bool inside = cs >= 0.0f && cs > cos_angle;
+  const float cone = nmin((cs - cos_angle) / (cos_falloff - cos_angle), 1.0f);
+  const float i = attenuate(row[6] * cone, dist, row[7], row[8]);
+  inten = inside ? i : 0.0f;
+}
+
+// ---- surface ----------------------------------------------------------------
+
+struct SurfaceParams {
+  const float* o_w;        // [R,3]
+  const float* d_w;        // [R,3]
+  const float* t;          // [R]
+  const float* n_obj;      // [R,3]
+  const uint8_t* hit;      // [R] bool
+  const int32_t* cell;     // [R,3], read with per-voxel colours
+  const int32_t* winner;   // [R] instance, -1 for none
+  Instances inst;
+  Materials mat;
+  const float* textures;   // [T,TH,TW,3]
+  const int32_t* tex_sizes;  // [T,2] (h, w)
+  int tex_count, tex_h, tex_w;
+  const void* colors;      // [V,cn,cn,cn,8,3] f32 or bf16
+  int color_side;          // cn
+  int colors_bf16;
+  Lights lights;
+  int bounce, shadows;
+  long long rays;
+  float* albedo;           // [R,3]
+  float* shadow_origin;    // [R,3]
+  float* n_w;              // [R,3]
+  float* roughness;        // [R]
+  float* metallic;         // [R]
+  float* k;                // [R]
+  float* refl_dir;         // [R,3] with bounce
+  uint8_t* gate;           // [R] with bounce
+  float* shadow_tmax;      // [1+P+S,R] with shadows
+  float* shadow_dir;       // [P+S,R,3] with shadows
+};
+
+// torch.remainder on int32: the result takes the divisor's sign.
+__device__ __forceinline__ int floor_mod(int a, int b) {
+  const int m = a % b;
+  return (m != 0 && ((m < 0) != (b < 0))) ? m + b : m;
+}
+
+// shade/texture.py sample_bilinear_wrap for one texture.
+__device__ __forceinline__ void sample_wrap(const SurfaceParams& p,
+                                            const int* sizes, int id, float u_,
+                                            float v_, float out[3]) {
+  const int hi = sizes[2 * id], wi = sizes[2 * id + 1];
+  const float h = static_cast<float>(hi), w = static_cast<float>(wi);
+  const float u = u_ * w - 0.5f;
+  const float v = v_ * h - 0.5f;
+  const float u0 = floorf(u), v0 = floorf(v);
+  const float fu = u - u0, fv = v - v0;
+  const int ua = floor_mod(static_cast<int>(u0), wi);
+  const int ub = floor_mod(static_cast<int>(u0 + 1.0f), wi);
+  const int va = floor_mod(static_cast<int>(v0), hi);
+  const int vb = floor_mod(static_cast<int>(v0 + 1.0f), hi);
+  const float* base = p.textures +
+                      static_cast<long long>(id) * p.tex_h * p.tex_w * 3;
+  const float* c00 = base + (va * p.tex_w + ua) * 3;
+  const float* c10 = base + (va * p.tex_w + ub) * 3;
+  const float* c01 = base + (vb * p.tex_w + ua) * 3;
+  const float* c11 = base + (vb * p.tex_w + ub) * 3;
+  const float gu = 1.0f - fu, gv = 1.0f - fv;
+  for (int c = 0; c < 3; ++c) {
+    const float top = __ldg(c00 + c) * gu + __ldg(c10 + c) * fu;
+    const float bot = __ldg(c01 + c) * gu + __ldg(c11 + c) * fu;
+    out[c] = top * gv + bot * fv;
+  }
+}
+
+// shade/texture.py tri_sample: uvX = zy / scale, uvY = xz / scale, uvZ = xy /
+// scale, blended by |normal| / sum|normal|.  With kNormal the three samples
+// are first mapped to [-1, 1] (tri_sample_normal's head).
+template <bool kNormal>
+__device__ __forceinline__ void tri_sample(const SurfaceParams& p,
+                                           const int* sizes, int id,
+                                           const float scale[2],
+                                           const float pos[3],
+                                           const float b[3], float out[3]) {
+  float tx[3], ty[3], tz[3];
+  sample_wrap(p, sizes, id, pos[2] / scale[0], pos[1] / scale[1], tx);
+  sample_wrap(p, sizes, id, pos[0] / scale[0], pos[2] / scale[1], ty);
+  sample_wrap(p, sizes, id, pos[0] / scale[0], pos[1] / scale[1], tz);
+  for (int c = 0; c < 3; ++c) {
+    if (kNormal) {
+      tx[c] = tx[c] * 2.0f - 1.0f;
+      ty[c] = ty[c] * 2.0f - 1.0f;
+      tz[c] = tz[c] * 2.0f - 1.0f;
+    }
+    out[c] = (tx[c] * b[0] + ty[c] * b[1]) + tz[c] * b[2];
+  }
+}
+
+// shade/texture.py _quat_from_x + core/quat.py from_two_vectors((1,0,0), v)
+// and rotate: the tangent normal t (already swizzled .zxy) into the frame
+// whose +X is the surface normal v.
+__device__ __forceinline__ void rotate_from_x(const float v[3],
+                                              const float t[3],
+                                              float out[3]) {
+  const float x[3] = {1.0f, 0.0f, 0.0f};
+  float q[4];
+  cross3(x, v, q);
+  q[3] = 1.0f + ((x[0] * v[0] + x[1] * v[1]) + x[2] * v[2]);
+  if (q[3] < 1e-6f) {
+    // the half-turn about normalize(cross(x, RIGHT)) = +Z
+    q[0] = 0.0f;
+    q[1] = 0.0f;
+    q[2] = 1.0f;
+    q[3] = 0.0f;
+  }
+  const float norm = nmax(
+      sqrtf(((q[0] * q[0] + q[1] * q[1]) + q[2] * q[2]) + q[3] * q[3]),
+      1e-12f);
+  for (int c = 0; c < 4; ++c) q[c] = q[c] / norm;
+  rotate(q, q[3], t, out);
+}
+
+// renderer.py _voxel_color_sample: the trilinear sample of one 24-channel
+// colour row, corners outside the volume reading zero.
+__device__ __forceinline__ void color_sample(const SurfaceParams& p,
+                                             long long i, int vol, int n,
+                                             float h, float ext,
+                                             const float o[3],
+                                             const float d[3], float t,
+                                             float out[3]) {
+  int cell[3];
+  float q[3];
+  for (int c = 0; c < 3; ++c) {
+    cell[c] = p.cell[3 * i + c];
+    const float base = static_cast<float>(cell[c]) * h - ext;
+    q[c] = ((o[c] + d[c] * t) - base) / h;
+  }
+  const long long cn = p.color_side;
+  const int last = p.color_side - 1;
+  const long long row =
+      ((static_cast<long long>(vol) * cn + min(max(cell[0], 0), last)) * cn +
+       min(max(cell[1], 0), last)) * cn + min(max(cell[2], 0), last);
+  out[0] = out[1] = out[2] = 0.0f;
+  for (int j = 0; j < 8; ++j) {
+    const int b[3] = {j & 1, (j >> 1) & 1, (j >> 2) & 1};
+    bool valid = true;
+    float w[3];
+    for (int c = 0; c < 3; ++c) {
+      const int idx = cell[c] + b[c];
+      valid = valid && idx >= 0 && idx < n;
+      w[c] = fabsf((b[c] ? 0.0f : 1.0f) - q[c]);
+    }
+    const float wj = (w[0] * w[1]) * w[2];
+    for (int c = 0; c < 3; ++c) {
+      float v = 0.0f;
+      if (valid)
+        v = p.colors_bf16
+                ? load_corner<uint16_t>(
+                      static_cast<const uint16_t*>(p.colors) + row * 24 +
+                      3 * j + c)
+                : load_corner<float>(static_cast<const float*>(p.colors) +
+                                     row * 24 + 3 * j + c);
+      const float term = wj * v;
+      out[c] = j == 0 ? term : out[c] + term;
+    }
+  }
+}
+
+template <bool kLit, bool kTextured, bool kColors>
+__global__ void __launch_bounds__(kThreads) surface_kernel(
+    const SurfaceParams p) {
+  extern __shared__ float sh[];
+  float* sh_inst = sh;
+  float* sh_vol = sh_inst + p.inst.count * kInstRow;
+  int* sh_sizes = reinterpret_cast<int*>(sh_vol + p.mat.count * kVolRow);
+  float* sh_light = reinterpret_cast<float*>(sh_sizes + 2 * p.tex_count);
+
+  for (int w = threadIdx.x; w < p.inst.count * kInstRow; w += blockDim.x) {
+    const int r = w / kInstRow, c = w % kInstRow;
+    float v = 0.0f;
+    if (c < 3) v = p.inst.pos[3 * r + c];
+    else if (c < 7) v = p.inst.rot[4 * r + (c - 3)];
+    else if (c < 10) v = p.inst.scale[3 * r + (c - 7)];
+    else if (c == 10) v = __int_as_float(p.inst.volume[r]);
+    sh_inst[w] = v;
+  }
+  for (int w = threadIdx.x; w < p.mat.count * kVolRow; w += blockDim.x) {
+    const int r = w / kVolRow, c = w % kVolRow;
+    float v = 0.0f;
+    if (c == 0) v = __int_as_float(p.mat.n[r]);
+    else if (c == 1) v = p.mat.cell_size[r];
+    else if (c == 2) v = p.mat.extends[r];
+    else if (c < 6) v = p.mat.tint[4 * r + (c - 3)];
+    else if (c == 6) v = p.mat.roughness[r];
+    else if (c == 7) v = p.mat.metallic[r];
+    else if (c == 8) v = p.mat.k[r];
+    else if (c < 11) v = p.mat.tex_scale[2 * r + (c - 9)];
+    else if (c == 11) v = __int_as_float(p.mat.albedo_tex[r]);
+    else if (c == 12) v = __int_as_float(p.mat.normal_tex[r]);
+    else if (c == 13) v = __int_as_float(p.mat.rm_tex[r]);
+    sh_vol[w] = v;
+  }
+  for (int w = threadIdx.x; w < 2 * p.tex_count; w += blockDim.x)
+    sh_sizes[w] = p.tex_sizes[w];
+  if (kLit && p.shadows) stage_lights(sh_light, p.lights);
+  __syncthreads();
+
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= p.rays) return;
+  const int n_shadow = p.lights.points + p.lights.spots;
+
+  const bool hit = p.hit[i];
+  // a miss lane of a level that spawns no trace has nothing to write
+  if (!hit && !(kLit && (p.bounce || p.shadows))) return;
+
+  float o_w[3], d_w[3];
+  for (int c = 0; c < 3; ++c) {
+    o_w[c] = p.o_w[3 * i + c];
+    d_w[c] = p.d_w[3 * i + c];
+  }
+
+  if (!hit) {
+    // every reader discards a miss lane, but the seam still marches its
+    // rays: they keep the lane's own direction, which retires at the slab
+    // test with t_max = -inf (a zero direction would not); the material
+    // stays unwritten
+    for (int c = 0; c < 3; ++c) {
+      p.shadow_origin[3 * i + c] = o_w[c] - d_w[c] * 0.1f;
+      if (p.bounce) p.refl_dir[3 * i + c] = d_w[c];
+    }
+    if (p.bounce) p.gate[i] = 0;
+    if (p.shadows) {
+      for (int j = 0; j <= n_shadow; ++j)
+        p.shadow_tmax[j * p.rays + i] = -INFINITY;
+      for (int j = 0; j < n_shadow; ++j)
+        for (int c = 0; c < 3; ++c)
+          p.shadow_dir[(j * p.rays + i) * 3 + c] = d_w[c];
+    }
+    return;
+  }
+
+  float n_obj[3];
+  for (int c = 0; c < 3; ++c) n_obj[c] = p.n_obj[3 * i + c];
+  const float t = p.t[i];
+  const float* in = sh_inst + max(p.winner[i], 0) * kInstRow;
+  const float* pos = in;
+  const float* rot = in + 3;
+  const float* scale = in + 7;
+  const int vol = __float_as_int(in[10]);
+  const float* mat = sh_vol + vol * kVolRow;
+  const float qc[3] = {-rot[0], -rot[1], -rot[2]};   // the conjugate
+
+  float hit_pos[3], so[3];
+  for (int c = 0; c < 3; ++c) {
+    hit_pos[c] = o_w[c] + t * d_w[c];
+    so[c] = hit_pos[c] - d_w[c] * 0.1f;
+  }
+
+  float albedo[3] = {mat[3], mat[4], mat[5]};
+  float roughness = clamp01(mat[6]);
+  float metallic = clamp01(mat[7]);
+  float n_shade[3] = {n_obj[0], n_obj[1], n_obj[2]};
+
+  if (kTextured && (kLit || !kColors)) {
+    float a[3], obj_pos[3], b[3];
+    for (int c = 0; c < 3; ++c) a[c] = (hit_pos[c] - pos[c]) / scale[c];
+    rotate(qc, rot[3], a, obj_pos);
+    // shade/texture.py _blend_weights
+    const float ab[3] = {fabsf(n_obj[0]), fabsf(n_obj[1]), fabsf(n_obj[2])};
+    const float s = (ab[0] + ab[1]) + ab[2];
+    for (int c = 0; c < 3; ++c) b[c] = s > 0.0f ? ab[c] / s : 0.0f;
+    const float* tscale = mat + 9;
+    if (!kColors) {
+      float tex[3];
+      tri_sample<false>(p, sh_sizes, __float_as_int(mat[11]), tscale, obj_pos,
+                        b, tex);
+      for (int c = 0; c < 3; ++c) albedo[c] = albedo[c] * tex[c];
+    }
+    if (kLit) {
+      float rm[3], tn[3];
+      tri_sample<false>(p, sh_sizes, __float_as_int(mat[13]), tscale, obj_pos,
+                        b, rm);
+      roughness = clamp01(mat[6] * rm[0]);
+      metallic = clamp01(mat[7] * rm[1]);
+      tri_sample<true>(p, sh_sizes, __float_as_int(mat[12]), tscale, obj_pos,
+                       b, tn);
+      const float n2 = dot3(tn, tn);
+      const float norm = sqrtf(n2 > 0.0f ? n2 : 1.0f);
+      for (int c = 0; c < 3; ++c) tn[c] = n2 > 0.0f ? tn[c] / norm : 0.0f;
+      const float zxy[3] = {tn[2], tn[0], tn[1]};
+      rotate_from_x(n_obj, zxy, n_shade);
+    }
+  }
+
+  if (kColors) {
+    // renderer.py _world_to_object, then the sample
+    float a[3], b[3], o[3], d[3];
+    for (int c = 0; c < 3; ++c) {
+      a[c] = (o_w[c] - pos[c]) / scale[c];
+      b[c] = d_w[c] / scale[c];
+    }
+    rotate(qc, rot[3], a, o);
+    rotate(qc, rot[3], b, d);
+    color_sample(p, i, vol, __float_as_int(mat[0]), mat[1], mat[2], o, d, t,
+                 albedo);
+  }
+
+  for (int c = 0; c < 3; ++c) p.albedo[3 * i + c] = albedo[c];
+  if (!kLit) return;
+
+  // renderer.py _object_normal_to_world: rotated and scaled, not renormalized
+  float n_w[3];
+  rotate(rot, rot[3], n_shade, n_w);
+  for (int c = 0; c < 3; ++c) {
+    n_w[c] = n_w[c] * scale[c];
+    p.shadow_origin[3 * i + c] = so[c];
+    p.n_w[3 * i + c] = n_w[c];
+  }
+  p.roughness[i] = roughness;
+  p.metallic[i] = metallic;
+  p.k[i] = mat[8];
+
+  if (p.bounce) {
+    const float dn = 2.0f * dot3(d_w, n_w);
+    float r[3];
+    for (int c = 0; c < 3; ++c) r[c] = d_w[c] - dn * n_w[c];
+    const float n2 = dot3(r, r);
+    const float norm = sqrtf(n2 > 0.0f ? n2 : 1.0f);
+    for (int c = 0; c < 3; ++c)
+      p.refl_dir[3 * i + c] = n2 > 0.0f ? r[c] / norm : 0.0f;
+    p.gate[i] = roughness < 0.3f ? 1 : 0;
+  }
+
+  if (p.shadows) {
+    p.shadow_tmax[i] = kDirShadowTmax;
+    for (int j = 0; j < n_shadow; ++j) {
+      const bool spot = j >= p.lights.points;
+      const float* row =
+          sh_light + 4 +
+          (spot ? p.lights.points * kPointRow +
+                      (j - p.lights.points) * kSpotRow
+                : j * kPointRow);
+      float sdir[3], dist, inten;
+      light_at(row, spot, so, sdir, dist, inten);
+      p.shadow_tmax[(1 + j) * p.rays + i] =
+          inten > (spot ? 0.01f : 0.005f) ? dist : -INFINITY;
+      for (int c = 0; c < 3; ++c)
+        p.shadow_dir[(j * p.rays + i) * 3 + c] = sdir[c];
+    }
+  }
+}
+
+// ---- combine ----------------------------------------------------------------
+
+struct CombineParams {
+  const float* d_w;            // [R,3]
+  const float* n_obj;          // [R,3]
+  const uint8_t* hit;          // [R] bool
+  const uint8_t* unlit;        // [R] bool
+  const float* albedo;         // [R,3]
+  const float* shadow_origin;  // [R,3]
+  const float* n_w;            // [R,3]
+  const float* roughness;      // [R]
+  const float* metallic;       // [R]
+  const float* k;              // [R]
+  const float* refl_dir;       // [R,3] with a bounce
+  const float* refl_rgb;       // [R,3] with a bounce, else null
+  const uint8_t* blocked[kMaxBlocked];  // [R] bool per light, or all null
+  Lights lights;
+  const float* env;            // [6,E,E,3]
+  int env_side;
+  int lit, final;
+  long long rays;
+  float* out;                  // [R,3], or [R,4] with final
+};
+
+// shade/brdf.py radiance: brdf * li * (n . wi).
+__device__ __forceinline__ void add_radiance(const float li[3],
+                                             const float wi[3],
+                                             const float wo[3],
+                                             const float n[3],
+                                             const float albedo[3],
+                                             float roughness, float metallic,
+                                             float k, float out[3]) {
+  float h[3];
+  for (int c = 0; c < 3; ++c) h[c] = wi[c] + wo[c];
+  const float n2 = dot3(h, h);
+  const float norm = sqrtf(n2 > 0.0f ? n2 : 1.0f);
+  for (int c = 0; c < 3; ++c) h[c] = n2 > 0.0f ? h[c] / norm : 0.0f;
+  // distribution_ggx
+  const float a2 = roughness * roughness;
+  const float ndoth = nmax(dot3(n, h), 0.0f);
+  const float cc = (ndoth * ndoth) * (a2 - 1.0f) + 1.0f;
+  const float dist = a2 / nmax((kPi * cc) * cc, 0.001f);
+  // fresnel_schlick's scalar factor
+  const float wdoth = nmax(dot3(wo, h), 0.0f);
+  const float pw = powf(nmax(1.0f - wdoth, 0.0f), 5.0f);
+  // g_smith
+  const float dwo = nmax(dot3(n, wo), 0.0f);
+  const float dwi = nmax(dot3(n, wi), 0.0f);
+  const float g = (dwo / (dwo * (1.0f - k) + k)) *
+                  (dwi / (dwi * (1.0f - k) + k));
+  const float denom = nmax((4.0f * dwo) * dwi, 0.0001f);
+  const float spec = (dist * g) / denom;
+  const float ndotwi = dot3(n, wi);
+  const float dielectric = 1.0f - metallic;
+  for (int c = 0; c < 3; ++c) {
+    const float f0 = kF0Diel * dielectric + albedo[c] * metallic;
+    const float f = f0 + (1.0f - f0) * pw;
+    const float lambert = albedo[c] / kPi;
+    const float kd = (1.0f - f) * dielectric;
+    const float brdf = lambert * kd + (spec * f) * f;
+    out[c] = (brdf * li[c]) * ndotwi;
+  }
+}
+
+// shade/texture.py sample_env: the cube lookup with the direction swizzled
+// .xzy, D3D face and uv conventions, bilinear within the face.
+__device__ __forceinline__ void sample_env(const float* env, int e,
+                                           const float d_w[3], float out[3]) {
+  const float x = d_w[0], y = d_w[2], z = d_w[1];
+  const float ax = fabsf(x), ay = fabsf(y), az = fabsf(z);
+  const bool x_major = ax >= ay && ax >= az;
+  const bool y_major = !x_major && ay >= az;
+  float ma, sc, tc;
+  int face;
+  if (x_major) {
+    ma = ax;
+    face = x >= 0.0f ? 0 : 1;
+    sc = x >= 0.0f ? -z : z;
+    tc = -y;
+  } else if (y_major) {
+    ma = ay;
+    face = y >= 0.0f ? 2 : 3;
+    sc = x;
+    tc = y >= 0.0f ? z : -z;
+  } else {
+    ma = az;
+    face = z >= 0.0f ? 4 : 5;
+    sc = z >= 0.0f ? x : -x;
+    tc = -y;
+  }
+  const float fe = static_cast<float>(e);
+  const float u = (((sc / ma) + 1.0f) * 0.5f) * fe - 0.5f;
+  const float v = (((tc / ma) + 1.0f) * 0.5f) * fe - 0.5f;
+  const float u0 = floorf(u), v0 = floorf(v);
+  const float fu = u - u0, fv = v - v0;
+  const int ua = min(max(static_cast<int>(u0), 0), e - 1);
+  const int ub = min(max(static_cast<int>(u0 + 1.0f), 0), e - 1);
+  const int va = min(max(static_cast<int>(v0), 0), e - 1);
+  const int vb = min(max(static_cast<int>(v0 + 1.0f), 0), e - 1);
+  const float* base = env + static_cast<long long>(face) * e * e * 3;
+  const float* c00 = base + (va * e + ua) * 3;
+  const float* c10 = base + (va * e + ub) * 3;
+  const float* c01 = base + (vb * e + ua) * 3;
+  const float* c11 = base + (vb * e + ub) * 3;
+  const float gu = 1.0f - fu, gv = 1.0f - fv;
+  for (int c = 0; c < 3; ++c) {
+    const float top = __ldg(c00 + c) * gu + __ldg(c10 + c) * fu;
+    const float bot = __ldg(c01 + c) * gu + __ldg(c11 + c) * fu;
+    out[c] = top * gv + bot * fv;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) combine_kernel(
+    const CombineParams p) {
+  extern __shared__ float sh[];
+  if (p.lit) stage_lights(sh, p.lights);
+  __syncthreads();
+
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= p.rays) return;
+
+  float d_w[3], rgb[3];
+  for (int c = 0; c < 3; ++c) d_w[c] = p.d_w[3 * i + c];
+
+  if (!p.hit[i]) {
+    sample_env(p.env, p.env_side, d_w, rgb);
+  } else if (p.unlit[i]) {
+    // unlit-attribute lanes show the raw (object-space) attribute normal
+    for (int c = 0; c < 3; ++c) rgb[c] = p.n_obj[3 * i + c];
+  } else if (!p.lit) {
+    for (int c = 0; c < 3; ++c) rgb[c] = p.albedo[3 * i + c];
+  } else {
+    float albedo[3], so[3], n_w[3], wo[3], add[3];
+    for (int c = 0; c < 3; ++c) {
+      albedo[c] = p.albedo[3 * i + c];
+      so[c] = p.shadow_origin[3 * i + c];
+      n_w[c] = p.n_w[3 * i + c];
+      wo[c] = -d_w[c];
+      rgb[c] = kShadowBrightness;
+    }
+    const float roughness = p.roughness[i], metallic = p.metallic[i];
+    const float k = p.k[i];
+
+    if (p.refl_rgb != nullptr) {
+      float li[3], wi[3];
+      const float fade = 1.0f - roughness * 2.2f;
+      for (int c = 0; c < 3; ++c) {
+        li[c] = nmax(p.refl_rgb[3 * i + c] * fade, 0.0f);
+        wi[c] = p.refl_dir[3 * i + c];
+      }
+      add_radiance(li, wi, wo, n_w, albedo, roughness, metallic, k, add);
+      for (int c = 0; c < 3; ++c)
+        rgb[c] = rgb[c] + (roughness < 0.3f ? add[c] : 0.0f);
+    }
+
+    {
+      const float li[3] = {sh[3], sh[3], sh[3]};
+      add_radiance(li, sh, wo, n_w, albedo, roughness, metallic, k, add);
+      const bool dark = p.blocked[0] != nullptr && p.blocked[0][i];
+      for (int c = 0; c < 3; ++c) rgb[c] = rgb[c] + (dark ? 0.0f : add[c]);
+    }
+
+    const int n_shadow = p.lights.points + p.lights.spots;
+    for (int j = 0; j < n_shadow; ++j) {
+      const bool spot = j >= p.lights.points;
+      const float* row =
+          sh + 4 +
+          (spot ? p.lights.points * kPointRow +
+                      (j - p.lights.points) * kSpotRow
+                : j * kPointRow);
+      float sdir[3], dist, inten, li[3];
+      light_at(row, spot, so, sdir, dist, inten);
+      const float* color = row + (spot ? 11 : 6);
+      for (int c = 0; c < 3; ++c) li[c] = color[c] * inten;
+      add_radiance(li, sdir, wo, n_w, albedo, roughness, metallic, k, add);
+      bool lit = inten > (spot ? 0.01f : 0.005f);
+      if (p.blocked[1 + j] != nullptr) lit = lit && !p.blocked[1 + j][i];
+      for (int c = 0; c < 3; ++c) rgb[c] = rgb[c] + (lit ? add[c] : 0.0f);
+    }
+  }
+
+  if (!p.final) {
+    for (int c = 0; c < 3; ++c) p.out[3 * i + c] = rgb[c];
+    return;
+  }
+  // renderer.py tonemap: Reinhard, gamma 1/2.2, then the UNORM conversion
+  // (NaN and negative radiance to 0, clamp to [0, 1])
+  float px[4];
+  for (int c = 0; c < 3; ++c) {
+    const float v = rgb[c] / (rgb[c] + 1.0f);
+    px[c] = v > 0.0f ? fminf(powf(v, static_cast<float>(1.0 / 2.2)), 1.0f)
+                     : 0.0f;
+  }
+  px[3] = 1.0f;
+  *reinterpret_cast<float4*>(p.out + 4 * i) =
+      make_float4(px[0], px[1], px[2], px[3]);
+}
+
+template <typename T>
+const T* at(const void* const* ptrs, int i) {
+  return static_cast<const T*>(ptrs[i]);
+}
+
+Lights lights_from(const void* const* ptrs, int first, int points, int spots) {
+  return Lights{at<float>(ptrs, first),      at<float>(ptrs, first + 1),
+                at<float>(ptrs, first + 2),  at<float>(ptrs, first + 3),
+                at<float>(ptrs, first + 4),  at<float>(ptrs, first + 5),
+                at<float>(ptrs, first + 6),  at<float>(ptrs, first + 7),
+                at<float>(ptrs, first + 8),  at<float>(ptrs, first + 9),
+                at<float>(ptrs, first + 10), at<float>(ptrs, first + 11),
+                at<float>(ptrs, first + 12), at<float>(ptrs, first + 13),
+                at<float>(ptrs, first + 14), points, spots};
+}
+
+constexpr int kLightPtrs = 15;
+constexpr int kMaxSharedBytes = 48 * 1024;
+
+}  // namespace
+
+// The surface kernel, one thread per ray.  ptrs (host array of device
+// pointers): o_w, d_w, t, n_obj, hit, cell, inst; inst_volume, inst_pos,
+// inst_rot, inst_scale; n, cell_size, extends, tint, roughness, metallic, k,
+// tex_scale, albedo_tex, normal_tex, rm_tex; textures, tex_sizes, colors; the
+// 15 light pointers in the order of Lights; then the outputs albedo,
+// shadow_origin, n_w, roughness, metallic, k, refl_dir, gate, shadow_tmax,
+// shadow_dir.  ints: instances, volumes, textures, texture height and width,
+// colour cells a side, colours bf16, lit, textured, per-voxel colours, bounce,
+// shadows, point lights, spot lights.  Returns cudaGetLastError().
+extern "C" int vrt_shade_surface(const void* const* ptrs, const int* ints,
+                                 long long rays, void* stream) {
+  const int n_inst = ints[0], n_vol = ints[1], n_tex = ints[2];
+  const bool lit = ints[7], textured = ints[8], colors = ints[9];
+  const int points = ints[12], spots = ints[13];
+  if (n_inst < 1 || n_vol < 1 || points < 0 || points > kMaxLights ||
+      spots < 0 || spots > kMaxLights)
+    return cudaErrorInvalidValue;
+  SurfaceParams p;
+  p.o_w = at<float>(ptrs, 0);
+  p.d_w = at<float>(ptrs, 1);
+  p.t = at<float>(ptrs, 2);
+  p.n_obj = at<float>(ptrs, 3);
+  p.hit = at<uint8_t>(ptrs, 4);
+  p.cell = at<int32_t>(ptrs, 5);
+  p.winner = at<int32_t>(ptrs, 6);
+  p.inst = Instances{at<int32_t>(ptrs, 7), at<float>(ptrs, 8),
+                     at<float>(ptrs, 9), at<float>(ptrs, 10), nullptr,
+                     n_inst};
+  p.mat = Materials{at<int32_t>(ptrs, 11), at<float>(ptrs, 12),
+                    at<float>(ptrs, 13), at<float>(ptrs, 14),
+                    at<float>(ptrs, 15), at<float>(ptrs, 16),
+                    at<float>(ptrs, 17), at<float>(ptrs, 18),
+                    at<int32_t>(ptrs, 19), at<int32_t>(ptrs, 20),
+                    at<int32_t>(ptrs, 21), n_vol};
+  p.textures = at<float>(ptrs, 22);
+  p.tex_sizes = at<int32_t>(ptrs, 23);
+  p.tex_count = n_tex;
+  p.tex_h = ints[3];
+  p.tex_w = ints[4];
+  p.colors = ptrs[24];
+  p.color_side = ints[5];
+  p.colors_bf16 = ints[6];
+  p.lights = lights_from(ptrs, 25, points, spots);
+  p.bounce = ints[10];
+  p.shadows = ints[11];
+  p.rays = rays;
+  const int out = 25 + kLightPtrs;
+  p.albedo = const_cast<float*>(at<float>(ptrs, out));
+  p.shadow_origin = const_cast<float*>(at<float>(ptrs, out + 1));
+  p.n_w = const_cast<float*>(at<float>(ptrs, out + 2));
+  p.roughness = const_cast<float*>(at<float>(ptrs, out + 3));
+  p.metallic = const_cast<float*>(at<float>(ptrs, out + 4));
+  p.k = const_cast<float*>(at<float>(ptrs, out + 5));
+  p.refl_dir = const_cast<float*>(at<float>(ptrs, out + 6));
+  p.gate = const_cast<uint8_t*>(at<uint8_t>(ptrs, out + 7));
+  p.shadow_tmax = const_cast<float*>(at<float>(ptrs, out + 8));
+  p.shadow_dir = const_cast<float*>(at<float>(ptrs, out + 9));
+
+  const size_t shared =
+      4 * (static_cast<size_t>(n_inst) * kInstRow + n_vol * kVolRow +
+           2 * n_tex + 4 + points * kPointRow + spots * kSpotRow);
+  if (shared > kMaxSharedBytes) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = static_cast<unsigned>((rays + kThreads - 1) / kThreads);
+#define VRT_SURFACE(L, T, C) \
+  surface_kernel<L, T, C><<<grid, kThreads, shared, s>>>(p)
+  if (lit) {
+    if (textured) {
+      if (colors) VRT_SURFACE(true, true, true);
+      else VRT_SURFACE(true, true, false);
+    } else {
+      if (colors) VRT_SURFACE(true, false, true);
+      else VRT_SURFACE(true, false, false);
+    }
+  } else {
+    if (textured) {
+      if (colors) VRT_SURFACE(false, true, true);
+      else VRT_SURFACE(false, true, false);
+    } else {
+      if (colors) VRT_SURFACE(false, false, true);
+      else VRT_SURFACE(false, false, false);
+    }
+  }
+#undef VRT_SURFACE
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The combine kernel, one thread per ray.  ptrs: d_w, n_obj, hit, unlit;
+// albedo, shadow_origin, n_w, roughness, metallic, k, refl_dir, refl_rgb; 11
+// blocked pointers (the directional light's, the point lights', the spot
+// lights'; null where no shadow was traced); the 15 light pointers in the
+// order of Lights; env; out.  ints: lit, final, point lights, spot lights, env
+// cube side.  Returns cudaGetLastError().
+extern "C" int vrt_shade_combine(const void* const* ptrs, const int* ints,
+                                 long long rays, void* stream) {
+  const int points = ints[2], spots = ints[3];
+  if (points < 0 || points > kMaxLights || spots < 0 || spots > kMaxLights ||
+      ints[4] < 1)
+    return cudaErrorInvalidValue;
+  CombineParams p;
+  p.d_w = at<float>(ptrs, 0);
+  p.n_obj = at<float>(ptrs, 1);
+  p.hit = at<uint8_t>(ptrs, 2);
+  p.unlit = at<uint8_t>(ptrs, 3);
+  p.albedo = at<float>(ptrs, 4);
+  p.shadow_origin = at<float>(ptrs, 5);
+  p.n_w = at<float>(ptrs, 6);
+  p.roughness = at<float>(ptrs, 7);
+  p.metallic = at<float>(ptrs, 8);
+  p.k = at<float>(ptrs, 9);
+  p.refl_dir = at<float>(ptrs, 10);
+  p.refl_rgb = at<float>(ptrs, 11);
+  for (int j = 0; j < kMaxBlocked; ++j) p.blocked[j] = at<uint8_t>(ptrs, 12 + j);
+  p.lights = lights_from(ptrs, 12 + kMaxBlocked, points, spots);
+  p.env = at<float>(ptrs, 12 + kMaxBlocked + kLightPtrs);
+  p.out = const_cast<float*>(at<float>(ptrs, 13 + kMaxBlocked + kLightPtrs));
+  p.env_side = ints[4];
+  p.lit = ints[0];
+  p.final = ints[1];
+  p.rays = rays;
+  const size_t shared = 4 * (4 + points * kPointRow + spots * kSpotRow);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = static_cast<unsigned>((rays + kThreads - 1) / kThreads);
+  combine_kernel<<<grid, kThreads, shared, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -82,6 +82,26 @@ def load_path(corners) -> str:
     return "v16" if aligned else "ldg"
 
 
+def instance_table(scene, dev, check):
+    """The scene's instance table as the kernels take it: ((volume i32 [I],
+    pos [I,3], rot [I,4], scale [I,3]), I), each checked by ``check``.  A
+    scene without instances, whose every ray is a miss, gets one identity
+    instance of volume 0."""
+    n_inst = scene.num_instances
+    if n_inst == 0:
+        return (torch.zeros(1, dtype=torch.int32, device=dev),
+                torch.zeros((1, 3), device=dev),
+                torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=dev),
+                torch.ones((1, 3), device=dev)), 1
+    table = (scene.inst_volume, scene.inst_pos, scene.inst_rot,
+             scene.inst_scale)
+    check(table[0], "inst_volume", torch.int32, (n_inst,), dev)
+    check(table[1], "inst_pos", torch.float32, (n_inst, 3), dev)
+    check(table[2], "inst_rot", torch.float32, (n_inst, 4), dev)
+    check(table[3], "inst_scale", torch.float32, (n_inst, 3), dev)
+    return table, n_inst
+
+
 def _check_inputs(scene, o_w, d_w, hit: MarchHit, inst, who):
     """Check what both kernels read; returns (device, rays, the instance
     table's four tensors and its length)."""
@@ -109,21 +129,7 @@ def _check_inputs(scene, o_w, d_w, hit: MarchHit, inst, who):
     _check(vols.extends, "extends", torch.float32, (nv,), dev)
     _check(vols.corners, "corners", vols.corners.dtype,
            (nv, cc, cc, cc, ch), dev)
-    n_inst = scene.num_instances
-    if n_inst == 0:
-        # every ray is a miss: one identity instance of volume 0 stands in
-        table = (torch.zeros(1, dtype=torch.int32, device=dev),
-                 torch.zeros((1, 3), device=dev),
-                 torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=dev),
-                 torch.ones((1, 3), device=dev))
-        n_inst = 1
-    else:
-        table = (scene.inst_volume, scene.inst_pos, scene.inst_rot,
-                 scene.inst_scale)
-        _check(table[0], "inst_volume", torch.int32, (n_inst,), dev)
-        _check(table[1], "inst_pos", torch.float32, (n_inst, 3), dev)
-        _check(table[2], "inst_rot", torch.float32, (n_inst, 4), dev)
-        _check(table[3], "inst_scale", torch.float32, (n_inst, 3), dev)
+    table, n_inst = instance_table(scene, dev, _check)
     return dev, rays, table, n_inst
 
 

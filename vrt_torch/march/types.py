@@ -169,3 +169,30 @@ class MarchHit:
             return torch.where(m, a, b)
         return MarchHit(**{f: sel(getattr(self, f), getattr(other, f))
                            for f in _HIT_FIELDS})
+
+
+@dataclasses.dataclass
+class SurfaceRecord:
+    """What the surface stage of a level's shading hands to the traces the
+    level spawns and to its combine stage (batched [R]).  In unlit mode only
+    ``albedo`` is set."""
+
+    albedo: torch.Tensor                        # f32 [R,3]
+    shadow_origin: torch.Tensor | None = None   # f32 [R,3] hit point - 0.1 d
+    n_w: torch.Tensor | None = None             # f32 [R,3], not normalized
+    roughness: torch.Tensor | None = None       # f32
+    metallic: torch.Tensor | None = None        # f32
+    k: torch.Tensor | None = None               # f32, the geometry term's k
+    # with a mirror bounce: its direction, and the lanes that trace it
+    refl_dir: torch.Tensor | None = None        # f32 [R,3]
+    gate: torch.Tensor | None = None            # bool
+    # where the level's shadows are traced: t_max per light (f32 [R] each,
+    # the directional light's first, -inf where nobody reads the shadow) and
+    # the direction per point and spot light (f32 [R,3] each)
+    shadow_tmax: tuple | None = None
+    shadow_dir: tuple | None = None
+    # set by the plain surface stage beside its shadow rays, never by the
+    # kernel: per point and spot light its (direction f32 [R,3], distance,
+    # intensity f32 [R]) at the shadow origin, kept with their graph so the
+    # plain combine stage does not compute them again
+    lights: tuple | None = None

@@ -293,8 +293,10 @@ def build_scene(volumes: Sequence,  # VoxelVolume
         env = np.zeros((6, 1, 1, 3), np.float32)
 
     def dev(x, dtype=None):
-        x = np.asarray(x) if dtype is None else np.asarray(x, dtype)
-        return torch.as_tensor(x).to(device)
+        # contiguous, whatever strides the host array came with (a cube map
+        # read from a file is a transposed view): the kernels index tables
+        # by their shape alone
+        return torch.as_tensor(np.asarray(x, dtype, order="C")).to(device)
 
     return GPUScene(
         volumes=stacked,

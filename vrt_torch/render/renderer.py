@@ -14,17 +14,24 @@
   shadow traces,
 - shading is the reference's closest-hit Cook-Torrance with point and spot
   lights, the env miss lookup, and Reinhard + gamma tonemapping; with
-  per-voxel colours the albedo is their trilinear sample at the hit.
+  per-voxel colours the albedo is their trilinear sample at the hit.  A
+  level shades in two stages, one on each side of the traces it spawns
+  (``shade_stages``): on CUDA tensors the two kernels of ``shade.cu``, on
+  CPU tensors and wherever a graph is recorded their plain versions
+  ``shade_surface_reference`` and ``shade_combine_reference``.
 
 The frame is differentiable in the scene's tensors: the march runs under
 ``torch.no_grad()`` (its hits are piecewise constant in the SDF, as under
-``vrt``'s ``stop_gradient``), and autograd records resolve and shading.
+``vrt``'s ``stop_gradient``), and autograd records resolve and the plain
+shading stages.
 
 Like ``vrt`` it uses the spot light's own colour (the reference's
 ``g_spotLightsCB[pi]`` indexing bug is not reproduced).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -35,7 +42,7 @@ from vrt_torch.march import isosurface as iso
 from vrt_torch.march.march import march_lanes, ray_aabb
 from vrt_torch.march.resolve import (_OFFS7, resolve_hits,
                                       resolve_hits_backward)
-from vrt_torch.march.types import MarchHit
+from vrt_torch.march.types import MarchHit, SurfaceRecord
 from vrt_torch.render.gpuscene import GPUScene, RenderMode
 from vrt_torch.shade import brdf as _brdf
 from vrt_torch.shade import lights as _lights
@@ -227,9 +234,7 @@ def resolve_scene(scene: GPUScene, o_w, d_w, hit: MarchHit, inst):
     raises; nothing falls back."""
     if o_w.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no resolve for device {o_w.device}")
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (scene.inst_pos, scene.inst_rot,
-                                      scene.inst_scale)):
+    if _needs_autograd(scene.inst_pos, scene.inst_rot, scene.inst_scale):
         return resolve_scene_reference(scene, o_w, d_w, hit, inst)
     from vrt_torch.kernels.resolve import ResolveScene
 
@@ -359,23 +364,80 @@ def trace_shadow(scene: GPUScene, o_w, d_w, max_dist, depth: int,
                                                      max_dist, interp)
 
 
-def _shade_lit(scene: GPUScene, o_w, d_w, t, n_obj, inst, hit: MarchHit,
-               depth: int, mode: RenderMode, tracer: SceneTracer = None):
-    """Closest-hit lit shading: shadowed directional light, mirror bounce
-    for roughness < 0.3 (traced inline), point and spot lights."""
+def _shadow_rays(scene: GPUScene, shadow_origin, hit_mask):
+    """The shadow rays of a level, for the march alone (no graph): (t_max
+    per light, each f32 [R]: the directional light's, then the point and the
+    spot lights'; direction per point and spot light, each f32 [R,3]).  A
+    lane whose shadow nobody reads (a miss, or a light too dim there) gets
+    t_max = -inf and retires at the slab test.  Third, per point and spot
+    light its (direction, distance, intensity) at the shadow origin, with
+    their graph, for the combine stage to shade with."""
+    dev = shadow_origin.device
+    lights = tuple(
+        [_point_light(scene, pi, shadow_origin)
+         for pi in range(scene.num_point)]
+        + [_spot_light(scene, si, shadow_origin)
+           for si in range(scene.num_spot)])
+    floors = [0.005] * scene.num_point + [0.01] * scene.num_spot
+    with torch.no_grad():
+        t_max = [torch.where(
+            hit_mask, torch.full(hit_mask.shape, DIR_SHADOW_TMAX, device=dev),
+            -_INF)]
+        for (_, dist, inten), floor in zip(lights, floors):
+            t_max.append(torch.where(hit_mask & (inten > floor),
+                                     dist.detach(), -_INF))
+    return (tuple(t_max), tuple(sdir.detach() for sdir, _, _ in lights),
+            lights)
+
+
+def _point_light(scene: GPUScene, pi: int, shadow_origin):
+    """(direction to point light ``pi`` [R,3], its distance [R], its
+    intensity there [R])."""
+    delta = scene.point_pos[pi] - shadow_origin
+    dist = torch.linalg.vector_norm(delta, dim=-1)
+    inten = _lights.point_light_intensity(
+        scene.point_intensity[pi], dist,
+        scene.point_att_l[pi], scene.point_att_e[pi])
+    return _safe_div(delta, dist[..., None]), dist, inten
+
+
+def _spot_light(scene: GPUScene, si: int, shadow_origin):
+    """``_point_light`` for spot light ``si``."""
+    delta = scene.spot_pos[si] - shadow_origin
+    dist = torch.linalg.vector_norm(delta, dim=-1)
+    inten = _lights.spot_light_intensity(
+        shadow_origin, dist, scene.spot_pos[si], scene.spot_fwd[si],
+        scene.spot_intensity[si], scene.spot_att_l[si],
+        scene.spot_att_e[si], scene.spot_cos_angle[si],
+        scene.spot_cos_falloff[si])
+    return _safe_div(delta, dist[..., None]), dist, inten
+
+
+def shade_surface_reference(scene: GPUScene, o_w, d_w, t, n_obj,
+                            hit: MarchHit, inst, mode: RenderMode,
+                            bounce: bool, shadows: bool) -> SurfaceRecord:
+    """The first stage of a level's shading, before the traces the level
+    spawns, in plain PyTorch (the plain version of ``shade.cu``'s surface
+    kernel; port of the head of ``vrt.render.renderer._shade_lit`` and of
+    ``_shade_unlit_mode``).  From the march's ``hit`` / ``inst`` and the
+    resolve's ``t`` / ``n_obj``: miss lanes sanitised (their values are
+    discarded by the last select), the hit point, the material at it —
+    triplanar albedo, roughness / metallic and tangent normal, or the
+    per-voxel colour sample — and the world normal; with ``bounce`` the
+    mirror direction and its gate (roughness < 0.3); with ``shadows`` the
+    level's shadow rays.  In unlit mode only the albedo."""
+    dev = o_w.device
+    t = torch.where(hit.hit, t, 0.0)
+    n_obj = torch.where(hit.hit[..., None], n_obj,
+                        torch.tensor([0.0, 0.0, 1.0], device=dev))
     pr = _per_ray_instance(scene, inst)
     vol_id = pr["vol"]
-    dev = o_w.device
+    if not mode.lit:
+        return SurfaceRecord(albedo=_unlit_albedo(scene, pr, o_w, d_w, t,
+                                                  n_obj, hit, mode))
 
     hit_pos = o_w + t[..., None] * d_w
     shadow_origin = hit_pos - d_w * 0.1
-
-    shadow_dir_hit = trace_shadow(
-        scene, shadow_origin, scene.dir_light_dir.expand(d_w.shape),
-        torch.full(t.shape, DIR_SHADOW_TMAX, device=dev), depth + 1,
-        mode.interp, relevant=hit.hit, tracer=tracer)
-
-    diffuse = torch.full(d_w.shape, _brdf.SHADOW_BRIGHTNESS, device=dev)
 
     tint = scene.tint[vol_id][..., :3]
     k = scene.k[vol_id]
@@ -404,75 +466,27 @@ def _shade_lit(scene: GPUScene, o_w, d_w, t, n_obj, inst, hit: MarchHit,
     if scene.use_voxel_colors:
         albedo = _voxel_color_sample(scene, pr, hit, o_w, d_w, t)
 
-    n_w = _object_normal_to_world(pr["rot"], pr["scale"], n_shade)
-    wo = -d_w
+    rec = SurfaceRecord(
+        albedo=albedo, shadow_origin=shadow_origin,
+        n_w=_object_normal_to_world(pr["rot"], pr["scale"], n_shade),
+        roughness=roughness, metallic=metallic, k=k)
 
-    # mirror reflection for roughness < 0.3; skipped when no material can
-    # reflect (the traced contribution would be identically zero)
-    if scene.any_reflective and depth + 1 < MAX_RAY_RECURSION_DEPTH:
-        refl_dir = d_w - 2.0 * torch.sum(d_w * n_w, -1, keepdim=True) * n_w
-        refl_dir = _safe_unit(refl_dir)
-        gate = hit.hit & (roughness < 0.3)
-        refl_rgb = trace_radiance(scene, shadow_origin, refl_dir, depth + 1,
-                                  mode, active=gate, tracer=tracer)
-        refl_rgb = torch.clamp_min(
-            refl_rgb * (1.0 - (roughness * 2.2)[..., None]), 0.0)
-        add = _brdf.radiance(refl_rgb, refl_dir, wo, n_w, albedo,
-                             roughness, metallic, k)
-        diffuse = diffuse + torch.where((roughness < 0.3)[..., None], add,
-                                        0.0)
-
-    # directional light
-    li = scene.dir_light_strength
-    dir_add = _brdf.radiance(li.expand(d_w.shape),
-                             scene.dir_light_dir.expand(d_w.shape),
-                             wo, n_w, albedo, roughness, metallic, k)
-    diffuse = diffuse + torch.where(shadow_dir_hit[..., None], 0.0, dir_add)
-
-    # point lights
-    for pi in range(scene.num_point):
-        delta = scene.point_pos[pi] - shadow_origin
-        dist = torch.linalg.vector_norm(delta, dim=-1)
-        inten = _lights.point_light_intensity(
-            scene.point_intensity[pi], dist,
-            scene.point_att_l[pi], scene.point_att_e[pi])
-        li = scene.point_color[pi][:3] * inten[..., None]
-        sdir = _safe_div(delta, dist[..., None])
-        sh = trace_shadow(scene, shadow_origin, sdir, dist, depth + 1,
-                          mode.interp, relevant=hit.hit & (inten > 0.005),
-                          tracer=tracer)
-        add = _brdf.radiance(li, sdir, wo, n_w, albedo, roughness,
-                             metallic, k)
-        lit = (inten > 0.005) & ~sh
-        diffuse = diffuse + torch.where(lit[..., None], add, 0.0)
-
-    # spot lights — colour indexed by the spot light itself
-    for si in range(scene.num_spot):
-        delta = scene.spot_pos[si] - shadow_origin
-        dist = torch.linalg.vector_norm(delta, dim=-1)
-        inten = _lights.spot_light_intensity(
-            shadow_origin, dist, scene.spot_pos[si], scene.spot_fwd[si],
-            scene.spot_intensity[si], scene.spot_att_l[si],
-            scene.spot_att_e[si], scene.spot_cos_angle[si],
-            scene.spot_cos_falloff[si])
-        li = scene.spot_color[si][:3] * inten[..., None]
-        sdir = _safe_div(delta, dist[..., None])
-        sh = trace_shadow(scene, shadow_origin, sdir, dist, depth + 1,
-                          mode.interp, relevant=hit.hit & (inten > 0.01),
-                          tracer=tracer)
-        add = _brdf.radiance(li, sdir, wo, n_w, albedo, roughness,
-                             metallic, k)
-        lit = (inten > 0.01) & ~sh
-        diffuse = diffuse + torch.where(lit[..., None], add, 0.0)
-
-    return diffuse
+    # mirror reflection for roughness < 0.3
+    if bounce:
+        refl_dir = d_w - 2.0 * torch.sum(d_w * rec.n_w, -1, keepdim=True) \
+            * rec.n_w
+        rec.refl_dir = _safe_unit(refl_dir)
+        rec.gate = hit.hit & (roughness < 0.3)
+    if shadows:
+        rec.shadow_tmax, rec.shadow_dir, rec.lights = _shadow_rays(
+            scene, shadow_origin, hit.hit)
+    return rec
 
 
-def _shade_unlit_mode(scene: GPUScene, o_w, d_w, t, n_obj, inst,
-                      hit: MarchHit, mode: RenderMode):
+def _unlit_albedo(scene: GPUScene, pr, o_w, d_w, t, n_obj, hit: MarchHit,
+                  mode: RenderMode):
     """Unlit closest hit: tinted albedo only (the per-voxel colour
     sample where the scene has one)."""
-    pr = _per_ray_instance(scene, inst)
     if scene.use_voxel_colors:
         return _voxel_color_sample(scene, pr, hit, o_w, d_w, t)
     vol_id = pr["vol"]
@@ -487,14 +501,149 @@ def _shade_unlit_mode(scene: GPUScene, o_w, d_w, t, n_obj, inst,
     return tint.expand(d_w.shape)
 
 
-def trace_radiance(scene: GPUScene, o_w, d_w, depth: int, mode: RenderMode,
-                   active=None, tracer: SceneTracer = None):
-    """One radiance level; returns linear rgb [R,3].  Recursion is inline
-    (cap 3).  ``active`` masks lanes whose result the caller discards:
-    their t_max is -inf, so they retire at the slab test.  ``tracer``
-    (default: the scene march and the fused resolve) does every march and
-    resolve of this level and the levels below."""
-    tracer = tracer or _DEFAULT_TRACER
+def shade_combine_reference(scene: GPUScene, rec: SurfaceRecord, d_w, n_obj,
+                            hit_mask, unlit_attr, refl_rgb, blocked,
+                            mode: RenderMode, final: bool = False):
+    """The second stage of a level's shading, after its traces, in plain
+    PyTorch (the plain version of ``shade.cu``'s combine kernel; port of the
+    tail of ``vrt.render.renderer._shade_lit``, of the selects of
+    ``trace_radiance`` and, with ``final``, of ``tonemap``).  From the
+    surface record, the bounce's radiance ``refl_rgb`` [R,3] (None without a
+    bounce) and ``blocked``, the level's shadow traces (bool [R] per light,
+    the directional one first; None where no shadow is traced): the mirror
+    term, the directional, point and spot lights with their shadows, the
+    unlit-attribute select and the miss select with the env lookup.
+    Returns linear rgb [R,3], or with ``final`` the tonemapped frame
+    [R,4] with alpha 1."""
+    dev = d_w.device
+    miss_rgb = _tex.sample_env(scene.env, d_w)
+    if mode.lit:
+        shaded = _lit_radiance(scene, rec, d_w, refl_rgb, blocked)
+    else:
+        shaded = rec.albedo
+    # unlit-attribute lanes show the raw (object-space) attribute normal
+    shaded = torch.where(unlit_attr[..., None], n_obj, shaded)
+    rgb = torch.where(hit_mask[..., None], shaded, miss_rgb)
+    if not final:
+        return rgb
+    return torch.cat([tonemap(rgb), torch.ones((rgb.shape[0], 1),
+                                               device=dev)], dim=-1)
+
+
+def _lit_radiance(scene: GPUScene, rec: SurfaceRecord, d_w, refl_rgb,
+                  blocked):
+    """Closest-hit lit shading from the surface record: mirror term for
+    roughness < 0.3, shadowed directional light, point and spot lights."""
+    albedo, n_w, k = rec.albedo, rec.n_w, rec.k
+    roughness, metallic = rec.roughness, rec.metallic
+    shadow_origin = rec.shadow_origin
+    diffuse = torch.full(d_w.shape, _brdf.SHADOW_BRIGHTNESS,
+                         device=d_w.device)
+    wo = -d_w
+
+    if refl_rgb is not None:
+        refl_rgb = torch.clamp_min(
+            refl_rgb * (1.0 - (roughness * 2.2)[..., None]), 0.0)
+        add = _brdf.radiance(refl_rgb, rec.refl_dir, wo, n_w, albedo,
+                             roughness, metallic, k)
+        diffuse = diffuse + torch.where((roughness < 0.3)[..., None], add,
+                                        0.0)
+
+    # directional light
+    li = scene.dir_light_strength
+    dir_add = _brdf.radiance(li.expand(d_w.shape),
+                             scene.dir_light_dir.expand(d_w.shape),
+                             wo, n_w, albedo, roughness, metallic, k)
+    if blocked is not None:
+        dir_add = torch.where(blocked[0][..., None], 0.0, dir_add)
+    diffuse = diffuse + dir_add
+
+    # point lights, then spot lights — a spot's colour is its own
+    lights = [(_point_light, pi, scene.point_color, 0.005)
+              for pi in range(scene.num_point)]
+    lights += [(_spot_light, si, scene.spot_color, 0.01)
+               for si in range(scene.num_spot)]
+    for j, (light, i, colors, floor) in enumerate(lights):
+        # the surface stage's own, where it made the level's shadow rays
+        sdir, _, inten = rec.lights[j] if rec.lights is not None \
+            else light(scene, i, shadow_origin)
+        li = colors[i][:3] * inten[..., None]
+        add = _brdf.radiance(li, sdir, wo, n_w, albedo, roughness, metallic,
+                             k)
+        lit = inten > floor
+        if blocked is not None:
+            lit = lit & ~blocked[1 + j]
+        diffuse = diffuse + torch.where(lit[..., None], add, 0.0)
+    return diffuse
+
+
+def _needs_autograd(*tensors) -> bool:
+    """Whether a graph is being recorded through any of ``tensors``."""
+    return torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in tensors)
+
+
+# the scene's tensors that a level's shading reads and a fit may optimize
+_SHADED_FIELDS = (
+    "tint", "roughness", "metallic", "k", "tex_scale", "textures", "env",
+    "voxel_colors", "voxel_color_corners", "inst_pos", "inst_rot",
+    "inst_scale", "dir_light_dir", "dir_light_strength", "point_color",
+    "point_intensity", "point_att_l", "point_att_e", "point_pos",
+    "spot_color", "spot_intensity", "spot_att_l", "spot_att_e",
+    "spot_cos_angle", "spot_cos_falloff", "spot_pos", "spot_fwd")
+
+
+def shade_stages(scene: GPUScene, o_w, d_w, t, n_obj):
+    """The two stages of a level's shading, (surface, combine), picked on
+    the inputs alone.  CPU tensors take the plain versions
+    (``shade_surface_reference``, ``shade_combine_reference``).  CUDA
+    tensors take the two kernels of ``shade.cu`` — unless a graph is being
+    recorded through anything the level reads (the rays, ``t``, ``n_obj``,
+    the corner and colour tables, the materials, the lights, the instance
+    transforms): the kernels have no backward, so such a caller, every fit
+    step among them, takes the plain versions under autograd.  A build or
+    launch that fails raises; nothing falls back."""
+    kind = o_w.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"no shading for device {o_w.device}")
+    if kind == "cpu" or _needs_autograd(
+            o_w, d_w, t, n_obj, scene.volumes.corners,
+            *(getattr(scene, f) for f in _SHADED_FIELDS)):
+        return shade_surface_reference, shade_combine_reference
+    return _shade_surface_kernel, _shade_combine_kernel
+
+
+def _shade_surface_kernel(scene, o_w, d_w, t, n_obj, hit, inst, mode, bounce,
+                          shadows):
+    from vrt_torch.kernels import shade as k4
+
+    hit = dataclasses.replace(hit, hit=hit.hit.contiguous(),
+                              cell=hit.cell.contiguous())
+    return k4.shade_surface_cuda(scene, o_w.contiguous(), d_w.contiguous(),
+                                 t.contiguous(), n_obj.contiguous(), hit,
+                                 inst.contiguous(), mode, bounce, shadows)
+
+
+def _shade_combine_kernel(scene, rec, d_w, n_obj, hit_mask, unlit_attr,
+                          refl_rgb, blocked, mode, final=False):
+    from vrt_torch.kernels import shade as k4
+
+    if refl_rgb is not None:
+        refl_rgb = refl_rgb.contiguous()
+    if blocked is not None:
+        blocked = [b.contiguous() for b in blocked]
+    return k4.shade_combine_cuda(scene, rec, d_w.contiguous(),
+                                 n_obj.contiguous(), hit_mask.contiguous(),
+                                 unlit_attr.contiguous(), refl_rgb, blocked,
+                                 mode, final)
+
+
+def _trace_level(scene: GPUScene, o_w, d_w, depth: int, mode: RenderMode,
+                 active, tracer: SceneTracer, final: bool):
+    """One radiance level: march, resolve, the surface stage, the traces it
+    spawns (the level's shadow rays and, inline, the mirror bounce's level),
+    the combine stage.  ``final`` asks the combine stage for the tonemapped
+    [R,4] frame instead of linear rgb [R,3]."""
     r = o_w.shape[0]
     dev = o_w.device
     if depth >= MAX_RAY_RECURSION_DEPTH:
@@ -507,24 +656,37 @@ def trace_radiance(scene: GPUScene, o_w, d_w, depth: int, mode: RenderMode,
                              debug_overlay=mode.debug_overlay)
     t, n_obj, unlit_attr = tracer.resolve(scene, o_w, d_w, hit, inst)
 
-    # sanitize miss lanes before shading: their values are discarded by the
-    # final select
-    t = torch.where(hit.hit, t, 0.0)
-    n_obj = torch.where(hit.hit[..., None], n_obj,
-                        torch.tensor([0.0, 0.0, 1.0], device=dev))
+    surface, combine = shade_stages(scene, o_w, d_w, t, n_obj)
+    deeper = depth + 1 < MAX_RAY_RECURSION_DEPTH
+    # the bounce is skipped when no material can reflect (the traced
+    # contribution would be identically zero)
+    bounce = mode.lit and scene.any_reflective and deeper
+    rec = surface(scene, o_w, d_w, t, n_obj, hit, inst, mode, bounce,
+                  mode.lit and deeper)
 
-    miss_rgb = _tex.sample_env(scene.env, d_w)
+    blocked = refl_rgb = None
+    if rec.shadow_tmax is not None:
+        dirs = (scene.dir_light_dir.expand(d_w.shape),) + rec.shadow_dir
+        blocked = [trace_shadow(scene, rec.shadow_origin, sdir, dist,
+                                depth + 1, mode.interp, tracer=tracer)
+                   for sdir, dist in zip(dirs, rec.shadow_tmax)]
+    if bounce:
+        refl_rgb = _trace_level(scene, rec.shadow_origin, rec.refl_dir,
+                                depth + 1, mode, rec.gate, tracer, False)
+    return combine(scene, rec, d_w, n_obj, hit.hit, unlit_attr, refl_rgb,
+                   blocked, mode, final)
 
-    if mode.lit:
-        shaded = _shade_lit(scene, o_w, d_w, t, n_obj, inst, hit, depth,
-                            mode, tracer=tracer)
-    else:
-        shaded = _shade_unlit_mode(scene, o_w, d_w, t, n_obj, inst, hit,
-                                   mode)
 
-    # unlit-attribute lanes show the raw (object-space) attribute normal
-    shaded = torch.where(unlit_attr[..., None], n_obj, shaded)
-    return torch.where(hit.hit[..., None], shaded, miss_rgb)
+def trace_radiance(scene: GPUScene, o_w, d_w, depth: int, mode: RenderMode,
+                   active=None, tracer: SceneTracer = None):
+    """One radiance level; returns linear rgb [R,3].  Recursion is inline
+    (cap 3).  ``active`` masks lanes whose result the caller discards:
+    their t_max is -inf, so they retire at the slab test.  ``tracer``
+    (default: the scene march and the fused resolve) does every march and
+    resolve of this level and the levels below; the shading between them is
+    the stage pair ``shade_stages`` picks."""
+    return _trace_level(scene, o_w, d_w, depth, mode, active,
+                        tracer or _DEFAULT_TRACER, False)
 
 
 def tonemap(rgb):
@@ -544,12 +706,12 @@ def render_image(scene: GPUScene, width: int, height: int,
                  tracer: SceneTracer = None):
     """Full frame: camera rays -> radiance -> tonemap.  [H,W,4] float32,
     the whole frame as one batch of rays, marched and resolved by
-    ``tracer`` (default: the scene's own kernels or plain versions)."""
+    ``tracer`` (default: the scene's own kernels or plain versions); the
+    last combine stage tonemaps and writes the alpha channel."""
     from vrt_torch.render.camera import camera_rays
 
     o, d = camera_rays(scene.cam_pos, scene.cam_rot, scene.cam_fov,
                        width, height)
-    rgb = trace_radiance(scene, o, d, 0, mode, tracer=tracer)
-    img = tonemap(rgb).reshape(height, width, 3)
-    return torch.cat([img, torch.ones((height, width, 1), device=img.device)],
-                     dim=-1)
+    rgba = _trace_level(scene, o, d, 0, mode, None,
+                        tracer or _DEFAULT_TRACER, True)
+    return rgba.reshape(height, width, 4)

@@ -100,3 +100,63 @@ def flagship_graph(resolution: int = 5):
         strength=LIGHT_STRENGTH))
     scene.environment = _sky()
     return scene, a, b
+
+
+def shading_scene(resolution: int = 4, points: int = 2, spots: int = 1,
+                  colors: bool = False, reflective: bool = True,
+                  accel_mode: str = "octree",
+                  march_dtype: torch.dtype | None = None,
+                  device: torch.device | str = "cuda", seed: int = 0):
+    """The flagship's two volumes with everything shading can read switched
+    on: three seeded 16x8, 8x8 and 4x16 textures (albedo, tangent normal,
+    roughness / metallic) tiled every 37 x 23 units, a scaled and rotated
+    box, ``points`` point and ``spots`` spot lights around the objects, a
+    seeded 8x8 env cube and, with ``colors``, seeded per-voxel colours.
+    Without ``reflective`` no material is smooth enough to bounce."""
+    from vrt_torch.core import quat as vq
+    from vrt_torch.render.gpuscene import build_scene
+
+    rng = np.random.default_rng(seed)
+    sphere, box = flagship_volumes(resolution)
+    sphere.material.texture_scale = box.material.texture_scale = (37.0, 23.0)
+    if not reflective:
+        sphere.material.roughness = 0.5
+    textures = np.zeros((3, 16, 16, 3), np.float32)
+    sizes = np.asarray([[16, 8], [8, 8], [4, 16]], np.int32)
+    for i, (h, w) in enumerate(sizes):
+        textures[i, :h, :w] = rng.uniform(0.2, 1.0, size=(h, w, 3))
+    # tangent normals near +z
+    textures[1, :8, :8] = (0.5, 0.5, 1.0) + rng.uniform(
+        -0.1, 0.1, size=(8, 8, 3))
+    n = sphere.n_voxels
+    point_lights = [
+        dict(position=(150.0, -40.0 + 120.0 * i, 120.0 - 60.0 * i),
+             color=(1.0, 0.8 - 0.3 * i, 0.6, 1.0), intensity=60.0 + 30.0 * i,
+             att_linear=0.05, att_exp=0.0005) for i in range(points)]
+    spot_lights = [
+        dict(position=(200.0, 30.0 - 90.0 * i, 160.0),
+             forward=(-0.7, -0.1 + 0.3 * i, -0.7), color=(0.5, 0.9, 1.0, 1.0),
+             intensity=120.0, att_linear=0.02, att_exp=0.0002, angle=50.0,
+             falloff=25.0) for i in range(spots)]
+    for s in spot_lights:
+        s["forward"] = tuple(np.asarray(s["forward"])
+                             / np.linalg.norm(s["forward"]))
+    return build_scene(
+        [sphere, box],
+        [{"volume": 0, "position": SPHERE_POSITION},
+         {"volume": 1, "position": BOX_POSITION, "scale": (1.0, 1.25, 0.8),
+          "rotation": np.asarray(vq.from_euler_degrees(*BOX_EULER))}],
+        accel_mode=accel_mode, march_dtype=march_dtype,
+        camera={"position": CAMERA_POSITION,
+                "rotation": vq.from_euler_degrees(*CAMERA_EULER),
+                "fov": 60.0},
+        dir_light={"direction": np.asarray(vq.forward_vector(
+            vq.from_euler_degrees(*LIGHT_EULER))),
+            "strength": LIGHT_STRENGTH},
+        point_lights=point_lights, spot_lights=spot_lights,
+        env=rng.uniform(0.1, 1.0, size=(6, 8, 8, 3)).astype(np.float32),
+        textures=textures, tex_sizes=sizes,
+        texture_ids=[(0, 1, 2), (0, 1, 2)],
+        voxel_colors=(rng.uniform(size=(2, n, n, n, 3)).astype(np.float32)
+                      if colors else None),
+        device=device)
