@@ -7,7 +7,8 @@ Phases, each of which raises on failure:
 1. device  -- needs a CUDA card; prints its name and power limit,
 2. build   -- compiles the march K1 (per-lane and scene kernels), the
              gather library (GP-A, GP-B, GP-C), the row gather K3, the fused
-             resolve (forward and backward) and the two shade kernels K4 from
+             resolve (forward and backward) and the four shade kernels K4
+             (surface and combine, forward and backward) from
              ``vrt_torch/csrc/``, one nvcc each, all in parallel, and prints
              ptxas' register and spill lines,
 3. kernels -- every kernel against its plain version on the inputs the
@@ -40,8 +41,18 @@ Phases, each of which raises on failure:
              saved inputs and cotangents (ray gradients within 1e-5 * max|g|,
              the table's within 1e-5 * max|sum| of the closed form summed in
              float64);
+             the shade kernels of that fit step (through the Functions
+             ``ShadeSurface`` / ``ShadeCombine``): its 3 + 3 forward launches
+             as the frames' above, and its 3 + 3 backward launches against
+             ``shade_surface_backward_reference`` /
+             ``shade_combine_backward_reference`` (autograd of the plain
+             stages) on the same inputs and cotangents (every per-ray
+             cotangent within 1e-4 * |plain| + 1e-5 * the launch's largest
+             |plain| on every lane, the colour table's within 1e-5 * max|sum|
+             of the plain version summed in float64), timed with their bound;
              K3: every launch of one 1080p frame on the candidate-loop path,
-             of one config6 fit step, and of that step with resolve on the
+             of one config6 fit step with eager shading (the colour rows:
+             the default step launches no K3), and of one with resolve on the
              plain path (the 9-channel corner rows) against the plain
              versions (gathers equal, scatters within 1e-5 * max|sum| of a
              float64 ``index_add_``), each scatter on its own path and, where
@@ -74,15 +85,15 @@ Phases, each of which raises on failure:
              the flagship at resolution 6 with per-voxel colours, SDF and
              colours optimized by Adam (lr 1e-2) towards zero targets; one
              warm-up step, then three timed, with the launches per step (5
-             scene marches, 3 fused resolves forward and 3 backward, 3 K3
-             gathers and 3 K3 scatters for the colour rows, no per-lane K1, no
-             shade kernel: a step shades on the plain stages under autograd),
-             peak device memory and the losses; the step with resolve on the
-             plain path over K3 against the default path (old, new, new, old,
-             medians of 3), with the device ops (the default step's held to
-             what it took before the shade kernels), busy time and peak memory
-             of a step on either; the card's loss and gradients at 64x36
-             (through the backward kernel) against
+             scene marches, 3 fused resolves forward and 3 backward, 3 + 3
+             shade kernels forward and 3 + 3 backward, no K3, no per-lane
+             K1), peak device memory and the losses; the step with resolve on
+             the plain path over K3, and the step with eager shading (the
+             plain stages under autograd), each against the default path
+             (old, new, new, old, medians of 3), with the device ops (the
+             default step's held to ``FIT_STEP_OPS``), busy time and peak
+             memory of a step on each; the card's loss and gradients at 64x36
+             (through the backward kernels, launches asserted) against
              ``vrt``'s (``tests/fixtures/fit_flagship_r4_colors_64x36.npz``);
              then ``python -m vrt_torch.apps.fit`` at its defaults, whose
              last loss must be under a quarter of its first,
@@ -163,6 +174,15 @@ RESOLVE_BWD_FLOPS = 900
 # lane, Reinhard and gamma per pixel
 SHADE_FLOPS = dict(surface=170, tri_sample=190, colors=260, light=45,
                    radiance=115, env=60, tonemap=30)
+# the two backward kernels, from csrc/shade.cu, per hit lane: the surface
+# backward's frame recomputed and pulled back (world normal, mirror ray,
+# quaternions), one triplanar sample recomputed with its 12 taps' uv
+# derivatives, the colour sample and its 24 row cotangents; the combine
+# backward's Cook-Torrance term recomputed and transposed per light, a point
+# or spot light's direction and intensity pulled back, the env lookup's
+# derivative per miss lane
+SHADE_BWD_FLOPS = dict(surface=450, tri_sample=420, colors=560,
+                       radiance=330, light=110, env=110)
 # a float of a shade kernel against its plain stage: torch's reductions over
 # 3, 4 and 8 elements and its pow round in an order of their own, and a
 # comparison that feeds a select (a texel's floor, the cube face, a light's
@@ -171,11 +191,27 @@ SHADE_FLOPS = dict(surface=170, tri_sample=190, colors=260, light=45,
 # the t_max = -inf masks) may flip on LANE_BUDGET of them
 SHADE_RTOL, SHADE_ATOL = 1e-4, 1e-5
 SHADE_FLOAT_BUDGET = 0.0
+# an element of a backward kernel's per-ray cotangent against its plain
+# version (autograd of the plain stage): within SHADE_GRAD_RTOL * |plain| +
+# SHADE_GRAD_ATOL * the launch's largest |plain| cotangent, on all but
+# SHADE_GRAD_LANE_BUDGET of the lanes (a cotangent that cancels to 0 in the
+# plain version keeps a residue of rounding in the kernel).
+# The GGX term of a smooth mirror, 1 + (a^2 - 1) (n.h)^2 with n.h near 1,
+# cancels to about a^2 and so turns the last bit of a dot product into a
+# relative 1e-5 and more, in the forward as in the backward
+SHADE_GRAD_RTOL, SHADE_GRAD_ATOL = 1e-4, 1e-5
+SHADE_GRAD_LANE_BUDGET = 0.0
 # device operations of a 1080p frame (3,111 before the shade kernels), and
-# of a config6 fit step, which the shade kernels must not touch: its 6,681
-# less the full / zeros / where of the levels whose shadows are not traced
+# of a config6 fit step: 6,676 with eager shading under autograd; through
+# the shade Functions what is left is the scene marches and resolves, the
+# twelve shade launches, rebuild_accel, the corner and colour repacks,
+# Adam, the camera rays, the tonemap and the loss: 451 on the first run on
+# the card (NVIDIA H100 80GB HBM3, 700 W).  The count follows the code, not
+# the data, but for the few ops of a level whose shadows are not traced:
+# a step back on eager shading, or a stage that falls back to eager ops,
+# leaves the range
 FRAME_OPS_MAX = 400
-FIT_STEP_OPS = range(6681 - 12, 6681 + 1)
+FIT_STEP_OPS = range(451 - 10, 451 + 10 + 1)
 # K3's f32 atomics add in another order on every run: its scatter is held
 # to SCATTER_RTOL * max|sum| of an exact (float64) sum; so are the table
 # gradients of the fused resolve's backward, and its ray gradients to
@@ -994,6 +1030,188 @@ def _shade_calls(run, expected, tag):
     return out
 
 
+def _grad_beyond(a, b, scale):
+    """A per-ray cotangent ``a`` of a backward kernel against its plain
+    version's ``b``: the share of lanes where an element differs by more
+    than ``SHADE_GRAD_RTOL * |b| + SHADE_GRAD_ATOL * scale`` (or is not
+    finite), ``scale`` being the launch's largest |plain| cotangent, and
+    the largest difference over ``scale``."""
+    diff = (a.double() - b.double()).abs()
+    off = ~(diff <= SHADE_GRAD_RTOL * b.double().abs()
+            + SHADE_GRAD_ATOL * scale)
+    bad = off.reshape(off.shape[0], -1).any(-1)
+    worst = diff.max().item()
+    return bad.float().mean().item(), worst / scale if scale > 0 else worst
+
+
+def _surface_bwd_bound(scene, args, rays_grad, table_grad):
+    """The surface backward's bound from what this launch's data needs, per
+    lane kind.  Every lane reads its flag and writes the cotangents of t and
+    n_obj (16 B) and, where asked, of the ray (24 B).  A hit lane reads its
+    instance, the ray and t (32 B), the normal (12 B) where the mode reads
+    it, the record's cotangents that were passed, with per-voxel colours the
+    cell and a colour row (no more than the table).  The textures once; the
+    f32 accumulator of the colour table written once."""
+    _, o_w, _, _, _, hit, _, mode, _, cots = args[:10]
+    rays = o_w.shape[0]
+    hits = int(hit.hit.sum())
+    lit, colors = mode.lit, scene.use_voxel_colors
+    sampled = mode.textured and (lit or not colors)
+    cot_bytes = sum(g.numel() * 4 for g in cots
+                    if g is not None) // max(rays, 1)
+    per_hit = 36 + (12 if lit or sampled else 0) + cot_bytes
+    nbytes = rays * (1 + 16 + (24 if rays_grad else 0)) + hits * per_hit
+    flops = SHADE_BWD_FLOPS["surface"]
+    if sampled:
+        nbytes += scene.textures.numel() * 4
+        flops += ((0 if colors else 1) + (2 if lit else 0)) \
+            * SHADE_BWD_FLOPS["tri_sample"]
+    if colors:
+        pcc = scene.voxel_color_corners
+        nbytes += hits * 12 + min(hits * 24 * pcc.element_size(),
+                                  pcc.numel() * pcc.element_size())
+        nbytes += pcc.numel() * 4 if table_grad else 0
+        flops += SHADE_BWD_FLOPS["colors"]
+    return _bound(nbytes, hits * flops)
+
+
+def _combine_bwd_bound(scene, args, outs):
+    """The combine backward's bound: per ray the direction, the two flags
+    and the radiance's cotangent read (26 B) and every cotangent it returns
+    written; on lit hit lanes the record (48 B; with a bounce the mirror ray
+    and its radiance, 24 B more; one flag per shadow traced); four env
+    texels per miss lane (no more than the cube)."""
+    _, rec, d_w, _, hit_mask, unlit_attr, refl_rgb, blocked, mode = args[:9]
+    rays = d_w.shape[0]
+    hits = int(hit_mask.sum())
+    lit_hits = hits - int((hit_mask & unlit_attr).sum()) if mode.lit else 0
+    written = sum(x.numel() * 4 for x in outs if x is not None)
+    per_hit = 48 + (24 if refl_rgb is not None else 0) \
+        + (len(blocked) if blocked is not None else 0)
+    lights = 1 + scene.num_point + scene.num_spot \
+        + (1 if refl_rgb is not None else 0)
+    nbytes = (rays * 26 + written + lit_hits * per_hit
+              + min((rays - hits) * 48, scene.env.numel() * 4))
+    flops = (lit_hits * (lights * SHADE_BWD_FLOPS["radiance"]
+                         + (scene.num_point + scene.num_spot)
+                         * SHADE_BWD_FLOPS["light"])
+             + (rays - hits) * SHADE_BWD_FLOPS["env"])
+    return _bound(nbytes, flops)
+
+
+COMBINE_GRADS = ("g_albedo", "g_shadow_origin", "g_n_w", "g_roughness",
+                 "g_metallic", "g_refl_dir", "g_d_w", "g_n_obj", "g_refl_rgb")
+
+
+def _shade_bwd_calls(run, expected, tag):
+    """Every launch of the two backward kernels in ``run()`` (a fit step),
+    kept with its inputs (the forward's inputs, the cotangents) and the
+    outputs ``run`` used, then held against its plain version
+    (``shade_surface_backward_reference`` /
+    ``shade_combine_backward_reference``: autograd of the plain stage) on
+    the same inputs: each per-ray cotangent on every lane under
+    ``_grad_beyond``'s tolerance on all but ``SHADE_GRAD_LANE_BUDGET`` of the
+    lanes, all finite; the colour table's within ``SCATTER_RTOL * max|sum|``
+    of the plain version summed in float64.  Both timed, with the bound.
+    Fails unless each kernel launched ``expected`` times.  Returns
+    {"surface_bwd" | "combine_bwd": dict(launches, max_abs_err (the largest
+    difference over max|plain|, per-ray outputs and the table), by_output
+    (the same per output), lanes_beyond, ms, plain_ms (lists), bound)}."""
+    import torch
+
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.kernels._timing import device_ms
+    from vrt_torch.render.renderer import (shade_combine_backward_reference,
+                                           shade_surface_backward_reference)
+
+    with _recording(k4, "shade_surface_backward_cuda") as surf, \
+            _recording(k4, "shade_combine_backward_cuda") as comb:
+        run()
+    torch.cuda.synchronize()
+    if (len(surf), len(comb)) != (expected, expected):
+        raise AssertionError(f"the {tag} launched the shade backward kernels "
+                             f"{len(surf)} + {len(comb)} times, expected "
+                             f"{expected} + {expected}")
+    out = {}
+    for stage, calls in (("surface_bwd", surf), ("combine_bwd", comb)):
+        by_output, share_max = {}, 0.0
+        ms, plain_ms, bounds = [], [], []
+        for i, (args, kwargs, got) in enumerate(calls):
+            flags = tuple(args[10:]) + tuple(kwargs.values())
+            if stage == "surface_bwd":
+                rays_grad, table_grad = (flags + (True, True))[:2]
+                want = shade_surface_backward_reference(
+                    *args[:10], acc_dtype=torch.float64)
+                names = ("g_o_w", "g_d_w", "g_t", "g_n_obj")
+                pairs = list(zip(names, got[:4], want[:4]))
+                kernel = k4.shade_surface_backward_cuda
+                plain = shade_surface_backward_reference
+                bounds.append(_surface_bwd_bound(args[0], args, rays_grad,
+                                                 table_grad))
+                if (got[4] is None) != (want[4] is None or not table_grad):
+                    raise AssertionError(f"{tag} {stage} {i}: the colour "
+                                         f"table's cotangent is set on one "
+                                         f"side only")
+                if got[4] is not None:
+                    scale = want[4].abs().max().item()
+                    e = (got[4].double() - want[4]).abs().max().item()
+                    if not (bool(torch.isfinite(got[4]).all()) and scale > 0
+                            and e <= SCATTER_RTOL * scale):
+                        raise AssertionError(
+                            f"{tag} {stage} {i}: the colour table's "
+                            f"cotangent is off by {e:.3e} > {SCATTER_RTOL} "
+                            f"* {scale:.3e}")
+                    by_output["g_colors"] = max(by_output.get("g_colors", 0.0),
+                                                e / scale)
+            else:
+                want = shade_combine_backward_reference(*args[:10])
+                pairs = list(zip(COMBINE_GRADS, got, want))
+                kernel = k4.shade_combine_backward_cuda
+                plain = shade_combine_backward_reference
+                bounds.append(_combine_bwd_bound(args[0], args, got))
+            pairs = [(n, a, b) for n, a, b in pairs
+                     if a is not None]  # not asked for, or no such input
+            scale = max(b.abs().max().item() for _, _, b in pairs
+                        if b is not None)
+            for name, a, b in pairs:
+                if b is None or a.shape != b.shape:
+                    raise AssertionError(f"{tag} {stage} {i}: {name} has no "
+                                         f"plain counterpart of its shape")
+                share, worst = _grad_beyond(a, b, scale)
+                if share > SHADE_GRAD_LANE_BUDGET:
+                    raise AssertionError(
+                        f"{tag} {stage} {i}: {name} differs from the plain "
+                        f"version beyond {SHADE_GRAD_RTOL} * |g| + "
+                        f"{SHADE_GRAD_ATOL} * {scale:.3e} on {share:.2e} of "
+                        f"lanes (largest difference {worst:.3e} * "
+                        f"{scale:.3e})")
+                by_output[name] = max(by_output.get(name, 0.0), worst)
+                share_max = max(share_max, share)
+            del want
+            ms.append(device_ms(lambda: kernel(*args, **kwargs), 20))
+            plain_ms.append(device_ms(lambda: plain(*args[:10]), 2))
+            hit = args[5].hit if stage == "surface_bwd" else args[4]
+            print(f"shade {stage} vs plain [{tag} {i}]: rays {hit.numel()} "
+                  f"hits {int(hit.sum())}; largest difference per output over"
+                  f" the largest |g| "
+                  f"{', '.join(f'{k} {v:.2e}' for k, v in by_output.items())};"
+                  f" kernel {ms[-1]:.4f} ms, plain {plain_ms[-1]:.4f} ms, "
+                  f"bound {bounds[-1]['bound_ms']:.4f} ms "
+                  f"({bounds[-1]['bytes']} B, by {bounds[-1]['bound_by']})",
+                  flush=True)
+        out[stage] = dict(launches=len(calls),
+                          max_abs_err=max(by_output.values(), default=0.0),
+                          by_output=by_output, lanes_beyond=share_max, ms=ms,
+                          plain_ms=plain_ms, bound=_sum_bounds(bounds))
+        got = out[stage]
+        print(f"shade {stage} on the {tag}: {got['launches']} launches, "
+              f"{_list(ms)} ms = {sum(ms):.4f} ms; plain {sum(plain_ms):.2f} "
+              f"ms; bound {got['bound']['bound_ms']:.4f} ms "
+              f"({got['bound']['bytes']} B, by {got['bound']['bound_by']}); "
+              f"lanes beyond tolerance {share_max:.2e}", flush=True)
+    return out
+
+
 @contextlib.contextmanager
 def _eager_shading():
     """The renderer with every level's shading on the plain stages (eager
@@ -1181,12 +1399,13 @@ def _resolves(scene, lit=True):
     return cap if scene.any_reflective and lit else 1
 
 
-def _expected_k3(scene, plain_resolve=False):
+def _expected_k3(scene, plain_resolve=False, eager_shading=False):
     """K3 gathers a frame or a fit step makes (and, under a graph, as many
-    scatters): one colour sample per lit radiance level with per-voxel
-    colours and, with resolve on the plain path (``plain_resolve``), one
-    more per resolve."""
-    return _resolves(scene) * (int(scene.use_voxel_colors)
+    scatters): with the shading on the plain stages (``eager_shading``) one
+    colour sample per lit radiance level with per-voxel colours (the shade
+    kernels read the colour rows themselves) and, with resolve on the plain
+    path (``plain_resolve``), one more per resolve."""
+    return _resolves(scene) * (int(scene.use_voxel_colors and eager_shading)
                                + int(plain_resolve))
 
 
@@ -1247,8 +1466,9 @@ def _profile(render, sync, frame_ms, top=8, what="one 1080p frame"):
           f"{100 * busy / frame_ms:.0f}% of its {frame_ms:.1f} ms; "
           f"K1 {share('march_kernel', 'march_scene_kernel')}; "
           f"K3 {share('rows_kernel')}; "
-          f"fused resolve {share('resolve_kernel')}; "
-          f"shade {share('surface_kernel', 'combine_kernel')}; "
+          f"fused resolve {share('resolve_kernel', 'resolve_bwd_kernel')}; "
+          f"shade {share('surface_kernel', 'combine_kernel')} and its "
+          f"backward {share('surface_bwd_kernel', 'combine_bwd_kernel')}; "
           f"{sum(r[1] for r in rows)} device ops", flush=True)
     for ms, count, key in rows[:top]:
         print(f"  kernel {ms:8.2f} ms {count:5d}x {key[:80]}", flush=True)
@@ -1350,7 +1570,7 @@ def _engine_path(dev, card, sync, zero_counts, counts):
 
     want_counts = dict(k1=0, scene=5, resolve=3, resolve_bwd=0, gather=0,
                        scatter=0, scatter_v4=0, scatter_scalar=0, surface=3,
-                       combine=3)
+                       combine=3, surface_bwd=0, combine_bwd=0)
     launches = dict(scene=0, resolve=0, surface=0, combine=0)
     held = {}
 
@@ -1684,7 +1904,7 @@ def main():
                 "K3 (rows.cu)": pool.submit(k3.build),
                 "fused resolve, forward and backward (resolve.cu)":
                 pool.submit(kr.build),
-                "K4 shade, surface and combine (shade.cu)":
+                "K4 shade, surface and combine, forward and backward (shade.cu)":
                 pool.submit(k4.build)}
         logs = {name: f.result() for name, f in logs.items()}
     print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
@@ -1692,7 +1912,7 @@ def main():
         for line in log.strip().splitlines():
             print(f"  nvcc {name}: {line}", flush=True)
     for name in ("fused resolve, forward and backward (resolve.cu)",
-                 "K4 shade, surface and combine (shade.cu)"):
+                 "K4 shade, surface and combine, forward and backward (shade.cu)"):
         spills = [line for line in logs[name].splitlines()
                   if "spill" in line and "0 bytes spill stores, 0 bytes "
                   "spill loads" not in line]
@@ -1815,6 +2035,13 @@ def main():
           f"bound {bwd['bound']['bound_ms']:.4f} ms ({bwd['bound']['bytes']} "
           f"B, by {bwd['bound']['bound_by']})", flush=True)
 
+    # the shade kernels of a config6 fit step: the three levels' forward
+    # launches (through the shade Functions) and their backward launches
+    fit_shade = _shade_calls(lambda: fit[1](*fit[2:]), _resolves(fit[0]),
+                             "config6 fit step")
+    shade_bwd = _shade_bwd_calls(lambda: fit[1](*fit[2:]), _resolves(fit[0]),
+                                 "config6 fit step")
+
     # the two shade kernels: every launch of the three 1080p frames and of an
     # unlit one, and of 480x270 frames of a scene with textures, two point
     # lights and a spot light, without and with per-voxel colours
@@ -1833,8 +2060,9 @@ def main():
         del busy
 
     # K3: every launch of one 1080p frame on the candidate-loop path, of one
-    # config6 fit step (the colour rows) and of that step with resolve on the
-    # plain path (the 9-channel corner rows too)
+    # config6 fit step with eager shading (the colour rows: the default step
+    # has no K3 launch, its shade kernels read the colour rows) and of that
+    # step with resolve on the plain path (the 9-channel corner rows)
     def old_frame():
         with _candidate_loop_path():
             render_image(scene, FRAME_W, FRAME_H, mode)
@@ -1844,24 +2072,30 @@ def main():
         raise AssertionError(f"the 1080p frame launched K3 "
                              f"{k3_frame['gather']['launches']} times, "
                              f"expected {_expected_k3(scene, True)}")
-    k3_fit = _k3_calls(lambda: fit[1](*fit[2:]), "config6 fit step")
+    def eager_step():
+        with _eager_shading():
+            fit[1](*fit[2:])
+
+    k3_fit = _k3_calls(eager_step, "config6 fit step, eager shading")
 
     def plain_step():
         with _plain_resolve_path():
             fit[1](*fit[2:])
 
     k3_plain = _k3_calls(plain_step, "config6 fit step, plain resolve")
-    for got, plain_resolve in ((k3_fit, False), (k3_plain, True)):
+    for got, plain_resolve, eager in ((k3_fit, False, True),
+                                      (k3_plain, True, False)):
         for op in ("gather", "scatter"):
-            if got[op]["launches"] != _expected_k3(fit[0], plain_resolve):
+            if got[op]["launches"] != _expected_k3(fit[0], plain_resolve,
+                                                   eager):
                 raise AssertionError(
                     f"the config6 fit step launched K3 {op} "
                     f"{got[op]['launches']} times, expected "
-                    f"{_expected_k3(fit[0], plain_resolve)}")
+                    f"{_expected_k3(fit[0], plain_resolve, eager)}")
     if set(k3_fit["scatter"]["paths"]) != {"v4"}:
         raise AssertionError(f"the colour rows' scatters took "
                              f"{k3_fit['scatter']['paths']}")
-    if sorted(set(k3_plain["scatter"]["paths"])) != ["scalar", "v4"]:
+    if set(k3_plain["scatter"]["paths"]) != {"scalar"}:
         raise AssertionError(f"the plain resolve path's scatters took "
                              f"{k3_plain['scatter']['paths']}")
     del fit
@@ -1870,7 +2104,8 @@ def main():
           f"{k3_frame['gather']['plain_ms']:.4f}, library "
           f"{k3_frame['gather']['library_ms']:.4f}, bound "
           f"{k3_frame['gather']['bound']['bound_ms']:.4f} ms); config6 fit "
-          f"step gathers {k3_fit['gather']['ms']:.4f} ms (plain "
+          f"step with eager shading: gathers {k3_fit['gather']['ms']:.4f} ms "
+          f"(plain "
           f"{k3_fit['gather']['plain_ms']:.4f}, library "
           f"{k3_fit['gather']['library_ms']:.4f}, bound "
           f"{k3_fit['gather']['bound']['bound_ms']:.4f} ms), scatters "
@@ -1903,7 +2138,9 @@ def main():
                     scatter_v4=k3.SCATTER_LAUNCHES["v4"],
                     scatter_scalar=k3.SCATTER_LAUNCHES["scalar"],
                     surface=k4.LAUNCHES["surface"],
-                    combine=k4.LAUNCHES["combine"])
+                    combine=k4.LAUNCHES["combine"],
+                    surface_bwd=k4.LAUNCHES["surface_bwd"],
+                    combine_bwd=k4.LAUNCHES["combine_bwd"])
 
     def timed(run, n):
         run()                                              # warm-up
@@ -1932,7 +2169,8 @@ def main():
                     resolve=3 * _resolves(scene), resolve_bwd=0, gather=0,
                     scatter=0, scatter_v4=0, scatter_scalar=0,
                     surface=3 * _resolves(scene),
-                    combine=3 * _resolves(scene))
+                    combine=3 * _resolves(scene), surface_bwd=0,
+                    combine_bwd=0)
         if not bool(torch.isfinite(img).all()):
             raise AssertionError(f"1080p {tag} frame has non-finite pixels")
         if tuple(img.shape) != (FRAME_H, FRAME_W, 4):
@@ -2107,19 +2345,19 @@ def main():
           f"{', '.join(f'{v:.6f}' for v in losses)} (warm-up first); per "
           f"step scene march {fit_counts['scene'] / 3:g}, fused resolve "
           f"forward {fit_counts['resolve'] / 3:g} and backward "
-          f"{fit_counts['resolve_bwd'] / 3:g}, K3 gathers "
-          f"{fit_counts['gather'] / 3:g}, K3 scatters "
-          f"{fit_counts['scatter'] / 3:g} ({fit_counts['scatter_v4'] / 3:g} "
-          f"on the 16-byte path), per-lane K1 {fit_counts['k1'] / 3:g}, "
-          f"shade kernels {fit_counts['surface'] + fit_counts['combine']} "
-          f"(a step shades on the plain stages under autograd)", flush=True)
-    want = dict(k1=0, scene=3 * _traces(fit_scene),
-                resolve=3 * _resolves(fit_scene),
-                resolve_bwd=3 * _resolves(fit_scene),
-                gather=3 * _expected_k3(fit_scene),
-                scatter=3 * _expected_k3(fit_scene),
-                scatter_v4=3 * _expected_k3(fit_scene), scatter_scalar=0,
-                surface=0, combine=0)
+          f"{fit_counts['resolve_bwd'] / 3:g}, shade surface "
+          f"{fit_counts['surface'] / 3:g} and combine "
+          f"{fit_counts['combine'] / 3:g}, their backward "
+          f"{fit_counts['surface_bwd'] / 3:g} and "
+          f"{fit_counts['combine_bwd'] / 3:g}, K3 gathers "
+          f"{fit_counts['gather'] / 3:g} and scatters "
+          f"{fit_counts['scatter'] / 3:g}, per-lane K1 "
+          f"{fit_counts['k1'] / 3:g}", flush=True)
+    levels = _resolves(fit_scene)
+    want = dict(k1=0, scene=3 * _traces(fit_scene), resolve=3 * levels,
+                resolve_bwd=3 * levels, gather=0, scatter=0, scatter_v4=0,
+                scatter_scalar=0, surface=3 * levels, combine=3 * levels,
+                surface_bwd=3 * levels, combine_bwd=3 * levels)
     if fit_counts != want:
         raise AssertionError(f"launches in 3 fit steps {fit_counts}, "
                              f"expected {want}")
@@ -2133,13 +2371,19 @@ def main():
     del start
 
     # the step with resolve on the plain path over K3 (what a step took
-    # before the fused resolve had a backward) against the default path;
-    # every run starts from the same parameters and optimizer state
+    # before the fused resolve had a backward), and the step with eager
+    # shading (the plain stages under autograd: what a step took before the
+    # shade kernels had a backward), each against the default path; every
+    # run starts from the same parameters and optimizer state
     def one_step():
         return step(params, state, targets)[2]
 
     def old_step():
         with _plain_resolve_path():
+            return one_step()
+
+    def eager_step():
+        with _eager_shading():
             return one_step()
 
     zero_counts()
@@ -2152,30 +2396,50 @@ def main():
           f"{', '.join(f'{t:.2f}' for t in meds)} ms", flush=True)
     paired["fit"] = meds
     plain_counts = counts()
-    want = dict(k1=0, scene=16 * _traces(fit_scene),
-                resolve=8 * _resolves(fit_scene),
-                resolve_bwd=8 * _resolves(fit_scene),
-                gather=8 * _expected_k3(fit_scene)
-                + 8 * _expected_k3(fit_scene, True),
-                scatter=8 * _expected_k3(fit_scene)
-                + 8 * _expected_k3(fit_scene, True),
-                scatter_v4=16 * _expected_k3(fit_scene),
-                scatter_scalar=8 * _resolves(fit_scene), surface=0,
-                combine=0)
+    want = dict(k1=0, scene=16 * _traces(fit_scene), resolve=8 * levels,
+                resolve_bwd=8 * levels,
+                gather=8 * _expected_k3(fit_scene, True),
+                scatter=8 * _expected_k3(fit_scene, True), scatter_v4=0,
+                scatter_scalar=8 * levels, surface=16 * levels,
+                combine=16 * levels, surface_bwd=16 * levels,
+                combine_bwd=16 * levels)
     if plain_counts != want:
         raise AssertionError(f"launches of the paired fit steps "
                              f"{plain_counts}, expected {want}")
+    zero_counts()
+    meds = []
+    for run in (eager_step, one_step, one_step, eager_step):
+        meds.append(statistics.median(timed(run, 3)[0]) * 1e3)
+    print(f"config6 fit step on {card}, eager shading under autograd "
+          f"against the shade kernels and their backward, medians of 3 in "
+          f"the order old, new, new, old: "
+          f"{', '.join(f'{t:.2f}' for t in meds)} ms", flush=True)
+    paired["fit_shading"] = meds
+    eager_counts = counts()
+    want = dict(k1=0, scene=16 * _traces(fit_scene), resolve=16 * levels,
+                resolve_bwd=16 * levels,
+                gather=8 * _expected_k3(fit_scene, eager_shading=True),
+                scatter=8 * _expected_k3(fit_scene, eager_shading=True),
+                scatter_v4=8 * _expected_k3(fit_scene, eager_shading=True),
+                scatter_scalar=0, surface=8 * levels, combine=8 * levels,
+                surface_bwd=8 * levels, combine_bwd=8 * levels)
+    if eager_counts != want:
+        raise AssertionError(f"launches of the paired eager-shading fit "
+                             f"steps {eager_counts}, expected {want}")
     sides = {}
-    for tag, run in (("old", old_step), ("new", one_step)):
+    for tag, run, what in (
+            ("old", old_step, "resolve on the plain path over K3"),
+            ("eager_shading", eager_step,
+             "eager shading under autograd, K3 for the colour rows"),
+            ("new", one_step, "the fused resolve, the shade kernels and "
+             "their backward kernels")):
         sync()
         torch.cuda.reset_peak_memory_stats()
         run()
         sync()
         side_peak = torch.cuda.max_memory_allocated()
         prof = _profile(run, sync, step_s * 1e3,
-                        what=f"one config6 fit step ({tag}: resolve "
-                        + ("on the plain path over K3)" if tag == "old"
-                           else "through its two kernels)"))
+                        what=f"one config6 fit step ({tag}: {what})")
         sides[tag] = dict(peak_gib=side_peak / 2**30,
                           **({} if prof is None else
                              {"busy_ms": prof["busy_ms"],
@@ -2189,8 +2453,7 @@ def main():
                 prof["device_ops"] not in FIT_STEP_OPS:
             raise AssertionError(
                 f"a config6 fit step takes {prof['device_ops']} device ops, "
-                f"expected {FIT_STEP_OPS[0]} to {FIT_STEP_OPS[-1]}: the "
-                f"shade kernels must leave the step as it was")
+                f"expected {FIT_STEP_OPS[0]} to {FIT_STEP_OPS[-1]}")
     del fit_scene, step, params, state, targets
 
     # the card's fit loss and gradients against vrt's (CPU) on the fixture
@@ -2209,10 +2472,14 @@ def main():
         small_loss, {"sdf": small.volumes.sdf,
                      "voxel_colors": small.voxel_colors})
     small_counts = counts()
-    if (small_counts["resolve"], small_counts["resolve_bwd"],
-            small_counts["scatter_scalar"]) != (
-            _resolves(small), _resolves(small), 0):
-        raise AssertionError(f"the 64x36 fit's launches {small_counts}")
+    levels = _resolves(small)
+    if small_counts != dict(k1=0, scene=_traces(small), resolve=levels,
+                            resolve_bwd=levels, gather=0, scatter=0,
+                            scatter_v4=0, scatter_scalar=0, surface=levels,
+                            combine=levels, surface_bwd=levels,
+                            combine_bwd=levels):
+        raise AssertionError(f"the 64x36 fit's launches {small_counts}: "
+                             f"not through the shade kernels' backward")
     want_loss = float(fixture["loss"])
     rel = abs(float(got_loss) - want_loss) / abs(want_loss)
     print(f"fit loss at 64x36 vs vrt fixture: {float(got_loss):.8f} vs "
@@ -2395,7 +2662,8 @@ def main():
                            "plain_ms": sum(g[stage]["plain_ms"]),
                            **bound_keys(g[stage]["bound"])}
                        for t, g in list(shade_runs.items())
-                       + [("engine_frame", eng["shade"])]}}
+                       + [("engine_frame", eng["shade"]),
+                          ("fit_step", fit_shade)]}}
           for stage, replaces, by in (
               ("surface",
                "vrt/render/renderer.py:306 (_shade_lit's head with "
@@ -2407,15 +2675,54 @@ def main():
                "selects of trace_radiance :478, tonemap :607, "
                "vrt/shade/brdf.py:66, lights.py:8, texture.py:150, "
                "XLA-fused jnp: no Pallas kernel)", shade_paths("combine")))),
+        *({"name": f"K4 shade {stage} backward", "route": "cuda",
+           "source": "vrt_torch/csrc/shade.cu",
+           "replaces": replaces,
+           "launches": fit_counts[f"{stage}_bwd"],
+           "launches_by_path": {
+               "fit_steps": fit_counts[f"{stage}_bwd"],
+               "paired_fit_steps": plain_counts[f"{stage}_bwd"]
+               + eager_counts[f"{stage}_bwd"],
+               "fit_64x36": small_counts[f"{stage}_bwd"]},
+           "max_abs_err": shade_bwd[f"{stage}_bwd"]["max_abs_err"],
+           "max_abs_err_is": "the largest difference of any output over "
+                             "the launch's largest |plain| cotangent (the "
+                             "colour table's over its own)",
+           "by_output": shade_bwd[f"{stage}_bwd"]["by_output"],
+           "tolerance": {"rtol": SHADE_GRAD_RTOL, "atol_of_max": SHADE_GRAD_ATOL,
+                         "lanes_beyond": SHADE_GRAD_LANE_BUDGET,
+                         "table_rtol_of_max": SCATTER_RTOL},
+           "lanes_beyond": shade_bwd[f"{stage}_bwd"]["lanes_beyond"],
+           "ms": sum(shade_bwd[f"{stage}_bwd"]["ms"]),
+           "plain_ms": sum(shade_bwd[f"{stage}_bwd"]["plain_ms"]),
+           **bound_keys(shade_bwd[f"{stage}_bwd"]["bound"]),
+           "library_ms": None}
+          for stage, replaces in (
+              ("surface",
+               "vrt/render/renderer.py:306 (XLA's transpose of _shade_lit's "
+               "head, _voxel_color_sample :229 and its row gather, "
+               "_shade_unlit_mode :447, vrt/shade/texture.py: no Pallas "
+               "kernel)"),
+              ("combine",
+               "vrt/render/renderer.py:306 (XLA's transpose of _shade_lit's "
+               "tail, the selects of trace_radiance :478, vrt/shade/brdf.py, "
+               "lights.py, texture.py sample_env: no Pallas kernel)"))),
         {"name": "K3 gather", "route": "cuda",
          "source": "vrt_torch/csrc/rows.cu",
          "replaces": "vrt/march/isosurface.py:181 (take_rows, an XLA "
                      "gather: no Pallas kernel)",
-         "launches": fit_counts["gather"],
+         "path": "the colour rows of a fit step with eager shading, the "
+                 "corner rows of resolve on the plain path: 0 launches on "
+                 "the default frame and fit step",
+         "launches": old_counts["gather"] + plain_counts["gather"]
+         + eager_counts["gather"],
          "launches_by_path": {"fit_steps": fit_counts["gather"],
                               "candidate_loop_frames":
                               old_counts["gather"],
-                              "paired_fit_steps": plain_counts["gather"]},
+                              "plain_resolve_fit_steps":
+                              plain_counts["gather"],
+                              "eager_shading_fit_steps":
+                              eager_counts["gather"]},
          "max_abs_err": 0.0, "ms": k3_fit["gather"]["ms"],
          "plain_ms": k3_fit["gather"]["plain_ms"],
          **bound_keys(k3_fit["gather"]["bound"]),
@@ -2433,8 +2740,9 @@ def main():
          "source": "vrt_torch/csrc/rows.cu",
          "replaces": "vrt/march/isosurface.py:204 (_take_rows_bwd, an XLA "
                      "scatter-add: no Pallas kernel)",
-         "path": "16-byte vector reductions: the colour rows of a fit step",
-         "launches": fit_counts["scatter_v4"],
+         "path": "16-byte vector reductions: the colour rows of a fit step "
+                 "with eager shading (0 launches on the default step)",
+         "launches": eager_counts["scatter_v4"],
          "max_abs_err": k3_fit["scatter"]["max_abs_err"],
          "ms": k3_fit["scatter"]["ms"],
          "plain_ms": k3_fit["scatter"]["plain_ms"],
@@ -2447,8 +2755,8 @@ def main():
          "path": "one f32 atomic per element: the 9-channel corner rows of "
                  "a fit step with resolve on the plain path (0 launches on "
                  "the default step); ms, plain_ms, bound and library_ms are "
-                 "of the default step's colour-row scatters forced onto "
-                 "this path",
+                 "of the eager-shading step's colour-row scatters forced "
+                 "onto this path",
          "launches": plain_counts["scatter_scalar"],
          "max_abs_err": max(k3_fit["scatter_scalar"]["max_abs_err"],
                             k3_plain["scatter_scalar"]["max_abs_err"]),

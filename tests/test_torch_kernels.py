@@ -1,6 +1,7 @@
 """K1, the CUDA march (per lane and over a whole scene), the fused resolve
-and its backward, the gather probe's kernels GP-A, GP-B and GP-C, and K3, the
-row gather with its scatter-add backward, against their plain-torch versions.
+and its backward, the gather probe's kernels GP-A, GP-B and GP-C, K3, the
+row gather with its scatter-add backward, and K4, the shade kernels with
+their backward kernels, against their plain-torch versions.
 
 This file imports no JAX, so it also runs where the card is:
 
@@ -947,7 +948,8 @@ def _render_held(scene, width, height, mode):
     torch.cuda.synchronize()
     levels = 3 if mode.lit and scene.any_reflective else 1
     assert seen == dict(surface=levels, combine=levels)
-    assert k4.LAUNCHES == {k: before[k] + levels for k in before}
+    assert {k: k4.LAUNCHES[k] - before[k] for k in before} == dict(
+        surface=levels, combine=levels, surface_bwd=0, combine_bwd=0)
     assert img.shape == (height, width, 4)
     assert bool(torch.isfinite(img).all()) and bool((img[..., 3] == 1).all())
     return img
@@ -1031,25 +1033,42 @@ def test_fixture_frames_through_shade_kernels(fixture, mode, limits):
 
 @pytest.mark.gpu
 def test_shade_dispatch_on_card():
-    """CUDA tensors take the kernels; a graph through a tensor the level
-    reads takes the plain stages, launching no shade kernel."""
+    """CUDA tensors take the kernels; a graph through a material constant
+    takes the plain stages, launching no shade kernel; a graph through the
+    corner table takes the Function pair, whose frame is the kernels' frame
+    and whose backward launches the backward kernels."""
     from vrt_torch.kernels import shade as k4
 
     dev = _card()
     scene = flagship_scene(4, device=dev)
     before = dict(k4.LAUNCHES)
+
+    def launched(n, n_bwd=0):
+        return {k: k4.LAUNCHES[k] - before[k] for k in before} == dict(
+            surface=n, combine=n, surface_bwd=n_bwd, combine_bwd=n_bwd)
+
     base = render_image(scene, 64, 36, RenderMode())
-    assert k4.LAUNCHES == {k: v + 3 for k, v in before.items()}
+    assert launched(3)
     tint = scene.tint.clone().requires_grad_(True)
     img = render_image(dataclasses.replace(scene, tint=tint), 64, 36,
                        RenderMode())
-    assert k4.LAUNCHES == {k: v + 3 for k, v in before.items()}
+    assert launched(3)
     assert img.requires_grad and not base.requires_grad
     torch.testing.assert_close(img.detach(), base, rtol=1e-4, atol=2e-5)
     with torch.no_grad():
         render_image(dataclasses.replace(scene, tint=tint), 64, 36,
                      RenderMode())
-    assert k4.LAUNCHES == {k: v + 6 for k, v in before.items()}
+    assert launched(6)
+    # a graph through the corner table: the Function pair, its backward
+    # kernels launched by the backward
+    corners = scene.volumes.corners.clone().requires_grad_(True)
+    img = render_image(dataclasses.replace(
+        scene, volumes=dataclasses.replace(scene.volumes, corners=corners)),
+        64, 36, RenderMode())
+    assert launched(9)
+    torch.testing.assert_close(img.detach(), base, rtol=1e-4, atol=2e-5)
+    img.sum().backward()
+    assert launched(9, 3) and bool(torch.isfinite(corners.grad).all())
 
 
 @pytest.mark.gpu
@@ -1098,3 +1117,190 @@ def test_shade_wrappers_reject_bad_inputs_on_card():
     out = k4.shade_combine_cuda(scene, rec, d, n_obj, hit.hit, unlit, None,
                                 blocked, mode, final=True)
     assert out.shape == (o.shape[0], 4)
+
+
+# ---- K4's backward: the two backward kernels on the card ---------------------
+#
+# Each recomputes its stage from the stage's inputs and sums in its own
+# order; the colour rows are added with f32 atomics in an order that changes
+# from run to run.  An element of a per-ray cotangent is held on every lane
+# to SHADE_GRAD_RTOL * |g| + SHADE_GRAD_ATOL * (the launch's largest |g|) of
+# its plain version (autograd of the plain stage; a cotangent that cancels to
+# 0 there keeps a residue of rounding here): the GGX term of a smooth mirror, 1 + (a^2 -
+# 1) (n.h)^2 with n.h near 1, cancels to about a^2 and so turns the last bit
+# of a dot product into a relative 1e-5 and more, in the forward as in the
+# backward.  The colour table's cotangent is held to SCATTER_RTOL * max|sum|
+# of the plain version summed in float64.
+
+SHADE_GRAD_RTOL, SHADE_GRAD_ATOL = 1e-4, 1e-5
+SCATTER_RTOL = 1e-5
+SHADE_GRAD_CASES = {
+    "lit-textured-lights": dict(points=2, spots=1),
+    "lit-colours-f32": dict(points=2, spots=1, colors=True),
+    "lit-colours-bf16": dict(points=1, spots=1, colors=True,
+                             march_dtype=torch.bfloat16),
+    "untextured": dict(points=1, spots=1, mode=RenderMode(textured=False)),
+    "unlit-textured": dict(points=0, spots=0, mode=RenderMode(lit=False)),
+    "unlit-colours": dict(points=0, spots=0, colors=True,
+                          mode=RenderMode(lit=False)),
+    "overlay": dict(points=1, spots=1, mode=RenderMode(debug_overlay=True)),
+    "flagship-1x1-textures": dict(flagship=True, colors=True),
+}
+
+
+def _shade_grad_level(case, dev, width=480, height=270, seed=0):
+    """A level of the case's scene on ``dev``: its inputs, seeded cotangents
+    (zero on miss lanes, as the chain hands them on) and the bounce's
+    radiance and shadow booleans."""
+    from vrt_torch.march.types import RECORD_GRAD_FIELDS
+    from vrt_torch.render.camera import camera_rays
+    from vrt_torch.scenes import shading_scene
+
+    spec = dict(SHADE_GRAD_CASES[case])
+    mode = spec.pop("mode", RenderMode())
+    if spec.pop("flagship", False):
+        scene = flagship_scene(5, use_colors=spec["colors"], device=dev)
+    else:
+        scene = shading_scene(5, device=dev, **spec)
+    o, d = camera_rays(scene.cam_pos, scene.cam_rot, scene.cam_fov, width,
+                       height)
+    o, d = o.contiguous(), d.contiguous()
+    t_max = torch.full((o.shape[0],), tren.RADIANCE_TMAX, device=dev)
+    hit, inst = tren.march_scene(scene, o, d, t_max, mode.interp,
+                                 debug_overlay=mode.debug_overlay)
+    t, n_obj, unlit = tren.resolve_scene(scene, o, d, hit, inst)
+    rng = np.random.default_rng(seed)
+    rays = o.shape[0]
+
+    def seeded(*shape, on=None):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+        if on is not None:
+            x = torch.where(on.reshape(on.shape + (1,) * (x.ndim - 1)), x,
+                            0.0)
+        return x
+
+    cots = [seeded(*((rays,) if f in ("roughness", "metallic")
+                     else (rays, 3)), on=hit.hit) if mode.lit or
+            f == "albedo" else None for f in RECORD_GRAD_FIELDS]
+    lights = 1 + scene.num_point + scene.num_spot
+    blocked = [torch.from_numpy(rng.uniform(size=rays) < 0.3).to(dev)
+               for _ in range(lights)] if mode.lit else None
+    refl = torch.from_numpy(rng.uniform(size=(rays, 3)).astype(
+        np.float32)).to(dev) if mode.lit else None
+    return dict(scene=scene, mode=mode, o=o, d=d, hit=hit, inst=inst, t=t,
+                n_obj=n_obj, unlit=unlit, cots=cots, blocked=blocked,
+                refl=refl, g_rgb=seeded(rays, 3))
+
+
+def _assert_grads_close(names, got, want):
+    """Per-ray cotangents of a backward kernel against its plain version's,
+    None where not returned (the plain version's is then zero)."""
+    scale = max(b.abs().max().item() for b in want if b is not None)
+    assert scale > 0
+    for name, a, b in zip(names, got, want):
+        if a is None:
+            assert b is None or not bool(b.any()), name
+        else:
+            _assert_grad_close(a, b, name, scale)
+
+
+def _assert_grad_close(got, want, name, scale):
+    assert want is not None and got.shape == want.shape, name
+    assert bool(torch.isfinite(got).all()), name
+    diff = (got.double() - want.double()).abs()
+    bound = SHADE_GRAD_RTOL * want.double().abs() + SHADE_GRAD_ATOL * scale
+    assert bool((diff <= bound).all()), (name, diff.max().item(), scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SHADE_GRAD_CASES))
+def test_shade_backward_kernels_match_plain_on_card(case):
+    """Both backward kernels against their plain versions on the inputs of a
+    480x270 level, the record's miss lanes filled with NaN before the
+    combine backward (no NaN may reach a cotangent)."""
+    from vrt_torch.kernels import shade as k4
+
+    dev = _card()
+    lv = _shade_grad_level(case, dev)
+    scene, mode, hit = lv["scene"], lv["mode"], lv["hit"]
+    args = (scene, lv["o"], lv["d"], lv["t"], lv["n_obj"], hit, lv["inst"],
+            mode, mode.lit)
+    before = dict(k4.LAUNCHES)
+    got = k4.shade_surface_backward_cuda(*args, lv["cots"])
+    want = tren.shade_surface_backward_reference(*args, lv["cots"],
+                                                 acc_dtype=torch.float64)
+    torch.cuda.synchronize()
+    _assert_grads_close(("o_w", "d_w", "t", "n_obj"), got[:4], want[:4])
+    for name, a in zip(("o_w", "d_w", "t", "n_obj"), got):
+        assert not bool((a[~hit.hit] != 0).any()), name
+    if scene.use_voxel_colors:
+        scale = want[4].abs().max().item()
+        assert scale > 0
+        assert (got[4].double() - want[4]).abs().max().item() \
+            <= SCATTER_RTOL * scale
+    else:
+        assert got[4] is None and want[4] is None
+
+    rec = k4.shade_surface_cuda(*args, mode.lit)
+    miss = ~hit.hit
+    for f in ("albedo", "shadow_origin", "n_w", "roughness", "metallic",
+              "k", "refl_dir"):
+        x = getattr(rec, f)
+        if x is not None:
+            x[miss] = float("nan")
+    cargs = (scene, rec, lv["d"], lv["n_obj"], hit.hit, lv["unlit"],
+             lv["refl"], lv["blocked"], mode)
+    got = k4.shade_combine_backward_cuda(*cargs, lv["g_rgb"])
+    want = tren.shade_combine_backward_reference(*cargs, lv["g_rgb"])
+    torch.cuda.synchronize()
+    names = ("albedo", "shadow_origin", "n_w", "roughness", "metallic",
+             "refl_dir", "d_w", "n_obj", "refl_rgb")
+    _assert_grads_close(names, got, want)
+    for name, a in zip(names, got):
+        if a is not None and name != "d_w":
+            assert not bool((a[miss] != 0).any()), name
+    assert k4.LAUNCHES["surface_bwd"] == before["surface_bwd"] + 1
+    assert k4.LAUNCHES["combine_bwd"] == before["combine_bwd"] + 1
+
+
+@pytest.mark.gpu
+def test_fit_fixture_through_shade_backward_on_card():
+    """The 64x36 fit of ``tests/fixtures/fit_flagship_r4_colors_64x36.npz``
+    (vrt's loss and gradients on the CPU) on the card: every level through
+    the shade Functions (3 + 3 forward and 3 + 3 backward launches, no K3
+    launch), the loss to rtol 1e-5, each gradient to a cosine of 1 - 1e-8
+    and 1e-4 * max|g|."""
+    import os
+
+    from vrt_torch.diff.fit import (_value_and_grad, graft_and_rebuild,
+                                    render_views)
+    from vrt_torch.kernels import rows as k3
+    from vrt_torch.kernels import shade as k4
+
+    dev = _card()
+    scene = flagship_scene(4, use_colors=True, device=dev)
+    fixture = np.load(os.path.join(os.path.dirname(__file__), "fixtures",
+                                   "fit_flagship_r4_colors_64x36.npz"))
+    cams = [dict(position=(320.0, 0.0, 40.0), rotation=(0.0, 0.0, 1.0, 0.0),
+                 fov=60.0)]
+
+    def loss(p):
+        s = graft_and_rebuild(scene, p)
+        return torch.mean((render_views(s, cams, 64, 36, RenderMode())
+                           - 0.25) ** 2)
+
+    before, k3_before = dict(k4.LAUNCHES), dict(k3.LAUNCHES)
+    got, grads = _value_and_grad(loss, {"sdf": scene.volumes.sdf,
+                                        "voxel_colors": scene.voxel_colors})
+    torch.cuda.synchronize()
+    assert {k: k4.LAUNCHES[k] - before[k] for k in before} == dict(
+        surface=3, combine=3, surface_bwd=3, combine_bwd=3)
+    assert k3.LAUNCHES == k3_before
+    assert float(got) == pytest.approx(float(fixture["loss"]), rel=1e-5)
+    for k, g in grads.items():
+        a = fixture[f"grad_{k}"].astype(np.float64).ravel()
+        b = g.double().cpu().numpy().ravel()
+        assert np.isfinite(b).all(), k
+        cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
+        assert 1.0 - cos < 1e-8, (k, 1.0 - cos)
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(a).max(), k

@@ -14,11 +14,14 @@ against vrt on the CPU, and the rule that picks between the stage pairs.
   without reflective material and the empty scene against ``vrt``'s
   ``render_image`` under the thresholds of tests/test_golden_full.py;
 - the surface record's shapes and dtypes per flag set;
-- the dispatch rule ``shade_stages``: CPU tensors take the plain pair; CUDA
-  tensors the kernel pair unless a graph is recorded through a tensor the
-  level reads, one case per such tensor; another device raises;
-- a fit step runs the plain pair and gives the loss and gradients of the
-  64x36 fixture ``chip_smoke.py`` holds the card against;
+- the dispatch rule ``shade_stages``, one case per tensor the level reads:
+  a graph through the rays, t, n_obj, the corner table or a colour table
+  takes the Function pair, a graph through any other table the plain pair,
+  no graph the plain pair on CPU tensors and the kernel pair on CUDA
+  tensors; another device raises;
+- a fit step of the SDF and the colours runs the Function pair, and one
+  that also optimizes the tint the plain pair; both give the loss and
+  gradients of the 64x36 fixture ``chip_smoke.py`` holds the card against;
 - a tracer that overrides only ``march`` and ``resolve`` renders the default
   tracer's frame through the stages;
 - the wrappers raise on a wrong device, dtype or shape.
@@ -265,7 +268,11 @@ def _fake_level(device="cuda", grad_on=None):
 
 PLAIN = (tren.shade_surface_reference, tren.shade_combine_reference)
 KERNELS = (tren._shade_surface_kernel, tren._shade_combine_kernel)
-GRAD_CARRIERS = ("o_w", "d_w", "t", "n_obj", "corners") + tren._SHADED_FIELDS
+FUNCTIONS = (tren._shade_surface_function, tren._shade_combine_function)
+# the tensors whose gradient the Function pair returns
+FUNCTION_CARRIERS = ("o_w", "d_w", "t", "n_obj", "corners") \
+    + tren._KERNEL_GRAD_FIELDS
+GRAD_CARRIERS = FUNCTION_CARRIERS + tren._PLAIN_GRAD_FIELDS
 
 
 def test_shaded_fields_are_scene_tensors():
@@ -275,15 +282,33 @@ def test_shaded_fields_are_scene_tensors():
                                                     torch.Tensor), f
     assert {"tint", "voxel_color_corners", "inst_rot", "point_pos",
             "spot_fwd", "dir_light_dir", "env"} <= set(tren._SHADED_FIELDS)
+    assert tren._SHADED_FIELDS == tren._KERNEL_GRAD_FIELDS \
+        + tren._PLAIN_GRAD_FIELDS
+    assert set(tren._KERNEL_GRAD_FIELDS) == {"voxel_colors",
+                                             "voxel_color_corners"}
 
 
 @pytest.mark.parametrize("name", GRAD_CARRIERS)
 def test_dispatch_takes_autograd_for(name):
-    """CUDA tensors with a graph through ``name``: the plain pair; the same
-    tensors without a graph being recorded: the kernels."""
-    assert tren.shade_stages(*_fake_level(grad_on=name)) == PLAIN
+    """CUDA tensors with a graph through ``name``: the Function pair for the
+    rays, ``t``, ``n_obj``, the corner table and the colour tables, the
+    plain pair for the rest; the same tensors without a graph being
+    recorded: the kernels.  On CPU tensors the same rule, with the plain
+    pair where no graph is recorded."""
+    want = FUNCTIONS if name in FUNCTION_CARRIERS else PLAIN
+    assert tren.shade_stages(*_fake_level(grad_on=name)) == want
+    assert tren.shade_stages(*_fake_level("cpu", grad_on=name)) == want
     with torch.no_grad():
         assert tren.shade_stages(*_fake_level(grad_on=name)) == KERNELS
+        assert tren.shade_stages(*_fake_level("cpu", grad_on=name)) == PLAIN
+
+
+def test_dispatch_plain_fields_win():
+    """A graph through the rays and through a material constant at once:
+    the plain pair, the only one that returns the material's gradient."""
+    level = _fake_level(grad_on="tint")
+    level[1].requires_grad = True
+    assert tren.shade_stages(*level) == PLAIN
 
 
 def test_dispatch_by_device():
@@ -308,9 +333,10 @@ def test_resolve_shares_the_rule():
         assert not tren._needs_autograd(_fake(requires_grad=True))
 
 
-def test_fit_step_takes_the_plain_pair_and_the_fixture():
-    """A fit step's levels all shade on the plain pair under autograd, and
-    its loss and gradients are the fixture's (vrt's, on the CPU)."""
+def _fit_through(params, want_pair):
+    """vrt's 64x36 fit loss and gradients (the fixture) at the flagship with
+    colours, ``params`` naming the leaves besides the SDF and the colours;
+    every level must shade on ``want_pair``."""
     scene = flagship_scene(4, use_colors=True, device="cpu")
     fixture = np.load(FIT_FIXTURE)
     seen = []
@@ -329,17 +355,36 @@ def test_fit_step_takes_the_plain_pair_and_the_fixture():
     try:
         got, grads = _value_and_grad(
             loss, {"sdf": scene.volumes.sdf,
-                   "voxel_colors": scene.voxel_colors})
+                   "voxel_colors": scene.voxel_colors,
+                   **{k: getattr(scene, k) for k in params}})
     finally:
         tren.shade_stages = plain
-    assert seen == [(PLAIN, True)] * 3
+    assert seen == [(want_pair, True)] * 3
     np.testing.assert_allclose(float(got), float(fixture["loss"]), rtol=1e-5)
-    for k, g in grads.items():
+    for k in ("sdf", "voxel_colors"):
         a = fixture[f"grad_{k}"].astype(np.float64).ravel()
-        b = g.double().numpy().ravel()
+        b = grads[k].double().numpy().ravel()
         cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
         assert cos >= 1.0 - 1e-6, (k, 1.0 - cos)
         assert np.abs(a - b).max() <= 1e-4 * np.abs(a).max(), k
+    return grads
+
+
+def test_fit_step_takes_the_plain_pair_and_the_fixture():
+    """A fit step that also optimizes a material constant (the tint, whose
+    gradient the kernels do not return) shades every level on the plain
+    pair under autograd, and its loss and SDF and colour gradients are the
+    fixture's (vrt's, on the CPU)."""
+    grads = _fit_through(("tint",), PLAIN)
+    # with per-voxel colours the tint shades nothing
+    assert not bool(grads["tint"].any())
+
+
+def test_fit_step_takes_the_function_pair_and_the_fixture():
+    """A fit step of the SDF and the colours shades every level through the
+    Function pair (on the CPU: the plain stages forward, their plain
+    backward), and its loss and gradients are the fixture's."""
+    _fit_through((), FUNCTIONS)
 
 
 # ---- the seam -----------------------------------------------------------------------
@@ -408,7 +453,8 @@ class TestWrapperChecks:
         with pytest.raises(ValueError, match="CUDA"):
             k4.shade_combine_cuda(ts, rec, d, n_obj, hit.hit, unlit, None,
                                   None, mode)
-        assert k4.LAUNCHES == {"surface": 0, "combine": 0}
+        assert k4.LAUNCHES == {"surface": 0, "combine": 0, "surface_bwd": 0,
+                               "combine_bwd": 0}
 
     @pytest.mark.parametrize("bad,match", [
         (lambda x: x.double(), "dtype"),

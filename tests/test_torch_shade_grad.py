@@ -1,0 +1,281 @@
+"""The gradient of a level's shading: the ``autograd.Function`` pair
+(``kernels.shade.ShadeSurface`` / ``ShadeCombine``) that a fit step shades
+through, on the CPU, where its forward is the plain stages and its backward
+their plain versions ``shade_surface_backward_reference`` /
+``shade_combine_backward_reference``.
+
+- the Function pair against the plain pair under autograd on one level, per
+  case (lit and unlit, textured and untextured, with and without per-voxel
+  colours, with and without the bounce, one point and one spot light of
+  ``scenes.shading_scene``'s seeded textures, the debug overlay's
+  unlit-attribute lanes): the outputs equal, the gradients in the rays,
+  ``t``, ``n_obj``, the colour table and the bounce's radiance within
+  1e-6 * max|g| and a cosine of 1 - 1e-10 (the same operations, summed in
+  another grouping);
+- a record whose miss lanes hold NaN gives the same, finite gradients;
+- a whole level, and the level with its shadow traces and its bounce,
+  against ``jax.grad`` of vrt's ``trace_radiance`` on the same scene (JAX on
+  the CPU): the gradients in the rays and the colour table within a cosine
+  of 1 - 1e-9 and 1e-4 * max|g| (XLA's CPU backend contracts multiply-adds
+  into FMAs, ROADMAP Queue 3);
+- the record's packing for the Functions, and the wrappers' refusals.
+
+On the card the backward kernels are held against the same plain versions
+(``tests/test_torch_kernels.py``, ``chip_smoke.py``).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.test_torch_host import scene_fields
+from tests.test_torch_shade import _level_inputs, _vrt_scene
+from vrt.render import renderer as vren
+from vrt.render.gpuscene import RenderMode as VMode
+from vrt_torch.kernels import shade as k4
+from vrt_torch.march.types import (RECORD_FIELDS, RECORD_GRAD_FIELDS,
+                                   SurfaceRecord)
+from vrt_torch.render import renderer as tren
+from vrt_torch.render.camera import camera_rays
+from vrt_torch.render.gpuscene import RenderMode, scene_from_numpy
+from vrt_torch.scenes import shading_scene
+
+torch.set_num_threads(2)
+
+GRAD_RTOL, COS_TOL = 1e-6, 1e-10
+VRT_GRAD_RTOL, VRT_COS_TOL = 1e-4, 1e-9
+
+CASES = {
+    "lit-textured-lights": dict(),
+    "lit-colours": dict(colors=True),
+    "lit-untextured": dict(mode=RenderMode(textured=False)),
+    "lit-no-bounce": dict(bounce=False),
+    "unlit-textured": dict(mode=RenderMode(lit=False)),
+    "unlit-untextured": dict(mode=RenderMode(lit=False, textured=False)),
+    "unlit-colours": dict(colors=True, mode=RenderMode(lit=False)),
+    "overlay": dict(mode=RenderMode(debug_overlay=True)),
+}
+
+
+def _seeded(rng, shape, on=None):
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    if on is not None:
+        x = torch.where(on.reshape(on.shape + (1,) * (x.ndim - 1)), x, 0.0)
+    return x
+
+
+def _level(case):
+    """One level of ``shading_scene`` (one point and one spot light, its
+    seeded textures) at 48x32: the scene, mode, bounce flag and inputs,
+    seeded weights for the loss, and seeded shadow booleans."""
+    spec = dict(CASES[case])
+    mode = spec.pop("mode", RenderMode())
+    bounce = spec.pop("bounce", True) and mode.lit
+    scene = shading_scene(4, 1, 1, device="cpu", **spec)
+    o, d, hit, inst, t, n_obj, unlit = _level_inputs(scene, mode)
+    rng = np.random.default_rng(7)
+    rays = o.shape[0]
+    weights = {f: _seeded(rng, (rays,) if f in ("roughness", "metallic")
+                          else (rays, 3), on=hit.hit)
+               for f in RECORD_GRAD_FIELDS}
+    weights["rgb"] = _seeded(rng, (rays, 3))
+    blocked = [torch.from_numpy(rng.uniform(size=rays) < 0.3)
+               for _ in range(1 + scene.num_point + scene.num_spot)]
+    refl = torch.from_numpy(rng.uniform(size=(rays, 3)).astype(np.float32))
+    return scene, mode, bounce, (o, d, t, n_obj), hit, inst, unlit, \
+        weights, blocked, refl
+
+
+def _shade(pair, scene, mode, bounce, inputs, hit, inst, unlit, weights,
+           blocked, refl, spoil=False):
+    """The level through ``pair`` on leaves of its inputs: (rgb, record,
+    the loss's gradients in o_w, d_w, t, n_obj, the colour table and the
+    bounce's radiance).  The loss weighs the radiance and, on hit lanes, the
+    record's floats (what the traces the level spawns hand back).  With
+    ``spoil`` the record's miss lanes are set to NaN before the combine
+    stage reads it."""
+    surface, combine = pair
+    leaves = [x.detach().clone().requires_grad_(True) for x in inputs]
+    colors = None
+    if scene.use_voxel_colors:
+        colors = scene.voxel_color_corners.detach().clone().requires_grad_()
+        scene = dataclasses.replace(scene, voxel_color_corners=colors)
+    refl_leaf = refl.clone().requires_grad_(True) if bounce else None
+    rec = surface(scene, *leaves, hit, inst, mode, bounce, mode.lit)
+    if spoil:
+        with torch.no_grad():
+            for f in RECORD_FIELDS[:-1]:
+                x = getattr(rec, f)
+                if x is not None:
+                    x[~hit.hit] = float("nan")
+    rgb = combine(scene, rec, leaves[1], leaves[3], hit.hit, unlit,
+                  refl_leaf, blocked if mode.lit else None, mode)
+    loss = (rgb * weights["rgb"]).sum()
+    for f in RECORD_GRAD_FIELDS:
+        x = getattr(rec, f)
+        if x is not None and x.requires_grad:
+            loss = loss + (torch.where(
+                hit.hit.reshape(hit.hit.shape + (1,) * (x.ndim - 1)), x, 0.0)
+                * weights[f]).sum()
+    wrt = leaves + [x for x in (colors, refl_leaf) if x is not None]
+    grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(wrt, grads)]
+    return rgb.detach(), rec, grads
+
+
+def _assert_grads_close(got, want, rtol, cos_tol, names):
+    for name, a, b in zip(names, got, want):
+        a, b = a.double().ravel(), b.double().ravel()
+        assert bool(torch.isfinite(a).all()), name
+        scale = b.abs().max().item()
+        if scale == 0.0:
+            assert not bool(a.any()), name
+            continue
+        cos = float(a @ b / (a.norm() * b.norm()))
+        assert 1.0 - cos <= cos_tol, (name, 1.0 - cos)
+        assert (a - b).abs().max().item() <= rtol * scale, name
+
+
+PLAIN = (tren.shade_surface_reference, tren.shade_combine_reference)
+FUNCTIONS = (tren._shade_surface_function, tren._shade_combine_function)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_function_pair_matches_plain_autograd(case):
+    level = _level(case)
+    scene, mode, bounce, _, hit = level[:5]
+    unlit = level[6]
+    assert 100 < int(hit.hit.sum()) < hit.hit.numel()
+    if mode.debug_overlay:
+        assert int((unlit & hit.hit).sum()) > 10
+    if mode.textured:
+        assert tuple(scene.tex_sizes[1].tolist()) == (8, 8)
+    rgb_p, rec_p, g_p = _shade(PLAIN, *level)
+    rgb_f, rec_f, g_f = _shade(FUNCTIONS, *level)
+    assert torch.equal(rgb_f, rgb_p)
+    on = hit.hit
+    for f in RECORD_GRAD_FIELDS:
+        a, b = getattr(rec_f, f), getattr(rec_p, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            assert torch.equal(a[on], b[on].detach()), f
+    names = ["o_w", "d_w", "t", "n_obj"] \
+        + (["colors"] if scene.use_voxel_colors else []) \
+        + (["refl_rgb"] if bounce else [])
+    assert len(g_f) == len(names)
+    _assert_grads_close(g_f, g_p, GRAD_RTOL, COS_TOL, names)
+    # lit, every input carries a gradient; unlit, at least the direction
+    # (the env lookup on miss lanes)
+    assert all(bool(g.any()) for g in g_f) if mode.lit else bool(g_f[1].any())
+
+
+@pytest.mark.parametrize("case", ["lit-colours", "unlit-textured"])
+def test_miss_lanes_of_the_record_are_never_read(case):
+    """The record's miss lanes set to NaN before the combine stage reads
+    them: the Function pair's gradients are finite and the same."""
+    level = _level(case)
+    _, _, clean = _shade(FUNCTIONS, *level)
+    _, _, spoilt = _shade(FUNCTIONS, *level, spoil=True)
+    for a, b in zip(spoilt, clean):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("depth", [2, 0], ids=["one-level", "with-traces"])
+def test_level_gradient_matches_vrt(depth):
+    """``trace_radiance`` at ``depth`` 2 (one level, no trace of its own)
+    and 0 (the level with its shadow traces and the bounce's two levels)
+    through the Function pair, against ``jax.grad`` of vrt's on the same
+    scene: the gradients of a seeded weighting of the radiance in the ray
+    origins and directions and in the colour table."""
+    vs = _vrt_scene(colors=True)
+    ts = scene_from_numpy(scene_fields(vs), device="cpu")
+    assert vs.voxel_color_corners is not None
+    o, d = camera_rays(ts.cam_pos, ts.cam_rot, ts.cam_fov, 32, 24)
+    weights = np.random.default_rng(0).normal(
+        size=(o.shape[0], 3)).astype(np.float32)
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in (o, d, ts.voxel_color_corners)]
+    seen = []
+    plain = tren.shade_stages
+
+    def spy(*args):
+        seen.append(plain(*args))
+        return seen[-1]
+
+    tren.shade_stages = spy
+    try:
+        scene = dataclasses.replace(ts, voxel_color_corners=leaves[2])
+        rgb = tren.trace_radiance(scene, leaves[0], leaves[1], depth,
+                                  RenderMode())
+        got = torch.autograd.grad((rgb * torch.from_numpy(weights)).sum(),
+                                  leaves)
+    finally:
+        tren.shade_stages = plain
+    assert seen == [FUNCTIONS] * (3 - depth)
+
+    def loss(o_, d_, pcc):
+        v2 = dataclasses.replace(vs, voxel_color_corners=pcc)
+        return jnp.sum(vren.trace_radiance(v2, o_, d_, depth, VMode())
+                       * weights)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(o.numpy()), jnp.asarray(d.numpy()),
+        vs.voxel_color_corners)
+    _assert_grads_close(got, [torch.from_numpy(np.array(w)) for w in want],
+                        VRT_GRAD_RTOL, VRT_COS_TOL, ("o_w", "d_w", "colors"))
+
+
+def test_record_packs_for_the_functions():
+    """``pack`` / ``unpack``: the record's tensors in ``RECORD_FIELDS``
+    order, the shadow tuples stacked (rows of one tensor are taken as they
+    are), ``lights`` dropped."""
+    scene = shading_scene(3, 2, 1, device="cpu")
+    mode = RenderMode()
+    o, d, hit, inst, t, n_obj, _ = _level_inputs(scene, mode, 12, 8)
+    rec = tren.shade_surface_reference(scene, o, d, t, n_obj, hit, inst,
+                                       mode, True, True)
+    packed = rec.pack()
+    assert len(packed) == len(RECORD_FIELDS) + 2
+    back = SurfaceRecord.unpack(packed)
+    assert back.lights is None and rec.lights is not None
+    for f in RECORD_FIELDS:
+        assert getattr(back, f) is getattr(rec, f), f
+    for f in ("shadow_tmax", "shadow_dir"):
+        assert len(getattr(back, f)) == len(getattr(rec, f))
+        for a, b in zip(getattr(back, f), getattr(rec, f)):
+            assert torch.equal(a, b), f
+    again = back.pack()
+    assert again[-2] is packed[-2] and again[-1] is packed[-1]
+    unlit = SurfaceRecord(albedo=rec.albedo)
+    packed = unlit.pack()
+    assert packed[0] is rec.albedo and all(x is None for x in packed[1:])
+    assert SurfaceRecord.unpack(packed).shadow_tmax is None
+
+
+def test_functions_and_backward_wrappers_refuse():
+    """``ShadeSurface`` takes the scene's own colour table and no other;
+    the backward wrappers refuse CPU tensors without launching."""
+    scene = shading_scene(3, 1, 1, colors=True, device="cpu")
+    mode = RenderMode()
+    o, d, hit, inst, t, n_obj, unlit = _level_inputs(scene, mode, 8, 6)
+    with pytest.raises(ValueError, match="colour table"):
+        k4.ShadeSurface.apply(o, d, t, n_obj,
+                              scene.voxel_color_corners.clone(), scene, hit,
+                              inst, mode, True, True)
+    before = dict(k4.LAUNCHES)
+    cots = [None] * len(RECORD_GRAD_FIELDS)
+    with pytest.raises(ValueError, match="CUDA"):
+        k4.shade_surface_backward_cuda(scene, o, d, t, n_obj, hit, inst, mode,
+                                       True, cots)
+    rec = tren.shade_surface_reference(scene, o, d, t, n_obj, hit, inst,
+                                       mode, False, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        k4.shade_combine_backward_cuda(scene, rec, d, n_obj, hit.hit, unlit,
+                                       None, None, mode, torch.zeros_like(d))
+    assert k4.LAUNCHES == before

@@ -735,6 +735,829 @@ __global__ void __launch_bounds__(kThreads) combine_kernel(
       make_float4(px[0], px[1], px[2], px[3]);
 }
 
+// ---- backward ---------------------------------------------------------------
+//
+// The transpose of each stage, one thread a ray, as autograd differentiates
+// the plain stages (the plain versions of the two kernels below are
+// renderer.py shade_surface_backward_reference / shade_combine_backward_
+// reference, which are that autograd).  Each recomputes its stage's terms
+// from the stage's inputs (nothing but the inputs is saved) and pulls the
+// cotangents back through them in registers.  Every cotangent but the colour
+// table's belongs to one ray, so only the colour rows need atomics.
+//
+// Where torch's derivative has an edge, the kernels take torch's side (the
+// plain stages pass vrt's fixture with it; JAX splits a tie of max between
+// its arguments and so differs at a bound):
+//   clamp_min / clamp_max / clamp: the gradient passes at the bound (x >= lo,
+//     x <= hi), and a NaN passes none;
+//   where: only the selected branch gets the gradient;
+//   _safe_unit / _safe_div / the normalisations: zero where the length is 0;
+//   pow(x, 5): 5 x^4, so 0 at 0;  abs: sign(x), so 0 at 0;
+//   spot_light_intensity's where(inside, ...): nothing flows outside the
+//     cone but the light direction's own gradient.
+// A miss lane's record is read by no one (the combine stage selects the env
+// there, and the traces the level spawns march it with t_max = -inf): both
+// kernels branch on the hit flag, never multiply by it, and write exact zeros
+// into every cotangent of a lane that has none, whatever its record holds.
+
+__device__ __forceinline__ float dsign(float x) {   // torch.sgn, abs' grad
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+}
+
+// y = v / |v| where |v|^2 > 0, else 0 (renderer.py _safe_unit, the half
+// vector of brdf.py, the tangent normal): the cotangent of v for that of y.
+__device__ __forceinline__ void safe_unit_bwd(const float v[3],
+                                              const float gy[3],
+                                              float gv[3]) {
+  const float n2 = dot3(v, v);
+  if (!(n2 > 0.0f)) {
+    gv[0] = gv[1] = gv[2] = 0.0f;
+    return;
+  }
+  const float norm = sqrtf(n2);
+  const float s = dot3(gy, v) / ((norm * norm) * norm);
+  for (int c = 0; c < 3; ++c) gv[c] = gy[c] / norm - v[c] * s;
+}
+
+// The transpose of rotate(qv, qw, .) (a linear map of v, exactly
+// I + 2 qw [qv]x + 2 [qv]x^2 whatever |q|) is rotate(qv, -qw, .).
+__device__ __forceinline__ void rotate_t(const float qv[3], float qw,
+                                         const float g[3], float out[3]) {
+  rotate(qv, -qw, g, out);
+}
+
+// rotate(qv, qw, v)'s cotangents in the quaternion and in v (added).
+__device__ __forceinline__ void rotate_bwd(const float qv[3], float qw,
+                                           const float v[3],
+                                           const float g[3], float g_qv[3],
+                                           float& g_qw, float g_v[3]) {
+  float tt[3], a[3], b[3], gt[3];
+  cross3(qv, v, tt);
+  for (int c = 0; c < 3; ++c) tt[c] = 2.0f * tt[c];
+  g_qw += dot3(g, tt);
+  cross3(tt, g, a);            // d(qv x tt) / d qv
+  for (int c = 0; c < 3; ++c) g_qv[c] += a[c];
+  cross3(g, qv, b);            // d(qv x tt) / d tt
+  for (int c = 0; c < 3; ++c) gt[c] = 2.0f * (qw * g[c] + b[c]);
+  cross3(v, gt, a);            // d(qv x v) / d qv
+  cross3(gt, qv, b);           // d(qv x v) / d v
+  for (int c = 0; c < 3; ++c) {
+    g_qv[c] += a[c];
+    g_v[c] += g[c] + b[c];
+  }
+}
+
+// The reverse of add_radiance for the cotangent go of its output: adds the
+// cotangents of li, wi, wo, n, albedo, roughness and metallic (k takes none).
+__device__ void radiance_bwd(const float li[3], const float wi[3],
+                             const float wo[3], const float n[3],
+                             const float albedo[3], float r, float m, float k,
+                             const float go[3], float g_li[3], float g_wi[3],
+                             float g_wo[3], float g_n[3], float g_albedo[3],
+                             float& g_r, float& g_m) {
+  float hr[3], h[3];
+  for (int c = 0; c < 3; ++c) hr[c] = wi[c] + wo[c];
+  const float hn2 = dot3(hr, hr);
+  const float hnorm = sqrtf(hn2 > 0.0f ? hn2 : 1.0f);
+  for (int c = 0; c < 3; ++c) h[c] = hn2 > 0.0f ? hr[c] / hnorm : 0.0f;
+  const float a2 = r * r;
+  const float nh = dot3(n, h);
+  const float ndoth = nmax(nh, 0.0f);
+  const float cc = (ndoth * ndoth) * (a2 - 1.0f) + 1.0f;
+  const float dd_raw = (kPi * cc) * cc;
+  const float dd = nmax(dd_raw, 0.001f);
+  const float dist = a2 / dd;
+  const float wh = dot3(wo, h);
+  const float x = 1.0f - nmax(wh, 0.0f);
+  const float xc = nmax(x, 0.0f);
+  const float pw = powf(xc, 5.0f);
+  const float nwo = dot3(n, wo), nwi = dot3(n, wi);
+  const float dwo = nmax(nwo, 0.0f), dwi = nmax(nwi, 0.0f);
+  const float deno = dwo * (1.0f - k) + k, deni = dwi * (1.0f - k) + k;
+  const float gso = dwo / deno, gsi = dwi / deni;
+  const float g = gso * gsi;
+  const float dr = (4.0f * dwo) * dwi;
+  const float denom = nmax(dr, 0.0001f);
+  const float spec = (dist * g) / denom;
+  const float diel = 1.0f - m;
+
+  float g_spec = 0.0f, g_pw = 0.0f, g_nwi = 0.0f, g_diel = 0.0f;
+  for (int c = 0; c < 3; ++c) {
+    const float f0 = kF0Diel * diel + albedo[c] * m;
+    const float f = f0 + (1.0f - f0) * pw;
+    const float lambert = albedo[c] / kPi;
+    const float kd = (1.0f - f) * diel;
+    const float brdf = lambert * kd + (spec * f) * f;
+    const float g_brdf = (go[c] * li[c]) * nwi;
+    g_li[c] += (go[c] * brdf) * nwi;
+    g_nwi += (go[c] * brdf) * li[c];
+    const float g_cook = g_brdf * f;
+    float g_f = g_brdf * (spec * f) + g_cook * spec - (g_brdf * lambert) * diel;
+    g_spec += g_cook * f;
+    g_diel += (g_brdf * lambert) * (1.0f - f);
+    g_albedo[c] += (g_brdf * kd) / kPi;
+    const float g_f0 = g_f * (1.0f - pw);
+    g_pw += g_f * (1.0f - f0);
+    g_diel += g_f0 * kF0Diel;
+    g_albedo[c] += g_f0 * m;
+    g_m += g_f0 * albedo[c];
+  }
+  g_m -= g_diel;
+  // spec = (dist * g) / denom
+  const float g_dist = (g_spec * g) / denom;
+  const float g_g = (g_spec * dist) / denom;
+  const float g_dr = dr >= 0.0001f ? -(g_spec * spec) / denom : 0.0f;
+  float g_dwo = g_dr * (4.0f * dwi) + (g_g * gsi) * (k / (deno * deno));
+  float g_dwi = g_dr * (4.0f * dwo) + (g_g * gso) * (k / (deni * deni));
+  const float g_nwo = nwo >= 0.0f ? g_dwo : 0.0f;
+  g_nwi += nwi >= 0.0f ? g_dwi : 0.0f;
+  // pw = max(1 - max(wh, 0), 0)^5
+  const float g_x = x >= 0.0f ? (g_pw * 5.0f) * powf(xc, 4.0f) : 0.0f;
+  const float g_wh = wh >= 0.0f ? -g_x : 0.0f;
+  // dist = a2 / max(pi cc^2, 1e-3)
+  float g_a2 = g_dist / dd;
+  const float g_dd = dd_raw >= 0.001f ? -(g_dist * dist) / dd : 0.0f;
+  const float g_cc = g_dd * (2.0f * (kPi * cc));
+  const float g_nh = nh >= 0.0f ? g_cc * (2.0f * ndoth * (a2 - 1.0f)) : 0.0f;
+  g_a2 += g_cc * (ndoth * ndoth);
+  g_r += g_a2 * (2.0f * r);
+  float g_h[3];
+  for (int c = 0; c < 3; ++c) {
+    g_n[c] += (g_nh * h[c] + g_nwo * wo[c]) + g_nwi * wi[c];
+    g_h[c] = g_nh * n[c] + g_wh * wo[c];
+    g_wo[c] += g_wh * h[c] + g_nwo * n[c];
+    g_wi[c] += g_nwi * n[c];
+  }
+  float g_hr[3];
+  safe_unit_bwd(hr, g_h, g_hr);
+  for (int c = 0; c < 3; ++c) {
+    g_wi[c] += g_hr[c];
+    g_wo[c] += g_hr[c];
+  }
+}
+
+// The reverse of light_at: the shadow origin's cotangent (added) for those
+// of the direction to the light and of its intensity.
+__device__ void light_at_bwd(const float* row, bool spot, const float so[3],
+                             const float g_sdir[3], float g_inten,
+                             float g_so[3]) {
+  float delta[3];
+  for (int c = 0; c < 3; ++c) delta[c] = row[c] - so[c];
+  const float dist = sqrtf(dot3(delta, delta));
+  float g_dist = 0.0f;
+  const float att_l = row[spot ? 7 : 4], att_e = row[spot ? 8 : 5];
+  const float den = (1.0f + att_l * dist) + (att_e * dist) * dist;
+  const float g_den_per = att_l + 2.0f * (att_e * dist);
+  if (!spot) {
+    const float inten = row[3] / den;
+    g_dist += -(g_inten * inten / den) * g_den_per;
+  } else {
+    float to[3];
+    for (int c = 0; c < 3; ++c) to[c] = so[c] - row[c];
+    const float norm = sqrtf(dot3(to, to));
+    float tn[3];
+    for (int c = 0; c < 3; ++c) tn[c] = to[c] / norm;
+    const float cs = dot3(row + 3, tn);
+    const float cos_angle = row[9], cos_falloff = row[10];
+    if (cs >= 0.0f && cs > cos_angle) {
+      const float q = (cs - cos_angle) / (cos_falloff - cos_angle);
+      const float i1 = row[6] * nmin(q, 1.0f);
+      const float g_i1 = g_inten / den;
+      g_dist += -(g_inten * (i1 / den) / den) * g_den_per;
+      const float g_q = q <= 1.0f ? g_i1 * row[6] : 0.0f;
+      const float g_cs = g_q / (cos_falloff - cos_angle);
+      float g_tn[3], g_to[3];
+      for (int c = 0; c < 3; ++c) g_tn[c] = row[3 + c] * g_cs;
+      const float s = dot3(g_tn, to) / ((norm * norm) * norm);
+      for (int c = 0; c < 3; ++c) g_to[c] = g_tn[c] / norm - to[c] * s;
+      if (norm != 0.0f)
+        for (int c = 0; c < 3; ++c) g_so[c] += g_to[c];
+    }
+  }
+  if (dist != 0.0f) {
+    // sdir = delta / dist, dist = |delta|; delta = row - so
+    g_dist += -dot3(g_sdir, delta) / (dist * dist);
+    for (int c = 0; c < 3; ++c)
+      g_so[c] -= g_sdir[c] / dist + delta[c] * (g_dist / dist);
+  }
+}
+
+// The reverse of sample_env: the direction's cotangent (added) for that of
+// the sample.  The face, the texels and the floors are piecewise constant.
+__device__ void sample_env_bwd(const float* env, int e, const float d_w[3],
+                               const float g[3], float g_d[3]) {
+  const float x = d_w[0], y = d_w[2], z = d_w[1];
+  const float ax = fabsf(x), ay = fabsf(y), az = fabsf(z);
+  const bool x_major = ax >= ay && ax >= az;
+  const bool y_major = !x_major && ay >= az;
+  float ma, sc, tc;
+  int face;
+  // d(ma, sc, tc) / d(x, y, z), as rows
+  float dma[3] = {0.0f, 0.0f, 0.0f}, dsc[3] = {0.0f, 0.0f, 0.0f},
+        dtc[3] = {0.0f, 0.0f, 0.0f};
+  if (x_major) {
+    ma = ax;
+    dma[0] = dsign(x);
+    face = x >= 0.0f ? 0 : 1;
+    sc = x >= 0.0f ? -z : z;
+    dsc[2] = x >= 0.0f ? -1.0f : 1.0f;
+    tc = -y;
+    dtc[1] = -1.0f;
+  } else if (y_major) {
+    ma = ay;
+    dma[1] = dsign(y);
+    face = y >= 0.0f ? 2 : 3;
+    sc = x;
+    dsc[0] = 1.0f;
+    tc = y >= 0.0f ? z : -z;
+    dtc[2] = y >= 0.0f ? 1.0f : -1.0f;
+  } else {
+    ma = az;
+    dma[2] = dsign(z);
+    face = z >= 0.0f ? 4 : 5;
+    sc = z >= 0.0f ? x : -x;
+    dsc[0] = z >= 0.0f ? 1.0f : -1.0f;
+    tc = -y;
+    dtc[1] = -1.0f;
+  }
+  const float fe = static_cast<float>(e);
+  const float su = sc / ma, sv = tc / ma;
+  const float u = ((su + 1.0f) * 0.5f) * fe - 0.5f;
+  const float v = ((sv + 1.0f) * 0.5f) * fe - 0.5f;
+  const float u0 = floorf(u), v0 = floorf(v);
+  const float fu = u - u0, fv = v - v0;
+  const int ua = min(max(static_cast<int>(u0), 0), e - 1);
+  const int ub = min(max(static_cast<int>(u0 + 1.0f), 0), e - 1);
+  const int va = min(max(static_cast<int>(v0), 0), e - 1);
+  const int vb = min(max(static_cast<int>(v0 + 1.0f), 0), e - 1);
+  const float* base = env + static_cast<long long>(face) * e * e * 3;
+  const float* c00 = base + (va * e + ua) * 3;
+  const float* c10 = base + (va * e + ub) * 3;
+  const float* c01 = base + (vb * e + ua) * 3;
+  const float* c11 = base + (vb * e + ub) * 3;
+  float g_fu = 0.0f, g_fv = 0.0f;
+  for (int c = 0; c < 3; ++c) {
+    const float a00 = __ldg(c00 + c), a10 = __ldg(c10 + c);
+    const float a01 = __ldg(c01 + c), a11 = __ldg(c11 + c);
+    const float top = a00 * (1.0f - fu) + a10 * fu;
+    const float bot = a01 * (1.0f - fu) + a11 * fu;
+    g_fu += g[c] * ((a10 - a00) * (1.0f - fv) + (a11 - a01) * fv);
+    g_fv += g[c] * (bot - top);
+  }
+  const float g_su = g_fu * (0.5f * fe), g_sv = g_fv * (0.5f * fe);
+  const float g_sc = g_su / ma, g_tc = g_sv / ma;
+  const float g_ma = -(g_su * su + g_sv * sv) / ma;
+  // (x, y, z) = (d0, d2, d1)
+  const int axis[3] = {0, 2, 1};
+  for (int a = 0; a < 3; ++a)
+    g_d[axis[a]] += (g_ma * dma[a] + g_sc * dsc[a]) + g_tc * dtc[a];
+}
+
+struct CombineBwdParams {
+  CombineParams f;             // the forward's inputs; f.out is not read
+  const float* g_rgb;          // [R,3]
+  // the cotangents, each [R,3] or [R], null where nobody needs it
+  float* g_albedo;
+  float* g_shadow_origin;
+  float* g_n_w;
+  float* g_roughness;
+  float* g_metallic;
+  float* g_refl_dir;
+  float* g_d_w;
+  float* g_n_obj;
+  float* g_refl_rgb;
+};
+
+__device__ __forceinline__ void store3(float* dst, long long i,
+                                       const float v[3]) {
+  if (dst != nullptr)
+    for (int c = 0; c < 3; ++c) dst[3 * i + c] = v[c];
+}
+
+__device__ __forceinline__ void store1(float* dst, long long i, float v) {
+  if (dst != nullptr) dst[i] = v;
+}
+
+__global__ void __launch_bounds__(kThreads) combine_bwd_kernel(
+    const CombineBwdParams q) {
+  const CombineParams& p = q.f;
+  extern __shared__ float sh[];
+  if (p.lit) stage_lights(sh, p.lights);
+  __syncthreads();
+
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= p.rays) return;
+
+  float d_w[3], g[3];
+  float g_d[3] = {0.0f, 0.0f, 0.0f}, g_nobj[3] = {0.0f, 0.0f, 0.0f};
+  float g_alb[3] = {0.0f, 0.0f, 0.0f}, g_so[3] = {0.0f, 0.0f, 0.0f};
+  float g_nw[3] = {0.0f, 0.0f, 0.0f}, g_refl[3] = {0.0f, 0.0f, 0.0f};
+  float g_rrgb[3] = {0.0f, 0.0f, 0.0f};
+  float g_r = 0.0f, g_m = 0.0f;
+  for (int c = 0; c < 3; ++c) {
+    d_w[c] = p.d_w[3 * i + c];
+    g[c] = q.g_rgb[3 * i + c];
+  }
+
+  if (!p.hit[i]) {
+    sample_env_bwd(p.env, p.env_side, d_w, g, g_d);
+  } else if (p.unlit[i]) {
+    for (int c = 0; c < 3; ++c) g_nobj[c] = g[c];
+  } else if (!p.lit) {
+    for (int c = 0; c < 3; ++c) g_alb[c] = g[c];
+  } else {
+    float albedo[3], so[3], n_w[3], wo[3], g_wo[3] = {0.0f, 0.0f, 0.0f};
+    float g_li[3], g_wi[3];
+    for (int c = 0; c < 3; ++c) {
+      albedo[c] = p.albedo[3 * i + c];
+      so[c] = p.shadow_origin[3 * i + c];
+      n_w[c] = p.n_w[3 * i + c];
+      wo[c] = -d_w[c];
+    }
+    const float roughness = p.roughness[i], metallic = p.metallic[i];
+    const float k = p.k[i];
+
+    if (p.refl_rgb != nullptr && roughness < 0.3f) {
+      float li[3], wi[3], rr[3];
+      const float fade = 1.0f - roughness * 2.2f;
+      for (int c = 0; c < 3; ++c) {
+        rr[c] = p.refl_rgb[3 * i + c];
+        li[c] = nmax(rr[c] * fade, 0.0f);
+        wi[c] = p.refl_dir[3 * i + c];
+        g_li[c] = g_wi[c] = 0.0f;
+      }
+      radiance_bwd(li, wi, wo, n_w, albedo, roughness, metallic, k, g, g_li,
+                   g_wi, g_wo, g_nw, g_alb, g_r, g_m);
+      float g_fade = 0.0f;
+      for (int c = 0; c < 3; ++c) {
+        const float gl = rr[c] * fade >= 0.0f ? g_li[c] : 0.0f;
+        g_rrgb[c] = gl * fade;
+        g_fade += gl * rr[c];
+        g_refl[c] = g_wi[c];
+      }
+      g_r += g_fade * -2.2f;
+    }
+
+    if (!(p.blocked[0] != nullptr && p.blocked[0][i])) {
+      // the light's own cotangents are dropped: it is not differentiated
+      const float li[3] = {sh[3], sh[3], sh[3]};
+      for (int c = 0; c < 3; ++c) g_li[c] = g_wi[c] = 0.0f;
+      radiance_bwd(li, sh, wo, n_w, albedo, roughness, metallic, k, g, g_li,
+                   g_wi, g_wo, g_nw, g_alb, g_r, g_m);
+    }
+
+    const int n_shadow = p.lights.points + p.lights.spots;
+    for (int j = 0; j < n_shadow; ++j) {
+      const bool spot = j >= p.lights.points;
+      const float* row =
+          sh + 4 +
+          (spot ? p.lights.points * kPointRow +
+                      (j - p.lights.points) * kSpotRow
+                : j * kPointRow);
+      float sdir[3], dist, inten, li[3];
+      light_at(row, spot, so, sdir, dist, inten);
+      bool lit = inten > (spot ? 0.01f : 0.005f);
+      if (p.blocked[1 + j] != nullptr) lit = lit && !p.blocked[1 + j][i];
+      if (!lit) continue;
+      const float* color = row + (spot ? 11 : 6);
+      for (int c = 0; c < 3; ++c) {
+        li[c] = color[c] * inten;
+        g_li[c] = g_wi[c] = 0.0f;
+      }
+      radiance_bwd(li, sdir, wo, n_w, albedo, roughness, metallic, k, g, g_li,
+                   g_wi, g_wo, g_nw, g_alb, g_r, g_m);
+      light_at_bwd(row, spot, so, g_wi, dot3(color, g_li), g_so);
+    }
+    for (int c = 0; c < 3; ++c) g_d[c] = -g_wo[c];
+  }
+
+  store3(q.g_albedo, i, g_alb);
+  store3(q.g_shadow_origin, i, g_so);
+  store3(q.g_n_w, i, g_nw);
+  store1(q.g_roughness, i, g_r);
+  store1(q.g_metallic, i, g_m);
+  store3(q.g_refl_dir, i, g_refl);
+  store3(q.g_d_w, i, g_d);
+  store3(q.g_n_obj, i, g_nobj);
+  store3(q.g_refl_rgb, i, g_rrgb);
+}
+
+struct SurfaceBwdParams {
+  SurfaceParams f;             // the forward's inputs; its outputs unused
+  // the record's cotangents, null for zero
+  const float* g_albedo;       // [R,3]
+  const float* g_shadow_origin;
+  const float* g_n_w;
+  const float* g_roughness;    // [R]
+  const float* g_metallic;
+  const float* g_refl_dir;     // [R,3]
+  // the inputs' cotangents; g_o_w / g_d_w and g_colors null when not asked
+  float* g_o_w;                // [R,3]
+  float* g_d_w;
+  float* g_t;                  // [R]
+  float* g_n_obj;              // [R,3]
+  float* g_colors;             // [V*cn^3, 24] f32, added into
+};
+
+__device__ __forceinline__ void load3(const float* src, long long i,
+                                      float v[3]) {
+  for (int c = 0; c < 3; ++c) v[c] = src != nullptr ? src[3 * i + c] : 0.0f;
+}
+
+// The reverse of sample_wrap: the cotangents of (u_, v_) for that of the
+// sample.
+__device__ __forceinline__ void sample_wrap_bwd(const SurfaceParams& p,
+                                                const int* sizes, int id,
+                                                float u_, float v_,
+                                                const float g[3], float& g_u,
+                                                float& g_v) {
+  const int hi = sizes[2 * id], wi = sizes[2 * id + 1];
+  const float h = static_cast<float>(hi), w = static_cast<float>(wi);
+  const float u = u_ * w - 0.5f;
+  const float v = v_ * h - 0.5f;
+  const float u0 = floorf(u), v0 = floorf(v);
+  const float fu = u - u0, fv = v - v0;
+  const int ua = floor_mod(static_cast<int>(u0), wi);
+  const int ub = floor_mod(static_cast<int>(u0 + 1.0f), wi);
+  const int va = floor_mod(static_cast<int>(v0), hi);
+  const int vb = floor_mod(static_cast<int>(v0 + 1.0f), hi);
+  const float* base = p.textures +
+                      static_cast<long long>(id) * p.tex_h * p.tex_w * 3;
+  const float* c00 = base + (va * p.tex_w + ua) * 3;
+  const float* c10 = base + (va * p.tex_w + ub) * 3;
+  const float* c01 = base + (vb * p.tex_w + ua) * 3;
+  const float* c11 = base + (vb * p.tex_w + ub) * 3;
+  float g_fu = 0.0f, g_fv = 0.0f;
+  for (int c = 0; c < 3; ++c) {
+    const float a00 = __ldg(c00 + c), a10 = __ldg(c10 + c);
+    const float a01 = __ldg(c01 + c), a11 = __ldg(c11 + c);
+    const float top = a00 * (1.0f - fu) + a10 * fu;
+    const float bot = a01 * (1.0f - fu) + a11 * fu;
+    g_fu += g[c] * ((a10 - a00) * (1.0f - fv) + (a11 - a01) * fv);
+    g_fv += g[c] * (bot - top);
+  }
+  g_u = g_fu * w;
+  g_v = g_fv * h;
+}
+
+// The reverse of tri_sample<kNormal>: adds the cotangents of the object
+// position and of the blend weights for that of the sample; with kNormal
+// the three samples also return their values (the forward's tx, ty, tz).
+template <bool kNormal>
+__device__ __forceinline__ void tri_sample_bwd(
+    const SurfaceParams& p, const int* sizes, int id, const float scale[2],
+    const float pos[3], const float b[3], const float g[3], float g_pos[3],
+    float g_b[3]) {
+  float s[3][3];
+  const float uv[3][2] = {{pos[2] / scale[0], pos[1] / scale[1]},
+                          {pos[0] / scale[0], pos[2] / scale[1]},
+                          {pos[0] / scale[0], pos[1] / scale[1]}};
+  const int axes[3][2] = {{2, 1}, {0, 2}, {0, 1}};
+  for (int a = 0; a < 3; ++a) {
+    sample_wrap(p, sizes, id, uv[a][0], uv[a][1], s[a]);
+    float gs[3];
+    for (int c = 0; c < 3; ++c) {
+      if (kNormal) s[a][c] = s[a][c] * 2.0f - 1.0f;
+      gs[c] = (g[c] * b[a]) * (kNormal ? 2.0f : 1.0f);
+    }
+    g_b[a] += dot3(g, s[a]);
+    float g_u, g_v;
+    sample_wrap_bwd(p, sizes, id, uv[a][0], uv[a][1], gs, g_u, g_v);
+    g_pos[axes[a][0]] += g_u / scale[0];
+    g_pos[axes[a][1]] += g_v / scale[1];
+  }
+}
+
+// The reverse of rotate_from_x(v, t): adds the cotangents of v (the
+// object-space normal) and of t for that of the rotated vector.
+__device__ void rotate_from_x_bwd(const float v[3], const float t[3],
+                                  const float g[3], float g_v[3],
+                                  float g_t[3]) {
+  float q[4];
+  const float x[3] = {1.0f, 0.0f, 0.0f};
+  cross3(x, v, q);
+  q[3] = 1.0f + ((x[0] * v[0] + x[1] * v[1]) + x[2] * v[2]);
+  const bool flip = q[3] < 1e-6f;
+  if (flip) {
+    q[0] = 0.0f;
+    q[1] = 0.0f;
+    q[2] = 1.0f;
+    q[3] = 0.0f;
+  }
+  const float nrm = sqrtf(((q[0] * q[0] + q[1] * q[1]) + q[2] * q[2]) +
+                          q[3] * q[3]);
+  const float norm = nmax(nrm, 1e-12f);
+  float qn[4];
+  for (int c = 0; c < 4; ++c) qn[c] = q[c] / norm;
+  float g_qv[3] = {0.0f, 0.0f, 0.0f}, g_qw = 0.0f;
+  rotate_bwd(qn, qn[3], t, g, g_qv, g_qw, g_t);
+  if (flip) return;           // a constant quaternion
+  const float g_qn[4] = {g_qv[0], g_qv[1], g_qv[2], g_qw};
+  float dot = 0.0f;
+  for (int c = 0; c < 4; ++c) dot += g_qn[c] * q[c];
+  const float g_norm = nrm >= 1e-12f ? -dot / (norm * norm) : 0.0f;
+  float g_q[4];
+  for (int c = 0; c < 4; ++c)
+    g_q[c] = g_qn[c] / norm + (nrm != 0.0f ? q[c] * (g_norm / nrm) : 0.0f);
+  // q = (0, -v2, v1, 1 + v0)
+  g_v[0] += g_q[3];
+  g_v[1] += g_q[2];
+  g_v[2] -= g_q[1];
+}
+
+__device__ __forceinline__ void red_add_v4(float* dst, float a, float b,
+                                           float c, float d) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};"
+               :
+               : "l"(dst), "f"(a), "f"(b), "f"(c), "f"(d)
+               : "memory");
+}
+
+// The reverse of color_sample: adds the cotangents of the object-space ray
+// and of t, and adds the row's 24 cotangents into the f32 accumulator with
+// six 16-byte reductions.
+__device__ void color_sample_bwd(const SurfaceParams& p, float* acc,
+                                 long long i, int vol, int n, float h,
+                                 float ext, const float o[3],
+                                 const float d[3], float t,
+                                 const float g[3], float g_o[3],
+                                 float g_d[3], float& g_t) {
+  int cell[3];
+  float q[3];
+  for (int c = 0; c < 3; ++c) {
+    cell[c] = p.cell[3 * i + c];
+    const float base = static_cast<float>(cell[c]) * h - ext;
+    q[c] = ((o[c] + d[c] * t) - base) / h;
+  }
+  const long long cn = p.color_side;
+  const int last = p.color_side - 1;
+  const long long row =
+      ((static_cast<long long>(vol) * cn + min(max(cell[0], 0), last)) * cn +
+       min(max(cell[1], 0), last)) * cn + min(max(cell[2], 0), last);
+  float g_q[3] = {0.0f, 0.0f, 0.0f};
+  float grow[24];
+  for (int j = 0; j < 8; ++j) {
+    const int b[3] = {j & 1, (j >> 1) & 1, (j >> 2) & 1};
+    bool valid = true;
+    float w[3], s[3];
+    for (int c = 0; c < 3; ++c) {
+      const int idx = cell[c] + b[c];
+      valid = valid && idx >= 0 && idx < n;
+      const float diff = (b[c] ? 0.0f : 1.0f) - q[c];
+      w[c] = fabsf(diff);
+      s[c] = dsign(diff);
+    }
+    const float wj = (w[0] * w[1]) * w[2];
+    float g_w = 0.0f;
+    for (int c = 0; c < 3; ++c) {
+      float v = 0.0f;
+      if (valid)
+        v = p.colors_bf16
+                ? load_corner<uint16_t>(
+                      static_cast<const uint16_t*>(p.colors) + row * 24 +
+                      3 * j + c)
+                : load_corner<float>(static_cast<const float*>(p.colors) +
+                                     row * 24 + 3 * j + c);
+      g_w += g[c] * v;
+      grow[3 * j + c] = valid ? g[c] * wj : 0.0f;
+    }
+    // d|1 - b - q| / dq = -sign(1 - b - q)
+    g_q[0] -= (g_w * (w[1] * w[2])) * s[0];
+    g_q[1] -= (g_w * (w[0] * w[2])) * s[1];
+    g_q[2] -= (g_w * (w[0] * w[1])) * s[2];
+  }
+  for (int c = 0; c < 3; ++c) {
+    const float gq = g_q[c] / h;
+    g_o[c] += gq;
+    g_d[c] += gq * t;
+    g_t += gq * d[c];
+  }
+  if (acc == nullptr) return;
+  float* dst = acc + row * 24;
+  for (int e = 0; e < 24; e += 4)
+    if (grow[e] != 0.0f || grow[e + 1] != 0.0f || grow[e + 2] != 0.0f ||
+        grow[e + 3] != 0.0f)
+      red_add_v4(dst + e, grow[e], grow[e + 1], grow[e + 2], grow[e + 3]);
+}
+
+template <bool kLit, bool kTextured, bool kColors>
+__global__ void __launch_bounds__(kThreads) surface_bwd_kernel(
+    const SurfaceBwdParams q) {
+  const SurfaceParams& p = q.f;
+  extern __shared__ float sh[];
+  float* sh_inst = sh;
+  float* sh_vol = sh_inst + p.inst.count * kInstRow;
+  int* sh_sizes = reinterpret_cast<int*>(sh_vol + p.mat.count * kVolRow);
+  for (int w = threadIdx.x; w < p.inst.count * kInstRow; w += blockDim.x) {
+    const int r = w / kInstRow, c = w % kInstRow;
+    float v = 0.0f;
+    if (c < 3) v = p.inst.pos[3 * r + c];
+    else if (c < 7) v = p.inst.rot[4 * r + (c - 3)];
+    else if (c < 10) v = p.inst.scale[3 * r + (c - 7)];
+    else if (c == 10) v = __int_as_float(p.inst.volume[r]);
+    sh_inst[w] = v;
+  }
+  for (int w = threadIdx.x; w < p.mat.count * kVolRow; w += blockDim.x) {
+    const int r = w / kVolRow, c = w % kVolRow;
+    float v = 0.0f;
+    if (c == 0) v = __int_as_float(p.mat.n[r]);
+    else if (c == 1) v = p.mat.cell_size[r];
+    else if (c == 2) v = p.mat.extends[r];
+    else if (c < 6) v = p.mat.tint[4 * r + (c - 3)];
+    else if (c == 6) v = p.mat.roughness[r];
+    else if (c == 7) v = p.mat.metallic[r];
+    else if (c == 8) v = p.mat.k[r];
+    else if (c < 11) v = p.mat.tex_scale[2 * r + (c - 9)];
+    else if (c == 11) v = __int_as_float(p.mat.albedo_tex[r]);
+    else if (c == 12) v = __int_as_float(p.mat.normal_tex[r]);
+    else if (c == 13) v = __int_as_float(p.mat.rm_tex[r]);
+    sh_vol[w] = v;
+  }
+  for (int w = threadIdx.x; w < 2 * p.tex_count; w += blockDim.x)
+    sh_sizes[w] = p.tex_sizes[w];
+  __syncthreads();
+
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= p.rays) return;
+
+  float g_o[3] = {0.0f, 0.0f, 0.0f}, g_d[3] = {0.0f, 0.0f, 0.0f};
+  float g_n[3] = {0.0f, 0.0f, 0.0f}, g_t = 0.0f;
+  if (p.hit[i]) {
+    float o_w[3], d_w[3], n_obj[3];
+    for (int c = 0; c < 3; ++c) {
+      o_w[c] = p.o_w[3 * i + c];
+      d_w[c] = p.d_w[3 * i + c];
+      n_obj[c] = p.n_obj[3 * i + c];
+    }
+    const float t = p.t[i];
+    const float* in = sh_inst + max(p.winner[i], 0) * kInstRow;
+    const float* pos = in;
+    const float* rot = in + 3;
+    const float* scale = in + 7;
+    const int vol = __float_as_int(in[10]);
+    const float* mat = sh_vol + vol * kVolRow;
+    const float qc[3] = {-rot[0], -rot[1], -rot[2]};
+
+    float g_alb[3], g_hp[3], g_nw[3];
+    load3(q.g_albedo, i, g_alb);
+    load3(q.g_shadow_origin, i, g_hp);       // hit_pos - 0.1 d
+    for (int c = 0; c < 3; ++c) g_d[c] = -0.1f * g_hp[c];
+    float g_ns[3] = {0.0f, 0.0f, 0.0f};      // of n_shade
+    float hit_pos[3];
+    for (int c = 0; c < 3; ++c) hit_pos[c] = o_w[c] + t * d_w[c];
+
+    if (kLit) {
+      // n_w = rotate(rot, n_shade) * scale, then the mirror direction
+      float n_shade[3] = {n_obj[0], n_obj[1], n_obj[2]};
+      float obj_pos[3], b[3], tn[3], zxy[3];
+      const float* tscale = mat + 9;
+      if (kTextured) {
+        float a[3];
+        for (int c = 0; c < 3; ++c) a[c] = (hit_pos[c] - pos[c]) / scale[c];
+        rotate(qc, rot[3], a, obj_pos);
+        const float ab[3] = {fabsf(n_obj[0]), fabsf(n_obj[1]),
+                             fabsf(n_obj[2])};
+        const float s = (ab[0] + ab[1]) + ab[2];
+        for (int c = 0; c < 3; ++c) b[c] = s > 0.0f ? ab[c] / s : 0.0f;
+        tri_sample<true>(p, sh_sizes, __float_as_int(mat[12]), tscale,
+                         obj_pos, b, tn);
+        const float n2 = dot3(tn, tn);
+        const float norm = sqrtf(n2 > 0.0f ? n2 : 1.0f);
+        float u[3];
+        for (int c = 0; c < 3; ++c) u[c] = n2 > 0.0f ? tn[c] / norm : 0.0f;
+        zxy[0] = u[2];
+        zxy[1] = u[0];
+        zxy[2] = u[1];
+        rotate_from_x(n_obj, zxy, n_shade);
+      }
+      float n_w[3];
+      rotate(rot, rot[3], n_shade, n_w);
+      for (int c = 0; c < 3; ++c) n_w[c] = n_w[c] * scale[c];
+      load3(q.g_n_w, i, g_nw);
+      if (p.bounce && q.g_refl_dir != nullptr) {
+        const float dn = 2.0f * dot3(d_w, n_w);
+        float r[3], g_refl[3], g_r[3];
+        for (int c = 0; c < 3; ++c) r[c] = d_w[c] - dn * n_w[c];
+        load3(q.g_refl_dir, i, g_refl);
+        safe_unit_bwd(r, g_refl, g_r);
+        const float g_dn = -dot3(g_r, n_w);
+        for (int c = 0; c < 3; ++c) {
+          g_d[c] += g_r[c] + (2.0f * g_dn) * n_w[c];
+          g_nw[c] += -dn * g_r[c] + (2.0f * g_dn) * d_w[c];
+        }
+      }
+      float g_rs[3];
+      for (int c = 0; c < 3; ++c) g_rs[c] = g_nw[c] * scale[c];
+      rotate_t(rot, rot[3], g_rs, g_ns);
+
+      if (kTextured) {
+        float g_pos[3] = {0.0f, 0.0f, 0.0f}, g_b[3] = {0.0f, 0.0f, 0.0f};
+        // roughness = clamp(R * rm.x, 0, 1), metallic = clamp(M * rm.y, 0, 1)
+        const float g_rough = q.g_roughness != nullptr ? q.g_roughness[i]
+                                                        : 0.0f;
+        const float g_metal = q.g_metallic != nullptr ? q.g_metallic[i]
+                                                       : 0.0f;
+        if (g_rough != 0.0f || g_metal != 0.0f) {
+          float rm[3];
+          tri_sample<false>(p, sh_sizes, __float_as_int(mat[13]), tscale,
+                            obj_pos, b, rm);
+          const float xr = mat[6] * rm[0], xm = mat[7] * rm[1];
+          const float g_rm[3] = {
+              xr >= 0.0f && xr <= 1.0f ? g_rough * mat[6] : 0.0f,
+              xm >= 0.0f && xm <= 1.0f ? g_metal * mat[7] : 0.0f, 0.0f};
+          tri_sample_bwd<false>(p, sh_sizes, __float_as_int(mat[13]), tscale,
+                                obj_pos, b, g_rm, g_pos, g_b);
+        }
+        // n_shade = rotate_from_x(n_obj, zxy(unit(tn)))
+        float g_zxy[3] = {0.0f, 0.0f, 0.0f};
+        rotate_from_x_bwd(n_obj, zxy, g_ns, g_n, g_zxy);
+        const float g_u[3] = {g_zxy[1], g_zxy[2], g_zxy[0]};
+        float g_tn[3];
+        safe_unit_bwd(tn, g_u, g_tn);
+        tri_sample_bwd<true>(p, sh_sizes, __float_as_int(mat[12]), tscale,
+                             obj_pos, b, g_tn, g_pos, g_b);
+        if (!kColors) {
+          float g_tex[3];
+          for (int c = 0; c < 3; ++c) g_tex[c] = g_alb[c] * mat[3 + c];
+          tri_sample_bwd<false>(p, sh_sizes, __float_as_int(mat[11]), tscale,
+                                obj_pos, b, g_tex, g_pos, g_b);
+        }
+        // b = |n_obj| / sum |n_obj|
+        const float ab[3] = {fabsf(n_obj[0]), fabsf(n_obj[1]),
+                             fabsf(n_obj[2])};
+        const float s = (ab[0] + ab[1]) + ab[2];
+        if (s > 0.0f) {
+          const float gs = dot3(g_b, ab) / (s * s);
+          for (int c = 0; c < 3; ++c)
+            g_n[c] += (g_b[c] / s - gs) * dsign(n_obj[c]);
+        }
+        // obj_pos = rotate(conj(rot), (hit_pos - pos) / scale)
+        float g_a[3];
+        rotate_t(qc, rot[3], g_pos, g_a);
+        for (int c = 0; c < 3; ++c) g_hp[c] += g_a[c] / scale[c];
+      } else {
+        for (int c = 0; c < 3; ++c) g_n[c] += g_ns[c];
+      }
+    } else if (kTextured && !kColors) {
+      // unlit: the albedo alone
+      float a[3], obj_pos[3], b[3];
+      for (int c = 0; c < 3; ++c) a[c] = (hit_pos[c] - pos[c]) / scale[c];
+      rotate(qc, rot[3], a, obj_pos);
+      const float ab[3] = {fabsf(n_obj[0]), fabsf(n_obj[1]), fabsf(n_obj[2])};
+      const float s = (ab[0] + ab[1]) + ab[2];
+      for (int c = 0; c < 3; ++c) b[c] = s > 0.0f ? ab[c] / s : 0.0f;
+      float g_pos[3] = {0.0f, 0.0f, 0.0f}, g_b[3] = {0.0f, 0.0f, 0.0f};
+      float g_tex[3];
+      for (int c = 0; c < 3; ++c) g_tex[c] = g_alb[c] * mat[3 + c];
+      tri_sample_bwd<false>(p, sh_sizes, __float_as_int(mat[11]), mat + 9,
+                            obj_pos, b, g_tex, g_pos, g_b);
+      if (s > 0.0f) {
+        const float gs = dot3(g_b, ab) / (s * s);
+        for (int c = 0; c < 3; ++c)
+          g_n[c] += (g_b[c] / s - gs) * dsign(n_obj[c]);
+      }
+      float g_a[3];
+      rotate_t(qc, rot[3], g_pos, g_a);
+      for (int c = 0; c < 3; ++c) g_hp[c] += g_a[c] / scale[c];
+    }
+
+    // hit_pos = o_w + t d_w
+    for (int c = 0; c < 3; ++c) {
+      g_o[c] += g_hp[c];
+      g_d[c] += t * g_hp[c];
+    }
+    g_t += dot3(g_hp, d_w);
+
+    if (kColors) {
+      float a[3], bb[3], o[3], d[3];
+      for (int c = 0; c < 3; ++c) {
+        a[c] = (o_w[c] - pos[c]) / scale[c];
+        bb[c] = d_w[c] / scale[c];
+      }
+      rotate(qc, rot[3], a, o);
+      rotate(qc, rot[3], bb, d);
+      float g_oo[3] = {0.0f, 0.0f, 0.0f}, g_dd[3] = {0.0f, 0.0f, 0.0f};
+      color_sample_bwd(p, q.g_colors, i, vol, __float_as_int(mat[0]), mat[1],
+                       mat[2], o, d, t, g_alb, g_oo, g_dd, g_t);
+      float ga[3], gb[3];
+      rotate_t(qc, rot[3], g_oo, ga);
+      rotate_t(qc, rot[3], g_dd, gb);
+      for (int c = 0; c < 3; ++c) {
+        g_o[c] += ga[c] / scale[c];
+        g_d[c] += gb[c] / scale[c];
+      }
+    }
+  }
+  if (q.g_o_w != nullptr) {
+    store3(q.g_o_w, i, g_o);
+    store3(q.g_d_w, i, g_d);
+  }
+  q.g_t[i] = g_t;
+  store3(q.g_n_obj, i, g_n);
+}
+
 template <typename T>
 const T* at(const void* const* ptrs, int i) {
   return static_cast<const T*>(ptrs[i]);
@@ -751,7 +1574,64 @@ Lights lights_from(const void* const* ptrs, int first, int points, int spots) {
                 at<float>(ptrs, first + 14), points, spots};
 }
 
+// The surface kernels' inputs: ptrs[0..24] and ints (see vrt_shade_surface).
+void surface_inputs(const void* const* ptrs, const int* ints, long long rays,
+                    SurfaceParams& p) {
+  p.o_w = at<float>(ptrs, 0);
+  p.d_w = at<float>(ptrs, 1);
+  p.t = at<float>(ptrs, 2);
+  p.n_obj = at<float>(ptrs, 3);
+  p.hit = at<uint8_t>(ptrs, 4);
+  p.cell = at<int32_t>(ptrs, 5);
+  p.winner = at<int32_t>(ptrs, 6);
+  p.inst = Instances{at<int32_t>(ptrs, 7), at<float>(ptrs, 8),
+                     at<float>(ptrs, 9), at<float>(ptrs, 10), nullptr,
+                     ints[0]};
+  p.mat = Materials{at<int32_t>(ptrs, 11), at<float>(ptrs, 12),
+                    at<float>(ptrs, 13), at<float>(ptrs, 14),
+                    at<float>(ptrs, 15), at<float>(ptrs, 16),
+                    at<float>(ptrs, 17), at<float>(ptrs, 18),
+                    at<int32_t>(ptrs, 19), at<int32_t>(ptrs, 20),
+                    at<int32_t>(ptrs, 21), ints[1]};
+  p.textures = at<float>(ptrs, 22);
+  p.tex_sizes = at<int32_t>(ptrs, 23);
+  p.tex_count = ints[2];
+  p.tex_h = ints[3];
+  p.tex_w = ints[4];
+  p.colors = ptrs[24];
+  p.color_side = ints[5];
+  p.colors_bf16 = ints[6];
+  p.bounce = ints[10];
+  p.shadows = ints[11];
+  p.rays = rays;
+}
+
 constexpr int kLightPtrs = 15;
+// The combine kernels' inputs: ptrs[0..38] and ints (see vrt_shade_combine).
+void combine_inputs(const void* const* ptrs, const int* ints, long long rays,
+                    CombineParams& p) {
+  p.d_w = at<float>(ptrs, 0);
+  p.n_obj = at<float>(ptrs, 1);
+  p.hit = at<uint8_t>(ptrs, 2);
+  p.unlit = at<uint8_t>(ptrs, 3);
+  p.albedo = at<float>(ptrs, 4);
+  p.shadow_origin = at<float>(ptrs, 5);
+  p.n_w = at<float>(ptrs, 6);
+  p.roughness = at<float>(ptrs, 7);
+  p.metallic = at<float>(ptrs, 8);
+  p.k = at<float>(ptrs, 9);
+  p.refl_dir = at<float>(ptrs, 10);
+  p.refl_rgb = at<float>(ptrs, 11);
+  for (int j = 0; j < kMaxBlocked; ++j) p.blocked[j] = at<uint8_t>(ptrs, 12 + j);
+  p.lights = lights_from(ptrs, 12 + kMaxBlocked, ints[2], ints[3]);
+  p.env = at<float>(ptrs, 12 + kMaxBlocked + kLightPtrs);
+  p.env_side = ints[4];
+  p.lit = ints[0];
+  p.final = ints[1];
+  p.rays = rays;
+  p.out = nullptr;
+}
+
 constexpr int kMaxSharedBytes = 48 * 1024;
 
 }  // namespace
@@ -774,34 +1654,8 @@ extern "C" int vrt_shade_surface(const void* const* ptrs, const int* ints,
       spots < 0 || spots > kMaxLights)
     return cudaErrorInvalidValue;
   SurfaceParams p;
-  p.o_w = at<float>(ptrs, 0);
-  p.d_w = at<float>(ptrs, 1);
-  p.t = at<float>(ptrs, 2);
-  p.n_obj = at<float>(ptrs, 3);
-  p.hit = at<uint8_t>(ptrs, 4);
-  p.cell = at<int32_t>(ptrs, 5);
-  p.winner = at<int32_t>(ptrs, 6);
-  p.inst = Instances{at<int32_t>(ptrs, 7), at<float>(ptrs, 8),
-                     at<float>(ptrs, 9), at<float>(ptrs, 10), nullptr,
-                     n_inst};
-  p.mat = Materials{at<int32_t>(ptrs, 11), at<float>(ptrs, 12),
-                    at<float>(ptrs, 13), at<float>(ptrs, 14),
-                    at<float>(ptrs, 15), at<float>(ptrs, 16),
-                    at<float>(ptrs, 17), at<float>(ptrs, 18),
-                    at<int32_t>(ptrs, 19), at<int32_t>(ptrs, 20),
-                    at<int32_t>(ptrs, 21), n_vol};
-  p.textures = at<float>(ptrs, 22);
-  p.tex_sizes = at<int32_t>(ptrs, 23);
-  p.tex_count = n_tex;
-  p.tex_h = ints[3];
-  p.tex_w = ints[4];
-  p.colors = ptrs[24];
-  p.color_side = ints[5];
-  p.colors_bf16 = ints[6];
+  surface_inputs(ptrs, ints, rays, p);
   p.lights = lights_from(ptrs, 25, points, spots);
-  p.bounce = ints[10];
-  p.shadows = ints[11];
-  p.rays = rays;
   const int out = 25 + kLightPtrs;
   p.albedo = const_cast<float*>(at<float>(ptrs, out));
   p.shadow_origin = const_cast<float*>(at<float>(ptrs, out + 1));
@@ -856,29 +1710,101 @@ extern "C" int vrt_shade_combine(const void* const* ptrs, const int* ints,
       ints[4] < 1)
     return cudaErrorInvalidValue;
   CombineParams p;
-  p.d_w = at<float>(ptrs, 0);
-  p.n_obj = at<float>(ptrs, 1);
-  p.hit = at<uint8_t>(ptrs, 2);
-  p.unlit = at<uint8_t>(ptrs, 3);
-  p.albedo = at<float>(ptrs, 4);
-  p.shadow_origin = at<float>(ptrs, 5);
-  p.n_w = at<float>(ptrs, 6);
-  p.roughness = at<float>(ptrs, 7);
-  p.metallic = at<float>(ptrs, 8);
-  p.k = at<float>(ptrs, 9);
-  p.refl_dir = at<float>(ptrs, 10);
-  p.refl_rgb = at<float>(ptrs, 11);
-  for (int j = 0; j < kMaxBlocked; ++j) p.blocked[j] = at<uint8_t>(ptrs, 12 + j);
-  p.lights = lights_from(ptrs, 12 + kMaxBlocked, points, spots);
-  p.env = at<float>(ptrs, 12 + kMaxBlocked + kLightPtrs);
+  combine_inputs(ptrs, ints, rays, p);
   p.out = const_cast<float*>(at<float>(ptrs, 13 + kMaxBlocked + kLightPtrs));
-  p.env_side = ints[4];
-  p.lit = ints[0];
-  p.final = ints[1];
-  p.rays = rays;
   const size_t shared = 4 * (4 + points * kPointRow + spots * kSpotRow);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned grid = static_cast<unsigned>((rays + kThreads - 1) / kThreads);
   combine_kernel<<<grid, kThreads, shared, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The surface kernel's backward, one thread per ray.  ptrs: the surface
+// kernel's first 25 (o_w ... colors); the cotangents of albedo,
+// shadow_origin, n_w, roughness, metallic and refl_dir (null for zero); then
+// the outputs g_o_w, g_d_w (null, both, when not asked), g_t, g_n_obj and
+// g_colors (an f32 [V*cn^3, 24] accumulator, zeroed by the caller and added
+// into; null when not asked).  ints: the surface kernel's.  Returns
+// cudaGetLastError().
+extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
+                                     long long rays, void* stream) {
+  const int n_inst = ints[0], n_vol = ints[1], n_tex = ints[2];
+  const bool lit = ints[7], textured = ints[8], colors = ints[9];
+  if (n_inst < 1 || n_vol < 1) return cudaErrorInvalidValue;
+  SurfaceBwdParams q;
+  surface_inputs(ptrs, ints, rays, q.f);
+  q.g_albedo = at<float>(ptrs, 25);
+  q.g_shadow_origin = at<float>(ptrs, 26);
+  q.g_n_w = at<float>(ptrs, 27);
+  q.g_roughness = at<float>(ptrs, 28);
+  q.g_metallic = at<float>(ptrs, 29);
+  q.g_refl_dir = at<float>(ptrs, 30);
+  q.g_o_w = const_cast<float*>(at<float>(ptrs, 31));
+  q.g_d_w = const_cast<float*>(at<float>(ptrs, 32));
+  q.g_t = const_cast<float*>(at<float>(ptrs, 33));
+  q.g_n_obj = const_cast<float*>(at<float>(ptrs, 34));
+  q.g_colors = const_cast<float*>(at<float>(ptrs, 35));
+  if ((q.g_o_w == nullptr) != (q.g_d_w == nullptr) || q.g_t == nullptr ||
+      q.g_n_obj == nullptr)
+    return cudaErrorInvalidValue;
+  const size_t shared =
+      4 * (static_cast<size_t>(n_inst) * kInstRow + n_vol * kVolRow +
+           2 * n_tex);
+  if (shared > kMaxSharedBytes) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = static_cast<unsigned>((rays + kThreads - 1) / kThreads);
+#define VRT_SURFACE_BWD(L, T, C) \
+  surface_bwd_kernel<L, T, C><<<grid, kThreads, shared, s>>>(q)
+  if (lit) {
+    if (textured) {
+      if (colors) VRT_SURFACE_BWD(true, true, true);
+      else VRT_SURFACE_BWD(true, true, false);
+    } else {
+      if (colors) VRT_SURFACE_BWD(true, false, true);
+      else VRT_SURFACE_BWD(true, false, false);
+    }
+  } else {
+    if (textured) {
+      if (colors) VRT_SURFACE_BWD(false, true, true);
+      else VRT_SURFACE_BWD(false, true, false);
+    } else {
+      if (colors) VRT_SURFACE_BWD(false, false, true);
+      else VRT_SURFACE_BWD(false, false, false);
+    }
+  }
+#undef VRT_SURFACE_BWD
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The combine kernel's backward, one thread per ray.  ptrs: the combine
+// kernel's first 39 (d_w ... env); g_rgb [R,3]; then the outputs g_albedo,
+// g_shadow_origin, g_n_w, g_roughness, g_metallic, g_refl_dir, g_d_w,
+// g_n_obj, g_refl_rgb, each null where nobody needs it.  ints: the combine
+// kernel's (final is not read).  Returns cudaGetLastError().
+extern "C" int vrt_shade_combine_bwd(const void* const* ptrs, const int* ints,
+                                     long long rays, void* stream) {
+  const int points = ints[2], spots = ints[3];
+  if (points < 0 || points > kMaxLights || spots < 0 || spots > kMaxLights ||
+      ints[4] < 1)
+    return cudaErrorInvalidValue;
+  CombineBwdParams q;
+  combine_inputs(ptrs, ints, rays, q.f);
+  const int g = 13 + kMaxBlocked + kLightPtrs;
+  q.g_rgb = at<float>(ptrs, g);
+  float* outs[9];
+  for (int j = 0; j < 9; ++j) outs[j] = const_cast<float*>(at<float>(ptrs, g + 1 + j));
+  q.g_albedo = outs[0];
+  q.g_shadow_origin = outs[1];
+  q.g_n_w = outs[2];
+  q.g_roughness = outs[3];
+  q.g_metallic = outs[4];
+  q.g_refl_dir = outs[5];
+  q.g_d_w = outs[6];
+  q.g_n_obj = outs[7];
+  q.g_refl_rgb = outs[8];
+  const size_t shared = 4 * (4 + points * kPointRow + spots * kSpotRow);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = static_cast<unsigned>((rays + kThreads - 1) / kThreads);
+  combine_bwd_kernel<<<grid, kThreads, shared, s>>>(q);
   return static_cast<int>(cudaGetLastError());
 }

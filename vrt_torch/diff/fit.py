@@ -7,11 +7,19 @@ repacked from the SDF inside the step (``pack_cell_corners`` on the
 device, differentiable through its slices); colours reach the colour grid
 through its corner-packed view.  On CUDA tensors the corner table is read
 by the fused resolve, whose backward kernel adds the corner cotangents
-(``vrt_torch.kernels.resolve.ResolveScene``), and the colour table by K3
-(``vrt_torch.kernels.rows``), whose backward is a scatter-add.  The march runs under ``torch.no_grad()`` and is never re-run
-by the backward.  The octree accel is rebuilt from the current SDF on the
-device every step (``rebuild_accel``), so the fitted geometry is always
-marched consistently.
+(``vrt_torch.kernels.resolve.ResolveScene``), and every radiance level
+shades through ``vrt_torch.kernels.shade.ShadeSurface`` and
+``ShadeCombine``: the two shade kernels forward, and two backward kernels
+that recompute the stage and return the cotangents of the rays, ``t``,
+``n_obj`` and the record, the surface backward adding the colour rows'
+cotangents into the colour table with 16-byte atomics.  Only the tonemap
+and the loss stay eager.  A fit that also optimizes a material constant, a
+texture, the env, a light or an instance transform shades on the plain
+stages under autograd instead (``renderer.shade_stages``).  The march runs
+under ``torch.no_grad()`` and is never re-run by the backward.  The octree
+accel is rebuilt from the current SDF on the device every step
+(``rebuild_accel``), so the fitted geometry is always marched
+consistently.
 
 Parameters are dicts of tensors; a step is a plain function
 ``step(params, opt_state, ...) -> (params, opt_state, loss)`` with the

@@ -4,6 +4,13 @@
                        shadows) -> SurfaceRecord
     shade_combine_cuda(scene, rec, d_w, n_obj, hit_mask, unlit_attr, refl_rgb,
                        blocked, mode, final) -> rgb f32 [R,3] | rgba f32 [R,4]
+    shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit, inst, mode,
+                                bounce, cotangents)
+        -> (g_o_w, g_d_w, g_t, g_n_obj, g_colors f32 [V*C^3, 24])
+    shade_combine_backward_cuda(scene, rec, d_w, n_obj, hit_mask, unlit_attr,
+                                refl_rgb, blocked, mode, g_rgb)
+        -> cotangents of the record's floats, d_w, n_obj and refl_rgb
+    ShadeSurface.apply / ShadeCombine.apply: the two stages, differentiable
 
 The two stages of one radiance level, one thread a ray: the surface kernel
 runs between the level's resolve and the traces the level spawns (its shadow
@@ -12,8 +19,15 @@ kernel runs after them and, for the primary rays (``final``), tonemaps into
 an [R,4] frame with alpha 1.  Their plain versions are
 ``vrt_torch.render.renderer.shade_surface_reference`` and
 ``shade_combine_reference``, which take the same arguments;
-``renderer.shade_stages`` picks between the pairs.  The kernels record no
-autograd graph and have no backward.
+``renderer.shade_stages`` picks among the pairs.  The forward kernels
+record no autograd graph; ``ShadeSurface`` and ``ShadeCombine`` add it,
+with the two backward kernels (one thread a ray, each recomputing its
+stage's terms from the stage's inputs) as their backward on CUDA tensors
+and the plain versions ``renderer.shade_surface_backward_reference`` /
+``shade_combine_backward_reference`` (autograd of the plain stages) on CPU
+tensors.  They return the gradient in the rays, ``t``, ``n_obj``, the
+record's floats, the bounce's radiance and the colour table, and none in the
+scene's other tables.
 
 On hit lanes a kernel agrees with its plain version to rounding (built with
 ``--fmad=false`` in the plain version's operation order, but torch's own
@@ -24,6 +38,11 @@ direction; its material (``albedo``, ``n_w``, ``roughness``, ``metallic``,
 ``k``) is left unwritten there, and at a level that spawns no trace so is
 the shadow origin.  The plain version holds values of a sanitised lane;
 every reader discards either.
+
+The backward kernels agree with their plain versions to rounding: they sum
+in their own order, and the colour table's cotangents are added with f32
+atomics in an order that changes from run to run.  Both write exact zeros
+into every cotangent of a miss lane, whatever its record holds.
 
 ``LAUNCHES`` counts the launches of each kernel.
 """
@@ -38,11 +57,12 @@ from vrt_torch.kernels import _build
 from vrt_torch.kernels.march import _check as _check_tensor
 from vrt_torch.kernels.march import _stream
 from vrt_torch.kernels.resolve import instance_table
-from vrt_torch.march.types import MarchHit, SurfaceRecord
+from vrt_torch.march.types import (RECORD_FIELDS, RECORD_GRAD_FIELDS,
+                                    MarchHit, SurfaceRecord)
 from vrt_torch.render.gpuscene import (MAX_POINT_LIGHTS, MAX_SPOT_LIGHTS,
                                        RenderMode)
 
-LAUNCHES = {"surface": 0, "combine": 0}
+LAUNCHES = {"surface": 0, "combine": 0, "surface_bwd": 0, "combine_bwd": 0}
 
 NVCC_FLAGS = ["--fmad=false"]
 
@@ -50,13 +70,14 @@ _lib = None
 
 
 def build() -> str:
-    """Compile (when the library is missing) and load the two kernels.
+    """Compile (when the library is missing) and load the four kernels.
     Returns the compiler's output, or "" when already built."""
     global _lib
     if _lib is not None:
         return ""
     lib, log = _build.build("shade.cu", NVCC_FLAGS, headers=["scene.cuh"])
-    for fn in (lib.vrt_shade_surface, lib.vrt_shade_combine):
+    for fn in (lib.vrt_shade_surface, lib.vrt_shade_combine,
+               lib.vrt_shade_surface_bwd, lib.vrt_shade_combine_bwd):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -102,18 +123,16 @@ def _light_ptrs(scene, dev):
     return ptrs
 
 
-def shade_surface_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit, inst,
-                       mode: RenderMode, bounce: bool,
-                       shadows: bool) -> SurfaceRecord:
-    """Launch the surface kernel on ``torch.cuda.current_stream()`` for the
-    hits ``(hit, inst)`` of a march and the ``(t, n_obj)`` of their resolve
-    on world rays ``o_w``, ``d_w``; reads ``hit.hit`` and, with per-voxel
-    colours, ``hit.cell``.  ``bounce`` adds the mirror ray and its gate,
-    ``shadows`` the level's shadow rays (both lit mode only).  Raises on any
-    input the kernel does not take; never falls back."""
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _surface_args(scene, o_w, d_w, t, n_obj, hit: MarchHit, inst,
+                  mode: RenderMode, bounce: bool, shadows: bool, who: str):
+    """Check what both surface kernels read.  Returns (device, rays, the
+    colour table or None, the 25 input pointers, the 14 ints)."""
     if o_w.device.type != "cuda":
-        raise ValueError(f"the surface kernel runs on CUDA tensors, got "
-                         f"{o_w.device}")
+        raise ValueError(f"the {who} runs on CUDA tensors, got {o_w.device}")
     dev = o_w.device
     rays = o_w.shape[0]
     f32, i32 = torch.float32, torch.int32
@@ -153,6 +172,39 @@ def shade_surface_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit, inst,
         _check(colors, "voxel_color_corners", colors.dtype,
                (nv,) + (color_side,) * 3 + (8, 3), dev)
         _check(hit.cell, "hit.cell", i32, (rays, 3), dev)
+    ptrs = [o_w.data_ptr(), d_w.data_ptr(), t.data_ptr(), n_obj.data_ptr(),
+            hit.hit.data_ptr(),
+            hit.cell.data_ptr() if scene.use_voxel_colors else None,
+            inst.data_ptr(), *(x.data_ptr() for x in table),
+            vols.n.data_ptr(), vols.cell_size.data_ptr(),
+            vols.extends.data_ptr(), scene.tint.data_ptr(),
+            scene.roughness.data_ptr(), scene.metallic.data_ptr(),
+            scene.k.data_ptr(), scene.tex_scale.data_ptr(),
+            scene.albedo_tex.data_ptr(), scene.normal_tex.data_ptr(),
+            scene.rm_tex.data_ptr(), tex.data_ptr(),
+            scene.tex_sizes.data_ptr(), _ptr(colors)]
+    ints = [n_inst, nv, tex.shape[0], tex.shape[1], tex.shape[2], color_side,
+            colors is not None and colors.dtype == torch.bfloat16, lit,
+            mode.textured, scene.use_voxel_colors, bounce, shadows,
+            scene.num_point, scene.num_spot]
+    return dev, rays, colors, ptrs, ints
+
+
+def shade_surface_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit, inst,
+                       mode: RenderMode, bounce: bool,
+                       shadows: bool) -> SurfaceRecord:
+    """Launch the surface kernel on ``torch.cuda.current_stream()`` for the
+    hits ``(hit, inst)`` of a march and the ``(t, n_obj)`` of their resolve
+    on world rays ``o_w``, ``d_w``; reads ``hit.hit`` and, with per-voxel
+    colours, ``hit.cell``.  ``bounce`` adds the mirror ray and its gate,
+    ``shadows`` the level's shadow rays (both lit mode only).  Records no
+    autograd graph (``ShadeSurface`` adds it).  Raises on any input the
+    kernel does not take; never falls back."""
+    dev, rays, _, ptrs, ints = _surface_args(
+        scene, o_w, d_w, t, n_obj, hit, inst, mode, bounce, shadows,
+        "surface kernel")
+    lit, bounce, shadows = ints[7], ints[10], ints[11]
+    f32 = torch.float32
     lights = _light_ptrs(scene, dev)
     n_shadow = scene.num_point + scene.num_spot
 
@@ -174,45 +226,66 @@ def shade_surface_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit, inst,
         rec.shadow_dir = tuple(sdir[j] for j in range(n_shadow))
     if rays == 0:
         return rec
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-
-    ptrs = [o_w.data_ptr(), d_w.data_ptr(), t.data_ptr(), n_obj.data_ptr(),
-            hit.hit.data_ptr(),
-            hit.cell.data_ptr() if scene.use_voxel_colors else None,
-            inst.data_ptr(), *(x.data_ptr() for x in table),
-            vols.n.data_ptr(), vols.cell_size.data_ptr(),
-            vols.extends.data_ptr(), scene.tint.data_ptr(),
-            scene.roughness.data_ptr(), scene.metallic.data_ptr(),
-            scene.k.data_ptr(), scene.tex_scale.data_ptr(),
-            scene.albedo_tex.data_ptr(), scene.normal_tex.data_ptr(),
-            scene.rm_tex.data_ptr(), tex.data_ptr(),
-            scene.tex_sizes.data_ptr(), ptr(colors), *lights,
-            rec.albedo.data_ptr(), ptr(rec.shadow_origin), ptr(rec.n_w),
-            ptr(rec.roughness), ptr(rec.metallic), ptr(rec.k),
-            ptr(rec.refl_dir), ptr(rec.gate), ptr(tmax), ptr(sdir)]
-    ints = [n_inst, nv, tex.shape[0], tex.shape[1], tex.shape[2], color_side,
-            colors is not None and colors.dtype == torch.bfloat16, lit,
-            mode.textured, scene.use_voxel_colors, bounce, shadows,
-            scene.num_point, scene.num_spot]
+    ptrs += [*lights, rec.albedo.data_ptr(), _ptr(rec.shadow_origin),
+             _ptr(rec.n_w), _ptr(rec.roughness), _ptr(rec.metallic),
+             _ptr(rec.k), _ptr(rec.refl_dir), _ptr(rec.gate), _ptr(tmax),
+             _ptr(sdir)]
     _launch("vrt_shade_surface", "surface", ptrs, ints, rays, dev)
     return rec
 
 
-def shade_combine_cuda(scene, rec: SurfaceRecord, d_w, n_obj, hit_mask,
-                       unlit_attr, refl_rgb, blocked, mode: RenderMode,
-                       final: bool = False):
-    """Launch the combine kernel on ``torch.cuda.current_stream()``: the
-    level's radiance from its surface record ``rec``, the bounce's radiance
-    ``refl_rgb`` [R,3] (None without a bounce) and ``blocked``, one bool
-    [R] per light from the shadow traces (the directional light's first;
-    None where no shadow is traced).  Returns linear rgb [R,3], or with
-    ``final`` the tonemapped [R,4] frame with alpha 1.  Raises on any input
-    the kernel does not take; never falls back."""
+def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
+                                inst, mode: RenderMode, bounce: bool,
+                                cotangents, rays_grad: bool = True,
+                                table_grad: bool = True):
+    """Launch the surface kernel's backward on
+    ``torch.cuda.current_stream()``: the cotangents of the record's
+    ``RECORD_GRAD_FIELDS`` (albedo, shadow origin, world normal, roughness,
+    metallic, mirror direction; each None for zero) pulled back to the rays,
+    ``t``, ``n_obj`` and the colour table, from the surface kernel's own
+    inputs (it recomputes the stage).  Returns (g_o_w, g_d_w f32 [R,3] or
+    None without ``rays_grad``, g_t f32 [R], g_n_obj f32 [R,3], g_colors: an
+    f32 [V*C^3, 24] accumulator, zeroed here and added into by 16-byte
+    atomics, or None without per-voxel colours or ``table_grad``; the caller
+    casts it to the table's dtype).  A miss lane gets zeros.  Raises on any
+    input the kernel does not take; never falls back."""
+    dev, rays, colors, ptrs, ints = _surface_args(
+        scene, o_w, d_w, t, n_obj, hit, inst, mode, bounce, False,
+        "surface kernel's backward")
+    f32 = torch.float32
+    cots = list(cotangents)
+    if len(cots) != len(RECORD_GRAD_FIELDS):
+        raise ValueError(f"shade: {len(cots)} cotangents for "
+                         f"{RECORD_GRAD_FIELDS}")
+    for name, g in zip(RECORD_GRAD_FIELDS, cots):
+        if g is not None:
+            _check(g, f"g_{name}", f32,
+                   (rays,) if name in ("roughness", "metallic") else (rays, 3),
+                   dev)
+    g_o_w = g_d_w = acc = None
+    if rays_grad:
+        g_o_w = torch.empty((rays, 3), dtype=f32, device=dev)
+        g_d_w = torch.empty((rays, 3), dtype=f32, device=dev)
+    g_t = torch.empty(rays, dtype=f32, device=dev)
+    g_n = torch.empty((rays, 3), dtype=f32, device=dev)
+    if colors is not None and table_grad:
+        acc = torch.zeros((colors.numel() // 24, 24), dtype=f32, device=dev)
+    if rays == 0:
+        return g_o_w, g_d_w, g_t, g_n, acc
+    ptrs += [_ptr(g) for g in cots] + [_ptr(g_o_w), _ptr(g_d_w),
+                                       g_t.data_ptr(), g_n.data_ptr(),
+                                       _ptr(acc)]
+    _launch("vrt_shade_surface_bwd", "surface_bwd", ptrs, ints, rays, dev)
+    return g_o_w, g_d_w, g_t, g_n, acc
+
+
+def _combine_args(scene, rec: SurfaceRecord, d_w, n_obj, hit_mask,
+                  unlit_attr, refl_rgb, blocked, mode: RenderMode,
+                  final: bool, who: str):
+    """Check what both combine kernels read.  Returns (device, rays, the 39
+    input pointers, the 5 ints)."""
     if d_w.device.type != "cuda":
-        raise ValueError(f"the combine kernel runs on CUDA tensors, got "
-                         f"{d_w.device}")
+        raise ValueError(f"the {who} runs on CUDA tensors, got {d_w.device}")
     dev = d_w.device
     rays = d_w.shape[0]
     f32 = torch.float32
@@ -246,13 +319,6 @@ def shade_combine_cuda(scene, rec: SurfaceRecord, d_w, n_obj, hit_mask,
                          f"[6,E,E,3]")
     _check(env, "env", f32, env.shape, dev)
     lights = _light_ptrs(scene, dev)
-    out = torch.empty((rays, 4 if final else 3), dtype=f32, device=dev)
-    if rays == 0:
-        return out
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-
     shadow_ptrs = [None] * (1 + MAX_POINT_LIGHTS + MAX_SPOT_LIGHTS)
     if blocked is not None:
         # the directional light's, then the point and the spot lights'
@@ -261,11 +327,192 @@ def shade_combine_cuda(scene, rec: SurfaceRecord, d_w, n_obj, hit_mask,
             shadow_ptrs[1 + j] = blocked[1 + j].data_ptr()
     ptrs = [d_w.data_ptr(), n_obj.data_ptr(), hit_mask.data_ptr(),
             unlit_attr.data_ptr(), rec.albedo.data_ptr(),
-            ptr(rec.shadow_origin), ptr(rec.n_w), ptr(rec.roughness),
-            ptr(rec.metallic), ptr(rec.k),
-            ptr(rec.refl_dir) if refl_rgb is not None else None,
-            ptr(refl_rgb), *shadow_ptrs, *lights, env.data_ptr(),
-            out.data_ptr()]
+            _ptr(rec.shadow_origin), _ptr(rec.n_w), _ptr(rec.roughness),
+            _ptr(rec.metallic), _ptr(rec.k),
+            _ptr(rec.refl_dir) if refl_rgb is not None else None,
+            _ptr(refl_rgb), *shadow_ptrs, *lights, env.data_ptr()]
     ints = [lit, final, scene.num_point, scene.num_spot, env.shape[1]]
-    _launch("vrt_shade_combine", "combine", ptrs, ints, rays, dev)
+    return dev, rays, ptrs, ints
+
+
+def shade_combine_cuda(scene, rec: SurfaceRecord, d_w, n_obj, hit_mask,
+                       unlit_attr, refl_rgb, blocked, mode: RenderMode,
+                       final: bool = False):
+    """Launch the combine kernel on ``torch.cuda.current_stream()``: the
+    level's radiance from its surface record ``rec``, the bounce's radiance
+    ``refl_rgb`` [R,3] (None without a bounce) and ``blocked``, one bool
+    [R] per light from the shadow traces (the directional light's first;
+    None where no shadow is traced).  Returns linear rgb [R,3], or with
+    ``final`` the tonemapped [R,4] frame with alpha 1.  Records no autograd
+    graph (``ShadeCombine`` adds it).  Raises on any input the kernel does
+    not take; never falls back."""
+    dev, rays, ptrs, ints = _combine_args(
+        scene, rec, d_w, n_obj, hit_mask, unlit_attr, refl_rgb, blocked,
+        mode, final, "combine kernel")
+    out = torch.empty((rays, 4 if final else 3), dtype=torch.float32,
+                      device=dev)
+    if rays == 0:
+        return out
+    _launch("vrt_shade_combine", "combine", ptrs + [out.data_ptr()], ints,
+            rays, dev)
     return out
+
+
+def shade_combine_backward_cuda(scene, rec: SurfaceRecord, d_w, n_obj,
+                                hit_mask, unlit_attr, refl_rgb, blocked,
+                                mode: RenderMode, g_rgb, needs=None):
+    """Launch the combine kernel's backward on
+    ``torch.cuda.current_stream()`` for the cotangent ``g_rgb`` [R,3] of the
+    linear radiance (``final`` has no backward): returns the cotangents of
+    the record's ``RECORD_GRAD_FIELDS``, then of ``d_w``, ``n_obj`` and
+    ``refl_rgb``, f32, each None where that input is None or ``needs`` (nine
+    booleans) says nobody needs it.  Recomputes the stage from its inputs;
+    reads the record on hit lanes only.  Raises on any input the kernel does
+    not take; never falls back."""
+    dev, rays, ptrs, ints = _combine_args(
+        scene, rec, d_w, n_obj, hit_mask, unlit_attr, refl_rgb, blocked,
+        mode, False, "combine kernel's backward")
+    _check(g_rgb, "g_rgb", torch.float32, (rays, 3), dev)
+    if not mode.lit:
+        refl_rgb = None
+    inputs = [getattr(rec, f) for f in RECORD_GRAD_FIELDS] + [d_w, n_obj,
+                                                            refl_rgb]
+    if refl_rgb is None:
+        inputs[RECORD_GRAD_FIELDS.index("refl_dir")] = None
+    needs = [True] * len(inputs) if needs is None else list(needs)
+    outs = [None if x is None or not need
+            else torch.empty(x.shape, dtype=torch.float32, device=dev)
+            for x, need in zip(inputs, needs)]
+    if rays == 0:
+        return tuple(outs)
+    _launch("vrt_shade_combine_bwd", "combine_bwd",
+            ptrs + [g_rgb.data_ptr()] + [_ptr(g) for g in outs], ints, rays,
+            dev)
+    return tuple(outs)
+
+
+class ShadeSurface(torch.autograd.Function):
+    """The surface stage with its gradient in ``o_w``, ``d_w``, ``t``,
+    ``n_obj`` and ``colors`` (the scene's corner-packed colour table, passed
+    apart so that autograd sees it; None without per-voxel colours): on
+    CUDA tensors the surface kernel and its backward kernel, on CPU tensors
+    the plain stage and its plain backward.  Returns ``SurfaceRecord.pack``'s
+    tuple; ``k``, ``gate`` and the shadow rays carry no gradient.  Saves the
+    inputs alone (the backward recomputes the stage)."""
+
+    @staticmethod
+    def forward(ctx, o_w, d_w, t, n_obj, colors, scene, hit, inst, mode,
+                bounce, shadows):
+        own = scene.voxel_color_corners if scene.use_voxel_colors else None
+        if colors is not own:
+            raise ValueError("ShadeSurface: colors must be the scene's "
+                             "corner-packed colour table")
+        if o_w.device.type == "cuda":
+            rec = shade_surface_cuda(scene, o_w, d_w, t, n_obj, hit, inst,
+                                     mode, bounce, shadows)
+        else:
+            from vrt_torch.render.renderer import shade_surface_reference
+
+            # no graph is recorded inside forward
+            rec = shade_surface_reference(scene, o_w, d_w, t, n_obj, hit,
+                                          inst, mode, bounce, shadows)
+        out = rec.pack()
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(*(
+            x for f, x in zip(RECORD_FIELDS + ("shadow_tmax", "shadow_dir"),
+                              out)
+            if x is not None and f not in RECORD_GRAD_FIELDS))
+        ctx.save_for_backward(o_w, d_w, t, n_obj, colors, inst, hit.hit,
+                              hit.cell)
+        ctx.scene, ctx.mode, ctx.bounce = scene, mode, bounce
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *grads):
+        o_w, d_w, t, n_obj, colors, inst, hit_mask, cell = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        cots = [grads[RECORD_FIELDS.index(f)] for f in RECORD_GRAD_FIELDS]
+        if all(g is None for g in cots):
+            return (None,) * 11
+        hit = MarchHit(hit=hit_mask, t=None, kind=None, cell=cell, t_in=None,
+                       t_out=None, face_normal=None)
+        table_grad = colors is not None and need[4]
+        if o_w.device.type == "cuda":
+            g_o_w, g_d_w, g_t, g_n, acc = shade_surface_backward_cuda(
+                ctx.scene, o_w, d_w, t, n_obj, hit, inst, ctx.mode,
+                ctx.bounce, [None if g is None else g.contiguous()
+                             for g in cots], need[0] or need[1], table_grad)
+        else:
+            from vrt_torch.render.renderer import \
+                shade_surface_backward_reference
+
+            g_o_w, g_d_w, g_t, g_n, acc = shade_surface_backward_reference(
+                ctx.scene, o_w, d_w, t, n_obj, hit, inst, ctx.mode,
+                ctx.bounce, cots)
+        g_colors = None
+        if table_grad:
+            g_colors = acc.to(colors.dtype).reshape(colors.shape)
+            del acc
+        return (g_o_w if need[0] else None, g_d_w if need[1] else None,
+                g_t if need[2] else None, g_n if need[3] else None,
+                g_colors) + (None,) * 6
+
+
+class ShadeCombine(torch.autograd.Function):
+    """The combine stage (linear rgb: the tonemap has no backward) with its
+    gradient in the record's floats (``RECORD_GRAD_FIELDS``), ``d_w``,
+    ``n_obj`` and ``refl_rgb``: on CUDA tensors the combine kernel and its
+    backward kernel, on CPU tensors the plain stage and its plain backward.
+    ``k``, the masks and the shadow traces' booleans carry no gradient.
+    Saves the inputs alone."""
+
+    @staticmethod
+    def forward(ctx, albedo, shadow_origin, n_w, roughness, metallic,
+                refl_dir, d_w, n_obj, refl_rgb, k, scene, hit_mask,
+                unlit_attr, blocked, mode):
+        rec = SurfaceRecord(albedo=albedo, shadow_origin=shadow_origin,
+                            n_w=n_w, roughness=roughness, metallic=metallic,
+                            k=k, refl_dir=refl_dir)
+        if d_w.device.type == "cuda":
+            rgb = shade_combine_cuda(scene, rec, d_w, n_obj, hit_mask,
+                                     unlit_attr, refl_rgb, blocked, mode,
+                                     False)
+        else:
+            from vrt_torch.render.renderer import shade_combine_reference
+
+            rgb = shade_combine_reference(scene, rec, d_w, n_obj, hit_mask,
+                                          unlit_attr, refl_rgb, blocked, mode,
+                                          False)
+        blocked = list(blocked or ())
+        ctx.save_for_backward(albedo, shadow_origin, n_w, roughness, metallic,
+                              refl_dir, d_w, n_obj, refl_rgb, k, hit_mask,
+                              unlit_attr, *blocked)
+        ctx.shadowed = bool(blocked)
+        ctx.scene, ctx.mode = scene, mode
+        return rgb
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_rgb):
+        saved = ctx.saved_tensors
+        (albedo, shadow_origin, n_w, roughness, metallic, refl_dir, d_w,
+         n_obj, refl_rgb, k, hit_mask, unlit_attr) = saved[:12]
+        blocked = list(saved[12:]) if ctx.shadowed else None
+        rec = SurfaceRecord(albedo=albedo, shadow_origin=shadow_origin,
+                            n_w=n_w, roughness=roughness, metallic=metallic,
+                            k=k, refl_dir=refl_dir)
+        need = ctx.needs_input_grad[:9]
+        if d_w.device.type == "cuda":
+            grads = shade_combine_backward_cuda(
+                ctx.scene, rec, d_w, n_obj, hit_mask, unlit_attr, refl_rgb,
+                blocked, ctx.mode, g_rgb.contiguous(), need)
+        else:
+            from vrt_torch.render.renderer import \
+                shade_combine_backward_reference
+
+            grads = shade_combine_backward_reference(
+                ctx.scene, rec, d_w, n_obj, hit_mask, unlit_attr, refl_rgb,
+                blocked, ctx.mode, g_rgb)
+        return tuple(g if n else None for g, n in zip(grads, need)) \
+            + (None,) * 6

@@ -196,3 +196,41 @@ class SurfaceRecord:
     # intensity f32 [R]) at the shadow origin, kept with their graph so the
     # plain combine stage does not compute them again
     lights: tuple | None = None
+
+    def pack(self) -> tuple:
+        """The record as the shade Functions return it, tensors or None in
+        the order of ``RECORD_FIELDS``, then the shadow t_max stacked [1+L,R]
+        and the shadow directions stacked [L,R,3].  ``lights`` is dropped:
+        the combine stage computes the lights again from the shadow
+        origin."""
+        def stacked(xs):
+            if xs is None:
+                return None
+            base = xs[0]._base if xs else None
+            # the kernel's tuples are the rows of one tensor already
+            if base is not None and base.shape[0] == len(xs) and all(
+                    x._base is base for x in xs):
+                return base
+            return torch.stack(xs) if xs else torch.empty(
+                (0,) + self.albedo.shape, device=self.albedo.device)
+        return tuple(getattr(self, f) for f in RECORD_FIELDS) + (
+            stacked(self.shadow_tmax), stacked(self.shadow_dir))
+
+    @classmethod
+    def unpack(cls, tensors) -> "SurfaceRecord":
+        """The record of ``pack``'s tuple; the shadow tuples are views of
+        the rows of the stacked tensors."""
+        rec = cls(**dict(zip(RECORD_FIELDS, tensors)))
+        tmax, sdir = tensors[len(RECORD_FIELDS):]
+        if tmax is not None:
+            rec.shadow_tmax = tuple(tmax.unbind(0))
+            rec.shadow_dir = tuple(sdir.unbind(0))
+        return rec
+
+
+# the record's tensors in the order the shade Functions pass them; those of
+# RECORD_GRAD_FIELDS carry a gradient, ``k`` and ``gate`` do not
+RECORD_FIELDS = ("albedo", "shadow_origin", "n_w", "roughness", "metallic",
+                 "k", "refl_dir", "gate")
+RECORD_GRAD_FIELDS = ("albedo", "shadow_origin", "n_w", "roughness",
+                      "metallic", "refl_dir")

@@ -42,7 +42,8 @@ from vrt_torch.march import isosurface as iso
 from vrt_torch.march.march import march_lanes, ray_aabb
 from vrt_torch.march.resolve import (_OFFS7, resolve_hits,
                                       resolve_hits_backward)
-from vrt_torch.march.types import MarchHit, SurfaceRecord
+from vrt_torch.march.types import (RECORD_GRAD_FIELDS, MarchHit,
+                                    SurfaceRecord)
 from vrt_torch.render.gpuscene import GPUScene, RenderMode
 from vrt_torch.shade import brdf as _brdf
 from vrt_torch.shade import lights as _lights
@@ -285,10 +286,12 @@ def resolve_scene_backward_reference(scene: GPUScene, o_w, d_w,
     return g_o_w, g_d_w, g_corners
 
 
-def _voxel_color_sample(scene: GPUScene, pr, hit: MarchHit, o_w, d_w, t):
+def _voxel_color_sample(scene: GPUScene, pr, hit: MarchHit, o_w, d_w, t,
+                        gather=None):
     """Trilinear sample of the per-voxel colour field at the hit point,
-    from one 24-channel row of the corner-packed colours per hit cell (K3
-    on CUDA tensors), with the per-corner valid mask after the gather."""
+    from one 24-channel row of the corner-packed colours per hit cell
+    (``gather``, default ``gather_rows``: K3 on CUDA tensors), with the
+    per-corner valid mask after the gather."""
     o, d = _world_to_object(pr["pos"], pr["rot"], pr["scale"], o_w, d_w)
     h = pr["cell_size"]
     cell = hit.cell
@@ -302,7 +305,8 @@ def _voxel_color_sample(scene: GPUScene, pr, hit: MarchHit, o_w, d_w, t):
     cn = pcc.shape[1]
     ic = torch.clamp(cell, 0, cn - 1)
     lin = iso._flat_index(pr["vol"], ic, cn).to(torch.int32)
-    rows = gather_rows(pcc.reshape(-1, 24), lin, 24).reshape(-1, 8, 3)
+    rows = (gather or gather_rows)(pcc.reshape(-1, 24), lin,
+                                   24).reshape(-1, 8, 3)
     cvals = torch.where(valid[..., None], rows, 0.0)
     w = torch.abs((1.0 - corners.to(torch.float32))[None] - p[:, None, :])
     w = (w[..., 0] * w[..., 1]) * w[..., 2]                    # [R,8]
@@ -415,7 +419,8 @@ def _spot_light(scene: GPUScene, si: int, shadow_origin):
 
 def shade_surface_reference(scene: GPUScene, o_w, d_w, t, n_obj,
                             hit: MarchHit, inst, mode: RenderMode,
-                            bounce: bool, shadows: bool) -> SurfaceRecord:
+                            bounce: bool, shadows: bool,
+                            gather=None) -> SurfaceRecord:
     """The first stage of a level's shading, before the traces the level
     spawns, in plain PyTorch (the plain version of ``shade.cu``'s surface
     kernel; port of the head of ``vrt.render.renderer._shade_lit`` and of
@@ -425,7 +430,8 @@ def shade_surface_reference(scene: GPUScene, o_w, d_w, t, n_obj,
     triplanar albedo, roughness / metallic and tangent normal, or the
     per-voxel colour sample — and the world normal; with ``bounce`` the
     mirror direction and its gate (roughness < 0.3); with ``shadows`` the
-    level's shadow rays.  In unlit mode only the albedo."""
+    level's shadow rays.  In unlit mode only the albedo.  ``gather`` reads
+    the colour rows (``kernels.rows.gather_rows`` by default)."""
     dev = o_w.device
     t = torch.where(hit.hit, t, 0.0)
     n_obj = torch.where(hit.hit[..., None], n_obj,
@@ -434,7 +440,7 @@ def shade_surface_reference(scene: GPUScene, o_w, d_w, t, n_obj,
     vol_id = pr["vol"]
     if not mode.lit:
         return SurfaceRecord(albedo=_unlit_albedo(scene, pr, o_w, d_w, t,
-                                                  n_obj, hit, mode))
+                                                  n_obj, hit, mode, gather))
 
     hit_pos = o_w + t[..., None] * d_w
     shadow_origin = hit_pos - d_w * 0.1
@@ -464,7 +470,7 @@ def shade_surface_reference(scene: GPUScene, o_w, d_w, t, n_obj,
         n_shade = n_obj
 
     if scene.use_voxel_colors:
-        albedo = _voxel_color_sample(scene, pr, hit, o_w, d_w, t)
+        albedo = _voxel_color_sample(scene, pr, hit, o_w, d_w, t, gather)
 
     rec = SurfaceRecord(
         albedo=albedo, shadow_origin=shadow_origin,
@@ -484,11 +490,11 @@ def shade_surface_reference(scene: GPUScene, o_w, d_w, t, n_obj,
 
 
 def _unlit_albedo(scene: GPUScene, pr, o_w, d_w, t, n_obj, hit: MarchHit,
-                  mode: RenderMode):
+                  mode: RenderMode, gather):
     """Unlit closest hit: tinted albedo only (the per-voxel colour
     sample where the scene has one)."""
     if scene.use_voxel_colors:
-        return _voxel_color_sample(scene, pr, hit, o_w, d_w, t)
+        return _voxel_color_sample(scene, pr, hit, o_w, d_w, t, gather)
     vol_id = pr["vol"]
     tint = scene.tint[vol_id][..., :3]
     if mode.textured:
@@ -515,7 +521,6 @@ def shade_combine_reference(scene: GPUScene, rec: SurfaceRecord, d_w, n_obj,
     unlit-attribute select and the miss select with the env lookup.
     Returns linear rgb [R,3], or with ``final`` the tonemapped frame
     [R,4] with alpha 1."""
-    dev = d_w.device
     miss_rgb = _tex.sample_env(scene.env, d_w)
     if mode.lit:
         shaded = _lit_radiance(scene, rec, d_w, refl_rgb, blocked)
@@ -524,10 +529,13 @@ def shade_combine_reference(scene: GPUScene, rec: SurfaceRecord, d_w, n_obj,
     # unlit-attribute lanes show the raw (object-space) attribute normal
     shaded = torch.where(unlit_attr[..., None], n_obj, shaded)
     rgb = torch.where(hit_mask[..., None], shaded, miss_rgb)
-    if not final:
-        return rgb
+    return _tonemapped(rgb) if final else rgb
+
+
+def _tonemapped(rgb):
+    """The frame of the primary rays' radiance: tonemapped [R,4], alpha 1."""
     return torch.cat([tonemap(rgb), torch.ones((rgb.shape[0], 1),
-                                               device=dev)], dim=-1)
+                                               device=rgb.device)], dim=-1)
 
 
 def _lit_radiance(scene: GPUScene, rec: SurfaceRecord, d_w, refl_rgb,
@@ -577,65 +585,231 @@ def _lit_radiance(scene: GPUScene, rec: SurfaceRecord, d_w, refl_rgb,
     return diffuse
 
 
+def shade_surface_backward_reference(scene: GPUScene, o_w, d_w, t, n_obj,
+                                     hit: MarchHit, inst, mode: RenderMode,
+                                     bounce: bool, cotangents,
+                                     acc_dtype=torch.float32):
+    """The vector-Jacobian product of ``shade_surface_reference`` in the
+    rays, ``t``, ``n_obj`` and the colour table: the plain version of the
+    surface backward kernel.  ``cotangents`` are those of the record's
+    ``RECORD_GRAD_FIELDS`` (albedo, shadow origin, world normal, roughness,
+    metallic, mirror direction), each None for zero.  Returns (g_o_w, g_d_w
+    f32 [R,3], g_t f32 [R], g_n_obj f32 [R,3], g_colors [V*C^3, 24] in
+    ``acc_dtype``, or None without per-voxel colours; the caller casts it
+    once to the table's dtype).
+
+    The stage is computed again under ``torch.enable_grad()`` on leaves of
+    the inputs and differentiated by ``torch.autograd.grad``; the colour
+    rows are gathered by plain indexing as leaves of their own, and their
+    gradient is added into the table by ``scatter_rows_reference``.  A miss
+    lane's record is read by no one (the combine stage selects the env
+    there, the traces the level spawns march it with t_max = -inf), so its
+    cotangents are taken as zero, as the kernel takes them."""
+    hit_mask = hit.hit
+    leaves = [x.detach().requires_grad_(True) for x in (o_w, d_w, t, n_obj)]
+    taken = []
+
+    def gather(table, idx, ch):
+        rows = gather_rows_reference(table.detach(), idx, ch)
+        taken.append((rows.requires_grad_(True), idx, table.shape[0]))
+        return rows
+
+    with torch.enable_grad():
+        rec = shade_surface_reference(scene, *leaves, hit, inst, mode, bounce,
+                                      False, gather=gather)
+    outs, cots = [], []
+    for name, g in zip(RECORD_GRAD_FIELDS, cotangents):
+        x = getattr(rec, name)
+        if g is not None and x is not None and x.requires_grad:
+            keep = hit_mask.reshape(hit_mask.shape + (1,) * (g.ndim - 1))
+            outs.append(x)
+            cots.append(torch.where(keep, g, 0.0))
+    inputs = leaves + [rows for rows, _, _ in taken]
+    grads = torch.autograd.grad(outs, inputs, cots, allow_unused=True) \
+        if outs else [None] * len(inputs)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(inputs, grads)]
+    g_colors = None
+    if taken:
+        _, idx, n_rows = taken[0]
+        g_colors = scatter_rows_reference(grads[4], idx, n_rows, 24,
+                                          acc_dtype)
+    return (*grads[:4], g_colors)
+
+
+def shade_combine_backward_reference(scene: GPUScene, rec: SurfaceRecord,
+                                     d_w, n_obj, hit_mask, unlit_attr,
+                                     refl_rgb, blocked, mode: RenderMode,
+                                     g_rgb):
+    """The vector-Jacobian product of ``shade_combine_reference`` (linear
+    rgb, without ``final``) for the cotangent ``g_rgb`` [R,3]: the plain
+    version of the combine backward kernel.  Returns the cotangents of the
+    record's ``RECORD_GRAD_FIELDS``, then of ``d_w``, ``n_obj`` and
+    ``refl_rgb``, f32, each None where that input is None.
+
+    The stage is computed again under ``torch.enable_grad()`` and
+    differentiated by ``torch.autograd.grad``: on the hit lanes, where it
+    reads the record, and on the miss lanes, where it reads the direction
+    alone (the env lookup).  A miss lane's record is read by no one and may
+    hold anything (the kernel leaves it unwritten): it gets an exact zero
+    and never enters the arithmetic, where a zero cotangent times a NaN
+    would give NaN.  Each lane is shaded on its own, so the two parts are
+    the stage."""
+    fields = [getattr(rec, f) for f in RECORD_GRAD_FIELDS]
+    inputs = fields + [d_w, n_obj, refl_rgb]
+    hits = hit_mask.nonzero().squeeze(-1)
+    misses = (~hit_mask).nonzero().squeeze(-1)
+
+    def leaf(x, lanes):
+        return None if x is None else \
+            x.detach()[lanes].requires_grad_(True)
+
+    sub = [leaf(x, hits) for x in inputs]
+    sub_rec = SurfaceRecord(
+        **dict(zip(RECORD_GRAD_FIELDS, sub[:len(fields)])),
+        k=None if rec.k is None else rec.k[hits])
+    d_miss = leaf(d_w, misses)
+    with torch.enable_grad():
+        shaded = shade_combine_reference(
+            scene, sub_rec, sub[-3], sub[-2],
+            torch.ones_like(hits, dtype=torch.bool), unlit_attr[hits],
+            sub[-1], None if blocked is None else [b[hits] for b in blocked],
+            mode)
+        miss_rgb = _tex.sample_env(scene.env, d_miss)
+    want = [x for x in sub if x is not None and x.requires_grad]
+    got = iter(torch.autograd.grad(shaded, want, g_rgb[hits],
+                                   allow_unused=True))
+    (g_miss,) = torch.autograd.grad(miss_rgb, [d_miss], g_rgb[misses],
+                                    allow_unused=True)
+    out = []
+    for x, s in zip(inputs, sub):
+        if x is None:
+            out.append(None)
+            continue
+        g = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        gs = next(got) if s.requires_grad else None
+        if gs is not None:
+            g[hits] = gs
+        out.append(g)
+    if g_miss is not None:
+        out[len(fields)][misses] = g_miss
+    return tuple(out)
+
+
 def _needs_autograd(*tensors) -> bool:
     """Whether a graph is being recorded through any of ``tensors``."""
     return torch.is_grad_enabled() and any(
         x is not None and x.requires_grad for x in tensors)
 
 
-# the scene's tensors that a level's shading reads and a fit may optimize
-_SHADED_FIELDS = (
+# the scene's tensors that a level's shading reads and a fit may optimize,
+# in two groups.  The colour tables: the shade Functions' backward kernels
+# return their gradient, as they return that of the rays, t and n_obj (and
+# so of the corner table behind t and n_obj).  The rest: materials,
+# textures, env, instance transforms and lights, whose gradient the kernels
+# do not return; a graph through one of those takes the plain pair.
+_KERNEL_GRAD_FIELDS = ("voxel_colors", "voxel_color_corners")
+_PLAIN_GRAD_FIELDS = (
     "tint", "roughness", "metallic", "k", "tex_scale", "textures", "env",
-    "voxel_colors", "voxel_color_corners", "inst_pos", "inst_rot",
-    "inst_scale", "dir_light_dir", "dir_light_strength", "point_color",
-    "point_intensity", "point_att_l", "point_att_e", "point_pos",
-    "spot_color", "spot_intensity", "spot_att_l", "spot_att_e",
-    "spot_cos_angle", "spot_cos_falloff", "spot_pos", "spot_fwd")
+    "inst_pos", "inst_rot", "inst_scale", "dir_light_dir",
+    "dir_light_strength", "point_color", "point_intensity", "point_att_l",
+    "point_att_e", "point_pos", "spot_color", "spot_intensity",
+    "spot_att_l", "spot_att_e", "spot_cos_angle", "spot_cos_falloff",
+    "spot_pos", "spot_fwd")
+_SHADED_FIELDS = _KERNEL_GRAD_FIELDS + _PLAIN_GRAD_FIELDS
 
 
 def shade_stages(scene: GPUScene, o_w, d_w, t, n_obj):
     """The two stages of a level's shading, (surface, combine), picked on
-    the inputs alone.  CPU tensors take the plain versions
-    (``shade_surface_reference``, ``shade_combine_reference``).  CUDA
-    tensors take the two kernels of ``shade.cu`` — unless a graph is being
-    recorded through anything the level reads (the rays, ``t``, ``n_obj``,
-    the corner and colour tables, the materials, the lights, the instance
-    transforms): the kernels have no backward, so such a caller, every fit
-    step among them, takes the plain versions under autograd.  A build or
-    launch that fails raises; nothing falls back."""
+    the inputs alone, among three pairs:
+
+    - a graph is recorded through a tensor of ``_PLAIN_GRAD_FIELDS`` (a
+      material constant, a texture, the env, a light, an instance
+      transform): the plain versions ``shade_surface_reference`` and
+      ``shade_combine_reference`` under autograd, on either device, since
+      the kernels return no gradient for those;
+    - else a graph through the rays, ``t``, ``n_obj``, the corner table or
+      a colour table (every fit step of the SDF and the colours): the
+      ``autograd.Function`` pair of ``kernels.shade`` (``ShadeSurface``,
+      ``ShadeCombine``), whose forward and backward are the kernels on CUDA
+      tensors and the plain versions on CPU tensors;
+    - no graph: the plain versions on CPU tensors, the two kernels of
+      ``shade.cu`` on CUDA tensors.
+
+    A build or launch that fails raises; nothing falls back."""
     kind = o_w.device.type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"no shading for device {o_w.device}")
-    if kind == "cpu" or _needs_autograd(
-            o_w, d_w, t, n_obj, scene.volumes.corners,
-            *(getattr(scene, f) for f in _SHADED_FIELDS)):
+    if _needs_autograd(*(getattr(scene, f) for f in _PLAIN_GRAD_FIELDS)):
+        return shade_surface_reference, shade_combine_reference
+    if _needs_autograd(o_w, d_w, t, n_obj, scene.volumes.corners,
+                       *(getattr(scene, f) for f in _KERNEL_GRAD_FIELDS)):
+        return _shade_surface_function, _shade_combine_function
+    if kind == "cpu":
         return shade_surface_reference, shade_combine_reference
     return _shade_surface_kernel, _shade_combine_kernel
+
+
+def _contiguous_hit(hit: MarchHit) -> MarchHit:
+    return dataclasses.replace(hit, hit=hit.hit.contiguous(),
+                               cell=hit.cell.contiguous())
+
+
+def _contiguous_combine_args(refl_rgb, blocked):
+    if refl_rgb is not None:
+        refl_rgb = refl_rgb.contiguous()
+    if blocked is not None:
+        blocked = [b.contiguous() for b in blocked]
+    return refl_rgb, blocked
 
 
 def _shade_surface_kernel(scene, o_w, d_w, t, n_obj, hit, inst, mode, bounce,
                           shadows):
     from vrt_torch.kernels import shade as k4
 
-    hit = dataclasses.replace(hit, hit=hit.hit.contiguous(),
-                              cell=hit.cell.contiguous())
     return k4.shade_surface_cuda(scene, o_w.contiguous(), d_w.contiguous(),
-                                 t.contiguous(), n_obj.contiguous(), hit,
-                                 inst.contiguous(), mode, bounce, shadows)
+                                 t.contiguous(), n_obj.contiguous(),
+                                 _contiguous_hit(hit), inst.contiguous(),
+                                 mode, bounce, shadows)
 
 
 def _shade_combine_kernel(scene, rec, d_w, n_obj, hit_mask, unlit_attr,
                           refl_rgb, blocked, mode, final=False):
     from vrt_torch.kernels import shade as k4
 
-    if refl_rgb is not None:
-        refl_rgb = refl_rgb.contiguous()
-    if blocked is not None:
-        blocked = [b.contiguous() for b in blocked]
+    refl_rgb, blocked = _contiguous_combine_args(refl_rgb, blocked)
     return k4.shade_combine_cuda(scene, rec, d_w.contiguous(),
                                  n_obj.contiguous(), hit_mask.contiguous(),
                                  unlit_attr.contiguous(), refl_rgb, blocked,
                                  mode, final)
+
+
+def _shade_surface_function(scene, o_w, d_w, t, n_obj, hit, inst, mode,
+                            bounce, shadows):
+    """The surface stage through ``ShadeSurface``, differentiable in the
+    rays, ``t``, ``n_obj`` and the colour table."""
+    from vrt_torch.kernels import shade as k4
+
+    colors = scene.voxel_color_corners if scene.use_voxel_colors else None
+    return SurfaceRecord.unpack(k4.ShadeSurface.apply(
+        o_w.contiguous(), d_w.contiguous(), t.contiguous(),
+        n_obj.contiguous(), colors, scene, _contiguous_hit(hit),
+        inst.contiguous(), mode, bounce, shadows))
+
+
+def _shade_combine_function(scene, rec, d_w, n_obj, hit_mask, unlit_attr,
+                            refl_rgb, blocked, mode, final=False):
+    """The combine stage through ``ShadeCombine``, differentiable in the
+    record's floats, ``d_w``, ``n_obj`` and ``refl_rgb``; with ``final`` the
+    tonemap follows in eager PyTorch."""
+    from vrt_torch.kernels import shade as k4
+
+    refl_rgb, blocked = _contiguous_combine_args(refl_rgb, blocked)
+    rgb = k4.ShadeCombine.apply(
+        *(getattr(rec, f) for f in RECORD_GRAD_FIELDS), d_w.contiguous(),
+        n_obj.contiguous(), refl_rgb, rec.k, scene, hit_mask.contiguous(),
+        unlit_attr.contiguous(), blocked, mode)
+    return _tonemapped(rgb) if final else rgb
 
 
 def _trace_level(scene: GPUScene, o_w, d_w, depth: int, mode: RenderMode,
