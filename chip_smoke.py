@@ -10,7 +10,10 @@ Phases, each of which raises on failure:
              resolve (forward and backward) and the four shade kernels K4
              (surface and combine, forward and backward) from
              ``vrt_torch/csrc/``, one nvcc each, all in parallel, and prints
-             ptxas' register and spill lines,
+             ptxas' register and spill lines, and for the two redesigned
+             kernels (the capped scene march, the merged surface backward)
+             and their first designs the registers, stack frames, spills
+             and the warp slots the registers leave filled,
 3. kernels -- every kernel against its plain version on the inputs the
              flagship scene (resolution 7, chebyshev, bf16) and config6 give
              it, both timed, with the least time the card could take for the
@@ -23,7 +26,11 @@ Phases, each of which raises on failure:
              in cube mode and with the overlay and of one 1080p config6 fit
              step against ``march_scene_reference`` over the twin (hit, kind,
              t, cell, brackets, face normal, steps, winning instance), the
-             any-hit launches against its ``hit``;
+             any-hit launches against its ``hit``, and against its first
+             design on the same inputs (equal field by field), the two
+             designs timed old, new, new, old, with each launch's SIMT
+             efficiency in launch order and in 8x4 pixel tiles (from the
+             plain version's steps);
              the fused resolve: the three launches of a 1080p frame, and the
              three of a 1080p config6 fit step (a graph is recorded), against
              ``resolve_scene_reference`` with a plain gather (equal, NaN
@@ -49,7 +56,12 @@ Phases, each of which raises on failure:
              stages) on the same inputs and cotangents (every per-ray
              cotangent within 1e-4 * |plain| + 1e-5 * the launch's largest
              |plain| on every lane, the colour table's within 1e-5 * max|sum|
-             of the plain version summed in float64), timed with their bound;
+             of the plain version summed in float64), timed with their bound,
+             the surface backward also against its first design on the same
+             inputs (per-ray cotangents bit-equal or not, said; its colour
+             table within the same tolerance; old, new, new, old) with the
+             colour rows' contention (distinct rows, most hits on a row,
+             rows a warp);
              K3: every launch of one 1080p frame on the candidate-loop path,
              of one config6 fit step with eager shading (the colour rows:
              the default step launches no K3), and of one with resolve on the
@@ -64,9 +76,11 @@ Phases, each of which raises on failure:
              resolves, 3 + 3 shade launches, no per-lane K1 launch, no K3
              gather); then the frame on the candidate-loop path (per-lane K1
              launches between eager glue, resolve through K3) against the
-             default path, and the frame with eager shading (the plain
-             stages) against the two shade kernels, each in one call in the
-             order old, new, new, old, medians of 5,
+             default path, the frame with eager shading (the plain stages)
+             against the two shade kernels, and the frames (interp, cube,
+             overlay) on the scene march's first design against the capped
+             kernel, each in one call in the order old, new, new, old,
+             medians of 5,
 5. anchor  -- the 160x90 frame against the image ``vrt`` renders on the CPU
              (``tests/fixtures/flagship_r7_cheb_bf16_160x90.npy``), and the
              160x90 cube-mode unlit frame against its own ``vrt`` fixture,
@@ -88,11 +102,13 @@ Phases, each of which raises on failure:
              scene marches, 3 fused resolves forward and 3 backward, 3 + 3
              shade kernels forward and 3 + 3 backward, no K3, no per-lane
              K1), peak device memory and the losses; the step with resolve on
-             the plain path over K3, and the step with eager shading (the
-             plain stages under autograd), each against the default path
-             (old, new, new, old, medians of 3), with the device ops (the
-             default step's held to ``FIT_STEP_OPS``), busy time and peak
-             memory of a step on each; the card's loss and gradients at 64x36
+             the plain path over K3, the step with eager shading (the plain
+             stages under autograd) and the step on the first designs of the
+             scene march and the surface backward, each against the default
+             path (old, new, new, old, medians of 3), with the device ops
+             (launch calls; the default step's held to ``FIT_STEP_OPS`` on
+             one profile) and device records, busy time and
+             peak memory of a step on each; the card's loss and gradients at 64x36
              (through the backward kernels, launches asserted) against
              ``vrt``'s (``tests/fixtures/fit_flagship_r4_colors_64x36.npz``);
              then ``python -m vrt_torch.apps.fit`` at its defaults, whose
@@ -209,7 +225,10 @@ SHADE_GRAD_LANE_BUDGET = 0.0
 # the card (NVIDIA H100 80GB HBM3, 700 W).  The count follows the code, not
 # the data, but for the few ops of a level whose shadows are not traced:
 # a step back on eager shading, or a stage that falls back to eager ops,
-# leaves the range
+# leaves the range.  Counted by the host's launch calls (``_profile``):
+# the device records of one profile in twenty came up short, by 1 to 79 at
+# the start of the trace, while the launch calls held at 452 in 80 profiles
+# (``vrt_torch/apps/probe_profiler.py``)
 FRAME_OPS_MAX = 400
 FIT_STEP_OPS = range(451 - 10, 451 + 10 + 1)
 # K3's f32 atomics add in another order on every run: its scatter is held
@@ -425,18 +444,113 @@ def _k1_passes(run, expected, tag):
                 bound=_sum_bounds(bounds))
 
 
-def _scene_calls(run, expected, tag):
+def _nan_equal(a, b):
+    """Tensors equal element by element, NaN equal to NaN."""
+    import torch
+
+    return a.shape == b.shape and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all()
+        if a.is_floating_point() else torch.equal(a, b))
+
+
+@contextlib.contextmanager
+def _old_designs():
+    """The scene march and the shade surface backward on their first
+    designs (the comparators of the redesigned kernels), through the
+    wrappers' private ``_old_design``; everything else as it is."""
+    import functools
+
+    from vrt_torch.kernels import march as k1
+    from vrt_torch.kernels import shade as k4
+
+    saved = (k1.march_scene_cuda, k4.shade_surface_backward_cuda)
+    k1.march_scene_cuda = functools.partial(saved[0], _old_design=True)
+    k4.shade_surface_backward_cuda = functools.partial(saved[1],
+                                                       _old_design=True)
+    try:
+        yield
+    finally:
+        k1.march_scene_cuda, k4.shade_surface_backward_cuda = saved
+
+
+def _paired_ms(old, new, reps, hold=True):
+    """Device time of ``old()`` and ``new()`` in the order old, new, new,
+    old (``device_ms`` each): (old's two, new's two)."""
+    from vrt_torch.kernels._timing import device_ms
+
+    t = [device_ms(f, reps, hold) for f in (old, new, new, old)]
+    return [t[0], t[3]], [t[1], t[2]]
+
+
+def _simt(steps, width=None):
+    """The SIMT efficiency of a march launch, from its plain version's
+    per-ray step counts: the steps of all rays over 32 times the sum over
+    warps of the warp's largest count (the lane-steps a warp issues while
+    its slowest lane marches).  Threads take rays in launch order, or with
+    ``width`` (the rays are the pixels of rows of that many) warp w takes
+    the 8x4 pixel tile w of the row-major grid of tiles."""
+    import torch
+
+    rays = steps.numel()
+    steps = steps.long()
+    if width:
+        rows = -(-rays // width)
+        tiles_x = -(-width // 8)
+        tid = torch.arange(tiles_x * -(-rows // 4) * 32, device=steps.device)
+        warp, lane = tid // 32, tid % 32
+        x = warp % tiles_x * 8 + lane % 8
+        ray = (warp // tiles_x * 4 + lane // 8) * width + x
+        ray = torch.where((x < width) & (ray < rays), ray, -1)
+        per_thread = torch.where(ray >= 0, steps[ray.clamp_min(0)], 0)
+    else:
+        per_thread = torch.nn.functional.pad(steps, (0, -rays % 32))
+    issued = 32 * per_thread.reshape(-1, 32).amax(1).sum().item()
+    return steps.sum().item() / issued if issued else 1.0
+
+
+def _row_contention(scene, hit, inst):
+    """How the colour-row cotangents of a surface backward launch collide:
+    dict(hits, rows (distinct rows hit), max_hits_on_a_row, rows_per_warp
+    (distinct rows over the warps of 32 rays in launch order that hold a
+    hit, on average), hits_per_warp (likewise))."""
+    import torch
+
+    cn = scene.voxel_color_corners.shape[1]
+    mask = hit.hit
+    cell = hit.cell.clamp(0, cn - 1).long()
+    vol = scene.inst_volume.long()[inst.clamp_min(0).long()]
+    row = ((vol * cn + cell[:, 0]) * cn + cell[:, 1]) * cn + cell[:, 2]
+    rows = row[mask]
+    if rows.numel() == 0:
+        return dict(hits=0, rows=0, max_hits_on_a_row=0, rows_per_warp=0.0,
+                    hits_per_warp=0.0)
+    _, counts = torch.unique(rows, return_counts=True)
+    warp = torch.arange(row.numel(), device=row.device)[mask] // 32
+    pairs = torch.unique(torch.stack([warp, rows]), dim=1)
+    warps = torch.unique(warp).numel()
+    return dict(hits=int(rows.numel()), rows=int(counts.numel()),
+                max_hits_on_a_row=int(counts.max()),
+                rows_per_warp=pairs.shape[1] / warps,
+                hits_per_warp=rows.numel() / warps)
+
+
+def _scene_calls(run, expected, tag, width=FRAME_W):
     """Every scene-march launch of ``run()`` (a frame or a fit step), kept
     with its inputs and the output ``run`` used, then held against its
     plain version, ``march_scene_reference`` over the twin, on the same
     inputs: a full trace field by field as ``_compare`` does, with the
     winning instance; an any-hit trace against the plain version's ``hit``.
-    Both timed.  Fails unless the scene march launched ``expected`` times.
-    Returns dict(max_abs_err, ms, plain_ms (lists, per launch), bound)."""
+    The first design (``_old_design``) on the same inputs must give the
+    same result field by field; the two designs are timed in the order
+    old, new, new, old, the plain version once.  From the plain version's
+    step counts, the SIMT efficiency of the launch with threads in launch
+    order and in 8x4 tiles of an image ``width`` pixels wide (``_simt``).
+    Fails unless the scene march
+    launched ``expected`` times.  Returns dict(max_abs_err, ms, old_ms,
+    plain_ms, simt_flat, simt_tiled (lists, per launch), bound)."""
     import torch
 
     from vrt_torch.kernels import march as k1
-    from vrt_torch.kernels._timing import device_ms
     from vrt_torch.march.march import march_lanes_reference
     from vrt_torch.render.renderer import march_scene_reference
 
@@ -446,10 +560,12 @@ def _scene_calls(run, expected, tag):
     if len(calls) != expected:
         raise AssertionError(f"the {tag} launched the scene march "
                              f"{len(calls)} times, expected {expected}")
-    err, ms, plain_ms, bounds = 0.0, [], [], []
+    err, ms, old_ms, plain_ms, bounds = 0.0, [], [], [], []
+    simt_flat, simt_tiled = [], []
     for i, (args, kwargs, got) in enumerate(calls):
         scene, o_w, d_w, t_max, interp = args[:5]
         overlay = args[5] if len(args) > 5 else False
+        old = k1.march_scene_cuda(*args, **kwargs, _old_design=True)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -467,6 +583,9 @@ def _scene_calls(run, expected, tag):
             if got.dtype != torch.bool or flips > LANE_BUDGET:
                 raise AssertionError(f"{tag} trace {i}: the any-hit march "
                                      f"differs on {flips:.2e} of rays")
+            if not torch.equal(old, got):
+                raise AssertionError(f"{tag} trace {i}: the two designs' "
+                                     f"any-hit marches differ")
             out_bytes = 1
         else:
             hit, inst = got
@@ -476,13 +595,35 @@ def _scene_calls(run, expected, tag):
             if not torch.equal(inst[agree], want_inst[agree]):
                 raise AssertionError(f"{tag} trace {i}: winning instances "
                                      f"differ")
+            same = torch.equal(old[1], inst) and all(
+                _nan_equal(getattr(old[0], f), getattr(hit, f))
+                for f in ("hit", "t", "kind", "cell", "t_in", "t_out",
+                          "face_normal", "steps"))
+            if not same:
+                raise AssertionError(f"{tag} trace {i}: the two designs' "
+                                     f"marches differ")
             out_bytes = 49
-        ms.append(device_ms(
-            lambda: k1.march_scene_cuda(*args, **kwargs), 20))
+        del old
+        olds, news = _paired_ms(
+            lambda: k1.march_scene_cuda(*args, **kwargs, _old_design=True),
+            lambda: k1.march_scene_cuda(*args, **kwargs), 20)
+        ms.append(sum(news) / 2)
+        old_ms.append(sum(olds) / 2)
+        simt_flat.append(_simt(want.steps))
+        simt_tiled.append(_simt(want.steps, width))
         bounds.append(_march_bound(scene.volumes, want, interp, 28,
                                    out_bytes, scene.num_instances))
+        print(f"scene march [{tag} trace {i}{', any-hit' if out_bytes == 1 else ''}]"
+              f": old, new, new, old {', '.join(f'{t:.4f}' for t in (olds[0], news[0], news[1], olds[1]))}"
+              f" ms; bound {bounds[-1]['bound_ms']:.4f} ms = "
+              f"{bounds[-1]['bound_ms'] / ms[-1]:.0%} of new, "
+              f"{bounds[-1]['bound_ms'] / old_ms[-1]:.0%} of old; SIMT "
+              f"efficiency in launch order {simt_flat[-1]:.3f}, in 8x4 tiles "
+              f"{simt_tiled[-1]:.3f} (width {width}); steps "
+              f"{int(want.steps.sum())}", flush=True)
         del want, want_inst
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    return dict(max_abs_err=err, ms=ms, old_ms=old_ms, plain_ms=plain_ms,
+                simt_flat=simt_flat, simt_tiled=simt_tiled,
                 bound=_sum_bounds(bounds))
 
 
@@ -1113,10 +1254,16 @@ def _shade_bwd_calls(run, expected, tag):
     ``_grad_beyond``'s tolerance on all but ``SHADE_GRAD_LANE_BUDGET`` of the
     lanes, all finite; the colour table's within ``SCATTER_RTOL * max|sum|``
     of the plain version summed in float64.  Both timed, with the bound.
-    Fails unless each kernel launched ``expected`` times.  Returns
-    {"surface_bwd" | "combine_bwd": dict(launches, max_abs_err (the largest
-    difference over max|plain|, per-ray outputs and the table), by_output
-    (the same per output), lanes_beyond, ms, plain_ms (lists), bound)}."""
+    The surface backward's first design (``_old_design``) runs on the same
+    inputs, its colour table held as the new one's, and the two are timed
+    in the order old, new, new, old; whether their per-ray cotangents are
+    bit-equal is reported, and how the colour rows collide
+    (``_row_contention``).  Fails unless each kernel launched ``expected``
+    times.  Returns {"surface_bwd" | "combine_bwd": dict(launches,
+    max_abs_err (the largest difference over max|plain|, per-ray outputs and
+    the table), by_output (the same per output), lanes_beyond, ms, plain_ms
+    (lists), bound; for the surface backward also old_ms (a list),
+    bit_equal_to_old, contention (a list))}."""
     import torch
 
     from vrt_torch.kernels import shade as k4
@@ -1136,6 +1283,7 @@ def _shade_bwd_calls(run, expected, tag):
     for stage, calls in (("surface_bwd", surf), ("combine_bwd", comb)):
         by_output, share_max = {}, 0.0
         ms, plain_ms, bounds = [], [], []
+        old_ms, no_table_ms, contention, bit_equal = [], [], [], True
         for i, (args, kwargs, got) in enumerate(calls):
             flags = tuple(args[10:]) + tuple(kwargs.values())
             if stage == "surface_bwd":
@@ -1152,17 +1300,27 @@ def _shade_bwd_calls(run, expected, tag):
                     raise AssertionError(f"{tag} {stage} {i}: the colour "
                                          f"table's cotangent is set on one "
                                          f"side only")
-                if got[4] is not None:
+                old = kernel(*args, **kwargs, _old_design=True)
+                bit_equal = bit_equal and all(
+                    torch.equal(a, b) for a, b in zip(old[:4], got[:4])
+                    if a is not None)
+                for side, table in (("", got[4]), ("first design's ", old[4])):
+                    if table is None:
+                        continue
                     scale = want[4].abs().max().item()
-                    e = (got[4].double() - want[4]).abs().max().item()
-                    if not (bool(torch.isfinite(got[4]).all()) and scale > 0
+                    e = (table.double() - want[4]).abs().max().item()
+                    if not (bool(torch.isfinite(table).all()) and scale > 0
                             and e <= SCATTER_RTOL * scale):
                         raise AssertionError(
-                            f"{tag} {stage} {i}: the colour table's "
+                            f"{tag} {stage} {i}: the {side}colour table's "
                             f"cotangent is off by {e:.3e} > {SCATTER_RTOL} "
                             f"* {scale:.3e}")
-                    by_output["g_colors"] = max(by_output.get("g_colors", 0.0),
-                                                e / scale)
+                    key = "g_colors_old" if side else "g_colors"
+                    by_output[key] = max(by_output.get(key, 0.0), e / scale)
+                del old
+                if args[0].use_voxel_colors:
+                    contention.append(_row_contention(args[0], args[5],
+                                                      args[6]))
             else:
                 want = shade_combine_backward_reference(*args[:10])
                 pairs = list(zip(COMBINE_GRADS, got, want))
@@ -1188,7 +1346,31 @@ def _shade_bwd_calls(run, expected, tag):
                 by_output[name] = max(by_output.get(name, 0.0), worst)
                 share_max = max(share_max, share)
             del want
-            ms.append(device_ms(lambda: kernel(*args, **kwargs), 20))
+            if stage == "surface_bwd":
+                olds, news = _paired_ms(
+                    lambda: kernel(*args, **kwargs, _old_design=True),
+                    lambda: kernel(*args, **kwargs), 20)
+                ms.append(sum(news) / 2)
+                old_ms.append(sum(olds) / 2)
+                # what the colour table's cotangent costs: the launch
+                # without it
+                no_table_ms.append(device_ms(
+                    lambda: kernel(*args[:10], rays_grad=rays_grad,
+                                   table_grad=False), 20))
+                print(f"shade surface_bwd [{tag} {i}]: without the colour "
+                      f"table's cotangent {no_table_ms[-1]:.4f} ms",
+                      flush=True)
+                print(f"shade surface_bwd [{tag} {i}]: old, new, new, old "
+                      f"{', '.join(f'{t:.4f}' for t in (olds[0], news[0], news[1], olds[1]))}"
+                      f" ms; bound {bounds[-1]['bound_ms']:.4f} ms = "
+                      f"{bounds[-1]['bound_ms'] / ms[-1]:.0%} of new, "
+                      f"{bounds[-1]['bound_ms'] / old_ms[-1]:.0%} of old; "
+                      f"per-ray cotangents bit-equal to the first design's "
+                      f"{bit_equal}; colour rows "
+                      f"{contention[-1] if contention else None}",
+                      flush=True)
+            else:
+                ms.append(device_ms(lambda: kernel(*args, **kwargs), 20))
             plain_ms.append(device_ms(lambda: plain(*args[:10]), 2))
             hit = args[5].hit if stage == "surface_bwd" else args[4]
             print(f"shade {stage} vs plain [{tag} {i}]: rays {hit.numel()} "
@@ -1203,6 +1385,10 @@ def _shade_bwd_calls(run, expected, tag):
                           max_abs_err=max(by_output.values(), default=0.0),
                           by_output=by_output, lanes_beyond=share_max, ms=ms,
                           plain_ms=plain_ms, bound=_sum_bounds(bounds))
+        if stage == "surface_bwd":
+            out[stage].update(old_ms=old_ms, no_table_ms=no_table_ms,
+                              bit_equal_to_old=bit_equal,
+                              contention=contention)
         got = out[stage]
         print(f"shade {stage} on the {tag}: {got['launches']} launches, "
               f"{_list(ms)} ms = {sum(ms):.4f} ms; plain {sum(plain_ms):.2f} "
@@ -1438,10 +1624,17 @@ def _config6(dev, w=FRAME_W, h=FRAME_H):
 def _profile(render, sync, frame_ms, top=8, what="one 1080p frame"):
     """Device time of one ``render()`` by kernel and by the torch operator
     that launched it, from torch.profiler.  Returns dict(ops (the
-    operators that took device time), busy_ms, device_ops), or None where
-    the profiler saw none."""
+    operators that took device time), busy_ms, device_ops, device_records),
+    or None where the profiler saw none.  ``device_records`` counts the
+    device's records, which CUPTI may drop at the start of a trace
+    (``vrt_torch/apps/probe_profiler.py``; busy time and the operator list
+    then miss them too); ``device_ops`` the host's launch calls
+    (``LAUNCH_CALLS``, one a kernel, copy or fill), or the records where
+    they are more (a call the list does not name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from vrt_torch.kernels._timing import LAUNCH_CALLS
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
@@ -1457,6 +1650,9 @@ def _profile(render, sync, frame_ms, top=8, what="one 1080p frame"):
         print("profile: torch.profiler saw no device time (not measured)",
               flush=True)
         return None
+    records = sum(r[1] for r in rows)
+    launches = max(records,
+                   sum(e.count for e in events if e.key in LAUNCH_CALLS))
 
     def share(*names):
         ms = sum(r[0] for r in rows if any(n in r[2] for n in names))
@@ -1464,12 +1660,12 @@ def _profile(render, sync, frame_ms, top=8, what="one 1080p frame"):
 
     print(f"profile of {what}: device busy {busy:.1f} ms = "
           f"{100 * busy / frame_ms:.0f}% of its {frame_ms:.1f} ms; "
-          f"K1 {share('march_kernel', 'march_scene_kernel')}; "
+          f"K1 {share('march_kernel', 'march_scene_kernel', 'march_scene_capped_kernel')}; "
           f"K3 {share('rows_kernel')}; "
           f"fused resolve {share('resolve_kernel', 'resolve_bwd_kernel')}; "
           f"shade {share('surface_kernel', 'combine_kernel')} and its "
-          f"backward {share('surface_bwd_kernel', 'combine_bwd_kernel')}; "
-          f"{sum(r[1] for r in rows)} device ops", flush=True)
+          f"backward {share('surface_bwd_kernel', 'surface_bwd_merged_kernel', 'combine_bwd_kernel')}; "
+          f"{launches} device ops ({records} device records)", flush=True)
     for ms, count, key in rows[:top]:
         print(f"  kernel {ms:8.2f} ms {count:5d}x {key[:80]}", flush=True)
     ops = sorted(((e.self_device_time_total / 1e3, e.count, e.key,
@@ -1481,7 +1677,7 @@ def _profile(render, sync, frame_ms, top=8, what="one 1080p frame"):
         print(f"  op {ms:8.2f} ms {count:5d}x {key} {shapes}", flush=True)
     return dict(ops={op[2] for op in ops}, busy_ms=busy,
                 op_shapes=[(op[2], op[3]) for op in ops],
-                device_ops=sum(r[1] for r in rows))
+                device_ops=launches, device_records=records, kernels=rows)
 
 
 def _per_array_upload(consts, dev):
@@ -1877,6 +2073,7 @@ def main():
     from vrt_torch.kernels import resolve as kr
     from vrt_torch.kernels import rows as k3
     from vrt_torch.kernels import shade as k4
+    from vrt_torch.kernels._build import ptxas_usage, warp_slots
     from vrt_torch.march.march import march_lanes, march_lanes_reference
     from vrt_torch.render.camera import camera_rays
     from vrt_torch.render.gpuscene import RenderMode
@@ -1918,6 +2115,30 @@ def main():
                   "spill loads" not in line]
         print(f"{name}: {len(spills)} kernels spill registers"
               + "".join(f"\n  {line.strip()}" for line in spills),
+              flush=True)
+    ptxas = {}
+    for name, log, kernel, threads in (
+            ("K1 (march.cu)", "K1 (march.cu)", "march_scene_capped_kernel", 64),
+            ("K1 (march.cu)", "K1 (march.cu)", "march_scene_kernel", 256),
+            ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
+             "backward (shade.cu)", "surface_bwd_merged_kernel", 256),
+            ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
+             "backward (shade.cu)", "surface_bwd_kernel", 256)):
+        got = ptxas_usage(logs[log], kernel)
+        if got is None:
+            print(f"ptxas, {name} {kernel}: not in the log (the library was "
+                  f"built before this run)", flush=True)
+            continue
+        got["occupancy"] = [warp_slots(r, threads)
+                            for r in got["registers"][::-1]]
+        ptxas[kernel] = got
+        print(f"ptxas, {name} {kernel} ({threads} threads a block): "
+              f"{got['variants']} variants, {got['registers'][0]}-"
+              f"{got['registers'][1]} registers, stack frame "
+              f"{got['stack_bytes'][0]}-{got['stack_bytes'][1]} bytes, spills "
+              f"{got['spill_bytes'][0]}-{got['spill_bytes'][1]} bytes; warp "
+              f"slots the registers leave filled "
+              f"{got['occupancy'][0]:.0%}-{got['occupancy'][1]:.0%}",
               flush=True)
 
     # ---- 3. every kernel against its plain version --------------------------
@@ -2237,6 +2458,28 @@ def main():
             or got["scene"] != 2 * 4 * 6 * _traces(scene):
         raise AssertionError(f"launches of the paired shading frames {got}")
 
+    # the scene march's first design against the capped kernel, in one call
+    def old_design(run):
+        def go():
+            with _old_designs():
+                return run()
+        return go
+
+    zero_counts()
+    for tag, m in (("interp", mode), ("cube", cube), ("overlay", overlay)):
+        meds = []
+        for run in (old_design(frame(m)), frame(m), frame(m),
+                    old_design(frame(m))):
+            meds.append(statistics.median(timed(run, 5)[0]) * 1e3)
+        paired[f"march_design_{tag}"] = meds
+        print(f"1080p {tag} frame on {card}, the scene march's first design "
+              f"against the capped kernel, medians of 5 in the order old, "
+              f"new, new, old: {', '.join(f'{t:.2f}' for t in meds)} ms",
+              flush=True)
+    got = counts()
+    if got["scene"] != 3 * 4 * 6 * _traces(scene) or got["k1"] != 0:
+        raise AssertionError(f"launches of the paired march frames {got}")
+
     # ---- 5. anchored to the JAX reference ----------------------------------
     zero_counts()
     want = np.load(FIXTURE)
@@ -2416,6 +2659,26 @@ def main():
           f"{', '.join(f'{t:.2f}' for t in meds)} ms", flush=True)
     paired["fit_shading"] = meds
     eager_counts = counts()
+
+    # the scene march's and the surface backward's first designs against
+    # the redesigned kernels
+    def old_design_step():
+        with _old_designs():
+            return one_step()
+
+    zero_counts()
+    meds = []
+    for run in (old_design_step, one_step, one_step, old_design_step):
+        meds.append(statistics.median(timed(run, 3)[0]) * 1e3)
+    print(f"config6 fit step on {card}, the scene march's and the surface "
+          f"backward's first designs against the redesigned kernels, "
+          f"medians of 3 in the order old, new, new, old: "
+          f"{', '.join(f'{t:.2f}' for t in meds)} ms", flush=True)
+    paired["fit_designs"] = meds
+    got = counts()
+    if (got["scene"], got["surface_bwd"]) != (16 * _traces(fit_scene),
+                                               16 * levels):
+        raise AssertionError(f"launches of the paired design steps {got}")
     want = dict(k1=0, scene=16 * _traces(fit_scene), resolve=16 * levels,
                 resolve_bwd=16 * levels,
                 gather=8 * _expected_k3(fit_scene, eager_shading=True),
@@ -2426,11 +2689,13 @@ def main():
     if eager_counts != want:
         raise AssertionError(f"launches of the paired eager-shading fit "
                              f"steps {eager_counts}, expected {want}")
-    sides = {}
+    sides, profiles = {}, {}
     for tag, run, what in (
             ("old", old_step, "resolve on the plain path over K3"),
             ("eager_shading", eager_step,
              "eager shading under autograd, K3 for the colour rows"),
+            ("old_designs", old_design_step, "the first designs of the scene "
+             "march and the surface backward"),
             ("new", one_step, "the fused resolve, the shade kernels and "
              "their backward kernels")):
         sync()
@@ -2443,14 +2708,26 @@ def main():
         sides[tag] = dict(peak_gib=side_peak / 2**30,
                           **({} if prof is None else
                              {"busy_ms": prof["busy_ms"],
-                              "device_ops": prof["device_ops"]}))
+                              "device_ops": prof["device_ops"],
+                              "device_records": prof["device_records"]}))
         print(f"config6 fit step on {card}, {tag}: peak "
               f"max_memory_allocated {side_peak / 2**30:.2f} GiB"
               + ("" if prof is None else
                  f", device busy {prof['busy_ms']:.1f} ms in "
                  f"{prof['device_ops']} device ops"), flush=True)
+        profiles[tag] = prof
         if tag == "new" and prof is not None and \
                 prof["device_ops"] not in FIT_STEP_OPS:
+            # name the kernels whose counts differ from the first designs'
+            # step, profiled just before (the same code around the two)
+            before = {k: n for _, n, k in
+                      (profiles.get("old_designs") or {}).get("kernels", [])}
+            now = {k: n for _, n, k in prof["kernels"]}
+            for key in sorted(set(before) | set(now)):
+                if before.get(key, 0) != now.get(key, 0):
+                    print(f"  {before.get(key, 0):4d}x on the first designs, "
+                          f"{now.get(key, 0):4d}x here: {key[:100]}",
+                          flush=True)
             raise AssertionError(
                 f"a config6 fit step takes {prof['device_ops']} device ops, "
                 f"expected {FIT_STEP_OPS[0]} to {FIT_STEP_OPS[-1]}")
@@ -2595,7 +2872,15 @@ def main():
          "max_abs_err": scene_err, "ms": sum(scene_runs["interp"]["ms"]),
          "plain_ms": sum(scene_runs["interp"]["plain_ms"]),
          **bound_keys(scene_runs["interp"]["bound"]), "library_ms": None,
+         "old_design_ms": sum(scene_runs["interp"]["old_ms"]),
+         "ptxas": {k: ptxas.get(k) for k in ("march_scene_capped_kernel",
+                                              "march_scene_kernel")},
          "by_path": {t: {"ms": sum(g["ms"]), "plain_ms": sum(g["plain_ms"]),
+                         "old_design_ms": sum(g["old_ms"]),
+                         "per_launch_ms": g["ms"],
+                         "per_launch_old_design_ms": g["old_ms"],
+                         "simt_efficiency_launch_order": g["simt_flat"],
+                         "simt_efficiency_8x4_tiles": g["simt_tiled"],
                          **bound_keys(g["bound"])}
                      for t, g in list(scene_runs.items())
                      + [("engine_frame", eng_scene)]}},
@@ -2696,7 +2981,18 @@ def main():
            "ms": sum(shade_bwd[f"{stage}_bwd"]["ms"]),
            "plain_ms": sum(shade_bwd[f"{stage}_bwd"]["plain_ms"]),
            **bound_keys(shade_bwd[f"{stage}_bwd"]["bound"]),
-           "library_ms": None}
+           "library_ms": None,
+           "per_launch_ms": shade_bwd[f"{stage}_bwd"]["ms"],
+           **({"old_design_ms": sum(shade_bwd["surface_bwd"]["old_ms"]),
+               "per_launch_old_design_ms": shade_bwd["surface_bwd"]["old_ms"],
+               "per_launch_ms_without_the_table":
+               shade_bwd["surface_bwd"]["no_table_ms"],
+               "per_ray_bit_equal_to_old_design":
+               shade_bwd["surface_bwd"]["bit_equal_to_old"],
+               "colour_rows": shade_bwd["surface_bwd"]["contention"],
+               "ptxas": {k: ptxas.get(k) for k in (
+                   "surface_bwd_merged_kernel", "surface_bwd_kernel")}}
+              if stage == "surface" else {})}
           for stage, replaces in (
               ("surface",
                "vrt/render/renderer.py:306 (XLA's transpose of _shade_lit's "

@@ -14,7 +14,9 @@ to); where both hit with the same kind, t agrees to rtol 1e-4 and the cell
 and step count exactly.  The same holds in cube mode and with the debug
 overlay, and for the scene march, whose winning instance and summed steps
 must also agree on those lanes and whose any-hit variant must equal the
-plain version's ``hit`` within the same budget.  The fused resolve is built
+plain version's ``hit`` within the same budget; the scene march's capped
+kernel must equal its first design field by field.  The fused resolve is
+built
 the same way and must equal the plain ``resolve_scene_reference`` bit for
 bit (NaN equal to NaN), with or without a graph.  Its backward sums in
 the closed form's order and adds the corner cotangents with f32 atomics: the
@@ -29,7 +31,9 @@ it is held to 1e-5 * max|sum| of a float64 ``index_add_`` (and a bf16
 table's gradient to that plus its one bf16 rounding).  The fit's loss and
 gradients through K1 and K3 on the card agree with the CPU's to rtol 1e-5
 (loss), a cosine of 1 - 1e-6 and 1e-3 * max|g| per gradient: the card
-rounds the shading's transcendentals and sums in its own order.
+rounds the shading's transcendentals and sums in its own order.  The shade
+surface backward's merged kernel gives per-ray cotangents bit-equal to its
+first design's, and both colour tables within the backward's tolerance.
 """
 
 import dataclasses
@@ -156,10 +160,11 @@ MODES = pytest.mark.parametrize(
 
 def _crowd(res, mode, dtype, n_inst, dev):
     """The flagship's two volumes under ``n_inst`` instances: 1, the
-    sphere alone; 2, the flagship; 12, ``vrt/apps/bench.py``'s grid pulled
-    together until boxes overlap, with instance 1 moved onto instance 0
-    (equal entry t: the stable order decides), instance 5 rotated and
-    scaled, and instance 3 inactive."""
+    sphere alone; 2, the flagship; 3, a grid of three with instance 1 moved
+    onto instance 0 (equal entry t: the stable order decides) and instance
+    2 inactive; 12 (and 32), ``vrt/apps/bench.py``'s grid pulled together
+    until boxes overlap, with instance 1 moved onto instance 0, instance 5
+    rotated and scaled, and instance 3 inactive."""
     scene = flagship_scene(res, mode, dtype, device=dev)
     if n_inst == 2:
         return scene
@@ -170,6 +175,9 @@ def _crowd(res, mode, dtype, n_inst, dev):
     rot = np.tile(np.asarray([0.0, 0.0, 0.0, 1.0], np.float32), (n_inst, 1))
     scale = np.ones((n_inst, 3), np.float32)
     active = np.ones(n_inst, bool)
+    if n_inst == 3:
+        pos[1] = pos[0]
+        active[2] = False
     if n_inst > 5:
         pos[1] = pos[0]
         rot[5] = (0.0, 0.0, np.sin(0.3), np.cos(0.3))
@@ -182,6 +190,29 @@ def _crowd(res, mode, dtype, n_inst, dev):
         inst_rot=torch.from_numpy(rot).to(dev),
         inst_scale=torch.from_numpy(scale).to(dev),
         inst_active=torch.from_numpy(active).to(dev))
+
+
+# The contention case of the surface backward: the flagship at resolution 4
+# (cells of 12.5 units) with per-voxel colours, seen by its own camera
+# rotation (looking along -x) from 30 units off the sphere's +x pole through
+# an 8 degree field, so that every ray of a 64x64 frame hits one cell and
+# all the colour-row cotangents of the level fall on one row.
+CONTENTION_CAMERA = dict(position=(80.0, -66.0, 4.0), fov=8.0)
+
+
+def contention_scene(scene):
+    """``scene`` (the flagship at resolution 4 with colours, of the port or
+    of vrt) seen from ``CONTENTION_CAMERA``."""
+    pos, fov = scene.cam_pos, scene.cam_fov
+    if isinstance(pos, torch.Tensor):
+        return dataclasses.replace(
+            scene, cam_pos=torch.tensor(CONTENTION_CAMERA["position"],
+                                        dtype=pos.dtype, device=pos.device),
+            cam_fov=torch.tensor(CONTENTION_CAMERA["fov"], dtype=fov.dtype,
+                                 device=fov.device))
+    return dataclasses.replace(
+        scene, cam_pos=np.asarray(CONTENTION_CAMERA["position"], np.float32),
+        cam_fov=np.float32(CONTENTION_CAMERA["fov"]))
 
 
 def scene_rays(seed, n, dev):
@@ -260,6 +291,119 @@ def test_scene_march_matches_plain_on_card(config, interp, debug, n_inst):
         assert k1.SCENE_LAUNCHES == before[1] + 2
         flips = (any_hit != want.hit).float().mean().item()
         assert any_hit.dtype == torch.bool and flips <= LANE_BUDGET
+
+
+# ---- K1's scene march: the capped kernel against the plain version and the
+# first design -------------------------------------------------------------
+#
+# The capped kernel changes only the block and the register budget: on the
+# same rays it equals the first design field by field, and the plain version
+# as the first design does.
+
+MARCH_TABLES = {"f32x8": (None, 8, 0), "f32x9": (None, 9, 0),
+                "bf16x8": (torch.bfloat16, 8, 0),
+                "bf16x8-unaligned": (torch.bfloat16, 8, 1)}
+
+
+def _assert_march_equal(got, want):
+    for f in ("hit", "t", "kind", "cell", "t_in", "t_out", "face_normal",
+              "steps"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.shape == b.shape, f
+        if a.is_floating_point():
+            assert bool(((a == b) | (torch.isnan(a) & torch.isnan(b)))
+                        .all()), f
+        else:
+            assert torch.equal(a, b), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_inst", [3, 12, 32])
+@pytest.mark.parametrize("table", sorted(MARCH_TABLES))
+@MODES
+def test_scene_march_designs_on_card(table, interp, debug, n_inst):
+    """The capped scene march on 1, 31, 33, 1000 and 4096 rays against the
+    first design (equal field by field) and the plain version (within the
+    lane budget, the winning instance on agreeing lanes); the any-hit
+    variant likewise."""
+    from vrt_torch.kernels import march as k1
+
+    dev = _card()
+    dtype, ch, offset = MARCH_TABLES[table]
+    ts = _with_table(_crowd(5, "chebyshev", dtype, n_inst, dev), ch, offset)
+    o, d, t_max = scene_rays(9, 4096, dev)
+    want, winst = tren.march_scene(ts, o, d, t_max, interp, debug,
+                                   lane_marcher=tmarch.march_lanes_reference)
+    assert int(want.hit.sum()) > 100
+    for rays in (1, 31, 33, 1000, 4096):
+        args = (ts, o[:rays], d[:rays], t_max[:rays], interp, debug)
+        before = k1.SCENE_LAUNCHES
+        got, inst = k1.march_scene_cuda(*args)
+        old, old_inst = k1.march_scene_cuda(*args, _old_design=True)
+        assert k1.SCENE_LAUNCHES == before + 2
+        torch.cuda.synchronize()
+        _assert_march_equal(got, old)
+        assert torch.equal(inst, old_inst)
+        w = dataclasses.replace(want, **{
+            f.name: getattr(want, f.name)[:rays]
+            for f in dataclasses.fields(want)})
+        agree = (got.hit == w.hit) & (got.kind == w.kind)
+        assert agree.float().mean().item() >= 1.0 - LANE_BUDGET \
+            or int((~agree).sum()) == 0
+        assert torch.equal(got.steps[agree], w.steps[agree])
+        assert torch.equal(got.cell[agree & w.hit], w.cell[agree & w.hit])
+        assert torch.equal(inst[agree], winst[:rays][agree])
+        if not debug:
+            any_hit = k1.march_scene_cuda(*args[:5], any_hit=True)
+            old_any = k1.march_scene_cuda(*args[:5], any_hit=True,
+                                          _old_design=True)
+            assert torch.equal(any_hit, old_any)
+            flips = (any_hit != w.hit).float().mean().item()
+            assert flips <= LANE_BUDGET or rays < 1000 and flips == 0.0
+
+
+# What ptxas prints for two template variants of each scene march, as a
+# build log holds it (abridged names).
+PTXAS_LOG = """\
+ptxas info    : Function properties for _ZN4_GN_25march_scene_capped_kernelIfLb0ELb0ELb0ELb0EEEvNS_11SceneParamsE
+    160 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 79 registers, used 0 barriers, 160 bytes cumulative stack size
+ptxas info    : Function properties for _ZN4_GN_18march_scene_kernelIfLb0ELb0ELb0ELb0EEEvNS_11SceneParamsE
+    160 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 74 registers, used 0 barriers, 160 bytes cumulative stack size
+ptxas info    : Function properties for _ZN4_GN_25march_scene_capped_kernelI6__halfLb1ELb1ELb0ELb0EEEvNS_11SceneParamsE
+    192 bytes stack frame, 40 bytes spill stores, 40 bytes spill loads
+ptxas info    : Used 96 registers, used 0 barriers, 192 bytes cumulative stack size
+ptxas info    : Function properties for _ZN4_GN_18march_scene_kernelI6__halfLb1ELb1ELb0ELb0EEEvNS_11SceneParamsE
+    160 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 118 registers, used 0 barriers, 160 bytes cumulative stack size
+"""
+
+
+@pytest.mark.parametrize("kernel,want", [
+    ("march_scene_capped_kernel", dict(variants=2, registers=[79, 96],
+                                       stack_bytes=[160, 192],
+                                       spill_bytes=[0, 80])),
+    ("march_scene_kernel", dict(variants=2, registers=[74, 118],
+                                stack_bytes=[160, 160], spill_bytes=[0, 0])),
+    ("surface_bwd_merged_kernel", None)])
+def test_ptxas_usage_reads_a_build_log(kernel, want):
+    """``_build.ptxas_usage`` spans a kernel's variants in a build log, and
+    one kernel's name inside another's does not match it."""
+    from vrt_torch.kernels._build import ptxas_usage
+
+    assert ptxas_usage(PTXAS_LOG, kernel) == want
+
+
+@pytest.mark.parametrize("regs,threads,want", [
+    (118, 256, 16 / 64), (96, 64, 20 / 64), (80, 64, 24 / 64),
+    (80, 256, 24 / 64), (32, 256, 1.0), (64, 64, 32 / 64)])
+def test_warp_slots_of_registers(regs, threads, want):
+    """``_build.warp_slots``: the warp slots of an H100 SM that blocks of a
+    kernel's size and registers fill, from the register file alone."""
+    from vrt_torch.kernels._build import warp_slots
+
+    assert warp_slots(regs, threads) == want
 
 
 RESOLVE_TABLES = {"f32x8": (None, 8), "f32x9": (None, 9),
@@ -1145,6 +1289,7 @@ SHADE_GRAD_CASES = {
                           mode=RenderMode(lit=False)),
     "overlay": dict(points=1, spots=1, mode=RenderMode(debug_overlay=True)),
     "flagship-1x1-textures": dict(flagship=True, colors=True),
+    "contention": dict(contention=True),
 }
 
 
@@ -1158,7 +1303,12 @@ def _shade_grad_level(case, dev, width=480, height=270, seed=0):
 
     spec = dict(SHADE_GRAD_CASES[case])
     mode = spec.pop("mode", RenderMode())
-    if spec.pop("flagship", False):
+    if spec.pop("contention", False):
+        # every ray on one colour row; the frame at most 64x64
+        scene = contention_scene(flagship_scene(4, use_colors=True,
+                                                device=dev))
+        width, height = min(width, 64), min(height, 64)
+    elif spec.pop("flagship", False):
         scene = flagship_scene(5, use_colors=spec["colors"], device=dev)
     else:
         scene = shading_scene(5, device=dev, **spec)
@@ -1261,6 +1411,59 @@ def test_shade_backward_kernels_match_plain_on_card(case):
             assert not bool((a[miss] != 0).any()), name
     assert k4.LAUNCHES["surface_bwd"] == before["surface_bwd"] + 1
     assert k4.LAUNCHES["combine_bwd"] == before["combine_bwd"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [(480, 270), (63, 37)],
+                         ids=["480x270", "63x37"])
+@pytest.mark.parametrize("case", ["contention", "lit-colours-f32",
+                                  "lit-colours-bf16", "unlit-colours",
+                                  "lit-textured-lights",
+                                  "flagship-1x1-textures"])
+def test_surface_backward_designs_on_card(case, size):
+    """The surface backward's merged kernel with NaN in ``t`` and ``n_obj``
+    on every miss lane: finite cotangents, exact zeros on miss lanes, within
+    the tolerances of the plain version (the colour table's of a float64
+    sum); the first design on the same inputs gives bit-equal per-ray
+    cotangents and a colour table within the same tolerance.  At 63x37 the
+    last warp holds 27 rays: its lanes past the end merge and store
+    nothing."""
+    from vrt_torch.kernels import shade as k4
+
+    dev = _card()
+    lv = _shade_grad_level(case, dev, *size)
+    assert lv["o"].shape[0] % 32 == (27 if size == (63, 37) else 0)
+    scene, mode, hit = lv["scene"], lv["mode"], lv["hit"]
+    miss = ~hit.hit
+    t, n_obj = lv["t"].clone(), lv["n_obj"].clone()
+    t[miss] = float("nan")
+    n_obj[miss] = float("nan")
+    args = (scene, lv["o"], lv["d"], t, n_obj, hit, lv["inst"], mode,
+            mode.lit)
+    before = k4.LAUNCHES["surface_bwd"]
+    got = k4.shade_surface_backward_cuda(*args, lv["cots"])
+    old = k4.shade_surface_backward_cuda(*args, lv["cots"],
+                                         _old_design=True)
+    assert k4.LAUNCHES["surface_bwd"] == before + 2
+    want = tren.shade_surface_backward_reference(
+        scene, lv["o"], lv["d"], lv["t"], lv["n_obj"], hit, lv["inst"], mode,
+        mode.lit, lv["cots"], acc_dtype=torch.float64)
+    torch.cuda.synchronize()
+    names = ("o_w", "d_w", "t", "n_obj")
+    _assert_grads_close(names, got[:4], want[:4])
+    for name, a, b in zip(names, got, old):
+        assert bool(torch.isfinite(a).all()), name
+        assert not bool((a[miss] != 0).any()), name
+        assert torch.equal(a, b), name
+    if scene.use_voxel_colors:
+        scale = want[4].abs().max().item()
+        assert scale > 0
+        for table in (got[4], old[4]):
+            assert (table.double() - want[4]).abs().max().item() \
+                <= SCATTER_RTOL * scale
+    if case == "contention":
+        rows = torch.unique(hit.cell[hit.hit], dim=0)
+        assert int(hit.hit.sum()) == hit.hit.numel() and rows.shape[0] == 1
 
 
 @pytest.mark.gpu

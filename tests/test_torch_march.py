@@ -538,3 +538,83 @@ class TestIsosurface:
             tresolve._slab_enter(torch.from_numpy(o), torch.from_numpy(d),
                                  torch.from_numpy(ext)).numpy(),
             np.asarray(vresolve._slab_enter(o, d, ext)), rtol=1e-6)
+
+
+# ---- what the scene march's kernels rely on ----------------------------------
+
+def _tied_scene(march_dtype):
+    """Three instances over the port's resolution-4 sphere and holed box:
+    the sphere and the box at one position (equal boxes, so equal entry t:
+    the stable order keeps the lower index first), and a rotated, scaled
+    sphere over them that is inactive."""
+    from vrt_torch.core import quat as tq
+    from vrt_torch.render.gpuscene import build_scene
+    from vrt_torch.volume import sdf as TS
+    from vrt_torch.volume.volume import VoxelVolume as TVolume
+
+    sphere = TVolume.from_generator(TS.Sphere(radius=45.0), 4, 100.0)
+    csg = TS.CSG(shape=TS.Box(extends=(40.0, 40.0, 40.0)))
+    csg.add_child(TS.Sphere(radius=50.0), TS.SUBTRACT)
+    box = TVolume.from_generator(csg, 4, 100.0)
+    insts = [{"volume": 0, "position": (0.0, -20.0, 0.0)},
+             {"volume": 1, "position": (0.0, -20.0, 0.0)},
+             {"volume": 0, "position": (30.0, 40.0, 10.0),
+              "rotation": np.asarray(tq.from_euler_degrees(0.0, 30.0, 10.0)),
+              "scale": (1.2, 0.8, 1.0)}]
+    cam = {"position": (320.0, 0.0, 40.0), "fov": 30.0,
+           "rotation": np.asarray(tq.from_euler_degrees(0.0, 180.0, 0.0))}
+    ts = build_scene([sphere, box], insts, camera=cam,
+                     accel_mode="chebyshev", march_dtype=march_dtype,
+                     device="cpu")
+    return dataclasses.replace(
+        ts, inst_active=torch.tensor([True, True, False]))
+
+
+def _bits(x):
+    """A tensor's bits, so that equality is bit for bit (NaN payloads and
+    the sign of zero included)."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+class TestSceneMarchPermutes:
+    """The scene march's kernels may hand rays to threads in any order and
+    group them into blocks of any size, writing each result to its ray's own
+    index: that is sound because ``march_scene_reference`` is a function of
+    each ray alone.  On a permutation of the rays it gives the same
+    permutation of its result, bit for bit, the winning instance and the
+    steps included."""
+
+    @pytest.mark.parametrize("rays", [1, 31, 33, 1000])
+    @pytest.mark.parametrize("dtype", [None, torch.bfloat16],
+                             ids=["f32", "bf16"])
+    @pytest.mark.parametrize("interp,debug", [(True, False), (False, False),
+                                              (True, True)],
+                             ids=["interp", "cube", "overlay"])
+    def test_permuted_rays_permute_the_result(self, interp, debug, dtype,
+                                              rays):
+        from vrt_torch.render.camera import camera_rays
+
+        ts = _tied_scene(dtype)
+        o, d = camera_rays(ts.cam_pos, ts.cam_rot, ts.cam_fov, 48, 32)
+        rng = np.random.default_rng(rays)
+        pick = torch.from_numpy(rng.choice(o.shape[0], rays, replace=False))
+        o, d = o[pick].contiguous(), d[pick].contiguous()
+        t_max = np.where(rng.uniform(size=rays) < 0.2,
+                         rng.uniform(200.0, 500.0, size=rays),
+                         1e4).astype(np.float32)
+        t_max[rng.uniform(size=rays) < 0.1] = -np.inf
+        t_max = torch.from_numpy(t_max)
+        perm = torch.from_numpy(rng.permutation(rays))
+        want, winst = tren.march_scene_reference(ts, o, d, t_max, interp,
+                                                 debug)
+        got, inst = tren.march_scene_reference(ts, o[perm], d[perm],
+                                               t_max[perm], interp, debug)
+        for f in dataclasses.fields(got):
+            assert torch.equal(_bits(getattr(got, f.name)),
+                               _bits(getattr(want, f.name)[perm])), f.name
+        assert torch.equal(inst, winst[perm])
+        assert not bool((winst == 2).any())
+        if rays == 1000:
+            # the tied pair's lower index is marched first and wins
+            assert bool((winst == 0).any()) and int(want.hit.sum()) > 100
+            assert int(want.steps.sum()) > 3 * rays

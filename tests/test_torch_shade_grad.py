@@ -231,6 +231,45 @@ def test_level_gradient_matches_vrt(depth):
                         VRT_GRAD_RTOL, VRT_COS_TOL, ("o_w", "d_w", "colors"))
 
 
+def test_contention_colour_gradient_matches_vrt():
+    """The surface backward's contention case (``CONTENTION_CAMERA``: every
+    ray of the frame hits one cell, so every colour-row cotangent falls on
+    one row): the 32x32 frame through the Function pair, against
+    ``jax.grad`` of vrt's ``trace_radiance`` on the same scene: the
+    gradients in the rays and the colour table."""
+    import __graft_entry__ as ge
+    from tests.test_torch_kernels import contention_scene
+
+    vs = contention_scene(ge._flagship_scene(resolution=4, use_colors=True))
+    vs = dataclasses.replace(vs, cam_pos=jnp.asarray(vs.cam_pos),
+                             cam_fov=jnp.asarray(vs.cam_fov))
+    ts = scene_from_numpy(scene_fields(vs), device="cpu")
+    o, d = camera_rays(ts.cam_pos, ts.cam_rot, ts.cam_fov, 32, 32)
+    o = o.contiguous()
+    hit, inst = tren.march_scene(ts, o, d, torch.full((o.shape[0],),
+                                                      tren.RADIANCE_TMAX))
+    assert bool(hit.hit.all())
+    assert torch.unique(hit.cell, dim=0).shape[0] == 1
+    weights = np.random.default_rng(1).normal(
+        size=(o.shape[0], 3)).astype(np.float32)
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in (o, d, ts.voxel_color_corners)]
+    scene = dataclasses.replace(ts, voxel_color_corners=leaves[2])
+    rgb = tren.trace_radiance(scene, leaves[0], leaves[1], 0, RenderMode())
+    got = torch.autograd.grad((rgb * torch.from_numpy(weights)).sum(), leaves)
+    assert int((got[2] != 0).any(-1).any(-1).sum()) <= 2
+
+    def loss(o_, d_, pcc):
+        v2 = dataclasses.replace(vs, voxel_color_corners=pcc)
+        return jnp.sum(vren.trace_radiance(v2, o_, d_, 0, VMode()) * weights)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(o.numpy()), jnp.asarray(d.numpy()),
+        vs.voxel_color_corners)
+    _assert_grads_close(got, [torch.from_numpy(np.array(w)) for w in want],
+                        VRT_GRAD_RTOL, VRT_COS_TOL, ("o_w", "d_w", "colors"))
+
+
 def test_record_packs_for_the_functions():
     """``pack`` / ``unpack``: the record's tensors in ``RECORD_FIELDS``
     order, the shadow tuples stacked (rows of one tensor are taken as they

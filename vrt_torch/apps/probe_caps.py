@@ -1,0 +1,225 @@
+"""The register-cap probe of the two kernels redesigned for the H100: K1's
+scene march (``march_scene_capped_kernel``) and K4's surface backward
+(``surface_bwd_merged_kernel``), on one CUDA card.
+
+    python3 -m vrt_torch.apps.probe_caps
+
+Each kernel's block and register cap are constants of its source
+(``kSceneThreads``, ``kSceneMinBlocks`` and ``kAnyHitMinBlocks`` in
+``march.cu``, ``kSurfaceBwdMinBlocks`` in ``shade.cu``).  The probe builds a
+copy of the source for each of ``MARCH`` and ``SURFACE_BWD`` with those
+constants set as the variant says (all builds in parallel, under
+``build/vrt_torch_kernels/probe/``), then runs the launches of the path
+that chose them through each build in turn: the five scene marches of the
+flagship's 1080p interp frame, and the three surface backwards of one
+1080p config6 fit step.  Each build must give the default build's result
+(the marches field by field, the per-ray cotangents bit for bit); each
+launch is timed as device time (``device_ms``), the default build first and
+last, with the first design (``_old_design``) beside them.  It prints
+ptxas' registers, stack frame and spills of each build's variants, and the
+warp slots the registers leave filled, beside the card's name and power
+limit.  There is no CPU path.
+"""
+
+from __future__ import annotations
+
+import re
+import shutil
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+from vrt_torch.kernels import _build
+from vrt_torch.kernels import march as k1
+from vrt_torch.kernels import shade as k4
+from vrt_torch.kernels._timing import device_ms
+
+# (label, the source's constants set otherwise, threads a block)
+MARCH = (
+    ("default: 64 threads, full traces 10 and any-hit 12 blocks an SM", {},
+     64),
+    ("full traces uncapped", {"kSceneMinBlocks": 1}, 64),
+    ("any-hit uncapped", {"kAnyHitMinBlocks": 1}, 64),
+    ("all 12 blocks an SM", {"kSceneMinBlocks": 12}, 64),
+    ("all 16 blocks an SM", {"kSceneMinBlocks": 16, "kAnyHitMinBlocks": 16},
+     64),
+    ("128 threads, full traces 5 and any-hit 6 blocks an SM",
+     {"kSceneThreads": 128, "kSceneMinBlocks": 5, "kAnyHitMinBlocks": 6},
+     128))
+SURFACE_BWD = (
+    ("default: 3 blocks an SM", {}, 256),
+    ("uncapped", {"kSurfaceBwdMinBlocks": 1}, 256),
+    ("4 blocks an SM", {"kSurfaceBwdMinBlocks": 4}, 256))
+FIELDS = ("hit", "t", "kind", "cell", "t_in", "t_out", "face_normal", "steps")
+REPS = 20
+
+
+def _variant(source, consts, tag):
+    """``csrc/<source>`` with ``consts`` set, and ``scene.cuh`` beside it,
+    copied under the build directory: (path of the source, of the header)."""
+    text = (_build.CSRC / source).read_text()
+    for name, value in consts.items():
+        text, n = re.subn(rf"constexpr int {name} = \d+;",
+                          f"constexpr int {name} = {value};", text)
+        if n != 1:
+            raise RuntimeError(f"{source} defines {name} {n} times")
+    out = _build.BUILD_DIR / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"{source.split('.')[0]}_{tag}.cu"
+    path.write_text(text)
+    header = out / "scene.cuh"
+    shutil.copyfile(_build.CSRC / "scene.cuh", header)
+    return path, header
+
+
+def _builds(module, source, variants, kernel, entries):
+    """Every variant of ``source`` built (in parallel), its ``entries``
+    typed as ``module``'s own library types them: [(label, library, ptxas
+    usage of ``kernel``, threads)]."""
+    module.build()
+    paths = [_variant(source, consts, i)
+             for i, (_, consts, _) in enumerate(variants)]
+    with ThreadPoolExecutor(len(paths)) as pool:
+        built = list(pool.map(
+            lambda ph: _build.build(str(ph[0]), module.NVCC_FLAGS,
+                                    headers=[str(ph[1])]), paths))
+    out = []
+    for (label, _, threads), (lib, log) in zip(variants, built):
+        for name in entries:
+            ref, fn = getattr(module._lib, name), getattr(lib, name)
+            fn.argtypes, fn.restype = ref.argtypes, ref.restype
+        out.append((label, lib, _build.ptxas_usage(log, kernel), threads))
+    return out
+
+
+def _recorded(module, name, run):
+    """Every call of ``module.name`` during ``run()``: (args, kwargs,
+    result)."""
+    calls, fn = [], getattr(module, name)
+
+    def recorder(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, recorder)
+    try:
+        run()
+    finally:
+        setattr(module, name, fn)
+    torch.cuda.synchronize()
+    return calls
+
+
+def _same_march(got, want):
+    if isinstance(got, torch.Tensor):
+        return torch.equal(got, want)
+    return torch.equal(got[1], want[1]) and all(
+        bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+        if a.is_floating_point() else torch.equal(a, b)
+        for a, b in ((getattr(got[0], f), getattr(want[0], f))
+                     for f in FIELDS))
+
+
+def _same_cotangents(got, want):
+    return all(torch.equal(a, b) for a, b in zip(got[:4], want[:4])
+               if a is not None)
+
+
+def _probe(module, fn_name, builds, calls, same):
+    """Each build's launches of ``calls`` (checked with ``same`` against the
+    recorded result) timed, the default build first and last, the first
+    design after it: [(label, ms per launch, usage, threads)]."""
+    fn = getattr(module, fn_name)
+    default = module._lib
+
+    def timed(old_design=False):
+        per_launch = []
+        for args, kwargs, want in calls:
+            kw = dict(kwargs, _old_design=True) if old_design else kwargs
+            if not same(fn(*args, **kw), want):
+                raise AssertionError(f"{fn_name}: a build changed the result")
+            per_launch.append(device_ms(lambda: fn(*args, **kw), REPS))
+        return per_launch
+
+    rows = []
+    order = builds + [builds[0]]
+    try:
+        for i, (label, lib, usage, threads) in enumerate(order):
+            module._lib = lib
+            rows.append((label + (", again" if i == len(builds) else ""),
+                         timed(), usage, threads))
+            if i == 0:
+                module._lib = default
+                rows.append(("first design", timed(old_design=True), None,
+                             256))
+    finally:
+        module._lib = default
+    return rows
+
+
+def _report(what, card, rows):
+    for label, ms, usage, threads in rows:
+        if usage is None:
+            regs = "ptxas: not in this run's log"
+        else:
+            slots = [_build.warp_slots(r, threads)
+                     for r in usage["registers"][::-1]]
+            regs = (f"{usage['variants']} variants, registers "
+                    f"{usage['registers']}, stack {usage['stack_bytes']}, "
+                    f"spills {usage['spill_bytes']} bytes, warp slots filled "
+                    f"{slots[0]:.0%}-{slots[1]:.0%}")
+        print(f"{what} on {card}: {label}: "
+              f"{', '.join(f'{t:.4f}' for t in ms)} ms = {sum(ms):.4f} ms; "
+              f"{regs}", flush=True)
+
+
+def main(argv=None) -> int:
+    from vrt_torch.apps.probe_gather import card as card_name
+    from vrt_torch.diff.fit import make_fit_step
+    from vrt_torch.diff.optim import adam
+    from vrt_torch.render.gpuscene import RenderMode
+    from vrt_torch.render.renderer import render_image
+    from vrt_torch.scenes import flagship_scene
+
+    if not torch.cuda.is_available():
+        print("probe_caps needs a CUDA card", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    card = card_name()
+    march_builds = _builds(k1, "march.cu", MARCH, "march_scene_capped_kernel",
+                           ("vrt_march_lanes", "vrt_march_scene"))
+    shade_builds = _builds(k4, "shade.cu", SURFACE_BWD,
+                           "surface_bwd_merged_kernel",
+                           ("vrt_shade_surface", "vrt_shade_combine",
+                            "vrt_shade_surface_bwd", "vrt_shade_combine_bwd"))
+
+    scene = flagship_scene(7, "chebyshev", torch.bfloat16, device=dev)
+    calls = _recorded(k1, "march_scene_cuda",
+                      lambda: render_image(scene, 1920, 1080, RenderMode()))
+    _report("the 1080p interp frame's scene marches", card,
+            _probe(k1, "march_scene_cuda", march_builds, calls, _same_march))
+    del scene, calls
+
+    # config6 (vrt/apps/bench.py bench_fit): the flagship at resolution 6
+    # with per-voxel colours, one camera, zero targets, Adam at 1e-2
+    scene = flagship_scene(6, use_colors=True, device=dev)
+    params = {"sdf": scene.volumes.sdf, "voxel_colors": scene.voxel_colors}
+    opt = adam(1e-2)
+    cams = [dict(position=(320.0, 0.0, 40.0), rotation=(0.0, 0.0, 1.0, 0.0),
+                 fov=60.0)]
+    step = make_fit_step(scene, cams, 1920, 1080, RenderMode(), opt)
+    targets = torch.zeros((1, 1920 * 1080, 3), device=dev)
+    state = opt.init(params)
+    calls = _recorded(k4, "shade_surface_backward_cuda",
+                      lambda: step(params, state, targets))
+    _report("the config6 fit step's surface backwards", card,
+            _probe(k4, "shade_surface_backward_cuda", shade_builds, calls,
+                   _same_cotangents))
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -48,10 +48,27 @@
 // entry t is not below the best hit is never marched (the plain version
 // marches it with t_max = -inf, where it retires at the slab test with 0
 // steps and no hit), and a shadow trace writes 1 byte per ray instead of 49.
-// Within a candidate the march stays as simple as before: one thread per
-// ray with no shared memory, __ldg row loads, every lane retiring on its
-// own.  Built with --fmad=false so that every operation rounds like the
-// eager twin; sums run in the twin's order.
+// Built with --fmad=false so that every operation rounds like the eager
+// twin; sums run in the twin's order.
+//
+// The scene march has two designs.  The first (march_scene_kernel) gives
+// thread i ray i, 256 threads a block, one __ldg per corner: a warp holds 32
+// pixels of one image row, and runs as long as its slowest lane.  What held
+// it back on the H100 (chip_smoke.py: SIMT efficiency from the plain
+// version's step counts, ptxas; ncu cannot run there): the loop waits on
+// one dependent accel load a step, at 118-125 registers a thread in interp
+// mode, so 16 of 64 warp slots an SM are filled, and a block of eight warps
+// retires with its slowest.  The redesign (march_scene_capped_kernel, the
+// default) keeps thread i on ray i, runs 64 threads a block (two warps wait
+// less on each other than eight) and caps the registers (10 blocks an SM
+// for full traces, 96 registers; 12 for any-hit ones, 80), the caps that
+// vrt_torch.apps.probe_caps times.  16-byte corner-row loads were tried and
+// measured no faster (rows are read on surface cells only), and warps of
+// 8x4 pixel tiles, which raise the primary trace's SIMT efficiency, took
+// too little off the frame's launches to keep: both were taken out.  The
+// candidate arrays stay on the stack (160 bytes, a few accesses a ray
+// against dozens of dependent global loads).  Each ray's arithmetic is the
+// first design's: the two are equal field by field.
 
 #include "scene.cuh"
 
@@ -521,18 +538,15 @@ struct SceneParams {
   int32_t* winner;  // [R] winning instance, -1 for none
 };
 
-// march_scene_reference for one ray.  A candidate is live when its instance
+// march_scene_reference for ray i.  A candidate is live when its instance
 // is active, its box is hit within t_max (ok) and its entry t lies below the
 // best hit so far; its key is that entry t, or +inf when not ok.  An ok
 // candidate's key is never +inf or NaN (t_exit > t_enter would fail), so
 // "live" is "key < best_t", and as keys ascend and best_t only falls, the
 // first dead candidate ends the loop.
 template <typename T, bool kCheb, bool kInterp, bool kDebug, bool kAnyHit>
-__global__ void __launch_bounds__(256) march_scene_kernel(
-    const SceneParams p) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= p.rays) return;
+__device__ __forceinline__ void march_scene_ray(const SceneParams& p,
+                                                long long i) {
   float o_w[3], d_w[3], o[3], d[3];
   for (int k = 0; k < 3; ++k) {
     o_w[k] = p.o_w[3 * i + k];
@@ -601,6 +615,37 @@ __global__ void __launch_bounds__(256) march_scene_kernel(
   p.winner[i] = winner;
 }
 
+// The first design, kept as the comparator of the capped kernel: 256
+// threads a block, registers uncapped.
+template <typename T, bool kCheb, bool kInterp, bool kDebug, bool kAnyHit>
+__global__ void __launch_bounds__(256) march_scene_kernel(
+    const SceneParams p) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= p.rays) return;
+  march_scene_ray<T, kCheb, kInterp, kDebug, kAnyHit>(p, i);
+}
+
+// The redesign's block and the blocks an SM must hold at once, a cap on the
+// registers a thread may use.  Uncapped, the full traces' interp variants
+// take some 120 registers, which leaves 16 of 64 warp slots filled; at 10
+// blocks (96 registers) they spill a little and the primary rays gain, at
+// 12 (80) the spills cost the sparse traces more than the primary rays gain;
+// the any-hit variants gain at 12.
+constexpr int kSceneThreads = 64;
+constexpr int kSceneMinBlocks = 10;
+constexpr int kAnyHitMinBlocks = 12;
+
+template <typename T, bool kCheb, bool kInterp, bool kDebug, bool kAnyHit>
+__global__ void __launch_bounds__(kSceneThreads, kAnyHit ? kAnyHitMinBlocks
+                                                         : kSceneMinBlocks)
+    march_scene_capped_kernel(const SceneParams p) {
+  const long long i = static_cast<long long>(blockIdx.x) * kSceneThreads +
+                      threadIdx.x;
+  if (i >= p.rays) return;
+  march_scene_ray<T, kCheb, kInterp, kDebug, kAnyHit>(p, i);
+}
+
 unsigned grid_for(long long n) {
   return static_cast<unsigned>((n + 255) / 256);
 }
@@ -642,16 +687,28 @@ struct LaunchLanes {
 struct LaunchScene {
   SceneParams p;
   bool any_hit;  // never with the overlay: vrt_march_scene refuses it
+  bool capped;
   cudaStream_t stream;
   template <typename T, bool kCheb, bool kInterp, bool kDebug>
   void go() const {
-    const unsigned grid = grid_for(p.rays);
+    if (!capped) {
+      const unsigned grid = grid_for(p.rays);
+      if (any_hit)
+        march_scene_kernel<T, kCheb, kInterp, false, true>
+            <<<grid, 256, 0, stream>>>(p);
+      else
+        march_scene_kernel<T, kCheb, kInterp, kDebug, false>
+            <<<grid, 256, 0, stream>>>(p);
+      return;
+    }
+    const unsigned grid =
+        static_cast<unsigned>((p.rays + kSceneThreads - 1) / kSceneThreads);
     if (any_hit)
-      march_scene_kernel<T, kCheb, kInterp, false, true>
-          <<<grid, 256, 0, stream>>>(p);
+      march_scene_capped_kernel<T, kCheb, kInterp, false, true>
+          <<<grid, kSceneThreads, 0, stream>>>(p);
     else
-      march_scene_kernel<T, kCheb, kInterp, kDebug, false>
-          <<<grid, 256, 0, stream>>>(p);
+      march_scene_capped_kernel<T, kCheb, kInterp, kDebug, false>
+          <<<grid, kSceneThreads, 0, stream>>>(p);
   }
 };
 
@@ -678,8 +735,10 @@ extern "C" int vrt_march_lanes(
 
 // One thread per world ray over the scene's instances (at most 32).  With
 // any_hit only ``hit`` is written (the other outputs may be null); the
-// overlay has no any-hit variant.  Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for a combination it does not take.
+// overlay has no any-hit variant.  capped 0 launches the first design (256
+// threads a block, registers uncapped), capped 1 the redesign.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// a combination it does not take.
 extern "C" int vrt_march_scene(
     const float* o_w, const float* d_w, const float* t_max,
     const int32_t* inst_volume, const float* inst_pos, const float* inst_rot,
@@ -689,7 +748,7 @@ extern "C" int vrt_march_scene(
     int ch, int bf16, int chebyshev, int interp, int debug, int any_hit,
     long long rays, uint8_t* hit, float* t, int32_t* kind, int32_t* cell,
     float* t_in, float* t_out, float* face, int32_t* steps, int32_t* winner,
-    void* stream) {
+    int capped, void* stream) {
   if (n_inst < 1 || n_inst > kMaxInstances || (any_hit && debug))
     return cudaErrorInvalidValue;
   const SceneParams p{
@@ -698,7 +757,8 @@ extern "C" int vrt_march_scene(
                 n_inst},
       Tables{n, cell_size, extends, accel, corners, sdf, cc, ch}, rays,
       HitOut{hit, t, kind, cell, t_in, t_out, face, steps}, winner};
-  by_table(LaunchScene{p, any_hit != 0, static_cast<cudaStream_t>(stream)},
+  by_table(LaunchScene{p, any_hit != 0, capped != 0,
+                       static_cast<cudaStream_t>(stream)},
            bf16, chebyshev, interp, debug);
   return static_cast<int>(cudaGetLastError());
 }

@@ -58,6 +58,8 @@
 // select (a texel's floor, the cube face, the gate, a light's floor) may flip
 // on a lane in a million.
 
+#include <algorithm>
+
 #include "scene.cuh"
 
 namespace {
@@ -745,6 +747,22 @@ __global__ void __launch_bounds__(kThreads) combine_kernel(
 // cotangents back through them in registers.  Every cotangent but the colour
 // table's belongs to one ray, so only the colour rows need atomics.
 //
+// The surface backward has two designs.  The first (surface_bwd_kernel):
+// one thread a ray over a grid of 8,100 blocks at 1080p, each block staging
+// the tables and synchronising before its lanes read their flags, each hit
+// lane issuing its six 16-byte reductions on its own.  What held it back on
+// the H100 (chip_smoke.py; ncu cannot run there): on config6's primary rays
+// 118,053 hits fall on 3,024 colour rows, 26 hits and 5.5 rows a warp, and
+// yet the launch without the colour table's cotangent is faster by little
+// more than the 53 MB accumulator's zero fill: the reductions were not what
+// held it back.  The hit lanes' recomputation is, latency-bound at 97-125 registers
+// (16 of 64 warp slots); the launches with few hits cost their 2 M flags
+// and 40 B of zeros a lane.  The redesign (surface_bwd_merged_kernel, the
+// default, below) keeps blocks resident and striding, writes an all-miss
+// warp's zeros in 16-byte stores, merges a warp's colour-row cotangents
+// before the reductions, and caps the registers at 80 (3 blocks an SM): of
+// the probe's builds the fastest over a step's three launches.
+//
 // Where torch's derivative has an edge, the kernels take torch's side (the
 // plain stages pass vrt's fixture with it; JAX splits a tie of max between
 // its arguments and so differs at a bound):
@@ -1275,14 +1293,12 @@ __device__ __forceinline__ void red_add_v4(float* dst, float a, float b,
 }
 
 // The reverse of color_sample: adds the cotangents of the object-space ray
-// and of t, and adds the row's 24 cotangents into the f32 accumulator with
-// six 16-byte reductions.
-__device__ void color_sample_bwd(const SurfaceParams& p, float* acc,
-                                 long long i, int vol, int n, float h,
-                                 float ext, const float o[3],
-                                 const float d[3], float t,
-                                 const float g[3], float g_o[3],
-                                 float g_d[3], float& g_t) {
+// and of t, and returns the colour row's index and its 24 cotangents (the
+// caller adds them into the f32 accumulator).
+__device__ __forceinline__ void color_sample_bwd(
+    const SurfaceParams& p, long long i, int vol, int n, float h, float ext,
+    const float o[3], const float d[3], float t, const float g[3],
+    float g_o[3], float g_d[3], float& g_t, long long& row, float grow[24]) {
   int cell[3];
   float q[3];
   for (int c = 0; c < 3; ++c) {
@@ -1292,11 +1308,9 @@ __device__ void color_sample_bwd(const SurfaceParams& p, float* acc,
   }
   const long long cn = p.color_side;
   const int last = p.color_side - 1;
-  const long long row =
-      ((static_cast<long long>(vol) * cn + min(max(cell[0], 0), last)) * cn +
-       min(max(cell[1], 0), last)) * cn + min(max(cell[2], 0), last);
+  row = ((static_cast<long long>(vol) * cn + min(max(cell[0], 0), last)) * cn +
+         min(max(cell[1], 0), last)) * cn + min(max(cell[2], 0), last);
   float g_q[3] = {0.0f, 0.0f, 0.0f};
-  float grow[24];
   for (int j = 0; j < 8; ++j) {
     const int b[3] = {j & 1, (j >> 1) & 1, (j >> 2) & 1};
     bool valid = true;
@@ -1333,7 +1347,12 @@ __device__ void color_sample_bwd(const SurfaceParams& p, float* acc,
     g_d[c] += gq * t;
     g_t += gq * d[c];
   }
-  if (acc == nullptr) return;
+}
+
+// A colour row's 24 cotangents into the accumulator: six 16-byte
+// reductions, all-zero quadruples skipped.
+__device__ __forceinline__ void add_color_row(float* acc, long long row,
+                                              const float grow[24]) {
   float* dst = acc + row * 24;
   for (int e = 0; e < 24; e += 4)
     if (grow[e] != 0.0f || grow[e + 1] != 0.0f || grow[e + 2] != 0.0f ||
@@ -1341,14 +1360,13 @@ __device__ void color_sample_bwd(const SurfaceParams& p, float* acc,
       red_add_v4(dst + e, grow[e], grow[e + 1], grow[e + 2], grow[e + 3]);
 }
 
-template <bool kLit, bool kTextured, bool kColors>
-__global__ void __launch_bounds__(kThreads) surface_bwd_kernel(
-    const SurfaceBwdParams q) {
-  const SurfaceParams& p = q.f;
-  extern __shared__ float sh[];
-  float* sh_inst = sh;
-  float* sh_vol = sh_inst + p.inst.count * kInstRow;
-  int* sh_sizes = reinterpret_cast<int*>(sh_vol + p.mat.count * kVolRow);
+// The instance, volume and texture-size tables of the surface kernels'
+// backward into shared memory (rows of kInstRow and kVolRow words); the
+// caller synchronises.
+__device__ __forceinline__ void stage_surface_tables(const SurfaceParams& p,
+                                                     float* sh_inst,
+                                                     float* sh_vol,
+                                                     int* sh_sizes) {
   for (int w = threadIdx.x; w < p.inst.count * kInstRow; w += blockDim.x) {
     const int r = w / kInstRow, c = w % kInstRow;
     float v = 0.0f;
@@ -1376,6 +1394,195 @@ __global__ void __launch_bounds__(kThreads) surface_bwd_kernel(
   }
   for (int w = threadIdx.x; w < 2 * p.tex_count; w += blockDim.x)
     sh_sizes[w] = p.tex_sizes[w];
+}
+
+// The surface backward of hit lane i: adds the cotangents of its ray, t
+// and n_obj into g_o, g_d, g_t, g_n and, with per-voxel colours, returns its
+// colour row and the row's 24 cotangents.  The two kernels below share it.
+template <bool kLit, bool kTextured, bool kColors>
+__device__ __forceinline__ void surface_bwd_hit(
+    const SurfaceBwdParams& q, const float* sh_inst, const float* sh_vol,
+    const int* sh_sizes, long long i, float g_o[3], float g_d[3],
+    float g_n[3], float& g_t, long long& row, float grow[24]) {
+  const SurfaceParams& p = q.f;
+  float o_w[3], d_w[3], n_obj[3];
+  for (int c = 0; c < 3; ++c) {
+    o_w[c] = p.o_w[3 * i + c];
+    d_w[c] = p.d_w[3 * i + c];
+    n_obj[c] = p.n_obj[3 * i + c];
+  }
+  const float t = p.t[i];
+  const float* in = sh_inst + max(p.winner[i], 0) * kInstRow;
+  const float* pos = in;
+  const float* rot = in + 3;
+  const float* scale = in + 7;
+  const int vol = __float_as_int(in[10]);
+  const float* mat = sh_vol + vol * kVolRow;
+  const float qc[3] = {-rot[0], -rot[1], -rot[2]};
+
+  float g_alb[3], g_hp[3], g_nw[3];
+  load3(q.g_albedo, i, g_alb);
+  load3(q.g_shadow_origin, i, g_hp);       // hit_pos - 0.1 d
+  for (int c = 0; c < 3; ++c) g_d[c] = -0.1f * g_hp[c];
+  float g_ns[3] = {0.0f, 0.0f, 0.0f};      // of n_shade
+  float hit_pos[3];
+  for (int c = 0; c < 3; ++c) hit_pos[c] = o_w[c] + t * d_w[c];
+
+  if (kLit) {
+    // n_w = rotate(rot, n_shade) * scale, then the mirror direction
+    float n_shade[3] = {n_obj[0], n_obj[1], n_obj[2]};
+    float obj_pos[3], b[3], tn[3], zxy[3];
+    const float* tscale = mat + 9;
+    if (kTextured) {
+      float a[3];
+      for (int c = 0; c < 3; ++c) a[c] = (hit_pos[c] - pos[c]) / scale[c];
+      rotate(qc, rot[3], a, obj_pos);
+      const float ab[3] = {fabsf(n_obj[0]), fabsf(n_obj[1]),
+                           fabsf(n_obj[2])};
+      const float s = (ab[0] + ab[1]) + ab[2];
+      for (int c = 0; c < 3; ++c) b[c] = s > 0.0f ? ab[c] / s : 0.0f;
+      tri_sample<true>(p, sh_sizes, __float_as_int(mat[12]), tscale,
+                       obj_pos, b, tn);
+      const float n2 = dot3(tn, tn);
+      const float norm = sqrtf(n2 > 0.0f ? n2 : 1.0f);
+      float u[3];
+      for (int c = 0; c < 3; ++c) u[c] = n2 > 0.0f ? tn[c] / norm : 0.0f;
+      zxy[0] = u[2];
+      zxy[1] = u[0];
+      zxy[2] = u[1];
+      rotate_from_x(n_obj, zxy, n_shade);
+    }
+    float n_w[3];
+    rotate(rot, rot[3], n_shade, n_w);
+    for (int c = 0; c < 3; ++c) n_w[c] = n_w[c] * scale[c];
+    load3(q.g_n_w, i, g_nw);
+    if (p.bounce && q.g_refl_dir != nullptr) {
+      const float dn = 2.0f * dot3(d_w, n_w);
+      float r[3], g_refl[3], g_r[3];
+      for (int c = 0; c < 3; ++c) r[c] = d_w[c] - dn * n_w[c];
+      load3(q.g_refl_dir, i, g_refl);
+      safe_unit_bwd(r, g_refl, g_r);
+      const float g_dn = -dot3(g_r, n_w);
+      for (int c = 0; c < 3; ++c) {
+        g_d[c] += g_r[c] + (2.0f * g_dn) * n_w[c];
+        g_nw[c] += -dn * g_r[c] + (2.0f * g_dn) * d_w[c];
+      }
+    }
+    float g_rs[3];
+    for (int c = 0; c < 3; ++c) g_rs[c] = g_nw[c] * scale[c];
+    rotate_t(rot, rot[3], g_rs, g_ns);
+
+    if (kTextured) {
+      float g_pos[3] = {0.0f, 0.0f, 0.0f}, g_b[3] = {0.0f, 0.0f, 0.0f};
+      // roughness = clamp(R * rm.x, 0, 1), metallic = clamp(M * rm.y, 0, 1)
+      const float g_rough = q.g_roughness != nullptr ? q.g_roughness[i]
+                                                      : 0.0f;
+      const float g_metal = q.g_metallic != nullptr ? q.g_metallic[i]
+                                                     : 0.0f;
+      if (g_rough != 0.0f || g_metal != 0.0f) {
+        float rm[3];
+        tri_sample<false>(p, sh_sizes, __float_as_int(mat[13]), tscale,
+                          obj_pos, b, rm);
+        const float xr = mat[6] * rm[0], xm = mat[7] * rm[1];
+        const float g_rm[3] = {
+            xr >= 0.0f && xr <= 1.0f ? g_rough * mat[6] : 0.0f,
+            xm >= 0.0f && xm <= 1.0f ? g_metal * mat[7] : 0.0f, 0.0f};
+        tri_sample_bwd<false>(p, sh_sizes, __float_as_int(mat[13]), tscale,
+                              obj_pos, b, g_rm, g_pos, g_b);
+      }
+      // n_shade = rotate_from_x(n_obj, zxy(unit(tn)))
+      float g_zxy[3] = {0.0f, 0.0f, 0.0f};
+      rotate_from_x_bwd(n_obj, zxy, g_ns, g_n, g_zxy);
+      const float g_u[3] = {g_zxy[1], g_zxy[2], g_zxy[0]};
+      float g_tn[3];
+      safe_unit_bwd(tn, g_u, g_tn);
+      tri_sample_bwd<true>(p, sh_sizes, __float_as_int(mat[12]), tscale,
+                           obj_pos, b, g_tn, g_pos, g_b);
+      if (!kColors) {
+        float g_tex[3];
+        for (int c = 0; c < 3; ++c) g_tex[c] = g_alb[c] * mat[3 + c];
+        tri_sample_bwd<false>(p, sh_sizes, __float_as_int(mat[11]), tscale,
+                              obj_pos, b, g_tex, g_pos, g_b);
+      }
+      // b = |n_obj| / sum |n_obj|
+      const float ab[3] = {fabsf(n_obj[0]), fabsf(n_obj[1]),
+                           fabsf(n_obj[2])};
+      const float s = (ab[0] + ab[1]) + ab[2];
+      if (s > 0.0f) {
+        const float gs = dot3(g_b, ab) / (s * s);
+        for (int c = 0; c < 3; ++c)
+          g_n[c] += (g_b[c] / s - gs) * dsign(n_obj[c]);
+      }
+      // obj_pos = rotate(conj(rot), (hit_pos - pos) / scale)
+      float g_a[3];
+      rotate_t(qc, rot[3], g_pos, g_a);
+      for (int c = 0; c < 3; ++c) g_hp[c] += g_a[c] / scale[c];
+    } else {
+      for (int c = 0; c < 3; ++c) g_n[c] += g_ns[c];
+    }
+  } else if (kTextured && !kColors) {
+    // unlit: the albedo alone
+    float a[3], obj_pos[3], b[3];
+    for (int c = 0; c < 3; ++c) a[c] = (hit_pos[c] - pos[c]) / scale[c];
+    rotate(qc, rot[3], a, obj_pos);
+    const float ab[3] = {fabsf(n_obj[0]), fabsf(n_obj[1]), fabsf(n_obj[2])};
+    const float s = (ab[0] + ab[1]) + ab[2];
+    for (int c = 0; c < 3; ++c) b[c] = s > 0.0f ? ab[c] / s : 0.0f;
+    float g_pos[3] = {0.0f, 0.0f, 0.0f}, g_b[3] = {0.0f, 0.0f, 0.0f};
+    float g_tex[3];
+    for (int c = 0; c < 3; ++c) g_tex[c] = g_alb[c] * mat[3 + c];
+    tri_sample_bwd<false>(p, sh_sizes, __float_as_int(mat[11]), mat + 9,
+                          obj_pos, b, g_tex, g_pos, g_b);
+    if (s > 0.0f) {
+      const float gs = dot3(g_b, ab) / (s * s);
+      for (int c = 0; c < 3; ++c)
+        g_n[c] += (g_b[c] / s - gs) * dsign(n_obj[c]);
+    }
+    float g_a[3];
+    rotate_t(qc, rot[3], g_pos, g_a);
+    for (int c = 0; c < 3; ++c) g_hp[c] += g_a[c] / scale[c];
+  }
+
+  // hit_pos = o_w + t d_w
+  for (int c = 0; c < 3; ++c) {
+    g_o[c] += g_hp[c];
+    g_d[c] += t * g_hp[c];
+  }
+  g_t += dot3(g_hp, d_w);
+
+  if (kColors) {
+    float a[3], bb[3], o[3], d[3];
+    for (int c = 0; c < 3; ++c) {
+      a[c] = (o_w[c] - pos[c]) / scale[c];
+      bb[c] = d_w[c] / scale[c];
+    }
+    rotate(qc, rot[3], a, o);
+    rotate(qc, rot[3], bb, d);
+    float g_oo[3] = {0.0f, 0.0f, 0.0f}, g_dd[3] = {0.0f, 0.0f, 0.0f};
+    color_sample_bwd(p, i, vol, __float_as_int(mat[0]), mat[1], mat[2], o, d,
+                     t, g_alb, g_oo, g_dd, g_t, row, grow);
+    float ga[3], gb[3];
+    rotate_t(qc, rot[3], g_oo, ga);
+    rotate_t(qc, rot[3], g_dd, gb);
+    for (int c = 0; c < 3; ++c) {
+      g_o[c] += ga[c] / scale[c];
+      g_d[c] += gb[c] / scale[c];
+    }
+  }
+}
+
+// The first design, kept as the comparator of the merged kernel: one thread
+// a ray over the whole grid, tables staged by every block, each hit lane's
+// six reductions issued on their own.
+template <bool kLit, bool kTextured, bool kColors>
+__global__ void __launch_bounds__(kThreads) surface_bwd_kernel(
+    const SurfaceBwdParams q) {
+  const SurfaceParams& p = q.f;
+  extern __shared__ float sh[];
+  float* sh_inst = sh;
+  float* sh_vol = sh_inst + p.inst.count * kInstRow;
+  int* sh_sizes = reinterpret_cast<int*>(sh_vol + p.mat.count * kVolRow);
+  stage_surface_tables(p, sh_inst, sh_vol, sh_sizes);
   __syncthreads();
 
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
@@ -1385,170 +1592,11 @@ __global__ void __launch_bounds__(kThreads) surface_bwd_kernel(
   float g_o[3] = {0.0f, 0.0f, 0.0f}, g_d[3] = {0.0f, 0.0f, 0.0f};
   float g_n[3] = {0.0f, 0.0f, 0.0f}, g_t = 0.0f;
   if (p.hit[i]) {
-    float o_w[3], d_w[3], n_obj[3];
-    for (int c = 0; c < 3; ++c) {
-      o_w[c] = p.o_w[3 * i + c];
-      d_w[c] = p.d_w[3 * i + c];
-      n_obj[c] = p.n_obj[3 * i + c];
-    }
-    const float t = p.t[i];
-    const float* in = sh_inst + max(p.winner[i], 0) * kInstRow;
-    const float* pos = in;
-    const float* rot = in + 3;
-    const float* scale = in + 7;
-    const int vol = __float_as_int(in[10]);
-    const float* mat = sh_vol + vol * kVolRow;
-    const float qc[3] = {-rot[0], -rot[1], -rot[2]};
-
-    float g_alb[3], g_hp[3], g_nw[3];
-    load3(q.g_albedo, i, g_alb);
-    load3(q.g_shadow_origin, i, g_hp);       // hit_pos - 0.1 d
-    for (int c = 0; c < 3; ++c) g_d[c] = -0.1f * g_hp[c];
-    float g_ns[3] = {0.0f, 0.0f, 0.0f};      // of n_shade
-    float hit_pos[3];
-    for (int c = 0; c < 3; ++c) hit_pos[c] = o_w[c] + t * d_w[c];
-
-    if (kLit) {
-      // n_w = rotate(rot, n_shade) * scale, then the mirror direction
-      float n_shade[3] = {n_obj[0], n_obj[1], n_obj[2]};
-      float obj_pos[3], b[3], tn[3], zxy[3];
-      const float* tscale = mat + 9;
-      if (kTextured) {
-        float a[3];
-        for (int c = 0; c < 3; ++c) a[c] = (hit_pos[c] - pos[c]) / scale[c];
-        rotate(qc, rot[3], a, obj_pos);
-        const float ab[3] = {fabsf(n_obj[0]), fabsf(n_obj[1]),
-                             fabsf(n_obj[2])};
-        const float s = (ab[0] + ab[1]) + ab[2];
-        for (int c = 0; c < 3; ++c) b[c] = s > 0.0f ? ab[c] / s : 0.0f;
-        tri_sample<true>(p, sh_sizes, __float_as_int(mat[12]), tscale,
-                         obj_pos, b, tn);
-        const float n2 = dot3(tn, tn);
-        const float norm = sqrtf(n2 > 0.0f ? n2 : 1.0f);
-        float u[3];
-        for (int c = 0; c < 3; ++c) u[c] = n2 > 0.0f ? tn[c] / norm : 0.0f;
-        zxy[0] = u[2];
-        zxy[1] = u[0];
-        zxy[2] = u[1];
-        rotate_from_x(n_obj, zxy, n_shade);
-      }
-      float n_w[3];
-      rotate(rot, rot[3], n_shade, n_w);
-      for (int c = 0; c < 3; ++c) n_w[c] = n_w[c] * scale[c];
-      load3(q.g_n_w, i, g_nw);
-      if (p.bounce && q.g_refl_dir != nullptr) {
-        const float dn = 2.0f * dot3(d_w, n_w);
-        float r[3], g_refl[3], g_r[3];
-        for (int c = 0; c < 3; ++c) r[c] = d_w[c] - dn * n_w[c];
-        load3(q.g_refl_dir, i, g_refl);
-        safe_unit_bwd(r, g_refl, g_r);
-        const float g_dn = -dot3(g_r, n_w);
-        for (int c = 0; c < 3; ++c) {
-          g_d[c] += g_r[c] + (2.0f * g_dn) * n_w[c];
-          g_nw[c] += -dn * g_r[c] + (2.0f * g_dn) * d_w[c];
-        }
-      }
-      float g_rs[3];
-      for (int c = 0; c < 3; ++c) g_rs[c] = g_nw[c] * scale[c];
-      rotate_t(rot, rot[3], g_rs, g_ns);
-
-      if (kTextured) {
-        float g_pos[3] = {0.0f, 0.0f, 0.0f}, g_b[3] = {0.0f, 0.0f, 0.0f};
-        // roughness = clamp(R * rm.x, 0, 1), metallic = clamp(M * rm.y, 0, 1)
-        const float g_rough = q.g_roughness != nullptr ? q.g_roughness[i]
-                                                        : 0.0f;
-        const float g_metal = q.g_metallic != nullptr ? q.g_metallic[i]
-                                                       : 0.0f;
-        if (g_rough != 0.0f || g_metal != 0.0f) {
-          float rm[3];
-          tri_sample<false>(p, sh_sizes, __float_as_int(mat[13]), tscale,
-                            obj_pos, b, rm);
-          const float xr = mat[6] * rm[0], xm = mat[7] * rm[1];
-          const float g_rm[3] = {
-              xr >= 0.0f && xr <= 1.0f ? g_rough * mat[6] : 0.0f,
-              xm >= 0.0f && xm <= 1.0f ? g_metal * mat[7] : 0.0f, 0.0f};
-          tri_sample_bwd<false>(p, sh_sizes, __float_as_int(mat[13]), tscale,
-                                obj_pos, b, g_rm, g_pos, g_b);
-        }
-        // n_shade = rotate_from_x(n_obj, zxy(unit(tn)))
-        float g_zxy[3] = {0.0f, 0.0f, 0.0f};
-        rotate_from_x_bwd(n_obj, zxy, g_ns, g_n, g_zxy);
-        const float g_u[3] = {g_zxy[1], g_zxy[2], g_zxy[0]};
-        float g_tn[3];
-        safe_unit_bwd(tn, g_u, g_tn);
-        tri_sample_bwd<true>(p, sh_sizes, __float_as_int(mat[12]), tscale,
-                             obj_pos, b, g_tn, g_pos, g_b);
-        if (!kColors) {
-          float g_tex[3];
-          for (int c = 0; c < 3; ++c) g_tex[c] = g_alb[c] * mat[3 + c];
-          tri_sample_bwd<false>(p, sh_sizes, __float_as_int(mat[11]), tscale,
-                                obj_pos, b, g_tex, g_pos, g_b);
-        }
-        // b = |n_obj| / sum |n_obj|
-        const float ab[3] = {fabsf(n_obj[0]), fabsf(n_obj[1]),
-                             fabsf(n_obj[2])};
-        const float s = (ab[0] + ab[1]) + ab[2];
-        if (s > 0.0f) {
-          const float gs = dot3(g_b, ab) / (s * s);
-          for (int c = 0; c < 3; ++c)
-            g_n[c] += (g_b[c] / s - gs) * dsign(n_obj[c]);
-        }
-        // obj_pos = rotate(conj(rot), (hit_pos - pos) / scale)
-        float g_a[3];
-        rotate_t(qc, rot[3], g_pos, g_a);
-        for (int c = 0; c < 3; ++c) g_hp[c] += g_a[c] / scale[c];
-      } else {
-        for (int c = 0; c < 3; ++c) g_n[c] += g_ns[c];
-      }
-    } else if (kTextured && !kColors) {
-      // unlit: the albedo alone
-      float a[3], obj_pos[3], b[3];
-      for (int c = 0; c < 3; ++c) a[c] = (hit_pos[c] - pos[c]) / scale[c];
-      rotate(qc, rot[3], a, obj_pos);
-      const float ab[3] = {fabsf(n_obj[0]), fabsf(n_obj[1]), fabsf(n_obj[2])};
-      const float s = (ab[0] + ab[1]) + ab[2];
-      for (int c = 0; c < 3; ++c) b[c] = s > 0.0f ? ab[c] / s : 0.0f;
-      float g_pos[3] = {0.0f, 0.0f, 0.0f}, g_b[3] = {0.0f, 0.0f, 0.0f};
-      float g_tex[3];
-      for (int c = 0; c < 3; ++c) g_tex[c] = g_alb[c] * mat[3 + c];
-      tri_sample_bwd<false>(p, sh_sizes, __float_as_int(mat[11]), mat + 9,
-                            obj_pos, b, g_tex, g_pos, g_b);
-      if (s > 0.0f) {
-        const float gs = dot3(g_b, ab) / (s * s);
-        for (int c = 0; c < 3; ++c)
-          g_n[c] += (g_b[c] / s - gs) * dsign(n_obj[c]);
-      }
-      float g_a[3];
-      rotate_t(qc, rot[3], g_pos, g_a);
-      for (int c = 0; c < 3; ++c) g_hp[c] += g_a[c] / scale[c];
-    }
-
-    // hit_pos = o_w + t d_w
-    for (int c = 0; c < 3; ++c) {
-      g_o[c] += g_hp[c];
-      g_d[c] += t * g_hp[c];
-    }
-    g_t += dot3(g_hp, d_w);
-
-    if (kColors) {
-      float a[3], bb[3], o[3], d[3];
-      for (int c = 0; c < 3; ++c) {
-        a[c] = (o_w[c] - pos[c]) / scale[c];
-        bb[c] = d_w[c] / scale[c];
-      }
-      rotate(qc, rot[3], a, o);
-      rotate(qc, rot[3], bb, d);
-      float g_oo[3] = {0.0f, 0.0f, 0.0f}, g_dd[3] = {0.0f, 0.0f, 0.0f};
-      color_sample_bwd(p, q.g_colors, i, vol, __float_as_int(mat[0]), mat[1],
-                       mat[2], o, d, t, g_alb, g_oo, g_dd, g_t);
-      float ga[3], gb[3];
-      rotate_t(qc, rot[3], g_oo, ga);
-      rotate_t(qc, rot[3], g_dd, gb);
-      for (int c = 0; c < 3; ++c) {
-        g_o[c] += ga[c] / scale[c];
-        g_d[c] += gb[c] / scale[c];
-      }
-    }
+    long long row = -1;
+    float grow[24];
+    surface_bwd_hit<kLit, kTextured, kColors>(
+        q, sh_inst, sh_vol, sh_sizes, i, g_o, g_d, g_n, g_t, row, grow);
+    if (kColors && q.g_colors != nullptr) add_color_row(q.g_colors, row, grow);
   }
   if (q.g_o_w != nullptr) {
     store3(q.g_o_w, i, g_o);
@@ -1556,6 +1604,99 @@ __global__ void __launch_bounds__(kThreads) surface_bwd_kernel(
   }
   q.g_t[i] = g_t;
   store3(q.g_n_obj, i, g_n);
+}
+
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// Sums v over the lanes of the warp that hold the same key (a segmented tree
+// reduction: log2 of the largest group's size rounds of 24 shuffles), into
+// the group's lowest lane, which is returned; every lane of the warp calls
+// it.  Lanes whose keys are all distinct skip the rounds.
+__device__ __forceinline__ int merge_peers(long long key, float v[24],
+                                           int lane) {
+  const unsigned peers = __match_any_sync(kFullWarp, key);
+  unsigned above = peers & (0xfffffffeu << lane);
+  unsigned rank = __popc(peers & ((1u << lane) - 1u));
+  while (__any_sync(kFullWarp, above != 0u)) {
+    const int next = __ffs(above);              // 1 + the next peer's lane
+    for (int e = 0; e < 24; ++e) {
+      const float o = __shfl_sync(kFullWarp, v[e], next > 0 ? next - 1 : lane);
+      if (next > 0) v[e] += o;
+    }
+    // a peer at an odd rank has handed its sum down: drop it
+    above &= ~__ballot_sync(kFullWarp, rank & 1u);
+    rank >>= 1;
+  }
+  return __ffs(peers) - 1;
+}
+
+// The redesign.  Blocks stay resident and stride over the rays (the tables
+// are staged once a block, not once every 256 rays); a warp without a hit
+// writes its zeros in 16-byte stores; the lanes of a warp that hit one
+// colour row merge their cotangents before the row's lowest such lane issues
+// its six reductions.  Each lane's own cotangents are computed as in the
+// first design.
+
+// Blocks an SM must hold at once, a register cap: at 3 (80 registers, 24
+// of 64 warp slots, a few spills in the lit textured variants) the launch
+// on the primary rays, latency-bound in its hit lanes, gains more than the
+// spills cost (vrt_torch.apps.probe_caps times the caps).
+constexpr int kSurfaceBwdMinBlocks = 3;
+
+template <bool kLit, bool kTextured, bool kColors>
+__global__ void __launch_bounds__(kThreads, kSurfaceBwdMinBlocks)
+    surface_bwd_merged_kernel(
+    const SurfaceBwdParams q) {
+  const SurfaceParams& p = q.f;
+  extern __shared__ float sh[];
+  float* sh_inst = sh;
+  float* sh_vol = sh_inst + p.inst.count * kInstRow;
+  int* sh_sizes = reinterpret_cast<int*>(sh_vol + p.mat.count * kVolRow);
+  stage_surface_tables(p, sh_inst, sh_vol, sh_sizes);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long base = static_cast<long long>(blockIdx.x) * kThreads;
+       base < p.rays; base += stride) {
+    const long long i = base + threadIdx.x;
+    const long long w0 = i - lane;             // the warp's first ray
+    const bool in = i < p.rays;
+    const bool is_hit = in && p.hit[i];
+    if (__ballot_sync(kFullWarp, is_hit) == 0u && w0 + 32 <= p.rays) {
+      // 32 miss lanes: [32,3] floats are 24 float4s, [32] are 8
+      const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (lane < 24) {
+        if (q.g_o_w != nullptr) {
+          reinterpret_cast<float4*>(q.g_o_w + 3 * w0)[lane] = z;
+          reinterpret_cast<float4*>(q.g_d_w + 3 * w0)[lane] = z;
+        }
+        reinterpret_cast<float4*>(q.g_n_obj + 3 * w0)[lane] = z;
+      }
+      if (lane < 8) reinterpret_cast<float4*>(q.g_t + w0)[lane] = z;
+      continue;
+    }
+    float g_o[3] = {0.0f, 0.0f, 0.0f}, g_d[3] = {0.0f, 0.0f, 0.0f};
+    float g_n[3] = {0.0f, 0.0f, 0.0f}, g_t = 0.0f;
+    long long row = -1 - lane;                 // distinct: no peers
+    float grow[24];
+    if (is_hit)
+      surface_bwd_hit<kLit, kTextured, kColors>(
+          q, sh_inst, sh_vol, sh_sizes, i, g_o, g_d, g_n, g_t, row, grow);
+    if (kColors && q.g_colors != nullptr) {
+      if (!is_hit)
+        for (int e = 0; e < 24; ++e) grow[e] = 0.0f;
+      if (merge_peers(row, grow, lane) == lane && row >= 0)
+        add_color_row(q.g_colors, row, grow);
+    }
+    if (!in) continue;
+    if (q.g_o_w != nullptr) {
+      store3(q.g_o_w, i, g_o);
+      store3(q.g_d_w, i, g_d);
+    }
+    q.g_t[i] = g_t;
+    store3(q.g_n_obj, i, g_n);
+  }
 }
 
 template <typename T>
@@ -1633,6 +1774,33 @@ void combine_inputs(const void* const* ptrs, const int* ints, long long rays,
 }
 
 constexpr int kMaxSharedBytes = 48 * 1024;
+
+struct Grid {
+  cudaError_t err;
+  long long blocks;
+};
+
+// The merged surface backward's grid: the SMs times the blocks of the
+// variant that an SM holds at once by their threads and registers (a
+// block's staged tables, at most 48 KiB, leave room for 4).  Found once a
+// variant, on the card of its first launch: the grid only sizes the stride
+// loop, and any grid gives the same result.
+template <bool kLit, bool kTextured, bool kColors>
+Grid merged_grid() {
+  static const Grid grid = [] {
+    int device = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&device);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, surface_bwd_merged_kernel<kLit, kTextured, kColors>,
+          kThreads, 0);
+    return Grid{e, static_cast<long long>(max(per_sm, 1)) * sms};
+  }();
+  return grid;
+}
 
 }  // namespace
 
@@ -1719,17 +1887,20 @@ extern "C" int vrt_shade_combine(const void* const* ptrs, const int* ints,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The surface kernel's backward, one thread per ray.  ptrs: the surface
-// kernel's first 25 (o_w ... colors); the cotangents of albedo,
-// shadow_origin, n_w, roughness, metallic and refl_dir (null for zero); then
-// the outputs g_o_w, g_d_w (null, both, when not asked), g_t, g_n_obj and
-// g_colors (an f32 [V*cn^3, 24] accumulator, zeroed by the caller and added
-// into; null when not asked).  ints: the surface kernel's.  Returns
-// cudaGetLastError().
+// The surface kernel's backward.  ptrs: the surface kernel's first 25
+// (o_w ... colors); the cotangents of albedo, shadow_origin, n_w, roughness,
+// metallic and refl_dir (null for zero); then the outputs g_o_w, g_d_w
+// (null, both, when not asked), g_t, g_n_obj and g_colors (an f32
+// [V*cn^3, 24] accumulator, zeroed by the caller and added into; null when
+// not asked).  ints: the surface kernel's 14, then the design (0: the first,
+// one thread a ray over the whole grid; 1: the merged kernel, resident
+// blocks striding over the rays).  The merged kernel takes outputs on
+// 16-byte boundaries.  Returns cudaGetLastError().
 extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
                                      long long rays, void* stream) {
   const int n_inst = ints[0], n_vol = ints[1], n_tex = ints[2];
   const bool lit = ints[7], textured = ints[8], colors = ints[9];
+  const bool merged = ints[14] != 0;
   if (n_inst < 1 || n_vol < 1) return cudaErrorInvalidValue;
   SurfaceBwdParams q;
   surface_inputs(ptrs, ints, rays, q.f);
@@ -1747,14 +1918,31 @@ extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
   if ((q.g_o_w == nullptr) != (q.g_d_w == nullptr) || q.g_t == nullptr ||
       q.g_n_obj == nullptr)
     return cudaErrorInvalidValue;
+  if (merged)
+    for (const float* out : {q.g_o_w, q.g_d_w, q.g_t, q.g_n_obj})
+      if (reinterpret_cast<uintptr_t>(out) % 16 != 0)
+        return cudaErrorInvalidValue;
   const size_t shared =
       4 * (static_cast<size_t>(n_inst) * kInstRow + n_vol * kVolRow +
            2 * n_tex);
   if (shared > kMaxSharedBytes) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = static_cast<unsigned>((rays + kThreads - 1) / kThreads);
-#define VRT_SURFACE_BWD(L, T, C) \
-  surface_bwd_kernel<L, T, C><<<grid, kThreads, shared, s>>>(q)
+  const long long blocks = (rays + kThreads - 1) / kThreads;
+  cudaError_t err = cudaSuccess;
+#define VRT_SURFACE_BWD(L, T, C)                                            \
+  do {                                                                      \
+    if (!merged) {                                                          \
+      surface_bwd_kernel<L, T, C>                                           \
+          <<<static_cast<unsigned>(blocks), kThreads, shared, s>>>(q);      \
+      break;                                                                \
+    }                                                                       \
+    const Grid g = merged_grid<L, T, C>();                                  \
+    err = g.err;                                                            \
+    if (err == cudaSuccess)                                                 \
+      surface_bwd_merged_kernel<L, T, C>                                    \
+          <<<static_cast<unsigned>(std::min(blocks, g.blocks)), kThreads,   \
+             shared, s>>>(q);                                               \
+  } while (0)
   if (lit) {
     if (textured) {
       if (colors) VRT_SURFACE_BWD(true, true, true);
@@ -1773,7 +1961,7 @@ extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
     }
   }
 #undef VRT_SURFACE_BWD
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // The combine kernel's backward, one thread per ray.  ptrs: the combine

@@ -56,3 +56,49 @@ def build(source: str, extra_flags=(), headers=()
         os.replace(tmp, so)
     return ctypes.CDLL(str(so)), log
 
+
+
+def ptxas_usage(log: str, kernel: str):
+    """What ptxas printed in a ``build`` log for the template variants of
+    ``kernel`` (its name as written in the source): dict(variants,
+    registers, stack_bytes, spill_bytes, each [smallest, largest] over the
+    variants), or None where the log holds none (a library built before)."""
+    import re
+
+    funcs, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1)
+            funcs.setdefault(cur, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            funcs[cur].update(stack=int(m.group(1)),
+                              spill=int(m.group(2)) + int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            funcs[cur]["regs"] = int(m.group(1))
+    pat = re.compile(rf"\d+{kernel}I")
+    got = [f for name, f in funcs.items() if pat.search(name) and "regs" in f]
+    if not got:
+        return None
+
+    def span(key):
+        vals = [f.get(key, 0) for f in got]
+        return [min(vals), max(vals)]
+    return dict(variants=len(got), registers=span("regs"),
+                stack_bytes=span("stack"), spill_bytes=span("spill"))
+
+
+def warp_slots(regs: int, threads: int) -> float:
+    """The share of an H100 SM's 64 warp slots that blocks of ``threads``
+    threads of ``regs`` registers each can fill, from the registers alone
+    (256-register allocation units a warp, 65,536 registers, 32 blocks an
+    SM)."""
+    warps = -(-threads // 32)
+    per_warp = -(-regs * 32 // 256) * 256
+    blocks = min(32, 64 // warps, 65536 // (per_warp * warps))
+    return blocks * warps / 64

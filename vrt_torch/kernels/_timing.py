@@ -1,8 +1,19 @@
-"""Device time of a callable on the current CUDA stream, from CUDA events."""
+"""Device time of a callable on the current CUDA stream, from CUDA events;
+and the host calls by which torch.profiler counts device operations."""
 
 from __future__ import annotations
 
 import torch
+
+# The host's calls that each queue one operation on the card (a kernel, a
+# copy or a fill), as torch.profiler names CUPTI's runtime and driver API
+# records.  A profile counts device operations by these: CUPTI may drop
+# device records at the start of a trace, never these
+# (``python3 -m vrt_torch.apps.probe_profiler``).
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpy", "cudaMemcpyAsync",
+                "cudaMemcpy2DAsync", "cudaMemset", "cudaMemsetAsync",
+                "cuMemcpyAsync", "cuMemsetD8Async", "cuMemsetD32Async")
 
 
 def device_ms(fn, reps: int, hold: bool = True) -> float:

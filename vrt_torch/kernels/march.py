@@ -16,6 +16,12 @@ variant, the ``hit`` field of the latter's result).
 
 ``LAUNCHES`` counts the per-lane kernel's launches and ``SCENE_LAUNCHES``
 the scene march's: a run can show which of them its frames went through.
+
+The scene march has two designs in ``march.cu``.  The default, the capped
+kernel, runs 64 threads a block with its registers capped.  The first
+design (256 threads a block, registers uncapped) stays beside it as the
+comparator of the timing runs, behind the wrapper's private
+``_old_design``; no path of the port takes it.  Both give thread i ray i.
 """
 
 from __future__ import annotations
@@ -49,7 +55,8 @@ def build() -> str:
                                     + [ctypes.c_longlong] + [ptr] * 8 + [ptr])
     lib.vrt_march_lanes.restype = i32
     lib.vrt_march_scene.argtypes = ([ptr] * 8 + [i32] + [ptr] * 6 + [i32] * 7
-                                    + [ctypes.c_longlong] + [ptr] * 9 + [ptr])
+                                    + [ctypes.c_longlong] + [ptr] * 9
+                                    + [i32] + [ptr])
     lib.vrt_march_scene.restype = i32
     _lib = lib
     return log
@@ -155,15 +162,17 @@ def march_lanes_cuda(vols: DeviceVolume, vol_ids, o, d, t_max,
 
 
 def march_scene_cuda(scene, o_w, d_w, t_max, interp: bool = True,
-                     debug_overlay: bool = False, any_hit: bool = False):
+                     debug_overlay: bool = False, any_hit: bool = False,
+                     _old_design: bool = False):
     """Launch K1's scene march on ``torch.cuda.current_stream()``: the
     closest hit of world rays over all instances of ``scene`` (a GPUScene
     with 1 to 32 instances) in one launch, what ``march_scene_reference``
     computes.  Returns (MarchHit with ``steps`` summed over the candidates
     marched, winning instance i32 [R], -1 for none); with ``any_hit`` only
     the bool [R] ``hit`` of that result, and the kernel stops at the first
-    candidate that hits.  Raises on any input the kernel does not take;
-    never falls back."""
+    candidate that hits.  The private ``_old_design`` launches the first
+    design, the comparator of the timing runs; the result is the same.
+    Raises on any input the kernel does not take; never falls back."""
     global SCENE_LAUNCHES
 
     if o_w.device.type != "cuda":
@@ -205,7 +214,7 @@ def march_scene_cuda(scene, o_w, d_w, t_max, interp: bool = True,
         scene.inst_rot.data_ptr(), scene.inst_scale.data_ptr(),
         scene.inst_active.data_ptr(), n_inst, *_table_args(vols, cc, ch),
         int(bool(interp)), int(bool(debug_overlay)), int(bool(any_hit)),
-        rays, *outs, _stream(dev))
+        rays, *outs, int(not _old_design), _stream(dev))
     if err != 0:
         raise RuntimeError(f"K1 scene march launch failed: cudaError {err}")
     SCENE_LAUNCHES += 1

@@ -21,9 +21,10 @@ an [R,4] frame with alpha 1.  Their plain versions are
 ``shade_combine_reference``, which take the same arguments;
 ``renderer.shade_stages`` picks among the pairs.  The forward kernels
 record no autograd graph; ``ShadeSurface`` and ``ShadeCombine`` add it,
-with the two backward kernels (one thread a ray, each recomputing its
-stage's terms from the stage's inputs) as their backward on CUDA tensors
-and the plain versions ``renderer.shade_surface_backward_reference`` /
+with the two backward kernels (each recomputing its stage's terms from the
+stage's inputs; the surface backward's blocks stride over the rays) as their
+backward on CUDA tensors and the plain versions
+``renderer.shade_surface_backward_reference`` /
 ``shade_combine_backward_reference`` (autograd of the plain stages) on CPU
 tensors.  They return the gradient in the rays, ``t``, ``n_obj``, the
 record's floats, the bounce's radiance and the colour table, and none in the
@@ -237,7 +238,8 @@ def shade_surface_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit, inst,
 def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
                                 inst, mode: RenderMode, bounce: bool,
                                 cotangents, rays_grad: bool = True,
-                                table_grad: bool = True):
+                                table_grad: bool = True,
+                                _old_design: bool = False):
     """Launch the surface kernel's backward on
     ``torch.cuda.current_stream()``: the cotangents of the record's
     ``RECORD_GRAD_FIELDS`` (albedo, shadow origin, world normal, roughness,
@@ -247,8 +249,12 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
     None without ``rays_grad``, g_t f32 [R], g_n_obj f32 [R,3], g_colors: an
     f32 [V*C^3, 24] accumulator, zeroed here and added into by 16-byte
     atomics, or None without per-voxel colours or ``table_grad``; the caller
-    casts it to the table's dtype).  A miss lane gets zeros.  Raises on any
-    input the kernel does not take; never falls back."""
+    casts it to the table's dtype).  A miss lane gets zeros.  The kernel is
+    the merged design (resident blocks striding over the rays, the colour
+    cotangents of a warp's lanes that share a row summed before the row's
+    reductions); the private ``_old_design`` launches the first design, the
+    comparator of the timing runs.  Raises on any input the kernel does not
+    take; never falls back."""
     dev, rays, colors, ptrs, ints = _surface_args(
         scene, o_w, d_w, t, n_obj, hit, inst, mode, bounce, False,
         "surface kernel's backward")
@@ -275,6 +281,7 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
     ptrs += [_ptr(g) for g in cots] + [_ptr(g_o_w), _ptr(g_d_w),
                                        g_t.data_ptr(), g_n.data_ptr(),
                                        _ptr(acc)]
+    ints.append(not _old_design)
     _launch("vrt_shade_surface_bwd", "surface_bwd", ptrs, ints, rays, dev)
     return g_o_w, g_d_w, g_t, g_n, acc
 
