@@ -10,10 +10,11 @@ Phases, each of which raises on failure:
              resolve (forward and backward) and the four shade kernels K4
              (surface and combine, forward and backward) from
              ``vrt_torch/csrc/``, one nvcc each, all in parallel, and prints
-             ptxas' register and spill lines, and for the two redesigned
-             kernels (the capped scene march, the merged surface backward)
-             and their first designs the registers, stack frames, spills
-             and the warp slots the registers leave filled,
+             ptxas' register and spill lines, and for the redesigned
+             kernels (the capped scene march, the merged surface backward,
+             the resident surface and combine kernels) and their first
+             designs the registers, stack frames, spills and the warp slots
+             the registers leave filled,
 3. kernels -- every kernel against its plain version on the inputs the
              flagship scene (resolution 7, chebyshev, bf16) and config6 give
              it, both timed, with the least time the card could take for the
@@ -42,7 +43,12 @@ Phases, each of which raises on failure:
              stages ``shade_surface_reference`` / ``shade_combine_reference``
              on the same inputs (floats within 1e-5 + 1e-4 * |plain| on every
              lane, the gate and the ``t_max = -inf`` masks as lane flips
-             under 0.1% of lanes; the outputs that are bit-equal are named);
+             under 0.1% of lanes; the outputs that are bit-equal are named),
+             and each launch again on the first design with both designs'
+             outputs filled with NaN first: bit-equal on every lane (the
+             same lanes written), the redesign's material unwritten on miss
+             lanes, the two timed old, new, new, old, the redesign's
+             launches counted by path (``shade_path``);
              the fused resolve's backward: the three launches of that fit
              step against ``resolve_scene_backward_reference`` on the same
              saved inputs and cotangents (ray gradients within 1e-5 * max|g|,
@@ -78,8 +84,9 @@ Phases, each of which raises on failure:
              launches between eager glue, resolve through K3) against the
              default path, the frame with eager shading (the plain stages)
              against the two shade kernels, and the frames (interp, cube,
-             overlay) on the scene march's first design against the capped
-             kernel, each in one call in the order old, new, new, old,
+             overlay) on the first designs of the scene march and the shade
+             forward pair against the redesigns (launches and paths
+             asserted), each in one call in the order old, new, new, old,
              medians of 5,
 5. anchor  -- the 160x90 frame against the image ``vrt`` renders on the CPU
              (``tests/fixtures/flagship_r7_cheb_bf16_160x90.npy``), and the
@@ -104,7 +111,8 @@ Phases, each of which raises on failure:
              K1), peak device memory and the losses; the step with resolve on
              the plain path over K3, the step with eager shading (the plain
              stages under autograd) and the step on the first designs of the
-             scene march and the surface backward, each against the default
+             scene march, the shade forward pair and the surface backward
+             (launches and paths asserted), each against the default
              path (old, new, new, old, medians of 3), with the device ops
              (launch calls; the default step's held to ``FIT_STEP_OPS`` on
              one profile) and device records, busy time and
@@ -455,22 +463,78 @@ def _nan_equal(a, b):
 
 @contextlib.contextmanager
 def _old_designs():
-    """The scene march and the shade surface backward on their first
-    designs (the comparators of the redesigned kernels), through the
-    wrappers' private ``_old_design``; everything else as it is."""
+    """The scene march, the shade forward pair and the shade surface
+    backward on their first designs (the comparators of the redesigned
+    kernels), through the wrappers' private ``_old_design``; everything
+    else as it is."""
     import functools
 
     from vrt_torch.kernels import march as k1
     from vrt_torch.kernels import shade as k4
 
-    saved = (k1.march_scene_cuda, k4.shade_surface_backward_cuda)
+    saved = (k1.march_scene_cuda, k4.shade_surface_cuda,
+             k4.shade_combine_cuda, k4.shade_surface_backward_cuda)
     k1.march_scene_cuda = functools.partial(saved[0], _old_design=True)
-    k4.shade_surface_backward_cuda = functools.partial(saved[1],
+    k4.shade_surface_cuda = functools.partial(saved[1], _old_design=True)
+    k4.shade_combine_cuda = functools.partial(saved[2], _old_design=True)
+    k4.shade_surface_backward_cuda = functools.partial(saved[3],
                                                        _old_design=True)
     try:
         yield
     finally:
-        k1.march_scene_cuda, k4.shade_surface_backward_cuda = saved
+        (k1.march_scene_cuda, k4.shade_surface_cuda, k4.shade_combine_cuda,
+         k4.shade_surface_backward_cuda) = saved
+
+
+@contextlib.contextmanager
+def _filled_outputs():
+    """Every output of the shade forward kernels filled before the launch
+    (floats with NaN, bools with True), so that a lane a kernel leaves
+    unwritten shows."""
+    import torch
+
+    from vrt_torch.kernels import shade as k4
+
+    saved = k4._empty
+    k4._empty = lambda shape, dtype, dev: torch.full(
+        shape, True if dtype == torch.bool else float("nan"), dtype=dtype,
+        device=dev)
+    try:
+        yield
+    finally:
+        k4._empty = saved
+
+
+def _design_pair(new, old, hit, spawns):
+    """The surface records (or the combine outputs) of the two designs on
+    the same inputs, outputs filled first: equal on every lane (NaN to
+    NaN: the same lanes unwritten), the redesign's material unwritten on
+    miss lanes, and at a level that spawns no trace its shadow origin too.
+    Returns the names of the outputs that differ."""
+    import torch
+
+    if isinstance(new, torch.Tensor):
+        return [] if _nan_equal(new, old) else ["rgb"]
+    bad = []
+    for name in ("albedo", "shadow_origin", "n_w", "roughness", "metallic",
+                 "k", "refl_dir", "gate", "shadow_tmax", "shadow_dir"):
+        a, b = getattr(new, name), getattr(old, name)
+        if (a is None) != (b is None):
+            bad.append(name)
+            continue
+        if a is None:
+            continue
+        if isinstance(a, tuple):
+            if len(a) != len(b) or not all(map(_nan_equal, a, b)):
+                bad.append(name)
+            continue
+        if not _nan_equal(a, b):
+            bad.append(name)
+        unwritten = name in ("albedo", "n_w", "roughness", "metallic",
+                             "k") or name == "shadow_origin" and not spawns
+        if unwritten and not bool(torch.isnan(a[~hit]).all()):
+            bad.append(f"{name} written on miss lanes")
+    return bad
 
 
 def _paired_ms(old, new, reps, hold=True):
@@ -1040,11 +1104,17 @@ def _shade_calls(run, expected, tag):
     pixels on all lanes, against the plain stage on the kernel's own record.
     A float may be off by more than ``SHADE_ATOL + SHADE_RTOL * |plain|`` on
     at most ``SHADE_FLOAT_BUDGET`` of the lanes, a boolean may flip on
-    ``LANE_BUDGET`` of them.  Fails unless each kernel launched ``expected``
-    times.  Returns {"surface" | "combine": dict(launches, max_abs_err,
-    lanes_beyond (the largest share of lanes on which a float was beyond the
-    tolerance), bit_equal (outputs equal on every lane), ms, plain_ms (lists,
-    per launch), bound)}."""
+    ``LANE_BUDGET`` of them.  The first design (``_old_design``) runs on the
+    same inputs, both with their outputs filled first (``_filled_outputs``):
+    every output must be bit-equal on every lane (the same lanes written,
+    NaN equal to NaN), and the redesign's material unwritten on miss lanes
+    (``_design_pair``); the two are timed in the order old, new, new, old.
+    Fails unless each kernel launched ``expected`` times.  Returns
+    {"surface" | "combine": dict(launches, max_abs_err, lanes_beyond (the
+    largest share of lanes on which a float was beyond the tolerance),
+    bit_equal (outputs equal to the plain stage's on every lane), ms,
+    old_ms, plain_ms (lists, per launch), paths (the redesign's launches of
+    the recorded run by path), bound)}."""
     import torch
 
     from vrt_torch.kernels import shade as k4
@@ -1052,10 +1122,12 @@ def _shade_calls(run, expected, tag):
     from vrt_torch.render.renderer import (shade_combine_reference,
                                            shade_surface_reference)
 
+    _reset(k4.PATH_LAUNCHES)
     with _recording(k4, "shade_surface_cuda") as surf, \
             _recording(k4, "shade_combine_cuda") as comb:
         run()
     torch.cuda.synchronize()
+    paths = dict(k4.PATH_LAUNCHES)
     if (len(surf), len(comb)) != (expected, expected):
         raise AssertionError(f"the {tag} launched the shade kernels "
                              f"{len(surf)} + {len(comb)} times, expected "
@@ -1070,8 +1142,28 @@ def _shade_calls(run, expected, tag):
         if not boolean:
             state["share"] = max(state["share"], share)
 
+    def designs(stage, i, kernel, args, hit, spawns):
+        """The two designs on ``args``: held equal, timed old, new, new,
+        old.  Returns (new's mean, old's mean) ms."""
+        with _filled_outputs():
+            new = kernel(*args)
+            old = kernel(*args, _old_design=True)
+        torch.cuda.synchronize()
+        bad = _design_pair(new, old, hit, spawns)
+        if bad:
+            raise AssertionError(f"{tag} {stage} {i}: the redesign differs "
+                                 f"from the first design in {bad}")
+        del new, old
+        olds, news = _paired_ms(lambda: kernel(*args, _old_design=True),
+                                lambda: kernel(*args), 20)
+        print(f"shade {stage} [{tag} {i}]: first design against the "
+              f"redesign, old, new, new, old "
+              f"{', '.join(f'{t:.4f}' for t in (olds[0], news[0], news[1], olds[1]))}"
+              f" ms; bit-equal on every lane", flush=True)
+        return sum(news) / 2, sum(olds) / 2
+
     state = dict(err=0.0, share=0.0)
-    ms, plain_ms, bounds = [], [], []
+    ms, old_ms, plain_ms, bounds = [], [], [], []
     equal, differ = set(), set()
     for i, (args, _, got) in enumerate(surf):
         scene, hit = args[0], args[5]
@@ -1115,7 +1207,10 @@ def _shade_calls(run, expected, tag):
             hold("surface", i, name, share, worst, state)
             (equal if same else differ).add(name.split("[")[0])
         del want
-        ms.append(device_ms(lambda: k4.shade_surface_cuda(*args), 20))
+        new_ms, first_ms = designs("surface", i, k4.shade_surface_cuda, args,
+                                   on, spawns)
+        ms.append(new_ms)
+        old_ms.append(first_ms)
         with torch.no_grad():
             plain_ms.append(device_ms(
                 lambda: shade_surface_reference(*args), 2))
@@ -1128,11 +1223,13 @@ def _shade_calls(run, expected, tag):
               flush=True)
     out["surface"] = dict(launches=len(surf), max_abs_err=state["err"],
                           lanes_beyond=state["share"], bit_equal=sorted(equal - differ),
-                          rounded=sorted(differ), ms=ms, plain_ms=plain_ms,
-                          bound=_sum_bounds(bounds))
+                          rounded=sorted(differ), ms=ms, old_ms=old_ms,
+                          plain_ms=plain_ms, bound=_sum_bounds(bounds),
+                          paths={k.split()[1]: n for k, n in paths.items()
+                                 if k.startswith("surface")})
 
     state = dict(err=0.0, share=0.0)
-    ms, plain_ms, bounds, all_same = [], [], [], True
+    ms, old_ms, plain_ms, bounds, all_same = [], [], [], [], True
     for i, (args, _, got) in enumerate(comb):
         with torch.no_grad():
             want = shade_combine_reference(*args)
@@ -1143,7 +1240,10 @@ def _shade_calls(run, expected, tag):
         hold("combine", i, "the radiance", share, worst, state)
         all_same = all_same and same
         del want
-        ms.append(device_ms(lambda: k4.shade_combine_cuda(*args), 20))
+        new_ms, first_ms = designs("combine", i, k4.shade_combine_cuda, args,
+                                   args[4], True)
+        ms.append(new_ms)
+        old_ms.append(first_ms)
         with torch.no_grad():
             plain_ms.append(device_ms(
                 lambda: shade_combine_reference(*args), 2))
@@ -1157,10 +1257,19 @@ def _shade_calls(run, expected, tag):
     out["combine"] = dict(launches=len(comb), max_abs_err=state["err"],
                           lanes_beyond=state["share"], bit_equal=["rgb"] if all_same else [],
                           rounded=[] if all_same else ["rgb"], ms=ms,
-                          plain_ms=plain_ms, bound=_sum_bounds(bounds))
+                          old_ms=old_ms, plain_ms=plain_ms,
+                          bound=_sum_bounds(bounds),
+                          paths={k.split()[1]: n for k, n in paths.items()
+                                 if k.startswith("combine")})
     for name, got in out.items():
+        if sum(got["paths"].values()) != got["launches"]:
+            raise AssertionError(f"{tag}: the {name} launches took the "
+                                 f"paths {got['paths']}")
         print(f"shade {name} on the {tag}: {got['launches']} launches, "
-              f"{_list(got['ms'])} ms = {sum(got['ms']):.4f} ms; plain "
+              f"paths {got['paths']}, {_list(got['ms'])} ms = "
+              f"{sum(got['ms']):.4f} ms [first design "
+              f"{_list(got['old_ms'])} ms = {sum(got['old_ms']):.4f} ms]; "
+              f"plain "
               f"{sum(got['plain_ms']):.2f} ms; bound "
               f"{got['bound']['bound_ms']:.4f} ms ({got['bound']['bytes']} "
               f"B, by {got['bound']['bound_by']}); largest difference on the "
@@ -2123,7 +2232,15 @@ def main():
             ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
              "backward (shade.cu)", "surface_bwd_merged_kernel", 256),
             ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
-             "backward (shade.cu)", "surface_bwd_kernel", 256)):
+             "backward (shade.cu)", "surface_bwd_kernel", 256),
+            ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
+             "backward (shade.cu)", "surface_resident_kernel", 256),
+            ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
+             "backward (shade.cu)", "surface_kernel", 256),
+            ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
+             "backward (shade.cu)", "combine_resident_kernel", 256),
+            ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
+             "backward (shade.cu)", "combine_kernel", 256)):
         got = ptxas_usage(logs[log], kernel)
         if got is None:
             print(f"ptxas, {name} {kernel}: not in the log (the library was "
@@ -2349,6 +2466,7 @@ def main():
         _reset(k3.LAUNCHES)
         _reset(k3.SCATTER_LAUNCHES)
         _reset(k4.LAUNCHES)
+        _reset(k4.PATH_LAUNCHES)
 
     def counts():
         return dict(k1=k1.LAUNCHES, scene=k1.SCENE_LAUNCHES,
@@ -2399,6 +2517,11 @@ def main():
         if got != want:
             raise AssertionError(f"launches in 3 {tag} frames {got}, "
                                  f"expected {want}")
+        paths = dict(k4.PATH_LAUNCHES)
+        for stage in ("surface", "combine"):
+            if paths[f"{stage} v4"] + paths[f"{stage} scalar"] != got[stage]:
+                raise AssertionError(f"paths of 3 {tag} frames {paths}")
+        got["paths"] = paths
         median = statistics.median(runs)
         print(f"1080p {tag} frame on {card}: median {median * 1e3:.1f} ms "
               f"(runs {', '.join(f'{f * 1e3:.1f}' for f in runs)} ms), "
@@ -2406,7 +2529,7 @@ def main():
               f"frames: scene march {got['scene']}, fused resolve "
               f"{got['resolve']}, shade surface {got['surface']} and combine "
               f"{got['combine']}, per-lane K1 {got['k1']}, K3 gathers "
-              f"{got['gather']}", flush=True)
+              f"{got['gather']}; shade paths {got['paths']}", flush=True)
         return median, got
 
     frame_s, frame_counts = frames(mode, "interp")
@@ -2458,7 +2581,8 @@ def main():
             or got["scene"] != 2 * 4 * 6 * _traces(scene):
         raise AssertionError(f"launches of the paired shading frames {got}")
 
-    # the scene march's first design against the capped kernel, in one call
+    # the first designs of the scene march and of the shade forward pair
+    # against the redesigns, in one call
     def old_design(run):
         def go():
             with _old_designs():
@@ -2472,13 +2596,20 @@ def main():
                     old_design(frame(m))):
             meds.append(statistics.median(timed(run, 5)[0]) * 1e3)
         paired[f"march_design_{tag}"] = meds
-        print(f"1080p {tag} frame on {card}, the scene march's first design "
-              f"against the capped kernel, medians of 5 in the order old, "
-              f"new, new, old: {', '.join(f'{t:.2f}' for t in meds)} ms",
-              flush=True)
+        print(f"1080p {tag} frame on {card}, the first designs of the scene "
+              f"march and the shade forward pair against the redesigns, "
+              f"medians of 5 in the order old, new, new, old: "
+              f"{', '.join(f'{t:.2f}' for t in meds)} ms", flush=True)
     got = counts()
-    if got["scene"] != 3 * 4 * 6 * _traces(scene) or got["k1"] != 0:
-        raise AssertionError(f"launches of the paired march frames {got}")
+    paths = dict(k4.PATH_LAUNCHES)
+    if got["scene"] != 3 * 4 * 6 * _traces(scene) or got["k1"] != 0 or \
+            (got["surface"], got["combine"]) != (3 * 4 * 6
+                                                 * _resolves(scene),) * 2 or \
+            (paths["surface v4"] + paths["surface scalar"],
+             paths["combine v4"] + paths["combine scalar"]) != (
+                 3 * 2 * 6 * _resolves(scene),) * 2:
+        raise AssertionError(f"launches of the paired design frames {got}, "
+                             f"paths {paths}")
 
     # ---- 5. anchored to the JAX reference ----------------------------------
     zero_counts()
@@ -2578,6 +2709,7 @@ def main():
         losses.append(float(loss))
     peak = torch.cuda.max_memory_allocated()
     fit_counts = counts()
+    fit_paths = dict(k4.PATH_LAUNCHES)
     step_s = statistics.median(runs)
     n_rays = len(FIT_CAMS) * FRAME_W * FRAME_H
     print(f"config6 fit step 1920x1080 on {card}: median "
@@ -2604,6 +2736,11 @@ def main():
     if fit_counts != want:
         raise AssertionError(f"launches in 3 fit steps {fit_counts}, "
                              f"expected {want}")
+    for stage in ("surface", "combine"):
+        if fit_paths[f"{stage} v4"] + fit_paths[f"{stage} scalar"] != \
+                fit_counts[stage]:
+            raise AssertionError(f"paths of 3 fit steps {fit_paths}")
+    print(f"config6 fit steps: shade paths {fit_paths}", flush=True)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite fit losses {losses}")
     for k, v in params.items():
@@ -2660,8 +2797,8 @@ def main():
     paired["fit_shading"] = meds
     eager_counts = counts()
 
-    # the scene march's and the surface backward's first designs against
-    # the redesigned kernels
+    # the first designs of the scene march, the shade forward pair and the
+    # surface backward against the redesigned kernels
     def old_design_step():
         with _old_designs():
             return one_step()
@@ -2670,15 +2807,19 @@ def main():
     meds = []
     for run in (old_design_step, one_step, one_step, old_design_step):
         meds.append(statistics.median(timed(run, 3)[0]) * 1e3)
-    print(f"config6 fit step on {card}, the scene march's and the surface "
-          f"backward's first designs against the redesigned kernels, "
-          f"medians of 3 in the order old, new, new, old: "
-          f"{', '.join(f'{t:.2f}' for t in meds)} ms", flush=True)
+    print(f"config6 fit step on {card}, the first designs of the scene "
+          f"march, the shade forward pair and the surface backward against "
+          f"the redesigned kernels, medians of 3 in the order old, new, new, "
+          f"old: {', '.join(f'{t:.2f}' for t in meds)} ms", flush=True)
     paired["fit_designs"] = meds
     got = counts()
-    if (got["scene"], got["surface_bwd"]) != (16 * _traces(fit_scene),
-                                               16 * levels):
-        raise AssertionError(f"launches of the paired design steps {got}")
+    paths = dict(k4.PATH_LAUNCHES)
+    if (got["scene"], got["surface"], got["combine"], got["surface_bwd"]) \
+            != (16 * _traces(fit_scene),) + (16 * levels,) * 3 or \
+            (paths["surface v4"] + paths["surface scalar"],
+             paths["combine v4"] + paths["combine scalar"]) != (8 * levels,) * 2:
+        raise AssertionError(f"launches of the paired design steps {got}, "
+                             f"paths {paths}")
     want = dict(k1=0, scene=16 * _traces(fit_scene), resolve=16 * levels,
                 resolve_bwd=16 * levels,
                 gather=8 * _expected_k3(fit_scene, eager_shading=True),
@@ -2695,7 +2836,7 @@ def main():
             ("eager_shading", eager_step,
              "eager shading under autograd, K3 for the colour rows"),
             ("old_designs", old_design_step, "the first designs of the scene "
-             "march and the surface backward"),
+             "march, the shade forward pair and the surface backward"),
             ("new", one_step, "the fused resolve, the shade kernels and "
              "their backward kernels")):
         sync()
@@ -2943,7 +3084,25 @@ def main():
            "plain_ms": sum(shade_runs["interp"][stage]["plain_ms"]),
            **bound_keys(shade_runs["interp"][stage]["bound"]),
            "library_ms": None,
+           "per_launch_ms": shade_runs["interp"][stage]["ms"],
+           "old_design_ms": sum(shade_runs["interp"][stage]["old_ms"]),
+           "per_launch_old_design_ms": shade_runs["interp"][stage]["old_ms"],
+           # every compared launch is asserted bit-equal to the first design
+           "bit_equal_to_old_design": True,
+           "paths": {"frames": {p: frame_counts["paths"][f"{stage} {p}"]
+                                + cube_counts["paths"][f"{stage} {p}"]
+                                + overlay_counts["paths"][f"{stage} {p}"]
+                                for p in ("v4", "scalar")},
+                     "fit_steps": {p: fit_paths[f"{stage} {p}"]
+                                   for p in ("v4", "scalar")},
+                     **{t: g[stage]["paths"] for t, g in shade_runs.items()
+                        if t.startswith("lights")}},
+           "ptxas": {k: ptxas.get(k) for k in (
+               f"{stage}_resident_kernel", f"{stage}_kernel")},
            "by_path": {t: {"ms": sum(g[stage]["ms"]),
+                           "old_design_ms": sum(g[stage]["old_ms"]),
+                           "per_launch_ms": g[stage]["ms"],
+                           "per_launch_old_design_ms": g[stage]["old_ms"],
                            "plain_ms": sum(g[stage]["plain_ms"]),
                            **bound_keys(g[stage]["bound"])}
                        for t, g in list(shade_runs.items())

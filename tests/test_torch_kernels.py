@@ -395,6 +395,33 @@ def test_ptxas_usage_reads_a_build_log(kernel, want):
     assert ptxas_usage(PTXAS_LOG, kernel) == want
 
 
+PTXAS_PLAIN_LOG = """\
+ptxas info    : Function properties for _ZN4_GN_14combine_kernelENS_13CombineParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 62 registers, used 1 barriers, 64 bytes smem
+ptxas info    : Function properties for _ZN4_GN_18combine_bwd_kernelENS_16CombineBwdParamsE
+    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 90 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Function properties for _ZN4_GN_23combine_resident_kernelILb1EEEvNS_13CombineParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, used 1 barriers, 1536 bytes smem
+"""
+
+
+@pytest.mark.parametrize("kernel,want", [
+    ("combine_kernel", dict(variants=1, registers=[62, 62],
+                            stack_bytes=[0, 0], spill_bytes=[0, 0])),
+    ("combine_resident_kernel", dict(variants=1, registers=[56, 56],
+                                     stack_bytes=[0, 0],
+                                     spill_bytes=[0, 0]))])
+def test_ptxas_usage_reads_a_plain_kernel(kernel, want):
+    """A kernel that is no template (its mangled name ends its nested name
+    with E) is read as one variant, and no other kernel's lines with it."""
+    from vrt_torch.kernels._build import ptxas_usage
+
+    assert ptxas_usage(PTXAS_PLAIN_LOG, kernel) == want
+
+
 @pytest.mark.parametrize("regs,threads,want", [
     (118, 256, 16 / 64), (96, 64, 20 / 64), (80, 64, 24 / 64),
     (80, 256, 24 / 64), (32, 256, 1.0), (64, 64, 32 / 64)])
@@ -1507,3 +1534,183 @@ def test_fit_fixture_through_shade_backward_on_card():
         cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
         assert 1.0 - cos < 1e-8, (k, 1.0 - cos)
         assert np.abs(a - b).max() <= 1e-4 * np.abs(a).max(), k
+
+
+# ---- K4's forward redesign against its first design on the card --------------
+#
+# The redesign (resident blocks, a warp's [32,3] spans in 16-byte words) and
+# the first design (one thread a ray) compute each lane's values with the
+# same device functions in the same order: every lane either writes must be
+# bit-equal, and each leaves the same lanes unwritten (outputs filled with
+# NaN, or True for the gate, before the launch).
+
+def _nan_outputs(k4):
+    """``k4._empty`` filling every output: floats with NaN, bools with
+    True."""
+    def empty(shape, dtype, dev):
+        return torch.full(shape, True if dtype == torch.bool
+                          else float("nan"), dtype=dtype, device=dev)
+    return empty
+
+
+def _bit_equal(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all()
+        if a.is_floating_point() else torch.equal(a, b))
+
+
+def _want_path(rays, lit, shadows, n_shadow):
+    """The path of a surface launch: the stacked shadow directions' row 1
+    starts off a 16-byte boundary where R is not a multiple of 4."""
+    return "scalar" if lit and shadows and n_shadow >= 2 and rays % 4 \
+        else "v4"
+
+
+def _on_design(old, call):
+    """``call()`` with every output of the forward kernels filled (NaN, or
+    True), on the first design where ``old``."""
+    import functools
+
+    from vrt_torch.kernels import shade as k4
+
+    saved = (k4.shade_surface_cuda, k4.shade_combine_cuda, k4._empty)
+    k4._empty = _nan_outputs(k4)
+    if old:
+        k4.shade_surface_cuda = functools.partial(saved[0], _old_design=True)
+        k4.shade_combine_cuda = functools.partial(saved[1], _old_design=True)
+    try:
+        return call()
+    finally:
+        k4.shade_surface_cuda, k4.shade_combine_cuda, k4._empty = saved
+
+
+def _designs_held(seen):
+    """A stage pair that runs each launch on both designs with filled
+    outputs, holds them bit-equal where either writes, the redesign's
+    material unwritten on miss lanes, its path counted as expected, and the
+    redesign against the plain stage (``_held_stages``)."""
+    from vrt_torch.kernels import shade as k4
+
+    held = _held_stages(seen)(None)
+
+    def surface(*args):
+        scene, rays, hit = args[0], args[1].shape[0], args[5].hit
+        mode, bounce, shadows = args[7], args[8], args[9]
+        paths = dict(k4.PATH_LAUNCHES)
+        got = held[0](*args)
+        path = _want_path(rays, mode.lit, shadows,
+                          scene.num_point + scene.num_spot)
+        assert {k: k4.PATH_LAUNCHES[k] - paths[k] for k in paths} == {
+            **{k: 0 for k in paths}, f"surface {path}": 1}
+        new = _on_design(False, lambda: tren._shade_surface_kernel(*args))
+        old = _on_design(True, lambda: tren._shade_surface_kernel(*args))
+        torch.cuda.synchronize()
+        spawns = mode.lit and (bounce or shadows)
+        for f in dataclasses.fields(new):
+            a, b = getattr(new, f.name), getattr(old, f.name)
+            assert (a is None) == (b is None), f.name
+            if a is None:
+                continue
+            if f.name in ("shadow_tmax", "shadow_dir"):
+                assert len(a) == len(b)
+                for x, y in zip(a, b):
+                    assert _bit_equal(x, y), f.name
+                    assert not bool(torch.isnan(x).any()), f.name
+                continue
+            assert _bit_equal(a, b), f.name
+            if f.name in ("albedo", "n_w", "roughness", "metallic", "k") or \
+                    f.name == "shadow_origin" and not spawns:
+                assert bool(torch.isnan(a[~hit]).all()), f.name
+            if f.name == "gate":
+                assert not bool(a[~hit].any())
+            elif f.name == "refl_dir" or f.name == "shadow_origin" and spawns:
+                assert not bool(torch.isnan(a).any()), f.name
+        return got
+
+    def combine(*args):
+        paths = dict(k4.PATH_LAUNCHES)
+        got = held[1](*args)
+        assert {k: k4.PATH_LAUNCHES[k] - paths[k] for k in paths} == {
+            **{k: 0 for k in paths}, "combine v4": 1}
+        old = _on_design(True, lambda: tren._shade_combine_kernel(*args))
+        torch.cuda.synchronize()
+        assert _bit_equal(got, old)
+        assert not bool(torch.isnan(got).any())
+        return got
+
+    return lambda *_: (surface, combine)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [(480, 270), (63, 37)],
+                         ids=["480x270", "63x37"])
+@pytest.mark.parametrize("lights", sorted(LIGHT_SETS))
+@pytest.mark.parametrize("mode", sorted(SHADE_MODES))
+def test_shade_forward_designs_on_card(mode, lights, size):
+    """Every surface and combine launch of a frame of the textured scene on
+    the redesign and on the first design: bit-equal on every lane either
+    writes, the same lanes unwritten, the material of miss lanes unwritten,
+    the redesign on the path its tensors give (the scalar one at 63x37 with
+    two or more point and spot lights: a partial last warp and stacked
+    shadow rows off 16-byte boundaries) and within tolerance of the plain
+    stages on every lane."""
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.scenes import shading_scene
+
+    dev = _card()
+    points, spots = LIGHT_SETS[lights]
+    scene = shading_scene(5, points, spots, device=dev)
+    width, height = size
+    seen = dict(surface=0, combine=0)
+    before = dict(k4.LAUNCHES)
+    plain = tren.shade_stages
+    tren.shade_stages = _designs_held(seen)
+    try:
+        with torch.no_grad():
+            img = render_image(scene, width, height, SHADE_MODES[mode])
+    finally:
+        tren.shade_stages = plain
+    torch.cuda.synchronize()
+    levels = 3 if SHADE_MODES[mode].lit and scene.any_reflective else 1
+    assert seen == dict(surface=levels, combine=levels)
+    # the held stage, the redesign again and the first design per level
+    assert {k: k4.LAUNCHES[k] - before[k] for k in before} == dict(
+        surface=3 * levels, combine=2 * levels, surface_bwd=0, combine_bwd=0)
+    assert img.shape == (height, width, 4)
+    assert bool(torch.isfinite(img).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rays", [2331, 2304])
+def test_shade_forward_designs_packed_record_on_card(rays):
+    """The fit step's record, ``ShadeSurface.apply``'s packed tuple, from
+    the redesign and from the first design (outputs filled first):
+    bit-equal tensors, the stacked shadow rows included, on the scalar path
+    where R = 2331 puts row 1 of the directions off a 16-byte boundary and
+    on the vector path at R = 2304."""
+    from vrt_torch.kernels import shade as k4
+
+    dev = _card()
+    lv = _shade_grad_level("lit-colours-f32", dev, 63, 37)
+    scene, hit = lv["scene"], lv["hit"]
+    args = tuple(lv[k][:rays].contiguous() for k in ("o", "d", "t", "n_obj"))
+    hit = dataclasses.replace(hit, hit=hit.hit[:rays].contiguous(),
+                              cell=hit.cell[:rays].contiguous())
+    args += (scene.voxel_color_corners, scene, hit,
+             lv["inst"][:rays].contiguous(), RenderMode(), True, True)
+    paths = dict(k4.PATH_LAUNCHES)
+    new = _on_design(False, lambda: k4.ShadeSurface.apply(*args))
+    path = "scalar" if rays % 4 else "v4"
+    assert {k: k4.PATH_LAUNCHES[k] - paths[k] for k in paths} == {
+        **{k: 0 for k in paths}, f"surface {path}": 1}
+    old = _on_design(True, lambda: k4.ShadeSurface.apply(*args))
+    torch.cuda.synchronize()
+    assert len(new) == len(old)
+    for a, b in zip(new, old):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert _bit_equal(a, b)
+    assert bool(torch.isnan(new[0][~hit.hit]).all())
+    tmax, sdir = new[-2:]
+    assert tmax.shape == (1 + 3, rays) and sdir.shape == (3, rays, 3)
+    assert (sdir[1].data_ptr() % 16 == 0) == (rays % 4 == 0)

@@ -516,3 +516,213 @@ def test_march_hit_is_what_the_stages_read():
                                      True, True)
     assert torch.equal(a.albedo, b.albedo) and torch.equal(a.n_w, b.n_w)
     assert torch.equal(a.gate, b.gate)
+
+
+# ---- hit patterns: the plain stages against vrt, lane by lane ----------------
+#
+# The lanes of one level (the port's march and resolve of the 48x32 frame)
+# regrouped into R rays with a chosen pattern of hits: none, all, every other
+# lane, one lane in 32 (the patterns of a warp that the kernels' vector path
+# and miss path take apart), at R = 1, 31, 33 (a warp's edges) and 2,331
+# (63x37: a partial last warp, stacked shadow rows off 16-byte boundaries).
+# Lit with the level's bounce and shadows (vrt's _shade_lit at depth 0 with
+# both deferred and a tracer that hits nothing, the port's combine with no
+# shadow blocked and a black bounce), lit without traces (depth 2) and
+# unlit.  Tolerances as in test_stage_pair_matches_vrt_level.
+
+HIT_PATTERNS = {
+    "all-miss": lambda r: np.zeros(r, bool),
+    "all-hit": lambda r: np.ones(r, bool),
+    "every-other": lambda r: np.arange(r) % 2 == 0,
+    "one-per-32": lambda r: np.arange(r) % 32 == 0,
+}
+# (lit, bounce and shadows)
+STAGE_VARIANTS = {"lit-traces": (True, True), "lit": (True, False),
+                  "unlit": (False, False)}
+
+
+class _NoHits:
+    """A vrt tracer whose march hits nothing: every shadow unblocked."""
+
+    def march(self, scene, o_w, d_w, t_max, interp, debug_overlay=False):
+        return types.SimpleNamespace(hit=jnp.zeros(o_w.shape[0], bool)), None
+
+
+@pytest.fixture(scope="module")
+def lane_pool(lit_scenes):
+    return _level_inputs(lit_scenes[1], RenderMode())
+
+
+def _regrouped(pool, pattern, rays):
+    """R lanes of the pool, hit where ``HIT_PATTERNS[pattern]`` says."""
+    o, d, hit, inst, t, n_obj, unlit = pool
+    mask = hit.hit.numpy()
+    hits, misses = np.flatnonzero(mask), np.flatnonzero(~mask)
+    want = HIT_PATTERNS[pattern](rays)
+    k = np.arange(rays)
+    idx = torch.from_numpy(np.where(want, hits[k % len(hits)],
+                                    misses[k % len(misses)]))
+    sel = MarchHit(**{f.name: None if getattr(hit, f.name) is None
+                      else getattr(hit, f.name)[idx]
+                      for f in dataclasses.fields(hit)})
+    assert torch.equal(sel.hit, torch.from_numpy(want))
+    return (o[idx], d[idx], sel, inst[idx], t[idx], n_obj[idx], unlit[idx])
+
+
+@pytest.mark.parametrize("rays", [1, 31, 33, 2331])
+@pytest.mark.parametrize("pattern", sorted(HIT_PATTERNS))
+@pytest.mark.parametrize("variant", sorted(STAGE_VARIANTS))
+def test_stage_pair_hit_patterns_match_vrt(lit_scenes, lane_pool, variant,
+                                           pattern, rays):
+    """The stage pair on regrouped lanes against vrt's shading of the same
+    lanes, and the miss-lane contract of the plain surface stage field by
+    field: the shadow origin o - 0.1 d, a closed gate, every shadow's t_max
+    -inf, finite (sanitised) material and rays, the env on the combine's
+    miss lanes."""
+    vs, ts = lit_scenes
+    lit, traces = STAGE_VARIANTS[variant]
+    mode, vmode = RenderMode(lit=lit), VMode(lit=lit)
+    o, d, hit, inst, t, n_obj, unlit = _regrouped(lane_pool, pattern, rays)
+    rec = tren.shade_surface_reference(ts, o, d, t, n_obj, hit, inst, mode,
+                                       traces, traces)
+    lights = 1 + ts.num_point + ts.num_spot
+    blocked = [torch.zeros(rays, dtype=torch.bool)] * lights if traces \
+        else None
+    refl = torch.zeros((rays, 3)) if traces else None
+    lin = tren.shade_combine_reference(ts, rec, d, n_obj, hit.hit, unlit,
+                                       refl, blocked, mode)
+    got = tren.shade_combine_reference(ts, rec, d, n_obj, hit.hit, unlit,
+                                       refl, blocked, mode, final=True)
+
+    vhit = VHit(**{f: jnp.asarray(getattr(hit, f).numpy())
+                   for f in ("hit", "t", "kind", "cell", "t_in", "t_out",
+                             "face_normal")})
+    jo, jd, jinst = (jnp.asarray(x.numpy()) for x in (o, d, inst))
+    jt = jnp.where(vhit.hit, jnp.asarray(t.numpy()), 0.0)
+    jn = jnp.where(vhit.hit[:, None], jnp.asarray(n_obj.numpy()),
+                   jnp.asarray([0.0, 0.0, 1.0]))
+    on = hit.hit.numpy()
+    if traces:
+        shaded, refl_aux, shadow_aux = vren._shade_lit(
+            vs, jo, jd, jt, jn, jinst, vhit, 0, vmode, defer_reflection=True,
+            defer_dir_shadow=True, tracer=_NoHits())
+        shaded = shaded + shadow_aux["add"]
+        # the rays the level's traces take, against vrt's
+        np.testing.assert_allclose(rec.shadow_origin.numpy(),
+                                   np.asarray(refl_aux["origin"]),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(rec.refl_dir.numpy()[on],
+                                   np.asarray(refl_aux["dir"])[on],
+                                   rtol=1e-4, atol=1e-5)
+        np.testing.assert_array_equal(rec.gate.numpy(),
+                                      np.asarray(refl_aux["gate"]))
+        assert len(rec.shadow_tmax) == lights
+        assert bool((rec.shadow_tmax[0][hit.hit]
+                     == tren.DIR_SHADOW_TMAX).all())
+    elif lit:
+        shaded = vren._shade_lit(vs, jo, jd, jt, jn, jinst, vhit, 2,
+                                 vmode)[0]
+    else:
+        shaded = vren._shade_unlit_mode(vs, jo, jd, jt, jn, jinst, vhit,
+                                        vmode)
+    shaded = jnp.where(jnp.asarray(unlit.numpy())[:, None], jn, shaded)
+    want = jnp.where(vhit.hit[:, None], shaded,
+                     vren._tex.sample_env(vs.env, jd))
+    np.testing.assert_allclose(lin.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(got[:, :3].numpy(),
+                               np.asarray(vren.tonemap(want)), rtol=1e-4,
+                               atol=2e-5)
+    assert bool((got[:, 3] == 1.0).all())
+
+    # the miss-lane contract of the plain surface stage
+    miss = ~hit.hit
+    for name in ("albedo", "n_w", "roughness", "metallic", "k"):
+        x = getattr(rec, name)
+        assert (x is None) == (not lit and name != "albedo"), name
+        if x is not None:
+            assert bool(torch.isfinite(x[miss]).all()), name
+    if lit:
+        assert torch.equal(rec.shadow_origin[miss], o[miss] - d[miss] * 0.1)
+    assert (rec.gate is None) == (not traces)
+    if traces:
+        assert not bool(rec.gate[miss].any())
+        assert bool(torch.isfinite(rec.refl_dir[miss]).all())
+        for x in rec.shadow_tmax:
+            assert bool((x[miss] == -float("inf")).all())
+        for x in rec.shadow_dir:
+            assert bool(torch.isfinite(x[miss]).all())
+    else:
+        assert rec.shadow_tmax is None and rec.shadow_dir is None
+
+
+# ---- the forward kernels' path ----------------------------------------------------
+
+@pytest.mark.parametrize("rays,lights,shadows,want", [
+    (2304, 3, True, "v4"), (2331, 3, True, "scalar"), (2331, 2, True,
+                                                          "scalar"),
+    (2331, 1, True, "v4"), (2331, 3, False, "v4"), (1, 3, True, "scalar"),
+    (33, 2, True, "scalar")])
+def test_surface_path_of_the_stacked_shadow_rows(rays, lights, shadows,
+                                                 want):
+    """A surface launch takes the vector path where every tensor it moves
+    in 16-byte words starts on a 16-byte boundary: row j of the stacked
+    shadow directions starts 12 j R bytes in, off a boundary from j = 1 when
+    R is not a multiple of 4."""
+    rec, tmax, sdir = k4._surface_record(rays, torch.device("cpu"), True,
+                                         True, shadows, lights)
+    o, d, n = (torch.zeros((rays, 3)) for _ in range(3))
+    hit = torch.zeros(rays, dtype=torch.bool)
+    assert k4.shade_path(k4.surface_vectors(o, d, n, hit, rec)) == want
+    if shadows:
+        assert all(x._base is sdir for x in rec.shadow_dir)
+        assert [x.data_ptr() % 16 for x in rec.shadow_dir] == [
+            12 * j * rays % 16 for j in range(lights)]
+
+
+def test_path_of_an_input_off_a_boundary():
+    """An input that starts off a 16-byte boundary (a view one row in)
+    takes the scalar path; the combine's own output and flags do not."""
+    rays = 64
+    rec, _, _ = k4._surface_record(rays, torch.device("cpu"), True, True,
+                                   True, 2)
+    o = torch.zeros((rays + 1, 3))[1:]
+    d, n = torch.zeros((rays, 3)), torch.zeros((rays, 3))
+    hit = torch.zeros(rays, dtype=torch.bool)
+    assert o.is_contiguous() and o.data_ptr() % 16 == 12
+    assert k4.shade_path(k4.surface_vectors(o, d, n, hit, rec)) == "scalar"
+    assert k4.shade_path(k4.surface_vectors(d, d, n, hit, rec)) == "v4"
+    flags = torch.zeros(rays + 1, dtype=torch.bool)[1:]
+    out = torch.empty((rays, 3))
+    assert k4.shade_path(k4.combine_vectors(d, flags, hit, out)) == "scalar"
+    assert k4.shade_path(k4.combine_vectors(d, hit, hit, out)) == "v4"
+
+
+@pytest.mark.parametrize("rays", [2331, 2304])
+def test_path_of_the_fit_steps_packed_record(rays):
+    """The fit step's record travels as ``SurfaceRecord.pack``'s tuple
+    (``ShadeSurface``): the stacked shadow tensors are the kernel's own
+    (no copy), so its rows keep their addresses through ``unpack``; the
+    bounce level reads the record's mirror rays (their own tensors, on
+    16-byte boundaries) and the combine its fresh output."""
+    cpu = torch.device("cpu")
+    rec, tmax, sdir = k4._surface_record(rays, cpu, True, True, True, 3)
+    packed = rec.pack()
+    assert packed[-2] is tmax and packed[-1] is sdir
+    back = SurfaceRecord.unpack(packed)
+    assert [x.data_ptr() for x in back.shadow_dir] == [
+        x.data_ptr() for x in rec.shadow_dir]
+    o = d = torch.zeros((rays, 3))
+    hit = torch.zeros(rays, dtype=torch.bool)
+    want = "scalar" if rays % 4 else "v4"
+    assert k4.shade_path(k4.surface_vectors(o, d, d, hit, back)) == want
+    # the bounce level: its rays are the record's, with shadows of its own
+    nxt, _, _ = k4._surface_record(rays, cpu, True, True, True, 3)
+    assert k4.shade_path(k4.surface_vectors(
+        back.shadow_origin, back.refl_dir, d, hit, nxt)) == want
+    nxt, _, _ = k4._surface_record(rays, cpu, True, True, False, 3)
+    assert k4.shade_path(k4.surface_vectors(
+        back.shadow_origin, back.refl_dir, d, hit, nxt)) == "v4"
+    out = torch.empty((rays, 3))
+    assert k4.shade_path(k4.combine_vectors(back.refl_dir, hit, hit,
+                                            out)) == "v4"

@@ -1,24 +1,34 @@
-"""The register-cap probe of the two kernels redesigned for the H100: K1's
-scene march (``march_scene_capped_kernel``) and K4's surface backward
-(``surface_bwd_merged_kernel``), on one CUDA card.
+"""The register-cap probe of the kernels redesigned for the H100: K1's
+scene march (``march_scene_capped_kernel``), K4's surface backward
+(``surface_bwd_merged_kernel``) and K4's forward pair
+(``surface_resident_kernel``, ``combine_resident_kernel``), on one CUDA
+card.
 
-    python3 -m vrt_torch.apps.probe_caps
+    python3 -m vrt_torch.apps.probe_caps [march] [surface_bwd] [shade_fwd]
 
 Each kernel's block and register cap are constants of its source
 (``kSceneThreads``, ``kSceneMinBlocks`` and ``kAnyHitMinBlocks`` in
-``march.cu``, ``kSurfaceBwdMinBlocks`` in ``shade.cu``).  The probe builds a
-copy of the source for each of ``MARCH`` and ``SURFACE_BWD`` with those
-constants set as the variant says (all builds in parallel, under
-``build/vrt_torch_kernels/probe/``), then runs the launches of the path
-that chose them through each build in turn: the five scene marches of the
-flagship's 1080p interp frame, and the three surface backwards of one
-1080p config6 fit step.  Each build must give the default build's result
-(the marches field by field, the per-ray cotangents bit for bit); each
-launch is timed as device time (``device_ms``), the default build first and
-last, with the first design (``_old_design``) beside them.  It prints
-ptxas' registers, stack frame and spills of each build's variants, and the
-warp slots the registers leave filled, beside the card's name and power
-limit.  There is no CPU path.
+``march.cu``; ``kSurfaceBwdMinBlocks``, ``kFwdThreads``,
+``kSurfaceMinBlocks``, ``kCombineMinBlocks``, ``kFetchDepth`` and
+``kFlagRounds`` in ``shade.cu``, where ``kFwdResident`` and ``kFwdHitPath`` also switch the
+forward pair to one thread a ray over the whole grid and compile its hit
+lanes' work out).  The
+probe builds a copy of the source for each of ``MARCH``, ``SURFACE_BWD``
+and ``SHADE_FWD`` with those constants set as the variant says (all builds
+in parallel, under ``build/vrt_torch_kernels/probe/``), then runs the
+launches of the path that chose them through each build in turn: the five
+scene marches of the flagship's 1080p interp frame, the three surface
+backwards of one 1080p config6 fit step, and the three surface and three
+combine launches of the 1080p interp and cube frames and of a 480x270 frame
+with two point lights and a spot light.  Each build must give the default build's
+result (the marches field by field, the per-ray cotangents bit for bit,
+the forward pair on every lane both write; the miss-only build on the miss
+lanes); each launch is timed as device time (``device_ms``), the default
+build first and last, with the first design (``_old_design``) beside them.
+It prints ptxas' registers, stack frame and spills of each build's
+variants, and the warp slots the registers leave filled, beside the card's
+name and power limit.  Without arguments it runs all three.  There is no
+CPU path.
 """
 
 from __future__ import annotations
@@ -51,6 +61,26 @@ SURFACE_BWD = (
     ("default: 3 blocks an SM", {}, 256),
     ("uncapped", {"kSurfaceBwdMinBlocks": 1}, 256),
     ("4 blocks an SM", {"kSurfaceBwdMinBlocks": 4}, 256))
+SHADE_FWD = (
+    ("default: 256 threads, surface 3 and combine 4 blocks an SM, surface "
+     "fetches 1 round ahead", {}, 256),
+    ("uncapped", {"kSurfaceMinBlocks": 1, "kCombineMinBlocks": 1}, 256),
+    ("surface 2 blocks an SM", {"kSurfaceMinBlocks": 2}, 256),
+    ("surface 4 blocks an SM", {"kSurfaceMinBlocks": 4}, 256),
+    ("combine 6 blocks an SM", {"kCombineMinBlocks": 6}, 256),
+    ("128 threads, surface 4 and combine 8 blocks an SM",
+     {"kFwdThreads": 128, "kSurfaceMinBlocks": 4, "kCombineMinBlocks": 8},
+     128),
+    ("512 threads, surface 1 and combine 2 blocks an SM",
+     {"kFwdThreads": 512, "kSurfaceMinBlocks": 1, "kCombineMinBlocks": 2},
+     512),
+    ("surface fetches 2 rounds ahead", {"kFetchDepth": 3}, 256),
+    ("surface fetches flags a round at a time at a level without traces",
+     {"kFlagRounds": 1}, 256),
+    ("one thread a ray over the whole grid", {"kFwdResident": "false"}, 256),
+    ("miss lanes only: the hit path compiled out",
+     {"kFwdHitPath": "false"}, 256))
+SHADE_KERNELS = ("surface_resident_kernel", "combine_resident_kernel")
 FIELDS = ("hit", "t", "kind", "cell", "t_in", "t_out", "face_normal", "steps")
 REPS = 20
 
@@ -60,8 +90,8 @@ def _variant(source, consts, tag):
     copied under the build directory: (path of the source, of the header)."""
     text = (_build.CSRC / source).read_text()
     for name, value in consts.items():
-        text, n = re.subn(rf"constexpr int {name} = \d+;",
-                          f"constexpr int {name} = {value};", text)
+        text, n = re.subn(rf"constexpr (int|bool) {name} = \w+;",
+                          rf"constexpr \1 {name} = {value};", text)
         if n != 1:
             raise RuntimeError(f"{source} defines {name} {n} times")
     out = _build.BUILD_DIR / "probe"
@@ -73,10 +103,10 @@ def _variant(source, consts, tag):
     return path, header
 
 
-def _builds(module, source, variants, kernel, entries):
+def _builds(module, source, variants, kernels, entries):
     """Every variant of ``source`` built (in parallel), its ``entries``
-    typed as ``module``'s own library types them: [(label, library, ptxas
-    usage of ``kernel``, threads)]."""
+    typed as ``module``'s own library types them: [(label, library,
+    {kernel: ptxas usage} of ``kernels``, threads)]."""
     module.build()
     paths = [_variant(source, consts, i)
              for i, (_, consts, _) in enumerate(variants)]
@@ -89,7 +119,8 @@ def _builds(module, source, variants, kernel, entries):
         for name in entries:
             ref, fn = getattr(module._lib, name), getattr(lib, name)
             fn.argtypes, fn.restype = ref.argtypes, ref.restype
-        out.append((label, lib, _build.ptxas_usage(log, kernel), threads))
+        out.append((label, lib, {k: _build.ptxas_usage(log, k)
+                                 for k in kernels}, threads))
     return out
 
 
@@ -112,7 +143,7 @@ def _recorded(module, name, run):
     return calls
 
 
-def _same_march(got, want):
+def _same_march(got, want, args, label):
     if isinstance(got, torch.Tensor):
         return torch.equal(got, want)
     return torch.equal(got[1], want[1]) and all(
@@ -122,9 +153,53 @@ def _same_march(got, want):
                      for f in FIELDS))
 
 
-def _same_cotangents(got, want):
+def _same_cotangents(got, want, args, label):
     return all(torch.equal(a, b) for a, b in zip(got[:4], want[:4])
                if a is not None)
+
+
+def _equal_where(a, b, lanes):
+    """``a`` equal to ``b`` (NaN to NaN) on the rays ``lanes`` marks."""
+    if lanes is not None:
+        a, b = a[lanes], b[lanes]
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all()) \
+        if a.is_floating_point() else torch.equal(a, b)
+
+
+def _same_record(got, want, args, label):
+    """A surface record against the default build's on every lane both
+    write: the material on hit lanes, the traces' rays on every lane of a
+    level that spawns them; the miss-only build on the miss lanes."""
+    mode, bounce, shadows = args[7], args[8], args[9]
+    hit = args[5].hit
+    miss_only = label.startswith("miss lanes only")
+    mat = None if miss_only else hit
+    spawns = mode.lit and (bounce or shadows)
+    every = ~hit if miss_only else None
+    pairs = [("albedo", mat), ("n_w", mat), ("roughness", mat),
+             ("metallic", mat), ("k", mat),
+             ("shadow_origin", every if spawns else mat),
+             ("refl_dir", every), ("gate", every)]
+    for name, lanes in pairs:
+        a, b = getattr(got, name), getattr(want, name)
+        if (a is None) != (b is None):
+            return False
+        if a is None or (miss_only and lanes is None):
+            continue
+        if not _equal_where(a, b, lanes):
+            return False
+    for name in ("shadow_tmax", "shadow_dir"):
+        for a, b in zip(getattr(got, name) or (), getattr(want, name) or ()):
+            if not _equal_where(a, b, every):
+                return False
+    return True
+
+
+def _same_rgb(got, want, args, label):
+    """Combine outputs on every lane; the miss-only build's on miss
+    lanes."""
+    lanes = ~args[4] if label.startswith("miss lanes only") else None
+    return _equal_where(got, want, lanes)
 
 
 def _probe(module, fn_name, builds, calls, same):
@@ -138,13 +213,15 @@ def _probe(module, fn_name, builds, calls, same):
         per_launch = []
         for args, kwargs, want in calls:
             kw = dict(kwargs, _old_design=True) if old_design else kwargs
-            if not same(fn(*args, **kw), want):
-                raise AssertionError(f"{fn_name}: a build changed the result")
+            if not same(fn(*args, **kw), want, args, label):
+                raise AssertionError(f"{fn_name}: {label} changed the "
+                                     f"result")
             per_launch.append(device_ms(lambda: fn(*args, **kw), REPS))
         return per_launch
 
     rows = []
     order = builds + [builds[0]]
+    label = builds[0][0]
     try:
         for i, (label, lib, usage, threads) in enumerate(order):
             module._lib = lib
@@ -152,27 +229,30 @@ def _probe(module, fn_name, builds, calls, same):
                          timed(), usage, threads))
             if i == 0:
                 module._lib = default
-                rows.append(("first design", timed(old_design=True), None,
-                             256))
+                label = "first design"
+                rows.append((label, timed(old_design=True), None, 256))
     finally:
         module._lib = default
     return rows
 
 
 def _report(what, card, rows):
-    for label, ms, usage, threads in rows:
-        if usage is None:
-            regs = "ptxas: not in this run's log"
-        else:
+    for label, ms, usages, threads in rows:
+        regs = []
+        for kernel, usage in (usages or {None: None}).items():
+            if usage is None:
+                regs.append("ptxas: not in this run's log")
+                continue
             slots = [_build.warp_slots(r, threads)
                      for r in usage["registers"][::-1]]
-            regs = (f"{usage['variants']} variants, registers "
-                    f"{usage['registers']}, stack {usage['stack_bytes']}, "
-                    f"spills {usage['spill_bytes']} bytes, warp slots filled "
-                    f"{slots[0]:.0%}-{slots[1]:.0%}")
+            regs.append(
+                f"{kernel}: {usage['variants']} variants, registers "
+                f"{usage['registers']}, stack {usage['stack_bytes']}, spills "
+                f"{usage['spill_bytes']} bytes, warp slots filled "
+                f"{slots[0]:.0%}-{slots[1]:.0%}")
         print(f"{what} on {card}: {label}: "
               f"{', '.join(f'{t:.4f}' for t in ms)} ms = {sum(ms):.4f} ms; "
-              f"{regs}", flush=True)
+              f"{'; '.join(regs)}", flush=True)
 
 
 def main(argv=None) -> int:
@@ -181,42 +261,70 @@ def main(argv=None) -> int:
     from vrt_torch.diff.optim import adam
     from vrt_torch.render.gpuscene import RenderMode
     from vrt_torch.render.renderer import render_image
-    from vrt_torch.scenes import flagship_scene
+    from vrt_torch.scenes import flagship_scene, shading_scene
 
     if not torch.cuda.is_available():
         print("probe_caps needs a CUDA card", file=sys.stderr)
         return 1
+    probes = set(sys.argv[1:] if argv is None else argv) or {
+        "march", "surface_bwd", "shade_fwd"}
     dev = torch.device("cuda", 0)
     card = card_name()
-    march_builds = _builds(k1, "march.cu", MARCH, "march_scene_capped_kernel",
-                           ("vrt_march_lanes", "vrt_march_scene"))
-    shade_builds = _builds(k4, "shade.cu", SURFACE_BWD,
-                           "surface_bwd_merged_kernel",
-                           ("vrt_shade_surface", "vrt_shade_combine",
-                            "vrt_shade_surface_bwd", "vrt_shade_combine_bwd"))
+    entries = ("vrt_shade_surface", "vrt_shade_combine",
+               "vrt_shade_surface_bwd", "vrt_shade_combine_bwd")
+    if "march" in probes:
+        builds = _builds(k1, "march.cu", MARCH,
+                         ("march_scene_capped_kernel",),
+                         ("vrt_march_lanes", "vrt_march_scene"))
+        scene = flagship_scene(7, "chebyshev", torch.bfloat16, device=dev)
+        calls = _recorded(k1, "march_scene_cuda", lambda: render_image(
+            scene, 1920, 1080, RenderMode()))
+        _report("the 1080p interp frame's scene marches", card,
+                _probe(k1, "march_scene_cuda", builds, calls, _same_march))
+        del scene, calls
 
-    scene = flagship_scene(7, "chebyshev", torch.bfloat16, device=dev)
-    calls = _recorded(k1, "march_scene_cuda",
-                      lambda: render_image(scene, 1920, 1080, RenderMode()))
-    _report("the 1080p interp frame's scene marches", card,
-            _probe(k1, "march_scene_cuda", march_builds, calls, _same_march))
-    del scene, calls
+    if "surface_bwd" in probes:
+        builds = _builds(k4, "shade.cu", SURFACE_BWD,
+                         ("surface_bwd_merged_kernel",), entries)
+        # config6 (vrt/apps/bench.py bench_fit): the flagship at resolution
+        # 6 with per-voxel colours, one camera, zero targets, Adam at 1e-2
+        scene = flagship_scene(6, use_colors=True, device=dev)
+        params = {"sdf": scene.volumes.sdf,
+                  "voxel_colors": scene.voxel_colors}
+        opt = adam(1e-2)
+        cams = [dict(position=(320.0, 0.0, 40.0),
+                     rotation=(0.0, 0.0, 1.0, 0.0), fov=60.0)]
+        step = make_fit_step(scene, cams, 1920, 1080, RenderMode(), opt)
+        targets = torch.zeros((1, 1920 * 1080, 3), device=dev)
+        state = opt.init(params)
+        calls = _recorded(k4, "shade_surface_backward_cuda",
+                          lambda: step(params, state, targets))
+        _report("the config6 fit step's surface backwards", card,
+                _probe(k4, "shade_surface_backward_cuda", builds, calls,
+                       _same_cotangents))
+        del scene, params, state, targets, calls
 
-    # config6 (vrt/apps/bench.py bench_fit): the flagship at resolution 6
-    # with per-voxel colours, one camera, zero targets, Adam at 1e-2
-    scene = flagship_scene(6, use_colors=True, device=dev)
-    params = {"sdf": scene.volumes.sdf, "voxel_colors": scene.voxel_colors}
-    opt = adam(1e-2)
-    cams = [dict(position=(320.0, 0.0, 40.0), rotation=(0.0, 0.0, 1.0, 0.0),
-                 fov=60.0)]
-    step = make_fit_step(scene, cams, 1920, 1080, RenderMode(), opt)
-    targets = torch.zeros((1, 1920 * 1080, 3), device=dev)
-    state = opt.init(params)
-    calls = _recorded(k4, "shade_surface_backward_cuda",
-                      lambda: step(params, state, targets))
-    _report("the config6 fit step's surface backwards", card,
-            _probe(k4, "shade_surface_backward_cuda", shade_builds, calls,
-                   _same_cotangents))
+    if "shade_fwd" in probes:
+        builds = _builds(k4, "shade.cu", SHADE_FWD, SHADE_KERNELS, entries)
+        for what, scene, w, h, mode in (
+                ("the 1080p interp frame's",
+                 flagship_scene(7, "chebyshev", torch.bfloat16, device=dev),
+                 1920, 1080, RenderMode()),
+                ("the 1080p cube frame's",
+                 flagship_scene(7, "chebyshev", torch.bfloat16, device=dev),
+                 1920, 1080, RenderMode(interp=False)),
+                ("the 480x270 frame with 2 point lights and a spot light:",
+                 shading_scene(6, 2, 1, device=dev), 480, 270,
+                 RenderMode())):
+            for stage, same in (("surface", _same_record),
+                                ("combine", _same_rgb)):
+                name = f"shade_{stage}_cuda"
+                calls = _recorded(k4, name, lambda: render_image(
+                    scene, w, h, mode))
+                _report(f"{what} shade {stage} launches", card,
+                        _probe(k4, name, builds, calls, same))
+                del calls
+            del scene
     print(card, flush=True)
     return 0
 

@@ -1,6 +1,6 @@
-// The frame's shading for Hopper (sm_90a), two kernels a radiance level, one
-// thread a ray: vrt_shade_surface before the traces the level spawns and
-// vrt_shade_combine after them.
+// The frame's shading for Hopper (sm_90a), two kernels a radiance level:
+// vrt_shade_surface before the traces the level spawns and vrt_shade_combine
+// after them.
 //
 // They replace no Pallas kernel: vrt leaves shading to XLA, which fuses
 // vrt/render/renderer.py::_per_ray_instance, _voxel_color_sample, _shade_lit,
@@ -47,18 +47,31 @@
 // (instances, materials, lights, texture sizes) are a few hundred bytes.
 //
 // What the design does about it: every intermediate stays in registers; the
-// tables are staged once a block in shared memory, so no ray gathers from
-// device memory but for its texture taps, its colour row and its env taps; a
-// miss lane returns after its stores; the texture and colour work is
-// compiled out by template flag where the mode has none, so no variant
-// spills.  Built with --fmad=false and every sum written in the plain
-// version's order; torch's own reductions (sum and vector_norm over 3, 4 and 8
-// elements) and pow may round in another order, so a result agrees with the
-// plain version to a few ulp, not bit for bit, and a comparison that feeds a
-// select (a texel's floor, the cube face, the gate, a light's floor) may flip
-// on a lane in a million.
+// tables are staged in shared memory, so no ray gathers from device memory
+// but for its texture taps, its colour row and its env taps; the texture and
+// colour work is compiled out by template flag where the mode has none.  Each
+// kernel has two designs.  The first (surface_kernel, combine_kernel), kept
+// as the comparator: one thread a ray over 8,100 blocks at 1080p, every block
+// staging the tables and synchronising before its lanes read a flag, every
+// access a lane's own 4-byte word.  What held it back on the H100
+// (chip_smoke.py; ncu cannot run there): about half the bytes' bound, and at
+// a level without traces 0.02 ms for 2 M one-byte flags, the blocks' staging
+// alone.  The redesign (surface_resident_kernel, combine_resident_kernel,
+// the default; below): resident blocks striding over the rays, a warp's
+// flags and [32,3] spans in 16-byte words (the surface's fetched a round
+// ahead by cp.async), and a surface warp without a hit writing only its
+// traces' rays in 16-byte stores.  The surface gains; the combine, bound by
+// its instructions (the env lookup on miss lanes, the tonemap's powf), runs
+// at its first design's speed.  Built with --fmad=false and every sum
+// written in the plain version's order; torch's own reductions (sum and
+// vector_norm over 3, 4 and 8 elements) and pow may round in another
+// order, so a result agrees with the plain version to a few ulp, not bit
+// for bit, and a comparison that feeds a select (a texel's floor, the cube
+// face, the gate, a light's floor) may flip on a lane in a million.
 
 #include <algorithm>
+
+#include <cuda_pipeline.h>
 
 #include "scene.cuh"
 
@@ -193,6 +206,23 @@ __device__ __forceinline__ void light_at(const float* row, bool spot,
   inten = inside ? i : 0.0f;
 }
 
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+__device__ __forceinline__ void load3(const float* src, long long i,
+                                      float v[3]) {
+  for (int c = 0; c < 3; ++c) v[c] = src != nullptr ? src[3 * i + c] : 0.0f;
+}
+
+__device__ __forceinline__ void store3(float* dst, long long i,
+                                       const float v[3]) {
+  if (dst != nullptr)
+    for (int c = 0; c < 3; ++c) dst[3 * i + c] = v[c];
+}
+
+__device__ __forceinline__ void store1(float* dst, long long i, float v) {
+  if (dst != nullptr) dst[i] = v;
+}
+
 // ---- surface ----------------------------------------------------------------
 
 struct SurfaceParams {
@@ -225,6 +255,42 @@ struct SurfaceParams {
   float* shadow_tmax;      // [1+P+S,R] with shadows
   float* shadow_dir;       // [P+S,R,3] with shadows
 };
+
+// The instance, volume and texture-size tables of the surface kernels into
+// shared memory (rows of kInstRow and kVolRow words); the
+// caller synchronises.
+__device__ __forceinline__ void stage_surface_tables(const SurfaceParams& p,
+                                                     float* sh_inst,
+                                                     float* sh_vol,
+                                                     int* sh_sizes) {
+  for (int w = threadIdx.x; w < p.inst.count * kInstRow; w += blockDim.x) {
+    const int r = w / kInstRow, c = w % kInstRow;
+    float v = 0.0f;
+    if (c < 3) v = p.inst.pos[3 * r + c];
+    else if (c < 7) v = p.inst.rot[4 * r + (c - 3)];
+    else if (c < 10) v = p.inst.scale[3 * r + (c - 7)];
+    else if (c == 10) v = __int_as_float(p.inst.volume[r]);
+    sh_inst[w] = v;
+  }
+  for (int w = threadIdx.x; w < p.mat.count * kVolRow; w += blockDim.x) {
+    const int r = w / kVolRow, c = w % kVolRow;
+    float v = 0.0f;
+    if (c == 0) v = __int_as_float(p.mat.n[r]);
+    else if (c == 1) v = p.mat.cell_size[r];
+    else if (c == 2) v = p.mat.extends[r];
+    else if (c < 6) v = p.mat.tint[4 * r + (c - 3)];
+    else if (c == 6) v = p.mat.roughness[r];
+    else if (c == 7) v = p.mat.metallic[r];
+    else if (c == 8) v = p.mat.k[r];
+    else if (c < 11) v = p.mat.tex_scale[2 * r + (c - 9)];
+    else if (c == 11) v = __int_as_float(p.mat.albedo_tex[r]);
+    else if (c == 12) v = __int_as_float(p.mat.normal_tex[r]);
+    else if (c == 13) v = __int_as_float(p.mat.rm_tex[r]);
+    sh_vol[w] = v;
+  }
+  for (int w = threadIdx.x; w < 2 * p.tex_count; w += blockDim.x)
+    sh_sizes[w] = p.tex_sizes[w];
+}
 
 // torch.remainder on int32: the result takes the divisor's sign.
 __device__ __forceinline__ int floor_mod(int a, int b) {
@@ -353,6 +419,131 @@ __device__ __forceinline__ void color_sample(const SurfaceParams& p,
   }
 }
 
+// What a hit lane of the surface stage computes before its stores
+// (renderer.py _shade_lit's head, _shade_unlit_mode): the material at the
+// hit and, lit, the shadow origin, the world normal and the geometry term's
+// k.  Both designs of the surface kernel share it.
+struct SurfaceHit {
+  float albedo[3], so[3], n_w[3];
+  float roughness, metallic, k;
+};
+
+template <bool kLit, bool kTextured, bool kColors>
+__device__ __forceinline__ void surface_hit(
+    const SurfaceParams& p, const float* sh_inst, const float* sh_vol,
+    const int* sh_sizes, long long i, const float o_w[3], const float d_w[3],
+    const float n_obj[3], SurfaceHit& h) {
+  const float t = p.t[i];
+  const float* in = sh_inst + max(p.winner[i], 0) * kInstRow;
+  const float* pos = in;
+  const float* rot = in + 3;
+  const float* scale = in + 7;
+  const int vol = __float_as_int(in[10]);
+  const float* mat = sh_vol + vol * kVolRow;
+  const float qc[3] = {-rot[0], -rot[1], -rot[2]};   // the conjugate
+
+  float hit_pos[3];
+  for (int c = 0; c < 3; ++c) {
+    hit_pos[c] = o_w[c] + t * d_w[c];
+    h.so[c] = hit_pos[c] - d_w[c] * 0.1f;
+    h.albedo[c] = mat[3 + c];
+  }
+  h.roughness = clamp01(mat[6]);
+  h.metallic = clamp01(mat[7]);
+  h.k = mat[8];
+  float n_shade[3] = {n_obj[0], n_obj[1], n_obj[2]};
+
+  if (kTextured && (kLit || !kColors)) {
+    float a[3], obj_pos[3], b[3];
+    for (int c = 0; c < 3; ++c) a[c] = (hit_pos[c] - pos[c]) / scale[c];
+    rotate(qc, rot[3], a, obj_pos);
+    // shade/texture.py _blend_weights
+    const float ab[3] = {fabsf(n_obj[0]), fabsf(n_obj[1]), fabsf(n_obj[2])};
+    const float s = (ab[0] + ab[1]) + ab[2];
+    for (int c = 0; c < 3; ++c) b[c] = s > 0.0f ? ab[c] / s : 0.0f;
+    const float* tscale = mat + 9;
+    if (!kColors) {
+      float tex[3];
+      tri_sample<false>(p, sh_sizes, __float_as_int(mat[11]), tscale, obj_pos,
+                        b, tex);
+      for (int c = 0; c < 3; ++c) h.albedo[c] = h.albedo[c] * tex[c];
+    }
+    if (kLit) {
+      float rm[3], tn[3];
+      tri_sample<false>(p, sh_sizes, __float_as_int(mat[13]), tscale, obj_pos,
+                        b, rm);
+      h.roughness = clamp01(mat[6] * rm[0]);
+      h.metallic = clamp01(mat[7] * rm[1]);
+      tri_sample<true>(p, sh_sizes, __float_as_int(mat[12]), tscale, obj_pos,
+                       b, tn);
+      const float n2 = dot3(tn, tn);
+      const float norm = sqrtf(n2 > 0.0f ? n2 : 1.0f);
+      for (int c = 0; c < 3; ++c) tn[c] = n2 > 0.0f ? tn[c] / norm : 0.0f;
+      const float zxy[3] = {tn[2], tn[0], tn[1]};
+      rotate_from_x(n_obj, zxy, n_shade);
+    }
+  }
+
+  if (kColors) {
+    // renderer.py _world_to_object, then the sample
+    float a[3], b[3], o[3], d[3];
+    for (int c = 0; c < 3; ++c) {
+      a[c] = (o_w[c] - pos[c]) / scale[c];
+      b[c] = d_w[c] / scale[c];
+    }
+    rotate(qc, rot[3], a, o);
+    rotate(qc, rot[3], b, d);
+    color_sample(p, i, vol, __float_as_int(mat[0]), mat[1], mat[2], o, d, t,
+                 h.albedo);
+  }
+
+  if (kLit) {
+    // renderer.py _object_normal_to_world: rotated and scaled, not
+    // renormalized
+    rotate(rot, rot[3], n_shade, h.n_w);
+    for (int c = 0; c < 3; ++c) h.n_w[c] = h.n_w[c] * scale[c];
+  }
+}
+
+// The mirror direction of d about n, normalised where it has a length
+// (renderer.py _safe_unit).
+__device__ __forceinline__ void mirror(const float d[3], const float n[3],
+                                       float r[3]) {
+  const float dn = 2.0f * dot3(d, n);
+  for (int c = 0; c < 3; ++c) r[c] = d[c] - dn * n[c];
+  const float n2 = dot3(r, r);
+  const float norm = sqrtf(n2 > 0.0f ? n2 : 1.0f);
+  for (int c = 0; c < 3; ++c) r[c] = n2 > 0.0f ? r[c] / norm : 0.0f;
+}
+
+// Point or spot light j's staged row (after the directional light's 4
+// words); spot says which.
+__device__ __forceinline__ const float* light_row(const float* sh_light,
+                                                  const Lights& l, int j,
+                                                  bool& spot) {
+  spot = j >= l.points;
+  return sh_light + 4 +
+         (spot ? l.points * kPointRow + (j - l.points) * kSpotRow
+               : j * kPointRow);
+}
+
+// Shadow ray j of a hit lane from its shadow origin so: the direction to
+// the light and its t_max, the distance, or -inf where the light is too
+// faint to be read.
+__device__ __forceinline__ float shadow_ray(const float* sh_light,
+                                           const Lights& l, int j,
+                                           const float so[3], float sdir[3]) {
+  bool spot;
+  const float* row = light_row(sh_light, l, j, spot);
+  float dist, inten;
+  light_at(row, spot, so, sdir, dist, inten);
+  return inten > (spot ? 0.01f : 0.005f) ? dist : -INFINITY;
+}
+
+// The first design, kept as the comparator of the resident kernel below:
+// one thread a ray over the whole grid, every block staging the tables and
+// synchronising before its lanes read their flags, every access a lane's own
+// 4-byte word.
 template <bool kLit, bool kTextured, bool kColors>
 __global__ void __launch_bounds__(kThreads) surface_kernel(
     const SurfaceParams p) {
@@ -361,34 +552,7 @@ __global__ void __launch_bounds__(kThreads) surface_kernel(
   float* sh_vol = sh_inst + p.inst.count * kInstRow;
   int* sh_sizes = reinterpret_cast<int*>(sh_vol + p.mat.count * kVolRow);
   float* sh_light = reinterpret_cast<float*>(sh_sizes + 2 * p.tex_count);
-
-  for (int w = threadIdx.x; w < p.inst.count * kInstRow; w += blockDim.x) {
-    const int r = w / kInstRow, c = w % kInstRow;
-    float v = 0.0f;
-    if (c < 3) v = p.inst.pos[3 * r + c];
-    else if (c < 7) v = p.inst.rot[4 * r + (c - 3)];
-    else if (c < 10) v = p.inst.scale[3 * r + (c - 7)];
-    else if (c == 10) v = __int_as_float(p.inst.volume[r]);
-    sh_inst[w] = v;
-  }
-  for (int w = threadIdx.x; w < p.mat.count * kVolRow; w += blockDim.x) {
-    const int r = w / kVolRow, c = w % kVolRow;
-    float v = 0.0f;
-    if (c == 0) v = __int_as_float(p.mat.n[r]);
-    else if (c == 1) v = p.mat.cell_size[r];
-    else if (c == 2) v = p.mat.extends[r];
-    else if (c < 6) v = p.mat.tint[4 * r + (c - 3)];
-    else if (c == 6) v = p.mat.roughness[r];
-    else if (c == 7) v = p.mat.metallic[r];
-    else if (c == 8) v = p.mat.k[r];
-    else if (c < 11) v = p.mat.tex_scale[2 * r + (c - 9)];
-    else if (c == 11) v = __int_as_float(p.mat.albedo_tex[r]);
-    else if (c == 12) v = __int_as_float(p.mat.normal_tex[r]);
-    else if (c == 13) v = __int_as_float(p.mat.rm_tex[r]);
-    sh_vol[w] = v;
-  }
-  for (int w = threadIdx.x; w < 2 * p.tex_count; w += blockDim.x)
-    sh_sizes[w] = p.tex_sizes[w];
+  stage_surface_tables(p, sh_inst, sh_vol, sh_sizes);
   if (kLit && p.shadows) stage_lights(sh_light, p.lights);
   __syncthreads();
 
@@ -428,113 +592,337 @@ __global__ void __launch_bounds__(kThreads) surface_kernel(
   }
 
   float n_obj[3];
-  for (int c = 0; c < 3; ++c) n_obj[c] = p.n_obj[3 * i + c];
-  const float t = p.t[i];
-  const float* in = sh_inst + max(p.winner[i], 0) * kInstRow;
-  const float* pos = in;
-  const float* rot = in + 3;
-  const float* scale = in + 7;
-  const int vol = __float_as_int(in[10]);
-  const float* mat = sh_vol + vol * kVolRow;
-  const float qc[3] = {-rot[0], -rot[1], -rot[2]};   // the conjugate
-
-  float hit_pos[3], so[3];
-  for (int c = 0; c < 3; ++c) {
-    hit_pos[c] = o_w[c] + t * d_w[c];
-    so[c] = hit_pos[c] - d_w[c] * 0.1f;
-  }
-
-  float albedo[3] = {mat[3], mat[4], mat[5]};
-  float roughness = clamp01(mat[6]);
-  float metallic = clamp01(mat[7]);
-  float n_shade[3] = {n_obj[0], n_obj[1], n_obj[2]};
-
-  if (kTextured && (kLit || !kColors)) {
-    float a[3], obj_pos[3], b[3];
-    for (int c = 0; c < 3; ++c) a[c] = (hit_pos[c] - pos[c]) / scale[c];
-    rotate(qc, rot[3], a, obj_pos);
-    // shade/texture.py _blend_weights
-    const float ab[3] = {fabsf(n_obj[0]), fabsf(n_obj[1]), fabsf(n_obj[2])};
-    const float s = (ab[0] + ab[1]) + ab[2];
-    for (int c = 0; c < 3; ++c) b[c] = s > 0.0f ? ab[c] / s : 0.0f;
-    const float* tscale = mat + 9;
-    if (!kColors) {
-      float tex[3];
-      tri_sample<false>(p, sh_sizes, __float_as_int(mat[11]), tscale, obj_pos,
-                        b, tex);
-      for (int c = 0; c < 3; ++c) albedo[c] = albedo[c] * tex[c];
-    }
-    if (kLit) {
-      float rm[3], tn[3];
-      tri_sample<false>(p, sh_sizes, __float_as_int(mat[13]), tscale, obj_pos,
-                        b, rm);
-      roughness = clamp01(mat[6] * rm[0]);
-      metallic = clamp01(mat[7] * rm[1]);
-      tri_sample<true>(p, sh_sizes, __float_as_int(mat[12]), tscale, obj_pos,
-                       b, tn);
-      const float n2 = dot3(tn, tn);
-      const float norm = sqrtf(n2 > 0.0f ? n2 : 1.0f);
-      for (int c = 0; c < 3; ++c) tn[c] = n2 > 0.0f ? tn[c] / norm : 0.0f;
-      const float zxy[3] = {tn[2], tn[0], tn[1]};
-      rotate_from_x(n_obj, zxy, n_shade);
-    }
-  }
-
-  if (kColors) {
-    // renderer.py _world_to_object, then the sample
-    float a[3], b[3], o[3], d[3];
-    for (int c = 0; c < 3; ++c) {
-      a[c] = (o_w[c] - pos[c]) / scale[c];
-      b[c] = d_w[c] / scale[c];
-    }
-    rotate(qc, rot[3], a, o);
-    rotate(qc, rot[3], b, d);
-    color_sample(p, i, vol, __float_as_int(mat[0]), mat[1], mat[2], o, d, t,
-                 albedo);
-  }
-
-  for (int c = 0; c < 3; ++c) p.albedo[3 * i + c] = albedo[c];
+  load3(p.n_obj, i, n_obj);
+  SurfaceHit h;
+  surface_hit<kLit, kTextured, kColors>(p, sh_inst, sh_vol, sh_sizes, i, o_w,
+                                        d_w, n_obj, h);
+  store3(p.albedo, i, h.albedo);
   if (!kLit) return;
-
-  // renderer.py _object_normal_to_world: rotated and scaled, not renormalized
-  float n_w[3];
-  rotate(rot, rot[3], n_shade, n_w);
-  for (int c = 0; c < 3; ++c) {
-    n_w[c] = n_w[c] * scale[c];
-    p.shadow_origin[3 * i + c] = so[c];
-    p.n_w[3 * i + c] = n_w[c];
-  }
-  p.roughness[i] = roughness;
-  p.metallic[i] = metallic;
-  p.k[i] = mat[8];
+  store3(p.shadow_origin, i, h.so);
+  store3(p.n_w, i, h.n_w);
+  p.roughness[i] = h.roughness;
+  p.metallic[i] = h.metallic;
+  p.k[i] = h.k;
 
   if (p.bounce) {
-    const float dn = 2.0f * dot3(d_w, n_w);
     float r[3];
-    for (int c = 0; c < 3; ++c) r[c] = d_w[c] - dn * n_w[c];
-    const float n2 = dot3(r, r);
-    const float norm = sqrtf(n2 > 0.0f ? n2 : 1.0f);
-    for (int c = 0; c < 3; ++c)
-      p.refl_dir[3 * i + c] = n2 > 0.0f ? r[c] / norm : 0.0f;
-    p.gate[i] = roughness < 0.3f ? 1 : 0;
+    mirror(d_w, h.n_w, r);
+    store3(p.refl_dir, i, r);
+    p.gate[i] = h.roughness < 0.3f ? 1 : 0;
   }
 
   if (p.shadows) {
     p.shadow_tmax[i] = kDirShadowTmax;
     for (int j = 0; j < n_shadow; ++j) {
-      const bool spot = j >= p.lights.points;
-      const float* row =
-          sh_light + 4 +
-          (spot ? p.lights.points * kPointRow +
-                      (j - p.lights.points) * kSpotRow
-                : j * kPointRow);
-      float sdir[3], dist, inten;
-      light_at(row, spot, so, sdir, dist, inten);
+      float sdir[3];
       p.shadow_tmax[(1 + j) * p.rays + i] =
-          inten > (spot ? 0.01f : 0.005f) ? dist : -INFINITY;
+          shadow_ray(sh_light, p.lights, j, h.so, sdir);
       for (int c = 0; c < 3; ++c)
         p.shadow_dir[(j * p.rays + i) * 3 + c] = sdir[c];
     }
+  }
+}
+
+// ---- the forward pair's redesign ----------------------------------------------
+//
+// Resident blocks stride over the rays: the grid is the SMs times the blocks
+// of the variant an SM holds at once (found once a variant), so the tables
+// are staged once a resident block, not once every 256 rays.  A warp takes
+// 32 consecutive rays a round.  On the vector path (kVec: every array it
+// moves in 16-byte words starts on a 16-byte boundary, and the warp is
+// whole) the warp's flags and, where the level spawns traces, its rays
+// ([32,3] f32: 384 bytes) arrive by 16-byte cp.async into a ring of
+// buffers in shared memory, a round ahead of the round being shaded:
+// each round's loads are in flight together and ahead of their use, where
+// a lane that loads its own flag and then its own ray waits for two
+// dependent round trips to device memory before it stores.  At a level
+// that spawns no trace there is no ray to fetch, and the flags of 16 of the
+// warp's rounds come in one copy a lane.  A warp decides together
+// (__ballot_sync): without a hit it writes only what the level's traces
+// read, in 16-byte stores from its buffer, or nothing at a level that
+// spawns none; with a hit, an output that every lane writes goes
+// out in 16-byte stores through the warp's stage and the material, which a
+// miss lane leaves unwritten, lane by lane unless every lane hit.  Each
+// lane's values are the first design's, computed by the same functions.
+
+constexpr int kFwdThreads = 256;
+constexpr int kFwdWarps = kFwdThreads / 32;
+// Blocks an SM must hold at once, register caps: the surface kernel at 80
+// registers without spills, the combine kernel at 64 (above, the combine
+// spills and loses; vrt_torch.apps.probe_caps times them).
+constexpr int kSurfaceMinBlocks = 3;
+constexpr int kCombineMinBlocks = 4;
+// The probe's comparisons, never changed here: false runs the redesign over
+// the first design's grid, one thread a ray; false compiles the hit lanes'
+// work out of both kernels (every lane shades as a miss).
+constexpr bool kFwdResident = true;
+constexpr bool kFwdHitPath = true;
+
+// 16 bytes from device memory into shared memory, asynchronously; a round's
+// copies are committed together and waited for with the round after them
+// in flight.
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  __pipeline_memcpy_async(dst, src, 16);
+}
+
+// The warp's span of an [R,3] f32 array (rays w0 .. w0 + 31) as 24 float4s
+// through the warp's 384-byte stage: each lane ends with its own ray's
+// three floats.  Every lane of the warp calls it.
+__device__ __forceinline__ void warp_load3(float* stage, const float* src,
+                                           long long w0, int lane,
+                                           float v[3]) {
+  if (lane < 24)
+    reinterpret_cast<float4*>(stage)[lane] =
+        reinterpret_cast<const float4*>(src + 3 * w0)[lane];
+  __syncwarp();
+  for (int c = 0; c < 3; ++c) v[c] = stage[3 * lane + c];
+  __syncwarp();
+}
+
+// Each lane's three floats into the warp's span of dst as 24 float4s.
+__device__ __forceinline__ void warp_store3(float* stage, float* dst,
+                                            long long w0, int lane,
+                                            const float v[3]) {
+  for (int c = 0; c < 3; ++c) stage[3 * lane + c] = v[c];
+  __syncwarp();
+  if (lane < 24)
+    reinterpret_cast<float4*>(dst + 3 * w0)[lane] =
+        reinterpret_cast<const float4*>(stage)[lane];
+  __syncwarp();
+}
+
+// What a surface warp fetches ahead: its 32 flags and, where the level
+// spawns traces, its rays.
+struct SurfaceFetch {
+  float4 o[24];
+  float4 d[24];
+  uint8_t flags[32];
+};
+
+// A surface warp's buffers in shared memory: the round it shades and the
+// rounds fetched ahead of it (one ahead measured fastest: two add 9
+// registers and gain nothing; vrt_torch.apps.probe_caps).
+constexpr int kFetchDepth = 2;
+
+// The fetch of the round whose first ray in this block is `base`, into
+// `f`, on the vector path only (else the lanes load their own).
+__device__ __forceinline__ void surface_fetch(const SurfaceParams& p,
+                                              bool spawns, long long base,
+                                              int lane, SurfaceFetch& f) {
+  const long long w0 = base + (threadIdx.x & ~31);
+  if (w0 + 32 > p.rays) return;
+  if (lane < 2) copy16(f.flags + 16 * lane, p.hit + w0 + 16 * lane);
+  if (spawns && lane < 24) {
+    copy16(&f.o[lane], p.o_w + 3 * w0 + 4 * lane);
+    copy16(&f.d[lane], p.d_w + 3 * w0 + 4 * lane);
+  }
+}
+
+// The rounds of a warp whose flags come in one batch at a level that spawns
+// no trace (at most 16: two lanes a round).
+constexpr int kFlagRounds = 16;
+
+// The flags of the kFlagRounds rounds of this warp from the round whose
+// first ray in the block is `base`: lane l copies 16 of round l / 2's 32.
+// A round past the end, or whose warp is partial, is not fetched (its
+// lanes load their own).
+__device__ __forceinline__ void flag_fetch(const SurfaceParams& p,
+                                           long long base, long long stride,
+                                           int warp, int lane,
+                                           uint8_t (*batch)[32]) {
+  const long long w0 = base + (lane >> 1) * stride + 32 * warp;
+  if ((lane >> 1) < kFlagRounds && w0 + 32 <= p.rays)
+    copy16(batch[lane >> 1] + 16 * (lane & 1), p.hit + w0 + 16 * (lane & 1));
+}
+
+// A warp without a hit at a level that spawns traces, on the vector path:
+// the shadow origin o - 0.1 d, the mirror ray along d behind a closed gate,
+// and every shadow along d with t_max = -inf, as the first design's miss
+// lanes write them, from the rays in the warp's buffer.
+__device__ __forceinline__ void surface_miss_warp(const SurfaceParams& p,
+                                                  const SurfaceFetch& f,
+                                                  long long w0, int lane,
+                                                  int n_shadow) {
+  if (lane < 24) {
+    const float4 o = f.o[lane];
+    const float4 d = f.d[lane];
+    reinterpret_cast<float4*>(p.shadow_origin + 3 * w0)[lane] =
+        make_float4(o.x - d.x * 0.1f, o.y - d.y * 0.1f, o.z - d.z * 0.1f,
+                    o.w - d.w * 0.1f);
+    if (p.bounce) reinterpret_cast<float4*>(p.refl_dir + 3 * w0)[lane] = d;
+    if (p.shadows)
+      for (int j = 0; j < n_shadow; ++j)
+        reinterpret_cast<float4*>(p.shadow_dir + 3 * (j * p.rays + w0))
+            [lane] = d;
+  }
+  if (p.bounce) p.gate[w0 + lane] = 0;
+  if (p.shadows)
+    for (int j = 0; j <= n_shadow; ++j)
+      p.shadow_tmax[j * p.rays + w0 + lane] = -INFINITY;
+}
+
+// One round of a surface warp: the 32 rays from w0 (a multiple of 32), the
+// lane's ray w0 + lane.  On the vector path `flags` holds the round's 32
+// flags and, where the level spawns traces, `f` its rays, both fetched
+// ahead into shared memory; else the lanes load their own (a whole warp
+// that hits everywhere through the stage).  Every lane of the warp calls
+// it.
+template <bool kLit, bool kTextured, bool kColors>
+__device__ __forceinline__ void surface_round(
+    const SurfaceParams& p, const float* sh_inst, const float* sh_vol,
+    const int* sh_sizes, const float* sh_light, float* stage,
+    const uint8_t* flags, const SurfaceFetch* f, long long w0, int lane,
+    bool vec, bool spawns, int n_shadow) {
+  const long long i = w0 + lane;
+  const bool in = i < p.rays;
+  const bool flag = flags != nullptr ? flags[lane] != 0 : in && p.hit[i];
+  const bool is_hit = kFwdHitPath && flag;
+  const unsigned hits = __ballot_sync(kFullWarp, is_hit);
+  if (hits == 0u && !spawns) return;          // nothing to write
+  if (hits == 0u && f != nullptr) {
+    surface_miss_warp(p, *f, w0, lane, n_shadow);
+    return;
+  }
+  const bool all_hit = hits == kFullWarp;
+  // the ray where the lane writes a trace or shades
+  const bool mine = is_hit || (in && spawns);
+  float o_w[3] = {0.0f, 0.0f, 0.0f}, d_w[3] = {0.0f, 0.0f, 0.0f};
+  float n_obj[3] = {0.0f, 0.0f, 0.0f};
+  if (f != nullptr) {
+    const float* o = reinterpret_cast<const float*>(f->o);
+    const float* d = reinterpret_cast<const float*>(f->d);
+    for (int c = 0; c < 3; ++c) {
+      o_w[c] = o[3 * lane + c];
+      d_w[c] = d[3 * lane + c];
+    }
+  } else if (vec && all_hit) {
+    warp_load3(stage, p.o_w, w0, lane, o_w);
+    warp_load3(stage, p.d_w, w0, lane, d_w);
+  } else if (mine) {
+    load3(p.o_w, i, o_w);
+    load3(p.d_w, i, d_w);
+  }
+  if (vec && all_hit) warp_load3(stage, p.n_obj, w0, lane, n_obj);
+  else if (is_hit) load3(p.n_obj, i, n_obj);
+  SurfaceHit h = {};
+  if (is_hit)
+    surface_hit<kLit, kTextured, kColors>(p, sh_inst, sh_vol, sh_sizes, i,
+                                          o_w, d_w, n_obj, h);
+  // an [R,3] output in 16-byte stores where every lane of a whole warp
+  // writes it, else by the lanes that do
+  auto put3 = [&](float* dst, const float v[3], bool every, bool own) {
+    if (vec && every) warp_store3(stage, dst, w0, lane, v);
+    else if (own) store3(dst, i, v);
+  };
+  put3(p.albedo, h.albedo, all_hit, is_hit);
+  if (!kLit) return;
+  float so[3];
+  for (int c = 0; c < 3; ++c)
+    so[c] = is_hit ? h.so[c] : o_w[c] - d_w[c] * 0.1f;
+  put3(p.shadow_origin, so, spawns || all_hit, mine);
+  put3(p.n_w, h.n_w, all_hit, is_hit);
+  if (is_hit) {
+    p.roughness[i] = h.roughness;
+    p.metallic[i] = h.metallic;
+    p.k[i] = h.k;
+  }
+  if (p.bounce) {
+    float r[3];
+    if (is_hit) mirror(d_w, h.n_w, r);
+    else for (int c = 0; c < 3; ++c) r[c] = d_w[c];
+    put3(p.refl_dir, r, true, in);
+    if (in) p.gate[i] = is_hit && h.roughness < 0.3f ? 1 : 0;
+  }
+  if (p.shadows) {
+    if (in) p.shadow_tmax[i] = is_hit ? kDirShadowTmax : -INFINITY;
+    for (int j = 0; j < n_shadow; ++j) {
+      float sdir[3] = {d_w[0], d_w[1], d_w[2]};
+      const float tm = is_hit
+                           ? shadow_ray(sh_light, p.lights, j, h.so, sdir)
+                           : -INFINITY;
+      if (in) p.shadow_tmax[(1 + j) * p.rays + i] = tm;
+      put3(p.shadow_dir + 3 * j * p.rays, sdir, true, in);
+    }
+  }
+}
+
+template <bool kLit, bool kTextured, bool kColors, bool kVec>
+__global__ void __launch_bounds__(kFwdThreads, kSurfaceMinBlocks)
+    surface_resident_kernel(const SurfaceParams p) {
+  extern __shared__ float sh[];
+  __shared__ float4 stages[kFwdWarps][24];
+  __shared__ SurfaceFetch fetched[kFwdWarps][kFetchDepth];
+  __shared__ __align__(16) uint8_t flag_batches[kFwdWarps][2][kFlagRounds][32];
+  float* sh_inst = sh;
+  float* sh_vol = sh_inst + p.inst.count * kInstRow;
+  int* sh_sizes = reinterpret_cast<int*>(sh_vol + p.mat.count * kVolRow);
+  float* sh_light = reinterpret_cast<float*>(sh_sizes + 2 * p.tex_count);
+  stage_surface_tables(p, sh_inst, sh_vol, sh_sizes);
+  if (kLit && p.shadows) stage_lights(sh_light, p.lights);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* stage = reinterpret_cast<float*>(stages[warp]);
+  SurfaceFetch* buf = fetched[warp];
+  const bool spawns = kLit && (p.bounce || p.shadows);
+  const int n_shadow = p.lights.points + p.lights.spots;
+  const long long stride = static_cast<long long>(gridDim.x) * kFwdThreads;
+  long long base = static_cast<long long>(blockIdx.x) * kFwdThreads;
+
+  if (kVec && !spawns) {
+    // nothing to write on a miss lane, and no ray to fetch: the warp's
+    // flags of kFlagRounds of its rounds come in one 16-byte copy a lane
+    // (two lanes a round), the next batch's while this batch's rounds are
+    // shaded
+    uint8_t(*batches)[kFlagRounds][32] = flag_batches[warp];
+    flag_fetch(p, base, stride, warp, lane, batches[0]);
+    __pipeline_commit();
+    for (int round = 0; base < p.rays; base += stride, ++round) {
+      const int k = round % kFlagRounds;
+      const int batch = (round / kFlagRounds) & 1;
+      if (k == 0) {
+        __syncwarp();
+        flag_fetch(p, base + kFlagRounds * stride, stride, warp, lane,
+                   batches[batch ^ 1]);
+        __pipeline_commit();
+        __pipeline_wait_prior(1);
+        __syncwarp();
+      }
+      const long long w0 = base + 32 * warp;
+      const bool vec = w0 + 32 <= p.rays;
+      surface_round<kLit, kTextured, kColors>(
+          p, sh_inst, sh_vol, sh_sizes, sh_light, stage,
+          vec ? batches[batch][k] : nullptr, nullptr, w0, lane, vec, false,
+          n_shadow);
+    }
+    return;
+  }
+
+  for (int k = 0; k + 1 < kFetchDepth; ++k) {
+    if (kVec) surface_fetch(p, spawns, base + k * stride, lane, buf[k]);
+    __pipeline_commit();
+  }
+  for (int round = 0; base < p.rays; base += stride, ++round) {
+    // every lane is done with the buffer of the round before: fetch the
+    // round kFetchDepth - 1 ahead into it, then wait for this round's
+    // copies
+    __syncwarp();
+    if (kVec)
+      surface_fetch(p, spawns, base + (kFetchDepth - 1) * stride, lane,
+                    buf[(round + kFetchDepth - 1) % kFetchDepth]);
+    __pipeline_commit();
+    __pipeline_wait_prior(kFetchDepth - 1);
+    __syncwarp();
+    const long long w0 = base + 32 * warp;      // the warp's first ray
+    // the vector path takes whole warps; a last partial warp goes lane by
+    // lane
+    const bool vec = kVec && w0 + 32 <= p.rays;
+    const SurfaceFetch* f = vec ? &buf[round % kFetchDepth] : nullptr;
+    surface_round<kLit, kTextured, kColors>(
+        p, sh_inst, sh_vol, sh_sizes, sh_light, stage,
+        f != nullptr ? f->flags : nullptr, f, w0, lane, vec, spawns,
+        n_shadow);
   }
 }
 
@@ -650,6 +1038,84 @@ __device__ __forceinline__ void sample_env(const float* env, int e,
   }
 }
 
+// One lane's linear radiance (the redesign of the combine kernel; the first
+// design below keeps its own copy of the same lines, as it was measured):
+// the env on a miss lane, the attribute normal on an unlit-attribute lane,
+// the albedo unlit, else the mirror term and the lights from the record,
+// which only a hit lane reads.
+__device__ __forceinline__ void combine_rgb(const CombineParams& p,
+                                            const float* sh, long long i,
+                                            const float d_w[3], bool hit,
+                                            bool unlit, float rgb[3]) {
+  if (!hit) {
+    sample_env(p.env, p.env_side, d_w, rgb);
+  } else if (unlit) {
+    // unlit-attribute lanes show the raw (object-space) attribute normal
+    for (int c = 0; c < 3; ++c) rgb[c] = p.n_obj[3 * i + c];
+  } else if (!p.lit) {
+    for (int c = 0; c < 3; ++c) rgb[c] = p.albedo[3 * i + c];
+  } else {
+    float albedo[3], so[3], n_w[3], wo[3], add[3];
+    for (int c = 0; c < 3; ++c) {
+      albedo[c] = p.albedo[3 * i + c];
+      so[c] = p.shadow_origin[3 * i + c];
+      n_w[c] = p.n_w[3 * i + c];
+      wo[c] = -d_w[c];
+      rgb[c] = kShadowBrightness;
+    }
+    const float roughness = p.roughness[i], metallic = p.metallic[i];
+    const float k = p.k[i];
+
+    if (p.refl_rgb != nullptr) {
+      float li[3], wi[3];
+      const float fade = 1.0f - roughness * 2.2f;
+      for (int c = 0; c < 3; ++c) {
+        li[c] = nmax(p.refl_rgb[3 * i + c] * fade, 0.0f);
+        wi[c] = p.refl_dir[3 * i + c];
+      }
+      add_radiance(li, wi, wo, n_w, albedo, roughness, metallic, k, add);
+      for (int c = 0; c < 3; ++c)
+        rgb[c] = rgb[c] + (roughness < 0.3f ? add[c] : 0.0f);
+    }
+
+    {
+      const float li[3] = {sh[3], sh[3], sh[3]};
+      add_radiance(li, sh, wo, n_w, albedo, roughness, metallic, k, add);
+      const bool dark = p.blocked[0] != nullptr && p.blocked[0][i];
+      for (int c = 0; c < 3; ++c) rgb[c] = rgb[c] + (dark ? 0.0f : add[c]);
+    }
+
+    const int n_shadow = p.lights.points + p.lights.spots;
+    for (int j = 0; j < n_shadow; ++j) {
+      bool spot;
+      const float* row = light_row(sh, p.lights, j, spot);
+      float sdir[3], dist, inten, li[3];
+      light_at(row, spot, so, sdir, dist, inten);
+      const float* color = row + (spot ? 11 : 6);
+      for (int c = 0; c < 3; ++c) li[c] = color[c] * inten;
+      add_radiance(li, sdir, wo, n_w, albedo, roughness, metallic, k, add);
+      bool lit = inten > (spot ? 0.01f : 0.005f);
+      if (p.blocked[1 + j] != nullptr) lit = lit && !p.blocked[1 + j][i];
+      for (int c = 0; c < 3; ++c) rgb[c] = rgb[c] + (lit ? add[c] : 0.0f);
+    }
+  }
+}
+
+// renderer.py tonemap: Reinhard, gamma 1/2.2, then the UNORM conversion (NaN
+// and negative radiance to 0, clamp to [0, 1]); alpha 1 (the redesign's;
+// the first design writes the same lines inline).
+__device__ __forceinline__ float4 tonemap_px(const float rgb[3]) {
+  float px[3];
+  for (int c = 0; c < 3; ++c) {
+    const float v = rgb[c] / (rgb[c] + 1.0f);
+    px[c] = v > 0.0f ? fminf(powf(v, static_cast<float>(1.0 / 2.2)), 1.0f)
+                     : 0.0f;
+  }
+  return make_float4(px[0], px[1], px[2], 1.0f);
+}
+
+// The first design, kept as the comparator of the resident kernel below:
+// one thread a ray over the whole grid, every block staging the lights.
 __global__ void __launch_bounds__(kThreads) combine_kernel(
     const CombineParams p) {
   extern __shared__ float sh[];
@@ -735,6 +1201,56 @@ __global__ void __launch_bounds__(kThreads) combine_kernel(
   px[3] = 1.0f;
   *reinterpret_cast<float4*>(p.out + 4 * i) =
       make_float4(px[0], px[1], px[2], px[3]);
+}
+
+// The redesign: resident blocks; on the vector path a warp's hit and unlit
+// flags from one load of sixteen 4-byte words, its directions and linear
+// radiance in 16-byte words through its stage.  The frame's [R,4] pixels go
+// out one float4 a lane, as in the first design.
+template <bool kVec>
+__global__ void __launch_bounds__(kFwdThreads, kCombineMinBlocks)
+    combine_resident_kernel(const CombineParams p) {
+  extern __shared__ float sh[];
+  __shared__ float4 stages[kFwdWarps][24];
+  if (p.lit) stage_lights(sh, p.lights);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  float* stage = reinterpret_cast<float*>(stages[threadIdx.x >> 5]);
+  const long long stride = static_cast<long long>(gridDim.x) * kFwdThreads;
+  for (long long base = static_cast<long long>(blockIdx.x) * kFwdThreads;
+       base < p.rays; base += stride) {
+    const long long i = base + threadIdx.x;
+    const long long w0 = i - lane;
+    const bool in = i < p.rays;
+    float d_w[3], rgb[3];
+    if (kVec && w0 + 32 <= p.rays) {
+      // lanes 0-7 read the hit flags' words, lanes 8-15 the unlit flags'
+      const uint8_t* flags = (lane < 8 ? p.hit : p.unlit) + w0;
+      const uint32_t w =
+          lane < 16 ? reinterpret_cast<const uint32_t*>(flags)[lane & 7] : 0u;
+      const uint32_t hw = __shfl_sync(kFullWarp, w, lane >> 2);
+      const uint32_t uw = __shfl_sync(kFullWarp, w, 8 + (lane >> 2));
+      const bool hit =
+          kFwdHitPath && ((hw >> (8 * (lane & 3))) & 0xffu) != 0u;
+      const bool unlit = ((uw >> (8 * (lane & 3))) & 0xffu) != 0u;
+      warp_load3(stage, p.d_w, w0, lane, d_w);
+      combine_rgb(p, sh, i, d_w, hit, hit && unlit, rgb);
+      if (p.final)
+        reinterpret_cast<float4*>(p.out)[i] = tonemap_px(rgb);
+      else
+        warp_store3(stage, p.out, w0, lane, rgb);
+      continue;
+    }
+    if (!in) continue;
+    load3(p.d_w, i, d_w);
+    const bool hit = kFwdHitPath && p.hit[i];
+    combine_rgb(p, sh, i, d_w, hit, hit && p.unlit[i], rgb);
+    if (p.final)
+      reinterpret_cast<float4*>(p.out)[i] = tonemap_px(rgb);
+    else
+      for (int c = 0; c < 3; ++c) p.out[3 * i + c] = rgb[c];
+  }
 }
 
 // ---- backward ---------------------------------------------------------------
@@ -1046,15 +1562,6 @@ struct CombineBwdParams {
   float* g_refl_rgb;
 };
 
-__device__ __forceinline__ void store3(float* dst, long long i,
-                                       const float v[3]) {
-  if (dst != nullptr)
-    for (int c = 0; c < 3; ++c) dst[3 * i + c] = v[c];
-}
-
-__device__ __forceinline__ void store1(float* dst, long long i, float v) {
-  if (dst != nullptr) dst[i] = v;
-}
 
 __global__ void __launch_bounds__(kThreads) combine_bwd_kernel(
     const CombineBwdParams q) {
@@ -1178,10 +1685,6 @@ struct SurfaceBwdParams {
   float* g_colors;             // [V*cn^3, 24] f32, added into
 };
 
-__device__ __forceinline__ void load3(const float* src, long long i,
-                                      float v[3]) {
-  for (int c = 0; c < 3; ++c) v[c] = src != nullptr ? src[3 * i + c] : 0.0f;
-}
 
 // The reverse of sample_wrap: the cotangents of (u_, v_) for that of the
 // sample.
@@ -1360,41 +1863,6 @@ __device__ __forceinline__ void add_color_row(float* acc, long long row,
       red_add_v4(dst + e, grow[e], grow[e + 1], grow[e + 2], grow[e + 3]);
 }
 
-// The instance, volume and texture-size tables of the surface kernels'
-// backward into shared memory (rows of kInstRow and kVolRow words); the
-// caller synchronises.
-__device__ __forceinline__ void stage_surface_tables(const SurfaceParams& p,
-                                                     float* sh_inst,
-                                                     float* sh_vol,
-                                                     int* sh_sizes) {
-  for (int w = threadIdx.x; w < p.inst.count * kInstRow; w += blockDim.x) {
-    const int r = w / kInstRow, c = w % kInstRow;
-    float v = 0.0f;
-    if (c < 3) v = p.inst.pos[3 * r + c];
-    else if (c < 7) v = p.inst.rot[4 * r + (c - 3)];
-    else if (c < 10) v = p.inst.scale[3 * r + (c - 7)];
-    else if (c == 10) v = __int_as_float(p.inst.volume[r]);
-    sh_inst[w] = v;
-  }
-  for (int w = threadIdx.x; w < p.mat.count * kVolRow; w += blockDim.x) {
-    const int r = w / kVolRow, c = w % kVolRow;
-    float v = 0.0f;
-    if (c == 0) v = __int_as_float(p.mat.n[r]);
-    else if (c == 1) v = p.mat.cell_size[r];
-    else if (c == 2) v = p.mat.extends[r];
-    else if (c < 6) v = p.mat.tint[4 * r + (c - 3)];
-    else if (c == 6) v = p.mat.roughness[r];
-    else if (c == 7) v = p.mat.metallic[r];
-    else if (c == 8) v = p.mat.k[r];
-    else if (c < 11) v = p.mat.tex_scale[2 * r + (c - 9)];
-    else if (c == 11) v = __int_as_float(p.mat.albedo_tex[r]);
-    else if (c == 12) v = __int_as_float(p.mat.normal_tex[r]);
-    else if (c == 13) v = __int_as_float(p.mat.rm_tex[r]);
-    sh_vol[w] = v;
-  }
-  for (int w = threadIdx.x; w < 2 * p.tex_count; w += blockDim.x)
-    sh_sizes[w] = p.tex_sizes[w];
-}
 
 // The surface backward of hit lane i: adds the cotangents of its ray, t
 // and n_obj into g_o, g_d, g_t, g_n and, with per-voxel colours, returns its
@@ -1606,7 +2074,6 @@ __global__ void __launch_bounds__(kThreads) surface_bwd_kernel(
   store3(q.g_n_obj, i, g_n);
 }
 
-constexpr unsigned kFullWarp = 0xffffffffu;
 
 // Sums v over the lanes of the warp that hold the same key (a segmented tree
 // reduction: log2 of the largest group's size rounds of 24 shuffles), into
@@ -1780,46 +2247,109 @@ struct Grid {
   long long blocks;
 };
 
-// The merged surface backward's grid: the SMs times the blocks of the
-// variant that an SM holds at once by their threads and registers (a
-// block's staged tables, at most 48 KiB, leave room for 4).  Found once a
-// variant, on the card of its first launch: the grid only sizes the stride
-// loop, and any grid gives the same result.
+// The SMs times the blocks of `kernel` (blocks of `threads`) that an SM holds
+// at once by their threads, registers and static shared memory (a block's
+// staged tables, at most 48 KiB, leave room for 4): the grid of a kernel
+// whose resident blocks stride over the rays.  Each caller keeps it per
+// variant, found on the card of its first launch: the grid only sizes the
+// stride loop, and any grid gives the same result.
+Grid resident_grid(const void* kernel, int threads) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, 0);
+  return Grid{e, static_cast<long long>(max(per_sm, 1)) * sms};
+}
+
 template <bool kLit, bool kTextured, bool kColors>
 Grid merged_grid() {
-  static const Grid grid = [] {
-    int device = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&device);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, surface_bwd_merged_kernel<kLit, kTextured, kColors>,
-          kThreads, 0);
-    return Grid{e, static_cast<long long>(max(per_sm, 1)) * sms};
-  }();
+  static const Grid grid = resident_grid(
+      reinterpret_cast<const void*>(
+          surface_bwd_merged_kernel<kLit, kTextured, kColors>),
+      kThreads);
   return grid;
+}
+
+// One launch of a forward kernel's redesign over `rays`: its grid, or its
+// error.  With kFwdResident false (a probe's build) one thread a ray.
+template <typename Kernel, typename Params>
+cudaError_t launch_resident(Kernel kernel, const Grid& g, const Params& p,
+                            size_t shared, cudaStream_t s) {
+  if (g.err != cudaSuccess) return g.err;
+  const long long blocks = (p.rays + kFwdThreads - 1) / kFwdThreads;
+  kernel<<<static_cast<unsigned>(kFwdResident ? std::min(blocks, g.blocks)
+                                              : blocks),
+           kFwdThreads, shared, s>>>(p);
+  return cudaSuccess;
+}
+
+template <bool kLit, bool kTextured, bool kColors, bool kVec>
+cudaError_t surface_resident(const SurfaceParams& p, size_t shared,
+                             cudaStream_t s) {
+  static const Grid grid = resident_grid(
+      reinterpret_cast<const void*>(
+          surface_resident_kernel<kLit, kTextured, kColors, kVec>),
+      kFwdThreads);
+  return launch_resident(surface_resident_kernel<kLit, kTextured, kColors,
+                                                 kVec>,
+                         grid, p, shared, s);
+}
+
+template <bool kVec>
+cudaError_t combine_resident(const CombineParams& p, size_t shared,
+                             cudaStream_t s) {
+  static const Grid grid = resident_grid(
+      reinterpret_cast<const void*>(combine_resident_kernel<kVec>),
+      kFwdThreads);
+  return launch_resident(combine_resident_kernel<kVec>, grid, p, shared, s);
+}
+
+// A surface launch of either design: 0 the first (one thread a ray over the
+// whole grid), 1 the redesign on the scalar path, 2 on the vector path.
+template <bool kLit, bool kTextured, bool kColors>
+cudaError_t surface_launch(const SurfaceParams& p, int design, size_t shared,
+                           cudaStream_t s) {
+  if (design == 0) {
+    surface_kernel<kLit, kTextured, kColors>
+        <<<static_cast<unsigned>((p.rays + kThreads - 1) / kThreads),
+           kThreads, shared, s>>>(p);
+    return cudaSuccess;
+  }
+  return design == 2
+             ? surface_resident<kLit, kTextured, kColors, true>(p, shared, s)
+             : surface_resident<kLit, kTextured, kColors, false>(p, shared,
+                                                                 s);
+}
+
+bool aligned16(const void* x) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0;
 }
 
 }  // namespace
 
-// The surface kernel, one thread per ray.  ptrs (host array of device
-// pointers): o_w, d_w, t, n_obj, hit, cell, inst; inst_volume, inst_pos,
-// inst_rot, inst_scale; n, cell_size, extends, tint, roughness, metallic, k,
-// tex_scale, albedo_tex, normal_tex, rm_tex; textures, tex_sizes, colors; the
-// 15 light pointers in the order of Lights; then the outputs albedo,
-// shadow_origin, n_w, roughness, metallic, k, refl_dir, gate, shadow_tmax,
-// shadow_dir.  ints: instances, volumes, textures, texture height and width,
-// colour cells a side, colours bf16, lit, textured, per-voxel colours, bounce,
-// shadows, point lights, spot lights.  Returns cudaGetLastError().
+// The surface kernel.  ptrs (host array of device pointers): o_w, d_w, t,
+// n_obj, hit, cell, inst; inst_volume, inst_pos, inst_rot, inst_scale; n,
+// cell_size, extends, tint, roughness, metallic, k, tex_scale, albedo_tex,
+// normal_tex, rm_tex; textures, tex_sizes, colors; the 15 light pointers in
+// the order of Lights; then the outputs albedo, shadow_origin, n_w,
+// roughness, metallic, k, refl_dir, gate, shadow_tmax, shadow_dir.  ints:
+// instances, volumes, textures, texture height and width, colour cells a
+// side, colours bf16, lit, textured, per-voxel colours, bounce, shadows,
+// point lights, spot lights, then the design (0: the first, one thread a ray
+// over the whole grid; 1: the redesign, resident blocks, lane by lane; 2:
+// the redesign on the vector path, which takes o_w, d_w, n_obj, hit, albedo,
+// shadow_origin, n_w, refl_dir and every shadow direction row on 16-byte
+// boundaries).  Returns cudaGetLastError().
 extern "C" int vrt_shade_surface(const void* const* ptrs, const int* ints,
                                  long long rays, void* stream) {
   const int n_inst = ints[0], n_vol = ints[1], n_tex = ints[2];
   const bool lit = ints[7], textured = ints[8], colors = ints[9];
-  const int points = ints[12], spots = ints[13];
+  const int points = ints[12], spots = ints[13], design = ints[14];
   if (n_inst < 1 || n_vol < 1 || points < 0 || points > kMaxLights ||
-      spots < 0 || spots > kMaxLights)
+      spots < 0 || spots > kMaxLights || design < 0 || design > 2)
     return cudaErrorInvalidValue;
   SurfaceParams p;
   surface_inputs(ptrs, ints, rays, p);
@@ -1835,56 +2365,81 @@ extern "C" int vrt_shade_surface(const void* const* ptrs, const int* ints,
   p.gate = const_cast<uint8_t*>(at<uint8_t>(ptrs, out + 7));
   p.shadow_tmax = const_cast<float*>(at<float>(ptrs, out + 8));
   p.shadow_dir = const_cast<float*>(at<float>(ptrs, out + 9));
+  if (design == 2) {
+    for (const void* x : {static_cast<const void*>(p.o_w),
+                          static_cast<const void*>(p.d_w),
+                          static_cast<const void*>(p.n_obj),
+                          static_cast<const void*>(p.hit),
+                          static_cast<const void*>(p.albedo),
+                          static_cast<const void*>(p.shadow_origin),
+                          static_cast<const void*>(p.n_w),
+                          static_cast<const void*>(p.refl_dir)})
+      if (!aligned16(x)) return cudaErrorInvalidValue;
+    if (p.shadow_dir != nullptr)
+      for (int j = 0; j < points + spots; ++j)
+        if (!aligned16(p.shadow_dir + 3 * j * rays))
+          return cudaErrorInvalidValue;
+  }
 
   const size_t shared =
       4 * (static_cast<size_t>(n_inst) * kInstRow + n_vol * kVolRow +
            2 * n_tex + 4 + points * kPointRow + spots * kSpotRow);
   if (shared > kMaxSharedBytes) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = static_cast<unsigned>((rays + kThreads - 1) / kThreads);
-#define VRT_SURFACE(L, T, C) \
-  surface_kernel<L, T, C><<<grid, kThreads, shared, s>>>(p)
+  cudaError_t err;
   if (lit) {
     if (textured) {
-      if (colors) VRT_SURFACE(true, true, true);
-      else VRT_SURFACE(true, true, false);
+      if (colors) err = surface_launch<true, true, true>(p, design, shared, s);
+      else err = surface_launch<true, true, false>(p, design, shared, s);
     } else {
-      if (colors) VRT_SURFACE(true, false, true);
-      else VRT_SURFACE(true, false, false);
+      if (colors) err = surface_launch<true, false, true>(p, design, shared, s);
+      else err = surface_launch<true, false, false>(p, design, shared, s);
     }
   } else {
     if (textured) {
-      if (colors) VRT_SURFACE(false, true, true);
-      else VRT_SURFACE(false, true, false);
+      if (colors) err = surface_launch<false, true, true>(p, design, shared, s);
+      else err = surface_launch<false, true, false>(p, design, shared, s);
     } else {
-      if (colors) VRT_SURFACE(false, false, true);
-      else VRT_SURFACE(false, false, false);
+      if (colors) err = surface_launch<false, false, true>(p, design, shared, s);
+      else err = surface_launch<false, false, false>(p, design, shared, s);
     }
   }
-#undef VRT_SURFACE
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// The combine kernel, one thread per ray.  ptrs: d_w, n_obj, hit, unlit;
-// albedo, shadow_origin, n_w, roughness, metallic, k, refl_dir, refl_rgb; 11
-// blocked pointers (the directional light's, the point lights', the spot
-// lights'; null where no shadow was traced); the 15 light pointers in the
-// order of Lights; env; out.  ints: lit, final, point lights, spot lights, env
-// cube side.  Returns cudaGetLastError().
+// The combine kernel.  ptrs: d_w, n_obj, hit, unlit; albedo, shadow_origin,
+// n_w, roughness, metallic, k, refl_dir, refl_rgb; 11 blocked pointers (the
+// directional light's, the point lights', the spot lights'; null where no
+// shadow was traced); the 15 light pointers in the order of Lights; env;
+// out.  ints: lit, final, point lights, spot lights, env cube side, then the
+// design as vrt_shade_surface takes it (the vector path takes d_w, hit,
+// unlit and out on 16-byte boundaries).  Returns cudaGetLastError().
 extern "C" int vrt_shade_combine(const void* const* ptrs, const int* ints,
                                  long long rays, void* stream) {
-  const int points = ints[2], spots = ints[3];
+  const int points = ints[2], spots = ints[3], design = ints[5];
   if (points < 0 || points > kMaxLights || spots < 0 || spots > kMaxLights ||
-      ints[4] < 1)
+      ints[4] < 1 || design < 0 || design > 2)
     return cudaErrorInvalidValue;
   CombineParams p;
   combine_inputs(ptrs, ints, rays, p);
   p.out = const_cast<float*>(at<float>(ptrs, 13 + kMaxBlocked + kLightPtrs));
+  if (design == 2)
+    for (const void* x : {static_cast<const void*>(p.d_w),
+                          static_cast<const void*>(p.hit),
+                          static_cast<const void*>(p.unlit),
+                          static_cast<const void*>(p.out)})
+      if (!aligned16(x)) return cudaErrorInvalidValue;
   const size_t shared = 4 * (4 + points * kPointRow + spots * kSpotRow);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = static_cast<unsigned>((rays + kThreads - 1) / kThreads);
-  combine_kernel<<<grid, kThreads, shared, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaSuccess;
+  if (design == 0)
+    combine_kernel<<<static_cast<unsigned>((rays + kThreads - 1) / kThreads),
+                     kThreads, shared, s>>>(p);
+  else if (design == 2)
+    err = combine_resident<true>(p, shared, s);
+  else
+    err = combine_resident<false>(p, shared, s);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // The surface kernel's backward.  ptrs: the surface kernel's first 25

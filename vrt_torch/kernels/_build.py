@@ -60,7 +60,8 @@ def build(source: str, extra_flags=(), headers=()
 
 def ptxas_usage(log: str, kernel: str):
     """What ptxas printed in a ``build`` log for the template variants of
-    ``kernel`` (its name as written in the source): dict(variants,
+    ``kernel`` (its name as written in the source; a kernel that is no
+    template has one variant): dict(variants,
     registers, stack_bytes, spill_bytes, each [smallest, largest] over the
     variants), or None where the log holds none (a library built before)."""
     import re
@@ -81,7 +82,9 @@ def ptxas_usage(log: str, kernel: str):
         m = re.search(r"Used (\d+) registers", line)
         if m and cur is not None:
             funcs[cur]["regs"] = int(m.group(1))
-    pat = re.compile(rf"\d+{kernel}I")
+    # the mangled name: its length, the name, then the template arguments
+    # (I) or the end of the nested name (E)
+    pat = re.compile(rf"\d+{kernel}[IE]")
     got = [f for name, f in funcs.items() if pat.search(name) and "regs" in f]
     if not got:
         return None

@@ -12,11 +12,19 @@
         -> cotangents of the record's floats, d_w, n_obj and refl_rgb
     ShadeSurface.apply / ShadeCombine.apply: the two stages, differentiable
 
-The two stages of one radiance level, one thread a ray: the surface kernel
-runs between the level's resolve and the traces the level spawns (its shadow
-rays, its mirror bounce) and writes the rays those traces take; the combine
-kernel runs after them and, for the primary rays (``final``), tonemaps into
-an [R,4] frame with alpha 1.  Their plain versions are
+The two stages of one radiance level: the surface kernel runs between the
+level's resolve and the traces the level spawns (its shadow rays, its mirror
+bounce) and writes the rays those traces take; the combine kernel runs after
+them and, for the primary rays (``final``), tonemaps into an [R,4] frame
+with alpha 1.  Both forward kernels are their redesign (resident blocks
+striding over the rays, a warp's flags and [32,3] spans in 16-byte words,
+the surface's fetched into shared memory a round ahead, a surface warp
+without a hit writing only its traces' rays); each launch takes the vector
+path or the scalar path of the same kernel as ``shade_path`` says from the
+tensors' addresses.  The private
+``_old_design`` launches the first design (one thread a ray over the whole
+grid), the comparator of the timing runs; every lane it writes is
+bit-equal to the redesign's.  Their plain versions are
 ``vrt_torch.render.renderer.shade_surface_reference`` and
 ``shade_combine_reference``, which take the same arguments;
 ``renderer.shade_stages`` picks among the pairs.  The forward kernels
@@ -45,7 +53,8 @@ in their own order, and the colour table's cotangents are added with f32
 atomics in an order that changes from run to run.  Both write exact zeros
 into every cotangent of a miss lane, whatever its record holds.
 
-``LAUNCHES`` counts the launches of each kernel.
+``LAUNCHES`` counts the launches of each kernel, ``PATH_LAUNCHES`` the
+forward redesign's launches again by path.
 """
 
 from __future__ import annotations
@@ -64,6 +73,9 @@ from vrt_torch.render.gpuscene import (MAX_POINT_LIGHTS, MAX_SPOT_LIGHTS,
                                        RenderMode)
 
 LAUNCHES = {"surface": 0, "combine": 0, "surface_bwd": 0, "combine_bwd": 0}
+# the forward redesign's launches again, by the path ``shade_path`` named
+PATH_LAUNCHES = {"surface v4": 0, "surface scalar": 0, "combine v4": 0,
+                 "combine scalar": 0}
 
 NVCC_FLAGS = ["--fmad=false"]
 
@@ -90,7 +102,7 @@ def _check(x, name, dtype, shape, device):
     _check_tensor(x, name, dtype, shape, device, who="shade")
 
 
-def _launch(fn, name, ptrs, ints, rays, dev):
+def _launch(fn, name, ptrs, ints, rays, dev, path=None):
     build()
     ptr_array = (ctypes.c_void_p * len(ptrs))(*ptrs)
     int_array = (ctypes.c_int * len(ints))(*(int(v) for v in ints))
@@ -98,6 +110,68 @@ def _launch(fn, name, ptrs, ints, rays, dev):
     if err != 0:
         raise RuntimeError(f"shade {name} launch failed: cudaError {err}")
     LAUNCHES[name] += 1
+    if path is not None:
+        PATH_LAUNCHES[f"{name} {path}"] += 1
+
+
+def shade_path(tensors) -> str:
+    """The forward redesign's path for a launch that moves ``tensors`` (the
+    arrays it reads or writes in 16-byte words; None for absent ones):
+    "v4" where every one starts on a 16-byte boundary, else "scalar" (the
+    same kernel, every lane on its own 4-byte words).  Row j of the
+    stacked shadow directions starts 12 j R bytes in: off a boundary from
+    j = 1 where R is not a multiple of 4."""
+    aligned = all(x.data_ptr() % 16 == 0 for x in tensors if x is not None)
+    return "v4" if aligned else "scalar"
+
+
+def _design(old_design: bool, path: str) -> int:
+    """The design int of ``vrt_shade_surface`` / ``vrt_shade_combine``."""
+    return 0 if old_design else (2 if path == "v4" else 1)
+
+
+def _empty(shape, dtype, dev):
+    """An output of the forward kernels (a seam for the tests that check
+    which lanes a kernel leaves unwritten)."""
+    return torch.empty(shape, dtype=dtype, device=dev)
+
+
+def _surface_record(rays, dev, lit, bounce, shadows, n_shadow):
+    """The surface kernel's outputs for ``rays`` rays: (the record, its
+    stacked shadow t_max [1+L,R] and directions [L,R,3], or None without
+    shadows).  The record's shadow tuples are the rows of the two, as
+    ``SurfaceRecord.pack`` hands them on."""
+    f32 = torch.float32
+
+    def empty(*shape, dtype=f32):
+        return _empty(shape, dtype, dev)
+
+    rec = SurfaceRecord(albedo=empty(rays, 3))
+    tmax = sdir = None
+    if lit:
+        rec.shadow_origin, rec.n_w = empty(rays, 3), empty(rays, 3)
+        rec.roughness, rec.metallic, rec.k = (empty(rays), empty(rays),
+                                              empty(rays))
+    if bounce:
+        rec.refl_dir, rec.gate = empty(rays, 3), empty(rays,
+                                                       dtype=torch.bool)
+    if shadows:
+        tmax, sdir = empty(1 + n_shadow, rays), empty(n_shadow, rays, 3)
+        rec.shadow_tmax = tuple(tmax[j] for j in range(1 + n_shadow))
+        rec.shadow_dir = tuple(sdir[j] for j in range(n_shadow))
+    return rec, tmax, sdir
+
+
+def surface_vectors(o_w, d_w, n_obj, hit_mask, rec: SurfaceRecord):
+    """What the surface kernel moves in 16-byte words on the vector path:
+    ``shade_path``'s tensors of a surface launch."""
+    return [o_w, d_w, n_obj, hit_mask, rec.albedo, rec.shadow_origin,
+            rec.n_w, rec.refl_dir, *(rec.shadow_dir or ())]
+
+
+def combine_vectors(d_w, hit_mask, unlit_attr, out):
+    """What the combine kernel moves in 16-byte words on the vector path."""
+    return [d_w, hit_mask, unlit_attr, out]
 
 
 def _light_ptrs(scene, dev):
@@ -192,46 +266,34 @@ def _surface_args(scene, o_w, d_w, t, n_obj, hit: MarchHit, inst,
 
 
 def shade_surface_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit, inst,
-                       mode: RenderMode, bounce: bool,
-                       shadows: bool) -> SurfaceRecord:
+                       mode: RenderMode, bounce: bool, shadows: bool,
+                       _old_design: bool = False) -> SurfaceRecord:
     """Launch the surface kernel on ``torch.cuda.current_stream()`` for the
     hits ``(hit, inst)`` of a march and the ``(t, n_obj)`` of their resolve
     on world rays ``o_w``, ``d_w``; reads ``hit.hit`` and, with per-voxel
     colours, ``hit.cell``.  ``bounce`` adds the mirror ray and its gate,
     ``shadows`` the level's shadow rays (both lit mode only).  Records no
-    autograd graph (``ShadeSurface`` adds it).  Raises on any input the
-    kernel does not take; never falls back."""
+    autograd graph (``ShadeSurface`` adds it).  The kernel is the redesign
+    on the path ``shade_path`` names; the private ``_old_design`` launches
+    the first design, the comparator of the timing runs.  Raises on any
+    input the kernel does not take; never falls back."""
     dev, rays, _, ptrs, ints = _surface_args(
         scene, o_w, d_w, t, n_obj, hit, inst, mode, bounce, shadows,
         "surface kernel")
     lit, bounce, shadows = ints[7], ints[10], ints[11]
-    f32 = torch.float32
     lights = _light_ptrs(scene, dev)
-    n_shadow = scene.num_point + scene.num_spot
-
-    def empty(*shape, dtype=f32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    rec = SurfaceRecord(albedo=empty(rays, 3))
-    tmax = sdir = None
-    if lit:
-        rec.shadow_origin, rec.n_w = empty(rays, 3), empty(rays, 3)
-        rec.roughness, rec.metallic, rec.k = (empty(rays), empty(rays),
-                                              empty(rays))
-    if bounce:
-        rec.refl_dir, rec.gate = empty(rays, 3), empty(rays,
-                                                       dtype=torch.bool)
-    if shadows:
-        tmax, sdir = empty(1 + n_shadow, rays), empty(n_shadow, rays, 3)
-        rec.shadow_tmax = tuple(tmax[j] for j in range(1 + n_shadow))
-        rec.shadow_dir = tuple(sdir[j] for j in range(n_shadow))
+    rec, tmax, sdir = _surface_record(rays, dev, lit, bounce, shadows,
+                                      scene.num_point + scene.num_spot)
     if rays == 0:
         return rec
     ptrs += [*lights, rec.albedo.data_ptr(), _ptr(rec.shadow_origin),
              _ptr(rec.n_w), _ptr(rec.roughness), _ptr(rec.metallic),
              _ptr(rec.k), _ptr(rec.refl_dir), _ptr(rec.gate), _ptr(tmax),
              _ptr(sdir)]
-    _launch("vrt_shade_surface", "surface", ptrs, ints, rays, dev)
+    path = shade_path(surface_vectors(o_w, d_w, n_obj, hit.hit, rec))
+    _launch("vrt_shade_surface", "surface", ptrs,
+            ints + [_design(_old_design, path)], rays, dev,
+            None if _old_design else path)
     return rec
 
 
@@ -344,24 +406,27 @@ def _combine_args(scene, rec: SurfaceRecord, d_w, n_obj, hit_mask,
 
 def shade_combine_cuda(scene, rec: SurfaceRecord, d_w, n_obj, hit_mask,
                        unlit_attr, refl_rgb, blocked, mode: RenderMode,
-                       final: bool = False):
+                       final: bool = False, _old_design: bool = False):
     """Launch the combine kernel on ``torch.cuda.current_stream()``: the
     level's radiance from its surface record ``rec``, the bounce's radiance
     ``refl_rgb`` [R,3] (None without a bounce) and ``blocked``, one bool
     [R] per light from the shadow traces (the directional light's first;
     None where no shadow is traced).  Returns linear rgb [R,3], or with
     ``final`` the tonemapped [R,4] frame with alpha 1.  Records no autograd
-    graph (``ShadeCombine`` adds it).  Raises on any input the kernel does
-    not take; never falls back."""
+    graph (``ShadeCombine`` adds it).  The kernel is the redesign on the
+    path ``shade_path`` names; the private ``_old_design`` launches the first
+    design.  Raises on any input the kernel does not take; never falls
+    back."""
     dev, rays, ptrs, ints = _combine_args(
         scene, rec, d_w, n_obj, hit_mask, unlit_attr, refl_rgb, blocked,
         mode, final, "combine kernel")
-    out = torch.empty((rays, 4 if final else 3), dtype=torch.float32,
-                      device=dev)
+    out = _empty((rays, 4 if final else 3), torch.float32, dev)
     if rays == 0:
         return out
-    _launch("vrt_shade_combine", "combine", ptrs + [out.data_ptr()], ints,
-            rays, dev)
+    path = shade_path(combine_vectors(d_w, hit_mask, unlit_attr, out))
+    _launch("vrt_shade_combine", "combine", ptrs + [out.data_ptr()],
+            ints + [_design(_old_design, path)], rays, dev,
+            None if _old_design else path)
     return out
 
 
