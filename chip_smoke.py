@@ -12,9 +12,9 @@ Phases, each of which raises on failure:
              ``vrt_torch/csrc/``, one nvcc each, all in parallel, and prints
              ptxas' register and spill lines, and for the redesigned
              kernels (the capped scene march, the merged surface backward,
-             the resident surface and combine kernels) and their first
-             designs the registers, stack frames, spills and the warp slots
-             the registers leave filled,
+             the resident surface and combine kernels, the merged resolve
+             backward) and their first designs the registers, stack
+             frames, spills and the warp slots the registers leave filled,
 3. kernels -- every kernel against its plain version on the inputs the
              flagship scene (resolution 7, chebyshev, bf16) and config6 give
              it, both timed, with the least time the card could take for the
@@ -53,7 +53,10 @@ Phases, each of which raises on failure:
              step against ``resolve_scene_backward_reference`` on the same
              saved inputs and cotangents (ray gradients within 1e-5 * max|g|,
              the table's within 1e-5 * max|sum| of the closed form summed in
-             float64);
+             float64), and against its first design on the same inputs (ray
+             gradients bit-equal, its table held as the redesign's, the two
+             timed old, new, new, old, with the row reductions each issues
+             as counted on the host and the bound's share);
              the shade kernels of that fit step (through the Functions
              ``ShadeSurface`` / ``ShadeCombine``): its 3 + 3 forward launches
              as the frames' above, and its 3 + 3 backward launches against
@@ -101,7 +104,8 @@ Phases, each of which raises on failure:
              case once through its kernel on every load path, with the
              launches counted, then each output against its plain version
              (equal, or the run fails), both timed, with the library call
-             and the bound,
+             and the bound; GP-C also against its first design (the tensor
+             cores: the same bits), the two timed old, new, new, old,
 8. fit     -- config6 of ``vrt/apps/bench.py``: the 1920x1080 fit step of
              the flagship at resolution 6 with per-voxel colours, SDF and
              colours optimized by Adam (lr 1e-2) towards zero targets; one
@@ -111,8 +115,9 @@ Phases, each of which raises on failure:
              K1), peak device memory and the losses; the step with resolve on
              the plain path over K3, the step with eager shading (the plain
              stages under autograd) and the step on the first designs of the
-             scene march, the shade forward pair and the surface backward
-             (launches and paths asserted), each against the default
+             scene march, the shade forward pair, the surface backward and
+             the resolve backward (launches and paths asserted), each
+             against the default
              path (old, new, new, old, medians of 3), with the device ops
              (launch calls; the default step's held to ``FIT_STEP_OPS`` on
              one profile) and device records, busy time and
@@ -463,27 +468,32 @@ def _nan_equal(a, b):
 
 @contextlib.contextmanager
 def _old_designs():
-    """The scene march, the shade forward pair and the shade surface
-    backward on their first designs (the comparators of the redesigned
-    kernels), through the wrappers' private ``_old_design``; everything
-    else as it is."""
+    """The scene march, the shade forward pair, the shade surface backward
+    and the fused resolve's backward on their first designs (the
+    comparators of the redesigned kernels), through the wrappers' private
+    ``_old_design``; everything else as it is."""
     import functools
 
     from vrt_torch.kernels import march as k1
+    from vrt_torch.kernels import resolve as kr
     from vrt_torch.kernels import shade as k4
 
     saved = (k1.march_scene_cuda, k4.shade_surface_cuda,
-             k4.shade_combine_cuda, k4.shade_surface_backward_cuda)
+             k4.shade_combine_cuda, k4.shade_surface_backward_cuda,
+             kr.resolve_scene_backward_cuda)
     k1.march_scene_cuda = functools.partial(saved[0], _old_design=True)
     k4.shade_surface_cuda = functools.partial(saved[1], _old_design=True)
     k4.shade_combine_cuda = functools.partial(saved[2], _old_design=True)
     k4.shade_surface_backward_cuda = functools.partial(saved[3],
                                                        _old_design=True)
+    kr.resolve_scene_backward_cuda = functools.partial(saved[4],
+                                                       _old_design=True)
     try:
         yield
     finally:
         (k1.march_scene_cuda, k4.shade_surface_cuda, k4.shade_combine_cuda,
-         k4.shade_surface_backward_cuda) = saved
+         k4.shade_surface_backward_cuda, kr.resolve_scene_backward_cuda) = \
+            saved
 
 
 @contextlib.contextmanager
@@ -810,6 +820,51 @@ def _resolve_bwd_bound(scene, hit, inst, rays_grad, table_grad):
     return _bound(nbytes, n_surf * RESOLVE_BWD_FLOPS)
 
 
+def _resolve_bwd_reductions(scene, o_w, d_w, hit, inst, g_t, g_n):
+    """The row reductions a backward launch issues, from the closed form's
+    row cotangents (``resolve_hits_backward``) and the warp layout (32 rays
+    a warp in launch order): dict(scalar (the first design: one atomic a
+    non-zero channel of an in-range row), merged (the redesign: one 16-byte
+    reduction a half-row with a non-zero channel, once per warp and hit
+    cell, at most: a sum that cancels to 0 is skipped), groups (the warp and
+    hit-cell groups with a surface lane))."""
+    import torch
+
+    from vrt_torch.march import isosurface as iso
+    from vrt_torch.march.resolve import _OFFS7, resolve_hits_backward
+    from vrt_torch.render.renderer import (_per_ray_instance,
+                                           _world_to_object,
+                                           gather_rows_reference)
+
+    pr = _per_ray_instance(scene, inst)
+    o, d = _world_to_object(pr["pos"], pr["rot"], pr["scale"], o_w, d_w)
+    corners = scene.volumes.corners
+    cc, ch = corners.shape[1], corners.shape[-1]
+    offs = torch.as_tensor(_OFFS7, device=o_w.device)
+    idx = iso.stacked_corner_index(hit.cell[:, None, :] + offs, pr["n"],
+                                   pr["vol"], cc)
+    rows7 = gather_rows_reference(corners.reshape(-1, ch), idx.reshape(-1),
+                                  8).reshape(-1, 7, 8)
+    _, _, g_rows7 = resolve_hits_backward(rows7, pr["cell_size"],
+                                          pr["extends"], o, d, hit, g_t, g_n)
+    del rows7
+    rays = g_rows7.shape[0]
+    valid = idx.long() >= 0
+    nz = g_rows7 != 0
+    del g_rows7
+    scalar = int((nz & valid[..., None]).sum())
+    half = nz.reshape(rays, 7, 2, 4).any(-1) & valid[..., None]
+    ray = torch.arange(rays, device=idx.device)
+    key = torch.where(valid[:, 0], idx[:, 0].long(), -1 - ray)
+    lane, r, q = half.nonzero().unbind(1)
+    merged = torch.unique(torch.stack([lane // 32, key[lane], r, q]),
+                          dim=1).shape[1]
+    surf = hit.kind == 1
+    groups = torch.unique(torch.stack([ray[surf] // 32, key[surf]]),
+                          dim=1).shape[1]
+    return dict(scalar=scalar, merged=merged, groups=groups)
+
+
 def _resolve_bwd_calls(run, expected, tag):
     """Every launch of the fused resolve's backward in ``run()`` (a fit
     step), kept with its saved inputs, its cotangents and the output ``run``
@@ -818,8 +873,14 @@ def _resolve_bwd_calls(run, expected, tag):
     inputs: the ray gradients (where the launch was asked for them: the
     primary rays of a fixed camera need none) within ``RAY_GRAD_RTOL * max|g|``, the table's
     within ``SCATTER_RTOL * max|sum|`` of the closed form summed in float64,
-    all finite.  Both timed.  Returns dict(launches, max_abs_err (of the
-    table), ray_err, ms, plain_ms (lists), bound)."""
+    all finite.  Both timed.  The first design (``_old_design``) runs on the
+    same inputs: its ray gradients must equal the redesign's bit for bit,
+    its table is held as the redesign's, and the two are timed in the order
+    old, new, new, old, and printed with the row reductions each would
+    issue (``_resolve_bwd_reductions``, a count on the host, not read from
+    the kernels).  Returns dict(launches, max_abs_err (of the table),
+    ray_err, ms, plain_ms, old_ms, table_diff (the largest difference
+    between the two designs' tables), bound)."""
     import torch
 
     from vrt_torch.kernels import resolve as kr
@@ -834,12 +895,19 @@ def _resolve_bwd_calls(run, expected, tag):
                              f"backward {len(calls)} times, expected "
                              f"{expected}")
     err, ray_err, ms, plain_ms, bounds = 0.0, 0.0, [], [], []
+    old_ms, table_diff = [], []
     for i, (args, kwargs, got) in enumerate(calls):
         scene, o_w, d_w, hit, inst, g_t, g_n = args[:7]
         rays_grad, table_grad = args[7:] + tuple(kwargs.values())
         if not table_grad or (got[0] is None) == rays_grad:
             raise AssertionError(f"{tag} backward {i}: outputs do not "
                                  f"follow ({rays_grad}, {table_grad})")
+        old = kr.resolve_scene_backward_cuda(*args, **kwargs,
+                                             _old_design=True)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got[:2], old[:2]) if a is not None):
+            raise AssertionError(f"{tag} backward {i}: the ray gradients "
+                                 f"differ from the first design's")
         want = resolve_scene_backward_reference(*args[:7],
                                                 acc_dtype=torch.float64)
         rel = [0.0]
@@ -855,21 +923,31 @@ def _resolve_bwd_calls(run, expected, tag):
                                      f"{e:.3e} > {RAY_GRAD_RTOL} * "
                                      f"{scale:.3e}")
         scale = want[2].abs().max().item()
-        e = (got[2].double() - want[2]).abs().max().item()
-        if not (bool(torch.isfinite(got[2]).all())
-                and e <= SCATTER_RTOL * scale and scale > 0):
-            raise AssertionError(f"{tag} backward {i}: the table gradient is "
-                                 f"off by {e:.3e} > {SCATTER_RTOL} * "
-                                 f"{scale:.3e}")
-        err, ray_err = max(err, e), max(ray_err, *rel)
-        del want
-        ms.append(device_ms(
-            lambda: kr.resolve_scene_backward_cuda(*args, **kwargs), 20))
+        for side, table in (("", got[2]), ("first design's ", old[2])):
+            e = (table.double() - want[2]).abs().max().item()
+            if not (bool(torch.isfinite(table).all())
+                    and e <= SCATTER_RTOL * scale and scale > 0):
+                raise AssertionError(f"{tag} backward {i}: the {side}table "
+                                     f"gradient is off by {e:.3e} > "
+                                     f"{SCATTER_RTOL} * {scale:.3e}")
+            if not side:
+                this_err = e
+                err, ray_err = max(err, e), max(ray_err, *rel)
+        table_diff.append((got[2] - old[2]).abs().max().item())
+        del want, old
+        olds, news = _paired_ms(
+            lambda: kr.resolve_scene_backward_cuda(*args, **kwargs,
+                                                   _old_design=True),
+            lambda: kr.resolve_scene_backward_cuda(*args, **kwargs), 20)
+        ms.append(sum(news) / 2)
+        old_ms.append(sum(olds) / 2)
         plain_ms.append(device_ms(
             lambda: resolve_scene_backward_reference(*args[:7]), 3))
         bounds.append(_resolve_bwd_bound(scene, hit, inst, rays_grad,
                                          table_grad))
+        red = _resolve_bwd_reductions(*args[:7])
         kinds = torch.bincount(hit.kind, minlength=6).tolist()
+        bound_ms = bounds[-1]["bound_ms"]
         print(f"fused resolve backward vs plain [{tag} {i}]: rays "
               f"{o_w.shape[0]} kinds {kinds} cotangents non-zero on "
               f"{int(((g_t != 0) | (g_n != 0).any(-1)).sum())} rays; ray "
@@ -877,11 +955,23 @@ def _resolve_bwd_calls(run, expected, tag):
               + (f"within {max(rel):.2e} * max|g|" if rays_grad
                  else "not asked for")
               + f", table within "
-              f"{e / scale:.2e} * max|sum|; kernel {ms[-1]:.4f} ms, plain "
-              f"{plain_ms[-1]:.4f} ms, bound {bounds[-1]['bound_ms']:.4f} ms "
+              f"{this_err / scale:.2e} * max|sum|; kernel {ms[-1]:.4f} ms, plain "
+              f"{plain_ms[-1]:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bounds[-1]['bytes']} B)", flush=True)
+        print(f"fused resolve backward [{tag} {i}]: old, new, new, old "
+              f"{', '.join(f'{t:.4f}' for t in (olds[0], news[0], news[1], olds[1]))}"
+              f" ms; bound {bound_ms:.4f} ms = {bound_ms / ms[-1]:.0%} of "
+              f"new, {bound_ms / old_ms[-1]:.0%} of old; row reductions "
+              f"counted on the host: first design {red['scalar']} scalar "
+              f"atomics, redesign at most {red['merged']} 16-byte "
+              f"reductions over {red['groups']} warp and hit-cell groups; "
+              f"ray gradients bit-equal to the first "
+              f"design's" + ("" if rays_grad else " (none asked for)")
+              + f"; tables differ by at most {table_diff[-1]:.3e} "
+              f"(max|sum| {scale:.3e})", flush=True)
     return dict(launches=len(calls), max_abs_err=err, ray_err=ray_err, ms=ms,
-                plain_ms=plain_ms, bound=_sum_bounds(bounds))
+                plain_ms=plain_ms, old_ms=old_ms, table_diff=table_diff,
+                bound=_sum_bounds(bounds))
 
 
 def _k3_calls(run, tag):
@@ -2240,7 +2330,11 @@ def main():
             ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
              "backward (shade.cu)", "combine_resident_kernel", 256),
             ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
-             "backward (shade.cu)", "combine_kernel", 256)):
+             "backward (shade.cu)", "combine_kernel", 256),
+            ("fused resolve (resolve.cu)", "fused resolve, forward and "
+             "backward (resolve.cu)", "resolve_bwd_merged_kernel", 256),
+            ("fused resolve (resolve.cu)", "fused resolve, forward and "
+             "backward (resolve.cu)", "resolve_bwd_kernel", 256)):
         got = ptxas_usage(logs[log], kernel)
         if got is None:
             print(f"ptxas, {name} {kernel}: not in the log (the library was "
@@ -2368,7 +2462,9 @@ def main():
     print(f"fused resolve on the config6 fit step on {card}: forward "
           f"{fused_fit['ms']:.4f} ms in {fused_fit['launches']} launches "
           f"(bound {fused_fit['bound']['bound_ms']:.4f} ms), backward "
-          f"{_list(bwd['ms'])} ms = {sum(bwd['ms']):.4f} ms; plain closed "
+          f"{_list(bwd['ms'])} ms = {sum(bwd['ms']):.4f} ms (first design "
+          f"in the same call {_list(bwd['old_ms'])} ms = "
+          f"{sum(bwd['old_ms']):.4f} ms); plain closed "
           f"form {_list(bwd['plain_ms'])} ms = {sum(bwd['plain_ms']):.4f} ms; "
           f"bound {bwd['bound']['bound_ms']:.4f} ms ({bwd['bound']['bytes']} "
           f"B, by {bwd['bound']['bound_by']})", flush=True)
@@ -2797,8 +2893,9 @@ def main():
     paired["fit_shading"] = meds
     eager_counts = counts()
 
-    # the first designs of the scene march, the shade forward pair and the
-    # surface backward against the redesigned kernels
+    # the first designs of the scene march, the shade forward pair, the
+    # surface backward and the resolve backward against the redesigned
+    # kernels
     def old_design_step():
         with _old_designs():
             return one_step()
@@ -2808,9 +2905,10 @@ def main():
     for run in (old_design_step, one_step, one_step, old_design_step):
         meds.append(statistics.median(timed(run, 3)[0]) * 1e3)
     print(f"config6 fit step on {card}, the first designs of the scene "
-          f"march, the shade forward pair and the surface backward against "
-          f"the redesigned kernels, medians of 3 in the order old, new, new, "
-          f"old: {', '.join(f'{t:.2f}' for t in meds)} ms", flush=True)
+          f"march, the shade forward pair, the surface backward and the "
+          f"resolve backward against the redesigned kernels, medians of 3 "
+          f"in the order old, new, new, old: "
+          f"{', '.join(f'{t:.2f}' for t in meds)} ms", flush=True)
     paired["fit_designs"] = meds
     got = counts()
     paths = dict(k4.PATH_LAUNCHES)
@@ -2973,7 +3071,14 @@ def main():
             # the cases without rounds have a library call; the kernel's
             # time over the same cases stands beside it
             "library_ms": sum(r["library_ms"] for r in with_lib),
-            "library_cases_ms": sum(r["ms"] for r in with_lib)})
+            "library_cases_ms": sum(r["ms"] for r in with_lib),
+            **({"old_design_ms": sum(r["old_ms"] for r in rows),
+                "by_case": {r["name"]: {"ms": r["ms"], "old_design_ms":
+                                        r["old_ms"],
+                                        "library_ms": r["library_ms"],
+                                        "bound_ms": r["bound_ms"]}
+                            for r in rows}}
+               if name == "GP-C" else {})})
     scene_all = {tag: c["scene"] for tag, c in
                  (("interp", frame_counts), ("cube", cube_counts),
                   ("debug_overlay", overlay_counts),
@@ -3062,7 +3167,15 @@ def main():
          "max_abs_err": bwd["max_abs_err"],
          "max_ray_grad_err_over_max": bwd["ray_err"],
          "ms": sum(bwd["ms"]), "plain_ms": sum(bwd["plain_ms"]),
-         **bound_keys(bwd["bound"]), "library_ms": None},
+         **bound_keys(bwd["bound"]), "library_ms": None,
+         "per_launch_ms": bwd["ms"],
+         "old_design_ms": sum(bwd["old_ms"]),
+         "per_launch_old_design_ms": bwd["old_ms"],
+         # every compared launch is asserted bit-equal to the first design
+         "ray_grads_bit_equal_to_old_design": True,
+         "table_diff_to_old_design": bwd["table_diff"],
+         "ptxas": {k: ptxas.get(k) for k in ("resolve_bwd_merged_kernel",
+                                              "resolve_bwd_kernel")}},
         *({"name": f"K4 shade {stage}", "route": "cuda",
            "source": "vrt_torch/csrc/shade.cu",
            "replaces": replaces,

@@ -242,3 +242,32 @@ def test_wrappers_refuse_cpu():
     with pytest.raises(ValueError):
         G.onehot_gather_cuda(src, idx)
     assert G.LAUNCHES == before
+
+
+NONFINITE = {"inf": np.inf, "-inf": -np.inf, "nan": np.nan,
+             "bf16-overflow": 3.4e38}
+
+
+@pytest.mark.parametrize("value", sorted(NONFINITE))
+def test_onehot_plain_matches_pallas_on_a_nonfinite_table(value):
+    """p4's Pallas body against ``onehot_gather_reference`` on its table
+    with one entry non-finite (or rounding to a bf16 Inf), the row that
+    holds it among the indices: in that column the matmul's 0 * Inf (or
+    NaN) makes every other row NaN on both sides; elsewhere they are
+    equal."""
+    (g,) = P.BY_NAME["probe_gather4.p4"].make()
+    g["src"] = g["src"].copy()
+    g["src"][5, 3] = NONFINITE[value]
+    g["idx"] = g["idx"].copy()
+    g["idx"][0] = 5
+    want = onehot(g)
+    got = G.onehot_gather_reference(torch.from_numpy(g["src"]),
+                                    torch.from_numpy(g["idx"])).numpy()
+    nan = np.isnan(want)
+    other = g["idx"] != 5
+    assert nan[other, 3].all() and not nan[:, [0, 1, 2, 4, 5, 6, 7]].any()
+    assert nan[~other, 3].all() if value == "nan" else \
+        np.isinf(want[~other, 3]).all()
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan], want[~nan])
+

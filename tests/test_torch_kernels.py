@@ -43,6 +43,7 @@ import pytest
 import torch
 
 from vrt_torch.march import march as tmarch
+from vrt_torch.march.types import MarchHit
 from vrt_torch.render import renderer as tren
 from vrt_torch.render.gpuscene import RenderMode
 from vrt_torch.render.renderer import render_image
@@ -433,6 +434,28 @@ def test_warp_slots_of_registers(regs, threads, want):
     assert warp_slots(regs, threads) == want
 
 
+@pytest.mark.parametrize("probe,source", [
+    ("MARCH", "march.cu"), ("SURFACE_BWD", "shade.cu"),
+    ("SHADE_FWD", "shade.cu"), ("RESOLVE_BWD", "resolve.cu")])
+def test_probe_caps_variants_name_source_constants(probe, source):
+    """Every variant of ``vrt_torch.apps.probe_caps`` sets constants that
+    its source defines exactly once (the probe rewrites them with this
+    pattern and refuses any other count), and the default variant sets
+    none."""
+    import re
+
+    from vrt_torch.apps import probe_caps
+    from vrt_torch.kernels import _build
+
+    text = (_build.CSRC / source).read_text()
+    variants = getattr(probe_caps, probe)
+    assert variants[0][1] == {}
+    for _, consts, _ in variants:
+        for name in consts:
+            assert len(re.findall(rf"constexpr (int|bool) {name} = \w+;",
+                                  text)) == 1, name
+
+
 RESOLVE_TABLES = {"f32x8": (None, 8), "f32x9": (None, 9),
                   "bf16x8": (torch.bfloat16, 8),
                   "bf16x9": (torch.bfloat16, 9)}
@@ -608,6 +631,115 @@ def test_resolve_backward_matches_plain_on_card(table, offset, n_inst):
     assert (only_table[2].double() - w_acc).abs().max().item() <= 1e-5 * scale
 
 
+CONTENTION_HITS = ("one_cell", "split_warp", "neighbours", "zero_cotangents")
+
+
+def _contended_hits(ts, case, dev, warps=96, seed=3):
+    """A hit set built to contend in the backward's reductions: 32 * warps
+    + 13 lanes (a ragged last warp) taken from the surface hits of a scene
+    march (rays, t, instance), their cells rewritten by ``case``: all on
+    one cell ("one_cell"); each warp split over two cells far apart, a
+    third of its lanes on one ("split_warp"); on the 2x2x2 block of
+    neighbouring cells, which share rows ("neighbours", also
+    "zero_cotangents", whose cotangents are zero on half of the lanes and
+    on every lane of every fourth warp).  Every lane is put on instance 0;
+    a lane in seven is a miss and one in eleven a solid entry, and every
+    fifth warp is all misses.  Returns (o, d, hit, inst, g_t, g_n)."""
+    rng = np.random.default_rng(seed)
+    o, d, t_max = scene_rays(seed, 65536, dev)
+    hit, inst = tren.march_scene(ts, o, d, t_max)
+    surf = (hit.kind == 1).nonzero().ravel()
+    rays = 32 * warps + 13
+    pick = surf[torch.from_numpy(rng.integers(0, surf.numel(), rays)).to(dev)]
+    o, d = o[pick].contiguous(), d[pick].contiguous()
+    # what the backward reads: the hit's kind, t and cell
+    hit = MarchHit(hit=None, t=hit.t[pick].contiguous(),
+                   kind=hit.kind[pick].contiguous(),
+                   cell=hit.cell[pick].contiguous(), t_in=None, t_out=None,
+                   face_normal=None)
+    inst = torch.zeros(rays, dtype=torch.int32, device=dev)
+    n = int(ts.volumes.n[int(ts.inst_volume[0])])
+    c0 = np.array([n // 2, n // 3, n // 2])
+    lane = np.arange(rays) % 32
+    if case == "one_cell":
+        cells = np.tile(c0, (rays, 1))
+    elif case == "split_warp":
+        cells = np.where((lane % 3 == 0)[:, None], c0, c0 + (4, 0, 0))
+    else:
+        cells = c0 + rng.integers(0, 2, (rays, 3))
+    hit.cell.copy_(torch.from_numpy(cells.astype(np.int32)))
+    kind = np.ones(rays, np.int32)
+    kind[np.arange(rays) % 7 == 3] = 0
+    kind[np.arange(rays) % 11 == 5] = 2
+    kind[(np.arange(rays) // 32) % 5 == 4] = 0
+    hit.kind.copy_(torch.from_numpy(kind))
+    g_t = torch.from_numpy(rng.normal(size=rays).astype(np.float32)).to(dev)
+    g_n = torch.from_numpy(
+        rng.normal(size=(rays, 3)).astype(np.float32)).to(dev)
+    if case == "zero_cotangents":
+        zero = torch.from_numpy((rng.uniform(size=rays) < 0.5)
+                                | ((np.arange(rays) // 32) % 4 == 1)).to(dev)
+        g_t[zero] = 0.0
+        g_n[zero] = 0.0
+    return o, d, hit, inst, g_t, g_n
+
+
+def _bits_equal(a, b):
+    """Equal bit for bit (a -0 is not a +0)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rays_grad", [True, False], ids=["rays", "table"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("table", ["f32x8", "f32x9", "bf16x8"])
+@pytest.mark.parametrize("case", CONTENTION_HITS)
+def test_resolve_backward_designs_on_card(case, table, offset, rays_grad):
+    """The fused resolve's redesigned backward (merged row cotangents,
+    16-byte reductions) against its first design and against the closed
+    form on hit sets built to contend (``_contended_hits``), with tables of
+    8 and 9 channels, one based 4 bytes off its storage's alignment: the
+    ray gradients bit-equal to the first design's on every lane, both
+    tables within 1e-5 * max|sum| of the closed form summed in float64,
+    the 9-channel table's view of a 12-float accumulator with nothing in
+    its 9th channel."""
+    from vrt_torch.kernels import resolve as kr
+
+    dev = _card()
+    dtype, ch = RESOLVE_TABLES[table]
+    ts = _with_table(_crowd(5, "chebyshev", dtype, 2, dev), ch, offset)
+    o, d, hit, inst, g_t, g_n = _contended_hits(ts, case, dev)
+    before = kr.LAUNCHES["backward"]
+    new = kr.resolve_scene_backward_cuda(ts, o, d, hit, inst, g_t, g_n,
+                                         rays_grad=rays_grad)
+    old = kr.resolve_scene_backward_cuda(ts, o, d, hit, inst, g_t, g_n,
+                                         rays_grad=rays_grad,
+                                         _old_design=True)
+    torch.cuda.synchronize()
+    assert kr.LAUNCHES["backward"] == before + 2
+    want = tren.resolve_scene_backward_reference(ts, o, d, hit, inst, g_t,
+                                                 g_n, acc_dtype=torch.float64)
+    if rays_grad:
+        for name, a, b, w in zip(("g_o_w", "g_d_w"), new, old, want):
+            assert _bits_equal(a, b), name
+            scale = w.abs().max().item()
+            assert scale > 0 and (a - w).abs().max().item() <= 1e-5 * scale
+    else:
+        assert new[:2] == (None, None) and old[:2] == (None, None)
+    scale = want[2].abs().max().item()
+    assert scale > 0
+    for side, acc in (("new", new[2]), ("old", old[2])):
+        assert acc.dtype == torch.float32 and acc.shape == want[2].shape
+        assert bool(torch.isfinite(acc).all()), side
+        err = (acc.double() - want[2]).abs().max().item()
+        assert err <= 1e-5 * scale, (side, err, scale)
+    buf = new[2]
+    assert buf.stride() == ((8, 1) if ch == 8 else (12, 1))
+    assert buf.data_ptr() % 16 == 0
+    assert not bool(buf[:, 8:].any())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("table", ["f32x9", "bf16x8"])
 def test_resolve_scene_grads_on_card_match_autograd(table):
@@ -763,6 +895,63 @@ def test_gather_wrappers_reject_bad_inputs_on_card():
         with pytest.raises(ValueError):
             call()
     assert G.LAUNCHES == before
+
+
+def _onehot_inputs(table, outside, dev, k=512, rows=1024, seed=6):
+    """GP-C's inputs at the p4 / k4 shape (K = 512, 1024 rows): a table of
+    normal values with some -0s ("finite"), also with an Inf, a -Inf, a NaN
+    and a value that rounds to bf16 Inf in three columns ("nonfinite"),
+    rows picked among them; with ``outside`` a tenth of the indices lie
+    outside the table."""
+    rng = np.random.default_rng(seed)
+    src = rng.normal(size=(k, 8)).astype(np.float32)
+    src[rng.integers(0, k, 40), rng.integers(0, 8, 40)] = -0.0
+    idx = rng.integers(0, k, rows).astype(np.int32)
+    if table == "nonfinite":
+        src[3, 2], src[100, 5], src[200, 5] = np.inf, -np.inf, np.nan
+        src[7, 0] = 3.4e38
+        idx[:4] = (3, 100, 200, 7)
+    if outside:
+        far = rng.uniform(size=rows) < 0.1
+        idx[far] = rng.choice([-1, -7, k, k + 33], far.sum())
+    return torch.from_numpy(src).to(dev), torch.from_numpy(idx).to(dev)
+
+
+def _nan_or_bits_equal(a, b):
+    """NaN where the other is NaN, bit-equal elsewhere."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and _bits_equal(
+        torch.where(nan, 0.0, a), torch.where(nan, 0.0, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("outside", [False, True], ids=["inside", "outside"])
+@pytest.mark.parametrize("table", ["finite", "nonfinite"])
+@pytest.mark.parametrize("iters", [0, 256], ids=["p4", "k4"])
+def test_onehot_gather_designs_on_card(iters, table, outside):
+    """GP-C's direct gather against its first design (the tensor cores)
+    at p4's shape (no rounds) and k4's (256 rounds, mask 511): NaN where
+    the first design gives NaN, bit-equal everywhere else, indices outside
+    the table included; and, with the indices inside, equal to
+    ``onehot_gather_reference`` (NaN to NaN: a column with another row's Inf
+    or NaN is NaN, as the matmul's 0 * Inf makes it)."""
+    from vrt_torch.kernels import gather as G
+
+    dev = _card()
+    src, idx = _onehot_inputs(table, outside, dev)
+    mask = 511 if iters else -1
+    before = G.LAUNCHES["GP-C"]
+    new = G.onehot_gather_cuda(src, idx, iters, mask)
+    old = G.onehot_gather_cuda(src, idx, iters, mask, _old_design=True)
+    torch.cuda.synchronize()
+    assert G.LAUNCHES["GP-C"] == before + 2
+    assert new.shape == (idx.shape[0], 8) and new.dtype == torch.float32
+    assert _nan_or_bits_equal(new, old)
+    assert bool(torch.isnan(new).any()) == (table == "nonfinite")
+    if not outside:
+        want = G.onehot_gather_reference(src, idx, iters, mask)
+        assert torch.equal(torch.isnan(new), torch.isnan(want))
+        assert torch.equal(torch.nan_to_num(new), torch.nan_to_num(want))
 
 
 K3_CASES = {"f32x8": (torch.float32, 8, 8), "f32x9": (torch.float32, 9, 8),

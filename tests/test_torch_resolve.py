@@ -189,6 +189,131 @@ def test_closed_form_matches_jax_vjp(config):
             * np.abs(b).max(), name
 
 
+# A camera 275 units off instance 0's sphere (radius 45 at (0, -20, 0)),
+# looking at its +x pole through a 2.5 degree field: the rays fall on the
+# 2x2 block of resolution-4 cells (12.5 units) around the pole and their
+# neighbours, the contention the backward kernel merges.
+CONTENTION_CAMERA = dict(position=(320.0, -20.0, 0.0), fov=2.5)
+
+
+def _contended(ts, size=32):
+    """Rays from ``CONTENTION_CAMERA`` into the overlap crowd, their hits
+    and random cotangents from a numpy seed."""
+    cam_pos = np.asarray(CONTENTION_CAMERA["position"], np.float32)
+    o, d = vrays(jnp.asarray(cam_pos), jnp.asarray(ts.cam_rot.numpy()),
+                 jnp.asarray(np.float32(CONTENTION_CAMERA["fov"])), size,
+                 size)
+    o, d = torch.from_numpy(np.array(o)), torch.from_numpy(np.array(d))
+    hit, inst = tren.march_scene(ts, o, d, torch.full((o.shape[0],), 1e4))
+    rng = np.random.default_rng(23)
+    g_t = torch.from_numpy(rng.normal(size=o.shape[0]).astype(np.float32))
+    g_n = torch.from_numpy(rng.normal(size=o.shape).astype(np.float32))
+    return o, d, hit, inst, g_t, g_n
+
+
+@pytest.mark.parametrize("channels", [9, 8])
+def test_closed_form_matches_jax_vjp_on_contended_hits(channels):
+    """The closed form against ``jax.vjp`` of vrt's ``resolve_scene`` when
+    nearly every ray hits one of a few neighbouring cells, so that the
+    rows' cotangents of many rays add into the same rows.  On the f32
+    table: vrt adds a bf16 table's cotangents in bf16, whose rounding grows
+    with the number of rays a row sums (3% of max|g| here), where the port
+    adds in f32 and casts once."""
+    vs, ts = _scenes("octree-f32")
+    vs = dataclasses.replace(vs, volumes=dataclasses.replace(
+        vs.volumes, corners=vs.volumes.corners[..., :channels]))
+    ts = _with_corners(ts, ts.volumes.corners[..., :channels].contiguous())
+    o, d, hit, inst, g_t, g_n = _contended(ts)
+    surface = hit.kind == 1
+    assert surface.float().mean().item() > 0.95
+    cells = torch.unique(hit.cell[surface], dim=0)
+    assert cells.shape[0] <= 4 and bool((inst[surface] == 0).all())
+    vh = VHit(**{f.name: jnp.asarray(getattr(hit, f.name).numpy())
+                 for f in dataclasses.fields(MarchHit)})
+
+    def f(o_w, d_w, corners):
+        s = dataclasses.replace(vs, volumes=dataclasses.replace(
+            vs.volumes, corners=corners))
+        t, n, _ = vren.resolve_scene(s, o_w, d_w, vh, jnp.asarray(inst.numpy()))
+        return t, n
+
+    _, vjp = jax.vjp(f, jnp.asarray(o.numpy()), jnp.asarray(d.numpy()),
+                     vs.volumes.corners)
+    want = vjp((jnp.asarray(g_t.numpy()), jnp.asarray(g_n.numpy())))
+    g_o, g_d, acc = tren.resolve_scene_backward_reference(
+        ts, o, d, hit, inst, g_t, g_n)
+    # the rows of the cells around the pole carry the sums of many rays
+    assert int((acc != 0).any(-1).sum()) <= 7 * 4 * 2
+    for name, a, b in zip(("g_o_w", "g_d_w", "g_corners"), (g_o, g_d, acc),
+                          want):
+        a = a.double().numpy().ravel()
+        b = np.asarray(b, np.float64).ravel()
+        cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
+        assert cos >= 1.0 - 1e-8, (name, 1.0 - cos)
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max(), name
+
+
+@pytest.mark.parametrize("ch,width", [(8, 8), (9, 12)])
+def test_accumulator_rows_are_16_bytes(ch, width):
+    """The redesigned backward's accumulator: zeroed rows of ``width``
+    floats (16-byte rows for its vector reductions), and the [rows, ch]
+    view the caller gets, on the same storage."""
+    buf, acc = kr.accumulator(1000, ch, "cpu")
+    assert buf.shape == (1000, width) and buf.dtype == torch.float32
+    assert acc.shape == (1000, ch) and acc.stride() == (width, 1)
+    assert acc.data_ptr() == buf.data_ptr() and not bool(buf.any())
+    assert buf.stride(0) * buf.element_size() % 16 == 0
+    assert acc.is_contiguous() == (ch == width)
+
+
+class _ViewGrad(torch.autograd.Function):
+    """Identity in the corner table whose backward hands autograd the
+    accumulator's view, as ``ResolveScene`` does on the card."""
+
+    @staticmethod
+    def forward(ctx, corners):
+        ctx.shape = corners.shape
+        return corners.sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, ch = int(np.prod(ctx.shape[:-1])), ctx.shape[-1]
+        buf, acc = kr.accumulator(rows, ch, "cpu")
+        acc.copy_(torch.arange(rows * ch, dtype=torch.float32).reshape(
+            rows, ch) * g)
+        buf[:, ch:] = float("nan")             # never read through the view
+        return acc.reshape(ctx.shape)
+
+
+@pytest.mark.parametrize("ch", [8, 9])
+def test_accumulator_view_flows_through_the_corner_pack(ch):
+    """The view as the corner table's gradient, through the fit's repack
+    (``pack_cell_corners``: slices of the SDF, stacked) and its sum over
+    three uses, gives the SDF the gradient a contiguous table gradient
+    gives."""
+    from vrt_torch.march.types import pack_cell_corners
+
+    rng = np.random.default_rng(4)
+    sdf = torch.from_numpy(rng.normal(size=(2, 9, 9, 9)).astype(np.float32))
+    accel = torch.from_numpy(rng.integers(0, 40, (2, 8, 8, 8)).astype(
+        np.int32)) if ch == 9 else None
+    grads = []
+    for view in (True, False):
+        leaf = sdf.clone().requires_grad_(True)
+        corners = pack_cell_corners(leaf, accel)
+        assert corners.shape[-1] == ch
+        if view:
+            loss = sum(_ViewGrad.apply(corners) for _ in range(3))
+        else:
+            want = torch.arange(corners.numel(), dtype=torch.float32
+                                ).reshape(corners.shape)
+            loss = sum((corners * want).sum() for _ in range(3))
+        (g,) = torch.autograd.grad(loss, [leaf])
+        grads.append(g)
+    assert bool(torch.isfinite(grads[0]).all())
+    assert torch.equal(grads[0], grads[1])
+
+
 class TestDispatch:
     """``resolve_scene``: everything goes through ``ResolveScene`` (on CPU
     tensors its plain versions) except a caller whose instance transforms

@@ -1,10 +1,11 @@
 """The register-cap probe of the kernels redesigned for the H100: K1's
 scene march (``march_scene_capped_kernel``), K4's surface backward
-(``surface_bwd_merged_kernel``) and K4's forward pair
-(``surface_resident_kernel``, ``combine_resident_kernel``), on one CUDA
-card.
+(``surface_bwd_merged_kernel``), K4's forward pair
+(``surface_resident_kernel``, ``combine_resident_kernel``) and the fused
+resolve's backward (``resolve_bwd_merged_kernel``), on one CUDA card.
 
     python3 -m vrt_torch.apps.probe_caps [march] [surface_bwd] [shade_fwd]
+                                         [resolve_bwd]
 
 Each kernel's block and register cap are constants of its source
 (``kSceneThreads``, ``kSceneMinBlocks`` and ``kAnyHitMinBlocks`` in
@@ -12,18 +13,23 @@ Each kernel's block and register cap are constants of its source
 ``kSurfaceMinBlocks``, ``kCombineMinBlocks``, ``kFetchDepth`` and
 ``kFlagRounds`` in ``shade.cu``, where ``kFwdResident`` and ``kFwdHitPath`` also switch the
 forward pair to one thread a ray over the whole grid and compile its hit
-lanes' work out).  The
-probe builds a copy of the source for each of ``MARCH``, ``SURFACE_BWD``
-and ``SHADE_FWD`` with those constants set as the variant says (all builds
-in parallel, under ``build/vrt_torch_kernels/probe/``), then runs the
-launches of the path that chose them through each build in turn: the five
-scene marches of the flagship's 1080p interp frame, the three surface
-backwards of one 1080p config6 fit step, and the three surface and three
-combine launches of the 1080p interp and cube frames and of a 480x270 frame
-with two point lights and a spot light.  Each build must give the default build's
-result (the marches field by field, the per-ray cotangents bit for bit,
-the forward pair on every lane both write; the miss-only build on the miss
-lanes); each launch is timed as device time (``device_ms``), the default
+lanes' work out; ``kMergeRows`` and ``kVecReduce`` in ``resolve.cu``
+switch the backward's merge of a warp's row cotangents by hit cell and its
+16-byte reductions, and ``kBwdMinBlocks`` sets its register cap).  The
+probe builds a copy of the source for each of ``MARCH``, ``SURFACE_BWD``,
+``SHADE_FWD`` and ``RESOLVE_BWD`` with those constants set as the variant
+says (all builds in parallel, under ``build/vrt_torch_kernels/probe/``),
+then runs the launches of the path that chose them through each build in
+turn: the five scene marches of the flagship's 1080p interp frame, the
+three surface backwards of one 1080p config6 fit step, the three surface
+and three combine launches of the 1080p interp and cube frames and of a
+480x270 frame with two point lights and a spot light, and the three
+resolve backwards of one 1080p config6 fit step (the last on the primary
+rays).  Each build must give the default build's result (the marches
+field by field, the per-ray cotangents bit for bit, the forward pair on
+every lane both write; the miss-only build on the miss lanes; the resolve
+backward's table within ``SCATTER_RTOL`` of the default build's largest
+entry); each launch is timed as device time (``device_ms``), the default
 build first and last, with the first design (``_old_design``) beside them.
 It prints ptxas' registers, stack frame and spills of each build's
 variants, and the warp slots the registers leave filled, beside the card's
@@ -80,7 +86,19 @@ SHADE_FWD = (
     ("one thread a ray over the whole grid", {"kFwdResident": "false"}, 256),
     ("miss lanes only: the hit path compiled out",
      {"kFwdHitPath": "false"}, 256))
+RESOLVE_BWD = (
+    ("default: merged by hit cell, 16-byte reductions, 2 blocks an SM",
+     {}, 256),
+    ("not merged", {"kMergeRows": "false"}, 256),
+    ("merged by hit cell, scalar atomics", {"kVecReduce": "false"}, 256),
+    ("not merged, scalar atomics",
+     {"kMergeRows": "false", "kVecReduce": "false"}, 256),
+    ("uncapped", {"kBwdMinBlocks": 1}, 256),
+    ("3 blocks an SM", {"kBwdMinBlocks": 3}, 256))
 SHADE_KERNELS = ("surface_resident_kernel", "combine_resident_kernel")
+# the resolve backward's table against the default build's: its sums add in
+# another order (chip_smoke.py's SCATTER_RTOL)
+SCATTER_RTOL = 1e-5
 FIELDS = ("hit", "t", "kind", "cell", "t_in", "t_out", "face_normal", "steps")
 REPS = 20
 
@@ -156,6 +174,16 @@ def _same_march(got, want, args, label):
 def _same_cotangents(got, want, args, label):
     return all(torch.equal(a, b) for a, b in zip(got[:4], want[:4])
                if a is not None)
+
+
+def _same_resolve_bwd(got, want, args, label):
+    """The ray gradients bit for bit, the table within ``SCATTER_RTOL`` of
+    the largest entry of the default build's."""
+    rays = all(torch.equal(a, b) for a, b in zip(got[:2], want[:2])
+               if a is not None)
+    scale = want[2].abs().max().item()
+    return rays and (got[2] - want[2]).abs().max().item() <= \
+        SCATTER_RTOL * scale
 
 
 def _equal_where(a, b, lanes):
@@ -266,8 +294,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("probe_caps needs a CUDA card", file=sys.stderr)
         return 1
+    from vrt_torch.kernels import resolve as kr
+
     probes = set(sys.argv[1:] if argv is None else argv) or {
-        "march", "surface_bwd", "shade_fwd"}
+        "march", "surface_bwd", "shade_fwd", "resolve_bwd"}
     dev = torch.device("cuda", 0)
     card = card_name()
     entries = ("vrt_shade_surface", "vrt_shade_combine",
@@ -283,9 +313,7 @@ def main(argv=None) -> int:
                 _probe(k1, "march_scene_cuda", builds, calls, _same_march))
         del scene, calls
 
-    if "surface_bwd" in probes:
-        builds = _builds(k4, "shade.cu", SURFACE_BWD,
-                         ("surface_bwd_merged_kernel",), entries)
+    def config6_step():
         # config6 (vrt/apps/bench.py bench_fit): the flagship at resolution
         # 6 with per-voxel colours, one camera, zero targets, Adam at 1e-2
         scene = flagship_scene(6, use_colors=True, device=dev)
@@ -297,12 +325,41 @@ def main(argv=None) -> int:
         step = make_fit_step(scene, cams, 1920, 1080, RenderMode(), opt)
         targets = torch.zeros((1, 1920 * 1080, 3), device=dev)
         state = opt.init(params)
-        calls = _recorded(k4, "shade_surface_backward_cuda",
-                          lambda: step(params, state, targets))
+        return lambda: step(params, state, targets)
+
+    if "surface_bwd" in probes:
+        builds = _builds(k4, "shade.cu", SURFACE_BWD,
+                         ("surface_bwd_merged_kernel",), entries)
+        calls = _recorded(k4, "shade_surface_backward_cuda", config6_step())
         _report("the config6 fit step's surface backwards", card,
                 _probe(k4, "shade_surface_backward_cuda", builds, calls,
                        _same_cotangents))
-        del scene, params, state, targets, calls
+        del calls
+
+    if "resolve_bwd" in probes:
+        builds = _builds(kr, "resolve.cu", RESOLVE_BWD,
+                         ("resolve_bwd_merged_kernel",),
+                         ("vrt_resolve_scene", "vrt_resolve_scene_bwd"))
+        calls = _recorded(kr, "resolve_scene_backward_cuda", config6_step())
+        _report("the config6 fit step's resolve backwards (the primary "
+                "rays last)", card,
+                _probe(kr, "resolve_scene_backward_cuda", builds, calls,
+                       _same_resolve_bwd))
+        # what the default build's launches spend apart from the table:
+        # each without the table's cotangent, and the accumulator's fill
+        no_table, fill = [], []
+        for args, _, got in calls:
+            no_table.append(device_ms(lambda: kr.resolve_scene_backward_cuda(
+                *args[:7], rays_grad=got[0] is not None, table_grad=False),
+                REPS))
+            rows, ch = got[2].shape
+            fill.append(device_ms(lambda: kr.accumulator(rows, ch, dev),
+                                  REPS))
+        print(f"the config6 fit step's resolve backwards on {card}: without "
+              f"the table's cotangent {', '.join(f'{t:.4f}' for t in no_table)}"
+              f" ms; the accumulator's fill alone "
+              f"{', '.join(f'{t:.4f}' for t in fill)} ms", flush=True)
+        del calls
 
     if "shade_fwd" in probes:
         builds = _builds(k4, "shade.cu", SHADE_FWD, SHADE_KERNELS, entries)

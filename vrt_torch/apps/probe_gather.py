@@ -12,7 +12,9 @@ tables, and the script's index law.  For every case and load path the
 kernel's output must equal its plain version's (``torch.equal``); both are
 timed as device time (``device_ms``) and the probe prints M rows/s and
 effective GB/s (gathered row bytes over time, as the scripts define it),
-beside the card's name and power limit.  There is no CPU path.
+beside the card's name and power limit.  GP-C's cases also run its first
+design (``_old_design``, the tensor cores), which must give the same bits,
+and time the two in the order old, new, new, old.  There is no CPU path.
 
 What the cases ask, on this card: random 16- and 32-byte rows from tables
 above the 50 MB L2 (``flagship.bf16x8``, ``flagship.f32x8``), a u8 flat
@@ -265,9 +267,10 @@ def _kwargs(g):
     return {k: v for k, v in g.items() if k not in ("src", "idx", "kernel")}
 
 
-def run_kernel(case, gathers, path):
+def run_kernel(case, gathers, path, old_design=False):
     """The case's gathers through its kernel; on the v16 path, tables whose
-    rows are not a multiple of 16 bytes take the ldg path."""
+    rows are not a multiple of 16 bytes take the ldg path.  ``old_design``
+    runs GP-C's first design (the tensor cores)."""
     fn = KERNELS[case.kernel][0]
     out = []
     for g in gathers:
@@ -275,6 +278,8 @@ def run_kernel(case, gathers, path):
         if case.kernel == "GP-B":
             kw["path"] = "ldg" if path == "v16" and _row_bytes(g) % 16 \
                 else path
+        if old_design:
+            kw["_old_design"] = True
         out.append(fn(g["src"], g["idx"], **kw))
     return out
 
@@ -347,7 +352,25 @@ def check_and_time(case, gathers, outs, reps=20, log=print):
                 raise AssertionError(f"{case.name} [{path}]: the kernel "
                                      f"differs from its plain version")
             err = max(err, (a.float() - b.float()).abs().max().item())
-        ms = device_ms(lambda: run_kernel(case, gathers, path), reps)
+        old_ms = None
+        if case.kernel == "GP-C":
+            # the first design on the same inputs: NaN where it is NaN, the
+            # same bits elsewhere; the two timed old, new, new, old
+            for a, b in zip(run_kernel(case, gathers, path, True), got):
+                nan = torch.isnan(a)
+                if not (torch.equal(nan, torch.isnan(b)) and torch.equal(
+                        torch.where(nan, 0.0, a).view(torch.int32),
+                        torch.where(nan, 0.0, b).view(torch.int32))):
+                    raise AssertionError(f"{case.name}: GP-C differs from "
+                                         f"its first design")
+            t = [device_ms(lambda o=o: run_kernel(case, gathers, path, o),
+                           reps) for o in (True, False, False, True)]
+            ms, old_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            log(f"probe {case.name:26s} GP-C: first design equal bit for "
+                f"bit; old, new, new, old "
+                f"{', '.join(f'{x:.4f}' for x in t)} ms")
+        else:
+            ms = device_ms(lambda: run_kernel(case, gathers, path), reps)
         log(f"probe {case.name:26s} {case.kernel} {path:4s} equal "
             f"rows={rows} row_bytes={nbytes // rows} kernel {ms:.4f} ms "
             f"{rows / ms / 1e3:.1f} M rows/s {nbytes / ms / 1e6:.1f} GB/s; "
@@ -358,7 +381,8 @@ def check_and_time(case, gathers, outs, reps=20, log=print):
                             replaces=case.replaces, pallas=case.pallas,
                             rows=rows, bytes=nbytes, ms=ms,
                             plain_ms=plain_ms, bound_ms=bound_ms,
-                            library_ms=library_ms, max_abs_err=err))
+                            library_ms=library_ms, max_abs_err=err,
+                            old_ms=old_ms))
     return results
 
 

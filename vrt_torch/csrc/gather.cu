@@ -29,15 +29,27 @@
 //             the TPU only by the table's memory space (HBM or VMEM); both
 //             read global memory here.
 //
-// GP-C, one-hot tensor-core gather out = onehot(idx, K) @ bf16(src), src
-//   K x 8, f32 accumulation (p4, and looped k4).  One warp per 16 output
-//   rows: the one-hot A fragments are built in registers from the rows'
-//   indices, B (src as bf16, 16 B per row, 8 KB at K = 512) is staged in
-//   shared memory, and mma.sync.m16n8k16 walks K in steps of 16.  Each
-//   output is exactly float(bf16(src[idx])): one product is 1 * b, the
-//   others are zeros.  K/16 tensor-core ops per 16 rows make it bound by
-//   the rate of mma instructions, not by bytes; it is the probe's only
-//   tensor-core kernel.
+// GP-C, one-hot gather out = onehot(idx, K) @ bf16(src), src K x 8, f32
+//   accumulation (p4, and looped k4).  On the TPU this was the MXU's way to
+//   gather.  On Hopper the same function is a gather of the bf16-rounded
+//   row: every product but one is 0 * b and the sum is exact, so each
+//   output is float(bf16(src[idx])) + 0 (a -0 sums to +0), except in a
+//   column where another row holds an Inf or a NaN, where 0 * Inf makes the
+//   matmul's sum NaN (and an index outside the table selects no row: 0, or
+//   NaN in such a column).
+//   The first design (onehot_kernel, kept as the probe's comparator) runs
+//   the matmul on the tensor cores: one warp per 16 output rows, the
+//   one-hot A fragments built in registers from the rows' indices, B (src
+//   as bf16, 16 B per row, 8 KB at K = 512) staged in shared memory, and
+//   mma.sync.m16n8k16 walking K in steps of 16: K/16 tensor-core ops per
+//   16 rows, all to move one 16-byte row, bound by the rate of mma
+//   instructions (2.8x src[idx]'s time at p4's shape on the H100).
+//   The redesign (onehot_direct_kernel, the default) stages bf16(src) once
+//   a block in shared memory as before, counting each column's non-finite
+//   values while it does, then gives four threads each output row: a 4-byte
+//   shared load of two channels a round, widened to f32, NaN where the
+//   column's count says the matmul would give it.  The rounds, their order of sums
+//   and the outputs equal the first design's bit for bit.
 //
 // The looped cases ("iters" > 0) take the index (idx + t) & mask in round
 // t = 0 .. iters-1, as the Pallas fori_loops do, and either add the rounds
@@ -312,6 +324,88 @@ __global__ void __launch_bounds__(kWarpsC * 32) onehot_kernel(
   }
 }
 
+// The redesign.  The block stages bf16(src) (16 B a row) and the count of
+// non-finite values of each column in shared memory, its threads' first
+// indices fetched meanwhile; then four threads take an output row, two
+// channels (one 32-bit word of the bf16 row) each, walking their rows in a
+// grid-stride loop (the next row's index fetched ahead) with one 4-byte
+// shared load a round: the looped cases' rounds spread over four times the
+// threads.
+constexpr int kThreadsC = 256;
+constexpr int kPartsC = 4;        // threads a row, two channels each
+constexpr int kStageLoads = 4;
+constexpr uint32_t kBf16ExpMask = 0x7F80u;
+
+// Round t's value of one column: the row's bf16 value widened (+0 for -0),
+// or NaN where another row of the column is non-finite; an index outside
+// the table reads 0 (NaN in a column with a non-finite value).
+__device__ __forceinline__ float onehot_value(uint32_t bits, bool in_table,
+                                              int bad) {
+  const bool own = in_table && (bits & kBf16ExpMask) == kBf16ExpMask;
+  if (bad > (own ? 1 : 0)) return __int_as_float(0x7fffffff);
+  return in_table ? __uint_as_float(bits << 16) + 0.0f : 0.0f;
+}
+
+__global__ void __launch_bounds__(kThreadsC) onehot_direct_kernel(
+    const OneHotParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint2* sb = reinterpret_cast<uint2*>(smem);    // bf16 [K, 8], 4 to a uint2
+  int* bad = reinterpret_cast<int*>(smem + p.k * 16);  // [8]
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // the first row's index, fetched while the table stages
+  int next = t < p.rows * kPartsC ? p.idx[t / kPartsC] : 0;
+  if (threadIdx.x < 8) bad[threadIdx.x] = 0;
+  __syncthreads();
+  // the table's float4s, kStageLoads a thread in flight at once
+  const float4* src4 = reinterpret_cast<const float4*>(p.src);
+  const int n4 = p.k * 2;
+  for (int e0 = threadIdx.x; e0 < n4; e0 += kStageLoads * blockDim.x) {
+    float4 f[kStageLoads];
+    #pragma unroll
+    for (int u = 0; u < kStageLoads; ++u) {
+      const int e = e0 + u * blockDim.x;
+      if (e < n4) f[u] = __ldg(src4 + e);
+    }
+    #pragma unroll
+    for (int u = 0; u < kStageLoads; ++u) {
+      const int e = e0 + u * blockDim.x;
+      if (e >= n4) break;
+      const float fv[4] = {f[u].x, f[u].y, f[u].z, f[u].w};
+      uint32_t h[4];
+      for (int j = 0; j < 4; ++j) {
+        h[j] = __bfloat16_as_ushort(__float2bfloat16_rn(fv[j]));
+        if ((h[j] & kBf16ExpMask) == kBf16ExpMask)
+          atomicAdd(bad + 4 * (e & 1) + j, 1);
+      }
+      sb[e] = make_uint2(h[0] | (h[1] << 16), h[2] | (h[3] << 16));
+    }
+  }
+  __syncthreads();
+  // the stride is a multiple of kPartsC: a thread keeps its two channels
+  const int q = static_cast<int>(t % kPartsC);
+  const int bad0 = bad[2 * q], bad1 = bad[2 * q + 1];
+
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(smem);
+  for (; t < p.rows * kPartsC; t += stride) {
+    const long long r = t / kPartsC;
+    const int i0 = next;
+    if (t + stride < p.rows * kPartsC) next = p.idx[(t + stride) / kPartsC];
+    float acc0 = 0.0f, acc1 = 0.0f;
+    const int rounds = p.iters == 0 ? 1 : p.iters;
+    for (int u = 0; u < rounds; ++u) {
+      const int j = p.iters == 0 || i0 < 0 ? i0 : round_index(i0, u, p.mask);
+      const bool in_table = j >= 0 && j < p.k;
+      const uint32_t w = in_table ? words[j * kPartsC + q] : 0u;
+      const float v0 = onehot_value(w & 0xFFFFu, in_table, bad0);
+      const float v1 = onehot_value(w >> 16, in_table, bad1);
+      acc0 = p.iters == 0 ? v0 : acc0 + v0;
+      acc1 = p.iters == 0 ? v1 : acc1 + v1;
+    }
+    reinterpret_cast<float2*>(p.out + r * 8)[q] = make_float2(acc0, acc1);
+  }
+}
+
 unsigned grid_for(long long n, int block) {
   return static_cast<unsigned>((n + block - 1) / block);
 }
@@ -377,12 +471,27 @@ extern "C" int vrt_row_gather(const void* src, const int32_t* idx, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// GP-C.  out[rows, 8] = onehot(idx, k) @ bf16(src[k, 8]); k % 16 == 0.
+// GP-C.  out[rows, 8] = onehot(idx, k) @ bf16(src[k, 8]); k % 16 == 0;
+// src and out 16-byte aligned.  direct 1 takes the redesign, 0 the first
+// design (the tensor cores).
 extern "C" int vrt_onehot_gather(const float* src, const int32_t* idx,
                                  float* out, int k, long long rows, int iters,
-                                 int mask, void* stream) {
+                                 int mask, int direct, void* stream) {
   OneHotParams p{src, idx, out, k, rows, iters, mask};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (direct) {
+    const int smem = k * 16 + 8 * 4;
+    if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(onehot_direct_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    long long blocks = (rows * kPartsC + kThreadsC - 1) / kThreadsC;
+    if (blocks > 132 * 8) blocks = 132 * 8;
+    if (blocks < 1) blocks = 1;
+    onehot_direct_kernel<<<static_cast<unsigned>(blocks), kThreadsC, smem,
+                           s>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int smem = k * 8 * 2;
   if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
   if (smem > 48 * 1024)

@@ -54,14 +54,43 @@
 // instead keeps the [R,7,8] rows and some hundred [R]-shaped intermediates
 // alive from the forward and differentiates them one eager kernel at a time.
 //
-// What the design does about it: a thread returns at once unless its kind
-// carries a gradient (surface, solid entry); a surface lane re-reads its rows
-// (cheaper than keeping 224 B a ray from the forward), folds each pair of
-// neighbour rows into the three field values and nine derivatives it needs
-// as they arrive, so no row stays in registers, and issues atomics only for
-// non-zero cotangents.  The sums follow the closed form's order, not
-// autograd's, and atomics add in an order that changes from run to run: the
-// result agrees with the plain version to rounding, not bit for bit.
+// What the first design (resolve_bwd_kernel) does about it: a thread returns
+// at once unless its kind carries a gradient (surface, solid entry); a
+// surface lane re-reads its rows (cheaper than keeping 224 B a ray from the
+// forward), folds each pair of neighbour rows into the three field values
+// and nine derivatives it needs as they arrive, so no row stays in
+// registers, and issues atomics only for non-zero cotangents.  The sums
+// follow the closed form's order, not autograd's, and atomics add in an
+// order that changes from run to run: the result agrees with the plain
+// version to rounding, not bit for bit.
+//
+// What held it back, on the H100: the reductions.  A surface lane issues up
+// to 56 scalar atomics (8 channels into each of 7 rows), and the lanes of a
+// warp are neighbouring pixels that mostly hit the same cell, so they add
+// into the same addresses at once and serialise in L2 (config6's primary
+// rays: 97,675 surface lanes, ~5.5 M atomics, at 7% of the launch's bound).
+// The bounce launches, with a few hundred hits, are set by their per-ray
+// traffic: 2 M lanes storing 24 B each at a stride of 12 B.
+//
+// The redesign (resolve_bwd_merged_kernel, the default, below): resident
+// blocks whose warps take rounds of 32 rays a grid apart, four at a time,
+// the next four rounds' kinds loaded while they work; every lane of a warp
+// stays to the merge point; the lanes whose hits name the same (volume,
+// cell) are grouped with __match_any_sync and their row cotangents summed
+// row by row by a shuffle tree into the group's lowest lane, which alone
+// issues the reductions, two 16-byte red.global.add.v4.f32 a row into an
+// accumulator of 16-byte rows (8 channels, or 12 for a 9-channel table: the
+// caller gets the [rows, ch] view); a round without a surface or
+// solid-entry lane writes its zero ray gradients in 16-byte stores; the
+// others write theirs as 16-byte words through a per-warp stage in shared
+// memory.  Each lane's own arithmetic is the first design's, so the ray
+// gradients are bit-equal to it; only the table's sums change order.  On
+// config6's primary rays the first design's ~5.4 M scalar atomics become at
+// most ~0.28 M 16-byte reductions (counted on the host from the closed
+// form's row cotangents and 32-ray warps); the hit path's 128 registers (capped: 2
+// blocks an SM) leave 25% of the warp slots filled, which the resident
+// blocks' prefetch of kinds works around on the miss rounds
+// (vrt_torch.apps.probe_caps resolve_bwd times each choice).
 
 #include "scene.cuh"
 
@@ -474,6 +503,413 @@ __global__ void __launch_bounds__(256) resolve_bwd_kernel(
   }
 }
 
+// ---- the backward's redesign ------------------------------------------------
+
+constexpr unsigned kFullWarp = 0xffffffffu;
+constexpr int kBwdThreads = 256;
+// Switches of the redesign, rewritten by vrt_torch.apps.probe_caps to time
+// what each part buys: merge a warp's row cotangents before the reductions;
+// 16-byte vector reductions (false: one scalar atomic a channel).  Its
+// sizes: the rounds of 32 rays a warp takes at a time, whose kinds it loads
+// at once (a launch on bounce rays is mostly warps without a hit, which only
+// read their kinds and write zeros: more loads in flight a warp); blocks an
+// SM must hold at once, a register cap (1: none; the probe varies it).
+constexpr bool kMergeRows = true;
+constexpr bool kVecReduce = true;
+constexpr int kBwdRounds = 4;
+constexpr int kBwdMinBlocks = 2;
+
+__device__ __forceinline__ void red_add_v4(float* dst, const float v[4]) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};"
+               :
+               : "l"(dst), "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3])
+               : "memory");
+}
+
+// acc_row[0..7] += v; a zero is skipped (x + 0 == x), a vector of four
+// zeros too.  acc_row is 16-byte aligned.
+__device__ __forceinline__ void add_row8(float* acc_row, const float v[8]) {
+  #pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const float* u = v + 4 * q;
+    if (kVecReduce) {
+      if (u[0] != 0.0f || u[1] != 0.0f || u[2] != 0.0f || u[3] != 0.0f)
+        red_add_v4(acc_row + 4 * q, u);
+    } else {
+      #pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (u[c] != 0.0f) atomicAdd(acc_row + 4 * q + c, u[c]);
+    }
+  }
+}
+
+// Sums v over each group of lanes that ``peers`` (this lane's
+// __match_any_sync mask) names, by a segmented tree reduction (log2 of the
+// largest group's size rounds of 8 shuffles), into the group's lowest lane,
+// which is returned; every lane of the warp calls it.  Lanes whose groups
+// are all single skip the rounds.
+__device__ __forceinline__ int merge_peers(unsigned peers, float v[8],
+                                           int lane) {
+  unsigned above = peers & (0xfffffffeu << lane);
+  unsigned rank = __popc(peers & ((1u << lane) - 1u));
+  while (__any_sync(kFullWarp, above != 0u)) {
+    const int next = __ffs(above);              // 1 + the next peer's lane
+    #pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float o = __shfl_sync(kFullWarp, v[e], next > 0 ? next - 1 : lane);
+      if (next > 0) v[e] += o;
+    }
+    // a peer at an odd rank has handed its sum down: drop it
+    above &= ~__ballot_sync(kFullWarp, rank & 1u);
+    rank >>= 1;
+  }
+  return __ffs(peers) - 1;
+}
+
+// g * w_c for the 8 corner channels, 0 where g is 0 (the first design skips
+// such a row whatever its weights).
+__device__ __forceinline__ void row_values(float g, const float w[8],
+                                           float v[8]) {
+  #pragma unroll
+  for (int c = 0; c < 8; ++c) v[c] = g == 0.0f ? 0.0f : g * w[c];
+}
+
+// One round of a warp: the 32 rays from w0, this lane's of kind ``kind``.
+// Every lane of the warp calls it and none leaves before the merge.
+template <typename E, bool kV16>
+__device__ __forceinline__ void backward_round(const ResolveBwdParams& p,
+                                               int acc_w, long long w0,
+                                               int lane, int kind,
+                                               float* stage) {
+  const long long i = w0 + lane;
+  const bool in = i < p.rays;
+  const bool full = w0 + 32 <= p.rays;
+  const bool carries = kind == kKindSurface || kind == kKindSolidEntry;
+  const bool rays_grad = p.g_o_w != nullptr;
+  if (__ballot_sync(kFullWarp, carries) == 0u) {
+    // exhausted, debug, cube and miss lanes carry no gradient
+    if (rays_grad) {
+      if (full) {
+        // [32,3] floats are 24 float4s
+        const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (lane < 24) {
+          reinterpret_cast<float4*>(p.g_o_w + 3 * w0)[lane] = z;
+          reinterpret_cast<float4*>(p.g_d_w + 3 * w0)[lane] = z;
+        }
+      } else if (in) {
+        #pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          p.g_o_w[3 * i + k] = 0.0f;
+          p.g_d_w[3 * i + k] = 0.0f;
+        }
+      }
+    }
+    return;
+  }
+
+  float g_o[3] = {0.0f, 0.0f, 0.0f};
+  float g_d[3] = {0.0f, 0.0f, 0.0f};
+  // the rows: the hit cell's (r = 0) and its neighbours' (r = 1 + 2k + s),
+  // each its index among the accumulator's rows or -1 (out of range, or not
+  // a surface lane), its cotangent g and the 8 trilinear weights
+  long long rows[7];
+  float coef[7], w8[8];
+  #pragma unroll
+  for (int r = 0; r < 7; ++r) {
+    rows[r] = -1;
+    coef[r] = 0.0f;
+  }
+  #pragma unroll
+  for (int c = 0; c < 8; ++c) w8[c] = 0.0f;
+  int a = 0;
+  if (carries) {
+    float o_w[3], d_w[3], o[3], d[3];
+    #pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      o_w[k] = p.o_w[3 * i + k];
+      d_w[k] = p.d_w[3 * i + k];
+    }
+    a = max(p.winner[i], 0);
+    world_to_object(p.inst, a, o_w, d_w, o, d);
+    const int v = __ldg(p.inst.volume + a);
+    const float ext = __ldg(p.tb.extends + v);
+    const float g_t = p.g_t[i];
+
+    if (kind == kKindSolidEntry) {
+      // resolve.py _slab_enter: the axes that attain the maximum share g_t
+      // evenly; only finite axes pass it on
+      float tk[3], inv[3];
+      float te = 0.0f;
+      #pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const bool finite = d[k] != 0.0f;
+        const float s_min = d[k] > 0.0f ? -ext : ext;
+        inv[k] = finite ? 1.0f / d[k] : 0.0f;
+        tk[k] = finite ? (s_min - o[k]) * inv[k] : -INFINITY;
+        te = k == 0 ? tk[k] : nmax(te, tk[k]);
+      }
+      int ties = 0;
+      #pragma unroll
+      for (int k = 0; k < 3; ++k) ties += tk[k] == te ? 1 : 0;
+      const float share = g_t / static_cast<float>(max(ties, 1));
+      #pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const bool takes = tk[k] == te && d[k] != 0.0f;
+        g_o[k] = takes ? -share * inv[k] : 0.0f;
+        g_d[k] = takes ? g_o[k] * tk[k] : 0.0f;
+      }
+    } else {
+      const int n = __ldg(p.tb.n + v);
+      const float h = __ldg(p.tb.cell_size + v);
+      const long long cc = p.tb.cc;
+      const int ch = p.tb.ch;
+      const long long vol_rows = static_cast<long long>(v) * cc * cc * cc;
+      const E* table = static_cast<const E*>(p.tb.corners) + vol_rows * ch;
+      const float t0r = p.t[i];
+      const float t0 = isfinite(t0r) ? t0r : 0.0f;
+      int cell[3];
+      float q[3], dh[3];
+      #pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        cell[k] = p.cell[3 * i + k];
+        const float base = static_cast<float>(cell[k]) * h - ext;
+        q[k] = ((o[k] + d[k] * t0) - base) / h;
+        dh[k] = d[k] / h;
+      }
+      const Weights wt(q);
+
+      // central differences: each pair of neighbour rows folds into the
+      // field value g[k] and its derivatives dg[k][m] in q_m as it arrives
+      float g[3], dg[3][3];
+      #pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        float diff[8];
+        #pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          int c[3] = {cell[0], cell[1], cell[2]};
+          c[k] += s == 0 ? 1 : -1;
+          float v8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+          const long long row = (c[0] * cc + c[1]) * cc + c[2];
+          if (cell_valid(c, n)) {
+            load_row<E, kV16>(table + row * ch, v8);
+            rows[1 + 2 * k + s] = vol_rows + row;
+          }
+          #pragma unroll
+          for (int j = 0; j < 8; ++j)
+            diff[j] = s == 0 ? v8[j] : diff[j] - v8[j];
+        }
+        g[k] = wt.field(diff);
+        #pragma unroll
+        for (int m = 0; m < 3; ++m) dg[k][m] = wt.field_dq(diff, m);
+      }
+
+      // the unit normal's backward
+      const float n2 = (g[0] * g[0] + g[1] * g[1]) + g[2] * g[2];
+      const bool good = n2 > 0.0f && isfinite(n2);
+      const float n2s = good ? n2 : 1.0f;
+      const float norm = sqrtf(n2s);
+      float gn[3], g_g[3];
+      #pragma unroll
+      for (int k = 0; k < 3; ++k) gn[k] = p.g_normal[3 * i + k];
+      const float dot = (gn[0] * g[0] + gn[1] * g[1]) + gn[2] * g[2];
+      #pragma unroll
+      for (int k = 0; k < 3; ++k)
+        g_g[k] = good ? gn[k] / norm - dot * g[k] / (norm * n2s) : 0.0f;
+
+      // into the hit point, then into t_surface
+      float g_p[3];
+      #pragma unroll
+      for (int m = 0; m < 3; ++m)
+        g_p[m] = (g_g[0] * dg[0][m] + g_g[1] * dg[1][m]) + g_g[2] * dg[2][m];
+      const float g_ts =
+          g_t + ((g_p[0] * dh[0] + g_p[1] * dh[1]) + g_p[2] * dh[2]);
+
+      // the IFT term: F'(t0) in _trilinear_rows_dt's order, so that
+      // ``safe`` decides as the plain version does
+      float vc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      const long long center_row = (cell[0] * cc + cell[1]) * cc + cell[2];
+      if (cell_valid(cell, n)) {
+        load_row<E, kV16>(table + center_row * ch, vc);
+        rows[0] = vol_rows + center_row;
+      }
+      float term[8];
+      #pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int b[3] = {j & 1, (j >> 1) & 1, (j >> 2) & 1};
+        float w[3], dwq[3];
+        #pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          w[k] = wt.m[k][b[k]];
+          dwq[k] = wt.s[k][b[k]] * dh[k];
+        }
+        term[j] = ((dwq[0] * w[1] + w[0] * dwq[1]) * w[2] +
+                   (w[0] * w[1]) * dwq[2]) * vc[j];
+      }
+      const float fp = sum8(term);
+      const bool safe = isfinite(fp) && fabsf(fp) > 1e-12f;
+      const float g_f0 = safe ? -g_ts / fp : 0.0f;
+      #pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        g_p[m] = g_p[m] + g_f0 * wt.field_dq(vc, m);
+        g_o[m] = g_p[m] / h;
+        g_d[m] = g_o[m] * t0;
+      }
+
+      // g_f0 * w into the hit cell's row, +-g_g[k] * w into the neighbours'
+      coef[0] = g_f0;
+      #pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        coef[1 + 2 * k] = g_g[k];
+        coef[2 + 2 * k] = -g_g[k];
+      }
+      #pragma unroll
+      for (int c = 0; c < 8; ++c) w8[c] = wt.w(c);
+    }
+  }
+
+  if (p.acc != nullptr) {
+    // every lane of the warp takes part; a lane without rows merges alone
+    // (a key no other lane holds) and adds nothing.  Lanes of one (volume,
+    // cell) share all seven rows and which of them are in range; a lane
+    // whose hit cell is out of range merges alone.  The rows merge one
+    // after another, so that 8 sums are in flight, not 56.
+    float* acc = p.acc;
+    unsigned peers = 1u << lane;
+    if (kMergeRows)
+      peers = __match_any_sync(kFullWarp,
+                               rows[0] >= 0 ? rows[0] : -1 - lane);
+    #pragma unroll
+    for (int r = 0; r < 7; ++r) {
+      float v[8];
+      row_values(coef[r], w8, v);
+      const bool leads = kMergeRows ? merge_peers(peers, v, lane) == lane
+                                    : true;
+      if (leads && rows[r] >= 0) add_row8(acc + rows[r] * acc_w, v);
+    }
+  }
+
+  if (rays_grad) {
+    // the transpose of world_to_object: rotate by rot, divide by scale;
+    // exact zeros on the lanes without a gradient, as the first design
+    float go_w[3] = {0.0f, 0.0f, 0.0f}, gd_w[3] = {0.0f, 0.0f, 0.0f};
+    if (carries) {
+      float qv[3], go[3], gd[3];
+      #pragma unroll
+      for (int k = 0; k < 3; ++k) qv[k] = __ldg(p.inst.rot + 4 * a + k);
+      const float qw = __ldg(p.inst.rot + 4 * a + 3);
+      rotate(qv, qw, g_o, go);
+      rotate(qv, qw, g_d, gd);
+      #pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float s = __ldg(p.inst.scale + 3 * a + k);
+        go_w[k] = go[k] / s;
+        gd_w[k] = gd[k] / s;
+      }
+    }
+    if (full) {
+      // the warp's [32,3] spans through its stage, as 24 float4s each
+      float* so = stage;
+      float* sd = stage + 96;
+      __syncwarp();                          // the last round's reads
+      #pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        so[3 * lane + k] = go_w[k];
+        sd[3 * lane + k] = gd_w[k];
+      }
+      __syncwarp();
+      if (lane < 24) {
+        reinterpret_cast<float4*>(p.g_o_w + 3 * w0)[lane] =
+            reinterpret_cast<const float4*>(so)[lane];
+        reinterpret_cast<float4*>(p.g_d_w + 3 * w0)[lane] =
+            reinterpret_cast<const float4*>(sd)[lane];
+      }
+    } else if (in) {
+      #pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        p.g_o_w[3 * i + k] = go_w[k];
+        p.g_d_w[3 * i + k] = gd_w[k];
+      }
+    }
+  }
+}
+
+// Resident blocks: warp w takes the rounds of 32 rays w, w + W, w + 2W, ...
+// (W the grid's warps: neighbouring rays, which hit together, go to
+// different warps), kBwdRounds at a time, their kinds loaded at once, and
+// loads the next kBwdRounds kinds before it works on these.  acc has rows of acc_w
+// floats (8 or 12), 16-byte aligned.
+template <typename E, bool kV16>
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
+    resolve_bwd_merged_kernel(const ResolveBwdParams p, int acc_w) {
+  __shared__ __align__(16) float stage[kBwdThreads / 32][2 * 96];
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      static_cast<long long>(blockIdx.x) * (kBwdThreads / 32) +
+      (threadIdx.x >> 5);
+  const long long warps = static_cast<long long>(gridDim.x) *
+                          (kBwdThreads / 32);
+  const auto kind_of = [&](long long round) {
+    const long long i = (warp + round * warps) * 32 + lane;
+    return i < p.rays ? p.kind[i] : 0;
+  };
+  int kinds[kBwdRounds];
+  #pragma unroll
+  for (int r = 0; r < kBwdRounds; ++r) kinds[r] = kind_of(r);
+  #pragma unroll 1
+  for (long long first = 0; (warp + first * warps) * 32 < p.rays;
+       first += kBwdRounds) {
+    int next[kBwdRounds];
+    #pragma unroll
+    for (int r = 0; r < kBwdRounds; ++r)
+      next[r] = kind_of(first + kBwdRounds + r);
+    #pragma unroll 1
+    for (int r = 0; r < kBwdRounds; ++r) {
+      const long long w0 = (warp + (first + r) * warps) * 32;
+      if (w0 >= p.rays) break;                 // the whole warp
+      backward_round<E, kV16>(p, acc_w, w0, lane, kinds[0],
+                              stage[threadIdx.x >> 5]);
+      // the next round's kind to the front, in registers
+      #pragma unroll
+      for (int q = 0; q + 1 < kBwdRounds; ++q) kinds[q] = kinds[q + 1];
+    }
+    #pragma unroll
+    for (int r = 0; r < kBwdRounds; ++r) kinds[r] = next[r];
+  }
+}
+
+// The blocks of the merged kernel's grid: enough to cover the rays in one
+// pass of kBwdRounds rounds a warp, at most as many as the SMs hold at once
+// (found once a variant, on the card of its first launch).
+template <typename E, bool kV16>
+long long merged_blocks(long long rays, cudaError_t& err) {
+  const long long per_block = static_cast<long long>(kBwdThreads) *
+                              kBwdRounds;
+  const long long blocks = (rays + per_block - 1) / per_block;
+  static const long long resident = [&] {
+    int device = 0, sms = 0, per_sm = 0;
+    err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, resolve_bwd_merged_kernel<E, kV16>, kBwdThreads, 0);
+    return static_cast<long long>(max(per_sm, 1)) * sms;
+  }();
+  return blocks < resident ? blocks : resident;
+}
+
+template <typename E, bool kV16>
+cudaError_t launch_merged(const ResolveBwdParams& p, int acc_w,
+                          cudaStream_t s) {
+  cudaError_t err = cudaSuccess;
+  const long long blocks = merged_blocks<E, kV16>(p.rays, err);
+  if (err != cudaSuccess) return err;
+  resolve_bwd_merged_kernel<E, kV16>
+      <<<static_cast<unsigned>(blocks), kBwdThreads, 0, s>>>(p, acc_w);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // One thread per ray.  bf16 1 reads the corner table as bf16 bits, else as
@@ -505,10 +941,13 @@ extern "C" int vrt_resolve_scene(
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward: one thread per ray.  g_o_w and g_d_w (both or neither) and
-// acc may be null: that output is then skipped.  acc is an f32 [V*C^3, ch]
-// buffer the caller zeroed.  bf16 and v16 as above.  Returns
-// cudaGetLastError().
+// The backward.  g_o_w and g_d_w (both or neither) and
+// acc may be null: that output is then skipped.  acc is an f32 buffer the
+// caller zeroed, of V*C^3 rows of acc_w floats (read only with acc).
+// merged 1 takes the redesign (resolve_bwd_merged_kernel), whose acc_w is 8
+// or 12 and whose acc, g_o_w and g_d_w are 16-byte aligned; merged 0 the
+// first design (resolve_bwd_kernel), whose acc_w is ch.  bf16 and v16 as
+// above.  Returns cudaGetLastError().
 extern "C" int vrt_resolve_scene_bwd(
     const float* o_w, const float* d_w, const int32_t* winner,
     const int32_t* kind, const float* t, const int32_t* cell,
@@ -517,8 +956,15 @@ extern "C" int vrt_resolve_scene_bwd(
     int n_inst, const int32_t* n, const float* cell_size,
     const float* extends, const void* corners, int cc, int ch, int bf16,
     int v16, long long rays, float* g_o_w, float* g_d_w, float* acc,
-    void* stream) {
+    int acc_w, int merged, void* stream) {
   if (n_inst < 1 || ch < 8 || (g_o_w == nullptr) != (g_d_w == nullptr))
+    return cudaErrorInvalidValue;
+  const auto misaligned = [](const void* x) {
+    return reinterpret_cast<uintptr_t>(x) % 16 != 0;
+  };
+  if (merged ? (acc != nullptr && acc_w != 8 && acc_w != 12) ||
+                   misaligned(acc) || misaligned(g_o_w) || misaligned(g_d_w)
+             : acc != nullptr && acc_w != ch)
     return cudaErrorInvalidValue;
   const ResolveBwdParams p{
       o_w, d_w, winner, kind, t, cell, g_t, g_normal,
@@ -526,6 +972,16 @@ extern "C" int vrt_resolve_scene_bwd(
       Tables{n, cell_size, extends, nullptr, corners, nullptr, cc, ch},
       rays, g_o_w, g_d_w, acc};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (merged) {
+    cudaError_t err;
+    if (bf16)
+      err = v16 ? launch_merged<uint16_t, true>(p, acc_w, s)
+                : launch_merged<uint16_t, false>(p, acc_w, s);
+    else
+      err = v16 ? launch_merged<float, true>(p, acc_w, s)
+                : launch_merged<float, false>(p, acc_w, s);
+    return static_cast<int>(err);
+  }
   const unsigned grid = static_cast<unsigned>((rays + 255) / 256);
   if (bf16) {
     if (v16) resolve_bwd_kernel<uint16_t, true><<<grid, 256, 0, s>>>(p);

@@ -7,7 +7,9 @@ wrappers and their plain-torch versions.
   1 to 128 elements (f32, i32, bf16, u8 or i8), by one of three load
   paths (``"ldg"``, ``"v16"``, ``"smem"``);
 - GP-C ``onehot_gather``: ``onehot(idx, K) @ bf16(src)`` for an f32 [K, 8]
-  table, on the tensor cores.
+  table, as a direct gather of the bf16-rounded row (NaN in a column where
+  another row is non-finite, as the matmul's 0 * Inf gives); its first
+  design, on the tensor cores, stays behind ``_old_design``.
 
 Each takes ``iters`` rounds when ``iters > 0``: round t reads at
 ``(idx + t) & mask``, and the rounds are summed into an f32 accumulator
@@ -49,7 +51,8 @@ def build() -> str:
     lib.vrt_take_along_axis.argtypes = [ptr] * 3 + [i32] * 7 + [ptr]
     lib.vrt_row_gather.argtypes = ([ptr] * 3 + [i64, i64] + [i32] * 6
                                    + [ptr])
-    lib.vrt_onehot_gather.argtypes = [ptr] * 3 + [i32, i64, i32, i32, ptr]
+    lib.vrt_onehot_gather.argtypes = [ptr] * 3 + [i32, i64, i32, i32, i32,
+                                                   ptr]
     for fn in (lib.vrt_take_along_axis, lib.vrt_row_gather,
                lib.vrt_onehot_gather):
         fn.restype = i32
@@ -200,16 +203,21 @@ def row_gather_cuda(src, idx, iters: int = 0, mask: int = -1,
     return out
 
 
-def onehot_gather_cuda(src, idx, iters: int = 0, mask: int = -1):
-    """GP-C on ``torch.cuda.current_stream()``: f32 [len(idx), 8]."""
+def onehot_gather_cuda(src, idx, iters: int = 0, mask: int = -1,
+                       _old_design: bool = False):
+    """GP-C on ``torch.cuda.current_stream()``: f32 [len(idx), 8].  The
+    direct gather; ``_old_design`` runs the first design (``mma.sync`` over
+    the one-hot matrix), the probe's comparator, which no path takes.  Both
+    equal ``onehot_gather_reference`` bit for bit on finite tables and give
+    its NaN columns on others."""
     dev = _common("GP-C", src, idx, iters, mask)
     if src.dtype != torch.float32 or src.dim() != 2 or src.shape[1] != 8:
         raise ValueError(f"GP-C takes an f32 [K, 8] table, got {src.dtype} "
                          f"{tuple(src.shape)}")
     k = src.shape[0]
-    if k == 0 or k % 16 or k * 8 * 2 > SMEM_BYTES:
-        raise ValueError(f"GP-C takes K a multiple of 16 with K * 16 bytes "
-                         f"<= {SMEM_BYTES}, got K = {k}")
+    if k == 0 or k % 16 or k * 8 * 2 + 32 > SMEM_BYTES:
+        raise ValueError(f"GP-C takes K a multiple of 16 with K * 16 + 32 "
+                         f"bytes <= {SMEM_BYTES}, got K = {k}")
     if idx.dim() != 1:
         raise ValueError(f"GP-C takes 1-D indices, got {tuple(idx.shape)}")
     out = torch.empty((idx.shape[0], 8), dtype=torch.float32, device=dev)
@@ -218,6 +226,6 @@ def onehot_gather_cuda(src, idx, iters: int = 0, mask: int = -1):
     build()
     _launched("GP-C", _lib.vrt_onehot_gather(
         src.data_ptr(), idx.data_ptr(), out.data_ptr(), k, idx.shape[0],
-        iters, mask, _stream(dev)))
+        iters, mask, int(not _old_design), _stream(dev)))
     return out
 

@@ -15,12 +15,16 @@ memory.  Backward: one thread per ray computes what
 ``renderer.resolve_scene_backward_reference`` (its plain version, the
 closed form of ``march.resolve.resolve_hits_backward``) computes, from the
 rays, the hit's kind, t and cell and the two cotangents: it re-reads the 7
-rows on surface lanes, keeps every intermediate in registers and adds the
-corner cotangents into an f32 accumulator with atomics.  Built with
+rows on surface lanes and keeps every intermediate in registers; the lanes
+of a warp that hit one cell sum their corner cotangents (a shuffle tree)
+before one of them adds them into an f32 accumulator with 16-byte
+reductions (its rows 16 bytes wide: ``accumulator``).  Built with
 ``--fmad=false`` like K1, so the forward rounds as eager PyTorch does and
 equals its plain version bit for bit; the backward sums in another order
-than autograd and its atomics in an order that changes from run to run, so
-it agrees with its plain version to rounding.
+than autograd and its reductions in an order that changes from run to
+run, so it agrees with its plain version to rounding.  Its first design
+(one scalar atomic a channel, private ``_old_design``) stays as
+``chip_smoke.py``'s comparator; the two give bit-equal ray gradients.
 
 ``ResolveScene`` is what ``renderer.resolve_scene`` calls.  On CUDA tensors
 its forward and backward are the two kernels; on CPU tensors, and only
@@ -63,7 +67,7 @@ def build() -> str:
     lib.vrt_resolve_scene.restype = i32
     lib.vrt_resolve_scene_bwd.argtypes = ([ptr] * 12 + [i32] + [ptr] * 4
                                           + [i32] * 4 + [ctypes.c_longlong]
-                                          + [ptr] * 3 + [ptr])
+                                          + [ptr] * 3 + [i32] * 2 + [ptr])
     lib.vrt_resolve_scene_bwd.restype = i32
     _lib = lib
     return log
@@ -171,31 +175,51 @@ def resolve_scene_cuda(scene, o_w, d_w, hit: MarchHit, inst):
     return t, normal, unlit
 
 
+def accumulator(rows: int, ch: int, device):
+    """The redesigned backward's f32 accumulator for a table of ``rows``
+    rows of ``ch`` channels: (a zeroed [rows, w] buffer, w = ``ch``
+    rounded up to a multiple of 4, and its [rows, ch] view).  Rows of 16
+    bytes take the kernel's 16-byte reductions (8 channels: the buffer is
+    the view; a 9-channel table's rows get 12 floats, the last 4 never
+    written), and the view costs no copy."""
+    width = -(-ch // 4) * 4
+    buf = torch.zeros((rows, width), dtype=torch.float32, device=device)
+    return buf, buf[:, :ch]
+
+
 def resolve_scene_backward_cuda(scene, o_w, d_w, hit: MarchHit, inst, g_t,
                                 g_normal, rays_grad: bool = True,
-                                table_grad: bool = True):
+                                table_grad: bool = True,
+                                _old_design: bool = False):
     """Launch the fused resolve's backward on
     ``torch.cuda.current_stream()``: the cotangents ``g_t`` [R] and
     ``g_normal`` [R,3] of ``resolve_scene_cuda``'s t and normal, pulled
     back to the world rays and to the corner table (an f32 [V*C^3, ch]
-    buffer, zeroed here and added into by atomics; the caller casts it to
-    the table's dtype).  Reads ``hit.kind``, ``hit.t`` and ``hit.cell``
-    only.  ``rays_grad=False`` / ``table_grad=False`` skip an output nobody
-    needs and return None for it.  Raises on any input the kernel does not
-    take; never falls back."""
+    view of ``accumulator``'s buffer, zeroed here and added into by
+    reductions; the caller casts it to the table's dtype).  Reads
+    ``hit.kind``, ``hit.t`` and ``hit.cell`` only.  ``rays_grad=False`` /
+    ``table_grad=False`` skip an output nobody needs and return None for
+    it.  ``_old_design`` runs the first design (one scalar atomic a
+    channel into a contiguous [V*C^3, ch] buffer), the comparator of
+    ``chip_smoke.py``: no path of the port takes it; its ray gradients
+    equal the redesign's bit for bit.  Raises on any input the kernel does
+    not take; never falls back."""
     dev, rays, table, n_inst = _check_inputs(scene, o_w, d_w, hit, inst,
                                              "the fused resolve's backward")
     _check(g_t, "g_t", torch.float32, (rays,), dev)
     _check(g_normal, "g_normal", torch.float32, (rays, 3), dev)
     corners = scene.volumes.corners
     ch = corners.shape[-1]
-    g_o_w = g_d_w = acc = None
+    g_o_w = g_d_w = acc = buf = None
     if rays_grad:
         g_o_w = torch.empty((rays, 3), dtype=torch.float32, device=dev)
         g_d_w = torch.empty((rays, 3), dtype=torch.float32, device=dev)
     if table_grad:
-        acc = torch.zeros((corners.numel() // ch, ch), dtype=torch.float32,
-                          device=dev)
+        if _old_design:
+            buf = acc = torch.zeros((corners.numel() // ch, ch),
+                                    dtype=torch.float32, device=dev)
+        else:
+            buf, acc = accumulator(corners.numel() // ch, ch, dev)
     if rays == 0 or not (rays_grad or table_grad):
         return g_o_w, g_d_w, acc
     build()
@@ -206,7 +230,9 @@ def resolve_scene_backward_cuda(scene, o_w, d_w, hit: MarchHit, inst, g_t,
         *_scene_args(scene, table, n_inst), rays,
         g_o_w.data_ptr() if rays_grad else None,
         g_d_w.data_ptr() if rays_grad else None,
-        acc.data_ptr() if table_grad else None, _stream(dev))
+        buf.data_ptr() if table_grad else None,
+        buf.shape[1] if table_grad else 0, int(not _old_design),
+        _stream(dev))
     if err != 0:
         raise RuntimeError(f"fused resolve backward launch failed: "
                            f"cudaError {err}")
