@@ -5,14 +5,16 @@
 Phases, each of which raises on failure:
 
 1. device  -- needs a CUDA card; prints its name and power limit,
-2. build   -- compiles the march K1 (per-lane and scene kernels), the
+2. build   -- compiles the march K1 (per-lane and scene kernels) with K7
+             (the slab march, the same source), the
              gather library (GP-A, GP-B, GP-C), the row gather K3, the fused
              resolve (forward and backward) and the four shade kernels K4
              (surface and combine, forward and backward) from
              ``vrt_torch/csrc/``, one nvcc each, and the import's native
              library (``vrt_torch/native/vrtnative.cpp``) with g++, all in
              parallel, and prints
-             ptxas' register and spill lines, and for the redesigned
+             ptxas' register and spill lines, K1's per-lane kernel and K7
+             side by side, and for the redesigned
              kernels (the capped scene march, the merged surface backward,
              the resident surface and combine kernels, the merged resolve
              backward) and their first designs the registers, stack
@@ -171,6 +173,34 @@ Phases, each of which raises on failure:
              phase 5's tolerance; ``python -m vrt_torch.apps.voxelize`` (the
              same grid) and ``python -m vrt_torch.apps.render`` at 1080p
              (the PNG read back) in processes of their own.
+11. config5 -- config5 of ``vrt/apps/scaling.py``: its 513^3 CSG volume
+             (``vrt_torch.scenes.config5_slab_volume``, baked on the host in
+             threads) split by ``shard_volume`` into 4 x-slabs, one a model
+             rank; the 4 ranks are processes (``spawn``) on this one card,
+             joined over gloo through a ``FileStore`` (NCCL needs a card a
+             rank), each loading the kernels built in phase 2.  Each rank
+             renders ``render_slab_image`` of the stub scene at 1920x1080
+             three times after a warm-up (launches asserted: 2 K7, 1 slab
+             resolve, 1 + 1 shade a frame, no scene march; host clock from
+             a barrier, and the collectives' host seconds), and at 160x90;
+             every K7 launch of a 480x270 and a 1080p frame against
+             ``march_volume_slab_reference`` field by field (lanes on the
+             step cap counted), every slab-resolve launch against
+             ``resolve_slab_hits`` on the lanes whose hit the rank owns
+             (equal, NaN equal to NaN), the 1080p launches timed while the
+             other ranks wait at a barrier, with K7's bound and each rank's
+             primary march steps; then rank 2 edits a plane that rank 1
+             holds as a halo, and after ``exchange_halos`` every slab equals
+             a fresh ``shard_volume`` of the edited volume.  The 1080p frame
+             must lie within ``tests/test_slab_render.py``'s gates of the
+             replicated ``render_image`` of the same volume (f32 table,
+             octree accel), and the 160x90 frame within phase 5's tolerance
+             of ``vrt``'s CPU render
+             (``tests/fixtures/config5_r9_slab4_160x90.npy``).  Last, the
+             flagship frame at 1080p split over 2 data ranks
+             (``render_image_sharded``), equal to ``render_image`` bit for
+             bit, with its launches asserted (5 scene marches, 3 resolves,
+             3 + 3 shade a frame on each rank).
 Last, two yardsticks that the port uses nowhere: the 1080p frame with eager
 shading captured into one CUDA graph and replayed (the run fails unless the
 capture succeeds and the replay gives the eager frame), and ``torch.compile``
@@ -2555,6 +2585,525 @@ def _config3(dev, card, sync, zero_counts, counts, gxx_s):
     return dict(counts=c3_counts, held=held, numbers=numbers)
 
 
+# ---- phase 11: config5 and the ray-sharded frame ------------------------------
+
+CONFIG5_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                               "config5_r9_slab4_160x90.npy")
+CONFIG5_RANKS = 4     # model ranks of the slab frame, all on cuda:0 (gloo)
+SHARDED_RANKS = 2     # data ranks of the ray-sharded flagship frame
+RANK_TIMEOUT = 600.0  # seconds a world of ranks may take
+# a K7 launch moves, per ray, o, d, t_max in (28 B) and the hit out (45 B)
+SLAB_IN_BYTES, SLAB_OUT_BYTES = 28, 45
+
+
+def _slab_bound(tables, hit, interp):
+    """K7's bound from what these rays need (its result ``hit``, equal to
+    the twin's): 73 B a ray, one accel byte a node step and one 32-byte
+    corner row a surface or solid-entry hit in interp mode (one density a
+    step in cube mode), no table beyond its size."""
+    rays = hit.hit.numel()
+    steps = int(hit.steps.sum())
+    rows = int(((hit.kind == 1) | (hit.kind == 2)).sum())
+    table = min(steps, tables["accel_u8"].numel())
+    if interp:
+        table += min(rows * 32, tables["corners"].numel() * 4)
+    else:
+        table += min(4 * steps, tables["sdf"].numel() * 4)
+    flops = rays * LANE_FLOPS + steps * STEP_FLOPS + rows * SURFACE_FLOPS
+    return _bound(rays * (SLAB_IN_BYTES + SLAB_OUT_BYTES) + table, flops)
+
+
+def _hits_equal(a, b):
+    """Fields of two MarchHits that differ (NaN equal to NaN)."""
+    import torch
+
+    bad = {}
+    for f in ("hit", "t", "kind", "cell", "t_in", "t_out", "face_normal",
+              "steps"):
+        x, y = getattr(a, f), getattr(b, f)
+        same = (x == y) | (torch.isnan(x) & torch.isnan(y)) \
+            if x.is_floating_point() else x == y
+        if not bool(same.all()):
+            bad[f] = int((~same).sum())
+    return bad
+
+
+def _rank_counts():
+    from vrt_torch.dist import mesh
+    from vrt_torch.kernels import march as k1
+    from vrt_torch.kernels import resolve as kr
+    from vrt_torch.kernels import shade as k4
+
+    return dict(k7=k1.SLAB_LAUNCHES, k1=k1.LAUNCHES, scene=k1.SCENE_LAUNCHES,
+                resolve=kr.LAUNCHES["forward"], slab_resolve=kr.SLAB_LAUNCHES,
+                surface=k4.LAUNCHES["surface"],
+                combine=k4.LAUNCHES["combine"],
+                collectives={k: v for k, v in mesh.STATS.items()
+                             if k != "seconds"})
+
+
+def _rank_zero_counts():
+    from vrt_torch.dist import mesh
+    from vrt_torch.kernels import march as k1
+    from vrt_torch.kernels import resolve as kr
+    from vrt_torch.kernels import shade as k4
+
+    k1.SLAB_LAUNCHES = k1.LAUNCHES = k1.SCENE_LAUNCHES = 0
+    kr.SLAB_LAUNCHES = 0
+    _reset(kr.LAUNCHES)
+    _reset(k4.LAUNCHES)
+    mesh.reset_stats()
+
+
+def _rank_frames(render, n=3):
+    """``n`` frames of ``render()`` after a warm-up, each from a barrier of
+    all ranks to the card's end on this rank (host clock), with this rank's
+    launches and the collectives' host seconds over the ``n``."""
+    import torch
+    import torch.distributed as dist
+
+    from vrt_torch.dist import mesh
+
+    render()
+    torch.cuda.synchronize()
+    _rank_zero_counts()
+    runs = []
+    for _ in range(n):
+        dist.barrier()
+        t0 = time.perf_counter()
+        img = render()
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    return img, runs, _rank_counts(), mesh.STATS["seconds"]
+
+
+def _one_at_a_time(fn):
+    """``fn()`` on each rank in turn while the others wait at a barrier,
+    so that no other rank shares the card while one is timed."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(dist.get_world_size()):
+        dist.barrier()
+        if r == dist.get_rank():
+            out = fn()
+        dist.barrier()
+    return out
+
+
+def _config5_rank(rank, world, td, geometry):
+    """One model rank of phase 11's slab frame: its slab of config5 from
+    ``td``, the stub scene, the 1080p frames (launches and host clock), the
+    160x90 frame, every K7 and slab-resolve launch against its plain version
+    and timed while the other ranks wait, and the halo refresh after rank
+    2's plane edit, against a fresh split of the edited volume."""
+    import numpy as np
+    import torch
+
+    from vrt_torch.dist import brick, mesh
+    from vrt_torch.dist.slab_render import (SlabTracer, default_fit_scene,
+                                            render_slab_image)
+    from vrt_torch.kernels import march as k1
+    from vrt_torch.kernels import resolve as kr
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.kernels._timing import device_ms
+    from vrt_torch.march.march import MAX_ITERATIONS
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    for build in (k1.build, kr.build, k4.build):
+        build()                               # built by the parent: loads
+    m = mesh.make_render_mesh(1, world, "cuda")
+    group = mesh.axis_group(m, mesh.MODEL_AXIS)[0]
+    with np.load(os.path.join(td, f"slab{rank}.npz")) as f:
+        slab = brick.SlabVolume(**{k: torch.from_numpy(f[k]).to(dev)
+                                   for k in brick._FIELDS})
+    n, h, ext, light = geometry
+    scene = default_fit_scene(n, h, ext, light, device=dev)
+    out = {"backend": mesh.init_distributed("gloo")}
+
+    def frame(w, hh):
+        return render_slab_image(scene, slab, m, w, hh)
+
+    img, runs, counts, coll_s = _rank_frames(
+        lambda: frame(FRAME_W, FRAME_H))
+    out.update(frame_s=runs, counts=counts, collective_s=coll_s)
+    if rank == 0:
+        out["frame"] = img[..., :3].cpu().numpy()
+    small = frame(160, 90)
+    if rank == 0:
+        out["small"] = small[..., :3].cpu().numpy()
+
+    # every K7 and slab-resolve launch of a 480x270 and a 1080p frame
+    held = {}
+    for tag, (w, hh) in (("480x270", (SMALL_W, SMALL_H)),
+                         ("1080p", (FRAME_W, FRAME_H))):
+        with _recording(k1, "march_slab_cuda") as marches, \
+                _recording(kr, "resolve_slab_cuda") as resolves:
+            frame(w, hh)
+        torch.cuda.synchronize()
+        held[tag] = (marches, resolves)
+
+    def plain_march(args, kw):
+        return brick.march_volume_slab_reference(*args, **kw)
+
+    def plain_resolve(args):
+        sc, sl, o_w, d_w, hit, inst = args
+        o, d = SlabTracer(sl, group)._object_rays(sc, o_w, d_w)
+        return brick.resolve_slab_hits(sl, o, d, hit)
+
+    def check():
+        """Every launch against its plain version, the 1080p ones timed;
+        run on this rank while the others wait."""
+        k7 = dict(launches_small=len(held["480x270"][0]), diffs=[],
+                  capped=[], ms=[], plain_ms=[], bounds=[], steps=[])
+        rs = dict(launches_small=len(held["480x270"][1]), diffs=[], ms=[],
+                  plain_ms=[], owned=[], bounds=[])
+        for tag, (marches, resolves) in held.items():
+            for i, (args, kw, got) in enumerate(marches):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                want = plain_march(args, kw)
+                end.record()
+                end.synchronize()
+                k7["diffs"].append((tag, i, _hits_equal(got, want)))
+                k7["capped"].append(
+                    (tag, i, int((got.steps >= MAX_ITERATIONS).sum()),
+                     int((want.steps >= MAX_ITERATIONS).sum())))
+                if tag == "1080p":
+                    k7["plain_ms"].append(start.elapsed_time(end))
+                    k7["steps"].append(int(want.steps.sum()))
+                    k7["bounds"].append(_slab_bound(args[0].march_tables,
+                                                    want, args[4]))
+                    k7["ms"].append(device_ms(
+                        lambda: k1.march_slab_cuda(*args, **kw), 10))
+                del want
+            for i, (args, _, got) in enumerate(resolves):
+                with torch.no_grad():
+                    want = plain_resolve(args)
+                hit, sl = args[4], args[1]
+                owned = (hit.hit & (hit.cell[:, 0] >= sl.cell_lo)
+                         & (hit.cell[:, 0] < sl.cell_hi))
+                bad = {}
+                for name, a, b in zip(("t", "normal", "unlit"), got, want):
+                    a, b = a[owned], b[owned]
+                    same = (a == b) | ((a != a) & (b != b))
+                    if not bool(same.all()):
+                        bad[name] = int((~same).sum())
+                rs["diffs"].append((tag, i, bad))
+                rs["owned"].append((tag, i, int(owned.sum())))
+                if tag == "1080p":
+                    rs["ms"].append(device_ms(
+                        lambda: kr.resolve_slab_cuda(*args), 10))
+                    rs["plain_ms"].append(device_ms(
+                        lambda: plain_resolve(args), 3))
+                    rs["bounds"].append(_slab_resolve_bound(hit, sl))
+                del want
+        return k7, rs
+
+    k7, rs = _one_at_a_time(check)
+    out.update(k7=k7, resolve=rs, cell_lo=int(slab.cell_lo),
+               cell_hi=int(slab.cell_hi))
+    del held, marches, resolves, k7, rs
+
+    # the halo refresh: rank 2 edits its plane cell_lo + 1 (in rank 1's
+    # right halo); after the exchange every slab is a fresh split's
+    with np.load(os.path.join(td, "edit.npz")) as f:
+        pattern = torch.from_numpy(f["pattern"]).to(dev)
+    sdf = slab.sdf.clone()
+    if rank == 2:
+        sdf[brick.HALO + 1] += pattern
+    import dataclasses
+
+    refreshed = brick.exchange_halos(dataclasses.replace(slab, sdf=sdf),
+                                     group)
+    with np.load(os.path.join(td, f"fresh{rank}.npz")) as f:
+        fresh = torch.from_numpy(f["sdf"]).to(dev)
+    out["halo_equal"] = bool(torch.equal(refreshed.sdf, fresh))
+    out["halo_changed"] = bool(not torch.equal(refreshed.sdf, slab.sdf))
+    out["staged"] = mesh.STATS["staged"]
+    return out
+
+
+def _slab_resolve_bound(hit, slab):
+    """The slab resolve's bound from what these hits need, as
+    ``_resolve_bound`` counts it: each distinct row of the slab's f32 table
+    (32 B) that the surface hits' six neighbours name, once."""
+    import torch
+
+    from vrt_torch.march.resolve import _OFFS7
+
+    rays = hit.kind.numel()
+    surf = hit.kind == 1
+    n_surf = int(surf.sum())
+    n_solid = int((hit.kind == 2).sum())
+    n_debug = int((hit.kind == 5).sum())
+    tb = slab.march_tables
+    cx, cc = tb["corners"].shape[0], tb["corners"].shape[1]
+    cells = hit.cell[surf][:, None, :] + torch.as_tensor(
+        _OFFS7[1:], device=hit.cell.device)
+    lx = cells[..., 0] - tb["x0"]
+    valid = (torch.all((cells >= 0) & (cells + 1 < tb["n"]), dim=-1)
+             & (lx >= 0) & (lx < cx))
+    flat = (lx.long() * cc + cells[..., 1]) * cc + cells[..., 2]
+    rows = int(torch.unique(flat[valid]).numel())
+    nbytes = (rays * (8 + 17) + (rays - n_surf - n_debug) * 12
+              + (n_surf + n_solid) * 28 + n_surf * 12 + rows * 32)
+    return _bound(nbytes, n_surf * RESOLVE_FLOPS)
+
+
+def _sharded_rank(rank, world):
+    """One data rank of phase 11's ray-sharded flagship frame at 1080p."""
+    import torch
+
+    from vrt_torch.dist import mesh
+    from vrt_torch.dist.sharding import render_image_sharded
+    from vrt_torch.kernels import march as k1
+    from vrt_torch.kernels import resolve as kr
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.render.gpuscene import RenderMode
+    from vrt_torch.scenes import flagship_scene
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    for build in (k1.build, kr.build, k4.build):
+        build()
+    scene = flagship_scene(7, "chebyshev", torch.bfloat16, device=dev)
+    m = mesh.make_render_mesh(world, 1, "cuda")
+    img, runs, counts, coll_s = _rank_frames(
+        lambda: render_image_sharded(scene, FRAME_W, FRAME_H, RenderMode(),
+                                     m))
+    return dict(img=img.cpu().numpy() if rank == 0 else None, frame_s=runs,
+                counts=counts, collective_s=coll_s)
+
+
+def _config5(dev, card, sync):
+    """Phase 11: config5 of ``vrt/apps/scaling.py`` (the 513^3 CSG volume,
+    octree accel, ``default_fit_scene``) sharded into 4 x-slabs over 4 model
+    ranks, every rank a process on this card joined over gloo; and the
+    flagship frame split over 2 data ranks.  Returns dict(numbers, k7,
+    launches)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vrt_torch.core import quat as vq
+    from vrt_torch.dist import brick, mesh
+    from vrt_torch.render.gpuscene import RenderMode
+    from vrt_torch.render.renderer import render_image
+    from vrt_torch.scenes import (CONFIG5_LIGHT_EULER, config5_scene,
+                                  config5_slab_volume, flagship_scene)
+    from vrt_torch.volume.volume import VoxelVolume
+
+    t0 = time.perf_counter()
+    vol = config5_slab_volume(9)
+    bake_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slabs = brick.shard_volume(vol, CONFIG5_RANKS)
+    shard_s = time.perf_counter() - t0
+    n = vol.n_voxels
+    print(f"config5: {n}^3 ({vol.sdf.nbytes / 1e9:.2f} GB f32), bake "
+          f"{bake_s:.1f}s, shard_volume into {CONFIG5_RANKS} slabs of "
+          f"{slabs.sdf.shape[1]} planes {shard_s:.1f}s", flush=True)
+    light = np.asarray(vq.forward_vector(vq.from_euler_degrees(
+        *CONFIG5_LIGHT_EULER)), np.float32)
+    geometry = (n, vol.cell_size, vol.extends, light)
+
+    # the replicated frame of the same volume (f32 table, octree accel)
+    t0 = time.perf_counter()
+    rep = config5_scene(vol, dev, stub=False)
+    sync()
+    build_s = time.perf_counter() - t0
+    render_image(rep, FRAME_W, FRAME_H)
+    sync()
+    t0 = time.perf_counter()
+    replicated = render_image(rep, FRAME_W, FRAME_H)[..., :3].cpu().numpy()
+    rep_s = time.perf_counter() - t0
+    print(f"config5 replicated scene: build {build_s:.1f}s, corners "
+          f"{tuple(rep.volumes.corners.shape)} {rep.volumes.corners.dtype}; "
+          f"1080p frame {1e3 * rep_s:.1f} ms", flush=True)
+    del rep
+    torch.cuda.empty_cache()
+
+    # the edit of the halo check: a fresh split of the edited volume
+    pattern = np.random.default_rng(5).normal(scale=2.0, size=(n, n)
+                                              ).astype(np.float32)
+    plane = int(slabs.cell_lo[2]) + 1
+    edited = vol.sdf.copy()
+    edited[plane] += pattern
+    fresh = brick.shard_volume(VoxelVolume(vol.resolution, vol.extends,
+                                           sdf=edited), CONFIG5_RANKS)
+    del edited, vol
+    with tempfile.TemporaryDirectory() as td:
+        for s in range(CONFIG5_RANKS):
+            local = slabs.local(s, "cpu")
+            np.savez(os.path.join(td, f"slab{s}.npz"),
+                     **{f: getattr(local, f).numpy() for f in brick._FIELDS})
+            np.savez(os.path.join(td, f"fresh{s}.npz"),
+                     sdf=fresh.sdf[s].numpy())
+        np.savez(os.path.join(td, "edit.npz"), pattern=pattern)
+        del fresh, slabs
+        t0 = time.perf_counter()
+        ranks = mesh.spawn_world(_config5_rank, CONFIG5_RANKS,
+                                 args=(td, geometry), backend="gloo",
+                                 timeout=RANK_TIMEOUT)
+        world_s = time.perf_counter() - t0
+    print(f"config5: {CONFIG5_RANKS} ranks on {card} over "
+          f"{ranks[0]['backend']} ({world_s:.1f}s for the world)", flush=True)
+
+    # the slab frame against the replicated one (_compare's gates)
+    got = ranks[0]["frame"]
+    if not np.isfinite(got).all():
+        raise AssertionError("config5 slab frame has non-finite pixels")
+    diff = np.abs(replicated - got).max(axis=-1)
+    within, worst = float((diff < 1e-5).mean()), float(diff.max())
+    beyond = float((diff > 0.25).mean())
+    print(f"config5 1080p slab frame vs replicated: {within:.4%} of pixels "
+          f"within 1e-5 (> 97%), max {worst:.3e} (< 0.25), > 0.25 on "
+          f"{beyond:.2e} (< 1%)", flush=True)
+    if not (within > 0.97 and worst < 0.25 and beyond < 0.01):
+        raise AssertionError("config5 slab frame disagrees with the "
+                             "replicated frame")
+    # the anchor: vrt's CPU render of the same frame at 160x90
+    want = np.load(CONFIG5_FIXTURE)
+    d90 = np.abs(ranks[0]["small"] - want)
+    q90, mean = float(np.quantile(d90, 0.90)), float(d90.mean())
+    outl = float((d90.max(axis=-1) > 0.1).mean())
+    print(f"config5 160x90 vs vrt fixture: q90 {q90:.2e} (< 0.015), mean "
+          f"{mean:.2e} (< 0.01), pixels off > 0.1 {outl:.2e} (< 0.03)",
+          flush=True)
+    if not (q90 < 0.015 and mean < 0.01 and outl < 0.03):
+        raise AssertionError("config5 160x90 frame disagrees with the vrt "
+                             "fixture")
+
+    # K7, the slab resolve, the launches, the halo refresh on every rank
+    per_rank = {"k7_ms": [], "k7_plain_ms": [], "resolve_ms": [],
+                "resolve_plain_ms": [], "steps": [], "frame_ms": [],
+                "collective_share": []}
+    k7_bounds, rs_bounds = [], []
+    for r, x in enumerate(ranks):
+        c = x["counts"]
+        frames = len(x["frame_s"])
+        want_c = dict(k7=2 * frames, k1=0, scene=0, resolve=frames,
+                      slab_resolve=frames, surface=frames, combine=frames)
+        seen = {k: c[k] for k in want_c}
+        print(f"config5 rank {r} (cells [{x['cell_lo']}, {x['cell_hi']})): "
+              f"launches over {frames} frames {seen}; collectives "
+              f"{c['collectives']}; frames {_list([1e3 * t for t in x['frame_s']])}"
+              f" ms, collectives {x['collective_s']:.3f}s of "
+              f"{sum(x['frame_s']):.3f}s", flush=True)
+        if seen != want_c:
+            raise AssertionError(f"config5 rank {r}: launches {seen}, "
+                                 f"expected {want_c}")
+        k7, rs = x["k7"], x["resolve"]
+        if (k7["launches_small"], rs["launches_small"]) != (2, 1):
+            raise AssertionError(f"config5 rank {r}: a 480x270 frame "
+                                 f"launched K7 {k7['launches_small']} and "
+                                 f"the slab resolve {rs['launches_small']} "
+                                 f"times, expected 2 and 1")
+        for tag, i, bad in k7["diffs"]:
+            if bad:
+                raise AssertionError(f"config5 rank {r}: K7 {tag} launch {i}"
+                                     f" differs from the twin: {bad}")
+        for tag, i, bad in rs["diffs"]:
+            if bad:
+                raise AssertionError(f"config5 rank {r}: slab resolve {tag} "
+                                     f"{i} differs from its plain version on"
+                                     f" owned lanes: {bad}")
+        if not (x["halo_equal"] and (x["halo_changed"] or r not in (1, 2))):
+            raise AssertionError(f"config5 rank {r}: halo refresh equal "
+                                 f"{x['halo_equal']}, changed "
+                                 f"{x['halo_changed']}")
+        per_rank["k7_ms"].append(sum(k7["ms"]))
+        per_rank["k7_plain_ms"].append(sum(k7["plain_ms"]))
+        per_rank["resolve_ms"].append(sum(rs["ms"]))
+        per_rank["resolve_plain_ms"].append(sum(rs["plain_ms"]))
+        per_rank["steps"].append(k7["steps"][0])
+        per_rank["frame_ms"].append(1e3 * statistics.median(x["frame_s"]))
+        per_rank["collective_share"].append(x["collective_s"]
+                                            / sum(x["frame_s"]))
+        k7_bounds += k7["bounds"]
+        rs_bounds += rs["bounds"]
+        print(f"config5 rank {r}: K7 equal to the twin field by field on "
+              f"{len(k7['diffs'])} launches (480x270 and 1080p), lanes on "
+              f"the step cap (kernel, plain) {[c[2:] for c in k7['capped']]};"
+              f" 1080p K7 {_list(k7['ms'])} ms (twin "
+              f"{_list(k7['plain_ms'])}; bound "
+              f"{_list([b['bound_ms'] for b in k7['bounds']])}), primary "
+              f"march steps {k7['steps'][0]}; slab resolve equal on "
+              f"{[o[2] for o in rs['owned']]} owned lanes, "
+              f"{_list(rs['ms'])} ms (plain {_list(rs['plain_ms'])}); halo "
+              f"refresh equal to a fresh split (staged sends "
+              f"{x['staged']})", flush=True)
+    k7_bound, rs_bound = _sum_bounds(k7_bounds), _sum_bounds(rs_bounds)
+    steps = per_rank["steps"]
+    print(f"config5 per-rank primary march steps {steps} (max/mean "
+          f"{max(steps) / (sum(steps) / len(steps)):.3f}); frame host median "
+          f"{statistics.median(per_rank['frame_ms']):.1f} ms; collectives "
+          f"{_list(per_rank['collective_share'])} of the host clock", flush=True)
+
+    # the ray-sharded flagship frame against render_image, bit for bit
+    flagship = flagship_scene(7, "chebyshev", torch.bfloat16, device=dev)
+    want_img = render_image(flagship, FRAME_W, FRAME_H, RenderMode())
+    want_img = want_img.cpu().numpy()
+    del flagship
+    torch.cuda.empty_cache()
+    sharded = mesh.spawn_world(_sharded_rank, SHARDED_RANKS, backend="gloo",
+                               timeout=RANK_TIMEOUT)
+    same = sharded[0]["img"] == want_img
+    print(f"ray-sharded flagship 1080p over {SHARDED_RANKS} data ranks: "
+          f"equal to render_image on {same.mean():.6%} of values; frame "
+          f"{_list([1e3 * t for t in sharded[0]['frame_s']])} ms; "
+          f"collectives {sharded[0]['collective_s']:.3f}s of "
+          f"{sum(sharded[0]['frame_s']):.3f}s", flush=True)
+    if not same.all():
+        raise AssertionError("the ray-sharded frame differs from "
+                             "render_image")
+    sh_launches = {}
+    for r, x in enumerate(sharded):
+        c = x["counts"]
+        frames = len(x["frame_s"])
+        want_c = dict(k7=0, k1=0, scene=5 * frames, resolve=3 * frames,
+                      surface=3 * frames, combine=3 * frames)
+        seen = {k: c[k] for k in want_c}
+        if seen != want_c:
+            raise AssertionError(f"sharded rank {r}: launches {seen}, "
+                                 f"expected {want_c}")
+        for k, v in seen.items():
+            sh_launches[k] = sh_launches.get(k, 0) + v
+    c5 = {k: sum(x["counts"][k] for x in ranks)
+          for k in ("k7", "slab_resolve", "surface", "combine")}
+    numbers = dict(
+        card=card, bake_s=bake_s, shard_s=shard_s,
+        replicated_frame_ms=1e3 * rep_s,
+        slab_frame_host_median_ms=statistics.median(per_rank["frame_ms"]),
+        slab_frame_ms_by_rank=per_rank["frame_ms"],
+        collective_share_by_rank=per_rank["collective_share"],
+        primary_march_steps_by_rank=steps,
+        k7_ms_by_rank=per_rank["k7_ms"],
+        k7_plain_ms_by_rank=per_rank["k7_plain_ms"],
+        slab_resolve_ms_by_rank=per_rank["resolve_ms"],
+        slab_resolve_plain_ms_by_rank=per_rank["resolve_plain_ms"],
+        vs_replicated=dict(within_1e5=within, max=worst, beyond_025=beyond),
+        fixture_160x90=dict(q90=q90, mean=mean, off_01=outl),
+        sharded_frame_host_median_ms=1e3 * statistics.median(
+            sharded[0]["frame_s"]),
+        sharded_collective_share=sharded[0]["collective_s"]
+        / sum(sharded[0]["frame_s"]))
+    return dict(numbers=numbers, launches=c5, sharded_launches=sh_launches,
+                k7=dict(ms=sum(per_rank["k7_ms"]),
+                        per_rank_ms=per_rank["k7_ms"],
+                        plain_ms=sum(per_rank["k7_plain_ms"]),
+                        per_rank_plain_ms=per_rank["k7_plain_ms"],
+                        bound=k7_bound),
+                resolve=dict(ms=sum(per_rank["resolve_ms"]),
+                             plain_ms=sum(per_rank["resolve_plain_ms"]),
+                             bound=rs_bound))
+
+
 def _list(ms):
     return ", ".join(f"{t:.4f}" for t in ms)
 
@@ -2599,7 +3148,7 @@ def main():
     # ---- 2. build: one nvcc per source, all started together ---------------
     t0 = time.perf_counter()
     with ThreadPoolExecutor(5) as pool:
-        logs = {"K1 (march.cu)": pool.submit(k1.build),
+        logs = {"K1 (march.cu)": pool.submit(k1.build),    # K1 and K7
                 "gather (gather.cu)": pool.submit(gk.build),
                 "K3 (rows.cu)": pool.submit(k3.build),
                 "fused resolve, forward and backward (resolve.cu)":
@@ -2625,6 +3174,8 @@ def main():
               flush=True)
     ptxas = {}
     for name, log, kernel, threads in (
+            ("K1 (march.cu)", "K1 (march.cu)", "march_kernel", 256),
+            ("K7 (march.cu)", "K1 (march.cu)", "march_slab_kernel", 256),
             ("K1 (march.cu)", "K1 (march.cu)", "march_scene_capped_kernel", 64),
             ("K1 (march.cu)", "K1 (march.cu)", "march_scene_kernel", 256),
             ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
@@ -3349,6 +3900,9 @@ def main():
     scene_err = max(scene_err, c3["held"]["scene"]["max_abs_err"])
     c3_counts, c3_held = c3["counts"], c3["held"]
 
+    # ---- 11. config5's slab frame and the ray-sharded frame ----------------
+    c5 = _config5(dev, card, sync)
+
     # ---- the yardsticks of the shade kernels, after every phase
     def flagship_frame():
         return render_image(flagship, FRAME_W, FRAME_H, mode)
@@ -3399,7 +3953,8 @@ def main():
     scene_all.update(engine_frames=eng_launches["scene"],
                      demo_cli=eng_launches["demo_scene"],
                      render_cli=eng_launches["render_scene"],
-                     config3=c3_counts["scene"])
+                     config3=c3_counts["scene"],
+                     sharded_flagship=c5["sharded_launches"]["scene"])
     eng_scene, eng_fused = eng["scene"], eng["fused"]
 
     def shade_paths(stage):
@@ -3408,7 +3963,9 @@ def main():
                 "engine_frames": eng_launches[stage],
                 "demo_cli": eng_launches[f"demo_{stage}"],
                 "render_cli": eng_launches[f"render_{stage}"],
-                "config3": c3_counts[stage]}
+                "config3": c3_counts[stage],
+                "config5": c5["launches"][stage],
+                "sharded_flagship": c5["sharded_launches"][stage]}
 
     def config3_entry(launches, ms, plain_ms, bound):
         # config3's 1080p frame at 257^3: the three frames' launches, and
@@ -3457,6 +4014,21 @@ def main():
              c3_counts["scene"], c3_held["scene"]["ms"],
              c3_held["scene"]["plain_ms"], c3_held["scene"]["bound"]),
              "capped_lanes_kernel_plain": c3_held["scene"]["capped"]}},
+        {"name": "K7 slab march", "route": "cuda",
+         "source": "vrt_torch/csrc/march.cu",
+         "replaces": "vrt/dist/brick.py:153 (march_volume_slab, an XLA "
+                     "while-loop: no Pallas kernel)",
+         "launches": c5["launches"]["k7"],
+         "launches_by_path": {"config5": c5["launches"]["k7"]},
+         "max_abs_err": 0.0,
+         # one 1080p frame's launches (primary and shadow) on each of the
+         # 4 ranks, each rank timed alone; ms, plain_ms and the bound are
+         # the sums over the ranks
+         "ms": c5["k7"]["ms"], "per_rank_ms": c5["k7"]["per_rank_ms"],
+         "plain_ms": c5["k7"]["plain_ms"],
+         "per_rank_plain_ms": c5["k7"]["per_rank_plain_ms"],
+         **bound_keys(c5["k7"]["bound"]), "library_ms": None,
+         "ptxas": ptxas.get("march_slab_kernel")},
         {"name": "fused resolve", "route": "cuda",
          "source": "vrt_torch/csrc/resolve.cu",
          "replaces": "vrt/march/resolve.py:61 (resolve_hits under "
@@ -3465,7 +4037,9 @@ def main():
          "launches": frame_counts["resolve"] + cube_counts["resolve"]
          + overlay_counts["resolve"] + fit_counts["resolve"]
          + eng_launches["resolve"] + eng_launches["demo_resolve"]
-         + eng_launches["render_resolve"] + c3_counts["resolve"],
+         + eng_launches["render_resolve"] + c3_counts["resolve"]
+         + c5["launches"]["slab_resolve"]
+         + c5["sharded_launches"]["resolve"],
          "launches_by_path": {"frames": frame_counts["resolve"]
                               + cube_counts["resolve"]
                               + overlay_counts["resolve"],
@@ -3473,7 +4047,10 @@ def main():
                               "engine_frames": eng_launches["resolve"],
                               "demo_cli": eng_launches["demo_resolve"],
                               "render_cli": eng_launches["render_resolve"],
-                              "config3": c3_counts["resolve"]},
+                              "config3": c3_counts["resolve"],
+                              "config5": c5["launches"]["slab_resolve"],
+                              "sharded_flagship":
+                              c5["sharded_launches"]["resolve"]},
          "max_abs_err": fused["max_abs_err"], "ms": fused["ms"],
          "plain_ms": fused["plain_ms"],
          "plain_over_k3_ms": fused["over_k3_ms"],
@@ -3489,7 +4066,13 @@ def main():
          "config3": {**config3_entry(
              c3_counts["resolve"], [c3_held["fused"]["ms"]],
              [c3_held["fused"]["plain_ms"]], c3_held["fused"]["bound"]),
-             "plain_over_k3_ms": c3_held["fused"]["over_k3_ms"]}},
+             "plain_over_k3_ms": c3_held["fused"]["over_k3_ms"]},
+         # the slab's table (x origin): one launch a rank a 1080p frame,
+         # summed over the 4 ranks, each timed alone
+         "config5": {"launches": c5["launches"]["slab_resolve"],
+                     "ms": c5["resolve"]["ms"],
+                     "plain_ms": c5["resolve"]["plain_ms"],
+                     **bound_keys(c5["resolve"]["bound"])}},
         {"name": "fused resolve backward", "route": "cuda",
          "source": "vrt_torch/csrc/resolve.cu",
          "replaces": "vrt/march/resolve.py:61 (XLA's transpose of "
@@ -3682,7 +4265,8 @@ def main():
         "plain_stages_under_torch_compile": compiled,
         "config6_step_old_new": sides,
         "engine": eng["numbers"],
-        "config3": c3["numbers"]}), flush=True)
+        "config3": c3["numbers"],
+        "config5": c5["numbers"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0

@@ -1903,3 +1903,150 @@ def test_shade_forward_designs_packed_record_on_card(rays):
     tmax, sdir = new[-2:]
     assert tmax.shape == (1 + 3, rays) and sdir.shape == (3, rays, 3)
     assert (sdir[1].data_ptr() % 16 == 0) == (rays % 4 == 0)
+
+
+# ---- K7, the slab march, and the fused resolve over a slab's table --------
+
+def _slab_volume(resolution=5):
+    """tests/test_brick.py's CSG volume (a sphere plus a box) and config5's
+    light, as host data."""
+    from vrt_torch.volume import sdf as S
+    from vrt_torch.volume.volume import VoxelVolume
+
+    csg = S.CSG(shape=S.Sphere(radius=55.0))
+    csg.add_child(S.Box(extends=(70.0, 25.0, 25.0),
+                        position=np.array([0.0, 0.0, 40.0], np.float32)),
+                  S.ADD)
+    return VoxelVolume.from_generator(csg, resolution, 100.0)
+
+
+def _slab_rays(dev, n=64 * 64, seed=9):
+    """64^2 rays from outside the volume toward it, some with a zero
+    direction component, a third with a finite t_max."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = (-d * rng.uniform(150.0, 320.0, size=(n, 1))
+         + rng.normal(scale=30.0, size=(n, 3))).astype(np.float32)
+    d[::29, 0] = 0.0
+    t_max = np.where(rng.uniform(size=n) < 0.3, 220.0, 1e4
+                     ).astype(np.float32)
+    return [torch.from_numpy(x).to(dev) for x in (o, d, t_max)]
+
+
+def test_slab_wrappers_refuse_cpu_tensors():
+    """K7's wrapper and the slab resolve's take CUDA tensors only: no
+    fallback to the plain versions."""
+    from vrt_torch.dist import brick
+    from vrt_torch.kernels import march as k1
+    from vrt_torch.kernels import resolve as kr
+
+    slab = brick.shard_volume(_slab_volume(4), 2).local(0, "cpu")
+    o, d, t_max = _slab_rays("cpu", n=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        k1.march_slab_cuda(slab, o, d, t_max)
+    hit = MarchHit.none(8)
+    with pytest.raises(ValueError, match="CUDA"):
+        kr.resolve_slab_cuda(None, slab, o, d, hit,
+                             torch.zeros(8, dtype=torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s_count", [2, 4])
+@pytest.mark.parametrize("accel_mode", ["octree", "chebyshev"])
+@pytest.mark.parametrize("interp,debug", [(True, False), (False, False),
+                                          (True, True)],
+                         ids=["interp", "cube", "overlay"])
+def test_k7_matches_twin_on_card(s_count, accel_mode, interp, debug):
+    """K7 against ``march_volume_slab_reference`` on every shard, field by
+    field: hit, kind, t, cell, t_in, t_out, face normal (NaN equal to NaN)
+    and steps, bit for bit."""
+    from vrt_torch.dist import brick
+    from vrt_torch.kernels import march as k1
+
+    dev = _card()
+    slabs = brick.shard_volume(_slab_volume(), s_count, accel_mode)
+    o, d, t_max = _slab_rays(dev)
+    before, hits = k1.SLAB_LAUNCHES, 0
+    for s in range(s_count):
+        slab = slabs.local(s, dev)
+        got = brick.march_volume_slab(slab, o, d, t_max, interp, debug)
+        want = brick.march_volume_slab_reference(slab, o, d, t_max, interp,
+                                                 debug)
+        torch.cuda.synchronize()
+        for f in ("hit", "t", "kind", "cell", "t_in", "t_out",
+                  "face_normal", "steps"):
+            a, b = getattr(got, f), getattr(want, f)
+            same = (a == b) | (torch.isnan(a) & torch.isnan(b)) \
+                if a.is_floating_point() else a == b
+            assert bool(same.all()), (s, f, int((~same).sum()))
+        hits += int(got.hit.sum())
+    assert k1.SLAB_LAUNCHES - before == s_count
+    assert hits > 100
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s_count", [2, 4])
+def test_slab_resolve_matches_plain_on_card(s_count):
+    """The fused resolve over each shard's slab-local table (a non-zero x
+    origin but on shard 0) against ``resolve_slab_hits`` on the lanes whose
+    hit the shard owns: t, the normal and unlit equal (NaN equal to
+    NaN)."""
+    from vrt_torch.core import quat as vq
+    from vrt_torch.dist import brick
+    from vrt_torch.dist.slab_render import SlabTracer, default_fit_scene
+    from vrt_torch.kernels import resolve as kr
+
+    dev = _card()
+    vol = _slab_volume()
+    slabs = brick.shard_volume(vol, s_count)
+    light = np.asarray(vq.forward_vector(vq.from_euler_degrees(0, 45, -30)),
+                       np.float32)
+    scene = default_fit_scene(vol.n_voxels, vol.cell_size, vol.extends,
+                              light, device=dev)
+    o_w, d_w, t_max = _slab_rays(dev)
+    owned_lanes = 0
+    for s in range(s_count):
+        slab = slabs.local(s, dev)
+        o, d = SlabTracer(slab, None)._object_rays(scene, o_w, d_w)
+        hit = brick.march_volume_slab(slab, o, d, t_max)
+        inst = torch.where(hit.hit, 0, -1).to(torch.int32)
+        got = kr.resolve_slab_cuda(scene, slab, o_w, d_w, hit, inst)
+        want = brick.resolve_slab_hits(slab, o, d, hit)
+        owned = (hit.hit & (hit.cell[:, 0] >= slab.cell_lo)
+                 & (hit.cell[:, 0] < slab.cell_hi))
+        for a, b in zip(got, want):
+            a, b = a[owned], b[owned]
+            assert bool(((a == b) | ((a != a) & (b != b))).all())
+        owned_lanes += int(owned.sum())
+    assert owned_lanes > 100
+
+
+@pytest.mark.gpu
+def test_sharded_frame_on_card_equals_render_image():
+    """The flagship at resolution 5, 64x36, over 2 data ranks sharing the
+    card (gloo): equal to ``render_image`` bit for bit."""
+    from vrt_torch.dist import mesh
+
+    dev = _card()
+    scene = flagship_scene(5, "chebyshev", torch.bfloat16, device=dev)
+    want = render_image(scene, 64, 36, RenderMode()).cpu().numpy()
+    out = mesh.spawn_world(_sharded_card_rank, 2, args=(64, 36),
+                           timeout=300)
+    for img in out:
+        assert np.array_equal(img, want)
+
+
+def _sharded_card_rank(rank, world, width, height):
+    """A rank of ``test_sharded_frame_on_card_equals_render_image``:
+    ``render_image_sharded`` of the flagship at resolution 5 (chebyshev,
+    bf16) over a (world, 1) mesh of ranks sharing the card."""
+    from vrt_torch.dist import mesh
+    from vrt_torch.dist.sharding import render_image_sharded
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    scene = flagship_scene(5, "chebyshev", torch.bfloat16, device=dev)
+    m = mesh.make_render_mesh(world, 1, "cuda")
+    return render_image_sharded(scene, width, height, RenderMode(),
+                                m).cpu().numpy()

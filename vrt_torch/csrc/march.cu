@@ -70,6 +70,24 @@
 // against dozens of dependent global loads).  Each ray's arithmetic is the
 // first design's: the two are equal field by field.
 
+// K7, vrt_march_slab, one thread per ray against one rank's x-slab of a
+// slab-sharded volume (vrt_torch.dist.brick), replaces the XLA while-loop
+// vrt/dist/brick.py::march_volume_slab (no Pallas kernel stands behind it):
+// _march_core with four hooks.  It computes what
+// vrt_torch.dist.brick.march_volume_slab_reference computes, lane for lane.
+// The lane march is one device function, march_ray, over a volume policy:
+// StackedVolume is K1's tables with every hook off, SlabVolume the slab's
+// (owned cells keep their skip box, the out-of-slab region is one empty
+// node, a chord that misses the slab box retires, cube mode's voxel
+// ownership).  What bounds it is what bounds K1: a chain of dependent reads
+// a step, in a slab of 512 x 512 x 132 cells at config5's 513^3 (a 1.1 GB
+// f32 corner table a rank, 34 MB of accel).  The design choice: a
+// slab-local packed corner table (pack_cell_corners over the slab's planes,
+// rebuilt when the planes change), read one row a surface cell as K1 reads
+// its table, rather than an 8-voxel fetch from the unpacked planes (eight
+// dependent-address loads a cell instead of one row); it costs 8x the
+// planes' bytes on the card, which a rank's slab can afford.
+
 #include "scene.cuh"
 
 namespace {
@@ -284,54 +302,98 @@ __device__ __forceinline__ bool slab_test(const float o[3], const float d[3],
   return (tx > te) && (tx >= 0.0f) && (te <= t_max);
 }
 
-// One ray (object-space o, d) through volume v of the stacked tables: what
-// march_lanes_reference computes for one lane.
-template <typename T, bool kCheb, bool kInterp, bool kDebug>
-__device__ __forceinline__ void march_lane(const Tables& tb, int v,
-                                           const float o[3],
-                                           const float d[3], float t_max,
-                                           Hit* out) {
+// The tables of volume v of a stacked DeviceVolume, as march_ray reads
+// them, with the slab march's four hooks off: the skip box of every cell, no
+// chord retirement, every voxel owned.
+template <typename T, bool kCheb>
+struct StackedVolume {
+  const Tables& tb;
+  int v;
+  long long cc, nn;
+  int ch;
+  const uint8_t* accel;
+  const T* corners;
+  const float* sdf;
+
+  __device__ __forceinline__ StackedVolume(const Tables& tables, int vol)
+      : tb(tables), v(vol) {}
+  // the lane's volume geometry, then the volume's tables
+  __device__ __forceinline__ void geometry(Lane& L) {
+    L.n = __ldg(tb.n + v);
+    L.h = __ldg(tb.cell_size + v);
+    L.ext = __ldg(tb.extends + v);
+    cc = tb.cc;
+    ch = tb.ch;
+    const long long vol_base = static_cast<long long>(v) * cc * cc * cc;
+    accel = tb.accel + vol_base;
+    corners = static_cast<const T*>(tb.corners) + vol_base * ch;
+    nn = cc + 1;
+    sdf = tb.sdf + static_cast<long long>(v) * nn * nn * nn;
+  }
+  // accel / corner reads of a cell; out-of-range cells read 0
+  __device__ __forceinline__ int accel_at(const Lane& L,
+                                          const int c[3]) const {
+    if (c[0] < 0 || c[1] < 0 || c[2] < 0 || c[0] >= L.n - 1 ||
+        c[1] >= L.n - 1 || c[2] >= L.n - 1)
+      return 0;
+    return __ldg(accel + (c[0] * cc + c[1]) * cc + c[2]);
+  }
+  __device__ __forceinline__ void corners_at(const Lane& L, const int c[3],
+                                             float v8[8]) const {
+    const bool valid = c[0] >= 0 && c[1] >= 0 && c[2] >= 0 &&
+                       c[0] + 1 < L.n && c[1] + 1 < L.n && c[2] + 1 < L.n;
+    const T* row = corners + ((c[0] * cc + c[1]) * cc + c[2]) * ch;
+    for (int j = 0; j < 8; ++j) v8[j] = valid ? load_corner<T>(row + j) : 0.0f;
+  }
+  // cube mode's voxel density; out-of-range voxels read 0
+  __device__ __forceinline__ float density_at(const Lane& L,
+                                              const int c[3]) const {
+    if (c[0] < 0 || c[1] < 0 || c[2] < 0 || c[0] >= L.n || c[1] >= L.n ||
+        c[2] >= L.n)
+      return 0.0f;
+    return __ldg(sdf + (c[0] * nn + c[1]) * nn + c[2]);
+  }
+  __device__ __forceinline__ bool node(const Lane& L, const int c[3], int av,
+                                       bool* has_surf, float lo[3],
+                                       float hi[3]) const {
+    return node_box<kCheb>(L, c, av, has_surf, lo, hi);
+  }
+  __device__ __forceinline__ bool chord(const Lane&, float, bool ok,
+                                        float*) const {
+    return ok;
+  }
+  __device__ __forceinline__ bool voxel_owned(const int*) const {
+    return true;
+  }
+};
+
+// One ray (object-space o, d) through a volume: what
+// march_core_reference computes for one lane, with Vol's tables and hooks
+// (StackedVolume: march_lanes_reference; SlabVolume: the slab march).
+template <bool kInterp, bool kDebug, typename Vol>
+__device__ __forceinline__ void march_ray(Vol vol, const float o[3],
+                                          const float d[3], float t_max,
+                                          Hit* out) {
   Lane L;
   for (int k = 0; k < 3; ++k) {
     L.o[k] = o[k];
     L.d[k] = d[k];
     L.inv[k] = L.d[k] != 0.0f ? 1.0f / L.d[k] : -INFINITY;
   }
-  L.n = __ldg(tb.n + v);
-  L.h = __ldg(tb.cell_size + v);
-  L.ext = __ldg(tb.extends + v);
-  const long long cc = tb.cc;
-  const int ch = tb.ch;
-  const long long vol_base = static_cast<long long>(v) * cc * cc * cc;
-  const uint8_t* accel = tb.accel + vol_base;
-  const T* corners = static_cast<const T*>(tb.corners) + vol_base * ch;
-  const long long nn = cc + 1;
-  const float* sdf = tb.sdf + static_cast<long long>(v) * nn * nn * nn;
-
-  // accel / corner reads of a cell; out-of-range cells read 0
-  auto accel_at = [&](const int c[3]) -> int {
-    if (c[0] < 0 || c[1] < 0 || c[2] < 0 || c[0] >= L.n - 1 ||
-        c[1] >= L.n - 1 || c[2] >= L.n - 1)
-      return 0;
-    return __ldg(accel + (c[0] * cc + c[1]) * cc + c[2]);
-  };
+  vol.geometry(L);
+  auto accel_at = [&](const int c[3]) -> int { return vol.accel_at(L, c); };
   auto corners_at = [&](const int c[3], float v8[8]) {
-    const bool valid = c[0] >= 0 && c[1] >= 0 && c[2] >= 0 &&
-                       c[0] + 1 < L.n && c[1] + 1 < L.n && c[2] + 1 < L.n;
-    const T* row = corners + ((c[0] * cc + c[1]) * cc + c[2]) * ch;
-    for (int j = 0; j < 8; ++j) v8[j] = valid ? load_corner<T>(row + j) : 0.0f;
+    vol.corners_at(L, c, v8);
   };
-  // cube mode's voxel density; out-of-range voxels read 0
   auto density_at = [&](const int c[3]) -> float {
-    if (c[0] < 0 || c[1] < 0 || c[2] < 0 || c[0] >= L.n || c[1] >= L.n ||
-        c[2] >= L.n)
-      return 0.0f;
-    return __ldg(sdf + (c[0] * nn + c[1]) * nn + c[2]);
+    return vol.density_at(L, c);
   };
 
   // ---- slab entry (_march_begin) -----------------------------------------
   float t_enter, t_exit;
-  const bool ok = slab_test(L.o, L.d, L.ext, t_max, &t_enter, &t_exit);
+  const bool ok = vol.chord(
+      L, t_max, slab_test(L.o, L.d, L.ext, t_max, &t_enter, &t_exit),
+      &t_exit);
   const bool pos_branch = t_enter >= 0.0f;
   const float t_enter_b = pos_branch ? t_enter + 0.01f : t_enter;
   int cell[3];
@@ -344,8 +406,7 @@ __device__ __forceinline__ void march_lane(const Tables& tb, int v,
   float lo[3], hi[3];
   bool has_surf;
   int axis;
-  const bool valid0 = node_box<kCheb>(L, cell, accel_at(cell), &has_surf,
-                                      lo, hi);
+  const bool valid0 = vol.node(L, cell, accel_at(cell), &has_surf, lo, hi);
   float cell_exit = pos_branch ? t_enter_b : -exit_t(L, lo, hi, &axis) + 0.01f;
 
   // the no-hit result, derived from the origin as the reference derives it
@@ -388,8 +449,8 @@ __device__ __forceinline__ void march_lane(const Tables& tb, int v,
       break;
     }
     const float cell_enter = cell_exit;
-    const bool valid_cell = node_box<kCheb>(L, cell, accel_at(cell),
-                                            &has_surf, lo, hi);
+    const bool valid_cell = vol.node(L, cell, accel_at(cell), &has_surf, lo,
+                                     hi);
     const bool valid =
         kInterp ? valid_cell
                 : (cell[0] >= 0 && cell[1] >= 0 && cell[2] >= 0 &&
@@ -409,7 +470,8 @@ __device__ __forceinline__ void march_lane(const Tables& tb, int v,
     }
     const float new_exit = exit_t(L, lo, hi, &axis) + 0.1f;
     if (!kInterp) {
-      if (valid && density_at(cell) <= 0.0f) {
+      if (valid && density_at(cell) <= 0.0f &&
+          vol.voxel_owned(cell)) {
         if (cell_enter >= 0.0f && cell_enter <= t_max) {
           hit = true;
           t_best = cell_enter;
@@ -497,6 +559,159 @@ __device__ __forceinline__ void march_lane(const Tables& tb, int v,
     out->cell[k] = cell_best[k];
     out->face[k] = face[k];
   }
+}
+
+// One ray through volume v of the stacked tables: what
+// march_lanes_reference computes for one lane.
+template <typename T, bool kCheb, bool kInterp, bool kDebug>
+__device__ __forceinline__ void march_lane(const Tables& tb, int v,
+                                           const float o[3],
+                                           const float d[3], float t_max,
+                                           Hit* out) {
+  march_ray<kInterp, kDebug>(StackedVolume<T, kCheb>(tb, v), o, d, t_max,
+                             out);
+}
+
+// K7's volume: one rank's x-slab of a volume (vrt_torch.dist.brick), by
+// global cell index against slab-local tables, with the slab march's four
+// hooks (march_volume_slab_reference):
+// - node: an owned cell keeps its skip box; the out-of-slab region on either
+//   side is one empty node, [-ext, lo_plane] or [hi_plane, ext] in x and
+//   [-ext, ext] in y and z, crossed in one step;
+// - chord: a lane whose chord misses the slab box [lo_plane, hi_plane] x
+//   [-ext, ext]^2 retires before the loop, and the exit clamps to the slab
+//   box's exit plus one cell;
+// - voxel_owned (cube mode): a voxel x-plane must be owned; the last shard
+//   also owns plane n-1.
+// The corner table is slab-local and packed: row x holds global cell
+// x0 + x, built from the span stored planes (span - 1 rows).  A cell outside
+// the volume reads zeros as in K1 (so no row of the halo planes outside the
+// volume is ever read), a cell inside the volume but outside the rows reads
+// zeros too (the twin's voxel fetch reads 0 for an unstored plane, and no
+// such cell is owned or can be a fully solid entry).  The accel table holds
+// the owned cells; any other cell reads 0, and its node comes from the hook.
+template <bool kCheb>
+struct SlabVolume {
+  const uint8_t* accel;   // [cps, C, C]
+  const float* corners;   // [span - 1, C, C, 8]
+  const float* sdf;       // [span, N, N] voxel planes, N = C + 1
+  long long cc;           // C
+  int span, x0, cell_lo, cell_hi, n;
+  float h, ext, lo_plane, hi_plane;
+
+  __device__ __forceinline__ void geometry(Lane& L) {
+    L.n = n;
+    L.h = h;
+    L.ext = ext;
+  }
+  __device__ __forceinline__ bool owned(int x) const {
+    return x >= cell_lo && x < cell_hi;
+  }
+  __device__ __forceinline__ int accel_at(const Lane&, const int c[3]) const {
+    if (!owned(c[0]) || c[1] < 0 || c[2] < 0 || c[1] >= cc || c[2] >= cc)
+      return 0;
+    return __ldg(accel + (static_cast<long long>(c[0] - cell_lo) * cc + c[1])
+                             * cc + c[2]);
+  }
+  __device__ __forceinline__ void corners_at(const Lane& L, const int c[3],
+                                             float v8[8]) const {
+    const int lx = c[0] - x0;
+    const bool valid = c[0] >= 0 && c[1] >= 0 && c[2] >= 0 &&
+                       c[0] + 1 < L.n && c[1] + 1 < L.n && c[2] + 1 < L.n &&
+                       lx >= 0 && lx < span - 1;
+    const float* row =
+        corners + ((static_cast<long long>(lx) * cc + c[1]) * cc + c[2]) * 8;
+    for (int j = 0; j < 8; ++j) v8[j] = valid ? __ldg(row + j) : 0.0f;
+  }
+  __device__ __forceinline__ float density_at(const Lane& L,
+                                              const int c[3]) const {
+    const int lx = c[0] - x0;
+    if (c[0] < 0 || c[1] < 0 || c[2] < 0 || c[0] >= L.n || c[1] >= L.n ||
+        c[2] >= L.n || lx < 0 || lx >= span)
+      return 0.0f;
+    const long long nn = cc + 1;
+    return __ldg(sdf + (static_cast<long long>(lx) * nn + c[1]) * nn + c[2]);
+  }
+  __device__ __forceinline__ bool node(const Lane& L, const int c[3], int av,
+                                       bool* has_surf, float lo[3],
+                                       float hi[3]) const {
+    const bool valid = node_box<kCheb>(L, c, av, has_surf, lo, hi);
+    if (!owned(c[0])) {
+      const bool left = c[0] < cell_lo;
+      *has_surf = false;
+      lo[0] = left ? -ext : hi_plane;
+      hi[0] = left ? lo_plane : ext;
+      lo[1] = lo[2] = -ext;
+      hi[1] = hi[2] = ext;
+    }
+    return valid;
+  }
+  __device__ __forceinline__ bool chord(const Lane& L, float t_max, bool ok,
+                                        float* t_exit) const {
+    const float lo[3] = {lo_plane, -ext, -ext};
+    const float hi[3] = {hi_plane, ext, ext};
+    float te = 0.0f, tx = 0.0f;
+    for (int k = 0; k < 3; ++k) {
+      const float s_min = L.d[k] > 0.0f ? lo[k] : hi[k];
+      const float s_max = L.d[k] > 0.0f ? hi[k] : lo[k];
+      const float a = (s_min - L.o[k]) * L.inv[k];
+      const float b = (s_max - L.o[k]) * L.inv[k];
+      te = k == 0 ? a : nmax(te, a);
+      tx = k == 0 ? b : nmin(tx, b);
+    }
+    *t_exit = nmin(*t_exit, tx + h);
+    return ok && (tx > te) && (tx >= 0.0f) && (te <= t_max);
+  }
+  __device__ __forceinline__ bool voxel_owned(const int c[3]) const {
+    return owned(c[0]) || (c[0] == n - 1 && cell_hi == n - 1);
+  }
+};
+
+struct SlabParams {
+  const float* o;      // [R,3] object space
+  const float* d;      // [R,3]
+  const float* t_max;  // [R]
+  long long lanes;
+  const uint8_t* accel;
+  const float* corners;
+  const float* sdf;
+  int cc, span, x0, cell_lo, cell_hi, n;
+  float h, ext;
+  HitOut out;
+};
+
+// K7, the slab march: one thread per ray against one rank's slab, what
+// vrt_torch.dist.brick.march_volume_slab_reference computes.
+template <bool kCheb, bool kInterp, bool kDebug>
+__global__ void __launch_bounds__(256) march_slab_kernel(const SlabParams p) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= p.lanes) return;
+  SlabVolume<kCheb> vol;
+  vol.accel = p.accel;
+  vol.corners = p.corners;
+  vol.sdf = p.sdf;
+  vol.cc = p.cc;
+  vol.span = p.span;
+  vol.x0 = p.x0;
+  vol.cell_lo = p.cell_lo;
+  vol.cell_hi = p.cell_hi;
+  vol.n = p.n;
+  vol.h = p.h;
+  vol.ext = p.ext;
+  // the twin's f32 arithmetic: cell * h - ext
+  vol.lo_plane = static_cast<float>(p.cell_lo) * p.h - p.ext;
+  vol.hi_plane = static_cast<float>(p.cell_hi) * p.h - p.ext;
+  // as vrt does: + 0.0 (h * 0), which turns a -0.0 into +0.0
+  const float vz = p.h * 0.0f;
+  float o[3], d[3];
+  for (int k = 0; k < 3; ++k) {
+    o[k] = p.o[3 * i + k] + vz;
+    d[k] = p.d[3 * i + k] + vz;
+  }
+  Hit h;
+  march_ray<kInterp, kDebug>(vol, o, d, p.t_max[i] + vz, &h);
+  store_hit(p.out, i, h);
 }
 
 struct LaneParams {
@@ -712,6 +927,17 @@ struct LaunchScene {
   }
 };
 
+struct LaunchSlab {
+  SlabParams p;
+  cudaStream_t stream;
+  // the slab's corner table is f32: by_table's table type is not used
+  template <typename T, bool kCheb, bool kInterp, bool kDebug>
+  void go() const {
+    march_slab_kernel<kCheb, kInterp, kDebug>
+        <<<grid_for(p.lanes), 256, 0, stream>>>(p);
+  }
+};
+
 }  // namespace
 
 // One thread per object-space lane.  Returns cudaGetLastError() after the
@@ -729,6 +955,27 @@ extern "C" int vrt_march_lanes(
       Tables{n, cell_size, extends, accel, corners, sdf, cc, ch}, lanes,
       HitOut{hit, t, kind, cell, t_in, t_out, face, steps}};
   by_table(LaunchLanes{p, static_cast<cudaStream_t>(stream)}, bf16, chebyshev,
+           interp, debug);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7: one thread per object-space ray against one slab.  accel u8
+// [cps, cc, cc] over the owned cells, corners f32 [span - 1, cc, cc, 8] (row x
+// is global cell x0 + x), sdf f32 [span, cc + 1, cc + 1] (plane x is global
+// plane x0 + x); n the full volume's voxels per axis, h its cell size, ext
+// its extent.  Returns cudaGetLastError() after the launch.
+extern "C" int vrt_march_slab(
+    const float* o, const float* d, const float* t_max, long long lanes,
+    const uint8_t* accel, const void* corners, const float* sdf, int cc,
+    int span, int x0, int cell_lo, int cell_hi, int n, float h, float ext,
+    int chebyshev, int interp, int debug, uint8_t* hit, float* t,
+    int32_t* kind, int32_t* cell, float* t_in, float* t_out, float* face,
+    int32_t* steps, void* stream) {
+  const SlabParams p{o, d, t_max, lanes, accel,
+                     static_cast<const float*>(corners), sdf, cc, span, x0,
+                     cell_lo, cell_hi, n, h, ext,
+                     HitOut{hit, t, kind, cell, t_in, t_out, face, steps}};
+  by_table(LaunchSlab{p, static_cast<cudaStream_t>(stream)}, 0, chebyshev,
            interp, debug);
   return static_cast<int>(cudaGetLastError());
 }

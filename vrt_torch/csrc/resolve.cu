@@ -117,6 +117,9 @@ struct ResolveParams {
   float* t_out;            // [R]
   float* normal;           // [R,3]
   uint8_t* unlit;          // [R]
+  // the corner table's x rows: row x holds cell x0 + x, for x in [0, cx)
+  // (0 and cc for a scene's tables; a slab's own table otherwise)
+  int x0, cx;
 };
 
 // The first 8 channels of a corner row as f32.  E is float or uint16_t (the
@@ -213,12 +216,14 @@ __global__ void __launch_bounds__(256) resolve_kernel(const ResolveParams p) {
         for (int s = 0; s < 2; ++s) {
           int c[3] = {cell[0], cell[1], cell[2]};
           c[k] += s == 0 ? 1 : -1;
+          const int lx = c[0] - p.x0;
           const bool valid = c[0] >= 0 && c[1] >= 0 && c[2] >= 0 &&
-                             c[0] + 1 < n && c[1] + 1 < n && c[2] + 1 < n;
+                             c[0] + 1 < n && c[1] + 1 < n && c[2] + 1 < n &&
+                             lx >= 0 && lx < p.cx;
           float v8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
           if (valid)
             load_row<E, kV16>(
-                table + ((c[0] * cc + c[1]) * cc + c[2]) * p.tb.ch, v8);
+                table + ((lx * cc + c[1]) * cc + c[2]) * p.tb.ch, v8);
           f[s] = trilinear(v8, q);
         }
         g[k] = f[0] - f[1];
@@ -914,21 +919,25 @@ cudaError_t launch_merged(const ResolveBwdParams& p, int acc_w,
 
 // One thread per ray.  bf16 1 reads the corner table as bf16 bits, else as
 // f32; v16 1 takes the 16-byte load path (the caller checks that the rows
-// and the table's base are 16-byte aligned).  Returns cudaGetLastError().
+// and the table's base are 16-byte aligned).  The table has cx rows in x,
+// row x holding cell x0 + x (a scene's: x0 0, cx cc; one rank's slab of a
+// slab-sharded volume: its own rows, x0 the slab's first plane), and cc in y
+// and z.  Returns cudaGetLastError().
 extern "C" int vrt_resolve_scene(
     const float* o_w, const float* d_w, const int32_t* winner,
     const int32_t* kind, const float* t, const int32_t* cell,
     const float* face, const int32_t* inst_volume, const float* inst_pos,
     const float* inst_rot, const float* inst_scale, int n_inst,
     const int32_t* n, const float* cell_size, const float* extends,
-    const void* corners, int cc, int ch, int bf16, int v16, long long rays,
-    float* t_out, float* normal, uint8_t* unlit, void* stream) {
+    const void* corners, int cc, int ch, int bf16, int v16, int x0, int cx,
+    long long rays, float* t_out, float* normal, uint8_t* unlit,
+    void* stream) {
   if (n_inst < 1 || ch < 8) return cudaErrorInvalidValue;
   const ResolveParams p{
       o_w, d_w, winner, kind, t, cell, face,
       Instances{inst_volume, inst_pos, inst_rot, inst_scale, nullptr, n_inst},
       Tables{n, cell_size, extends, nullptr, corners, nullptr, cc, ch},
-      rays, t_out, normal, unlit};
+      rays, t_out, normal, unlit, x0, cx};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned grid = static_cast<unsigned>((rays + 255) / 256);
   if (bf16) {

@@ -1,0 +1,387 @@
+"""Slab-sharded voxel volumes with halo exchange: model parallelism (port
+of ``vrt.dist.brick``).
+
+A volume is split into x-slabs over the mesh's 'model' axis.  Shard s
+stores its owned SDF voxel planes ``[cell_lo, cell_hi]`` plus ``HALO`` = 2
+planes a side (the cell-corner stencil needs one more plane, the
+central-difference normal two), and the accel field built over the FULL
+grid, sliced to its owned cells, so that in-slab traversal takes the
+replicated march's node steps.
+
+Every shard marches every ray but reports hits only inside its owned
+cells: out-of-slab space is one empty node from the slab boundary outward,
+crossed in one step.  The closest hit across shards is an all-gather of t,
+an argmin and a sum to which one shard contributes (``combine_hits``).
+Halos refresh with the neighbour send/recv pair (``exchange_halos``).
+
+The host side (``shard_volume``) gives stacked [S, ...] CPU tensors, equal
+to ``vrt``'s arrays bit for bit; ``SlabVolume.local`` gives one rank its
+slab.  ``march_volume_slab`` is the slab march: K7
+(``vrt_torch/csrc/march.cu`` through ``vrt_torch.kernels.march``) on CUDA
+tensors, its plain twin ``march_volume_slab_reference`` (``vrt``'s
+``_march_core`` with the slab's four hooks) on CPU tensors.
+``resolve_slab_hits`` is the plain resolve; the slab tracer resolves on
+the card through the fused resolve over the slab's corner table
+(``vrt_torch.kernels.resolve.resolve_slab_cuda``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from vrt_torch.core.grid import DEFAULT_DENSITY
+from vrt_torch.dist import mesh as _mesh
+from vrt_torch.march import isosurface as iso
+from vrt_torch.march.march import (march_core_reference, node_box_from_accel,
+                                   ray_aabb)
+from vrt_torch.march.resolve import resolve_hits
+from vrt_torch.march.types import MarchHit, _accel_u8
+from vrt_torch.volume.accel import build_accel, build_accel_chebyshev
+
+HALO = 2  # voxel planes a side: corner stencil +1, normal stencil +2
+
+_FIELDS = ("sdf", "accel", "x_voxel0", "cell_lo", "cell_hi", "n",
+           "cell_size", "extends")
+
+
+@dataclasses.dataclass
+class SlabVolume:
+    """One volume split into x-slabs: stacked over a leading S axis (as
+    ``shard_volume`` gives it), or one rank's slab without that axis (as
+    ``local`` gives it)."""
+
+    sdf: torch.Tensor        # f32 [S, span, N, N]; span = cps + 1 + 2*HALO
+    accel: torch.Tensor      # i32 [S, cps, C, C]: global accel, owned cells
+    x_voxel0: torch.Tensor   # i32 [S] global x of local sdf plane 0
+    cell_lo: torch.Tensor    # i32 [S] first owned x-cell
+    cell_hi: torch.Tensor    # i32 [S] end of the owned x-cells (exclusive)
+    n: torch.Tensor          # i32 [S] voxels per axis of the full volume
+    cell_size: torch.Tensor  # f32 [S]
+    extends: torch.Tensor    # f32 [S]
+    accel_mode: str = "octree"   # 'octree' | 'chebyshev'
+
+    def local(self, rank: int, device: torch.device | str = "cuda"
+              ) -> "SlabVolume":
+        """Shard ``rank``'s slab on ``device``: every field without the
+        leading axis."""
+        return SlabVolume(**{f: getattr(self, f)[rank].to(device)
+                             for f in _FIELDS}, accel_mode=self.accel_mode)
+
+    @functools.cached_property
+    def march_tables(self) -> dict:
+        """What K7 and the slab's fused resolve read, for a local slab:
+        ``corners`` f32 [span-1, C, C, 8], the slab-local corner table
+        (row x is global cell ``x_voxel0 + x``), ``accel_u8`` u8
+        [cps, C, C] over the owned cells (skips clamped to 127, as K1
+        reads them), the slab's scalars as Python numbers, and as the
+        fused resolve's ``volume`` tables.  Rows of
+        cells outside the volume hold halo planes of ``DEFAULT_DENSITY``;
+        the kernels read no such row (a cell that is not inside the volume
+        reads zeros, as everywhere else)."""
+        if self.sdf.dim() != 3:
+            raise ValueError("march_tables belong to one rank's slab")
+        return dict(corners=_pack_slab_corners(self.sdf),
+                    accel_u8=_accel_u8(self.accel).contiguous(),
+                    sdf=self.sdf.contiguous(),
+                    x0=int(self.x_voxel0), cell_lo=int(self.cell_lo),
+                    cell_hi=int(self.cell_hi), n=int(self.n),
+                    h=float(self.cell_size), ext=float(self.extends),
+                    # the slab as the fused resolve's one volume: n, cell
+                    # size, extent [1], and instance -> volume 0
+                    volume=(self.n.reshape(1), self.cell_size.reshape(1),
+                            self.extends.reshape(1),
+                            torch.zeros(1, dtype=torch.int32,
+                                        device=self.sdf.device)))
+
+
+def _pack_slab_corners(sdf):
+    """[span, N, N] planes -> [span-1, N-1, N-1, 8] corner rows in the
+    reference corner order (``types.pack_cell_corners`` for a slab)."""
+    cx, c = sdf.shape[0] - 1, sdf.shape[-1] - 1
+    return torch.stack([sdf[dx:dx + cx, dy:dy + c, dz:dz + c]
+                        for dx, dy, dz in iso.CORNERS], dim=-1).contiguous()
+
+
+def shard_volume(vol, n_shards: int, accel_mode: str = "octree"
+                 ) -> SlabVolume:
+    """Host-side slab split of a ``VoxelVolume``: stacked CPU tensors.
+    The cells per axis must divide by ``n_shards``.  The accel field is
+    built over the FULL grid first (its skip blocks are surface-free
+    globally, so an owned cell's skip may jump past the slab), then sliced
+    per shard; edge shards' halo planes outside the volume hold
+    ``DEFAULT_DENSITY``."""
+    n = vol.n_voxels
+    cells = n - 1
+    if cells % n_shards:
+        raise ValueError(f"{cells} cells do not split into {n_shards} "
+                         f"slabs")
+    cps = cells // n_shards
+    span = cps + 1 + 2 * HALO
+    sdf_full = np.asarray(vol.sdf, np.float32)
+    if accel_mode == "chebyshev":
+        accel_full = np.asarray(build_accel_chebyshev(sdf_full), np.int32)
+    elif accel_mode == "octree":
+        accel_full = np.asarray(build_accel(sdf_full, vol.resolution),
+                                np.int32)
+    else:
+        raise ValueError(f"unknown accel_mode {accel_mode!r}")
+
+    sdf = np.full((n_shards, span, n, n), DEFAULT_DENSITY, np.float32)
+    accel = np.zeros((n_shards, cps, cells, cells), np.int32)
+    x0s = np.zeros(n_shards, np.int32)
+    for s in range(n_shards):
+        x0s[s] = s * cps - HALO
+        lo, hi = max(0, x0s[s]), min(n, x0s[s] + span)
+        sdf[s, lo - x0s[s]:hi - x0s[s]] = sdf_full[lo:hi]
+        accel[s] = accel_full[s * cps:(s + 1) * cps]
+    los = x0s + HALO
+    return slab_from_numpy(dict(
+        sdf=sdf, accel=accel, x_voxel0=x0s, cell_lo=los, cell_hi=los + cps,
+        n=np.full(n_shards, n, np.int32),
+        cell_size=np.full(n_shards, vol.cell_size, np.float32),
+        extends=np.full(n_shards, vol.extends, np.float32)), accel_mode)
+
+
+def slab_from_numpy(fields: dict, accel_mode: str = "octree") -> SlabVolume:
+    """The port's ``SlabVolume`` from arrays: ``vrt``'s ``SlabVolume``
+    fields as numpy arrays (what ``scene_from_numpy`` is for a scene), on
+    the CPU."""
+    return SlabVolume(**{f: torch.from_numpy(np.array(fields[f]))
+                         for f in _FIELDS}, accel_mode=accel_mode)
+
+
+def _slab_fetch(slab: SlabVolume):
+    """Voxel fetch in GLOBAL indices against a local slab's planes; voxels
+    outside the volume or outside the stored planes read 0.0."""
+    span, nn = slab.sdf.shape[0], slab.sdf.shape[-1]
+    flat = slab.sdf.reshape(-1)
+
+    def fetch(idx):
+        lx = idx[..., 0] - slab.x_voxel0
+        valid = (torch.all((idx >= 0) & (idx < slab.n), dim=-1)
+                 & (lx >= 0) & (lx < span))
+        lxc = torch.clamp(lx, 0, span - 1)
+        ic = torch.clamp(idx[..., 1:], 0, nn - 1)
+        lin = (lxc.long() * nn + ic[..., 0]) * nn + ic[..., 1]
+        return torch.where(valid, flat[lin], 0.0)
+
+    return fetch
+
+
+def _slab_accel_fetch(slab: SlabVolume):
+    """Packed accel value of GLOBAL cells; 0 outside the owned cells."""
+    cps, cc = slab.accel.shape[0], slab.accel.shape[-1]
+    flat = slab.accel.reshape(-1)
+
+    def fetch(cell):
+        owned = ((cell[..., 0] >= slab.cell_lo) & (cell[..., 0] < slab.cell_hi)
+                 & torch.all((cell[..., 1:] >= 0) & (cell[..., 1:] < cc),
+                             dim=-1))
+        lx = torch.clamp(cell[..., 0] - slab.cell_lo, 0, cps - 1)
+        ic = torch.clamp(cell[..., 1:], 0, cc - 1)
+        lin = (lx.long() * cc + ic[..., 0]) * cc + ic[..., 1]
+        return torch.where(owned, flat[lin], 0)
+
+    return fetch
+
+
+class _SlabFetchers:
+    """The slab's fetchers in the shape ``march_core_reference`` takes."""
+
+    def __init__(self, slab: SlabVolume):
+        self.voxel = _slab_fetch(slab)
+        self.accel = _slab_accel_fetch(slab)
+
+    def accel_at(self, cell, lanes=None):
+        return self.accel(cell)
+
+    def corners_at(self, cell, lanes=None):
+        return iso.gather_corners(self.voxel, cell)
+
+    def density_at(self, cell, lanes=None):
+        return self.voxel(cell)
+
+
+@torch.no_grad()
+def march_volume_slab_reference(slab: SlabVolume, o, d, t_max,
+                                interp: bool = True,
+                                debug_overlay: bool = False) -> MarchHit:
+    """K7's plain twin: rays (object space) against one local slab,
+    ``vrt``'s ``march_volume_slab``.  The march loop of
+    ``march_lanes_reference`` (``march_core_reference``) with the slab's
+    global-index fetches and its four hooks:
+
+    - ``node_geometry``: an owned cell keeps its skip box; the out-of-slab
+      region on either side is one empty node, [-ext, lo_plane] or
+      [hi_plane, ext] in x and the full extent in y and z,
+    - ``lane_ok``: lanes whose chord misses the slab box retire before the
+      loop,
+    - ``t_exit_cap``: the traversal's exit clamps to the slab box's exit
+      plus one cell,
+    - ``voxel_owned`` (cube mode): a voxel x-plane must be owned; the last
+      shard also owns plane n-1.
+
+    Hits are reported only for owned cells; ``combine_hits`` joins them."""
+    # as vrt does (a value-preserving zero, but -0.0 + 0.0 is +0.0)
+    vz = slab.cell_size * 0.0
+    o, d, t_max = o + vz, d + vz, t_max + vz
+    lanes = o.shape[0]
+    h, ext, n = slab.cell_size, slab.extends, slab.n
+    f32 = torch.float32
+    lo_plane = slab.cell_lo.to(f32) * h - ext
+    hi_plane = slab.cell_hi.to(f32) * h - ext
+
+    def node_geometry(cell, av):
+        valid, has_surf, own_lo, own_hi = node_box_from_accel(
+            cell, av, slab.accel_mode, n, h, h, ext)
+        x = cell[..., 0]
+        owned = (x >= slab.cell_lo) & (x < slab.cell_hi)
+        left = x < slab.cell_lo
+        neg = torch.broadcast_to(-ext, x.shape)
+        pos = torch.broadcast_to(ext, x.shape)
+        out_lo = torch.stack([torch.where(left, -ext, hi_plane), neg, neg],
+                             dim=-1)
+        out_hi = torch.stack([torch.where(left, lo_plane, ext), pos, pos],
+                             dim=-1)
+        m = owned[..., None]
+        return (valid, has_surf & owned, torch.where(m, own_lo, out_lo),
+                torch.where(m, own_hi, out_hi))
+
+    slab_lo = torch.stack([lo_plane, -ext, -ext])
+    slab_hi = torch.stack([hi_plane, ext, ext])
+    slab_ok, _, slab_exit = ray_aabb(o, d, slab_lo, slab_hi, t_max)
+
+    def voxel_owned(cell):
+        x = cell[..., 0]
+        return (((x >= slab.cell_lo) & (x < slab.cell_hi))
+                | ((x == n - 1) & (slab.cell_hi == n - 1)))
+
+    return march_core_reference(
+        _SlabFetchers(slab), n.expand(lanes), h.expand(lanes),
+        ext.expand(lanes), slab.accel_mode, o, d, t_max, interp,
+        debug_overlay, node_geometry=node_geometry, lane_ok=slab_ok,
+        t_exit_cap=slab_exit + h, voxel_owned=voxel_owned)
+
+
+def march_volume_slab(slab: SlabVolume, o, d, t_max, interp: bool = True,
+                      debug_overlay: bool = False) -> MarchHit:
+    """March rays (object space, f32 [R,3]; t_max f32 [R]) against one
+    local slab, reporting hits in owned cells only.  On CUDA tensors this
+    launches K7; on CPU tensors it runs the twin."""
+    if o.device.type == "cuda":
+        from vrt_torch.kernels import march as k1
+
+        return k1.march_slab_cuda(slab, o.contiguous(), d.contiguous(),
+                                  t_max.contiguous(), interp, debug_overlay)
+    if o.device.type != "cpu":
+        raise ValueError(f"no slab march for device {o.device}")
+    return march_volume_slab_reference(slab, o, d, t_max, interp,
+                                       debug_overlay)
+
+
+def combine_hits(hit: MarchHit, group) -> MarchHit:
+    """The closest hit across ``group`` (``vrt``'s one-contributor sum):
+    every rank all-gathers t (+inf where no hit), takes the argmin over the
+    ranks (the first on a tie), and each field is the sum over the ranks of
+    the winner's value and zeros elsewhere (booleans summed as int32).  So
+    the bits are ``vrt``'s, with a -0.0 of the winner summed to +0.0."""
+    t_key = torch.where(hit.hit, hit.t, float("inf"))
+    all_t = _mesh.all_gather(t_key[None], group)              # [S, R]
+    win = torch.argmin(all_t, dim=0) == torch.distributed.get_rank(group)
+
+    def pick(x):
+        if x is None:
+            return None
+        m = win.reshape(win.shape + (1,) * (x.dim() - 1))
+        if x.dtype == torch.bool:
+            return _mesh.all_reduce_sum(
+                torch.where(m, x, False).to(torch.int32), group) > 0
+        return _mesh.all_reduce_sum(torch.where(m, x, torch.zeros_like(x)),
+                                    group)
+
+    return MarchHit(**{f.name: pick(getattr(hit, f.name))
+                       for f in dataclasses.fields(MarchHit)})
+
+
+def exchange_halos(slab: SlabVolume, group) -> SlabVolume:
+    """Refresh a local slab's halo planes from its neighbours in ``group``:
+    my left-halo slots [0, HALO) are globals [cell_lo - HALO, cell_lo), the
+    left neighbour's owned slots [span - 2*HALO - 1, span - HALO - 1); my
+    right-halo slots [span - HALO, span) the right neighbour's owned slots
+    [HALO + 1, 2*HALO + 1).  Edge shards keep their planes outside the
+    volume.  Forward only: a slab whose SDF requires a gradient is refused
+    (its backward, the reversed pair, is not ported yet)."""
+    if slab.sdf.requires_grad:
+        raise NotImplementedError("exchange_halos has no backward yet: "
+                                  "the slab's SDF requires a gradient")
+    span, hl = slab.sdf.shape[0], HALO
+    to_right = slab.sdf[span - 2 * hl - 1:span - hl - 1]
+    to_left = slab.sdf[hl + 1:2 * hl + 1]
+    from_left, from_right = _mesh.neighbour_exchange(to_right, to_left,
+                                                     group)
+    new = slab.sdf.clone()
+    if from_left is not None:
+        new[:hl] = from_left
+    if from_right is not None:
+        new[span - hl:] = from_right
+    return dataclasses.replace(slab, sdf=new)
+
+
+def assemble_full_sdf(slabs: SlabVolume, group=None) -> torch.Tensor:
+    """The full [N,N,N] SDF from the slabs' OWNED planes (shard s owns
+    voxel planes [cell_lo, cell_hi); the last shard also the final plane):
+    from stacked slabs, or, with ``group``, from each rank's local slab by
+    an all-gather of the owned planes over ``group`` (every rank gets the
+    grid)."""
+    span = slabs.sdf.shape[-3]
+    cps = span - 1 - 2 * HALO
+    if group is None:
+        owned = slabs.sdf[:, HALO:HALO + cps]
+        last = slabs.sdf[-1, HALO + cps]
+        return torch.cat([owned.reshape(-1, *owned.shape[2:]), last[None]])
+    owned = _mesh.all_gather(slabs.sdf[HALO:HALO + cps], group)
+    last = _mesh.all_gather(slabs.sdf[HALO + cps][None], group)[-1]
+    return torch.cat([owned, last[None]])
+
+
+def resync_slabs(slabs: SlabVolume, resolution: int,
+                 group=None) -> SlabVolume:
+    """Gather the slabs' owned planes into the full grid
+    (``assemble_full_sdf``), rebuild the octree accel over the CURRENT
+    geometry (``vrt`` rebuilds octree in every accel mode) and cut SDF and
+    accel into the slab layout again: stacked slabs give stacked slabs
+    equal to ``shard_volume`` of a volume holding the assembled SDF; a
+    local slab with ``group`` gives this rank's slab of that split."""
+    full = assemble_full_sdf(slabs, group)
+    n = full.shape[0]
+    n_shards = (slabs.sdf.shape[0] if group is None
+                else torch.distributed.get_world_size(group))
+    cps = (n - 1) // n_shards
+    span = cps + 1 + 2 * HALO
+    accel_full = build_accel(full, resolution)
+    pad = torch.full((HALO,) + tuple(full.shape[1:]), DEFAULT_DENSITY,
+                     dtype=full.dtype, device=full.device)
+    padded = torch.cat([pad, full, pad])
+    shards = (range(n_shards) if group is None
+              else [torch.distributed.get_rank(group)])
+    sdf = torch.stack([padded[s * cps:s * cps + span] for s in shards])
+    accel = torch.stack([accel_full[s * cps:(s + 1) * cps] for s in shards])
+    if group is not None:
+        sdf, accel = sdf[0], accel[0]
+    return dataclasses.replace(slabs, sdf=sdf, accel=accel)
+
+
+def resolve_slab_hits(slab: SlabVolume, o, d, hit: MarchHit):
+    """(t, object-space normal, unlit) for hits against one local slab
+    (meaningful on owned-cell hits: the 2-voxel halo covers a boundary
+    cell's stencil), from the slab's voxels by global index: ``resolve_hits``
+    over ``corner_fetch_from_voxels(_slab_fetch(slab))``.  The plain
+    version of the slab tracer's fused resolve on the card."""
+    r = o.shape[0]
+    return resolve_hits(iso.corner_fetch_from_voxels(_slab_fetch(slab)),
+                        slab.cell_size.expand(r), slab.extends.expand(r),
+                        o, d, hit)

@@ -1,6 +1,8 @@
-"""K1: build, bind and launch the CUDA march (``vrt_torch/csrc/march.cu``):
-the per-lane march ``march_lanes_cuda`` and the scene march
-``march_scene_cuda``, one launch per trace over all instances.
+"""K1 and K7: build, bind and launch the CUDA march
+(``vrt_torch/csrc/march.cu``): the per-lane march ``march_lanes_cuda``, the
+scene march ``march_scene_cuda`` (one launch per trace over all instances),
+and K7, the slab march ``march_slab_cuda`` (one launch per trace against one
+rank's slab of a slab-sharded volume, ``vrt_torch.dist.brick``).
 
 The source is built by ``vrt_torch.kernels._build`` (nvcc by hand, a plain
 C interface, ctypes) with ``--fmad=false`` besides, which keeps every
@@ -10,12 +12,14 @@ and the corner table in every mode, and in cube mode the f32 voxel table
 ``sdf`` ([V,N,N,N], N = C + 1) as well; the wrapper passes and checks
 ``sdf`` in every mode.
 
-The plain versions are ``vrt_torch.march.march.march_lanes_reference`` and
+The plain versions are ``vrt_torch.march.march.march_lanes_reference``,
 ``vrt_torch.render.renderer.march_scene_reference`` (and, for the any-hit
-variant, the ``hit`` field of the latter's result).
+variant, the ``hit`` field of the latter's result) and
+``vrt_torch.dist.brick.march_volume_slab_reference``.
 
-``LAUNCHES`` counts the per-lane kernel's launches and ``SCENE_LAUNCHES``
-the scene march's: a run can show which of them its frames went through.
+``LAUNCHES`` counts the per-lane kernel's launches, ``SCENE_LAUNCHES`` the
+scene march's and ``SLAB_LAUNCHES`` K7's: a run can show which of them its
+frames went through.
 
 The scene march has two designs in ``march.cu``.  The default, the capped
 kernel, runs 64 threads a block with its registers capped.  The first
@@ -35,6 +39,7 @@ from vrt_torch.march.types import DeviceVolume, MarchHit
 
 LAUNCHES = 0
 SCENE_LAUNCHES = 0
+SLAB_LAUNCHES = 0
 MAX_INSTANCES = 32  # kMaxInstances of march.cu
 
 NVCC_FLAGS = ["--fmad=false"]
@@ -58,6 +63,11 @@ def build() -> str:
                                     + [ctypes.c_longlong] + [ptr] * 9
                                     + [i32] + [ptr])
     lib.vrt_march_scene.restype = i32
+    f32 = ctypes.c_float
+    lib.vrt_march_slab.argtypes = ([ptr] * 3 + [ctypes.c_longlong]
+                                   + [ptr] * 3 + [i32] * 6 + [f32] * 2
+                                   + [i32] * 3 + [ptr] * 8 + [ptr])
+    lib.vrt_march_slab.restype = i32
     _lib = lib
     return log
 
@@ -219,3 +229,52 @@ def march_scene_cuda(scene, o_w, d_w, t_max, interp: bool = True,
         raise RuntimeError(f"K1 scene march launch failed: cudaError {err}")
     SCENE_LAUNCHES += 1
     return result
+
+
+def march_slab_cuda(slab, o, d, t_max, interp: bool = True,
+                    debug_overlay: bool = False) -> MarchHit:
+    """Launch K7 on ``torch.cuda.current_stream()``: rays (object space)
+    against one rank's slab (a local ``vrt_torch.dist.brick.SlabVolume`` on
+    the card), hits in owned cells only, what
+    ``march_volume_slab_reference`` computes.  Reads the slab's
+    ``march_tables`` (its slab-local corner table, the owned cells' u8
+    accel and its voxel planes).  Raises on any input K7 does not take;
+    never falls back."""
+    global SLAB_LAUNCHES
+
+    if o.device.type != "cuda":
+        raise ValueError(f"K7 runs on CUDA tensors, got {o.device}")
+    dev = o.device
+    lanes = o.shape[0]
+    _check(o, "o", torch.float32, (lanes, 3), dev, who="K7")
+    _check(d, "d", torch.float32, (lanes, 3), dev, who="K7")
+    _check(t_max, "t_max", torch.float32, (lanes,), dev, who="K7")
+    if slab.accel_mode not in ("octree", "chebyshev"):
+        raise ValueError(f"K7: unknown accel_mode {slab.accel_mode!r}")
+    tb = slab.march_tables
+    span, nn = tb["sdf"].shape[0], tb["sdf"].shape[-1]
+    cc = nn - 1
+    cps = tb["cell_hi"] - tb["cell_lo"]
+    _check(tb["sdf"], "sdf", torch.float32, (span, nn, nn), dev, who="K7")
+    _check(tb["corners"], "corners", torch.float32, (span - 1, cc, cc, 8),
+           dev, who="K7")
+    _check(tb["accel_u8"], "accel_u8", torch.uint8, (cps, cc, cc), dev,
+           who="K7")
+    if tb["n"] != nn:
+        raise ValueError(f"K7: a slab of {nn} voxels a side of a volume of "
+                         f"{tb['n']}")
+    out = _empty_hit(lanes, dev)
+    if lanes == 0:
+        return out
+    build()
+    err = _lib.vrt_march_slab(
+        o.data_ptr(), d.data_ptr(), t_max.data_ptr(), lanes,
+        tb["accel_u8"].data_ptr(), tb["corners"].data_ptr(),
+        tb["sdf"].data_ptr(), cc, span, tb["x0"], tb["cell_lo"],
+        tb["cell_hi"], tb["n"], tb["h"], tb["ext"],
+        int(slab.accel_mode == "chebyshev"), int(bool(interp)),
+        int(bool(debug_overlay)), *_hit_args(out), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"K7 launch failed: cudaError {err}")
+    SLAB_LAUNCHES += 1
+    return out

@@ -32,7 +32,9 @@ there, their plain versions.  It returns no gradient for the instance
 transforms: ``renderer.resolve_scene`` keeps a caller that wants one on
 the plain path.
 
-``LAUNCHES`` counts the launches of each kernel.
+``LAUNCHES`` counts the launches of each kernel; ``SLAB_LAUNCHES`` the
+forward launches over a slab's table (``resolve_slab_cuda``), which
+``LAUNCHES["forward"]`` counts too.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from vrt_torch.kernels.march import _stream
 from vrt_torch.march.types import MarchHit
 
 LAUNCHES = {"forward": 0, "backward": 0}
+SLAB_LAUNCHES = 0
 
 NVCC_FLAGS = ["--fmad=false"]
 
@@ -62,7 +65,7 @@ def build() -> str:
     lib, log = _build.build("resolve.cu", NVCC_FLAGS, headers=["scene.cuh"])
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.vrt_resolve_scene.argtypes = ([ptr] * 11 + [i32] + [ptr] * 4
-                                      + [i32] * 4 + [ctypes.c_longlong]
+                                      + [i32] * 6 + [ctypes.c_longlong]
                                       + [ptr] * 3 + [ptr])
     lib.vrt_resolve_scene.restype = i32
     lib.vrt_resolve_scene_bwd.argtypes = ([ptr] * 12 + [i32] + [ptr] * 4
@@ -167,11 +170,65 @@ def resolve_scene_cuda(scene, o_w, d_w, hit: MarchHit, inst):
     err = _lib.vrt_resolve_scene(
         o_w.data_ptr(), d_w.data_ptr(), inst.data_ptr(),
         hit.kind.data_ptr(), hit.t.data_ptr(), hit.cell.data_ptr(),
-        hit.face_normal.data_ptr(), *_scene_args(scene, table, n_inst), rays,
-        t.data_ptr(), normal.data_ptr(), unlit.data_ptr(), _stream(dev))
+        hit.face_normal.data_ptr(), *_scene_args(scene, table, n_inst), 0,
+        scene.volumes.corners.shape[1], rays, t.data_ptr(), normal.data_ptr(),
+        unlit.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"fused resolve launch failed: cudaError {err}")
     LAUNCHES["forward"] += 1
+    return t, normal, unlit
+
+
+def resolve_slab_cuda(scene, slab, o_w, d_w, hit: MarchHit, inst):
+    """Launch the fused resolve on ``torch.cuda.current_stream()`` for the
+    combined hits of the slab march (``vrt_torch.dist.slab_render``): world
+    rays through the transform of ``scene``'s one instance, the corner
+    rows read from one rank's slab (a local
+    ``vrt_torch.dist.brick.SlabVolume``): its slab-local f32 table
+    (``march_tables``), whose row x is global cell ``x_voxel0 + x``.  A
+    cell outside the volume or outside the slab's rows reads zeros.  What
+    ``vrt_torch.dist.brick.resolve_slab_hits`` computes on the lanes whose
+    hit cell the slab owns; no graph.  Counted in ``LAUNCHES["forward"]``
+    and ``SLAB_LAUNCHES``.  Raises on any input the kernel does not take;
+    never falls back."""
+    global SLAB_LAUNCHES
+
+    dev, rays, table, n_inst = _check_inputs(scene, o_w, d_w, hit, inst,
+                                             "the slab's fused resolve")
+    _check(hit.face_normal, "hit.face_normal", torch.float32, (rays, 3), dev)
+    if n_inst != 1:
+        raise ValueError(f"the slab's fused resolve takes a scene of one "
+                         f"instance, got {n_inst}")
+    tb = slab.march_tables
+    corners = tb["corners"]
+    cx, cc = corners.shape[0], corners.shape[1]
+    _check(corners, "slab corners", torch.float32, (cx, cc, cc, 8), dev)
+    n, h, ext, volume0 = tb["volume"]
+    for x, name, dtype in ((n, "n", torch.int32), (h, "cell_size",
+                                                    torch.float32),
+                           (ext, "extends", torch.float32),
+                           (volume0, "instance volume", torch.int32)):
+        _check(x, f"slab {name}", dtype, (1,), dev)
+    # the instance's transform, with the slab as its volume 0
+    table = (volume0,) + tuple(table[1:])
+    t = torch.empty(rays, dtype=torch.float32, device=dev)
+    normal = torch.empty((rays, 3), dtype=torch.float32, device=dev)
+    unlit = torch.empty(rays, dtype=torch.bool, device=dev)
+    if rays == 0:
+        return t, normal, unlit
+    build()
+    err = _lib.vrt_resolve_scene(
+        o_w.data_ptr(), d_w.data_ptr(), inst.data_ptr(),
+        hit.kind.data_ptr(), hit.t.data_ptr(), hit.cell.data_ptr(),
+        hit.face_normal.data_ptr(), *(x.data_ptr() for x in table), n_inst,
+        n.data_ptr(), h.data_ptr(), ext.data_ptr(), corners.data_ptr(), cc,
+        8, 0, int(load_path(corners) == "v16"), tb["x0"], cx, rays,
+        t.data_ptr(), normal.data_ptr(), unlit.data_ptr(), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"the slab's fused resolve launch failed: "
+                           f"cudaError {err}")
+    LAUNCHES["forward"] += 1
+    SLAB_LAUNCHES += 1
     return t, normal, unlit
 
 

@@ -165,6 +165,50 @@ def central_difference_normal_rows(rows6, p):
     return torch.where(good, unit, 0.0)
 
 
+def trilinear_density(cfetch, cell, p):
+    """Trilinear SDF sample at cell-space position ``p`` [R,3] of ``cell``;
+    ``cfetch(cell) -> [R,8]`` supplies the corner values."""
+    return trilinear_rows(cfetch(cell), p)
+
+
+def central_difference_normal(cfetch, cell, p):
+    """Central-difference normal at cell-space position ``p`` of ``cell``:
+    the trilinear field of the six neighbour cells at the same fractional
+    position, each read through ``cfetch``; zero or non-finite gradients map
+    to the zero vector."""
+    rows = [cfetch(cell + torch.as_tensor(off, device=cell.device))
+            for off in NEIGHBOR_OFFSETS]
+    return central_difference_normal_rows(torch.stack(rows, dim=-2), p)
+
+
+def make_fetch(sdf, n):
+    """Voxel fetch for one volume: ``sdf`` [N,N,N] (padded), ``n`` the
+    volume's voxels per axis; indices shaped [..., 3]; out-of-range voxels
+    read 0."""
+    nn = sdf.shape[0]
+    flat_sdf = sdf.reshape(-1)
+
+    def fetch(idx):
+        valid = torch.all((idx >= 0) & (idx < n), dim=-1)
+        ic = torch.clamp(idx, 0, nn - 1)
+        flat = (ic[..., 0] * nn + ic[..., 1]) * nn + ic[..., 2]
+        return torch.where(valid, flat_sdf[flat.long()], 0.0)
+
+    return fetch
+
+
+def gather_corners(fetch, cell):
+    """The 8 corner values of cells ``cell`` [..., 3] -> [..., 8] through a
+    voxel fetch."""
+    idx = cell[..., None, :] + torch.as_tensor(CORNERS, device=cell.device)
+    return fetch(idx)
+
+
+def corner_fetch_from_voxels(fetch):
+    """A per-cell 8-corner fetch from a voxel fetch."""
+    return lambda cell: gather_corners(fetch, cell)
+
+
 def _flat_index(v, ic, side):
     return (v * (side * side * side)
             + (ic[..., 0] * side + ic[..., 1]) * side + ic[..., 2])

@@ -22,6 +22,11 @@ plain-torch twin of ``vrt``'s ``_march_begin`` -> ``_march_run`` ->
 - the debug overlay: a lane whose node-entry point lies on a skip node's
   border (``LINE_THICKNESS``) reports an unlit red hit there, before the
   node's exit is taken, in both modes.
+
+The twin's loop is ``march_core_reference``, with ``vrt``'s four hooks
+(``node_geometry``, ``lane_ok``, ``t_exit_cap``, ``voxel_owned``): the slab
+march (``vrt_torch.dist.brick``) sets them, every other caller leaves them
+off.  ``march_volume`` is the single-volume entry point.
 """
 
 from __future__ import annotations
@@ -126,14 +131,22 @@ def _entry_face_normal(o, d, t_enter, ext_v):
 
 class _Tables:
     """Per-lane fetchers over a stacked DeviceVolume: out-of-range cells
-    read accel 0, zero corners and zero density."""
+    read accel 0, zero corners and zero density.  ``lanes`` (an index
+    tensor, or None for every lane) picks the lanes whose cells are
+    passed."""
 
-    def __init__(self, vols: DeviceVolume):
+    def __init__(self, vols: DeviceVolume, vid, n_l):
         self.cc = vols.accel.shape[1]
         self.accel = vols.accel_u8.reshape(-1)
         ch = vols.corners.shape[-1]
         self.corners = vols.corners.reshape(-1, ch)
         self.sdf = vols.sdf
+        self.vid, self.n_l = vid, n_l
+
+    def _lanes(self, lanes):
+        if lanes is None:
+            return self.vid, self.n_l
+        return self.vid[lanes], self.n_l[lanes]
 
     def _index(self, cell, vid):
         ic = torch.clamp(cell, 0, self.cc - 1)
@@ -141,17 +154,20 @@ class _Tables:
         return (vid * (c * c * c) + (ic[..., 0] * c + ic[..., 1]) * c
                 + ic[..., 2]).long()
 
-    def accel_at(self, cell, vid, n):
+    def accel_at(self, cell, lanes=None):
+        vid, n = self._lanes(lanes)
         valid = torch.all((cell >= 0) & (cell < (n - 1)[..., None]), dim=-1)
         vals = self.accel[self._index(cell, vid)].to(torch.int32)
         return torch.where(valid, vals, 0)
 
-    def corners_at(self, cell, vid, n):
+    def corners_at(self, cell, lanes=None):
+        vid, n = self._lanes(lanes)
         valid = torch.all((cell >= 0) & (cell + 1 < n[..., None]), dim=-1)
         rows = self.corners[self._index(cell, vid)][..., :8].float()
         return torch.where(valid[..., None], rows, 0.0)
 
-    def density_at(self, cell, vid, n):
+    def density_at(self, cell, lanes=None):
+        vid, n = self._lanes(lanes)
         return iso.make_stacked_fetch(self.sdf, n, vid)(cell)
 
 
@@ -166,25 +182,52 @@ def march_lanes_reference(vols: DeviceVolume, vol_ids, o, d, t_max,
     K1 is held against on the card."""
     vid = vol_ids.to(torch.int32)
     n_l = vols.n[vid.long()]
-    h_l = vols.cell_size[vid.long()]
-    ext_l = vols.extends[vid.long()]
+    return march_core_reference(
+        _Tables(vols, vid, n_l), n_l, vols.cell_size[vid.long()],
+        vols.extends[vid.long()], vols.accel_mode, o, d, t_max, interp,
+        debug_overlay)
+
+
+def march_core_reference(tab, n_l, h_l, ext_l, accel_mode: str, o, d,
+                         t_max, interp: bool = True,
+                         debug_overlay: bool = False, node_geometry=None,
+                         lane_ok=None, t_exit_cap=None,
+                         voxel_owned=None) -> MarchHit:
+    """The twin's loop (``vrt``'s ``_march_core``) over lanes with per-lane
+    geometry ``n_l``, ``h_l``, ``ext_l`` [L] and the fetchers of ``tab``
+    (``accel_at``, ``corners_at``, ``density_at``, each of cells [L', 3]
+    and the lanes they belong to).  The four hooks are ``vrt``'s:
+
+    - ``node_geometry(cell, av) -> (valid, has_surf, node_lo, node_hi)``
+      replaces the skip-node box (default ``node_box_from_accel``),
+    - ``lane_ok`` [L] masks lanes off before the loop,
+    - ``t_exit_cap`` [L] clamps the traversal's exit t,
+    - ``voxel_owned(cell)`` gates cube mode's solid test.
+
+    The slab march (``vrt_torch.dist.brick.march_volume_slab_reference``)
+    supplies all four; with none given this is ``march_lanes_reference``."""
     n_v, h_v, ext_v = n_l[:, None], h_l[:, None], ext_l[:, None]
-    mode = vols.accel_mode
-    tab = _Tables(vols)
+    mode = accel_mode
+
+    if node_geometry is None:
+        def node_geometry(cell, av):
+            return node_box_from_accel(cell, av, mode, n_v, h_l, h_v, ext_v)
 
     def pos_to_cell(p):
         return torch.floor((p + ext_v) / h_v).to(torch.int32)
 
     # ---- _march_begin ---------------------------------------------------
     ok, t_enter, t_exit = ray_aabb(o, d, -ext_v, ext_v, t_max)
+    if lane_ok is not None:
+        ok = ok & lane_ok
+    if t_exit_cap is not None:
+        t_exit = torch.minimum(t_exit, t_exit_cap)
     pos_branch = t_enter >= 0.0
     t_enter_b = torch.where(pos_branch, t_enter + 0.01, t_enter)
     entry_pos = o + d * t_enter_b[:, None]
     cell = torch.where(pos_branch[:, None], pos_to_cell(entry_pos),
                        pos_to_cell(o))
-    av0 = tab.accel_at(cell, vid, n_l)
-    valid0, _, lo0, hi0 = node_box_from_accel(cell, av0, mode, n_v, h_l,
-                                              h_v, ext_v)
+    valid0, _, lo0, hi0 = node_geometry(cell, tab.accel_at(cell))
     fwd_exit, _ = _exit_with_axis(o, d, lo0, hi0)
     cell_exit = torch.where(pos_branch, t_enter_b, -fwd_exit + 0.01)
 
@@ -193,7 +236,7 @@ def march_lanes_reference(vols: DeviceVolume, vol_ids, o, d, t_max,
     # which is t_enter_b on both branches
     entry_norm = _entry_face_normal(o, d, t_enter_b, ext_v)
     if interp:
-        solid0 = torch.all(tab.corners_at(cell, vid, n_l) < 0.0, dim=-1)
+        solid0 = torch.all(tab.corners_at(cell) < 0.0, dim=-1)
         rep = ok & valid0 & solid0
         acc = rep & (t_enter_b >= 0.0) & (t_enter_b <= t_max)
         res.hit = res.hit | acc
@@ -206,7 +249,7 @@ def march_lanes_reference(vols: DeviceVolume, vol_ids, o, d, t_max,
     else:
         face = entry_norm
         active = ok
-    steps = torch.zeros_like(vid)
+    steps = torch.zeros_like(cell[:, 0])
     eye = torch.eye(3, device=o.device)
 
     # ---- _march_run -----------------------------------------------------
@@ -219,12 +262,10 @@ def march_lanes_reference(vols: DeviceVolume, vol_ids, o, d, t_max,
         steps = steps + active.to(torch.int32)
         act2 = active & ~(cell_exit > t_exit)
         cell_enter = cell_exit
-        av = tab.accel_at(cell, vid, n_l)
-        valid, has_surf, node_lo, node_hi = node_box_from_accel(
-            cell, av, mode, n_v, h_l, h_v, ext_v)
+        valid, has_surf, node_lo, node_hi = node_geometry(
+            cell, tab.accel_at(cell))
         if not interp:
             valid = torch.all((cell >= 0) & (cell < n_v), dim=-1)
-
         if debug_overlay:
             dbg = act2 & valid & _hits_node_bounds(
                 o + d * cell_enter[:, None], node_lo, node_hi)
@@ -257,7 +298,7 @@ def march_lanes_reference(vols: DeviceVolume, vol_ids, o, d, t_max,
                 base = c_cell.to(torch.float32) * h_v[lanes] - ext_v[lanes]
                 a1 = (p_in - base) / size
                 b1 = (p_out - base) / size - a1
-                v8 = tab.corners_at(c_cell, vid[lanes], n_l[lanes])
+                v8 = tab.corners_at(c_cell, lanes)
                 A, B, C, D = iso.cubic_coefficients(v8, a1, b1)
                 rh, th = iso.surface_intersection(A, B, C, D, c_in, c_out)
                 root_hit[lanes] = rh
@@ -271,8 +312,10 @@ def march_lanes_reference(vols: DeviceVolume, vol_ids, o, d, t_max,
             res.t_in = torch.where(acc, cell_enter, res.t_in)
             res.t_out = torch.where(acc, new_exit, res.t_out)
         else:
-            dens = tab.density_at(cell, vid, n_l)
+            dens = tab.density_at(cell)
             rep = act2 & valid & (dens <= 0.0)
+            if voxel_owned is not None:
+                rep = rep & voxel_owned(cell)
             acc = rep & (cell_enter >= 0.0) & (cell_enter <= t_max)
             res.hit = res.hit | acc
             res.t = torch.where(acc, cell_enter, res.t)
@@ -316,3 +359,18 @@ def march_lanes(vols: DeviceVolume, vol_ids, o, d, t_max,
         raise ValueError(f"no march for device {o.device}")
     return march_lanes_reference(vols, vol_ids, o, d, t_max, interp,
                                  debug_overlay)
+
+
+def march_volume(vol: DeviceVolume, o, d, t_max, interp: bool = True,
+                 debug_overlay: bool = False) -> MarchHit:
+    """March rays (object space) through one volume: ``march_lanes`` over
+    ``vol`` (a single, unstacked DeviceVolume) stacked to one, every lane on
+    volume 0.  o, d f32 [R,3]; t_max f32 [R].  K1 on CUDA tensors, the twin
+    on CPU tensors."""
+    stacked = DeviceVolume(
+        sdf=vol.sdf[None], materials=vol.materials[None],
+        accel=vol.accel[None], n=vol.n.reshape(1),
+        cell_size=vol.cell_size.reshape(1), extends=vol.extends.reshape(1),
+        corners=vol.corners[None], accel_mode=vol.accel_mode)
+    vol_ids = torch.zeros(o.shape[0], dtype=torch.int32, device=o.device)
+    return march_lanes(stacked, vol_ids, o, d, t_max, interp, debug_overlay)

@@ -200,3 +200,12 @@ def resolve_hits_backward(rows7, cell_size, extends, o, d, hit: MarchHit,
 
     return (pick(g_o_surface, g_o_solid), pick(g_d_surface, g_d_solid),
             g_rows7)
+
+
+def resolve_volume_hits(vol, o, d, hit: MarchHit):
+    """``resolve_hits`` for hits of ``march_volume`` against one volume
+    (a single, unstacked DeviceVolume), from its voxels."""
+    cfetch = iso.corner_fetch_from_voxels(iso.make_fetch(vol.sdf, vol.n))
+    r = o.shape[0]
+    return resolve_hits(cfetch, vol.cell_size.expand(r),
+                        vol.extends.expand(r), o, d, hit)

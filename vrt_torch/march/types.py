@@ -152,6 +152,17 @@ class MarchHit:
     steps: torch.Tensor | None = None
 
     @classmethod
+    def none(cls, r: int, device: torch.device | str = "cpu") -> "MarchHit":
+        """The no-hit result of ``r`` rays: no hit, t = +inf, zeros."""
+        return cls(hit=torch.zeros(r, dtype=torch.bool, device=device),
+                   t=torch.full((r,), float("inf"), device=device),
+                   kind=torch.zeros(r, dtype=torch.int32, device=device),
+                   cell=torch.zeros((r, 3), dtype=torch.int32, device=device),
+                   t_in=torch.zeros(r, device=device),
+                   t_out=torch.zeros(r, device=device),
+                   face_normal=torch.zeros((r, 3), device=device))
+
+    @classmethod
     def none_like(cls, o) -> "MarchHit":
         """No-hit result derived arithmetically from the ray origins, as
         ``vrt`` derives it (so the zeros carry the origins' signs)."""

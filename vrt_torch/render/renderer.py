@@ -886,6 +886,13 @@ def render_image(scene: GPUScene, width: int, height: int,
 
     o, d = camera_rays(scene.cam_pos, scene.cam_rot, scene.cam_fov,
                        width, height)
-    rgba = _trace_level(scene, o, d, 0, mode, None,
+    return render_rays(scene, o, d, mode, tracer).reshape(height, width, 4)
+
+
+def render_rays(scene: GPUScene, o_w, d_w, mode: RenderMode = RenderMode(),
+                tracer: SceneTracer = None):
+    """``render_image``'s frame for any batch of world rays: the tonemapped
+    [R,4] rows (a sharded frame renders its slice of the camera rays through
+    this; each ray's row depends on that ray alone)."""
+    return _trace_level(scene, o_w, d_w, 0, mode, None,
                         tracer or _DEFAULT_TRACER, True)
-    return rgba.reshape(height, width, 4)

@@ -1,13 +1,16 @@
 """Scenes the port renders: the flagship frame of ``bench.py``, as a device
 scene built directly (``flagship_scene``) and as a host scene graph
 (``flagship_graph``); config3's voxelized glTF torus
-(``voxelized_torus_scene``)."""
+(``voxelized_torus_scene``); config5's CSG volume for the slab-sharded
+frame (``config5_slab_volume``, ``config5_scene``)."""
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -26,6 +29,9 @@ TORUS_MESH = dict(major=60.0, minor=25.0, nu=96, nv=48)
 TORUS_CAMERA_POSITION = (250.0, 0.0, 120.0)
 TORUS_CAMERA_EULER = (0.0, 180.0, -25.0)
 TORUS_SKY = (0.25, 0.35, 0.55)
+# config5 (``vrt/apps/scaling.py``): the light of its ``run``
+CONFIG5_EXTENDS = 100.0
+CONFIG5_LIGHT_EULER = (0.0, 45.0, -30.0)
 
 
 def flagship_volumes(resolution: int = 5):
@@ -223,3 +229,69 @@ def voxelized_torus_scene(resolution: int = 8,
         accel_mode="chebyshev", march_dtype=torch.bfloat16, device=device)
     seconds["build"] = time.perf_counter() - t0
     return scene, seconds
+
+
+def config5_slab_volume(resolution: int = 9):
+    """config5's volume (``vrt/apps/scaling.py::build_volume``, "a
+    512^3-class brick-sharded SDF"): a sphere of radius 62 plus a
+    150x60x60 box at z = 45 minus a sphere of radius 35 at x = 30, baked at
+    n = 2^resolution + 1 over [-100, 100]^3 (513^3 at 9, 0.54 GB f32).  The
+    bake runs a slab of x-planes at a time (each voxel's value depends on
+    its position alone, so the grid is ``from_generator``'s bit for bit)
+    to bound the host memory of the 513^3 grid, in threads."""
+    from vrt_torch.core.grid import GridLaw
+    from vrt_torch.volume import sdf as S
+    from vrt_torch.volume.volume import VoxelVolume
+
+    ext = CONFIG5_EXTENDS
+    csg = S.CSG(shape=S.Sphere(radius=0.62 * ext))
+    csg.add_child(S.Box(extends=(0.75 * ext, 0.3 * ext, 0.3 * ext),
+                        position=np.array([0.0, 0.0, 0.45 * ext],
+                                          np.float32)), S.ADD)
+    csg.add_child(S.Sphere(radius=0.35 * ext,
+                           position=np.array([0.3 * ext, 0.0, 0.0],
+                                             np.float32)), S.SUBTRACT)
+    law = GridLaw(resolution, ext)
+    n = law.n_voxels
+    sdf = np.empty((n, n, n), np.float32)
+    yz = np.stack(np.meshgrid(np.arange(n), np.arange(n), indexing="ij"),
+                  axis=-1)
+    step = max(1, (1 << 22) // (n * n))
+
+    def bake(x0):
+        xs = np.arange(x0, min(n, x0 + step))
+        idx = np.concatenate(
+            [np.broadcast_to(xs[:, None, None, None], (len(xs), n, n, 1)),
+             np.broadcast_to(yz[None], (len(xs), n, n, 2))], axis=-1)
+        pos = np.asarray(idx, np.float32) * law.cell_size + law.origin
+        sdf[x0:x0 + len(xs)] = csg.evaluate(pos)
+
+    # numpy's loops release the interpreter lock: the slabs bake in threads
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        list(pool.map(bake, range(0, n, step)))
+    return VoxelVolume(resolution, ext, sdf=sdf,
+                       voxel_materials=(sdf <= 0.0).astype(np.uint8))
+
+
+def config5_scene(vol, device: torch.device | str = "cuda",
+                  stub: bool = True):
+    """config5's scene around ``vol``: ``vrt``'s ``default_fit_scene``
+    (camera at (300, 0, 0) looking down -x, a roughness-0.8 material, a flat
+    sky) lit along Euler (0, 45, -30), as ``scaling.run`` sets it.  With
+    ``stub`` the scene of the slab-sharded frame (a 2^3 stub SDF with the
+    volume's geometry); without, the same scene over the whole volume (the
+    octree accel, an f32 corner table), the replicated frame's."""
+    from vrt_torch.core import quat as vq
+    from vrt_torch.dist.slab_render import default_fit_scene
+
+    light = np.asarray(vq.forward_vector(
+        vq.from_euler_degrees(*CONFIG5_LIGHT_EULER)), np.float32)
+    scene = default_fit_scene(vol.n_voxels, vol.cell_size, vol.extends,
+                              light, device=device)
+    if stub:
+        return scene
+    from vrt_torch.render.gpuscene import build_scene
+
+    return dataclasses.replace(scene, volumes=build_scene(
+        [vol], [{"volume": 0}], camera={"position": (0.0, 0.0, 0.0)},
+        device=device).volumes)
