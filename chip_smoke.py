@@ -201,6 +201,36 @@ Phases, each of which raises on failure:
              (``render_image_sharded``), equal to ``render_image`` bit for
              bit, with its launches asserted (5 scene marches, 3 resolves,
              3 + 3 shade a frame on each rank).
+12. slabfit -- the training half of the distribution layer.  config5's
+             fit step (``make_slab_fit_step``) on phase 11's 513^3 slabs
+             over the same 4 model ranks, with ``vrt/apps/scaling.py``'s
+             traffic (4096 rays from ``default_rng(0)``, targets of 0.4,
+             Adam at 1e-2): a warm-up, then 3 steps timed on the host from
+             a barrier, with each rank's collectives' host seconds, peak
+             ``max_memory_allocated`` and a profile's busy time, and its
+             launches asserted (per step 2 K7, 1 slab resolve forward and 1
+             backward, 1 + 1 shade forward and 1 + 1 backward; no scene
+             march, no K3); the slab resolve backward's launch of one step
+             on every rank against autograd of ``resolve_slab_hits`` and the
+             closed form summed in float64 (the planes' gradient through
+             the pack within ``SCATTER_RTOL``, the ray gradients within
+             ``RAY_GRAD_RTOL`` and bit-equal to its first design's), timed
+             with its first design, the closed form and its bound while the
+             other ranks wait; the step's plane gradients against the same
+             step on the plain slab resolve (``FIT_*`` gates); the 12x12
+             step on tests/test_brick.py's 33^3 volume against ``vrt``'s
+             (``tests/fixtures/slab_fit_r5_slab4_12x12.npz``: loss and
+             gradient at the ``FIT_*`` gates); over a 2x2 mesh the crossed
+             step (``make_slab_fit_step_crossed``) at 129^3 against the 1x2
+             step on the same rays.  config6's DP step
+             (``make_fit_step_dp``, 1920x1080 over 2 data ranks, Adam at
+             1e-2: launches, host median, collectives, busy time, peak
+             memory) and one SGD step of it against ``make_fit_step`` on
+             one rank (loss and gradient at the ``FIT_*`` gates, the
+             replicas bit-equal).  Last ``python -m vrt_torch.apps.scaling
+             --res 9 --rays 4096 --steps 3 --shards 1 2 4`` in a process of
+             its own, its rows and summary printed (S ranks share this one
+             card: the efficiencies are one card's).
 Last, two yardsticks that the port uses nowhere: the 1080p frame with eager
 shading captured into one CUDA graph and replayed (the run fails unless the
 capture succeeds and the replay gives the eager frame), and ``torch.compile``
@@ -2632,12 +2662,20 @@ def _rank_counts():
     from vrt_torch.dist import mesh
     from vrt_torch.kernels import march as k1
     from vrt_torch.kernels import resolve as kr
+    from vrt_torch.kernels import rows as k3
     from vrt_torch.kernels import shade as k4
 
     return dict(k7=k1.SLAB_LAUNCHES, k1=k1.LAUNCHES, scene=k1.SCENE_LAUNCHES,
-                resolve=kr.LAUNCHES["forward"], slab_resolve=kr.SLAB_LAUNCHES,
+                resolve=kr.LAUNCHES["forward"],
+                slab_resolve=kr.SLAB_LAUNCHES["forward"],
+                resolve_bwd=kr.LAUNCHES["backward"],
+                slab_resolve_bwd=kr.SLAB_LAUNCHES["backward"],
                 surface=k4.LAUNCHES["surface"],
                 combine=k4.LAUNCHES["combine"],
+                surface_bwd=k4.LAUNCHES["surface_bwd"],
+                combine_bwd=k4.LAUNCHES["combine_bwd"],
+                gather=k3.LAUNCHES["K3 gather"],
+                scatter=k3.LAUNCHES["K3 scatter"],
                 collectives={k: v for k, v in mesh.STATS.items()
                              if k != "seconds"})
 
@@ -2646,10 +2684,12 @@ def _rank_zero_counts():
     from vrt_torch.dist import mesh
     from vrt_torch.kernels import march as k1
     from vrt_torch.kernels import resolve as kr
+    from vrt_torch.kernels import rows as k3
     from vrt_torch.kernels import shade as k4
 
     k1.SLAB_LAUNCHES = k1.LAUNCHES = k1.SCENE_LAUNCHES = 0
-    kr.SLAB_LAUNCHES = 0
+    _reset(k3.LAUNCHES)
+    _reset(kr.SLAB_LAUNCHES)
     _reset(kr.LAUNCHES)
     _reset(k4.LAUNCHES)
     mesh.reset_stats()
@@ -2833,6 +2873,7 @@ def _slab_resolve_bound(hit, slab):
     (32 B) that the surface hits' six neighbours name, once."""
     import torch
 
+    from vrt_torch.dist.brick import slab_corner_index
     from vrt_torch.march.resolve import _OFFS7
 
     rays = hit.kind.numel()
@@ -2844,11 +2885,8 @@ def _slab_resolve_bound(hit, slab):
     cx, cc = tb["corners"].shape[0], tb["corners"].shape[1]
     cells = hit.cell[surf][:, None, :] + torch.as_tensor(
         _OFFS7[1:], device=hit.cell.device)
-    lx = cells[..., 0] - tb["x0"]
-    valid = (torch.all((cells >= 0) & (cells + 1 < tb["n"]), dim=-1)
-             & (lx >= 0) & (lx < cx))
-    flat = (lx.long() * cc + cells[..., 1]) * cc + cells[..., 2]
-    rows = int(torch.unique(flat[valid]).numel())
+    idx = slab_corner_index(cells, slab.n, tb["x0"], cx, cc)
+    rows = int(torch.unique(idx[idx >= 0]).numel())
     nbytes = (rays * (8 + 17) + (rays - n_surf - n_debug) * 12
               + (n_surf + n_solid) * 28 + n_surf * 12 + rows * 32)
     return _bound(nbytes, n_surf * RESOLVE_FLOPS)
@@ -2879,14 +2917,13 @@ def _sharded_rank(rank, world):
                 counts=counts, collective_s=coll_s)
 
 
-def _config5(dev, card, sync):
+def _config5(dev, card, sync, td):
     """Phase 11: config5 of ``vrt/apps/scaling.py`` (the 513^3 CSG volume,
     octree accel, ``default_fit_scene``) sharded into 4 x-slabs over 4 model
     ranks, every rank a process on this card joined over gloo; and the
-    flagship frame split over 2 data ranks.  Returns dict(numbers, k7,
-    launches)."""
-    import tempfile
-
+    flagship frame split over 2 data ranks.  The ranks' slabs are written to
+    ``td`` as ``slab<rank>.npz`` (phase 12 reads them again).  Returns
+    dict(numbers, k7, launches, geometry)."""
     import numpy as np
     import torch
 
@@ -2937,20 +2974,18 @@ def _config5(dev, card, sync):
     fresh = brick.shard_volume(VoxelVolume(vol.resolution, vol.extends,
                                            sdf=edited), CONFIG5_RANKS)
     del edited, vol
-    with tempfile.TemporaryDirectory() as td:
-        for s in range(CONFIG5_RANKS):
-            local = slabs.local(s, "cpu")
-            np.savez(os.path.join(td, f"slab{s}.npz"),
-                     **{f: getattr(local, f).numpy() for f in brick._FIELDS})
-            np.savez(os.path.join(td, f"fresh{s}.npz"),
-                     sdf=fresh.sdf[s].numpy())
-        np.savez(os.path.join(td, "edit.npz"), pattern=pattern)
-        del fresh, slabs
-        t0 = time.perf_counter()
-        ranks = mesh.spawn_world(_config5_rank, CONFIG5_RANKS,
-                                 args=(td, geometry), backend="gloo",
-                                 timeout=RANK_TIMEOUT)
-        world_s = time.perf_counter() - t0
+    for s in range(CONFIG5_RANKS):
+        local = slabs.local(s, "cpu")
+        np.savez(os.path.join(td, f"slab{s}.npz"),
+                 **{f: getattr(local, f).numpy() for f in brick._FIELDS})
+        np.savez(os.path.join(td, f"fresh{s}.npz"), sdf=fresh.sdf[s].numpy())
+    np.savez(os.path.join(td, "edit.npz"), pattern=pattern)
+    del fresh, slabs
+    t0 = time.perf_counter()
+    ranks = mesh.spawn_world(_config5_rank, CONFIG5_RANKS,
+                             args=(td, geometry), backend="gloo",
+                             timeout=RANK_TIMEOUT)
+    world_s = time.perf_counter() - t0
     print(f"config5: {CONFIG5_RANKS} ranks on {card} over "
           f"{ranks[0]['backend']} ({world_s:.1f}s for the world)", flush=True)
 
@@ -3094,6 +3129,7 @@ def _config5(dev, card, sync):
         sharded_collective_share=sharded[0]["collective_s"]
         / sum(sharded[0]["frame_s"]))
     return dict(numbers=numbers, launches=c5, sharded_launches=sh_launches,
+                geometry=geometry,
                 k7=dict(ms=sum(per_rank["k7_ms"]),
                         per_rank_ms=per_rank["k7_ms"],
                         plain_ms=sum(per_rank["k7_plain_ms"]),
@@ -3102,6 +3138,691 @@ def _config5(dev, card, sync):
                 resolve=dict(ms=sum(per_rank["resolve_ms"]),
                              plain_ms=sum(per_rank["resolve_plain_ms"]),
                              bound=rs_bound))
+
+
+# ---- phase 12: config5's slab fit, the crossed and DP steps, scaling ---------
+
+SLAB_FIT_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                                "slab_fit_r5_slab4_12x12.npz")
+SLABFIT_RAYS = 4096       # vrt/apps/scaling.py's traffic: rays from
+SLABFIT_TARGET = 0.4      # default_rng(0), targets of 0.4, Adam at 1e-2
+SLABFIT_LR = 1e-2
+SLABFIT_STEPS = 3
+CROSSED_RESOLUTION = 7    # 129^3: the crossed step against the 1x2 step
+DP_RANKS = 2              # data ranks of config6's DP step
+SCALING_TIMEOUT = 600
+
+
+class _PlainSlabResolve:
+    """Stands in for ``kernels.resolve.ResolveSlab``: the slab's resolve in
+    plain PyTorch under autograd (``brick.resolve_slab_hits``), on the
+    card."""
+
+    @staticmethod
+    def apply(o_w, d_w, corners, scene, slab, hit, inst):
+        from vrt_torch.dist import brick
+        from vrt_torch.render.renderer import _world_to_object
+
+        o, d = _world_to_object(scene.inst_pos[0], scene.inst_rot[0],
+                                scene.inst_scale[0], o_w, d_w)
+        return brick.resolve_slab_hits(slab, o, d, hit)
+
+
+@contextlib.contextmanager
+def _plain_slab_resolve():
+    from vrt_torch.kernels import resolve as kr
+
+    fn = kr.ResolveSlab
+    kr.ResolveSlab = _PlainSlabResolve
+    try:
+        yield
+    finally:
+        kr.ResolveSlab = fn
+
+
+class _RecordingOptimizer:
+    """An optimizer of ``vrt_torch.diff.optim`` that keeps the gradient a
+    step hands it (after the step's own all-reduces)."""
+
+    def __init__(self, inner):
+        self.inner, self.grads = inner, None
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, grads, state, params=None):
+        self.grads = grads
+        return self.inner.update(grads, state, params)
+
+
+def _grad_gates(got, want):
+    """(1 - cosine, largest difference / largest |want|) of two gradients
+    (tensors or dicts of them), summed in float64 on the host."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        got = [got[k] for k in want]
+        want = list(want.values())
+    else:
+        got, want = [got], [want]
+    a = np.concatenate([np.asarray(w.detach().double().cpu()
+                                   if hasattr(w, "detach") else w,
+                                   np.float64).ravel() for w in want])
+    b = np.concatenate([np.asarray(g.detach().double().cpu()
+                                   if hasattr(g, "detach") else g,
+                                   np.float64).ravel() for g in got])
+    scale = np.abs(a).max()
+    if scale == 0.0 and not b.any():
+        return 0.0, 0.0
+    cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
+    return float(1.0 - cos), float(np.abs(a - b).max() / scale)
+
+
+def _busy_ms(fn, top=6):
+    """Device busy time in ms of one ``fn()`` from torch.profiler (the sum
+    of its kernels' device time; ranks that share the card stretch each
+    other's kernels) and its ``top`` kernels as (ms, count, name), or
+    (None, []) where the profiler saw none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key[:70])
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy = sum(r[0] for r in rows)
+    return (busy or None), rows[:top]
+
+
+def _slab_resolve_bwd_bound(hit, slab, rays_grad):
+    """The slab backward's bound from what these hits need, as
+    ``_resolve_bwd_bound`` counts it: per ray the kind (4 B) and, with
+    ``rays_grad``, the ray gradients written (24 B); the ray, its instance
+    and g_t (32 B) on surface and solid-entry hits; t, the cell and
+    g_normal (28 B) on surface hits; each distinct row of the slab's f32
+    table (32 B) that the hit cell and its six neighbours name, once; the
+    [cx*cc*cc, 8] f32 accumulator written once."""
+    import torch
+
+    from vrt_torch.dist.brick import slab_corner_index
+    from vrt_torch.march.resolve import _OFFS7
+
+    rays = hit.kind.numel()
+    surf = hit.kind == 1
+    n_surf = int(surf.sum())
+    n_solid = int((hit.kind == 2).sum())
+    tb = slab.march_tables
+    cx, cc = tb["corners"].shape[0], tb["corners"].shape[1]
+    cells = hit.cell[surf][:, None, :] + torch.as_tensor(
+        _OFFS7, device=hit.cell.device)
+    idx = slab_corner_index(cells, slab.n, tb["x0"], cx, cc)
+    rows = int(torch.unique(idx[idx >= 0]).numel())
+    nbytes = (rays * (4 + 24 * int(rays_grad)) + (n_surf + n_solid) * 32
+              + n_surf * 28 + rows * 32 + cx * cc * cc * 8 * 4)
+    return _bound(nbytes, n_surf * RESOLVE_BWD_FLOPS)
+
+
+def _r5_volume():
+    """tests/test_brick.py's volume (a sphere plus a box, 33^3), the 12x12
+    slab fit's of ``SLAB_FIT_FIXTURE``."""
+    import numpy as np
+
+    from vrt_torch.volume import sdf as S
+    from vrt_torch.volume.volume import VoxelVolume
+
+    csg = S.CSG(shape=S.Sphere(radius=55.0))
+    csg.add_child(S.Box(extends=(70.0, 25.0, 25.0),
+                        position=np.array([0.0, 0.0, 40.0], np.float32)),
+                  S.ADD)
+    return VoxelVolume.from_generator(csg, 5, 100.0)
+
+
+def _slabfit_rank(rank, world, td, geometry, geometry7):
+    """One rank of phase 12's slab fit world (4 ranks on this card, gloo):
+    config5's 513^3 slab fit step (``scaling.py``'s traffic) after a
+    warm-up, timed from a barrier with its launches, collectives and peak
+    memory; the slab resolve's backward launch of one step against autograd
+    of ``resolve_slab_hits`` and the closed form, timed while the other
+    ranks wait; the step's plane gradients against the same step on the
+    plain slab resolve; the 12x12 step of ``SLAB_FIT_FIXTURE``; and over a
+    2x2 mesh the crossed step at 129^3 against the 1x2 step on the same
+    rays."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from vrt_torch.apps.scaling import scaling_rays
+    from vrt_torch.core import quat as vq
+    from vrt_torch.diff.fit import _value_and_grad
+    from vrt_torch.diff.optim import adam, sgd
+    from vrt_torch.dist import brick, mesh, slab_render
+    from vrt_torch.dist.slab_render import (default_fit_scene,
+                                            make_slab_fit_step,
+                                            make_slab_fit_step_crossed)
+    from vrt_torch.kernels import march as k1
+    from vrt_torch.kernels import resolve as kr
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.kernels._timing import device_ms
+    from vrt_torch.march.types import MarchHit
+    from vrt_torch.render.camera import camera_rays
+    from vrt_torch.render.gpuscene import RenderMode
+    from vrt_torch.render.renderer import _world_to_object
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    for build in (k1.build, kr.build, k4.build):
+        build()                               # built by the parent: loads
+    m = mesh.make_render_mesh(1, world, "cuda")
+    group = mesh.axis_group(m, mesh.MODEL_AXIS)[0]
+
+    def load(name):
+        with np.load(os.path.join(td, name)) as f:
+            return brick.SlabVolume(**{k: torch.from_numpy(f[k]).to(dev)
+                                       for k in brick._FIELDS})
+
+    slab = load(f"slab{rank}.npz")
+    n, h, ext, light = geometry
+    scene = default_fit_scene(n, h, ext, light, device=dev)
+    o_np, d_np = scaling_rays(SLABFIT_RAYS)
+    o, d = (torch.from_numpy(x).to(dev) for x in (o_np, d_np))
+    local = SLABFIT_RAYS // world
+    mine = slice(rank * local, (rank + 1) * local)
+    om, dm = o[mine].contiguous(), d[mine].contiguous()
+    targets = torch.full((local, 3), SLABFIT_TARGET, device=dev)
+    opt = adam(SLABFIT_LR)
+    step = make_slab_fit_step(m, opt, scene)
+    params0 = slab.sdf.clone()
+    box = dict(params=params0.clone(), state=opt.init(params0))
+
+    def one():
+        box["params"], box["state"], loss = step(box["params"], box["state"],
+                                                 slab, om, dm, targets)
+        return loss
+
+    losses = [float(one())]                   # warm-up
+    torch.cuda.synchronize()
+    _rank_zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(SLABFIT_STEPS):
+        dist.barrier()
+        t0 = time.perf_counter()
+        loss = one()
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    out = dict(step_s=runs, losses=losses, counts=_rank_counts(),
+               collective_s=mesh.STATS["seconds"],
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               moved=float((box["params"] != params0).float().mean()),
+               cell_lo=int(slab.cell_lo), cell_hi=int(slab.cell_hi))
+    out["busy_ms"], out["busy_top"] = _busy_ms(one)
+
+    # the slab resolve's forward and backward launches of one step
+    with _recording(kr, "resolve_slab_cuda") as fwds, \
+            _recording(kr, "resolve_slab_backward_cuda") as bwds:
+        one()
+    torch.cuda.synchronize()
+    if (len(fwds), len(bwds)) != (1, 1):
+        raise AssertionError(f"slab fit rank {rank}: {len(fwds)} slab "
+                             f"resolves and {len(bwds)} backwards a step")
+
+    def check():
+        (fargs, _, _), (bargs, bkw, (_, _, acc)) = fwds[0], bwds[0]
+        sc, sl, o_w, d_w, hit, inst = fargs
+        g_t, g_n = bargs[6], bargs[7]
+        lanes = (g_t != 0) | (g_n != 0).any(dim=-1)
+        # the kernel's table gradient carried to the planes by the pack
+        planes = sl.sdf.detach().clone().requires_grad_(True)
+        brick._pack_slab_corners(planes).backward(
+            acc.reshape(sl.march_tables["corners"].shape))
+        got = planes.grad
+        # autograd of resolve_slab_hits on the lanes with a cotangent
+        planes2 = sl.sdf.detach().clone().requires_grad_(True)
+        sub = MarchHit(**{f.name: (None if getattr(hit, f.name) is None
+                                   else getattr(hit, f.name)[lanes])
+                          for f in dataclasses.fields(MarchHit)})
+        ob, db = _world_to_object(sc.inst_pos[0], sc.inst_rot[0],
+                                  sc.inst_scale[0], o_w[lanes], d_w[lanes])
+        t, nrm, _ = brick.resolve_slab_hits(
+            dataclasses.replace(sl, sdf=planes2), ob, db, sub)
+        ((t * g_t[lanes]).sum() + (nrm * g_n[lanes]).sum()).backward()
+        # the closed form summed in float64
+        w_o, w_d, acc64 = brick.resolve_slab_backward_reference(
+            sc, sl, o_w, d_w, hit, g_t, g_n, acc_dtype=torch.float64)
+        planes3 = sl.sdf.detach().double().requires_grad_(True)
+        brick._pack_slab_corners(planes3).backward(
+            acc64.reshape(sl.march_tables["corners"].shape))
+        del acc64
+        res = {}
+        for name, want in (("autograd", planes2.grad),
+                           ("closed_form_f64", planes3.grad)):
+            scale = want.abs().max().item()
+            res[f"table_err_{name}"] = (
+                (got.double() - want.double()).abs().max().item() / scale
+                if scale else float("nan"))
+        # the ray gradients (the step asks for none: rays need no gradient)
+        g_o, g_d, _ = kr.resolve_slab_backward_cuda(
+            sc, sl, o_w, d_w, hit, inst, g_t, g_n, table_grad=False)
+        o_old, d_old, acc_old = kr.resolve_slab_backward_cuda(
+            sc, sl, o_w, d_w, hit, inst, g_t, g_n, _old_design=True)
+        res["ray_err"] = max(
+            (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+            for a, b in ((g_o, w_o), (g_d, w_d)))
+        res["ray_bit_equal_old"] = bool(torch.equal(g_o, o_old)
+                                        and torch.equal(g_d, d_old))
+        res["table_diff_old"] = ((acc_old - acc).abs().max().item()
+                                 / max(acc.abs().max().item(), 1e-30))
+        del acc_old
+        res["owned_lanes"] = int(lanes.sum())
+        res["ms"] = device_ms(
+            lambda: kr.resolve_slab_backward_cuda(*bargs, **bkw), 10)
+        res["old_ms"] = device_ms(lambda: kr.resolve_slab_backward_cuda(
+            *bargs, **bkw, _old_design=True), 10)
+        res["plain_ms"] = device_ms(
+            lambda: brick.resolve_slab_backward_reference(
+                sc, sl, o_w, d_w, hit, g_t, g_n), 3)
+        res["bound"] = _slab_resolve_bwd_bound(hit, sl, bargs[8])
+        res["rows"] = int(acc.shape[0])
+        return res
+
+    out["bwd"] = _one_at_a_time(check)
+    del fwds, bwds
+    torch.cuda.empty_cache()
+
+    # the step's plane gradients against the same step on the plain
+    # slab resolve (autograd of resolve_slab_hits on the card)
+    pixels = float(targets.numel() * world)
+    loss_fn = slab_render._slab_loss_fn(scene, RenderMode(), slab, om, dm,
+                                        targets, group, group, group,
+                                        pixels)
+    lk, gk = _value_and_grad(lambda p: loss_fn(p["sdf"]), {"sdf": params0})
+    with _plain_slab_resolve():
+        lp, gp = _value_and_grad(lambda p: loss_fn(p["sdf"]),
+                                 {"sdf": params0})
+    out["vs_plain"] = dict(loss=float(lk), plain_loss=float(lp),
+                           gates=_grad_gates(gk["sdf"], gp["sdf"]))
+    del gk, gp
+    torch.cuda.empty_cache()
+
+    # the 12x12 step of SLAB_FIT_FIXTURE (vrt's, SGD at 1e-2)
+    vol12 = _r5_volume()
+    sl12 = brick.shard_volume(vol12, world).local(rank, dev)
+    light12 = np.asarray(vq.forward_vector(vq.from_euler_degrees(
+        0.0, 45.0, -30.0)), np.float32)
+    scene12 = default_fit_scene(vol12.n_voxels, vol12.cell_size,
+                                vol12.extends, light12, device=dev)
+    o12, d12 = camera_rays(
+        torch.tensor([300.0, 0.0, 0.0], device=dev),
+        torch.tensor(np.asarray(vq.from_euler_degrees(0.0, 180.0, 0.0)),
+                     dtype=torch.float32, device=dev),
+        torch.tensor(60.0, device=dev), 12, 12)
+    rows12 = 144 // world
+    mine12 = slice(rank * rows12, (rank + 1) * rows12)
+    rec = _RecordingOptimizer(sgd(1e-2))
+    p12, _, l12 = make_slab_fit_step(m, rec, scene12)(
+        sl12.sdf.clone(), rec.init(sl12.sdf), sl12,
+        o12[mine12].contiguous(), d12[mine12].contiguous(),
+        torch.zeros((rows12, 3), device=dev))
+    out["fixture"] = dict(params=p12.cpu().numpy(),
+                          grad=rec.grads.cpu().numpy(), loss=float(l12),
+                          params0=sl12.sdf.cpu().numpy())
+
+    # the crossed step over a 2x2 mesh at 129^3 against the 1x2 step (each
+    # data row runs it on every ray) on the same rays, SGD at 1e-2
+    m2 = mesh.make_render_mesh(2, world // 2, "cuda")
+    _, model, s2 = mesh.axis_group(m2, mesh.MODEL_AXIS)
+    _, flat, total = mesh.axis_group(m2, (mesh.DATA_AXIS, mesh.MODEL_AXIS))
+    sl7 = load(f"c7_slab{model}.npz")
+    n7, h7, ext7 = geometry7
+    scene7 = default_fit_scene(n7, h7, ext7, light, device=dev)
+    res7 = {}
+    for name, parts, index, make in (
+            ("crossed", total, flat, make_slab_fit_step_crossed),
+            ("single", s2, model, make_slab_fit_step)):
+        rows = SLABFIT_RAYS // parts
+        sel = slice(index * rows, (index + 1) * rows)
+        rec = _RecordingOptimizer(sgd(1e-2))
+        _, _, loss7 = make(m2, rec, scene7)(
+            sl7.sdf.clone(), rec.init(sl7.sdf), sl7, o[sel].contiguous(),
+            d[sel].contiguous(),
+            torch.full((rows, 3), SLABFIT_TARGET, device=dev))
+        res7[name] = (float(loss7), rec.grads)
+    out["crossed"] = dict(loss=res7["crossed"][0], single_loss=res7["single"][0],
+                          gates=_grad_gates(res7["crossed"][1],
+                                            res7["single"][1]),
+                          model=model)
+    return out
+
+
+def _dp_rank(rank, world):
+    """One data rank of phase 12's DP step: config6 (the flagship at
+    resolution 6 with colours, one camera, zero targets) at 1920x1080 split
+    over ``world`` data ranks.  ``make_fit_step_dp`` with Adam at 1e-2:
+    a warm-up, then timed steps from a barrier (launches, collectives, peak
+    memory, a profile's busy time); then one step with SGD at 1e-2 from the
+    start, whose loss, gradient and parameters the parent holds against
+    ``make_fit_step`` on one rank."""
+    import torch
+    import torch.distributed as dist
+
+    from vrt_torch.diff.fit import _f32
+    from vrt_torch.diff.optim import adam, sgd
+    from vrt_torch.dist import mesh
+    from vrt_torch.dist.sharding import make_fit_step_dp
+    from vrt_torch.kernels import march as k1
+    from vrt_torch.kernels import resolve as kr
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.render.camera import camera_rays
+    from vrt_torch.render.gpuscene import RenderMode
+    from vrt_torch.scenes import flagship_scene
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    for build in (k1.build, kr.build, k4.build):
+        build()
+    scene = flagship_scene(6, use_colors=True, device=dev)
+    params0 = {"sdf": scene.volumes.sdf, "voxel_colors": scene.voxel_colors}
+    cam = FIT_CAMS[0]
+    o, d = camera_rays(_f32(cam["position"], dev), _f32(cam["rotation"], dev),
+                       _f32(cam.get("fov", 60.0), dev), FRAME_W, FRAME_H)
+    targets = torch.zeros((o.shape[0], 3), device=dev)
+    m = mesh.make_render_mesh(world, 1, "cuda")
+    opt = adam(1e-2)
+    step = make_fit_step_dp(RenderMode(), m, opt)
+    box = dict(params=dict(params0), state=opt.init(params0))
+
+    def one():
+        box["params"], box["state"], loss = step(
+            box["params"], box["state"], scene, o, d, targets)
+        return loss
+
+    losses = [float(one())]
+    torch.cuda.synchronize()
+    _rank_zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(3):
+        dist.barrier()
+        t0 = time.perf_counter()
+        loss = one()
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    out = dict(step_s=runs, losses=losses, counts=_rank_counts(),
+               collective_s=mesh.STATS["seconds"],
+               peak_bytes=torch.cuda.max_memory_allocated())
+    out["busy_ms"], out["busy_top"] = _busy_ms(one)
+    rec = _RecordingOptimizer(sgd(1e-2))
+    p1, _, loss1 = make_fit_step_dp(RenderMode(), m, rec)(
+        dict(params0), rec.init(params0), scene, o, d, targets)
+    out.update(sgd_loss=float(loss1),
+               sgd_grads={k: v.cpu().numpy() for k, v in rec.grads.items()},
+               sgd_params={k: v.cpu().numpy() for k, v in p1.items()})
+    return out
+
+
+def _slabfit(dev, card, sync, td, geometry):
+    """Phase 12: config5's training step (``make_slab_fit_step`` on its
+    513^3 slabs, which phase 11 wrote to ``td``) over 4 model ranks on this
+    card, the 12x12 step against ``vrt``'s (``SLAB_FIT_FIXTURE``), the
+    crossed step over 2x2 at 129^3 against the 1x2 step, config6's DP step
+    over 2 data ranks against ``make_fit_step`` on one, and
+    ``vrt_torch.apps.scaling`` in a process of its own.  Returns
+    dict(numbers, launches, dp_launches, bwd)."""
+    import numpy as np
+    import torch
+
+    from vrt_torch.diff.fit import make_fit_step
+    from vrt_torch.diff.optim import sgd
+    from vrt_torch.dist import brick, mesh
+    from vrt_torch.render.gpuscene import RenderMode
+    from vrt_torch.scenes import config5_slab_volume, flagship_scene
+
+    # the crossed step's 129^3 volume, in 2 slabs
+    vol7 = config5_slab_volume(CROSSED_RESOLUTION)
+    slabs7 = brick.shard_volume(vol7, 2)
+    for s in range(2):
+        local = slabs7.local(s, "cpu")
+        np.savez(os.path.join(td, f"c7_slab{s}.npz"),
+                 **{f: getattr(local, f).numpy() for f in brick._FIELDS})
+    geometry7 = (vol7.n_voxels, vol7.cell_size, vol7.extends)
+    del vol7, slabs7
+
+    t0 = time.perf_counter()
+    ranks = mesh.spawn_world(_slabfit_rank, CONFIG5_RANKS,
+                             args=(td, geometry, geometry7), backend="gloo",
+                             timeout=RANK_TIMEOUT)
+    world_s = time.perf_counter() - t0
+    print(f"phase 12, slab fit: {CONFIG5_RANKS} ranks on {card} over gloo "
+          f"({world_s:.1f}s for the world); config5 {geometry[0]}^3, "
+          f"{SLABFIT_RAYS} rays from default_rng(0), targets "
+          f"{SLABFIT_TARGET}, Adam at {SLABFIT_LR}", flush=True)
+    steps = SLABFIT_STEPS
+    want_c = dict(k7=2 * steps, k1=0, scene=0, resolve=steps,
+                  slab_resolve=steps, resolve_bwd=steps,
+                  slab_resolve_bwd=steps, surface=steps, combine=steps,
+                  surface_bwd=steps, combine_bwd=steps, gather=0, scatter=0)
+    per_rank = {"step_ms": [], "collective_share": [], "peak_gb": [],
+                "busy_ms": [], "bwd_ms": [], "bwd_old_ms": [],
+                "bwd_plain_ms": []}
+    bwd_bounds, bwd_err, ray_err = [], 0.0, 0.0
+    slab_launches = {}
+    for r, x in enumerate(ranks):
+        seen = {k: x["counts"][k] for k in want_c}
+        for k, v in seen.items():
+            slab_launches[k] = slab_launches.get(k, 0) + v
+        step_ms = [1e3 * t for t in x["step_s"]]
+        share = x["collective_s"] / sum(x["step_s"])
+        print(f"slab fit rank {r} (cells [{x['cell_lo']}, {x['cell_hi']})):"
+              f" steps {_list(step_ms)} ms (host, from a barrier), "
+              f"collectives {x['collective_s']:.4f}s = {share:.1%}; peak "
+              f"max_memory_allocated {x['peak_bytes'] / 1e9:.2f} GB; busy "
+              f"{x['busy_ms']} ms a step; losses "
+              f"{', '.join(f'{v:.6f}' for v in x['losses'])} (warm-up "
+              f"first); {x['moved']:.4%} of the planes moved; launches over "
+              f"{steps} steps {seen}; collectives "
+              f"{x['counts']['collectives']}", flush=True)
+        if r == 0:
+            for ms, count, key in x["busy_top"]:
+                print(f"  slab fit rank 0 profile: {ms:8.3f} ms {count:4d}x "
+                      f"{key}", flush=True)
+        if seen != want_c:
+            raise AssertionError(f"slab fit rank {r}: launches {seen}, "
+                                 f"expected {want_c}")
+        if not (np.isfinite(x["losses"]).all() and x["moved"] > 0):
+            raise AssertionError(f"slab fit rank {r}: losses "
+                                 f"{x['losses']}, moved {x['moved']}")
+        b = x["bwd"]
+        print(f"slab fit rank {r}: slab resolve backward on "
+              f"{b['owned_lanes']} owned lanes, [{b['rows']}, 8] f32 "
+              f"accumulator: planes vs autograd of resolve_slab_hits "
+              f"{b['table_err_autograd']:.2e}, vs the closed form in "
+              f"float64 {b['table_err_closed_form_f64']:.2e} of max|g| "
+              f"(< {SCATTER_RTOL}); ray gradients {b['ray_err']:.2e} "
+              f"(< {RAY_GRAD_RTOL}), bit-equal to the first design "
+              f"{b['ray_bit_equal_old']}, its table "
+              f"{b['table_diff_old']:.2e}; {b['ms']:.4f} ms (first design "
+              f"{b['old_ms']:.4f}, closed form {b['plain_ms']:.4f}, bound "
+              f"{b['bound']['bound_ms']:.4f} by {b['bound']['bound_by']})",
+              flush=True)
+        if not (b["table_err_autograd"] <= SCATTER_RTOL
+                and b["table_err_closed_form_f64"] <= SCATTER_RTOL
+                and b["ray_err"] <= RAY_GRAD_RTOL
+                and b["ray_bit_equal_old"]
+                and b["table_diff_old"] <= SCATTER_RTOL):
+            raise AssertionError(f"slab fit rank {r}: the slab resolve's "
+                                 f"backward disagrees: {b}")
+        vp = x["vs_plain"]
+        print(f"slab fit rank {r}: step gradient vs the step on the plain "
+              f"slab resolve: 1 - cos {vp['gates'][0]:.2e} (< "
+              f"{FIT_COS_TOL}), max diff / max|g| {vp['gates'][1]:.2e} (< "
+              f"{FIT_DIFF_TOL}); loss {vp['loss']:.7f} vs "
+              f"{vp['plain_loss']:.7f}", flush=True)
+        if not (vp["gates"][0] < FIT_COS_TOL and vp["gates"][1] < FIT_DIFF_TOL
+                and abs(vp["loss"] - vp["plain_loss"])
+                <= FIT_LOSS_RTOL * abs(vp["plain_loss"])):
+            raise AssertionError(f"slab fit rank {r}: the step disagrees "
+                                 f"with the plain slab resolve's: {vp}")
+        per_rank["step_ms"].append(statistics.median(step_ms))
+        per_rank["collective_share"].append(share)
+        per_rank["peak_gb"].append(x["peak_bytes"] / 1e9)
+        per_rank["busy_ms"].append(x["busy_ms"])
+        per_rank["bwd_ms"].append(b["ms"])
+        per_rank["bwd_old_ms"].append(b["old_ms"])
+        per_rank["bwd_plain_ms"].append(b["plain_ms"])
+        bwd_bounds.append(b["bound"])
+        bwd_err = max(bwd_err, b["table_err_autograd"],
+                      b["table_err_closed_form_f64"])
+        ray_err = max(ray_err, b["ray_err"])
+
+    # the 12x12 step against vrt's (the fixture)
+    with np.load(SLAB_FIT_FIXTURE) as f:
+        fix = {k: f[k] for k in f.files}
+    got_grad = np.stack([x["fixture"]["grad"] for x in ranks])
+    got_params = np.stack([x["fixture"]["params"] for x in ranks])
+    params0 = np.stack([x["fixture"]["params0"] for x in ranks])
+    cos12, diff12 = _grad_gates(got_grad, fix["grad"])
+    loss12 = ranks[0]["fixture"]["loss"]
+    same12 = float((got_params == fix["params"]).mean())
+    moved12 = float((fix["params"] != params0).mean())
+    print(f"slab fit 12x12 on {CONFIG5_RANKS} ranks vs vrt "
+          f"({os.path.basename(SLAB_FIT_FIXTURE)}): loss {loss12:.7f} vs "
+          f"{float(fix['loss']):.7f}; gradient 1 - cos {cos12:.2e} (< "
+          f"{FIT_COS_TOL}), max diff / max|g| {diff12:.2e} (< "
+          f"{FIT_DIFF_TOL}); updated planes equal on {same12:.4%} of values "
+          f"({moved12:.4%} of vrt's moved)", flush=True)
+    if not (cos12 < FIT_COS_TOL and diff12 < FIT_DIFF_TOL
+            and abs(loss12 - float(fix["loss"]))
+            <= FIT_LOSS_RTOL * abs(float(fix["loss"]))):
+        raise AssertionError("the 12x12 slab fit step disagrees with vrt's")
+
+    # the crossed step against the 1x2 step
+    cr = [x["crossed"] for x in ranks]
+    cr_cos = max(c["gates"][0] for c in cr)
+    cr_diff = max(c["gates"][1] for c in cr)
+    print(f"crossed 2x2 step at {geometry7[0]}^3 vs the 1x2 step on the "
+          f"same rays: loss {cr[0]['loss']:.7f} vs {cr[0]['single_loss']:.7f};"
+          f" gradient 1 - cos {cr_cos:.2e} (< {FIT_COS_TOL}), max diff / "
+          f"max|g| {cr_diff:.2e} (< {FIT_DIFF_TOL})", flush=True)
+    if not (cr_cos < FIT_COS_TOL and cr_diff < FIT_DIFF_TOL
+            and all(abs(c["loss"] - c["single_loss"])
+                    <= FIT_LOSS_RTOL * abs(c["single_loss"]) for c in cr)):
+        raise AssertionError("the crossed step disagrees with the 1x2 step")
+    del ranks
+
+    # config6's DP step: make_fit_step on one rank (SGD at 1e-2) first
+    scene = flagship_scene(6, use_colors=True, device=dev)
+    params0 = {"sdf": scene.volumes.sdf, "voxel_colors": scene.voxel_colors}
+    rec = _RecordingOptimizer(sgd(1e-2))
+    one = make_fit_step(scene, FIT_CAMS, FRAME_W, FRAME_H, RenderMode(), rec)
+    p1, _, loss1 = one(dict(params0), rec.init(params0),
+                       torch.zeros((1, FRAME_W * FRAME_H, 3), device=dev))
+    single = dict(loss=float(loss1),
+                  grads={k: v.cpu().numpy() for k, v in rec.grads.items()},
+                  params={k: v.cpu().numpy() for k, v in p1.items()})
+    traces, levels = _traces(scene), _resolves(scene)
+    del scene, params0, rec, one, p1, loss1
+    torch.cuda.empty_cache()
+    sync()
+    dp = mesh.spawn_world(_dp_rank, DP_RANKS, backend="gloo",
+                          timeout=RANK_TIMEOUT)
+    want_dp = dict(k7=0, k1=0, scene=3 * traces, resolve=3 * levels,
+                   slab_resolve=0, resolve_bwd=3 * levels, slab_resolve_bwd=0,
+                   surface=3 * levels, combine=3 * levels,
+                   surface_bwd=3 * levels, combine_bwd=3 * levels, gather=0,
+                   scatter=0)
+    dp_launches = {}
+    for r, x in enumerate(dp):
+        seen = {k: x["counts"][k] for k in want_dp}
+        share = x["collective_s"] / sum(x["step_s"])
+        print(f"DP step rank {r} of {DP_RANKS} (config6 1920x1080, Adam at "
+              f"1e-2): steps {_list([1e3 * t for t in x['step_s']])} ms "
+              f"(host, from a barrier), collectives {share:.1%}, busy "
+              f"{x['busy_ms']} ms a step, peak {x['peak_bytes'] / 1e9:.2f} "
+              f"GB; losses {', '.join(f'{v:.6f}' for v in x['losses'])}; "
+              f"launches over 3 steps {seen}; collectives "
+              f"{x['counts']['collectives']}", flush=True)
+        if r == 0:
+            for ms, count, key in x["busy_top"]:
+                print(f"  DP rank 0 profile: {ms:8.3f} ms {count:4d}x {key}",
+                      flush=True)
+        if seen != want_dp:
+            raise AssertionError(f"DP rank {r}: launches {seen}, expected "
+                                 f"{want_dp}")
+        for k, v in seen.items():
+            dp_launches[k] = dp_launches.get(k, 0) + v
+    for k in single["params"]:
+        if not np.array_equal(dp[0]["sgd_params"][k], dp[1]["sgd_params"][k]):
+            raise AssertionError(f"the DP replicas of {k} differ")
+    dp_cos, dp_diff = _grad_gates(dp[0]["sgd_grads"], single["grads"])
+    same_dp = {k: float((dp[0]["sgd_params"][k] == v).mean())
+               for k, v in single["params"].items()}
+    print(f"DP step (SGD at 1e-2) over {DP_RANKS} ranks vs make_fit_step on "
+          f"one: loss {dp[0]['sgd_loss']:.7f} vs {single['loss']:.7f}; "
+          f"gradient 1 - cos {dp_cos:.2e} (< {FIT_COS_TOL}), max diff / "
+          f"max|g| {dp_diff:.2e} (< {FIT_DIFF_TOL}); updated parameters "
+          f"equal on {same_dp}; the replicas equal bit for bit", flush=True)
+    if not (dp_cos < FIT_COS_TOL and dp_diff < FIT_DIFF_TOL
+            and abs(dp[0]["sgd_loss"] - single["loss"])
+            <= FIT_LOSS_RTOL * abs(single["loss"])):
+        raise AssertionError("the DP step disagrees with make_fit_step")
+
+    # the scaling app in a process of its own
+    out_path = os.path.join(td, "scaling.jsonl")
+    scaling_s = _run_cli(["vrt_torch.apps.scaling", "--res", "9", "--rays",
+                          str(SLABFIT_RAYS), "--steps", "3", "--shards", "1",
+                          "2", "4", "--out", out_path],
+                         "vrt_torch.apps.scaling", timeout=SCALING_TIMEOUT)
+    with open(out_path) as f:
+        lines = [json.loads(x) for x in f.read().splitlines()]
+    rows, summary = lines[:-1], lines[-1]
+    for row in rows:
+        print(f"scaling: {json.dumps(row)}", flush=True)
+    print(f"scaling: {json.dumps(summary)} ({scaling_s:.1f}s; one card "
+          f"shared by S ranks: the efficiencies are one card's)",
+          flush=True)
+    if [row["model_shards"] for row in rows] != [1, 2, 4] or not all(
+            np.isfinite(row["loss"]) for row in rows):
+        raise AssertionError(f"scaling rows {rows}")
+
+    numbers = dict(
+        card=card, slab_fit_step_host_median_ms_by_rank=per_rank["step_ms"],
+        slab_fit_step_host_median_ms=statistics.median(per_rank["step_ms"]),
+        slab_fit_collective_share_by_rank=per_rank["collective_share"],
+        slab_fit_peak_gb_by_rank=per_rank["peak_gb"],
+        slab_fit_busy_ms_by_rank=per_rank["busy_ms"],
+        slab_fit_world_s=world_s,
+        fixture_12x12=dict(one_minus_cos=cos12, diff=diff12, loss=loss12,
+                           vrt_loss=float(fix["loss"]),
+                           params_equal=same12),
+        crossed_vs_single=dict(one_minus_cos=cr_cos, diff=cr_diff),
+        dp_step_host_median_ms_by_rank=[
+            1e3 * statistics.median(x["step_s"]) for x in dp],
+        dp_collective_share_by_rank=[
+            x["collective_s"] / sum(x["step_s"]) for x in dp],
+        dp_busy_ms_by_rank=[x["busy_ms"] for x in dp],
+        dp_peak_gb_by_rank=[x["peak_bytes"] / 1e9 for x in dp],
+        dp_vs_single=dict(one_minus_cos=dp_cos, diff=dp_diff,
+                          loss=dp[0]["sgd_loss"],
+                          single_loss=single["loss"],
+                          params_equal=same_dp),
+        scaling=dict(rows=rows, summary=summary, seconds=scaling_s))
+    return dict(numbers=numbers, dp_launches=dp_launches,
+                launches=slab_launches,
+                bwd=dict(ms=sum(per_rank["bwd_ms"]),
+                         per_rank_ms=per_rank["bwd_ms"],
+                         old_ms=sum(per_rank["bwd_old_ms"]),
+                         plain_ms=sum(per_rank["bwd_plain_ms"]),
+                         max_abs_err=bwd_err, ray_err=ray_err,
+                         bound=_sum_bounds(bwd_bounds)))
 
 
 def _list(ms):
@@ -3900,8 +4621,13 @@ def main():
     scene_err = max(scene_err, c3["held"]["scene"]["max_abs_err"])
     c3_counts, c3_held = c3["counts"], c3["held"]
 
-    # ---- 11. config5's slab frame and the ray-sharded frame ----------------
-    c5 = _config5(dev, card, sync)
+    # ---- 11. config5's slab frame and the ray-sharded frame, and
+    # ---- 12. its fit steps, the DP step and the scaling app -----------------
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as td:
+        c5 = _config5(dev, card, sync, td)
+        sf = _slabfit(dev, card, sync, td, c5["geometry"])
 
     # ---- the yardsticks of the shade kernels, after every phase
     def flagship_frame():
@@ -3954,7 +4680,8 @@ def main():
                      demo_cli=eng_launches["demo_scene"],
                      render_cli=eng_launches["render_scene"],
                      config3=c3_counts["scene"],
-                     sharded_flagship=c5["sharded_launches"]["scene"])
+                     sharded_flagship=c5["sharded_launches"]["scene"],
+                     dp_fit_steps=sf["dp_launches"]["scene"])
     eng_scene, eng_fused = eng["scene"], eng["fused"]
 
     def shade_paths(stage):
@@ -3965,7 +4692,9 @@ def main():
                 "render_cli": eng_launches[f"render_{stage}"],
                 "config3": c3_counts[stage],
                 "config5": c5["launches"][stage],
-                "sharded_flagship": c5["sharded_launches"][stage]}
+                "sharded_flagship": c5["sharded_launches"][stage],
+                "slab_fit_steps": sf["launches"][stage],
+                "dp_fit_steps": sf["dp_launches"][stage]}
 
     def config3_entry(launches, ms, plain_ms, bound):
         # config3's 1080p frame at 257^3: the three frames' launches, and
@@ -4018,8 +4747,9 @@ def main():
          "source": "vrt_torch/csrc/march.cu",
          "replaces": "vrt/dist/brick.py:153 (march_volume_slab, an XLA "
                      "while-loop: no Pallas kernel)",
-         "launches": c5["launches"]["k7"],
-         "launches_by_path": {"config5": c5["launches"]["k7"]},
+         "launches": c5["launches"]["k7"] + sf["launches"]["k7"],
+         "launches_by_path": {"config5": c5["launches"]["k7"],
+                              "slab_fit_steps": sf["launches"]["k7"]},
          "max_abs_err": 0.0,
          # one 1080p frame's launches (primary and shadow) on each of the
          # 4 ranks, each rank timed alone; ms, plain_ms and the bound are
@@ -4039,7 +4769,8 @@ def main():
          + eng_launches["resolve"] + eng_launches["demo_resolve"]
          + eng_launches["render_resolve"] + c3_counts["resolve"]
          + c5["launches"]["slab_resolve"]
-         + c5["sharded_launches"]["resolve"],
+         + c5["sharded_launches"]["resolve"]
+         + sf["launches"]["slab_resolve"] + sf["dp_launches"]["resolve"],
          "launches_by_path": {"frames": frame_counts["resolve"]
                               + cube_counts["resolve"]
                               + overlay_counts["resolve"],
@@ -4050,7 +4781,9 @@ def main():
                               "config3": c3_counts["resolve"],
                               "config5": c5["launches"]["slab_resolve"],
                               "sharded_flagship":
-                              c5["sharded_launches"]["resolve"]},
+                              c5["sharded_launches"]["resolve"],
+                              "slab_fit_steps": sf["launches"]["slab_resolve"],
+                              "dp_fit_steps": sf["dp_launches"]["resolve"]},
          "max_abs_err": fused["max_abs_err"], "ms": fused["ms"],
          "plain_ms": fused["plain_ms"],
          "plain_over_k3_ms": fused["over_k3_ms"],
@@ -4078,7 +4811,14 @@ def main():
          "replaces": "vrt/march/resolve.py:61 (XLA's transpose of "
                      "resolve_hits and of its row gather, "
                      "vrt/march/isosurface.py:204: no Pallas kernel)",
-         "launches": fit_counts["resolve_bwd"],
+         "launches": fit_counts["resolve_bwd"]
+         + sf["launches"]["slab_resolve_bwd"]
+         + sf["dp_launches"]["resolve_bwd"],
+         "launches_by_path": {"fit_steps": fit_counts["resolve_bwd"],
+                              "slab_fit_steps":
+                              sf["launches"]["slab_resolve_bwd"],
+                              "dp_fit_steps":
+                              sf["dp_launches"]["resolve_bwd"]},
          "max_abs_err": bwd["max_abs_err"],
          "max_ray_grad_err_over_max": bwd["ray_err"],
          "ms": sum(bwd["ms"]), "plain_ms": sum(bwd["plain_ms"]),
@@ -4091,6 +4831,28 @@ def main():
          "table_diff_to_old_design": bwd["table_diff"],
          "ptxas": {k: ptxas.get(k) for k in ("resolve_bwd_merged_kernel",
                                               "resolve_bwd_kernel")}},
+        {"name": "fused resolve backward (slab)", "route": "cuda",
+         "source": "vrt_torch/csrc/resolve.cu",
+         "replaces": "vrt/dist/brick.py:329 (XLA's transpose of "
+                     "resolve_slab_hits and its voxel fetch _slab_fetch "
+                     ":115: no Pallas kernel)",
+         "path": "the kSlab variants of the merged backward over one "
+                 "rank's slab table (ResolveSlab): config5's 513^3 slab "
+                 "fit step, one launch a rank a step",
+         "launches": sf["launches"]["slab_resolve_bwd"],
+         "launches_by_path": {"slab_fit_steps":
+                              sf["launches"]["slab_resolve_bwd"]},
+         "max_abs_err": sf["bwd"]["max_abs_err"],
+         "max_abs_err_is": "the planes' gradient through the pack against "
+                           "autograd of resolve_slab_hits and the closed "
+                           "form in float64, over their largest |g|",
+         "max_ray_grad_err_over_max": sf["bwd"]["ray_err"],
+         # one step's launch on each of the 4 ranks, each timed alone; the
+         # sums over the ranks
+         "ms": sf["bwd"]["ms"], "per_rank_ms": sf["bwd"]["per_rank_ms"],
+         "plain_ms": sf["bwd"]["plain_ms"],
+         "old_design_ms": sf["bwd"]["old_ms"],
+         **bound_keys(sf["bwd"]["bound"]), "library_ms": None},
         *({"name": f"K4 shade {stage}", "route": "cuda",
            "source": "vrt_torch/csrc/shade.cu",
            "replaces": replaces,
@@ -4157,9 +4919,13 @@ def main():
         *({"name": f"K4 shade {stage} backward", "route": "cuda",
            "source": "vrt_torch/csrc/shade.cu",
            "replaces": replaces,
-           "launches": fit_counts[f"{stage}_bwd"],
+           "launches": fit_counts[f"{stage}_bwd"]
+           + sf["launches"][f"{stage}_bwd"]
+           + sf["dp_launches"][f"{stage}_bwd"],
            "launches_by_path": {
                "fit_steps": fit_counts[f"{stage}_bwd"],
+               "slab_fit_steps": sf["launches"][f"{stage}_bwd"],
+               "dp_fit_steps": sf["dp_launches"][f"{stage}_bwd"],
                "paired_fit_steps": plain_counts[f"{stage}_bwd"]
                + eager_counts[f"{stage}_bwd"],
                "fit_64x36": small_counts[f"{stage}_bwd"]},
@@ -4266,7 +5032,8 @@ def main():
         "config6_step_old_new": sides,
         "engine": eng["numbers"],
         "config3": c3["numbers"],
-        "config5": c5["numbers"]}), flush=True)
+        "config5": c5["numbers"],
+        "slabfit": sf["numbers"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0

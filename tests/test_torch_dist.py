@@ -99,7 +99,18 @@ def test_make_render_mesh_checks_the_world():
 
 
 def _bad_mesh(rank, world):
-    mesh.make_render_mesh(2, 2)
+    mesh.make_render_mesh(2, 2, "cpu")
+
+
+def test_make_render_mesh_defaults_to_the_card():
+    """The mesh runs on the card unless the caller asks for the CPU, as
+    every constructor of the port does (``test_constructors_default_to_the
+    _card``): its ``device_type`` defaults to ``cuda``."""
+    import inspect
+
+    default = inspect.signature(mesh.make_render_mesh).parameters[
+        "device_type"].default
+    assert default == "cuda"
 
 
 _FLAGSHIP = {}
@@ -259,9 +270,10 @@ def test_march_volume_and_resolve_match_vrt(accel_mode, interp, debug):
 
 
 def test_dist_modules_import_neither_jax_nor_vrt():
-    """No module under ``vrt_torch/dist`` (nor ``chip_smoke.py``) has an
-    import statement naming ``jax`` or ``vrt``, and importing them with JAX
-    made unimportable pulls in nothing of either."""
+    """No module under ``vrt_torch/dist`` (nor ``vrt_torch/apps/scaling.py``
+    nor ``chip_smoke.py``) has an import statement naming ``jax`` or
+    ``vrt``, and importing them with JAX made unimportable pulls in nothing
+    of either."""
     import ast
     import os
     import subprocess
@@ -270,7 +282,9 @@ def test_dist_modules_import_neither_jax_nor_vrt():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     base = os.path.join(root, "vrt_torch", "dist")
     paths = [os.path.join(base, f) for f in sorted(os.listdir(base))
-             if f.endswith(".py")] + [os.path.join(root, "chip_smoke.py")]
+             if f.endswith(".py")] + [
+        os.path.join(root, "vrt_torch", "apps", "scaling.py"),
+        os.path.join(root, "chip_smoke.py")]
     for path in paths:
         with open(path) as f:
             tree = ast.parse(f.read())
@@ -287,7 +301,8 @@ def test_dist_modules_import_neither_jax_nor_vrt():
         "sys.modules['jax'] = None\n"
         "for name in ('vrt_torch.dist', 'vrt_torch.dist.mesh',\n"
         "             'vrt_torch.dist.brick', 'vrt_torch.dist.sharding',\n"
-        "             'vrt_torch.dist.slab_render', 'chip_smoke',\n"
+        "             'vrt_torch.dist.slab_render', 'vrt_torch.apps.scaling',\n"
+        "             'chip_smoke',\n"
         "             'tests.torch_dist_workers'):\n"
         "    importlib.import_module(name)\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and\n"

@@ -2022,6 +2022,140 @@ def test_slab_resolve_matches_plain_on_card(s_count):
     assert owned_lanes > 100
 
 
+def _slab_backward_case(dev, slab, scene, o_w, d_w, seed):
+    """The slab march's hits on ``slab``, and random cotangents of t and the
+    normal on the lanes the slab owns (zeros elsewhere, as the tracer's
+    owner sum gives them)."""
+    from vrt_torch.dist import brick
+    from vrt_torch.dist.slab_render import SlabTracer
+
+    o, d = SlabTracer(slab, None)._object_rays(scene, o_w, d_w)
+    hit = brick.march_volume_slab(slab, o, d,
+                                  torch.full((o.shape[0],), 1e4, device=dev))
+    inst = torch.where(hit.hit, 0, -1).to(torch.int32)
+    owned = (hit.hit & (hit.cell[:, 0] >= slab.cell_lo)
+             & (hit.cell[:, 0] < slab.cell_hi))
+    gen = torch.Generator().manual_seed(seed)
+    g_t = torch.randn(o.shape[0], generator=gen).to(dev) * owned
+    g_n = torch.randn(o.shape, generator=gen).to(dev) * owned[:, None]
+    return hit, inst, owned, g_t.contiguous(), g_n.contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s_count", [2, 4])
+def test_slab_resolve_backward_matches_autograd_on_card(s_count):
+    """``ResolveSlab`` on the card (the fused resolve and the slab variant
+    of its merged backward over each shard's table, the table's gradient
+    carried to the planes through the pack) against autograd of
+    ``resolve_slab_hits`` on the card for the same cotangents: plane
+    gradients within 1e-5 * max|sum| of autograd's and of the closed form
+    ``resolve_slab_backward_reference`` summed in float64, ray gradients
+    within 1e-5 * max|g| of the closed form's and bit-equal to the first
+    design's; one backward launch a shard, counted as a slab launch."""
+    import dataclasses
+
+    from vrt_torch.core import quat as vq
+    from vrt_torch.dist import brick
+    from vrt_torch.dist.slab_render import SlabTracer, default_fit_scene
+    from vrt_torch.kernels import resolve as kr
+
+    dev = _card()
+    vol = _slab_volume()
+    slabs = brick.shard_volume(vol, s_count)
+    light = np.asarray(vq.forward_vector(vq.from_euler_degrees(0, 45, -30)),
+                       np.float32)
+    scene = default_fit_scene(vol.n_voxels, vol.cell_size, vol.extends,
+                              light, device=dev)
+    o_np, d_np, _ = (x.cpu() for x in _slab_rays("cpu"))
+    owned_lanes = 0
+    for s in range(s_count):
+        slab = slabs.local(s, dev)
+        hit, inst, owned, g_t, g_n = _slab_backward_case(
+            dev, slab, scene, o_np.to(dev), d_np.to(dev), s)
+        grads = {}
+        for path in ("kernels", "autograd"):
+            planes = slab.sdf.clone().requires_grad_(True)
+            sl = dataclasses.replace(slab, sdf=planes)
+            o_w = o_np.to(dev).requires_grad_(True)
+            d_w = d_np.to(dev).requires_grad_(True)
+            before = dict(kr.SLAB_LAUNCHES)
+            if path == "kernels":
+                t, normal, _ = kr.ResolveSlab.apply(
+                    o_w, d_w, sl.march_tables["corners"], scene, sl, hit,
+                    inst)
+            else:
+                o, d = SlabTracer(sl, None)._object_rays(scene, o_w, d_w)
+                t, normal, _ = brick.resolve_slab_hits(sl, o, d, hit)
+            ((t * g_t).sum() + (normal * g_n).sum()).backward()
+            torch.cuda.synchronize()
+            launched = {k: kr.SLAB_LAUNCHES[k] - before[k] for k in before}
+            assert launched == ({"forward": 1, "backward": 1}
+                                if path == "kernels" else
+                                {"forward": 0, "backward": 0}), path
+            grads[path] = (planes.grad, o_w.grad, d_w.grad)
+        w_o, w_d, w_acc = brick.resolve_slab_backward_reference(
+            scene, slab, o_np.to(dev), d_np.to(dev), hit, g_t, g_n,
+            acc_dtype=torch.float64)
+        planes64 = slab.sdf.double().requires_grad_(True)
+        corners64 = brick._pack_slab_corners(planes64)
+        corners64.backward(w_acc.reshape(corners64.shape))
+        got_planes, got_o, got_d = grads["kernels"]
+        for name, want in (("autograd", grads["autograd"][0]),
+                           ("closed form", planes64.grad)):
+            scale = want.abs().max().item()
+            assert scale > 0, name
+            assert (got_planes.double() - want.double()).abs().max().item() \
+                <= 1e-5 * scale, (s, name)
+        for name, a, b in (("g_o_w", got_o, w_o), ("g_d_w", got_d, w_d)):
+            scale = b.abs().max().item()
+            assert scale > 0 and bool(torch.isfinite(a).all()), name
+            assert (a - b).abs().max().item() <= 1e-5 * scale, (s, name)
+        old_o, old_d, _ = kr.resolve_slab_backward_cuda(
+            scene, slab, o_np.to(dev), d_np.to(dev), hit, inst, g_t, g_n,
+            _old_design=True)
+        assert torch.equal(old_o, got_o) and torch.equal(old_d, got_d)
+        owned_lanes += int(owned.sum())
+    assert owned_lanes > 100
+
+
+@pytest.mark.gpu
+def test_slab_backward_over_one_slab_equals_the_scene_backward_on_card():
+    """The slab variant of the resolve backward over one slab that holds the
+    whole volume (x origin -2: two halo rows a side) against the scene
+    variant (x origin 0, the rows of the scene's own f32 table) on the same
+    hits and cotangents, both designs: ray gradients bit-equal, the table's
+    rows equal to rounding once shifted by the origin, the halo rows
+    untouched."""
+    from vrt_torch.dist import brick
+    from vrt_torch.kernels import resolve as kr
+    from vrt_torch.scenes import config5_scene
+
+    dev = _card()
+    vol = _slab_volume()
+    slab = brick.shard_volume(vol, 1).local(0, dev)
+    scene = config5_scene(vol, dev, stub=False)
+    corners = scene.volumes.corners
+    assert corners.dtype == torch.float32 and slab.march_tables["x0"] == -2
+    o_w, d_w, _ = _slab_rays(dev)
+    hit, inst, owned, g_t, g_n = _slab_backward_case(dev, slab, scene, o_w,
+                                                     d_w, 0)
+    assert int(owned.sum()) > 100
+    cc = corners.shape[1]
+    for old in (False, True):
+        s_o, s_d, s_acc = kr.resolve_slab_backward_cuda(
+            scene, slab, o_w, d_w, hit, inst, g_t, g_n, _old_design=old)
+        c_o, c_d, c_acc = kr.resolve_scene_backward_cuda(
+            scene, o_w, d_w, hit, inst, g_t, g_n, _old_design=old)
+        torch.cuda.synchronize()
+        assert torch.equal(s_o, c_o) and torch.equal(s_d, c_d), old
+        s_acc = s_acc.reshape(-1, cc, cc, 8)
+        c_acc = c_acc.reshape(cc, cc, cc, -1)[..., :8]
+        scale = c_acc.abs().max().item()
+        assert scale > 0
+        assert (s_acc[2:2 + cc] - c_acc).abs().max().item() <= 1e-6 * scale
+        assert not bool(s_acc[:2].any()) and not bool(s_acc[2 + cc:].any())
+
+
 @pytest.mark.gpu
 def test_sharded_frame_on_card_equals_render_image():
     """The flagship at resolution 5, 64x36, over 2 data ranks sharing the

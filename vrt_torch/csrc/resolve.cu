@@ -91,6 +91,20 @@
 // blocks an SM) leave 25% of the warp slots filled, which the resident
 // blocks' prefetch of kinds works around on the miss rounds
 // (vrt_torch.apps.probe_caps resolve_bwd times each choice).
+//
+// ---- the slab's table -------------------------------------------------------
+//
+// One rank of a slab-sharded volume (vrt_torch.dist.brick) resolves against
+// its own f32 table of cx x-rows, row x holding cell x0 + x (x0 the slab's
+// first plane); vrt differentiates resolve_slab_hits (vrt/dist/brick.py) by
+// XLA's transpose of its voxel fetch, no Pallas kernel.  The forward reads
+// zeros for a cell outside [x0, x0 + cx); both backward designs take the same
+// rule as the kSlab template flag: the row of cell c is
+// ((c[0] - x0) * cc + c[1]) * cc + c[2], and a cell outside the rows reads
+// zeros and adds nothing (skipped, not clamped).  A scene's table (x0 0, cx
+// cc) takes the variants without the flag, whose code is the one above.  The
+// accumulator of a slab's backward has cx * cc * cc rows: 1.1 GB for one of
+// four slabs of config5's 513^3 volume.
 
 #include "scene.cuh"
 
@@ -261,6 +275,8 @@ struct ResolveBwdParams {
   float* g_o_w;            // [R,3] or null
   float* g_d_w;            // [R,3] or null
   float* acc;              // [V*C^3, ch] f32, zeroed by the caller, or null
+  // the table's x rows, as ResolveParams' (read with kSlab only)
+  int x0, cx;
 };
 
 // torch.sign: -1, 0 or 1, and 0 for NaN.
@@ -313,6 +329,35 @@ __device__ __forceinline__ bool cell_valid(const int c[3], int n) {
          c[1] + 1 < n && c[2] + 1 < n;
 }
 
+// Whether cell c has a row in its volume's table: in range, and with kSlab
+// inside the table's x rows [x0, x0 + cx) too.  Without kSlab these helpers
+// fold to the expressions of the scene's variants before the slab's.
+template <bool kSlab>
+__device__ __forceinline__ bool row_valid(const ResolveBwdParams& p,
+                                          const int c[3], int n) {
+  if (kSlab) {
+    const int lx = c[0] - p.x0;
+    return cell_valid(c, n) && lx >= 0 && lx < p.cx;
+  }
+  return cell_valid(c, n);
+}
+
+// The row of cell c in its volume's table (meaningful where row_valid).
+template <bool kSlab>
+__device__ __forceinline__ long long row_index(const ResolveBwdParams& p,
+                                               const int c[3], long long cc) {
+  return ((kSlab ? c[0] - p.x0 : c[0]) * cc + c[1]) * cc + c[2];
+}
+
+// The first row of volume v: v * cc^3 for a scene's tables, v * cx * cc^2
+// for a slab's.
+template <bool kSlab>
+__device__ __forceinline__ long long volume_base(const ResolveBwdParams& p,
+                                                 int v, long long cc) {
+  return kSlab ? static_cast<long long>(v) * p.cx * cc * cc
+               : static_cast<long long>(v) * cc * cc * cc;
+}
+
 // acc[row, i] += g * w_i for the 8 corner channels; zeros are skipped
 // (x + 0 == x), which drops the lanes whose pixels the loss does not see.
 __device__ __forceinline__ void add_row(float* row, const Weights& wt,
@@ -325,7 +370,7 @@ __device__ __forceinline__ void add_row(float* row, const Weights& wt,
   }
 }
 
-template <typename E, bool kV16>
+template <typename E, bool kV16, bool kSlab>
 __global__ void __launch_bounds__(256) resolve_bwd_kernel(
     const ResolveBwdParams p) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
@@ -386,7 +431,7 @@ __global__ void __launch_bounds__(256) resolve_bwd_kernel(
     const float h = __ldg(p.tb.cell_size + v);
     const long long cc = p.tb.cc;
     const int ch = p.tb.ch;
-    const long long vol_rows = static_cast<long long>(v) * cc * cc * cc;
+    const long long vol_rows = volume_base<kSlab>(p, v, cc);
     const E* table = static_cast<const E*>(p.tb.corners) + vol_rows * ch;
     float* acc = p.acc == nullptr ? nullptr : p.acc + vol_rows * ch;
     const float t0r = p.t[i];
@@ -413,9 +458,8 @@ __global__ void __launch_bounds__(256) resolve_bwd_kernel(
         int c[3] = {cell[0], cell[1], cell[2]};
         c[k] += s == 0 ? 1 : -1;
         float v8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        if (cell_valid(c, n))
-          load_row<E, kV16>(table + ((c[0] * cc + c[1]) * cc + c[2]) * ch,
-                            v8);
+        if (row_valid<kSlab>(p, c, n))
+          load_row<E, kV16>(table + row_index<kSlab>(p, c, cc) * ch, v8);
         #pragma unroll
         for (int j = 0; j < 8; ++j)
           diff[j] = s == 0 ? v8[j] : diff[j] - v8[j];
@@ -449,8 +493,8 @@ __global__ void __launch_bounds__(256) resolve_bwd_kernel(
     // the IFT term: F'(t0) in _trilinear_rows_dt's order, so that ``safe``
     // decides as the plain version does
     float vc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    const bool center = cell_valid(cell, n);
-    const long long center_row = (cell[0] * cc + cell[1]) * cc + cell[2];
+    const bool center = row_valid<kSlab>(p, cell, n);
+    const long long center_row = row_index<kSlab>(p, cell, cc);
     if (center) load_row<E, kV16>(table + center_row * ch, vc);
     float term[8];
     #pragma unroll
@@ -484,8 +528,8 @@ __global__ void __launch_bounds__(256) resolve_bwd_kernel(
         for (int s = 0; s < 2; ++s) {
           int c[3] = {cell[0], cell[1], cell[2]};
           c[k] += s == 0 ? 1 : -1;
-          if (cell_valid(c, n))
-            add_row(acc + ((c[0] * cc + c[1]) * cc + c[2]) * ch, wt,
+          if (row_valid<kSlab>(p, c, n))
+            add_row(acc + row_index<kSlab>(p, c, cc) * ch, wt,
                     s == 0 ? g_g[k] : -g_g[k]);
         }
     }
@@ -581,7 +625,7 @@ __device__ __forceinline__ void row_values(float g, const float w[8],
 
 // One round of a warp: the 32 rays from w0, this lane's of kind ``kind``.
 // Every lane of the warp calls it and none leaves before the merge.
-template <typename E, bool kV16>
+template <typename E, bool kV16, bool kSlab>
 __device__ __forceinline__ void backward_round(const ResolveBwdParams& p,
                                                int acc_w, long long w0,
                                                int lane, int kind,
@@ -668,7 +712,7 @@ __device__ __forceinline__ void backward_round(const ResolveBwdParams& p,
       const float h = __ldg(p.tb.cell_size + v);
       const long long cc = p.tb.cc;
       const int ch = p.tb.ch;
-      const long long vol_rows = static_cast<long long>(v) * cc * cc * cc;
+      const long long vol_rows = volume_base<kSlab>(p, v, cc);
       const E* table = static_cast<const E*>(p.tb.corners) + vol_rows * ch;
       const float t0r = p.t[i];
       const float t0 = isfinite(t0r) ? t0r : 0.0f;
@@ -694,8 +738,8 @@ __device__ __forceinline__ void backward_round(const ResolveBwdParams& p,
           int c[3] = {cell[0], cell[1], cell[2]};
           c[k] += s == 0 ? 1 : -1;
           float v8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-          const long long row = (c[0] * cc + c[1]) * cc + c[2];
-          if (cell_valid(c, n)) {
+          const long long row = row_index<kSlab>(p, c, cc);
+          if (row_valid<kSlab>(p, c, n)) {
             load_row<E, kV16>(table + row * ch, v8);
             rows[1 + 2 * k + s] = vol_rows + row;
           }
@@ -732,8 +776,8 @@ __device__ __forceinline__ void backward_round(const ResolveBwdParams& p,
       // the IFT term: F'(t0) in _trilinear_rows_dt's order, so that
       // ``safe`` decides as the plain version does
       float vc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      const long long center_row = (cell[0] * cc + cell[1]) * cc + cell[2];
-      if (cell_valid(cell, n)) {
+      const long long center_row = row_index<kSlab>(p, cell, cc);
+      if (row_valid<kSlab>(p, cell, n)) {
         load_row<E, kV16>(table + center_row * ch, vc);
         rows[0] = vol_rows + center_row;
       }
@@ -843,7 +887,7 @@ __device__ __forceinline__ void backward_round(const ResolveBwdParams& p,
 // different warps), kBwdRounds at a time, their kinds loaded at once, and
 // loads the next kBwdRounds kinds before it works on these.  acc has rows of acc_w
 // floats (8 or 12), 16-byte aligned.
-template <typename E, bool kV16>
+template <typename E, bool kV16, bool kSlab>
 __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
     resolve_bwd_merged_kernel(const ResolveBwdParams p, int acc_w) {
   __shared__ __align__(16) float stage[kBwdThreads / 32][2 * 96];
@@ -871,7 +915,7 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
     for (int r = 0; r < kBwdRounds; ++r) {
       const long long w0 = (warp + (first + r) * warps) * 32;
       if (w0 >= p.rays) break;                 // the whole warp
-      backward_round<E, kV16>(p, acc_w, w0, lane, kinds[0],
+      backward_round<E, kV16, kSlab>(p, acc_w, w0, lane, kinds[0],
                               stage[threadIdx.x >> 5]);
       // the next round's kind to the front, in registers
       #pragma unroll
@@ -885,7 +929,7 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
 // The blocks of the merged kernel's grid: enough to cover the rays in one
 // pass of kBwdRounds rounds a warp, at most as many as the SMs hold at once
 // (found once a variant, on the card of its first launch).
-template <typename E, bool kV16>
+template <typename E, bool kV16, bool kSlab>
 long long merged_blocks(long long rays, cudaError_t& err) {
   const long long per_block = static_cast<long long>(kBwdThreads) *
                               kBwdRounds;
@@ -898,19 +942,20 @@ long long merged_blocks(long long rays, cudaError_t& err) {
                                    device);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, resolve_bwd_merged_kernel<E, kV16>, kBwdThreads, 0);
+          &per_sm, resolve_bwd_merged_kernel<E, kV16, kSlab>, kBwdThreads,
+          0);
     return static_cast<long long>(max(per_sm, 1)) * sms;
   }();
   return blocks < resident ? blocks : resident;
 }
 
-template <typename E, bool kV16>
+template <typename E, bool kV16, bool kSlab>
 cudaError_t launch_merged(const ResolveBwdParams& p, int acc_w,
                           cudaStream_t s) {
   cudaError_t err = cudaSuccess;
-  const long long blocks = merged_blocks<E, kV16>(p.rays, err);
+  const long long blocks = merged_blocks<E, kV16, kSlab>(p.rays, err);
   if (err != cudaSuccess) return err;
-  resolve_bwd_merged_kernel<E, kV16>
+  resolve_bwd_merged_kernel<E, kV16, kSlab>
       <<<static_cast<unsigned>(blocks), kBwdThreads, 0, s>>>(p, acc_w);
   return cudaGetLastError();
 }
@@ -952,11 +997,13 @@ extern "C" int vrt_resolve_scene(
 
 // The backward.  g_o_w and g_d_w (both or neither) and
 // acc may be null: that output is then skipped.  acc is an f32 buffer the
-// caller zeroed, of V*C^3 rows of acc_w floats (read only with acc).
-// merged 1 takes the redesign (resolve_bwd_merged_kernel), whose acc_w is 8
-// or 12 and whose acc, g_o_w and g_d_w are 16-byte aligned; merged 0 the
-// first design (resolve_bwd_kernel), whose acc_w is ch.  bf16 and v16 as
-// above.  Returns cudaGetLastError().
+// caller zeroed, with a row of acc_w floats for each row of the table (read
+// only with acc).  merged 1 takes the redesign (resolve_bwd_merged_kernel),
+// whose acc_w is 8 or 12 and whose acc, g_o_w and g_d_w are 16-byte aligned;
+// merged 0 the first design (resolve_bwd_kernel), whose acc_w is ch.  bf16,
+// v16, x0 and cx as above: a table whose x rows are not the scene's (x0 0, cx
+// cc) takes the kSlab variants, which read f32 tables only.  Returns
+// cudaGetLastError().
 extern "C" int vrt_resolve_scene_bwd(
     const float* o_w, const float* d_w, const int32_t* winner,
     const int32_t* kind, const float* t, const int32_t* cell,
@@ -964,10 +1011,12 @@ extern "C" int vrt_resolve_scene_bwd(
     const float* inst_pos, const float* inst_rot, const float* inst_scale,
     int n_inst, const int32_t* n, const float* cell_size,
     const float* extends, const void* corners, int cc, int ch, int bf16,
-    int v16, long long rays, float* g_o_w, float* g_d_w, float* acc,
-    int acc_w, int merged, void* stream) {
+    int v16, int x0, int cx, long long rays, float* g_o_w, float* g_d_w,
+    float* acc, int acc_w, int merged, void* stream) {
   if (n_inst < 1 || ch < 8 || (g_o_w == nullptr) != (g_d_w == nullptr))
     return cudaErrorInvalidValue;
+  const bool slab = x0 != 0 || cx != cc;
+  if (slab && (bf16 || cx < 1)) return cudaErrorInvalidValue;
   const auto misaligned = [](const void* x) {
     return reinterpret_cast<uintptr_t>(x) % 16 != 0;
   };
@@ -979,25 +1028,31 @@ extern "C" int vrt_resolve_scene_bwd(
       o_w, d_w, winner, kind, t, cell, g_t, g_normal,
       Instances{inst_volume, inst_pos, inst_rot, inst_scale, nullptr, n_inst},
       Tables{n, cell_size, extends, nullptr, corners, nullptr, cc, ch},
-      rays, g_o_w, g_d_w, acc};
+      rays, g_o_w, g_d_w, acc, x0, cx};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (merged) {
     cudaError_t err;
-    if (bf16)
-      err = v16 ? launch_merged<uint16_t, true>(p, acc_w, s)
-                : launch_merged<uint16_t, false>(p, acc_w, s);
+    if (slab)
+      err = v16 ? launch_merged<float, true, true>(p, acc_w, s)
+                : launch_merged<float, false, true>(p, acc_w, s);
+    else if (bf16)
+      err = v16 ? launch_merged<uint16_t, true, false>(p, acc_w, s)
+                : launch_merged<uint16_t, false, false>(p, acc_w, s);
     else
-      err = v16 ? launch_merged<float, true>(p, acc_w, s)
-                : launch_merged<float, false>(p, acc_w, s);
+      err = v16 ? launch_merged<float, true, false>(p, acc_w, s)
+                : launch_merged<float, false, false>(p, acc_w, s);
     return static_cast<int>(err);
   }
   const unsigned grid = static_cast<unsigned>((rays + 255) / 256);
-  if (bf16) {
-    if (v16) resolve_bwd_kernel<uint16_t, true><<<grid, 256, 0, s>>>(p);
-    else resolve_bwd_kernel<uint16_t, false><<<grid, 256, 0, s>>>(p);
+  if (slab) {
+    if (v16) resolve_bwd_kernel<float, true, true><<<grid, 256, 0, s>>>(p);
+    else resolve_bwd_kernel<float, false, true><<<grid, 256, 0, s>>>(p);
+  } else if (bf16) {
+    if (v16) resolve_bwd_kernel<uint16_t, true, false><<<grid, 256, 0, s>>>(p);
+    else resolve_bwd_kernel<uint16_t, false, false><<<grid, 256, 0, s>>>(p);
   } else {
-    if (v16) resolve_bwd_kernel<float, true><<<grid, 256, 0, s>>>(p);
-    else resolve_bwd_kernel<float, false><<<grid, 256, 0, s>>>(p);
+    if (v16) resolve_bwd_kernel<float, true, false><<<grid, 256, 0, s>>>(p);
+    else resolve_bwd_kernel<float, false, false><<<grid, 256, 0, s>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }

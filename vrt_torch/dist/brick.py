@@ -12,7 +12,9 @@ Every shard marches every ray but reports hits only inside its owned
 cells: out-of-slab space is one empty node from the slab boundary outward,
 crossed in one step.  The closest hit across shards is an all-gather of t,
 an argmin and a sum to which one shard contributes (``combine_hits``).
-Halos refresh with the neighbour send/recv pair (``exchange_halos``).
+Halos refresh with the neighbour send/recv pair (``exchange_halos``),
+differentiable: its backward sends each halo plane's cotangent back to the
+plane's owner.
 
 The host side (``shard_volume``) gives stacked [S, ...] CPU tensors, equal
 to ``vrt``'s arrays bit for bit; ``SlabVolume.local`` gives one rank its
@@ -22,7 +24,9 @@ tensors, its plain twin ``march_volume_slab_reference`` (``vrt``'s
 ``_march_core`` with the slab's four hooks) on CPU tensors.
 ``resolve_slab_hits`` is the plain resolve; the slab tracer resolves on
 the card through the fused resolve over the slab's corner table
-(``vrt_torch.kernels.resolve.resolve_slab_cuda``).
+(``vrt_torch.kernels.resolve.ResolveSlab``: the forward and backward
+kernels), whose backward's plain version is
+``resolve_slab_backward_reference``.
 """
 
 from __future__ import annotations
@@ -81,10 +85,18 @@ class SlabVolume:
         fused resolve's ``volume`` tables.  Rows of
         cells outside the volume hold halo planes of ``DEFAULT_DENSITY``;
         the kernels read no such row (a cell that is not inside the volume
-        reads zeros, as everywhere else)."""
+        reads zeros, as everywhere else).
+
+        ``corners`` is packed with a graph wherever the planes require a
+        gradient, even when first asked for under ``no_grad`` (the march
+        asks first): ``ResolveSlab`` takes it as its differentiable input,
+        and its gradient reaches the planes through the pack's slices.  K7
+        reads its data only."""
         if self.sdf.dim() != 3:
             raise ValueError("march_tables belong to one rank's slab")
-        return dict(corners=_pack_slab_corners(self.sdf),
+        with torch.enable_grad():
+            corners = _pack_slab_corners(self.sdf)
+        return dict(corners=corners,
                     accel_u8=_accel_u8(self.accel).contiguous(),
                     sdf=self.sdf.contiguous(),
                     x0=int(self.x_voxel0), cell_lo=int(self.cell_lo),
@@ -307,28 +319,57 @@ def combine_hits(hit: MarchHit, group) -> MarchHit:
                        for f in dataclasses.fields(MarchHit)})
 
 
+class _ExchangeHalos(torch.autograd.Function):
+    """The neighbour pair on a local slab's planes, and its transpose."""
+
+    @staticmethod
+    def forward(ctx, sdf, group):
+        ctx.group = group
+        span, hl = sdf.shape[0], HALO
+        from_left, from_right = _mesh.neighbour_exchange(
+            sdf[span - 2 * hl - 1:span - hl - 1], sdf[hl + 1:2 * hl + 1],
+            group)
+        new = sdf.clone()
+        if from_left is not None:
+            new[:hl] = from_left
+        if from_right is not None:
+            new[span - hl:] = from_right
+        return new
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        # my left halo's cotangent goes to the left neighbour's owned slots
+        # [span - 2*HALO - 1, span - HALO - 1), my right halo's to the right
+        # neighbour's [HALO + 1, 2*HALO + 1); a halo slot that a neighbour
+        # overwrote keeps none of its own, an edge rank's outer halo all
+        span, hl = g.shape[0], HALO
+        g = g.contiguous()
+        from_left, from_right = _mesh.neighbour_exchange(
+            g[span - hl:], g[:hl], ctx.group)
+        out = g.clone()
+        if from_left is not None:
+            out[:hl] = 0.0
+            out[hl + 1:2 * hl + 1] += from_left
+        if from_right is not None:
+            out[span - hl:] = 0.0
+            out[span - 2 * hl - 1:span - hl - 1] += from_right
+        return out, None
+
+
 def exchange_halos(slab: SlabVolume, group) -> SlabVolume:
     """Refresh a local slab's halo planes from its neighbours in ``group``:
     my left-halo slots [0, HALO) are globals [cell_lo - HALO, cell_lo), the
     left neighbour's owned slots [span - 2*HALO - 1, span - HALO - 1); my
     right-halo slots [span - HALO, span) the right neighbour's owned slots
     [HALO + 1, 2*HALO + 1).  Edge shards keep their planes outside the
-    volume.  Forward only: a slab whose SDF requires a gradient is refused
-    (its backward, the reversed pair, is not ported yet)."""
-    if slab.sdf.requires_grad:
-        raise NotImplementedError("exchange_halos has no backward yet: "
-                                  "the slab's SDF requires a gradient")
-    span, hl = slab.sdf.shape[0], HALO
-    to_right = slab.sdf[span - 2 * hl - 1:span - hl - 1]
-    to_left = slab.sdf[hl + 1:2 * hl + 1]
-    from_left, from_right = _mesh.neighbour_exchange(to_right, to_left,
-                                                     group)
-    new = slab.sdf.clone()
-    if from_left is not None:
-        new[:hl] = from_left
-    if from_right is not None:
-        new[span - hl:] = from_right
-    return dataclasses.replace(slab, sdf=new)
+    volume.  Differentiable (``vrt``'s ``ppermute`` pair and its
+    transpose): a halo plane's cotangent is added into the owner's plane,
+    a halo slot that was overwritten keeps none, and an edge shard keeps
+    the cotangent of its planes outside the volume.  The backward is the
+    same neighbour pair in reverse, copies and one add a plane."""
+    return dataclasses.replace(slab, sdf=_ExchangeHalos.apply(slab.sdf,
+                                                              group))
 
 
 def assemble_full_sdf(slabs: SlabVolume, group=None) -> torch.Tensor:
@@ -385,3 +426,57 @@ def resolve_slab_hits(slab: SlabVolume, o, d, hit: MarchHit):
     return resolve_hits(iso.corner_fetch_from_voxels(_slab_fetch(slab)),
                         slab.cell_size.expand(r), slab.extends.expand(r),
                         o, d, hit)
+
+
+def slab_corner_index(cell, n, x0, cx: int, cc: int):
+    """Row index i32 into a local slab's [cx*C*C, 8] corner table
+    (``march_tables``: row ``((x - x0) * C + y) * C + z`` holds cell
+    (x, y, z)) for cells shaped [..., 3]; -1 where the cell is out of the
+    volume (cell < 0 or cell + 1 >= n) or outside the table's rows, where
+    the kernels read zeros and add nothing."""
+    lx = cell[..., 0] - x0
+    valid = (torch.all((cell >= 0) & (cell + 1 < n), dim=-1)
+             & (lx >= 0) & (lx < cx))
+    flat = (lx.long() * cc + cell[..., 1]) * cc + cell[..., 2]
+    return torch.where(valid, flat, -1).to(torch.int32)
+
+
+@torch.no_grad()
+def resolve_slab_backward_reference(scene, slab: SlabVolume, o_w, d_w,
+                                    hit: MarchHit, g_t, g_normal,
+                                    acc_dtype=torch.float32):
+    """The vector-Jacobian product of the slab's fused resolve in the world
+    rays and the slab's corner table, in closed form: -> (g_o_w f32 [R,3],
+    g_d_w f32 [R,3], g_corners f32 [cx*C*C, 8]) for the cotangents ``g_t``
+    [R] and ``g_normal`` [R,3] of t and the object-space normal.  The plain
+    version of the slab resolve's backward kernel, as
+    ``renderer.resolve_scene_backward_reference`` is the scene's: world rays
+    through ``scene``'s one instance, ``resolve_hits_backward`` over the
+    seven rows of the table (``slab_corner_index``) and an ``index_add_``
+    in ``acc_dtype``.  Reads ``hit.kind``, ``hit.t`` and ``hit.cell``
+    only."""
+    from vrt_torch.core import quat as vq
+    from vrt_torch.kernels.rows import (gather_rows_reference,
+                                        scatter_rows_reference)
+    from vrt_torch.march.resolve import _OFFS7, resolve_hits_backward
+    from vrt_torch.render.renderer import _world_to_object
+
+    pos, rot, scale = scene.inst_pos[0], scene.inst_rot[0], scene.inst_scale[0]
+    o, d = _world_to_object(pos, rot, scale, o_w, d_w)
+    tb = slab.march_tables
+    corners = tb["corners"].detach()
+    cx, cc = corners.shape[0], corners.shape[1]
+    flat = corners.reshape(-1, 8)
+    offs = torch.as_tensor(_OFFS7, device=o_w.device)
+    idx = slab_corner_index(hit.cell[:, None, :] + offs, slab.n, tb["x0"],
+                            cx, cc).reshape(-1)
+    rows7 = gather_rows_reference(flat, idx, 8).reshape(-1, 7, 8)
+    r = o_w.shape[0]
+    g_o, g_d, g_rows7 = resolve_hits_backward(
+        rows7, slab.cell_size.expand(r), slab.extends.expand(r), o, d, hit,
+        g_t, g_normal)
+    g_o_w = vq.rotate(rot.expand(r, 4), g_o) / scale
+    g_d_w = vq.rotate(rot.expand(r, 4), g_d) / scale
+    g_corners = scatter_rows_reference(g_rows7.reshape(-1, 8), idx,
+                                       flat.shape[0], 8, acc_dtype)
+    return g_o_w, g_d_w, g_corners

@@ -14,7 +14,19 @@ an error, and it is counted (``STATS["staged"]``).
 
 ``STATS`` counts each collective's calls and the host seconds spent in
 them (with a CUDA tensor on gloo that includes the wait for the card to
-finish the work that produced the input).
+finish the work that produced the input).  A collective that a backward
+runs counts as its kind.
+
+Gradients (the transposes ``vrt`` gets from JAX's autodiff under
+``shard_map``): ``all_gather`` and ``all_reduce_sum`` record an autograd
+node where their input requires a gradient and a graph is recorded.  The
+gather's backward is the reduce-scatter: the sum over the ranks of the
+cotangent (an all-reduce: gloo has no reduce-scatter), then this rank's
+rows.  The sum's backward is the all-reduce of the cotangent: its output
+feeds rank-local work, whose cotangents differ from rank to rank.
+``loss_sum`` is the sum of a loss over the ranks whose cotangent every rank
+holds already (``jax.lax.psum`` of the loss inside the differentiated
+function): its backward hands each rank the cotangent unchanged.
 """
 
 from __future__ import annotations
@@ -51,10 +63,10 @@ def init_distributed(backend: str, init_method: str | None = None,
 
 
 def make_render_mesh(n_data: int, n_model: int = 1,
-                     device_type: str = "cpu"):
+                     device_type: str = "cuda"):
     """An (n_data, n_model) ``DeviceMesh`` with axes ('data', 'model') over
     every rank of the default group, in rank order: the model axis joins
-    adjacent ranks.  ``device_type`` is "cpu" or "cuda"."""
+    adjacent ranks.  ``device_type`` is "cuda" (the default) or "cpu"."""
     from torch.distributed.device_mesh import init_device_mesh
 
     need = n_data * n_model
@@ -92,10 +104,11 @@ def axis_group(mesh, axis):
 
 
 
+def _needs_graph(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
 
-def all_gather(x: torch.Tensor, group) -> torch.Tensor:
-    """Every rank's ``x`` [n, ...] concatenated in group-rank order:
-    [S*n, ...] (``jax.lax.all_gather(..., tiled=True)``)."""
+
+def _all_gather(x, group):
     t0 = time.perf_counter()
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
@@ -106,14 +119,76 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of every rank's ``x`` (``jax.lax.psum``), in a new tensor."""
+def _all_reduce(x, group):
     t0 = time.perf_counter()
     out = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     STATS["all_reduce"] += 1
     STATS["seconds"] += time.perf_counter() - t0
     return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.rows = group, x.shape[0]
+        return _all_gather(x, group)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        i = dist.get_rank(ctx.group)
+        total = _all_reduce(g, ctx.group)
+        return total[i * ctx.rows:(i + 1) * ctx.rows], None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _LossSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` [n, ...] concatenated in group-rank order:
+    [S*n, ...] (``jax.lax.all_gather(..., tiled=True)``); differentiable,
+    its backward the reduce-scatter of the cotangent."""
+    if _needs_graph(x):
+        return _AllGather.apply(x, group)
+    return _all_gather(x, group)
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``x`` (``jax.lax.psum``), in a new tensor;
+    differentiable, its backward the all-reduce of the cotangent."""
+    if _needs_graph(x):
+        return _AllReduceSum.apply(x, group)
+    return _all_reduce(x, group)
+
+
+def loss_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of each rank's loss term ``x``: the global
+    loss on every rank, whose backward passes each rank's cotangent through
+    unchanged (a differentiated ``psum`` of the loss, as ``vrt``'s fit
+    steps take it)."""
+    if _needs_graph(x):
+        return _LossSum.apply(x, group)
+    return _all_reduce(x, group)
 
 
 def neighbour_exchange(to_right: torch.Tensor, to_left: torch.Tensor,

@@ -1,5 +1,5 @@
-"""The render pipeline over a slab-sharded volume (port of
-``vrt.dist.slab_render``, its serving half).
+"""The render pipeline over a slab-sharded volume, and its fit steps (port
+of ``vrt.dist.slab_render``).
 
 ``SlabTracer`` plugs the slab march into the renderer's tracer seam
 (``vrt_torch.render.renderer.SceneTracer``): primary, shadow and bounce
@@ -14,9 +14,17 @@ code as for the replicated frame.
 
 A scene for a big volume is built with ``build_slab_scene_stub``: it
 carries the instance, material, light, camera and env with a 2^3 stub SDF,
-while the voxels live only in the ranks' slabs.  The slab fit steps
-(``make_slab_fit_step``, ``make_slab_fit_step_crossed``) are not ported
-yet.
+while the voxels live only in the ranks' slabs.
+
+The fit steps (``make_slab_fit_step``, ``make_slab_fit_step_crossed``)
+differentiate the same frame in the rank's planes.  The march reads the
+tables without a graph; resolve goes through ``ResolveSlab`` (the fused
+resolve's forward and backward kernels over the slab's table on the card),
+whose table gradient reaches the planes through the table's pack and
+``exchange_halos``' backward.  The collectives carry the gradient as
+``vrt``'s transposes do (``vrt_torch.dist.mesh``): the owner sum's backward
+all-reduces the cotangent, the ray all-gather's is the reduce-scatter, and
+the loss's sum over the ranks passes its cotangent through.
 """
 
 from __future__ import annotations
@@ -26,14 +34,17 @@ import dataclasses
 import numpy as np
 import torch
 
+from vrt_torch.diff.fit import _value_and_grad
+from vrt_torch.diff.optim import apply_updates
 from vrt_torch.dist import mesh as _mesh
-from vrt_torch.dist.brick import (SlabVolume, combine_hits,
+from vrt_torch.dist.brick import (SlabVolume, combine_hits, exchange_halos,
                                   march_volume_slab, resolve_slab_hits)
-from vrt_torch.dist.mesh import MODEL_AXIS
+from vrt_torch.dist.mesh import DATA_AXIS, MODEL_AXIS
 from vrt_torch.march.types import MarchHit
 from vrt_torch.render.gpuscene import GPUScene, RenderMode
-from vrt_torch.render.renderer import (SceneTracer, _world_to_object,
-                                       render_rays)
+from vrt_torch.render.renderer import (SceneTracer, _needs_autograd,
+                                       _world_to_object, render_rays,
+                                       tonemap, trace_radiance)
 
 _RESOLVE_FIELDS = ("hit", "t", "kind", "cell", "face_normal")
 
@@ -66,14 +77,18 @@ class SlabTracer(SceneTracer):
         """The hit owner's (t, object-space normal, unlit) on every rank:
         each rank resolves against its own slab (the 2-voxel halo covers a
         boundary cell's stencil); the sum over the ranks of the owner's
-        value and zeros elsewhere replicates it.  On the card the fused
-        resolve over the slab's table (``resolve_slab_cuda``), on the CPU
-        ``resolve_slab_hits``."""
-        if o_w.device.type == "cuda":
-            from vrt_torch.kernels.resolve import resolve_slab_cuda
+        value and zeros elsewhere replicates it.  On the card, and on the
+        CPU where a graph is recorded through the rays or the slab's planes,
+        ``ResolveSlab`` (the fused resolve over the slab's table, forward
+        and backward); else ``resolve_slab_hits``.  The sum over the ranks
+        is differentiable: its backward all-reduces the cotangent."""
+        if (o_w.device.type == "cuda"
+                or _needs_autograd(o_w, d_w, self.slab.sdf)):
+            from vrt_torch.kernels.resolve import ResolveSlab
 
-            t, n_obj, unlit = resolve_slab_cuda(
-                scene, self.slab, o_w.contiguous(), d_w.contiguous(),
+            t, n_obj, unlit = ResolveSlab.apply(
+                o_w.contiguous(), d_w.contiguous(),
+                self.slab.march_tables["corners"], scene, self.slab,
                 dataclasses.replace(hit, cell=hit.cell.contiguous(),
                                     face_normal=hit.face_normal.contiguous()),
                 inst.contiguous())
@@ -95,7 +110,9 @@ class GatherSlabTracer(SceneTracer):
     resolve are this rank's slice of the rays; the tracer all-gathers the
     slices (every ray must test every slab), runs the full-width slab march
     or resolve, and hands back this rank's rows.  So the shading above the
-    seam runs on R/S rays a rank."""
+    seam runs on R/S rays a rank.  Resolve's gathers of the rays are
+    differentiable (their backward the reduce-scatter); the march records
+    no graph."""
 
     def __init__(self, slab: SlabVolume, group):
         self.inner = SlabTracer(slab, group)
@@ -108,6 +125,7 @@ class GatherSlabTracer(SceneTracer):
     def _gather(self, x):
         return _mesh.all_gather(x, self.group)
 
+    @torch.no_grad()
     def march(self, scene: GPUScene, o_w, d_w, t_max, interp: bool,
               debug_overlay: bool = False):
         n = o_w.shape[0]
@@ -206,3 +224,87 @@ def render_slab_image(scene: GPUScene, slab: SlabVolume, mesh, width: int,
     rgba = render_rays(scene, o[mine].clone(), d[mine].clone(), mode,
                        GatherSlabTracer(slab, group))
     return _mesh.all_gather(rgba, group)[:total].reshape(height, width, 4)
+
+
+def _slab_loss_fn(scene, mode, slab, o, d, targets, halo_group, tracer_group,
+                  loss_group, pixels):
+    """The fit loss of one rank's planes: a fresh local slab from them, its
+    halos refreshed over ``halo_group``, the frame of this rank's rays
+    through the ``GatherSlabTracer`` over ``tracer_group``, and the summed
+    squared error over ``loss_group`` divided by the ``pixels`` values of
+    the whole batch."""
+
+    def loss_fn(p):
+        s = exchange_halos(dataclasses.replace(slab, sdf=p), halo_group)
+        rgb = trace_radiance(scene, o, d, 0, mode,
+                             tracer=GatherSlabTracer(s, tracer_group))
+        se = torch.sum((tonemap(rgb) - targets) ** 2)
+        return _mesh.loss_sum(se, loss_group) / pixels
+
+    return loss_fn
+
+
+def make_slab_fit_step(mesh, optimizer, scene: GPUScene,
+                       mode: RenderMode = RenderMode(),
+                       axis: str = MODEL_AXIS):
+    """Model-parallel fit step through the production shade (``vrt``'s
+    ``make_slab_fit_step``), run by every rank of ``axis``.
+
+    step(params f32 [span,N,N], opt_state, slab, o, d, targets) -> (params,
+    opt_state, loss): ``params`` this rank's planes (halos included),
+    ``slab`` its local ``SlabVolume`` (geometry and accel; its planes are
+    not read), ``o``, ``d`` [R/S,3] and ``targets`` [R/S,3] this rank's
+    rows of the rays (``vrt``'s ``P(axis)``), ``opt_state`` the
+    ``vrt_torch.diff.optim`` optimizer's state of ``params``.  Per step: a
+    fresh slab from ``params``, the differentiable halo exchange, the slab
+    march (no graph) and closest-hit combine for the primary rays and every
+    shadow ray the shading spawns, the owner-summed differentiable resolve,
+    the shade kernels and the tonemap at R/S rays a rank, and the mean
+    squared error over every rank's pixels; then the backward and the
+    optimizer's update of this rank's planes.  ``loss`` is the global loss,
+    on every rank.  The accel stays as ``slab`` holds it (``vrt``'s
+    traversal is frozen between ``resync_slabs`` calls too)."""
+    group, _, s_count = _mesh.axis_group(mesh, axis)
+
+    def step(params, opt_state, slab: SlabVolume, o, d, targets):
+        pixels = float(targets.numel() * s_count)
+        loss_fn = _slab_loss_fn(scene, mode, slab, o, d, targets, group,
+                                group, group, pixels)
+        loss, g = _value_and_grad(lambda p: loss_fn(p["sdf"]),
+                                  {"sdf": params})
+        updates, opt_state = optimizer.update(g["sdf"], opt_state, params)
+        return apply_updates(params, updates), opt_state, loss
+
+    return step
+
+
+def make_slab_fit_step_crossed(mesh, optimizer, scene: GPUScene,
+                               mode: RenderMode = RenderMode(),
+                               data_axis: str = DATA_AXIS,
+                               model_axis: str = MODEL_AXIS):
+    """The crossed data x model fit step (``vrt``'s
+    ``make_slab_fit_step_crossed``): the halo exchange, the ray gathers and
+    the owner sums ride ``model_axis``; the loss is summed over both axes;
+    the planes' gradient is all-reduced over ``data_axis`` (each data row saw
+    other rays) before the update.
+
+    step(params [span,N,N], opt_state, slab, o, d, targets) -> (params,
+    opt_state, loss), as ``make_slab_fit_step``'s, with ``o``, ``d`` and
+    ``targets`` this rank's R/(D*S) rows (``vrt``'s ``P((data, model))``:
+    the rows of flat index ``data * S + model``).  The planes are the model
+    rank's, the same on every data rank."""
+    model, _, s_count = _mesh.axis_group(mesh, model_axis)
+    data, _, d_count = _mesh.axis_group(mesh, data_axis)
+    both, _, _ = _mesh.axis_group(mesh, tuple(mesh.mesh_dim_names))
+
+    def step(params, opt_state, slab: SlabVolume, o, d, targets):
+        pixels = float(targets.numel() * s_count * d_count)
+        loss_fn = _slab_loss_fn(scene, mode, slab, o, d, targets, model,
+                                model, both, pixels)
+        loss, g = _value_and_grad(lambda p: loss_fn(p["sdf"]),
+                                  {"sdf": params})
+        grad = _mesh.all_reduce_sum(g["sdf"], data)
+        updates, opt_state = optimizer.update(grad, opt_state, params)
+        return apply_updates(params, updates), opt_state, loss
+
+    return step

@@ -7,6 +7,13 @@
         -> (g_o_w f32 [R,3], g_d_w f32 [R,3], g_corners f32 [V*C^3, ch])
     ResolveScene.apply(o_w, d_w, corners, scene, hit, inst)
         -> (t, normal, unlit), differentiable in o_w, d_w and corners
+    resolve_slab_cuda(scene, slab, o_w, d_w, hit, inst)
+    resolve_slab_backward_cuda(scene, slab, o_w, d_w, hit, inst, g_t,
+                               g_normal)
+        -> (g_o_w, g_d_w, g_corners f32 [cx*C*C, 8])
+    ResolveSlab.apply(o_w, d_w, corners, scene, slab, hit, inst)
+        -> (t, normal, unlit), differentiable in o_w, d_w and the slab's
+           corner table
 
 Forward: one thread per ray computes what
 ``vrt_torch.render.renderer.resolve_scene_reference`` (its plain version)
@@ -32,9 +39,18 @@ there, their plain versions.  It returns no gradient for the instance
 transforms: ``renderer.resolve_scene`` keeps a caller that wants one on
 the plain path.
 
+``ResolveSlab`` is the same pair over one rank's slab of a slab-sharded
+volume (``vrt_torch.dist.brick``): the slab's f32 table of cx x-rows, row x
+holding global cell ``x_voxel0 + x``, and the slab's variants of the
+backward kernels, which skip a cell outside those rows as the forward reads
+zeros there.  On CPU tensors: ``brick.resolve_slab_hits`` forward and the
+closed form ``brick.resolve_slab_backward_reference``.  Its table's
+gradient reaches the slab's planes by autograd through the pack
+(``brick._pack_slab_corners``, eight strided slices).
+
 ``LAUNCHES`` counts the launches of each kernel; ``SLAB_LAUNCHES`` the
-forward launches over a slab's table (``resolve_slab_cuda``), which
-``LAUNCHES["forward"]`` counts too.
+launches over a slab's table (``resolve_slab_cuda`` and
+``resolve_slab_backward_cuda``), which ``LAUNCHES`` counts too.
 """
 
 from __future__ import annotations
@@ -49,7 +65,7 @@ from vrt_torch.kernels.march import _stream
 from vrt_torch.march.types import MarchHit
 
 LAUNCHES = {"forward": 0, "backward": 0}
-SLAB_LAUNCHES = 0
+SLAB_LAUNCHES = {"forward": 0, "backward": 0}
 
 NVCC_FLAGS = ["--fmad=false"]
 
@@ -69,7 +85,7 @@ def build() -> str:
                                       + [ptr] * 3 + [ptr])
     lib.vrt_resolve_scene.restype = i32
     lib.vrt_resolve_scene_bwd.argtypes = ([ptr] * 12 + [i32] + [ptr] * 4
-                                          + [i32] * 4 + [ctypes.c_longlong]
+                                          + [i32] * 6 + [ctypes.c_longlong]
                                           + [ptr] * 3 + [i32] * 2 + [ptr])
     lib.vrt_resolve_scene_bwd.restype = i32
     _lib = lib
@@ -189,28 +205,14 @@ def resolve_slab_cuda(scene, slab, o_w, d_w, hit: MarchHit, inst):
     cell outside the volume or outside the slab's rows reads zeros.  What
     ``vrt_torch.dist.brick.resolve_slab_hits`` computes on the lanes whose
     hit cell the slab owns; no graph.  Counted in ``LAUNCHES["forward"]``
-    and ``SLAB_LAUNCHES``.  Raises on any input the kernel does not take;
-    never falls back."""
-    global SLAB_LAUNCHES
-
-    dev, rays, table, n_inst = _check_inputs(scene, o_w, d_w, hit, inst,
-                                             "the slab's fused resolve")
+    and ``SLAB_LAUNCHES["forward"]``.  Raises on any input the kernel does
+    not take; never falls back."""
+    dev, rays, table, n_inst, tb = _check_slab_inputs(
+        scene, slab, o_w, d_w, hit, inst, "the slab's fused resolve")
     _check(hit.face_normal, "hit.face_normal", torch.float32, (rays, 3), dev)
-    if n_inst != 1:
-        raise ValueError(f"the slab's fused resolve takes a scene of one "
-                         f"instance, got {n_inst}")
-    tb = slab.march_tables
     corners = tb["corners"]
     cx, cc = corners.shape[0], corners.shape[1]
-    _check(corners, "slab corners", torch.float32, (cx, cc, cc, 8), dev)
-    n, h, ext, volume0 = tb["volume"]
-    for x, name, dtype in ((n, "n", torch.int32), (h, "cell_size",
-                                                    torch.float32),
-                           (ext, "extends", torch.float32),
-                           (volume0, "instance volume", torch.int32)):
-        _check(x, f"slab {name}", dtype, (1,), dev)
-    # the instance's transform, with the slab as its volume 0
-    table = (volume0,) + tuple(table[1:])
+    n, h, ext, _ = tb["volume"]
     t = torch.empty(rays, dtype=torch.float32, device=dev)
     normal = torch.empty((rays, 3), dtype=torch.float32, device=dev)
     unlit = torch.empty(rays, dtype=torch.bool, device=dev)
@@ -228,8 +230,29 @@ def resolve_slab_cuda(scene, slab, o_w, d_w, hit: MarchHit, inst):
         raise RuntimeError(f"the slab's fused resolve launch failed: "
                            f"cudaError {err}")
     LAUNCHES["forward"] += 1
-    SLAB_LAUNCHES += 1
+    SLAB_LAUNCHES["forward"] += 1
     return t, normal, unlit
+
+
+def _check_slab_inputs(scene, slab, o_w, d_w, hit, inst, who):
+    """What both slab kernels read, checked: (device, rays, the instance
+    table with the slab as its volume 0, 1, the slab's ``march_tables``)."""
+    dev, rays, table, n_inst = _check_inputs(scene, o_w, d_w, hit, inst, who)
+    if n_inst != 1:
+        raise ValueError(f"{who} takes a scene of one instance, got "
+                         f"{n_inst}")
+    tb = slab.march_tables
+    corners = tb["corners"]
+    cx, cc = corners.shape[0], corners.shape[1]
+    _check(corners, "slab corners", torch.float32, (cx, cc, cc, 8), dev)
+    n, h, ext, volume0 = tb["volume"]
+    for x, name, dtype in ((n, "n", torch.int32), (h, "cell_size",
+                                                    torch.float32),
+                           (ext, "extends", torch.float32),
+                           (volume0, "instance volume", torch.int32)):
+        _check(x, f"slab {name}", dtype, (1,), dev)
+    # the instance's transform, with the slab as its volume 0
+    return dev, rays, (volume0,) + tuple(table[1:]), n_inst, tb
 
 
 def accumulator(rows: int, ch: int, device):
@@ -284,7 +307,7 @@ def resolve_scene_backward_cuda(scene, o_w, d_w, hit: MarchHit, inst, g_t,
         o_w.data_ptr(), d_w.data_ptr(), inst.data_ptr(),
         hit.kind.data_ptr(), hit.t.data_ptr(), hit.cell.data_ptr(),
         g_t.data_ptr(), g_normal.data_ptr(),
-        *_scene_args(scene, table, n_inst), rays,
+        *_scene_args(scene, table, n_inst), 0, corners.shape[1], rays,
         g_o_w.data_ptr() if rays_grad else None,
         g_d_w.data_ptr() if rays_grad else None,
         buf.data_ptr() if table_grad else None,
@@ -294,6 +317,57 @@ def resolve_scene_backward_cuda(scene, o_w, d_w, hit: MarchHit, inst, g_t,
         raise RuntimeError(f"fused resolve backward launch failed: "
                            f"cudaError {err}")
     LAUNCHES["backward"] += 1
+    return g_o_w, g_d_w, acc
+
+
+def resolve_slab_backward_cuda(scene, slab, o_w, d_w, hit: MarchHit, inst,
+                               g_t, g_normal, rays_grad: bool = True,
+                               table_grad: bool = True,
+                               _old_design: bool = False):
+    """Launch the slab resolve's backward on ``torch.cuda.current_stream()``:
+    the cotangents ``g_t`` [R] and ``g_normal`` [R,3] of
+    ``resolve_slab_cuda``'s t and normal pulled back to the world rays and
+    to the rank's slab table (``slab.march_tables["corners"]``, f32 [cx, C,
+    C, 8]) as an f32 [cx*C*C, 8] ``accumulator`` that this zeroes: the slab's
+    variants of ``resolve_scene_backward_cuda``'s two designs (the merged
+    kernel by default, ``_old_design`` the first), with the row of cell c at
+    ``((c[0] - x0) * C + c[1]) * C + c[2]`` and nothing added for a cell
+    outside the table's rows.  Its plain version is
+    ``brick.resolve_slab_backward_reference``.  Counted in
+    ``LAUNCHES["backward"]`` and ``SLAB_LAUNCHES["backward"]``.  Raises on
+    any input the kernel does not take; never falls back."""
+    dev, rays, table, n_inst, tb = _check_slab_inputs(
+        scene, slab, o_w, d_w, hit, inst, "the slab resolve's backward")
+    _check(g_t, "g_t", torch.float32, (rays,), dev)
+    _check(g_normal, "g_normal", torch.float32, (rays, 3), dev)
+    corners = tb["corners"]
+    cx, cc = corners.shape[0], corners.shape[1]
+    n, h, ext, _ = tb["volume"]
+    g_o_w = g_d_w = acc = None
+    if rays_grad:
+        g_o_w = torch.empty((rays, 3), dtype=torch.float32, device=dev)
+        g_d_w = torch.empty((rays, 3), dtype=torch.float32, device=dev)
+    if table_grad:
+        acc = accumulator(cx * cc * cc, 8, dev)[0]
+    if rays == 0 or not (rays_grad or table_grad):
+        return g_o_w, g_d_w, acc
+    build()
+    err = _lib.vrt_resolve_scene_bwd(
+        o_w.data_ptr(), d_w.data_ptr(), inst.data_ptr(),
+        hit.kind.data_ptr(), hit.t.data_ptr(), hit.cell.data_ptr(),
+        g_t.data_ptr(), g_normal.data_ptr(), *(x.data_ptr() for x in table),
+        n_inst, n.data_ptr(), h.data_ptr(), ext.data_ptr(),
+        corners.data_ptr(), cc, 8, 0, int(load_path(corners) == "v16"),
+        tb["x0"], cx, rays,
+        g_o_w.data_ptr() if rays_grad else None,
+        g_d_w.data_ptr() if rays_grad else None,
+        acc.data_ptr() if table_grad else None, 8, int(not _old_design),
+        _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"the slab resolve's backward launch failed: "
+                           f"cudaError {err}")
+    LAUNCHES["backward"] += 1
+    SLAB_LAUNCHES["backward"] += 1
     return g_o_w, g_d_w, acc
 
 
@@ -348,3 +422,58 @@ class ResolveScene(torch.autograd.Function):
         return (g_o_w if ctx.needs_input_grad[0] else None,
                 g_d_w if ctx.needs_input_grad[1] else None, g_corners,
                 None, None, None)
+
+
+class ResolveSlab(torch.autograd.Function):
+    """The slab tracer's resolve with its gradient in the world rays and
+    the rank's slab table: ``resolve_slab_cuda`` and
+    ``resolve_slab_backward_cuda`` on CUDA tensors; on CPU tensors
+    ``brick.resolve_slab_hits`` (its t and normal on the lanes whose hit the
+    slab owns are the kernel's) and the closed form
+    ``brick.resolve_slab_backward_reference``.  ``corners`` is
+    ``slab.march_tables["corners"]`` (passed apart so that autograd sees it;
+    it carries the graph back to the planes).  Saves the rays, the hit's
+    kind, t and cell and the slab, whose table the backward re-reads."""
+
+    @staticmethod
+    def forward(ctx, o_w, d_w, corners, scene, slab, hit, inst):
+        if corners is not slab.march_tables["corners"]:
+            raise ValueError("ResolveSlab: corners must be the slab's "
+                             "corner table")
+        if o_w.device.type == "cuda":
+            t, normal, unlit = resolve_slab_cuda(scene, slab, o_w, d_w, hit,
+                                                 inst)
+        else:
+            from vrt_torch.dist.brick import resolve_slab_hits
+            from vrt_torch.render.renderer import _world_to_object
+
+            o, d = _world_to_object(scene.inst_pos[0], scene.inst_rot[0],
+                                    scene.inst_scale[0], o_w, d_w)
+            t, normal, unlit = resolve_slab_hits(slab, o, d, hit)
+        ctx.save_for_backward(o_w, d_w, inst, hit.kind, hit.t, hit.cell)
+        ctx.scene, ctx.slab = scene, slab
+        ctx.mark_non_differentiable(unlit)
+        return t, normal, unlit
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_t, g_normal, _g_unlit):
+        o_w, d_w, inst, kind, t, cell = ctx.saved_tensors
+        rays_grad = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
+        table_grad = ctx.needs_input_grad[2]
+        hit = MarchHit(hit=None, t=t, kind=kind, cell=cell, t_in=None,
+                       t_out=None, face_normal=None, steps=None)
+        if o_w.device.type == "cuda":
+            g_o_w, g_d_w, acc = resolve_slab_backward_cuda(
+                ctx.scene, ctx.slab, o_w, d_w, hit, inst, g_t.contiguous(),
+                g_normal.contiguous(), rays_grad, table_grad)
+        else:
+            from vrt_torch.dist.brick import resolve_slab_backward_reference
+
+            g_o_w, g_d_w, acc = resolve_slab_backward_reference(
+                ctx.scene, ctx.slab, o_w, d_w, hit, g_t, g_normal)
+        corners = ctx.slab.march_tables["corners"]
+        return (g_o_w if ctx.needs_input_grad[0] else None,
+                g_d_w if ctx.needs_input_grad[1] else None,
+                acc.reshape(corners.shape) if table_grad else None,
+                None, None, None, None)
