@@ -183,12 +183,18 @@ Phases, each of which raises on failure:
              three times after a warm-up (launches asserted: 2 K7, 1 slab
              resolve, 1 + 1 shade a frame, no scene march; host clock from
              a barrier, and the collectives' host seconds), and at 160x90;
+             a 1080p frame's peak memory on the slab's planes and on the
+             first design's packed table (``SlabVolume(table="packed")``);
              every K7 launch of a 480x270 and a 1080p frame against
-             ``march_volume_slab_reference`` field by field (lanes on the
-             step cap counted), every slab-resolve launch against
-             ``resolve_slab_hits`` on the lanes whose hit the rank owns
-             (equal, NaN equal to NaN), the 1080p launches timed while the
-             other ranks wait at a barrier, with K7's bound and each rank's
+             ``march_volume_slab_reference`` and against its first design
+             field by field (no lane on the step cap), every slab-resolve
+             launch against ``resolve_slab_hits`` on the lanes whose hit
+             the rank owns (equal, NaN equal to NaN) and against its first
+             design bit for bit but on surface hits the rank does not own,
+             the 1080p launches of both designs timed old, new, new, old
+             while the other ranks wait at a barrier, with K7's bound, live
+             lanes, SIMT efficiency and registers (K7's redesign no slower
+             than its first design over the 4 ranks) and each rank's
              primary march steps; then rank 2 edits a plane that rank 1
              holds as a halo, and after ``exchange_halos`` every slab equals
              a fresh ``shard_volume`` of the edited volume.  The 1080p frame
@@ -205,18 +211,25 @@ Phases, each of which raises on failure:
              fit step (``make_slab_fit_step``) on phase 11's 513^3 slabs
              over the same 4 model ranks, with ``vrt/apps/scaling.py``'s
              traffic (4096 rays from ``default_rng(0)``, targets of 0.4,
-             Adam at 1e-2): a warm-up, then 3 steps timed on the host from
-             a barrier, with each rank's collectives' host seconds, peak
-             ``max_memory_allocated`` and a profile's busy time, and its
-             launches asserted (per step 2 K7, 1 slab resolve forward and 1
+             Adam at 1e-2) on the first design's packed table and on the
+             planes, old, new, new, old: each a warm-up, then 3 steps timed
+             on the host from a barrier, with each rank's collectives' host
+             seconds, peak ``max_memory_allocated``, the table packs counted
+             and a profile's busy time and top kernels, and its launches
+             asserted (per step 2 K7, 1 slab resolve forward and 1
              backward, 1 + 1 shade forward and 1 + 1 backward; no scene
-             march, no K3); the slab resolve backward's launch of one step
-             on every rank against autograd of ``resolve_slab_hits`` and the
-             closed form summed in float64 (the planes' gradient through
-             the pack within ``SCATTER_RTOL``, the ray gradients within
-             ``RAY_GRAD_RTOL`` and bit-equal to its first design's), timed
-             with its first design, the closed form and its bound while the
-             other ranks wait; the step's plane gradients against the same
+             march, no K3); on the planes no pack (and under
+             ``PACK_KERNEL_MS`` of cat kernels), a pack a step on the table,
+             and a peak at least ``SLABFIT_PEAK_GAIN_GB`` below the table's;
+             the slab resolve backward's launch of one step on every rank
+             against autograd of ``resolve_slab_hits`` and the closed form
+             summed in float64 (the planes' gradient within
+             ``SCATTER_RTOL``, the ray gradients within ``RAY_GRAD_RTOL``
+             and bit-equal to both designs of the packed table, whose
+             gradient carried through the pack agrees too), timed with the
+             first design (old, new, new, old), its table's pack and pack
+             backward, the closed form and its bound while the other ranks
+             wait; the step's plane gradients against the same
              step on the plain slab resolve (``FIT_*`` gates); the 12x12
              step on tests/test_brick.py's 33^3 volume against ``vrt``'s
              (``tests/fixtures/slab_fit_r5_slab4_12x12.npz``: loss and
@@ -398,6 +411,24 @@ def _recording(module, name):
     setattr(module, name, recorder)
     try:
         yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def _counting(module, name):
+    """Count the calls of ``module.name`` in a one-element list, keeping
+    nothing of them."""
+    count = [0]
+    fn = getattr(module, name)
+
+    def counter(*args, **kwargs):
+        count[0] += 1
+        return fn(*args, **kwargs)
+
+    setattr(module, name, counter)
+    try:
+        yield count
     finally:
         setattr(module, name, fn)
 
@@ -2628,15 +2659,15 @@ SLAB_IN_BYTES, SLAB_OUT_BYTES = 28, 45
 
 def _slab_bound(tables, hit, interp):
     """K7's bound from what these rays need (its result ``hit``, equal to
-    the twin's): 73 B a ray, one accel byte a node step and one 32-byte
-    corner row a surface or solid-entry hit in interp mode (one density a
-    step in cube mode), no table beyond its size."""
+    the twin's): 73 B a ray, one accel byte a node step and a cell's 8
+    voxels of the planes (32 B) a surface or solid-entry hit in interp mode
+    (one density a step in cube mode), no table beyond the planes' bytes."""
     rays = hit.hit.numel()
     steps = int(hit.steps.sum())
     rows = int(((hit.kind == 1) | (hit.kind == 2)).sum())
     table = min(steps, tables["accel_u8"].numel())
     if interp:
-        table += min(rows * 32, tables["corners"].numel() * 4)
+        table += min(rows * 32, tables["sdf"].numel() * 4)
     else:
         table += min(4 * steps, tables["sdf"].numel() * 4)
     flops = rays * LANE_FLOPS + steps * STEP_FLOPS + rows * SURFACE_FLOPS
@@ -2731,12 +2762,34 @@ def _one_at_a_time(fn):
     return out
 
 
+def _frame_peak_gb(render, slab):
+    """The card's peak memory (GB, max_memory_allocated from a reset) of
+    this rank over one ``render(slab)`` of a fresh copy of ``slab`` (its
+    tables, packed or not, built inside), after the frame's own buffers
+    were freed."""
+    import dataclasses
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    render(dataclasses.replace(slab))
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
 def _config5_rank(rank, world, td, geometry):
     """One model rank of phase 11's slab frame: its slab of config5 from
     ``td``, the stub scene, the 1080p frames (launches and host clock), the
     160x90 frame, every K7 and slab-resolve launch against its plain version
-    and timed while the other ranks wait, and the halo refresh after rank
-    2's plane edit, against a fresh split of the edited volume."""
+    and against its first design (the packed table), both designs timed
+    (old, new, new, old) while the other ranks wait, with K7's live lanes
+    and SIMT efficiency, the peak memory of a frame on either design, and
+    the halo refresh after rank 2's plane edit, against a fresh split of
+    the edited volume."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -2762,12 +2815,17 @@ def _config5_rank(rank, world, td, geometry):
     scene = default_fit_scene(n, h, ext, light, device=dev)
     out = {"backend": mesh.init_distributed("gloo")}
 
-    def frame(w, hh):
-        return render_slab_image(scene, slab, m, w, hh)
+    def frame(w, hh, sl=None):
+        return render_slab_image(scene, slab if sl is None else sl, m, w, hh)
 
     img, runs, counts, coll_s = _rank_frames(
         lambda: frame(FRAME_W, FRAME_H))
     out.update(frame_s=runs, counts=counts, collective_s=coll_s)
+    # a frame's peak memory on either design (every rank renders together)
+    out["peak_gb"] = {
+        table: _frame_peak_gb(lambda sl: frame(FRAME_W, FRAME_H, sl),
+                              dataclasses.replace(slab, table=table))
+        for table in ("packed", "planes")}
     if rank == 0:
         out["frame"] = img[..., :3].cpu().numpy()
     small = frame(160, 90)
@@ -2792,13 +2850,17 @@ def _config5_rank(rank, world, td, geometry):
         o, d = SlabTracer(sl, group)._object_rays(sc, o_w, d_w)
         return brick.resolve_slab_hits(sl, o, d, hit)
 
+    packed = dataclasses.replace(slab, table="packed")   # the first design
+
     def check():
-        """Every launch against its plain version, the 1080p ones timed;
-        run on this rank while the others wait."""
+        """Every launch against its plain version and its first design,
+        the 1080p ones timed; run on this rank while the others wait."""
         k7 = dict(launches_small=len(held["480x270"][0]), diffs=[],
-                  capped=[], ms=[], plain_ms=[], bounds=[], steps=[])
-        rs = dict(launches_small=len(held["480x270"][1]), diffs=[], ms=[],
-                  plain_ms=[], owned=[], bounds=[])
+                  old_diffs=[], capped=[], ms=[], old_ms=[], plain_ms=[],
+                  bounds=[], steps=[], live=[], simt=[], simt_live=[])
+        rs = dict(launches_small=len(held["480x270"][1]), diffs=[],
+                  old_diffs=[], ms=[], old_ms=[], plain_ms=[], owned=[],
+                  bounds=[])
         for tag, (marches, resolves) in held.items():
             for i, (args, kw, got) in enumerate(marches):
                 start = torch.cuda.Event(enable_timing=True)
@@ -2808,17 +2870,27 @@ def _config5_rank(rank, world, td, geometry):
                 want = plain_march(args, kw)
                 end.record()
                 end.synchronize()
+                old = (packed,) + tuple(args[1:])
                 k7["diffs"].append((tag, i, _hits_equal(got, want)))
+                k7["old_diffs"].append((tag, i, _hits_equal(
+                    got, k1.march_slab_cuda(*old, **kw))))
                 k7["capped"].append(
                     (tag, i, int((got.steps >= MAX_ITERATIONS).sum()),
                      int((want.steps >= MAX_ITERATIONS).sum())))
                 if tag == "1080p":
+                    live = want.steps > 0
+                    k7["live"].append(int(live.sum()))
+                    k7["simt"].append(_simt(want.steps))
+                    k7["simt_live"].append(_simt(want.steps[live]))
                     k7["plain_ms"].append(start.elapsed_time(end))
                     k7["steps"].append(int(want.steps.sum()))
                     k7["bounds"].append(_slab_bound(args[0].march_tables,
                                                     want, args[4]))
-                    k7["ms"].append(device_ms(
-                        lambda: k1.march_slab_cuda(*args, **kw), 10))
+                    olds, news = _paired_ms(
+                        lambda: k1.march_slab_cuda(*old, **kw),
+                        lambda: k1.march_slab_cuda(*args, **kw), 10)
+                    k7["ms"].append(news)
+                    k7["old_ms"].append(olds)
                 del want
             for i, (args, _, got) in enumerate(resolves):
                 with torch.no_grad():
@@ -2834,9 +2906,21 @@ def _config5_rank(rank, world, td, geometry):
                         bad[name] = int((~same).sum())
                 rs["diffs"].append((tag, i, bad))
                 rs["owned"].append((tag, i, int(owned.sum())))
+                # bit-equal to the first design but on the surface hits this
+                # rank does not own (their cells may leave its planes)
+                old = (args[0], packed) + tuple(args[2:])
+                lanes = owned | (hit.kind != 1)
+                rs["old_diffs"].append((tag, i, [
+                    name for name, a, b in zip(
+                        ("t", "normal", "unlit"), got,
+                        kr.resolve_slab_cuda(*old))
+                    if not _nan_equal(a[lanes], b[lanes])]))
                 if tag == "1080p":
-                    rs["ms"].append(device_ms(
-                        lambda: kr.resolve_slab_cuda(*args), 10))
+                    olds, news = _paired_ms(
+                        lambda: kr.resolve_slab_cuda(*old),
+                        lambda: kr.resolve_slab_cuda(*args), 10)
+                    rs["ms"].append(news)
+                    rs["old_ms"].append(olds)
                     rs["plain_ms"].append(device_ms(
                         lambda: plain_resolve(args), 3))
                     rs["bounds"].append(_slab_resolve_bound(hit, sl))
@@ -2846,7 +2930,7 @@ def _config5_rank(rank, world, td, geometry):
     k7, rs = _one_at_a_time(check)
     out.update(k7=k7, resolve=rs, cell_lo=int(slab.cell_lo),
                cell_hi=int(slab.cell_hi))
-    del held, marches, resolves, k7, rs
+    del held, marches, resolves, k7, rs, packed
 
     # the halo refresh: rank 2 edits its plane cell_lo + 1 (in rank 1's
     # right halo); after the exchange every slab is a fresh split's
@@ -2855,8 +2939,6 @@ def _config5_rank(rank, world, td, geometry):
     sdf = slab.sdf.clone()
     if rank == 2:
         sdf[brick.HALO + 1] += pattern
-    import dataclasses
-
     refreshed = brick.exchange_halos(dataclasses.replace(slab, sdf=sdf),
                                      group)
     with np.load(os.path.join(td, f"fresh{rank}.npz")) as f:
@@ -2867,28 +2949,35 @@ def _config5_rank(rank, world, td, geometry):
     return out
 
 
-def _slab_resolve_bound(hit, slab):
-    """The slab resolve's bound from what these hits need, as
-    ``_resolve_bound`` counts it: each distinct row of the slab's f32 table
-    (32 B) that the surface hits' six neighbours name, once."""
+def _slab_voxels(hit, slab, offsets):
+    """The distinct voxels of the slab's planes that the surface hits'
+    cells at ``offsets`` (rows of ``_OFFS7``) read, each once."""
     import torch
 
-    from vrt_torch.dist.brick import slab_corner_index
+    from vrt_torch.dist.brick import _slab_voxel_index
+    from vrt_torch.march import isosurface as iso
+
+    surf = hit.kind == 1
+    dev = hit.cell.device
+    cells = hit.cell[surf][:, None, :] + torch.as_tensor(offsets, device=dev)
+    lin, valid = _slab_voxel_index(
+        slab, cells[..., None, :] + torch.as_tensor(iso.CORNERS, device=dev))
+    return int(torch.unique(lin[valid]).numel())
+
+
+def _slab_resolve_bound(hit, slab):
+    """The slab resolve's bound from what these hits need, as
+    ``_resolve_bound`` counts it, on the planes: each distinct voxel (4 B)
+    of the cells of the surface hits' six neighbours, once."""
     from vrt_torch.march.resolve import _OFFS7
 
     rays = hit.kind.numel()
-    surf = hit.kind == 1
-    n_surf = int(surf.sum())
+    n_surf = int((hit.kind == 1).sum())
     n_solid = int((hit.kind == 2).sum())
     n_debug = int((hit.kind == 5).sum())
-    tb = slab.march_tables
-    cx, cc = tb["corners"].shape[0], tb["corners"].shape[1]
-    cells = hit.cell[surf][:, None, :] + torch.as_tensor(
-        _OFFS7[1:], device=hit.cell.device)
-    idx = slab_corner_index(cells, slab.n, tb["x0"], cx, cc)
-    rows = int(torch.unique(idx[idx >= 0]).numel())
     nbytes = (rays * (8 + 17) + (rays - n_surf - n_debug) * 12
-              + (n_surf + n_solid) * 28 + n_surf * 12 + rows * 32)
+              + (n_surf + n_solid) * 28 + n_surf * 12
+              + 4 * _slab_voxels(hit, slab, _OFFS7[1:]))
     return _bound(nbytes, n_surf * RESOLVE_FLOPS)
 
 
@@ -2917,12 +3006,13 @@ def _sharded_rank(rank, world):
                 counts=counts, collective_s=coll_s)
 
 
-def _config5(dev, card, sync, td):
+def _config5(dev, card, sync, td, ptxas):
     """Phase 11: config5 of ``vrt/apps/scaling.py`` (the 513^3 CSG volume,
     octree accel, ``default_fit_scene``) sharded into 4 x-slabs over 4 model
     ranks, every rank a process on this card joined over gloo; and the
     flagship frame split over 2 data ranks.  The ranks' slabs are written to
-    ``td`` as ``slab<rank>.npz`` (phase 12 reads them again).  Returns
+    ``td`` as ``slab<rank>.npz`` (phase 12 reads them again).  ``ptxas``
+    holds phase 2's register counts (K7's two designs among them).  Returns
     dict(numbers, k7, launches, geometry)."""
     import numpy as np
     import torch
@@ -3015,9 +3105,19 @@ def _config5(dev, card, sync, td):
                              "fixture")
 
     # K7, the slab resolve, the launches, the halo refresh on every rank
-    per_rank = {"k7_ms": [], "k7_plain_ms": [], "resolve_ms": [],
+    per_rank = {"k7_ms": [], "k7_old_ms": [], "k7_plain_ms": [],
+                "resolve_ms": [], "resolve_old_ms": [],
                 "resolve_plain_ms": [], "steps": [], "frame_ms": [],
-                "collective_share": []}
+                "collective_share": [], "live": [], "simt": [],
+                "simt_live": [], "peak_gb": [], "old_peak_gb": []}
+
+    def regs(kernel, threads):
+        got = ptxas.get(kernel)
+        if got is None:
+            return "ptxas: not in this run's log"
+        lo, hi = got["registers"]
+        return (f"{lo}-{hi} registers at {threads} threads a block, warp "
+                f"slots {got['occupancy'][0]:.0%}-{got['occupancy'][1]:.0%}")
     k7_bounds, rs_bounds = [], []
     for r, x in enumerate(ranks):
         c = x["counts"]
@@ -3043,37 +3143,89 @@ def _config5(dev, card, sync, td):
             if bad:
                 raise AssertionError(f"config5 rank {r}: K7 {tag} launch {i}"
                                      f" differs from the twin: {bad}")
+        for tag, i, bad in k7["old_diffs"]:
+            if bad:
+                raise AssertionError(f"config5 rank {r}: K7 {tag} launch {i}"
+                                     f" differs from its first design: "
+                                     f"{bad}")
+        if any(c[2] or c[3] for c in k7["capped"]):
+            raise AssertionError(f"config5 rank {r}: K7 lanes on the step "
+                                 f"cap {k7['capped']}")
         for tag, i, bad in rs["diffs"]:
             if bad:
                 raise AssertionError(f"config5 rank {r}: slab resolve {tag} "
                                      f"{i} differs from its plain version on"
                                      f" owned lanes: {bad}")
+        for tag, i, bad in rs["old_diffs"]:
+            if bad:
+                raise AssertionError(f"config5 rank {r}: slab resolve {tag} "
+                                     f"{i} differs from its first design: "
+                                     f"{bad}")
         if not (x["halo_equal"] and (x["halo_changed"] or r not in (1, 2))):
             raise AssertionError(f"config5 rank {r}: halo refresh equal "
                                  f"{x['halo_equal']}, changed "
                                  f"{x['halo_changed']}")
-        per_rank["k7_ms"].append(sum(k7["ms"]))
+        k7_new = [statistics.mean(t) for t in k7["ms"]]
+        k7_old = [statistics.mean(t) for t in k7["old_ms"]]
+        per_rank["k7_ms"].append(sum(k7_new))
+        per_rank["k7_old_ms"].append(sum(k7_old))
         per_rank["k7_plain_ms"].append(sum(k7["plain_ms"]))
-        per_rank["resolve_ms"].append(sum(rs["ms"]))
+        per_rank["resolve_ms"].append(sum(statistics.mean(t)
+                                          for t in rs["ms"]))
+        per_rank["resolve_old_ms"].append(sum(statistics.mean(t)
+                                              for t in rs["old_ms"]))
         per_rank["resolve_plain_ms"].append(sum(rs["plain_ms"]))
+        per_rank["live"].append(k7["live"])
+        per_rank["simt"].append(k7["simt"])
+        per_rank["simt_live"].append(k7["simt_live"])
+        per_rank["peak_gb"].append(x["peak_gb"]["planes"])
+        per_rank["old_peak_gb"].append(x["peak_gb"]["packed"])
         per_rank["steps"].append(k7["steps"][0])
         per_rank["frame_ms"].append(1e3 * statistics.median(x["frame_s"]))
         per_rank["collective_share"].append(x["collective_s"]
                                             / sum(x["frame_s"]))
         k7_bounds += k7["bounds"]
         rs_bounds += rs["bounds"]
-        print(f"config5 rank {r}: K7 equal to the twin field by field on "
-              f"{len(k7['diffs'])} launches (480x270 and 1080p), lanes on "
-              f"the step cap (kernel, plain) {[c[2:] for c in k7['capped']]};"
-              f" 1080p K7 {_list(k7['ms'])} ms (twin "
-              f"{_list(k7['plain_ms'])}; bound "
-              f"{_list([b['bound_ms'] for b in k7['bounds']])}), primary "
-              f"march steps {k7['steps'][0]}; slab resolve equal on "
-              f"{[o[2] for o in rs['owned']]} owned lanes, "
-              f"{_list(rs['ms'])} ms (plain {_list(rs['plain_ms'])}); halo "
-              f"refresh equal to a fresh split (staged sends "
-              f"{x['staged']})", flush=True)
+        print(f"config5 rank {r}: K7 equal to the twin and to its first "
+              f"design field by field on {len(k7['diffs'])} launches "
+              f"(480x270 and 1080p), lanes on the step cap (kernel, plain) "
+              f"{[c[2:] for c in k7['capped']]}; slab resolve equal to its "
+              f"plain version on {[o[2] for o in rs['owned']]} owned lanes "
+              f"and to its first design bit for bit; halo refresh equal to a "
+              f"fresh split (staged sends {x['staged']}); a 1080p frame's "
+              f"peak memory {x['peak_gb']['planes']:.3f} GB on the planes, "
+              f"{x['peak_gb']['packed']:.3f} GB on the packed table",
+              flush=True)
+        for i, launch in enumerate(("primary", "shadow")):
+            print(f"config5 rank {r} K7 1080p {launch}: live lanes "
+                  f"{k7['live'][i]} of {FRAME_W * FRAME_H}, SIMT efficiency "
+                  f"{k7['simt'][i]:.3f} in launch order, "
+                  f"{k7['simt_live'][i]:.3f} in dense warps of the live "
+                  f"lanes, steps {k7['steps'][i]}; redesign "
+                  f"{_list(k7['ms'][i])} ms "
+                  f"({regs('march_slab_capped_kernel', 64)}), first design "
+                  f"{_list(k7['old_ms'][i])} ms "
+                  f"({regs('march_slab_kernel', 256)}), old, new, new, old; "
+                  f"twin {k7['plain_ms'][i]:.2f} ms; bound "
+                  f"{k7['bounds'][i]['bound_ms']:.4f} ms", flush=True)
+        print(f"config5 rank {r} slab resolve 1080p: planes "
+              f"{_list(rs['ms'][0])} ms, packed table "
+              f"{_list(rs['old_ms'][0])} ms (old, new, new, old); plain "
+              f"{_list(rs['plain_ms'])} ms; bound "
+              f"{rs['bounds'][0]['bound_ms']:.4f} ms", flush=True)
     k7_bound, rs_bound = _sum_bounds(k7_bounds), _sum_bounds(rs_bounds)
+    k7_new, k7_old = sum(per_rank["k7_ms"]), sum(per_rank["k7_old_ms"])
+    print(f"config5 K7 over the {CONFIG5_RANKS} ranks' 1080p frame: "
+          f"redesign {k7_new:.4f} ms = "
+          f"{k7_bound['bound_ms'] / k7_new:.0%} of the bound "
+          f"{k7_bound['bound_ms']:.4f} ms, first design {k7_old:.4f} ms = "
+          f"{k7_bound['bound_ms'] / k7_old:.0%}; slab resolve "
+          f"{sum(per_rank['resolve_ms']):.4f} ms on the planes, "
+          f"{sum(per_rank['resolve_old_ms']):.4f} ms on the packed table",
+          flush=True)
+    if not k7_new <= k7_old:
+        raise AssertionError(f"K7's redesign ({k7_new:.4f} ms) is slower "
+                             f"than its first design ({k7_old:.4f} ms)")
     steps = per_rank["steps"]
     print(f"config5 per-rank primary march steps {steps} (max/mean "
           f"{max(steps) / (sum(steps) / len(steps)):.3f}); frame host median "
@@ -3119,9 +3271,16 @@ def _config5(dev, card, sync, td):
         collective_share_by_rank=per_rank["collective_share"],
         primary_march_steps_by_rank=steps,
         k7_ms_by_rank=per_rank["k7_ms"],
+        k7_old_design_ms_by_rank=per_rank["k7_old_ms"],
         k7_plain_ms_by_rank=per_rank["k7_plain_ms"],
+        k7_live_lanes_by_rank=per_rank["live"],
+        k7_simt_by_rank=per_rank["simt"],
+        k7_simt_live_lanes_by_rank=per_rank["simt_live"],
         slab_resolve_ms_by_rank=per_rank["resolve_ms"],
+        slab_resolve_old_design_ms_by_rank=per_rank["resolve_old_ms"],
         slab_resolve_plain_ms_by_rank=per_rank["resolve_plain_ms"],
+        slab_frame_peak_gb_by_rank=per_rank["peak_gb"],
+        slab_frame_old_design_peak_gb_by_rank=per_rank["old_peak_gb"],
         vs_replicated=dict(within_1e5=within, max=worst, beyond_025=beyond),
         fixture_160x90=dict(q90=q90, mean=mean, off_01=outl),
         sharded_frame_host_median_ms=1e3 * statistics.median(
@@ -3130,12 +3289,13 @@ def _config5(dev, card, sync, td):
         / sum(sharded[0]["frame_s"]))
     return dict(numbers=numbers, launches=c5, sharded_launches=sh_launches,
                 geometry=geometry,
-                k7=dict(ms=sum(per_rank["k7_ms"]),
-                        per_rank_ms=per_rank["k7_ms"],
+                k7=dict(ms=k7_new, per_rank_ms=per_rank["k7_ms"],
+                        old_ms=k7_old, per_rank_old_ms=per_rank["k7_old_ms"],
                         plain_ms=sum(per_rank["k7_plain_ms"]),
                         per_rank_plain_ms=per_rank["k7_plain_ms"],
                         bound=k7_bound),
                 resolve=dict(ms=sum(per_rank["resolve_ms"]),
+                             old_ms=sum(per_rank["resolve_old_ms"]),
                              plain_ms=sum(per_rank["resolve_plain_ms"]),
                              bound=rs_bound))
 
@@ -3151,6 +3311,16 @@ SLABFIT_STEPS = 3
 CROSSED_RESOLUTION = 7    # 129^3: the crossed step against the 1x2 step
 DP_RANKS = 2              # data ranks of config6's DP step
 SCALING_TIMEOUT = 600
+# the kernel of the first design's table pack (torch.stack of 8 strided
+# slices) as the profiler names it; the step's other cats and stacks run it
+# too, on a few MB, so a step whose such kernels take this long in all
+# (ms of device time) packs a table (config5's pack takes ~25 ms of a
+# profile with 4 ranks sharing the card); its backward runs as strided
+# copies of the generic elementwise kernel, which no name tells apart
+PACK_KERNEL, PACK_KERNEL_MS = "CatArrayBatchedCopy", 1.0
+# a rank's peak memory in a slab fit step on the planes lies this far below
+# the first design's at least (the 1.1 GB table and its 1.1 GB gradient)
+SLABFIT_PEAK_GAIN_GB = 1.5
 
 
 class _PlainSlabResolve:
@@ -3159,7 +3329,7 @@ class _PlainSlabResolve:
     card."""
 
     @staticmethod
-    def apply(o_w, d_w, corners, scene, slab, hit, inst):
+    def apply(o_w, d_w, table, scene, slab, hit, inst):
         from vrt_torch.dist import brick
         from vrt_torch.render.renderer import _world_to_object
 
@@ -3221,8 +3391,9 @@ def _grad_gates(got, want):
 def _busy_ms(fn, top=6):
     """Device busy time in ms of one ``fn()`` from torch.profiler (the sum
     of its kernels' device time; ranks that share the card stretch each
-    other's kernels) and its ``top`` kernels as (ms, count, name), or
-    (None, []) where the profiler saw none."""
+    other's kernels), its ``top`` kernels as (ms, count, name) and all of
+    them as (ms, count, full name), or (None, [], []) where the profiler
+    saw none."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3232,38 +3403,31 @@ def _busy_ms(fn, top=6):
         torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key[:70])
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), reverse=True)
     busy = sum(r[0] for r in rows)
-    return (busy or None), rows[:top]
+    return (busy or None), [(ms, n, key[:70]) for ms, n, key in rows[:top]], \
+        rows
 
 
 def _slab_resolve_bwd_bound(hit, slab, rays_grad):
     """The slab backward's bound from what these hits need, as
-    ``_resolve_bwd_bound`` counts it: per ray the kind (4 B) and, with
-    ``rays_grad``, the ray gradients written (24 B); the ray, its instance
-    and g_t (32 B) on surface and solid-entry hits; t, the cell and
-    g_normal (28 B) on surface hits; each distinct row of the slab's f32
-    table (32 B) that the hit cell and its six neighbours name, once; the
-    [cx*cc*cc, 8] f32 accumulator written once."""
-    import torch
-
-    from vrt_torch.dist.brick import slab_corner_index
+    ``_resolve_bwd_bound`` counts it, for the work the op does (the
+    planes' gradient): per ray the kind (4 B) and, with ``rays_grad``, the
+    ray gradients written (24 B); the ray, its instance and g_t (32 B) on
+    surface and solid-entry hits; t, the cell and g_normal (28 B) on
+    surface hits; each distinct voxel of the planes (4 B) that the hit
+    cell and its six neighbours read, once; the f32 gradient of the planes
+    [span, N, N] written once."""
     from vrt_torch.march.resolve import _OFFS7
 
     rays = hit.kind.numel()
-    surf = hit.kind == 1
-    n_surf = int(surf.sum())
+    n_surf = int((hit.kind == 1).sum())
     n_solid = int((hit.kind == 2).sum())
-    tb = slab.march_tables
-    cx, cc = tb["corners"].shape[0], tb["corners"].shape[1]
-    cells = hit.cell[surf][:, None, :] + torch.as_tensor(
-        _OFFS7, device=hit.cell.device)
-    idx = slab_corner_index(cells, slab.n, tb["x0"], cx, cc)
-    rows = int(torch.unique(idx[idx >= 0]).numel())
     nbytes = (rays * (4 + 24 * int(rays_grad)) + (n_surf + n_solid) * 32
-              + n_surf * 28 + rows * 32 + cx * cc * cc * 8 * 4)
+              + n_surf * 28 + 4 * _slab_voxels(hit, slab, _OFFS7)
+              + slab.sdf.numel() * 4)
     return _bound(nbytes, n_surf * RESOLVE_BWD_FLOPS)
 
 
@@ -3284,14 +3448,16 @@ def _r5_volume():
 
 def _slabfit_rank(rank, world, td, geometry, geometry7):
     """One rank of phase 12's slab fit world (4 ranks on this card, gloo):
-    config5's 513^3 slab fit step (``scaling.py``'s traffic) after a
-    warm-up, timed from a barrier with its launches, collectives and peak
-    memory; the slab resolve's backward launch of one step against autograd
-    of ``resolve_slab_hits`` and the closed form, timed while the other
-    ranks wait; the step's plane gradients against the same step on the
-    plain slab resolve; the 12x12 step of ``SLAB_FIT_FIXTURE``; and over a
-    2x2 mesh the crossed step at 129^3 against the 1x2 step on the same
-    rays."""
+    config5's 513^3 slab fit step (``scaling.py``'s traffic) on the first
+    design (the packed table) and on the planes, old, new, new, old, each
+    after a warm-up, timed from a barrier with its launches, collectives,
+    peak memory and a profile; the slab resolve's backward launch of one
+    step against autograd of ``resolve_slab_hits``, the closed form and
+    the first design, both designs timed while the other ranks wait, with
+    the first design's pack and pack backward; the step's plane gradients
+    against the same step on the plain slab resolve; the 12x12 step of
+    ``SLAB_FIT_FIXTURE``; and over a 2x2 mesh the crossed step at 129^3
+    against the 1x2 step on the same rays."""
     import dataclasses
 
     import numpy as np
@@ -3339,31 +3505,52 @@ def _slabfit_rank(rank, world, td, geometry, geometry7):
     opt = adam(SLABFIT_LR)
     step = make_slab_fit_step(m, opt, scene)
     params0 = slab.sdf.clone()
-    box = dict(params=params0.clone(), state=opt.init(params0))
 
-    def one():
-        box["params"], box["state"], loss = step(box["params"], box["state"],
-                                                 slab, om, dm, targets)
-        return loss
+    def stepper(table):
+        """One step on ``table`` at a time, from the planes ``params0``."""
+        sl = dataclasses.replace(slab, table=table)
+        box = dict(params=params0.clone(), state=opt.init(params0))
 
-    losses = [float(one())]                   # warm-up
-    torch.cuda.synchronize()
-    _rank_zero_counts()
-    torch.cuda.reset_peak_memory_stats()
-    runs = []
-    for _ in range(SLABFIT_STEPS):
-        dist.barrier()
-        t0 = time.perf_counter()
-        loss = one()
+        def one():
+            box["params"], box["state"], loss = step(
+                box["params"], box["state"], sl, om, dm, targets)
+            return loss
+
+        return one, box
+
+    def side(table):
+        """The step on ``table``: a warm-up, SLABFIT_STEPS timed steps
+        (peak memory from a reset after the warm-up, the table packs among
+        them counted) and a profiled one."""
+        one, box = stepper(table)
+        losses = [float(one())]               # warm-up
         torch.cuda.synchronize()
-        runs.append(time.perf_counter() - t0)
-        losses.append(float(loss))
-    out = dict(step_s=runs, losses=losses, counts=_rank_counts(),
-               collective_s=mesh.STATS["seconds"],
-               peak_bytes=torch.cuda.max_memory_allocated(),
-               moved=float((box["params"] != params0).float().mean()),
-               cell_lo=int(slab.cell_lo), cell_hi=int(slab.cell_hi))
-    out["busy_ms"], out["busy_top"] = _busy_ms(one)
+        _rank_zero_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        with _counting(brick, "_pack_slab_corners") as packs:
+            for _ in range(SLABFIT_STEPS):
+                dist.barrier()
+                t0 = time.perf_counter()
+                loss = one()
+                torch.cuda.synchronize()
+                runs.append(time.perf_counter() - t0)
+                losses.append(float(loss))
+        res = dict(table=table, step_s=runs, losses=losses,
+                   counts=_rank_counts(), collective_s=mesh.STATS["seconds"],
+                   peak_bytes=torch.cuda.max_memory_allocated(),
+                   moved=float((box["params"] != params0).float().mean()),
+                   packs=packs[0])
+        res["busy_ms"], res["busy_top"], rows = _busy_ms(one)
+        res["cat_ms"] = sum(ms for ms, _, key in rows if PACK_KERNEL in key)
+        return res
+
+    out = dict(cell_lo=int(slab.cell_lo), cell_hi=int(slab.cell_hi),
+               sides=[side(t) for t in ("packed", "planes", "planes",
+                                        "packed")])
+    torch.cuda.empty_cache()
+    one, _ = stepper("planes")
 
     # the slab resolve's forward and backward launches of one step
     with _recording(kr, "resolve_slab_cuda") as fwds, \
@@ -3375,15 +3562,15 @@ def _slabfit_rank(rank, world, td, geometry, geometry7):
                              f"resolves and {len(bwds)} backwards a step")
 
     def check():
-        (fargs, _, _), (bargs, bkw, (_, _, acc)) = fwds[0], bwds[0]
+        (fargs, _, _), (bargs, bkw, (_, _, got)) = fwds[0], bwds[0]
         sc, sl, o_w, d_w, hit, inst = fargs
         g_t, g_n = bargs[6], bargs[7]
         lanes = (g_t != 0) | (g_n != 0).any(dim=-1)
-        # the kernel's table gradient carried to the planes by the pack
-        planes = sl.sdf.detach().clone().requires_grad_(True)
-        brick._pack_slab_corners(planes).backward(
-            acc.reshape(sl.march_tables["corners"].shape))
-        got = planes.grad
+        # the first design: the packed table of the same planes (pargs with
+        # the ray gradients, as_step as the step asks)
+        pk = dataclasses.replace(sl, sdf=sl.sdf.detach(), table="packed")
+        pargs = (bargs[0], pk) + tuple(bargs[2:8])
+        as_step = (bargs[0], pk) + tuple(bargs[2:])
         # autograd of resolve_slab_hits on the lanes with a cotangent
         planes2 = sl.sdf.detach().clone().requires_grad_(True)
         sub = MarchHit(**{f.name: (None if getattr(hit, f.name) is None
@@ -3394,43 +3581,51 @@ def _slabfit_rank(rank, world, td, geometry, geometry7):
         t, nrm, _ = brick.resolve_slab_hits(
             dataclasses.replace(sl, sdf=planes2), ob, db, sub)
         ((t * g_t[lanes]).sum() + (nrm * g_n[lanes]).sum()).backward()
-        # the closed form summed in float64
-        w_o, w_d, acc64 = brick.resolve_slab_backward_reference(
+        # the closed form into the planes, summed in float64
+        w_o, w_d, want64 = brick.resolve_slab_backward_reference(
             sc, sl, o_w, d_w, hit, g_t, g_n, acc_dtype=torch.float64)
-        planes3 = sl.sdf.detach().double().requires_grad_(True)
-        brick._pack_slab_corners(planes3).backward(
-            acc64.reshape(sl.march_tables["corners"].shape))
-        del acc64
         res = {}
         for name, want in (("autograd", planes2.grad),
-                           ("closed_form_f64", planes3.grad)):
+                           ("closed_form_f64", want64)):
             scale = want.abs().max().item()
             res[f"table_err_{name}"] = (
                 (got.double() - want.double()).abs().max().item() / scale
                 if scale else float("nan"))
-        # the ray gradients (the step asks for none: rays need no gradient)
+        del want64
+        # the ray gradients (the step asks for none: rays need no
+        # gradient), against the packed table's two designs
         g_o, g_d, _ = kr.resolve_slab_backward_cuda(
             sc, sl, o_w, d_w, hit, inst, g_t, g_n, table_grad=False)
-        o_old, d_old, acc_old = kr.resolve_slab_backward_cuda(
-            sc, sl, o_w, d_w, hit, inst, g_t, g_n, _old_design=True)
+        o_old, d_old, acc_old = kr.resolve_slab_backward_cuda(*pargs)
+        o_first, d_first, _ = kr.resolve_slab_backward_cuda(
+            *pargs, _old_design=True)
         res["ray_err"] = max(
             (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
             for a, b in ((g_o, w_o), (g_d, w_d)))
-        res["ray_bit_equal_old"] = bool(torch.equal(g_o, o_old)
-                                        and torch.equal(g_d, d_old))
-        res["table_diff_old"] = ((acc_old - acc).abs().max().item()
-                                 / max(acc.abs().max().item(), 1e-30))
-        del acc_old
+        res["ray_bit_equal_old"] = all(
+            torch.equal(a, b) for a, b in ((g_o, o_old), (g_d, d_old),
+                                           (g_o, o_first), (g_d, d_first)))
+        # the first design's table gradient through the pack's backward
+        planes = pk.sdf.clone().requires_grad_(True)
+        corners = brick._pack_slab_corners(planes)
+        cot = acc_old.reshape(corners.shape)
+        torch.autograd.backward(corners, cot, retain_graph=True)
+        res["table_diff_old"] = ((planes.grad - got).abs().max().item()
+                                 / max(got.abs().max().item(), 1e-30))
         res["owned_lanes"] = int(lanes.sum())
-        res["ms"] = device_ms(
+        res["old_ms"], res["ms"] = _paired_ms(
+            lambda: kr.resolve_slab_backward_cuda(*as_step, **bkw),
             lambda: kr.resolve_slab_backward_cuda(*bargs, **bkw), 10)
-        res["old_ms"] = device_ms(lambda: kr.resolve_slab_backward_cuda(
-            *bargs, **bkw, _old_design=True), 10)
+        res["pack_ms"] = device_ms(
+            lambda: brick._pack_slab_corners(pk.sdf), 10)
+        res["pack_bwd_ms"] = device_ms(lambda: torch.autograd.grad(
+            corners, planes, cot, retain_graph=True), 10)
+        del corners, cot, acc_old, planes, pk, pargs, as_step
         res["plain_ms"] = device_ms(
             lambda: brick.resolve_slab_backward_reference(
                 sc, sl, o_w, d_w, hit, g_t, g_n), 3)
         res["bound"] = _slab_resolve_bwd_bound(hit, sl, bargs[8])
-        res["rows"] = int(acc.shape[0])
+        res["shape"] = list(got.shape)
         return res
 
     out["bwd"] = _one_at_a_time(check)
@@ -3559,7 +3754,7 @@ def _dp_rank(rank, world):
     out = dict(step_s=runs, losses=losses, counts=_rank_counts(),
                collective_s=mesh.STATS["seconds"],
                peak_bytes=torch.cuda.max_memory_allocated())
-    out["busy_ms"], out["busy_top"] = _busy_ms(one)
+    out["busy_ms"], out["busy_top"], _ = _busy_ms(one)
     rec = _RecordingOptimizer(sgd(1e-2))
     p1, _, loss1 = make_fit_step_dp(RenderMode(), m, rec)(
         dict(params0), rec.init(params0), scene, o, d, targets)
@@ -3610,47 +3805,72 @@ def _slabfit(dev, card, sync, td, geometry):
                   slab_resolve=steps, resolve_bwd=steps,
                   slab_resolve_bwd=steps, surface=steps, combine=steps,
                   surface_bwd=steps, combine_bwd=steps, gather=0, scatter=0)
-    per_rank = {"step_ms": [], "collective_share": [], "peak_gb": [],
-                "busy_ms": [], "bwd_ms": [], "bwd_old_ms": [],
-                "bwd_plain_ms": []}
+    per_rank = {"step_ms": [], "old_step_ms": [], "collective_share": [],
+                "peak_gb": [], "old_peak_gb": [], "busy_ms": [],
+                "old_busy_ms": [], "bwd_ms": [], "bwd_old_ms": [],
+                "pack_ms": [], "pack_bwd_ms": [], "bwd_plain_ms": []}
     bwd_bounds, bwd_err, ray_err = [], 0.0, 0.0
-    slab_launches = {}
+    slab_launches = {}          # the first step on the planes, every rank
     for r, x in enumerate(ranks):
-        seen = {k: x["counts"][k] for k in want_c}
-        for k, v in seen.items():
+        by = {"planes": [], "packed": []}
+        for sd in x["sides"]:
+            seen = {k: sd["counts"][k] for k in want_c}
+            by[sd["table"]].append(sd)
+            step_ms = [1e3 * t for t in sd["step_s"]]
+            share = sd["collective_s"] / sum(sd["step_s"])
+            print(f"slab fit rank {r} (cells [{x['cell_lo']}, "
+                  f"{x['cell_hi']})) on the {sd['table']} table: steps "
+                  f"{_list(step_ms)} ms (host, from a barrier), collectives "
+                  f"{sd['collective_s']:.4f}s = {share:.1%}; peak "
+                  f"max_memory_allocated {sd['peak_bytes'] / 1e9:.3f} GB; "
+                  f"busy {sd['busy_ms']} ms a step; table packs "
+                  f"{sd['packs']} over {steps} steps, {PACK_KERNEL} "
+                  f"{sd['cat_ms']:.3f} ms of the profiled step; losses "
+                  f"{', '.join(f'{v:.6f}' for v in sd['losses'])} (warm-up "
+                  f"first); {sd['moved']:.4%} of the planes moved; launches "
+                  f"over {steps} steps {seen}; collectives "
+                  f"{sd['counts']['collectives']}", flush=True)
+            for ms, count, key in sd["busy_top"]:
+                print(f"  slab fit rank {r} profile ({sd['table']}): "
+                      f"{ms:8.3f} ms {count:4d}x {key}", flush=True)
+            if seen != want_c:
+                raise AssertionError(f"slab fit rank {r} ({sd['table']}): "
+                                     f"launches {seen}, expected {want_c}")
+            if not (np.isfinite(sd["losses"]).all() and sd["moved"] > 0):
+                raise AssertionError(f"slab fit rank {r}: losses "
+                                     f"{sd['losses']}, moved {sd['moved']}")
+        new, old = by["planes"], by["packed"]
+        if any(sd["packs"] or sd["cat_ms"] >= PACK_KERNEL_MS for sd in new) \
+                or any(sd["packs"] != steps for sd in old):
+            raise AssertionError(
+                f"slab fit rank {r}: table packs on the planes "
+                f"{[(sd['packs'], sd['cat_ms']) for sd in new]} (packs, "
+                f"{PACK_KERNEL} ms), on the packed table "
+                f"{[(sd['packs'], sd['cat_ms']) for sd in old]}")
+        peak = max(sd["peak_bytes"] for sd in new) / 1e9
+        old_peak = min(sd["peak_bytes"] for sd in old) / 1e9
+        print(f"slab fit rank {r}: peak {peak:.3f} GB on the planes, "
+              f"{old_peak:.3f} GB on the packed table ({old_peak - peak:.3f}"
+              f" GB less, >= {SLABFIT_PEAK_GAIN_GB})", flush=True)
+        if not old_peak - peak >= SLABFIT_PEAK_GAIN_GB:
+            raise AssertionError(f"slab fit rank {r}: peak {peak:.3f} GB on "
+                                 f"the planes against {old_peak:.3f} GB")
+        for k, v in {k: new[0]["counts"][k] for k in want_c}.items():
             slab_launches[k] = slab_launches.get(k, 0) + v
-        step_ms = [1e3 * t for t in x["step_s"]]
-        share = x["collective_s"] / sum(x["step_s"])
-        print(f"slab fit rank {r} (cells [{x['cell_lo']}, {x['cell_hi']})):"
-              f" steps {_list(step_ms)} ms (host, from a barrier), "
-              f"collectives {x['collective_s']:.4f}s = {share:.1%}; peak "
-              f"max_memory_allocated {x['peak_bytes'] / 1e9:.2f} GB; busy "
-              f"{x['busy_ms']} ms a step; losses "
-              f"{', '.join(f'{v:.6f}' for v in x['losses'])} (warm-up "
-              f"first); {x['moved']:.4%} of the planes moved; launches over "
-              f"{steps} steps {seen}; collectives "
-              f"{x['counts']['collectives']}", flush=True)
-        if r == 0:
-            for ms, count, key in x["busy_top"]:
-                print(f"  slab fit rank 0 profile: {ms:8.3f} ms {count:4d}x "
-                      f"{key}", flush=True)
-        if seen != want_c:
-            raise AssertionError(f"slab fit rank {r}: launches {seen}, "
-                                 f"expected {want_c}")
-        if not (np.isfinite(x["losses"]).all() and x["moved"] > 0):
-            raise AssertionError(f"slab fit rank {r}: losses "
-                                 f"{x['losses']}, moved {x['moved']}")
         b = x["bwd"]
         print(f"slab fit rank {r}: slab resolve backward on "
-              f"{b['owned_lanes']} owned lanes, [{b['rows']}, 8] f32 "
-              f"accumulator: planes vs autograd of resolve_slab_hits "
+              f"{b['owned_lanes']} owned lanes into the planes' f32 gradient "
+              f"{b['shape']}: vs autograd of resolve_slab_hits "
               f"{b['table_err_autograd']:.2e}, vs the closed form in "
               f"float64 {b['table_err_closed_form_f64']:.2e} of max|g| "
               f"(< {SCATTER_RTOL}); ray gradients {b['ray_err']:.2e} "
-              f"(< {RAY_GRAD_RTOL}), bit-equal to the first design "
-              f"{b['ray_bit_equal_old']}, its table "
-              f"{b['table_diff_old']:.2e}; {b['ms']:.4f} ms (first design "
-              f"{b['old_ms']:.4f}, closed form {b['plain_ms']:.4f}, bound "
+              f"(< {RAY_GRAD_RTOL}), bit-equal to the packed table's two "
+              f"designs {b['ray_bit_equal_old']}, the packed table's "
+              f"gradient through the pack {b['table_diff_old']:.2e}; "
+              f"{_list(b['ms'])} ms (the packed table "
+              f"{_list(b['old_ms'])}, old, new, new, old; its pack "
+              f"{b['pack_ms']:.4f} and pack backward {b['pack_bwd_ms']:.4f};"
+              f" closed form {b['plain_ms']:.4f}, bound "
               f"{b['bound']['bound_ms']:.4f} by {b['bound']['bound_by']})",
               flush=True)
         if not (b["table_err_autograd"] <= SCATTER_RTOL
@@ -3671,12 +3891,21 @@ def _slabfit(dev, card, sync, td, geometry):
                 <= FIT_LOSS_RTOL * abs(vp["plain_loss"])):
             raise AssertionError(f"slab fit rank {r}: the step disagrees "
                                  f"with the plain slab resolve's: {vp}")
-        per_rank["step_ms"].append(statistics.median(step_ms))
-        per_rank["collective_share"].append(share)
-        per_rank["peak_gb"].append(x["peak_bytes"] / 1e9)
-        per_rank["busy_ms"].append(x["busy_ms"])
-        per_rank["bwd_ms"].append(b["ms"])
-        per_rank["bwd_old_ms"].append(b["old_ms"])
+        per_rank["step_ms"].append(statistics.median(
+            1e3 * t for sd in new for t in sd["step_s"]))
+        per_rank["old_step_ms"].append(statistics.median(
+            1e3 * t for sd in old for t in sd["step_s"]))
+        per_rank["collective_share"].append(
+            sum(sd["collective_s"] for sd in new)
+            / sum(sum(sd["step_s"]) for sd in new))
+        per_rank["peak_gb"].append(peak)
+        per_rank["old_peak_gb"].append(old_peak)
+        per_rank["busy_ms"].append([sd["busy_ms"] for sd in new])
+        per_rank["old_busy_ms"].append([sd["busy_ms"] for sd in old])
+        per_rank["bwd_ms"].append(statistics.mean(b["ms"]))
+        per_rank["bwd_old_ms"].append(statistics.mean(b["old_ms"]))
+        per_rank["pack_ms"].append(b["pack_ms"])
+        per_rank["pack_bwd_ms"].append(b["pack_bwd_ms"])
         per_rank["bwd_plain_ms"].append(b["plain_ms"])
         bwd_bounds.append(b["bound"])
         bwd_err = max(bwd_err, b["table_err_autograd"],
@@ -3796,9 +4025,15 @@ def _slabfit(dev, card, sync, td, geometry):
     numbers = dict(
         card=card, slab_fit_step_host_median_ms_by_rank=per_rank["step_ms"],
         slab_fit_step_host_median_ms=statistics.median(per_rank["step_ms"]),
+        slab_fit_old_design_step_host_median_ms_by_rank=per_rank[
+            "old_step_ms"],
         slab_fit_collective_share_by_rank=per_rank["collective_share"],
         slab_fit_peak_gb_by_rank=per_rank["peak_gb"],
+        slab_fit_old_design_peak_gb_by_rank=per_rank["old_peak_gb"],
         slab_fit_busy_ms_by_rank=per_rank["busy_ms"],
+        slab_fit_old_design_busy_ms_by_rank=per_rank["old_busy_ms"],
+        slab_pack_ms_by_rank=per_rank["pack_ms"],
+        slab_pack_backward_ms_by_rank=per_rank["pack_bwd_ms"],
         slab_fit_world_s=world_s,
         fixture_12x12=dict(one_minus_cos=cos12, diff=diff12, loss=loss12,
                            vrt_loss=float(fix["loss"]),
@@ -3820,6 +4055,9 @@ def _slabfit(dev, card, sync, td, geometry):
                 bwd=dict(ms=sum(per_rank["bwd_ms"]),
                          per_rank_ms=per_rank["bwd_ms"],
                          old_ms=sum(per_rank["bwd_old_ms"]),
+                         per_rank_old_ms=per_rank["bwd_old_ms"],
+                         pack_ms=sum(per_rank["pack_ms"]),
+                         pack_bwd_ms=sum(per_rank["pack_bwd_ms"]),
                          plain_ms=sum(per_rank["bwd_plain_ms"]),
                          max_abs_err=bwd_err, ray_err=ray_err,
                          bound=_sum_bounds(bwd_bounds)))
@@ -3896,6 +4134,8 @@ def main():
     ptxas = {}
     for name, log, kernel, threads in (
             ("K1 (march.cu)", "K1 (march.cu)", "march_kernel", 256),
+            ("K7 (march.cu)", "K1 (march.cu)", "march_slab_capped_kernel",
+             64),
             ("K7 (march.cu)", "K1 (march.cu)", "march_slab_kernel", 256),
             ("K1 (march.cu)", "K1 (march.cu)", "march_scene_capped_kernel", 64),
             ("K1 (march.cu)", "K1 (march.cu)", "march_scene_kernel", 256),
@@ -4626,7 +4866,7 @@ def main():
     import tempfile
 
     with tempfile.TemporaryDirectory() as td:
-        c5 = _config5(dev, card, sync, td)
+        c5 = _config5(dev, card, sync, td, ptxas)
         sf = _slabfit(dev, card, sync, td, c5["geometry"])
 
     # ---- the yardsticks of the shade kernels, after every phase
@@ -4751,14 +4991,21 @@ def main():
          "launches_by_path": {"config5": c5["launches"]["k7"],
                               "slab_fit_steps": sf["launches"]["k7"]},
          "max_abs_err": 0.0,
+         "path": "the redesign (march_slab_capped_kernel over the slab's "
+                 "planes); old_design_ms: the first design "
+                 "(march_slab_kernel over the packed table), old, new, new, "
+                 "old in the same call, equal field by field",
          # one 1080p frame's launches (primary and shadow) on each of the
          # 4 ranks, each rank timed alone; ms, plain_ms and the bound are
          # the sums over the ranks
          "ms": c5["k7"]["ms"], "per_rank_ms": c5["k7"]["per_rank_ms"],
+         "old_design_ms": c5["k7"]["old_ms"],
+         "per_rank_old_design_ms": c5["k7"]["per_rank_old_ms"],
          "plain_ms": c5["k7"]["plain_ms"],
          "per_rank_plain_ms": c5["k7"]["per_rank_plain_ms"],
          **bound_keys(c5["k7"]["bound"]), "library_ms": None,
-         "ptxas": ptxas.get("march_slab_kernel")},
+         "ptxas": {k: ptxas.get(k) for k in ("march_slab_capped_kernel",
+                                              "march_slab_kernel")}},
         {"name": "fused resolve", "route": "cuda",
          "source": "vrt_torch/csrc/resolve.cu",
          "replaces": "vrt/march/resolve.py:61 (resolve_hits under "
@@ -4804,6 +5051,7 @@ def main():
          # summed over the 4 ranks, each timed alone
          "config5": {"launches": c5["launches"]["slab_resolve"],
                      "ms": c5["resolve"]["ms"],
+                     "old_design_ms": c5["resolve"]["old_ms"],
                      "plain_ms": c5["resolve"]["plain_ms"],
                      **bound_keys(c5["resolve"]["bound"])}},
         {"name": "fused resolve backward", "route": "cuda",
@@ -4836,23 +5084,31 @@ def main():
          "replaces": "vrt/dist/brick.py:329 (XLA's transpose of "
                      "resolve_slab_hits and its voxel fetch _slab_fetch "
                      ":115: no Pallas kernel)",
-         "path": "the kSlab variants of the merged backward over one "
-                 "rank's slab table (ResolveSlab): config5's 513^3 slab "
-                 "fit step, one launch a rank a step",
+         "path": "the planes variant of the merged backward, into an f32 "
+                 "gradient of one rank's planes (ResolveSlab over the "
+                 "planes): config5's 513^3 slab fit step, one launch a rank "
+                 "a step; old_design_ms: the first design (the kSlab "
+                 "variant into the packed table's 1.1 GB accumulator), old, "
+                 "new, new, old, with its table's pack and pack backward "
+                 "beside it",
          "launches": sf["launches"]["slab_resolve_bwd"],
          "launches_by_path": {"slab_fit_steps":
                               sf["launches"]["slab_resolve_bwd"]},
          "max_abs_err": sf["bwd"]["max_abs_err"],
-         "max_abs_err_is": "the planes' gradient through the pack against "
-                           "autograd of resolve_slab_hits and the closed "
-                           "form in float64, over their largest |g|",
+         "max_abs_err_is": "the planes' gradient against autograd of "
+                           "resolve_slab_hits and the closed form in "
+                           "float64, over their largest |g|",
          "max_ray_grad_err_over_max": sf["bwd"]["ray_err"],
          # one step's launch on each of the 4 ranks, each timed alone; the
          # sums over the ranks
          "ms": sf["bwd"]["ms"], "per_rank_ms": sf["bwd"]["per_rank_ms"],
          "plain_ms": sf["bwd"]["plain_ms"],
          "old_design_ms": sf["bwd"]["old_ms"],
-         **bound_keys(sf["bwd"]["bound"]), "library_ms": None},
+         "per_rank_old_design_ms": sf["bwd"]["per_rank_old_ms"],
+         "old_design_pack_ms": sf["bwd"]["pack_ms"],
+         "old_design_pack_backward_ms": sf["bwd"]["pack_bwd_ms"],
+         **bound_keys(sf["bwd"]["bound"]), "library_ms": None,
+         "ptxas": ptxas.get("resolve_bwd_merged_kernel")},
         *({"name": f"K4 shade {stage}", "route": "cuda",
            "source": "vrt_torch/csrc/shade.cu",
            "replaces": replaces,

@@ -14,7 +14,13 @@
 - with no hook the twin's loop gives ``march_lanes_reference``'s results
   of the tree before the hooks, bit for bit
   (``tests/fixtures/march_twin_r4_hooks_off.npz``, written by
-  ``write_twin_fixture`` there).
+  ``write_twin_fixture`` there);
+- the slab resolve's closed-form backward into the planes
+  (``resolve_slab_backward_reference`` on the default table) equals
+  ``jax.grad`` of ``vrt``'s ``resolve_slab_hits`` in the planes and the
+  rays, and the first design's table gradient carried to the planes by the
+  pack's backward, within 1e-5 of the largest |g|; the ``table`` choice
+  packs a corner table only for ``"packed"``.
 """
 
 import dataclasses
@@ -372,6 +378,158 @@ def test_resolve_slab_hits_matches_vrt():
         np.testing.assert_allclose(got[1].numpy()[owned],
                                    np.asarray(want[1])[owned], rtol=1e-3,
                                    atol=1e-4, equal_nan=True)
+    assert lanes > 50
+
+
+def test_slab_tables_pack_only_the_first_design():
+    """A slab on its planes (the default) holds no corner table and
+    resolves through its planes; ``table="packed"`` packs the table of the
+    first design from them, ``pack_cell_corners``' rows; another name is
+    refused."""
+    _, tv = _volumes(4)
+    slab = brick.shard_volume(tv, 2).local(1, "cpu")
+    assert slab.table == "planes"
+    assert "corners" not in slab.march_tables
+    assert slab.resolve_table is slab.sdf
+    packed = dataclasses.replace(slab, table="packed")
+    corners = packed.march_tables["corners"]
+    assert packed.resolve_table is corners
+    span, nn = slab.sdf.shape[0], slab.sdf.shape[-1]
+    assert corners.shape == (span - 1, nn - 1, nn - 1, 8)
+    for j, (dx, dy, dz) in enumerate(brick.iso.CORNERS):
+        assert torch.equal(corners[..., j],
+                           slab.sdf[dx:dx + span - 1, dy:dy + nn - 1,
+                                    dz:dz + nn - 1])
+    stacked = brick.slab_from_numpy(_np_fields(brick.shard_volume(tv, 2)),
+                                    table="packed")
+    assert stacked.local(0, "cpu").table == "packed"
+    with pytest.raises(ValueError, match="table"):
+        dataclasses.replace(slab, table="rows")
+
+
+def _closed_form_case(s_count, seed):
+    """Every shard of ``_volumes()`` over ``s_count`` slabs with the port's
+    hits of ``_rays()`` (object space = world space: ``default_fit_scene``'s
+    instance is the identity) and random cotangents of t and the normal on
+    the lanes the shard owns."""
+    from vrt_torch.core import quat as vq
+    from vrt_torch.dist.slab_render import default_fit_scene
+
+    vv, tv = _volumes()
+    light = np.asarray(vq.forward_vector(vq.from_euler_degrees(0, 45, -30)),
+                       np.float32)
+    scene = default_fit_scene(tv.n_voxels, tv.cell_size, tv.extends, light,
+                              device="cpu")
+    o, d, t_max = (torch.from_numpy(x) for x in _rays(n=1024, seed=seed))
+    slabs = brick.shard_volume(tv, s_count)
+    for s in range(s_count):
+        slab = slabs.local(s, "cpu")
+        hit = brick.march_volume_slab(slab, o, d, t_max)
+        owned = (hit.hit & (hit.cell[:, 0] >= slab.cell_lo)
+                 & (hit.cell[:, 0] < slab.cell_hi))
+        gen = torch.Generator().manual_seed(seed + s)
+        g_t = torch.randn(o.shape[0], generator=gen) * owned
+        g_n = torch.randn(o.shape, generator=gen) * owned[:, None]
+        yield scene, vbrick.shard_volume(vv, s_count), s, slab, o, d, hit, \
+            owned, g_t, g_n
+
+
+def _assert_within(got, want, tag, rtol=1e-5):
+    scale = np.abs(want).max()
+    assert scale > 0, tag
+    assert np.abs(np.asarray(got, np.float64) - want).max() <= rtol * scale, \
+        tag
+
+
+def _on_a_cell_face(slab, o, d, hit):
+    """Surface lanes whose hit point lies on a face of its cell (a
+    coordinate of p exactly 0 or 1): there a trilinear weight |(1-i) - p|
+    has a kink, whose derivative ``jnp.abs`` takes as 1 and the port (as
+    torch's ``abs``) as 0."""
+    t0 = torch.where(torch.isfinite(hit.t), hit.t, 0.0)
+    p = (o + d * t0[:, None]
+         - (hit.cell.to(o.dtype) * slab.cell_size - slab.extends)) \
+        / slab.cell_size
+    return (hit.kind == 1) & ((p == 0.0) | (p == 1.0)).any(dim=-1)
+
+
+@pytest.mark.parametrize("s_count", [2, 4])
+def test_resolve_slab_closed_form_is_vrt_grad(s_count):
+    """``resolve_slab_backward_reference`` into the planes against
+    ``jax.grad`` of ``vrt.dist.brick.resolve_slab_hits`` (which reads the
+    planes through ``_slab_fetch``) in the planes and the object-space
+    rays, on the port's hits and the same cotangents, every shard, both in
+    float64 (``jax.enable_x64``): within 1e-5 of the largest |g|.  In
+    float32 the two round apart by up to ~1e-4 of it on lanes whose
+    implicit-function term divides by a small F'(t0) (XLA's CPU backend
+    contracts sums into FMAs), so the closed form's arithmetic is held to
+    ``vrt``'s in float64.  A lane whose hit point lies on a face of its cell
+    carries no cotangent here: the gradient has a kink there, which
+    ``jnp.abs`` and the port differentiate apart (``_on_a_cell_face``)."""
+    from vrt.march.types import MarchHit as VHit
+
+    f64 = torch.float64
+    lanes = 0
+    for scene, vslabs, s, slab, o, d, hit, owned, g_t, g_n in \
+            _closed_form_case(s_count, 11):
+        slab = dataclasses.replace(slab, sdf=slab.sdf.to(f64),
+                                   cell_size=slab.cell_size.to(f64),
+                                   extends=slab.extends.to(f64))
+        o, d = o.to(f64), d.to(f64)
+        hit = dataclasses.replace(hit, t=hit.t.to(f64))
+        keep = owned & ~_on_a_cell_face(slab, o, d, hit)
+        g_t, g_n = (g_t * keep).to(f64), (g_n * keep[:, None]).to(f64)
+        g_o, g_d, g_planes = brick.resolve_slab_backward_reference(
+            scene, slab, o, d, hit, g_t, g_n, acc_dtype=f64)
+        assert g_planes.shape == slab.sdf.shape
+        with jax.enable_x64(True):
+            vslab = jax.tree.map(lambda x: x[s], vslabs)
+            vslab = dataclasses.replace(vslab, **{
+                f: jnp.asarray(np.asarray(getattr(vslab, f)), jnp.float64)
+                for f in ("sdf", "cell_size", "extends")})
+            vhit = VHit(**{f: jnp.asarray(getattr(hit, f).numpy())
+                           for f in workers.HIT_FIELDS})
+            jg_t, jg_n = jnp.asarray(g_t.numpy()), jnp.asarray(g_n.numpy())
+
+            def loss(sdf, jo, jd):
+                t, n, _ = vbrick.resolve_slab_hits(
+                    dataclasses.replace(vslab, sdf=sdf), jo, jd, vhit)
+                return jnp.sum(t * jg_t) + jnp.sum(n * jg_n)
+
+            want = jax.grad(loss, argnums=(0, 1, 2))(
+                vslab.sdf, jnp.asarray(o.numpy()), jnp.asarray(d.numpy()))
+            want = [np.asarray(w) for w in want]
+        assert want[0].dtype == np.float64
+        for name, got, w in (("planes", g_planes, want[0]),
+                             ("g_o", g_o, want[1]), ("g_d", g_d, want[2])):
+            _assert_within(got.numpy(), w, (s_count, s, name))
+        lanes += int(keep.sum())
+    assert lanes > 50
+
+
+@pytest.mark.parametrize("s_count", [2, 4])
+def test_resolve_slab_closed_form_planes_equals_packed_through_the_pack(
+        s_count):
+    """The closed form into the planes against the first design's closed
+    form into its packed table, carried to the planes by the backward of
+    ``_pack_slab_corners`` (the step's autograd through the pack), in
+    float32: within 1e-5 of the largest |g|; the ray gradients equal bit
+    for bit (the same rows, the same arithmetic)."""
+    lanes = 0
+    for scene, _, s, slab, o, d, hit, owned, g_t, g_n in \
+            _closed_form_case(s_count, 5):
+        g_o, g_d, g_planes = brick.resolve_slab_backward_reference(
+            scene, slab, o, d, hit, g_t, g_n)
+        packed = dataclasses.replace(slab, table="packed")
+        p_o, p_d, g_rows = brick.resolve_slab_backward_reference(
+            scene, packed, o, d, hit, g_t, g_n)
+        planes = slab.sdf.clone().requires_grad_(True)
+        corners = brick._pack_slab_corners(planes)
+        corners.backward(g_rows.reshape(corners.shape))
+        _assert_within(g_planes.numpy(), planes.grad.double().numpy(),
+                       (s_count, s))
+        assert torch.equal(g_o, p_o) and torch.equal(g_d, p_d)
+        lanes += int(owned.sum())
     assert lanes > 50
 
 

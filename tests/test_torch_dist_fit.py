@@ -9,8 +9,10 @@ per group of cases; ``vrt`` runs in this process on the 8 virtual CPU
 devices of tests/conftest.py.  Inputs come from ``default_rng`` with a
 seed.  On the CPU the port runs the plain versions of its kernels: the
 slab resolve's backward is its closed form
-(``brick.resolve_slab_backward_reference``) and reaches the planes through
-the table's pack.  The gates: losses to rtol 1e-5 (1e-4 over two steps and
+(``brick.resolve_slab_backward_reference``), into the planes (the default
+table) or, on the first design's packed table, into the table and through
+the table's pack to the planes; the two designs give the same loss and
+gradients.  The gates: losses to rtol 1e-5 (1e-4 over two steps and
 for the scaling app's rounded rows), gradients and updates through
 ``test_torch_fit.assert_grads_close`` (cosine 1 - 1e-6, largest difference
 1e-4 of the largest |value|): XLA's CPU backend contracts sums into FMAs
@@ -144,15 +146,17 @@ def test_exchange_halos_gradient_is_vrt_vjp():
                               cots[1, span - 2 * hl - 1])
 
 
+@pytest.mark.parametrize("table", brick.TABLES)
 @pytest.mark.parametrize("s_count", [2, 4])
-def test_resolve_slab_function_matches_autograd(s_count):
+def test_resolve_slab_function_matches_autograd(s_count, table):
     """``ResolveSlab`` on CPU tensors (``resolve_slab_hits`` forward, the
-    closed form ``resolve_slab_backward_reference`` over the slab's table,
-    the table's gradient carried to the planes by autograd through the
-    pack) against autograd of ``resolve_slab_hits`` in the planes and the
-    rays, every shard of ``_volume()``, random cotangents on the lanes the
-    shard owns (as the tracer's owner sum gives them): gradients within
-    1e-5 of the largest |value|, t and the normal equal."""
+    closed form ``resolve_slab_backward_reference`` over the slab's
+    ``resolve_table``: into the planes, or into the first design's packed
+    table whose gradient autograd carries to the planes through the pack)
+    against autograd of ``resolve_slab_hits`` in the planes and the rays,
+    every shard of ``_volume()``, random cotangents on the lanes the shard
+    owns (as the tracer's owner sum gives them): gradients within 1e-5 of
+    the largest |value|, t and the normal equal."""
     import dataclasses
 
     from vrt_torch.core import quat as vq
@@ -183,7 +187,7 @@ def test_resolve_slab_function_matches_autograd(s_count):
         grads = []
         for fn in ("function", "autograd"):
             planes = slab.sdf.clone().requires_grad_(True)
-            sl = dataclasses.replace(slab, sdf=planes)
+            sl = dataclasses.replace(slab, sdf=planes, table=table)
             o_w = torch.from_numpy(o).requires_grad_(True)
             d_w = torch.from_numpy(d).requires_grad_(True)
             ob, db = SlabTracer(sl, None)._object_rays(scene, o_w, d_w)
@@ -197,8 +201,7 @@ def test_resolve_slab_function_matches_autograd(s_count):
                 g_n = torch.randn((n, 3), generator=gen) * owned[:, None]
                 inst = torch.where(hit.hit, 0, -1).to(torch.int32)
                 t, normal, _ = ResolveSlab.apply(
-                    o_w, d_w, sl.march_tables["corners"], scene, sl, hit,
-                    inst)
+                    o_w, d_w, sl.resolve_table, scene, sl, hit, inst)
             else:
                 t, normal, _ = brick.resolve_slab_hits(sl, ob, db, hit)
             ((t * g_t).sum() + (normal * g_n).sum()).backward()
@@ -408,12 +411,13 @@ def _vrt_slab_grad(s_count):
     return np.asarray(grad), float(loss)
 
 
-def _port_slab_step(slabs, shape, optimizer, opt_args, crossed=False):
+def _port_slab_step(slabs, shape, optimizer, opt_args, crossed=False,
+                    table="planes"):
     inp = _slab_inputs()
     return mesh.spawn_world(
         workers.slab_fit_world, shape[0] * shape[1],
         args=(shape, inp["fields"], _np_fields(slabs), inp["o"], inp["d"],
-              inp["targets"], optimizer, opt_args, crossed),
+              inp["targets"], optimizer, opt_args, crossed, table),
         timeout=TIMEOUT)
 
 
@@ -506,6 +510,32 @@ def test_slab_fit_step_crossed_matches_vrt():
                     grad)
     np.testing.assert_array_equal(out[0]["params"], out[2]["params"])
     np.testing.assert_array_equal(out[1]["params"], out[3]["params"])
+
+
+@pytest.mark.parametrize("crossed", [False, True],
+                         ids=["single_axis", "crossed"])
+def test_slab_fit_step_tables_agree(crossed):
+    """``make_slab_fit_step`` over 4 gloo ranks (with ``crossed``,
+    ``make_slab_fit_step_crossed`` over 2x2) on the slab inputs, SGD at
+    1e-2, on both tables: the planes (the default) and the first design's
+    packed corner table.  The same loss on every rank
+    (rtol 1e-6), and the gradients the ranks' steps hand their optimizers,
+    all ranks together, at 1 - cos < 1e-10 and within 1e-6 of the largest
+    |g|: the two sum the same corner cotangents into the planes, one by
+    ``index_add_`` and one through the pack's backward."""
+    slabs = vbrick.shard_volume(_slab_inputs()["vol"], 2 if crossed else 4)
+    out = {t: _port_slab_step(slabs, (2, 2) if crossed else (1, 4), "sgd",
+                              dict(learning_rate=1e-2), crossed, t)
+           for t in brick.TABLES}
+    for r, (g, h) in enumerate(zip(out["planes"], out["packed"])):
+        np.testing.assert_allclose(g["loss"], h["loss"], rtol=1e-6,
+                                   err_msg=f"rank {r}")
+    a, b = (np.concatenate([g["grad"].astype(np.float64).ravel()
+                            for g in out[t]]) for t in ("planes", "packed"))
+    assert np.abs(b).max() > 0
+    cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
+    assert 1.0 - cos < 1e-10, 1.0 - cos
+    assert np.abs(a - b).max() <= 1e-6 * np.abs(b).max()
 
 
 def test_slab_fit_fixture_is_vrt_step():

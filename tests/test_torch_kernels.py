@@ -436,7 +436,8 @@ def test_warp_slots_of_registers(regs, threads, want):
 
 @pytest.mark.parametrize("probe,source", [
     ("MARCH", "march.cu"), ("SURFACE_BWD", "shade.cu"),
-    ("SHADE_FWD", "shade.cu"), ("RESOLVE_BWD", "resolve.cu")])
+    ("SHADE_FWD", "shade.cu"), ("RESOLVE_BWD", "resolve.cu"),
+    ("SLAB", "march.cu")])
 def test_probe_caps_variants_name_source_constants(probe, source):
     """Every variant of ``vrt_torch.apps.probe_caps`` sets constants that
     its source defines exactly once (the probe rewrites them with this
@@ -1985,13 +1986,62 @@ def test_k7_matches_twin_on_card(s_count, accel_mode, interp, debug):
     assert hits > 100
 
 
+def _hits_same(a, b):
+    """Fields of two MarchHits that differ (NaN equal to NaN)."""
+    bad = []
+    for f in ("hit", "t", "kind", "cell", "t_in", "t_out", "face_normal",
+              "steps"):
+        x, y = getattr(a, f), getattr(b, f)
+        same = (x == y) | (torch.isnan(x) & torch.isnan(y)) \
+            if x.is_floating_point() else x == y
+        if not bool(same.all()):
+            bad.append((f, int((~same).sum())))
+    return bad
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("s_count", [2, 4])
-def test_slab_resolve_matches_plain_on_card(s_count):
-    """The fused resolve over each shard's slab-local table (a non-zero x
-    origin but on shard 0) against ``resolve_slab_hits`` on the lanes whose
-    hit the shard owns: t, the normal and unlit equal (NaN equal to
-    NaN)."""
+@pytest.mark.parametrize("accel_mode", ["octree", "chebyshev"])
+@pytest.mark.parametrize("interp,debug", [(True, False), (False, False),
+                                          (True, True)],
+                         ids=["interp", "cube", "overlay"])
+def test_k7_designs_on_card(s_count, accel_mode, interp, debug):
+    """K7's redesign (the slab's planes, the capped kernel) against its
+    first design (the packed table, ``table="packed"``) and the twin on
+    every shard, field by field; one launch of each counted."""
+    from vrt_torch.dist import brick
+    from vrt_torch.kernels import march as k1
+
+    dev = _card()
+    slabs = brick.shard_volume(_slab_volume(), s_count, accel_mode)
+    o, d, t_max = _slab_rays(dev)
+    before = k1.SLAB_LAUNCHES
+    for s in range(s_count):
+        slab = slabs.local(s, dev)
+        assert slab.table == "planes" and "corners" not in slab.march_tables
+        new = brick.march_volume_slab(slab, o, d, t_max, interp, debug)
+        old = brick.march_volume_slab(
+            dataclasses.replace(slab, table="packed"), o, d, t_max, interp,
+            debug)
+        want = brick.march_volume_slab_reference(slab, o, d, t_max, interp,
+                                                 debug)
+        torch.cuda.synchronize()
+        assert _hits_same(new, old) == [], s
+        assert _hits_same(new, want) == [], s
+    assert k1.SLAB_LAUNCHES - before == 2 * s_count
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("table", ["planes", "packed"])
+@pytest.mark.parametrize("s_count", [2, 4])
+def test_slab_resolve_matches_plain_on_card(s_count, table):
+    """The fused resolve over each shard's slab (its planes, or the first
+    design's slab-local table; a non-zero x origin but on shard 0) against
+    ``resolve_slab_hits`` on the lanes whose hit the shard owns: t, the
+    normal and unlit equal (NaN equal to NaN); and the planes' forward
+    bit-equal to the first design's on every lane but the surface hits the
+    shard does not own (whose cells may lie outside its planes, where the
+    two designs read zeros by voxel and by row)."""
     from vrt_torch.core import quat as vq
     from vrt_torch.dist import brick
     from vrt_torch.dist.slab_render import SlabTracer, default_fit_scene
@@ -2007,7 +2057,7 @@ def test_slab_resolve_matches_plain_on_card(s_count):
     o_w, d_w, t_max = _slab_rays(dev)
     owned_lanes = 0
     for s in range(s_count):
-        slab = slabs.local(s, dev)
+        slab = dataclasses.replace(slabs.local(s, dev), table=table)
         o, d = SlabTracer(slab, None)._object_rays(scene, o_w, d_w)
         hit = brick.march_volume_slab(slab, o, d, t_max)
         inst = torch.where(hit.hit, 0, -1).to(torch.int32)
@@ -2018,6 +2068,13 @@ def test_slab_resolve_matches_plain_on_card(s_count):
         for a, b in zip(got, want):
             a, b = a[owned], b[owned]
             assert bool(((a == b) | ((a != a) & (b != b))).all())
+        if table == "planes":
+            old = kr.resolve_slab_cuda(
+                scene, dataclasses.replace(slab, table="packed"), o_w, d_w,
+                hit, inst)
+            lanes = owned | (hit.kind != 1)
+            for a, b in zip(got, old):
+                assert _bit_equal(a[lanes], b[lanes])
         owned_lanes += int(owned.sum())
     assert owned_lanes > 100
 
@@ -2042,16 +2099,20 @@ def _slab_backward_case(dev, slab, scene, o_w, d_w, seed):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("table", ["planes", "packed"])
 @pytest.mark.parametrize("s_count", [2, 4])
-def test_slab_resolve_backward_matches_autograd_on_card(s_count):
-    """``ResolveSlab`` on the card (the fused resolve and the slab variant
-    of its merged backward over each shard's table, the table's gradient
-    carried to the planes through the pack) against autograd of
-    ``resolve_slab_hits`` on the card for the same cotangents: plane
-    gradients within 1e-5 * max|sum| of autograd's and of the closed form
+def test_slab_resolve_backward_matches_autograd_on_card(s_count, table):
+    """``ResolveSlab`` on the card over each shard's ``resolve_table`` (the
+    planes: the fused resolve and the planes variant of its merged
+    backward, which adds into the planes' gradient; the first design's
+    packed table: the slab variant over the table, its gradient carried to
+    the planes through the pack) against autograd of ``resolve_slab_hits``
+    on the card for the same cotangents: plane gradients within 1e-5 *
+    max|sum| of autograd's and of the closed form
     ``resolve_slab_backward_reference`` summed in float64, ray gradients
-    within 1e-5 * max|g| of the closed form's and bit-equal to the first
-    design's; one backward launch a shard, counted as a slab launch."""
+    within 1e-5 * max|g| of the closed form's and bit-equal to the packed
+    table's two designs; one backward launch a shard, counted as a slab
+    launch."""
     import dataclasses
 
     from vrt_torch.core import quat as vq
@@ -2069,7 +2130,7 @@ def test_slab_resolve_backward_matches_autograd_on_card(s_count):
     o_np, d_np, _ = (x.cpu() for x in _slab_rays("cpu"))
     owned_lanes = 0
     for s in range(s_count):
-        slab = slabs.local(s, dev)
+        slab = dataclasses.replace(slabs.local(s, dev), table=table)
         hit, inst, owned, g_t, g_n = _slab_backward_case(
             dev, slab, scene, o_np.to(dev), d_np.to(dev), s)
         grads = {}
@@ -2081,8 +2142,7 @@ def test_slab_resolve_backward_matches_autograd_on_card(s_count):
             before = dict(kr.SLAB_LAUNCHES)
             if path == "kernels":
                 t, normal, _ = kr.ResolveSlab.apply(
-                    o_w, d_w, sl.march_tables["corners"], scene, sl, hit,
-                    inst)
+                    o_w, d_w, sl.resolve_table, scene, sl, hit, inst)
             else:
                 o, d = SlabTracer(sl, None)._object_rays(scene, o_w, d_w)
                 t, normal, _ = brick.resolve_slab_hits(sl, o, d, hit)
@@ -2096,12 +2156,14 @@ def test_slab_resolve_backward_matches_autograd_on_card(s_count):
         w_o, w_d, w_acc = brick.resolve_slab_backward_reference(
             scene, slab, o_np.to(dev), d_np.to(dev), hit, g_t, g_n,
             acc_dtype=torch.float64)
-        planes64 = slab.sdf.double().requires_grad_(True)
-        corners64 = brick._pack_slab_corners(planes64)
-        corners64.backward(w_acc.reshape(corners64.shape))
+        if table == "packed":
+            planes64 = slab.sdf.double().requires_grad_(True)
+            corners64 = brick._pack_slab_corners(planes64)
+            corners64.backward(w_acc.reshape(corners64.shape))
+            w_acc = planes64.grad
         got_planes, got_o, got_d = grads["kernels"]
         for name, want in (("autograd", grads["autograd"][0]),
-                           ("closed form", planes64.grad)):
+                           ("closed form", w_acc)):
             scale = want.abs().max().item()
             assert scale > 0, name
             assert (got_planes.double() - want.double()).abs().max().item() \
@@ -2110,29 +2172,32 @@ def test_slab_resolve_backward_matches_autograd_on_card(s_count):
             scale = b.abs().max().item()
             assert scale > 0 and bool(torch.isfinite(a).all()), name
             assert (a - b).abs().max().item() <= 1e-5 * scale, (s, name)
-        old_o, old_d, _ = kr.resolve_slab_backward_cuda(
-            scene, slab, o_np.to(dev), d_np.to(dev), hit, inst, g_t, g_n,
-            _old_design=True)
-        assert torch.equal(old_o, got_o) and torch.equal(old_d, got_d)
+        packed = dataclasses.replace(slab, table="packed")
+        for old_design in (False, True):
+            old_o, old_d, _ = kr.resolve_slab_backward_cuda(
+                scene, packed, o_np.to(dev), d_np.to(dev), hit, inst, g_t,
+                g_n, _old_design=old_design)
+            assert torch.equal(old_o, got_o) and torch.equal(old_d, got_d)
         owned_lanes += int(owned.sum())
     assert owned_lanes > 100
 
 
 @pytest.mark.gpu
 def test_slab_backward_over_one_slab_equals_the_scene_backward_on_card():
-    """The slab variant of the resolve backward over one slab that holds the
-    whole volume (x origin -2: two halo rows a side) against the scene
-    variant (x origin 0, the rows of the scene's own f32 table) on the same
-    hits and cotangents, both designs: ray gradients bit-equal, the table's
-    rows equal to rounding once shifted by the origin, the halo rows
-    untouched."""
+    """The slab variant of the resolve backward over the first design's
+    packed table of one slab that holds the whole volume (x origin -2: two
+    halo rows a side) against the scene variant (x origin 0, the rows of the
+    scene's own f32 table) on the same hits and cotangents, both designs:
+    ray gradients bit-equal, the table's rows equal to rounding once
+    shifted by the origin, the halo rows untouched."""
     from vrt_torch.dist import brick
     from vrt_torch.kernels import resolve as kr
     from vrt_torch.scenes import config5_scene
 
     dev = _card()
     vol = _slab_volume()
-    slab = brick.shard_volume(vol, 1).local(0, dev)
+    slab = dataclasses.replace(brick.shard_volume(vol, 1).local(0, dev),
+                               table="packed")
     scene = config5_scene(vol, dev, stub=False)
     corners = scene.volumes.corners
     assert corners.dtype == torch.float32 and slab.march_tables["x0"] == -2

@@ -221,13 +221,14 @@ def dp_step_world(rank, world, shape, fields, params, o, d, targets, lr,
 
 
 def slab_fit_world(rank, world, shape, fields, slab_fields, o, d, targets,
-                   optimizer, opt_args, crossed=False):
+                   optimizer, opt_args, crossed=False, table="planes"):
     """One slab fit step over a mesh of ``shape`` (data, model):
     ``make_slab_fit_step`` over the model axis, or with ``crossed``
     ``make_slab_fit_step_crossed``, with the optimizer ``optimizer`` of
-    ``vrt_torch.diff.optim`` (its arguments ``opt_args``); rays and targets
-    are split as ``vrt``'s in-specs split them.  This rank's updated
-    planes, the loss, and the gradient the step handed the optimizer."""
+    ``vrt_torch.diff.optim`` (its arguments ``opt_args``), the kernels on
+    the slab's ``table``; rays and targets are split as ``vrt``'s in-specs
+    split them.  This rank's updated planes, the loss, and the gradient the
+    step handed the optimizer."""
     from vrt_torch.diff import optim
     from vrt_torch.dist.slab_render import (make_slab_fit_step,
                                             make_slab_fit_step_crossed)
@@ -237,7 +238,8 @@ def slab_fit_world(rank, world, shape, fields, slab_fields, o, d, targets,
     m = mesh.make_render_mesh(*shape, "cpu")
     _, model, s_count = mesh.axis_group(m, mesh.MODEL_AXIS)
     _, flat, total = mesh.axis_group(m, (mesh.DATA_AXIS, mesh.MODEL_AXIS))
-    slab = brick.slab_from_numpy(slab_fields).local(model, "cpu")
+    slab = brick.slab_from_numpy(slab_fields, table=table).local(model,
+                                                                  "cpu")
     opt = _Recording(getattr(optim, optimizer)(**opt_args))
     if crossed:
         step = make_slab_fit_step_crossed(m, opt, scene)

@@ -1,11 +1,13 @@
 """The register-cap probe of the kernels redesigned for the H100: K1's
 scene march (``march_scene_capped_kernel``), K4's surface backward
 (``surface_bwd_merged_kernel``), K4's forward pair
-(``surface_resident_kernel``, ``combine_resident_kernel``) and the fused
-resolve's backward (``resolve_bwd_merged_kernel``), on one CUDA card.
+(``surface_resident_kernel``, ``combine_resident_kernel``), the fused
+resolve's backward (``resolve_bwd_merged_kernel``) and K7, the slab march
+(``march_slab_capped_kernel``), with the slab resolve's backward into the
+planes, on one CUDA card.
 
     python3 -m vrt_torch.apps.probe_caps [march] [surface_bwd] [shade_fwd]
-                                         [resolve_bwd]
+                                         [resolve_bwd] [slab]
 
 Each kernel's block and register cap are constants of its source
 (``kSceneThreads``, ``kSceneMinBlocks`` and ``kAnyHitMinBlocks`` in
@@ -15,7 +17,9 @@ Each kernel's block and register cap are constants of its source
 forward pair to one thread a ray over the whole grid and compile its hit
 lanes' work out; ``kMergeRows`` and ``kVecReduce`` in ``resolve.cu``
 switch the backward's merge of a warp's row cotangents by hit cell and its
-16-byte reductions, and ``kBwdMinBlocks`` sets its register cap).  The
+16-byte reductions, and ``kBwdMinBlocks`` sets its register cap;
+``kSlabThreads`` and ``kSlabMinBlocks`` in ``march.cu`` set K7's block
+and its register cap).  The
 probe builds a copy of the source for each of ``MARCH``, ``SURFACE_BWD``,
 ``SHADE_FWD`` and ``RESOLVE_BWD`` with those constants set as the variant
 says (all builds in parallel, under ``build/vrt_torch_kernels/probe/``),
@@ -25,7 +29,17 @@ three surface backwards of one 1080p config6 fit step, the three surface
 and three combine launches of the 1080p interp and cube frames and of a
 480x270 frame with two point lights and a spot light, and the three
 resolve backwards of one 1080p config6 fit step (the last on the primary
-rays).  Each build must give the default build's result (the marches
+rays); for ``slab``, config5 (the 513^3 volume of ``vrt/apps/scaling.py``
+in 4 x-slabs) with every slab in this one process (``_Slabs``: each slab
+marched by K7 and resolved in turn, the closest hit taken as
+``combine_hits`` takes it): the primary and shadow K7 launches of each
+slab in a 1080p frame, with each launch's live lanes (those that take a
+node step), the SIMT efficiency of its warps in launch order and of dense
+warps of its live lanes (from the kernel's step counts), and the first
+design (the packed table) beside the builds; and each slab's resolve
+backward into its planes on ``vrt/apps/scaling.py``'s 4,096 rays with
+random cotangents on the lanes it owns.  Each build must give the default
+build's result (the marches
 field by field, the per-ray cotangents bit for bit, the forward pair on
 every lane both write; the miss-only build on the miss lanes; the resolve
 backward's table within ``SCATTER_RTOL`` of the default build's largest
@@ -50,8 +64,18 @@ from vrt_torch.kernels import _build
 from vrt_torch.kernels import march as k1
 from vrt_torch.kernels import shade as k4
 from vrt_torch.kernels._timing import device_ms
+from vrt_torch.render.renderer import SceneTracer
 
 # (label, the source's constants set otherwise, threads a block)
+SLAB = (
+    ("default: 64 threads, 12 blocks an SM", {}, 64),
+    ("64 threads uncapped", {"kSlabMinBlocks": 1}, 64),
+    ("64 threads, 10 blocks an SM", {"kSlabMinBlocks": 10}, 64),
+    ("64 threads, 16 blocks an SM", {"kSlabMinBlocks": 16}, 64),
+    ("128 threads, 5 blocks an SM",
+     {"kSlabThreads": 128, "kSlabMinBlocks": 5}, 128),
+    ("256 threads uncapped (the first design's block) on the planes",
+     {"kSlabThreads": 256, "kSlabMinBlocks": 1}, 256))
 MARCH = (
     ("default: 64 threads, full traces 10 and any-hit 12 blocks an SM", {},
      64),
@@ -264,6 +288,181 @@ def _probe(module, fn_name, builds, calls, same):
     return rows
 
 
+class _Slabs(SceneTracer):
+    """A slab tracer over every slab of a slab-sharded volume in one
+    process (``vrt_torch.render.renderer.SceneTracer``'s seam): each slab
+    marched by K7 in turn, the closest hit taken as
+    ``brick.combine_hits`` takes it (the first slab on a tie), and each hit
+    resolved by the slab that owns its cell."""
+
+    def __init__(self, slabs):
+        self.slabs = slabs
+
+    def march(self, scene, o_w, d_w, t_max, interp, debug_overlay=False):
+        import dataclasses
+
+        from vrt_torch.dist import brick
+        from vrt_torch.march.types import MarchHit
+        from vrt_torch.render.renderer import _world_to_object
+
+        with torch.no_grad():
+            o, d = _world_to_object(scene.inst_pos[0], scene.inst_rot[0],
+                                    scene.inst_scale[0], o_w, d_w)
+            hits = [brick.march_volume_slab(sl, o, d, t_max, interp,
+                                            debug_overlay)
+                    for sl in self.slabs]
+            win = torch.argmin(torch.stack(
+                [torch.where(h.hit, h.t, float("inf")) for h in hits]), 0)
+
+            def pick(name):
+                xs = torch.stack([getattr(h, name) for h in hits])
+                idx = win.reshape((1,) + win.shape + (1,) * (xs.dim() - 2))
+                return torch.gather(xs, 0, idx.expand((1,) + xs.shape[1:]))[0]
+
+            hit = MarchHit(**{f.name: pick(f.name)
+                              for f in dataclasses.fields(MarchHit)})
+        return hit, torch.where(hit.hit, 0, -1).to(torch.int32)
+
+    def resolve(self, scene, o_w, d_w, hit, inst):
+        import dataclasses
+
+        from vrt_torch.kernels import resolve as kr
+
+        hit = dataclasses.replace(hit, cell=hit.cell.contiguous(),
+                                  face_normal=hit.face_normal.contiguous())
+        out = None
+        for sl in self.slabs:
+            got = kr.resolve_slab_cuda(scene, sl, o_w.contiguous(),
+                                       d_w.contiguous(), hit,
+                                       inst.contiguous())
+            owned = (hit.hit & (hit.cell[:, 0] >= sl.cell_lo)
+                     & (hit.cell[:, 0] < sl.cell_hi))
+            mine = [owned if x.dim() == 1 else owned[:, None] for x in got]
+            got = [torch.where(m, x, torch.zeros_like(x))
+                   for m, x in zip(mine, got)]
+            out = got if out is None else [a + b if a.dtype != torch.bool
+                                           else a | b
+                                           for a, b in zip(out, got)]
+        return tuple(out)
+
+
+def _simt_of(steps):
+    """SIMT efficiency of warps of 32 consecutive lanes: the lane-steps
+    taken over 32 times each warp's largest."""
+    steps = steps.long()
+    per = torch.nn.functional.pad(steps, (0, -steps.numel() % 32))
+    issued = 32 * per.reshape(-1, 32).amax(1).sum().item()
+    return steps.sum().item() / issued if issued else 1.0
+
+
+def _slab_probe(card, dev):
+    """The ``slab`` section (see the module's docstring)."""
+    import dataclasses
+
+    from vrt_torch.apps.scaling import scaling_rays
+    from vrt_torch.dist import brick
+    from vrt_torch.kernels import resolve as kr
+    from vrt_torch.render.camera import camera_rays
+    from vrt_torch.render.gpuscene import RenderMode
+    from vrt_torch.render.renderer import render_rays, trace_radiance
+    from vrt_torch.scenes import config5_scene, config5_slab_volume
+
+    builds = _builds(k1, "march.cu", SLAB, ("march_slab_capped_kernel",),
+                     ("vrt_march_lanes", "vrt_march_scene", "vrt_march_slab"))
+    vol = config5_slab_volume(9)
+    scene = config5_scene(vol, dev)
+    stacked = brick.shard_volume(vol, 4)
+    slabs = [stacked.local(s, dev) for s in range(4)]
+    del vol, stacked
+    o, d = camera_rays(scene.cam_pos, scene.cam_rot, scene.cam_fov, 1920,
+                       1080)
+    calls = _recorded(k1, "march_slab_cuda", lambda: render_rays(
+        scene, o, d, RenderMode(), _Slabs(slabs)))
+    packed = {id(sl): dataclasses.replace(sl, table="packed")
+              for sl in slabs}
+    for i, (args, _, got) in enumerate(calls):
+        live = got.steps > 0
+        print(f"config5 1080p K7 launch {i} (slab {i % 4}, "
+              f"{'primary' if i < 4 else 'shadow'}) on {card}: live lanes "
+              f"{int(live.sum())} of {live.numel()}; SIMT efficiency in "
+              f"launch order {_simt_of(got.steps):.3f}, of dense warps of "
+              f"the live lanes {_simt_of(got.steps[live]):.3f}; steps "
+              f"{int(got.steps.sum())}", flush=True)
+    default = k1._lib
+    rows = []
+    order = builds + [builds[0]]
+    try:
+        for j, (label, lib, usage, threads) in enumerate(order):
+            k1._lib = lib
+            per = []
+            for args, kw, want in calls:
+                if any(_hits_differ(k1.march_slab_cuda(*args, **kw), want)):
+                    raise AssertionError(f"K7: {label} changed the result")
+                per.append(device_ms(lambda: k1.march_slab_cuda(*args, **kw),
+                                     REPS))
+            rows.append((label + (", again" if j == len(builds) else ""),
+                         per, usage, threads))
+            if j == 0:
+                k1._lib = default
+                per = []
+                for args, kw, want in calls:
+                    old = (packed[id(args[0])],) + tuple(args[1:])
+                    if any(_hits_differ(k1.march_slab_cuda(*old, **kw),
+                                        want)):
+                        raise AssertionError("K7's first design differs")
+                    per.append(device_ms(
+                        lambda: k1.march_slab_cuda(*old, **kw), REPS))
+                rows.append(("first design: the packed table, 256 threads "
+                             "uncapped", per, None, 256))
+    finally:
+        k1._lib = default
+    _report("config5's 1080p K7 launches (slabs 0-3 primary, then shadow)",
+            card, rows)
+    del calls, packed
+
+    # the resolve backward into each slab's planes, on scaling.py's rays,
+    # the default design first and last, the first design between
+    kr.build()
+    o_np, d_np = scaling_rays(4096)
+    ro, rd = (torch.from_numpy(x).to(dev) for x in (o_np, d_np))
+    fwds = _recorded(kr, "resolve_slab_cuda", lambda: trace_radiance(
+        scene, ro, rd, 0, RenderMode(), tracer=_Slabs(slabs)))
+    calls = []
+    gen = torch.Generator().manual_seed(0)
+    for args, _, _ in fwds:
+        sc, sl, o_w, d_w, hit, inst = args
+        owned = (hit.hit & (hit.cell[:, 0] >= sl.cell_lo)
+                 & (hit.cell[:, 0] < sl.cell_hi))
+        g_t = (torch.randn(o_w.shape[0], generator=gen).to(dev) * owned)
+        g_n = (torch.randn(o_w.shape, generator=gen).to(dev)
+               * owned[:, None])
+        calls.append((sc, sl, o_w, d_w, hit, inst, g_t.contiguous(),
+                      g_n.contiguous()))
+
+    def timed(table):
+        per = []
+        for args in calls:
+            run = (args[0], dataclasses.replace(args[1], table=table),
+                   *args[2:])
+            per.append(device_ms(
+                lambda: kr.resolve_slab_backward_cuda(*run), REPS))
+        return per
+
+    rows = [("default: scalar atomics into the planes", timed("planes"),
+             None, 256),
+            ("first design: the packed table's 1.1 GB accumulator",
+             timed("packed"), None, 256),
+            ("default, again", timed("planes"), None, 256)]
+    _report("config5's slab resolve backwards on 4,096 rays (slabs 0-3)",
+            card, rows)
+
+
+def _hits_differ(a, b):
+    """The fields of two MarchHits that differ (NaN equal to NaN)."""
+    return [f for f in FIELDS if not _equal_where(getattr(a, f),
+                                                  getattr(b, f), None)]
+
+
 def _report(what, card, rows):
     for label, ms, usages, threads in rows:
         regs = []
@@ -297,7 +496,7 @@ def main(argv=None) -> int:
     from vrt_torch.kernels import resolve as kr
 
     probes = set(sys.argv[1:] if argv is None else argv) or {
-        "march", "surface_bwd", "shade_fwd", "resolve_bwd"}
+        "march", "surface_bwd", "shade_fwd", "resolve_bwd", "slab"}
     dev = torch.device("cuda", 0)
     card = card_name()
     entries = ("vrt_shade_surface", "vrt_shade_combine",
@@ -382,6 +581,8 @@ def main(argv=None) -> int:
                         _probe(k4, name, builds, calls, same))
                 del calls
             del scene
+    if "slab" in probes:
+        _slab_probe(card, dev)
     print(card, flush=True)
     return 0
 

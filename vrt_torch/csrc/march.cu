@@ -80,13 +80,31 @@
 // (owned cells keep their skip box, the out-of-slab region is one empty
 // node, a chord that misses the slab box retires, cube mode's voxel
 // ownership).  What bounds it is what bounds K1: a chain of dependent reads
-// a step, in a slab of 512 x 512 x 132 cells at config5's 513^3 (a 1.1 GB
-// f32 corner table a rank, 34 MB of accel).  The design choice: a
-// slab-local packed corner table (pack_cell_corners over the slab's planes,
-// rebuilt when the planes change), read one row a surface cell as K1 reads
-// its table, rather than an 8-voxel fetch from the unpacked planes (eight
-// dependent-address loads a cell instead of one row); it costs 8x the
-// planes' bytes on the card, which a rank's slab can afford.
+// a step, in a slab of 512 x 512 x 132 cells at config5's 513^3 (140 MB of
+// f32 planes a rank, 34 MB of accel).
+//
+// K7 has two designs.  The first (march_slab_kernel) reads a slab-local
+// packed corner table (pack_cell_corners over the slab's planes, 1.1 GB a
+// rank, rebuilt whenever the planes change: a fit step packed it, and
+// differentiated the pack, every step), one row a surface cell, at 256
+// threads a block with the registers uncapped, the scene march's first
+// design.  What held it back on the H100 (vrt_torch.apps.probe_caps slab,
+// config5's 1080p frame): 97-99 registers a thread in interp mode, so 16 of
+// 64 warp slots filled, and a table 8x the planes' size whose rows a
+// surface cell reads from DRAM.  Of a launch's 2,073,600 rays 0-42% march
+// (the others' chords miss the slab and retire at once), and the warps
+// run at 51-84% SIMT efficiency.  The redesign (march_slab_capped_kernel,
+// the default) reads the corners of a surface cell from the planes
+// themselves, 8 independent voxel loads as vrt's _slab_fetch reads them
+// (SlabPlanes of scene.cuh), so no table exists, and runs 64 threads a
+// block with the registers capped at 80 (12 blocks an SM), the scene
+// march's recipe.  Two schemes against idle lanes measured slower and are
+// not taken (PERF.md keeps their times): a pre-pass that lists the
+// marching lanes into dense warps (the list's order loses the warps'
+// coherence, and dense warps of live lanes are no more efficient), and
+// persistent warps that refill retired lanes (their begin and step
+// branches serialise within a warp).  Each ray's arithmetic is the first
+// design's: the two are equal field by field.
 
 #include "scene.cuh"
 
@@ -583,17 +601,22 @@ __device__ __forceinline__ void march_lane(const Tables& tb, int v,
 //   box's exit plus one cell;
 // - voxel_owned (cube mode): a voxel x-plane must be owned; the last shard
 //   also owns plane n-1.
-// The corner table is slab-local and packed: row x holds global cell
-// x0 + x, built from the span stored planes (span - 1 rows).  A cell outside
-// the volume reads zeros as in K1 (so no row of the halo planes outside the
-// volume is ever read), a cell inside the volume but outside the rows reads
-// zeros too (the twin's voxel fetch reads 0 for an unstored plane, and no
-// such cell is owned or can be a fully solid entry).  The accel table holds
-// the owned cells; any other cell reads 0, and its node comes from the hook.
-template <bool kCheb>
+// With kPacked (the first design) the corners come from the slab-local
+// packed table: row x holds global cell x0 + x, built from the span stored
+// planes (span - 1 rows).  A cell outside the volume reads zeros as in K1
+// (so no row of the halo planes outside the volume is ever read), a cell
+// inside the volume but outside the rows reads zeros too (the twin's voxel
+// fetch reads 0 for an unstored plane, and no such cell is owned or can be a
+// fully solid entry).  Without it they come from the planes by voxel, as the
+// twin reads them: the values of every cell inside the volume are the
+// table's, and a cell with a voxel outside the volume or the planes is
+// never a surface or a fully solid entry, so the hits are the same.  The
+// accel table holds the owned cells; any other cell reads 0, and its node
+// comes from the hook.
+template <bool kCheb, bool kPacked>
 struct SlabVolume {
   const uint8_t* accel;   // [cps, C, C]
-  const float* corners;   // [span - 1, C, C, 8]
+  const float* corners;   // [span - 1, C, C, 8] (kPacked only)
   const float* sdf;       // [span, N, N] voxel planes, N = C + 1
   long long cc;           // C
   int span, x0, cell_lo, cell_hi, n;
@@ -615,6 +638,10 @@ struct SlabVolume {
   }
   __device__ __forceinline__ void corners_at(const Lane& L, const int c[3],
                                              float v8[8]) const {
+    if (!kPacked) {
+      SlabPlanes{sdf, cc + 1, span, x0, n}.corners(c, v8);
+      return;
+    }
     const int lx = c[0] - x0;
     const bool valid = c[0] >= 0 && c[1] >= 0 && c[2] >= 0 &&
                        c[0] + 1 < L.n && c[1] + 1 < L.n && c[2] + 1 < L.n &&
@@ -680,14 +707,10 @@ struct SlabParams {
   HitOut out;
 };
 
-// K7, the slab march: one thread per ray against one rank's slab, what
-// vrt_torch.dist.brick.march_volume_slab_reference computes.
-template <bool kCheb, bool kInterp, bool kDebug>
-__global__ void __launch_bounds__(256) march_slab_kernel(const SlabParams p) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= p.lanes) return;
-  SlabVolume<kCheb> vol;
+template <bool kCheb, bool kPacked>
+__device__ __forceinline__ SlabVolume<kCheb, kPacked> slab_volume(
+    const SlabParams& p) {
+  SlabVolume<kCheb, kPacked> vol;
   vol.accel = p.accel;
   vol.corners = p.corners;
   vol.sdf = p.sdf;
@@ -702,6 +725,13 @@ __global__ void __launch_bounds__(256) march_slab_kernel(const SlabParams p) {
   // the twin's f32 arithmetic: cell * h - ext
   vol.lo_plane = static_cast<float>(p.cell_lo) * p.h - p.ext;
   vol.hi_plane = static_cast<float>(p.cell_hi) * p.h - p.ext;
+  return vol;
+}
+
+// Ray i of a slab launch.
+template <bool kCheb, bool kPacked, bool kInterp, bool kDebug>
+__device__ __forceinline__ void march_slab_ray(const SlabParams& p,
+                                               long long i) {
   // as vrt does: + 0.0 (h * 0), which turns a -0.0 into +0.0
   const float vz = p.h * 0.0f;
   float o[3], d[3];
@@ -710,8 +740,37 @@ __global__ void __launch_bounds__(256) march_slab_kernel(const SlabParams p) {
     d[k] = p.d[3 * i + k] + vz;
   }
   Hit h;
-  march_ray<kInterp, kDebug>(vol, o, d, p.t_max[i] + vz, &h);
+  march_ray<kInterp, kDebug>(slab_volume<kCheb, kPacked>(p), o, d,
+                             p.t_max[i] + vz, &h);
   store_hit(p.out, i, h);
+}
+
+// K7's first design: one thread per ray against one rank's slab through its
+// packed corner table, 256 threads a block, registers uncapped; what
+// vrt_torch.dist.brick.march_volume_slab_reference computes.
+template <bool kCheb, bool kInterp, bool kDebug>
+__global__ void __launch_bounds__(256) march_slab_kernel(const SlabParams p) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= p.lanes) return;
+  march_slab_ray<kCheb, true, kInterp, kDebug>(p, i);
+}
+
+// The redesign's block and the blocks an SM must hold at once (a register
+// cap; 1: none).  vrt_torch.apps.probe_caps slab times each choice: 12
+// blocks of 64 threads, 80 registers, came first; uncapped, 10 or 16
+// blocks, 128 or 256 threads were slower.
+constexpr int kSlabThreads = 64;
+constexpr int kSlabMinBlocks = 12;
+
+// K7's redesign: thread i marches ray i against the slab's planes.
+template <bool kCheb, bool kInterp, bool kDebug>
+__global__ void __launch_bounds__(kSlabThreads, kSlabMinBlocks)
+    march_slab_capped_kernel(const SlabParams p) {
+  const long long i = static_cast<long long>(blockIdx.x) * kSlabThreads +
+                      threadIdx.x;
+  if (i >= p.lanes) return;
+  march_slab_ray<kCheb, false, kInterp, kDebug>(p, i);
 }
 
 struct LaneParams {
@@ -929,12 +988,20 @@ struct LaunchScene {
 
 struct LaunchSlab {
   SlabParams p;
+  bool packed;  // the first design
   cudaStream_t stream;
-  // the slab's corner table is f32: by_table's table type is not used
+  // the slab's tables are f32: by_table's table type is not used
   template <typename T, bool kCheb, bool kInterp, bool kDebug>
   void go() const {
-    march_slab_kernel<kCheb, kInterp, kDebug>
-        <<<grid_for(p.lanes), 256, 0, stream>>>(p);
+    if (packed) {
+      march_slab_kernel<kCheb, kInterp, kDebug>
+          <<<grid_for(p.lanes), 256, 0, stream>>>(p);
+      return;
+    }
+    march_slab_capped_kernel<kCheb, kInterp, kDebug>
+        <<<static_cast<unsigned>((p.lanes + kSlabThreads - 1) /
+                                 kSlabThreads),
+           kSlabThreads, 0, stream>>>(p);
   }
 };
 
@@ -960,10 +1027,12 @@ extern "C" int vrt_march_lanes(
 }
 
 // K7: one thread per object-space ray against one slab.  accel u8
-// [cps, cc, cc] over the owned cells, corners f32 [span - 1, cc, cc, 8] (row x
-// is global cell x0 + x), sdf f32 [span, cc + 1, cc + 1] (plane x is global
-// plane x0 + x); n the full volume's voxels per axis, h its cell size, ext
-// its extent.  Returns cudaGetLastError() after the launch.
+// [cps, cc, cc] over the owned cells, sdf f32 [span, cc + 1, cc + 1] (plane x
+// is global plane x0 + x); n the full volume's voxels per axis, h its cell
+// size, ext its extent.  corners null takes the redesign, which reads the
+// planes; corners f32 [span - 1, cc, cc, 8] (row x is global cell x0 + x)
+// the first design, which reads that table.  Returns cudaGetLastError()
+// after the launch.
 extern "C" int vrt_march_slab(
     const float* o, const float* d, const float* t_max, long long lanes,
     const uint8_t* accel, const void* corners, const float* sdf, int cc,
@@ -971,12 +1040,13 @@ extern "C" int vrt_march_slab(
     int chebyshev, int interp, int debug, uint8_t* hit, float* t,
     int32_t* kind, int32_t* cell, float* t_in, float* t_out, float* face,
     int32_t* steps, void* stream) {
+  const bool packed = corners != nullptr;
   const SlabParams p{o, d, t_max, lanes, accel,
                      static_cast<const float*>(corners), sdf, cc, span, x0,
                      cell_lo, cell_hi, n, h, ext,
                      HitOut{hit, t, kind, cell, t_in, t_out, face, steps}};
-  by_table(LaunchSlab{p, static_cast<cudaStream_t>(stream)}, 0, chebyshev,
-           interp, debug);
+  by_table(LaunchSlab{p, packed, static_cast<cudaStream_t>(stream)}, 0,
+           chebyshev, interp, debug);
   return static_cast<int>(cudaGetLastError());
 }
 

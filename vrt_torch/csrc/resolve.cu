@@ -92,19 +92,34 @@
 // blocks' prefetch of kinds works around on the miss rounds
 // (vrt_torch.apps.probe_caps resolve_bwd times each choice).
 //
-// ---- the slab's table -------------------------------------------------------
+// ---- a slab's planes, and the first design's slab table ---------------------
 //
 // One rank of a slab-sharded volume (vrt_torch.dist.brick) resolves against
-// its own f32 table of cx x-rows, row x holding cell x0 + x (x0 the slab's
-// first plane); vrt differentiates resolve_slab_hits (vrt/dist/brick.py) by
-// XLA's transpose of its voxel fetch, no Pallas kernel.  The forward reads
-// zeros for a cell outside [x0, x0 + cx); both backward designs take the same
-// rule as the kSlab template flag: the row of cell c is
-// ((c[0] - x0) * cc + c[1]) * cc + c[2], and a cell outside the rows reads
-// zeros and adds nothing (skipped, not clamped).  A scene's table (x0 0, cx
-// cc) takes the variants without the flag, whose code is the one above.  The
-// accumulator of a slab's backward has cx * cc * cc rows: 1.1 GB for one of
-// four slabs of config5's 513^3 volume.
+// its own slab; vrt differentiates resolve_slab_hits (vrt/dist/brick.py) by
+// XLA's transpose of its voxel fetch, no Pallas kernel.  The default reads
+// the slab's voxel planes themselves (the kPlanes variants, SlabPlanes of
+// scene.cuh: f32 [span, cc + 1, cc + 1], plane x holding global plane
+// x0 + x): a row is the 8 voxels of its cell, each read on its own, a voxel
+// outside the volume or the planes reading 0 as vrt's _slab_fetch reads it.
+// The values are the table's wherever a cell lies inside the volume, so the
+// forward equals the first design's bit for bit there.  The backward's
+// merged kernel adds each merged row's 8 corner cotangents straight into an
+// f32 gradient of the planes' shape (140 MB for one of four slabs of
+// config5's 513^3 volume), a voxel outside the volume or the planes taking
+// none, by scalar atomics (pairing the z-adjacent corners j and j + 4 into
+// 8-byte red.global.add.v2.f32 where aligned measured slower; PERF.md keeps
+// the times).  No table is packed, and no table gradient is written or
+// carried back through a pack.
+//
+// The first design reads a slab-local f32 table of cx x-rows packed from
+// the planes, row x holding cell x0 + x (x0 the slab's first plane); both
+// backward designs take its rule as the kSlab template flag: the row of cell
+// c is ((c[0] - x0) * cc + c[1]) * cc + c[2], and a cell outside the volume
+// or the rows reads zeros and adds nothing (skipped, not clamped).  A
+// scene's table (x0 0, cx cc) takes the variants without either flag, whose
+// code is the one above.  The first design's accumulator has cx * cc * cc
+// rows: 1.1 GB for one of config5's slabs, and the pack's backward carries
+// it to the planes.
 
 #include "scene.cuh"
 
@@ -176,7 +191,15 @@ __device__ __forceinline__ float trilinear(const float v[8],
   return sum8(term);
 }
 
-template <typename E, bool kV16>
+// The slab's planes of ResolveParams' or ResolveBwdParams' tables (kPlanes:
+// corners points at the planes, cx is their span), n voxels a side.
+template <typename P>
+__device__ __forceinline__ SlabPlanes slab_planes(const P& p, int n) {
+  return SlabPlanes{static_cast<const float*>(p.tb.corners),
+                    static_cast<long long>(p.tb.cc) + 1, p.cx, p.x0, n};
+}
+
+template <typename E, bool kV16, bool kPlanes = false>
 __global__ void __launch_bounds__(256) resolve_kernel(const ResolveParams p) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
@@ -230,14 +253,18 @@ __global__ void __launch_bounds__(256) resolve_kernel(const ResolveParams p) {
         for (int s = 0; s < 2; ++s) {
           int c[3] = {cell[0], cell[1], cell[2]};
           c[k] += s == 0 ? 1 : -1;
-          const int lx = c[0] - p.x0;
-          const bool valid = c[0] >= 0 && c[1] >= 0 && c[2] >= 0 &&
-                             c[0] + 1 < n && c[1] + 1 < n && c[2] + 1 < n &&
-                             lx >= 0 && lx < p.cx;
           float v8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-          if (valid)
-            load_row<E, kV16>(
-                table + ((lx * cc + c[1]) * cc + c[2]) * p.tb.ch, v8);
+          if (kPlanes) {
+            slab_planes(p, n).corners(c, v8);
+          } else {
+            const int lx = c[0] - p.x0;
+            const bool valid = c[0] >= 0 && c[1] >= 0 && c[2] >= 0 &&
+                               c[0] + 1 < n && c[1] + 1 < n &&
+                               c[2] + 1 < n && lx >= 0 && lx < p.cx;
+            if (valid)
+              load_row<E, kV16>(
+                  table + ((lx * cc + c[1]) * cc + c[2]) * p.tb.ch, v8);
+          }
           f[s] = trilinear(v8, q);
         }
         g[k] = f[0] - f[1];
@@ -592,6 +619,22 @@ __device__ __forceinline__ void add_row8(float* acc_row, const float v[8]) {
   }
 }
 
+// The planes' gradient at the 8 corners of cell c += v: a zero is skipped, a
+// voxel outside the volume or the planes takes none.  Corners j and j + 4
+// (z and z + 1) share one index computation.
+__device__ __forceinline__ void add_planes(float* g, const SlabPlanes& sp,
+                                           const int c[3], const float v[8]) {
+  #pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (v[j] == 0.0f && v[j + 4] == 0.0f) continue;
+    const int x = c[0] + (j & 1), y = c[1] + ((j >> 1) & 1), z = c[2];
+    const bool lo = sp.valid(x, y, z), hi = sp.valid(x, y, z + 1);
+    const long long i = sp.index(x, y, z);
+    if (lo && v[j] != 0.0f) atomicAdd(g + i, v[j]);
+    if (hi && v[j + 4] != 0.0f) atomicAdd(g + i + 1, v[j + 4]);
+  }
+}
+
 // Sums v over each group of lanes that ``peers`` (this lane's
 // __match_any_sync mask) names, by a segmented tree reduction (log2 of the
 // largest group's size rounds of 8 shuffles), into the group's lowest lane,
@@ -624,8 +667,11 @@ __device__ __forceinline__ void row_values(float g, const float w[8],
 }
 
 // One round of a warp: the 32 rays from w0, this lane's of kind ``kind``.
-// Every lane of the warp calls it and none leaves before the merge.
-template <typename E, bool kV16, bool kSlab>
+// Every lane of the warp calls it and none leaves before the merge.  With
+// kPlanes (a slab's planes; kSlab's rows are not used) rows[0] is the hit
+// cell's key on a surface lane, and the group's lowest lane adds the seven
+// merged rows into the planes' gradient by voxel.
+template <typename E, bool kV16, bool kSlab, bool kPlanes>
 __device__ __forceinline__ void backward_round(const ResolveBwdParams& p,
                                                int acc_w, long long w0,
                                                int lane, int kind,
@@ -671,6 +717,8 @@ __device__ __forceinline__ void backward_round(const ResolveBwdParams& p,
   #pragma unroll
   for (int c = 0; c < 8; ++c) w8[c] = 0.0f;
   int a = 0;
+  int hit_cell[3] = {0, 0, 0};
+  int vol_n = 0;
   if (carries) {
     float o_w[3], d_w[3], o[3], d[3];
     #pragma unroll
@@ -721,10 +769,12 @@ __device__ __forceinline__ void backward_round(const ResolveBwdParams& p,
       #pragma unroll
       for (int k = 0; k < 3; ++k) {
         cell[k] = p.cell[3 * i + k];
+        hit_cell[k] = cell[k];
         const float base = static_cast<float>(cell[k]) * h - ext;
         q[k] = ((o[k] + d[k] * t0) - base) / h;
         dh[k] = d[k] / h;
       }
+      vol_n = n;
       const Weights wt(q);
 
       // central differences: each pair of neighbour rows folds into the
@@ -739,7 +789,9 @@ __device__ __forceinline__ void backward_round(const ResolveBwdParams& p,
           c[k] += s == 0 ? 1 : -1;
           float v8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
           const long long row = row_index<kSlab>(p, c, cc);
-          if (row_valid<kSlab>(p, c, n)) {
+          if (kPlanes) {
+            slab_planes(p, n).corners(c, v8);
+          } else if (row_valid<kSlab>(p, c, n)) {
             load_row<E, kV16>(table + row * ch, v8);
             rows[1 + 2 * k + s] = vol_rows + row;
           }
@@ -777,7 +829,12 @@ __device__ __forceinline__ void backward_round(const ResolveBwdParams& p,
       // ``safe`` decides as the plain version does
       float vc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       const long long center_row = row_index<kSlab>(p, cell, cc);
-      if (row_valid<kSlab>(p, cell, n)) {
+      if (kPlanes) {
+        slab_planes(p, n).corners(cell, vc);
+        // the hit cell's key (cells in [-1, n] a side map one to one)
+        rows[0] = ((static_cast<long long>(cell[0]) + 1) * (n + 2) +
+                   (cell[1] + 1)) * (n + 2) + (cell[2] + 1);
+      } else if (row_valid<kSlab>(p, cell, n)) {
         load_row<E, kV16>(table + center_row * ch, vc);
         rows[0] = vol_rows + center_row;
       }
@@ -833,7 +890,16 @@ __device__ __forceinline__ void backward_round(const ResolveBwdParams& p,
       row_values(coef[r], w8, v);
       const bool leads = kMergeRows ? merge_peers(peers, v, lane) == lane
                                     : true;
-      if (leads && rows[r] >= 0) add_row8(acc + rows[r] * acc_w, v);
+      if (kPlanes) {
+        if (leads && rows[0] >= 0) {
+          // row r is the hit cell (r = 0) or its neighbour 1 + 2k + s
+          int c[3] = {hit_cell[0], hit_cell[1], hit_cell[2]};
+          if (r > 0) c[(r - 1) >> 1] += ((r - 1) & 1) ? -1 : 1;
+          add_planes(acc, slab_planes(p, vol_n), c, v);
+        }
+      } else if (leads && rows[r] >= 0) {
+        add_row8(acc + rows[r] * acc_w, v);
+      }
     }
   }
 
@@ -887,7 +953,7 @@ __device__ __forceinline__ void backward_round(const ResolveBwdParams& p,
 // different warps), kBwdRounds at a time, their kinds loaded at once, and
 // loads the next kBwdRounds kinds before it works on these.  acc has rows of acc_w
 // floats (8 or 12), 16-byte aligned.
-template <typename E, bool kV16, bool kSlab>
+template <typename E, bool kV16, bool kSlab, bool kPlanes = false>
 __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
     resolve_bwd_merged_kernel(const ResolveBwdParams p, int acc_w) {
   __shared__ __align__(16) float stage[kBwdThreads / 32][2 * 96];
@@ -915,8 +981,8 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
     for (int r = 0; r < kBwdRounds; ++r) {
       const long long w0 = (warp + (first + r) * warps) * 32;
       if (w0 >= p.rays) break;                 // the whole warp
-      backward_round<E, kV16, kSlab>(p, acc_w, w0, lane, kinds[0],
-                              stage[threadIdx.x >> 5]);
+      backward_round<E, kV16, kSlab, kPlanes>(p, acc_w, w0, lane, kinds[0],
+                                              stage[threadIdx.x >> 5]);
       // the next round's kind to the front, in registers
       #pragma unroll
       for (int q = 0; q + 1 < kBwdRounds; ++q) kinds[q] = kinds[q + 1];
@@ -929,7 +995,7 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
 // The blocks of the merged kernel's grid: enough to cover the rays in one
 // pass of kBwdRounds rounds a warp, at most as many as the SMs hold at once
 // (found once a variant, on the card of its first launch).
-template <typename E, bool kV16, bool kSlab>
+template <typename E, bool kV16, bool kSlab, bool kPlanes>
 long long merged_blocks(long long rays, cudaError_t& err) {
   const long long per_block = static_cast<long long>(kBwdThreads) *
                               kBwdRounds;
@@ -942,20 +1008,22 @@ long long merged_blocks(long long rays, cudaError_t& err) {
                                    device);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, resolve_bwd_merged_kernel<E, kV16, kSlab>, kBwdThreads,
+          &per_sm, resolve_bwd_merged_kernel<E, kV16, kSlab, kPlanes>,
+          kBwdThreads,
           0);
     return static_cast<long long>(max(per_sm, 1)) * sms;
   }();
   return blocks < resident ? blocks : resident;
 }
 
-template <typename E, bool kV16, bool kSlab>
+template <typename E, bool kV16, bool kSlab, bool kPlanes = false>
 cudaError_t launch_merged(const ResolveBwdParams& p, int acc_w,
                           cudaStream_t s) {
   cudaError_t err = cudaSuccess;
-  const long long blocks = merged_blocks<E, kV16, kSlab>(p.rays, err);
+  const long long blocks =
+      merged_blocks<E, kV16, kSlab, kPlanes>(p.rays, err);
   if (err != cudaSuccess) return err;
-  resolve_bwd_merged_kernel<E, kV16, kSlab>
+  resolve_bwd_merged_kernel<E, kV16, kSlab, kPlanes>
       <<<static_cast<unsigned>(blocks), kBwdThreads, 0, s>>>(p, acc_w);
   return cudaGetLastError();
 }
@@ -967,7 +1035,9 @@ cudaError_t launch_merged(const ResolveBwdParams& p, int acc_w,
 // and the table's base are 16-byte aligned).  The table has cx rows in x,
 // row x holding cell x0 + x (a scene's: x0 0, cx cc; one rank's slab of a
 // slab-sharded volume: its own rows, x0 the slab's first plane), and cc in y
-// and z.  Returns cudaGetLastError().
+// and z.  planes 1 reads a slab's f32 voxel planes [cx, cc + 1, cc + 1]
+// from ``corners`` instead (plane x holding global plane x0 + x; bf16 0,
+// v16 0).  Returns cudaGetLastError().
 extern "C" int vrt_resolve_scene(
     const float* o_w, const float* d_w, const int32_t* winner,
     const int32_t* kind, const float* t, const int32_t* cell,
@@ -975,9 +1045,10 @@ extern "C" int vrt_resolve_scene(
     const float* inst_rot, const float* inst_scale, int n_inst,
     const int32_t* n, const float* cell_size, const float* extends,
     const void* corners, int cc, int ch, int bf16, int v16, int x0, int cx,
-    long long rays, float* t_out, float* normal, uint8_t* unlit,
+    long long rays, float* t_out, float* normal, uint8_t* unlit, int planes,
     void* stream) {
-  if (n_inst < 1 || ch < 8) return cudaErrorInvalidValue;
+  if (n_inst < 1 || ch < 8 || (planes && (bf16 || v16 || cx < 1)))
+    return cudaErrorInvalidValue;
   const ResolveParams p{
       o_w, d_w, winner, kind, t, cell, face,
       Instances{inst_volume, inst_pos, inst_rot, inst_scale, nullptr, n_inst},
@@ -985,7 +1056,9 @@ extern "C" int vrt_resolve_scene(
       rays, t_out, normal, unlit, x0, cx};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned grid = static_cast<unsigned>((rays + 255) / 256);
-  if (bf16) {
+  if (planes) {
+    resolve_kernel<float, false, true><<<grid, 256, 0, s>>>(p);
+  } else if (bf16) {
     if (v16) resolve_kernel<uint16_t, true><<<grid, 256, 0, s>>>(p);
     else resolve_kernel<uint16_t, false><<<grid, 256, 0, s>>>(p);
   } else {
@@ -1002,8 +1075,10 @@ extern "C" int vrt_resolve_scene(
 // whose acc_w is 8 or 12 and whose acc, g_o_w and g_d_w are 16-byte aligned;
 // merged 0 the first design (resolve_bwd_kernel), whose acc_w is ch.  bf16,
 // v16, x0 and cx as above: a table whose x rows are not the scene's (x0 0, cx
-// cc) takes the kSlab variants, which read f32 tables only.  Returns
-// cudaGetLastError().
+// cc) takes the kSlab variants, which read f32 tables only.  planes 1 (the
+// merged kernel only) reads a slab's planes as vrt_resolve_scene does, and
+// acc is the f32 gradient of the planes' shape (acc_w is not read).
+// Returns cudaGetLastError().
 extern "C" int vrt_resolve_scene_bwd(
     const float* o_w, const float* d_w, const int32_t* winner,
     const int32_t* kind, const float* t, const int32_t* cell,
@@ -1012,11 +1087,13 @@ extern "C" int vrt_resolve_scene_bwd(
     int n_inst, const int32_t* n, const float* cell_size,
     const float* extends, const void* corners, int cc, int ch, int bf16,
     int v16, int x0, int cx, long long rays, float* g_o_w, float* g_d_w,
-    float* acc, int acc_w, int merged, void* stream) {
+    float* acc, int acc_w, int merged, int planes, void* stream) {
   if (n_inst < 1 || ch < 8 || (g_o_w == nullptr) != (g_d_w == nullptr))
     return cudaErrorInvalidValue;
-  const bool slab = x0 != 0 || cx != cc;
+  const bool slab = planes || x0 != 0 || cx != cc;
   if (slab && (bf16 || cx < 1)) return cudaErrorInvalidValue;
+  if (planes && (!merged || v16)) return cudaErrorInvalidValue;
+  if (planes) acc_w = 8;
   const auto misaligned = [](const void* x) {
     return reinterpret_cast<uintptr_t>(x) % 16 != 0;
   };
@@ -1032,7 +1109,9 @@ extern "C" int vrt_resolve_scene_bwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (merged) {
     cudaError_t err;
-    if (slab)
+    if (planes)
+      err = launch_merged<float, false, true, true>(p, acc_w, s);
+    else if (slab)
       err = v16 ? launch_merged<float, true, true>(p, acc_w, s)
                 : launch_merged<float, false, true>(p, acc_w, s);
     else if (bf16)

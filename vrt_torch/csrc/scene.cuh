@@ -1,6 +1,7 @@
 // What the scene march (march.cu) and the fused resolve (resolve.cu) share:
 // NaN-propagating max / min and sign, the stacked-volume tables, the
-// instance table, and the world -> object transform of a ray.  Every
+// instance table, the world -> object transform of a ray, and the corners
+// of a cell read from one rank's slab planes.  Every
 // function follows the operation order of its plain-torch version, and both
 // sources are built with --fmad=false, so each operation rounds on its own
 // as in eager PyTorch.
@@ -57,6 +58,37 @@ struct Tables {
   const float* sdf;        // [V*N^3] voxel densities, N = C + 1
   int cc;                  // C: cells per axis of the padded tables
   int ch;                  // corner-table channels, 8 or 9
+};
+
+// One rank's x-slab of a slab-sharded volume as its voxel planes: f32
+// [span, nn, nn], plane x holding global voxel plane x0 + x; n voxels a side
+// of the full volume.  A voxel reads 0 outside the volume or outside the
+// planes, as vrt/dist/brick.py::_slab_fetch reads it.
+struct SlabPlanes {
+  const float* sdf;
+  long long nn;
+  int span, x0, n;
+
+  __device__ __forceinline__ bool valid(int x, int y, int z) const {
+    const int lx = x - x0;
+    return x >= 0 && y >= 0 && z >= 0 && x < n && y < n && z < n &&
+           lx >= 0 && lx < span;
+  }
+  // flat index of global voxel (x, y, z) (meaningful where valid)
+  __device__ __forceinline__ long long index(int x, int y, int z) const {
+    return (static_cast<long long>(x - x0) * nn + y) * nn + z;
+  }
+  // the 8 corners of cell c in the corner order (bit k of corner j is its
+  // offset on axis k), each read by voxel: independent loads, z and z + 1
+  // adjacent
+  __device__ __forceinline__ void corners(const int c[3], float v[8]) const {
+    #pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int x = c[0] + (j & 1), y = c[1] + ((j >> 1) & 1),
+                z = c[2] + ((j >> 2) & 1);
+      v[j] = valid(x, y, z) ? __ldg(sdf + index(x, y, z)) : 0.0f;
+    }
+  }
 };
 
 // The scene's instances: world = diag(scale) . R(rot) + pos.

@@ -23,10 +23,21 @@ slab.  ``march_volume_slab`` is the slab march: K7
 tensors, its plain twin ``march_volume_slab_reference`` (``vrt``'s
 ``_march_core`` with the slab's four hooks) on CPU tensors.
 ``resolve_slab_hits`` is the plain resolve; the slab tracer resolves on
-the card through the fused resolve over the slab's corner table
+the card through the fused resolve over the slab's planes
 (``vrt_torch.kernels.resolve.ResolveSlab``: the forward and backward
 kernels), whose backward's plain version is
 ``resolve_slab_backward_reference``.
+
+``SlabVolume.table`` chooses what K7 and the slab resolve read: the planes
+themselves (``"planes"``, the default, as ``vrt``'s voxel fetch reads them)
+or the first design's slab-local packed corner table (``"packed"``,
+[span-1, C, C, 8], 8x the planes' bytes, packed from them where the slab
+first asks for its tables).  Both give the same hits, and the same t and
+normal on every hit inside the volume.  ``"packed"`` is kept only as the
+comparator of the timing runs and of the tests that hold the two designs
+against each other: no entry point of the port sets it, and a caller has
+no reason to (it costs 1.1 GB a rank at config5's 513^3, and its
+gradient as much again in a fit step).
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ HALO = 2  # voxel planes a side: corner stencil +1, normal stencil +2
 
 _FIELDS = ("sdf", "accel", "x_voxel0", "cell_lo", "cell_hi", "n",
            "cell_size", "extends")
+TABLES = ("planes", "packed")
 
 
 @dataclasses.dataclass
@@ -67,36 +79,44 @@ class SlabVolume:
     cell_size: torch.Tensor  # f32 [S]
     extends: torch.Tensor    # f32 [S]
     accel_mode: str = "octree"   # 'octree' | 'chebyshev'
+    table: str = "planes"        # TABLES; "packed" is a comparator only
+
+    def __post_init__(self):
+        if self.table not in TABLES:
+            raise ValueError(f"unknown slab table {self.table!r}")
 
     def local(self, rank: int, device: torch.device | str = "cuda"
               ) -> "SlabVolume":
         """Shard ``rank``'s slab on ``device``: every field without the
         leading axis."""
         return SlabVolume(**{f: getattr(self, f)[rank].to(device)
-                             for f in _FIELDS}, accel_mode=self.accel_mode)
+                             for f in _FIELDS}, accel_mode=self.accel_mode,
+                          table=self.table)
 
     @functools.cached_property
     def march_tables(self) -> dict:
         """What K7 and the slab's fused resolve read, for a local slab:
-        ``corners`` f32 [span-1, C, C, 8], the slab-local corner table
-        (row x is global cell ``x_voxel0 + x``), ``accel_u8`` u8
-        [cps, C, C] over the owned cells (skips clamped to 127, as K1
-        reads them), the slab's scalars as Python numbers, and as the
-        fused resolve's ``volume`` tables.  Rows of
-        cells outside the volume hold halo planes of ``DEFAULT_DENSITY``;
-        the kernels read no such row (a cell that is not inside the volume
-        reads zeros, as everywhere else).
+        ``sdf`` f32 [span, N, N], the planes (plane x is global plane
+        ``x_voxel0 + x``; a voxel outside the volume or the planes reads
+        0), ``accel_u8`` u8 [cps, C, C] over the owned cells (skips clamped
+        to 127, as K1 reads them), the slab's scalars as Python numbers,
+        and as the fused resolve's ``volume`` tables; with ``table ==
+        "packed"`` also ``corners`` f32 [span-1, C, C, 8], the first
+        design's slab-local corner table (row x is global cell ``x_voxel0 +
+        x``; a cell that is not inside the volume reads zeros).
 
         ``corners`` is packed with a graph wherever the planes require a
         gradient, even when first asked for under ``no_grad`` (the march
-        asks first): ``ResolveSlab`` takes it as its differentiable input,
-        and its gradient reaches the planes through the pack's slices.  K7
-        reads its data only."""
+        asks first): ``ResolveSlab`` then takes it as its differentiable
+        input, and its gradient reaches the planes through the pack's
+        slices.  K7 reads data only."""
         if self.sdf.dim() != 3:
             raise ValueError("march_tables belong to one rank's slab")
-        with torch.enable_grad():
-            corners = _pack_slab_corners(self.sdf)
-        return dict(corners=corners,
+        packed = {}
+        if self.table == "packed":
+            with torch.enable_grad():
+                packed["corners"] = _pack_slab_corners(self.sdf)
+        return dict(**packed,
                     accel_u8=_accel_u8(self.accel).contiguous(),
                     sdf=self.sdf.contiguous(),
                     x0=int(self.x_voxel0), cell_lo=int(self.cell_lo),
@@ -108,6 +128,14 @@ class SlabVolume:
                             self.extends.reshape(1),
                             torch.zeros(1, dtype=torch.int32,
                                         device=self.sdf.device)))
+
+    @property
+    def resolve_table(self) -> torch.Tensor:
+        """``ResolveSlab``'s differentiable input: the planes, or with
+        ``table == "packed"`` the packed corner table."""
+        if self.table == "packed":
+            return self.march_tables["corners"]
+        return self.sdf
 
 
 def _pack_slab_corners(sdf):
@@ -158,27 +186,36 @@ def shard_volume(vol, n_shards: int, accel_mode: str = "octree"
         extends=np.full(n_shards, vol.extends, np.float32)), accel_mode)
 
 
-def slab_from_numpy(fields: dict, accel_mode: str = "octree") -> SlabVolume:
+def slab_from_numpy(fields: dict, accel_mode: str = "octree",
+                    table: str = "planes") -> SlabVolume:
     """The port's ``SlabVolume`` from arrays: ``vrt``'s ``SlabVolume``
     fields as numpy arrays (what ``scene_from_numpy`` is for a scene), on
     the CPU."""
     return SlabVolume(**{f: torch.from_numpy(np.array(fields[f]))
-                         for f in _FIELDS}, accel_mode=accel_mode)
+                         for f in _FIELDS}, accel_mode=accel_mode,
+                      table=table)
+
+
+def _slab_voxel_index(slab: SlabVolume, idx):
+    """(flat index into a local slab's planes, valid) of GLOBAL voxel
+    indices ``idx`` [..., 3]: valid where the voxel is inside the volume
+    and among the stored planes; elsewhere the index is clamped."""
+    span, nn = slab.sdf.shape[0], slab.sdf.shape[-1]
+    lx = idx[..., 0] - slab.x_voxel0
+    valid = (torch.all((idx >= 0) & (idx < slab.n), dim=-1)
+             & (lx >= 0) & (lx < span))
+    lxc = torch.clamp(lx, 0, span - 1)
+    ic = torch.clamp(idx[..., 1:], 0, nn - 1)
+    return (lxc.long() * nn + ic[..., 0]) * nn + ic[..., 1], valid
 
 
 def _slab_fetch(slab: SlabVolume):
     """Voxel fetch in GLOBAL indices against a local slab's planes; voxels
     outside the volume or outside the stored planes read 0.0."""
-    span, nn = slab.sdf.shape[0], slab.sdf.shape[-1]
     flat = slab.sdf.reshape(-1)
 
     def fetch(idx):
-        lx = idx[..., 0] - slab.x_voxel0
-        valid = (torch.all((idx >= 0) & (idx < slab.n), dim=-1)
-                 & (lx >= 0) & (lx < span))
-        lxc = torch.clamp(lx, 0, span - 1)
-        ic = torch.clamp(idx[..., 1:], 0, nn - 1)
-        lin = (lxc.long() * nn + ic[..., 0]) * nn + ic[..., 1]
+        lin, valid = _slab_voxel_index(slab, idx)
         return torch.where(valid, flat[lin], 0.0)
 
     return fetch
@@ -446,15 +483,21 @@ def resolve_slab_backward_reference(scene, slab: SlabVolume, o_w, d_w,
                                     hit: MarchHit, g_t, g_normal,
                                     acc_dtype=torch.float32):
     """The vector-Jacobian product of the slab's fused resolve in the world
-    rays and the slab's corner table, in closed form: -> (g_o_w f32 [R,3],
-    g_d_w f32 [R,3], g_corners f32 [cx*C*C, 8]) for the cotangents ``g_t``
-    [R] and ``g_normal`` [R,3] of t and the object-space normal.  The plain
-    version of the slab resolve's backward kernel, as
+    rays and the slab's ``resolve_table``, in closed form: -> (g_o_w f32
+    [R,3], g_d_w f32 [R,3], g_table) for the cotangents ``g_t`` [R] and
+    ``g_normal`` [R,3] of t and the object-space normal.  The plain version
+    of the slab resolve's backward kernel, as
     ``renderer.resolve_scene_backward_reference`` is the scene's: world rays
     through ``scene``'s one instance, ``resolve_hits_backward`` over the
-    seven rows of the table (``slab_corner_index``) and an ``index_add_``
-    in ``acc_dtype``.  Reads ``hit.kind``, ``hit.t`` and ``hit.cell``
-    only."""
+    seven rows of 8 corners, and an ``index_add_`` in ``acc_dtype`` in lane
+    order (a masked corner adds an exact zero into index 0, as
+    ``scatter_rows_reference`` does).  On the planes (``table ==
+    "planes"``): the rows read by voxel as ``_slab_fetch`` reads them, each
+    corner's cotangent added into its voxel, ``g_table`` [span, N, N]; a
+    voxel outside the volume or the stored planes reads 0 and takes none.
+    On the packed table: the rows of ``slab_corner_index``, ``g_table``
+    [cx*C*C, 8], a row outside the volume or the table reading zeros and
+    taking none.  Reads ``hit.kind``, ``hit.t`` and ``hit.cell`` only."""
     from vrt_torch.core import quat as vq
     from vrt_torch.kernels.rows import (gather_rows_reference,
                                         scatter_rows_reference)
@@ -463,20 +506,32 @@ def resolve_slab_backward_reference(scene, slab: SlabVolume, o_w, d_w,
 
     pos, rot, scale = scene.inst_pos[0], scene.inst_rot[0], scene.inst_scale[0]
     o, d = _world_to_object(pos, rot, scale, o_w, d_w)
-    tb = slab.march_tables
-    corners = tb["corners"].detach()
-    cx, cc = corners.shape[0], corners.shape[1]
-    flat = corners.reshape(-1, 8)
     offs = torch.as_tensor(_OFFS7, device=o_w.device)
-    idx = slab_corner_index(hit.cell[:, None, :] + offs, slab.n, tb["x0"],
-                            cx, cc).reshape(-1)
-    rows7 = gather_rows_reference(flat, idx, 8).reshape(-1, 7, 8)
+    cells = hit.cell[:, None, :] + offs                           # [R,7,3]
     r = o_w.shape[0]
+    if slab.table == "packed":
+        tb = slab.march_tables
+        corners = tb["corners"].detach()
+        cx, cc = corners.shape[0], corners.shape[1]
+        flat = corners.reshape(-1, 8)
+        idx = slab_corner_index(cells, slab.n, tb["x0"], cx, cc).reshape(-1)
+        rows7 = gather_rows_reference(flat, idx, 8).reshape(-1, 7, 8)
+    else:
+        sdf = slab.sdf.detach()
+        lin, valid = _slab_voxel_index(
+            slab, cells[..., None, :]
+            + torch.as_tensor(iso.CORNERS, device=o_w.device))    # [R,7,8]
+        rows7 = torch.where(valid, sdf.reshape(-1)[lin], 0.0)
     g_o, g_d, g_rows7 = resolve_hits_backward(
         rows7, slab.cell_size.expand(r), slab.extends.expand(r), o, d, hit,
         g_t, g_normal)
     g_o_w = vq.rotate(rot.expand(r, 4), g_o) / scale
     g_d_w = vq.rotate(rot.expand(r, 4), g_d) / scale
-    g_corners = scatter_rows_reference(g_rows7.reshape(-1, 8), idx,
-                                       flat.shape[0], 8, acc_dtype)
-    return g_o_w, g_d_w, g_corners
+    if slab.table == "packed":
+        return g_o_w, g_d_w, scatter_rows_reference(
+            g_rows7.reshape(-1, 8), idx, flat.shape[0], 8, acc_dtype)
+    g_planes = torch.zeros(sdf.numel(), dtype=acc_dtype, device=o_w.device)
+    g_planes.index_add_(0, torch.where(valid, lin, 0).reshape(-1),
+                        torch.where(valid, g_rows7.to(acc_dtype),
+                                    0.0).reshape(-1))
+    return g_o_w, g_d_w, g_planes.reshape(sdf.shape)

@@ -18,13 +18,16 @@ while the voxels live only in the ranks' slabs.
 
 The fit steps (``make_slab_fit_step``, ``make_slab_fit_step_crossed``)
 differentiate the same frame in the rank's planes.  The march reads the
-tables without a graph; resolve goes through ``ResolveSlab`` (the fused
-resolve's forward and backward kernels over the slab's table on the card),
-whose table gradient reaches the planes through the table's pack and
-``exchange_halos``' backward.  The collectives carry the gradient as
-``vrt``'s transposes do (``vrt_torch.dist.mesh``): the owner sum's backward
-all-reduces the cotangent, the ray all-gather's is the reduce-scatter, and
-the loss's sum over the ranks passes its cotangent through.
+planes without a graph; resolve goes through ``ResolveSlab`` (the fused
+resolve's forward and backward kernels over the slab's planes on the
+card), whose backward returns the planes' gradient, which reaches the
+owners of the halo planes through ``exchange_halos``' backward (with
+``SlabVolume.table == "packed"``, the first design, a table gradient that
+reaches the planes through the table's pack first).  The collectives
+carry the gradient as ``vrt``'s transposes do (``vrt_torch.dist.mesh``):
+the owner sum's backward all-reduces the cotangent, the ray all-gather's
+is the reduce-scatter, and the loss's sum over the ranks passes its
+cotangent through.
 """
 
 from __future__ import annotations
@@ -79,16 +82,17 @@ class SlabTracer(SceneTracer):
         boundary cell's stencil); the sum over the ranks of the owner's
         value and zeros elsewhere replicates it.  On the card, and on the
         CPU where a graph is recorded through the rays or the slab's planes,
-        ``ResolveSlab`` (the fused resolve over the slab's table, forward
-        and backward); else ``resolve_slab_hits``.  The sum over the ranks
-        is differentiable: its backward all-reduces the cotangent."""
+        ``ResolveSlab`` (the fused resolve over the slab's planes, or its
+        packed table, forward and backward); else ``resolve_slab_hits``.
+        The sum over the ranks is differentiable: its backward all-reduces
+        the cotangent."""
         if (o_w.device.type == "cuda"
                 or _needs_autograd(o_w, d_w, self.slab.sdf)):
             from vrt_torch.kernels.resolve import ResolveSlab
 
             t, n_obj, unlit = ResolveSlab.apply(
                 o_w.contiguous(), d_w.contiguous(),
-                self.slab.march_tables["corners"], scene, self.slab,
+                self.slab.resolve_table, scene, self.slab,
                 dataclasses.replace(hit, cell=hit.cell.contiguous(),
                                     face_normal=hit.face_normal.contiguous()),
                 inst.contiguous())
@@ -252,9 +256,10 @@ def make_slab_fit_step(mesh, optimizer, scene: GPUScene,
 
     step(params f32 [span,N,N], opt_state, slab, o, d, targets) -> (params,
     opt_state, loss): ``params`` this rank's planes (halos included),
-    ``slab`` its local ``SlabVolume`` (geometry and accel; its planes are
-    not read), ``o``, ``d`` [R/S,3] and ``targets`` [R/S,3] this rank's
-    rows of the rays (``vrt``'s ``P(axis)``), ``opt_state`` the
+    ``slab`` its local ``SlabVolume`` (geometry, accel and ``table``, the
+    design the kernels read; its planes are not read), ``o``, ``d``
+    [R/S,3] and ``targets`` [R/S,3] this rank's rows of the rays
+    (``vrt``'s ``P(axis)``), ``opt_state`` the
     ``vrt_torch.diff.optim`` optimizer's state of ``params``.  Per step: a
     fresh slab from ``params``, the differentiable halo exchange, the slab
     march (no graph) and closest-hit combine for the primary rays and every

@@ -26,6 +26,13 @@ kernel, runs 64 threads a block with its registers capped.  The first
 design (256 threads a block, registers uncapped) stays beside it as the
 comparator of the timing runs, behind the wrapper's private
 ``_old_design``; no path of the port takes it.  Both give thread i ray i.
+
+K7 has two designs too, chosen by the slab's ``table``: the default
+(``"planes"``) reads a surface cell's corners from the slab's voxel planes
+and runs the capped kernel (``kSlabThreads`` threads a block,
+``kSlabMinBlocks`` blocks an SM); the first design (``"packed"``) reads
+the slab-local packed corner table at 256 threads a block.  Both give the
+twin's hits field by field.
 """
 
 from __future__ import annotations
@@ -237,9 +244,9 @@ def march_slab_cuda(slab, o, d, t_max, interp: bool = True,
     against one rank's slab (a local ``vrt_torch.dist.brick.SlabVolume`` on
     the card), hits in owned cells only, what
     ``march_volume_slab_reference`` computes.  Reads the slab's
-    ``march_tables`` (its slab-local corner table, the owned cells' u8
-    accel and its voxel planes).  Raises on any input K7 does not take;
-    never falls back."""
+    ``march_tables``: the owned cells' u8 accel and the voxel planes, and
+    with ``slab.table == "packed"`` the slab-local corner table (the first
+    design).  Raises on any input K7 does not take; never falls back."""
     global SLAB_LAUNCHES
 
     if o.device.type != "cuda":
@@ -256,8 +263,10 @@ def march_slab_cuda(slab, o, d, t_max, interp: bool = True,
     cc = nn - 1
     cps = tb["cell_hi"] - tb["cell_lo"]
     _check(tb["sdf"], "sdf", torch.float32, (span, nn, nn), dev, who="K7")
-    _check(tb["corners"], "corners", torch.float32, (span - 1, cc, cc, 8),
-           dev, who="K7")
+    corners = tb.get("corners")
+    if slab.table == "packed":
+        _check(corners, "corners", torch.float32, (span - 1, cc, cc, 8),
+               dev, who="K7")
     _check(tb["accel_u8"], "accel_u8", torch.uint8, (cps, cc, cc), dev,
            who="K7")
     if tb["n"] != nn:
@@ -269,7 +278,8 @@ def march_slab_cuda(slab, o, d, t_max, interp: bool = True,
     build()
     err = _lib.vrt_march_slab(
         o.data_ptr(), d.data_ptr(), t_max.data_ptr(), lanes,
-        tb["accel_u8"].data_ptr(), tb["corners"].data_ptr(),
+        tb["accel_u8"].data_ptr(),
+        corners.data_ptr() if slab.table == "packed" else None,
         tb["sdf"].data_ptr(), cc, span, tb["x0"], tb["cell_lo"],
         tb["cell_hi"], tb["n"], tb["h"], tb["ext"],
         int(slab.accel_mode == "chebyshev"), int(bool(interp)),

@@ -10,10 +10,11 @@
     resolve_slab_cuda(scene, slab, o_w, d_w, hit, inst)
     resolve_slab_backward_cuda(scene, slab, o_w, d_w, hit, inst, g_t,
                                g_normal)
-        -> (g_o_w, g_d_w, g_corners f32 [cx*C*C, 8])
-    ResolveSlab.apply(o_w, d_w, corners, scene, slab, hit, inst)
+        -> (g_o_w, g_d_w, g_planes f32 [span, N, N]; the first design's
+            g_corners f32 [cx*C*C, 8])
+    ResolveSlab.apply(o_w, d_w, slab.resolve_table, scene, slab, hit, inst)
         -> (t, normal, unlit), differentiable in o_w, d_w and the slab's
-           corner table
+           planes (the first design: its packed corner table)
 
 Forward: one thread per ray computes what
 ``vrt_torch.render.renderer.resolve_scene_reference`` (its plain version)
@@ -40,13 +41,19 @@ transforms: ``renderer.resolve_scene`` keeps a caller that wants one on
 the plain path.
 
 ``ResolveSlab`` is the same pair over one rank's slab of a slab-sharded
-volume (``vrt_torch.dist.brick``): the slab's f32 table of cx x-rows, row x
-holding global cell ``x_voxel0 + x``, and the slab's variants of the
-backward kernels, which skip a cell outside those rows as the forward reads
-zeros there.  On CPU tensors: ``brick.resolve_slab_hits`` forward and the
-closed form ``brick.resolve_slab_backward_reference``.  Its table's
-gradient reaches the slab's planes by autograd through the pack
-(``brick._pack_slab_corners``, eight strided slices).
+volume (``vrt_torch.dist.brick``).  By default (``slab.table ==
+"planes"``) the kernels read the slab's voxel planes, a cell's 8 corners
+voxel by voxel (a voxel outside the volume or the planes reads 0), and the
+backward's merged kernel adds the corner cotangents into an f32 gradient of
+the planes' shape that the wrapper zeroes: the planes are the Function's
+differentiable input and no table exists.  The first design (``"packed"``)
+reads the slab's packed f32 table of cx x-rows, row x holding global cell
+``x_voxel0 + x``, through the slab's variants of both backward designs,
+which skip a cell outside those rows as the forward reads zeros there; its
+table's gradient reaches the planes by autograd through the pack
+(``brick._pack_slab_corners``, eight strided slices).  On CPU tensors:
+``brick.resolve_slab_hits`` forward and the closed form
+``brick.resolve_slab_backward_reference`` of the slab's table.
 
 ``LAUNCHES`` counts the launches of each kernel; ``SLAB_LAUNCHES`` the
 launches over a slab's table (``resolve_slab_cuda`` and
@@ -82,11 +89,11 @@ def build() -> str:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.vrt_resolve_scene.argtypes = ([ptr] * 11 + [i32] + [ptr] * 4
                                       + [i32] * 6 + [ctypes.c_longlong]
-                                      + [ptr] * 3 + [ptr])
+                                      + [ptr] * 3 + [i32] + [ptr])
     lib.vrt_resolve_scene.restype = i32
     lib.vrt_resolve_scene_bwd.argtypes = ([ptr] * 12 + [i32] + [ptr] * 4
                                           + [i32] * 6 + [ctypes.c_longlong]
-                                          + [ptr] * 3 + [i32] * 2 + [ptr])
+                                          + [ptr] * 3 + [i32] * 3 + [ptr])
     lib.vrt_resolve_scene_bwd.restype = i32
     _lib = lib
     return log
@@ -188,7 +195,7 @@ def resolve_scene_cuda(scene, o_w, d_w, hit: MarchHit, inst):
         hit.kind.data_ptr(), hit.t.data_ptr(), hit.cell.data_ptr(),
         hit.face_normal.data_ptr(), *_scene_args(scene, table, n_inst), 0,
         scene.volumes.corners.shape[1], rays, t.data_ptr(), normal.data_ptr(),
-        unlit.data_ptr(), _stream(dev))
+        unlit.data_ptr(), 0, _stream(dev))
     if err != 0:
         raise RuntimeError(f"fused resolve launch failed: cudaError {err}")
     LAUNCHES["forward"] += 1
@@ -200,18 +207,19 @@ def resolve_slab_cuda(scene, slab, o_w, d_w, hit: MarchHit, inst):
     combined hits of the slab march (``vrt_torch.dist.slab_render``): world
     rays through the transform of ``scene``'s one instance, the corner
     rows read from one rank's slab (a local
-    ``vrt_torch.dist.brick.SlabVolume``): its slab-local f32 table
-    (``march_tables``), whose row x is global cell ``x_voxel0 + x``.  A
-    cell outside the volume or outside the slab's rows reads zeros.  What
-    ``vrt_torch.dist.brick.resolve_slab_hits`` computes on the lanes whose
-    hit cell the slab owns; no graph.  Counted in ``LAUNCHES["forward"]``
-    and ``SLAB_LAUNCHES["forward"]``.  Raises on any input the kernel does
-    not take; never falls back."""
+    ``vrt_torch.dist.brick.SlabVolume``): from its voxel planes
+    (``march_tables["sdf"]``, plane x holding global plane ``x_voxel0 +
+    x``), a voxel outside the volume or the planes reading 0; with
+    ``slab.table == "packed"`` from its slab-local f32 table, whose row x
+    is global cell ``x_voxel0 + x`` (a cell outside the volume or the rows
+    reads zeros).  What ``vrt_torch.dist.brick.resolve_slab_hits`` computes
+    on the lanes whose hit cell the slab owns (both designs equal there but
+    on a cell with a voxel outside the volume); no graph.  Counted in
+    ``LAUNCHES["forward"]`` and ``SLAB_LAUNCHES["forward"]``.  Raises on
+    any input the kernel does not take; never falls back."""
     dev, rays, table, n_inst, tb = _check_slab_inputs(
         scene, slab, o_w, d_w, hit, inst, "the slab's fused resolve")
     _check(hit.face_normal, "hit.face_normal", torch.float32, (rays, 3), dev)
-    corners = tb["corners"]
-    cx, cc = corners.shape[0], corners.shape[1]
     n, h, ext, _ = tb["volume"]
     t = torch.empty(rays, dtype=torch.float32, device=dev)
     normal = torch.empty((rays, 3), dtype=torch.float32, device=dev)
@@ -223,9 +231,9 @@ def resolve_slab_cuda(scene, slab, o_w, d_w, hit: MarchHit, inst):
         o_w.data_ptr(), d_w.data_ptr(), inst.data_ptr(),
         hit.kind.data_ptr(), hit.t.data_ptr(), hit.cell.data_ptr(),
         hit.face_normal.data_ptr(), *(x.data_ptr() for x in table), n_inst,
-        n.data_ptr(), h.data_ptr(), ext.data_ptr(), corners.data_ptr(), cc,
-        8, 0, int(load_path(corners) == "v16"), tb["x0"], cx, rays,
-        t.data_ptr(), normal.data_ptr(), unlit.data_ptr(), _stream(dev))
+        n.data_ptr(), h.data_ptr(), ext.data_ptr(), *_slab_table_args(slab),
+        rays, t.data_ptr(), normal.data_ptr(), unlit.data_ptr(),
+        int(slab.table == "planes"), _stream(dev))
     if err != 0:
         raise RuntimeError(f"the slab's fused resolve launch failed: "
                            f"cudaError {err}")
@@ -242,9 +250,11 @@ def _check_slab_inputs(scene, slab, o_w, d_w, hit, inst, who):
         raise ValueError(f"{who} takes a scene of one instance, got "
                          f"{n_inst}")
     tb = slab.march_tables
-    corners = tb["corners"]
-    cx, cc = corners.shape[0], corners.shape[1]
-    _check(corners, "slab corners", torch.float32, (cx, cc, cc, 8), dev)
+    span, nn = tb["sdf"].shape[0], tb["sdf"].shape[-1]
+    _check(tb["sdf"], "slab planes", torch.float32, (span, nn, nn), dev)
+    if slab.table == "packed":
+        _check(tb["corners"], "slab corners", torch.float32,
+               (span - 1, nn - 1, nn - 1, 8), dev)
     n, h, ext, volume0 = tb["volume"]
     for x, name, dtype in ((n, "n", torch.int32), (h, "cell_size",
                                                     torch.float32),
@@ -253,6 +263,20 @@ def _check_slab_inputs(scene, slab, o_w, d_w, hit, inst, who):
         _check(x, f"slab {name}", dtype, (1,), dev)
     # the instance's transform, with the slab as its volume 0
     return dev, rays, (volume0,) + tuple(table[1:]), n_inst, tb
+
+
+def _slab_table_args(slab):
+    """The slab's table as both C functions take it: (table, cc, ch, bf16,
+    v16, x0, cx): the planes (cx their span) or the first design's packed
+    rows."""
+    tb = slab.march_tables
+    if slab.table == "planes":
+        planes = tb["sdf"]
+        return (planes.data_ptr(), planes.shape[-1] - 1, 8, 0, 0, tb["x0"],
+                planes.shape[0])
+    corners = tb["corners"]
+    return (corners.data_ptr(), corners.shape[1], 8, 0,
+            int(load_path(corners) == "v16"), tb["x0"], corners.shape[0])
 
 
 def accumulator(rows: int, ch: int, device):
@@ -311,7 +335,7 @@ def resolve_scene_backward_cuda(scene, o_w, d_w, hit: MarchHit, inst, g_t,
         g_o_w.data_ptr() if rays_grad else None,
         g_d_w.data_ptr() if rays_grad else None,
         buf.data_ptr() if table_grad else None,
-        buf.shape[1] if table_grad else 0, int(not _old_design),
+        buf.shape[1] if table_grad else 0, int(not _old_design), 0,
         _stream(dev))
     if err != 0:
         raise RuntimeError(f"fused resolve backward launch failed: "
@@ -327,12 +351,17 @@ def resolve_slab_backward_cuda(scene, slab, o_w, d_w, hit: MarchHit, inst,
     """Launch the slab resolve's backward on ``torch.cuda.current_stream()``:
     the cotangents ``g_t`` [R] and ``g_normal`` [R,3] of
     ``resolve_slab_cuda``'s t and normal pulled back to the world rays and
-    to the rank's slab table (``slab.march_tables["corners"]``, f32 [cx, C,
-    C, 8]) as an f32 [cx*C*C, 8] ``accumulator`` that this zeroes: the slab's
-    variants of ``resolve_scene_backward_cuda``'s two designs (the merged
-    kernel by default, ``_old_design`` the first), with the row of cell c at
-    ``((c[0] - x0) * C + c[1]) * C + c[2]`` and nothing added for a cell
-    outside the table's rows.  Its plain version is
+    to the rank's ``slab.resolve_table``.  By default the merged kernel's
+    planes variant adds them into an f32 gradient of the planes' shape
+    [span, N, N], which this zeroes: each corner into its voxel, nothing
+    into a voxel outside the volume or the planes.  With ``slab.table ==
+    "packed"`` (the first design) into an f32 [cx*C*C, 8] ``accumulator``
+    that this zeroes, through the slab's variants of
+    ``resolve_scene_backward_cuda``'s two designs (the merged kernel, or
+    with ``_old_design`` the first, which only a packed table takes), the
+    row of cell c at ``((c[0] - x0) * C + c[1]) * C + c[2]`` and nothing
+    added for a cell outside the table's rows.  The ray gradients of every
+    design are bit-equal.  Its plain version is
     ``brick.resolve_slab_backward_reference``.  Counted in
     ``LAUNCHES["backward"]`` and ``SLAB_LAUNCHES["backward"]``.  Raises on
     any input the kernel does not take; never falls back."""
@@ -340,15 +369,18 @@ def resolve_slab_backward_cuda(scene, slab, o_w, d_w, hit: MarchHit, inst,
         scene, slab, o_w, d_w, hit, inst, "the slab resolve's backward")
     _check(g_t, "g_t", torch.float32, (rays,), dev)
     _check(g_normal, "g_normal", torch.float32, (rays, 3), dev)
-    corners = tb["corners"]
-    cx, cc = corners.shape[0], corners.shape[1]
+    planes = slab.table == "planes"
+    if planes and _old_design:
+        raise ValueError("the slab resolve backward's first design reads "
+                         "the packed table")
     n, h, ext, _ = tb["volume"]
     g_o_w = g_d_w = acc = None
     if rays_grad:
         g_o_w = torch.empty((rays, 3), dtype=torch.float32, device=dev)
         g_d_w = torch.empty((rays, 3), dtype=torch.float32, device=dev)
     if table_grad:
-        acc = accumulator(cx * cc * cc, 8, dev)[0]
+        acc = (torch.zeros_like(tb["sdf"]) if planes else
+               accumulator(tb["corners"].numel() // 8, 8, dev)[0])
     if rays == 0 or not (rays_grad or table_grad):
         return g_o_w, g_d_w, acc
     build()
@@ -357,12 +389,11 @@ def resolve_slab_backward_cuda(scene, slab, o_w, d_w, hit: MarchHit, inst,
         hit.kind.data_ptr(), hit.t.data_ptr(), hit.cell.data_ptr(),
         g_t.data_ptr(), g_normal.data_ptr(), *(x.data_ptr() for x in table),
         n_inst, n.data_ptr(), h.data_ptr(), ext.data_ptr(),
-        corners.data_ptr(), cc, 8, 0, int(load_path(corners) == "v16"),
-        tb["x0"], cx, rays,
+        *_slab_table_args(slab), rays,
         g_o_w.data_ptr() if rays_grad else None,
         g_d_w.data_ptr() if rays_grad else None,
         acc.data_ptr() if table_grad else None, 8, int(not _old_design),
-        _stream(dev))
+        int(planes), _stream(dev))
     if err != 0:
         raise RuntimeError(f"the slab resolve's backward launch failed: "
                            f"cudaError {err}")
@@ -426,20 +457,21 @@ class ResolveScene(torch.autograd.Function):
 
 class ResolveSlab(torch.autograd.Function):
     """The slab tracer's resolve with its gradient in the world rays and
-    the rank's slab table: ``resolve_slab_cuda`` and
-    ``resolve_slab_backward_cuda`` on CUDA tensors; on CPU tensors
-    ``brick.resolve_slab_hits`` (its t and normal on the lanes whose hit the
-    slab owns are the kernel's) and the closed form
-    ``brick.resolve_slab_backward_reference``.  ``corners`` is
-    ``slab.march_tables["corners"]`` (passed apart so that autograd sees it;
-    it carries the graph back to the planes).  Saves the rays, the hit's
-    kind, t and cell and the slab, whose table the backward re-reads."""
+    the rank's ``slab.resolve_table`` (the planes; the first design's packed
+    corner table): ``resolve_slab_cuda`` and ``resolve_slab_backward_cuda``
+    on CUDA tensors; on CPU tensors ``brick.resolve_slab_hits`` (its t and
+    normal on the lanes whose hit the slab owns are the kernel's) and the
+    closed form ``brick.resolve_slab_backward_reference``.  ``table`` is
+    ``slab.resolve_table``, passed apart so that autograd sees it (the
+    packed table carries the graph back to the planes through its pack).
+    Saves the rays, the hit's kind, t and cell and the slab, whose table the
+    backward re-reads."""
 
     @staticmethod
-    def forward(ctx, o_w, d_w, corners, scene, slab, hit, inst):
-        if corners is not slab.march_tables["corners"]:
-            raise ValueError("ResolveSlab: corners must be the slab's "
-                             "corner table")
+    def forward(ctx, o_w, d_w, table, scene, slab, hit, inst):
+        if table is not slab.resolve_table:
+            raise ValueError("ResolveSlab: table must be the slab's "
+                             "resolve_table")
         if o_w.device.type == "cuda":
             t, normal, unlit = resolve_slab_cuda(scene, slab, o_w, d_w, hit,
                                                  inst)
@@ -472,8 +504,8 @@ class ResolveSlab(torch.autograd.Function):
 
             g_o_w, g_d_w, acc = resolve_slab_backward_reference(
                 ctx.scene, ctx.slab, o_w, d_w, hit, g_t, g_normal)
-        corners = ctx.slab.march_tables["corners"]
+        table = ctx.slab.resolve_table
         return (g_o_w if ctx.needs_input_grad[0] else None,
                 g_d_w if ctx.needs_input_grad[1] else None,
-                acc.reshape(corners.shape) if table_grad else None,
+                acc.reshape(table.shape) if table_grad else None,
                 None, None, None, None)
