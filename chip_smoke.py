@@ -244,6 +244,26 @@ Phases, each of which raises on failure:
              --res 9 --rays 4096 --steps 3 --shards 1 2 4`` in a process of
              its own, its rows and summary printed (S ranks share this one
              card: the efficiencies are one card's).
+13. bench  -- ``python -m vrt_torch.apps.bench --configs 1 2 3 8 4 6 7 5``
+             (``vrt/apps/bench.py``'s eight cells) in a process of its own:
+             eight rows with ``vrt``'s labels in ``vrt``'s order under a
+             title naming the card, printed.  config7 (12 instances of two
+             resolution-6 volumes, 512x512): three frames with their
+             launches asserted; every scene-march launch of one frame
+             against its plain version (the 0.1% gate) and its first design
+             (old, new, new, old), with SIMT efficiency and the lanes on the
+             step cap; every fused-resolve and shade launch against its
+             plain version; the 64x64 frame against ``vrt``'s CPU render
+             (``tests/fixtures/config7_r6_64x64.npy``) at the f32 golden
+             tolerances.  config4 (the 257^3 sphere with per-voxel colours
+             and a bf16 table, 2 views of 256x256, Adam at 1e-2): three
+             steps with their launches and peak memory; every kernel launch
+             of one step, forward and backward, against its plain version;
+             the step's gradients against the same step on the plain stages
+             (``FIT_COS_TOL``, and ``BF16_DIFF_TOL`` for the bf16
+             tables' rounding); a profile, and the colour table's repack,
+             its backward, ``rebuild_accel`` and the corner pack's backward
+             each timed alone.
 Last, two yardsticks that the port uses nowhere: the 1080p frame with eager
 shading captured into one CUDA graph and replayed (the run fails unless the
 capture succeeds and the replay gives the eager frame), and ``torch.compile``
@@ -354,6 +374,13 @@ FIT_CAMS = [dict(position=(320.0, 0.0, 40.0), rotation=(0.0, 0.0, 1.0, 0.0),
 # FIT_DIFF_TOL * max|g| (atomics and the card's own rounding of the
 # shading math move the gradients in their last bits)
 FIT_LOSS_RTOL, FIT_COS_TOL, FIT_DIFF_TOL = 1e-5, 1e-8, 1e-4
+# config4's bf16 tables: each table cotangent is an f32 sum rounded once
+# to bf16, and the plain path (K3's scatter, autograd) adds in another order
+# than the kernels, so an entry may land one bf16 step (2^-8 of itself)
+# from the other's: the SDF and colour gradients of the two are held to
+# FIT_COS_TOL and to a largest difference of one bf16 step of the largest
+# |g| (the kernel step against itself gives the same bits)
+BF16_DIFF_TOL = 2.0 ** -8
 
 
 def _compare(tag, a, b, who="K1 vs twin"):
@@ -2413,9 +2440,10 @@ def _no_numpy_voxelizer():
         vox.voxelize_mesh = saved
 
 
-def _run_cli(args, tag, timeout=600):
+def _run_cli(args, tag, timeout=600, echo=False):
     """``python -m <args>`` from the checkout's root in a process of its
-    own; fails unless it exits 0.  Returns its host seconds."""
+    own; fails unless it exits 0.  With ``echo`` its standard error is
+    printed.  Returns its host seconds."""
     import subprocess
 
     env = dict(os.environ)
@@ -2429,6 +2457,9 @@ def _run_cli(args, tag, timeout=600):
     if proc.returncode != 0:
         raise AssertionError(f"{tag} exited {proc.returncode}:\n"
                              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    if echo:
+        for line in proc.stderr.strip().splitlines():
+            print(f"  {tag}: {line}", flush=True)
     return seconds
 
 
@@ -4063,6 +4094,341 @@ def _slabfit(dev, card, sync, td, geometry):
                          bound=_sum_bounds(bwd_bounds)))
 
 
+# ---- phase 13: the bench app, config7's 12 instances, config4's 257^3 fit ----
+
+CONFIG7_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                               "config7_r6_64x64.npy")
+CONFIG7_SIZE = 512
+CONFIG4_SIZE, CONFIG4_VIEWS = 256, 2
+
+
+def _bench_app(card):
+    """``python -m vrt_torch.apps.bench`` over ``vrt``'s eight cells in a
+    process of its own, its table written to a temporary directory: exit
+    0, a title naming ``card``, eight rows with ``vrt``'s labels in
+    ``vrt``'s order, every time and rate positive.  The table is printed.
+    Returns dict(seconds, rows (label, ms, rays_per_s))."""
+    import tempfile
+
+    from vrt_torch.apps import bench
+
+    labels = [bench.config3_label(257) if c == 3 else
+              bench.config4_label(CONFIG4_VIEWS, CONFIG4_SIZE) if c == 4
+              else bench.LABELS[c] for c in bench.ORDER]
+    tag = "python -m vrt_torch.apps.bench"
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "BENCH.md")
+        seconds = _run_cli(["vrt_torch.apps.bench", "--configs",
+                            *(str(c) for c in bench.ORDER), "--out", out],
+                           tag, timeout=900, echo=True)
+        with open(out) as f:
+            lines = f.read().strip().splitlines()
+    print(f"{tag} --configs {' '.join(str(c) for c in bench.ORDER)} on "
+          f"{card}: {seconds:.1f}s; its table:", flush=True)
+    for line in lines:
+        print(f"  {line}", flush=True)
+    rows = []
+    for line in lines[4:]:
+        label, ms, rps = (c.strip() for c in line.strip("|").split("|"))
+        rows.append(dict(label=label, ms=float(ms),
+                         rays_per_s=float(rps.replace(",", ""))))
+    if lines[0] != f"# vrt_torch benchmarks on {card}" or \
+            lines[2] != "| config | ms/frame | rays/s |" or \
+            [r["label"] for r in rows] != labels or \
+            not all(r["ms"] > 0 and r["rays_per_s"] > 0 for r in rows):
+        raise AssertionError(f"the bench app's table is not vrt's eight "
+                             f"rows: {lines}")
+    return dict(seconds=seconds, rows=rows)
+
+
+def _kernel_rows(held, tag):
+    """Each held kernel's summed ms, plain ms and bound, printed."""
+    rows = {}
+    for name, got in held.items():
+        for stage in (("surface", "combine") if name == "shade" else
+                      ("surface_bwd", "combine_bwd") if name == "shade_bwd"
+                      else (None,)):
+            box = got[stage] if stage else got
+            ms, plain = box["ms"], box["plain_ms"]
+            ms = sum(ms) if isinstance(ms, list) else ms
+            plain = sum(plain) if isinstance(plain, list) else plain
+            rows[stage or name] = dict(ms=ms, plain_ms=plain,
+                                       bound=box["bound"])
+    print(f"{tag} kernels: " + "; ".join(
+        f"{k} {r['ms']:.4f} ms (plain {r['plain_ms']:.2f} ms), bound "
+        f"{r['bound']['bound_ms']:.4f} ms ({r['bound']['bytes']} B, by "
+        f"{r['bound']['bound_by']}) = {r['bound']['bound_ms'] / r['ms']:.0%} "
+        f"of the kernel" for k, r in rows.items()), flush=True)
+    return rows
+
+
+def _config7(dev, card, sync, zero_counts, counts):
+    """Phase 13, config7 (``vrt/apps/bench.py``'s
+    ``bench_many_instances``): 12 instances of two resolution-6 volumes
+    (``bench.config7_scene``) at 512x512.  Three frames after a warm-up,
+    their launches asserted; every scene-march launch of one frame against
+    ``march_scene_reference`` over the twin (the 0.1% gate) and beside its
+    first design (old, new, new, old), with its SIMT efficiency and the
+    lanes on the 255-step cap; every fused-resolve and shade launch against
+    its plain version; the 64x64 frame against ``vrt``'s CPU render
+    (``CONFIG7_FIXTURE``) at the f32 golden tolerances of
+    tests/test_golden_full.py.  Returns dict(counts (of the three frames),
+    held, numbers)."""
+    import numpy as np
+    import torch
+
+    from vrt_torch.apps import bench
+    from vrt_torch.render.gpuscene import RenderMode
+    from vrt_torch.render.renderer import render_image
+
+    mode, size = RenderMode(), CONFIG7_SIZE
+    scene = bench.config7_scene(6, device=dev)
+    if scene.num_instances != 12:
+        raise AssertionError(f"config7: {scene.num_instances} instances")
+
+    def frame():
+        return render_image(scene, size, size, mode)
+
+    frame()
+    sync()
+    zero_counts()
+    runs = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        img = frame()
+        sync()
+        runs.append(time.perf_counter() - t0)
+    c7_counts = counts()
+    levels, traces = _resolves(scene), _traces(scene)
+    want = dict(k1=0, scene=3 * traces, resolve=3 * levels, resolve_bwd=0,
+                gather=0, scatter=0, scatter_v4=0, scatter_scalar=0,
+                surface=3 * levels, combine=3 * levels, surface_bwd=0,
+                combine_bwd=0)
+    if c7_counts != want:
+        raise AssertionError(f"launches in 3 config7 frames {c7_counts}, "
+                             f"expected {want}")
+    if tuple(img.shape) != (size, size, 4) or \
+            not bool(torch.isfinite(img).all()):
+        raise AssertionError("config7's frame is not finite")
+    median = statistics.median(runs) * 1e3
+    print(f"config7 {size}x{size} frame on {card}: median {median:.2f} ms "
+          f"(runs {', '.join(f'{r * 1e3:.2f}' for r in runs)} ms), "
+          f"{size * size / median * 1e3:.0f} rays/s; per frame scene march "
+          f"{traces}, fused resolve {levels}, shade surface and combine "
+          f"{levels} each", flush=True)
+
+    held = {}
+    tag = f"config7 {size}x{size} frame"
+
+    def marches():
+        held["scene"] = _scene_calls(frame, traces, tag, width=size)
+
+    def resolves():
+        held["fused"] = _resolve_calls(marches, levels, tag)
+    held["shade"] = _shade_calls(resolves, levels, tag)
+    _kernel_rows(held, f"config7 on {card}")
+
+    want = np.load(CONFIG7_FIXTURE)
+    got = render_image(scene, 64, 64, mode)[..., :3].cpu().numpy()
+    diff = np.abs(got - want)
+    q98 = float(np.quantile(diff, 0.98))
+    mean = float(diff.mean())
+    outl = float((diff.max(axis=-1) > 0.05).mean())
+    print(f"config7 64x64 vs vrt fixture: q98 {q98:.2e} (< 6e-3), mean "
+          f"{mean:.2e} (< 2.5e-3), pixels off > 0.05 {outl:.2e} (< 0.005)",
+          flush=True)
+    if not (np.isfinite(got).all() and q98 < 6e-3 and mean < 2.5e-3
+            and outl < 0.005):
+        raise AssertionError("config7's 64x64 frame disagrees with the vrt "
+                             "fixture")
+    numbers = dict(frame_ms=median, runs_ms=[r * 1e3 for r in runs],
+                   launches_per_frame=traces + 3 * levels,
+                   fixture_q98=q98, fixture_mean=mean,
+                   fixture_outliers=outl,
+                   capped=held["scene"]["capped"],
+                   simt_flat=held["scene"]["simt_flat"],
+                   simt_tiled=held["scene"]["simt_tiled"])
+    return dict(counts=c7_counts, held=held, numbers=numbers)
+
+
+def _config4(dev, card, sync, zero_counts, counts):
+    """Phase 13, config4 (``vrt/apps/bench.py``'s ``bench_fit_257``): the
+    257^3 sphere with per-voxel colours and a bf16 corner table
+    (``bench.config4_scene``), 2 views of 256x256, zero targets, Adam at
+    1e-2, through ``make_fit_step``.  Three steps after a warm-up, their
+    launches and peak ``max_memory_allocated``; every scene-march,
+    fused-resolve (forward and backward) and shade (forward and backward)
+    launch of one step against its plain version; the step's gradients on
+    the kernels against the same step on the plain stages (eager shading,
+    resolve on the plain path) at phase 8's cosine (``FIT_COS_TOL``) and
+    within ``BF16_DIFF_TOL`` of the largest |g| (with the kernel step's
+    spread against itself run again beside it); a profile of one step, and the device time of its
+    pieces each alone: the colour table's repack and its backward, the
+    corner table's pack and its backward, ``rebuild_accel`` at 257^3.
+    Returns dict(counts (of the three steps), held, numbers)."""
+    import torch
+
+    from vrt_torch.apps import bench
+    from vrt_torch.diff.fit import (_value_and_grad, graft_and_rebuild,
+                                    graft_params, make_fit_step,
+                                    rebuild_accel, render_views)
+    from vrt_torch.diff.optim import adam
+    from vrt_torch.kernels._timing import device_ms
+    from vrt_torch.march.types import pack_cell_corners
+    from vrt_torch.render.gpuscene import RenderMode, pack_voxel_color_corners
+    from vrt_torch.volume.accel import build_accel
+
+    mode, size, views = RenderMode(), CONFIG4_SIZE, CONFIG4_VIEWS
+    t0 = time.perf_counter()
+    scene, cams = bench.config4_scene(8, views, device=dev)
+    sync()
+    build_s = time.perf_counter() - t0
+    corners, colors = scene.volumes.corners, scene.voxel_color_corners
+    table_mb = corners.numel() * corners.element_size() / 1e6
+    colour_mb = colors.numel() * colors.element_size() / 1e6
+    print(f"config4 scene on {card}: built in {build_s:.1f}s; corners "
+          f"{tuple(corners.shape)} {corners.dtype} = {table_mb:.0f} MB, "
+          f"colour table {tuple(colors.shape)} {colors.dtype} = "
+          f"{colour_mb:.0f} MB", flush=True)
+    if tuple(corners.shape) != (1, 256, 256, 256, 8) or \
+            corners.dtype != torch.bfloat16 or colors.dtype != torch.bfloat16:
+        raise AssertionError("config4's tables are not 257^3 bf16")
+    params = bench._fit_params(scene)
+    opt = adam(bench.ADAM_LR)
+    state = opt.init(params)
+    step = make_fit_step(scene, cams, size, size, mode, opt)
+    targets = torch.zeros((views, size * size, 3), device=dev)
+    start = {k: v.clone() for k, v in params.items()}
+    params, state, loss = step(params, state, targets)        # warm-up
+    sync()
+    losses = [float(loss)]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    runs = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, targets)
+        sync()
+        runs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    c4_counts = counts()
+    levels, traces = _resolves(scene), _traces(scene)
+    want = dict(k1=0, scene=3 * views * traces, resolve=3 * views * levels,
+                resolve_bwd=3 * views * levels, gather=0, scatter=0,
+                scatter_v4=0, scatter_scalar=0, surface=3 * views * levels,
+                combine=3 * views * levels,
+                surface_bwd=3 * views * levels,
+                combine_bwd=3 * views * levels)
+    if c4_counts != want:
+        raise AssertionError(f"launches in 3 config4 steps {c4_counts}, "
+                             f"expected {want}")
+    moved = {k: (v != start[k]).float().mean().item()
+             for k, v in params.items()}
+    del start
+    median = statistics.median(runs) * 1e3
+    print(f"config4 fit step ({views} views {size}x{size}) on {card}: "
+          f"median {median:.1f} ms/step (runs "
+          f"{', '.join(f'{r * 1e3:.1f}' for r in runs)} ms), "
+          f"{views * size * size / median * 1e3:.0f} rays/s forward+"
+          f"backward; peak max_memory_allocated {peak / 2**30:.2f} GiB; "
+          f"losses {', '.join(f'{v:.6f}' for v in losses)} (warm-up first); "
+          f"per step {c4_counts['scene'] // 3} scene marches, "
+          f"{c4_counts['resolve'] // 3} fused resolves and their "
+          f"backwards, {c4_counts['surface'] // 3} shade surface and "
+          f"combine launches and their backwards; entries moved "
+          f"{', '.join(f'{k} {v:.2%}' for k, v in moved.items())}",
+          flush=True)
+    if not all(v == v for v in losses) or not all(moved.values()):
+        raise AssertionError(f"config4: losses {losses}, moved {moved}")
+
+    def one_step():
+        return step(params, state, targets)
+
+    held = {}
+    tag = f"config4 fit step ({views} views {size}x{size})"
+    held["scene"] = _scene_calls(one_step, views * traces, tag, width=size)
+    held["fused"] = _resolve_calls(one_step, views * levels, tag)
+    held["resolve_bwd"] = _resolve_bwd_calls(one_step, views * levels, tag)
+    held["shade"] = _shade_calls(one_step, views * levels, tag)
+    held["shade_bwd"] = _shade_bwd_calls(one_step, views * levels, tag)
+    rows = _kernel_rows(held, f"config4 on {card}")
+
+    # the step's gradients on the kernels against the plain stages
+    def loss_fn(p):
+        s = graft_and_rebuild(scene, p)
+        return torch.mean((render_views(s, cams, size, size, mode)
+                           - targets) ** 2)
+
+    lk, gk = _value_and_grad(loss_fn, params)
+    _, again = _value_and_grad(loss_fn, params)
+    with _plain_resolve_path(), _eager_shading():
+        lp, gp = _value_and_grad(loss_fn, params)
+    gates = {k: _grad_gates(gk[k], gp[k]) for k in gk}
+    spread = {k: _grad_gates(again[k], gk[k]) for k in gk}
+    print(f"config4 step's gradients on the kernels against the plain "
+          f"stages (eager shading, resolve on the plain path): loss "
+          f"{float(lk):.8f} vs {float(lp):.8f}; " + "; ".join(
+              f"{k}: 1 - cosine {c:.2e} (< {FIT_COS_TOL}), max diff / "
+              f"max|g| {d:.2e} (< {BF16_DIFF_TOL:.2e}; the kernel step "
+              f"against itself run again: {spread[k][0]:.2e}, "
+              f"{spread[k][1]:.2e})" for k, (c, d) in gates.items()),
+          flush=True)
+    if not all(c < FIT_COS_TOL and d < BF16_DIFF_TOL
+               for c, d in gates.values()):
+        raise AssertionError("config4's kernel step disagrees with its "
+                             "plain step")
+    del gk, gp, again
+    torch.cuda.empty_cache()
+
+    # where a step's device time goes
+    prof = _profile(one_step, sync, median, what="one config4 fit step")
+    pieces = {}
+    sdf, vcol = params["sdf"], params["voxel_colors"]
+    pieces["colour_repack"] = device_ms(
+        lambda: pack_voxel_color_corners(vcol, torch.bfloat16), 3)
+    leaf = vcol.detach().requires_grad_(True)
+    packed = pack_voxel_color_corners(leaf, torch.bfloat16)
+    cot = torch.ones_like(packed)
+    pieces["colour_repack_backward"] = device_ms(
+        lambda: torch.autograd.grad(packed, leaf, cot, retain_graph=True), 3)
+    del leaf, packed, cot
+    pieces["build_accel"] = device_ms(lambda: build_accel(sdf, 8), 3)
+    pieces["rebuild_accel"] = device_ms(lambda: rebuild_accel(
+        graft_params(scene, params, repack=False)), 3)
+    leaf = sdf.detach().requires_grad_(True)
+    table = pack_cell_corners(leaf, None, torch.bfloat16)
+    cot = torch.ones_like(table)
+    pieces["corner_pack_backward"] = device_ms(
+        lambda: torch.autograd.grad(table, leaf, cot, retain_graph=True), 3)
+    del leaf, table, cot
+    torch.cuda.empty_cache()
+    kernels_ms = sum(r["ms"] for r in rows.values())
+    busy = None if prof is None else prof["busy_ms"]
+    print(f"config4 step's device time on {card}: busy "
+          f"{'not measured' if busy is None else f'{busy:.2f} ms'}; each "
+          f"piece alone: colour table repack {pieces['colour_repack']:.3f} "
+          f"ms and its backward {pieces['colour_repack_backward']:.3f} ms; "
+          f"rebuild_accel {pieces['rebuild_accel']:.3f} ms (build_accel "
+          f"{pieces['build_accel']:.3f} ms, the rest the corner table's "
+          f"pack), the corner pack's backward "
+          f"{pieces['corner_pack_backward']:.3f} ms; the kernels "
+          f"{kernels_ms:.3f} ms", flush=True)
+    numbers = dict(step_ms=median, runs_ms=[r * 1e3 for r in runs],
+                   peak_gib=peak / 2**30, losses=losses,
+                   launches_per_step={k: v // 3 for k, v in c4_counts.items()
+                                      if v},
+                   corner_table_mb=table_mb, colour_table_mb=colour_mb,
+                   build_s=build_s, busy_ms=busy,
+                   device_ops=None if prof is None else prof["device_ops"],
+                   pieces_ms=pieces, kernels_ms=kernels_ms, vs_plain=gates,
+                   capped=held["scene"]["capped"],
+                   simt_flat=held["scene"]["simt_flat"])
+    return dict(counts=c4_counts, held=held, numbers=numbers)
+
+
 def _list(ms):
     return ", ".join(f"{t:.4f}" for t in ms)
 
@@ -4094,6 +4460,14 @@ def main():
     from vrt_torch.scenes import flagship_scene, shading_scene
 
     # ---- 1. device ---------------------------------------------------------
+    started = time.perf_counter()
+
+    def _mark(phase):
+        # the run's seconds so far, as each phase starts (the run must end
+        # well within its 1200 s)
+        print(f"phase {phase} starts at {time.perf_counter() - started:.1f}s",
+              flush=True)
+
     card = probe.card()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -4104,6 +4478,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    _mark(2)
     # ---- 2. build: one nvcc per source, all started together ---------------
     t0 = time.perf_counter()
     with ThreadPoolExecutor(5) as pool:
@@ -4172,6 +4547,7 @@ def main():
               f"{got['occupancy'][0]:.0%}-{got['occupancy'][1]:.0%}",
               flush=True)
 
+    _mark(3)
     # ---- 3. every kernel against its plain version --------------------------
     t0 = time.perf_counter()
     scene = flagship_scene(7, "chebyshev", torch.bfloat16, device=dev)
@@ -4375,6 +4751,7 @@ def main():
           f"{k3_plain['scatter']['ms']:.4f} ms (bound "
           f"{k3_plain['scatter']['bound']['bound_ms']:.4f} ms)", flush=True)
 
+    _mark(4)
     # ---- 4. the frames -----------------------------------------------------
     def zero_counts():
         k1.LAUNCHES = k1.SCENE_LAUNCHES = 0
@@ -4527,6 +4904,7 @@ def main():
         raise AssertionError(f"launches of the paired design frames {got}, "
                              f"paths {paths}")
 
+    _mark(5)
     # ---- 5. anchored to the JAX reference ----------------------------------
     zero_counts()
     want = np.load(FIXTURE)
@@ -4560,6 +4938,7 @@ def main():
     if (got["surface"], got["combine"]) != (_resolves(scene) + 1,) * 2:
         raise AssertionError(f"the fixture frames' shade launches {got}")
 
+    _mark(6)
     # ---- 6. where the time goes ---------------------------------------------
     prof = _profile(frame(mode), sync, frame_s * 1e3)
     if prof is not None and "aten::sort" in prof["ops"]:
@@ -4585,6 +4964,7 @@ def main():
     flagship = scene
     del scene
 
+    _mark(7)
     # ---- 7. the gather probe ------------------------------------------------
     t0 = time.perf_counter()
     cases = [(c, probe.to_device(c, dev)) for c in probe.CASES]
@@ -4606,6 +4986,7 @@ def main():
     print(f"gather probe on {card}: {len(results)} case-paths, every kernel "
           f"equal to its plain version; launches {gp_launches}", flush=True)
 
+    _mark(8)
     # ---- 8. the fit: config6 ----------------------------------------------
     fit_scene, step, params, state, targets = _config6(dev)
     start = {k: v.clone() for k, v in params.items()}
@@ -4850,17 +5231,20 @@ def main():
         raise AssertionError("the fit CLI did not bring its loss under a "
                              "quarter of the first")
 
+    _mark(9)
     # ---- 9. the engine path ------------------------------------------------
     eng = _engine_path(dev, card, sync, zero_counts, counts)
     for box in eng["held"].values():
         scene_err = max(scene_err, box["scene"]["max_abs_err"])
     eng_launches = eng["launches"]
 
+    _mark(10)
     # ---- 10. the import chain and config3 ------------------------------------
     c3 = _config3(dev, card, sync, zero_counts, counts, gxx_s)
     scene_err = max(scene_err, c3["held"]["scene"]["max_abs_err"])
     c3_counts, c3_held = c3["counts"], c3["held"]
 
+    _mark(11)
     # ---- 11. config5's slab frame and the ray-sharded frame, and
     # ---- 12. its fit steps, the DP step and the scaling app -----------------
     import tempfile
@@ -4869,6 +5253,15 @@ def main():
         c5 = _config5(dev, card, sync, td, ptxas)
         sf = _slabfit(dev, card, sync, td, c5["geometry"])
 
+    _mark(13)
+    # ---- 13. the bench app, config7's 12 instances, config4's 257^3 fit ----
+    app = _bench_app(card)
+    c7 = _config7(dev, card, sync, zero_counts, counts)
+    c4 = _config4(dev, card, sync, zero_counts, counts)
+    scene_err = max(scene_err, c7["held"]["scene"]["max_abs_err"],
+                    c4["held"]["scene"]["max_abs_err"])
+
+    _mark("the yardsticks")
     # ---- the yardsticks of the shade kernels, after every phase
     def flagship_frame():
         return render_image(flagship, FRAME_W, FRAME_H, mode)
@@ -4921,7 +5314,9 @@ def main():
                      render_cli=eng_launches["render_scene"],
                      config3=c3_counts["scene"],
                      sharded_flagship=c5["sharded_launches"]["scene"],
-                     dp_fit_steps=sf["dp_launches"]["scene"])
+                     dp_fit_steps=sf["dp_launches"]["scene"],
+                     config7=c7["counts"]["scene"],
+                     config4_fit_steps=c4["counts"]["scene"])
     eng_scene, eng_fused = eng["scene"], eng["fused"]
 
     def shade_paths(stage):
@@ -4934,7 +5329,19 @@ def main():
                 "config5": c5["launches"][stage],
                 "sharded_flagship": c5["sharded_launches"][stage],
                 "slab_fit_steps": sf["launches"][stage],
-                "dp_fit_steps": sf["dp_launches"][stage]}
+                "dp_fit_steps": sf["dp_launches"][stage],
+                "config7": c7["counts"][stage],
+                "config4_fit_steps": c4["counts"][stage]}
+
+    def held_entry(box):
+        # a path of phase 13 held launch by launch: its kernel time, plain
+        # time and bound (the sums over the launches of one frame or step)
+        ms = box["ms"] if isinstance(box["ms"], list) else [box["ms"]]
+        plain = box["plain_ms"] if isinstance(box["plain_ms"], list) \
+            else [box["plain_ms"]]
+        return {"ms": sum(ms), "plain_ms": sum(plain), "per_launch_ms": ms,
+                **({"old_design_ms": sum(box["old_ms"])}
+                   if "old_ms" in box else {}), **bound_keys(box["bound"])}
 
     def config3_entry(launches, ms, plain_ms, bound):
         # config3's 1080p frame at 257^3: the three frames' launches, and
@@ -4942,6 +5349,7 @@ def main():
         return {"launches": launches, "ms": sum(ms),
                 "plain_ms": sum(plain_ms), "per_launch_ms": ms,
                 **bound_keys(bound)}
+    _mark("the kernels' line")
     print(json.dumps({"kernels": [{
         "name": "K1 march", "route": "cuda",
         "source": "vrt_torch/csrc/march.cu",
@@ -4978,7 +5386,9 @@ def main():
                          **bound_keys(g["bound"])}
                      for t, g in list(scene_runs.items())
                      + [("engine_frame", eng_scene),
-                        ("config3", c3_held["scene"])]},
+                        ("config3", c3_held["scene"]),
+                        ("config7", c7["held"]["scene"]),
+                        ("config4_fit_step", c4["held"]["scene"])]},
          "config3": {**config3_entry(
              c3_counts["scene"], c3_held["scene"]["ms"],
              c3_held["scene"]["plain_ms"], c3_held["scene"]["bound"]),
@@ -5017,7 +5427,8 @@ def main():
          + eng_launches["render_resolve"] + c3_counts["resolve"]
          + c5["launches"]["slab_resolve"]
          + c5["sharded_launches"]["resolve"]
-         + sf["launches"]["slab_resolve"] + sf["dp_launches"]["resolve"],
+         + sf["launches"]["slab_resolve"] + sf["dp_launches"]["resolve"]
+         + c7["counts"]["resolve"] + c4["counts"]["resolve"],
          "launches_by_path": {"frames": frame_counts["resolve"]
                               + cube_counts["resolve"]
                               + overlay_counts["resolve"],
@@ -5030,7 +5441,11 @@ def main():
                               "sharded_flagship":
                               c5["sharded_launches"]["resolve"],
                               "slab_fit_steps": sf["launches"]["slab_resolve"],
-                              "dp_fit_steps": sf["dp_launches"]["resolve"]},
+                              "dp_fit_steps": sf["dp_launches"]["resolve"],
+                              "config7": c7["counts"]["resolve"],
+                              "config4_fit_steps": c4["counts"]["resolve"]},
+         "config7": held_entry(c7["held"]["fused"]),
+         "config4_fit_step": held_entry(c4["held"]["fused"]),
          "max_abs_err": fused["max_abs_err"], "ms": fused["ms"],
          "plain_ms": fused["plain_ms"],
          "plain_over_k3_ms": fused["over_k3_ms"],
@@ -5061,13 +5476,17 @@ def main():
                      "vrt/march/isosurface.py:204: no Pallas kernel)",
          "launches": fit_counts["resolve_bwd"]
          + sf["launches"]["slab_resolve_bwd"]
-         + sf["dp_launches"]["resolve_bwd"],
+         + sf["dp_launches"]["resolve_bwd"] + c4["counts"]["resolve_bwd"],
          "launches_by_path": {"fit_steps": fit_counts["resolve_bwd"],
                               "slab_fit_steps":
                               sf["launches"]["slab_resolve_bwd"],
                               "dp_fit_steps":
-                              sf["dp_launches"]["resolve_bwd"]},
-         "max_abs_err": bwd["max_abs_err"],
+                              sf["dp_launches"]["resolve_bwd"],
+                              "config4_fit_steps":
+                              c4["counts"]["resolve_bwd"]},
+         "config4_fit_step": held_entry(c4["held"]["resolve_bwd"]),
+         "max_abs_err": max(bwd["max_abs_err"],
+                            c4["held"]["resolve_bwd"]["max_abs_err"]),
          "max_ray_grad_err_over_max": bwd["ray_err"],
          "ms": sum(bwd["ms"]), "plain_ms": sum(bwd["plain_ms"]),
          **bound_keys(bwd["bound"]), "library_ms": None,
@@ -5117,7 +5536,8 @@ def main():
                               for g in list(shade_runs.values())
                               + [box["shade"]
                                  for box in eng["held"].values()]
-                              + [c3_held["shade"]]),
+                              + [c3_held["shade"], c7["held"]["shade"],
+                                 c4["held"]["shade"]]),
            "tolerance": {"rtol": SHADE_RTOL, "atol": SHADE_ATOL,
                          "lanes_beyond": SHADE_FLOAT_BUDGET,
                          "boolean_flips": LANE_BUDGET},
@@ -5125,7 +5545,8 @@ def main():
                                for g in list(shade_runs.values())
                                + [box["shade"]
                                   for box in eng["held"].values()]
-                               + [c3_held["shade"]]),
+                               + [c3_held["shade"], c7["held"]["shade"],
+                                  c4["held"]["shade"]]),
            "bit_equal_outputs": shade_runs["interp"][stage]["bit_equal"],
            "rounded_outputs": shade_runs["interp"][stage]["rounded"],
            "ms": sum(shade_runs["interp"][stage]["ms"]),
@@ -5156,7 +5577,9 @@ def main():
                        for t, g in list(shade_runs.items())
                        + [("engine_frame", eng["shade"]),
                           ("fit_step", fit_shade),
-                          ("config3", c3_held["shade"])]},
+                          ("config3", c3_held["shade"]),
+                          ("config7", c7["held"]["shade"]),
+                          ("config4_fit_step", c4["held"]["shade"])]},
            "config3": config3_entry(
                c3_counts[stage], c3_held["shade"][stage]["ms"],
                c3_held["shade"][stage]["plain_ms"],
@@ -5177,15 +5600,21 @@ def main():
            "replaces": replaces,
            "launches": fit_counts[f"{stage}_bwd"]
            + sf["launches"][f"{stage}_bwd"]
-           + sf["dp_launches"][f"{stage}_bwd"],
+           + sf["dp_launches"][f"{stage}_bwd"]
+           + c4["counts"][f"{stage}_bwd"],
            "launches_by_path": {
+               "config4_fit_steps": c4["counts"][f"{stage}_bwd"],
                "fit_steps": fit_counts[f"{stage}_bwd"],
                "slab_fit_steps": sf["launches"][f"{stage}_bwd"],
                "dp_fit_steps": sf["dp_launches"][f"{stage}_bwd"],
                "paired_fit_steps": plain_counts[f"{stage}_bwd"]
                + eager_counts[f"{stage}_bwd"],
                "fit_64x36": small_counts[f"{stage}_bwd"]},
-           "max_abs_err": shade_bwd[f"{stage}_bwd"]["max_abs_err"],
+           "max_abs_err": max(
+               shade_bwd[f"{stage}_bwd"]["max_abs_err"],
+               c4["held"]["shade_bwd"][f"{stage}_bwd"]["max_abs_err"]),
+           "config4_fit_step": held_entry(
+               c4["held"]["shade_bwd"][f"{stage}_bwd"]),
            "max_abs_err_is": "the largest difference of any output over "
                              "the launch's largest |plain| cotangent (the "
                              "colour table's over its own)",
@@ -5289,7 +5718,10 @@ def main():
         "engine": eng["numbers"],
         "config3": c3["numbers"],
         "config5": c5["numbers"],
-        "slabfit": sf["numbers"]}), flush=True)
+        "slabfit": sf["numbers"],
+        "bench_app": app,
+        "config7": c7["numbers"],
+        "config4": c4["numbers"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0

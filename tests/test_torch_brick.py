@@ -444,8 +444,8 @@ def _assert_within(got, want, tag, rtol=1e-5):
 def _on_a_cell_face(slab, o, d, hit):
     """Surface lanes whose hit point lies on a face of its cell (a
     coordinate of p exactly 0 or 1): there a trilinear weight |(1-i) - p|
-    has a kink, whose derivative ``jnp.abs`` takes as 1 and the port (as
-    torch's ``abs``) as 0."""
+    has a kink, whose derivative ``jnp.abs`` takes as 1, and so does the
+    port (``core/kinks.py``)."""
     t0 = torch.where(torch.isfinite(hit.t), hit.t, 0.0)
     p = (o + d * t0[:, None]
          - (hit.cell.to(o.dtype) * slab.cell_size - slab.extends)) \
@@ -463,21 +463,22 @@ def test_resolve_slab_closed_form_is_vrt_grad(s_count):
     float32 the two round apart by up to ~1e-4 of it on lanes whose
     implicit-function term divides by a small F'(t0) (XLA's CPU backend
     contracts sums into FMAs), so the closed form's arithmetic is held to
-    ``vrt``'s in float64.  A lane whose hit point lies on a face of its cell
-    carries no cotangent here: the gradient has a kink there, which
-    ``jnp.abs`` and the port differentiate apart (``_on_a_cell_face``)."""
+    ``vrt``'s in float64.  Every owned lane is held, those too whose
+    float32 hit point lies on a face of its cell (``_on_a_cell_face``; the
+    next test holds them in float32, where the point is on the face)."""
     from vrt.march.types import MarchHit as VHit
 
     f64 = torch.float64
-    lanes = 0
+    lanes = faces = 0
     for scene, vslabs, s, slab, o, d, hit, owned, g_t, g_n in \
             _closed_form_case(s_count, 11):
+        faces += int((owned & _on_a_cell_face(slab, o, d, hit)).sum())
         slab = dataclasses.replace(slab, sdf=slab.sdf.to(f64),
                                    cell_size=slab.cell_size.to(f64),
                                    extends=slab.extends.to(f64))
         o, d = o.to(f64), d.to(f64)
         hit = dataclasses.replace(hit, t=hit.t.to(f64))
-        keep = owned & ~_on_a_cell_face(slab, o, d, hit)
+        keep = owned
         g_t, g_n = (g_t * keep).to(f64), (g_n * keep[:, None]).to(f64)
         g_o, g_d, g_planes = brick.resolve_slab_backward_reference(
             scene, slab, o, d, hit, g_t, g_n, acc_dtype=f64)
@@ -504,7 +505,49 @@ def test_resolve_slab_closed_form_is_vrt_grad(s_count):
                              ("g_o", g_o, want[1]), ("g_d", g_d, want[2])):
             _assert_within(got.numpy(), w, (s_count, s, name))
         lanes += int(keep.sum())
-    assert lanes > 50
+    assert lanes > 50 and faces > 0
+
+
+@pytest.mark.parametrize("s_count", [2, 4])
+def test_resolve_slab_closed_form_is_vrt_grad_on_cell_faces(s_count):
+    """The owned lanes whose hit point lies on a face of its cell in
+    float32 (``_on_a_cell_face``; cast to float64 the point leaves the face,
+    so the test above holds no such lane): the closed form, with cotangents
+    on those lanes alone, against ``jax.grad`` of ``vrt``'s
+    ``resolve_slab_hits`` in float32, every shard: a cosine within 1e-8 of
+    1 and 1e-5 of the largest |g| in the planes and the rays.  ``vrt``
+    takes d|a|/da as 1 at the kink; so does the port (torch's ``abs`` would
+    take 0, and a cosine near 0.2)."""
+    from vrt.march.types import MarchHit as VHit
+
+    lanes = 0
+    for scene, vslabs, s, slab, o, d, hit, owned, g_t, g_n in \
+            _closed_form_case(s_count, 11):
+        keep = owned & _on_a_cell_face(slab, o, d, hit)
+        g_t, g_n = g_t * keep, g_n * keep[:, None]
+        g_o, g_d, g_planes = brick.resolve_slab_backward_reference(
+            scene, slab, o, d, hit, g_t, g_n)
+        vslab = jax.tree.map(lambda x: x[s], vslabs)
+        vhit = VHit(**{f: jnp.asarray(getattr(hit, f).numpy())
+                       for f in workers.HIT_FIELDS})
+        jg_t, jg_n = jnp.asarray(g_t.numpy()), jnp.asarray(g_n.numpy())
+
+        def loss(sdf, jo, jd):
+            t, n, _ = vbrick.resolve_slab_hits(
+                dataclasses.replace(vslab, sdf=sdf), jo, jd, vhit)
+            return jnp.sum(t * jg_t) + jnp.sum(n * jg_n)
+
+        want = jax.grad(loss, argnums=(0, 1, 2))(
+            vslab.sdf, jnp.asarray(o.numpy()), jnp.asarray(d.numpy()))
+        for name, got, w in (("planes", g_planes, want[0]),
+                             ("g_o", g_o, want[1]), ("g_d", g_d, want[2])):
+            a = got.double().numpy().ravel()
+            b = np.asarray(w, np.float64).ravel()
+            cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
+            assert 1.0 - cos < 1e-8, (s_count, s, name, 1.0 - cos)
+            _assert_within(a, b, (s_count, s, name))
+        lanes += int(keep.sum())
+    assert lanes >= 20
 
 
 @pytest.mark.parametrize("s_count", [2, 4])

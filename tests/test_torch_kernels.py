@@ -294,6 +294,39 @@ def test_scene_march_matches_plain_on_card(config, interp, debug, n_inst):
         assert any_hit.dtype == torch.bool and flips <= LANE_BUDGET
 
 
+@pytest.mark.gpu
+@MODES
+def test_config7_scene_march_matches_plain_on_card(interp, debug):
+    """config7's 12 instances (``vrt_torch.apps.bench.config7_scene`` at
+    resolution 6) through its own camera's 512x512 rays: one launch of the
+    scene march against its plain version, and the any-hit variant, as the
+    crowd's case above; the camera's rays reach instances of both
+    volumes."""
+    from vrt_torch.apps import bench
+    from vrt_torch.kernels import march as k1
+    from vrt_torch.render.camera import camera_rays
+
+    dev = _card()
+    ts = bench.config7_scene(6, device=dev)
+    o, d = camera_rays(ts.cam_pos, ts.cam_rot, ts.cam_fov, 512, 512)
+    o, d = o.contiguous(), d.contiguous()
+    t_max = torch.full((o.shape[0],), tren.RADIANCE_TMAX, device=dev)
+    before = k1.SCENE_LAUNCHES
+    got, inst = tren.march_scene(ts, o, d, t_max, interp, debug)
+    assert k1.SCENE_LAUNCHES == before + 1
+    want, winst = tren.march_scene(ts, o, d, t_max, interp, debug,
+                                   lane_marcher=tmarch.march_lanes_reference)
+    torch.cuda.synchronize()
+    assert_hits_close(got, want)
+    agree = (got.hit == want.hit) & (got.kind == want.kind)
+    assert torch.equal(inst[agree], winst[agree])
+    assert set(ts.inst_volume[winst[want.hit].long()].tolist()) == {0, 1}
+    if not debug:
+        any_hit = tren.march_scene_any_hit(ts, o, d, t_max, interp)
+        flips = (any_hit != want.hit).float().mean().item()
+        assert flips <= LANE_BUDGET
+
+
 # ---- K1's scene march: the capped kernel against the plain version and the
 # first design -------------------------------------------------------------
 #
@@ -528,19 +561,50 @@ def test_fused_resolve_matches_plain_on_card(table, offset, interp, debug):
                                                        before[1] + 1)
 
 
+def on_cell_faces(ts, o, d, hit, inst, lanes, seed):
+    """Put ``lanes`` of a march's rays and hits on faces of their cells in
+    instance 0 (not rotated, unit scale, a whole-numbered position: exact
+    in f32): a ray along +x whose y lies on the low y face and whose z on
+    the high z face of a seeded cell, t inside that cell, so that the hit
+    point's p = (p_x, 0, 1) exactly.  There the trilinear weights |(1-i) -
+    p| have their kink, where ``vrt`` takes d|a|/da as 1."""
+    rng = np.random.default_rng(seed)
+    dev = o.device
+    vol = int(ts.inst_volume[0])
+    h = ts.volumes.cell_size[vol]
+    ext = ts.volumes.extends[vol]
+    n = int(ts.volumes.n[vol])
+    k = lanes.numel()
+    cell = torch.from_numpy(rng.integers(1, n - 2, size=(k, 3)).astype(
+        np.int32)).to(dev)
+    base = cell.to(torch.float32) * h - ext        # as the kernels form it
+    frac = torch.from_numpy(rng.uniform(0.1, 0.9, size=k).astype(
+        np.float32)).to(dev)
+    pos = ts.inst_pos[0]
+    o[lanes] = torch.stack([(pos[0] - 300.0).expand(k), pos[1] + base[:, 1],
+                            pos[2] + (base[:, 2] + h)], dim=-1)
+    d[lanes] = d.new_tensor([1.0, 0.0, 0.0])
+    hit.t[lanes] = 300.0 + base[:, 0] + frac * h
+    hit.cell[lanes] = cell
+    hit.kind[lanes] = 1
+    hit.hit[lanes] = True
+    inst[lanes] = 0
+
+
 def _special_lanes(ts, o, d, hit, inst, seed, group=200):
     """Overwrite some lanes of a march's rays and hits (``group`` surface
     lanes per case) with the cases the backward treats apart; returns the
     lanes by name.  Only what the backward reads (rays, kind, t, cell,
-    inst) is touched."""
+    inst) is touched.  ``face`` lanes lie on faces of their cells
+    (``on_cell_faces``)."""
     rng = np.random.default_rng(seed)
     dev = o.device
     surface = (hit.kind == 1).nonzero().ravel()
-    assert surface.numel() > 7 * group
+    assert surface.numel() > 8 * group
     pick = surface[torch.from_numpy(rng.permutation(surface.numel())).to(dev)]
     lanes = {name: pick[group * i:group * (i + 1)] for i, name in enumerate(
         ("bad_t", "zero_d_axis", "unsafe", "edge_low", "edge_high", "tie",
-         "solid"))}
+         "solid", "face"))}
     hit.t[lanes["bad_t"][:group // 2]] = float("inf")
     hit.t[lanes["bad_t"][group // 2:]] = float("nan")
     d[lanes["zero_d_axis"], 1] = 0.0
@@ -557,6 +621,7 @@ def _special_lanes(ts, o, d, hit, inst, seed, group=200):
     d[lanes["tie"]] = d.new_tensor([1.0, 1.0, 0.0])
     inst[lanes["tie"]] = 0
     d[lanes["solid"][:group // 4], 2] = 0.0
+    on_cell_faces(ts, o, d, hit, inst, lanes["face"], seed)
     return lanes
 
 
@@ -1507,19 +1572,24 @@ SHADE_GRAD_CASES = {
     "overlay": dict(points=1, spots=1, mode=RenderMode(debug_overlay=True)),
     "flagship-1x1-textures": dict(flagship=True, colors=True),
     "contention": dict(contention=True),
+    "kinks": dict(points=1, spots=1, colors=True, kinks=True),
 }
 
 
 def _shade_grad_level(case, dev, width=480, height=270, seed=0):
     """A level of the case's scene on ``dev``: its inputs, seeded cotangents
     (zero on miss lanes, as the chain hands them on) and the bounce's
-    radiance and shadow booleans."""
+    radiance and shadow booleans.  With ``kinks`` some lanes sit where
+    ``vrt``'s derivatives have kinks: hit points on faces of their cells
+    (the colour sample's weights), normals with a zero component (the
+    triplanar blend) and a black bounce (the mirror term's clamp)."""
     from vrt_torch.march.types import RECORD_GRAD_FIELDS
     from vrt_torch.render.camera import camera_rays
     from vrt_torch.scenes import shading_scene
 
     spec = dict(SHADE_GRAD_CASES[case])
     mode = spec.pop("mode", RenderMode())
+    kinks = spec.pop("kinks", False)
     if spec.pop("contention", False):
         # every ray on one colour row; the frame at most 64x64
         scene = contention_scene(flagship_scene(4, use_colors=True,
@@ -1536,6 +1606,12 @@ def _shade_grad_level(case, dev, width=480, height=270, seed=0):
     hit, inst = tren.march_scene(scene, o, d, t_max, mode.interp,
                                  debug_overlay=mode.debug_overlay)
     t, n_obj, unlit = tren.resolve_scene(scene, o, d, hit, inst)
+    if kinks:
+        lanes = torch.arange(3, o.shape[0], 7, device=dev)[:1024]
+        on_cell_faces(scene, o, d, hit, inst, lanes, seed)
+        t[lanes] = hit.t[lanes]
+        n_obj[lanes[::2], 1] = 0.0
+        n_obj[lanes[1::4], 0] = -0.0
     rng = np.random.default_rng(seed)
     rays = o.shape[0]
 
@@ -1554,6 +1630,8 @@ def _shade_grad_level(case, dev, width=480, height=270, seed=0):
                for _ in range(lights)] if mode.lit else None
     refl = torch.from_numpy(rng.uniform(size=(rays, 3)).astype(
         np.float32)).to(dev) if mode.lit else None
+    if kinks:
+        refl[::3] = 0.0
     return dict(scene=scene, mode=mode, o=o, d=d, hit=hit, inst=inst, t=t,
                 n_obj=n_obj, unlit=unlit, cots=cots, blocked=blocked,
                 refl=refl, g_rgb=seeded(rays, 3))

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vrt_torch.core import kinks
+
 UP = np.array([0.0, 0.0, 1.0], np.float32)
 FORWARD = np.array([1.0, 0.0, 0.0], np.float32)
 RIGHT = np.array([0.0, 1.0, 0.0], np.float32)
@@ -49,7 +51,7 @@ def normalize(v, eps=0.0):
     zero)."""
     n = _norm(v)
     if eps:
-        n = torch.clamp_min(n, eps) if _is_torch(n) else np.maximum(n, eps)
+        n = kinks.maximum(n, eps) if _is_torch(n) else np.maximum(n, eps)
     return v / n
 
 

@@ -306,13 +306,10 @@ struct ResolveBwdParams {
   int x0, cx;
 };
 
-// torch.sign: -1, 0 or 1, and 0 for NaN.
-__device__ __forceinline__ float sign0(float x) {
-  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
-}
-
 // The trilinear weights at q and their derivatives, per axis k and corner
-// bit b: a = (1 - b) - q_k, m = |a|, s = d|a|/dq_k = -sign(a).
+// bit b: a = (1 - b) - q_k, m = |a|, s = d|a|/dq_k = -(a >= 0 ? 1 : -1):
+// vrt's derivative of |a| (jnp.abs'), 1 at 0 and at -0, where torch's abs
+// takes 0 (march/resolve.py's closed forms and core/kinks.py's abs_ agree).
 struct Weights {
   float m[3][2];
   float s[3][2];
@@ -322,7 +319,7 @@ struct Weights {
       for (int b = 0; b < 2; ++b) {
         const float a = (b ? 0.0f : 1.0f) - q[k];
         m[k][b] = fabsf(a);
-        s[k][b] = -sign0(a);
+        s[k][b] = a >= 0.0f ? -1.0f : 1.0f;
       }
   }
   // corner i's weight (w0 * w1) * w2

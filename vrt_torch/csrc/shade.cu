@@ -1279,14 +1279,16 @@ __global__ void __launch_bounds__(kFwdThreads, kCombineMinBlocks)
 // before the reductions, and caps the registers at 80 (3 blocks an SM): of
 // the probe's builds the fastest over a step's three launches.
 //
-// Where torch's derivative has an edge, the kernels take torch's side (the
-// plain stages pass vrt's fixture with it; JAX splits a tie of max between
-// its arguments and so differs at a bound):
-//   clamp_min / clamp_max / clamp: the gradient passes at the bound (x >= lo,
-//     x <= hi), and a NaN passes none;
+// Where the derivative has a kink, the kernels take vrt's side (JAX's; the
+// plain stages take it through core/kinks.py):
+//   max(x, c) / min(x, c) / clip(x, lo, hi): x's cotangent whole where x is
+//     strictly inside, half at a tie with the bound (clip is a max, then a
+//     min), none outside, and a NaN passes none (pass_max, pass_min,
+//     pass_clip);
+//   abs: 1 where x >= 0 (at 0 and at -0 too), else -1 (dabs);
 //   where: only the selected branch gets the gradient;
 //   _safe_unit / _safe_div / the normalisations: zero where the length is 0;
-//   pow(x, 5): 5 x^4, so 0 at 0;  abs: sign(x), so 0 at 0;
+//   pow(x, 5): 5 x^4, so 0 at 0;
 //   spot_light_intensity's where(inside, ...): nothing flows outside the
 //     cone but the light direction's own gradient.
 // A miss lane's record is read by no one (the combine stage selects the env
@@ -1294,8 +1296,20 @@ __global__ void __launch_bounds__(kFwdThreads, kCombineMinBlocks)
 // kernels branch on the hit flag, never multiply by it, and write exact zeros
 // into every cotangent of a lane that has none, whatever its record holds.
 
-__device__ __forceinline__ float dsign(float x) {   // torch.sgn, abs' grad
-  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+__device__ __forceinline__ float dabs(float x) {   // d|x|/dx, jnp.abs'
+  return x >= 0.0f ? 1.0f : -1.0f;
+}
+
+// The cotangent g of max(x, c), min(x, c) or clip(x, lo, hi) that reaches x.
+__device__ __forceinline__ float pass_max(float x, float c, float g) {
+  return x > c ? g : (x == c ? 0.5f * g : 0.0f);
+}
+__device__ __forceinline__ float pass_min(float x, float c, float g) {
+  return x < c ? g : (x == c ? 0.5f * g : 0.0f);
+}
+__device__ __forceinline__ float pass_clip(float x, float lo, float hi,
+                                           float g) {
+  return pass_max(x, lo, pass_min(nmax(x, lo), hi, g));
 }
 
 // y = v / |v| where |v|^2 > 0, else 0 (renderer.py _safe_unit, the half
@@ -1400,19 +1414,19 @@ __device__ void radiance_bwd(const float li[3], const float wi[3],
   // spec = (dist * g) / denom
   const float g_dist = (g_spec * g) / denom;
   const float g_g = (g_spec * dist) / denom;
-  const float g_dr = dr >= 0.0001f ? -(g_spec * spec) / denom : 0.0f;
+  const float g_dr = pass_max(dr, 0.0001f, -(g_spec * spec) / denom);
   float g_dwo = g_dr * (4.0f * dwi) + (g_g * gsi) * (k / (deno * deno));
   float g_dwi = g_dr * (4.0f * dwo) + (g_g * gso) * (k / (deni * deni));
-  const float g_nwo = nwo >= 0.0f ? g_dwo : 0.0f;
-  g_nwi += nwi >= 0.0f ? g_dwi : 0.0f;
+  const float g_nwo = pass_max(nwo, 0.0f, g_dwo);
+  g_nwi += pass_max(nwi, 0.0f, g_dwi);
   // pw = max(1 - max(wh, 0), 0)^5
-  const float g_x = x >= 0.0f ? (g_pw * 5.0f) * powf(xc, 4.0f) : 0.0f;
-  const float g_wh = wh >= 0.0f ? -g_x : 0.0f;
+  const float g_x = pass_max(x, 0.0f, (g_pw * 5.0f) * powf(xc, 4.0f));
+  const float g_wh = pass_max(wh, 0.0f, -g_x);
   // dist = a2 / max(pi cc^2, 1e-3)
   float g_a2 = g_dist / dd;
-  const float g_dd = dd_raw >= 0.001f ? -(g_dist * dist) / dd : 0.0f;
+  const float g_dd = pass_max(dd_raw, 0.001f, -(g_dist * dist) / dd);
   const float g_cc = g_dd * (2.0f * (kPi * cc));
-  const float g_nh = nh >= 0.0f ? g_cc * (2.0f * ndoth * (a2 - 1.0f)) : 0.0f;
+  const float g_nh = pass_max(nh, 0.0f, g_cc * (2.0f * ndoth * (a2 - 1.0f)));
   g_a2 += g_cc * (ndoth * ndoth);
   g_r += g_a2 * (2.0f * r);
   float g_h[3];
@@ -1458,7 +1472,7 @@ __device__ void light_at_bwd(const float* row, bool spot, const float so[3],
       const float i1 = row[6] * nmin(q, 1.0f);
       const float g_i1 = g_inten / den;
       g_dist += -(g_inten * (i1 / den) / den) * g_den_per;
-      const float g_q = q <= 1.0f ? g_i1 * row[6] : 0.0f;
+      const float g_q = pass_min(q, 1.0f, g_i1 * row[6]);
       const float g_cs = g_q / (cos_falloff - cos_angle);
       float g_tn[3], g_to[3];
       for (int c = 0; c < 3; ++c) g_tn[c] = row[3 + c] * g_cs;
@@ -1491,7 +1505,7 @@ __device__ void sample_env_bwd(const float* env, int e, const float d_w[3],
         dtc[3] = {0.0f, 0.0f, 0.0f};
   if (x_major) {
     ma = ax;
-    dma[0] = dsign(x);
+    dma[0] = dabs(x);
     face = x >= 0.0f ? 0 : 1;
     sc = x >= 0.0f ? -z : z;
     dsc[2] = x >= 0.0f ? -1.0f : 1.0f;
@@ -1499,7 +1513,7 @@ __device__ void sample_env_bwd(const float* env, int e, const float d_w[3],
     dtc[1] = -1.0f;
   } else if (y_major) {
     ma = ay;
-    dma[1] = dsign(y);
+    dma[1] = dabs(y);
     face = y >= 0.0f ? 2 : 3;
     sc = x;
     dsc[0] = 1.0f;
@@ -1507,7 +1521,7 @@ __device__ void sample_env_bwd(const float* env, int e, const float d_w[3],
     dtc[2] = y >= 0.0f ? 1.0f : -1.0f;
   } else {
     ma = az;
-    dma[2] = dsign(z);
+    dma[2] = dabs(z);
     face = z >= 0.0f ? 4 : 5;
     sc = z >= 0.0f ? x : -x;
     dsc[0] = z >= 0.0f ? 1.0f : -1.0f;
@@ -1616,7 +1630,7 @@ __global__ void __launch_bounds__(kThreads) combine_bwd_kernel(
                    g_wi, g_wo, g_nw, g_alb, g_r, g_m);
       float g_fade = 0.0f;
       for (int c = 0; c < 3; ++c) {
-        const float gl = rr[c] * fade >= 0.0f ? g_li[c] : 0.0f;
+        const float gl = pass_max(rr[c] * fade, 0.0f, g_li[c]);
         g_rrgb[c] = gl * fade;
         g_fade += gl * rr[c];
         g_refl[c] = g_wi[c];
@@ -1777,7 +1791,7 @@ __device__ void rotate_from_x_bwd(const float v[3], const float t[3],
   const float g_qn[4] = {g_qv[0], g_qv[1], g_qv[2], g_qw};
   float dot = 0.0f;
   for (int c = 0; c < 4; ++c) dot += g_qn[c] * q[c];
-  const float g_norm = nrm >= 1e-12f ? -dot / (norm * norm) : 0.0f;
+  const float g_norm = pass_max(nrm, 1e-12f, -dot / (norm * norm));
   float g_q[4];
   for (int c = 0; c < 4; ++c)
     g_q[c] = g_qn[c] / norm + (nrm != 0.0f ? q[c] * (g_norm / nrm) : 0.0f);
@@ -1823,7 +1837,7 @@ __device__ __forceinline__ void color_sample_bwd(
       valid = valid && idx >= 0 && idx < n;
       const float diff = (b[c] ? 0.0f : 1.0f) - q[c];
       w[c] = fabsf(diff);
-      s[c] = dsign(diff);
+      s[c] = dabs(diff);
     }
     const float wj = (w[0] * w[1]) * w[2];
     float g_w = 0.0f;
@@ -1839,7 +1853,7 @@ __device__ __forceinline__ void color_sample_bwd(
       g_w += g[c] * v;
       grow[3 * j + c] = valid ? g[c] * wj : 0.0f;
     }
-    // d|1 - b - q| / dq = -sign(1 - b - q)
+    // d|1 - b - q| / dq = -dabs(1 - b - q)
     g_q[0] -= (g_w * (w[1] * w[2])) * s[0];
     g_q[1] -= (g_w * (w[0] * w[2])) * s[1];
     g_q[2] -= (g_w * (w[0] * w[1])) * s[2];
@@ -1953,8 +1967,8 @@ __device__ __forceinline__ void surface_bwd_hit(
                           obj_pos, b, rm);
         const float xr = mat[6] * rm[0], xm = mat[7] * rm[1];
         const float g_rm[3] = {
-            xr >= 0.0f && xr <= 1.0f ? g_rough * mat[6] : 0.0f,
-            xm >= 0.0f && xm <= 1.0f ? g_metal * mat[7] : 0.0f, 0.0f};
+            pass_clip(xr, 0.0f, 1.0f, g_rough * mat[6]),
+            pass_clip(xm, 0.0f, 1.0f, g_metal * mat[7]), 0.0f};
         tri_sample_bwd<false>(p, sh_sizes, __float_as_int(mat[13]), tscale,
                               obj_pos, b, g_rm, g_pos, g_b);
       }
@@ -1979,7 +1993,7 @@ __device__ __forceinline__ void surface_bwd_hit(
       if (s > 0.0f) {
         const float gs = dot3(g_b, ab) / (s * s);
         for (int c = 0; c < 3; ++c)
-          g_n[c] += (g_b[c] / s - gs) * dsign(n_obj[c]);
+          g_n[c] += (g_b[c] / s - gs) * dabs(n_obj[c]);
       }
       // obj_pos = rotate(conj(rot), (hit_pos - pos) / scale)
       float g_a[3];
@@ -2004,7 +2018,7 @@ __device__ __forceinline__ void surface_bwd_hit(
     if (s > 0.0f) {
       const float gs = dot3(g_b, ab) / (s * s);
       for (int c = 0; c < 3; ++c)
-        g_n[c] += (g_b[c] / s - gs) * dsign(n_obj[c]);
+        g_n[c] += (g_b[c] / s - gs) * dabs(n_obj[c]);
     }
     float g_a[3];
     rotate_t(qc, rot[3], g_pos, g_a);

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vrt_torch.core import kinks
 from vrt_torch.kernels.rows import gather_rows
 
 # Cell corner order v1..v8 = (0,0,0),(1,0,0),(0,1,0),(1,1,0),(0,0,1),(1,0,1),
@@ -147,7 +148,7 @@ def trilinear_rows(v, p):
     q = [p[..., k] for k in range(3)]
     terms = []
     for i, off in enumerate(CORNERS):
-        w = [torch.abs((1.0 - float(off[k])) - q[k]) for k in range(3)]
+        w = [kinks.abs_((1.0 - float(off[k])) - q[k]) for k in range(3)]
         terms.append(((w[0] * w[1]) * w[2]) * v[..., i])
     return sum8(terms)
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vrt_torch.core import kinks
 from vrt_torch.march import isosurface as iso
 from vrt_torch.march.types import (MarchHit, KIND_DEBUG, KIND_EXHAUSTED,
                                    KIND_SOLID_ENTRY, KIND_SURFACE)
@@ -43,14 +44,15 @@ def _slab_enter(o, d, ext):
 
 def _trilinear_rows_dt(v, p, dp):
     """Derivative of ``iso.trilinear_rows(v, p)`` along ``dp`` (the jvp of
-    its ``abs((1-i) - p)`` weights; d|x| is sign(x), 0 at 0)."""
+    its ``abs((1-i) - p)`` weights; d|x|/dx is 1 where x >= 0, else -1,
+    as ``vrt`` takes it)."""
     q = [p[..., k] for k in range(3)]
     dq = [dp[..., k] for k in range(3)]
     terms = []
     for i, off in enumerate(iso.CORNERS):
         a = [(1.0 - float(off[k])) - q[k] for k in range(3)]
-        w = [torch.abs(x) for x in a]
-        dw = [-torch.sign(a[k]) * dq[k] for k in range(3)]
+        w = [kinks.abs_(x) for x in a]
+        dw = [-kinks.dabs(a[k]) * dq[k] for k in range(3)]
         terms.append(((dw[0] * w[1] + w[0] * dw[1]) * w[2]
                       + (w[0] * w[1]) * dw[2]) * v[..., i])
     return iso.sum8(terms)
@@ -130,12 +132,12 @@ def resolve_hits_backward(rows7, cell_size, extends, o, d, hit: MarchHit,
     cell_base = hit.cell.to(torch.float32) * h - ext
     p = (o + d * t0[..., None] - cell_base) / h
     # per corner i and axis k: a = (1 - i_k) - p_k, weight |a|, d|a|/dp_k =
-    # -sign(a) (0 at 0)
+    # -(1 where a >= 0, else -1)
     w, dw = [], []
     for off in iso.CORNERS:
         a = [(1.0 - float(off[k])) - p[..., k] for k in range(3)]
-        m = [torch.abs(x) for x in a]
-        s = [-torch.sign(x) for x in a]
+        m = [kinks.abs_(x) for x in a]
+        s = [-kinks.dabs(x) for x in a]
         w.append((m[0] * m[1]) * m[2])
         dw.append([s[0] * (m[1] * m[2]), s[1] * (m[0] * m[2]),
                    s[2] * (m[0] * m[1])])

@@ -29,6 +29,9 @@ from vrt_torch.march.types import FUSE_BUDGET_BYTES, DeviceVolume
 
 MAX_POINT_LIGHTS = 5
 MAX_SPOT_LIGHTS = 5
+# the reference's object cap (vrt's name; neither package enforces it:
+# the scene march takes up to kernels/march.py's MAX_INSTANCES)
+MAX_OBJECTS = 20
 
 
 @dataclasses.dataclass(frozen=True)

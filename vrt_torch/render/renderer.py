@@ -35,6 +35,7 @@ import dataclasses
 
 import torch
 
+from vrt_torch.core import kinks
 from vrt_torch.core import quat as vq
 from vrt_torch.kernels.rows import (gather_rows, gather_rows_reference,
                                     scatter_rows_reference)
@@ -308,7 +309,7 @@ def _voxel_color_sample(scene: GPUScene, pr, hit: MarchHit, o_w, d_w, t,
     rows = (gather or gather_rows)(pcc.reshape(-1, 24), lin,
                                    24).reshape(-1, 8, 3)
     cvals = torch.where(valid[..., None], rows, 0.0)
-    w = torch.abs((1.0 - corners.to(torch.float32))[None] - p[:, None, :])
+    w = kinks.abs_((1.0 - corners.to(torch.float32))[None] - p[:, None, :])
     w = (w[..., 0] * w[..., 1]) * w[..., 2]                    # [R,8]
     return torch.sum(w[..., None] * cvals, dim=1)
 
@@ -457,16 +458,16 @@ def shade_surface_reference(scene: GPUScene, o_w, d_w, t, n_obj,
                                         obj_pos, n_obj)
         rm = _tex.tri_sample(scene.textures, scene.tex_sizes,
                              scene.rm_tex[vol_id], tscale, obj_pos, n_obj)
-        roughness = torch.clamp(scene.roughness[vol_id] * rm[..., 0],
-                                0.0, 1.0)
-        metallic = torch.clamp(scene.metallic[vol_id] * rm[..., 1], 0.0, 1.0)
+        roughness = kinks.clip(scene.roughness[vol_id] * rm[..., 0],
+                               0.0, 1.0)
+        metallic = kinks.clip(scene.metallic[vol_id] * rm[..., 1], 0.0, 1.0)
         n_shade = _tex.tri_sample_normal(scene.textures, scene.tex_sizes,
                                          scene.normal_tex[vol_id], tscale,
                                          obj_pos, n_obj)
     else:
         albedo = tint
-        roughness = torch.clamp(scene.roughness[vol_id], 0.0, 1.0)
-        metallic = torch.clamp(scene.metallic[vol_id], 0.0, 1.0)
+        roughness = kinks.clip(scene.roughness[vol_id], 0.0, 1.0)
+        metallic = kinks.clip(scene.metallic[vol_id], 0.0, 1.0)
         n_shade = n_obj
 
     if scene.use_voxel_colors:
@@ -550,7 +551,7 @@ def _lit_radiance(scene: GPUScene, rec: SurfaceRecord, d_w, refl_rgb,
     wo = -d_w
 
     if refl_rgb is not None:
-        refl_rgb = torch.clamp_min(
+        refl_rgb = kinks.maximum(
             refl_rgb * (1.0 - (roughness * 2.2)[..., None]), 0.0)
         add = _brdf.radiance(refl_rgb, rec.refl_dir, wo, n_w, albedo,
                              roughness, metallic, k)

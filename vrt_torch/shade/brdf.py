@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from vrt_torch.core import kinks
+
 PI = 3.141592  # deliberately not math.pi
 SHADOW_BRIGHTNESS = 0.0
 F0_DIEL = 0.04
@@ -21,9 +23,9 @@ def _dot(a, b):
 def distribution_ggx(n, h, roughness):
     """D: a^2 / max(pi*c^2, 1e-3), c = (n.h)^2(a^2-1)+1."""
     a2 = roughness * roughness
-    ndoth = torch.clamp_min(_dot(n, h), 0.0)
+    ndoth = kinks.maximum(_dot(n, h), 0.0)
     c = ndoth * ndoth * (a2 - 1.0) + 1.0
-    return a2 / torch.clamp_min(PI * c * c, 0.001)
+    return a2 / kinks.maximum(PI * c * c, 0.001)
 
 
 def g_schlick(ndotw, k):
@@ -31,15 +33,15 @@ def g_schlick(ndotw, k):
 
 
 def g_smith(n, wo, wi, k):
-    dwo = torch.clamp_min(_dot(n, wo), 0.0)
-    dwi = torch.clamp_min(_dot(n, wi), 0.0)
+    dwo = kinks.maximum(_dot(n, wo), 0.0)
+    dwi = kinks.maximum(_dot(n, wi), 0.0)
     return g_schlick(dwo, k) * g_schlick(dwi, k)
 
 
 def fresnel_schlick(f0, wo, h):
-    wdoth = torch.clamp_min(_dot(wo, h), 0.0)
+    wdoth = kinks.maximum(_dot(wo, h), 0.0)
     return f0 + (1.0 - f0) * torch.pow(
-        torch.clamp_min(1.0 - wdoth, 0.0), 5.0)[..., None]
+        kinks.maximum(1.0 - wdoth, 0.0), 5.0)[..., None]
 
 
 def brdf(wi, wo, n, albedo, roughness, metallic, k):
@@ -53,8 +55,8 @@ def brdf(wi, wo, n, albedo, roughness, metallic, k):
     f = fresnel_schlick(f0, wo, h)
     g = g_smith(n, wo, wi, k)
     lambert = albedo / PI
-    denom = torch.clamp_min(4.0 * torch.clamp_min(_dot(wo, n), 0.0)
-                            * torch.clamp_min(_dot(wi, n), 0.0), 0.0001)
+    denom = kinks.maximum(4.0 * kinks.maximum(_dot(wo, n), 0.0)
+                          * kinks.maximum(_dot(wi, n), 0.0), 0.0001)
     cook = (d * g / denom)[..., None] * f
     kd = (1.0 - f) * (1.0 - metallic[..., None])
     return lambert * kd + cook * f

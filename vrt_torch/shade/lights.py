@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from vrt_torch.core import kinks
+
 
 def point_light_intensity(intensity, distance, att_linear, att_exp):
     return intensity / (1.0 + att_linear * distance
@@ -12,7 +14,7 @@ def point_light_intensity(intensity, distance, att_linear, att_exp):
 
 def cone_falloff(cos_surface, cos_angle, cos_falloff):
     delta = (cos_surface - cos_angle) / (cos_falloff - cos_angle)
-    return torch.clamp_max(delta, 1.0)
+    return kinks.minimum(delta, 1.0)
 
 
 def spot_light_intensity(surface_point, distance, light_pos, light_dir,

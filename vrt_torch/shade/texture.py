@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from vrt_torch.core import kinks
 from vrt_torch.core import quat as vq
 
 
@@ -58,7 +59,7 @@ def _triplanar_uvs(obj_pos, scale):
 
 
 def _blend_weights(normal):
-    b = torch.abs(normal)
+    b = kinks.abs_(normal)
     s = torch.sum(b, dim=-1, keepdim=True)
     ok = s > 0
     return torch.where(ok, b / torch.where(ok, s, 1.0), 0.0)
@@ -100,7 +101,7 @@ def sample_cube(env, direction):
     """Sample a cube map [6,E,E,3] with D3D face conventions, bilinear.
     Face order +X,-X,+Y,-Y,+Z,-Z; the caller applies the ``.xzy`` swizzle."""
     x, y, z = direction[..., 0], direction[..., 1], direction[..., 2]
-    ax, ay, az = torch.abs(x), torch.abs(y), torch.abs(z)
+    ax, ay, az = kinks.abs_(x), kinks.abs_(y), kinks.abs_(z)
 
     x_major = (ax >= ay) & (ax >= az)
     y_major = (~x_major) & (ay >= az)
