@@ -8,8 +8,9 @@ Phases, each of which raises on failure:
 2. build   -- compiles the march K1 (per-lane and scene kernels) with K7
              (the slab march, the same source), the
              gather library (GP-A, GP-B, GP-C), the row gather K3, the fused
-             resolve (forward and backward) and the four shade kernels K4
-             (surface and combine, forward and backward) from
+             resolve (forward and backward), the four shade kernels K4
+             (surface and combine, forward and backward) and the corner
+             table's pack and its backward from
              ``vrt_torch/csrc/``, one nvcc each, and the import's native
              library (``vrt_torch/native/vrtnative.cpp``) with g++, all in
              parallel, and prints
@@ -115,8 +116,13 @@ Phases, each of which raises on failure:
              colours optimized by Adam (lr 1e-2) towards zero targets; one
              warm-up step, then three timed, with the launches per step (5
              scene marches, 3 fused resolves forward and 3 backward, 3 + 3
-             shade kernels forward and 3 + 3 backward, no K3, no per-lane
-             K1), peak device memory and the losses; the step with resolve on
+             shade kernels forward and 3 + 3 backward, 1 corner pack and 1
+             pack backward (``PackCorners``, f32 with the accel folded in),
+             no K3, no per-lane K1), peak device memory and the losses;
+             every pack and pack-backward launch of one step against its
+             plain version (the table bit for bit, the SDF's gradient
+             within ``PACK_GRAD_RTOL``), timed beside the torch pack and its
+             autograd backward (old, new, new, old); the step with resolve on
              the plain path over K3, the step with eager shading (the plain
              stages under autograd) and the step on the first designs of the
              scene march, the shade forward pair, the surface backward and
@@ -256,14 +262,20 @@ Phases, each of which raises on failure:
              plain version; the 64x64 frame against ``vrt``'s CPU render
              (``tests/fixtures/config7_r6_64x64.npy``) at the f32 golden
              tolerances.  config4 (the 257^3 sphere with per-voxel colours
-             and a bf16 table, 2 views of 256x256, Adam at 1e-2): three
-             steps with their launches and peak memory; every kernel launch
-             of one step, forward and backward, against its plain version;
-             the step's gradients against the same step on the plain stages
-             (``FIT_COS_TOL``, and ``BF16_DIFF_TOL`` for the bf16
-             tables' rounding); a profile, and the colour table's repack,
-             its backward, ``rebuild_accel`` and the corner pack's backward
-             each timed alone.
+             and a bf16 corner table, 2 views of 256x256, Adam at 1e-2):
+             its colours above ``COLOR_CORNER_BUDGET_BYTES``, so the f32
+             [1,257,257,257,3] grid with no packed view, sampled by the
+             surface kernels' unpacked layout; three steps with their
+             launches (the corner pack and its backward once a step, the
+             colour repack never) and peak memory; every kernel launch of
+             one step, forward and backward, the pack pair's among them,
+             against its plain version; the step's gradients against the
+             same step on the plain stages (``FIT_COS_TOL``; the f32 colour
+             grid's at ``FIT_DIFF_TOL``, the SDF's at ``BF16_DIFF_TOL`` for
+             the bf16 table's rounding); a profile (busy time) and peak
+             memory, the pack pair against the torch pack and its autograd
+             backward (old, new, new, old), ``rebuild_accel`` and
+             ``build_accel`` each timed alone.
 Last, two yardsticks that the port uses nowhere: the 1080p frame with eager
 shading captured into one CUDA graph and replayed (the run fails unless the
 capture succeeds and the replay gives the eager frame), and ``torch.compile``
@@ -351,15 +363,22 @@ SHADE_GRAD_LANE_BUDGET = 0.0
 # the shade Functions what is left is the scene marches and resolves, the
 # twelve shade launches, rebuild_accel, the corner and colour repacks,
 # Adam, the camera rays, the tonemap and the loss: 451 on the first run on
-# the card (NVIDIA H100 80GB HBM3, 700 W).  The count follows the code, not
-# the data, but for the few ops of a level whose shadows are not traced:
-# a step back on eager shading, or a stage that falls back to eager ops,
-# leaves the range.  Counted by the host's launch calls (``_profile``):
+# the card (NVIDIA H100 80GB HBM3, 700 W); with the corner table's eager
+# pack and its autograd backward (slices, casts, a stack; zeroed buffers
+# and adds) replaced by the pack kernel pair, 389 in every profile on that
+# card (452 with the eager pack).  The count follows the
+# code, not the data, but for the few ops of a level whose shadows are not
+# traced: a step back on eager shading, or a stage that falls back to eager
+# ops, leaves the range.  Counted by the host's launch calls (``_profile``):
 # the device records of one profile in twenty came up short, by 1 to 79 at
 # the start of the trace, while the launch calls held at 452 in 80 profiles
 # (``vrt_torch/apps/probe_profiler.py``)
 FRAME_OPS_MAX = 400
-FIT_STEP_OPS = range(451 - 10, 451 + 10 + 1)
+FIT_STEP_OPS = range(389 - 10, 389 + 10 + 1)
+# the corner pack's backward adds a voxel's at most 8 cotangents in
+# autograd's order: held to PACK_GRAD_RTOL * max|g| of the plain version
+# (the slices' transpose), bit-equality reported
+PACK_GRAD_RTOL = 1e-6
 # K3's f32 atomics add in another order on every run: its scatter is held
 # to SCATTER_RTOL * max|sum| of an exact (float64) sum; so are the table
 # gradients of the fused resolve's backward, and its ray gradients to
@@ -725,14 +744,17 @@ def _simt(steps, width=None):
 
 def _row_contention(scene, hit, inst):
     """How the colour-row cotangents of a surface backward launch collide:
-    dict(hits, rows (distinct rows hit), max_hits_on_a_row, rows_per_warp
+    dict(hits, rows (distinct rows hit: packed rows, or the cells whose 8
+    voxel rows the unpacked grid takes), max_hits_on_a_row, rows_per_warp
     (distinct rows over the warps of 32 rays in launch order that hold a
     hit, on average), hits_per_warp (likewise))."""
     import torch
 
-    cn = scene.voxel_color_corners.shape[1]
+    from vrt_torch.render.gpuscene import color_table
+
+    cn = color_table(scene).shape[1] + 1
     mask = hit.hit
-    cell = hit.cell.clamp(0, cn - 1).long()
+    cell = (hit.cell + 1).clamp(0, cn - 1).long()
     vol = scene.inst_volume.long()[inst.clamp_min(0).long()]
     row = ((vol * cn + cell[:, 0]) * cn + cell[:, 1]) * cn + cell[:, 2]
     rows = row[mask]
@@ -1264,6 +1286,18 @@ def _beyond(a, b, lanes=None):
     return bad.float().mean().item(), worst, bool(same.all())
 
 
+def _color_bytes(scene, hits):
+    """What the colour sample of ``hits`` hit lanes reads: the cell (12 B)
+    and a packed row of 24 channels, or the unpacked grid's 8 voxel rows of
+    3 f32, no more than the table."""
+    from vrt_torch.render.gpuscene import color_table
+
+    table = color_table(scene)
+    row = 24 * table.element_size() if scene.voxel_color_corners is not None \
+        else 8 * 12
+    return hits * 12 + min(hits * row, table.numel() * table.element_size())
+
+
 def _surface_bound(scene, args):
     """The surface kernel's bound from what this launch's data needs, per
     lane kind.  A hit lane reads its flag and instance (5 B), the ray and t
@@ -1295,9 +1329,7 @@ def _surface_bound(scene, args):
         samples = (0 if colors else 1) + (2 if lit else 0)
         flops += samples * SHADE_FLOPS["tri_sample"]
     if colors:
-        pcc = scene.voxel_color_corners
-        nbytes += hits * 12 + min(hits * 24 * pcc.element_size(),
-                                  pcc.numel() * pcc.element_size())
+        nbytes += _color_bytes(scene, hits)
         flops += SHADE_FLOPS["colors"]
     if lit and shadows:
         flops += n_shadow * SHADE_FLOPS["light"]
@@ -1539,8 +1571,10 @@ def _surface_bwd_bound(scene, args, rays_grad, table_grad):
     n_obj (16 B) and, where asked, of the ray (24 B).  A hit lane reads its
     instance, the ray and t (32 B), the normal (12 B) where the mode reads
     it, the record's cotangents that were passed, with per-voxel colours the
-    cell and a colour row (no more than the table).  The textures once; the
-    f32 accumulator of the colour table written once."""
+    cell and a colour row or 8 voxel rows (no more than the table).  The
+    textures once; the f32 accumulator of the colour table written once."""
+    from vrt_torch.render.gpuscene import color_table
+
     _, o_w, _, _, _, hit, _, mode, _, cots = args[:10]
     rays = o_w.shape[0]
     hits = int(hit.hit.sum())
@@ -1556,10 +1590,8 @@ def _surface_bwd_bound(scene, args, rays_grad, table_grad):
         flops += ((0 if colors else 1) + (2 if lit else 0)) \
             * SHADE_BWD_FLOPS["tri_sample"]
     if colors:
-        pcc = scene.voxel_color_corners
-        nbytes += hits * 12 + min(hits * 24 * pcc.element_size(),
-                                  pcc.numel() * pcc.element_size())
-        nbytes += pcc.numel() * 4 if table_grad else 0
+        nbytes += _color_bytes(scene, hits)
+        nbytes += color_table(scene).numel() * 4 if table_grad else 0
         flops += SHADE_BWD_FLOPS["colors"]
     return _bound(nbytes, hits * flops)
 
@@ -1743,6 +1775,101 @@ def _shade_bwd_calls(run, expected, tag):
               f"ms; bound {got['bound']['bound_ms']:.4f} ms "
               f"({got['bound']['bytes']} B, by {got['bound']['bound_by']}); "
               f"lanes beyond tolerance {share_max:.2e}", flush=True)
+    return out
+
+
+def _pack_calls(run, expected, tag):
+    """Every launch of the corner pack and of its backward in ``run()`` (a
+    fit step), kept with its inputs and output, then held against its plain
+    version on the same inputs: the table against
+    ``pack_cell_corners_reference`` bit for bit, the SDF's gradient within
+    ``PACK_GRAD_RTOL * max|g|`` of ``pack_corners_backward_reference`` (the
+    slices' transpose in autograd's order; bit-equality reported).  Each
+    kernel timed beside the torch pack (old) and its autograd backward in
+    the order old, new, new, old, with its bound: the SDF (and the accel)
+    read once and the table written once, or the table's cotangent read
+    once and the SDF's gradient written once.  Fails unless each launched
+    ``expected`` times.  Returns {"pack" | "pack_bwd": dict(launches,
+    max_abs_err, bit_equal, ms, plain_ms, bound, shape)}."""
+    import torch
+
+    from vrt_torch.kernels import pack as kp
+    from vrt_torch.march.types import pack_cell_corners_reference
+
+    with _recording(kp, "pack_corners_cuda") as fwd, \
+            _recording(kp, "pack_corners_backward_cuda") as bwd:
+        run()
+    torch.cuda.synchronize()
+    if (len(fwd), len(bwd)) != (expected, expected):
+        raise AssertionError(f"the {tag} launched the corner pack and its "
+                             f"backward {len(fwd)} + {len(bwd)} times, "
+                             f"expected {expected} + {expected}")
+    out = {}
+    boxes = dict(pack=dict(ms=[], plain_ms=[], bounds=[], err=0.0,
+                           bit=True, shape=None),
+                 pack_bwd=dict(ms=[], plain_ms=[], bounds=[], err=0.0,
+                               bit=True, shape=None))
+    for (sdf, accel, dtype), _, got in fwd:
+        box = boxes["pack"]
+        with torch.no_grad():
+            want = pack_cell_corners_reference(sdf, accel, dtype)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{tag}: the corner pack differs from the "
+                                 f"plain pack")
+        del want
+        nbytes = sdf.numel() * 4 + got.numel() * got.element_size() \
+            + (0 if accel is None else accel.numel() * 4)
+        box["bounds"].append(_bound(nbytes, 0))
+        box["shape"] = f"{tuple(got.shape)} {got.dtype}"
+        with torch.no_grad():
+            olds, news = _paired_ms(
+                lambda: pack_cell_corners_reference(sdf, accel, dtype),
+                lambda: kp.pack_corners_cuda(sdf, accel, dtype), 10)
+        box["ms"].append(sum(news) / 2)
+        box["plain_ms"].append(sum(olds) / 2)
+        print(f"corner pack [{tag}]: {box['shape']}, bit-equal to the plain "
+              f"pack; torch pack, kernel, kernel, torch pack "
+              f"{', '.join(f'{t:.4f}' for t in (olds[0], news[0], news[1], olds[1]))}"
+              f" ms; bound {box['bounds'][-1]['bound_ms']:.4f} ms "
+              f"({nbytes} B) = {box['bounds'][-1]['bound_ms'] / box['ms'][-1]:.0%}"
+              f" of the kernel", flush=True)
+    for ((g,), _, got), ((sdf, accel, dtype), _, _) in zip(bwd, fwd):
+        box = boxes["pack_bwd"]
+        want = kp.pack_corners_backward_reference(g, g.shape[-2] + 1)
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item() / scale if scale else 0.0
+        bit = bool(torch.equal(got, want))
+        if not (scale > 0 and bool(torch.isfinite(got).all())
+                and err <= PACK_GRAD_RTOL):
+            raise AssertionError(f"{tag}: the corner pack's backward is off "
+                                 f"by {err:.3e} of max|g| {scale:.3e}")
+        del want
+        box["err"], box["bit"] = max(box["err"], err), box["bit"] and bit
+        nbytes = g.numel() * g.element_size() + got.numel() * 4
+        box["bounds"].append(_bound(nbytes, 0))
+        box["shape"] = f"{tuple(g.shape)} {g.dtype}"
+        leaf = sdf.detach().requires_grad_(True)
+        table = pack_cell_corners_reference(leaf, accel, dtype)
+        olds, news = _paired_ms(
+            lambda: torch.autograd.grad(table, leaf, g, retain_graph=True),
+            lambda: kp.pack_corners_backward_cuda(g), 10)
+        del leaf, table
+        box["ms"].append(sum(news) / 2)
+        box["plain_ms"].append(sum(olds) / 2)
+        print(f"corner pack backward [{tag}]: {box['shape']}, within "
+              f"{err:.2e} of max|g| of the plain version (bit-equal {bit}); "
+              f"autograd of the torch pack, kernel, kernel, autograd "
+              f"{', '.join(f'{t:.4f}' for t in (olds[0], news[0], news[1], olds[1]))}"
+              f" ms; bound {box['bounds'][-1]['bound_ms']:.4f} ms "
+              f"({nbytes} B) = {box['bounds'][-1]['bound_ms'] / box['ms'][-1]:.0%}"
+              f" of the kernel", flush=True)
+    for name, box in boxes.items():
+        out[name] = dict(launches=expected, max_abs_err=box["err"],
+                         bit_equal=box["bit"], ms=sum(box["ms"]),
+                         plain_ms=sum(box["plain_ms"]),
+                         bound=_sum_bounds(box["bounds"]),
+                         shape=box["shape"])
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4256,27 +4383,33 @@ def _config4(dev, card, sync, zero_counts, counts):
     """Phase 13, config4 (``vrt/apps/bench.py``'s ``bench_fit_257``): the
     257^3 sphere with per-voxel colours and a bf16 corner table
     (``bench.config4_scene``), 2 views of 256x256, zero targets, Adam at
-    1e-2, through ``make_fit_step``.  Three steps after a warm-up, their
-    launches and peak ``max_memory_allocated``; every scene-march,
-    fused-resolve (forward and backward) and shade (forward and backward)
+    1e-2, through ``make_fit_step``.  Its colours lie above
+    ``COLOR_CORNER_BUDGET_BYTES``: the f32 [1,257,257,257,3] grid with no
+    packed view, as ``vrt`` leaves them.  Three steps after a warm-up,
+    their launches (the corner pack and its backward once a step, the
+    colour repack never) and peak ``max_memory_allocated``; every
+    scene-march, fused-resolve (forward and backward), shade (forward and
+    backward, on the unpacked grid) and corner-pack (forward and backward)
     launch of one step against its plain version; the step's gradients on
     the kernels against the same step on the plain stages (eager shading,
-    resolve on the plain path) at phase 8's cosine (``FIT_COS_TOL``) and
-    within ``BF16_DIFF_TOL`` of the largest |g| (with the kernel step's
-    spread against itself run again beside it); a profile of one step, and the device time of its
-    pieces each alone: the colour table's repack and its backward, the
-    corner table's pack and its backward, ``rebuild_accel`` at 257^3.
-    Returns dict(counts (of the three steps), held, numbers)."""
+    resolve on the plain path) at phase 8's cosine (``FIT_COS_TOL``), the
+    f32 colour grid's within ``FIT_DIFF_TOL`` and the SDF's within
+    ``BF16_DIFF_TOL`` of the largest |g| (with the kernel step's spread
+    against itself run again beside it); a profile of one step (busy time),
+    and the device time of ``rebuild_accel`` and ``build_accel`` at 257^3
+    each alone.  Returns dict(counts (of the three steps), held,
+    numbers)."""
     import torch
 
     from vrt_torch.apps import bench
+    from vrt_torch.diff import fit as fitmod
     from vrt_torch.diff.fit import (_value_and_grad, graft_and_rebuild,
                                     graft_params, make_fit_step,
                                     rebuild_accel, render_views)
     from vrt_torch.diff.optim import adam
+    from vrt_torch.kernels import pack as kp
     from vrt_torch.kernels._timing import device_ms
-    from vrt_torch.march.types import pack_cell_corners
-    from vrt_torch.render.gpuscene import RenderMode, pack_voxel_color_corners
+    from vrt_torch.render.gpuscene import RenderMode, color_table
     from vrt_torch.volume.accel import build_accel
 
     mode, size, views = RenderMode(), CONFIG4_SIZE, CONFIG4_VIEWS
@@ -4284,16 +4417,23 @@ def _config4(dev, card, sync, zero_counts, counts):
     scene, cams = bench.config4_scene(8, views, device=dev)
     sync()
     build_s = time.perf_counter() - t0
-    corners, colors = scene.volumes.corners, scene.voxel_color_corners
+    corners, colors = scene.volumes.corners, color_table(scene)
     table_mb = corners.numel() * corners.element_size() / 1e6
     colour_mb = colors.numel() * colors.element_size() / 1e6
     print(f"config4 scene on {card}: built in {build_s:.1f}s; corners "
           f"{tuple(corners.shape)} {corners.dtype} = {table_mb:.0f} MB, "
-          f"colour table {tuple(colors.shape)} {colors.dtype} = "
-          f"{colour_mb:.0f} MB", flush=True)
+          f"colours sampled from {tuple(colors.shape)} {colors.dtype} = "
+          f"{colour_mb:.0f} MB (packed view: "
+          f"{scene.voxel_color_corners is not None})", flush=True)
     if tuple(corners.shape) != (1, 256, 256, 256, 8) or \
-            corners.dtype != torch.bfloat16 or colors.dtype != torch.bfloat16:
-        raise AssertionError("config4's tables are not 257^3 bf16")
+            corners.dtype != torch.bfloat16:
+        raise AssertionError("config4's corner table is not 257^3 bf16")
+    if scene.voxel_color_corners is not None or \
+            colors is not scene.voxel_colors or \
+            tuple(colors.shape) != (1, 257, 257, 257, 3) or \
+            colors.dtype != torch.float32:
+        raise AssertionError("config4's colours are not the unpacked f32 "
+                             "257^3 grid")
     params = bench._fit_params(scene)
     opt = adam(bench.ADAM_LR)
     state = opt.init(params)
@@ -4306,15 +4446,21 @@ def _config4(dev, card, sync, zero_counts, counts):
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     runs = []
-    for _ in range(3):
-        sync()
-        t0 = time.perf_counter()
-        params, state, loss = step(params, state, targets)
-        sync()
-        runs.append(time.perf_counter() - t0)
-        losses.append(float(loss))
+    with _counting(fitmod, "pack_voxel_color_corners") as repacks:
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, targets)
+            sync()
+            runs.append(time.perf_counter() - t0)
+            losses.append(float(loss))
     peak = torch.cuda.max_memory_allocated()
     c4_counts = counts()
+    c4_packs = dict(kp.LAUNCHES)
+    if repacks[0] != 0 or c4_packs != dict(pack=3, pack_bwd=3):
+        raise AssertionError(f"3 config4 steps: {repacks[0]} colour "
+                             f"repacks (expected 0), corner packs "
+                             f"{c4_packs} (expected 3 and 3 backward)")
     levels, traces = _resolves(scene), _traces(scene)
     want = dict(k1=0, scene=3 * views * traces, resolve=3 * views * levels,
                 resolve_bwd=3 * views * levels, gather=0, scatter=0,
@@ -4338,7 +4484,8 @@ def _config4(dev, card, sync, zero_counts, counts):
           f"per step {c4_counts['scene'] // 3} scene marches, "
           f"{c4_counts['resolve'] // 3} fused resolves and their "
           f"backwards, {c4_counts['surface'] // 3} shade surface and "
-          f"combine launches and their backwards; entries moved "
+          f"combine launches and their backwards, 1 corner pack and 1 "
+          f"pack backward, 0 colour repacks; entries moved "
           f"{', '.join(f'{k} {v:.2%}' for k, v in moved.items())}",
           flush=True)
     if not all(v == v for v in losses) or not all(moved.values()):
@@ -4355,6 +4502,7 @@ def _config4(dev, card, sync, zero_counts, counts):
     held["shade"] = _shade_calls(one_step, views * levels, tag)
     held["shade_bwd"] = _shade_bwd_calls(one_step, views * levels, tag)
     rows = _kernel_rows(held, f"config4 on {card}")
+    held["pack"] = _pack_calls(one_step, 1, tag)
 
     # the step's gradients on the kernels against the plain stages
     def loss_fn(p):
@@ -4368,16 +4516,19 @@ def _config4(dev, card, sync, zero_counts, counts):
         lp, gp = _value_and_grad(loss_fn, params)
     gates = {k: _grad_gates(gk[k], gp[k]) for k in gk}
     spread = {k: _grad_gates(again[k], gk[k]) for k in gk}
+    # the SDF's cotangents pass through the bf16 corner table; the colours'
+    # reach the f32 grid without a cast
+    diff_tol = dict(sdf=BF16_DIFF_TOL, voxel_colors=FIT_DIFF_TOL)
     print(f"config4 step's gradients on the kernels against the plain "
           f"stages (eager shading, resolve on the plain path): loss "
           f"{float(lk):.8f} vs {float(lp):.8f}; " + "; ".join(
               f"{k}: 1 - cosine {c:.2e} (< {FIT_COS_TOL}), max diff / "
-              f"max|g| {d:.2e} (< {BF16_DIFF_TOL:.2e}; the kernel step "
+              f"max|g| {d:.2e} (< {diff_tol[k]:.2e}; the kernel step "
               f"against itself run again: {spread[k][0]:.2e}, "
               f"{spread[k][1]:.2e})" for k, (c, d) in gates.items()),
           flush=True)
-    if not all(c < FIT_COS_TOL and d < BF16_DIFF_TOL
-               for c, d in gates.values()):
+    if not all(c < FIT_COS_TOL and d < diff_tol[k]
+               for k, (c, d) in gates.items()):
         raise AssertionError("config4's kernel step disagrees with its "
                              "plain step")
     del gk, gp, again
@@ -4386,47 +4537,39 @@ def _config4(dev, card, sync, zero_counts, counts):
     # where a step's device time goes
     prof = _profile(one_step, sync, median, what="one config4 fit step")
     pieces = {}
-    sdf, vcol = params["sdf"], params["voxel_colors"]
-    pieces["colour_repack"] = device_ms(
-        lambda: pack_voxel_color_corners(vcol, torch.bfloat16), 3)
-    leaf = vcol.detach().requires_grad_(True)
-    packed = pack_voxel_color_corners(leaf, torch.bfloat16)
-    cot = torch.ones_like(packed)
-    pieces["colour_repack_backward"] = device_ms(
-        lambda: torch.autograd.grad(packed, leaf, cot, retain_graph=True), 3)
-    del leaf, packed, cot
+    sdf = params["sdf"]
     pieces["build_accel"] = device_ms(lambda: build_accel(sdf, 8), 3)
     pieces["rebuild_accel"] = device_ms(lambda: rebuild_accel(
         graft_params(scene, params, repack=False)), 3)
-    leaf = sdf.detach().requires_grad_(True)
-    table = pack_cell_corners(leaf, None, torch.bfloat16)
-    cot = torch.ones_like(table)
-    pieces["corner_pack_backward"] = device_ms(
-        lambda: torch.autograd.grad(table, leaf, cot, retain_graph=True), 3)
-    del leaf, table, cot
     torch.cuda.empty_cache()
-    kernels_ms = sum(r["ms"] for r in rows.values())
+    pack, pack_bwd = held["pack"]["pack"], held["pack"]["pack_bwd"]
+    kernels_ms = sum(r["ms"] for r in rows.values()) + pack["ms"] \
+        + pack_bwd["ms"]
     busy = None if prof is None else prof["busy_ms"]
     print(f"config4 step's device time on {card}: busy "
-          f"{'not measured' if busy is None else f'{busy:.2f} ms'}; each "
-          f"piece alone: colour table repack {pieces['colour_repack']:.3f} "
-          f"ms and its backward {pieces['colour_repack_backward']:.3f} ms; "
+          f"{'not measured' if busy is None else f'{busy:.2f} ms'}, peak "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; each piece alone: "
           f"rebuild_accel {pieces['rebuild_accel']:.3f} ms (build_accel "
-          f"{pieces['build_accel']:.3f} ms, the rest the corner table's "
-          f"pack), the corner pack's backward "
-          f"{pieces['corner_pack_backward']:.3f} ms; the kernels "
-          f"{kernels_ms:.3f} ms", flush=True)
+          f"{pieces['build_accel']:.3f} ms, the rest the corner pack "
+          f"kernel's launch and the graft), the corner pack "
+          f"{pack['ms']:.4f} ms (the torch pack {pack['plain_ms']:.3f} ms) "
+          f"and its backward {pack_bwd['ms']:.4f} ms (autograd of the "
+          f"torch pack {pack_bwd['plain_ms']:.3f} ms); the hand-written "
+          f"kernels {kernels_ms:.3f} ms", flush=True)
     numbers = dict(step_ms=median, runs_ms=[r * 1e3 for r in runs],
                    peak_gib=peak / 2**30, losses=losses,
-                   launches_per_step={k: v // 3 for k, v in c4_counts.items()
-                                      if v},
-                   corner_table_mb=table_mb, colour_table_mb=colour_mb,
+                   launches_per_step={
+                       **{k: v // 3 for k, v in c4_counts.items() if v},
+                       **{k: v // 3 for k, v in c4_packs.items()},
+                       "colour_repack": repacks[0] // 3},
+                   corner_table_mb=table_mb, colour_grid_mb=colour_mb,
                    build_s=build_s, busy_ms=busy,
                    device_ops=None if prof is None else prof["device_ops"],
                    pieces_ms=pieces, kernels_ms=kernels_ms, vs_plain=gates,
                    capped=held["scene"]["capped"],
                    simt_flat=held["scene"]["simt_flat"])
-    return dict(counts=c4_counts, held=held, numbers=numbers)
+    return dict(counts=c4_counts, packs=c4_packs, held=held,
+                numbers=numbers)
 
 
 def _list(ms):
@@ -4447,6 +4590,7 @@ def main():
     from vrt_torch.apps import probe_gather as probe
     from vrt_torch.kernels import gather as gk
     from vrt_torch.kernels import march as k1
+    from vrt_torch.kernels import pack as kp
     from vrt_torch.kernels import resolve as kr
     from vrt_torch.kernels import rows as k3
     from vrt_torch.kernels import shade as k4
@@ -4481,14 +4625,16 @@ def main():
     _mark(2)
     # ---- 2. build: one nvcc per source, all started together ---------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(7) as pool:
         logs = {"K1 (march.cu)": pool.submit(k1.build),    # K1 and K7
                 "gather (gather.cu)": pool.submit(gk.build),
                 "K3 (rows.cu)": pool.submit(k3.build),
                 "fused resolve, forward and backward (resolve.cu)":
                 pool.submit(kr.build),
                 "K4 shade, surface and combine, forward and backward (shade.cu)":
-                pool.submit(k4.build)}
+                pool.submit(k4.build),
+                "corner pack and its backward (pack.cu)":
+                pool.submit(kp.build)}
         gxx = pool.submit(native.build)
         logs = {name: f.result() for name, f in logs.items()}
         gxx_s = gxx.result()
@@ -4529,7 +4675,11 @@ def main():
             ("fused resolve (resolve.cu)", "fused resolve, forward and "
              "backward (resolve.cu)", "resolve_bwd_merged_kernel", 256),
             ("fused resolve (resolve.cu)", "fused resolve, forward and "
-             "backward (resolve.cu)", "resolve_bwd_kernel", 256)):
+             "backward (resolve.cu)", "resolve_bwd_kernel", 256),
+            ("corner pack (pack.cu)", "corner pack and its backward "
+             "(pack.cu)", "pack_kernel", 256),
+            ("corner pack (pack.cu)", "corner pack and its backward "
+             "(pack.cu)", "pack_bwd_kernel", 256)):
         got = ptxas_usage(logs[log], kernel)
         if got is None:
             print(f"ptxas, {name} {kernel}: not in the log (the library was "
@@ -4760,6 +4910,7 @@ def main():
         _reset(k3.SCATTER_LAUNCHES)
         _reset(k4.LAUNCHES)
         _reset(k4.PATH_LAUNCHES)
+        _reset(kp.LAUNCHES)
 
     def counts():
         return dict(k1=k1.LAUNCHES, scene=k1.SCENE_LAUNCHES,
@@ -5007,6 +5158,7 @@ def main():
     peak = torch.cuda.max_memory_allocated()
     fit_counts = counts()
     fit_paths = dict(k4.PATH_LAUNCHES)
+    fit_packs = dict(kp.LAUNCHES)
     step_s = statistics.median(runs)
     n_rays = len(FIT_CAMS) * FRAME_W * FRAME_H
     print(f"config6 fit step 1920x1080 on {card}: median "
@@ -5033,6 +5185,12 @@ def main():
     if fit_counts != want:
         raise AssertionError(f"launches in 3 fit steps {fit_counts}, "
                              f"expected {want}")
+    # rebuild_accel packs the 9-channel f32 table once a step
+    if fit_packs != dict(pack=3, pack_bwd=3):
+        raise AssertionError(f"corner packs in 3 fit steps {fit_packs}, "
+                             f"expected 3 and 3 backward")
+    print(f"config6 fit steps: corner pack {fit_packs['pack'] / 3:g} and "
+          f"its backward {fit_packs['pack_bwd'] / 3:g} a step", flush=True)
     for stage in ("surface", "combine"):
         if fit_paths[f"{stage} v4"] + fit_paths[f"{stage} scalar"] != \
                 fit_counts[stage]:
@@ -5054,6 +5212,10 @@ def main():
     # run starts from the same parameters and optimizer state
     def one_step():
         return step(params, state, targets)[2]
+
+    # every corner pack and pack backward of one step against its plain
+    # version, both timed beside the torch pack
+    fit_pack = _pack_calls(one_step, 1, "config6 fit step")
 
     def old_step():
         with _plain_resolve_path():
@@ -5648,6 +5810,61 @@ def main():
                "vrt/render/renderer.py:306 (XLA's transpose of _shade_lit's "
                "tail, the selects of trace_radiance :478, vrt/shade/brdf.py, "
                "lights.py, texture.py sample_env: no Pallas kernel)"))),
+        *({"name": f"K4 shade {stage} (unpacked colours)", "route": "cuda",
+           "source": "vrt_torch/csrc/shade.cu",
+           "replaces": replaces,
+           "path": "the surface kernels on the f32 voxel grid "
+                   "(colour layout 2: 8 voxel rows a hit), the colours "
+                   "above COLOR_CORNER_BUDGET_BYTES: config4's fit step",
+           "launches": c4["counts"][stage],
+           "launches_by_path": {"config4_fit_steps": c4["counts"][stage]},
+           "max_abs_err": box["max_abs_err"],
+           **held_entry(box), "library_ms": None}
+          for stage, box, replaces in (
+              ("surface", c4["held"]["shade"]["surface"],
+               "vrt/render/renderer.py:249 (_voxel_color_sample's unpacked "
+               "branch under _shade_lit :306, XLA-fused jnp: no Pallas "
+               "kernel)"),
+              ("surface_bwd", c4["held"]["shade_bwd"]["surface_bwd"],
+               "vrt/render/renderer.py:249 (XLA's transpose of "
+               "_voxel_color_sample's unpacked branch, its 8 voxel gathers' "
+               "scatter-add: no Pallas kernel)"))),
+        *({"name": f"corner pack{suffix}", "route": "cuda",
+           "source": "vrt_torch/csrc/pack.cu",
+           "replaces": replaces,
+           "path": "diff/fit.py::rebuild_accel through "
+                   "march/types.py::pack_cell_corners -> PackCorners: once "
+                   "a fit step (config6: f32 with the accel folded in; "
+                   "config4: bf16, 8 channels)",
+           "launches": fit_packs[key] + c4["packs"][key],
+           "launches_by_path": {"fit_steps": fit_packs[key],
+                                "config4_fit_steps": c4["packs"][key]},
+           "max_abs_err": max(fit_pack[key]["max_abs_err"],
+                              c4["held"]["pack"][key]["max_abs_err"]),
+           "bit_equal_to_plain": fit_pack[key]["bit_equal"]
+           and c4["held"]["pack"][key]["bit_equal"],
+           # config4's launch; the torch pack (or autograd of it) is the
+           # plain version, timed old, new, new, old
+           "ms": c4["held"]["pack"][key]["ms"],
+           "plain_ms": c4["held"]["pack"][key]["plain_ms"],
+           **bound_keys(c4["held"]["pack"][key]["bound"]),
+           "library_ms": None,
+           "table": c4["held"]["pack"][key]["shape"],
+           "config6_fit_step": {
+               "ms": fit_pack[key]["ms"],
+               "plain_ms": fit_pack[key]["plain_ms"],
+               "table": fit_pack[key]["shape"],
+               **bound_keys(fit_pack[key]["bound"])},
+           "ptxas": ptxas.get(kernel)}
+          for key, suffix, kernel, replaces in (
+              ("pack", "", "pack_kernel",
+               "vrt/march/types.py:25 (pack_cell_corners under "
+               "vrt/diff/fit.py:77 rebuild_accel and :31 graft_params, "
+               "XLA-fused slices and a stack: no Pallas kernel)"),
+              ("pack_bwd", " backward", "pack_bwd_kernel",
+               "vrt/march/types.py:25 (XLA's transpose of "
+               "pack_cell_corners' slices under jax.value_and_grad of the "
+               "fit step: no Pallas kernel)"))),
         {"name": "K3 gather", "route": "cuda",
          "source": "vrt_torch/csrc/rows.cu",
          "replaces": "vrt/march/isosurface.py:181 (take_rows, an XLA "

@@ -265,12 +265,13 @@ class TestScene:
         assert_same(ts.voxel_colors, vs.voxel_colors, "voxel_colors")
         assert_same(ts.voxel_color_corners, vs.voxel_color_corners,
                     "voxel_color_corners")
-        # a bridged scene whose packed view vrt left out gets one packed
+        # a bridged scene whose packed view vrt left out (above its
+        # COLOR_CORNER_BUDGET_BYTES) keeps none: it samples the f32 grid
         fields = scene_fields(vs)
         fields["voxel_color_corners"] = None
         bridged = scene_from_numpy(fields, device="cpu")
-        assert torch.equal(bridged.voxel_color_corners,
-                           ts.voxel_color_corners)
+        assert bridged.voxel_color_corners is None
+        assert torch.equal(bridged.voxel_colors, ts.voxel_colors)
 
 
 class TestRaysAndTransforms:

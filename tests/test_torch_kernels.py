@@ -1398,11 +1398,13 @@ def test_shade_kernels_match_plain_on_card(mode, lights):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["colours-f32", "colours-bf16",
-                                  "non-reflective", "empty", "default-1x1"])
+                                  "colours-unpacked", "non-reflective",
+                                  "empty", "default-1x1"])
 def test_shade_kernels_on_card_cases(case):
-    """Per-voxel colours from an f32 and a bf16 table (lit and unlit), a
-    scene without reflective material (one level, no bounce record), the
-    scene without instances, and the flagship's default 1x1 textures."""
+    """Per-voxel colours from an f32 and a bf16 table and from the unpacked
+    f32 grid (lit and unlit), a scene without reflective material (one
+    level, no bounce record), the scene without instances, and the
+    flagship's default 1x1 textures."""
     from vrt_torch.scenes import shading_scene
 
     dev = _card()
@@ -1411,6 +1413,8 @@ def test_shade_kernels_on_card_cases(case):
         scene = shading_scene(5, 2, 1, colors=True, march_dtype=dtype,
                               device=dev)
         assert scene.voxel_color_corners.dtype == (dtype or torch.float32)
+        if case.endswith("unpacked"):
+            scene = unpacked_colors(scene)
     elif case == "non-reflective":
         scene = shading_scene(5, 1, 1, reflective=False, device=dev)
         assert not scene.any_reflective
@@ -1545,6 +1549,137 @@ def test_shade_wrappers_reject_bad_inputs_on_card():
     assert out.shape == (o.shape[0], 4)
 
 
+@pytest.mark.gpu
+def test_colour_layouts_refused_on_card():
+    """The surface kernels take the packed view (f32 or bf16) or the f32
+    voxel grid of the corner table's side: a bf16 or wrongly sized grid, an
+    f16 view, a colour table that is not the one the scene samples and CPU
+    tensors raise before any launch."""
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.render.camera import camera_rays
+    from vrt_torch.scenes import shading_scene
+
+    dev = _card()
+    packed = shading_scene(4, 1, 1, colors=True, device=dev)
+    scene = unpacked_colors(packed)
+    mode = RenderMode()
+    o, d = camera_rays(scene.cam_pos, scene.cam_rot, scene.cam_fov, 32, 18)
+    o = o.contiguous()
+    t_max = torch.full((o.shape[0],), tren.RADIANCE_TMAX, device=dev)
+    hit, inst = tren.march_scene(scene, o, d, t_max)
+    t, n_obj, _ = tren.resolve_scene(scene, o, d, hit, inst)
+    grid = scene.voxel_colors
+    bad_scenes = [
+        dataclasses.replace(scene, voxel_colors=grid.to(torch.bfloat16)),
+        dataclasses.replace(scene, voxel_colors=grid[:, 1:, 1:, 1:]
+                            .contiguous()),
+        dataclasses.replace(packed, voxel_color_corners=packed
+                            .voxel_color_corners.half())]
+    before = dict(k4.LAUNCHES)
+    for bad in bad_scenes:
+        with pytest.raises(ValueError):
+            k4.shade_surface_cuda(bad, o, d, t, n_obj, hit, inst, mode, True,
+                                  True)
+    with pytest.raises(ValueError):
+        k4.ShadeSurface.apply(o, d, t, n_obj, packed.voxel_color_corners,
+                              scene, hit, inst, mode, True, True)
+    cpu_hit = dataclasses.replace(hit, hit=hit.hit.cpu(), cell=hit.cell.cpu())
+    with pytest.raises(ValueError):
+        k4.shade_surface_cuda(scene, o.cpu(), d.cpu(), t.cpu(), n_obj.cpu(),
+                              cpu_hit, inst.cpu(), mode, True, True)
+    assert k4.LAUNCHES == before
+    rec = k4.shade_surface_cuda(scene, o, d, t, n_obj, hit, inst, mode, True,
+                                True)
+    assert k4.LAUNCHES["surface"] == before["surface"] + 1
+    assert bool(torch.isfinite(rec.albedo[hit.hit]).all())
+
+
+# ---- the corner table's pack and its backward on the card --------------------
+#
+# The pack is a copy and one cast, so it equals the plain pack bit for bit;
+# the backward adds each voxel's at most 8 cotangents in f32 in autograd's
+# order, and is held to 1e-6 * max|g| of autograd of the plain pack (bit
+# for bit where the orders agree).
+
+PACK_GRAD_RTOL = 1e-6
+
+
+def _pack_case(table, n, dev, seed=0):
+    """A seeded SDF [V,n,n,n] (V = 2 up to n = 65), the accel of a 9-channel
+    table (None for 8), the table's dtype and a seeded cotangent."""
+    rng = np.random.default_rng(seed)
+    dtype = torch.bfloat16 if table.startswith("bf16") else torch.float32
+    vols, c = (2 if n <= 65 else 1), n - 1
+    sdf = torch.from_numpy(rng.normal(scale=4.0, size=(vols, n, n, n))
+                           .astype(np.float32)).to(dev)
+    accel = None
+    if table.endswith("x9"):
+        accel = torch.from_numpy(rng.integers(0, 700, size=(vols, c, c, c))
+                                 .astype(np.int32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(vols, c, c, c, 9 if accel is not
+                                          None else 8)).astype(np.float32))
+    return sdf, accel, dtype, g.to(dtype).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [17, 65, 257, 10])
+@pytest.mark.parametrize("table", ["f32x9", "bf16x8", "f32x8", "bf16x9"])
+def test_pack_corners_match_plain_on_card(table, n):
+    """``pack_cell_corners`` on CUDA tensors (``PackCorners``: one pack and
+    one backward launch) against the plain pack and autograd of it, at
+    config6's 65^3 and config4's 257^3 sides and at 10^3, whose 729 cells a
+    volume are no multiple of a block."""
+    from vrt_torch.kernels import pack as kp
+    from vrt_torch.march.types import (pack_cell_corners,
+                                       pack_cell_corners_reference)
+
+    dev = _card()
+    sdf, accel, dtype, g = _pack_case(table, n, dev)
+    leaf = sdf.clone().requires_grad_(True)
+    want = pack_cell_corners_reference(leaf, accel, dtype)
+    (g_want,) = torch.autograd.grad(want, leaf, g)
+    before = dict(kp.LAUNCHES)
+    leaf = sdf.clone().requires_grad_(True)
+    got = pack_cell_corners(leaf, accel, dtype)
+    (g_got,) = torch.autograd.grad(got, leaf, g)
+    torch.cuda.synchronize()
+    assert {k: kp.LAUNCHES[k] - before[k] for k in before} == dict(
+        pack=1, pack_bwd=1)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, want.detach())
+    assert g_got.dtype == torch.float32 and g_got.shape == sdf.shape
+    scale = g_want.abs().max().item()
+    assert scale > 0
+    assert (g_got - g_want).abs().max().item() <= PACK_GRAD_RTOL * scale
+    assert torch.equal(kp.pack_corners_backward_reference(g, n), g_want)
+
+
+@pytest.mark.gpu
+def test_pack_wrappers_reject_bad_inputs_on_card():
+    from vrt_torch.kernels import pack as kp
+
+    dev = _card()
+    sdf, accel, dtype, g = _pack_case("f32x9", 9, dev)
+    before = dict(kp.LAUNCHES)
+    bad = [
+        lambda: kp.pack_corners_cuda(sdf.cpu(), accel.cpu(), dtype),
+        lambda: kp.pack_corners_cuda(sdf.double(), accel, dtype),
+        lambda: kp.pack_corners_cuda(sdf, accel.long(), dtype),
+        lambda: kp.pack_corners_cuda(sdf, accel[:, :-1].contiguous(), dtype),
+        lambda: kp.pack_corners_cuda(sdf, accel, torch.float16),
+        lambda: kp.pack_corners_cuda(sdf.transpose(1, 3), accel, dtype),
+        lambda: kp.pack_corners_cuda(sdf[..., :-1].contiguous(), None,
+                                     dtype),
+        lambda: kp.pack_corners_backward_cuda(g.cpu()),
+        lambda: kp.pack_corners_backward_cuda(g.half()),
+        lambda: kp.pack_corners_backward_cuda(g[..., :7].contiguous()),
+        lambda: kp.pack_corners_backward_cuda(g.transpose(1, 2))]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert kp.LAUNCHES == before
+
+
 # ---- K4's backward: the two backward kernels on the card ---------------------
 #
 # Each recomputes its stage from the stage's inputs and sums in its own
@@ -1573,6 +1708,14 @@ SHADE_GRAD_CASES = {
     "flagship-1x1-textures": dict(flagship=True, colors=True),
     "contention": dict(contention=True),
     "kinks": dict(points=1, spots=1, colors=True, kinks=True),
+    # the f32 voxel grid vrt samples above COLOR_CORNER_BUDGET_BYTES
+    "lit-colours-unpacked": dict(points=2, spots=1, colors=True,
+                                 unpacked=True),
+    "unlit-colours-unpacked": dict(points=0, spots=0, colors=True,
+                                   unpacked=True, mode=RenderMode(lit=False)),
+    "contention-unpacked": dict(contention=True, unpacked=True),
+    "kinks-unpacked": dict(points=1, spots=1, colors=True, kinks=True,
+                           unpacked=True),
 }
 
 
@@ -1590,6 +1733,7 @@ def _shade_grad_level(case, dev, width=480, height=270, seed=0):
     spec = dict(SHADE_GRAD_CASES[case])
     mode = spec.pop("mode", RenderMode())
     kinks = spec.pop("kinks", False)
+    unpacked = spec.pop("unpacked", False)
     if spec.pop("contention", False):
         # every ray on one colour row; the frame at most 64x64
         scene = contention_scene(flagship_scene(4, use_colors=True,
@@ -1599,6 +1743,8 @@ def _shade_grad_level(case, dev, width=480, height=270, seed=0):
         scene = flagship_scene(5, use_colors=spec["colors"], device=dev)
     else:
         scene = shading_scene(5, device=dev, **spec)
+    if unpacked:
+        scene = unpacked_colors(scene)
     o, d = camera_rays(scene.cam_pos, scene.cam_rot, scene.cam_fov, width,
                        height)
     o, d = o.contiguous(), d.contiguous()
@@ -1635,6 +1781,16 @@ def _shade_grad_level(case, dev, width=480, height=270, seed=0):
     return dict(scene=scene, mode=mode, o=o, d=d, hit=hit, inst=inst, t=t,
                 n_obj=n_obj, unlit=unlit, cots=cots, blocked=blocked,
                 refl=refl, g_rgb=seeded(rays, 3))
+
+
+def unpacked_colors(scene):
+    """``scene`` without its corner-packed colour view: the shading samples
+    the f32 voxel grid, as where ``vrt`` leaves the colours unpacked."""
+    from vrt_torch.kernels import shade as k4
+
+    scene = dataclasses.replace(scene, voxel_color_corners=None)
+    assert k4.color_layout(scene) == "voxels f32"
+    return scene
 
 
 def _assert_grads_close(names, got, want):
@@ -1714,7 +1870,10 @@ def test_shade_backward_kernels_match_plain_on_card(case):
 @pytest.mark.parametrize("case", ["contention", "lit-colours-f32",
                                   "lit-colours-bf16", "unlit-colours",
                                   "lit-textured-lights",
-                                  "flagship-1x1-textures"])
+                                  "flagship-1x1-textures",
+                                  "contention-unpacked",
+                                  "lit-colours-unpacked",
+                                  "unlit-colours-unpacked"])
 def test_surface_backward_designs_on_card(case, size):
     """The surface backward's merged kernel with NaN in ``t`` and ``n_obj``
     on every miss lane: finite cotangents, exact zeros on miss lanes, within
@@ -1756,9 +1915,11 @@ def test_surface_backward_designs_on_card(case, size):
         for table in (got[4], old[4]):
             assert (table.double() - want[4]).abs().max().item() \
                 <= SCATTER_RTOL * scale
-    if case == "contention":
+    if case.startswith("contention"):
         rows = torch.unique(hit.cell[hit.hit], dim=0)
         assert int(hit.hit.sum()) == hit.hit.numel() and rows.shape[0] == 1
+    if case.endswith("unpacked"):
+        assert got[4].shape == (scene.voxel_colors.numel() // 3, 3)
 
 
 @pytest.mark.gpu
@@ -1922,12 +2083,32 @@ def test_shade_forward_designs_on_card(mode, lights, size):
     two or more point and spot lights: a partial last warp and stacked
     shadow rows off 16-byte boundaries) and within tolerance of the plain
     stages on every lane."""
-    from vrt_torch.kernels import shade as k4
     from vrt_torch.scenes import shading_scene
 
-    dev = _card()
     points, spots = LIGHT_SETS[lights]
-    scene = shading_scene(5, points, spots, device=dev)
+    _frame_designs(shading_scene(5, points, spots, device=_card()),
+                   SHADE_MODES[mode], size)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [(480, 270), (63, 37)],
+                         ids=["480x270", "63x37"])
+@pytest.mark.parametrize("mode", ["mode0", "mode1", "mode2", "mode4"])
+def test_shade_forward_designs_unpacked_on_card(mode, size):
+    """``test_shade_forward_designs_on_card`` on the scene's seeded colours
+    unpacked (the f32 voxel grid, 8 voxel rows a hit), lit and unlit,
+    textured and not, interpolated and cube."""
+    from vrt_torch.scenes import shading_scene
+
+    scene = shading_scene(5, 2, 1, colors=True, device=_card())
+    _frame_designs(unpacked_colors(scene), SHADE_MODES[mode], size)
+
+
+def _frame_designs(scene, mode, size):
+    """A frame of ``scene`` whose every surface and combine launch runs on
+    the redesign and on the first design, held by ``_designs_held``."""
+    from vrt_torch.kernels import shade as k4
+
     width, height = size
     seen = dict(surface=0, combine=0)
     before = dict(k4.LAUNCHES)
@@ -1935,11 +2116,11 @@ def test_shade_forward_designs_on_card(mode, lights, size):
     tren.shade_stages = _designs_held(seen)
     try:
         with torch.no_grad():
-            img = render_image(scene, width, height, SHADE_MODES[mode])
+            img = render_image(scene, width, height, mode)
     finally:
         tren.shade_stages = plain
     torch.cuda.synchronize()
-    levels = 3 if SHADE_MODES[mode].lit and scene.any_reflective else 1
+    levels = 3 if mode.lit and scene.any_reflective else 1
     assert seen == dict(surface=levels, combine=levels)
     # the held stage, the redesign again and the first design per level
     assert {k: k4.LAUNCHES[k] - before[k] for k in before} == dict(

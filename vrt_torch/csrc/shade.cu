@@ -17,7 +17,8 @@
 // From the march's hit / instance (and hit cell, with per-voxel colours) and
 // the resolve's t / object-space normal: the hit point and the shadow origin,
 // the material there (triplanar albedo, roughness / metallic and tangent-normal
-// samples: 36 taps, or the trilinear colour sample of one 24-channel row), the
+// samples: 36 taps, or the trilinear colour sample of one 24-channel row, or
+// of 8 voxel rows of 3 where vrt leaves the colours unpacked), the
 // world normal, with a bounce the mirror direction and its gate, and the
 // shadow rays of the level: per light a t_max (-inf where nobody reads the
 // shadow), per point and spot light a direction.  Every reader discards a miss
@@ -238,9 +239,14 @@ struct SurfaceParams {
   const float* textures;   // [T,TH,TW,3]
   const int32_t* tex_sizes;  // [T,2] (h, w)
   int tex_count, tex_h, tex_w;
-  const void* colors;      // [V,cn,cn,cn,8,3] f32 or bf16
+  // the colour table in one of two layouts: packed, [V,cn,cn,cn,8,3] f32 or
+  // bf16 (one 24-channel row a cell), or unpacked, the f32 voxel grid
+  // [V,cn,cn,cn,3] with cn the corner table's voxels a side (vrt's layout
+  // above its COLOR_CORNER_BUDGET_BYTES: 8 voxel rows of 3 a cell)
+  const void* colors;
   int color_side;          // cn
-  int colors_bf16;
+  int colors_bf16;         // packed bf16
+  int colors_unpacked;     // the voxel grid
   Lights lights;
   int bounce, shadows;
   long long rays;
@@ -373,8 +379,41 @@ __device__ __forceinline__ void rotate_from_x(const float v[3],
   rotate(q, q[3], t, out);
 }
 
+// The packed colour row of a hit cell (its index clipped to the table).
+__device__ __forceinline__ long long color_row(const SurfaceParams& p, int vol,
+                                               const int cell[3]) {
+  const long long cn = p.color_side;
+  const int last = p.color_side - 1;
+  return ((static_cast<long long>(vol) * cn + min(max(cell[0], 0), last)) *
+              cn + min(max(cell[1], 0), last)) * cn +
+         min(max(cell[2], 0), last);
+}
+
+// Channel c of corner j (CORNERS order) of a hit cell whose corners are all
+// inside the table (the caller's valid mask): from the cell's packed row, or
+// from the voxel grid's row of that corner.
+__device__ __forceinline__ float corner_color(const SurfaceParams& p,
+                                              long long row, int vol,
+                                              const int cell[3], int j,
+                                              int c) {
+  if (p.colors_unpacked) {
+    const long long nn = p.color_side;
+    const long long vox =
+        ((static_cast<long long>(vol) * nn + cell[0] + (j & 1)) * nn +
+         cell[1] + ((j >> 1) & 1)) * nn + cell[2] + ((j >> 2) & 1);
+    return load_corner<float>(static_cast<const float*>(p.colors) + 3 * vox +
+                              c);
+  }
+  return p.colors_bf16
+             ? load_corner<uint16_t>(static_cast<const uint16_t*>(p.colors) +
+                                     row * 24 + 3 * j + c)
+             : load_corner<float>(static_cast<const float*>(p.colors) +
+                                  row * 24 + 3 * j + c);
+}
+
 // renderer.py _voxel_color_sample: the trilinear sample of one 24-channel
-// colour row, corners outside the volume reading zero.
+// colour row, or of 8 voxel rows of the unpacked grid, corners outside the
+// volume reading zero.
 __device__ __forceinline__ void color_sample(const SurfaceParams& p,
                                              long long i, int vol, int n,
                                              float h, float ext,
@@ -388,11 +427,7 @@ __device__ __forceinline__ void color_sample(const SurfaceParams& p,
     const float base = static_cast<float>(cell[c]) * h - ext;
     q[c] = ((o[c] + d[c] * t) - base) / h;
   }
-  const long long cn = p.color_side;
-  const int last = p.color_side - 1;
-  const long long row =
-      ((static_cast<long long>(vol) * cn + min(max(cell[0], 0), last)) * cn +
-       min(max(cell[1], 0), last)) * cn + min(max(cell[2], 0), last);
+  const long long row = color_row(p, vol, cell);
   out[0] = out[1] = out[2] = 0.0f;
   for (int j = 0; j < 8; ++j) {
     const int b[3] = {j & 1, (j >> 1) & 1, (j >> 2) & 1};
@@ -405,14 +440,7 @@ __device__ __forceinline__ void color_sample(const SurfaceParams& p,
     }
     const float wj = (w[0] * w[1]) * w[2];
     for (int c = 0; c < 3; ++c) {
-      float v = 0.0f;
-      if (valid)
-        v = p.colors_bf16
-                ? load_corner<uint16_t>(
-                      static_cast<const uint16_t*>(p.colors) + row * 24 +
-                      3 * j + c)
-                : load_corner<float>(static_cast<const float*>(p.colors) +
-                                     row * 24 + 3 * j + c);
+      const float v = valid ? corner_color(p, row, vol, cell, j, c) : 0.0f;
       const float term = wj * v;
       out[c] = j == 0 ? term : out[c] + term;
     }
@@ -1696,7 +1724,7 @@ struct SurfaceBwdParams {
   float* g_d_w;
   float* g_t;                  // [R]
   float* g_n_obj;              // [R,3]
-  float* g_colors;             // [V*cn^3, 24] f32, added into
+  float* g_colors;             // [V*cn^3, 24] or [V*cn^3, 3] f32, added into
 };
 
 
@@ -1809,9 +1837,25 @@ __device__ __forceinline__ void red_add_v4(float* dst, float a, float b,
                : "memory");
 }
 
+// The key of a hit cell's voxel rows in the unpacked grid: the cell over a
+// side of cn + 1 from -1, which names its 8 corners, or -1 where no corner
+// can be inside the grid (its cotangents are all zero).  Lanes with one key
+// add into the same 8 rows.
+__device__ __forceinline__ long long voxel_key(const SurfaceParams& p,
+                                               int vol, const int cell[3]) {
+  const long long s1 = p.color_side + 1;
+  long long key = vol;
+  for (int c = 0; c < 3; ++c) {
+    if (cell[c] < -1 || cell[c] >= p.color_side) return -1;
+    key = key * s1 + (cell[c] + 1);
+  }
+  return key;
+}
+
 // The reverse of color_sample: adds the cotangents of the object-space ray
-// and of t, and returns the colour row's index and its 24 cotangents (the
-// caller adds them into the f32 accumulator).
+// and of t, and returns the 24 cotangents of the cell's corners and where
+// they go (the caller adds them into the f32 accumulator): the packed row's
+// index, or the unpacked grid's voxel_key.
 __device__ __forceinline__ void color_sample_bwd(
     const SurfaceParams& p, long long i, int vol, int n, float h, float ext,
     const float o[3], const float d[3], float t, const float g[3],
@@ -1823,10 +1867,8 @@ __device__ __forceinline__ void color_sample_bwd(
     const float base = static_cast<float>(cell[c]) * h - ext;
     q[c] = ((o[c] + d[c] * t) - base) / h;
   }
-  const long long cn = p.color_side;
-  const int last = p.color_side - 1;
-  row = ((static_cast<long long>(vol) * cn + min(max(cell[0], 0), last)) * cn +
-         min(max(cell[1], 0), last)) * cn + min(max(cell[2], 0), last);
+  const long long packed = color_row(p, vol, cell);
+  row = p.colors_unpacked ? voxel_key(p, vol, cell) : packed;
   float g_q[3] = {0.0f, 0.0f, 0.0f};
   for (int j = 0; j < 8; ++j) {
     const int b[3] = {j & 1, (j >> 1) & 1, (j >> 2) & 1};
@@ -1842,14 +1884,7 @@ __device__ __forceinline__ void color_sample_bwd(
     const float wj = (w[0] * w[1]) * w[2];
     float g_w = 0.0f;
     for (int c = 0; c < 3; ++c) {
-      float v = 0.0f;
-      if (valid)
-        v = p.colors_bf16
-                ? load_corner<uint16_t>(
-                      static_cast<const uint16_t*>(p.colors) + row * 24 +
-                      3 * j + c)
-                : load_corner<float>(static_cast<const float*>(p.colors) +
-                                     row * 24 + 3 * j + c);
+      const float v = valid ? corner_color(p, packed, vol, cell, j, c) : 0.0f;
       g_w += g[c] * v;
       grow[3 * j + c] = valid ? g[c] * wj : 0.0f;
     }
@@ -1875,6 +1910,40 @@ __device__ __forceinline__ void add_color_row(float* acc, long long row,
     if (grow[e] != 0.0f || grow[e + 1] != 0.0f || grow[e + 2] != 0.0f ||
         grow[e + 3] != 0.0f)
       red_add_v4(dst + e, grow[e], grow[e + 1], grow[e + 2], grow[e + 3]);
+}
+
+// A hit cell's 8 x 3 corner cotangents into the unpacked grid's f32
+// accumulator [V*cn^3, 3] at the rows its voxel_key names: the 12-byte rows
+// take no 16-byte reduction, so one f32 atomic a nonzero component (a
+// corner outside the grid has only zeros).
+__device__ __forceinline__ void add_color_voxels(float* acc, long long key,
+                                                 int side,
+                                                 const float grow[24]) {
+  const long long s1 = side + 1, nn = side;
+  int cell[3];
+  for (int c = 2; c >= 0; --c) {
+    cell[c] = static_cast<int>(key % s1) - 1;
+    key /= s1;
+  }
+  for (int j = 0; j < 8; ++j) {
+    const long long vox =
+        ((key * nn + cell[0] + (j & 1)) * nn + cell[1] + ((j >> 1) & 1)) * nn +
+        cell[2] + ((j >> 2) & 1);
+    for (int c = 0; c < 3; ++c)
+      if (grow[3 * j + c] != 0.0f)
+        atomicAdd(acc + 3 * vox + c, grow[3 * j + c]);
+  }
+}
+
+// A hit lane's (or a merged group's) colour cotangents into the accumulator
+// of the table's layout; a negative row (an unpacked cell with no corner in
+// the grid, a lane without a hit) adds nothing.
+__device__ __forceinline__ void add_colors(const SurfaceParams& p, float* acc,
+                                           long long row,
+                                           const float grow[24]) {
+  if (row < 0) return;
+  if (p.colors_unpacked) add_color_voxels(acc, row, p.color_side, grow);
+  else add_color_row(acc, row, grow);
 }
 
 
@@ -2078,7 +2147,7 @@ __global__ void __launch_bounds__(kThreads) surface_bwd_kernel(
     float grow[24];
     surface_bwd_hit<kLit, kTextured, kColors>(
         q, sh_inst, sh_vol, sh_sizes, i, g_o, g_d, g_n, g_t, row, grow);
-    if (kColors && q.g_colors != nullptr) add_color_row(q.g_colors, row, grow);
+    if (kColors && q.g_colors != nullptr) add_colors(p, q.g_colors, row, grow);
   }
   if (q.g_o_w != nullptr) {
     store3(q.g_o_w, i, g_o);
@@ -2115,7 +2184,8 @@ __device__ __forceinline__ int merge_peers(long long key, float v[24],
 // are staged once a block, not once every 256 rays); a warp without a hit
 // writes its zeros in 16-byte stores; the lanes of a warp that hit one
 // colour row merge their cotangents before the row's lowest such lane issues
-// its six reductions.  Each lane's own cotangents are computed as in the
+// its six reductions (with the unpacked grid, the lanes of one cell before
+// its lowest adds into the cell's 8 voxel rows).  Each lane's own cotangents are computed as in the
 // first design.
 
 // Blocks an SM must hold at once, a register cap: at 3 (80 registers, 24
@@ -2167,8 +2237,8 @@ __global__ void __launch_bounds__(kThreads, kSurfaceBwdMinBlocks)
     if (kColors && q.g_colors != nullptr) {
       if (!is_hit)
         for (int e = 0; e < 24; ++e) grow[e] = 0.0f;
-      if (merge_peers(row, grow, lane) == lane && row >= 0)
-        add_color_row(q.g_colors, row, grow);
+      if (merge_peers(row, grow, lane) == lane)
+        add_colors(p, q.g_colors, row, grow);
     }
     if (!in) continue;
     if (q.g_o_w != nullptr) {
@@ -2222,7 +2292,8 @@ void surface_inputs(const void* const* ptrs, const int* ints, long long rays,
   p.tex_w = ints[4];
   p.colors = ptrs[24];
   p.color_side = ints[5];
-  p.colors_bf16 = ints[6];
+  p.colors_bf16 = ints[6] == 1;
+  p.colors_unpacked = ints[6] == 2;
   p.bounce = ints[10];
   p.shadows = ints[11];
   p.rays = rays;
@@ -2351,7 +2422,8 @@ bool aligned16(const void* x) {
 // the order of Lights; then the outputs albedo, shadow_origin, n_w,
 // roughness, metallic, k, refl_dir, gate, shadow_tmax, shadow_dir.  ints:
 // instances, volumes, textures, texture height and width, colour cells a
-// side, colours bf16, lit, textured, per-voxel colours, bounce, shadows,
+// side, the colour layout (0 packed f32, 1 packed bf16, 2 the unpacked f32
+// voxel grid), lit, textured, per-voxel colours, bounce, shadows,
 // point lights, spot lights, then the design (0: the first, one thread a ray
 // over the whole grid; 1: the redesign, resident blocks, lane by lane; 2:
 // the redesign on the vector path, which takes o_w, d_w, n_obj, hit, albedo,
@@ -2363,7 +2435,8 @@ extern "C" int vrt_shade_surface(const void* const* ptrs, const int* ints,
   const bool lit = ints[7], textured = ints[8], colors = ints[9];
   const int points = ints[12], spots = ints[13], design = ints[14];
   if (n_inst < 1 || n_vol < 1 || points < 0 || points > kMaxLights ||
-      spots < 0 || spots > kMaxLights || design < 0 || design > 2)
+      spots < 0 || spots > kMaxLights || design < 0 || design > 2 ||
+      ints[6] < 0 || ints[6] > 2)
     return cudaErrorInvalidValue;
   SurfaceParams p;
   surface_inputs(ptrs, ints, rays, p);
@@ -2460,17 +2533,19 @@ extern "C" int vrt_shade_combine(const void* const* ptrs, const int* ints,
 // (o_w ... colors); the cotangents of albedo, shadow_origin, n_w, roughness,
 // metallic and refl_dir (null for zero); then the outputs g_o_w, g_d_w
 // (null, both, when not asked), g_t, g_n_obj and g_colors (an f32
-// [V*cn^3, 24] accumulator, zeroed by the caller and added into; null when
-// not asked).  ints: the surface kernel's 14, then the design (0: the first,
-// one thread a ray over the whole grid; 1: the merged kernel, resident
-// blocks striding over the rays).  The merged kernel takes outputs on
+// accumulator, [V*cn^3, 24] for a packed table and [V*cn^3, 3] for the
+// voxel grid, zeroed by the caller and added into; null when not asked).
+// ints: the surface kernel's 14, then the design (0: the first, one thread a
+// ray over the whole grid; 1: the merged kernel, resident blocks striding
+// over the rays).  The merged kernel takes outputs on
 // 16-byte boundaries.  Returns cudaGetLastError().
 extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
                                      long long rays, void* stream) {
   const int n_inst = ints[0], n_vol = ints[1], n_tex = ints[2];
   const bool lit = ints[7], textured = ints[8], colors = ints[9];
   const bool merged = ints[14] != 0;
-  if (n_inst < 1 || n_vol < 1) return cudaErrorInvalidValue;
+  if (n_inst < 1 || n_vol < 1 || ints[6] < 0 || ints[6] > 2)
+    return cudaErrorInvalidValue;
   SurfaceBwdParams q;
   surface_inputs(ptrs, ints, rays, q.f);
   q.g_albedo = at<float>(ptrs, 25);

@@ -3,16 +3,20 @@ constants or the camera from pixel losses (port of ``vrt.diff.fit``).
 
 Pixel losses reach the SDF through resolve's IFT-at-the-root term and the
 central-difference normal, both read from the corner table, which is
-repacked from the SDF inside the step (``pack_cell_corners`` on the
-device, differentiable through its slices); colours reach the colour grid
-through its corner-packed view.  On CUDA tensors the corner table is read
+repacked from the SDF inside the step (``pack_cell_corners``: on CUDA
+tensors ``kernels.pack.PackCorners``, the pack kernel and its backward
+kernel); colours reach the colour grid through its corner-packed view,
+repacked in the step too, or, where the scene has none (above
+``gpuscene.COLOR_CORNER_BUDGET_BYTES``, as config4's 257^3 grid), directly:
+the shading samples the f32 grid.  On CUDA tensors the corner table is read
 by the fused resolve, whose backward kernel adds the corner cotangents
 (``vrt_torch.kernels.resolve.ResolveScene``), and every radiance level
 shades through ``vrt_torch.kernels.shade.ShadeSurface`` and
 ``ShadeCombine``: the two shade kernels forward, and two backward kernels
 that recompute the stage and return the cotangents of the rays, ``t``,
 ``n_obj`` and the record, the surface backward adding the colour rows'
-cotangents into the colour table with 16-byte atomics.  Only the tonemap
+cotangents into the colour table (16-byte atomics into a packed view, one
+f32 atomic a component into the grid).  Only the tonemap
 and the loss stay eager.  A fit that also optimizes a material constant, a
 texture, the env, a light or an instance transform shades on the plain
 stages under autograd instead (``renderer.shade_stages``).  The march runs
@@ -52,7 +56,9 @@ def graft_params(scene: GPUScene, params: Dict,
     Keys: 'sdf' [V,N,N,N] (the corner table is repacked from it,
     differentiably, keeping the folded accel channel; ``rebuild_accel``
     rebuilds the accel itself), 'voxel_colors' [V,N,N,N,3] (its packed view
-    is repacked), and any other field of the scene by name ('tint',
+    is repacked where the scene has one; above
+    ``COLOR_CORNER_BUDGET_BYTES`` it has none and the grid is grafted
+    as it is), and any other field of the scene by name ('tint',
     'roughness', 'metallic', 'cam_pos', 'cam_rot', light fields).
     ``repack=False`` leaves the corner table stale, for a caller that
     calls ``rebuild_accel`` next (``graft_and_rebuild``)."""

@@ -6,7 +6,8 @@
                        blocked, mode, final) -> rgb f32 [R,3] | rgba f32 [R,4]
     shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit, inst, mode,
                                 bounce, cotangents)
-        -> (g_o_w, g_d_w, g_t, g_n_obj, g_colors f32 [V*C^3, 24])
+        -> (g_o_w, g_d_w, g_t, g_n_obj,
+            g_colors f32 [V*C^3, 24] (packed) | [V*N^3, 3] (voxel grid))
     shade_combine_backward_cuda(scene, rec, d_w, n_obj, hit_mask, unlit_attr,
                                 refl_rgb, blocked, mode, g_rgb)
         -> cotangents of the record's floats, d_w, n_obj and refl_rgb
@@ -37,6 +38,15 @@ backward on CUDA tensors and the plain versions
 tensors.  They return the gradient in the rays, ``t``, ``n_obj``, the
 record's floats, the bounce's radiance and the colour table, and none in the
 scene's other tables.
+
+The colour table is the one ``gpuscene.color_table`` names, in one of two
+layouts (``color_layout``): the corner-packed view, f32 or bf16 [V,N,N,N,8,3]
+(one 24-channel row a hit cell; its cotangents go into an f32 [V*N^3, 24]
+accumulator by 16-byte reductions, cast once to the table's dtype), or, above
+``COLOR_CORNER_BUDGET_BYTES``, the f32 voxel grid [V,N,N,N,3] with N the
+corner table's voxels a side (8 voxel rows of 3 a hit; their cotangents go
+into an f32 [V*N^3, 3] accumulator by one f32 atomic a nonzero component,
+and are the grid's gradient as they are).  Any other layout or dtype raises.
 
 On hit lanes a kernel agrees with its plain version to rounding (built with
 ``--fmad=false`` in the plain version's operation order, but torch's own
@@ -70,7 +80,7 @@ from vrt_torch.kernels.resolve import instance_table
 from vrt_torch.march.types import (RECORD_FIELDS, RECORD_GRAD_FIELDS,
                                     MarchHit, SurfaceRecord)
 from vrt_torch.render.gpuscene import (MAX_POINT_LIGHTS, MAX_SPOT_LIGHTS,
-                                       RenderMode)
+                                       RenderMode, color_table)
 
 LAUNCHES = {"surface": 0, "combine": 0, "surface_bwd": 0, "combine_bwd": 0}
 # the forward redesign's launches again, by the path ``shade_path`` named
@@ -202,6 +212,32 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+# the colour table's layouts, as the surface kernels' ints[6] names them
+COLOR_LAYOUTS = {"packed f32": 0, "packed bf16": 1, "voxels f32": 2}
+
+
+def color_layout(scene) -> str | None:
+    """The layout of the colour table the surface kernels sample (a key of
+    ``COLOR_LAYOUTS``), None without per-voxel colours.  Raises on a table
+    that neither layout takes."""
+    table = color_table(scene)
+    if table is None:
+        if scene.use_voxel_colors:
+            raise ValueError("shade: a scene with per-voxel colours has no "
+                             "colour table")
+        return None
+    if scene.voxel_color_corners is not None:
+        if table.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"shade: the corner-packed colours must be f32 "
+                             f"or bf16, got {table.dtype}")
+        return ("packed bf16" if table.dtype == torch.bfloat16
+                else "packed f32")
+    if table.dtype != torch.float32:
+        raise ValueError(f"shade: the unpacked colour grid must be f32, got "
+                         f"{table.dtype}")
+    return "voxels f32"
+
+
 def _surface_args(scene, o_w, d_w, t, n_obj, hit: MarchHit, inst,
                   mode: RenderMode, bounce: bool, shadows: bool, who: str):
     """Check what both surface kernels read.  Returns (device, rays, the
@@ -237,15 +273,20 @@ def _surface_args(scene, o_w, d_w, t, n_obj, hit: MarchHit, inst,
                          f"expected [T,TH,TW,3]")
     _check(tex, "textures", f32, tex.shape, dev)
     _check(scene.tex_sizes, "tex_sizes", i32, (tex.shape[0], 2), dev)
-    colors = scene.voxel_color_corners if scene.use_voxel_colors else None
+    layout = color_layout(scene)
+    colors = color_table(scene)
     color_side = 0
-    if scene.use_voxel_colors:
-        if colors is None or colors.dtype not in (f32, torch.bfloat16):
-            raise ValueError("shade: a scene with per-voxel colours needs "
-                             "its corner-packed view, f32 or bf16")
+    if layout == "voxels f32":
+        # the grid of the corner table's voxels, so that every corner the
+        # valid mask keeps lies inside it
+        color_side = vols.sdf.shape[-1]
+        _check(colors, "voxel_colors", f32,
+               (nv,) + (color_side,) * 3 + (3,), dev)
+    elif layout is not None:
         color_side = colors.shape[1]
         _check(colors, "voxel_color_corners", colors.dtype,
                (nv,) + (color_side,) * 3 + (8, 3), dev)
+    if layout is not None:
         _check(hit.cell, "hit.cell", i32, (rays, 3), dev)
     ptrs = [o_w.data_ptr(), d_w.data_ptr(), t.data_ptr(), n_obj.data_ptr(),
             hit.hit.data_ptr(),
@@ -259,9 +300,9 @@ def _surface_args(scene, o_w, d_w, t, n_obj, hit: MarchHit, inst,
             scene.rm_tex.data_ptr(), tex.data_ptr(),
             scene.tex_sizes.data_ptr(), _ptr(colors)]
     ints = [n_inst, nv, tex.shape[0], tex.shape[1], tex.shape[2], color_side,
-            colors is not None and colors.dtype == torch.bfloat16, lit,
-            mode.textured, scene.use_voxel_colors, bounce, shadows,
-            scene.num_point, scene.num_spot]
+            COLOR_LAYOUTS.get(layout, 0), lit, mode.textured,
+            scene.use_voxel_colors, bounce, shadows, scene.num_point,
+            scene.num_spot]
     return dev, rays, colors, ptrs, ints
 
 
@@ -309,9 +350,11 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
     ``t``, ``n_obj`` and the colour table, from the surface kernel's own
     inputs (it recomputes the stage).  Returns (g_o_w, g_d_w f32 [R,3] or
     None without ``rays_grad``, g_t f32 [R], g_n_obj f32 [R,3], g_colors: an
-    f32 [V*C^3, 24] accumulator, zeroed here and added into by 16-byte
-    atomics, or None without per-voxel colours or ``table_grad``; the caller
-    casts it to the table's dtype).  A miss lane gets zeros.  The kernel is
+    f32 accumulator zeroed here, [V*C^3, 24] for the packed view (added
+    into by 16-byte atomics; the caller casts it to the table's dtype) or
+    [V*N^3, 3] for the voxel grid (one f32 atomic a nonzero component), or
+    None without per-voxel colours or ``table_grad``).  A miss lane gets
+    zeros.  The kernel is
     the merged design (resident blocks striding over the rays, the colour
     cotangents of a warp's lanes that share a row summed before the row's
     reductions); the private ``_old_design`` launches the first design, the
@@ -337,7 +380,8 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
     g_t = torch.empty(rays, dtype=f32, device=dev)
     g_n = torch.empty((rays, 3), dtype=f32, device=dev)
     if colors is not None and table_grad:
-        acc = torch.zeros((colors.numel() // 24, 24), dtype=f32, device=dev)
+        ch = colors[0, 0, 0, 0].numel()     # 24 a packed row, 3 a voxel
+        acc = torch.zeros((colors.numel() // ch, ch), dtype=f32, device=dev)
     if rays == 0:
         return g_o_w, g_d_w, g_t, g_n, acc
     ptrs += [_ptr(g) for g in cots] + [_ptr(g_o_w), _ptr(g_d_w),
@@ -465,8 +509,10 @@ def shade_combine_backward_cuda(scene, rec: SurfaceRecord, d_w, n_obj,
 
 class ShadeSurface(torch.autograd.Function):
     """The surface stage with its gradient in ``o_w``, ``d_w``, ``t``,
-    ``n_obj`` and ``colors`` (the scene's corner-packed colour table, passed
-    apart so that autograd sees it; None without per-voxel colours): on
+    ``n_obj`` and ``colors`` (the colour table the scene samples,
+    ``gpuscene.color_table``: its corner-packed view, or the f32 voxel grid
+    where it has none; passed apart so that autograd sees it; None without
+    per-voxel colours): on
     CUDA tensors the surface kernel and its backward kernel, on CPU tensors
     the plain stage and its plain backward.  Returns ``SurfaceRecord.pack``'s
     tuple; ``k``, ``gate`` and the shadow rays carry no gradient.  Saves the
@@ -475,10 +521,9 @@ class ShadeSurface(torch.autograd.Function):
     @staticmethod
     def forward(ctx, o_w, d_w, t, n_obj, colors, scene, hit, inst, mode,
                 bounce, shadows):
-        own = scene.voxel_color_corners if scene.use_voxel_colors else None
-        if colors is not own:
-            raise ValueError("ShadeSurface: colors must be the scene's "
-                             "corner-packed colour table")
+        if colors is not color_table(scene):
+            raise ValueError("ShadeSurface: colors must be the colour table "
+                             "the scene samples (gpuscene.color_table)")
         if o_w.device.type == "cuda":
             rec = shade_surface_cuda(scene, o_w, d_w, t, n_obj, hit, inst,
                                      mode, bounce, shadows)
@@ -524,6 +569,7 @@ class ShadeSurface(torch.autograd.Function):
                 ctx.bounce, cots)
         g_colors = None
         if table_grad:
+            # the voxel grid's accumulator is its f32 gradient as it is
             g_colors = acc.to(colors.dtype).reshape(colors.shape)
             del acc
         return (g_o_w if need[0] else None, g_d_w if need[1] else None,

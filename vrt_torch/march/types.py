@@ -36,15 +36,33 @@ def pack_cell_corners(sdf, accel=None,
 
     A numpy ``sdf`` (host assembly; float32, as ``vrt`` casts it) gives a
     CPU tensor.  A tensor ``sdf`` (the fit's in-step repack) gives a tensor
-    on its device, differentiable in ``sdf`` through the slices; ``accel``
-    is then an integer tensor."""
-    from vrt_torch.march.isosurface import CORNERS
-
+    on its device, differentiable in ``sdf``; ``accel`` is then an integer
+    tensor.  On a CUDA tensor that is ``kernels.pack.PackCorners`` (the pack
+    kernel and its backward kernel; ``accel`` int32), on a CPU tensor the
+    plain version ``pack_cell_corners_reference``, differentiated through
+    its slices."""
     if not isinstance(sdf, torch.Tensor):
-        return pack_cell_corners(
+        return pack_cell_corners_reference(
             torch.from_numpy(np.asarray(sdf, np.float32)),
             None if accel is None else torch.from_numpy(np.asarray(accel)),
             dtype)
+    if sdf.device.type == "cuda":
+        from vrt_torch.kernels.pack import PackCorners
+
+        return PackCorners.apply(
+            sdf.contiguous(), None if accel is None else accel.contiguous(),
+            dtype)
+    return pack_cell_corners_reference(sdf, accel, dtype)
+
+
+def pack_cell_corners_reference(sdf: torch.Tensor, accel=None,
+                                dtype: torch.dtype = torch.float32
+                                ) -> torch.Tensor:
+    """``pack_cell_corners`` of a tensor in plain PyTorch, on any device:
+    eight slices of ``sdf`` cast to ``dtype`` and the accel channel,
+    stacked (the plain version of ``csrc/pack.cu``'s pack)."""
+    from vrt_torch.march.isosurface import CORNERS
+
     c = sdf.shape[-1] - 1
     chans = [sdf[..., dx:dx + c, dy:dy + c, dz:dz + c].to(dtype)
              for dx, dy, dz in CORNERS]

@@ -9,7 +9,8 @@ One dataclass of stacked tensors on one device:
   (world = diag(scale) . R(v) + position),
 - light banks fixed at 5 point + 5 spot lights with Python-level counts,
 - a texture atlas and an environment cube map,
-- the per-voxel colour field (the fit's albedo) and its corner-packed view.
+- the per-voxel colour field (the fit's albedo) and, while it fits
+  ``COLOR_CORNER_BUDGET_BYTES``, its corner-packed view.
 
 ``build_scene`` assembles it from host data and ``scene_from_numpy``
 rebuilds a ``vrt`` scene's state from its leaves, both on ``device``, which
@@ -110,7 +111,9 @@ class GPUScene:
 
     # per-voxel colour field (the fit's albedo; dummy [V,1,1,1,3] when
     # unused) and its corner-packed view (``pack_voxel_color_corners``,
-    # None when unused), kept in sync by ``vrt_torch.diff.fit``
+    # None when unused or above ``COLOR_CORNER_BUDGET_BYTES``), kept in
+    # sync by ``vrt_torch.diff.fit``; ``color_table`` names the one the
+    # shading samples
     voxel_colors: torch.Tensor = None               # f32 [V,N,N,N,3]
     voxel_color_corners: torch.Tensor | None = None  # [V,N,N,N,8,3]
 
@@ -122,6 +125,35 @@ class GPUScene:
     @property
     def num_instances(self) -> int:
         return self.inst_volume.shape[0]
+
+
+# vrt's budget of the corner-packed colour view (vrt/render/gpuscene.py):
+# the packed table is repacked from the colours in every fit step, at a cost
+# that grows with the grid, while its savings (one row gather and scatter a
+# hit instead of 8) grow with the rays.  Above the budget (config4's 257^3
+# bf16 table is 815 MB) the colours stay an f32 voxel grid, sampled by 8
+# voxel gathers.  The rule reads the packed bytes in the corner table's dtype.
+COLOR_CORNER_BUDGET_BYTES = 256_000_000
+
+
+def packs_voxel_colors(shape, march_dtype: torch.dtype | None) -> bool:
+    """Whether colours of ``shape`` [V,N,N,N,3] get their corner-packed
+    view: ``vrt``'s rule, 8 corners of every voxel's 3 channels in the corner
+    table's dtype (f32 by default) within ``COLOR_CORNER_BUDGET_BYTES``."""
+    itemsize = torch.finfo(march_dtype or torch.float32).bits // 8
+    return (int(np.prod(shape)) * 8 * itemsize
+            <= COLOR_CORNER_BUDGET_BYTES)
+
+
+def color_table(scene: "GPUScene") -> torch.Tensor | None:
+    """The colour table the shading samples: the corner-packed view where
+    the scene has one, else the f32 voxel grid; None without per-voxel
+    colours."""
+    if not scene.use_voxel_colors:
+        return None
+    if scene.voxel_color_corners is not None:
+        return scene.voxel_color_corners
+    return scene.voxel_colors
 
 
 def pack_voxel_color_corners(colors, dtype=None):
@@ -173,7 +205,9 @@ def build_scene(volumes: Sequence,  # VoxelVolume
     point/spot light dicts mirror the reference's light fields; spot angles
     become half-angle cosines cos(angle/2), cos(falloff/2).
     voxel_colors: [V,N,N,N,3] per-voxel albedo, which replaces tint *
-    texture; always corner-packed, in ``march_dtype``.
+    texture; corner-packed in ``march_dtype`` while the packed view fits
+    ``COLOR_CORNER_BUDGET_BYTES`` (``packs_voxel_colors``), else kept as
+    the f32 grid alone, as ``vrt`` does.
     pad_volumes_to: voxels per axis of the stacked tables (default: the
     largest volume's).
     quantize_densities: round every density to the reference backend's
@@ -323,7 +357,8 @@ def build_scene(volumes: Sequence,  # VoxelVolume
         voxel_color_corners=(
             pack_voxel_color_corners(np.asarray(voxel_colors, np.float32),
                                      march_dtype).to(device)
-            if voxel_colors is not None else None),
+            if voxel_colors is not None and packs_voxel_colors(
+                np.shape(voxel_colors), march_dtype) else None),
         use_voxel_colors=voxel_colors is not None,
         num_point=min(len(point_lights), MAX_POINT_LIGHTS),
         num_spot=min(len(spot_lights), MAX_SPOT_LIGHTS),
@@ -350,10 +385,10 @@ def scene_from_numpy(fields: dict, device: torch.device | str = "cuda"
 
     ``fields`` maps each field name of ``GPUScene`` to a numpy array, the
     static fields to Python values, and ``"volumes"`` to a dict of the
-    ``DeviceVolume`` fields (``accel_mode`` a string).  A scene with
-    per-voxel colours whose corner-packed view ``vrt`` left out (it packs
-    under a size budget) gets one packed here, in the corner table's dtype:
-    the port always samples the packed view."""
+    ``DeviceVolume`` fields (``accel_mode`` a string).  The colours'
+    corner-packed view is carried across as ``vrt`` left it: None above
+    ``COLOR_CORNER_BUDGET_BYTES``, where the shading samples the f32 voxel
+    grid."""
     vf = fields["volumes"]
     if vf.get("corners") is None:
         raise ValueError("the port marches the packed corner table; the "
@@ -371,7 +406,4 @@ def scene_from_numpy(fields: dict, device: torch.device | str = "cuda"
             kw[f.name] = type(f.default)(fields[f.name])
         elif fields[f.name] is not None:
             kw[f.name] = _to_tensor(fields[f.name], device)
-    if kw["use_voxel_colors"] and "voxel_color_corners" not in kw:
-        kw["voxel_color_corners"] = pack_voxel_color_corners(
-            kw["voxel_colors"], vols.corners.dtype)
     return GPUScene(volumes=vols, **kw)

@@ -45,7 +45,7 @@ from vrt_torch.march.resolve import (_OFFS7, resolve_hits,
                                       resolve_hits_backward)
 from vrt_torch.march.types import (RECORD_GRAD_FIELDS, MarchHit,
                                     SurfaceRecord)
-from vrt_torch.render.gpuscene import GPUScene, RenderMode
+from vrt_torch.render.gpuscene import GPUScene, RenderMode, color_table
 from vrt_torch.shade import brdf as _brdf
 from vrt_torch.shade import lights as _lights
 from vrt_torch.shade import texture as _tex
@@ -289,10 +289,13 @@ def resolve_scene_backward_reference(scene: GPUScene, o_w, d_w,
 
 def _voxel_color_sample(scene: GPUScene, pr, hit: MarchHit, o_w, d_w, t,
                         gather=None):
-    """Trilinear sample of the per-voxel colour field at the hit point,
-    from one 24-channel row of the corner-packed colours per hit cell
-    (``gather``, default ``gather_rows``: K3 on CUDA tensors), with the
-    per-corner valid mask after the gather."""
+    """Trilinear sample of the per-voxel colour field at the hit point, with
+    the per-corner valid mask after the gather: from one 24-channel row of
+    the corner-packed colours per hit cell (``gather``, default
+    ``gather_rows``: K3 on CUDA tensors) or, where the scene has no packed
+    view (above ``COLOR_CORNER_BUDGET_BYTES``), from 8 voxel rows of 3
+    channels of the f32 grid, each corner's index clipped to the grid
+    (``gather``, default plain indexing: K3 takes rows of 4k channels)."""
     o, d = _world_to_object(pr["pos"], pr["rot"], pr["scale"], o_w, d_w)
     h = pr["cell_size"]
     cell = hit.cell
@@ -303,11 +306,19 @@ def _voxel_color_sample(scene: GPUScene, pr, hit: MarchHit, o_w, d_w, t,
     idx = cell[:, None, :] + corners[None]                     # [R,8,3]
     valid = torch.all((idx >= 0) & (idx < pr["n"][:, None, None]), dim=-1)
     pcc = scene.voxel_color_corners
-    cn = pcc.shape[1]
-    ic = torch.clamp(cell, 0, cn - 1)
-    lin = iso._flat_index(pr["vol"], ic, cn).to(torch.int32)
-    rows = (gather or gather_rows)(pcc.reshape(-1, 24), lin,
-                                   24).reshape(-1, 8, 3)
+    if pcc is not None:
+        cn = pcc.shape[1]
+        ic = torch.clamp(cell, 0, cn - 1)
+        lin = iso._flat_index(pr["vol"], ic, cn).to(torch.int32)
+        rows = (gather or gather_rows)(pcc.reshape(-1, 24), lin,
+                                       24).reshape(-1, 8, 3)
+    else:
+        colors = scene.voxel_colors
+        nn = colors.shape[1]
+        ic = torch.clamp(idx, 0, nn - 1)
+        lin = iso._flat_index(pr["vol"][:, None], ic, nn).to(torch.int32)
+        rows = (gather or gather_rows_reference)(
+            colors.reshape(-1, 3), lin.reshape(-1), 3).reshape(-1, 8, 3)
     cvals = torch.where(valid[..., None], rows, 0.0)
     w = kinks.abs_((1.0 - corners.to(torch.float32))[None] - p[:, None, :])
     w = (w[..., 0] * w[..., 1]) * w[..., 2]                    # [R,8]
@@ -595,9 +606,10 @@ def shade_surface_backward_reference(scene: GPUScene, o_w, d_w, t, n_obj,
     surface backward kernel.  ``cotangents`` are those of the record's
     ``RECORD_GRAD_FIELDS`` (albedo, shadow origin, world normal, roughness,
     metallic, mirror direction), each None for zero.  Returns (g_o_w, g_d_w
-    f32 [R,3], g_t f32 [R], g_n_obj f32 [R,3], g_colors [V*C^3, 24] in
-    ``acc_dtype``, or None without per-voxel colours; the caller casts it
-    once to the table's dtype).
+    f32 [R,3], g_t f32 [R], g_n_obj f32 [R,3], g_colors in ``acc_dtype``:
+    [V*C^3, 24] of the packed view or [V*N^3, 3] of the voxel grid, the
+    table ``gpuscene.color_table`` names, or None without per-voxel
+    colours; the caller casts it once to the table's dtype).
 
     The stage is computed again under ``torch.enable_grad()`` on leaves of
     the inputs and differentiated by ``torch.autograd.grad``; the colour
@@ -612,7 +624,7 @@ def shade_surface_backward_reference(scene: GPUScene, o_w, d_w, t, n_obj,
 
     def gather(table, idx, ch):
         rows = gather_rows_reference(table.detach(), idx, ch)
-        taken.append((rows.requires_grad_(True), idx, table.shape[0]))
+        taken.append((rows.requires_grad_(True), idx, table.shape))
         return rows
 
     with torch.enable_grad():
@@ -632,8 +644,8 @@ def shade_surface_backward_reference(scene: GPUScene, o_w, d_w, t, n_obj,
              for x, g in zip(inputs, grads)]
     g_colors = None
     if taken:
-        _, idx, n_rows = taken[0]
-        g_colors = scatter_rows_reference(grads[4], idx, n_rows, 24,
+        _, idx, (n_rows, ch) = taken[0]
+        g_colors = scatter_rows_reference(grads[4], idx, n_rows, ch,
                                           acc_dtype)
     return (*grads[:4], g_colors)
 
@@ -706,9 +718,11 @@ def _needs_autograd(*tensors) -> bool:
 # the scene's tensors that a level's shading reads and a fit may optimize,
 # in two groups.  The colour tables: the shade Functions' backward kernels
 # return their gradient, as they return that of the rays, t and n_obj (and
-# so of the corner table behind t and n_obj).  The rest: materials,
-# textures, env, instance transforms and lights, whose gradient the kernels
-# do not return; a graph through one of those takes the plain pair.
+# so of the corner table behind t and n_obj): the packed view where the
+# scene has one, else the voxel grid (``gpuscene.color_table``).  The rest:
+# materials, textures, env, instance transforms and lights, whose gradient
+# the kernels do not return; a graph through one of those takes the plain
+# pair.
 _KERNEL_GRAD_FIELDS = ("voxel_colors", "voxel_color_corners")
 _PLAIN_GRAD_FIELDS = (
     "tint", "roughness", "metallic", "k", "tex_scale", "textures", "env",
@@ -791,11 +805,10 @@ def _shade_surface_function(scene, o_w, d_w, t, n_obj, hit, inst, mode,
     rays, ``t``, ``n_obj`` and the colour table."""
     from vrt_torch.kernels import shade as k4
 
-    colors = scene.voxel_color_corners if scene.use_voxel_colors else None
     return SurfaceRecord.unpack(k4.ShadeSurface.apply(
         o_w.contiguous(), d_w.contiguous(), t.contiguous(),
-        n_obj.contiguous(), colors, scene, _contiguous_hit(hit),
-        inst.contiguous(), mode, bounce, shadows))
+        n_obj.contiguous(), color_table(scene), scene,
+        _contiguous_hit(hit), inst.contiguous(), mode, bounce, shadows))
 
 
 def _shade_combine_function(scene, rec, d_w, n_obj, hit_mask, unlit_attr,
