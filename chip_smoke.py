@@ -9,8 +9,9 @@ Phases, each of which raises on failure:
              (the slab march, the same source), the
              gather library (GP-A, GP-B, GP-C), the row gather K3, the fused
              resolve (forward and backward), the four shade kernels K4
-             (surface and combine, forward and backward) and the corner
-             table's pack and its backward from
+             (surface and combine, forward and backward), the corner
+             table's pack and its backward (both designs) and the accel
+             rebuild (the occupancy pyramid and the rebuild) from
              ``vrt_torch/csrc/``, one nvcc each, and the import's native
              library (``vrt_torch/native/vrtnative.cpp``) with g++, all in
              parallel, and prints
@@ -18,7 +19,8 @@ Phases, each of which raises on failure:
              side by side, and for the redesigned
              kernels (the capped scene march, the merged surface backward,
              the resident surface and combine kernels, the merged resolve
-             backward) and their first designs the registers, stack
+             backward, the tiled pack backward) and their first designs
+             and the accel kernels the registers, stack
              frames, spills and the warp slots the registers leave filled,
 3. kernels -- every kernel against its plain version on the inputs the
              flagship scene (resolution 7, chebyshev, bf16) and config6 give
@@ -116,13 +118,20 @@ Phases, each of which raises on failure:
              colours optimized by Adam (lr 1e-2) towards zero targets; one
              warm-up step, then three timed, with the launches per step (5
              scene marches, 3 fused resolves forward and 3 backward, 3 + 3
-             shade kernels forward and 3 + 3 backward, 1 corner pack and 1
-             pack backward (``PackCorners``, f32 with the accel folded in),
-             no K3, no per-lane K1), peak device memory and the losses;
-             every pack and pack-backward launch of one step against its
-             plain version (the table bit for bit, the SDF's gradient
-             within ``PACK_GRAD_RTOL``), timed beside the torch pack and its
-             autograd backward (old, new, new, old); the step with resolve on
+             shade kernels forward and 3 + 3 backward, the accel rebuild
+             (``RebuildAccel``: 2 pyramid launches and 1 rebuild, f32 with
+             the accel folded in) and 1 tiled pack backward, no first-design
+             pack, no K3, no per-lane K1), peak device memory and the
+             losses; the rebuild and the pack backward of one step against
+             their plain versions and first designs (``_rebuild_calls``:
+             the pyramid, the accel, its u8 view and the table bit for bit,
+             the SDF's gradient bit-equal to the first design and within
+             ``PACK_GRAD_RTOL`` of the plain version), each timed old, new,
+             new, old with its bound, the rebuild also against the eager
+             ``build_accel`` + ``_accel_u8`` + the first design's pack;
+             ``rebuild_accel`` dispatching no eager op (``REBUILD_OPS``)
+             and launching the pyramid twice and the rebuild once; the
+             step with resolve on
              the plain path over K3, the step with eager shading (the plain
              stages under autograd) and the step on the first designs of the
              scene march, the shade forward pair, the surface backward and
@@ -266,16 +275,17 @@ Phases, each of which raises on failure:
              its colours above ``COLOR_CORNER_BUDGET_BYTES``, so the f32
              [1,257,257,257,3] grid with no packed view, sampled by the
              surface kernels' unpacked layout; three steps with their
-             launches (the corner pack and its backward once a step, the
-             colour repack never) and peak memory; every kernel launch of
-             one step, forward and backward, the pack pair's among them,
-             against its plain version; the step's gradients against the
+             launches (the pyramid 3 times, the rebuild and the pack
+             backward once a step, the first design's pack and the colour
+             repack never) and peak memory; every kernel launch of one
+             step, forward and backward, the rebuild's and the pack
+             backward's among them (``_rebuild_calls``), against its plain
+             version; the step's gradients against the
              same step on the plain stages (``FIT_COS_TOL``; the f32 colour
              grid's at ``FIT_DIFF_TOL``, the SDF's at ``BF16_DIFF_TOL`` for
              the bf16 table's rounding); a profile (busy time) and peak
-             memory, the pack pair against the torch pack and its autograd
-             backward (old, new, new, old), ``rebuild_accel`` and
-             ``build_accel`` each timed alone.
+             memory, ``rebuild_accel``, ``build_accel`` on the kernels and
+             eager, and the eager ``_accel_u8`` each timed alone.
 Last, two yardsticks that the port uses nowhere: the 1080p frame with eager
 shading captured into one CUDA graph and replayed (the run fails unless the
 capture succeeds and the replay gives the eager frame), and ``torch.compile``
@@ -366,7 +376,13 @@ SHADE_GRAD_LANE_BUDGET = 0.0
 # the card (NVIDIA H100 80GB HBM3, 700 W); with the corner table's eager
 # pack and its autograd backward (slices, casts, a stack; zeroed buffers
 # and adds) replaced by the pack kernel pair, 389 in every profile on that
-# card (452 with the eager pack).  The count follows the
+# card (452 with the eager pack); with the eager build_accel (sign, seven
+# compares and ORs, per level an amax, a compare, three repeat_interleaves
+# and a masked_fill) and _accel_u8 (in graft_params' and rebuild_accel's
+# replace of the volume) replaced by the accel kernels (2 pyramid launches
+# and 1 rebuild in place of the pack), 318 (vrt_torch/apps/probe_step.py,
+# parent and change in turns: 389 and 318 in every profile).  The count
+# follows the
 # code, not the data, but for the few ops of a level whose shadows are not
 # traced: a step back on eager shading, or a stage that falls back to eager
 # ops, leaves the range.  Counted by the host's launch calls (``_profile``):
@@ -374,11 +390,16 @@ SHADE_GRAD_LANE_BUDGET = 0.0
 # the start of the trace, while the launch calls held at 452 in 80 profiles
 # (``vrt_torch/apps/probe_profiler.py``)
 FRAME_OPS_MAX = 400
-FIT_STEP_OPS = range(389 - 10, 389 + 10 + 1)
+FIT_STEP_OPS = range(318 - 10, 318 + 10 + 1)
 # the corner pack's backward adds a voxel's at most 8 cotangents in
 # autograd's order: held to PACK_GRAD_RTOL * max|g| of the plain version
 # (the slices' transpose), bit-equality reported
 PACK_GRAD_RTOL = 1e-6
+# what rebuild_accel may dispatch on CUDA tensors: RebuildAccel's
+# allocations and views; an eager op of build_accel or _accel_u8 (sign,
+# compares, amax, repeat_interleave, masked_fill, shifts, casts) fails
+REBUILD_OPS = ("empty", "empty_strided", "detach", "alias", "view",
+               "_unsafe_view", "as_strided")
 # K3's f32 atomics add in another order on every run: its scatter is held
 # to SCATTER_RTOL * max|sum| of an exact (float64) sum; so are the table
 # gradients of the fused resolve's backward, and its ray gradients to
@@ -1778,99 +1799,257 @@ def _shade_bwd_calls(run, expected, tag):
     return out
 
 
-def _pack_calls(run, expected, tag):
-    """Every launch of the corner pack and of its backward in ``run()`` (a
-    fit step), kept with its inputs and output, then held against its plain
-    version on the same inputs: the table against
-    ``pack_cell_corners_reference`` bit for bit, the SDF's gradient within
+def _rebuild_calls(run, expected, tag):
+    """Every accel rebuild (``kernels.accel.rebuild_accel_cuda``: its
+    pyramid launches and its rebuild launch) and every pack backward in
+    ``run()`` (a fit step), kept with its inputs and outputs, then held
+    against its plain version on the same inputs: the pyramid's levels
+    against ``occupancy_pyramid_reference`` of the plain flags, the accel,
+    its u8 view and the table against ``rebuild_accel_reference`` (the eager
+    ``build_accel``, ``_accel_u8`` and torch pack) and the table against the
+    first design's pack kernel (``pack_corners_cuda``), all bit for bit; the
+    SDF's gradient bit-equal to the pack backward's first design and to its
+    tiled kernel (the step's launch ran the one the library picks) and within
     ``PACK_GRAD_RTOL * max|g|`` of ``pack_corners_backward_reference`` (the
-    slices' transpose in autograd's order; bit-equality reported).  Each
-    kernel timed beside the torch pack (old) and its autograd backward in
-    the order old, new, new, old, with its bound: the SDF (and the accel)
-    read once and the table written once, or the table's cotangent read
-    once and the SDF's gradient written once.  Fails unless each launched
-    ``expected`` times.  Returns {"pack" | "pack_bwd": dict(launches,
-    max_abs_err, bit_equal, ms, plain_ms, bound, shape)}."""
+    slices' transpose in autograd's order; bit-equality reported).  Timed
+    in the order old, new, new, old, each with its bound: the pyramid
+    against the plain pyramid; the rebuild kernel (on the launch's own
+    pyramid) against the first design's pack kernel; the whole rebuild
+    (pyramid and rebuild) against the eager ``build_accel`` + ``_accel_u8``
+    + the first design's pack, what a step ran before; the backward the
+    library picks against its first design, and the tiled kernel against
+    the first design; beside them the plain versions (the eager
+    rebuild, autograd of the torch pack) and, for the pack, one PyTorch
+    call that packs the 8 corner channels (a strided view of ``unfold``s
+    copied once: ``library_ms``).  Fails unless each ran ``expected``
+    times.  Returns {"pyramid" | "rebuild" | "pack" | "pack_bwd" | "whole":
+    dict(launches, max_abs_err, bit_equal, ms, plain_ms, old_ms,
+    library_ms, tiled_ms, bound, shape)}, "pack_bwd" with ``designs``, the
+    step's launches by the design that ran."""
     import torch
 
+    from vrt_torch.kernels import accel as ka
     from vrt_torch.kernels import pack as kp
-    from vrt_torch.march.types import pack_cell_corners_reference
+    from vrt_torch.kernels._timing import device_ms
+    from vrt_torch.march.types import _accel_u8, pack_cell_corners_reference
+    from vrt_torch.volume.accel import (build_accel_reference,
+                                        cell_corner_signs_differ)
 
-    with _recording(kp, "pack_corners_cuda") as fwd, \
+    with _recording(ka, "rebuild_accel_cuda") as rebuilds, \
+            _recording(ka, "accel_pyramid_cuda") as pyramids, \
             _recording(kp, "pack_corners_backward_cuda") as bwd:
+        before = dict(kp.BWD_LAUNCHES)
         run()
+        designs = {k: kp.BWD_LAUNCHES[k] - before[k] for k in before}
     torch.cuda.synchronize()
-    if (len(fwd), len(bwd)) != (expected, expected):
-        raise AssertionError(f"the {tag} launched the corner pack and its "
-                             f"backward {len(fwd)} + {len(bwd)} times, "
-                             f"expected {expected} + {expected}")
-    out = {}
-    boxes = dict(pack=dict(ms=[], plain_ms=[], bounds=[], err=0.0,
-                           bit=True, shape=None),
-                 pack_bwd=dict(ms=[], plain_ms=[], bounds=[], err=0.0,
-                               bit=True, shape=None))
-    for (sdf, accel, dtype), _, got in fwd:
-        box = boxes["pack"]
-        with torch.no_grad():
-            want = pack_cell_corners_reference(sdf, accel, dtype)
-        if not torch.equal(got, want):
-            raise AssertionError(f"{tag}: the corner pack differs from the "
-                                 f"plain pack")
-        del want
-        nbytes = sdf.numel() * 4 + got.numel() * got.element_size() \
-            + (0 if accel is None else accel.numel() * 4)
-        box["bounds"].append(_bound(nbytes, 0))
-        box["shape"] = f"{tuple(got.shape)} {got.dtype}"
-        with torch.no_grad():
-            olds, news = _paired_ms(
-                lambda: pack_cell_corners_reference(sdf, accel, dtype),
-                lambda: kp.pack_corners_cuda(sdf, accel, dtype), 10)
+    if (len(rebuilds), len(pyramids), len(bwd)) != (expected,) * 3:
+        raise AssertionError(f"the {tag} rebuilt the accel {len(rebuilds)} "
+                             f"times (pyramids {len(pyramids)}) and ran the "
+                             f"pack backward {len(bwd)} times, expected "
+                             f"{expected} each")
+    boxes = {k: dict(ms=[], plain_ms=[], old_ms=[], library_ms=[],
+                     tiled_ms=[], bounds=[], launches=0, bit=True, err=0.0,
+                     shape=None)
+             for k in ("pyramid", "rebuild", "pack", "pack_bwd", "whole")}
+
+    def timed(box, old, new, plain=None, library=None, old_is_plain=False):
+        olds, news = _paired_ms(old, new, 10)
         box["ms"].append(sum(news) / 2)
-        box["plain_ms"].append(sum(olds) / 2)
-        print(f"corner pack [{tag}]: {box['shape']}, bit-equal to the plain "
-              f"pack; torch pack, kernel, kernel, torch pack "
-              f"{', '.join(f'{t:.4f}' for t in (olds[0], news[0], news[1], olds[1]))}"
-              f" ms; bound {box['bounds'][-1]['bound_ms']:.4f} ms "
-              f"({nbytes} B) = {box['bounds'][-1]['bound_ms'] / box['ms'][-1]:.0%}"
-              f" of the kernel", flush=True)
-    for ((g,), _, got), ((sdf, accel, dtype), _, _) in zip(bwd, fwd):
+        box["old_ms"].append(sum(olds) / 2)
+        box["plain_ms"].append(sum(olds) / 2 if old_is_plain
+                               else device_ms(plain, 5))
+        if library is not None:
+            box["library_ms"].append(device_ms(library, 10))
+        return olds, news
+
+    def line(name, box, olds, news, old_name, nbytes):
+        b = box["bounds"][-1]["bound_ms"]
+        print(f"{name} [{tag}]: {box['shape']}; {old_name}, new, new, "
+              f"{old_name} {', '.join(f'{t:.4f}' for t in (olds[0], news[0], news[1], olds[1]))}"
+              f" ms; plain {box['plain_ms'][-1]:.4f} ms"
+              + (f"; library {box['library_ms'][-1]:.4f} ms"
+                 if box["library_ms"] else "")
+              + f"; bound {b:.4f} ms ({nbytes} B) = {b / box['ms'][-1]:.0%} "
+              f"of the kernel", flush=True)
+
+    for ((sdf, levels, dtype, channels), _, (table, accel, view)), \
+            (_, _, pyramid) in zip(rebuilds, pyramids):
+        lead, c = tuple(sdf.shape[:-3]), sdf.shape[-1] - 1
+        sdf = sdf.detach()
+        fold = accel if channels == 9 else None
+        # the pyramid
+        box = boxes["pyramid"]
+        with torch.no_grad():
+            want = ka.occupancy_pyramid_reference(
+                cell_corner_signs_differ(sdf), levels)
+        got = ka.pyramid_levels(pyramid, lead, c, levels)
+        if len(got) != levels or not all(
+                torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{tag}: the accel pyramid differs from "
+                                 f"the plain pyramid")
+        del want, got
+        box["launches"] += -(-levels // 3)
+        box["shape"] = f"{levels} levels over {tuple(sdf.shape)}"
+        nbytes = sdf.numel() * 4 + pyramid.numel()
+        box["bounds"].append(_bound(nbytes, 0))
+        olds, news = timed(
+            box, lambda: ka.occupancy_pyramid_reference(
+                cell_corner_signs_differ(sdf), levels),
+            lambda: ka.accel_pyramid_cuda(sdf, levels), old_is_plain=True)
+        line("accel pyramid", box, olds, news, "plain", nbytes)
+        # the rebuild kernel, against the plain rebuild and the first
+        # design's pack
+        box = boxes["rebuild"]
+        with torch.no_grad():
+            want = ka.rebuild_accel_reference(sdf, levels, dtype, channels)
+            first = kp.pack_corners_cuda(sdf, fold, dtype)
+        if not (torch.equal(accel, want[1]) and torch.equal(view, want[2])
+                and torch.equal(table, want[0])):
+            raise AssertionError(f"{tag}: the accel rebuild differs from "
+                                 f"the plain rebuild")
+        if not torch.equal(table, first):
+            raise AssertionError(f"{tag}: the rebuild's table differs from "
+                                 f"the first design's pack")
+        del want, first
+        box["launches"] += 1
+        box["shape"] = f"{tuple(table.shape)} {table.dtype}, accel, u8 view"
+        # the pyramid's levels 2.. (level 1 the kernel takes from its own
+        # cells' flags)
+        level1 = sdf.numel() // (c + 1) ** 3 * (c // 2) ** 3 if levels else 0
+        nbytes = sdf.numel() * 4 + pyramid.numel() - level1 \
+            + accel.numel() * 5 + table.numel() * table.element_size()
+        box["bounds"].append(_bound(nbytes, 0))
+        olds, news = timed(
+            box, lambda: kp.pack_corners_cuda(sdf, fold, dtype),
+            lambda: ka.rebuild_accel_cuda(sdf, levels, dtype, channels,
+                                          pyramid=pyramid),
+            lambda: ka.rebuild_accel_reference(sdf, levels, dtype,
+                                               channels))
+        line("accel rebuild kernel (old: the first design's pack)", box,
+             olds, news, "pack", nbytes)
+        # the first design's pack (a comparator now), with the library's
+        # copy of the 8 corner channels
+        box = boxes["pack"]
+        box["shape"] = f"{tuple(table.shape)} {table.dtype}"
+        nbytes = sdf.numel() * 4 + table.numel() * table.element_size() \
+            + (0 if fold is None else fold.numel() * 4)
+        box["bounds"].append(_bound(nbytes, 0))
+        win = sdf.unfold(-3, 2, 1).unfold(-3, 2, 1).unfold(-3, 2, 1)
+        win = win.permute(*range(win.ndim - 3), -1, -2, -3)
+        if channels == 8 and not torch.equal(
+                win.to(dtype, memory_format=torch.contiguous_format)
+                .reshape(table.shape), table):
+            raise AssertionError(f"{tag}: the library's pack differs")
+        olds, news = timed(
+            box, lambda: pack_cell_corners_reference(sdf, fold, dtype),
+            lambda: kp.pack_corners_cuda(sdf, fold, dtype), old_is_plain=True,
+            library=(lambda: win.to(dtype, memory_format=torch
+                                    .contiguous_format))
+            if channels == 8 else None)
+        line("corner pack, first design", box, olds, news, "torch pack",
+             nbytes)
+        # the whole rebuild against what a step ran before
+        box = boxes["whole"]
+        box["shape"] = boxes["rebuild"]["shape"]
+        nbytes = sdf.numel() * 4 + accel.numel() * 5 \
+            + table.numel() * table.element_size()
+        box["bounds"].append(_bound(nbytes, 0))
+
+        def eager_then_pack():
+            a = build_accel_reference(sdf, levels)
+            return _accel_u8(a), kp.pack_corners_cuda(
+                sdf, a if channels == 9 else None, dtype)
+
+        olds, news = timed(
+            box, eager_then_pack,
+            lambda: ka.rebuild_accel_cuda(sdf, levels, dtype, channels),
+            lambda: ka.rebuild_accel_reference(sdf, levels, dtype,
+                                               channels))
+        line("accel rebuild, pyramid and rebuild (old: eager build_accel, "
+             "_accel_u8 and the first design's pack)", box, olds, news,
+             "eager", nbytes)
+    for ((g,), _, got), ((sdf, levels, dtype, channels), _, (_, accel, _)) \
+            in zip(bwd, rebuilds):
         box = boxes["pack_bwd"]
+        old = kp.pack_corners_backward_cuda(g, _old_design=True)
+        tiled = kp.pack_corners_backward_cuda(g, _tiled=True)
         want = kp.pack_corners_backward_reference(g, g.shape[-2] + 1)
         scale = want.abs().max().item()
         err = (got - want).abs().max().item() / scale if scale else 0.0
         bit = bool(torch.equal(got, want))
+        if not (torch.equal(got, old) and torch.equal(tiled, old)):
+            raise AssertionError(f"{tag}: the pack backward's designs "
+                                 f"differ (the step's, the tiled kernel, "
+                                 f"the first design)")
         if not (scale > 0 and bool(torch.isfinite(got).all())
                 and err <= PACK_GRAD_RTOL):
             raise AssertionError(f"{tag}: the corner pack's backward is off "
                                  f"by {err:.3e} of max|g| {scale:.3e}")
-        del want
+        del want, old, tiled
         box["err"], box["bit"] = max(box["err"], err), box["bit"] and bit
+        box["launches"] += 1
         nbytes = g.numel() * g.element_size() + got.numel() * 4
         box["bounds"].append(_bound(nbytes, 0))
         box["shape"] = f"{tuple(g.shape)} {g.dtype}"
         leaf = sdf.detach().requires_grad_(True)
-        table = pack_cell_corners_reference(leaf, accel, dtype)
-        olds, news = _paired_ms(
-            lambda: torch.autograd.grad(table, leaf, g, retain_graph=True),
-            lambda: kp.pack_corners_backward_cuda(g), 10)
-        del leaf, table
-        box["ms"].append(sum(news) / 2)
-        box["plain_ms"].append(sum(olds) / 2)
-        print(f"corner pack backward [{tag}]: {box['shape']}, within "
-              f"{err:.2e} of max|g| of the plain version (bit-equal {bit}); "
-              f"autograd of the torch pack, kernel, kernel, autograd "
-              f"{', '.join(f'{t:.4f}' for t in (olds[0], news[0], news[1], olds[1]))}"
-              f" ms; bound {box['bounds'][-1]['bound_ms']:.4f} ms "
-              f"({nbytes} B) = {box['bounds'][-1]['bound_ms'] / box['ms'][-1]:.0%}"
-              f" of the kernel", flush=True)
+        packed = pack_cell_corners_reference(
+            leaf, accel if channels == 9 else None, dtype)
+        olds, news = timed(
+            box, lambda: kp.pack_corners_backward_cuda(g, _old_design=True),
+            lambda: kp.pack_corners_backward_cuda(g),
+            lambda: torch.autograd.grad(packed, leaf, g, retain_graph=True))
+        del leaf, packed
+        # the tiled kernel where the choice does not take it, and beside the
+        # first design where it does
+        t_olds, t_news = _paired_ms(
+            lambda: kp.pack_corners_backward_cuda(g, _old_design=True),
+            lambda: kp.pack_corners_backward_cuda(g, _tiled=True), 10)
+        box["tiled_ms"].append(sum(t_news) / 2)
+        print(f"corner pack backward [{tag}]: the step's launches by design "
+              f"{designs}; bit-equal to the first design and the tiled "
+              f"kernel, within {err:.2e} of max|g| of the plain version "
+              f"(bit-equal {bit}); first design, tiled, tiled, first design "
+              f"{', '.join(f'{t:.4f}' for t in (t_olds[0], t_news[0], t_news[1], t_olds[1]))}"
+              f" ms", flush=True)
+        line("corner pack backward, the library's choice", box, olds, news,
+             "first design", nbytes)
+    out = {}
     for name, box in boxes.items():
-        out[name] = dict(launches=expected, max_abs_err=box["err"],
-                         bit_equal=box["bit"], ms=sum(box["ms"]),
-                         plain_ms=sum(box["plain_ms"]),
-                         bound=_sum_bounds(box["bounds"]),
-                         shape=box["shape"])
+        out[name] = dict(
+            launches=box["launches"], max_abs_err=box["err"],
+            bit_equal=box["bit"], ms=sum(box["ms"]),
+            plain_ms=sum(box["plain_ms"]), old_ms=sum(box["old_ms"]),
+            library_ms=(sum(box["library_ms"]) if box["library_ms"]
+                        else None),
+            tiled_ms=sum(box["tiled_ms"]) if box["tiled_ms"] else None,
+            bound=_sum_bounds(box["bounds"]), shape=box["shape"])
+    out["pack_bwd"]["designs"] = designs
     torch.cuda.empty_cache()
     return out
+
+
+def _rebuild_ops(scene):
+    """The aten operations that ``diff.fit.rebuild_accel(scene)`` dispatches
+    (on CUDA tensors ``RebuildAccel``'s allocations alone: no eager op of
+    ``build_accel`` or ``_accel_u8``) and the accel kernels' launches."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from vrt_torch.diff.fit import rebuild_accel
+    from vrt_torch.kernels import accel as ka
+
+    ops = []
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    before = dict(ka.LAUNCHES)
+    with Ops():
+        rebuild_accel(scene)
+    torch.cuda.synchronize()
+    return ops, {k: ka.LAUNCHES[k] - before[k] for k in before}
 
 
 @contextlib.contextmanager
@@ -4407,10 +4586,12 @@ def _config4(dev, card, sync, zero_counts, counts):
                                     graft_params, make_fit_step,
                                     rebuild_accel, render_views)
     from vrt_torch.diff.optim import adam
+    from vrt_torch.kernels import accel as ka
     from vrt_torch.kernels import pack as kp
     from vrt_torch.kernels._timing import device_ms
+    from vrt_torch.march.types import _accel_u8
     from vrt_torch.render.gpuscene import RenderMode, color_table
-    from vrt_torch.volume.accel import build_accel
+    from vrt_torch.volume.accel import build_accel, build_accel_reference
 
     mode, size, views = RenderMode(), CONFIG4_SIZE, CONFIG4_VIEWS
     t0 = time.perf_counter()
@@ -4457,10 +4638,14 @@ def _config4(dev, card, sync, zero_counts, counts):
     peak = torch.cuda.max_memory_allocated()
     c4_counts = counts()
     c4_packs = dict(kp.LAUNCHES)
-    if repacks[0] != 0 or c4_packs != dict(pack=3, pack_bwd=3):
+    c4_accel = dict(ka.LAUNCHES)
+    if repacks[0] != 0 or c4_packs != dict(pack=0, pack_bwd=3) or \
+            c4_accel != dict(pyramid=9, rebuild=3):
         raise AssertionError(f"3 config4 steps: {repacks[0]} colour "
                              f"repacks (expected 0), corner packs "
-                             f"{c4_packs} (expected 3 and 3 backward)")
+                             f"{c4_packs} (expected 0 and 3 backward), "
+                             f"accel {c4_accel} (expected the pyramid 9: "
+                             f"8 levels in 3 launches, the rebuild 3)")
     levels, traces = _resolves(scene), _traces(scene)
     want = dict(k1=0, scene=3 * views * traces, resolve=3 * views * levels,
                 resolve_bwd=3 * views * levels, gather=0, scatter=0,
@@ -4484,8 +4669,12 @@ def _config4(dev, card, sync, zero_counts, counts):
           f"per step {c4_counts['scene'] // 3} scene marches, "
           f"{c4_counts['resolve'] // 3} fused resolves and their "
           f"backwards, {c4_counts['surface'] // 3} shade surface and "
-          f"combine launches and their backwards, 1 corner pack and 1 "
-          f"pack backward, 0 colour repacks; entries moved "
+          f"combine launches and their backwards, "
+          f"{c4_accel['pyramid'] // 3} accel pyramid launches, "
+          f"{c4_accel['rebuild'] // 3} accel rebuild and "
+          f"{c4_packs['pack_bwd'] // 3} pack backward (by design in 3 "
+          f"steps {dict(kp.BWD_LAUNCHES)}), 0 colour repacks; "
+          f"entries moved "
           f"{', '.join(f'{k} {v:.2%}' for k, v in moved.items())}",
           flush=True)
     if not all(v == v for v in losses) or not all(moved.values()):
@@ -4502,7 +4691,7 @@ def _config4(dev, card, sync, zero_counts, counts):
     held["shade"] = _shade_calls(one_step, views * levels, tag)
     held["shade_bwd"] = _shade_bwd_calls(one_step, views * levels, tag)
     rows = _kernel_rows(held, f"config4 on {card}")
-    held["pack"] = _pack_calls(one_step, 1, tag)
+    held["pack"] = _rebuild_calls(one_step, 1, tag)
 
     # the step's gradients on the kernels against the plain stages
     def loss_fn(p):
@@ -4539,28 +4728,37 @@ def _config4(dev, card, sync, zero_counts, counts):
     pieces = {}
     sdf = params["sdf"]
     pieces["build_accel"] = device_ms(lambda: build_accel(sdf, 8), 3)
+    pieces["build_accel_eager"] = device_ms(
+        lambda: build_accel_reference(sdf, 8), 3)
+    pieces["accel_u8_eager"] = device_ms(
+        lambda: _accel_u8(scene.volumes.accel), 3)
     pieces["rebuild_accel"] = device_ms(lambda: rebuild_accel(
         graft_params(scene, params, repack=False)), 3)
     torch.cuda.empty_cache()
-    pack, pack_bwd = held["pack"]["pack"], held["pack"]["pack_bwd"]
-    kernels_ms = sum(r["ms"] for r in rows.values()) + pack["ms"] \
+    whole, pack_bwd = held["pack"]["whole"], held["pack"]["pack_bwd"]
+    kernels_ms = sum(r["ms"] for r in rows.values()) + whole["ms"] \
         + pack_bwd["ms"]
     busy = None if prof is None else prof["busy_ms"]
     print(f"config4 step's device time on {card}: busy "
           f"{'not measured' if busy is None else f'{busy:.2f} ms'}, peak "
           f"max_memory_allocated {peak / 2**30:.2f} GiB; each piece alone: "
-          f"rebuild_accel {pieces['rebuild_accel']:.3f} ms (build_accel "
-          f"{pieces['build_accel']:.3f} ms, the rest the corner pack "
-          f"kernel's launch and the graft), the corner pack "
-          f"{pack['ms']:.4f} ms (the torch pack {pack['plain_ms']:.3f} ms) "
-          f"and its backward {pack_bwd['ms']:.4f} ms (autograd of the "
-          f"torch pack {pack_bwd['plain_ms']:.3f} ms); the hand-written "
-          f"kernels {kernels_ms:.3f} ms", flush=True)
+          f"rebuild_accel {pieces['rebuild_accel']:.3f} ms (the accel "
+          f"kernels and the graft; build_accel on the kernels "
+          f"{pieces['build_accel']:.3f} ms, eager "
+          f"{pieces['build_accel_eager']:.3f} ms, the eager _accel_u8 "
+          f"{pieces['accel_u8_eager']:.3f} ms), the pyramid and rebuild "
+          f"{whole['ms']:.4f} ms (eager build_accel, _accel_u8 and the "
+          f"first design's pack {whole['old_ms']:.3f} ms) and the pack "
+          f"backward {pack_bwd['ms']:.4f} ms (first design "
+          f"{pack_bwd['old_ms']:.4f} ms, autograd of the torch pack "
+          f"{pack_bwd['plain_ms']:.3f} ms); the hand-written kernels "
+          f"{kernels_ms:.3f} ms", flush=True)
     numbers = dict(step_ms=median, runs_ms=[r * 1e3 for r in runs],
                    peak_gib=peak / 2**30, losses=losses,
                    launches_per_step={
                        **{k: v // 3 for k, v in c4_counts.items() if v},
                        **{k: v // 3 for k, v in c4_packs.items()},
+                       **{f"accel {k}": v // 3 for k, v in c4_accel.items()},
                        "colour_repack": repacks[0] // 3},
                    corner_table_mb=table_mb, colour_grid_mb=colour_mb,
                    build_s=build_s, busy_ms=busy,
@@ -4568,7 +4766,7 @@ def _config4(dev, card, sync, zero_counts, counts):
                    pieces_ms=pieces, kernels_ms=kernels_ms, vs_plain=gates,
                    capped=held["scene"]["capped"],
                    simt_flat=held["scene"]["simt_flat"])
-    return dict(counts=c4_counts, packs=c4_packs, held=held,
+    return dict(counts=c4_counts, packs=c4_packs, accel=c4_accel, held=held,
                 numbers=numbers)
 
 
@@ -4588,6 +4786,7 @@ def main():
 
     from vrt_torch import native
     from vrt_torch.apps import probe_gather as probe
+    from vrt_torch.kernels import accel as ka
     from vrt_torch.kernels import gather as gk
     from vrt_torch.kernels import march as k1
     from vrt_torch.kernels import pack as kp
@@ -4625,7 +4824,7 @@ def main():
     _mark(2)
     # ---- 2. build: one nvcc per source, all started together ---------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(7) as pool:
+    with ThreadPoolExecutor(8) as pool:
         logs = {"K1 (march.cu)": pool.submit(k1.build),    # K1 and K7
                 "gather (gather.cu)": pool.submit(gk.build),
                 "K3 (rows.cu)": pool.submit(k3.build),
@@ -4634,7 +4833,9 @@ def main():
                 "K4 shade, surface and combine, forward and backward (shade.cu)":
                 pool.submit(k4.build),
                 "corner pack and its backward (pack.cu)":
-                pool.submit(kp.build)}
+                pool.submit(kp.build),
+                "accel pyramid and rebuild (accel.cu)":
+                pool.submit(ka.build)}
         gxx = pool.submit(native.build)
         logs = {name: f.result() for name, f in logs.items()}
         gxx_s = gxx.result()
@@ -4679,7 +4880,15 @@ def main():
             ("corner pack (pack.cu)", "corner pack and its backward "
              "(pack.cu)", "pack_kernel", 256),
             ("corner pack (pack.cu)", "corner pack and its backward "
-             "(pack.cu)", "pack_bwd_kernel", 256)):
+             "(pack.cu)", "pack_bwd_kernel", 256),
+            ("corner pack (pack.cu)", "corner pack and its backward "
+             "(pack.cu)", "pack_bwd_tiled_kernel", 256),
+            ("accel (accel.cu)", "accel pyramid and rebuild (accel.cu)",
+             "pyramid_cells_kernel", 256),
+            ("accel (accel.cu)", "accel pyramid and rebuild (accel.cu)",
+             "pyramid_kernel", 256),
+            ("accel (accel.cu)", "accel pyramid and rebuild (accel.cu)",
+             "rebuild_kernel", 256)):
         got = ptxas_usage(logs[log], kernel)
         if got is None:
             print(f"ptxas, {name} {kernel}: not in the log (the library was "
@@ -4911,6 +5120,8 @@ def main():
         _reset(k4.LAUNCHES)
         _reset(k4.PATH_LAUNCHES)
         _reset(kp.LAUNCHES)
+        _reset(kp.BWD_LAUNCHES)
+        _reset(ka.LAUNCHES)
 
     def counts():
         return dict(k1=k1.LAUNCHES, scene=k1.SCENE_LAUNCHES,
@@ -5159,6 +5370,8 @@ def main():
     fit_counts = counts()
     fit_paths = dict(k4.PATH_LAUNCHES)
     fit_packs = dict(kp.LAUNCHES)
+    fit_bwd_designs = dict(kp.BWD_LAUNCHES)
+    fit_accel = dict(ka.LAUNCHES)
     step_s = statistics.median(runs)
     n_rays = len(FIT_CAMS) * FRAME_W * FRAME_H
     print(f"config6 fit step 1920x1080 on {card}: median "
@@ -5185,12 +5398,21 @@ def main():
     if fit_counts != want:
         raise AssertionError(f"launches in 3 fit steps {fit_counts}, "
                              f"expected {want}")
-    # rebuild_accel packs the 9-channel f32 table once a step
-    if fit_packs != dict(pack=3, pack_bwd=3):
-        raise AssertionError(f"corner packs in 3 fit steps {fit_packs}, "
-                             f"expected 3 and 3 backward")
-    print(f"config6 fit steps: corner pack {fit_packs['pack'] / 3:g} and "
-          f"its backward {fit_packs['pack_bwd'] / 3:g} a step", flush=True)
+    # rebuild_accel rebuilds the accel and packs the 9-channel f32 table
+    # once a step: the pyramid in 2 launches (6 levels), the rebuild in 1,
+    # the pack backward in 1 (on the card's first design here, where the
+    # tiled kernel's grid is less than a wave); the first design's pack
+    # never
+    if fit_packs != dict(pack=0, pack_bwd=3) or \
+            fit_accel != dict(pyramid=6, rebuild=3):
+        raise AssertionError(f"accel and pack launches in 3 fit steps "
+                             f"{fit_accel}, {fit_packs}, expected the "
+                             f"pyramid 6, the rebuild 3, the pack backward "
+                             f"3, the first design's pack 0")
+    print(f"config6 fit steps: accel pyramid {fit_accel['pyramid'] / 3:g}, "
+          f"rebuild {fit_accel['rebuild'] / 3:g} and pack backward "
+          f"{fit_packs['pack_bwd'] / 3:g} launches a step (by design in 3 "
+          f"steps {fit_bwd_designs})", flush=True)
     for stage in ("surface", "combine"):
         if fit_paths[f"{stage} v4"] + fit_paths[f"{stage} scalar"] != \
                 fit_counts[stage]:
@@ -5213,9 +5435,21 @@ def main():
     def one_step():
         return step(params, state, targets)[2]
 
-    # every corner pack and pack backward of one step against its plain
-    # version, both timed beside the torch pack
-    fit_pack = _pack_calls(one_step, 1, "config6 fit step")
+    # the accel rebuild and the pack backward of one step against their
+    # plain versions and first designs, timed beside them
+    fit_pack = _rebuild_calls(one_step, 1, "config6 fit step")
+    # rebuild_accel on the card dispatches no eager op of build_accel or
+    # _accel_u8: RebuildAccel's allocations, then its kernels
+    from vrt_torch.diff.fit import graft_params
+    ops, launched = _rebuild_ops(graft_params(fit_scene, params,
+                                              repack=False))
+    eager = sorted({op for op in ops if op not in REBUILD_OPS})
+    print(f"config6 rebuild_accel on {card}: aten ops {ops}, launches "
+          f"{launched}", flush=True)
+    if eager or launched != dict(pyramid=2, rebuild=1):
+        raise AssertionError(f"rebuild_accel dispatched eager ops {eager} "
+                             f"and launched {launched}, expected none and "
+                             f"the pyramid 2, the rebuild 1")
 
     def old_step():
         with _plain_resolve_path():
@@ -5829,39 +6063,94 @@ def main():
                "vrt/render/renderer.py:249 (XLA's transpose of "
                "_voxel_color_sample's unpacked branch, its 8 voxel gathers' "
                "scatter-add: no Pallas kernel)"))),
-        *({"name": f"corner pack{suffix}", "route": "cuda",
-           "source": "vrt_torch/csrc/pack.cu",
-           "replaces": replaces,
-           "path": "diff/fit.py::rebuild_accel through "
-                   "march/types.py::pack_cell_corners -> PackCorners: once "
-                   "a fit step (config6: f32 with the accel folded in; "
-                   "config4: bf16, 8 channels)",
-           "launches": fit_packs[key] + c4["packs"][key],
-           "launches_by_path": {"fit_steps": fit_packs[key],
-                                "config4_fit_steps": c4["packs"][key]},
+        *({"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "path": path,
+           "launches": launches,
+           "launches_by_path": {"fit_steps": by_path[0],
+                                "config4_fit_steps": by_path[1]},
            "max_abs_err": max(fit_pack[key]["max_abs_err"],
                               c4["held"]["pack"][key]["max_abs_err"]),
            "bit_equal_to_plain": fit_pack[key]["bit_equal"]
            and c4["held"]["pack"][key]["bit_equal"],
-           # config4's launch; the torch pack (or autograd of it) is the
-           # plain version, timed old, new, new, old
+           # config4's launch, timed old, new, new, old against `old`
            "ms": c4["held"]["pack"][key]["ms"],
            "plain_ms": c4["held"]["pack"][key]["plain_ms"],
+           "old_ms": c4["held"]["pack"][key]["old_ms"], "old": old,
            **bound_keys(c4["held"]["pack"][key]["bound"]),
-           "library_ms": None,
-           "table": c4["held"]["pack"][key]["shape"],
+           "library_ms": c4["held"]["pack"][key]["library_ms"],
+           "shape": c4["held"]["pack"][key]["shape"],
+           # the backward: the step's launches by the design the library
+           # picked, and the tiled kernel's time, forced
+           **({"designs": c4["held"]["pack"][key]["designs"],
+               "tiled_ms": c4["held"]["pack"][key]["tiled_ms"]}
+              if key == "pack_bwd" else {}),
            "config6_fit_step": {
                "ms": fit_pack[key]["ms"],
                "plain_ms": fit_pack[key]["plain_ms"],
-               "table": fit_pack[key]["shape"],
+               "old_ms": fit_pack[key]["old_ms"],
+               "shape": fit_pack[key]["shape"],
+               **({"designs": fit_pack[key]["designs"],
+                   "tiled_ms": fit_pack[key]["tiled_ms"]}
+                  if key == "pack_bwd" else {}),
                **bound_keys(fit_pack[key]["bound"])},
-           "ptxas": ptxas.get(kernel)}
-          for key, suffix, kernel, replaces in (
-              ("pack", "", "pack_kernel",
+           "ptxas": ptxas.get(kernel),
+           # the pyramid and the rebuild as one function, against what a
+           # step ran before (eager build_accel and _accel_u8, the first
+           # design's pack), old, new, new, old
+           **({"with_pyramid": {
+               side: {"ms": got["whole"]["ms"],
+                      "old_ms": got["whole"]["old_ms"],
+                      "plain_ms": got["whole"]["plain_ms"],
+                      **bound_keys(got["whole"]["bound"])}
+               for side, got in (("config4_fit_step", c4["held"]["pack"]),
+                                 ("config6_fit_step", fit_pack))}}
+              if key == "rebuild" else {})}
+          for name, key, source, kernel, launches, by_path, old, path,
+          replaces in (
+              ("accel pyramid", "pyramid", "vrt_torch/csrc/accel.cu",
+               "pyramid_cells_kernel",
+               fit_accel["pyramid"] + c4["accel"]["pyramid"],
+               (fit_accel["pyramid"], c4["accel"]["pyramid"]),
+               "the plain pyramid (max-pools of the plain flags)",
+               "diff/fit.py::rebuild_accel -> kernels/accel.py::"
+               "RebuildAccel: ceil(R / 3) launches a fit step (config6 2, "
+               "config4 3); volume/accel.py::build_accel on CUDA tensors",
+               "vrt/volume/accel.py:41-92 (cell_corner_signs_differ and "
+               "build_skip_level's max-pools under build_accel, "
+               "vrt/diff/fit.py:77 rebuild_accel: XLA-fused jnp, no Pallas "
+               "kernel)"),
+              ("accel rebuild", "rebuild", "vrt_torch/csrc/accel.cu",
+               "rebuild_kernel",
+               fit_accel["rebuild"] + c4["accel"]["rebuild"],
+               (fit_accel["rebuild"], c4["accel"]["rebuild"]),
+               "the first design's pack kernel (pack_corners_cuda)",
+               "diff/fit.py::rebuild_accel -> RebuildAccel: once a fit "
+               "step, the accel, its u8 view and the corner table (config6 "
+               "f32 x 9, config4 bf16 x 8)",
+               "vrt/volume/accel.py:41-92 (build_skip_level's repeats and "
+               "the pack of build_accel), vrt/march/types.py:25 "
+               "pack_cell_corners and the u8 view of the march, under "
+               "vrt/diff/fit.py:77 rebuild_accel (XLA-fused: no Pallas "
+               "kernel)"),
+              ("corner pack", "pack", "vrt_torch/csrc/pack.cu",
+               "pack_kernel", fit_packs["pack"] + c4["packs"]["pack"],
+               (fit_packs["pack"], c4["packs"]["pack"]),
+               "the torch pack (its plain version)",
+               "march/types.py::pack_cell_corners -> PackCorners on CUDA "
+               "tensors (graft_params with repack; a table with a given "
+               "accel): the first design of the fit step's pack, 0 "
+               "launches on the fit step since the accel rebuild",
                "vrt/march/types.py:25 (pack_cell_corners under "
                "vrt/diff/fit.py:77 rebuild_accel and :31 graft_params, "
                "XLA-fused slices and a stack: no Pallas kernel)"),
-              ("pack_bwd", " backward", "pack_bwd_kernel",
+              ("corner pack backward", "pack_bwd", "vrt_torch/csrc/pack.cu",
+               "pack_bwd_tiled_kernel",
+               fit_packs["pack_bwd"] + c4["packs"]["pack_bwd"],
+               (fit_packs["pack_bwd"], c4["packs"]["pack_bwd"]),
+               "its first design (pack_bwd_kernel)",
+               "RebuildAccel's and PackCorners' backward: once a fit step, "
+               "the tiled kernel where its grid fills the card (config4), "
+               "the first design below (config6)",
                "vrt/march/types.py:25 (XLA's transpose of "
                "pack_cell_corners' slices under jax.value_and_grad of the "
                "fit step: no Pallas kernel)"))),

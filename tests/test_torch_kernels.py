@@ -1680,6 +1680,234 @@ def test_pack_wrappers_reject_bad_inputs_on_card():
     assert kp.LAUNCHES == before
 
 
+# ---- the accel rebuild (pyramid, rebuild) and the tiled pack backward ---------
+#
+# The pyramid and the rebuild compute integers and copy or round the table's
+# values once, so they equal their plain versions bit for bit; a NaN in a
+# bf16 table is held as a NaN (torch's casts give it payloads of their own).
+# The tiled backward adds the same terms in the same order as its first
+# design and as autograd of the plain pack.
+
+
+def _accel_case(v, n, seed, special, dev):
+    """A seeded SDF [v,n,n,n] of noisy spheres (surfaces scattered, skips
+    of every level), with NaN, -0.0, 0.0 and inf voxels where ``special``
+    (one NaN at corner 0 of cell 0)."""
+    rng = np.random.default_rng(seed)
+    grid = np.stack(np.meshgrid(*[np.arange(n)] * 3, indexing="ij"), -1)
+    vols = []
+    for _ in range(v):
+        centre = rng.uniform(0, n - 1, 3)
+        s = np.linalg.norm(grid - centre, axis=-1) - rng.uniform(
+            0.6, (n - 1) / 3)
+        vols.append(s + rng.normal(scale=0.05, size=s.shape))
+    sdf = np.stack(vols).astype(np.float32)
+    if special:
+        for k, val in enumerate([np.nan, -0.0, 0.0, np.inf, -0.0, np.nan]):
+            idx = rng.integers(0, n, size=(8, 3))
+            for j, (x, y, z) in enumerate(idx):
+                sdf[j % v, x, y, z] = val
+        sdf[0, :2, :2, :2] = -0.0
+        sdf[0, 1, 1, 1] = 0.0
+        sdf[0, 0, 0, 0] = np.nan
+    return torch.from_numpy(sdf).to(dev)
+
+
+def _table_equal(got, want):
+    """Bit for bit, but a NaN of a bf16 table only as a NaN."""
+    if got is None or want is None:
+        return got is None and want is None
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    nan = torch.isnan(want.float())
+    if not torch.equal(nan, torch.isnan(got.float())):
+        return False
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(got.view(bits)[~nan], want.view(bits)[~nan])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("special", [False, True])
+@pytest.mark.parametrize("v,n", [(1, 3), (1, 5), (2, 9), (2, 17), (1, 33),
+                                 (2, 65), (1, 129), (1, 257)])
+def test_accel_pyramid_matches_plain_on_card(v, n, special):
+    """The pyramid kernel's levels against the plain pyramid of the plain
+    flags, at every level count; ceil(levels / 3) launches."""
+    from vrt_torch.kernels import accel as ka
+    from vrt_torch.volume.accel import cell_corner_signs_differ
+
+    dev = _card()
+    sdf = _accel_case(v, n, n + v, special, dev)
+    c = n - 1
+    r = c.bit_length() - 1
+    flag = cell_corner_signs_differ(sdf)
+    for levels in sorted({1, min(3, r), min(4, r), r}):
+        before = ka.LAUNCHES["pyramid"]
+        got = ka.pyramid_levels(ka.accel_pyramid_cuda(sdf, levels), (v,), c,
+                                levels)
+        torch.cuda.synchronize()
+        assert ka.LAUNCHES["pyramid"] - before == -(-levels // 3)
+        want = ka.occupancy_pyramid_reference(flag, levels)
+        assert len(got) == len(want) == levels
+        for lvl, (a, b) in enumerate(zip(got, want), 1):
+            assert torch.equal(a, b), (levels, lvl)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("special", [False, True])
+@pytest.mark.parametrize("table", ["none", "f32x8", "bf16x8", "f32x9",
+                                   "bf16x9"])
+@pytest.mark.parametrize("v,n", [(1, 3), (2, 5), (2, 17), (2, 65),
+                                 (1, 257)])
+def test_accel_rebuild_matches_plain_on_card(v, n, table, special):
+    """The rebuild (with the pyramid) against ``rebuild_accel_reference``
+    on the same CUDA tensors: the accel and its u8 view bit for bit, the
+    table bit for bit (NaN as NaN), one rebuild launch; and ``build_accel``
+    on a CUDA tensor (accel only) against ``build_accel_reference``."""
+    from vrt_torch.kernels import accel as ka
+    from vrt_torch.volume.accel import build_accel, build_accel_reference
+
+    dev = _card()
+    sdf = _accel_case(v, n, 3 * n + v, special, dev)
+    r = (n - 1).bit_length() - 1
+    channels = 0 if table == "none" else int(table[-1])
+    dtype = torch.bfloat16 if table.startswith("bf16") else torch.float32
+    before = dict(ka.LAUNCHES)
+    got = ka.rebuild_accel_cuda(sdf, r, dtype, channels)
+    torch.cuda.synchronize()
+    assert ka.LAUNCHES["rebuild"] - before["rebuild"] == 1
+    want = ka.rebuild_accel_reference(sdf, r, dtype, channels)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[2])
+    assert _table_equal(got[0], want[0])
+    for levels in (0, r // 2, r + 2):
+        assert torch.equal(build_accel(sdf, levels),
+                           build_accel_reference(sdf, levels))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("table", ["f32x9", "bf16x8", "f32x8", "bf16x9"])
+def test_rebuild_function_matches_plain_on_card(table):
+    """``RebuildAccel`` forward and backward on the card (one pyramid pass,
+    one rebuild, one tiled backward) against the plain rebuild and autograd
+    of the plain pack, bit for bit."""
+    from vrt_torch.kernels import accel as ka
+    from vrt_torch.kernels import pack as kp
+
+    dev = _card()
+    sdf = _accel_case(2, 65, 11, False, dev)
+    dtype = torch.bfloat16 if table.startswith("bf16") else torch.float32
+    channels = int(table[-1])
+    g = torch.randn((2, 64, 64, 64, channels), device=dev,
+                    generator=torch.Generator(dev).manual_seed(5)).to(dtype)
+    leaf = sdf.clone().requires_grad_(True)
+    want, _, _ = ka.rebuild_accel_reference(leaf, 6, dtype, channels)
+    (g_want,) = torch.autograd.grad(want, leaf, g)
+    before = (dict(ka.LAUNCHES), dict(kp.LAUNCHES))
+    leaf = sdf.clone().requires_grad_(True)
+    got, accel, view = ka.RebuildAccel.apply(leaf, 6, dtype, channels)
+    assert got.requires_grad and not accel.requires_grad
+    (g_got,) = torch.autograd.grad(got, leaf, g)
+    torch.cuda.synchronize()
+    assert {k: ka.LAUNCHES[k] - before[0][k] for k in ka.LAUNCHES} == dict(
+        pyramid=2, rebuild=1)
+    assert {k: kp.LAUNCHES[k] - before[1][k] for k in kp.LAUNCHES} == dict(
+        pack=0, pack_bwd=1)
+    assert torch.equal(got, want.detach())
+    assert torch.equal(g_got, g_want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 3, 10, 17, 33, 41, 65, 257])
+@pytest.mark.parametrize("table", ["f32x9", "bf16x8", "f32x8", "bf16x9"])
+def test_pack_backward_designs_on_card(table, n):
+    """The pack backward's designs (the library's choice, the tiled kernel
+    where its words align, the first design) against each other and the
+    slices' transpose (autograd's order), bit for bit: sides that are no
+    multiple of the tiled kernel's 32 x 8 x 16 block or of a 16-byte word's
+    cells (9 channels: the first design runs), and config6's and
+    config4's."""
+    from vrt_torch.kernels import pack as kp
+
+    dev = _card()
+    _, _, dtype, g = _pack_case(table, n, dev, seed=n)
+    new = kp.pack_corners_backward_cuda(g)
+    tiled = kp.pack_corners_backward_cuda(g, _tiled=True)
+    old = kp.pack_corners_backward_cuda(g, _old_design=True)
+    torch.cuda.synchronize()
+    assert torch.equal(new, old)
+    assert torch.equal(tiled, old)
+    assert torch.equal(new, kp.pack_corners_backward_reference(g, n))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("table,n,design", [("f32x9", 65, "first"),
+                                            ("bf16x8", 257, "tiled")])
+def test_pack_backward_choice_on_card(table, n, design):
+    """The library's choice on each side of its threshold (the tiled
+    kernel where its grid is at least one wave of resident blocks): config6's
+    two 65^3 volumes (256 blocks, under a wave of an H100's 132
+    multiprocessors at the 2 or more blocks each holds) take the first
+    design, config4's 257^3 table (2,048 blocks, over a wave at the 8 blocks
+    at most) the tiled kernel; ``_tiled`` takes the tiled kernel on both,
+    ``_old_design`` the first design."""
+    from vrt_torch.kernels import pack as kp
+
+    dev = _card()
+    _, _, _, g = _pack_case(table, n, dev, seed=n)
+    for kwargs, want in (({}, design), (dict(_tiled=True), "tiled"),
+                         (dict(_old_design=True), "first")):
+        before = dict(kp.BWD_LAUNCHES)
+        kp.pack_corners_backward_cuda(g, **kwargs)
+        assert {k: kp.BWD_LAUNCHES[k] - before[k] for k in before} == {
+            "first": int(want == "first"), "tiled": int(want == "tiled")}
+
+
+@pytest.mark.gpu
+def test_accel_wrappers_reject_bad_inputs_on_card():
+    from vrt_torch.kernels import accel as ka
+    from vrt_torch.kernels import pack as kp
+
+    dev = _card()
+    sdf = _accel_case(2, 17, 1, False, dev)
+    odd = _accel_case(1, 13, 1, False, dev)
+    g = torch.zeros((1, 16, 16, 16, 8), device=dev)
+    before = (dict(ka.LAUNCHES), dict(kp.LAUNCHES))
+    bad = [
+        lambda: ka.accel_pyramid_cuda(sdf.cpu(), 4),
+        lambda: ka.accel_pyramid_cuda(odd, 2),
+        lambda: ka.accel_pyramid_cuda(sdf, 5),
+        lambda: ka.accel_pyramid_cuda(sdf.double(), 4),
+        lambda: ka.accel_pyramid_cuda(sdf.transpose(1, 3), 4),
+        lambda: ka.rebuild_accel_cuda(odd, 2),
+        lambda: ka.rebuild_accel_cuda(sdf, -1),
+        lambda: ka.rebuild_accel_cuda(sdf, 4, torch.float16, 8),
+        lambda: ka.rebuild_accel_cuda(sdf, 4, torch.float32, 7),
+        lambda: ka.rebuild_accel_cuda(sdf[..., :-1].contiguous(), 4),
+        lambda: ka.rebuild_accel_cuda(sdf, 4, pyramid=torch.zeros(
+            3, dtype=torch.uint8, device=dev)),
+        lambda: ka.build_accel_cuda(odd, 3),
+        lambda: ka.RebuildAccel.apply(sdf, 4, torch.float32, 0),
+        lambda: kp.pack_corners_backward_cuda(g[:, :, :, :15]),
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert (ka.LAUNCHES, kp.LAUNCHES) == before
+    with pytest.raises(ValueError):
+        kp.pack_corners_backward_cuda(g, _old_design=True, _tiled=True)
+    # a cotangent off a 16-byte boundary: the tiled kernel does not take
+    # its words, so even ``_tiled`` runs the first design
+    flat = torch.randn(16 ** 3 * 8 + 1, device=dev,
+                       generator=torch.Generator(dev).manual_seed(3))
+    off = flat[1:].view(1, 16, 16, 16, 8)
+    before = dict(kp.BWD_LAUNCHES)
+    assert torch.equal(kp.pack_corners_backward_cuda(off, _tiled=True),
+                       kp.pack_corners_backward_cuda(off, _old_design=True))
+    assert {k: kp.BWD_LAUNCHES[k] - before[k] for k in before} == dict(
+        first=2, tiled=0)
+
+
 # ---- K4's backward: the two backward kernels on the card ---------------------
 #
 # Each recomputes its stage from the stage's inputs and sums in its own

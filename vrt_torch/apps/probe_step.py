@@ -48,7 +48,8 @@ CONFIG6_CAMS = [dict(position=(320.0, 0.0, 40.0),
 # the kernel modules a checkout may hold, and the counters of each
 WRAPPERS = {"march": ("SCENE_LAUNCHES", "LAUNCHES"),
             "resolve": ("LAUNCHES",), "rows": ("LAUNCHES",),
-            "shade": ("LAUNCHES",), "pack": ("LAUNCHES",)}
+            "shade": ("LAUNCHES",), "pack": ("LAUNCHES", "BWD_LAUNCHES"),
+            "accel": ("LAUNCHES",)}
 
 
 def _card() -> str:

@@ -3,9 +3,9 @@ constants or the camera from pixel losses (port of ``vrt.diff.fit``).
 
 Pixel losses reach the SDF through resolve's IFT-at-the-root term and the
 central-difference normal, both read from the corner table, which is
-repacked from the SDF inside the step (``pack_cell_corners``: on CUDA
-tensors ``kernels.pack.PackCorners``, the pack kernel and its backward
-kernel); colours reach the colour grid through its corner-packed view,
+repacked from the SDF inside the step with the accel
+(``kernels.accel.RebuildAccel``: on CUDA tensors the accel kernels and the
+pack's backward kernel); colours reach the colour grid through its corner-packed view,
 repacked in the step too, or, where the scene has none (above
 ``gpuscene.COLOR_CORNER_BUDGET_BYTES``, as config4's 257^3 grid), directly:
 the shading samples the f32 grid.  On CUDA tensors the corner table is read
@@ -46,7 +46,6 @@ from vrt_torch.render.camera import camera_rays
 from vrt_torch.render.gpuscene import (GPUScene, RenderMode,
                                        pack_voxel_color_corners)
 from vrt_torch.render.renderer import tonemap, trace_radiance
-from vrt_torch.volume.accel import build_accel
 
 
 def graft_params(scene: GPUScene, params: Dict,
@@ -70,7 +69,8 @@ def graft_params(scene: GPUScene, params: Dict,
                         if corners.shape[-1] > 8 else None)
             corners = pack_cell_corners(params["sdf"], accel_ch,
                                         corners.dtype)
-        vols = dataclasses.replace(vols, sdf=params["sdf"], corners=corners)
+        vols = dataclasses.replace(vols, sdf=params["sdf"], corners=corners,
+                                   u8_view=vols.accel_u8)
     scene = dataclasses.replace(scene, volumes=vols)
     direct = {k: v for k, v in params.items()
               if k != "sdf" and hasattr(scene, k)}
@@ -85,22 +85,24 @@ def graft_params(scene: GPUScene, params: Dict,
 
 def rebuild_accel(scene: GPUScene) -> GPUScene:
     """Rebuild what the march derives from the (possibly updated) SDF, on
-    its device: the octree accel (``accel_mode`` becomes 'octree', and the
-    volume derives its u8 accel anew) and the corner table, repacked
-    differentiably with the new accel folded in where the table has a 9th
-    channel.  All volumes share the padded resolution."""
+    its device: the octree accel (``accel_mode`` becomes 'octree') with its
+    u8 view and the corner table, repacked differentiably with the new accel
+    folded in where the table has a 9th channel.  All volumes share the
+    padded resolution.  That is one ``RebuildAccel``: on CUDA tensors the
+    accel kernels (the pyramid and the rebuild, which writes the three) and
+    the pack's backward kernel, on CPU tensors their plain versions."""
+    from vrt_torch.kernels.accel import RebuildAccel
+
     vols = scene.volumes
     sdf = vols.sdf
     resolution = (sdf.shape[-1] - 1).bit_length() - 1
-    with torch.no_grad():
-        accel = build_accel(sdf.detach(), resolution)
-    corners = vols.corners
-    corners = pack_cell_corners(
-        sdf, accel if corners.shape[-1] > 8 else None, corners.dtype)
+    corners, accel, accel_u8 = RebuildAccel.apply(
+        sdf.contiguous(), resolution, vols.corners.dtype,
+        vols.corners.shape[-1])
     return dataclasses.replace(
-        scene, volumes=dataclasses.replace(vols, accel=accel,
-                                           corners=corners,
-                                           accel_mode="octree"))
+        scene, volumes=dataclasses.replace(
+            vols, accel=accel, corners=corners, accel_mode="octree",
+            u8_view=accel_u8))
 
 
 def graft_and_rebuild(scene: GPUScene, params: Dict) -> GPUScene:

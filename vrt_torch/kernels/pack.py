@@ -16,7 +16,19 @@ bf16 table).  Its backward computes what ``pack_corners_backward_reference``
 sums the cotangents of the at most 8 corner entries that name it, in f32,
 with no atomics, corner 7 first, the order in which autograd adds the
 plain version's slices (so it equals autograd of the plain pack bit for
-bit too); the 9th channel's cotangent reaches nothing.
+bit too); the 9th channel's cotangent reaches nothing.  The backward has
+two designs, bit-equal: its redesign (``pack_bwd_tiled_kernel``: a block
+walks a column of voxels along x, each cell plane read once as 16-byte
+words into shared memory) and its first design (``pack_bwd_kernel``, one
+thread a voxel gathering its terms from the cotangent).  By default the
+kernel library picks the tiled kernel where its words align and its grid
+fills the card with at least one wave of resident blocks (config4's 257^3
+table), else the first design (config6's two 65^3 volumes, and any side or
+cotangent the words do not fit); ``_old_design=True`` takes the first
+design, ``_tiled=True`` the tiled kernel wherever its words align, and
+``BWD_LAUNCHES`` counts the launches of each.  The fit step's pack is the
+accel rebuild's (``kernels.accel.RebuildAccel``, whose backward is this
+one); the pack kernel packs a table with a given accel.
 
 ``PackCorners`` joins them: on CUDA tensors the two kernels, on CPU tensors
 the two plain versions.  ``march.types.pack_cell_corners`` takes it for a
@@ -38,6 +50,8 @@ from vrt_torch.kernels.march import _check as _check_tensor
 from vrt_torch.kernels.march import _stream
 
 LAUNCHES = {"pack": 0, "pack_bwd": 0}
+# the pack backward's launches by the design that ran
+BWD_LAUNCHES = {"first": 0, "tiled": 0}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 _lib = None
@@ -52,7 +66,7 @@ def build() -> str:
     lib, log = _build.build("pack.cu")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.vrt_pack_corners.argtypes = [ptr] * 3 + [i64] + [i32] * 3 + [ptr]
-    lib.vrt_pack_corners_bwd.argtypes = [ptr] * 2 + [i64] + [i32] * 3 + [ptr]
+    lib.vrt_pack_corners_bwd.argtypes = [ptr] * 2 + [i64] + [i32] * 4 + [ptr]
     lib.vrt_pack_corners.restype = i32
     lib.vrt_pack_corners_bwd.restype = i32
     _lib = lib
@@ -120,14 +134,19 @@ def pack_corners_cuda(sdf, accel, dtype: torch.dtype):
     return table
 
 
-def pack_corners_backward_cuda(g):
+def pack_corners_backward_cuda(g, _old_design: bool = False,
+                               _tiled: bool = False):
     """Launch the pack's backward on ``torch.cuda.current_stream()``: the
     f32 [..., N,N,N] gradient of the SDF for the cotangent ``g`` [...,
-    C,C,C, 8|9] (f32 or bf16, the table's dtype) of its table.  Raises on
-    any input the kernel does not take; never falls back."""
+    C,C,C, 8|9] (f32 or bf16, the table's dtype) of its table, on the
+    design the kernel library picks, or with ``_old_design`` on the first
+    design, or with ``_tiled`` on the tiled kernel where its words align.
+    Raises on any input the kernel does not take; never falls back."""
     if g.device.type != "cuda":
         raise ValueError(f"the pack's backward runs on CUDA tensors, got "
                          f"{g.device}")
+    if _old_design and _tiled:
+        raise ValueError("pack backward: one design, not both")
     dev = g.device
     if g.dtype not in _DTYPES:
         raise ValueError(f"pack: the table's cotangent is f32 or bf16, got "
@@ -143,12 +162,14 @@ def pack_corners_backward_cuda(g):
     if volumes == 0:
         return g_sdf
     build()
-    err = _lib.vrt_pack_corners_bwd(g.data_ptr(), g_sdf.data_ptr(), volumes,
+    design = 0 if _old_design else (1 if _tiled else 2)
+    got = _lib.vrt_pack_corners_bwd(g.data_ptr(), g_sdf.data_ptr(), volumes,
                                     c, ch, int(g.dtype == torch.bfloat16),
-                                    _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"pack backward launch failed: cudaError {err}")
+                                    design, _stream(dev))
+    if got < 0:
+        raise RuntimeError(f"pack backward launch failed: cudaError {-got}")
     LAUNCHES["pack_bwd"] += 1
+    BWD_LAUNCHES["tiled" if got == 1 else "first"] += 1
     return g_sdf
 
 

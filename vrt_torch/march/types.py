@@ -93,7 +93,11 @@ class DeviceVolume:
     ``accel_mode`` is 'octree' or 'chebyshev'.
 
     ``accel_u8`` (not a field) is ``accel`` clamped to uint8, the table the
-    march reads; it is derived once, when the volume is constructed.
+    march reads: the init-only ``u8_view`` where it is given (as
+    ``diff.fit.rebuild_accel`` gives the accel kernels' view, or
+    ``graft_params`` the view of the accel it keeps), else derived from
+    ``accel`` when the volume is constructed, ``dataclasses.replace``
+    included.
     """
 
     sdf: torch.Tensor        # f32 [N,N,N]
@@ -104,9 +108,13 @@ class DeviceVolume:
     extends: torch.Tensor    # f32 []
     corners: torch.Tensor    # f32|bf16 [N-1,N-1,N-1,8|9]
     accel_mode: str = "octree"
+    # ``accel``'s u8 view where the caller has it (never kept: a
+    # ``dataclasses.replace`` that does not pass it derives the view anew)
+    u8_view: dataclasses.InitVar[torch.Tensor | None] = None
 
-    def __post_init__(self):
-        self.accel_u8 = _accel_u8(self.accel)
+    def __post_init__(self, u8_view):
+        self.accel_u8 = _accel_u8(self.accel) if u8_view is None \
+            else u8_view
 
     @classmethod
     def from_volume(cls, vol: VoxelVolume, pad_to: int | None = None,

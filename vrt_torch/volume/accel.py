@@ -13,8 +13,11 @@ distance map, packed with the per-cell surface flag:
 
 The host builds them from numpy arrays.  ``cell_corner_signs_differ``,
 ``build_skip_level`` and ``build_accel`` also take tensors of any leading
-shape ([..., N,N,N]): the fit rebuilds the octree accel on the device every
-step (the max-pools are a reshape and ``amax``), bit for bit ``vrt``'s.
+shape ([..., N,N,N]), bit for bit ``vrt``'s: on a CUDA tensor
+``build_accel`` launches the accel kernels (``kernels.accel``: the
+occupancy pyramid and the rebuild), elsewhere it is
+``build_accel_reference`` (the max-pools a reshape and ``amax``), their
+plain version.
 """
 
 from __future__ import annotations
@@ -25,9 +28,12 @@ import torch
 
 def cell_corner_signs_differ(sdf):
     """Per-cell surface flag: the three-valued sign differs among the 8
-    cell corners (an exactly-zero corner differs from both signs)."""
+    cell corners (an exactly-zero corner differs from both signs; a NaN
+    corner, whose sign is NaN as in ``jnp.sign``, differs from every
+    corner)."""
     if isinstance(sdf, torch.Tensor):
-        s = torch.sign(sdf)
+        # torch.sign(nan) is 0; vrt's jnp.sign keeps the NaN
+        s = torch.where(torch.isnan(sdf), sdf, torch.sign(sdf))
         s000 = s[..., :-1, :-1, :-1]
         diff = torch.zeros(s000.shape, dtype=torch.bool, device=s.device)
     else:
@@ -72,7 +78,18 @@ def build_skip_level(has_surface, max_level: int):
 
 def build_accel(sdf, resolution: int):
     """Packed octree accel field: int32 [C,C,C] from a numpy [N,N,N] SDF,
-    or [..., C,C,C] on the device from a tensor [..., N,N,N]."""
+    or [..., C,C,C] on the device from a tensor [..., N,N,N] (on a CUDA
+    tensor the accel kernels, which take C = 2^R only)."""
+    if isinstance(sdf, torch.Tensor) and sdf.device.type == "cuda":
+        from vrt_torch.kernels.accel import build_accel_cuda
+
+        return build_accel_cuda(sdf, resolution)
+    return build_accel_reference(sdf, resolution)
+
+
+def build_accel_reference(sdf, resolution: int):
+    """``build_accel`` in numpy or eager PyTorch on any device: the cell
+    flags, ``build_skip_level``'s max-pools and the pack."""
     has_surface = cell_corner_signs_differ(sdf)
     skip = build_skip_level(has_surface, resolution)
     if isinstance(has_surface, torch.Tensor):
