@@ -10,8 +10,9 @@ Phases, each of which raises on failure:
              gather library (GP-A, GP-B, GP-C), the row gather K3, the fused
              resolve (forward and backward), the four shade kernels K4
              (surface and combine, forward and backward), the corner
-             table's pack and its backward (both designs) and the accel
-             rebuild (the occupancy pyramid and the rebuild) from
+             table's pack and its backward (both designs), the accel
+             rebuild (the occupancy pyramid, both designs, and the
+             rebuild) and the fit step's Adam update from
              ``vrt_torch/csrc/``, one nvcc each, and the import's native
              library (``vrt_torch/native/vrtnative.cpp``) with g++, all in
              parallel, and prints
@@ -19,8 +20,9 @@ Phases, each of which raises on failure:
              side by side, and for the redesigned
              kernels (the capped scene march, the merged surface backward,
              the resident surface and combine kernels, the merged resolve
-             backward, the tiled pack backward) and their first designs
-             and the accel kernels the registers, stack
+             backward, the tiled pack backward, the one-launch pyramid)
+             and their first designs and the accel and Adam kernels the
+             registers, stack
              frames, spills and the warp slots the registers leave filled,
 3. kernels -- every kernel against its plain version on the inputs the
              flagship scene (resolution 7, chebyshev, bf16) and config6 give
@@ -119,18 +121,23 @@ Phases, each of which raises on failure:
              warm-up step, then three timed, with the launches per step (5
              scene marches, 3 fused resolves forward and 3 backward, 3 + 3
              shade kernels forward and 3 + 3 backward, the accel rebuild
-             (``RebuildAccel``: 2 pyramid launches and 1 rebuild, f32 with
-             the accel folded in) and 1 tiled pack backward, no first-design
-             pack, no K3, no per-lane K1), peak device memory and the
-             losses; the rebuild and the pack backward of one step against
-             their plain versions and first designs (``_rebuild_calls``:
-             the pyramid, the accel, its u8 view and the table bit for bit,
+             (``RebuildAccel``: 1 pyramid launch and 1 rebuild, f32 with
+             the accel folded in), 1 pack backward and 1 Adam launch
+             (``Adam.apply`` over both leaves), no first-design pack, no
+             K3, no per-lane K1), peak device memory and the losses; the
+             rebuild and the pack backward of one step against their plain
+             versions and first designs (``_rebuild_calls``: the pyramid
+             against the plain pyramid and its first design in 2 launches,
+             the accel, its u8 view and the table bit for bit,
              the SDF's gradient bit-equal to the first design and within
              ``PACK_GRAD_RTOL`` of the plain version), each timed old, new,
              new, old with its bound, the rebuild also against the eager
              ``build_accel`` + ``_accel_u8`` + the first design's pack;
              ``rebuild_accel`` dispatching no eager op (``REBUILD_OPS``)
-             and launching the pyramid twice and the rebuild once; the
+             and launching the pyramid once and the rebuild once; the
+             step's Adam launch against its plain version (``_adam_held``:
+             bit for bit on every leaf, timed plain, new, new, plain beside
+             ``torch.optim.Adam(fused=True)`` and the bound); the
              step with resolve on
              the plain path over K3, the step with eager shading (the plain
              stages under autograd) and the step on the first designs of the
@@ -255,7 +262,11 @@ Phases, each of which raises on failure:
              1e-2: launches, host median, collectives, busy time, peak
              memory) and one SGD step of it against ``make_fit_step`` on
              one rank (loss and gradient at the ``FIT_*`` gates, the
-             replicas bit-equal).  Last ``python -m vrt_torch.apps.scaling
+             replicas bit-equal).  One Adam launch a step on every rank of
+             the slab, crossed and DP steps, the slab step's on each
+             rank's planes and the crossed step's (with Adam once) held
+             bit for bit against its plain version and timed while the
+             other ranks wait.  Last ``python -m vrt_torch.apps.scaling
              --res 9 --rays 4096 --steps 3 --shards 1 2 4`` in a process of
              its own, its rows and summary printed (S ranks share this one
              card: the efficiencies are one card's).
@@ -275,12 +286,14 @@ Phases, each of which raises on failure:
              its colours above ``COLOR_CORNER_BUDGET_BYTES``, so the f32
              [1,257,257,257,3] grid with no packed view, sampled by the
              surface kernels' unpacked layout; three steps with their
-             launches (the pyramid 3 times, the rebuild and the pack
-             backward once a step, the first design's pack and the colour
+             launches (the pyramid, the rebuild, the pack backward and
+             Adam once a step, the first design's pack and the colour
              repack never) and peak memory; every kernel launch of one
-             step, forward and backward, the rebuild's and the pack
-             backward's among them (``_rebuild_calls``), against its plain
-             version; the step's gradients against the
+             step, forward and backward, the rebuild's, the pack
+             backward's (``_rebuild_calls``) and Adam's (``_adam_held``)
+             among them, against its plain version; one step whose
+             ``Adam.apply`` runs under ``set_sync_debug_mode("error")``
+             (no synchronising call); the step's gradients against the
              same step on the plain stages (``FIT_COS_TOL``; the f32 colour
              grid's at ``FIT_DIFF_TOL``, the SDF's at ``BF16_DIFF_TOL`` for
              the bf16 table's rounding); a profile (busy time) and peak
@@ -381,8 +394,11 @@ SHADE_GRAD_LANE_BUDGET = 0.0
 # and a masked_fill) and _accel_u8 (in graft_params' and rebuild_accel's
 # replace of the volume) replaced by the accel kernels (2 pyramid launches
 # and 1 rebuild in place of the pack), 318 (vrt_torch/apps/probe_step.py,
-# parent and change in turns: 389 and 318 in every profile).  The count
-# follows the
+# parent and change in turns: 389 and 318 in every profile); with Adam's
+# eager passes, its host-to-device copies and 2 pyramid launches replaced
+# by one Adam launch and one pyramid launch, 290 (probe_step.py, parent
+# and change in turns: 318 and 290 in every profile).  The count follows
+# the
 # code, not the data, but for the few ops of a level whose shadows are not
 # traced: a step back on eager shading, or a stage that falls back to eager
 # ops, leaves the range.  Counted by the host's launch calls (``_profile``):
@@ -390,7 +406,10 @@ SHADE_GRAD_LANE_BUDGET = 0.0
 # the start of the trace, while the launch calls held at 452 in 80 profiles
 # (``vrt_torch/apps/probe_profiler.py``)
 FRAME_OPS_MAX = 400
-FIT_STEP_OPS = range(318 - 10, 318 + 10 + 1)
+FIT_STEP_OPS = range(290 - 10, 290 + 10 + 1)
+# f32 operations of the Adam kernel an element (csrc/optim.cu): the two
+# moments (7), the bias corrections, root and quotient (6), p + u (1)
+ADAM_FLOPS = 14
 # the corner pack's backward adds a voxel's at most 8 cotangents in
 # autograd's order: held to PACK_GRAD_RTOL * max|g| of the plain version
 # (the slices' transpose), bit-equality reported
@@ -1801,10 +1820,11 @@ def _shade_bwd_calls(run, expected, tag):
 
 def _rebuild_calls(run, expected, tag):
     """Every accel rebuild (``kernels.accel.rebuild_accel_cuda``: its
-    pyramid launches and its rebuild launch) and every pack backward in
+    pyramid launch and its rebuild launch) and every pack backward in
     ``run()`` (a fit step), kept with its inputs and outputs, then held
     against its plain version on the same inputs: the pyramid's levels
-    against ``occupancy_pyramid_reference`` of the plain flags, the accel,
+    against ``occupancy_pyramid_reference`` of the plain flags and the
+    pyramid against its first design (ceil(R / 3) launches), the accel,
     its u8 view and the table against ``rebuild_accel_reference`` (the eager
     ``build_accel``, ``_accel_u8`` and torch pack) and the table against the
     first design's pack kernel (``pack_corners_cuda``), all bit for bit; the
@@ -1813,7 +1833,8 @@ def _rebuild_calls(run, expected, tag):
     ``PACK_GRAD_RTOL * max|g|`` of ``pack_corners_backward_reference`` (the
     slices' transpose in autograd's order; bit-equality reported).  Timed
     in the order old, new, new, old, each with its bound: the pyramid
-    against the plain pyramid; the rebuild kernel (on the launch's own
+    against its first design (whose first launch is also timed alone), the
+    plain pyramid beside them; the rebuild kernel (on the launch's own
     pyramid) against the first design's pack kernel; the whole rebuild
     (pyramid and rebuild) against the eager ``build_accel`` + ``_accel_u8``
     + the first design's pack, what a step ran before; the backward the
@@ -1824,8 +1845,8 @@ def _rebuild_calls(run, expected, tag):
     copied once: ``library_ms``).  Fails unless each ran ``expected``
     times.  Returns {"pyramid" | "rebuild" | "pack" | "pack_bwd" | "whole":
     dict(launches, max_abs_err, bit_equal, ms, plain_ms, old_ms,
-    library_ms, tiled_ms, bound, shape)}, "pack_bwd" with ``designs``, the
-    step's launches by the design that ran."""
+    library_ms, tiled_ms, first_launch_ms, bound, shape)}, "pack_bwd" with
+    ``designs``, the step's launches by the design that ran."""
     import torch
 
     from vrt_torch.kernels import accel as ka
@@ -1848,8 +1869,8 @@ def _rebuild_calls(run, expected, tag):
                              f"pack backward {len(bwd)} times, expected "
                              f"{expected} each")
     boxes = {k: dict(ms=[], plain_ms=[], old_ms=[], library_ms=[],
-                     tiled_ms=[], bounds=[], launches=0, bit=True, err=0.0,
-                     shape=None)
+                     tiled_ms=[], first_launch_ms=[], bounds=[], launches=0,
+                     bit=True, err=0.0, shape=None)
              for k in ("pyramid", "rebuild", "pack", "pack_bwd", "whole")}
 
     def timed(box, old, new, plain=None, library=None, old_is_plain=False):
@@ -1887,16 +1908,29 @@ def _rebuild_calls(run, expected, tag):
                 torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"{tag}: the accel pyramid differs from "
                                  f"the plain pyramid")
+        if not torch.equal(pyramid, ka.accel_pyramid_cuda(
+                sdf, levels, _old_design=True)):
+            raise AssertionError(f"{tag}: the one-launch pyramid differs "
+                                 f"from its first design")
         del want, got
-        box["launches"] += -(-levels // 3)
+        box["launches"] += 1
         box["shape"] = f"{levels} levels over {tuple(sdf.shape)}"
         nbytes = sdf.numel() * 4 + pyramid.numel()
         box["bounds"].append(_bound(nbytes, 0))
         olds, news = timed(
-            box, lambda: ka.occupancy_pyramid_reference(
-                cell_corner_signs_differ(sdf), levels),
-            lambda: ka.accel_pyramid_cuda(sdf, levels), old_is_plain=True)
-        line("accel pyramid", box, olds, news, "plain", nbytes)
+            box, lambda: ka.accel_pyramid_cuda(sdf, levels, _old_design=True),
+            lambda: ka.accel_pyramid_cuda(sdf, levels),
+            lambda: ka.occupancy_pyramid_reference(
+                cell_corner_signs_differ(sdf), levels))
+        # the first design's time by launch: its first (levels 1..3 from the
+        # SDF) alone, the others as the rest
+        first = device_ms(lambda: ka.accel_pyramid_cuda(
+            sdf, min(levels, 3), _old_design=True), 10)
+        box["first_launch_ms"].append(first)
+        line("accel pyramid, one launch (old: the first design in "
+             f"{-(-levels // 3)} launches, its first {first:.4f} ms, the "
+             f"others {sum(olds) / 2 - first:.4f} ms)", box, olds, news,
+             "first design", nbytes)
         # the rebuild kernel, against the plain rebuild and the first
         # design's pack
         box = boxes["rebuild"]
@@ -2022,10 +2056,91 @@ def _rebuild_calls(run, expected, tag):
             library_ms=(sum(box["library_ms"]) if box["library_ms"]
                         else None),
             tiled_ms=sum(box["tiled_ms"]) if box["tiled_ms"] else None,
+            first_launch_ms=(sum(box["first_launch_ms"])
+                             if box["first_launch_ms"] else None),
             bound=_sum_bounds(box["bounds"]), shape=box["shape"])
     out["pack_bwd"]["designs"] = designs
     torch.cuda.empty_cache()
     return out
+
+
+def _adam_held(calls, tag, reps=10):
+    """Every Adam kernel call of ``calls`` (``kernels.optim.adam_step_cuda``
+    recorded as (args, kwargs, outputs)) held against its plain version
+    (``adam_step_reference``, the eager arithmetic) on the same inputs, bit
+    for bit on every leaf (p + u or u, mu', nu'); then timed in the order
+    plain, kernel, kernel, plain, beside the library's fused Adam step
+    (``torch.optim.Adam(fused=True).step()`` on clones of the same leaves
+    with the same gradients: one PyTorch call computing the same function
+    in its own rounding order, a yardstick the port never calls) and the
+    bound (per element p, g, mu, nu read and p, mu, nu written, 28 B, or 24
+    B for the update variant; ``ADAM_FLOPS`` f32 operations).  Returns
+    dict(launches, bit_equal, max_abs_err, ms, plain_ms, old_ms, library_ms,
+    bound, shape, elements)."""
+    import torch
+
+    from vrt_torch.kernels import optim as ko
+    from vrt_torch.kernels._timing import device_ms
+
+    box = dict(launches=0, bit_equal=True, max_abs_err=0.0, ms=0.0,
+               plain_ms=0.0, old_ms=0.0, library_ms=0.0, bounds=[],
+               shape=None, elements=0)
+    for args, kwargs, got in calls:
+        params, grads, mu, nu, c1, c2, b1, b2, lr, eps = args[:10]
+        apply = args[10] if len(args) > 10 else kwargs.get("apply", True)
+        want = ko.adam_step_reference(params, grads, mu, nu, c1, c2, b1, b2,
+                                      lr, eps, apply)
+        for a, b in zip(got, want):
+            for k in grads:
+                err = (a[k] - b[k]).abs().max().item() if a[k].numel() else 0
+                box["max_abs_err"] = max(box["max_abs_err"], err)
+                if not torch.equal(a[k], b[k]):
+                    raise AssertionError(f"{tag}: the Adam kernel differs "
+                                         f"from its plain version on leaf "
+                                         f"{k!r} by {err:.3e}")
+        del want
+        n = sum(g.numel() for g in grads.values())
+        box["elements"] += n
+        box["launches"] += 1
+        box["shape"] = ", ".join(f"{k or 'planes'} {tuple(g.shape)}"
+                                 for k, g in grads.items())
+        b = _bound(n * (28 if apply else 24), n * ADAM_FLOPS)
+        box["bounds"].append(b)
+
+        def kernel():
+            return ko.adam_step_cuda(params, grads, mu, nu, c1, c2, b1, b2,
+                                     lr, eps, apply)
+
+        def plain():
+            return ko.adam_step_reference(params, grads, mu, nu, c1, c2, b1,
+                                          b2, lr, eps, apply)
+
+        olds, news = _paired_ms(plain, kernel, reps)
+        box["ms"] += sum(news) / 2
+        box["plain_ms"] += sum(olds) / 2
+        leaves = [(params[k] if apply else mu[k]).clone().requires_grad_(True)
+                  for k in grads]
+        for leaf, k in zip(leaves, grads):
+            leaf.grad = grads[k]
+        lib = torch.optim.Adam(leaves, lr=lr, betas=(b1, b2), eps=eps,
+                               fused=True)
+        lib.step()
+        library = device_ms(lib.step, reps)
+        box["library_ms"] += library
+        del lib, leaves
+        print(f"Adam kernel [{tag}]: {box['shape']} ({n} elements, "
+              f"{'p + u' if apply else 'u'}), bit-equal to the plain "
+              f"version; plain, new, new, plain "
+              f"{', '.join(f'{t:.4f}' for t in (olds[0], news[0], news[1], olds[1]))}"
+              f" ms; torch.optim.Adam(fused=True).step() {library:.4f} ms "
+              f"(not bit-equal: its own rounding order); bound "
+              f"{b['bound_ms']:.4f} ms ({b['bytes']} B) = "
+              f"{b['bound_ms'] / (sum(news) / 2):.0%} of the kernel",
+              flush=True)
+    box["old_ms"] = box["plain_ms"]
+    box["bound"] = _sum_bounds(box.pop("bounds"))
+    torch.cuda.empty_cache()
+    return box
 
 
 def _rebuild_ops(scene):
@@ -3029,6 +3144,7 @@ def _hits_equal(a, b):
 def _rank_counts():
     from vrt_torch.dist import mesh
     from vrt_torch.kernels import march as k1
+    from vrt_torch.kernels import optim as ko
     from vrt_torch.kernels import resolve as kr
     from vrt_torch.kernels import rows as k3
     from vrt_torch.kernels import shade as k4
@@ -3044,6 +3160,7 @@ def _rank_counts():
                 combine_bwd=k4.LAUNCHES["combine_bwd"],
                 gather=k3.LAUNCHES["K3 gather"],
                 scatter=k3.LAUNCHES["K3 scatter"],
+                adam=ko.LAUNCHES["apply"], adam_update=ko.LAUNCHES["update"],
                 collectives={k: v for k, v in mesh.STATS.items()
                              if k != "seconds"})
 
@@ -3051,11 +3168,13 @@ def _rank_counts():
 def _rank_zero_counts():
     from vrt_torch.dist import mesh
     from vrt_torch.kernels import march as k1
+    from vrt_torch.kernels import optim as ko
     from vrt_torch.kernels import resolve as kr
     from vrt_torch.kernels import rows as k3
     from vrt_torch.kernels import shade as k4
 
     k1.SLAB_LAUNCHES = k1.LAUNCHES = k1.SCENE_LAUNCHES = 0
+    _reset(ko.LAUNCHES)
     _reset(k3.LAUNCHES)
     _reset(kr.SLAB_LAUNCHES)
     _reset(kr.LAUNCHES)
@@ -3701,6 +3820,10 @@ class _RecordingOptimizer:
         self.grads = grads
         return self.inner.update(grads, state, params)
 
+    def apply(self, params, grads, state):
+        self.grads = grads
+        return self.inner.apply(params, grads, state)
+
 
 def _grad_gates(got, want):
     """(1 - cosine, largest difference / largest |want|) of two gradients
@@ -3810,6 +3933,7 @@ def _slabfit_rank(rank, world, td, geometry, geometry7):
                                             make_slab_fit_step,
                                             make_slab_fit_step_crossed)
     from vrt_torch.kernels import march as k1
+    from vrt_torch.kernels import optim as ko
     from vrt_torch.kernels import resolve as kr
     from vrt_torch.kernels import shade as k4
     from vrt_torch.kernels._timing import device_ms
@@ -3820,7 +3944,7 @@ def _slabfit_rank(rank, world, td, geometry, geometry7):
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    for build in (k1.build, kr.build, k4.build):
+    for build in (k1.build, kr.build, k4.build, ko.build):
         build()                               # built by the parent: loads
     m = mesh.make_render_mesh(1, world, "cuda")
     group = mesh.axis_group(m, mesh.MODEL_AXIS)[0]
@@ -3969,6 +4093,19 @@ def _slabfit_rank(rank, world, td, geometry, geometry7):
     del fwds, bwds
     torch.cuda.empty_cache()
 
+    # the step's Adam launch on this rank's planes against its plain
+    # version, timed while the other ranks wait
+    with _recording(ko, "adam_step_cuda") as adam_calls:
+        one()
+    torch.cuda.synchronize()
+    if len(adam_calls) != 1:
+        raise AssertionError(f"slab fit rank {rank}: {len(adam_calls)} Adam "
+                             f"launches a step")
+    out["adam"] = _one_at_a_time(
+        lambda: _adam_held(adam_calls, f"slab fit rank {rank}, the planes"))
+    del adam_calls
+    torch.cuda.empty_cache()
+
     # the step's plane gradients against the same step on the plain
     # slab resolve (autograd of resolve_slab_hits on the card)
     pixels = float(targets.numel() * world)
@@ -4031,6 +4168,21 @@ def _slabfit_rank(rank, world, td, geometry, geometry7):
                           gates=_grad_gates(res7["crossed"][1],
                                             res7["single"][1]),
                           model=model)
+    # the crossed step with Adam: one Adam launch a rank on the model
+    # rank's planes, held against its plain version
+    rows = SLABFIT_RAYS // total
+    sel = slice(flat * rows, (flat + 1) * rows)
+    opt7 = adam(SLABFIT_LR)
+    before = ko.LAUNCHES["apply"]
+    with _recording(ko, "adam_step_cuda") as adam7:
+        make_slab_fit_step_crossed(m2, opt7, scene7)(
+            sl7.sdf.clone(), opt7.init(sl7.sdf), sl7, o[sel].contiguous(),
+            d[sel].contiguous(),
+            torch.full((rows, 3), SLABFIT_TARGET, device=dev))
+    torch.cuda.synchronize()
+    out["crossed"]["adam_launches"] = ko.LAUNCHES["apply"] - before
+    out["crossed"]["adam"] = _one_at_a_time(
+        lambda: _adam_held(adam7, f"crossed step rank {rank}", reps=3))
     return out
 
 
@@ -4050,6 +4202,7 @@ def _dp_rank(rank, world):
     from vrt_torch.dist import mesh
     from vrt_torch.dist.sharding import make_fit_step_dp
     from vrt_torch.kernels import march as k1
+    from vrt_torch.kernels import optim as ko
     from vrt_torch.kernels import resolve as kr
     from vrt_torch.kernels import shade as k4
     from vrt_torch.render.camera import camera_rays
@@ -4058,7 +4211,7 @@ def _dp_rank(rank, world):
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    for build in (k1.build, kr.build, k4.build):
+    for build in (k1.build, kr.build, k4.build, ko.build):
         build()
     scene = flagship_scene(6, use_colors=True, device=dev)
     params0 = {"sdf": scene.volumes.sdf, "voxel_colors": scene.voxel_colors}
@@ -4141,12 +4294,14 @@ def _slabfit(dev, card, sync, td, geometry):
     want_c = dict(k7=2 * steps, k1=0, scene=0, resolve=steps,
                   slab_resolve=steps, resolve_bwd=steps,
                   slab_resolve_bwd=steps, surface=steps, combine=steps,
-                  surface_bwd=steps, combine_bwd=steps, gather=0, scatter=0)
+                  surface_bwd=steps, combine_bwd=steps, gather=0, scatter=0,
+                  adam=steps, adam_update=0)
     per_rank = {"step_ms": [], "old_step_ms": [], "collective_share": [],
                 "peak_gb": [], "old_peak_gb": [], "busy_ms": [],
                 "old_busy_ms": [], "bwd_ms": [], "bwd_old_ms": [],
                 "pack_ms": [], "pack_bwd_ms": [], "bwd_plain_ms": []}
     bwd_bounds, bwd_err, ray_err = [], 0.0, 0.0
+    adam_held = []              # each rank's Adam launch on its planes
     slab_launches = {}          # the first step on the planes, every rank
     for r, x in enumerate(ranks):
         by = {"planes": [], "packed": []}
@@ -4248,6 +4403,7 @@ def _slabfit(dev, card, sync, td, geometry):
         bwd_err = max(bwd_err, b["table_err_autograd"],
                       b["table_err_closed_form_f64"])
         ray_err = max(ray_err, b["ray_err"])
+        adam_held.append(x["adam"])
 
     # the 12x12 step against vrt's (the fixture)
     with np.load(SLAB_FIT_FIXTURE) as f:
@@ -4282,6 +4438,24 @@ def _slabfit(dev, card, sync, td, geometry):
             and all(abs(c["loss"] - c["single_loss"])
                     <= FIT_LOSS_RTOL * abs(c["single_loss"]) for c in cr)):
         raise AssertionError("the crossed step disagrees with the 1x2 step")
+    print(f"crossed 2x2 step with Adam: Adam launches by rank "
+          f"{[c['adam_launches'] for c in cr]}, each bit-equal to its plain "
+          f"version, {_list([c['adam']['ms'] for c in cr])} ms", flush=True)
+    if any(c["adam_launches"] != 1 or c["adam"]["launches"] != 1
+           for c in cr):
+        raise AssertionError("the crossed step did not launch the Adam "
+                             "kernel once a rank")
+    adam_numbers = dict(
+        ms=sum(a["ms"] for a in adam_held),
+        per_rank_ms=[a["ms"] for a in adam_held],
+        plain_ms=sum(a["plain_ms"] for a in adam_held),
+        library_ms=sum(a["library_ms"] for a in adam_held),
+        bound=_sum_bounds([a["bound"] for a in adam_held]),
+        max_abs_err=max(a["max_abs_err"] for a in adam_held + [
+            c["adam"] for c in cr]),
+        shape=adam_held[0]["shape"],
+        crossed_ms=[c["adam"]["ms"] for c in cr],
+        crossed_launches=sum(c["adam_launches"] for c in cr))
     del ranks
 
     # config6's DP step: make_fit_step on one rank (SGD at 1e-2) first
@@ -4304,7 +4478,7 @@ def _slabfit(dev, card, sync, td, geometry):
                    slab_resolve=0, resolve_bwd=3 * levels, slab_resolve_bwd=0,
                    surface=3 * levels, combine=3 * levels,
                    surface_bwd=3 * levels, combine_bwd=3 * levels, gather=0,
-                   scatter=0)
+                   scatter=0, adam=3, adam_update=0)
     dp_launches = {}
     for r, x in enumerate(dp):
         seen = {k: x["counts"][k] for k in want_dp}
@@ -4388,7 +4562,7 @@ def _slabfit(dev, card, sync, td, geometry):
                           params_equal=same_dp),
         scaling=dict(rows=rows, summary=summary, seconds=scaling_s))
     return dict(numbers=numbers, dp_launches=dp_launches,
-                launches=slab_launches,
+                launches=slab_launches, adam=adam_numbers,
                 bwd=dict(ms=sum(per_rank["bwd_ms"]),
                          per_rank_ms=per_rank["bwd_ms"],
                          old_ms=sum(per_rank["bwd_old_ms"]),
@@ -4587,6 +4761,7 @@ def _config4(dev, card, sync, zero_counts, counts):
                                     rebuild_accel, render_views)
     from vrt_torch.diff.optim import adam
     from vrt_torch.kernels import accel as ka
+    from vrt_torch.kernels import optim as ko
     from vrt_torch.kernels import pack as kp
     from vrt_torch.kernels._timing import device_ms
     from vrt_torch.march.types import _accel_u8
@@ -4639,13 +4814,16 @@ def _config4(dev, card, sync, zero_counts, counts):
     c4_counts = counts()
     c4_packs = dict(kp.LAUNCHES)
     c4_accel = dict(ka.LAUNCHES)
+    c4_adam = dict(ko.LAUNCHES)
     if repacks[0] != 0 or c4_packs != dict(pack=0, pack_bwd=3) or \
-            c4_accel != dict(pyramid=9, rebuild=3):
+            c4_accel != dict(pyramid=3, rebuild=3) or \
+            c4_adam != dict(apply=3, update=0):
         raise AssertionError(f"3 config4 steps: {repacks[0]} colour "
                              f"repacks (expected 0), corner packs "
                              f"{c4_packs} (expected 0 and 3 backward), "
-                             f"accel {c4_accel} (expected the pyramid 9: "
-                             f"8 levels in 3 launches, the rebuild 3)")
+                             f"accel {c4_accel} (expected the pyramid 3: "
+                             f"8 levels in 1 launch, the rebuild 3), Adam "
+                             f"{c4_adam} (expected 3)")
     levels, traces = _resolves(scene), _traces(scene)
     want = dict(k1=0, scene=3 * views * traces, resolve=3 * views * levels,
                 resolve_bwd=3 * views * levels, gather=0, scatter=0,
@@ -4670,10 +4848,11 @@ def _config4(dev, card, sync, zero_counts, counts):
           f"{c4_counts['resolve'] // 3} fused resolves and their "
           f"backwards, {c4_counts['surface'] // 3} shade surface and "
           f"combine launches and their backwards, "
-          f"{c4_accel['pyramid'] // 3} accel pyramid launches, "
-          f"{c4_accel['rebuild'] // 3} accel rebuild and "
+          f"{c4_accel['pyramid'] // 3} accel pyramid launch, "
+          f"{c4_accel['rebuild'] // 3} accel rebuild, "
           f"{c4_packs['pack_bwd'] // 3} pack backward (by design in 3 "
-          f"steps {dict(kp.BWD_LAUNCHES)}), 0 colour repacks; "
+          f"steps {dict(kp.BWD_LAUNCHES)}) and {c4_adam['apply'] // 3} "
+          f"Adam launch, 0 colour repacks; "
           f"entries moved "
           f"{', '.join(f'{k} {v:.2%}' for k, v in moved.items())}",
           flush=True)
@@ -4692,6 +4871,50 @@ def _config4(dev, card, sync, zero_counts, counts):
     held["shade_bwd"] = _shade_bwd_calls(one_step, views * levels, tag)
     rows = _kernel_rows(held, f"config4 on {card}")
     held["pack"] = _rebuild_calls(one_step, 1, tag)
+    with _recording(ko, "adam_step_cuda") as adam_calls:
+        one_step()
+    if len(adam_calls) != 1:
+        raise AssertionError(f"a config4 step called the Adam kernel "
+                             f"{len(adam_calls)} times")
+    held["adam"] = _adam_held(adam_calls, tag)
+    del adam_calls
+
+    # the optimizer region waits on the card nowhere: a step whose
+    # Adam.apply runs under set_sync_debug_mode("error"), where a
+    # synchronising call raises; beside it, whether the mode catches the
+    # host-to-device copy of a Python scalar that Adam made twice a step
+    # before (``torch.tensor(b, device=...)``)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.tensor(opt.b1, device=dev)
+        caught = False
+    except RuntimeError:
+        caught = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    apply = opt.apply
+
+    def apply_no_sync(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return apply(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    opt.apply = apply_no_sync
+    before = dict(ko.LAUNCHES)
+    try:
+        one_step()
+        sync()
+    finally:
+        del opt.apply
+    if ko.LAUNCHES["apply"] - before["apply"] != 1:
+        raise AssertionError("the step under the sync check launched no "
+                             "Adam kernel")
+    print(f"config4 step on {card}: Adam.apply ran under "
+          f"set_sync_debug_mode('error') without a synchronising call; the "
+          f"mode {'raised' if caught else 'did not raise'} on the former "
+          f"torch.tensor(b1, device=...)", flush=True)
 
     # the step's gradients on the kernels against the plain stages
     def loss_fn(p):
@@ -4737,7 +4960,7 @@ def _config4(dev, card, sync, zero_counts, counts):
     torch.cuda.empty_cache()
     whole, pack_bwd = held["pack"]["whole"], held["pack"]["pack_bwd"]
     kernels_ms = sum(r["ms"] for r in rows.values()) + whole["ms"] \
-        + pack_bwd["ms"]
+        + pack_bwd["ms"] + held["adam"]["ms"]
     busy = None if prof is None else prof["busy_ms"]
     print(f"config4 step's device time on {card}: busy "
           f"{'not measured' if busy is None else f'{busy:.2f} ms'}, peak "
@@ -4751,23 +4974,29 @@ def _config4(dev, card, sync, zero_counts, counts):
           f"first design's pack {whole['old_ms']:.3f} ms) and the pack "
           f"backward {pack_bwd['ms']:.4f} ms (first design "
           f"{pack_bwd['old_ms']:.4f} ms, autograd of the torch pack "
-          f"{pack_bwd['plain_ms']:.3f} ms); the hand-written kernels "
-          f"{kernels_ms:.3f} ms", flush=True)
+          f"{pack_bwd['plain_ms']:.3f} ms), Adam {held['adam']['ms']:.4f} "
+          f"ms (eager {held['adam']['plain_ms']:.3f} ms); the hand-written "
+          f"kernels {kernels_ms:.3f} ms"
+          + ("" if busy is None else
+             f" = {kernels_ms / busy:.0%} of the busy time ("
+             f"{busy - kernels_ms:.2f} ms outside them)"), flush=True)
     numbers = dict(step_ms=median, runs_ms=[r * 1e3 for r in runs],
                    peak_gib=peak / 2**30, losses=losses,
                    launches_per_step={
                        **{k: v // 3 for k, v in c4_counts.items() if v},
                        **{k: v // 3 for k, v in c4_packs.items()},
                        **{f"accel {k}": v // 3 for k, v in c4_accel.items()},
+                       **{f"Adam {k}": v // 3 for k, v in c4_adam.items()},
                        "colour_repack": repacks[0] // 3},
                    corner_table_mb=table_mb, colour_grid_mb=colour_mb,
                    build_s=build_s, busy_ms=busy,
                    device_ops=None if prof is None else prof["device_ops"],
                    pieces_ms=pieces, kernels_ms=kernels_ms, vs_plain=gates,
+                   sync_check_catches_scalar_copy=caught,
                    capped=held["scene"]["capped"],
                    simt_flat=held["scene"]["simt_flat"])
-    return dict(counts=c4_counts, packs=c4_packs, accel=c4_accel, held=held,
-                numbers=numbers)
+    return dict(counts=c4_counts, packs=c4_packs, accel=c4_accel,
+                adam=c4_adam, held=held, numbers=numbers)
 
 
 def _list(ms):
@@ -4789,6 +5018,7 @@ def main():
     from vrt_torch.kernels import accel as ka
     from vrt_torch.kernels import gather as gk
     from vrt_torch.kernels import march as k1
+    from vrt_torch.kernels import optim as ko
     from vrt_torch.kernels import pack as kp
     from vrt_torch.kernels import resolve as kr
     from vrt_torch.kernels import rows as k3
@@ -4835,7 +5065,8 @@ def main():
                 "corner pack and its backward (pack.cu)":
                 pool.submit(kp.build),
                 "accel pyramid and rebuild (accel.cu)":
-                pool.submit(ka.build)}
+                pool.submit(ka.build),
+                "Adam update (optim.cu)": pool.submit(ko.build)}
         gxx = pool.submit(native.build)
         logs = {name: f.result() for name, f in logs.items()}
         gxx_s = gxx.result()
@@ -4884,11 +5115,15 @@ def main():
             ("corner pack (pack.cu)", "corner pack and its backward "
              "(pack.cu)", "pack_bwd_tiled_kernel", 256),
             ("accel (accel.cu)", "accel pyramid and rebuild (accel.cu)",
+             "pyramid_one_kernel", 256),
+            ("accel (accel.cu)", "accel pyramid and rebuild (accel.cu)",
              "pyramid_cells_kernel", 256),
             ("accel (accel.cu)", "accel pyramid and rebuild (accel.cu)",
              "pyramid_kernel", 256),
             ("accel (accel.cu)", "accel pyramid and rebuild (accel.cu)",
-             "rebuild_kernel", 256)):
+             "rebuild_kernel", 256),
+            ("Adam (optim.cu)", "Adam update (optim.cu)", "adam_kernel",
+             256)):
         got = ptxas_usage(logs[log], kernel)
         if got is None:
             print(f"ptxas, {name} {kernel}: not in the log (the library was "
@@ -5122,6 +5357,7 @@ def main():
         _reset(kp.LAUNCHES)
         _reset(kp.BWD_LAUNCHES)
         _reset(ka.LAUNCHES)
+        _reset(ko.LAUNCHES)
 
     def counts():
         return dict(k1=k1.LAUNCHES, scene=k1.SCENE_LAUNCHES,
@@ -5372,6 +5608,7 @@ def main():
     fit_packs = dict(kp.LAUNCHES)
     fit_bwd_designs = dict(kp.BWD_LAUNCHES)
     fit_accel = dict(ka.LAUNCHES)
+    fit_adam = dict(ko.LAUNCHES)
     step_s = statistics.median(runs)
     n_rays = len(FIT_CAMS) * FRAME_W * FRAME_H
     print(f"config6 fit step 1920x1080 on {card}: median "
@@ -5399,20 +5636,23 @@ def main():
         raise AssertionError(f"launches in 3 fit steps {fit_counts}, "
                              f"expected {want}")
     # rebuild_accel rebuilds the accel and packs the 9-channel f32 table
-    # once a step: the pyramid in 2 launches (6 levels), the rebuild in 1,
+    # once a step: the pyramid in 1 launch (6 levels), the rebuild in 1,
     # the pack backward in 1 (on the card's first design here, where the
     # tiled kernel's grid is less than a wave); the first design's pack
-    # never
+    # never; Adam.apply one Adam launch over both leaves
     if fit_packs != dict(pack=0, pack_bwd=3) or \
-            fit_accel != dict(pyramid=6, rebuild=3):
-        raise AssertionError(f"accel and pack launches in 3 fit steps "
-                             f"{fit_accel}, {fit_packs}, expected the "
-                             f"pyramid 6, the rebuild 3, the pack backward "
-                             f"3, the first design's pack 0")
+            fit_accel != dict(pyramid=3, rebuild=3) or \
+            fit_adam != dict(apply=3, update=0):
+        raise AssertionError(f"accel, pack and Adam launches in 3 fit steps "
+                             f"{fit_accel}, {fit_packs}, {fit_adam}, "
+                             f"expected the pyramid 3, the rebuild 3, the "
+                             f"pack backward 3, the first design's pack 0, "
+                             f"Adam 3")
     print(f"config6 fit steps: accel pyramid {fit_accel['pyramid'] / 3:g}, "
-          f"rebuild {fit_accel['rebuild'] / 3:g} and pack backward "
-          f"{fit_packs['pack_bwd'] / 3:g} launches a step (by design in 3 "
-          f"steps {fit_bwd_designs})", flush=True)
+          f"rebuild {fit_accel['rebuild'] / 3:g}, pack backward "
+          f"{fit_packs['pack_bwd'] / 3:g} (by design in 3 steps "
+          f"{fit_bwd_designs}) and Adam {fit_adam['apply'] / 3:g} launches "
+          f"a step", flush=True)
     for stage in ("surface", "combine"):
         if fit_paths[f"{stage} v4"] + fit_paths[f"{stage} scalar"] != \
                 fit_counts[stage]:
@@ -5436,8 +5676,16 @@ def main():
         return step(params, state, targets)[2]
 
     # the accel rebuild and the pack backward of one step against their
-    # plain versions and first designs, timed beside them
+    # plain versions and first designs, timed beside them; the step's Adam
+    # launch against its plain version
     fit_pack = _rebuild_calls(one_step, 1, "config6 fit step")
+    with _recording(ko, "adam_step_cuda") as adam_calls:
+        one_step()
+    if len(adam_calls) != 1:
+        raise AssertionError(f"a config6 fit step called the Adam kernel "
+                             f"{len(adam_calls)} times")
+    fit_adam_held = _adam_held(adam_calls, "config6 fit step")
+    del adam_calls
     # rebuild_accel on the card dispatches no eager op of build_accel or
     # _accel_u8: RebuildAccel's allocations, then its kernels
     from vrt_torch.diff.fit import graft_params
@@ -5446,10 +5694,10 @@ def main():
     eager = sorted({op for op in ops if op not in REBUILD_OPS})
     print(f"config6 rebuild_accel on {card}: aten ops {ops}, launches "
           f"{launched}", flush=True)
-    if eager or launched != dict(pyramid=2, rebuild=1):
+    if eager or launched != dict(pyramid=1, rebuild=1):
         raise AssertionError(f"rebuild_accel dispatched eager ops {eager} "
                              f"and launched {launched}, expected none and "
-                             f"the pyramid 2, the rebuild 1")
+                             f"the pyramid 1, the rebuild 1")
 
     def old_step():
         with _plain_resolve_path():
@@ -6094,6 +6342,12 @@ def main():
                   if key == "pack_bwd" else {}),
                **bound_keys(fit_pack[key]["bound"])},
            "ptxas": ptxas.get(kernel),
+           # the pyramid's first design timed by launch: its first alone
+           **({"old_first_launch_ms": {
+               "config4_fit_step": c4["held"]["pack"][key]["first_launch_ms"],
+               "config6_fit_step": fit_pack[key]["first_launch_ms"]},
+               "plain": "the plain pyramid (max-pools of the plain flags)"}
+              if key == "pyramid" else {}),
            # the pyramid and the rebuild as one function, against what a
            # step ran before (eager build_accel and _accel_u8, the first
            # design's pack), old, new, new, old
@@ -6108,13 +6362,15 @@ def main():
           for name, key, source, kernel, launches, by_path, old, path,
           replaces in (
               ("accel pyramid", "pyramid", "vrt_torch/csrc/accel.cu",
-               "pyramid_cells_kernel",
+               "pyramid_one_kernel",
                fit_accel["pyramid"] + c4["accel"]["pyramid"],
                (fit_accel["pyramid"], c4["accel"]["pyramid"]),
-               "the plain pyramid (max-pools of the plain flags)",
+               "its first design (pyramid_cells_kernel, pyramid_kernel: "
+               "ceil(R / 3) launches)",
                "diff/fit.py::rebuild_accel -> kernels/accel.py::"
-               "RebuildAccel: ceil(R / 3) launches a fit step (config6 2, "
-               "config4 3); volume/accel.py::build_accel on CUDA tensors",
+               "RebuildAccel: one launch a fit step (the first design: "
+               "config6 2, config4 3); volume/accel.py::build_accel on CUDA "
+               "tensors",
                "vrt/volume/accel.py:41-92 (cell_corner_signs_differ and "
                "build_skip_level's max-pools under build_accel, "
                "vrt/diff/fit.py:77 rebuild_accel: XLA-fused jnp, no Pallas "
@@ -6154,6 +6410,50 @@ def main():
                "vrt/march/types.py:25 (XLA's transpose of "
                "pack_cell_corners' slices under jax.value_and_grad of the "
                "fit step: no Pallas kernel)"))),
+        {"name": "Adam update", "route": "cuda",
+         "source": "vrt_torch/csrc/optim.cu",
+         "replaces": "vrt/diff/fit.py:168-169 and :217-226 "
+                     "(optimizer.update, optax's scale_by_adam and "
+                     "scale(-lr), and optax.apply_updates inside the jitted "
+                     "fit steps, XLA-fused elementwise: no Pallas kernel)",
+         "path": "diff/optim.py::Adam.apply (Adam.update: the variant that "
+                 "writes u) on CUDA tensors: one launch a fit step over its "
+                 "leaves in make_fit_step, make_fit_step_view, the DP step "
+                 "and both slab steps",
+         "launches": fit_adam["apply"] + c4["adam"]["apply"]
+         + sf["launches"]["adam"] + sf["dp_launches"]["adam"]
+         + sf["adam"]["crossed_launches"],
+         "launches_by_path": {"fit_steps": fit_adam["apply"],
+                              "config4_fit_steps": c4["adam"]["apply"],
+                              "slab_fit_steps": sf["launches"]["adam"],
+                              "dp_fit_steps": sf["dp_launches"]["adam"],
+                              "crossed_slab_fit_step":
+                              sf["adam"]["crossed_launches"]},
+         "max_abs_err": max(c4["held"]["adam"]["max_abs_err"],
+                            fit_adam_held["max_abs_err"],
+                            sf["adam"]["max_abs_err"]),
+         "bit_equal_to_plain": True,
+         # config4's launch, timed plain, new, new, plain
+         "ms": c4["held"]["adam"]["ms"],
+         "plain_ms": c4["held"]["adam"]["plain_ms"],
+         "old_ms": c4["held"]["adam"]["plain_ms"],
+         "old": "its plain version (the eager arithmetic)",
+         **bound_keys(c4["held"]["adam"]["bound"]),
+         "library_ms": c4["held"]["adam"]["library_ms"],
+         "library": "torch.optim.Adam(fused=True).step(), not bit-equal",
+         "shape": c4["held"]["adam"]["shape"],
+         "config6_fit_step": {"ms": fit_adam_held["ms"],
+                              "plain_ms": fit_adam_held["plain_ms"],
+                              "library_ms": fit_adam_held["library_ms"],
+                              "shape": fit_adam_held["shape"],
+                              **bound_keys(fit_adam_held["bound"])},
+         "slab_fit_step_planes": {"ms": sf["adam"]["ms"],
+                                  "per_rank_ms": sf["adam"]["per_rank_ms"],
+                                  "plain_ms": sf["adam"]["plain_ms"],
+                                  "library_ms": sf["adam"]["library_ms"],
+                                  "shape": sf["adam"]["shape"],
+                                  **bound_keys(sf["adam"]["bound"])},
+         "ptxas": ptxas.get("adam_kernel")},
         {"name": "K3 gather", "route": "cuda",
          "source": "vrt_torch/csrc/rows.cu",
          "replaces": "vrt/march/isosurface.py:181 (take_rows, an XLA "

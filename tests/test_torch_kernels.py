@@ -1732,7 +1732,8 @@ def _table_equal(got, want):
                                  (2, 65), (1, 129), (1, 257)])
 def test_accel_pyramid_matches_plain_on_card(v, n, special):
     """The pyramid kernel's levels against the plain pyramid of the plain
-    flags, at every level count; ceil(levels / 3) launches."""
+    flags, at every level count, on both designs: one launch (the default)
+    and the first design's ceil(levels / 3)."""
     from vrt_torch.kernels import accel as ka
     from vrt_torch.volume.accel import cell_corner_signs_differ
 
@@ -1742,15 +1743,46 @@ def test_accel_pyramid_matches_plain_on_card(v, n, special):
     r = c.bit_length() - 1
     flag = cell_corner_signs_differ(sdf)
     for levels in sorted({1, min(3, r), min(4, r), r}):
-        before = ka.LAUNCHES["pyramid"]
-        got = ka.pyramid_levels(ka.accel_pyramid_cuda(sdf, levels), (v,), c,
-                                levels)
-        torch.cuda.synchronize()
-        assert ka.LAUNCHES["pyramid"] - before == -(-levels // 3)
         want = ka.occupancy_pyramid_reference(flag, levels)
-        assert len(got) == len(want) == levels
+        for old, launches in ((False, 1), (True, -(-levels // 3))):
+            before = ka.LAUNCHES["pyramid"]
+            got = ka.pyramid_levels(
+                ka.accel_pyramid_cuda(sdf, levels, _old_design=old), (v,), c,
+                levels)
+            torch.cuda.synchronize()
+            assert ka.LAUNCHES["pyramid"] - before == launches
+            assert len(got) == len(want) == levels
+            for lvl, (a, b) in enumerate(zip(got, want), 1):
+                assert torch.equal(a, b), (levels, old, lvl)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [2, 4, 8, 16, 32, 64, 128, 256])
+@pytest.mark.parametrize("v", [1, 3])
+def test_accel_pyramid_one_launch_on_card(v, c):
+    """The one-launch pyramid over all R levels (the grid's last block
+    building levels 4..R) against ``occupancy_pyramid_reference`` and the
+    first design, bit for bit, at C = 2..256 over 1 and 3 volumes, run
+    three times in a row (the ticket counter left zeroed each time)."""
+    from vrt_torch.kernels import accel as ka
+    from vrt_torch.volume.accel import cell_corner_signs_differ
+
+    dev = _card()
+    sdf = _accel_case(v, c + 1, 5 * c + v, True, dev)
+    r = c.bit_length() - 1
+    want = ka.occupancy_pyramid_reference(cell_corner_signs_differ(sdf), r)
+    first = ka.accel_pyramid_cuda(sdf, r, _old_design=True)
+    for _ in range(3):
+        before = ka.LAUNCHES["pyramid"]
+        flat = ka.accel_pyramid_cuda(sdf, r)
+        torch.cuda.synchronize()
+        assert ka.LAUNCHES["pyramid"] - before == 1
+        assert torch.equal(flat, first)
+        got = ka.pyramid_levels(flat, (v,), c, r)
         for lvl, (a, b) in enumerate(zip(got, want), 1):
-            assert torch.equal(a, b), (levels, lvl)
+            assert torch.equal(a, b), lvl
+        if r > 3:
+            assert int(ka._ticket(dev)) == 0
 
 
 @pytest.mark.gpu
@@ -1788,8 +1820,8 @@ def test_accel_rebuild_matches_plain_on_card(v, n, table, special):
 @pytest.mark.gpu
 @pytest.mark.parametrize("table", ["f32x9", "bf16x8", "f32x8", "bf16x9"])
 def test_rebuild_function_matches_plain_on_card(table):
-    """``RebuildAccel`` forward and backward on the card (one pyramid pass,
-    one rebuild, one tiled backward) against the plain rebuild and autograd
+    """``RebuildAccel`` forward and backward on the card (one pyramid
+    launch, one rebuild, one tiled backward) against the plain rebuild and autograd
     of the plain pack, bit for bit."""
     from vrt_torch.kernels import accel as ka
     from vrt_torch.kernels import pack as kp
@@ -1810,7 +1842,7 @@ def test_rebuild_function_matches_plain_on_card(table):
     (g_got,) = torch.autograd.grad(got, leaf, g)
     torch.cuda.synchronize()
     assert {k: ka.LAUNCHES[k] - before[0][k] for k in ka.LAUNCHES} == dict(
-        pyramid=2, rebuild=1)
+        pyramid=1, rebuild=1)
     assert {k: kp.LAUNCHES[k] - before[1][k] for k in kp.LAUNCHES} == dict(
         pack=0, pack_bwd=1)
     assert torch.equal(got, want.detach())
@@ -1906,6 +1938,171 @@ def test_accel_wrappers_reject_bad_inputs_on_card():
                        kp.pack_corners_backward_cuda(off, _old_design=True))
     assert {k: kp.BWD_LAUNCHES[k] - before[k] for k in before} == dict(
         first=2, tiled=0)
+
+
+# ---- the fit step's Adam update ----------------------------------------------
+#
+# The kernel rounds each operation of optax's arithmetic once, in the eager
+# ops' order, so it equals its plain version on the card bit for bit.
+
+
+def _adam_case(shapes, dev, seed, offset=0):
+    """Seeded leaves (params, grads, mu, nu) of ``shapes``, each leaf a view
+    ``offset`` elements into its buffer (off 16 bytes where offset % 4),
+    gradients from 1 to 1e-4, and c1, c2 of step 3 of Adam(0.9, 0.999)."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(shape, scale, positive=False):
+        n = int(np.prod(shape))
+        x = rng.normal(size=n + offset) * scale
+        x = np.abs(x) if positive else x
+        return torch.from_numpy(x.astype(np.float32)).to(dev)[offset:].view(
+            shape)
+
+    keys = [f"leaf{i}" for i in range(len(shapes))]
+    p = {k: leaf(s, 1.0) for k, s in zip(keys, shapes)}
+    g = {k: leaf(s, 10.0 ** -(i % 5)) for i, (k, s) in
+         enumerate(zip(keys, shapes))}
+    mu = {k: leaf(s, 0.1) for k, s in zip(keys, shapes)}
+    nu = {k: leaf(s, 0.01, True) for k, s in zip(keys, shapes)}
+    steps = torch.tensor(3.0, device=dev)
+    c1, c2 = 1 - torch.pow(0.9, steps), 1 - torch.pow(0.999, steps)
+    return p, g, mu, nu, c1, c2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("apply", [True, False], ids=["apply", "update"])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 1023, 1024, 1025, 4097,
+                               2 * 65 ** 3, 257 ** 3])
+def test_adam_kernel_matches_plain_on_card(n, apply):
+    """The Adam kernel (p + u, or the update u) against its plain version
+    on the same CUDA tensors, bit for bit, at odd and aligned lengths (a
+    leaf's last partial 16-byte word element by element: 257^3 is odd), two
+    leaves in one launch; new tensors, the inputs unchanged."""
+    from vrt_torch.kernels import optim as ko
+
+    dev = _card()
+    p, g, mu, nu, c1, c2 = _adam_case([(n,), (n + 3,)], dev, n)
+    keep = [t.clone() for tree in (p, g, mu, nu) for t in tree.values()]
+    before = dict(ko.LAUNCHES)
+    got = ko.adam_step_cuda(p, g, mu, nu, c1, c2, 0.9, 0.999, 1e-2, 1e-8,
+                            apply)
+    torch.cuda.synchronize()
+    assert ko.LAUNCHES["apply" if apply else "update"] - \
+        before["apply" if apply else "update"] == 1
+    want = ko.adam_step_reference(p, g, mu, nu, c1, c2, 0.9, 0.999, 1e-2,
+                                  1e-8, apply)
+    for a, b in zip(got, want):
+        for k in g:
+            assert torch.equal(a[k], b[k]), k
+    assert all(torch.equal(a, b) for a, b in zip(
+        keep, [t for tree in (p, g, mu, nu) for t in tree.values()]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_adam_kernel_leaf_layouts_on_card(offset):
+    """Leaves off a 16-byte boundary (element by element), empty leaves and
+    more leaves than a launch takes (17 non-empty: 2 launches), against the
+    plain version bit for bit."""
+    from vrt_torch.kernels import optim as ko
+
+    dev = _card()
+    shapes = [(7 * i + 1, 3) for i in range(17)] + [(0,), (2, 0)]
+    p, g, mu, nu, c1, c2 = _adam_case(shapes, dev, 11 + offset, offset)
+    before = ko.LAUNCHES["apply"]
+    got = ko.adam_step_cuda(p, g, mu, nu, c1, c2, 0.9, 0.999, 1e-3, 1e-8)
+    torch.cuda.synchronize()
+    assert ko.LAUNCHES["apply"] - before == 2
+    want = ko.adam_step_reference(p, g, mu, nu, c1, c2, 0.9, 0.999, 1e-3,
+                                  1e-8)
+    for a, b in zip(got, want):
+        for k in g:
+            assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["dict", "slab"])
+def test_adam_apply_on_card_syncs_nothing(kind):
+    """``Adam.apply`` and ``Adam.update`` on CUDA tensors (a fit step's
+    dict, a slab step's one tensor): one kernel launch each, no host
+    synchronisation (``torch.cuda.set_sync_debug_mode("error")``), and over
+    three steps bit-equal to the plain composition (the eager arithmetic,
+    then ``apply_updates``) on the card from the same state."""
+    from vrt_torch.diff.optim import adam, apply_updates
+    from vrt_torch.kernels import optim as ko
+
+    dev = _card()
+    p, g, _, _, _, _ = _adam_case([(2, 33, 33, 33), (2, 33, 33, 33, 3)],
+                                  dev, 4)
+    if kind == "slab":
+        p, g = p["leaf0"], g["leaf0"]
+
+    def leaves(t):
+        return t if isinstance(t, dict) else {"": t}
+
+    opt = adam(1e-2)
+    state = opt.init(p)
+    for step in range(3):
+        before = dict(ko.LAUNCHES)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            p1, s1 = opt.apply(p, g, state)
+            u, su = opt.update(g, state)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert {k: ko.LAUNCHES[k] - before[k] for k in before} == dict(
+            apply=1, update=1)
+        count, c1, c2 = opt.corrections(state.count)
+        u_plain, mu, nu = ko.adam_step_reference(
+            None, leaves(g), leaves(state.mu), leaves(state.nu), c1, c2,
+            0.9, 0.999, 1e-2, 1e-8, apply=False)
+        p_plain = apply_updates(leaves(p), u_plain)
+        for k in leaves(g):
+            assert torch.equal(leaves(u)[k], u_plain[k]), (step, k)
+            assert torch.equal(leaves(p1)[k], p_plain[k]), (step, k)
+            for st in (s1, su):
+                assert torch.equal(leaves(st.mu)[k], mu[k]), (step, k)
+                assert torch.equal(leaves(st.nu)[k], nu[k]), (step, k)
+        assert int(s1.count) == int(su.count) == int(count) == step + 1
+        p, state = p1, s1
+
+
+@pytest.mark.gpu
+def test_adam_wrapper_rejects_bad_inputs_on_card():
+    from vrt_torch.diff.optim import adam
+    from vrt_torch.kernels import optim as ko
+
+    dev = _card()
+    p, g, mu, nu, c1, c2 = _adam_case([(64,), (5, 5)], dev, 1)
+    before = dict(ko.LAUNCHES)
+
+    def call(**kw):
+        args = dict(params=p, grads=g, mu=mu, nu=nu, c1=c1, c2=c2)
+        args.update(kw)
+        return ko.adam_step_cuda(args["params"], args["grads"], args["mu"],
+                                 args["nu"], args["c1"], args["c2"], 0.9,
+                                 0.999, 1e-2, 1e-8)
+
+    bad = [
+        dict(grads=dict(g, leaf0=g["leaf0"].double())),
+        dict(params=dict(p, leaf1=p["leaf1"].to(torch.bfloat16))),
+        dict(mu=dict(mu, leaf0=mu["leaf0"].cpu())),
+        dict(nu=dict(nu, leaf1=nu["leaf1"][:4])),
+        dict(params=dict(p, leaf1=p["leaf1"].t())),
+        dict(nu={"leaf0": nu["leaf0"]}),
+        dict(c1=c1.cpu()),
+        dict(c2=c2.reshape(1)),
+        dict(grads={}),
+    ]
+    for kw in bad:
+        with pytest.raises(ValueError):
+            call(**kw)
+    with pytest.raises(ValueError, match="f32"):
+        adam(1e-2).apply(p, dict(g, leaf0=g["leaf0"].double()),
+                         adam(1e-2).init(p))
+    assert ko.LAUNCHES == before
 
 
 # ---- K4's backward: the two backward kernels on the card ---------------------

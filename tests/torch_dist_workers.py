@@ -270,3 +270,7 @@ class _Recording:
     def update(self, grads, state, params=None):
         self.grads = grads
         return self.inner.update(grads, state, params)
+
+    def apply(self, params, grads, state):
+        self.grads = grads
+        return self.inner.apply(params, grads, state)

@@ -4,10 +4,11 @@ scene march (``march_scene_capped_kernel``), K4's surface backward
 (``surface_resident_kernel``, ``combine_resident_kernel``), the fused
 resolve's backward (``resolve_bwd_merged_kernel``) and K7, the slab march
 (``march_slab_capped_kernel``), with the slab resolve's backward into the
-planes, on one CUDA card.
+planes, and the one-launch accel pyramid (``pyramid_one_kernel``), on one
+CUDA card.
 
     python3 -m vrt_torch.apps.probe_caps [march] [surface_bwd] [shade_fwd]
-                                         [resolve_bwd] [slab]
+                                         [resolve_bwd] [slab] [pyramid]
 
 Each kernel's block and register cap are constants of its source
 (``kSceneThreads``, ``kSceneMinBlocks`` and ``kAnyHitMinBlocks`` in
@@ -19,7 +20,14 @@ lanes' work out; ``kMergeRows`` and ``kVecReduce`` in ``resolve.cu``
 switch the backward's merge of a warp's row cotangents by hit cell and its
 16-byte reductions, and ``kBwdMinBlocks`` sets its register cap;
 ``kSlabThreads`` and ``kSlabMinBlocks`` in ``march.cu`` set K7's block
-and its register cap).  The
+and its register cap; ``kPyramidMinBlocks`` and ``kTailBytes`` in
+``accel.cu`` the one-launch pyramid's register cap and persistent grid,
+and the shared memory in which its last block keeps the levels it
+reduces).  For
+``pyramid`` it runs the pyramid of config4's 257^3 SDF over its 8 levels
+and over 3 (no ticket and no last block: the difference is their cost)
+and of config6's two 65^3 SDFs over 6 and 3 through each build, each
+bit-equal to the default build's, the first design beside them.  The
 probe builds a copy of the source for each of ``MARCH``, ``SURFACE_BWD``,
 ``SHADE_FWD`` and ``RESOLVE_BWD`` with those constants set as the variant
 says (all builds in parallel, under ``build/vrt_torch_kernels/probe/``),
@@ -47,7 +55,7 @@ entry); each launch is timed as device time (``device_ms``), the default
 build first and last, with the first design (``_old_design``) beside them.
 It prints ptxas' registers, stack frame and spills of each build's
 variants, and the warp slots the registers leave filled, beside the card's
-name and power limit.  Without arguments it runs all three.  There is no
+name and power limit.  Without arguments it runs all of them.  There is no
 CPU path.
 """
 
@@ -119,6 +127,19 @@ RESOLVE_BWD = (
      {"kMergeRows": "false", "kVecReduce": "false"}, 256),
     ("uncapped", {"kBwdMinBlocks": 1}, 256),
     ("3 blocks an SM", {"kBwdMinBlocks": 3}, 256))
+PYRAMID = (
+    ("default: 4 blocks an SM, the last block's level 3 in shared memory",
+     {}, 256),
+    ("2 blocks an SM", {"kPyramidMinBlocks": 2}, 256),
+    ("3 blocks an SM", {"kPyramidMinBlocks": 3}, 256),
+    ("5 blocks an SM", {"kPyramidMinBlocks": 5}, 256),
+    ("the last block reads level 3 from device memory",
+     {"kTailBytes": 16}, 256),
+    ("6 blocks an SM, 8 KB of levels in the last block (level 3 from "
+     "device memory at 257^3)", {"kPyramidMinBlocks": 6, "kTailBytes": 8192},
+     256),
+    ("8 blocks an SM, 8 KB of levels in the last block",
+     {"kPyramidMinBlocks": 8, "kTailBytes": 8192}, 256))
 SHADE_KERNELS = ("surface_resident_kernel", "combine_resident_kernel")
 # the resolve backward's table against the default build's: its sums add in
 # another order (chip_smoke.py's SCATTER_RTOL)
@@ -154,7 +175,8 @@ def _builds(module, source, variants, kernels, entries):
              for i, (_, consts, _) in enumerate(variants)]
     with ThreadPoolExecutor(len(paths)) as pool:
         built = list(pool.map(
-            lambda ph: _build.build(str(ph[0]), module.NVCC_FLAGS,
+            lambda ph: _build.build(str(ph[0]),
+                                    getattr(module, "NVCC_FLAGS", ()),
                                     headers=[str(ph[1])]), paths))
     out = []
     for (label, _, threads), (lib, log) in zip(variants, built):
@@ -496,7 +518,7 @@ def main(argv=None) -> int:
     from vrt_torch.kernels import resolve as kr
 
     probes = set(sys.argv[1:] if argv is None else argv) or {
-        "march", "surface_bwd", "shade_fwd", "resolve_bwd", "slab"}
+        "march", "surface_bwd", "shade_fwd", "resolve_bwd", "slab", "pyramid"}
     dev = torch.device("cuda", 0)
     card = card_name()
     entries = ("vrt_shade_surface", "vrt_shade_combine",
@@ -534,6 +556,26 @@ def main(argv=None) -> int:
                 _probe(k4, "shade_surface_backward_cuda", builds, calls,
                        _same_cotangents))
         del calls
+
+    if "pyramid" in probes:
+        from vrt_torch.apps import bench
+        from vrt_torch.kernels import accel as ka
+
+        builds = _builds(ka, "accel.cu", PYRAMID, ("pyramid_one_kernel",),
+                         ("vrt_accel_pyramid", "vrt_accel_rebuild"))
+        for name, make, r in (
+                ("config4's 257^3 SDF", lambda: bench.config4_scene(
+                    8, 2, device=dev)[0].volumes.sdf, 8),
+                ("config6's two 65^3 SDFs", lambda: flagship_scene(
+                    6, use_colors=True, device=dev).volumes.sdf, 6)):
+            sdf = make()
+            calls = [((sdf, levels), {}, ka.accel_pyramid_cuda(sdf, levels))
+                     for levels in (r, 3)]
+            _report(f"the accel pyramid of {name} ({r} levels, then 3)",
+                    card, _probe(ka, "accel_pyramid_cuda", builds, calls,
+                                 lambda got, want, args, label:
+                                 torch.equal(got, want)))
+            del sdf, calls
 
     if "resolve_bwd" in probes:
         builds = _builds(kr, "resolve.cu", RESOLVE_BWD,

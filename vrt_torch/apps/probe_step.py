@@ -49,7 +49,7 @@ CONFIG6_CAMS = [dict(position=(320.0, 0.0, 40.0),
 WRAPPERS = {"march": ("SCENE_LAUNCHES", "LAUNCHES"),
             "resolve": ("LAUNCHES",), "rows": ("LAUNCHES",),
             "shade": ("LAUNCHES",), "pack": ("LAUNCHES", "BWD_LAUNCHES"),
-            "accel": ("LAUNCHES",)}
+            "accel": ("LAUNCHES",), "optim": ("LAUNCHES",)}
 
 
 def _card() -> str:

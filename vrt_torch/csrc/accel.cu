@@ -34,10 +34,16 @@
 // cells), 32-bit coordinates from a 3-D grid (threads along z, C = 2^R, so
 // the volume and the plane come from shifts, no division), the block's 27
 // corners loaded at once and its 8 flags from their sign bits ORed along z,
-// y and x; a warp covers 64 cells of a row.  The pyramid's first launch
-// takes a tile of (4, 4, 32) level-1 blocks and reduces levels 2 and 3 in
-// shared memory; each further launch takes 3 levels more from the level
-// below (ceil(levels / 3) launches).  The rebuild knows the level-1
+// y and x; a warp covers 64 cells of a row.  The pyramid is one launch
+// (pyramid_one_kernel): a persistent grid of one wave walks tiles of (4,
+// 4, 32) level-1 blocks, a level-1 block's occupancy the OR of its 27
+// corners' sign classes, writes level 1 and reduces levels 2 and 3 in
+// shared memory, and the grid's last block (a ticket counter) reduces the
+// levels above from level 3.  Its first design, the comparator now, takes
+// the same tiles in its first launch, and each further launch 3 levels
+// more from the level below (ceil(levels / 3) launches).  Staging a tile's
+// SDF voxels with their halo in shared memory (each voxel loaded once a
+// block) was slower on the H100 than these loads through L1.  The rebuild knows the level-1
 // occupancy from its own 8 flags and walks the block's ancestors once for
 // its 8 cells, every level's load at once (a chain of dependent loads cost
 // as much as the rest of the kernel); its accel and u8 view go out as pairs
@@ -62,6 +68,15 @@ struct PyramidParams {
   int log_s;               // the input level's side, s = 2^log_s
   int log_tx, log_ty, log_tz;  // the tile's sides (logs)
   int count;               // levels written, 1..3
+};
+
+struct PyramidOneParams {
+  const float* sdf;                  // [V, c+1, c+1, c+1]
+  uint8_t* level[kMaxLevels + 1];    // level[L]: [V, c>>L, c>>L, c>>L]
+  unsigned int* ticket;              // the grid's counter (levels > 3)
+  long long volumes;
+  int log_c, levels;
+  int log_tx, log_ty, log_tz;        // the tile in level-1 blocks (logs)
 };
 
 struct RebuildParams {
@@ -245,6 +260,155 @@ __global__ void __launch_bounds__(kThreads) pyramid_kernel(
               y0, z0, threadIdx.y * tz + threadIdx.x);
 }
 
+// The pyramid in one launch (the default): a persistent grid, one wave of
+// resident blocks, whose blocks walk the first design's tiles of (4, 4, 32)
+// level-1 blocks (each side clipped to level 1's) and write levels 1..3 of
+// each as its first launch does, a thread (up to) two level-1 blocks along
+// x from their 45 corners.  A level-1 block is occupied where its 27
+// corners hold more than one sign class or a NaN: the union of its 8
+// cells' flags, because neighbouring cells share corners (a path between
+// two corners of different classes crosses an edge of a cell whose ends
+// differ), so a corner's sign class is ORed once a block and not once a
+// cell.  Where levels > 3, each block takes a ticket once its tiles are
+// out (a fence first), and the grid's last block copies level 3 into
+// shared memory where it fits, reduces levels 4..levels there (each also
+// written out), and resets the ticket.  A persistent grid takes one
+// ticket and one fence a block, not one a tile.
+constexpr int kPyramidMinBlocks = 4;      // blocks an SM: registers, grid
+constexpr int kTailBytes = 40960;  // 40 KB: the last block's shared levels
+
+// OR of the two u8 entries at `at` (an even offset) of a level held in
+// shared memory or, written by other blocks, in device memory
+__device__ __forceinline__ uint32_t pair_of(const uint8_t* at, bool shared) {
+  return shared ? *reinterpret_cast<const uint16_t*>(at)
+                : __ldcg(reinterpret_cast<const unsigned short*>(at));
+}
+
+__global__ void __launch_bounds__(kThreads, kPyramidMinBlocks)
+    pyramid_one_kernel(const PyramidOneParams p) {
+  __shared__ uint8_t occ[512 + 64 + 8];
+  __shared__ __align__(16) uint8_t kept[kTailBytes];
+  __shared__ int last;
+  const int lh = p.log_c - 1, h = 1 << lh;  // level 1's side
+  // logs of the tiles a side
+  const int lx = lh - p.log_tx, ly = lh - p.log_ty, lz = lh - p.log_tz;
+  const long long tiles = p.volumes << (lx + ly + lz);
+  const int t =
+      (threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x;
+  const int threads = blockDim.x * blockDim.y * blockDim.z;
+  const int per = (1 << p.log_tx) / blockDim.z;  // blocks a thread along x
+  const long long n = 2 * h + 1;                  // voxels a side
+  const int count = p.levels < 3 ? p.levels : 3;
+  uint8_t* const lv[3] = {p.level[1], p.level[2], p.level[3]};
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int x0 = static_cast<int>(tile >> (ly + lz)) & ((1 << lx) - 1);
+    const int v = static_cast<int>(tile >> (lx + ly + lz));
+    const int tx0 = x0 << p.log_tx;
+    const int y0 = (static_cast<int>(tile >> lz) & ((1 << ly) - 1))
+                   << p.log_ty;
+    const int z0 = (static_cast<int>(tile) & ((1 << lz) - 1)) << p.log_tz;
+    const int by = y0 + threadIdx.y, bz = z0 + threadIdx.x;
+    // the sign classes of the thread's (2 per + 1) x planes of 3 x 3
+    // corners, ORed a plane (all 45 loads at once)
+    const float* s =
+        p.sdf + ((v * n + 2 * (tx0 + threadIdx.z * per)) * n + 2 * by) * n +
+        2 * bz;
+    uint32_t plane[5];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      plane[i] = 0;
+      if (i > 2 * per) continue;
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          plane[i] |= sign_bit(__ldg(s + (i * n + j) * n + k));
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (q >= per) break;
+      const int tx = threadIdx.z * per + q, bx = tx0 + tx;
+      const uint8_t o = static_cast<uint8_t>(
+          flag_of(plane[2 * q] | plane[2 * q + 1] | plane[2 * q + 2]));
+      occ[(tx << (p.log_ty + p.log_tz)) + (threadIdx.y << p.log_tz) +
+          threadIdx.x] = o;
+      lv[0][((v * static_cast<long long>(h) + bx) * h + by) * h + bz] = o;
+    }
+    __syncthreads();
+    // levels 2 and 3 (it ends in a barrier: occ is free for the next tile)
+    reduce_tile(occ, lv + 1, count - 1, p.log_tx, p.log_ty, p.log_tz, v, h,
+                tx0, y0, z0, t);
+  }
+  if (p.levels <= 3) return;
+  // the ticket: the last block to finish builds levels 4..levels (the
+  // barrier orders the block's level writes before thread 0's fence, which
+  // publishes them before its ticket, as a release)
+  __syncthreads();
+  if (t == 0) {
+    __threadfence();
+    last = atomicAdd(p.ticket, 1u) == gridDim.x - 1;
+    if (last) *p.ticket = 0;  // every block has taken its ticket
+    __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+  const uint8_t* src = lv[2];
+  bool src_shared = false;
+  int used = 0;  // bytes of `kept` holding levels for the next
+  const long long side3 = 1ll << (p.log_c - 3);
+  const long long entries3 = p.volumes * side3 * side3 * side3;
+  if (entries3 <= kTailBytes) {
+    // level 3 into shared memory, in 16-byte words where they align
+    const bool words = reinterpret_cast<uintptr_t>(lv[2]) % 16 == 0 &&
+                       entries3 % 16 == 0;
+    if (words) {
+      for (int w = t; w < entries3 / 16; w += threads)
+        reinterpret_cast<uint4*>(kept)[w] =
+            __ldcg(reinterpret_cast<const uint4*>(lv[2]) + w);
+    } else {
+      for (int e = t; e < entries3; e += threads) kept[e] = __ldcg(lv[2] + e);
+    }
+    __syncthreads();
+    src = kept;
+    src_shared = true;
+    used = static_cast<int>(entries3);
+  }
+  // unrolled, so that p.level[lvl] is no dynamic index into the parameters
+#pragma unroll
+  for (int lvl = 4; lvl <= kMaxLevels; ++lvl) {
+    if (lvl > p.levels) break;
+    const int ls = p.log_c - lvl;  // log of the level's side
+    const int side = 1 << ls;
+    const long long below = 2 << ls, entries = p.volumes << (3 * ls);
+    uint8_t* out =
+        used + entries <= kTailBytes ? kept + used : static_cast<uint8_t*>(0);
+#pragma unroll 4
+    for (long long u = t; u < entries; u += threads) {
+      const long long vi = u >> (2 * ls);  // volume * side + i
+      const int k = static_cast<int>(u) & (side - 1);
+      const int j = static_cast<int>(u >> ls) & (side - 1);
+      const long long i = vi & (side - 1), vol = vi >> ls;
+      const uint8_t* at =
+          src + ((vol * below + 2 * i) * below + 2 * j) * below + 2 * k;
+      const uint32_t o = pair_of(at, src_shared) |
+                         pair_of(at + below, src_shared) |
+                         pair_of(at + below * below, src_shared) |
+                         pair_of(at + below * below + below, src_shared);
+      p.level[lvl][u] = o != 0;
+      if (out) out[u] = o != 0;
+    }
+    __syncthreads();
+    if (out) {
+      src = out;
+      src_shared = true;
+      used += static_cast<int>(entries);
+    } else {
+      src = p.level[lvl];
+      src_shared = false;
+    }
+  }
+}
+
 // One thread a level-1 block (2x2x2 cells), threads along z: its 27
 // corners at once, the 8 flags, the block's skip from the walk up the
 // pyramid (one for its 8 cells: a cell's skip is 0 where its level-1 block
@@ -393,17 +557,43 @@ __global__ void __launch_bounds__(kThreads) rebuild_kernel(
   }
 }
 
+// The one-launch pyramid's grid: the blocks of `threads` threads (a power
+// of two up to kThreads) resident on the current card at once, one wave
+// (the card stays the same); 0 where the runtime cannot say.
+long long resident_blocks(int threads) {
+  static long long wave[9] = {-1, -1, -1, -1, -1, -1, -1, -1, -1};
+  int log = 0;
+  while ((1 << log) < threads) ++log;
+  if (log > 8) return 0;
+  if (wave[log] < 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, pyramid_one_kernel, threads, 0) != cudaSuccess)
+      return 0;
+    wave[log] = static_cast<long long>(sms) * per_sm;
+  }
+  return wave[log];
+}
+
 }  // namespace
 
 // The occupancy pyramid of sdf f32 [V, c+1, c+1, c+1], c = 2^log_c, levels
 // 1..levels (levels <= log_c, <= 12) into `pyramid`, level after level,
-// each [V, c >> L, c >> L, c >> L].  Returns the launches made (ceil(levels / 3))
-// or minus cudaGetLastError() where one failed.
+// each [V, c >> L, c >> L, c >> L]: design 1 (the default) in one launch,
+// `ticket` a zeroed 32-bit counter on the card that no other launch uses at
+// once (read only where levels > 3; the launch leaves it zeroed), design 0
+// (the first design) in ceil(levels / 3).  Returns the launches made or
+// minus cudaGetLastError() where one failed.
 extern "C" int vrt_accel_pyramid(const float* sdf, uint8_t* pyramid,
                                  long long volumes, int log_c, int levels,
+                                 unsigned int* ticket, int design,
                                  void* stream) {
   if (volumes < 1 || log_c < 1 || levels < 0 || levels > log_c ||
-      levels > kMaxLevels)
+      levels > kMaxLevels || (design != 0 && design != 1) ||
+      (design == 1 && levels > 3 && ticket == nullptr))
     return -static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   uint8_t* level[kMaxLevels + 2] = {};
@@ -412,6 +602,38 @@ extern "C" int vrt_accel_pyramid(const float* sdf, uint8_t* pyramid,
     level[lvl] = at;
     const long long side = 1ll << (log_c - lvl);
     at += volumes * side * side * side;
+  }
+  if (levels == 0) return 0;
+  if (design == 1) {
+    PyramidOneParams p{};
+    p.sdf = sdf;
+    for (int lvl = 1; lvl <= levels; ++lvl) p.level[lvl] = level[lvl];
+    p.ticket = ticket;
+    p.volumes = volumes;
+    p.log_c = log_c;
+    p.levels = levels;
+    // the first design's first launch's tiles and threads
+    const int lh = log_c - 1;
+    p.log_tx = lh < 2 ? lh : 2;
+    p.log_ty = lh < 2 ? lh : 2;
+    p.log_tz = lh < 5 ? lh : 5;
+    const dim3 block(1u << p.log_tz, 1u << p.log_ty,
+                     p.log_tx > 0 ? 1u << (p.log_tx - 1) : 1u);
+    // one wave of resident blocks, at most one a tile
+    const long long tiles = volumes << (3 * lh - p.log_tx - p.log_ty -
+                                        p.log_tz);
+    const long long blocks = resident_blocks(block.x * block.y * block.z);
+    if (blocks <= 0) {
+      const cudaError_t err = cudaGetLastError();
+      return -static_cast<int>(err != cudaSuccess
+                                   ? err
+                                   : cudaErrorInvalidConfiguration);
+    }
+    pyramid_one_kernel<<<static_cast<unsigned>(
+                             tiles < blocks ? tiles : blocks),
+                         block, 0, st>>>(p);
+    const cudaError_t err = cudaGetLastError();
+    return err == cudaSuccess ? 1 : -static_cast<int>(err);
   }
   int launches = 0;
   for (int base = 0; base < levels; base += 3) {

@@ -27,7 +27,10 @@ consistently.
 
 Parameters are dicts of tensors; a step is a plain function
 ``step(params, opt_state, ...) -> (params, opt_state, loss)`` with the
-optimizer of ``vrt_torch.diff.optim``.  There is no chunked frame: the
+optimizer of ``vrt_torch.diff.optim``, whose ``apply`` takes the gradients
+(on CUDA tensors Adam's is one kernel over every leaf); a view step that
+smooths the SDF update takes ``update``, ``smooth3`` and
+``apply_updates``.  There is no chunked frame: the
 whole view is one batch of rays (``vrt``'s chunked, deferred, remat'd fit
 frame computes the same loss and gradients, tests/test_grad.py).
 """
@@ -155,8 +158,8 @@ def make_fit_step(scene: GPUScene, cams: Sequence[Dict], width: int,
             return torch.mean((imgs - targets) ** 2)
 
         loss, grads = _value_and_grad(loss_fn, params)
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        return apply_updates(params, updates), opt_state, loss
+        params, opt_state = optimizer.apply(params, grads, opt_state)
+        return params, opt_state, loss
 
     return step
 
@@ -190,9 +193,11 @@ def make_fit_step_view(scene: GPUScene, width: int, height: int,
             return torch.mean((imgs[0] - target) ** 2)
 
         loss, grads = _value_and_grad(loss_fn, params)
+        if not (sdf_smooth and "sdf" in params):
+            params, opt_state = optimizer.apply(params, grads, opt_state)
+            return params, opt_state, loss
         updates, opt_state = optimizer.update(grads, opt_state, params)
-        if sdf_smooth and "sdf" in updates:
-            updates = dict(updates, sdf=smooth3(updates["sdf"], sdf_smooth))
+        updates = dict(updates, sdf=smooth3(updates["sdf"], sdf_smooth))
         return apply_updates(params, updates), opt_state, loss
 
     return step

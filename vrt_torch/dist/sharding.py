@@ -25,7 +25,6 @@ from __future__ import annotations
 import torch
 
 from vrt_torch.diff.fit import _value_and_grad, graft_and_rebuild
-from vrt_torch.diff.optim import apply_updates
 from vrt_torch.dist import mesh as _mesh
 from vrt_torch.render.gpuscene import GPUScene, RenderMode
 from vrt_torch.render.renderer import render_rays, tonemap, trace_radiance
@@ -151,7 +150,7 @@ def make_fit_step_dp(mode: RenderMode, mesh, optimizer):
 
     def step(params, opt_state, scene, o, d, targets):
         loss, grads = loss_and_grad(params, scene, o, d, targets)
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        return apply_updates(params, updates), opt_state, loss
+        params, opt_state = optimizer.apply(params, grads, opt_state)
+        return params, opt_state, loss
 
     return step

@@ -38,7 +38,6 @@ import numpy as np
 import torch
 
 from vrt_torch.diff.fit import _value_and_grad
-from vrt_torch.diff.optim import apply_updates
 from vrt_torch.dist import mesh as _mesh
 from vrt_torch.dist.brick import (SlabVolume, combine_hits, exchange_halos,
                                   march_volume_slab, resolve_slab_hits)
@@ -277,8 +276,8 @@ def make_slab_fit_step(mesh, optimizer, scene: GPUScene,
                                 group, group, pixels)
         loss, g = _value_and_grad(lambda p: loss_fn(p["sdf"]),
                                   {"sdf": params})
-        updates, opt_state = optimizer.update(g["sdf"], opt_state, params)
-        return apply_updates(params, updates), opt_state, loss
+        params, opt_state = optimizer.apply(params, g["sdf"], opt_state)
+        return params, opt_state, loss
 
     return step
 
@@ -309,7 +308,7 @@ def make_slab_fit_step_crossed(mesh, optimizer, scene: GPUScene,
         loss, g = _value_and_grad(lambda p: loss_fn(p["sdf"]),
                                   {"sdf": params})
         grad = _mesh.all_reduce_sum(g["sdf"], data)
-        updates, opt_state = optimizer.update(grad, opt_state, params)
-        return apply_updates(params, updates), opt_state, loss
+        params, opt_state = optimizer.apply(params, grad, opt_state)
+        return params, opt_state, loss
 
     return step

@@ -9,8 +9,9 @@
     RebuildAccel.apply(sdf, levels, dtype, channels)
         -> (table, accel, accel_u8), the table differentiable in sdf
 
-C = N - 1 = 2^R >= 2.  The pyramid (one launch for every 3 levels) holds, for
-L = 1..levels, the u8 occupancy of the aligned 2^L-cell blocks: level L is
+C = N - 1 = 2^R >= 2.  The pyramid (one launch; its first design, behind
+``_old_design=True``, one for every 3 levels) holds, for L = 1..levels, the
+u8 occupancy of the aligned 2^L-cell blocks: level L is
 the 2x2x2 OR of level L-1, level 0 the cells' surface flags
 (``volume.accel.cell_corner_signs_differ``).  The rebuild (one launch)
 walks it up from each cell: the skip is the largest level whose block is
@@ -48,6 +49,10 @@ _MAX_GRID_Z = 65535
 _MAX_LEVELS = 12
 
 _lib = None
+# the one-launch pyramid's ticket counters, one a (device, stream): the
+# grid's last block resets its counter, so launches in turn on a stream
+# share one, and launches on other streams (or ranks) never see it
+_TICKETS = {}
 
 
 def build() -> str:
@@ -58,7 +63,7 @@ def build() -> str:
         return ""
     lib, log = _build.build("accel.cu")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.vrt_accel_pyramid.argtypes = [ptr, ptr, i64, i32, i32, ptr]
+    lib.vrt_accel_pyramid.argtypes = [ptr, ptr, i64, i32, i32, ptr, i32, ptr]
     lib.vrt_accel_pyramid.restype = i32
     lib.vrt_accel_rebuild.argtypes = [ptr] * 5 + [i64] + [i32] * 4 + [ptr]
     lib.vrt_accel_rebuild.restype = i32
@@ -157,11 +162,21 @@ def _volume_shape(sdf, who: str):
     return lead, c, r, volumes
 
 
-def accel_pyramid_cuda(sdf, levels: int):
+def _ticket(dev):
+    """The zeroed i32 counter of the one-launch pyramid on the current
+    stream of ``dev`` (made, with one fill, at its first use)."""
+    key = (dev.index, _stream(dev))
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _TICKETS[key]
+
+
+def accel_pyramid_cuda(sdf, levels: int, _old_design: bool = False):
     """Launch the pyramid on ``torch.cuda.current_stream()``: levels
     1..``levels`` (0 <= levels <= R) of ``sdf``'s occupancy, level after
-    level in one flat u8 tensor (``pyramid_levels`` splits it).  Raises on
-    any input the kernel does not take; never falls back."""
+    level in one flat u8 tensor (``pyramid_levels`` splits it), in one
+    launch (``_old_design``: the first design's ceil(levels / 3)).  Raises
+    on any input the kernel does not take; never falls back."""
     lead, c, r, volumes = _volume_shape(sdf, "the accel pyramid")
     if not 0 <= levels <= r:
         raise ValueError(f"the accel pyramid: levels {levels} outside 0..{r}")
@@ -171,8 +186,10 @@ def accel_pyramid_cuda(sdf, levels: int):
     build()
     pyramid = torch.empty(volumes * _pyramid_cells(c, levels),
                           dtype=torch.uint8, device=dev)
+    ticket = None if _old_design or levels <= 3 else _ticket(dev).data_ptr()
     got = _lib.vrt_accel_pyramid(sdf.data_ptr(), pyramid.data_ptr(), volumes,
-                                 r, levels, _stream(dev))
+                                 r, levels, ticket, int(not _old_design),
+                                 _stream(dev))
     if got < 0:
         raise RuntimeError(f"accel pyramid launch failed: cudaError {-got}")
     LAUNCHES["pyramid"] += got
