@@ -44,7 +44,11 @@ Phases, each of which raises on failure:
              the fused resolve: the three launches of a 1080p frame, and the
              three of a 1080p config6 fit step (a graph is recorded), against
              ``resolve_scene_reference`` with a plain gather (equal, NaN
-             equal to NaN);
+             equal to NaN), and against its first design with both
+             designs' outputs filled with NaN first (bit-equal on every
+             lane), the two timed old, new, new, old; so are config3's,
+             the engine frames', config7's and config4's launches, and in
+             phase 11 the slab resolve over the planes;
              the two shade kernels K4 (surface, then combine): every launch
              of the three 1080p frames, of an unlit 1080p frame and of 480x270
              frames of a textured scene with two point lights and a spot
@@ -79,7 +83,10 @@ Phases, each of which raises on failure:
              inputs (per-ray cotangents bit-equal or not, said; its colour
              table within the same tolerance; old, new, new, old) with the
              colour rows' contention (distinct rows, most hits on a row,
-             rows a warp);
+             rows a warp), the combine backward against its first design
+             with both designs' outputs filled with NaN first (all nine
+             cotangents bit-equal; old, new, new, old) and its launches
+             counted by path;
              K3: every launch of one 1080p frame on the candidate-loop path,
              of one config6 fit step with eager shading (the colour rows:
              the default step launches no K3), and of one with resolve on the
@@ -440,6 +447,11 @@ FIT_LOSS_RTOL, FIT_COS_TOL, FIT_DIFF_TOL = 1e-5, 1e-8, 1e-4
 # FIT_COS_TOL and to a largest difference of one bf16 step of the largest
 # |g| (the kernel step against itself gives the same bits)
 BF16_DIFF_TOL = 2.0 ** -8
+# the threads a block of the two kernels redesigned last, as csrc/shade.cu
+# (kCombineBwdThreads) and csrc/resolve.cu (kResolveThreads) set them: the
+# warp slots their registers leave filled are counted for blocks of these
+RESOLVE_THREADS = 256
+COMBINE_BWD_THREADS = 256
 
 
 def _compare(tag, a, b, who="K1 vs twin"):
@@ -668,8 +680,8 @@ def _nan_equal(a, b):
 
 @contextlib.contextmanager
 def _old_designs():
-    """The scene march, the shade forward pair, the shade surface backward
-    and the fused resolve's backward on their first designs (the
+    """The scene march, the fused resolve forward and backward, the shade
+    forward pair and the shade backward pair on their first designs (the
     comparators of the redesigned kernels), through the wrappers' private
     ``_old_design``; everything else as it is."""
     import functools
@@ -678,41 +690,40 @@ def _old_designs():
     from vrt_torch.kernels import resolve as kr
     from vrt_torch.kernels import shade as k4
 
-    saved = (k1.march_scene_cuda, k4.shade_surface_cuda,
-             k4.shade_combine_cuda, k4.shade_surface_backward_cuda,
-             kr.resolve_scene_backward_cuda)
-    k1.march_scene_cuda = functools.partial(saved[0], _old_design=True)
-    k4.shade_surface_cuda = functools.partial(saved[1], _old_design=True)
-    k4.shade_combine_cuda = functools.partial(saved[2], _old_design=True)
-    k4.shade_surface_backward_cuda = functools.partial(saved[3],
-                                                       _old_design=True)
-    kr.resolve_scene_backward_cuda = functools.partial(saved[4],
-                                                       _old_design=True)
+    names = ((k1, "march_scene_cuda"), (k4, "shade_surface_cuda"),
+             (k4, "shade_combine_cuda"), (k4, "shade_surface_backward_cuda"),
+             (k4, "shade_combine_backward_cuda"),
+             (kr, "resolve_scene_backward_cuda"), (kr, "resolve_scene_cuda"),
+             (kr, "resolve_slab_cuda"))
+    saved = [getattr(m, n) for m, n in names]
+    for (m, n), fn in zip(names, saved):
+        setattr(m, n, functools.partial(fn, _old_design=True))
     try:
         yield
     finally:
-        (k1.march_scene_cuda, k4.shade_surface_cuda, k4.shade_combine_cuda,
-         k4.shade_surface_backward_cuda, kr.resolve_scene_backward_cuda) = \
-            saved
+        for (m, n), fn in zip(names, saved):
+            setattr(m, n, fn)
 
 
 @contextlib.contextmanager
 def _filled_outputs():
-    """Every output of the shade forward kernels filled before the launch
-    (floats with NaN, bools with True), so that a lane a kernel leaves
-    unwritten shows."""
+    """Every output of the shade forward kernels, of the combine backward
+    and of the fused resolve forward filled before the launch (floats with
+    NaN, bools with True), so that a lane a kernel leaves unwritten
+    shows."""
     import torch
 
+    from vrt_torch.kernels import resolve as kr
     from vrt_torch.kernels import shade as k4
 
-    saved = k4._empty
-    k4._empty = lambda shape, dtype, dev: torch.full(
+    saved = (k4._empty, kr._empty)
+    k4._empty = kr._empty = lambda shape, dtype, dev: torch.full(
         shape, True if dtype == torch.bool else float("nan"), dtype=dtype,
         device=dev)
     try:
         yield
     finally:
-        k4._empty = saved
+        k4._empty, kr._empty = saved
 
 
 def _design_pair(new, old, hit, spawns):
@@ -937,10 +948,13 @@ def _resolve_calls(run, expected, tag):
     """Every fused-resolve launch of ``run()``, kept with its inputs and
     the output ``run`` used, then held against its plain version
     (``resolve_scene_reference`` with a plain gather, no graph) on the same
-    inputs: unlit equal, t and the normal equal with NaN equal to NaN.  Both
-    timed, and the plain version over K3's gather (resolve as the
-    candidate-loop path runs it).  Returns dict(launches, max_abs_err, ms,
-    plain_ms, over_k3_ms, bound)."""
+    inputs: unlit equal, t and the normal equal with NaN equal to NaN; and
+    against its first design (``_old_design``), both with their outputs
+    filled with NaN first (``_filled_outputs``): bit-equal on every lane.
+    The two designs timed old, new, new, old, the plain version beside them
+    and over K3's gather (resolve as the candidate-loop path runs it).
+    Returns dict(launches, max_abs_err, ms (the sum over the launches),
+    per_launch_ms, old_ms (per launch), plain_ms, over_k3_ms, bound)."""
     import torch
 
     from vrt_torch.kernels import resolve as kr
@@ -962,7 +976,7 @@ def _resolve_calls(run, expected, tag):
         with torch.no_grad():
             return resolve_scene_reference(*args)
 
-    ms, plain_ms, k3_ms, bounds = [], [], [], []
+    ms, old_ms, plain_ms, k3_ms, bounds = [], [], [], [], []
     for i, (args, _, got) in enumerate(calls):
         want = plain(*args)
         for name, a, b in zip(("t", "normal", "unlit"), got, want):
@@ -975,18 +989,37 @@ def _resolve_calls(run, expected, tag):
                     f"version on {int((~same).sum())} rays, by at most "
                     f"{worst:.3e}")
         del want
-        ms.append(device_ms(lambda: kr.resolve_scene_cuda(*args), 20))
+        with _filled_outputs():
+            new = kr.resolve_scene_cuda(*args)
+            old = kr.resolve_scene_cuda(*args, _old_design=True)
+        bad = [name for name, a, b in zip(("t", "normal", "unlit"), new, old)
+               if not _nan_equal(a, b)]
+        if bad:
+            raise AssertionError(f"{tag} resolve {i}: the redesign's {bad} "
+                                 f"differ from the first design's")
+        del new, old
+        olds, news = _paired_ms(
+            lambda: kr.resolve_scene_cuda(*args, _old_design=True),
+            lambda: kr.resolve_scene_cuda(*args), 20)
+        ms.append(sum(news) / 2)
+        old_ms.append(sum(olds) / 2)
         plain_ms.append(device_ms(lambda: plain(*args), 3))
         k3_ms.append(device_ms(lambda: over_k3(*args), 3))
         bounds.append(_resolve_bound(args[0], args[3], args[4]))
         kinds = torch.bincount(args[3].kind, minlength=6).tolist()
         print(f"fused resolve vs plain [{tag} {i}]: rays "
-              f"{args[1].shape[0]} kinds {kinds} equal; kernel "
-              f"{ms[-1]:.4f} ms, plain {plain_ms[-1]:.4f} ms, plain over "
-              f"K3's gather {k3_ms[-1]:.4f} ms, bound "
-              f"{bounds[-1]['bound_ms']:.4f} ms ({bounds[-1]['bytes']} B)",
+              f"{args[1].shape[0]} kinds {kinds} equal, bit-equal to the "
+              f"first design; old, new, new, old "
+              f"{', '.join(f'{t:.4f}' for t in (olds[0], news[0], news[1], olds[1]))}"
+              f" ms, plain {plain_ms[-1]:.4f} ms, plain over K3's gather "
+              f"{k3_ms[-1]:.4f} ms, bound {bounds[-1]['bound_ms']:.4f} ms "
+              f"({bounds[-1]['bytes']} B) = {bounds[-1]['bound_ms'] / ms[-1]:.0%}"
+              f" of new, {bounds[-1]['bound_ms'] / old_ms[-1]:.0%} of old",
               flush=True)
+    print(f"fused resolve on the {tag}: {len(calls)} launches, new "
+          f"{sum(ms):.4f} ms, first design {sum(old_ms):.4f} ms", flush=True)
     return dict(launches=len(calls), max_abs_err=0.0, ms=sum(ms),
+                per_launch_ms=ms, old_ms=old_ms,
                 plain_ms=sum(plain_ms), over_k3_ms=sum(k3_ms),
                 bound=_sum_bounds(bounds))
 
@@ -1537,7 +1570,7 @@ def _shade_calls(run, expected, tag):
                           rounded=sorted(differ), ms=ms, old_ms=old_ms,
                           plain_ms=plain_ms, bound=_sum_bounds(bounds),
                           paths={k.split()[1]: n for k, n in paths.items()
-                                 if k.startswith("surface")})
+                                 if k.split()[0] == "surface"})
 
     state = dict(err=0.0, share=0.0)
     ms, old_ms, plain_ms, bounds, all_same = [], [], [], [], True
@@ -1571,7 +1604,7 @@ def _shade_calls(run, expected, tag):
                           old_ms=old_ms, plain_ms=plain_ms,
                           bound=_sum_bounds(bounds),
                           paths={k.split()[1]: n for k, n in paths.items()
-                                 if k.startswith("combine")})
+                                 if k.split()[0] == "combine"})
     for name, got in out.items():
         if sum(got["paths"].values()) != got["launches"]:
             raise AssertionError(f"{tag}: the {name} launches took the "
@@ -1678,12 +1711,16 @@ def _shade_bwd_calls(run, expected, tag):
     inputs, its colour table held as the new one's, and the two are timed
     in the order old, new, new, old; whether their per-ray cotangents are
     bit-equal is reported, and how the colour rows collide
-    (``_row_contention``).  Fails unless each kernel launched ``expected``
-    times.  Returns {"surface_bwd" | "combine_bwd": dict(launches,
-    max_abs_err (the largest difference over max|plain|, per-ray outputs and
-    the table), by_output (the same per output), lanes_beyond, ms, plain_ms
-    (lists), bound; for the surface backward also old_ms (a list),
-    bit_equal_to_old, contention (a list))}."""
+    (``_row_contention``).  The combine backward's first design runs on
+    the same inputs too, both with their outputs filled with NaN first: all
+    nine cotangents must be bit-equal; the two are timed old, new, new, old.
+    Fails unless each kernel launched ``expected`` times.  Returns
+    {"surface_bwd" | "combine_bwd": dict(launches, max_abs_err (the largest
+    difference over max|plain|, per-ray outputs and the table), by_output
+    (the same per output), lanes_beyond, ms, old_ms, plain_ms (lists),
+    bound; for the surface backward also bit_equal_to_old, contention (a
+    list); for the combine backward paths (its launches in ``run()`` by
+    path))}."""
     import torch
 
     from vrt_torch.kernels import shade as k4
@@ -1691,13 +1728,18 @@ def _shade_bwd_calls(run, expected, tag):
     from vrt_torch.render.renderer import (shade_combine_backward_reference,
                                            shade_surface_backward_reference)
 
+    paths = dict(k4.PATH_LAUNCHES)
     with _recording(k4, "shade_surface_backward_cuda") as surf, \
             _recording(k4, "shade_combine_backward_cuda") as comb:
         run()
     torch.cuda.synchronize()
-    if (len(surf), len(comb)) != (expected, expected):
+    paths = {p: k4.PATH_LAUNCHES[f"combine_bwd {p}"]
+             - paths[f"combine_bwd {p}"] for p in ("v4", "scalar")}
+    if (len(surf), len(comb)) != (expected, expected) or \
+            sum(paths.values()) != expected:
         raise AssertionError(f"the {tag} launched the shade backward kernels "
-                             f"{len(surf)} + {len(comb)} times, expected "
+                             f"{len(surf)} + {len(comb)} times (the combine "
+                             f"backward {paths} by path), expected "
                              f"{expected} + {expected}")
     out = {}
     for stage, calls in (("surface_bwd", surf), ("combine_bwd", comb)):
@@ -1747,6 +1789,19 @@ def _shade_bwd_calls(run, expected, tag):
                 kernel = k4.shade_combine_backward_cuda
                 plain = shade_combine_backward_reference
                 bounds.append(_combine_bwd_bound(args[0], args, got))
+                # both designs with their outputs filled first: every
+                # cotangent bit-equal
+                with _filled_outputs():
+                    new = kernel(*args, **kwargs)
+                    old = kernel(*args, **kwargs, _old_design=True)
+                bad = [n for n, a, b in zip(COMBINE_GRADS, new, old)
+                       if (a is None) != (b is None)
+                       or a is not None and not _nan_equal(a, b)]
+                if bad:
+                    raise AssertionError(f"{tag} {stage} {i}: the "
+                                         f"redesign's {bad} differ from the "
+                                         f"first design's")
+                del new, old
             pairs = [(n, a, b) for n, a, b in pairs
                      if a is not None]  # not asked for, or no such input
             scale = max(b.abs().max().item() for _, _, b in pairs
@@ -1790,7 +1845,18 @@ def _shade_bwd_calls(run, expected, tag):
                       f"{contention[-1] if contention else None}",
                       flush=True)
             else:
-                ms.append(device_ms(lambda: kernel(*args, **kwargs), 20))
+                olds, news = _paired_ms(
+                    lambda: kernel(*args, **kwargs, _old_design=True),
+                    lambda: kernel(*args, **kwargs), 20)
+                ms.append(sum(news) / 2)
+                old_ms.append(sum(olds) / 2)
+                print(f"shade combine_bwd [{tag} {i}]: old, new, new, old "
+                      f"{', '.join(f'{t:.4f}' for t in (olds[0], news[0], news[1], olds[1]))}"
+                      f" ms; bound {bounds[-1]['bound_ms']:.4f} ms = "
+                      f"{bounds[-1]['bound_ms'] / ms[-1]:.0%} of new, "
+                      f"{bounds[-1]['bound_ms'] / old_ms[-1]:.0%} of old; "
+                      f"every cotangent bit-equal to the first design's",
+                      flush=True)
             plain_ms.append(device_ms(lambda: plain(*args[:10]), 2))
             hit = args[5].hit if stage == "surface_bwd" else args[4]
             print(f"shade {stage} vs plain [{tag} {i}]: rays {hit.numel()} "
@@ -1805,10 +1871,13 @@ def _shade_bwd_calls(run, expected, tag):
                           max_abs_err=max(by_output.values(), default=0.0),
                           by_output=by_output, lanes_beyond=share_max, ms=ms,
                           plain_ms=plain_ms, bound=_sum_bounds(bounds))
+        out[stage]["old_ms"] = old_ms
         if stage == "surface_bwd":
-            out[stage].update(old_ms=old_ms, no_table_ms=no_table_ms,
+            out[stage].update(no_table_ms=no_table_ms,
                               bit_equal_to_old=bit_equal,
                               contention=contention)
+        else:
+            out[stage].update(paths=paths, bit_equal_to_old=True)
         got = out[stage]
         print(f"shade {stage} on the {tag}: {got['launches']} launches, "
               f"{_list(ms)} ms = {sum(ms):.4f} ms; plain {sum(plain_ms):.2f} "
@@ -3315,8 +3384,8 @@ def _config5_rank(rank, world, td, geometry):
                   old_diffs=[], capped=[], ms=[], old_ms=[], plain_ms=[],
                   bounds=[], steps=[], live=[], simt=[], simt_live=[])
         rs = dict(launches_small=len(held["480x270"][1]), diffs=[],
-                  old_diffs=[], ms=[], old_ms=[], plain_ms=[], owned=[],
-                  bounds=[])
+                  old_diffs=[], design_diffs=[], ms=[], old_ms=[],
+                  packed_ms=[], plain_ms=[], owned=[], bounds=[])
         for tag, (marches, resolves) in held.items():
             for i, (args, kw, got) in enumerate(marches):
                 start = torch.cuda.Event(enable_timing=True)
@@ -3362,7 +3431,7 @@ def _config5_rank(rank, world, td, geometry):
                         bad[name] = int((~same).sum())
                 rs["diffs"].append((tag, i, bad))
                 rs["owned"].append((tag, i, int(owned.sum())))
-                # bit-equal to the first design but on the surface hits this
+                # bit-equal to the packed table but on the surface hits this
                 # rank does not own (their cells may leave its planes)
                 old = (args[0], packed) + tuple(args[2:])
                 lanes = owned | (hit.kind != 1)
@@ -3371,12 +3440,25 @@ def _config5_rank(rank, world, td, geometry):
                         ("t", "normal", "unlit"), got,
                         kr.resolve_slab_cuda(*old))
                     if not _nan_equal(a[lanes], b[lanes])]))
+                # the kernel's first design over the same planes, outputs
+                # filled first: bit-equal on every lane
+                with _filled_outputs():
+                    new = kr.resolve_slab_cuda(*args)
+                    first = kr.resolve_slab_cuda(*args, _old_design=True)
+                rs["design_diffs"].append((tag, i, [
+                    name for name, a, b in zip(("t", "normal", "unlit"), new,
+                                               first)
+                    if not _nan_equal(a, b)]))
+                del new, first
                 if tag == "1080p":
                     olds, news = _paired_ms(
-                        lambda: kr.resolve_slab_cuda(*old),
+                        lambda: kr.resolve_slab_cuda(*args,
+                                                     _old_design=True),
                         lambda: kr.resolve_slab_cuda(*args), 10)
                     rs["ms"].append(news)
                     rs["old_ms"].append(olds)
+                    rs["packed_ms"].append(device_ms(
+                        lambda: kr.resolve_slab_cuda(*old), 10))
                     rs["plain_ms"].append(device_ms(
                         lambda: plain_resolve(args), 3))
                     rs["bounds"].append(_slab_resolve_bound(hit, sl))
@@ -3563,6 +3645,7 @@ def _config5(dev, card, sync, td, ptxas):
     # K7, the slab resolve, the launches, the halo refresh on every rank
     per_rank = {"k7_ms": [], "k7_old_ms": [], "k7_plain_ms": [],
                 "resolve_ms": [], "resolve_old_ms": [],
+                "resolve_packed_ms": [],
                 "resolve_plain_ms": [], "steps": [], "frame_ms": [],
                 "collective_share": [], "live": [], "simt": [],
                 "simt_live": [], "peak_gb": [], "old_peak_gb": []}
@@ -3615,8 +3698,13 @@ def _config5(dev, card, sync, td, ptxas):
         for tag, i, bad in rs["old_diffs"]:
             if bad:
                 raise AssertionError(f"config5 rank {r}: slab resolve {tag} "
-                                     f"{i} differs from its first design: "
+                                     f"{i} differs from the packed table's: "
                                      f"{bad}")
+        for tag, i, bad in rs["design_diffs"]:
+            if bad:
+                raise AssertionError(f"config5 rank {r}: slab resolve {tag} "
+                                     f"{i} differs from the kernel's first "
+                                     f"design over the planes: {bad}")
         if not (x["halo_equal"] and (x["halo_changed"] or r not in (1, 2))):
             raise AssertionError(f"config5 rank {r}: halo refresh equal "
                                  f"{x['halo_equal']}, changed "
@@ -3630,6 +3718,7 @@ def _config5(dev, card, sync, td, ptxas):
                                           for t in rs["ms"]))
         per_rank["resolve_old_ms"].append(sum(statistics.mean(t)
                                               for t in rs["old_ms"]))
+        per_rank["resolve_packed_ms"].append(sum(rs["packed_ms"]))
         per_rank["resolve_plain_ms"].append(sum(rs["plain_ms"]))
         per_rank["live"].append(k7["live"])
         per_rank["simt"].append(k7["simt"])
@@ -3646,8 +3735,10 @@ def _config5(dev, card, sync, td, ptxas):
               f"design field by field on {len(k7['diffs'])} launches "
               f"(480x270 and 1080p), lanes on the step cap (kernel, plain) "
               f"{[c[2:] for c in k7['capped']]}; slab resolve equal to its "
-              f"plain version on {[o[2] for o in rs['owned']]} owned lanes "
-              f"and to its first design bit for bit; halo refresh equal to a "
+              f"plain version on {[o[2] for o in rs['owned']]} owned lanes, "
+              f"to the packed table's on them and on every lane but a "
+              f"surface hit, and to the kernel's first design over the "
+              f"planes bit for bit on every lane; halo refresh equal to a "
               f"fresh split (staged sends {x['staged']}); a 1080p frame's "
               f"peak memory {x['peak_gb']['planes']:.3f} GB on the planes, "
               f"{x['peak_gb']['packed']:.3f} GB on the packed table",
@@ -3664,9 +3755,12 @@ def _config5(dev, card, sync, td, ptxas):
                   f"({regs('march_slab_kernel', 256)}), old, new, new, old; "
                   f"twin {k7['plain_ms'][i]:.2f} ms; bound "
                   f"{k7['bounds'][i]['bound_ms']:.4f} ms", flush=True)
-        print(f"config5 rank {r} slab resolve 1080p: planes "
-              f"{_list(rs['ms'][0])} ms, packed table "
-              f"{_list(rs['old_ms'][0])} ms (old, new, new, old); plain "
+        print(f"config5 rank {r} slab resolve 1080p over the planes: "
+              f"first design, redesign, redesign, first design "
+              f"{_list([rs['old_ms'][0][0], *rs['ms'][0], rs['old_ms'][0][1]])}"
+              f" ms ({regs('resolve_lean_kernel', RESOLVE_THREADS)}; "
+              f"first design {regs('resolve_kernel', 256)}); the redesign "
+              f"over the packed table {_list(rs['packed_ms'])} ms; plain "
               f"{_list(rs['plain_ms'])} ms; bound "
               f"{rs['bounds'][0]['bound_ms']:.4f} ms", flush=True)
     k7_bound, rs_bound = _sum_bounds(k7_bounds), _sum_bounds(rs_bounds)
@@ -3675,9 +3769,12 @@ def _config5(dev, card, sync, td, ptxas):
           f"redesign {k7_new:.4f} ms = "
           f"{k7_bound['bound_ms'] / k7_new:.0%} of the bound "
           f"{k7_bound['bound_ms']:.4f} ms, first design {k7_old:.4f} ms = "
-          f"{k7_bound['bound_ms'] / k7_old:.0%}; slab resolve "
-          f"{sum(per_rank['resolve_ms']):.4f} ms on the planes, "
-          f"{sum(per_rank['resolve_old_ms']):.4f} ms on the packed table",
+          f"{k7_bound['bound_ms'] / k7_old:.0%}; slab resolve on the "
+          f"planes {sum(per_rank['resolve_ms']):.4f} ms = "
+          f"{rs_bound['bound_ms'] / sum(per_rank['resolve_ms']):.0%} of its "
+          f"bound {rs_bound['bound_ms']:.4f} ms, its first design "
+          f"{sum(per_rank['resolve_old_ms']):.4f} ms; the redesign on the "
+          f"packed table {sum(per_rank['resolve_packed_ms']):.4f} ms",
           flush=True)
     if not k7_new <= k7_old:
         raise AssertionError(f"K7's redesign ({k7_new:.4f} ms) is slower "
@@ -3734,6 +3831,7 @@ def _config5(dev, card, sync, td, ptxas):
         k7_simt_live_lanes_by_rank=per_rank["simt_live"],
         slab_resolve_ms_by_rank=per_rank["resolve_ms"],
         slab_resolve_old_design_ms_by_rank=per_rank["resolve_old_ms"],
+        slab_resolve_packed_table_ms_by_rank=per_rank["resolve_packed_ms"],
         slab_resolve_plain_ms_by_rank=per_rank["resolve_plain_ms"],
         slab_frame_peak_gb_by_rank=per_rank["peak_gb"],
         slab_frame_old_design_peak_gb_by_rank=per_rank["old_peak_gb"],
@@ -3752,6 +3850,7 @@ def _config5(dev, card, sync, td, ptxas):
                         bound=k7_bound),
                 resolve=dict(ms=sum(per_rank["resolve_ms"]),
                              old_ms=sum(per_rank["resolve_old_ms"]),
+                             packed_ms=sum(per_rank["resolve_packed_ms"]),
                              plain_ms=sum(per_rank["resolve_plain_ms"]),
                              bound=rs_bound))
 
@@ -5104,6 +5203,16 @@ def main():
              "backward (shade.cu)", "combine_resident_kernel", 256),
             ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
              "backward (shade.cu)", "combine_kernel", 256),
+            ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
+             "backward (shade.cu)", "combine_bwd_resident_kernel",
+             COMBINE_BWD_THREADS),
+            ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
+             "backward (shade.cu)", "combine_bwd_kernel", 256),
+            ("fused resolve (resolve.cu)", "fused resolve, forward and "
+             "backward (resolve.cu)", "resolve_lean_kernel",
+             RESOLVE_THREADS),
+            ("fused resolve (resolve.cu)", "fused resolve, forward and "
+             "backward (resolve.cu)", "resolve_kernel", 256),
             ("fused resolve (resolve.cu)", "fused resolve, forward and "
              "backward (resolve.cu)", "resolve_bwd_merged_kernel", 256),
             ("fused resolve (resolve.cu)", "fused resolve, forward and "
@@ -5488,8 +5597,8 @@ def main():
             meds.append(statistics.median(timed(run, 5)[0]) * 1e3)
         paired[f"march_design_{tag}"] = meds
         print(f"1080p {tag} frame on {card}, the first designs of the scene "
-              f"march and the shade forward pair against the redesigns, "
-              f"medians of 5 in the order old, new, new, old: "
+              f"march, the fused resolve and the shade forward pair against "
+              f"the redesigns, medians of 5 in the order old, new, new, old: "
               f"{', '.join(f'{t:.2f}' for t in meds)} ms", flush=True)
     got = counts()
     paths = dict(k4.PATH_LAUNCHES)
@@ -5653,7 +5762,7 @@ def main():
           f"{fit_packs['pack_bwd'] / 3:g} (by design in 3 steps "
           f"{fit_bwd_designs}) and Adam {fit_adam['apply'] / 3:g} launches "
           f"a step", flush=True)
-    for stage in ("surface", "combine"):
+    for stage in ("surface", "combine", "combine_bwd"):
         if fit_paths[f"{stage} v4"] + fit_paths[f"{stage} scalar"] != \
                 fit_counts[stage]:
             raise AssertionError(f"paths of 3 fit steps {fit_paths}")
@@ -5750,17 +5859,20 @@ def main():
     for run in (old_design_step, one_step, one_step, old_design_step):
         meds.append(statistics.median(timed(run, 3)[0]) * 1e3)
     print(f"config6 fit step on {card}, the first designs of the scene "
-          f"march, the shade forward pair, the surface backward and the "
-          f"resolve backward against the redesigned kernels, medians of 3 "
-          f"in the order old, new, new, old: "
+          f"march, the fused resolve forward and backward and the shade "
+          f"forward and backward pairs against the redesigned kernels, "
+          f"medians of 3 in the order old, new, new, old: "
           f"{', '.join(f'{t:.2f}' for t in meds)} ms", flush=True)
     paired["fit_designs"] = meds
     got = counts()
     paths = dict(k4.PATH_LAUNCHES)
-    if (got["scene"], got["surface"], got["combine"], got["surface_bwd"]) \
-            != (16 * _traces(fit_scene),) + (16 * levels,) * 3 or \
+    if (got["scene"], got["surface"], got["combine"], got["surface_bwd"],
+            got["combine_bwd"]) \
+            != (16 * _traces(fit_scene),) + (16 * levels,) * 4 or \
             (paths["surface v4"] + paths["surface scalar"],
-             paths["combine v4"] + paths["combine scalar"]) != (8 * levels,) * 2:
+             paths["combine v4"] + paths["combine scalar"],
+             paths["combine_bwd v4"] + paths["combine_bwd scalar"]) != \
+            (8 * levels,) * 3:
         raise AssertionError(f"launches of the paired design steps {got}, "
                              f"paths {paths}")
     want = dict(k1=0, scene=16 * _traces(fit_scene), resolve=16 * levels,
@@ -5779,7 +5891,8 @@ def main():
             ("eager_shading", eager_step,
              "eager shading under autograd, K3 for the colour rows"),
             ("old_designs", old_design_step, "the first designs of the scene "
-             "march, the shade forward pair and the surface backward"),
+             "march, the fused resolve forward and backward and the shade "
+             "forward and backward pairs"),
             ("new", one_step, "the fused resolve, the shade kernels and "
              "their backward kernels")):
         sync()
@@ -6094,23 +6207,40 @@ def main():
          "plain_ms": fused["plain_ms"],
          "plain_over_k3_ms": fused["over_k3_ms"],
          **bound_keys(fused["bound"]), "library_ms": None,
+         "path": "the redesign (resolve_lean_kernel); old_design_ms: "
+                 "the first design (resolve_kernel), old, new, new, old in "
+                 "the same call; every held launch bit-equal to it with "
+                 "outputs filled with NaN first",
+         "per_launch_ms": fused["per_launch_ms"],
+         "old_design_ms": sum(fused["old_ms"]),
+         "per_launch_old_design_ms": fused["old_ms"],
+         "bit_equal_to_old_design": True,
+         "ptxas": {k: ptxas.get(k) for k in ("resolve_lean_kernel",
+                                              "resolve_kernel")},
          "fit_step": {"ms": fused_fit["ms"],
+                      "old_design_ms": sum(fused_fit["old_ms"]),
+                      "per_launch_ms": fused_fit["per_launch_ms"],
                       "plain_ms": fused_fit["plain_ms"],
                       "plain_over_k3_ms": fused_fit["over_k3_ms"],
                       **bound_keys(fused_fit["bound"])},
          "engine_frame": {"ms": eng_fused["ms"],
+                          "old_design_ms": sum(eng_fused["old_ms"]),
                           "plain_ms": eng_fused["plain_ms"],
                           "plain_over_k3_ms": eng_fused["over_k3_ms"],
                           **bound_keys(eng_fused["bound"])},
          "config3": {**config3_entry(
              c3_counts["resolve"], [c3_held["fused"]["ms"]],
              [c3_held["fused"]["plain_ms"]], c3_held["fused"]["bound"]),
+             "old_design_ms": sum(c3_held["fused"]["old_ms"]),
              "plain_over_k3_ms": c3_held["fused"]["over_k3_ms"]},
-         # the slab's table (x origin): one launch a rank a 1080p frame,
-         # summed over the 4 ranks, each timed alone
+         # the slab's planes (x origin): one launch a rank a 1080p frame,
+         # summed over the 4 ranks, each timed alone; the first design over
+         # the planes old, new, new, old, the redesign over the packed
+         # table beside them
          "config5": {"launches": c5["launches"]["slab_resolve"],
                      "ms": c5["resolve"]["ms"],
                      "old_design_ms": c5["resolve"]["old_ms"],
+                     "packed_table_ms": c5["resolve"]["packed_ms"],
                      "plain_ms": c5["resolve"]["plain_ms"],
                      **bound_keys(c5["resolve"]["bound"])}},
         {"name": "fused resolve backward", "route": "cuda",
@@ -6272,16 +6402,28 @@ def main():
            **bound_keys(shade_bwd[f"{stage}_bwd"]["bound"]),
            "library_ms": None,
            "per_launch_ms": shade_bwd[f"{stage}_bwd"]["ms"],
-           **({"old_design_ms": sum(shade_bwd["surface_bwd"]["old_ms"]),
-               "per_launch_old_design_ms": shade_bwd["surface_bwd"]["old_ms"],
-               "per_launch_ms_without_the_table":
+           "old_design_ms": sum(shade_bwd[f"{stage}_bwd"]["old_ms"]),
+           "per_launch_old_design_ms": shade_bwd[f"{stage}_bwd"]["old_ms"],
+           **({"per_launch_ms_without_the_table":
                shade_bwd["surface_bwd"]["no_table_ms"],
                "per_ray_bit_equal_to_old_design":
                shade_bwd["surface_bwd"]["bit_equal_to_old"],
                "colour_rows": shade_bwd["surface_bwd"]["contention"],
                "ptxas": {k: ptxas.get(k) for k in (
                    "surface_bwd_merged_kernel", "surface_bwd_kernel")}}
-              if stage == "surface" else {})}
+              if stage == "surface" else {
+               "path": "the redesign (combine_bwd_resident_kernel); "
+                       "old_design_ms: the first design "
+                       "(combine_bwd_kernel), old, new, new, old in the "
+                       "same call; every held launch bit-equal to it on "
+                       "all nine cotangents with outputs filled with NaN "
+                       "first",
+               "bit_equal_to_old_design": True,
+               "paths": {"fit_step": shade_bwd["combine_bwd"]["paths"],
+                         "config4_fit_step":
+                         c4["held"]["shade_bwd"]["combine_bwd"]["paths"]},
+               "ptxas": {k: ptxas.get(k) for k in (
+                   "combine_bwd_resident_kernel", "combine_bwd_kernel")}})}
           for stage, replaces in (
               ("surface",
                "vrt/render/renderer.py:306 (XLA's transpose of _shade_lit's "

@@ -34,6 +34,9 @@ gradients through K1 and K3 on the card agree with the CPU's to rtol 1e-5
 rounds the shading's transcendentals and sums in its own order.  The shade
 surface backward's merged kernel gives per-ray cotangents bit-equal to its
 first design's, and both colour tables within the backward's tolerance.
+The combine backward's and the fused resolve forward's redesigns are
+bit-equal to their first designs on every output, with outputs filled
+with NaN first.
 """
 
 import dataclasses
@@ -470,7 +473,8 @@ def test_warp_slots_of_registers(regs, threads, want):
 @pytest.mark.parametrize("probe,source", [
     ("MARCH", "march.cu"), ("SURFACE_BWD", "shade.cu"),
     ("SHADE_FWD", "shade.cu"), ("RESOLVE_BWD", "resolve.cu"),
-    ("SLAB", "march.cu")])
+    ("SLAB", "march.cu"), ("COMBINE_BWD", "shade.cu"),
+    ("RESOLVE_FWD", "resolve.cu")])
 def test_probe_caps_variants_name_source_constants(probe, source):
     """Every variant of ``vrt_torch.apps.probe_caps`` sets constants that
     its source defines exactly once (the probe rewrites them with this
@@ -559,6 +563,119 @@ def test_fused_resolve_matches_plain_on_card(table, offset, interp, debug):
     assert t.requires_grad
     assert (kr.LAUNCHES, k3.LAUNCHES["K3 gather"]) == (before[0],
                                                        before[1] + 1)
+
+
+def _off_boundary(x):
+    """A copy of ``x`` based one element into its storage: off every
+    16-byte boundary, so a redesign's launch over it takes its scalar
+    path."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = flat[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def _every_kind(hit):
+    """``hit`` with some lanes' kinds rewritten so that every kind the
+    fused resolve treats apart occurs: exhausted lanes (3) and solid
+    entries (2) among the march's surface, debug and miss lanes."""
+    lane = torch.arange(hit.kind.numel(), device=hit.kind.device)
+    kind = hit.kind.clone()
+    kind[lane % 13 == 4] = 3
+    kind[lane % 17 == 6] = 2
+    return dataclasses.replace(hit, kind=kind)
+
+
+RESOLVE_DESIGN_CASES = [f"{table}-{load}-{n}" for table in ("f32", "bf16")
+                        for load in ("v16", "ldg") for n in (1, 2, 12, 20)] \
+    + ["planes-2", "planes-4"]
+
+
+def _resolve_designs(kr, call, want, lanes=None):
+    """``call(old_design)`` on the redesign and on the first design, one
+    launch each, outputs filled with NaN (True) first: bit-equal on every
+    lane, and on ``lanes`` (all where None) equal to ``want``, NaN equal to
+    NaN."""
+    saved = kr._empty
+    kr._empty = _nan_outputs(kr)
+    try:
+        before = kr.LAUNCHES["forward"]
+        new = call(False)
+        old = call(True)
+    finally:
+        kr._empty = saved
+    torch.cuda.synchronize()
+    assert kr.LAUNCHES["forward"] == before + 2
+    for name, a, b, w in zip(("t", "normal", "unlit"), new, old, want):
+        assert _bit_equal(a, b), name
+        if lanes is not None:
+            a, w = a[lanes], w[lanes]
+        assert _bit_equal(a, w), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RESOLVE_DESIGN_CASES)
+def test_fused_resolve_designs_on_card(case):
+    """The fused resolve's redesign (every lane's kind, t and face normal
+    loaded at once, a hit lane's ray, instance and cell at once after them)
+    against its first design and its plain version, on rays based on and
+    off a 16-byte boundary, outputs filled with NaN first: bit-equal on
+    every lane, with f32 and bf16 tables on the 16-byte and the element
+    loads, over 1, 2, 12 and 20 instances, lanes of every kind (surface,
+    solid entry, debug, exhausted, miss, some with ``inst = -1``); and the
+    planes variant over each slab of a volume split in 2 and 4, equal to
+    ``resolve_slab_hits`` on the lanes the slab owns."""
+    from vrt_torch.kernels import resolve as kr
+
+    dev = _card()
+    table, rest = case.split("-", 1)
+    if table == "planes":
+        from vrt_torch.core import quat as vq
+        from vrt_torch.dist import brick
+        from vrt_torch.dist.slab_render import SlabTracer, default_fit_scene
+
+        vol = _slab_volume()
+        s_count = int(rest)
+        slabs = brick.shard_volume(vol, s_count)
+        light = np.asarray(vq.forward_vector(vq.from_euler_degrees(
+            0, 45, -30)), np.float32)
+        scene = default_fit_scene(vol.n_voxels, vol.cell_size, vol.extends,
+                                  light, device=dev)
+        o_w, d_w, t_max = _slab_rays(dev)
+        for s in range(s_count):
+            slab = slabs.local(s, dev)
+            o, d = SlabTracer(slab, None)._object_rays(scene, o_w, d_w)
+            hit = _every_kind(brick.march_volume_slab(slab, o, d, t_max))
+            inst = torch.where(hit.hit, 0, -1).to(torch.int32)
+            with torch.no_grad():
+                want = brick.resolve_slab_hits(slab, o, d, hit)
+            owned = (hit.hit & (hit.cell[:, 0] >= slab.cell_lo)
+                     & (hit.cell[:, 0] < slab.cell_hi) & (hit.kind == 1))
+            assert int(owned.sum()) > 0 or s in (0, s_count - 1)
+            for rays in (o_w, _off_boundary(o_w)):
+                _resolve_designs(
+                    kr, lambda old: kr.resolve_slab_cuda(
+                        scene, slab, rays, d_w, hit, inst, _old_design=old),
+                    want, owned)
+        return
+    load, n_inst = rest.split("-")
+    dtype = torch.bfloat16 if table == "bf16" else None
+    ts = _with_table(_crowd(5, "chebyshev", dtype, int(n_inst), dev), 8,
+                     0 if load == "v16" else 1)
+    assert kr.load_path(ts.volumes.corners) == load
+    o, d, t_max = scene_rays(6, 65536, dev)
+    hit, inst = tren.march_scene(ts, o, d, t_max, True, True)
+    inst[::5] = -1
+    hit = _every_kind(hit)
+    kinds = torch.bincount(hit.kind, minlength=6).tolist()
+    assert all(kinds[k] > 0 for k in (0, 1, 2, 3, 5)), kinds
+    with torch.no_grad():
+        want = tren.resolve_scene_reference(ts, o, d, hit, inst)
+    for rays in (o, _off_boundary(o)):
+        _resolve_designs(
+            kr, lambda old: kr.resolve_scene_cuda(ts, rays, d, hit, inst,
+                                                  _old_design=old),
+            want)
 
 
 def on_cell_faces(ts, o, d, hit, inst, lanes, seed):
@@ -2392,6 +2509,106 @@ def test_fit_fixture_through_shade_backward_on_card():
 
 # ---- K4's forward redesign against its first design on the card --------------
 #
+COMBINE_MODES = {"lit": RenderMode(),
+                 "unlit-lanes": RenderMode(debug_overlay=True),
+                 "unlit-mode": RenderMode(lit=False)}
+COMBINE_LIGHTS = {"sun": (0, 0), "points-spot": (2, 1)}
+COMBINE_NAMES = ("albedo", "shadow_origin", "n_w", "roughness", "metallic",
+                 "refl_dir", "d_w", "n_obj", "refl_rgb")
+
+
+def _combine_case(mode, lights, mirror, rays, dev, seed=0):
+    """The combine stage's inputs on ``rays`` camera rays of the textured
+    scene with ``lights`` (the sun alone, or two point lights and a spot
+    light) in ``mode``: the surface kernel's record (its miss lanes as the
+    kernel leaves them), seeded roughness on the hit lanes around the
+    mirror's gate (some at 0.3 and some just under), the bounce's radiance
+    where ``mirror``, seeded shadow booleans and the radiance's
+    cotangent.  Returns the combine backward's arguments before
+    ``g_rgb``, and ``g_rgb``."""
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.render.camera import camera_rays
+    from vrt_torch.scenes import shading_scene
+
+    points, spots = COMBINE_LIGHTS[lights]
+    scene = shading_scene(5, points, spots, device=dev)
+    m = COMBINE_MODES[mode]
+    width = 256 if rays % 256 == 0 else 63
+    o, d = camera_rays(scene.cam_pos, scene.cam_rot, scene.cam_fov, width,
+                       rays // width)
+    o, d = o.contiguous(), d.contiguous()
+    assert o.shape[0] == rays
+    t_max = torch.full((rays,), tren.RADIANCE_TMAX, device=dev)
+    hit, inst = tren.march_scene(scene, o, d, t_max, m.interp,
+                                 debug_overlay=m.debug_overlay)
+    t, n_obj, unlit = tren.resolve_scene(scene, o, d, hit, inst)
+    bounce = mirror and m.lit
+    rec = k4.shade_surface_cuda(scene, o, d, t, n_obj, hit, inst, m, bounce,
+                                m.lit)
+    rng = np.random.default_rng(seed)
+
+    def uniform(*shape):
+        return torch.from_numpy(rng.uniform(size=shape).astype(
+            np.float32)).to(dev)
+
+    refl = blocked = None
+    if m.lit:
+        rough = uniform(rays) * 0.6
+        rough[::7] = 0.3
+        rough[3::7] = float(np.nextafter(np.float32(0.3), np.float32(0.0)))
+        rec.roughness = torch.where(hit.hit, rough, rec.roughness)
+        blocked = [uniform(rays) < 0.3
+                   for _ in range(1 + scene.num_point + scene.num_spot)]
+        refl = uniform(rays, 3) if bounce else None
+    g_rgb = torch.from_numpy(rng.normal(size=(rays, 3)).astype(
+        np.float32)).to(dev)
+    assert 0 < int(hit.hit.sum()) < rays
+    return (scene, rec, d, n_obj, hit.hit, unlit, refl, blocked, m), g_rgb
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rays", [65536, 4095])
+@pytest.mark.parametrize("path", ["v4", "scalar"])
+@pytest.mark.parametrize("mirror", [True, False], ids=["mirror", "no-mirror"])
+@pytest.mark.parametrize("lights", sorted(COMBINE_LIGHTS))
+@pytest.mark.parametrize("mode", sorted(COMBINE_MODES))
+def test_combine_backward_designs_on_card(mode, lights, mirror, path, rays):
+    """The combine backward's redesign (resident blocks, the lights staged
+    once a block, 16-byte spans, a warp without a hit on the env lookup's
+    backward alone) against its first design and against
+    ``shade_combine_backward_reference`` on the same inputs, lit, with
+    unlit-attribute lanes and in unlit mode, with the sun alone and with
+    two point lights and a spot light, with and without the mirror term, on
+    the vector path and on the scalar path (the direction based off a
+    16-byte boundary), at 65,536 rays and at an odd 4,095 (a partial last
+    warp): outputs filled with NaN first, all nine cotangents bit-equal to
+    the first design's, both within tolerance of the plain version."""
+    from vrt_torch.kernels import shade as k4
+
+    dev = _card()
+    args, g_rgb = _combine_case(mode, lights, mirror, rays, dev)
+    if path == "scalar":
+        args = args[:2] + (_off_boundary(args[2]),) + args[3:]
+    saved = k4._empty
+    k4._empty = _nan_outputs(k4)
+    try:
+        paths = dict(k4.PATH_LAUNCHES)
+        new = k4.shade_combine_backward_cuda(*args, g_rgb)
+        moved = {k: k4.PATH_LAUNCHES[k] - paths[k] for k in paths}
+        old = k4.shade_combine_backward_cuda(*args, g_rgb, _old_design=True)
+    finally:
+        k4._empty = saved
+    torch.cuda.synchronize()
+    assert moved == {**{k: 0 for k in paths}, f"combine_bwd {path}": 1}
+    want = tren.shade_combine_backward_reference(*args, g_rgb)
+    for name, a, b in zip(COMBINE_NAMES, new, old):
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert _bits_equal(a, b), name
+    _assert_grads_close(COMBINE_NAMES, new, want)
+    _assert_grads_close(COMBINE_NAMES, old, want)
+
+
 # The redesign (resident blocks, a warp's [32,3] spans in 16-byte words) and
 # the first design (one thread a ray) compute each lane's values with the
 # same device functions in the same order: every lane either writes must be
@@ -2903,6 +3120,57 @@ def test_slab_backward_over_one_slab_equals_the_scene_backward_on_card():
         assert scale > 0
         assert (s_acc[2:2 + cc] - c_acc).abs().max().item() <= 1e-6 * scale
         assert not bool(s_acc[:2].any()) and not bool(s_acc[2 + cc:].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("old_design", [False, True], ids=["new", "old"])
+@pytest.mark.parametrize("wrapper", ["scene", "slab"])
+def test_resolve_backward_on_a_side_stream_on_card(wrapper, old_design):
+    """The resolve backward launched inside ``torch.cuda.stream`` of a new
+    stream, behind a sleep queued on that stream, equals the same launch on
+    the default stream: ray gradients bit for bit, the table's gradient
+    within 1e-5 * max|sum| (its reductions add in any order).  A launch on
+    any other stream than the side stream would run before the sleep and
+    the wrapper's zero fill of the accumulator, or fail."""
+    from vrt_torch.dist import brick
+    from vrt_torch.kernels import resolve as kr
+    from vrt_torch.scenes import config5_scene
+
+    dev = _card()
+    if wrapper == "scene":
+        ts = _with_table(_crowd(5, "chebyshev", None, 2, dev), 8, 0)
+        o, d, hit, inst, g_t, g_n = _contended_hits(ts, "neighbours", dev)
+
+        def call():
+            return kr.resolve_scene_backward_cuda(
+                ts, o, d, hit, inst, g_t, g_n, _old_design=old_design)
+    else:
+        vol = _slab_volume()
+        slab = dataclasses.replace(brick.shard_volume(vol, 1).local(0, dev),
+                                   table="packed")
+        scene = config5_scene(vol, dev, stub=False)
+        o, d, _ = _slab_rays(dev)
+        hit, inst, _, g_t, g_n = _slab_backward_case(dev, slab, scene, o, d,
+                                                     0)
+
+        def call():
+            return kr.resolve_slab_backward_cuda(
+                scene, slab, o, d, hit, inst, g_t, g_n,
+                _old_design=old_design)
+    want = call()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(device=dev)
+    assert side.cuda_stream != 0
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        got = call()
+    side.synchronize()
+    for name, a, b in zip(("g_o_w", "g_d_w"), got[:2], want[:2]):
+        assert _bits_equal(a, b), name
+    scale = want[2].abs().max().item()
+    assert scale > 0
+    assert (got[2] - want[2]).abs().max().item() <= 1e-5 * scale
 
 
 @pytest.mark.gpu

@@ -422,3 +422,25 @@ class TestDispatch:
         with pytest.raises(ValueError):
             kr.ResolveScene.apply(o, d, ts.volumes.corners.clone(), ts, hit,
                                   inst)
+
+
+# The forward's first design stays behind ``_old_design``, the comparator
+# of ``chip_smoke.py``; neither design has a CPU path.
+
+@pytest.mark.parametrize("old_design", [False, True], ids=["new", "old"])
+@pytest.mark.parametrize("wrapper", ["scene", "slab"])
+def test_forward_wrappers_refuse_cpu_tensors(wrapper, old_design):
+    """Either design of the fused resolve forward takes CUDA tensors only:
+    on CPU tensors both wrappers raise and launch nothing (the dispatcher
+    runs the plain version there)."""
+    ts = _scenes("octree-f32")[1]
+    o, d, hit, inst, _, _ = _marched(ts, size=16)
+    before = dict(kr.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        if wrapper == "scene":
+            kr.resolve_scene_cuda(ts, o, d, hit, inst,
+                                  _old_design=old_design)
+        else:
+            kr.resolve_slab_cuda(ts, None, o, d, hit, inst,
+                                 _old_design=old_design)
+    assert kr.LAUNCHES == before

@@ -318,3 +318,251 @@ def test_functions_and_backward_wrappers_refuse():
         k4.shade_combine_backward_cuda(scene, rec, d, n_obj, hit.hit, unlit,
                                        None, None, mode, torch.zeros_like(d))
     assert k4.LAUNCHES == before
+
+
+# The combine backward's redesign moves a warp's [32,3] spans in 16-byte
+# words where every one that the launch touches starts on a 16-byte
+# boundary (``combine_bwd_vectors``, judged by ``shade_path``), else every
+# lane its own words; its first design stays behind ``_old_design``.
+
+COMBINE_SPANS = ("none", "d_w", "g_rgb", "hit", "unlit", "albedo",
+                 "shadow_origin", "n_w", "refl_dir", "refl_rgb", "g_albedo",
+                 "g_d_w", "g_roughness")
+
+
+@pytest.mark.parametrize("which", COMBINE_SPANS)
+def test_combine_backward_path_follows_alignment(which):
+    """``shade_path`` over ``combine_bwd_vectors``: "v4" where the
+    direction, the radiance's cotangent, both flags, the record's [R,3]
+    floats, the mirror ray and its radiance and every [R,3] cotangent all
+    start on a 16-byte boundary; "scalar" where any one does not.  An [R]
+    cotangent (roughness) is written lane by lane on either path and does
+    not count; the design int follows the path, the first design takes
+    neither."""
+    from tests.test_torch_kernels import _off_boundary
+
+    rays = 64
+    rng = np.random.default_rng(3)
+
+    def f32(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    x = dict(d_w=f32(rays, 3), g_rgb=f32(rays, 3),
+             hit=torch.ones(rays, dtype=torch.bool),
+             unlit=torch.zeros(rays, dtype=torch.bool), albedo=f32(rays, 3),
+             shadow_origin=f32(rays, 3), n_w=f32(rays, 3),
+             refl_dir=f32(rays, 3), refl_rgb=f32(rays, 3),
+             g_albedo=f32(rays, 3), g_d_w=f32(rays, 3),
+             g_roughness=f32(rays))
+    if which != "none":
+        x[which] = _off_boundary(x[which])
+    rec = SurfaceRecord(albedo=x["albedo"], shadow_origin=x["shadow_origin"],
+                        n_w=x["n_w"], refl_dir=x["refl_dir"])
+    outs = [x["g_albedo"], None, None, x["g_roughness"], None, None,
+            x["g_d_w"], None, None]
+    got = k4.shade_path(k4.combine_bwd_vectors(
+        x["d_w"], x["g_rgb"], x["hit"], x["unlit"], rec, x["refl_rgb"],
+        outs))
+    want = "v4" if which in ("none", "g_roughness") else "scalar"
+    assert got == want
+    # without a bounce the mirror ray is not read
+    no_bounce = k4.shade_path(k4.combine_bwd_vectors(
+        x["d_w"], x["g_rgb"], x["hit"], x["unlit"], rec, None, outs))
+    assert no_bounce == ("v4" if which in ("none", "g_roughness", "refl_dir",
+                                           "refl_rgb") else "scalar")
+    assert k4._design(False, got) == (2 if want == "v4" else 1)
+    assert k4._design(True, got) == 0
+
+
+@pytest.mark.parametrize("old_design", [False, True], ids=["new", "old"])
+def test_combine_backward_refuses_cpu_tensors(old_design):
+    """Either design of the combine backward takes CUDA tensors only: on
+    CPU tensors the wrapper raises and launches nothing."""
+    scene = shading_scene(3, 1, 1, device="cpu")
+    mode = RenderMode()
+    o, d, hit, inst, t, n_obj, unlit = _level_inputs(scene, mode, 8, 6)
+    rec = tren.shade_surface_reference(scene, o, d, t, n_obj, hit, inst,
+                                       mode, False, False)
+    before = (dict(k4.LAUNCHES), dict(k4.PATH_LAUNCHES))
+    with pytest.raises(ValueError, match="CUDA"):
+        k4.shade_combine_backward_cuda(scene, rec, d, n_obj, hit.hit, unlit,
+                                       None, None, mode, torch.zeros_like(d),
+                                       _old_design=old_design)
+    assert (k4.LAUNCHES, k4.PATH_LAUNCHES) == before
+
+
+# The combine stage's branches, each the one a lane takes in the kernels
+# (combine_bwd_branch in csrc/shade.cu): the plain backward
+# ``shade_combine_backward_reference`` against ``jax.vjp`` of the same
+# stage written with vrt's own functions (the tail of
+# ``vrt.render.renderer._shade_lit`` and the selects of ``trace_radiance``:
+# ``vrt.shade.brdf.radiance``, ``vrt.shade.lights``,
+# ``vrt.shade.texture.sample_env``), on 64 seeded lanes a case.
+
+COMBINE_BRANCHES = ("miss", "unlit-lanes", "unlit-mode", "mirror-under-0.3",
+                    "mirror-at-0.3", "light-at-threshold")
+
+
+def _vrt_combine(scene, mode, hit, unlit, blocked, k, bounce):
+    """vrt's combine stage as a function of the record's floats, the
+    direction, the attribute normal and the bounce's radiance."""
+    from vrt.render.renderer import _safe_div
+    from vrt.shade import brdf as vbrdf
+    from vrt.shade import lights as vlights
+    from vrt.shade import texture as vtex
+
+    def j(x):
+        return jnp.asarray(x.numpy())
+
+    env = j(scene.env)
+    hit, unlit, k = j(hit), j(unlit), j(k)
+    blocked = [j(b) for b in blocked] if blocked is not None else None
+
+    def stage(albedo, so, n_w, rough, metal, refl_dir, d_w, n_obj, refl_rgb):
+        miss_rgb = vtex.sample_env(env, d_w)
+        if not mode.lit:
+            shaded = albedo
+        else:
+            diffuse = jnp.full(d_w.shape, vbrdf.SHADOW_BRIGHTNESS)
+            wo = -d_w
+            if bounce:
+                r = jnp.maximum(0.0, refl_rgb
+                                * (1.0 - (rough * 2.2)[..., None]))
+                add = vbrdf.radiance(r, refl_dir, wo, n_w, albedo, rough,
+                                     metal, k)
+                diffuse = diffuse + jnp.where((rough < 0.3)[..., None], add,
+                                              0.0)
+            dir_add = vbrdf.radiance(
+                jnp.broadcast_to(j(scene.dir_light_strength), d_w.shape),
+                jnp.broadcast_to(j(scene.dir_light_dir), d_w.shape), wo, n_w,
+                albedo, rough, metal, k)
+            diffuse = diffuse + jnp.where(blocked[0][..., None], 0.0,
+                                          dir_add)
+            for pi in range(scene.num_point):
+                delta = j(scene.point_pos)[pi] - so
+                dist = jnp.linalg.norm(delta, axis=-1)
+                inten = vlights.point_light_intensity(
+                    j(scene.point_intensity)[pi], dist,
+                    j(scene.point_att_l)[pi], j(scene.point_att_e)[pi])
+                li = j(scene.point_color)[pi][:3] * inten[..., None]
+                sdir = _safe_div(delta, dist[..., None])
+                add = vbrdf.radiance(li, sdir, wo, n_w, albedo, rough, metal,
+                                     k)
+                lit = (inten > 0.005) & ~blocked[1 + pi]
+                diffuse = diffuse + jnp.where(lit[..., None], add, 0.0)
+            for si in range(scene.num_spot):
+                delta = j(scene.spot_pos)[si] - so
+                dist = jnp.linalg.norm(delta, axis=-1)
+                inten = vlights.spot_light_intensity(
+                    so, dist, j(scene.spot_pos)[si], j(scene.spot_fwd)[si],
+                    j(scene.spot_intensity)[si], j(scene.spot_att_l)[si],
+                    j(scene.spot_att_e)[si], j(scene.spot_cos_angle)[si],
+                    j(scene.spot_cos_falloff)[si])
+                li = j(scene.spot_color)[si][:3] * inten[..., None]
+                sdir = _safe_div(delta, dist[..., None])
+                add = vbrdf.radiance(li, sdir, wo, n_w, albedo, rough, metal,
+                                     k)
+                lit = (inten > 0.01) & ~blocked[1 + scene.num_point + si]
+                diffuse = diffuse + jnp.where(lit[..., None], add, 0.0)
+            shaded = diffuse
+        shaded = jnp.where(unlit[..., None], n_obj, shaded)
+        return jnp.where(hit[..., None], shaded, miss_rgb)
+
+    return stage
+
+
+@pytest.mark.parametrize("branch", COMBINE_BRANCHES)
+def test_combine_backward_matches_vrt_vjp_on_branches(branch):
+    """Each branch a lane of the combine backward takes: miss lanes (the
+    env lookup's backward alone), unlit-attribute lanes among lit ones,
+    unlit mode, the mirror term at a roughness just under 0.3 (taken) and
+    at 0.3 (not taken), and two point lights of intensity exactly at their
+    0.005 floor (not lit) and one float step above it (lit): all nine
+    cotangents within ``VRT_GRAD_RTOL`` * max|g| and ``VRT_COS_TOL`` of
+    ``jax.vjp``."""
+    rays = 64
+    rng = np.random.default_rng(11)
+    points = 2 if branch == "light-at-threshold" else 1
+    scene = shading_scene(3, points, 1, device="cpu")
+    mode = RenderMode(lit=branch != "unlit-mode")
+
+    def f32(x):
+        return torch.from_numpy(np.asarray(x, np.float32))
+
+    def unit(n):
+        v = rng.normal(size=(n, 3))
+        return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+    d_w = f32(unit(rays))
+    n_w = unit(rays)
+    n_w = f32(n_w * -np.sign((n_w * d_w.numpy()).sum(1, keepdims=True)))
+    so = f32(scene.point_pos[0].numpy() + rng.uniform(-60, 60, (rays, 3)))
+    rough = rng.uniform(0.05, 0.9, rays)
+    if branch == "mirror-under-0.3":
+        rough[:] = np.nextafter(np.float32(0.3), np.float32(0.0))
+    elif branch == "mirror-at-0.3":
+        rough[:] = np.float32(0.3)
+    if branch == "light-at-threshold":
+        floor = np.float32(0.005)
+        scene = dataclasses.replace(
+            scene, point_att_l=torch.zeros_like(scene.point_att_l),
+            point_att_e=torch.zeros_like(scene.point_att_e),
+            point_intensity=scene.point_intensity.clone())
+        scene.point_intensity[0] = float(floor)
+        scene.point_intensity[1] = float(np.nextafter(floor, np.float32(1)))
+    hit = torch.from_numpy(rng.uniform(size=rays) < 0.8)
+    hit[:4] = True
+    if branch == "miss":
+        hit[:] = False
+    unlit = torch.zeros(rays, dtype=torch.bool)
+    if branch == "unlit-lanes":
+        unlit = torch.from_numpy(rng.uniform(size=rays) < 0.5) & hit
+    bounce = mode.lit and branch != "light-at-threshold"
+    blocked = None
+    if mode.lit:
+        blocked = [torch.from_numpy(rng.uniform(size=rays) < 0.2)
+                   for _ in range(1 + scene.num_point + scene.num_spot)]
+        if branch == "light-at-threshold":
+            for b in blocked[1:1 + points]:
+                b[:] = False
+    floats = dict(albedo=f32(rng.uniform(0.1, 0.9, (rays, 3))),
+                  shadow_origin=so, n_w=n_w, roughness=f32(rough),
+                  metallic=f32(rng.uniform(0.0, 1.0, rays)),
+                  refl_dir=f32(unit(rays)))
+    k = f32(rng.uniform(0.05, 0.5, rays))
+    n_obj = f32(unit(rays))
+    refl_rgb = f32(rng.uniform(0.0, 1.0, (rays, 3))) if bounce else None
+    g_rgb = f32(rng.normal(size=(rays, 3)))
+    if mode.lit:
+        rec = SurfaceRecord(**floats, k=k)
+        if not bounce:
+            rec.refl_dir = None
+    else:
+        rec = SurfaceRecord(albedo=floats["albedo"])
+    got = tren.shade_combine_backward_reference(
+        scene, rec, d_w, n_obj, hit, unlit, refl_rgb, blocked, mode, g_rgb)
+
+    stage = _vrt_combine(scene, mode, hit, unlit, blocked, k, bounce)
+    primals = [jnp.asarray(floats[f].numpy()) for f in RECORD_GRAD_FIELDS] \
+        + [jnp.asarray(d_w.numpy()), jnp.asarray(n_obj.numpy()),
+           jnp.asarray((refl_rgb if bounce else torch.zeros(rays, 3))
+                       .numpy())]
+    _, vjp = jax.vjp(stage, *primals)
+    want = [torch.from_numpy(np.array(w)) for w in
+            vjp(jnp.asarray(g_rgb.numpy()))]
+    names = list(RECORD_GRAD_FIELDS) + ["d_w", "n_obj", "refl_rgb"]
+    for name, a, b in zip(names, got, want):
+        if a is None:
+            # an input the stage does not read in this mode
+            assert not bool(b.any()), name
+            continue
+        _assert_grads_close([a], [b], VRT_GRAD_RTOL, VRT_COS_TOL, [name])
+    taken = {"miss": "d_w", "unlit-lanes": "n_obj", "unlit-mode": "albedo",
+             "mirror-under-0.3": "refl_rgb", "mirror-at-0.3": "n_w",
+             "light-at-threshold": "shadow_origin"}[branch]
+    assert bool(got[names.index(taken)].any()), taken
+    if branch == "mirror-at-0.3":
+        assert not bool(got[names.index("refl_rgb")].any())
+    if branch == "miss":
+        assert all(g is None or not bool(g.any())
+                   for n, g in zip(names, got) if n != "d_w")

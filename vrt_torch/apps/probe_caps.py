@@ -9,6 +9,7 @@ CUDA card.
 
     python3 -m vrt_torch.apps.probe_caps [march] [surface_bwd] [shade_fwd]
                                          [resolve_bwd] [slab] [pyramid]
+                                         [combine_bwd] [resolve_fwd]
 
 Each kernel's block and register cap are constants of its source
 (``kSceneThreads``, ``kSceneMinBlocks`` and ``kAnyHitMinBlocks`` in
@@ -20,7 +21,10 @@ lanes' work out; ``kMergeRows`` and ``kVecReduce`` in ``resolve.cu``
 switch the backward's merge of a warp's row cotangents by hit cell and its
 16-byte reductions, and ``kBwdMinBlocks`` sets its register cap;
 ``kSlabThreads`` and ``kSlabMinBlocks`` in ``march.cu`` set K7's block
-and its register cap; ``kPyramidMinBlocks`` and ``kTailBytes`` in
+and its register cap; ``kCombineBwdThreads``, ``kCombineBwdMinBlocks`` and
+``kCombineBwdFetchDepth`` in ``shade.cu`` the combine backward's, and its
+rounds fetched ahead; ``kResolveThreads`` and ``kResolveMinBlocks`` in
+``resolve.cu`` the fused resolve forward's; ``kPyramidMinBlocks`` and ``kTailBytes`` in
 ``accel.cu`` the one-launch pyramid's register cap and persistent grid,
 and the shared memory in which its last block keeps the levels it
 reduces).  For
@@ -46,9 +50,14 @@ node step), the SIMT efficiency of its warps in launch order and of dense
 warps of its live lanes (from the kernel's step counts), and the first
 design (the packed table) beside the builds; and each slab's resolve
 backward into its planes on ``vrt/apps/scaling.py``'s 4,096 rays with
-random cotangents on the lanes it owns.  Each build must give the default
+random cotangents on the lanes it owns; for ``combine_bwd``, the three
+combine backwards of one 1080p config6 fit step and the two of one config4
+fit step (65,536 rays each); for ``resolve_fwd``, the three fused resolves
+of the flagship's 1080p interp frame, the one of config7's 512x512 frame
+and the two of one config4 fit step.  Each build must give the default
 build's result (the marches
-field by field, the per-ray cotangents bit for bit, the forward pair on
+field by field, the per-ray cotangents bit for bit (every output of the
+combine backward and of the fused resolve), the forward pair on
 every lane both write; the miss-only build on the miss lanes; the resolve
 backward's table within ``SCATTER_RTOL`` of the default build's largest
 entry); each launch is timed as device time (``device_ms``), the default
@@ -140,6 +149,22 @@ PYRAMID = (
      256),
     ("8 blocks an SM, 8 KB of levels in the last block",
      {"kPyramidMinBlocks": 8, "kTailBytes": 8192}, 256))
+COMBINE_BWD = (
+    ("default: resident, 256 threads, 2 blocks an SM, 1 round fetched ahead",
+     {}, 256),
+    ("none fetched ahead", {"kCombineBwdFetchDepth": 1}, 256),
+    ("64 threads, 8 blocks an SM",
+     {"kCombineBwdThreads": 64, "kCombineBwdMinBlocks": 8}, 64),
+    ("128 threads, 4 blocks an SM",
+     {"kCombineBwdThreads": 128, "kCombineBwdMinBlocks": 4}, 128),
+    ("256 threads, 3 blocks an SM", {"kCombineBwdMinBlocks": 3}, 256))
+RESOLVE_FWD = (
+    ("default: 256 threads, 5 blocks an SM", {}, 256),
+    ("uncapped", {"kResolveMinBlocks": 1}, 256),
+    ("4 blocks an SM", {"kResolveMinBlocks": 4}, 256),
+    ("6 blocks an SM", {"kResolveMinBlocks": 6}, 256),
+    ("128 threads, 10 blocks an SM",
+     {"kResolveThreads": 128, "kResolveMinBlocks": 10}, 128))
 SHADE_KERNELS = ("surface_resident_kernel", "combine_resident_kernel")
 # the resolve backward's table against the default build's: its sums add in
 # another order (chip_smoke.py's SCATTER_RTOL)
@@ -230,6 +255,15 @@ def _same_resolve_bwd(got, want, args, label):
     scale = want[2].abs().max().item()
     return rays and (got[2] - want[2]).abs().max().item() <= \
         SCATTER_RTOL * scale
+
+
+def _same_bits(got, want, args, label):
+    """Every output bit for bit (NaN to NaN), None where the default
+    build's is None."""
+    return len(got) == len(want) and all(
+        (a is None and b is None) or (
+            a is not None and b is not None and _equal_where(a, b, None))
+        for a, b in zip(got, want))
 
 
 def _equal_where(a, b, lanes):
@@ -518,7 +552,8 @@ def main(argv=None) -> int:
     from vrt_torch.kernels import resolve as kr
 
     probes = set(sys.argv[1:] if argv is None else argv) or {
-        "march", "surface_bwd", "shade_fwd", "resolve_bwd", "slab", "pyramid"}
+        "march", "surface_bwd", "shade_fwd", "resolve_bwd", "slab", "pyramid",
+        "combine_bwd", "resolve_fwd"}
     dev = torch.device("cuda", 0)
     card = card_name()
     entries = ("vrt_shade_surface", "vrt_shade_combine",
@@ -547,6 +582,51 @@ def main(argv=None) -> int:
         targets = torch.zeros((1, 1920 * 1080, 3), device=dev)
         state = opt.init(params)
         return lambda: step(params, state, targets)
+
+    def config4_step():
+        # config4 (vrt/apps/bench.py bench_fit_257): the 257^3 sphere and
+        # its f32 colours, 2 views of 256x256, zero targets, Adam at 1e-2
+        from vrt_torch.apps import bench
+
+        scene, cams = bench.config4_scene(8, 2, device=dev)
+        params = bench._fit_params(scene)
+        opt = adam(bench.ADAM_LR)
+        step = make_fit_step(scene, cams, 256, 256, RenderMode(), opt)
+        targets = torch.zeros((len(cams), 256 * 256, 3), device=dev)
+        state = opt.init(params)
+        return lambda: step(params, state, targets)
+
+    if "combine_bwd" in probes:
+        builds = _builds(k4, "shade.cu", COMBINE_BWD,
+                         ("combine_bwd_resident_kernel",), entries)
+        for what, make in (("the config6 fit step's", config6_step),
+                           ("the config4 fit step's", config4_step)):
+            calls = _recorded(k4, "shade_combine_backward_cuda", make())
+            _report(f"{what} combine backwards", card,
+                    _probe(k4, "shade_combine_backward_cuda", builds, calls,
+                           _same_bits))
+            del calls
+
+    if "resolve_fwd" in probes:
+        from vrt_torch.apps import bench
+
+        builds = _builds(kr, "resolve.cu", RESOLVE_FWD,
+                         ("resolve_lean_kernel",),
+                         ("vrt_resolve_scene", "vrt_resolve_scene_bwd"))
+        flagship = flagship_scene(7, "chebyshev", torch.bfloat16, device=dev)
+        for what, run in (
+                ("the 1080p interp frame's", lambda: render_image(
+                    flagship, 1920, 1080, RenderMode())),
+                ("config7's 512x512 frame's", lambda: render_image(
+                    bench.config7_scene(6, 12, device=dev), 512, 512,
+                    RenderMode())),
+                ("the config4 fit step's", config4_step())):
+            calls = _recorded(kr, "resolve_scene_cuda", run)
+            _report(f"{what} fused resolves", card,
+                    _probe(kr, "resolve_scene_cuda", builds, calls,
+                           _same_bits))
+            del calls
+        del flagship
 
     if "surface_bwd" in probes:
         builds = _builds(k4, "shade.cu", SURFACE_BWD,

@@ -199,23 +199,52 @@ __device__ __forceinline__ SlabPlanes slab_planes(const P& p, int n) {
                     static_cast<long long>(p.tb.cc) + 1, p.cx, p.x0, n};
 }
 
-template <typename E, bool kV16, bool kPlanes = false>
-__global__ void __launch_bounds__(256) resolve_kernel(const ResolveParams p) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= p.rays) return;
-  const int kind = p.kind[i];
-  const float t0 = p.t[i];
+// ---- the forward's redesign -------------------------------------------------
+//
+// What held the first design (resolve_kernel below) back on the H100
+// (chip_smoke.py; ncu cannot run there): a lane without a hit loads its
+// kind, and only then, as the kind decides, its face normal: two round
+// trips to device memory where its bytes ask one, on nearly every lane of
+// the flagship's bounce levels (0.032 ms a launch against about 0.020 ms
+// of bytes); a surface lane loads its ray, instance and cell after its
+// kind.
+//
+// The redesign (resolve_lean_kernel, the default): one thread a ray over
+// the whole grid, as the first design; every lane loads its kind, t and
+// face normal at once (the face normal whatever the kind), a surface or
+// solid-entry lane its ray, instance and cell at once after them, so a
+// lane without a hit waits one round trip and a surface lane two before
+// its transform and rows; the registers capped at 48 (5 blocks of 256 an
+// SM, 62% of the warp slots; uncapped the redesign takes 80-120 and fills
+// 25-38%).  Measured on the card and dropped, each slower than the first
+// design on the flagship frame: resident blocks striding over the rays
+// (with the instance and volume tables staged in shared memory, a warp's
+// kinds, t and face normals fetched rounds ahead by cp.async, and its
+// [32,3] spans moved as 16-byte words through shared memory), the tables
+// staged in shared memory alone, the spans alone, and a surface lane's six
+// neighbour rows, or an axis' two, loaded before the trilinears that read
+// them (more registers at every cap).  Both designs run one lane's
+// arithmetic (resolve_lane) and differ in their loads and register cap
+// only, so every output of the redesign is bit-equal to the first design's
+// (and so to the plain version).  The block and the register cap are the
+// probe's (vrt_torch.apps.probe_caps resolve_fwd).
 
-  float normal[3];
-  float t = t0;
+constexpr int kResolveThreads = 256;
+// blocks an SM must hold at once, a register cap (1: none)
+constexpr int kResolveMinBlocks = 5;
+
+// One lane of either design: t and the normal of a ray of kind ``kind``
+// from the inputs the lane read (o_w, d_w and the instance ``a`` on
+// surface and solid-entry lanes, cell on surface lanes, face elsewhere but
+// on debug lanes).
+template <typename E, bool kV16, bool kPlanes>
+__device__ __forceinline__ void resolve_lane(
+    const ResolveParams& p, int kind, float t0, int a, const float o_w[3],
+    const float d_w[3], const int cell[3], const float face[3], float& t,
+    float normal[3]) {
+  t = t0;
   if (kind == kKindSurface || kind == kKindSolidEntry) {
-    float o_w[3], d_w[3], o[3], d[3];
-    for (int k = 0; k < 3; ++k) {
-      o_w[k] = p.o_w[3 * i + k];
-      d_w[k] = p.d_w[3 * i + k];
-    }
-    const int a = max(p.winner[i], 0);
+    float o[3], d[3];
     world_to_object(p.inst, a, o_w, d_w, o, d);
     const int v = __ldg(p.inst.volume + a);
     const float ext = __ldg(p.tb.extends + v);
@@ -230,58 +259,117 @@ __global__ void __launch_bounds__(256) resolve_kernel(const ResolveParams p) {
         te = k == 0 ? tk : nmax(te, tk);
       }
       t = te + 0.01f;
-      for (int k = 0; k < 3; ++k) normal[k] = p.face[3 * i + k];
-    } else {
-      const int n = __ldg(p.tb.n + v);
-      const float h = __ldg(p.tb.cell_size + v);
-      const long long cc = p.tb.cc;
-      const E* table = static_cast<const E*>(p.tb.corners) +
-                       static_cast<long long>(v) * cc * cc * cc * p.tb.ch;
-      t = isfinite(t0) ? t0 : 0.0f;
-      int cell[3];
-      float q[3];
-      for (int k = 0; k < 3; ++k) {
-        cell[k] = p.cell[3 * i + k];
-        const float base = static_cast<float>(cell[k]) * h - ext;
-        q[k] = ((o[k] + d[k] * t) - base) / h;
-      }
-      // central_difference_normal_rows over the +x, -x, +y, -y, +z, -z
-      // neighbours
-      float g[3];
-      for (int k = 0; k < 3; ++k) {
-        float f[2];
-        for (int s = 0; s < 2; ++s) {
-          int c[3] = {cell[0], cell[1], cell[2]};
-          c[k] += s == 0 ? 1 : -1;
-          float v8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-          if (kPlanes) {
-            slab_planes(p, n).corners(c, v8);
-          } else {
-            const int lx = c[0] - p.x0;
-            const bool valid = c[0] >= 0 && c[1] >= 0 && c[2] >= 0 &&
-                               c[0] + 1 < n && c[1] + 1 < n &&
-                               c[2] + 1 < n && lx >= 0 && lx < p.cx;
-            if (valid)
-              load_row<E, kV16>(
-                  table + ((lx * cc + c[1]) * cc + c[2]) * p.tb.ch, v8);
-          }
-          f[s] = trilinear(v8, q);
-        }
-        g[k] = f[0] - f[1];
-      }
-      const float n2 = (g[0] * g[0] + g[1] * g[1]) + g[2] * g[2];
-      const bool good = n2 > 0.0f && isfinite(n2);
-      const float norm = sqrtf(good ? n2 : 1.0f);
-      for (int k = 0; k < 3; ++k) normal[k] = good ? g[k] / norm : 0.0f;
+      for (int k = 0; k < 3; ++k) normal[k] = face[k];
+      return;
     }
+    const int n = __ldg(p.tb.n + v);
+    const float h = __ldg(p.tb.cell_size + v);
+    const long long cc = p.tb.cc;
+    const E* table = static_cast<const E*>(p.tb.corners) +
+                     static_cast<long long>(v) * cc * cc * cc * p.tb.ch;
+    t = isfinite(t0) ? t0 : 0.0f;
+    float q[3];
+    for (int k = 0; k < 3; ++k) {
+      const float base = static_cast<float>(cell[k]) * h - ext;
+      q[k] = ((o[k] + d[k] * t) - base) / h;
+    }
+    // central_difference_normal_rows over the +x, -x, +y, -y, +z, -z
+    // neighbours
+    float g[3];
+    for (int k = 0; k < 3; ++k) {
+      float f[2];
+      for (int s = 0; s < 2; ++s) {
+        int c[3] = {cell[0], cell[1], cell[2]};
+        c[k] += s == 0 ? 1 : -1;
+        float v8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        if (kPlanes) {
+          slab_planes(p, n).corners(c, v8);
+        } else {
+          const int lx = c[0] - p.x0;
+          const bool valid = c[0] >= 0 && c[1] >= 0 && c[2] >= 0 &&
+                             c[0] + 1 < n && c[1] + 1 < n && c[2] + 1 < n &&
+                             lx >= 0 && lx < p.cx;
+          if (valid)
+            load_row<E, kV16>(
+                table + ((lx * cc + c[1]) * cc + c[2]) * p.tb.ch, v8);
+        }
+        f[s] = trilinear(v8, q);
+      }
+      g[k] = f[0] - f[1];
+    }
+    const float n2 = (g[0] * g[0] + g[1] * g[1]) + g[2] * g[2];
+    const bool good = n2 > 0.0f && isfinite(n2);
+    const float norm = sqrtf(good ? n2 : 1.0f);
+    for (int k = 0; k < 3; ++k) normal[k] = good ? g[k] / norm : 0.0f;
   } else if (kind == kKindDebug) {
     normal[0] = 1.0f;
     normal[1] = 0.0f;
     normal[2] = 0.0f;
   } else {
-    for (int k = 0; k < 3; ++k) normal[k] = p.face[3 * i + k];
+    for (int k = 0; k < 3; ++k) normal[k] = face[k];
   }
+}
 
+// The first design: one thread a ray; a lane loads its kind and t, then
+// what its kind reads.
+template <typename E, bool kV16, bool kPlanes = false>
+__global__ void __launch_bounds__(256) resolve_kernel(const ResolveParams p) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= p.rays) return;
+  const int kind = p.kind[i];
+  const float t0 = p.t[i];
+  float o_w[3] = {0.0f, 0.0f, 0.0f}, d_w[3] = {0.0f, 0.0f, 0.0f};
+  float face[3] = {0.0f, 0.0f, 0.0f};
+  int cell[3] = {0, 0, 0};
+  int a = 0;
+  if (kind == kKindSurface || kind == kKindSolidEntry) {
+    for (int k = 0; k < 3; ++k) {
+      o_w[k] = p.o_w[3 * i + k];
+      d_w[k] = p.d_w[3 * i + k];
+    }
+    a = max(p.winner[i], 0);
+  }
+  if (kind == kKindSurface) {
+    for (int k = 0; k < 3; ++k) cell[k] = p.cell[3 * i + k];
+  } else if (kind != kKindDebug) {
+    for (int k = 0; k < 3; ++k) face[k] = p.face[3 * i + k];
+  }
+  float t, normal[3];
+  resolve_lane<E, kV16, kPlanes>(p, kind, t0, a, o_w, d_w, cell, face, t,
+                                 normal);
+  p.t_out[i] = t;
+  p.unlit[i] = (kind == kKindExhausted || kind == kKindDebug) ? 1 : 0;
+  for (int k = 0; k < 3; ++k) p.normal[3 * i + k] = normal[k];
+}
+
+template <typename E, bool kV16, bool kPlanes>
+__global__ void __launch_bounds__(kResolveThreads, kResolveMinBlocks)
+    resolve_lean_kernel(const ResolveParams p) {
+  const long long i = static_cast<long long>(blockIdx.x) * kResolveThreads +
+                      threadIdx.x;
+  if (i >= p.rays) return;
+  // what a lane without a hit reads, in one round trip
+  const int kind = p.kind[i];
+  const float t0 = p.t[i];
+  float face[3];
+  for (int k = 0; k < 3; ++k) face[k] = p.face[3 * i + k];
+  // what a surface or solid-entry lane reads besides, in one more
+  const bool carries = kind == kKindSurface || kind == kKindSolidEntry;
+  float o_w[3] = {0.0f, 0.0f, 0.0f}, d_w[3] = {0.0f, 0.0f, 0.0f};
+  int cell[3] = {0, 0, 0};
+  int a = 0;
+  if (carries) {
+    a = max(p.winner[i], 0);
+    for (int k = 0; k < 3; ++k) {
+      o_w[k] = p.o_w[3 * i + k];
+      d_w[k] = p.d_w[3 * i + k];
+      cell[k] = p.cell[3 * i + k];
+    }
+  }
+  float t, normal[3];
+  resolve_lane<E, kV16, kPlanes>(p, kind, t0, a, o_w, d_w, cell, face, t,
+                                 normal);
   p.t_out[i] = t;
   p.unlit[i] = (kind == kKindExhausted || kind == kKindDebug) ? 1 : 0;
   for (int k = 0; k < 3; ++k) p.normal[3 * i + k] = normal[k];
@@ -1025,16 +1113,31 @@ cudaError_t launch_merged(const ResolveBwdParams& p, int acc_w,
   return cudaGetLastError();
 }
 
+// One launch of the forward: design 0 the first design, 1 the redesign,
+// each one thread a ray over the whole grid.
+template <typename E, bool kV16, bool kPlanes>
+void launch_forward(const ResolveParams& p, int design, cudaStream_t s) {
+  if (design == 0)
+    resolve_kernel<E, kV16, kPlanes>
+        <<<static_cast<unsigned>((p.rays + 255) / 256), 256, 0, s>>>(p);
+  else
+    resolve_lean_kernel<E, kV16, kPlanes>
+        <<<static_cast<unsigned>((p.rays + kResolveThreads - 1) /
+                                 kResolveThreads),
+           kResolveThreads, 0, s>>>(p);
+}
+
 }  // namespace
 
-// One thread per ray.  bf16 1 reads the corner table as bf16 bits, else as
+// The fused resolve.  bf16 1 reads the corner table as bf16 bits, else as
 // f32; v16 1 takes the 16-byte load path (the caller checks that the rows
 // and the table's base are 16-byte aligned).  The table has cx rows in x,
 // row x holding cell x0 + x (a scene's: x0 0, cx cc; one rank's slab of a
 // slab-sharded volume: its own rows, x0 the slab's first plane), and cc in y
 // and z.  planes 1 reads a slab's f32 voxel planes [cx, cc + 1, cc + 1]
 // from ``corners`` instead (plane x holding global plane x0 + x; bf16 0,
-// v16 0).  Returns cudaGetLastError().
+// v16 0).  design 0 runs the first design (resolve_kernel), 1 the redesign
+// (resolve_lean_kernel).  Returns cudaGetLastError().
 extern "C" int vrt_resolve_scene(
     const float* o_w, const float* d_w, const int32_t* winner,
     const int32_t* kind, const float* t, const int32_t* cell,
@@ -1043,8 +1146,9 @@ extern "C" int vrt_resolve_scene(
     const int32_t* n, const float* cell_size, const float* extends,
     const void* corners, int cc, int ch, int bf16, int v16, int x0, int cx,
     long long rays, float* t_out, float* normal, uint8_t* unlit, int planes,
-    void* stream) {
-  if (n_inst < 1 || ch < 8 || (planes && (bf16 || v16 || cx < 1)))
+    int design, void* stream) {
+  if (n_inst < 1 || ch < 8 || design < 0 || design > 1 ||
+      (planes && (bf16 || v16 || cx < 1)))
     return cudaErrorInvalidValue;
   const ResolveParams p{
       o_w, d_w, winner, kind, t, cell, face,
@@ -1052,16 +1156,11 @@ extern "C" int vrt_resolve_scene(
       Tables{n, cell_size, extends, nullptr, corners, nullptr, cc, ch},
       rays, t_out, normal, unlit, x0, cx};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = static_cast<unsigned>((rays + 255) / 256);
-  if (planes) {
-    resolve_kernel<float, false, true><<<grid, 256, 0, s>>>(p);
-  } else if (bf16) {
-    if (v16) resolve_kernel<uint16_t, true><<<grid, 256, 0, s>>>(p);
-    else resolve_kernel<uint16_t, false><<<grid, 256, 0, s>>>(p);
-  } else {
-    if (v16) resolve_kernel<float, true><<<grid, 256, 0, s>>>(p);
-    else resolve_kernel<float, false><<<grid, 256, 0, s>>>(p);
-  }
+  if (planes) launch_forward<float, false, true>(p, design, s);
+  else if (bf16 && v16) launch_forward<uint16_t, true, false>(p, design, s);
+  else if (bf16) launch_forward<uint16_t, false, false>(p, design, s);
+  else if (v16) launch_forward<float, true, false>(p, design, s);
+  else launch_forward<float, false, false>(p, design, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1305,7 +1305,10 @@ __global__ void __launch_bounds__(kFwdThreads, kCombineMinBlocks)
 // default, below) keeps blocks resident and striding, writes an all-miss
 // warp's zeros in 16-byte stores, merges a warp's colour-row cotangents
 // before the reductions, and caps the registers at 80 (3 blocks an SM): of
-// the probe's builds the fastest over a step's three launches.
+// the probe's builds the fastest over a step's three launches.  The combine
+// backward has two designs too (combine_bwd_kernel, the first, and
+// combine_bwd_resident_kernel, the default; see "combine backward, the
+// redesign" below).
 //
 // Where the derivative has a kink, the kernels take vrt's side (JAX's; the
 // plain stages take it through core/kinks.py):
@@ -1708,6 +1711,325 @@ __global__ void __launch_bounds__(kThreads) combine_bwd_kernel(
   store3(q.g_d_w, i, g_d);
   store3(q.g_n_obj, i, g_nobj);
   store3(q.g_refl_rgb, i, g_rrgb);
+}
+
+// ---- combine backward, the redesign -----------------------------------------
+//
+// What held the first design (combine_bwd_kernel above) back on the H100
+// (chip_smoke.py; ncu cannot run there): one thread a ray over 8,100 blocks
+// at 1080p, each block staging the lights anew; every [R,3] input and
+// output a lane's own 4-byte words at a stride of 12 B (up to seven [R,3]
+// and two [R] cotangents out, about 92 B a lane, most of them zeros); a miss
+// lane through the whole epilogue; 119 registers, 16 of an SM's 64 warp
+// slots.  Config6's last level (4 hits of 2,073,600 lanes) took 0.0936 ms,
+// all miss path and output traffic; at config4's 65,536 rays its 256
+// blocks were under one wave of the card and its time one lane's chain of
+// radiance_bwd calls.
+//
+// The redesign (combine_bwd_resident_kernel, the default): resident blocks
+// striding over the rays, the lights staged once a block.  On the vector
+// path a warp's flags and its [32,3] spans of d_w and g_rgb come by
+// cp.async into a ring of kCombineBwdFetchDepth buffers in shared memory,
+// rounds ahead of the one it works on, so a round starts with its inputs
+// at hand; a warp without a hit runs only the env lookup's backward and
+// writes g_d_w through its stage and the other cotangents as 16-byte zero
+// spans; a lit lane reads its record's floats, scalars and shadow flags
+// at once, and a warp with a hit writes lane by lane.  Measured on the
+// card and dropped: the spans loaded one after another through one stage
+// (a round trip each: slower than the first design), a hit warp's record
+// and cotangents as spans through the stage (slower at config4), no round
+// fetched ahead, the first design's grid, blocks of 64 to 224 threads and
+// other register caps.  Each lane's arithmetic is the first design's, line
+// for line (combine_bwd_lit), so every cotangent it writes is bit-equal to
+// the first design's.  The first design keeps its own lines: run through
+// the redesign's per-lane code (combine_bwd_ray) on its grid it took 9%
+// longer at config6 and 3% less at config4, so it would no longer time
+// the design it stands for.  The block, the register cap and the fetch
+// depth are the probe's (vrt_torch.apps.probe_caps combine_bwd).
+
+constexpr int kCombineBwdThreads = 256;
+constexpr int kCombineBwdWarps = kCombineBwdThreads / 32;
+constexpr int kCombineBwdMinBlocks = 2;
+// rounds a warp has in its ring: the one it works on and those fetched
+// ahead of it (1: none ahead)
+constexpr int kCombineBwdFetchDepth = 2;
+
+// What one lane writes: the nine cotangents of combine_bwd_kernel, zero
+// unless its branch sets them.
+struct CombineGrads {
+  float d[3], nobj[3], alb[3], so[3], nw[3], refl[3], rrgb[3];
+  float r, m;
+};
+
+// What a lit hit lane reads of the record: its floats (refl_rgb and
+// refl_dir only where refl_rgb is passed and roughness < 0.3) and, as bit
+// j of ``dark``, whether shadow trace j was blocked.
+struct CombineRecord {
+  float albedo[3], so[3], n_w[3], rr[3], rdir[3];
+  float roughness, metallic, k;
+  unsigned dark;
+};
+
+// The lane's scalars of the record and its shadow traces' flags (the
+// directional light's bit 0), read together.
+__device__ __forceinline__ void record_scalars(const CombineParams& p,
+                                               long long i,
+                                               CombineRecord& r) {
+  r.roughness = p.roughness[i];
+  r.metallic = p.metallic[i];
+  r.k = p.k[i];
+  r.dark = 0u;
+  for (int j = 0; j < 1 + p.lights.points + p.lights.spots; ++j)
+    if (p.blocked[j] != nullptr && p.blocked[j][i]) r.dark |= 1u << j;
+}
+
+// A lit hit lane's cotangents, the first design's lines, from the record
+// the caller read, added into the zeroed ``o``.
+__device__ __forceinline__ void combine_bwd_lit(
+    const CombineParams& p, const float* sh, const float d_w[3],
+    const float g[3], const CombineRecord& r, CombineGrads& o) {
+  float wo[3], g_wo[3] = {0.0f, 0.0f, 0.0f};
+  float g_li[3], g_wi[3];
+  for (int c = 0; c < 3; ++c) wo[c] = -d_w[c];
+  const float* albedo = r.albedo;
+  const float* so = r.so;
+  const float* n_w = r.n_w;
+  const float* rr_in = r.rr;
+  const float* rdir = r.rdir;
+  const float roughness = r.roughness, metallic = r.metallic, k = r.k;
+
+  if (p.refl_rgb != nullptr && roughness < 0.3f) {
+    float li[3], wi[3], rr[3];
+    const float fade = 1.0f - roughness * 2.2f;
+    for (int c = 0; c < 3; ++c) {
+      rr[c] = rr_in[c];
+      li[c] = nmax(rr[c] * fade, 0.0f);
+      wi[c] = rdir[c];
+      g_li[c] = g_wi[c] = 0.0f;
+    }
+    radiance_bwd(li, wi, wo, n_w, albedo, roughness, metallic, k, g, g_li,
+                 g_wi, g_wo, o.nw, o.alb, o.r, o.m);
+    float g_fade = 0.0f;
+    for (int c = 0; c < 3; ++c) {
+      const float gl = pass_max(rr[c] * fade, 0.0f, g_li[c]);
+      o.rrgb[c] = gl * fade;
+      g_fade += gl * rr[c];
+      o.refl[c] = g_wi[c];
+    }
+    o.r += g_fade * -2.2f;
+  }
+
+  if (!(r.dark & 1u)) {
+    // the light's own cotangents are dropped: it is not differentiated
+    const float li[3] = {sh[3], sh[3], sh[3]};
+    for (int c = 0; c < 3; ++c) g_li[c] = g_wi[c] = 0.0f;
+    radiance_bwd(li, sh, wo, n_w, albedo, roughness, metallic, k, g, g_li,
+                 g_wi, g_wo, o.nw, o.alb, o.r, o.m);
+  }
+
+  const int n_shadow = p.lights.points + p.lights.spots;
+  for (int j = 0; j < n_shadow; ++j) {
+    bool spot;
+    const float* row = light_row(sh, p.lights, j, spot);
+    float sdir[3], dist, inten, li[3];
+    light_at(row, spot, so, sdir, dist, inten);
+    const bool lit = inten > (spot ? 0.01f : 0.005f) &&
+                     !((r.dark >> (1 + j)) & 1u);
+    if (!lit) continue;
+    const float* color = row + (spot ? 11 : 6);
+    for (int c = 0; c < 3; ++c) {
+      li[c] = color[c] * inten;
+      g_li[c] = g_wi[c] = 0.0f;
+    }
+    radiance_bwd(li, sdir, wo, n_w, albedo, roughness, metallic, k, g, g_li,
+                 g_wi, g_wo, o.nw, o.alb, o.r, o.m);
+    light_at_bwd(row, spot, so, g_wi, dot3(color, g_li), o.so);
+  }
+  for (int c = 0; c < 3; ++c) o.d[c] = -g_wo[c];
+}
+
+// One lane's branch: the env lookup's backward on a miss lane, the
+// attribute normal's on an unlit-attribute lane, the albedo's in unlit mode,
+// else the lit lane's from the record the caller read.
+__device__ __forceinline__ void combine_bwd_branch(
+    const CombineParams& p, const float* sh, bool hit, bool unlit,
+    const float d_w[3], const float g[3], const CombineRecord& r,
+    CombineGrads& o) {
+  if (!hit) {
+    sample_env_bwd(p.env, p.env_side, d_w, g, o.d);
+  } else if (unlit) {
+    for (int c = 0; c < 3; ++c) o.nobj[c] = g[c];
+  } else if (!p.lit) {
+    for (int c = 0; c < 3; ++c) o.alb[c] = g[c];
+  } else {
+    combine_bwd_lit(p, sh, d_w, g, r, o);
+  }
+}
+
+// A lane's nine cotangents, each where asked for, as its own words.
+__device__ __forceinline__ void combine_bwd_store(const CombineBwdParams& q,
+                                                  long long i,
+                                                  const CombineGrads& o) {
+  store3(q.g_albedo, i, o.alb);
+  store3(q.g_shadow_origin, i, o.so);
+  store3(q.g_n_w, i, o.nw);
+  store1(q.g_roughness, i, o.r);
+  store1(q.g_metallic, i, o.m);
+  store3(q.g_refl_dir, i, o.refl);
+  store3(q.g_d_w, i, o.d);
+  store3(q.g_n_obj, i, o.nobj);
+  store3(q.g_refl_rgb, i, o.rrgb);
+}
+
+// The scalar path: a lane of a partial warp (or of every warp where a
+// tensor is off a 16-byte boundary) on its own words; a miss lane reads its
+// direction, its radiance's cotangent and its flag alone.
+__device__ __forceinline__ void combine_bwd_ray(const CombineBwdParams& q,
+                                                const float* sh,
+                                                long long i) {
+  const CombineParams& p = q.f;
+  float d_w[3], g[3];
+  load3(p.d_w, i, d_w);
+  load3(q.g_rgb, i, g);
+  CombineGrads o = {};
+  const bool hit = p.hit[i];
+  const bool unlit = hit && p.unlit[i];
+  CombineRecord r;
+  if (hit && !unlit && p.lit) {
+    load3(p.albedo, i, r.albedo);
+    load3(p.shadow_origin, i, r.so);
+    load3(p.n_w, i, r.n_w);
+    record_scalars(p, i, r);
+    if (p.refl_rgb != nullptr && r.roughness < 0.3f) {
+      load3(p.refl_rgb, i, r.rr);
+      load3(p.refl_dir, i, r.rdir);
+    }
+  }
+  combine_bwd_branch(p, sh, hit, unlit, d_w, g, r, o);
+  combine_bwd_store(q, i, o);
+}
+
+// What a combine-backward warp fetches ahead on the vector path: its hit and
+// unlit flags and its [32,3] spans of d_w and g_rgb.
+struct CombineBwdFetch {
+  uint8_t flags[2][32];
+  float4 d[24];
+  float4 g[24];
+};
+
+// The fetch of the round whose first ray is w0 (a whole warp in range),
+// by cp.async into ``f``; nothing past the rays.
+__device__ __forceinline__ void combine_bwd_fetch(const CombineBwdParams& q,
+                                                  long long w0, int lane,
+                                                  CombineBwdFetch& f) {
+  if (w0 + 32 > q.f.rays) return;
+  if (lane < 4)
+    copy16(f.flags[lane >> 1] + 16 * (lane & 1),
+           (lane < 2 ? q.f.hit : q.f.unlit) + w0 + 16 * (lane & 1));
+  if (lane < 24) {
+    copy16(&f.d[lane], q.f.d_w + 3 * w0 + 4 * lane);
+    copy16(&f.g[lane], q.g_rgb + 3 * w0 + 4 * lane);
+  }
+}
+
+// The vector path: the 32 rays from w0 (a multiple of 32, all in range),
+// their flags and inputs in ``f``; ``stage`` holds one span.  A warp
+// without a hit writes its cotangents as spans; a warp with a hit reads its
+// record and writes its cotangents lane by lane (as spans through the
+// stage, measured slower: vrt_torch.apps.probe_caps combine_bwd).  Every
+// lane of the warp calls it.
+__device__ __forceinline__ void combine_bwd_warp(const CombineBwdParams& q,
+                                                 const float* sh,
+                                                 const CombineBwdFetch& f,
+                                                 float* stage, long long w0,
+                                                 int lane) {
+  const CombineParams& p = q.f;
+  const long long i = w0 + lane;
+  const bool hit = f.flags[0][lane] != 0;
+  const bool unlit = hit && f.flags[1][lane] != 0;
+  const float* fd = reinterpret_cast<const float*>(f.d);
+  const float* fg = reinterpret_cast<const float*>(f.g);
+  float d_w[3], g[3];
+  for (int c = 0; c < 3; ++c) {
+    d_w[c] = fd[3 * lane + c];
+    g[c] = fg[3 * lane + c];
+  }
+  CombineGrads o = {};
+  if (!__any_sync(kFullWarp, hit)) {
+    // a warp of miss lanes: the env lookup's backward, zeros elsewhere
+    sample_env_bwd(p.env, p.env_side, d_w, g, o.d);
+    if (q.g_d_w != nullptr) warp_store3(stage, q.g_d_w, w0, lane, o.d);
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    float* const zeroed[6] = {q.g_albedo, q.g_shadow_origin, q.g_n_w,
+                              q.g_refl_dir, q.g_n_obj, q.g_refl_rgb};
+    for (int j = 0; j < 6; ++j)
+      if (zeroed[j] != nullptr && lane < 24)
+        reinterpret_cast<uint4*>(zeroed[j] + 3 * w0)[lane] = zero;
+    store1(q.g_roughness, i, 0.0f);
+    store1(q.g_metallic, i, 0.0f);
+    return;
+  }
+  CombineRecord r;
+  if (hit && !unlit && p.lit) {
+    load3(p.albedo, i, r.albedo);
+    load3(p.shadow_origin, i, r.so);
+    load3(p.n_w, i, r.n_w);
+    record_scalars(p, i, r);
+    if (p.refl_rgb != nullptr && r.roughness < 0.3f) {
+      load3(p.refl_rgb, i, r.rr);
+      load3(p.refl_dir, i, r.rdir);
+    }
+  }
+  combine_bwd_branch(p, sh, hit, unlit, d_w, g, r, o);
+  combine_bwd_store(q, i, o);
+}
+
+// Resident blocks striding over the rays; kVec takes the vector path for
+// every whole warp (the launcher checks the alignment), else the scalar
+// path for every lane.
+template <bool kVec>
+__global__ void __launch_bounds__(kCombineBwdThreads, kCombineBwdMinBlocks)
+    combine_bwd_resident_kernel(const CombineBwdParams q) {
+  const CombineParams& p = q.f;
+  extern __shared__ float sh[];
+  __shared__ __align__(16) float stages[kCombineBwdWarps][96];
+  __shared__ CombineBwdFetch fetched[kCombineBwdWarps][kCombineBwdFetchDepth];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* stage = stages[warp];
+  CombineBwdFetch* buf = fetched[warp];
+  const long long stride =
+      static_cast<long long>(gridDim.x) * kCombineBwdThreads;
+  long long base = static_cast<long long>(blockIdx.x) * kCombineBwdThreads;
+  // the first rounds' copies go out before the block stages its lights
+  for (int k = 0; k + 1 < kCombineBwdFetchDepth; ++k) {
+    if (kVec) combine_bwd_fetch(q, base + k * stride + 32 * warp, lane,
+                                buf[k]);
+    __pipeline_commit();
+  }
+  if (p.lit) stage_lights(sh, p.lights);
+  __syncthreads();
+
+  for (int round = 0; base < p.rays; base += stride, ++round) {
+    // every lane is done with the buffer of the round before: fetch the
+    // round kCombineBwdFetchDepth - 1 ahead into it, then wait for this
+    // round's copies
+    __syncwarp();
+    if (kVec)
+      combine_bwd_fetch(
+          q, base + (kCombineBwdFetchDepth - 1) * stride + 32 * warp, lane,
+          buf[(round + kCombineBwdFetchDepth - 1) % kCombineBwdFetchDepth]);
+    __pipeline_commit();
+    __pipeline_wait_prior(kCombineBwdFetchDepth - 1);
+    __syncwarp();
+    const long long w0 = base + 32 * warp;
+    const long long i = w0 + lane;
+    if (kVec && w0 + 32 <= p.rays)
+      combine_bwd_warp(q, sh, buf[round % kCombineBwdFetchDepth], stage, w0,
+                       lane);
+    else if (i < p.rays)
+      combine_bwd_ray(q, sh, i);
+  }
 }
 
 struct SurfaceBwdParams {
@@ -2413,6 +2735,21 @@ bool aligned16(const void* x) {
   return reinterpret_cast<uintptr_t>(x) % 16 == 0;
 }
 
+template <bool kVec>
+cudaError_t combine_bwd_resident(const CombineBwdParams& q, size_t shared,
+                                 cudaStream_t s) {
+  static const Grid grid = resident_grid(
+      reinterpret_cast<const void*>(combine_bwd_resident_kernel<kVec>),
+      kCombineBwdThreads);
+  if (grid.err != cudaSuccess) return grid.err;
+  const long long blocks =
+      (q.f.rays + kCombineBwdThreads - 1) / kCombineBwdThreads;
+  combine_bwd_resident_kernel<kVec>
+      <<<static_cast<unsigned>(std::min(blocks, grid.blocks)),
+         kCombineBwdThreads, shared, s>>>(q);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // The surface kernel.  ptrs (host array of device pointers): o_w, d_w, t,
@@ -2608,16 +2945,20 @@ extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// The combine kernel's backward, one thread per ray.  ptrs: the combine
-// kernel's first 39 (d_w ... env); g_rgb [R,3]; then the outputs g_albedo,
-// g_shadow_origin, g_n_w, g_roughness, g_metallic, g_refl_dir, g_d_w,
-// g_n_obj, g_refl_rgb, each null where nobody needs it.  ints: the combine
-// kernel's (final is not read).  Returns cudaGetLastError().
+// The combine kernel's backward.  ptrs: the combine kernel's first 39
+// (d_w ... env); g_rgb [R,3]; then the outputs g_albedo, g_shadow_origin,
+// g_n_w, g_roughness, g_metallic, g_refl_dir, g_d_w, g_n_obj, g_refl_rgb,
+// each null where nobody needs it.  ints: the combine kernel's (final is not
+// read), then the design (0: the first, one thread a ray over the whole
+// grid; 1: the redesign, resident blocks, lane by lane; 2: the redesign on
+// the vector path, which takes d_w, g_rgb, hit, unlit, every [R,3] record
+// input passed and every [R,3] output on 16-byte boundaries).  Returns
+// cudaGetLastError().
 extern "C" int vrt_shade_combine_bwd(const void* const* ptrs, const int* ints,
                                      long long rays, void* stream) {
-  const int points = ints[2], spots = ints[3];
+  const int points = ints[2], spots = ints[3], design = ints[5];
   if (points < 0 || points > kMaxLights || spots < 0 || spots > kMaxLights ||
-      ints[4] < 1)
+      ints[4] < 1 || design < 0 || design > 2)
     return cudaErrorInvalidValue;
   CombineBwdParams q;
   combine_inputs(ptrs, ints, rays, q.f);
@@ -2634,9 +2975,34 @@ extern "C" int vrt_shade_combine_bwd(const void* const* ptrs, const int* ints,
   q.g_d_w = outs[6];
   q.g_n_obj = outs[7];
   q.g_refl_rgb = outs[8];
+  if (design == 2)
+    for (const void* x : {static_cast<const void*>(q.f.d_w),
+                          static_cast<const void*>(q.g_rgb),
+                          static_cast<const void*>(q.f.hit),
+                          static_cast<const void*>(q.f.unlit),
+                          static_cast<const void*>(q.f.albedo),
+                          static_cast<const void*>(q.f.shadow_origin),
+                          static_cast<const void*>(q.f.n_w),
+                          static_cast<const void*>(q.f.refl_dir),
+                          static_cast<const void*>(q.f.refl_rgb),
+                          static_cast<const void*>(q.g_albedo),
+                          static_cast<const void*>(q.g_shadow_origin),
+                          static_cast<const void*>(q.g_n_w),
+                          static_cast<const void*>(q.g_refl_dir),
+                          static_cast<const void*>(q.g_d_w),
+                          static_cast<const void*>(q.g_n_obj),
+                          static_cast<const void*>(q.g_refl_rgb)})
+      if (x != nullptr && !aligned16(x)) return cudaErrorInvalidValue;
   const size_t shared = 4 * (4 + points * kPointRow + spots * kSpotRow);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = static_cast<unsigned>((rays + kThreads - 1) / kThreads);
-  combine_bwd_kernel<<<grid, kThreads, shared, s>>>(q);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaSuccess;
+  if (design == 0)
+    combine_bwd_kernel<<<static_cast<unsigned>((rays + kThreads - 1) /
+                                               kThreads),
+                         kThreads, shared, s>>>(q);
+  else if (design == 2)
+    err = combine_bwd_resident<true>(q, shared, s);
+  else
+    err = combine_bwd_resident<false>(q, shared, s);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -16,10 +16,16 @@
         -> (t, normal, unlit), differentiable in o_w, d_w and the slab's
            planes (the first design: its packed corner table)
 
-Forward: one thread per ray computes what
+Forward: the kernel computes what
 ``vrt_torch.render.renderer.resolve_scene_reference`` (its plain version)
 computes; the [R,7,8] corner rows of the plain version never reach device
-memory.  Backward: one thread per ray computes what
+memory.  Its redesign, the default: one thread a ray, a lane's kind, t and
+face normal loaded at once (one round trip for a lane without a hit, where
+the first design took two), a hit lane's ray, instance and cell at once
+after them, the registers capped so that more warps fill the card.  Its
+first design (private ``_old_design``) stays as ``chip_smoke.py``'s
+comparator; the two are bit-equal on every lane.
+Backward: one thread per ray computes what
 ``renderer.resolve_scene_backward_reference`` (its plain version, the
 closed form of ``march.resolve.resolve_hits_backward``) computes, from the
 rays, the hit's kind, t and cell and the two cotangents: it re-reads the 7
@@ -89,7 +95,7 @@ def build() -> str:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.vrt_resolve_scene.argtypes = ([ptr] * 11 + [i32] + [ptr] * 4
                                       + [i32] * 6 + [ctypes.c_longlong]
-                                      + [ptr] * 3 + [i32] + [ptr])
+                                      + [ptr] * 3 + [i32] * 2 + [ptr])
     lib.vrt_resolve_scene.restype = i32
     lib.vrt_resolve_scene_bwd.argtypes = ([ptr] * 12 + [i32] + [ptr] * 4
                                           + [i32] * 6 + [ctypes.c_longlong]
@@ -110,6 +116,35 @@ def load_path(corners) -> str:
     row_bytes = corners.shape[-1] * corners.element_size()
     aligned = row_bytes % 16 == 0 and corners.data_ptr() % 16 == 0
     return "v16" if aligned else "ldg"
+
+
+def _empty(shape, dtype, dev):
+    """An output of the forward kernel (a seam for the runs that fill it
+    first, to show the lanes a design leaves unwritten)."""
+    return torch.empty(shape, dtype=dtype, device=dev)
+
+
+def _forward(o_w, d_w, hit: MarchHit, inst, table_args, x0, cx, planes,
+             old_design, dev, who):
+    """Allocate the forward's outputs and launch it (the redesign, or with
+    ``old_design`` the first design): returns (t, normal, unlit)."""
+    rays = o_w.shape[0]
+    t = _empty((rays,), torch.float32, dev)
+    normal = _empty((rays, 3), torch.float32, dev)
+    unlit = _empty((rays,), torch.bool, dev)
+    if rays == 0:
+        return t, normal, unlit
+    build()
+    err = _lib.vrt_resolve_scene(
+        o_w.data_ptr(), d_w.data_ptr(), inst.data_ptr(),
+        hit.kind.data_ptr(), hit.t.data_ptr(), hit.cell.data_ptr(),
+        hit.face_normal.data_ptr(), *table_args, x0, cx, rays, t.data_ptr(),
+        normal.data_ptr(), unlit.data_ptr(), planes, int(not old_design),
+        _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"{who} launch failed: cudaError {err}")
+    LAUNCHES["forward"] += 1
+    return t, normal, unlit
 
 
 def instance_table(scene, dev, check):
@@ -175,34 +210,28 @@ def _scene_args(scene, table, n_inst):
             int(load_path(corners) == "v16"))
 
 
-def resolve_scene_cuda(scene, o_w, d_w, hit: MarchHit, inst):
+def resolve_scene_cuda(scene, o_w, d_w, hit: MarchHit, inst,
+                       _old_design: bool = False):
     """Launch the fused resolve on ``torch.cuda.current_stream()`` for the
     hits ``(hit, inst)`` of ``march_scene`` on world rays ``o_w``, ``d_w``
     against ``scene`` (a GPUScene).  Records no autograd graph
-    (``ResolveScene`` adds it).  Raises on any input the kernel does not
-    take; never falls back."""
+    (``ResolveScene`` adds it).  The kernel is the redesign (a lane's kind,
+    t and face normal loaded at once, its ray, instance and cell at once
+    after them where it has a hit, registers capped for occupancy); the
+    private ``_old_design`` launches the first design, the comparator of the
+    timing runs, bit-equal to it on every lane.  Raises on any input the
+    kernel does not take; never falls back."""
     dev, rays, table, n_inst = _check_inputs(scene, o_w, d_w, hit, inst,
                                              "the fused resolve")
     _check(hit.face_normal, "hit.face_normal", torch.float32, (rays, 3), dev)
-    t = torch.empty(rays, dtype=torch.float32, device=dev)
-    normal = torch.empty((rays, 3), dtype=torch.float32, device=dev)
-    unlit = torch.empty(rays, dtype=torch.bool, device=dev)
-    if rays == 0:
-        return t, normal, unlit
-    build()
-    err = _lib.vrt_resolve_scene(
-        o_w.data_ptr(), d_w.data_ptr(), inst.data_ptr(),
-        hit.kind.data_ptr(), hit.t.data_ptr(), hit.cell.data_ptr(),
-        hit.face_normal.data_ptr(), *_scene_args(scene, table, n_inst), 0,
-        scene.volumes.corners.shape[1], rays, t.data_ptr(), normal.data_ptr(),
-        unlit.data_ptr(), 0, _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"fused resolve launch failed: cudaError {err}")
-    LAUNCHES["forward"] += 1
-    return t, normal, unlit
+    args = _scene_args(scene, table, n_inst)
+    return _forward(o_w, d_w, hit, inst, args, 0,
+                    scene.volumes.corners.shape[1], 0, _old_design, dev,
+                    "fused resolve")
 
 
-def resolve_slab_cuda(scene, slab, o_w, d_w, hit: MarchHit, inst):
+def resolve_slab_cuda(scene, slab, o_w, d_w, hit: MarchHit, inst,
+                      _old_design: bool = False):
     """Launch the fused resolve on ``torch.cuda.current_stream()`` for the
     combined hits of the slab march (``vrt_torch.dist.slab_render``): world
     rays through the transform of ``scene``'s one instance, the corner
@@ -213,33 +242,25 @@ def resolve_slab_cuda(scene, slab, o_w, d_w, hit: MarchHit, inst):
     ``slab.table == "packed"`` from its slab-local f32 table, whose row x
     is global cell ``x_voxel0 + x`` (a cell outside the volume or the rows
     reads zeros).  What ``vrt_torch.dist.brick.resolve_slab_hits`` computes
-    on the lanes whose hit cell the slab owns (both designs equal there but
-    on a cell with a voxel outside the volume); no graph.  Counted in
-    ``LAUNCHES["forward"]`` and ``SLAB_LAUNCHES["forward"]``.  Raises on
-    any input the kernel does not take; never falls back."""
+    on the lanes whose hit cell the slab owns (both tables equal there but
+    on a cell with a voxel outside the volume); no graph.  The kernel is
+    the redesign, ``_old_design`` the first design, as
+    ``resolve_scene_cuda`` takes them.  Counted in ``LAUNCHES["forward"]``
+    and ``SLAB_LAUNCHES["forward"]``.  Raises on any input the kernel does
+    not take; never falls back."""
     dev, rays, table, n_inst, tb = _check_slab_inputs(
         scene, slab, o_w, d_w, hit, inst, "the slab's fused resolve")
     _check(hit.face_normal, "hit.face_normal", torch.float32, (rays, 3), dev)
     n, h, ext, _ = tb["volume"]
-    t = torch.empty(rays, dtype=torch.float32, device=dev)
-    normal = torch.empty((rays, 3), dtype=torch.float32, device=dev)
-    unlit = torch.empty(rays, dtype=torch.bool, device=dev)
-    if rays == 0:
-        return t, normal, unlit
-    build()
-    err = _lib.vrt_resolve_scene(
-        o_w.data_ptr(), d_w.data_ptr(), inst.data_ptr(),
-        hit.kind.data_ptr(), hit.t.data_ptr(), hit.cell.data_ptr(),
-        hit.face_normal.data_ptr(), *(x.data_ptr() for x in table), n_inst,
-        n.data_ptr(), h.data_ptr(), ext.data_ptr(), *_slab_table_args(slab),
-        rays, t.data_ptr(), normal.data_ptr(), unlit.data_ptr(),
-        int(slab.table == "planes"), _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"the slab's fused resolve launch failed: "
-                           f"cudaError {err}")
-    LAUNCHES["forward"] += 1
-    SLAB_LAUNCHES["forward"] += 1
-    return t, normal, unlit
+    corners, cc, ch, bf16, v16, x0, cx = _slab_table_args(slab)
+    args = (*(x.data_ptr() for x in table), n_inst, n.data_ptr(),
+            h.data_ptr(), ext.data_ptr(), corners, cc, ch, bf16, v16)
+    out = _forward(o_w, d_w, hit, inst, args, x0, cx,
+                   int(slab.table == "planes"), _old_design, dev,
+                   "the slab's fused resolve")
+    if rays:
+        SLAB_LAUNCHES["forward"] += 1
+    return out
 
 
 def _check_slab_inputs(scene, slab, o_w, d_w, hit, inst, who):

@@ -63,8 +63,17 @@ in their own order, and the colour table's cotangents are added with f32
 atomics in an order that changes from run to run.  Both write exact zeros
 into every cotangent of a miss lane, whatever its record holds.
 
+The combine backward has two designs too: the redesign (resident blocks
+striding over the rays, the lights staged once a block, a warp's flags and
+[32,3] spans in 16-byte words on the vector path, a warp without a hit
+running the env lookup's backward alone and writing zero spans), the
+default, on the path ``shade_path`` names for ``combine_bwd_vectors``; and
+the first design (one thread a ray over the whole grid) behind
+``_old_design``, bit-equal to it on every cotangent.
+
 ``LAUNCHES`` counts the launches of each kernel, ``PATH_LAUNCHES`` the
-forward redesign's launches again by path.
+redesigns' launches (the forward pair's and the combine backward's) again
+by path.
 """
 
 from __future__ import annotations
@@ -83,9 +92,10 @@ from vrt_torch.render.gpuscene import (MAX_POINT_LIGHTS, MAX_SPOT_LIGHTS,
                                        RenderMode, color_table)
 
 LAUNCHES = {"surface": 0, "combine": 0, "surface_bwd": 0, "combine_bwd": 0}
-# the forward redesign's launches again, by the path ``shade_path`` named
+# the redesigns' launches again, by the path ``shade_path`` named
 PATH_LAUNCHES = {"surface v4": 0, "surface scalar": 0, "combine v4": 0,
-                 "combine scalar": 0}
+                 "combine scalar": 0, "combine_bwd v4": 0,
+                 "combine_bwd scalar": 0}
 
 NVCC_FLAGS = ["--fmad=false"]
 
@@ -125,7 +135,7 @@ def _launch(fn, name, ptrs, ints, rays, dev, path=None):
 
 
 def shade_path(tensors) -> str:
-    """The forward redesign's path for a launch that moves ``tensors`` (the
+    """A redesign's path for a launch that moves ``tensors`` (the
     arrays it reads or writes in 16-byte words; None for absent ones):
     "v4" where every one starts on a 16-byte boundary, else "scalar" (the
     same kernel, every lane on its own 4-byte words).  Row j of the
@@ -136,7 +146,8 @@ def shade_path(tensors) -> str:
 
 
 def _design(old_design: bool, path: str) -> int:
-    """The design int of ``vrt_shade_surface`` / ``vrt_shade_combine``."""
+    """The design int of ``vrt_shade_surface``, ``vrt_shade_combine`` and
+    ``vrt_shade_combine_bwd``."""
     return 0 if old_design else (2 if path == "v4" else 1)
 
 
@@ -182,6 +193,18 @@ def surface_vectors(o_w, d_w, n_obj, hit_mask, rec: SurfaceRecord):
 def combine_vectors(d_w, hit_mask, unlit_attr, out):
     """What the combine kernel moves in 16-byte words on the vector path."""
     return [d_w, hit_mask, unlit_attr, out]
+
+
+def combine_bwd_vectors(d_w, g_rgb, hit_mask, unlit_attr, rec: SurfaceRecord,
+                        refl_rgb, outs):
+    """What the combine backward's redesign moves in 16-byte words on the
+    vector path: the direction, the radiance's cotangent, the two flags (as
+    4-byte words), the record's [R,3] floats, the mirror ray and its
+    radiance where a bounce is passed, and every [R,3] cotangent it writes
+    (``outs``, None where not asked)."""
+    return [d_w, g_rgb, hit_mask, unlit_attr, rec.albedo, rec.shadow_origin,
+            rec.n_w, rec.refl_dir if refl_rgb is not None else None, refl_rgb,
+            *(g for g in outs if g is not None and g.ndim == 2)]
 
 
 def _light_ptrs(scene, dev):
@@ -476,15 +499,21 @@ def shade_combine_cuda(scene, rec: SurfaceRecord, d_w, n_obj, hit_mask,
 
 def shade_combine_backward_cuda(scene, rec: SurfaceRecord, d_w, n_obj,
                                 hit_mask, unlit_attr, refl_rgb, blocked,
-                                mode: RenderMode, g_rgb, needs=None):
+                                mode: RenderMode, g_rgb, needs=None,
+                                _old_design: bool = False):
     """Launch the combine kernel's backward on
     ``torch.cuda.current_stream()`` for the cotangent ``g_rgb`` [R,3] of the
     linear radiance (``final`` has no backward): returns the cotangents of
     the record's ``RECORD_GRAD_FIELDS``, then of ``d_w``, ``n_obj`` and
     ``refl_rgb``, f32, each None where that input is None or ``needs`` (nine
     booleans) says nobody needs it.  Recomputes the stage from its inputs;
-    reads the record on hit lanes only.  Raises on any input the kernel does
-    not take; never falls back."""
+    reads the record on hit lanes only.  The kernel is the redesign
+    (resident blocks striding over the rays; a warp without a hit runs the
+    env lookup's backward alone) on the path ``shade_path`` names for
+    ``combine_bwd_vectors``; the private ``_old_design`` launches the first
+    design (one thread a ray over the whole grid), the comparator of the
+    timing runs, bit-equal on every cotangent.  Raises on any input the
+    kernel does not take; never falls back."""
     dev, rays, ptrs, ints = _combine_args(
         scene, rec, d_w, n_obj, hit_mask, unlit_attr, refl_rgb, blocked,
         mode, False, "combine kernel's backward")
@@ -497,13 +526,16 @@ def shade_combine_backward_cuda(scene, rec: SurfaceRecord, d_w, n_obj,
         inputs[RECORD_GRAD_FIELDS.index("refl_dir")] = None
     needs = [True] * len(inputs) if needs is None else list(needs)
     outs = [None if x is None or not need
-            else torch.empty(x.shape, dtype=torch.float32, device=dev)
+            else _empty(x.shape, torch.float32, dev)
             for x, need in zip(inputs, needs)]
     if rays == 0:
         return tuple(outs)
+    path = shade_path(combine_bwd_vectors(d_w, g_rgb, hit_mask, unlit_attr,
+                                          rec, refl_rgb, outs))
     _launch("vrt_shade_combine_bwd", "combine_bwd",
-            ptrs + [g_rgb.data_ptr()] + [_ptr(g) for g in outs], ints, rays,
-            dev)
+            ptrs + [g_rgb.data_ptr()] + [_ptr(g) for g in outs],
+            ints + [_design(_old_design, path)], rays, dev,
+            None if _old_design else path)
     return tuple(outs)
 
 
