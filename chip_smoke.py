@@ -1488,26 +1488,44 @@ def _shade_calls(run, expected, tag):
 
     def designs(stage, i, kernel, args, hit, spawns):
         """The two designs on ``args``: held equal, timed old, new, new,
-        old.  Returns (new's mean, old's mean) ms."""
+        old.  On the unpacked colour grid the surface's default
+        (``surface_voxels_kernel``) is also held equal to the resident
+        kernel (``_resident``, the kernel this layout took before),
+        and timed against it old, new, new, old, the first design once
+        beside them.  Returns (new's mean, old's mean, the first design's
+        or None) ms."""
+        unpacked = stage == "surface" and \
+            k4.color_layout(args[0]) == "voxels f32"
         with _filled_outputs():
             new = kernel(*args)
-            old = kernel(*args, _old_design=True)
+            olds = [kernel(*args, _old_design=True)]
+            if unpacked:
+                olds.append(kernel(*args, _resident=True))
         torch.cuda.synchronize()
-        bad = _design_pair(new, old, hit, spawns)
-        if bad:
-            raise AssertionError(f"{tag} {stage} {i}: the redesign differs "
-                                 f"from the first design in {bad}")
-        del new, old
-        olds, news = _paired_ms(lambda: kernel(*args, _old_design=True),
+        for name, old in zip(("the first design", "the resident kernel"),
+                             olds):
+            bad = _design_pair(new, old, hit, spawns)
+            if bad:
+                raise AssertionError(f"{tag} {stage} {i}: the default "
+                                     f"differs from {name} in {bad}")
+        del new, olds
+        old_kw = dict(_resident=True) if unpacked else dict(_old_design=True)
+        olds, news = _paired_ms(lambda: kernel(*args, **old_kw),
                                 lambda: kernel(*args), 20)
-        print(f"shade {stage} [{tag} {i}]: first design against the "
-              f"redesign, old, new, new, old "
+        first = device_ms(lambda: kernel(*args, _old_design=True), 20) \
+            if unpacked else None
+        print(f"shade {stage} [{tag} {i}]: "
+              + ("the resident kernel against the voxels design"
+                 if unpacked else "first design against the redesign")
+              + f", old, new, new, old "
               f"{', '.join(f'{t:.4f}' for t in (olds[0], news[0], news[1], olds[1]))}"
-              f" ms; bit-equal on every lane", flush=True)
-        return sum(news) / 2, sum(olds) / 2
+              f" ms"
+              + (f"; first design {first:.4f} ms" if unpacked else "")
+              + "; bit-equal on every lane", flush=True)
+        return sum(news) / 2, sum(olds) / 2, first
 
     state = dict(err=0.0, share=0.0)
-    ms, old_ms, plain_ms, bounds = [], [], [], []
+    ms, old_ms, plain_ms, bounds, first = [], [], [], [], []
     equal, differ = set(), set()
     for i, (args, _, got) in enumerate(surf):
         scene, hit = args[0], args[5]
@@ -1551,10 +1569,12 @@ def _shade_calls(run, expected, tag):
             hold("surface", i, name, share, worst, state)
             (equal if same else differ).add(name.split("[")[0])
         del want
-        new_ms, first_ms = designs("surface", i, k4.shade_surface_cuda, args,
-                                   on, spawns)
+        new_ms, before_ms, first_ms = designs(
+            "surface", i, k4.shade_surface_cuda, args, on, spawns)
         ms.append(new_ms)
-        old_ms.append(first_ms)
+        old_ms.append(before_ms)
+        if first_ms is not None:
+            first.append(first_ms)
         with torch.no_grad():
             plain_ms.append(device_ms(
                 lambda: shade_surface_reference(*args), 2))
@@ -1568,7 +1588,8 @@ def _shade_calls(run, expected, tag):
     out["surface"] = dict(launches=len(surf), max_abs_err=state["err"],
                           lanes_beyond=state["share"], bit_equal=sorted(equal - differ),
                           rounded=sorted(differ), ms=ms, old_ms=old_ms,
-                          plain_ms=plain_ms, bound=_sum_bounds(bounds),
+                          first_ms=first, plain_ms=plain_ms,
+                          bound=_sum_bounds(bounds),
                           paths={k.split()[1]: n for k, n in paths.items()
                                  if k.split()[0] == "surface"})
 
@@ -1584,8 +1605,8 @@ def _shade_calls(run, expected, tag):
         hold("combine", i, "the radiance", share, worst, state)
         all_same = all_same and same
         del want
-        new_ms, first_ms = designs("combine", i, k4.shade_combine_cuda, args,
-                                   args[4], True)
+        new_ms, first_ms, _ = designs("combine", i, k4.shade_combine_cuda,
+                                      args, args[4], True)
         ms.append(new_ms)
         old_ms.append(first_ms)
         with torch.no_grad():
@@ -1609,10 +1630,15 @@ def _shade_calls(run, expected, tag):
         if sum(got["paths"].values()) != got["launches"]:
             raise AssertionError(f"{tag}: the {name} launches took the "
                                  f"paths {got['paths']}")
+        before = "the resident kernel" if got.get("first_ms") \
+            else "first design"
         print(f"shade {name} on the {tag}: {got['launches']} launches, "
               f"paths {got['paths']}, {_list(got['ms'])} ms = "
-              f"{sum(got['ms']):.4f} ms [first design "
-              f"{_list(got['old_ms'])} ms = {sum(got['old_ms']):.4f} ms]; "
+              f"{sum(got['ms']):.4f} ms [{before} "
+              f"{_list(got['old_ms'])} ms = {sum(got['old_ms']):.4f} ms"
+              + (f"; first design {_list(got['first_ms'])} ms = "
+                 f"{sum(got['first_ms']):.4f} ms" if got.get("first_ms")
+                 else "") + "]; "
               f"plain "
               f"{sum(got['plain_ms']):.2f} ms; bound "
               f"{got['bound']['bound_ms']:.4f} ms ({got['bound']['bytes']} "
@@ -5198,6 +5224,8 @@ def main():
             ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
              "backward (shade.cu)", "surface_resident_kernel", 256),
             ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
+             "backward (shade.cu)", "surface_voxels_kernel", 256),
+            ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
              "backward (shade.cu)", "surface_kernel", 256),
             ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
              "backward (shade.cu)", "combine_resident_kernel", 256),
@@ -6437,22 +6465,41 @@ def main():
         *({"name": f"K4 shade {stage} (unpacked colours)", "route": "cuda",
            "source": "vrt_torch/csrc/shade.cu",
            "replaces": replaces,
-           "path": "the surface kernels on the f32 voxel grid "
-                   "(colour layout 2: 8 voxel rows a hit), the colours "
-                   "above COLOR_CORNER_BUDGET_BYTES: config4's fit step",
            "launches": c4["counts"][stage],
            "launches_by_path": {"config4_fit_steps": c4["counts"][stage]},
            "max_abs_err": box["max_abs_err"],
-           **held_entry(box), "library_ms": None}
-          for stage, box, replaces in (
+           **held_entry(box), "library_ms": None, **extra}
+          for stage, box, replaces, extra in (
               ("surface", c4["held"]["shade"]["surface"],
                "vrt/render/renderer.py:249 (_voxel_color_sample's unpacked "
                "branch under _shade_lit :306, XLA-fused jnp: no Pallas "
-               "kernel)"),
+               "kernel)",
+               {"path": "surface_voxels_kernel on the f32 voxel grid "
+                        "(colour layout 2: 8 voxel rows a hit, the colours "
+                        "above COLOR_CORNER_BUDGET_BYTES): config4's fit "
+                        "step; old_design_ms: the resident "
+                        "kernel (surface_resident_kernel, this layout's "
+                        "kernel before), old, new, new, old in the same "
+                        "call; first_design_ms: surface_kernel; every held "
+                        "launch bit-equal to both with outputs filled with "
+                        "NaN first",
+                "first_design_ms": sum(
+                    c4["held"]["shade"]["surface"]["first_ms"]),
+                "per_launch_first_design_ms":
+                    c4["held"]["shade"]["surface"]["first_ms"],
+                "per_launch_old_design_ms":
+                    c4["held"]["shade"]["surface"]["old_ms"],
+                "bit_equal_to_old_design": True,
+                "paths": c4["held"]["shade"]["surface"]["paths"],
+                "ptxas": {k: ptxas.get(k) for k in (
+                    "surface_voxels_kernel", "surface_resident_kernel",
+                    "surface_kernel")}}),
               ("surface_bwd", c4["held"]["shade_bwd"]["surface_bwd"],
                "vrt/render/renderer.py:249 (XLA's transpose of "
                "_voxel_color_sample's unpacked branch, its 8 voxel gathers' "
-               "scatter-add: no Pallas kernel)"))),
+               "scatter-add: no Pallas kernel)",
+               {"path": "the surface backward on the f32 voxel grid "
+                        "(colour layout 2): config4's fit step"}))),
         *({"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "path": path,
            "launches": launches,

@@ -20,7 +20,9 @@ table's pack, against ``vrt`` on the CPU.
   for f32 9-channel and bf16 8-channel tables, its backward to ``jax.vjp``
   of it (bit for bit, or 1e-6 * max|g| where XLA sums in another order);
 - the plain surface stage on the unpacked grid, and its VJP through
-  ``ShadeSurface``'s CPU branch, against autograd of the plain stage.
+  ``ShadeSurface``'s CPU branch, against autograd of the plain stage; its
+  colour sample against ``vrt``'s ``_voxel_color_sample`` on hit cells of
+  the grid's first and last voxel layers.
 
 The kernels' side is in tests/test_torch_kernels.py (``gpu``) and
 ``chip_smoke.py``.
@@ -289,6 +291,62 @@ def test_unpacked_surface_stage_vjp_through_the_function(lit):
             continue
         assert scale > 0, name
         assert (a - b).abs().max().item() <= 1e-6 * scale, name
+
+
+@pytest.mark.parametrize("lit", [True, False], ids=["lit", "unlit"])
+def test_unpacked_sample_at_the_grid_edges_is_vrts(unpacked, lit):
+    """The plain surface stage's albedo on the unpacked grid against
+    ``vrt``'s ``_voxel_color_sample`` on the same seeded f32 lanes, every
+    hit cell on the grid's first or last voxel layers along at least one
+    axis (cell -1, 0, n - 2 or n - 1, the others inside), the hit point
+    inside the cell: corners outside the volume read zero in both.  Within
+    1e-6 of the largest |sample| (the 8-term sum may round in another
+    order)."""
+    from vrt.march.types import MarchHit as VHit
+    from vrt.render import renderer as vren
+    from vrt_torch.march.types import MarchHit
+
+    vs, _, ts, _ = unpacked
+    colors = _seeded_colors(ts)
+    vs = dataclasses.replace(vs, voxel_colors=jnp.asarray(colors))
+    ts = dataclasses.replace(ts, voxel_colors=torch.from_numpy(colors))
+    # one instance at the origin, unrotated, unscaled: object = world space
+    assert ts.inst_pos.shape[0] == 1 and not bool(ts.inst_pos.any())
+    assert torch.equal(ts.inst_rot[0], torch.tensor([0.0, 0.0, 0.0, 1.0]))
+    assert bool((ts.inst_scale == 1.0).all())
+    n = int(ts.volumes.n[0])
+    h, ext = float(ts.volumes.cell_size[0]), float(ts.volumes.extends[0])
+    rng = np.random.default_rng(11)
+    rays = 512
+    cell = rng.integers(0, n - 1, size=(rays, 3))
+    axis = rng.integers(0, 3, size=rays)
+    cell[np.arange(rays), axis] = rng.choice([-1, 0, n - 2, n - 1],
+                                             size=rays)
+    cell = cell.astype(np.int32)
+    hit_point = ((cell + rng.uniform(0.0, 1.0, size=(rays, 3))) * h
+                 - ext).astype(np.float32)
+    d = rng.normal(size=(rays, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    t = rng.uniform(5.0, 50.0, size=rays).astype(np.float32)
+    o = (hit_point - d * t[:, None]).astype(np.float32)
+    n_obj = -d
+    fields = dict(hit=np.ones(rays, bool), t=t,
+                  kind=np.zeros(rays, np.int32), cell=cell, t_in=t, t_out=t,
+                  face_normal=np.zeros((rays, 3), np.float32))
+    hit = MarchHit(**{k: torch.from_numpy(v) for k, v in fields.items()})
+    inst = torch.zeros(rays, dtype=torch.int32)
+    rec = tren.shade_surface_reference(
+        ts, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(t),
+        torch.from_numpy(n_obj), hit, inst, RenderMode(lit=lit), False, False)
+    vhit = VHit(**{k: jnp.asarray(v) for k, v in fields.items()})
+    pr = vren._per_ray_instance(vs, jnp.asarray(inst.numpy()))
+    want = np.asarray(vren._voxel_color_sample(
+        vs, pr, vhit, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t)))
+    got = rec.albedo.numpy()
+    outside = ((cell < 0) | (cell + 1 >= n)).any(axis=1)
+    assert outside.sum() > rays // 4 and (~outside).sum() > rays // 4
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
 
 
 def test_graft_and_dispatch_unpacked(unpacked):

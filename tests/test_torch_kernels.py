@@ -474,7 +474,7 @@ def test_warp_slots_of_registers(regs, threads, want):
     ("MARCH", "march.cu"), ("SURFACE_BWD", "shade.cu"),
     ("SHADE_FWD", "shade.cu"), ("RESOLVE_BWD", "resolve.cu"),
     ("SLAB", "march.cu"), ("COMBINE_BWD", "shade.cu"),
-    ("RESOLVE_FWD", "resolve.cu")])
+    ("RESOLVE_FWD", "resolve.cu"), ("SURFACE_VOXELS", "shade.cu")])
 def test_probe_caps_variants_name_source_constants(probe, source):
     """Every variant of ``vrt_torch.apps.probe_caps`` sets constants that
     its source defines exactly once (the probe rewrites them with this
@@ -2630,16 +2630,22 @@ def _bit_equal(a, b):
         if a.is_floating_point() else torch.equal(a, b))
 
 
-def _want_path(rays, lit, shadows, n_shadow):
-    """The path of a surface launch: the stacked shadow directions' row 1
+def _want_path(scene, rays, lit, shadows, n_shadow):
+    """The path of a surface launch: "voxels" on the unpacked colour grid,
+    else the resident kernel's, where the stacked shadow directions' row 1
     starts off a 16-byte boundary where R is not a multiple of 4."""
+    from vrt_torch.kernels import shade as k4
+
+    if k4.color_layout(scene) == "voxels f32":
+        return "voxels"
     return "scalar" if lit and shadows and n_shadow >= 2 and rays % 4 \
         else "v4"
 
 
-def _on_design(old, call):
+def _on_design(old, call, resident=False):
     """``call()`` with every output of the forward kernels filled (NaN, or
-    True), on the first design where ``old``."""
+    True), on the first design where ``old``, on the resident surface
+    kernel whatever the colour layout where ``resident``."""
     import functools
 
     from vrt_torch.kernels import shade as k4
@@ -2649,6 +2655,8 @@ def _on_design(old, call):
     if old:
         k4.shade_surface_cuda = functools.partial(saved[0], _old_design=True)
         k4.shade_combine_cuda = functools.partial(saved[1], _old_design=True)
+    elif resident:
+        k4.shade_surface_cuda = functools.partial(saved[0], _resident=True)
     try:
         return call()
     finally:
@@ -2659,7 +2667,9 @@ def _designs_held(seen):
     """A stage pair that runs each launch on both designs with filled
     outputs, holds them bit-equal where either writes, the redesign's
     material unwritten on miss lanes, its path counted as expected, and the
-    redesign against the plain stage (``_held_stages``)."""
+    redesign against the plain stage (``_held_stages``); on the unpacked
+    colour grid the surface's default (``surface_voxels_kernel``) is also
+    held bit-equal to the resident kernel."""
     from vrt_torch.kernels import shade as k4
 
     held = _held_stages(seen)(None)
@@ -2669,15 +2679,19 @@ def _designs_held(seen):
         mode, bounce, shadows = args[7], args[8], args[9]
         paths = dict(k4.PATH_LAUNCHES)
         got = held[0](*args)
-        path = _want_path(rays, mode.lit, shadows,
+        path = _want_path(scene, rays, mode.lit, shadows,
                           scene.num_point + scene.num_spot)
         assert {k: k4.PATH_LAUNCHES[k] - paths[k] for k in paths} == {
             **{k: 0 for k in paths}, f"surface {path}": 1}
         new = _on_design(False, lambda: tren._shade_surface_kernel(*args))
-        old = _on_design(True, lambda: tren._shade_surface_kernel(*args))
+        olds = [_on_design(True, lambda: tren._shade_surface_kernel(*args))]
+        if path == "voxels":
+            olds.append(_on_design(False, lambda: tren._shade_surface_kernel(
+                *args), resident=True))
         torch.cuda.synchronize()
         spawns = mode.lit and (bounce or shadows)
-        for f in dataclasses.fields(new):
+        for f, old in ((f, old) for old in olds
+                       for f in dataclasses.fields(new)):
             a, b = getattr(new, f.name), getattr(old, f.name)
             assert (a is None) == (b is None), f.name
             if a is None:
@@ -2733,13 +2747,18 @@ def test_shade_forward_designs_on_card(mode, lights, size):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("size", [(480, 270), (63, 37)],
-                         ids=["480x270", "63x37"])
+@pytest.mark.parametrize("size", [(480, 270), (63, 37), (256, 256),
+                                  (255, 257)],
+                         ids=["480x270", "63x37", "256x256", "255x257"])
 @pytest.mark.parametrize("mode", ["mode0", "mode1", "mode2", "mode4"])
 def test_shade_forward_designs_unpacked_on_card(mode, size):
     """``test_shade_forward_designs_on_card`` on the scene's seeded colours
     unpacked (the f32 voxel grid, 8 voxel rows a hit), lit and unlit,
-    textured and not, interpolated and cube."""
+    textured and not, interpolated and cube: the default there
+    (``surface_voxels_kernel``) bit-equal to the first design and to the
+    resident kernel with NaN-filled outputs and within tolerance of the
+    plain stage, at 256x256 (config4's launch, under one wave of the card)
+    and at 255x257 (R = 65,535: a partial last warp) too."""
     from vrt_torch.scenes import shading_scene
 
     scene = shading_scene(5, 2, 1, colors=True, device=_card())
@@ -2764,9 +2783,12 @@ def _frame_designs(scene, mode, size):
     torch.cuda.synchronize()
     levels = 3 if mode.lit and scene.any_reflective else 1
     assert seen == dict(surface=levels, combine=levels)
-    # the held stage, the redesign again and the first design per level
+    # the held stage, the redesign again and the first design per level (and
+    # on the unpacked grid the resident kernel)
+    surfaces = 4 if k4.color_layout(scene) == "voxels f32" else 3
     assert {k: k4.LAUNCHES[k] - before[k] for k in before} == dict(
-        surface=3 * levels, combine=2 * levels, surface_bwd=0, combine_bwd=0)
+        surface=surfaces * levels, combine=2 * levels, surface_bwd=0,
+        combine_bwd=0)
     assert img.shape == (height, width, 4)
     assert bool(torch.isfinite(img).all())
 

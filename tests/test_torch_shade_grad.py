@@ -374,6 +374,37 @@ def test_combine_backward_path_follows_alignment(which):
     assert k4._design(True, got) == 0
 
 
+# (layout, the first tensor off a 16-byte boundary, the path)
+SURFACE_PATHS = {
+    "voxels": ("voxels f32", False, "voxels"),
+    "voxels-off-16": ("voxels f32", True, "voxels"),
+    "packed-f32": ("packed f32", False, "v4"),
+    "packed-f32-off-16": ("packed f32", True, "scalar"),
+    "packed-bf16": ("packed bf16", False, "v4"),
+    "packed-bf16-off-16": ("packed bf16", True, "scalar"),
+    "no-colours": (None, False, "v4"),
+    "no-colours-off-16": (None, True, "scalar")}
+
+
+@pytest.mark.parametrize("case", sorted(SURFACE_PATHS))
+def test_surface_path_follows_the_colour_layout(case):
+    """``surface_path``: "voxels" (``surface_voxels_kernel``) on the
+    unpacked colour grid, whatever the tensors' alignment; on a packed view
+    or without colours the resident kernel's path by ``shade_path``; the
+    design int follows the path, and ``_old_design`` takes the first design
+    on any path."""
+    from tests.test_torch_kernels import _off_boundary
+
+    layout, off16, want = SURFACE_PATHS[case]
+    vectors = [torch.zeros(8, 3), None]
+    if off16:
+        vectors[0] = _off_boundary(vectors[0])
+    got = k4.surface_path(layout, vectors)
+    assert got == want
+    assert k4._design(False, got) == dict(v4=2, scalar=1, voxels=3)[want]
+    assert k4._design(True, got) == 0
+
+
 @pytest.mark.parametrize("old_design", [False, True], ids=["new", "old"])
 def test_combine_backward_refuses_cpu_tensors(old_design):
     """Either design of the combine backward takes CUDA tensors only: on

@@ -1,7 +1,8 @@
 """The register-cap probe of the kernels redesigned for the H100: K1's
 scene march (``march_scene_capped_kernel``), K4's surface backward
 (``surface_bwd_merged_kernel``), K4's forward pair
-(``surface_resident_kernel``, ``combine_resident_kernel``), the fused
+(``surface_resident_kernel``, ``combine_resident_kernel``) and its surface
+on the unpacked colour grid (``surface_voxels_kernel``), the fused
 resolve's backward (``resolve_bwd_merged_kernel``) and K7, the slab march
 (``march_slab_capped_kernel``), with the slab resolve's backward into the
 planes, and the one-launch accel pyramid (``pyramid_one_kernel``), on one
@@ -10,6 +11,7 @@ CUDA card.
     python3 -m vrt_torch.apps.probe_caps [march] [surface_bwd] [shade_fwd]
                                          [resolve_bwd] [slab] [pyramid]
                                          [combine_bwd] [resolve_fwd]
+                                         [surface_voxels [--parent DIR]]
 
 Each kernel's block and register cap are constants of its source
 (``kSceneThreads``, ``kSceneMinBlocks`` and ``kAnyHitMinBlocks`` in
@@ -17,7 +19,9 @@ Each kernel's block and register cap are constants of its source
 ``kSurfaceMinBlocks``, ``kCombineMinBlocks``, ``kFetchDepth`` and
 ``kFlagRounds`` in ``shade.cu``, where ``kFwdResident`` and ``kFwdHitPath`` also switch the
 forward pair to one thread a ray over the whole grid and compile its hit
-lanes' work out; ``kMergeRows`` and ``kVecReduce`` in ``resolve.cu``
+lanes' work out, and ``kFwdColorSample`` compiles the surface kernels'
+colour sample out; ``kVoxelThreads`` and ``kVoxelMinBlocks`` there set
+``surface_voxels_kernel``'s block and register cap; ``kMergeRows`` and ``kVecReduce`` in ``resolve.cu``
 switch the backward's merge of a warp's row cotangents by hit cell and its
 16-byte reductions, and ``kBwdMinBlocks`` sets its register cap;
 ``kSlabThreads`` and ``kSlabMinBlocks`` in ``march.cu`` set K7's block
@@ -38,8 +42,10 @@ says (all builds in parallel, under ``build/vrt_torch_kernels/probe/``),
 then runs the launches of the path that chose them through each build in
 turn: the five scene marches of the flagship's 1080p interp frame, the
 three surface backwards of one 1080p config6 fit step, the three surface
-and three combine launches of the 1080p interp and cube frames and of a
-480x270 frame with two point lights and a spot light, and the three
+and three combine launches of the 1080p interp and cube frames, of a
+480x270 frame with two point lights and a spot light and of config4's fit
+step (its surface launches also on the packed bf16 view of its colours,
+built for the probe), and the three
 resolve backwards of one 1080p config6 fit step (the last on the primary
 rays); for ``slab``, config5 (the 513^3 volume of ``vrt/apps/scaling.py``
 in 4 x-slabs) with every slab in this one process (``_Slabs``: each slab
@@ -54,7 +60,13 @@ random cotangents on the lanes it owns; for ``combine_bwd``, the three
 combine backwards of one 1080p config6 fit step and the two of one config4
 fit step (65,536 rays each); for ``resolve_fwd``, the three fused resolves
 of the flagship's 1080p interp frame, the one of config7's 512x512 frame
-and the two of one config4 fit step.  Each build must give the default
+and the two of one config4 fit step; for ``surface_voxels``, the surface
+launches on the unpacked grid of one config4 fit step and of a 512x512 and
+a 1080p frame of its scene (one wave of the card and more), the resident
+kernel forced beside them, and with ``--parent DIR`` the surface launches
+of the flagship's 1080p frame, a config6 fit step, config3's and config7's
+frames and a config4 fit step on this checkout's kernels and on the
+``shade.cu`` of the checkout under DIR in turns.  Each build must give the default
 build's result (the marches
 field by field, the per-ray cotangents bit for bit (every output of the
 combine backward and of the fused resolve), the forward pair on
@@ -126,7 +138,8 @@ SHADE_FWD = (
      {"kFlagRounds": 1}, 256),
     ("one thread a ray over the whole grid", {"kFwdResident": "false"}, 256),
     ("miss lanes only: the hit path compiled out",
-     {"kFwdHitPath": "false"}, 256))
+     {"kFwdHitPath": "false"}, 256),
+    ("colour sample compiled out", {"kFwdColorSample": "false"}, 256))
 RESOLVE_BWD = (
     ("default: merged by hit cell, 16-byte reductions, 2 blocks an SM",
      {}, 256),
@@ -165,6 +178,15 @@ RESOLVE_FWD = (
     ("6 blocks an SM", {"kResolveMinBlocks": 6}, 256),
     ("128 threads, 10 blocks an SM",
      {"kResolveThreads": 128, "kResolveMinBlocks": 10}, 128))
+SURFACE_VOXELS = (
+    ("default: 256 threads, uncapped", {}, 256),
+    ("2 blocks an SM", {"kVoxelMinBlocks": 2}, 256),
+    ("3 blocks an SM", {"kVoxelMinBlocks": 3}, 256),
+    ("128 threads", {"kVoxelThreads": 128}, 128),
+    ("a lane's loads gated on its flag", {"kVoxelGated": "true"}, 256),
+    ("colour sample compiled out", {"kFwdColorSample": "false"}, 256),
+    ("miss lanes only: the hit path compiled out",
+     {"kFwdHitPath": "false"}, 256))
 SHADE_KERNELS = ("surface_resident_kernel", "combine_resident_kernel")
 # the resolve backward's table against the default build's: its sums add in
 # another order (chip_smoke.py's SCATTER_RTOL)
@@ -284,10 +306,15 @@ def _same_record(got, want, args, label):
     mat = None if miss_only else hit
     spawns = mode.lit and (bounce or shadows)
     every = ~hit if miss_only else None
-    pairs = [("albedo", mat), ("n_w", mat), ("roughness", mat),
+    # without the colour sample, or from another table, the albedo differs
+    other_albedo = label.startswith(("colour sample compiled out",
+                                     "the packed bf16 view"))
+    pairs = [("n_w", mat), ("roughness", mat),
              ("metallic", mat), ("k", mat),
              ("shadow_origin", every if spawns else mat),
              ("refl_dir", every), ("gate", every)]
+    if not other_albedo:
+        pairs.append(("albedo", mat))
     for name, lanes in pairs:
         a, b = getattr(got, name), getattr(want, name)
         if (a is None) != (b is None):
@@ -342,6 +369,138 @@ def _probe(module, fn_name, builds, calls, same):
     finally:
         module._lib = default
     return rows
+
+
+def _packed_view(calls):
+    """The surface launches ``calls`` on the unpacked f32 colour grid, and
+    again on the packed bf16 view of the same colours (the layout of a
+    scene under ``COLOR_CORNER_BUDGET_BYTES``, built here only), on the
+    default build, each held against the recorded record (the albedo
+    apart), in turns: [(label, ms per launch, None, threads)]."""
+    import dataclasses
+
+    from vrt_torch.render.gpuscene import pack_voxel_color_corners
+
+    views = {}
+    packed = []
+    for args, kwargs, want in calls:
+        scene = args[0]
+        if id(scene) not in views:
+            with torch.no_grad():
+                views[id(scene)] = dataclasses.replace(
+                    scene, voxel_color_corners=pack_voxel_color_corners(
+                        scene.voxel_colors.detach(), torch.bfloat16))
+        packed.append(((views[id(scene)],) + tuple(args[1:]), kwargs, want))
+    rows = []
+    for label, launches in (("unpacked f32 grid (default build)", calls),
+                            ("the packed bf16 view (default build)", packed),
+                            ("unpacked f32 grid, again", calls)):
+        per = []
+        for args, kwargs, want in launches:
+            if not _same_record(k4.shade_surface_cuda(*args, **kwargs), want,
+                                args, label):
+                raise AssertionError(f"shade surface: {label} changed the "
+                                     f"record")
+            per.append(device_ms(lambda: k4.shade_surface_cuda(*args,
+                                                               **kwargs),
+                                 REPS))
+        rows.append((label, per, None, 256))
+    return rows
+
+
+def _against_parent(parent, card, dev, config4_step):
+    """The surface launches of the flagship's 1080p frame, a 1080p config6
+    fit step, config3's and config7's frames (the resident kernel on packed
+    colours or none) and a config4 fit step (the unpacked grid), each on
+    this checkout's kernels (the default path) and on the parent checkout
+    ``parent``'s ``shade.cu`` (the resident kernel on every layout, as its
+    wrapper launched it) in the order parent, this, this, parent, every
+    record bit-equal on the lanes both write, outputs filled with NaN
+    first (``_same_record``)."""
+    from pathlib import Path
+
+    from vrt_torch.apps import bench
+    from vrt_torch.diff.fit import make_fit_step
+    from vrt_torch.diff.optim import adam
+    from vrt_torch.render.gpuscene import RenderMode
+    from vrt_torch.render.renderer import render_image
+    from vrt_torch.scenes import flagship_scene, voxelized_torus_scene
+
+    k4.build()
+    csrc = Path(parent).resolve() / "vrt_torch" / "csrc"
+    old, _ = _build.build(str(csrc / "shade.cu"), k4.NVCC_FLAGS,
+                          headers=[str(csrc / "scene.cuh")])
+    fn, ref = old.vrt_shade_surface, k4._lib.vrt_shade_surface
+    fn.argtypes, fn.restype = ref.argtypes, ref.restype
+    new, empty = k4._lib, k4._empty
+
+    def filled(shape, dtype, device):
+        return torch.full(shape, True if dtype == torch.bool
+                          else float("nan"), dtype=dtype, device=device)
+
+    def config6_step():
+        scene = flagship_scene(6, use_colors=True, device=dev)
+        params = bench._fit_params(scene)
+        opt = adam(bench.ADAM_LR)
+        step = make_fit_step(scene, [dict(position=(320.0, 0.0, 40.0),
+                                          rotation=(0.0, 0.0, 1.0, 0.0),
+                                          fov=60.0)], 1920, 1080,
+                             RenderMode(), opt)
+        targets = torch.zeros((1, 1920 * 1080, 3), device=dev)
+        state = opt.init(params)
+        return lambda: step(params, state, targets)
+
+    def frame(make, w, h):
+        scene = make()
+        return lambda: render_image(scene, w, h, RenderMode())
+
+    for what, make in (
+            ("the flagship's 1080p frame", lambda: frame(
+                lambda: flagship_scene(7, "chebyshev", torch.bfloat16,
+                                       device=dev), 1920, 1080)),
+            ("the config6 fit step", config6_step),
+            ("config3's 1080p frame", lambda: frame(
+                lambda: voxelized_torus_scene(8, device=dev)[0], 1920,
+                1080)),
+            ("config7's 512x512 frame", lambda: frame(
+                lambda: bench.config7_scene(6, 12, device=dev), 512, 512)),
+            ("the config4 fit step", config4_step)):
+        calls = _recorded(k4, "shade_surface_cuda", make())
+        per = []
+        try:
+            for args, kwargs, _ in calls:
+                outs = []
+                k4._empty = filled
+                for lib in (old, new):
+                    k4._lib = lib
+                    outs.append(k4.shade_surface_cuda(
+                        *args, _resident=lib is old, **kwargs))
+                k4._empty = empty
+                torch.cuda.synchronize()
+                if not _same_record(outs[1], outs[0], args, "parent"):
+                    raise AssertionError(f"{what}: this checkout's surface "
+                                         f"differs from the parent's")
+
+                def on(lib):
+                    def run():
+                        k4._lib = lib
+                        return k4.shade_surface_cuda(
+                            *args, _resident=lib is old, **kwargs)
+                    return run
+
+                per.append([device_ms(on(lib), REPS)
+                            for lib in (old, new, new, old)])
+        finally:
+            k4._lib, k4._empty = new, empty
+        olds = sum(t[0] + t[3] for t in per) / 2
+        news = sum(t[1] + t[2] for t in per) / 2
+        print(f"{what}'s shade surface launches on {card}: the parent "
+              f"checkout's kernel, this checkout's, this, the parent's "
+              f"{'; '.join(', '.join(f'{x:.4f}' for x in t) for t in per)} "
+              f"ms; sums {olds:.4f} against {news:.4f} ms "
+              f"({news / olds - 1:+.1%}); every record bit-equal",
+              flush=True)
+        del calls
 
 
 class _Slabs(SceneTracer):
@@ -551,9 +710,15 @@ def main(argv=None) -> int:
         return 1
     from vrt_torch.kernels import resolve as kr
 
-    probes = set(sys.argv[1:] if argv is None else argv) or {
+    args = list(sys.argv[1:] if argv is None else argv)
+    parent = None
+    if "--parent" in args:
+        at = args.index("--parent")
+        parent = args[at + 1]
+        del args[at:at + 2]
+    probes = set(args) or {
         "march", "surface_bwd", "shade_fwd", "resolve_bwd", "slab", "pyramid",
-        "combine_bwd", "resolve_fwd"}
+        "combine_bwd", "resolve_fwd", "surface_voxels"}
     dev = torch.device("cuda", 0)
     card = card_name()
     entries = ("vrt_shade_surface", "vrt_shade_combine",
@@ -682,6 +847,31 @@ def main(argv=None) -> int:
               f"{', '.join(f'{t:.4f}' for t in fill)} ms", flush=True)
         del calls
 
+    if "surface_voxels" in probes:
+        from vrt_torch.apps import bench
+
+        builds = _builds(k4, "shade.cu", SURFACE_VOXELS,
+                         ("surface_voxels_kernel",), entries)
+        c4, _ = bench.config4_scene(8, 2, device=dev)
+        for what, run in (
+                ("the config4 fit step's", config4_step()),
+                ("the 512x512 frame of config4's scene:", lambda:
+                 render_image(c4, 512, 512, RenderMode())),
+                ("the 1080p frame of config4's scene:", lambda:
+                 render_image(c4, 1920, 1080, RenderMode()))):
+            calls = _recorded(k4, "shade_surface_cuda", run)
+            rows = _probe(k4, "shade_surface_cuda", builds, calls,
+                          _same_record)
+            rows.insert(2, ("the resident kernel (forced)", [
+                device_ms(lambda: k4.shade_surface_cuda(
+                    *args, _resident=True, **kwargs), REPS)
+                for args, kwargs, _ in calls], None, 256))
+            _report(f"{what} shade surface launches", card, rows)
+            del calls
+        del c4
+        if parent is not None:
+            _against_parent(parent, card, dev, config4_step)
+
     if "shade_fwd" in probes:
         builds = _builds(k4, "shade.cu", SHADE_FWD, SHADE_KERNELS, entries)
         for what, scene, w, h, mode in (
@@ -703,6 +893,20 @@ def main(argv=None) -> int:
                         _probe(k4, name, builds, calls, same))
                 del calls
             del scene
+        # config4's two views: the surface on the unpacked f32 grid, then on
+        # the packed bf16 view of the same colours
+        step = config4_step()
+        for stage, same in (("surface", _same_record),
+                            ("combine", _same_rgb)):
+            name = f"shade_{stage}_cuda"
+            calls = _recorded(k4, name, step)
+            _report(f"the config4 fit step's shade {stage} launches", card,
+                    _probe(k4, name, builds, calls, same))
+            if stage == "surface":
+                _report("the config4 fit step's shade surface launches",
+                        card, _packed_view(calls))
+            del calls
+        del step
     if "slab" in probes:
         _slab_probe(card, dev)
     print(card, flush=True)

@@ -63,7 +63,11 @@
 // ahead by cp.async), and a surface warp without a hit writing only its
 // traces' rays in 16-byte stores.  The surface gains; the combine, bound by
 // its instructions (the env lookup on miss lanes, the tonemap's powf), runs
-// at its first design's speed.  Built with --fmad=false and every sum
+// at its first design's speed.  On the unpacked colour grid the surface
+// has a design of its own (surface_voxels_kernel, below the redesign: one
+// thread a ray, a lane's inputs loaded at once, its 24 colour loads
+// together), the fastest of the three there at every size measured.  Built
+// with --fmad=false and every sum
 // written in the plain version's order; torch's own reductions (sum and
 // vector_norm over 3, 4 and 8 elements) and pow may round in another
 // order, so a result agrees with the plain version to a few ulp, not bit
@@ -447,6 +451,58 @@ __device__ __forceinline__ void color_sample(const SurfaceParams& p,
   }
 }
 
+// The 8 corners' colours of a hit cell of volume `vol` (n voxels a side)
+// from the unpacked grid, v[j] for corner j in CORNERS order (bit 0 x, bit 1
+// y, bit 2 z), zero where the corner lies outside the volume (color_sample's
+// valid mask): the 24 loads, all issued here.
+__device__ __forceinline__ void voxel_corners(const SurfaceParams& p, int vol,
+                                              int n, const int cell[3],
+                                              float v[8][3]) {
+  const long long nn = p.color_side;
+  const float* grid = static_cast<const float*>(p.colors);
+  for (int j = 0; j < 8; ++j) {
+    const int x = cell[0] + (j & 1), y = cell[1] + ((j >> 1) & 1),
+              z = cell[2] + ((j >> 2) & 1);
+    const bool valid =
+        x >= 0 && x < n && y >= 0 && y < n && z >= 0 && z < n;
+    const long long vox =
+        ((static_cast<long long>(vol) * nn + x) * nn + y) * nn + z;
+    for (int c = 0; c < 3; ++c)
+      v[j][c] = valid ? __ldg(grid + 3 * vox + c) : 0.0f;
+  }
+}
+
+// color_sample's trilinear sum over corners loaded ahead (voxel_corners), in
+// its order: the same weights, the same sum in j order.
+__device__ __forceinline__ void voxel_trilinear(const int cell[3], float h,
+                                                float ext, const float o[3],
+                                                const float d[3], float t,
+                                                float v[8][3],
+                                                float out[3]) {
+  float q[3];
+  for (int c = 0; c < 3; ++c) {
+    const float base = static_cast<float>(cell[c]) * h - ext;
+    q[c] = ((o[c] + d[c] * t) - base) / h;
+  }
+  out[0] = out[1] = out[2] = 0.0f;
+  for (int j = 0; j < 8; ++j) {
+    const int b[3] = {j & 1, (j >> 1) & 1, (j >> 2) & 1};
+    float w[3];
+    for (int c = 0; c < 3; ++c) w[c] = fabsf((b[c] ? 0.0f : 1.0f) - q[c]);
+    const float wj = (w[0] * w[1]) * w[2];
+    for (int c = 0; c < 3; ++c) {
+      const float term = wj * v[j][c];
+      out[c] = j == 0 ? term : out[c] + term;
+    }
+  }
+}
+
+// A probe's comparison, never changed here: false compiles the colour
+// sample out of the surface kernels (the albedo stays the material's tint),
+// the chain of a hit lane without its colour gather
+// (vrt_torch.apps.probe_caps).
+constexpr bool kFwdColorSample = true;
+
 // What a hit lane of the surface stage computes before its stores
 // (renderer.py _shade_lit's head, _shade_unlit_mode): the material at the
 // hit and, lit, the shadow origin, the world normal and the geometry term's
@@ -456,13 +512,15 @@ struct SurfaceHit {
   float roughness, metallic, k;
 };
 
-template <bool kLit, bool kTextured, bool kColors>
-__device__ __forceinline__ void surface_hit(
+// The hit lane's values from its t and instance (winner) and, with per-voxel
+// colours, `sample(vol, mat, o, d, t, albedo)`, the colour sample at the hit
+// from the object-space ray.
+template <bool kLit, bool kTextured, bool kColors, typename Sample>
+__device__ __forceinline__ void surface_hit_from(
     const SurfaceParams& p, const float* sh_inst, const float* sh_vol,
-    const int* sh_sizes, long long i, const float o_w[3], const float d_w[3],
-    const float n_obj[3], SurfaceHit& h) {
-  const float t = p.t[i];
-  const float* in = sh_inst + max(p.winner[i], 0) * kInstRow;
+    const int* sh_sizes, float t, int winner, const float o_w[3],
+    const float d_w[3], const float n_obj[3], Sample sample, SurfaceHit& h) {
+  const float* in = sh_inst + max(winner, 0) * kInstRow;
   const float* pos = in;
   const float* rot = in + 3;
   const float* scale = in + 7;
@@ -512,7 +570,7 @@ __device__ __forceinline__ void surface_hit(
     }
   }
 
-  if (kColors) {
+  if (kColors && kFwdColorSample) {
     // renderer.py _world_to_object, then the sample
     float a[3], b[3], o[3], d[3];
     for (int c = 0; c < 3; ++c) {
@@ -521,8 +579,7 @@ __device__ __forceinline__ void surface_hit(
     }
     rotate(qc, rot[3], a, o);
     rotate(qc, rot[3], b, d);
-    color_sample(p, i, vol, __float_as_int(mat[0]), mat[1], mat[2], o, d, t,
-                 h.albedo);
+    sample(vol, mat, o, d, t, h.albedo);
   }
 
   if (kLit) {
@@ -531,6 +588,23 @@ __device__ __forceinline__ void surface_hit(
     rotate(rot, rot[3], n_shade, h.n_w);
     for (int c = 0; c < 3; ++c) h.n_w[c] = h.n_w[c] * scale[c];
   }
+}
+
+// surface_hit_from with the lane's t, instance and colour sample read from
+// the surface kernels' inputs (the cell and the colour table in turn).
+template <bool kLit, bool kTextured, bool kColors>
+__device__ __forceinline__ void surface_hit(
+    const SurfaceParams& p, const float* sh_inst, const float* sh_vol,
+    const int* sh_sizes, long long i, const float o_w[3], const float d_w[3],
+    const float n_obj[3], SurfaceHit& h) {
+  surface_hit_from<kLit, kTextured, kColors>(
+      p, sh_inst, sh_vol, sh_sizes, p.t[i], p.winner[i], o_w, d_w, n_obj,
+      [&](int vol, const float* mat, const float o[3], const float d[3],
+          float t, float out[3]) {
+        color_sample(p, i, vol, __float_as_int(mat[0]), mat[1], mat[2], o, d,
+                     t, out);
+      },
+      h);
 }
 
 // The mirror direction of d about n, normalised where it has a length
@@ -568,6 +642,65 @@ __device__ __forceinline__ float shadow_ray(const float* sh_light,
   return inten > (spot ? 0.01f : 0.005f) ? dist : -INFINITY;
 }
 
+// What a miss lane of a level that spawns traces writes, lane by lane:
+// every reader discards a miss lane, but the seam still marches its rays:
+// they keep the lane's own direction, which retires at the slab test with
+// t_max = -inf (a zero direction would not); the material stays unwritten.
+__device__ __forceinline__ void surface_miss_lane(const SurfaceParams& p,
+                                                  long long i,
+                                                  const float o_w[3],
+                                                  const float d_w[3],
+                                                  int n_shadow) {
+  for (int c = 0; c < 3; ++c) {
+    p.shadow_origin[3 * i + c] = o_w[c] - d_w[c] * 0.1f;
+    if (p.bounce) p.refl_dir[3 * i + c] = d_w[c];
+  }
+  if (p.bounce) p.gate[i] = 0;
+  if (p.shadows) {
+    for (int j = 0; j <= n_shadow; ++j)
+      p.shadow_tmax[j * p.rays + i] = -INFINITY;
+    for (int j = 0; j < n_shadow; ++j)
+      for (int c = 0; c < 3; ++c)
+        p.shadow_dir[(j * p.rays + i) * 3 + c] = d_w[c];
+  }
+}
+
+// A hit lane's record, mirror ray and shadow rays from its values h, lane by
+// lane.
+template <bool kLit>
+__device__ __forceinline__ void surface_hit_lane(const SurfaceParams& p,
+                                                 const float* sh_light,
+                                                 long long i,
+                                                 const float d_w[3],
+                                                 const SurfaceHit& h,
+                                                 int n_shadow) {
+  store3(p.albedo, i, h.albedo);
+  if (!kLit) return;
+  store3(p.shadow_origin, i, h.so);
+  store3(p.n_w, i, h.n_w);
+  p.roughness[i] = h.roughness;
+  p.metallic[i] = h.metallic;
+  p.k[i] = h.k;
+
+  if (p.bounce) {
+    float r[3];
+    mirror(d_w, h.n_w, r);
+    store3(p.refl_dir, i, r);
+    p.gate[i] = h.roughness < 0.3f ? 1 : 0;
+  }
+
+  if (p.shadows) {
+    p.shadow_tmax[i] = kDirShadowTmax;
+    for (int j = 0; j < n_shadow; ++j) {
+      float sdir[3];
+      p.shadow_tmax[(1 + j) * p.rays + i] =
+          shadow_ray(sh_light, p.lights, j, h.so, sdir);
+      for (int c = 0; c < 3; ++c)
+        p.shadow_dir[(j * p.rays + i) * 3 + c] = sdir[c];
+    }
+  }
+}
+
 // The first design, kept as the comparator of the resident kernel below:
 // one thread a ray over the whole grid, every block staging the tables and
 // synchronising before its lanes read their flags, every access a lane's own
@@ -600,22 +733,7 @@ __global__ void __launch_bounds__(kThreads) surface_kernel(
   }
 
   if (!hit) {
-    // every reader discards a miss lane, but the seam still marches its
-    // rays: they keep the lane's own direction, which retires at the slab
-    // test with t_max = -inf (a zero direction would not); the material
-    // stays unwritten
-    for (int c = 0; c < 3; ++c) {
-      p.shadow_origin[3 * i + c] = o_w[c] - d_w[c] * 0.1f;
-      if (p.bounce) p.refl_dir[3 * i + c] = d_w[c];
-    }
-    if (p.bounce) p.gate[i] = 0;
-    if (p.shadows) {
-      for (int j = 0; j <= n_shadow; ++j)
-        p.shadow_tmax[j * p.rays + i] = -INFINITY;
-      for (int j = 0; j < n_shadow; ++j)
-        for (int c = 0; c < 3; ++c)
-          p.shadow_dir[(j * p.rays + i) * 3 + c] = d_w[c];
-    }
+    surface_miss_lane(p, i, o_w, d_w, n_shadow);
     return;
   }
 
@@ -624,31 +742,7 @@ __global__ void __launch_bounds__(kThreads) surface_kernel(
   SurfaceHit h;
   surface_hit<kLit, kTextured, kColors>(p, sh_inst, sh_vol, sh_sizes, i, o_w,
                                         d_w, n_obj, h);
-  store3(p.albedo, i, h.albedo);
-  if (!kLit) return;
-  store3(p.shadow_origin, i, h.so);
-  store3(p.n_w, i, h.n_w);
-  p.roughness[i] = h.roughness;
-  p.metallic[i] = h.metallic;
-  p.k[i] = h.k;
-
-  if (p.bounce) {
-    float r[3];
-    mirror(d_w, h.n_w, r);
-    store3(p.refl_dir, i, r);
-    p.gate[i] = h.roughness < 0.3f ? 1 : 0;
-  }
-
-  if (p.shadows) {
-    p.shadow_tmax[i] = kDirShadowTmax;
-    for (int j = 0; j < n_shadow; ++j) {
-      float sdir[3];
-      p.shadow_tmax[(1 + j) * p.rays + i] =
-          shadow_ray(sh_light, p.lights, j, h.so, sdir);
-      for (int c = 0; c < 3; ++c)
-        p.shadow_dir[(j * p.rays + i) * 3 + c] = sdir[c];
-    }
-  }
+  surface_hit_lane<kLit>(p, sh_light, i, d_w, h, n_shadow);
 }
 
 // ---- the forward pair's redesign ----------------------------------------------
@@ -952,6 +1046,96 @@ __global__ void __launch_bounds__(kFwdThreads, kSurfaceMinBlocks)
         f != nullptr ? f->flags : nullptr, f, w0, lane, vec, spawns,
         n_shadow);
   }
+}
+
+// ---- the surface on the unpacked voxel grid ---------------------------------
+//
+// Colour layout 2, the f32 voxel grid that vrt leaves unpacked above its
+// COLOR_CORNER_BUDGET_BYTES (config4's 257^3 colours, 204 MB), samples 8
+// voxel rows of 3 a hit, 4 z-adjacent pairs of 24 contiguous bytes, 3 KB
+// apart in y and 792 KB apart in x.  Its launches are small: a view of
+// 65,536 rays is 256 blocks, under one wave of the card, so each thread
+// shades one ray and the resident kernel's fetch-ahead ring overlaps
+// nothing.  What sets their time is a hit lane's chain of dependent loads:
+// the flag, then the ray, then the normal, t and instance, then the texture
+// samples, then the cell (color_sample reads it), then the colours it
+// names, then the stores; at config4 the gather at the chain's end was more
+// than a third of the launch (apps/probe_caps.py shade_fwd, the colour
+// sample compiled out).  This design, one thread a ray over the whole grid,
+// loads every input of a lane at once (its flag, t, instance, cell, ray and
+// normal) and the 24 colour loads together where the sample starts: the
+// cell is in hand by then, so the gather costs one round trip.  Measured
+// and no faster (PERF.md, section 6): the lane's loads issued before the
+// block stages its tables, the colour loads issued before the texture
+// samples, 8-byte loads of a z-pair, register caps, 128 threads; the loads
+// gated on the flag lose from a wave up (kVoxelGated).  It is the fastest
+// design measured on the unpacked grid at every launch size, so the wrapper
+// takes it for every launch there.  The arithmetic and its order are the
+// first design's (surface_hit_from, the trilinear sum in j order, the stores
+// of surface_kernel): every lane it writes is bit-equal to the first
+// design's.
+
+constexpr int kVoxelThreads = 256;
+// Blocks an SM must hold at once: 1 leaves the registers uncapped
+// (vrt_torch.apps.probe_caps surface_voxels times the others).
+constexpr int kVoxelMinBlocks = 1;
+// The probe's comparison, never changed here: true loads a lane's inputs
+// after its flag, and a miss lane's only where it writes a trace's ray.
+constexpr bool kVoxelGated = false;
+
+template <bool kLit, bool kTextured>
+__global__ void __launch_bounds__(kVoxelThreads, kVoxelMinBlocks)
+    surface_voxels_kernel(const SurfaceParams p) {
+  extern __shared__ float sh[];
+  float* sh_inst = sh;
+  float* sh_vol = sh_inst + p.inst.count * kInstRow;
+  int* sh_sizes = reinterpret_cast<int*>(sh_vol + p.mat.count * kVolRow);
+  float* sh_light = reinterpret_cast<float*>(sh_sizes + 2 * p.tex_count);
+  stage_surface_tables(p, sh_inst, sh_vol, sh_sizes);
+  if (kLit && p.shadows) stage_lights(sh_light, p.lights);
+  __syncthreads();
+
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= p.rays) return;
+  // every input of the lane at once, its flag among them: the cell too,
+  // which the first design reads only after the texture samples
+  const bool hit = kFwdHitPath && p.hit[i];
+  const bool spawns = kLit && (p.bounce || p.shadows);
+  float t = 0.0f;
+  int winner = 0, cell[3] = {0, 0, 0};
+  float o_w[3] = {0.0f, 0.0f, 0.0f}, d_w[3] = {0.0f, 0.0f, 0.0f};
+  float n_obj[3] = {0.0f, 0.0f, 0.0f};
+  if (!kVoxelGated || hit || spawns)
+    for (int c = 0; c < 3; ++c) {
+      o_w[c] = p.o_w[3 * i + c];
+      d_w[c] = p.d_w[3 * i + c];
+    }
+  if (!kVoxelGated || hit) {
+    t = p.t[i];
+    winner = p.winner[i];
+    for (int c = 0; c < 3; ++c) {
+      cell[c] = p.cell[3 * i + c];
+      n_obj[c] = p.n_obj[3 * i + c];
+    }
+  }
+  const int n_shadow = p.lights.points + p.lights.spots;
+  if (!hit) {
+    // a miss lane of a level that spawns no trace has nothing to write
+    if (spawns) surface_miss_lane(p, i, o_w, d_w, n_shadow);
+    return;
+  }
+  SurfaceHit h;
+  surface_hit_from<kLit, kTextured, true>(
+      p, sh_inst, sh_vol, sh_sizes, t, winner, o_w, d_w, n_obj,
+      [&](int vol, const float* mat, const float o[3], const float d[3],
+          float t_hit, float out[3]) {
+        float corners[8][3];
+        voxel_corners(p, vol, __float_as_int(mat[0]), cell, corners);
+        voxel_trilinear(cell, mat[1], mat[2], o, d, t_hit, corners, out);
+      },
+      h);
+  surface_hit_lane<kLit>(p, sh_light, i, d_w, h, n_shadow);
 }
 
 // ---- combine ----------------------------------------------------------------
@@ -2714,11 +2898,19 @@ cudaError_t combine_resident(const CombineParams& p, size_t shared,
   return launch_resident(combine_resident_kernel<kVec>, grid, p, shared, s);
 }
 
-// A surface launch of either design: 0 the first (one thread a ray over the
-// whole grid), 1 the redesign on the scalar path, 2 on the vector path.
+// A surface launch of any design: 0 the first (one thread a ray over the
+// whole grid), 1 the resident redesign on the scalar path, 2 on the vector
+// path, 3 the design for the unpacked voxel grid.
 template <bool kLit, bool kTextured, bool kColors>
 cudaError_t surface_launch(const SurfaceParams& p, int design, size_t shared,
                            cudaStream_t s) {
+  if (design == 3) {
+    surface_voxels_kernel<kLit, kTextured>
+        <<<static_cast<unsigned>((p.rays + kVoxelThreads - 1) /
+                                 kVoxelThreads),
+           kVoxelThreads, shared, s>>>(p);
+    return cudaSuccess;
+  }
   if (design == 0) {
     surface_kernel<kLit, kTextured, kColors>
         <<<static_cast<unsigned>((p.rays + kThreads - 1) / kThreads),
@@ -2765,18 +2957,21 @@ cudaError_t combine_bwd_resident(const CombineBwdParams& q, size_t shared,
 // over the whole grid; 1: the redesign, resident blocks, lane by lane; 2:
 // the redesign on the vector path, which takes o_w, d_w, n_obj, hit, albedo,
 // shadow_origin, n_w, refl_dir and every shadow direction row on 16-byte
-// boundaries).  Returns cudaGetLastError().
+// boundaries; 3: surface_voxels_kernel, on the unpacked voxel grid alone).
+// Returns cudaGetLastError().
 extern "C" int vrt_shade_surface(const void* const* ptrs, const int* ints,
                                  long long rays, void* stream) {
   const int n_inst = ints[0], n_vol = ints[1], n_tex = ints[2];
   const bool lit = ints[7], textured = ints[8], colors = ints[9];
   const int points = ints[12], spots = ints[13], design = ints[14];
   if (n_inst < 1 || n_vol < 1 || points < 0 || points > kMaxLights ||
-      spots < 0 || spots > kMaxLights || design < 0 || design > 2 ||
+      spots < 0 || spots > kMaxLights || design < 0 || design > 3 ||
       ints[6] < 0 || ints[6] > 2)
     return cudaErrorInvalidValue;
   SurfaceParams p;
   surface_inputs(ptrs, ints, rays, p);
+  if (design == 3 && (!colors || !p.colors_unpacked || p.colors == nullptr))
+    return cudaErrorInvalidValue;
   p.lights = lights_from(ptrs, 25, points, spots);
   const int out = 25 + kLightPtrs;
   p.albedo = const_cast<float*>(at<float>(ptrs, out));

@@ -22,10 +22,14 @@ striding over the rays, a warp's flags and [32,3] spans in 16-byte words,
 the surface's fetched into shared memory a round ahead, a surface warp
 without a hit writing only its traces' rays); each launch takes the vector
 path or the scalar path of the same kernel as ``shade_path`` says from the
-tensors' addresses.  The private
+tensors' addresses.  On the unpacked colour grid the surface takes
+``surface_voxels_kernel`` instead (``surface_path``: one thread a ray, a
+lane's inputs loaded at once, its 8 voxel rows' 24 loads together).  The
+private
 ``_old_design`` launches the first design (one thread a ray over the whole
-grid), the comparator of the timing runs; every lane it writes is
-bit-equal to the redesign's.  Their plain versions are
+grid), the comparator of the timing runs, and ``_resident`` the resident
+redesign on the unpacked grid too; every lane either writes is bit-equal
+to the default's.  Their plain versions are
 ``vrt_torch.render.renderer.shade_surface_reference`` and
 ``shade_combine_reference``, which take the same arguments;
 ``renderer.shade_stages`` picks among the pairs.  The forward kernels
@@ -72,8 +76,8 @@ the first design (one thread a ray over the whole grid) behind
 ``_old_design``, bit-equal to it on every cotangent.
 
 ``LAUNCHES`` counts the launches of each kernel, ``PATH_LAUNCHES`` the
-redesigns' launches (the forward pair's and the combine backward's) again
-by path.
+default launches of the forward pair and the combine backward again by
+path (the surface's "voxels" on the unpacked grid).
 """
 
 from __future__ import annotations
@@ -92,9 +96,10 @@ from vrt_torch.render.gpuscene import (MAX_POINT_LIGHTS, MAX_SPOT_LIGHTS,
                                        RenderMode, color_table)
 
 LAUNCHES = {"surface": 0, "combine": 0, "surface_bwd": 0, "combine_bwd": 0}
-# the redesigns' launches again, by the path ``shade_path`` named
-PATH_LAUNCHES = {"surface v4": 0, "surface scalar": 0, "combine v4": 0,
-                 "combine scalar": 0, "combine_bwd v4": 0,
+# the default launches again, by the path ``shade_path`` (the surface's
+# ``surface_path``) named
+PATH_LAUNCHES = {"surface v4": 0, "surface scalar": 0, "surface voxels": 0,
+                 "combine v4": 0, "combine scalar": 0, "combine_bwd v4": 0,
                  "combine_bwd scalar": 0}
 
 NVCC_FLAGS = ["--fmad=false"]
@@ -145,10 +150,19 @@ def shade_path(tensors) -> str:
     return "v4" if aligned else "scalar"
 
 
+def surface_path(layout, tensors) -> str:
+    """The path of a surface launch: "voxels" (``surface_voxels_kernel``)
+    on the unpacked colour grid (``layout`` "voxels f32"), the fastest
+    design measured there at every size; on a packed view, or without
+    colours, ``shade_path`` of ``tensors`` (the resident kernel's vector or
+    scalar path)."""
+    return "voxels" if layout == "voxels f32" else shade_path(tensors)
+
+
 def _design(old_design: bool, path: str) -> int:
     """The design int of ``vrt_shade_surface``, ``vrt_shade_combine`` and
     ``vrt_shade_combine_bwd``."""
-    return 0 if old_design else (2 if path == "v4" else 1)
+    return 0 if old_design else {"v4": 2, "scalar": 1, "voxels": 3}[path]
 
 
 def _empty(shape, dtype, dev):
@@ -331,16 +345,22 @@ def _surface_args(scene, o_w, d_w, t, n_obj, hit: MarchHit, inst,
 
 def shade_surface_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit, inst,
                        mode: RenderMode, bounce: bool, shadows: bool,
-                       _old_design: bool = False) -> SurfaceRecord:
+                       _old_design: bool = False,
+                       _resident: bool = False) -> SurfaceRecord:
     """Launch the surface kernel on ``torch.cuda.current_stream()`` for the
     hits ``(hit, inst)`` of a march and the ``(t, n_obj)`` of their resolve
     on world rays ``o_w``, ``d_w``; reads ``hit.hit`` and, with per-voxel
     colours, ``hit.cell``.  ``bounce`` adds the mirror ray and its gate,
     ``shadows`` the level's shadow rays (both lit mode only).  Records no
-    autograd graph (``ShadeSurface`` adds it).  The kernel is the redesign
-    on the path ``shade_path`` names; the private ``_old_design`` launches
-    the first design, the comparator of the timing runs.  Raises on any
-    input the kernel does not take; never falls back."""
+    autograd graph (``ShadeSurface`` adds it).  The kernel is the one on
+    the path ``surface_path`` names: on the unpacked voxel grid
+    ``surface_voxels_kernel``, else the resident redesign on the path
+    ``shade_path`` names.  The private ``_old_design`` launches the first
+    design and ``_resident`` the resident redesign on the unpacked grid too,
+    the comparators of the timing runs.  Raises on any input the kernel
+    does not take; never falls back."""
+    if _old_design and _resident:
+        raise ValueError("shade surface: one design, not both")
     dev, rays, _, ptrs, ints = _surface_args(
         scene, o_w, d_w, t, n_obj, hit, inst, mode, bounce, shadows,
         "surface kernel")
@@ -354,10 +374,12 @@ def shade_surface_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit, inst,
              _ptr(rec.n_w), _ptr(rec.roughness), _ptr(rec.metallic),
              _ptr(rec.k), _ptr(rec.refl_dir), _ptr(rec.gate), _ptr(tmax),
              _ptr(sdir)]
-    path = shade_path(surface_vectors(o_w, d_w, n_obj, hit.hit, rec))
+    vectors = surface_vectors(o_w, d_w, n_obj, hit.hit, rec)
+    path = shade_path(vectors) if _resident else surface_path(
+        color_layout(scene), vectors)
     _launch("vrt_shade_surface", "surface", ptrs,
             ints + [_design(_old_design, path)], rays, dev,
-            None if _old_design else path)
+            None if _old_design or _resident else path)
     return rec
 
 
