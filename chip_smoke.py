@@ -432,6 +432,10 @@ REBUILD_OPS = ("empty", "empty_strided", "detach", "alias", "view",
 # RAY_GRAD_RTOL * max|g| of the plain closed form (another order of sums)
 SCATTER_RTOL = 1e-5
 RAY_GRAD_RTOL = 1e-5
+# an entry of a material or light table, summed by a backward variant's
+# blocks, is held to SCATTER_RTOL times the sum of its own lanes' |terms|
+# (each term rounds on its own, and the terms may cancel) plus TABLE_ATOL
+TABLE_ATOL = 1e-12
 # config6's camera (vrt/apps/bench.py bench_fit)
 FIT_CAMS = [dict(position=(320.0, 0.0, 40.0), rotation=(0.0, 0.0, 1.0, 0.0),
                  fov=60.0)]
@@ -1911,6 +1915,446 @@ def _shade_bwd_calls(run, expected, tag):
               f"({got['bound']['bytes']} B, by {got['bound']['bound_by']}); "
               f"lanes beyond tolerance {share_max:.2e}", flush=True)
     return out
+
+
+VARIANTS = ("surface_bwd material", "combine_bwd lights")
+
+
+def _material_light_loss(scene, w, h, mode, seed=0):
+    """A fit's loss on ``scene``'s w x h frame differentiated in the
+    material constants and the light tables (``MATERIAL_FIELDS``,
+    ``LIGHT_FIELDS``, leaves of their own): a callable that renders the
+    frame, weighs its radiance with seeded weights and runs the backward."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vrt_torch.render.gpuscene import LIGHT_FIELDS, MATERIAL_FIELDS
+    from vrt_torch.render.renderer import render_image
+
+    weights = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(h, w, 3)).astype(np.float32)).to(scene.cam_pos.device)
+
+    def run():
+        leaves = {f: getattr(scene, f).detach().clone().requires_grad_(True)
+                  for f in MATERIAL_FIELDS + LIGHT_FIELDS}
+        rgb = render_image(dataclasses.replace(scene, **leaves), w, h, mode)
+        return torch.autograd.grad((rgb[..., :3] * weights).sum(),
+                                   list(leaves.values()), allow_unused=True)
+
+    return run
+
+
+def _variant_calls(run, expected, tag):
+    """Every launch of the surface backward's material variant
+    (``shade_surface_backward_cuda(..., material=True)``) and of the combine
+    backward's light variant (``shade_combine_backward_cuda(...,
+    lights=True)``) in ``run()``, kept with its inputs and outputs, then
+    held against its plain version on the same inputs
+    (``shade_surface_backward_reference(..., material=True)`` /
+    ``shade_combine_backward_reference(..., lights=True)``: autograd of the
+    plain stage with the tables as leaves, summed over the lanes in
+    float64): every per-ray cotangent (the record's k's among them) under
+    ``_grad_beyond``'s tolerance on every lane, the colour table within
+    ``SCATTER_RTOL`` * its largest |sum|, each entry of a material constant
+    or light table within ``SCATTER_RTOL`` * the sum of its own lanes'
+    |terms| + ``TABLE_ATOL`` (the plain versions return those sums: an
+    entry's terms may cancel, and each lane's term rounds on its own; the
+    largest error over the table's largest |sum| is reported too); and
+    against the default instantiation on the same
+    inputs: every per-ray cotangent the default launch returns bit-equal,
+    the two timed default, variant, variant, default.  Fails unless each
+    variant launched ``expected`` times.  Returns {"surface_bwd material" |
+    "combine_bwd lights": dict(launches, max_abs_err (the largest
+    difference over its scale, per-ray outputs and tables), by_output, ms,
+    default_ms, plain_ms (lists), bound)}."""
+    import torch
+
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.kernels._timing import device_ms
+    from vrt_torch.render.gpuscene import LIGHT_FIELDS, MATERIAL_FIELDS
+    from vrt_torch.render.renderer import (shade_combine_backward_reference,
+                                           shade_surface_backward_reference)
+
+    before = dict(k4.VARIANT_LAUNCHES)
+    with _recording(k4, "shade_surface_backward_cuda") as surf, \
+            _recording(k4, "shade_combine_backward_cuda") as comb:
+        run()
+    torch.cuda.synchronize()
+    launched = {k: k4.VARIANT_LAUNCHES[k] - before[k] for k in before}
+    surf = [c for c in surf if c[1].get("material")]
+    comb = [c for c in comb if c[1].get("lights")]
+    if (len(surf), len(comb)) != (expected, expected) or \
+            launched != {k: expected for k in VARIANTS}:
+        raise AssertionError(f"the {tag} called the material variant "
+                             f"{len(surf)} times and the light variant "
+                             f"{len(comb)} times (launches {launched}), "
+                             f"expected {expected} each")
+    out = {}
+    for key, calls in zip(VARIANTS, (surf, comb)):
+        by_output, ms, default_ms, plain_ms, bounds = {}, [], [], [], []
+        surface = key.startswith("surface")
+        kernel = k4.shade_surface_backward_cuda if surface \
+            else k4.shade_combine_backward_cuda
+        for i, (args, kwargs, got) in enumerate(calls):
+            if surface:
+                rays_grad, table_grad = (tuple(args[10:]) + (True, True))[:2]
+
+                def plain():
+                    return shade_surface_backward_reference(
+                        *args[:10], acc_dtype=torch.float64,
+                        g_k=kwargs.get("g_k"), material=True)
+
+                want = plain()
+                per_ray = zip(("g_o_w", "g_d_w", "g_t", "g_n_obj"), got[:4],
+                              want[:4])
+                tables = zip(("g_colors",) + tuple(f"g_{f}" for f in
+                                                   MATERIAL_FIELDS),
+                             got[4:], want[4:9], (None,) + want[9])
+                shared, hits = 4, int(args[5].hit.sum())
+                base = _surface_bwd_bound(args[0], args, rays_grad,
+                                          table_grad)
+                # the record's k read on the hit lanes, the [V,8]
+                # accumulator written once
+                extra = hits * 4 + args[0].tint.shape[0] * 32
+            else:
+                def plain():
+                    return shade_combine_backward_reference(
+                        *args[:10], lights=True)
+
+                want = plain()
+                per_ray = zip(COMBINE_GRADS + ("g_k",), got[:10], want[:10])
+                tables = zip(tuple(f"g_{f}" for f in LIGHT_FIELDS), got[10],
+                             want[10], want[11])
+                shared = 9
+                base = _combine_bwd_bound(args[0], args, got[:10])
+                # the light tables' accumulator written once
+                extra = sum(g.numel() * 4 for g in got[10])
+            bounds.append(_bound(base["bytes"] + extra, base["flops"]))
+            per_ray = [(n, a, b) for n, a, b in per_ray if a is not None]
+            scale = max(b.abs().max().item() for _, _, b in per_ray)
+            for name, a, b in per_ray:
+                share, worst = _grad_beyond(a, b, scale)
+                if share > SHADE_GRAD_LANE_BUDGET:
+                    raise AssertionError(
+                        f"{tag} {key} {i}: {name} differs from the plain "
+                        f"version beyond {SHADE_GRAD_RTOL} * |g| + "
+                        f"{SHADE_GRAD_ATOL} * {scale:.3e} on {share:.2e} of "
+                        f"lanes (largest difference {worst:.3e} * "
+                        f"{scale:.3e})")
+                by_output[name] = max(by_output.get(name, 0.0), worst)
+            for name, a, b, terms in tables:
+                if a is None:
+                    continue
+                b = b.double().reshape(a.shape)
+                top = b.abs().max().item()
+                err = (a.double() - b).abs()
+                e = err.max().item()
+                if not bool(torch.isfinite(a).all()):
+                    raise AssertionError(f"{tag} {key} {i}: {name} is not "
+                                         f"finite")
+                if terms is None:
+                    # the colour table against its largest |sum|
+                    if not (e <= SCATTER_RTOL * top if top > 0
+                            else not bool(a.any())):
+                        raise AssertionError(
+                            f"{tag} {key} {i}: {name} is off by {e:.3e} > "
+                            f"{SCATTER_RTOL} * {top:.3e}")
+                    by_output[name] = max(by_output.get(name, 0.0),
+                                          e / top if top > 0 else 0.0)
+                    continue
+                # a material or light table, each entry against the sum of
+                # its own lanes' |terms|
+                bound = SCATTER_RTOL * terms.double().reshape(a.shape) \
+                    + TABLE_ATOL
+                worst = (err / bound).max().item()
+                if not worst <= 1.0:
+                    raise AssertionError(
+                        f"{tag} {key} {i}: {name} is off by up to "
+                        f"{worst:.3e} times {SCATTER_RTOL} * its lanes' "
+                        f"|terms| + {TABLE_ATOL}")
+                by_output[f"{name} over its bound"] = max(
+                    by_output.get(f"{name} over its bound", 0.0), worst)
+                if top > 0:
+                    key_max = f"{name} over max|sum|"
+                    by_output[key_max] = max(by_output.get(key_max, 0.0),
+                                             e / top)
+            del want
+            # the default instantiation on the same inputs
+            default = kernel(*args)
+            bad = [j for j, (a, b) in enumerate(zip(got[:shared],
+                                                    default[:shared]))
+                   if (a is None) != (b is None)
+                   or a is not None and not torch.equal(a, b)]
+            if bad:
+                raise AssertionError(f"{tag} {key} {i}: outputs {bad} differ "
+                                     f"from the default instantiation's")
+            del default
+            olds, news = _paired_ms(lambda: kernel(*args),
+                                    lambda: kernel(*args, **kwargs), 20)
+            ms.append(sum(news) / 2)
+            default_ms.append(sum(olds) / 2)
+            plain_ms.append(device_ms(plain, 2))
+            print(f"shade {key} [{tag} {i}]: default, variant, variant, "
+                  f"default "
+                  f"{', '.join(f'{t:.4f}' for t in (olds[0], news[0], news[1], olds[1]))}"
+                  f" ms; plain {plain_ms[-1]:.2f} ms; bound "
+                  f"{bounds[-1]['bound_ms']:.4f} ms ({bounds[-1]['bytes']} B, "
+                  f"by {bounds[-1]['bound_by']}); largest difference per "
+                  f"output over its scale "
+                  f"{', '.join(f'{k} {v:.2e}' for k, v in by_output.items())}",
+                  flush=True)
+        out[key] = dict(launches=launched[key],
+                        max_abs_err=max((v for k, v in by_output.items()
+                                         if not k.endswith("its bound")),
+                                        default=0.0),
+                        by_output=by_output, ms=ms, default_ms=default_ms,
+                        plain_ms=plain_ms, bound=_sum_bounds(bounds))
+        got = out[key]
+        print(f"shade {key} on the {tag}: {got['launches']} launches, "
+              f"{_list(ms)} ms = {sum(ms):.4f} ms (the default "
+              f"instantiation on the same inputs {sum(default_ms):.4f} ms); "
+              f"plain {sum(plain_ms):.2f} ms; bound "
+              f"{got['bound']['bound_ms']:.4f} ms", flush=True)
+    return out
+
+
+MATERIAL_STEP_KEYS = ("sdf", "voxel_colors", "tint", "roughness", "metallic",
+                      "k", "dir_light_dir", "dir_light_strength")
+
+
+@contextlib.contextmanager
+def _eager_shading_by_lane(kept):
+    """``_eager_shading``, each material read of a surface stage (its
+    ``take``) and each light table of both stages read as one row a lane
+    (``renderer._lane_lights``), so that the caller can differentiate the
+    loss in those rows and sum their terms in float64: every read is kept in
+    ``kept`` as (field, rows, how to sum them into the table)."""
+    import torch
+
+    from vrt_torch.render import renderer as tren
+    from vrt_torch.render.gpuscene import MATERIAL_FIELDS
+
+    def lights(scene, lanes):
+        lit, views = tren._lane_lights(scene, lanes)
+        for f, (v, axis) in views.items():
+            if v.requires_grad:
+                kept.append((f, v, lambda g, axis=axis, shape=getattr(
+                    scene, f).shape: g.sum(dim=axis).reshape(shape)))
+        return lit
+
+    def surface(scene, o_w, *args, **kwargs):
+        names = {id(getattr(scene, f)): f for f in MATERIAL_FIELDS}
+
+        def take(table, idx):
+            rows = table[idx]
+            if rows.requires_grad:
+                kept.append((names[id(table)], rows,
+                             lambda g, shape=table.shape: torch.zeros(
+                                 shape, dtype=g.dtype, device=g.device)
+                             .index_add_(0, idx, g)))
+            return rows
+
+        return tren.shade_surface_reference(lights(scene, o_w.shape[0]),
+                                            o_w, *args, take=take, **kwargs)
+
+    def combine(scene, rec, d_w, *args, **kwargs):
+        return tren.shade_combine_reference(lights(scene, d_w.shape[0]),
+                                            rec, d_w, *args, **kwargs)
+
+    saved = tren.shade_stages
+    tren.shade_stages = lambda *_: (surface, combine)
+    try:
+        yield
+    finally:
+        tren.shade_stages = saved
+
+
+MATERIAL_STEP_KEYS = ("sdf", "voxel_colors", "tint", "roughness", "metallic",
+                      "k", "dir_light_dir", "dir_light_strength")
+
+
+def _material_step(dev, card, sync, zero_counts, counts, timed, sdf_step):
+    """config6's 1080p fit step with the material constants and the
+    directional light among the parameters (``MATERIAL_STEP_KEYS``): on the
+    kernels (every level through the shade Functions, the backward kernels'
+    material and light variants), and the same step forced onto the plain
+    pair (``_eager_shading``: the plain stages under autograd), old, new,
+    new, old (medians of 3), with the SDF-and-colour step ``sdf_step`` of
+    phase 8 beside it in the same order.  One step on the kernels, the
+    counts set to 0 just before it: 3 + 3 forward and 3 + 3 backward shade
+    launches, each backward a variant (its counts are the ``launches``
+    returned).  The loss and its gradients on each route (the step's loss
+    function differentiated): the losses within 1e-5, the SDF's and the
+    colours' gradients at ``FIT_COS_TOL`` / ``FIT_DIFF_TOL``, each material
+    and light gradient within ``SCATTER_RTOL`` * its largest |sum| of the
+    plain route's float64 sum (``_eager_shading_by_lane``: the lanes' terms
+    of every read summed in float64, held within 1e-3 of max|sum| of
+    autograd's own f32 sums, which shows that no read was missed).  Device
+    ops, busy time and peak memory of a step on each route; every variant
+    launch of one step held by ``_variant_calls``.  Returns dict(routes (ms
+    medians, peak, busy, device ops), launches, grads, held
+    (``_variant_calls``'s), loss, plain_loss)."""
+    import numpy as np
+    import torch
+
+    from vrt_torch.diff.fit import (graft_and_rebuild, make_fit_step,
+                                    render_views)
+    from vrt_torch.diff.optim import adam
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.render import renderer as tren
+    from vrt_torch.render.gpuscene import RenderMode
+    from vrt_torch.scenes import flagship_scene
+
+    scene = flagship_scene(6, use_colors=True, device=dev)
+    params = {k: scene.volumes.sdf if k == "sdf" else getattr(scene, k)
+              for k in MATERIAL_STEP_KEYS}
+    targets = torch.zeros((len(FIT_CAMS), FRAME_W * FRAME_H, 3), device=dev)
+    opt = adam(1e-2)
+    state = opt.init(params)
+    step = make_fit_step(scene, FIT_CAMS, FRAME_W, FRAME_H, RenderMode(),
+                         opt)
+
+    def kernel_step():
+        return step(params, state, targets)[2]
+
+    def plain_step():
+        with _eager_shading():
+            return kernel_step()
+
+    def value_and_grad(kept=()):
+        # the step's loss and its gradients, also in the rows in ``kept``
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        s = graft_and_rebuild(scene, leaves)
+        loss = torch.mean((render_views(s, FIT_CAMS, FRAME_W, FRAME_H,
+                                        RenderMode()) - targets) ** 2)
+        grads = torch.autograd.grad(
+            loss, list(leaves.values()) + [rows for _, rows, _ in kept],
+            allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for x, g in zip(list(leaves.values()), grads)] \
+            + list(grads[len(leaves):])
+        return loss.detach(), dict(zip(leaves, grads)), grads[len(leaves):]
+
+    # one step on the kernels, the counts set to 0 just before it: every
+    # level through the Function pair, every backward a variant
+    picked, pairs = tren.shade_stages, []
+
+    def spy(*args):
+        pairs.append(picked(*args))
+        return pairs[-1]
+
+    kernel_step()
+    sync()
+    zero_counts()
+    tren.shade_stages = spy
+    try:
+        kernel_step()
+        sync()
+    finally:
+        tren.shade_stages = picked
+    got, variants = counts(), dict(k4.VARIANT_LAUNCHES)
+    functions = (tren._shade_surface_function, tren._shade_combine_function)
+    levels = _resolves(scene)
+    if pairs != [functions] * levels or any(
+            got[k] != levels for k in ("surface", "combine", "surface_bwd",
+                                       "combine_bwd")) or \
+            got["gather"] or got["scatter"] or \
+            variants != {v: levels for v in VARIANTS}:
+        raise AssertionError(f"the material-and-light step shaded on "
+                             f"{pairs} with launches {got}, variants "
+                             f"{variants}")
+    loss, grads, _ = value_and_grad()
+    kept = []
+    with _eager_shading_by_lane(kept):
+        plain_loss, plain_grads, by_lane = value_and_grad(kept)
+    sync()
+    # each material and light table's gradient summed over its reads'
+    # lanes in float64
+    sums = {k: torch.zeros(params[k].shape, dtype=torch.float64,
+                           device=params[k].device)
+            for k in MATERIAL_STEP_KEYS[2:]}
+    for (f, rows, fold), g in zip(kept, by_lane):
+        if f in sums and g is not None:
+            sums[f] += fold(g.double())
+    del kept, by_lane
+    rel = abs(float(loss) - float(plain_loss)) / abs(float(plain_loss))
+    if not rel < FIT_LOSS_RTOL:
+        raise AssertionError(f"the material-and-light step's loss "
+                             f"{float(loss)} against the plain route's "
+                             f"{float(plain_loss)}")
+    by_key = {}
+    for k in MATERIAL_STEP_KEYS:
+        b = grads[k].double().cpu().numpy().ravel()
+        if k in sums:
+            a = sums[k].cpu().numpy().ravel()
+            f32 = plain_grads[k].double().cpu().numpy().ravel()
+        else:
+            a = plain_grads[k].double().cpu().numpy().ravel()
+        top = np.abs(a).max()
+        diff = float(np.abs(a - b).max() / top) if top > 0 else 0.0
+        ok = np.isfinite(b).all() and (top > 0 or not b.any())
+        if k in ("sdf", "voxel_colors"):
+            cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+            ok = ok and 1 - cos < FIT_COS_TOL and diff < FIT_DIFF_TOL
+            by_key[k] = dict(one_minus_cos=1 - cos, diff_over_max=diff)
+        else:
+            # the float64 sum against autograd's f32 one of the same route
+            # shows that every read of the table was kept
+            own = float(np.abs(a - f32).max() / top) if top > 0 else 0.0
+            ok = ok and diff <= SCATTER_RTOL and own <= 1e-3
+            by_key[k] = dict(diff_over_max=diff,
+                             plain_f32_sum_diff_over_max=own)
+        print(f"  material-and-light step, grad {k} against the plain "
+              f"route: {by_key[k]}", flush=True)
+        if not ok:
+            raise AssertionError(f"the material-and-light step's {k} "
+                                 f"gradient disagrees with the plain route's")
+    del grads, plain_grads, sums
+
+    zero_counts()
+    meds = [statistics.median(timed(run, 3)[0]) * 1e3
+            for run in (plain_step, kernel_step, kernel_step, plain_step)]
+    print(f"config6 material-and-light fit step on {card}, the plain pair "
+          f"under autograd against the shade kernels' variants, medians of "
+          f"3 in the order old, new, new, old: "
+          f"{', '.join(f'{t:.2f}' for t in meds)} ms", flush=True)
+    beside = [statistics.median(timed(run, 3)[0]) * 1e3
+              for run in (sdf_step, kernel_step, kernel_step, sdf_step)]
+    print(f"config6 fit step on {card}, the SDF and the colours against the "
+          f"material-and-light step on the kernels, medians of 3 in the "
+          f"order sdf, material, material, sdf: "
+          f"{', '.join(f'{t:.2f}' for t in beside)} ms", flush=True)
+    routes = {"plain": dict(ms=[meds[0], meds[3]]),
+              "kernels": dict(ms=[meds[1], meds[2]]),
+              "sdf_colour_step": dict(ms=[beside[0], beside[3]]),
+              "kernels_beside_it": dict(ms=[beside[1], beside[2]])}
+    for tag, run in (("plain", plain_step), ("kernels", kernel_step)):
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        sync()
+        routes[tag]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        prof = _profile(run, sync, statistics.median(routes[tag]["ms"]),
+                        what=f"one config6 material-and-light fit step "
+                             f"({tag})")
+        if prof is not None:
+            routes[tag].update(busy_ms=prof["busy_ms"],
+                               device_ops=prof["device_ops"],
+                               device_records=prof["device_records"])
+        print(f"config6 material-and-light fit step on {card}, {tag}: "
+              f"median {statistics.median(routes[tag]['ms']):.2f} ms, peak "
+              f"max_memory_allocated {routes[tag]['peak_gib']:.2f} GiB"
+              + ("" if prof is None else
+                 f", device busy {prof['busy_ms']:.1f} ms in "
+                 f"{prof['device_ops']} device ops"), flush=True)
+    zero_counts()
+    held = _variant_calls(kernel_step, levels,
+                          "config6 material-and-light fit step")
+    return dict(routes=routes, launches=variants, grads=by_key, held=held,
+                loss=float(loss), plain_loss=float(plain_loss))
 
 
 def _rebuild_calls(run, expected, tag):
@@ -5261,22 +5705,29 @@ def main():
              "rebuild_kernel", 256),
             ("Adam (optim.cu)", "Adam update (optim.cu)", "adam_kernel",
              256)):
-        got = ptxas_usage(logs[log], kernel)
-        if got is None:
-            print(f"ptxas, {name} {kernel}: not in the log (the library was "
-                  f"built before this run)", flush=True)
-            continue
-        got["occupancy"] = [warp_slots(r, threads)
-                            for r in got["registers"][::-1]]
-        ptxas[kernel] = got
-        print(f"ptxas, {name} {kernel} ({threads} threads a block): "
-              f"{got['variants']} variants, {got['registers'][0]}-"
-              f"{got['registers'][1]} registers, stack frame "
-              f"{got['stack_bytes'][0]}-{got['stack_bytes'][1]} bytes, spills "
-              f"{got['spill_bytes'][0]}-{got['spill_bytes'][1]} bytes; warp "
-              f"slots the registers leave filled "
-              f"{got['occupancy'][0]:.0%}-{got['occupancy'][1]:.0%}",
-              flush=True)
+        # the shade backward kernels' default launches apart from their
+        # material and light variants (the last template argument)
+        split = kernel in ("surface_bwd_merged_kernel", "surface_bwd_kernel",
+                           "combine_bwd_resident_kernel",
+                           "combine_bwd_kernel")
+        for last, key in (((False, kernel), (True, f"{kernel} variant"))
+                          if split else ((None, kernel),)):
+            got = ptxas_usage(logs[log], kernel, last)
+            if got is None:
+                print(f"ptxas, {name} {key}: not in the log (the library "
+                      f"was built before this run)", flush=True)
+                continue
+            got["occupancy"] = [warp_slots(r, threads)
+                                for r in got["registers"][::-1]]
+            ptxas[key] = got
+            print(f"ptxas, {name} {key} ({threads} threads a block): "
+                  f"{got['variants']} variants, {got['registers'][0]}-"
+                  f"{got['registers'][1]} registers, stack frame "
+                  f"{got['stack_bytes'][0]}-{got['stack_bytes'][1]} bytes, "
+                  f"spills {got['spill_bytes'][0]}-{got['spill_bytes'][1]} "
+                  f"bytes; warp slots the registers leave filled "
+                  f"{got['occupancy'][0]:.0%}-{got['occupancy'][1]:.0%}",
+                  flush=True)
 
     _mark(3)
     # ---- 3. every kernel against its plain version --------------------------
@@ -5419,6 +5870,19 @@ def main():
             _resolves(busy), f"480x270 textured frame with 2 point lights "
             f"and a spot light, colours={colors}")
         del busy
+    # the backward kernels' material and light variants: a loss on the same
+    # frames differentiated in the material constants and the lights, each
+    # variant launch against its plain version and the default
+    # instantiation on the same inputs
+    variant_runs = {}
+    for tag, colors in (("lights", False), ("lights_colors", True)):
+        busy = shading_scene(6, 2, 1, colors=colors, device=dev)
+        variant_runs[tag] = _variant_calls(
+            _material_light_loss(busy, SMALL_W, SMALL_H, mode),
+            _resolves(busy), f"480x270 textured frame with 2 point lights "
+            f"and a spot light, colours={colors}, a loss in the materials "
+            f"and the lights")
+        del busy
 
     # K3: every launch of one 1080p frame on the candidate-loop path, of one
     # config6 fit step with eager shading (the colour rows: the default step
@@ -5491,6 +5955,7 @@ def main():
         _reset(k3.SCATTER_LAUNCHES)
         _reset(k4.LAUNCHES)
         _reset(k4.PATH_LAUNCHES)
+        _reset(k4.VARIANT_LAUNCHES)
         _reset(kp.LAUNCHES)
         _reset(kp.BWD_LAUNCHES)
         _reset(ka.LAUNCHES)
@@ -5956,6 +6421,13 @@ def main():
             raise AssertionError(
                 f"a config6 fit step takes {prof['device_ops']} device ops, "
                 f"expected {FIT_STEP_OPS[0]} to {FIT_STEP_OPS[-1]}")
+    # the step with the material constants and the directional light among
+    # the parameters, on the kernels' variants and on the plain pair
+    mat_step = _material_step(dev, card, sync, zero_counts, counts, timed,
+                              one_step)
+    paired["fit_materials"] = mat_step["routes"]["plain"]["ms"][:1] \
+        + mat_step["routes"]["kernels"]["ms"] \
+        + mat_step["routes"]["plain"]["ms"][1:]
     del fit_scene, step, params, state, targets
 
     # the card's fit loss and gradients against vrt's (CPU) on the fixture
@@ -6599,6 +7071,66 @@ def main():
                "vrt/march/types.py:25 (XLA's transpose of "
                "pack_cell_corners' slices under jax.value_and_grad of the "
                "fit step: no Pallas kernel)"))),
+        *({"name": name, "route": "cuda",
+           "source": "vrt_torch/csrc/shade.cu",
+           "replaces": replaces,
+           "path": path,
+           # the variant's launches in phase 8's one material-and-light
+           # step on the kernels, counted from 0 just before it
+           "launches": mat_step["launches"][key],
+           "launches_by_path": {
+               "config6_material_light_step": mat_step["launches"][key]},
+           "max_abs_err": max(mat_step["held"][key]["max_abs_err"],
+                              *(r[key]["max_abs_err"]
+                                for r in variant_runs.values())),
+           "max_abs_err_is": "the largest difference of any per-ray output "
+                             "over the launch's largest |plain| cotangent, "
+                             "or of a table over its largest |plain sum| "
+                             "(summed in float64)",
+           "by_output": mat_step["held"][key]["by_output"],
+           "tolerance": {"rtol": SHADE_GRAD_RTOL,
+                         "atol_of_max": SHADE_GRAD_ATOL,
+                         "lanes_beyond": SHADE_GRAD_LANE_BUDGET,
+                         "table_rtol_of_its_abs_terms": SCATTER_RTOL,
+                         "table_atol": TABLE_ATOL,
+                         "step_table_rtol_of_max": SCATTER_RTOL},
+           # config6's 1080p material-and-light step, its three launches
+           "ms": sum(mat_step["held"][key]["ms"]),
+           "per_launch_ms": mat_step["held"][key]["ms"],
+           "default_instantiation_ms": sum(mat_step["held"][key]
+                                           ["default_ms"]),
+           "plain_ms": sum(mat_step["held"][key]["plain_ms"]),
+           **bound_keys(mat_step["held"][key]["bound"]),
+           "library_ms": None,
+           "by_path": {f"480x270_{t}": {
+               "ms": sum(r[key]["ms"]),
+               "default_instantiation_ms": sum(r[key]["default_ms"]),
+               "plain_ms": sum(r[key]["plain_ms"]),
+               **bound_keys(r[key]["bound"])}
+               for t, r in variant_runs.items()},
+           "ptxas": {k: ptxas.get(f"{k} variant") for k in kernels}}
+          for name, key, kernels, path, replaces in (
+              ("K4 shade surface backward (material variant)",
+               "surface_bwd material",
+               ("surface_bwd_merged_kernel", "surface_bwd_kernel"),
+               "ShadeSurface's backward where a material constant (tint, "
+               "roughness, metallic, k) needs a gradient: "
+               "shade_surface_backward_cuda(..., material=True), the merged "
+               "kernel's kMat instantiation",
+               "vrt/render/renderer.py:340-360 (XLA's transpose of "
+               "_shade_lit's material reads in the tint, roughness, "
+               "metallic and k under jax.value_and_grad of the fit step: "
+               "no Pallas kernel)"),
+              ("K4 shade combine backward (light variant)",
+               "combine_bwd lights",
+               ("combine_bwd_resident_kernel", "combine_bwd_kernel"),
+               "ShadeCombine's backward where the record's k or a light "
+               "table needs a gradient: shade_combine_backward_cuda(..., "
+               "lights=True), the resident kernel's kGrad instantiation",
+               "vrt/render/renderer.py:395-440 (XLA's transpose of "
+               "_shade_lit's lights, vrt/shade/brdf.py:32-66 and "
+               "vrt/shade/lights.py:8-17, in the lights and k under "
+               "jax.value_and_grad of the fit step: no Pallas kernel)"))),
         {"name": "Adam update", "route": "cuda",
          "source": "vrt_torch/csrc/optim.cu",
          "replaces": "vrt/diff/fit.py:168-169 and :217-226 "
@@ -6710,6 +7242,8 @@ def main():
         "eager_frame_as_cuda_graph_ms": graph_ms,
         "plain_stages_under_torch_compile": compiled,
         "config6_step_old_new": sides,
+        "config6_material_light_step": {k: mat_step[k] for k in (
+            "routes", "launches", "grads", "loss", "plain_loss")},
         "engine": eng["numbers"],
         "config3": c3["numbers"],
         "config5": c5["numbers"],

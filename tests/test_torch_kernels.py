@@ -459,6 +459,44 @@ def test_ptxas_usage_reads_a_plain_kernel(kernel, want):
     assert ptxas_usage(PTXAS_PLAIN_LOG, kernel) == want
 
 
+# the shade backward kernels' default launches and their material and light
+# variants: the last template argument
+PTXAS_VARIANT_LOG = """\
+ptxas info    : Function properties for _ZN4_GN_25surface_bwd_merged_kernelILb1ELb1ELb1ELb0EEEvNS_16SurfaceBwdParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Function properties for _ZN4_GN_25surface_bwd_merged_kernelILb1ELb1ELb1ELb1EEEvNS_16SurfaceBwdParamsE
+    24 bytes stack frame, 24 bytes spill stores, 24 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 24 bytes cumulative stack size
+ptxas info    : Function properties for _ZN4_GN_18combine_bwd_kernelILb0EEEvNS_16CombineBwdParamsE
+    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 90 registers, used 1 barriers, 8 bytes cumulative stack size
+"""
+
+
+@pytest.mark.parametrize("kernel,last,want", [
+    ("surface_bwd_merged_kernel", None,
+     dict(variants=2, registers=[80, 80], stack_bytes=[0, 24],
+          spill_bytes=[0, 48])),
+    ("surface_bwd_merged_kernel", False,
+     dict(variants=1, registers=[80, 80], stack_bytes=[0, 0],
+          spill_bytes=[0, 0])),
+    ("surface_bwd_merged_kernel", True,
+     dict(variants=1, registers=[80, 80], stack_bytes=[24, 24],
+          spill_bytes=[48, 48])),
+    ("combine_bwd_kernel", False,
+     dict(variants=1, registers=[90, 90], stack_bytes=[8, 8],
+          spill_bytes=[0, 0])),
+    ("combine_bwd_kernel", True, None)])
+def test_ptxas_usage_reads_one_variant(kernel, last, want):
+    """``last`` keeps the variants whose last template argument is that
+    bool: the shade backward kernels' default launches apart from their
+    material and light variants."""
+    from vrt_torch.kernels._build import ptxas_usage
+
+    assert ptxas_usage(PTXAS_VARIANT_LOG, kernel, last) == want
+
+
 @pytest.mark.parametrize("regs,threads,want", [
     (118, 256, 16 / 64), (96, 64, 20 / 64), (80, 64, 24 / 64),
     (80, 256, 24 / 64), (32, 256, 1.0), (64, 64, 32 / 64)])
@@ -2462,6 +2500,163 @@ def test_surface_backward_designs_on_card(case, size):
         assert int(hit.hit.sum()) == hit.hit.numel() and rows.shape[0] == 1
     if case.endswith("unpacked"):
         assert got[4].shape == (scene.voxel_colors.numel() // 3, 3)
+
+
+# a scene table's entry summed by a variant's blocks is held to SCATTER_RTOL
+# times the sum of its own lanes' |terms| (each term rounds on its own, and
+# the terms may cancel), plus TABLE_ATOL
+TABLE_ATOL = 1e-12
+
+
+def _assert_table_close(got, want, terms, name):
+    """A scene table's cotangent, summed by a variant's blocks, against the
+    plain version's (summed over the lanes in float64): each entry within
+    ``SCATTER_RTOL`` * the sum of its lanes' |terms| (``terms``) +
+    ``TABLE_ATOL``, so zero where no lane adds to it."""
+    assert got.shape == want.shape == terms.shape, name
+    assert bool(torch.isfinite(got).all()), name
+    err = (got.double() - want.double()).abs()
+    bound = SCATTER_RTOL * terms.double() + TABLE_ATOL
+    assert bool((err <= bound).all()), (name, (err / bound).max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("old_design", [False, True], ids=["new", "old"])
+@pytest.mark.parametrize("case", sorted(SHADE_GRAD_CASES))
+def test_shade_variants_match_plain_on_card(case, old_design):
+    """The surface backward's material variant and the combine backward's
+    light variant (the redesign, or the first design) against their plain
+    versions on a 480x270 level, the record's miss lanes NaN before the
+    combine backward: the per-ray cotangents (the record's k's among them)
+    within the per-ray tolerances, each entry of a material constant or
+    light table within ``SCATTER_RTOL`` * the sum of its lanes' |terms| of
+    the plain version's float64 sum (``_assert_table_close``);
+    every per-ray cotangent that the default launch also returns bit-equal
+    to the default launch's on the same inputs; one launch of each variant,
+    counted as such."""
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.render.gpuscene import LIGHT_FIELDS, MATERIAL_FIELDS
+
+    dev = _card()
+    lv = _shade_grad_level(case, dev)
+    scene, mode, hit = lv["scene"], lv["mode"], lv["hit"]
+    rays = hit.hit.shape[0]
+    g_k = torch.where(hit.hit, lv["g_rgb"][:, 0], 0.0) if mode.lit else None
+    args = (scene, lv["o"], lv["d"], lv["t"], lv["n_obj"], hit, lv["inst"],
+            mode, mode.lit, lv["cots"])
+    variants = dict(k4.VARIANT_LAUNCHES)
+    got = k4.shade_surface_backward_cuda(*args, _old_design=old_design,
+                                         g_k=g_k, material=True)
+    base = k4.shade_surface_backward_cuda(*args, _old_design=old_design)
+    want = tren.shade_surface_backward_reference(
+        *args, acc_dtype=torch.float64, g_k=g_k, material=True)
+    torch.cuda.synchronize()
+    _assert_grads_close(("o_w", "d_w", "t", "n_obj"), got[:4], want[:4])
+    for name, a, b in zip(("o_w", "d_w", "t", "n_obj"), got, base):
+        assert torch.equal(a, b), name
+    if scene.use_voxel_colors:
+        scale = want[4].abs().max().item()
+        assert (got[4].double() - want[4]).abs().max().item() \
+            <= SCATTER_RTOL * scale
+    for name, a, b, terms in zip(MATERIAL_FIELDS, got[5:], want[5:9],
+                                 want[9]):
+        _assert_table_close(a, b.reshape(a.shape), terms.reshape(a.shape),
+                            name)
+    if mode.lit:
+        assert bool(got[6].any()) and bool(got[8].any())
+
+    rec = k4.shade_surface_cuda(*args[:9], mode.lit)
+    miss = ~hit.hit
+    for f in ("albedo", "shadow_origin", "n_w", "roughness", "metallic",
+              "k", "refl_dir"):
+        x = getattr(rec, f)
+        if x is not None:
+            x[miss] = float("nan")
+    cargs = (scene, rec, lv["d"], lv["n_obj"], hit.hit, lv["unlit"],
+             lv["refl"], lv["blocked"], mode, lv["g_rgb"])
+    got = k4.shade_combine_backward_cuda(*cargs, _old_design=old_design,
+                                         lights=True)
+    base = k4.shade_combine_backward_cuda(*cargs, _old_design=old_design)
+    want = tren.shade_combine_backward_reference(*cargs, lights=True)
+    torch.cuda.synchronize()
+    names = COMBINE_NAMES + ("k",)
+    _assert_grads_close(names, got[:10], want[:10])
+    for name, a, b in zip(COMBINE_NAMES, got, base):
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert torch.equal(a, b), name
+    if mode.lit:
+        assert got[9].shape == (rays,) and not bool((got[9][miss] != 0).any())
+    for name, a, b, terms in zip(LIGHT_FIELDS, got[10], want[10], want[11]):
+        _assert_table_close(a, b, terms, name)
+    if mode.lit:
+        assert bool(got[10][0].any()) and bool(got[10][1].any())
+    assert {k: k4.VARIANT_LAUNCHES[k] - variants[k] for k in variants} == {
+        "surface_bwd material": 1, "combine_bwd lights": 1}
+
+
+@pytest.mark.gpu
+def test_fit_through_materials_and_lights_on_card():
+    """The 64x36 fit of ``tests/fixtures/fit_flagship_r4_colors_64x36.npz``
+    with the material constants and the lights among the parameters, on the
+    card: every level through the shade Functions and the backward kernels'
+    variants (3 + 3 forward and 3 + 3 backward launches, each backward a
+    variant), the loss and the SDF and colour gradients the fixture's, and
+    every material and light gradient within a cosine of 1 - 1e-6 and
+    1e-4 * max|g| of the same step on the plain stages under autograd."""
+    import os
+
+    from vrt_torch.diff.fit import (_value_and_grad, graft_and_rebuild,
+                                    render_views)
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.render.gpuscene import LIGHT_FIELDS, MATERIAL_FIELDS
+
+    dev = _card()
+    scene = flagship_scene(4, use_colors=True, device=dev)
+    fixture = np.load(os.path.join(os.path.dirname(__file__), "fixtures",
+                                   "fit_flagship_r4_colors_64x36.npz"))
+    cams = [dict(position=(320.0, 0.0, 40.0), rotation=(0.0, 0.0, 1.0, 0.0),
+                 fov=60.0)]
+    keys = ("sdf", "voxel_colors") + MATERIAL_FIELDS + LIGHT_FIELDS
+
+    def loss(p):
+        s = graft_and_rebuild(scene, p)
+        return torch.mean((render_views(s, cams, 64, 36, RenderMode())
+                           - 0.25) ** 2)
+
+    params = {k: scene.volumes.sdf if k == "sdf" else getattr(scene, k)
+              for k in keys}
+    before, variants = dict(k4.LAUNCHES), dict(k4.VARIANT_LAUNCHES)
+    got, grads = _value_and_grad(loss, params)
+    torch.cuda.synchronize()
+    assert {k: k4.LAUNCHES[k] - before[k] for k in before} == dict(
+        surface=3, combine=3, surface_bwd=3, combine_bwd=3)
+    assert {k: k4.VARIANT_LAUNCHES[k] - variants[k] for k in variants} == {
+        "surface_bwd material": 3, "combine_bwd lights": 3}
+    assert float(got) == pytest.approx(float(fixture["loss"]), rel=1e-5)
+    for k in ("sdf", "voxel_colors"):
+        a = fixture[f"grad_{k}"].astype(np.float64).ravel()
+        b = grads[k].double().cpu().numpy().ravel()
+        cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
+        assert 1.0 - cos < 1e-8, (k, 1.0 - cos)
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(a).max(), k
+    plain = tren.shade_stages
+    tren.shade_stages = lambda *_: (tren.shade_surface_reference,
+                                    tren.shade_combine_reference)
+    try:
+        _, eager = _value_and_grad(loss, params)
+    finally:
+        tren.shade_stages = plain
+    for k in MATERIAL_FIELDS + LIGHT_FIELDS:
+        a = eager[k].double().cpu().numpy().ravel()
+        b = grads[k].double().cpu().numpy().ravel()
+        assert np.isfinite(b).all(), k
+        if not a.any():
+            assert not b.any(), k
+            continue
+        cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
+        assert 1.0 - cos < 1e-6, (k, 1.0 - cos)
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(a).max(), k
 
 
 @pytest.mark.gpu

@@ -15,12 +15,14 @@ against vrt on the CPU, and the rule that picks between the stage pairs.
   ``render_image`` under the thresholds of tests/test_golden_full.py;
 - the surface record's shapes and dtypes per flag set;
 - the dispatch rule ``shade_stages``, one case per tensor the level reads:
-  a graph through the rays, t, n_obj, the corner table or a colour table
-  takes the Function pair, a graph through any other table the plain pair,
-  no graph the plain pair on CPU tensors and the kernel pair on CUDA
+  a graph through the rays, t, n_obj, the corner table, a colour table, a
+  material constant or a light takes the Function pair, a graph through
+  the texture scale, a texture, the env or an instance transform the plain
+  pair, no graph the plain pair on CPU tensors and the kernel pair on CUDA
   tensors; another device raises;
-- a fit step of the SDF and the colours runs the Function pair, and one
-  that also optimizes the tint the plain pair; both give the loss and
+- a fit step of the SDF and the colours runs the Function pair, so does
+  one that also optimizes the material constants and the lights, and one
+  that also optimizes the env the plain pair; all give the loss and
   gradients of the 64x36 fixture ``chip_smoke.py`` holds the card against;
 - a tracer that overrides only ``march`` and ``resolve`` renders the default
   tracer's frame through the stages;
@@ -48,7 +50,8 @@ from vrt_torch.kernels import shade as k4
 from vrt_torch.march.types import MarchHit, SurfaceRecord
 from vrt_torch.render import renderer as tren
 from vrt_torch.render.camera import camera_rays
-from vrt_torch.render.gpuscene import RenderMode, scene_from_numpy
+from vrt_torch.render.gpuscene import (LIGHT_FIELDS, MATERIAL_FIELDS,
+                                       RenderMode, scene_from_numpy)
 from vrt_torch.scenes import flagship_scene
 
 torch.set_num_threads(2)
@@ -284,17 +287,22 @@ def test_shaded_fields_are_scene_tensors():
             "spot_fwd", "dir_light_dir", "env"} <= set(tren._SHADED_FIELDS)
     assert tren._SHADED_FIELDS == tren._KERNEL_GRAD_FIELDS \
         + tren._PLAIN_GRAD_FIELDS
-    assert set(tren._KERNEL_GRAD_FIELDS) == {"voxel_colors",
-                                             "voxel_color_corners"}
+    assert set(tren._KERNEL_GRAD_FIELDS) == {
+        "voxel_colors", "voxel_color_corners", *MATERIAL_FIELDS,
+        *LIGHT_FIELDS}
+    assert set(tren._PLAIN_GRAD_FIELDS) == {
+        "tex_scale", "textures", "env", "inst_pos", "inst_rot", "inst_scale"}
 
 
 @pytest.mark.parametrize("name", GRAD_CARRIERS)
 def test_dispatch_takes_autograd_for(name):
     """CUDA tensors with a graph through ``name``: the Function pair for the
-    rays, ``t``, ``n_obj``, the corner table and the colour tables, the
-    plain pair for the rest; the same tensors without a graph being
-    recorded: the kernels.  On CPU tensors the same rule, with the plain
-    pair where no graph is recorded."""
+    rays, ``t``, ``n_obj``, the corner table, the colour tables, the
+    material constants and the lights, the plain pair for the rest (the
+    texture scale, the textures, the env, the instance transforms); the
+    same tensors without a graph being recorded: the kernels.  On CPU
+    tensors the same rule, with the plain pair where no graph is
+    recorded."""
     want = FUNCTIONS if name in FUNCTION_CARRIERS else PLAIN
     assert tren.shade_stages(*_fake_level(grad_on=name)) == want
     assert tren.shade_stages(*_fake_level("cpu", grad_on=name)) == want
@@ -304,9 +312,9 @@ def test_dispatch_takes_autograd_for(name):
 
 
 def test_dispatch_plain_fields_win():
-    """A graph through the rays and through a material constant at once:
-    the plain pair, the only one that returns the material's gradient."""
-    level = _fake_level(grad_on="tint")
+    """A graph through the rays and through the env at once: the plain
+    pair, the only one that returns the env's gradient."""
+    level = _fake_level(grad_on="env")
     level[1].requires_grad = True
     assert tren.shade_stages(*level) == PLAIN
 
@@ -371,13 +379,27 @@ def _fit_through(params, want_pair):
 
 
 def test_fit_step_takes_the_plain_pair_and_the_fixture():
-    """A fit step that also optimizes a material constant (the tint, whose
-    gradient the kernels do not return) shades every level on the plain
-    pair under autograd, and its loss and SDF and colour gradients are the
-    fixture's (vrt's, on the CPU)."""
-    grads = _fit_through(("tint",), PLAIN)
-    # with per-voxel colours the tint shades nothing
+    """A fit step that also optimizes the env (whose gradient the kernels
+    do not return) shades every level on the plain pair under autograd, and
+    its loss and SDF and colour gradients are the fixture's (vrt's, on the
+    CPU)."""
+    grads = _fit_through(("env",), PLAIN)
+    # the miss lanes read the env
+    assert bool(grads["env"].any())
+
+
+def test_fit_step_through_materials_and_lights_takes_the_function_pair():
+    """A fit step that also optimizes the material constants and the
+    lights shades every level through the Function pair (their gradients
+    come back from the backward kernels' variants, on the CPU from the
+    plain backward), and its loss and SDF and colour gradients are the
+    fixture's."""
+    grads = _fit_through(MATERIAL_FIELDS + LIGHT_FIELDS, FUNCTIONS)
+    # with per-voxel colours the tint shades nothing; the rest does
     assert not bool(grads["tint"].any())
+    for f in ("roughness", "metallic", "k", "dir_light_dir",
+              "dir_light_strength"):
+        assert bool(grads[f].any()), f
 
 
 def test_fit_step_takes_the_function_pair_and_the_fixture():

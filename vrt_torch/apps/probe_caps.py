@@ -12,6 +12,7 @@ CUDA card.
                                          [resolve_bwd] [slab] [pyramid]
                                          [combine_bwd] [resolve_fwd]
                                          [surface_voxels [--parent DIR]]
+                                         [shade_bwd --parent DIR]
 
 Each kernel's block and register cap are constants of its source
 (``kSceneThreads``, ``kSceneMinBlocks`` and ``kAnyHitMinBlocks`` in
@@ -66,7 +67,11 @@ a 1080p frame of its scene (one wave of the card and more), the resident
 kernel forced beside them, and with ``--parent DIR`` the surface launches
 of the flagship's 1080p frame, a config6 fit step, config3's and config7's
 frames and a config4 fit step on this checkout's kernels and on the
-``shade.cu`` of the checkout under DIR in turns.  Each build must give the default
+``shade.cu`` of the checkout under DIR in turns; for ``shade_bwd --parent DIR`` the two backward kernels'
+launches of the config6 and config4 fit steps on this checkout's
+``shade.cu`` and on the parent's, parent, this, this, parent, bit-equal,
+and of the material-and-light step (this checkout's variants beside the
+parent's default launch).  Each build must give the default
 build's result (the marches
 field by field, the per-ray cotangents bit for bit (every output of the
 combine backward and of the fused resolve), the forward pair on
@@ -503,6 +508,72 @@ def _against_parent(parent, card, dev, config4_step):
         del calls
 
 
+def _bwd_against_parent(parent, card, *steps):
+    """The backward launches of the shade kernels (the surface's and the
+    combine's) of each fit step of ``steps`` (config6's, config4's and
+    config6's with the materials and the lights), each on this checkout's
+    ``shade.cu`` and on the parent checkout ``parent``'s in the order
+    parent, this, this, parent: the default launches (every launch of the
+    first two steps) must give the parent's outputs bit for bit (the
+    surface's per-ray cotangents; its colour table's atomics add in an
+    order of their own); the
+    launches of the third are this checkout's variants, timed beside the
+    parent's default launch on the same inputs."""
+    from pathlib import Path
+
+    k4.build()
+    csrc = Path(parent).resolve() / "vrt_torch" / "csrc"
+    old, _ = _build.build(str(csrc / "shade.cu"), k4.NVCC_FLAGS,
+                          headers=[str(csrc / "scene.cuh")])
+    for name in ("vrt_shade_surface_bwd", "vrt_shade_combine_bwd"):
+        fn, ref = getattr(old, name), getattr(k4._lib, name)
+        fn.argtypes, fn.restype = ref.argtypes, ref.restype
+    new = k4._lib
+    for what, make in zip(("the config6 fit step's",
+                           "the config4 fit step's",
+                           "the config6 material-and-light step's"), steps):
+        variants = what.startswith("the config6 material")
+        for stage in ("surface", "combine"):
+            name = f"shade_{stage}_backward_cuda"
+            calls = _recorded(k4, name, make())
+            per = []
+            try:
+                for args, kwargs, got in calls:
+                    def on(lib, kw):
+                        def run():
+                            k4._lib = lib
+                            return getattr(k4, name)(*args, **kw)
+                        return run
+
+                    # the parent knows no variant: its default launch
+                    if not variants:
+                        outs = [on(lib, kwargs)() for lib in (old, new)]
+                        torch.cuda.synchronize()
+                        same = _same_cotangents if stage == "surface" \
+                            else _same_bits
+                        if not same(outs[1], outs[0], args, "parent"):
+                            raise AssertionError(
+                                f"{what} {stage} backward: this checkout's "
+                                f"default launch differs from the parent's")
+                    per.append([device_ms(on(lib, {} if lib is old
+                                             else kwargs), REPS)
+                                for lib in (old, new, new, old)])
+            finally:
+                k4._lib = new
+            olds = sum(t[0] + t[3] for t in per) / 2
+            news = sum(t[1] + t[2] for t in per) / 2
+            print(f"{what} shade {stage} backward launches on {card}: the "
+                  f"parent checkout's default, this checkout's "
+                  f"{'variant' if variants else 'default'}, this, the "
+                  f"parent's "
+                  f"{'; '.join(', '.join(f'{x:.4f}' for x in t) for t in per)}"
+                  f" ms; sums {olds:.4f} against {news:.4f} ms "
+                  f"({news / olds - 1:+.1%})"
+                  + ("" if variants else "; every output bit-equal"),
+                  flush=True)
+            del calls
+
+
 class _Slabs(SceneTracer):
     """A slab tracer over every slab of a slab-sharded volume in one
     process (``vrt_torch.render.renderer.SceneTracer``'s seam): each slab
@@ -846,6 +917,26 @@ def main(argv=None) -> int:
               f" ms; the accumulator's fill alone "
               f"{', '.join(f'{t:.4f}' for t in fill)} ms", flush=True)
         del calls
+
+    def material_step():
+        # config6's step with the material constants and the directional
+        # light among the parameters (chip_smoke.py's phase 8)
+        scene = flagship_scene(6, use_colors=True, device=dev)
+        keys = ("sdf", "voxel_colors", "tint", "roughness", "metallic", "k",
+                "dir_light_dir", "dir_light_strength")
+        params = {k: scene.volumes.sdf if k == "sdf" else getattr(scene, k)
+                  for k in keys}
+        opt = adam(1e-2)
+        cams = [dict(position=(320.0, 0.0, 40.0),
+                     rotation=(0.0, 0.0, 1.0, 0.0), fov=60.0)]
+        step = make_fit_step(scene, cams, 1920, 1080, RenderMode(), opt)
+        targets = torch.zeros((1, 1920 * 1080, 3), device=dev)
+        state = opt.init(params)
+        return lambda: step(params, state, targets)
+
+    if "shade_bwd" in probes and parent is not None:
+        _bwd_against_parent(parent, card, config6_step, config4_step,
+                            material_step)
 
     if "surface_voxels" in probes:
         from vrt_torch.apps import bench

@@ -1494,6 +1494,29 @@ __global__ void __launch_bounds__(kFwdThreads, kCombineMinBlocks)
 // combine_bwd_resident_kernel, the default; see "combine backward, the
 // redesign" below).
 //
+// Each backward kernel has a variant that also differentiates the scene's
+// small tables, a compile-time instantiation (kMat, kGrad) that the wrapper
+// picks only where one of them needs a gradient; no default launch runs any
+// of their code.  The surface backward's material
+// variant adds, per hit lane, the cotangents of its volume's tint (the
+// albedo's, times the albedo texture where textured; none under per-voxel
+// colours), roughness and metallic (through the clip and the rm texture)
+// and k (the record's k's); the combine backward's light variant returns
+// the record's k's per lane (g_schlick's) and adds each lit lane's
+// cotangents of the directional light (direction, strength) and of each
+// point and spot light's row (position, intensity, attenuations, colour,
+// and a spot light's forward direction and cone).  Those tables are small
+// (at most 20 volumes x 7 floats, 4 + 5 x 9 + 5 x 14 light floats) and every
+// hit lane adds into them: each block keeps its partial sums in shared
+// memory (beside the staged tables), merged first over the lanes of a warp
+// (the material's by volume with merge_peers; a light's on the combine
+// backward's vector path, where the warp runs the lit lanes' code
+// together, by a shuffle tree, measured 2.6x faster than each lane's shared
+// atomics there), and adds them into an f32
+// accumulator once, at its end: one atomic a nonzero entry a block.  What
+// they add to a launch: a lane's few more products and the reductions; the
+// bytes are the default's but for the record's k.
+//
 // Where the derivative has a kink, the kernels take vrt's side (JAX's; the
 // plain stages take it through core/kinks.py):
 //   max(x, c) / min(x, c) / clip(x, lo, hi): x's cotangent whole where x is
@@ -1571,13 +1594,14 @@ __device__ __forceinline__ void rotate_bwd(const float qv[3], float qw,
 }
 
 // The reverse of add_radiance for the cotangent go of its output: adds the
-// cotangents of li, wi, wo, n, albedo, roughness and metallic (k takes none).
-__device__ void radiance_bwd(const float li[3], const float wi[3],
-                             const float wo[3], const float n[3],
-                             const float albedo[3], float r, float m, float k,
-                             const float go[3], float g_li[3], float g_wi[3],
-                             float g_wo[3], float g_n[3], float g_albedo[3],
-                             float& g_r, float& g_m) {
+// cotangents of li, wi, wo, n, albedo, roughness and metallic and, with
+// kGradK (the light variant's), of the geometry term's k.
+template <bool kGradK>
+__device__ __forceinline__ void radiance_bwd_impl(
+    const float li[3], const float wi[3], const float wo[3], const float n[3],
+    const float albedo[3], float r, float m, float k, const float go[3],
+    float g_li[3], float g_wi[3], float g_wo[3], float g_n[3],
+    float g_albedo[3], float& g_r, float& g_m, float& g_k) {
   float hr[3], h[3];
   for (int c = 0; c < 3; ++c) hr[c] = wi[c] + wo[c];
   const float hn2 = dot3(hr, hr);
@@ -1632,6 +1656,12 @@ __device__ void radiance_bwd(const float li[3], const float wi[3],
   const float g_dr = pass_max(dr, 0.0001f, -(g_spec * spec) / denom);
   float g_dwo = g_dr * (4.0f * dwi) + (g_g * gsi) * (k / (deno * deno));
   float g_dwi = g_dr * (4.0f * dwo) + (g_g * gso) * (k / (deni * deni));
+  if (kGradK) {
+    // brdf.py g_schlick: d/dk of w / (w (1 - k) + k) is -(w / den) (1 - w)
+    // / den
+    g_k += (g_g * gsi) * (-(gso * (1.0f - dwo)) / deno) +
+           (g_g * gso) * (-(gsi * (1.0f - dwi)) / deni);
+  }
   const float g_nwo = pass_max(nwo, 0.0f, g_dwo);
   g_nwi += pass_max(nwi, 0.0f, g_dwi);
   // pw = max(1 - max(wh, 0), 0)^5
@@ -1659,11 +1689,42 @@ __device__ void radiance_bwd(const float li[3], const float wi[3],
   }
 }
 
+// radiance_bwd_impl without k's cotangent (every default launch) and with
+// it (the light variant).
+__device__ void radiance_bwd(const float li[3], const float wi[3],
+                             const float wo[3], const float n[3],
+                             const float albedo[3], float r, float m, float k,
+                             const float go[3], float g_li[3], float g_wi[3],
+                             float g_wo[3], float g_n[3], float g_albedo[3],
+                             float& g_r, float& g_m) {
+  float unused = 0.0f;
+  radiance_bwd_impl<false>(li, wi, wo, n, albedo, r, m, k, go, g_li, g_wi,
+                           g_wo, g_n, g_albedo, g_r, g_m, unused);
+}
+
+__device__ void radiance_bwd_k(const float li[3], const float wi[3],
+                               const float wo[3], const float n[3],
+                               const float albedo[3], float r, float m,
+                               float k, const float go[3], float g_li[3],
+                               float g_wi[3], float g_wo[3], float g_n[3],
+                               float g_albedo[3], float& g_r, float& g_m,
+                               float& g_k) {
+  radiance_bwd_impl<true>(li, wi, wo, n, albedo, r, m, k, go, g_li, g_wi,
+                          g_wo, g_n, g_albedo, g_r, g_m, g_k);
+}
+
 // The reverse of light_at: the shadow origin's cotangent (added) for those
-// of the direction to the light and of its intensity.
-__device__ void light_at_bwd(const float* row, bool spot, const float so[3],
-                             const float g_sdir[3], float g_inten,
-                             float g_so[3]) {
+// of the direction to the light and of its intensity and, with kRow (the
+// light variant's), those of the light's staged row (added into g_row, by
+// word: position, intensity, att_l, att_e and, for a spot light, its
+// forward direction and cone; the colour's are the caller's).
+template <bool kRow>
+__device__ __forceinline__ void light_at_bwd_impl(const float* row, bool spot,
+                                                  const float so[3],
+                                                  const float g_sdir[3],
+                                                  float g_inten,
+                                                  float g_so[3],
+                                                  float* g_row) {
   float delta[3];
   for (int c = 0; c < 3; ++c) delta[c] = row[c] - so[c];
   const float dist = sqrtf(dot3(delta, delta));
@@ -1674,6 +1735,12 @@ __device__ void light_at_bwd(const float* row, bool spot, const float so[3],
   if (!spot) {
     const float inten = row[3] / den;
     g_dist += -(g_inten * inten / den) * g_den_per;
+    if (kRow) {
+      const float g_den = -(g_inten * inten / den);
+      g_row[3] += g_inten / den;
+      g_row[4] += g_den * dist;
+      g_row[5] += (g_den * dist) * dist;
+    }
   } else {
     float to[3];
     for (int c = 0; c < 3; ++c) to[c] = so[c] - row[c];
@@ -1695,14 +1762,36 @@ __device__ void light_at_bwd(const float* row, bool spot, const float so[3],
       for (int c = 0; c < 3; ++c) g_to[c] = g_tn[c] / norm - to[c] * s;
       if (norm != 0.0f)
         for (int c = 0; c < 3; ++c) g_so[c] += g_to[c];
+      if (kRow) {
+        // to = so - pos; cs = fwd . to / |to|; q = (cs - ca) / (cf - ca);
+        // inten = pos_intensity min(q, 1) / den
+        const float g_den = -(g_inten * (i1 / den) / den);
+        if (norm != 0.0f)
+          for (int c = 0; c < 3; ++c) g_row[c] -= g_to[c];
+        for (int c = 0; c < 3; ++c) g_row[3 + c] += g_cs * tn[c];
+        g_row[6] += g_i1 * nmin(q, 1.0f);
+        g_row[7] += g_den * dist;
+        g_row[8] += (g_den * dist) * dist;
+        g_row[9] += g_q * (q - 1.0f) / (cos_falloff - cos_angle);
+        g_row[10] += -(g_q * q) / (cos_falloff - cos_angle);
+      }
     }
   }
   if (dist != 0.0f) {
     // sdir = delta / dist, dist = |delta|; delta = row - so
     g_dist += -dot3(g_sdir, delta) / (dist * dist);
-    for (int c = 0; c < 3; ++c)
-      g_so[c] -= g_sdir[c] / dist + delta[c] * (g_dist / dist);
+    for (int c = 0; c < 3; ++c) {
+      const float g_delta = g_sdir[c] / dist + delta[c] * (g_dist / dist);
+      g_so[c] -= g_delta;
+      if (kRow) g_row[c] += g_delta;
+    }
   }
+}
+
+__device__ void light_at_bwd(const float* row, bool spot, const float so[3],
+                             const float g_sdir[3], float g_inten,
+                             float g_so[3]) {
+  light_at_bwd_impl<false>(row, spot, so, g_sdir, g_inten, g_so, nullptr);
 }
 
 // The reverse of sample_env: the direction's cotangent (added) for that of
@@ -1789,18 +1878,114 @@ struct CombineBwdParams {
   float* g_d_w;
   float* g_n_obj;
   float* g_refl_rgb;
+  // the light variant's: the record's k [R] (null unlit) and the light
+  // tables' accumulator, the 15 tables flattened in the order of Lights
+  // (129 floats), added into
+  float* g_k;
+  float* g_lights;
 };
 
+// The light tables flattened one after another at their padded shapes
+// (kernels/shade.py light_shapes): where each begins.
+constexpr int kGradDir = 0, kGradStrength = 3, kGradPointPos = 4,
+              kGradPointI = 19, kGradPointAttL = 24, kGradPointAttE = 29,
+              kGradPointColor = 34, kGradSpotPos = 54, kGradSpotFwd = 69,
+              kGradSpotI = 84, kGradSpotAttL = 89, kGradSpotAttE = 94,
+              kGradSpotCosA = 99, kGradSpotCosF = 104, kGradSpotColor = 109;
 
+// Where word w of the staged lights goes in the flattened tables (-1 for
+// a row's padding).
+__device__ __forceinline__ int light_grad_index(int w, int points) {
+  if (w < 3) return kGradDir + w;
+  if (w == 3) return kGradStrength;
+  if (w < 4 + points * kPointRow) {
+    const int i = (w - 4) / kPointRow, c = (w - 4) % kPointRow;
+    if (c < 3) return kGradPointPos + 3 * i + c;
+    if (c == 3) return kGradPointI + i;
+    if (c == 4) return kGradPointAttL + i;
+    if (c == 5) return kGradPointAttE + i;
+    if (c < 9) return kGradPointColor + 4 * i + (c - 6);
+    return -1;
+  }
+  const int r = w - 4 - points * kPointRow;
+  const int i = r / kSpotRow, c = r % kSpotRow;
+  if (c < 3) return kGradSpotPos + 3 * i + c;
+  if (c < 6) return kGradSpotFwd + 3 * i + (c - 3);
+  if (c == 6) return kGradSpotI + i;
+  if (c == 7) return kGradSpotAttL + i;
+  if (c == 8) return kGradSpotAttE + i;
+  if (c == 9) return kGradSpotCosA + i;
+  if (c == 10) return kGradSpotCosF + i;
+  if (c < 14) return kGradSpotColor + 4 * i + (c - 11);
+  return -1;
+}
+
+__device__ __forceinline__ int light_words(const Lights& l) {
+  return 4 + l.points * kPointRow + l.spots * kSpotRow;
+}
+
+// One word of a light's cotangent into the block's partial sums sh_g: over a
+// converged warp (``converged``, the same on every lane) by a shuffle tree,
+// then lane 0's one shared atomic; else the lane's own atomic, where it is
+// nonzero.
+__device__ __forceinline__ void light_grad_add(float* sh_g, int w, float v,
+                                               bool converged) {
+  if (converged) {
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_xor_sync(kFullWarp, v, off);
+    if ((threadIdx.x & 31) == 0 && v != 0.0f) atomicAdd(sh_g + w, v);
+  } else if (v != 0.0f) {
+    atomicAdd(sh_g + w, v);
+  }
+}
+
+// The light variant's block epilogue: the block's partial sums (sh_g, one
+// a staged word) into the flattened tables, one f32 atomic a nonzero word.
+// Every thread of the block calls it.
+__device__ __forceinline__ void flush_light_grads(const CombineBwdParams& q,
+                                                  const float* sh_g) {
+  __syncthreads();
+  const int words = light_words(q.f.lights);
+  for (int w = threadIdx.x; w < words; w += blockDim.x) {
+    const int to = light_grad_index(w, q.f.lights.points);
+    if (to >= 0 && sh_g[w] != 0.0f) atomicAdd(q.g_lights + to, sh_g[w]);
+  }
+}
+
+// The light variant's partial sums zeroed before the block's first
+// __syncthreads.
+__device__ __forceinline__ void zero_light_grads(const Lights& l,
+                                                 float* sh_g) {
+  for (int w = threadIdx.x; w < light_words(l); w += blockDim.x)
+    sh_g[w] = 0.0f;
+}
+
+
+template <bool kGrad>
+__device__ __forceinline__ void combine_bwd_ray(const CombineBwdParams& q,
+                                                const float* sh, long long i,
+                                                float* sh_g);
+
+// kGrad: the light variant, every lane through the redesign's per-lane code
+// (combine_bwd_ray), each lane's light cotangents added into the block's
+// partial sums on their own; the default keeps the first design's lines.
+template <bool kGrad>
 __global__ void __launch_bounds__(kThreads) combine_bwd_kernel(
     const CombineBwdParams q) {
   const CombineParams& p = q.f;
   extern __shared__ float sh[];
   if (p.lit) stage_lights(sh, p.lights);
+  float* sh_g = sh + light_words(p.lights);
+  if (kGrad) zero_light_grads(p.lights, sh_g);
   __syncthreads();
 
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
+  if (kGrad) {
+    if (i < p.rays) combine_bwd_ray<true>(q, sh, i, sh_g);
+    flush_light_grads(q, sh_g);
+    return;
+  }
   if (i >= p.rays) return;
 
   float d_w[3], g[3];
@@ -1968,10 +2153,17 @@ __device__ __forceinline__ void record_scalars(const CombineParams& p,
 }
 
 // A lit hit lane's cotangents, the first design's lines, from the record
-// the caller read, added into the zeroed ``o``.
+// the caller read, added into the zeroed ``o``.  kGrad (the light variant)
+// also adds the cotangent of the record's k into ``g_k`` and the lights'
+// into the block's partial sums ``sh_g`` (light_grad_add); ``converged``
+// says every lane of the warp runs it together, ``lane_on`` whether this
+// lane is a lit hit (a converged warp's other lanes add zeros and leave
+// ``o`` as it is).  The default passes false and true.
+template <bool kGrad>
 __device__ __forceinline__ void combine_bwd_lit(
     const CombineParams& p, const float* sh, const float d_w[3],
-    const float g[3], const CombineRecord& r, CombineGrads& o) {
+    const float g[3], const CombineRecord& r, CombineGrads& o, float* sh_g,
+    float& g_k, bool converged, bool lane_on) {
   float wo[3], g_wo[3] = {0.0f, 0.0f, 0.0f};
   float g_li[3], g_wi[3];
   for (int c = 0; c < 3; ++c) wo[c] = -d_w[c];
@@ -1982,7 +2174,7 @@ __device__ __forceinline__ void combine_bwd_lit(
   const float* rdir = r.rdir;
   const float roughness = r.roughness, metallic = r.metallic, k = r.k;
 
-  if (p.refl_rgb != nullptr && roughness < 0.3f) {
+  if (lane_on && p.refl_rgb != nullptr && roughness < 0.3f) {
     float li[3], wi[3], rr[3];
     const float fade = 1.0f - roughness * 2.2f;
     for (int c = 0; c < 3; ++c) {
@@ -1991,8 +2183,12 @@ __device__ __forceinline__ void combine_bwd_lit(
       wi[c] = rdir[c];
       g_li[c] = g_wi[c] = 0.0f;
     }
-    radiance_bwd(li, wi, wo, n_w, albedo, roughness, metallic, k, g, g_li,
-                 g_wi, g_wo, o.nw, o.alb, o.r, o.m);
+    if (kGrad)
+      radiance_bwd_k(li, wi, wo, n_w, albedo, roughness, metallic, k, g,
+                     g_li, g_wi, g_wo, o.nw, o.alb, o.r, o.m, g_k);
+    else
+      radiance_bwd(li, wi, wo, n_w, albedo, roughness, metallic, k, g, g_li,
+                   g_wi, g_wo, o.nw, o.alb, o.r, o.m);
     float g_fade = 0.0f;
     for (int c = 0; c < 3; ++c) {
       const float gl = pass_max(rr[c] * fade, 0.0f, g_li[c]);
@@ -2003,12 +2199,26 @@ __device__ __forceinline__ void combine_bwd_lit(
     o.r += g_fade * -2.2f;
   }
 
-  if (!(r.dark & 1u)) {
-    // the light's own cotangents are dropped: it is not differentiated
-    const float li[3] = {sh[3], sh[3], sh[3]};
-    for (int c = 0; c < 3; ++c) g_li[c] = g_wi[c] = 0.0f;
-    radiance_bwd(li, sh, wo, n_w, albedo, roughness, metallic, k, g, g_li,
-                 g_wi, g_wo, o.nw, o.alb, o.r, o.m);
+  if (!kGrad) {
+    if (!(r.dark & 1u)) {
+      // the light's own cotangents are dropped: it is not differentiated
+      const float li[3] = {sh[3], sh[3], sh[3]};
+      for (int c = 0; c < 3; ++c) g_li[c] = g_wi[c] = 0.0f;
+      radiance_bwd(li, sh, wo, n_w, albedo, roughness, metallic, k, g, g_li,
+                   g_wi, g_wo, o.nw, o.alb, o.r, o.m);
+    }
+  } else {
+    // the directional light's: its direction's and its strength's
+    float gd[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (lane_on && !(r.dark & 1u)) {
+      const float li[3] = {sh[3], sh[3], sh[3]};
+      for (int c = 0; c < 3; ++c) g_li[c] = g_wi[c] = 0.0f;
+      radiance_bwd_k(li, sh, wo, n_w, albedo, roughness, metallic, k, g,
+                     g_li, g_wi, g_wo, o.nw, o.alb, o.r, o.m, g_k);
+      for (int c = 0; c < 3; ++c) gd[c] = g_wi[c];
+      gd[3] = (g_li[0] + g_li[1]) + g_li[2];
+    }
+    for (int w = 0; w < 4; ++w) light_grad_add(sh_g, w, gd[w], converged);
   }
 
   const int n_shadow = p.lights.points + p.lights.spots;
@@ -2019,8 +2229,29 @@ __device__ __forceinline__ void combine_bwd_lit(
     light_at(row, spot, so, sdir, dist, inten);
     const bool lit = inten > (spot ? 0.01f : 0.005f) &&
                      !((r.dark >> (1 + j)) & 1u);
-    if (!lit) continue;
     const float* color = row + (spot ? 11 : 6);
+    if (kGrad) {
+      // the light's row of cotangents, by staged word
+      float gr[kSpotRow];
+      for (int w = 0; w < kSpotRow; ++w) gr[w] = 0.0f;
+      if (lane_on && lit) {
+        for (int c = 0; c < 3; ++c) {
+          li[c] = color[c] * inten;
+          g_li[c] = g_wi[c] = 0.0f;
+        }
+        radiance_bwd_k(li, sdir, wo, n_w, albedo, roughness, metallic, k, g,
+                       g_li, g_wi, g_wo, o.nw, o.alb, o.r, o.m, g_k);
+        light_at_bwd_impl<true>(row, spot, so, g_wi, dot3(color, g_li), o.so,
+                                gr);
+        for (int c = 0; c < 3; ++c)
+          gr[(spot ? 11 : 6) + c] += g_li[c] * inten;
+      }
+      const int base = static_cast<int>(row - sh);
+      for (int w = 0; w < (spot ? 14 : 9); ++w)
+        light_grad_add(sh_g, base + w, gr[w], converged);
+      continue;
+    }
+    if (!lit) continue;
     for (int c = 0; c < 3; ++c) {
       li[c] = color[c] * inten;
       g_li[c] = g_wi[c] = 0.0f;
@@ -2029,16 +2260,34 @@ __device__ __forceinline__ void combine_bwd_lit(
                  g_wi, g_wo, o.nw, o.alb, o.r, o.m);
     light_at_bwd(row, spot, so, g_wi, dot3(color, g_li), o.so);
   }
-  for (int c = 0; c < 3; ++c) o.d[c] = -g_wo[c];
+  if (lane_on)
+    for (int c = 0; c < 3; ++c) o.d[c] = -g_wo[c];
 }
 
 // One lane's branch: the env lookup's backward on a miss lane, the
 // attribute normal's on an unlit-attribute lane, the albedo's in unlit mode,
-// else the lit lane's from the record the caller read.
+// else the lit lane's from the record the caller read.  ``converged`` (the
+// light variant's vector path, where every lane of the warp calls it) runs
+// the lit lane's code on every lane of the warp, each lane's own where it
+// is a lit hit.
+template <bool kGrad>
 __device__ __forceinline__ void combine_bwd_branch(
     const CombineParams& p, const float* sh, bool hit, bool unlit,
     const float d_w[3], const float g[3], const CombineRecord& r,
-    CombineGrads& o) {
+    CombineGrads& o, float* sh_g, float& g_k, bool converged) {
+  if (kGrad && converged) {
+    if (!hit) {
+      sample_env_bwd(p.env, p.env_side, d_w, g, o.d);
+    } else if (unlit) {
+      for (int c = 0; c < 3; ++c) o.nobj[c] = g[c];
+    } else if (!p.lit) {
+      for (int c = 0; c < 3; ++c) o.alb[c] = g[c];
+    }
+    if (p.lit)
+      combine_bwd_lit<true>(p, sh, d_w, g, r, o, sh_g, g_k, true,
+                            hit && !unlit);
+    return;
+  }
   if (!hit) {
     sample_env_bwd(p.env, p.env_side, d_w, g, o.d);
   } else if (unlit) {
@@ -2046,14 +2295,17 @@ __device__ __forceinline__ void combine_bwd_branch(
   } else if (!p.lit) {
     for (int c = 0; c < 3; ++c) o.alb[c] = g[c];
   } else {
-    combine_bwd_lit(p, sh, d_w, g, r, o);
+    combine_bwd_lit<kGrad>(p, sh, d_w, g, r, o, sh_g, g_k, false, true);
   }
 }
 
-// A lane's nine cotangents, each where asked for, as its own words.
+// A lane's nine cotangents, each where asked for, as its own words, and
+// the light variant's k.
+template <bool kGrad>
 __device__ __forceinline__ void combine_bwd_store(const CombineBwdParams& q,
                                                   long long i,
-                                                  const CombineGrads& o) {
+                                                  const CombineGrads& o,
+                                                  float g_k) {
   store3(q.g_albedo, i, o.alb);
   store3(q.g_shadow_origin, i, o.so);
   store3(q.g_n_w, i, o.nw);
@@ -2063,19 +2315,23 @@ __device__ __forceinline__ void combine_bwd_store(const CombineBwdParams& q,
   store3(q.g_d_w, i, o.d);
   store3(q.g_n_obj, i, o.nobj);
   store3(q.g_refl_rgb, i, o.rrgb);
+  if (kGrad) store1(q.g_k, i, g_k);
 }
 
 // The scalar path: a lane of a partial warp (or of every warp where a
 // tensor is off a 16-byte boundary) on its own words; a miss lane reads its
-// direction, its radiance's cotangent and its flag alone.
+// direction, its radiance's cotangent and its flag alone.  The light
+// variant's sums go into sh_g lane by lane.
+template <bool kGrad>
 __device__ __forceinline__ void combine_bwd_ray(const CombineBwdParams& q,
-                                                const float* sh,
-                                                long long i) {
+                                                const float* sh, long long i,
+                                                float* sh_g) {
   const CombineParams& p = q.f;
   float d_w[3], g[3];
   load3(p.d_w, i, d_w);
   load3(q.g_rgb, i, g);
   CombineGrads o = {};
+  float g_k = 0.0f;
   const bool hit = p.hit[i];
   const bool unlit = hit && p.unlit[i];
   CombineRecord r;
@@ -2089,8 +2345,9 @@ __device__ __forceinline__ void combine_bwd_ray(const CombineBwdParams& q,
       load3(p.refl_dir, i, r.rdir);
     }
   }
-  combine_bwd_branch(p, sh, hit, unlit, d_w, g, r, o);
-  combine_bwd_store(q, i, o);
+  combine_bwd_branch<kGrad>(p, sh, hit, unlit, d_w, g, r, o, sh_g, g_k,
+                            false);
+  combine_bwd_store<kGrad>(q, i, o, g_k);
 }
 
 // What a combine-backward warp fetches ahead on the vector path: its hit and
@@ -2121,12 +2378,15 @@ __device__ __forceinline__ void combine_bwd_fetch(const CombineBwdParams& q,
 // without a hit writes its cotangents as spans; a warp with a hit reads its
 // record and writes its cotangents lane by lane (as spans through the
 // stage, measured slower: vrt_torch.apps.probe_caps combine_bwd).  Every
-// lane of the warp calls it.
+// lane of the warp calls it.  The light variant's warp with a hit runs its
+// lit lanes' code on every lane together and sums each light's cotangents
+// over the warp by a shuffle tree.
+template <bool kGrad>
 __device__ __forceinline__ void combine_bwd_warp(const CombineBwdParams& q,
                                                  const float* sh,
                                                  const CombineBwdFetch& f,
                                                  float* stage, long long w0,
-                                                 int lane) {
+                                                 int lane, float* sh_g) {
   const CombineParams& p = q.f;
   const long long i = w0 + lane;
   const bool hit = f.flags[0][lane] != 0;
@@ -2139,6 +2399,7 @@ __device__ __forceinline__ void combine_bwd_warp(const CombineBwdParams& q,
     g[c] = fg[3 * lane + c];
   }
   CombineGrads o = {};
+  float g_k = 0.0f;
   if (!__any_sync(kFullWarp, hit)) {
     // a warp of miss lanes: the env lookup's backward, zeros elsewhere
     sample_env_bwd(p.env, p.env_side, d_w, g, o.d);
@@ -2151,9 +2412,11 @@ __device__ __forceinline__ void combine_bwd_warp(const CombineBwdParams& q,
         reinterpret_cast<uint4*>(zeroed[j] + 3 * w0)[lane] = zero;
     store1(q.g_roughness, i, 0.0f);
     store1(q.g_metallic, i, 0.0f);
+    if (kGrad) store1(q.g_k, i, 0.0f);
     return;
   }
   CombineRecord r;
+  if (kGrad) r = CombineRecord{};
   if (hit && !unlit && p.lit) {
     load3(p.albedo, i, r.albedo);
     load3(p.shadow_origin, i, r.so);
@@ -2164,14 +2427,17 @@ __device__ __forceinline__ void combine_bwd_warp(const CombineBwdParams& q,
       load3(p.refl_dir, i, r.rdir);
     }
   }
-  combine_bwd_branch(p, sh, hit, unlit, d_w, g, r, o);
-  combine_bwd_store(q, i, o);
+  combine_bwd_branch<kGrad>(p, sh, hit, unlit, d_w, g, r, o, sh_g, g_k,
+                            true);
+  combine_bwd_store<kGrad>(q, i, o, g_k);
 }
 
 // Resident blocks striding over the rays; kVec takes the vector path for
 // every whole warp (the launcher checks the alignment), else the scalar
-// path for every lane.
-template <bool kVec>
+// path for every lane.  kGrad is the light variant: its blocks keep their
+// partial sums of the lights' cotangents in shared memory beside the
+// staged lights and add them into the tables once, at the end.
+template <bool kVec, bool kGrad>
 __global__ void __launch_bounds__(kCombineBwdThreads, kCombineBwdMinBlocks)
     combine_bwd_resident_kernel(const CombineBwdParams q) {
   const CombineParams& p = q.f;
@@ -2182,6 +2448,7 @@ __global__ void __launch_bounds__(kCombineBwdThreads, kCombineBwdMinBlocks)
   const int warp = threadIdx.x >> 5;
   float* stage = stages[warp];
   CombineBwdFetch* buf = fetched[warp];
+  float* sh_g = sh + light_words(p.lights);
   const long long stride =
       static_cast<long long>(gridDim.x) * kCombineBwdThreads;
   long long base = static_cast<long long>(blockIdx.x) * kCombineBwdThreads;
@@ -2192,6 +2459,7 @@ __global__ void __launch_bounds__(kCombineBwdThreads, kCombineBwdMinBlocks)
     __pipeline_commit();
   }
   if (p.lit) stage_lights(sh, p.lights);
+  if (kGrad) zero_light_grads(p.lights, sh_g);
   __syncthreads();
 
   for (int round = 0; base < p.rays; base += stride, ++round) {
@@ -2209,11 +2477,12 @@ __global__ void __launch_bounds__(kCombineBwdThreads, kCombineBwdMinBlocks)
     const long long w0 = base + 32 * warp;
     const long long i = w0 + lane;
     if (kVec && w0 + 32 <= p.rays)
-      combine_bwd_warp(q, sh, buf[round % kCombineBwdFetchDepth], stage, w0,
-                       lane);
+      combine_bwd_warp<kGrad>(q, sh, buf[round % kCombineBwdFetchDepth],
+                              stage, w0, lane, sh_g);
     else if (i < p.rays)
-      combine_bwd_ray(q, sh, i);
+      combine_bwd_ray<kGrad>(q, sh, i, sh_g);
   }
+  if (kGrad) flush_light_grads(q, sh_g);
 }
 
 struct SurfaceBwdParams {
@@ -2231,7 +2500,34 @@ struct SurfaceBwdParams {
   float* g_t;                  // [R]
   float* g_n_obj;              // [R,3]
   float* g_colors;             // [V*cn^3, 24] or [V*cn^3, 3] f32, added into
+  // the material variant's: the record's k cotangent [R] (null for zero)
+  // and the material constants' accumulator [V,8] f32 (tint 4, roughness,
+  // metallic, k, a word of padding), added into
+  const float* g_k;
+  float* g_mat;
 };
+
+constexpr int kMatRow = 8;
+
+// The material variant's per-lane cotangents (tint's 3, roughness,
+// metallic, k) of volume vol into the block's partial sums sh_mat, one
+// shared atomic a nonzero value.
+__device__ __forceinline__ void add_material(float* sh_mat, int vol,
+                                             const float gm[6]) {
+  const int slot[6] = {0, 1, 2, 4, 5, 6};
+  for (int e = 0; e < 6; ++e)
+    if (gm[e] != 0.0f) atomicAdd(sh_mat + vol * kMatRow + slot[e], gm[e]);
+}
+
+// The material variant's block epilogue: the block's partial sums into the
+// [V,8] accumulator, one f32 atomic a nonzero word.  Every thread of the
+// block calls it.
+__device__ __forceinline__ void flush_material(const SurfaceBwdParams& q,
+                                               const float* sh_mat) {
+  __syncthreads();
+  for (int w = threadIdx.x; w < q.f.mat.count * kMatRow; w += blockDim.x)
+    if (sh_mat[w] != 0.0f) atomicAdd(q.g_mat + w, sh_mat[w]);
+}
 
 
 // The reverse of sample_wrap: the cotangents of (u_, v_) for that of the
@@ -2456,11 +2752,15 @@ __device__ __forceinline__ void add_colors(const SurfaceParams& p, float* acc,
 // The surface backward of hit lane i: adds the cotangents of its ray, t
 // and n_obj into g_o, g_d, g_t, g_n and, with per-voxel colours, returns its
 // colour row and the row's 24 cotangents.  The two kernels below share it.
-template <bool kLit, bool kTextured, bool kColors>
+// kMat (the material variant) also adds the cotangents of the lane's
+// material constants into gm (tint's 3, roughness, metallic, k) and names
+// its volume in ``vol``.
+template <bool kLit, bool kTextured, bool kColors, bool kMat>
 __device__ __forceinline__ void surface_bwd_hit(
     const SurfaceBwdParams& q, const float* sh_inst, const float* sh_vol,
     const int* sh_sizes, long long i, float g_o[3], float g_d[3],
-    float g_n[3], float& g_t, long long& row, float grow[24]) {
+    float g_n[3], float& g_t, long long& row, float grow[24], float gm[6],
+    int& vol_out) {
   const SurfaceParams& p = q.f;
   float o_w[3], d_w[3], n_obj[3];
   for (int c = 0; c < 3; ++c) {
@@ -2476,6 +2776,7 @@ __device__ __forceinline__ void surface_bwd_hit(
   const int vol = __float_as_int(in[10]);
   const float* mat = sh_vol + vol * kVolRow;
   const float qc[3] = {-rot[0], -rot[1], -rot[2]};
+  vol_out = vol;
 
   float g_alb[3], g_hp[3], g_nw[3];
   load3(q.g_albedo, i, g_alb);
@@ -2544,6 +2845,11 @@ __device__ __forceinline__ void surface_bwd_hit(
         const float g_rm[3] = {
             pass_clip(xr, 0.0f, 1.0f, g_rough * mat[6]),
             pass_clip(xm, 0.0f, 1.0f, g_metal * mat[7]), 0.0f};
+        if (kMat) {
+          // roughness = clip(R rm.x, 0, 1): R's is the clip's times rm.x
+          gm[3] += pass_clip(xr, 0.0f, 1.0f, g_rough) * rm[0];
+          gm[4] += pass_clip(xm, 0.0f, 1.0f, g_metal) * rm[1];
+        }
         tri_sample_bwd<false>(p, sh_sizes, __float_as_int(mat[13]), tscale,
                               obj_pos, b, g_rm, g_pos, g_b);
       }
@@ -2560,6 +2866,13 @@ __device__ __forceinline__ void surface_bwd_hit(
         for (int c = 0; c < 3; ++c) g_tex[c] = g_alb[c] * mat[3 + c];
         tri_sample_bwd<false>(p, sh_sizes, __float_as_int(mat[11]), tscale,
                               obj_pos, b, g_tex, g_pos, g_b);
+        if (kMat) {
+          // albedo = tint tex
+          float tex[3];
+          tri_sample<false>(p, sh_sizes, __float_as_int(mat[11]), tscale,
+                            obj_pos, b, tex);
+          for (int c = 0; c < 3; ++c) gm[c] += g_alb[c] * tex[c];
+        }
       }
       // b = |n_obj| / sum |n_obj|
       const float ab[3] = {fabsf(n_obj[0]), fabsf(n_obj[1]),
@@ -2576,7 +2889,15 @@ __device__ __forceinline__ void surface_bwd_hit(
       for (int c = 0; c < 3; ++c) g_hp[c] += g_a[c] / scale[c];
     } else {
       for (int c = 0; c < 3; ++c) g_n[c] += g_ns[c];
+      if (kMat) {
+        // roughness = clip(R, 0, 1), metallic = clip(M, 0, 1)
+        if (q.g_roughness != nullptr)
+          gm[3] += pass_clip(mat[6], 0.0f, 1.0f, q.g_roughness[i]);
+        if (q.g_metallic != nullptr)
+          gm[4] += pass_clip(mat[7], 0.0f, 1.0f, q.g_metallic[i]);
+      }
     }
+    if (kMat && q.g_k != nullptr) gm[5] += q.g_k[i];
   } else if (kTextured && !kColors) {
     // unlit: the albedo alone
     float a[3], obj_pos[3], b[3];
@@ -2590,6 +2911,12 @@ __device__ __forceinline__ void surface_bwd_hit(
     for (int c = 0; c < 3; ++c) g_tex[c] = g_alb[c] * mat[3 + c];
     tri_sample_bwd<false>(p, sh_sizes, __float_as_int(mat[11]), mat + 9,
                           obj_pos, b, g_tex, g_pos, g_b);
+    if (kMat) {
+      float tex[3];
+      tri_sample<false>(p, sh_sizes, __float_as_int(mat[11]), mat + 9,
+                        obj_pos, b, tex);
+      for (int c = 0; c < 3; ++c) gm[c] += g_alb[c] * tex[c];
+    }
     if (s > 0.0f) {
       const float gs = dot3(g_b, ab) / (s * s);
       for (int c = 0; c < 3; ++c)
@@ -2599,6 +2926,10 @@ __device__ __forceinline__ void surface_bwd_hit(
     rotate_t(qc, rot[3], g_pos, g_a);
     for (int c = 0; c < 3; ++c) g_hp[c] += g_a[c] / scale[c];
   }
+
+  // the albedo of an untextured lane without per-voxel colours: the tint
+  if (kMat && !kTextured && !kColors)
+    for (int c = 0; c < 3; ++c) gm[c] += g_alb[c];
 
   // hit_pos = o_w + t d_w
   for (int c = 0; c < 3; ++c) {
@@ -2630,8 +2961,9 @@ __device__ __forceinline__ void surface_bwd_hit(
 
 // The first design, kept as the comparator of the merged kernel: one thread
 // a ray over the whole grid, tables staged by every block, each hit lane's
-// six reductions issued on their own.
-template <bool kLit, bool kTextured, bool kColors>
+// six reductions issued on their own (the material variant's too, into the
+// block's partial sums).
+template <bool kLit, bool kTextured, bool kColors, bool kMat>
 __global__ void __launch_bounds__(kThreads) surface_bwd_kernel(
     const SurfaceBwdParams q) {
   const SurfaceParams& p = q.f;
@@ -2639,43 +2971,56 @@ __global__ void __launch_bounds__(kThreads) surface_bwd_kernel(
   float* sh_inst = sh;
   float* sh_vol = sh_inst + p.inst.count * kInstRow;
   int* sh_sizes = reinterpret_cast<int*>(sh_vol + p.mat.count * kVolRow);
+  float* sh_mat = reinterpret_cast<float*>(sh_sizes + 2 * p.tex_count);
   stage_surface_tables(p, sh_inst, sh_vol, sh_sizes);
+  if (kMat)
+    for (int w = threadIdx.x; w < p.mat.count * kMatRow; w += blockDim.x)
+      sh_mat[w] = 0.0f;
   __syncthreads();
 
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
-  if (i >= p.rays) return;
-
-  float g_o[3] = {0.0f, 0.0f, 0.0f}, g_d[3] = {0.0f, 0.0f, 0.0f};
-  float g_n[3] = {0.0f, 0.0f, 0.0f}, g_t = 0.0f;
-  if (p.hit[i]) {
-    long long row = -1;
-    float grow[24];
-    surface_bwd_hit<kLit, kTextured, kColors>(
-        q, sh_inst, sh_vol, sh_sizes, i, g_o, g_d, g_n, g_t, row, grow);
-    if (kColors && q.g_colors != nullptr) add_colors(p, q.g_colors, row, grow);
+  if (i >= p.rays) {
+    if (!kMat) return;
+  } else {
+    float g_o[3] = {0.0f, 0.0f, 0.0f}, g_d[3] = {0.0f, 0.0f, 0.0f};
+    float g_n[3] = {0.0f, 0.0f, 0.0f}, g_t = 0.0f;
+    if (p.hit[i]) {
+      long long row = -1;
+      float grow[24];
+      float gm[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      int vol = 0;
+      surface_bwd_hit<kLit, kTextured, kColors, kMat>(
+          q, sh_inst, sh_vol, sh_sizes, i, g_o, g_d, g_n, g_t, row, grow, gm,
+          vol);
+      if (kColors && q.g_colors != nullptr)
+        add_colors(p, q.g_colors, row, grow);
+      if (kMat) add_material(sh_mat, vol, gm);
+    }
+    if (q.g_o_w != nullptr) {
+      store3(q.g_o_w, i, g_o);
+      store3(q.g_d_w, i, g_d);
+    }
+    q.g_t[i] = g_t;
+    store3(q.g_n_obj, i, g_n);
   }
-  if (q.g_o_w != nullptr) {
-    store3(q.g_o_w, i, g_o);
-    store3(q.g_d_w, i, g_d);
-  }
-  q.g_t[i] = g_t;
-  store3(q.g_n_obj, i, g_n);
+  if (kMat) flush_material(q, sh_mat);
 }
 
 
 // Sums v over the lanes of the warp that hold the same key (a segmented tree
-// reduction: log2 of the largest group's size rounds of 24 shuffles), into
+// reduction: log2 of the largest group's size rounds of N shuffles), into
 // the group's lowest lane, which is returned; every lane of the warp calls
 // it.  Lanes whose keys are all distinct skip the rounds.
-__device__ __forceinline__ int merge_peers(long long key, float v[24],
+template <int N>
+__device__ __forceinline__ int merge_peers(long long key, float (&v)[N],
                                            int lane) {
   const unsigned peers = __match_any_sync(kFullWarp, key);
   unsigned above = peers & (0xfffffffeu << lane);
   unsigned rank = __popc(peers & ((1u << lane) - 1u));
   while (__any_sync(kFullWarp, above != 0u)) {
     const int next = __ffs(above);              // 1 + the next peer's lane
-    for (int e = 0; e < 24; ++e) {
+    for (int e = 0; e < N; ++e) {
       const float o = __shfl_sync(kFullWarp, v[e], next > 0 ? next - 1 : lane);
       if (next > 0) v[e] += o;
     }
@@ -2700,7 +3045,7 @@ __device__ __forceinline__ int merge_peers(long long key, float v[24],
 // spills cost (vrt_torch.apps.probe_caps times the caps).
 constexpr int kSurfaceBwdMinBlocks = 3;
 
-template <bool kLit, bool kTextured, bool kColors>
+template <bool kLit, bool kTextured, bool kColors, bool kMat>
 __global__ void __launch_bounds__(kThreads, kSurfaceBwdMinBlocks)
     surface_bwd_merged_kernel(
     const SurfaceBwdParams q) {
@@ -2709,7 +3054,11 @@ __global__ void __launch_bounds__(kThreads, kSurfaceBwdMinBlocks)
   float* sh_inst = sh;
   float* sh_vol = sh_inst + p.inst.count * kInstRow;
   int* sh_sizes = reinterpret_cast<int*>(sh_vol + p.mat.count * kVolRow);
+  float* sh_mat = reinterpret_cast<float*>(sh_sizes + 2 * p.tex_count);
   stage_surface_tables(p, sh_inst, sh_vol, sh_sizes);
+  if (kMat)
+    for (int w = threadIdx.x; w < p.mat.count * kMatRow; w += blockDim.x)
+      sh_mat[w] = 0.0f;
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
@@ -2737,14 +3086,23 @@ __global__ void __launch_bounds__(kThreads, kSurfaceBwdMinBlocks)
     float g_n[3] = {0.0f, 0.0f, 0.0f}, g_t = 0.0f;
     long long row = -1 - lane;                 // distinct: no peers
     float grow[24];
+    float gm[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    int vol = 0;
     if (is_hit)
-      surface_bwd_hit<kLit, kTextured, kColors>(
-          q, sh_inst, sh_vol, sh_sizes, i, g_o, g_d, g_n, g_t, row, grow);
+      surface_bwd_hit<kLit, kTextured, kColors, kMat>(
+          q, sh_inst, sh_vol, sh_sizes, i, g_o, g_d, g_n, g_t, row, grow, gm,
+          vol);
     if (kColors && q.g_colors != nullptr) {
       if (!is_hit)
         for (int e = 0; e < 24; ++e) grow[e] = 0.0f;
       if (merge_peers(row, grow, lane) == lane)
         add_colors(p, q.g_colors, row, grow);
+    }
+    if (kMat) {
+      // the lanes of one volume summed first, the lowest adding the sums
+      const long long key = is_hit ? vol : -1 - lane;
+      if (merge_peers(key, gm, lane) == lane && is_hit)
+        add_material(sh_mat, vol, gm);
     }
     if (!in) continue;
     if (q.g_o_w != nullptr) {
@@ -2754,6 +3112,7 @@ __global__ void __launch_bounds__(kThreads, kSurfaceBwdMinBlocks)
     q.g_t[i] = g_t;
     store3(q.g_n_obj, i, g_n);
   }
+  if (kMat) flush_material(q, sh_mat);
 }
 
 template <typename T>
@@ -2855,11 +3214,11 @@ Grid resident_grid(const void* kernel, int threads) {
   return Grid{e, static_cast<long long>(max(per_sm, 1)) * sms};
 }
 
-template <bool kLit, bool kTextured, bool kColors>
+template <bool kLit, bool kTextured, bool kColors, bool kMat>
 Grid merged_grid() {
   static const Grid grid = resident_grid(
       reinterpret_cast<const void*>(
-          surface_bwd_merged_kernel<kLit, kTextured, kColors>),
+          surface_bwd_merged_kernel<kLit, kTextured, kColors, kMat>),
       kThreads);
   return grid;
 }
@@ -2927,19 +3286,34 @@ bool aligned16(const void* x) {
   return reinterpret_cast<uintptr_t>(x) % 16 == 0;
 }
 
-template <bool kVec>
+template <bool kVec, bool kGrad>
 cudaError_t combine_bwd_resident(const CombineBwdParams& q, size_t shared,
                                  cudaStream_t s) {
   static const Grid grid = resident_grid(
-      reinterpret_cast<const void*>(combine_bwd_resident_kernel<kVec>),
+      reinterpret_cast<const void*>(combine_bwd_resident_kernel<kVec, kGrad>),
       kCombineBwdThreads);
   if (grid.err != cudaSuccess) return grid.err;
   const long long blocks =
       (q.f.rays + kCombineBwdThreads - 1) / kCombineBwdThreads;
-  combine_bwd_resident_kernel<kVec>
+  combine_bwd_resident_kernel<kVec, kGrad>
       <<<static_cast<unsigned>(std::min(blocks, grid.blocks)),
          kCombineBwdThreads, shared, s>>>(q);
   return cudaSuccess;
+}
+
+// A combine backward launch of any design (vrt_shade_combine_bwd's), the
+// light variant's where kGrad.
+template <bool kGrad>
+cudaError_t combine_bwd_launch(const CombineBwdParams& q, int design,
+                               size_t shared, cudaStream_t s) {
+  if (design == 0) {
+    combine_bwd_kernel<kGrad>
+        <<<static_cast<unsigned>((q.f.rays + kThreads - 1) / kThreads),
+           kThreads, shared, s>>>(q);
+    return cudaSuccess;
+  }
+  return design == 2 ? combine_bwd_resident<true, kGrad>(q, shared, s)
+                     : combine_bwd_resident<false, kGrad>(q, shared, s);
 }
 
 }  // namespace
@@ -3066,16 +3440,20 @@ extern "C" int vrt_shade_combine(const void* const* ptrs, const int* ints,
 // metallic and refl_dir (null for zero); then the outputs g_o_w, g_d_w
 // (null, both, when not asked), g_t, g_n_obj and g_colors (an f32
 // accumulator, [V*cn^3, 24] for a packed table and [V*cn^3, 3] for the
-// voxel grid, zeroed by the caller and added into; null when not asked).
-// ints: the surface kernel's 14, then the design (0: the first, one thread a
-// ray over the whole grid; 1: the merged kernel, resident blocks striding
-// over the rays).  The merged kernel takes outputs on
-// 16-byte boundaries.  Returns cudaGetLastError().
+// voxel grid, zeroed by the caller and added into; null when not asked);
+// then the material variant's cotangent of the record's k [R] (null for
+// zero) and its accumulator of the material constants, [V,8] f32 (tint 4,
+// roughness, metallic, k, padding; zeroed by the caller and added into;
+// null but in the material variant).  ints: the surface kernel's 14, then
+// the design (0: the first, one thread a ray over the whole grid; 1: the
+// merged kernel, resident blocks striding over the rays), then 1 for the
+// material variant, else 0.  The merged kernel takes outputs on 16-byte
+// boundaries.  Returns cudaGetLastError().
 extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
                                      long long rays, void* stream) {
   const int n_inst = ints[0], n_vol = ints[1], n_tex = ints[2];
   const bool lit = ints[7], textured = ints[8], colors = ints[9];
-  const bool merged = ints[14] != 0;
+  const bool merged = ints[14] != 0, material = ints[15] != 0;
   if (n_inst < 1 || n_vol < 1 || ints[6] < 0 || ints[6] > 2)
     return cudaErrorInvalidValue;
   SurfaceBwdParams q;
@@ -3091,33 +3469,42 @@ extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
   q.g_t = const_cast<float*>(at<float>(ptrs, 33));
   q.g_n_obj = const_cast<float*>(at<float>(ptrs, 34));
   q.g_colors = const_cast<float*>(at<float>(ptrs, 35));
+  q.g_k = at<float>(ptrs, 36);
+  q.g_mat = const_cast<float*>(at<float>(ptrs, 37));
   if ((q.g_o_w == nullptr) != (q.g_d_w == nullptr) || q.g_t == nullptr ||
-      q.g_n_obj == nullptr)
+      q.g_n_obj == nullptr || (material && q.g_mat == nullptr))
     return cudaErrorInvalidValue;
   if (merged)
     for (const float* out : {q.g_o_w, q.g_d_w, q.g_t, q.g_n_obj})
       if (reinterpret_cast<uintptr_t>(out) % 16 != 0)
         return cudaErrorInvalidValue;
+  // the staged tables, and with the material variant the block's partial
+  // sums of the material constants' cotangents after them
   const size_t shared =
       4 * (static_cast<size_t>(n_inst) * kInstRow + n_vol * kVolRow +
-           2 * n_tex);
+           2 * n_tex + (material ? n_vol * kMatRow : 0));
   if (shared > kMaxSharedBytes) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long blocks = (rays + kThreads - 1) / kThreads;
   cudaError_t err = cudaSuccess;
-#define VRT_SURFACE_BWD(L, T, C)                                            \
+#define VRT_SURFACE_BWD_DESIGN(L, T, C, M)                                  \
   do {                                                                      \
     if (!merged) {                                                          \
-      surface_bwd_kernel<L, T, C>                                           \
+      surface_bwd_kernel<L, T, C, M>                                        \
           <<<static_cast<unsigned>(blocks), kThreads, shared, s>>>(q);      \
       break;                                                                \
     }                                                                       \
-    const Grid g = merged_grid<L, T, C>();                                  \
+    const Grid g = merged_grid<L, T, C, M>();                               \
     err = g.err;                                                            \
     if (err == cudaSuccess)                                                 \
-      surface_bwd_merged_kernel<L, T, C>                                    \
+      surface_bwd_merged_kernel<L, T, C, M>                                 \
           <<<static_cast<unsigned>(std::min(blocks, g.blocks)), kThreads,   \
              shared, s>>>(q);                                               \
+  } while (0)
+#define VRT_SURFACE_BWD(L, T, C)                                            \
+  do {                                                                      \
+    if (material) VRT_SURFACE_BWD_DESIGN(L, T, C, true);                    \
+    else VRT_SURFACE_BWD_DESIGN(L, T, C, false);                            \
   } while (0)
   if (lit) {
     if (textured) {
@@ -3137,21 +3524,26 @@ extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
     }
   }
 #undef VRT_SURFACE_BWD
+#undef VRT_SURFACE_BWD_DESIGN
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // The combine kernel's backward.  ptrs: the combine kernel's first 39
 // (d_w ... env); g_rgb [R,3]; then the outputs g_albedo, g_shadow_origin,
 // g_n_w, g_roughness, g_metallic, g_refl_dir, g_d_w, g_n_obj, g_refl_rgb,
-// each null where nobody needs it.  ints: the combine kernel's (final is not
-// read), then the design (0: the first, one thread a ray over the whole
-// grid; 1: the redesign, resident blocks, lane by lane; 2: the redesign on
-// the vector path, which takes d_w, g_rgb, hit, unlit, every [R,3] record
-// input passed and every [R,3] output on 16-byte boundaries).  Returns
-// cudaGetLastError().
+// each null where nobody needs it; then the light variant's g_k [R] (null
+// unlit) and its accumulator of the light tables (129 floats,
+// zeroed by the caller and added into; null but in the light variant).
+// ints: the combine kernel's (final is not read), then the design (0: the
+// first, one thread a ray over the whole grid; 1: the redesign, resident
+// blocks, lane by lane; 2: the redesign on the vector path, which takes
+// d_w, g_rgb, hit, unlit, every [R,3] record input passed and every [R,3]
+// output on 16-byte boundaries), then 1 for the light variant, else 0.
+// Returns cudaGetLastError().
 extern "C" int vrt_shade_combine_bwd(const void* const* ptrs, const int* ints,
                                      long long rays, void* stream) {
   const int points = ints[2], spots = ints[3], design = ints[5];
+  const bool lights = ints[6] != 0;
   if (points < 0 || points > kMaxLights || spots < 0 || spots > kMaxLights ||
       ints[4] < 1 || design < 0 || design > 2)
     return cudaErrorInvalidValue;
@@ -3170,6 +3562,10 @@ extern "C" int vrt_shade_combine_bwd(const void* const* ptrs, const int* ints,
   q.g_d_w = outs[6];
   q.g_n_obj = outs[7];
   q.g_refl_rgb = outs[8];
+  q.g_k = const_cast<float*>(at<float>(ptrs, g + 10));
+  q.g_lights = const_cast<float*>(at<float>(ptrs, g + 11));
+  if (lights && (q.g_lights == nullptr || (q.f.lit && q.g_k == nullptr)))
+    return cudaErrorInvalidValue;
   if (design == 2)
     for (const void* x : {static_cast<const void*>(q.f.d_w),
                           static_cast<const void*>(q.g_rgb),
@@ -3188,16 +3584,12 @@ extern "C" int vrt_shade_combine_bwd(const void* const* ptrs, const int* ints,
                           static_cast<const void*>(q.g_n_obj),
                           static_cast<const void*>(q.g_refl_rgb)})
       if (x != nullptr && !aligned16(x)) return cudaErrorInvalidValue;
-  const size_t shared = 4 * (4 + points * kPointRow + spots * kSpotRow);
+  // the staged lights, and with the light variant the block's partial sums
+  // of their cotangents beside them
+  const size_t shared =
+      4 * (4 + points * kPointRow + spots * kSpotRow) * (lights ? 2 : 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaSuccess;
-  if (design == 0)
-    combine_bwd_kernel<<<static_cast<unsigned>((rays + kThreads - 1) /
-                                               kThreads),
-                         kThreads, shared, s>>>(q);
-  else if (design == 2)
-    err = combine_bwd_resident<true>(q, shared, s);
-  else
-    err = combine_bwd_resident<false>(q, shared, s);
+  const cudaError_t err = lights ? combine_bwd_launch<true>(q, design, shared, s)
+                                 : combine_bwd_launch<false>(q, design, shared, s);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -58,10 +58,12 @@ def build(source: str, extra_flags=(), headers=()
 
 
 
-def ptxas_usage(log: str, kernel: str):
+def ptxas_usage(log: str, kernel: str, last: bool | None = None):
     """What ptxas printed in a ``build`` log for the template variants of
     ``kernel`` (its name as written in the source; a kernel that is no
-    template has one variant): dict(variants,
+    template has one variant), or with ``last`` for those whose last
+    template argument is that bool (the shade backward kernels' material
+    and light variants): dict(variants,
     registers, stack_bytes, spill_bytes, each [smallest, largest] over the
     variants), or None where the log holds none (a library built before)."""
     import re
@@ -85,7 +87,9 @@ def ptxas_usage(log: str, kernel: str):
     # the mangled name: its length, the name, then the template arguments
     # (I) or the end of the nested name (E)
     pat = re.compile(rf"\d+{kernel}[IE]")
-    got = [f for name, f in funcs.items() if pat.search(name) and "regs" in f]
+    got = [f for name, f in funcs.items() if pat.search(name) and "regs" in f
+           and (last is None
+                or re.search(rf"Lb{int(last)}E+v", name) is not None)]
     if not got:
         return None
 

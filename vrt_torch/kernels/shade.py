@@ -8,9 +8,11 @@
                                 bounce, cotangents)
         -> (g_o_w, g_d_w, g_t, g_n_obj,
             g_colors f32 [V*C^3, 24] (packed) | [V*N^3, 3] (voxel grid))
+        (material=True: and of tint, roughness, metallic, k)
     shade_combine_backward_cuda(scene, rec, d_w, n_obj, hit_mask, unlit_attr,
                                 refl_rgb, blocked, mode, g_rgb)
         -> cotangents of the record's floats, d_w, n_obj and refl_rgb
+        (lights=True: and of the record's k and the 15 light tables)
     ShadeSurface.apply / ShadeCombine.apply: the two stages, differentiable
 
 The two stages of one radiance level: the surface kernel runs between the
@@ -40,8 +42,14 @@ backward on CUDA tensors and the plain versions
 ``renderer.shade_surface_backward_reference`` /
 ``shade_combine_backward_reference`` (autograd of the plain stages) on CPU
 tensors.  They return the gradient in the rays, ``t``, ``n_obj``, the
-record's floats, the bounce's radiance and the colour table, and none in the
-scene's other tables.
+record's floats, the bounce's radiance and the colour table and, through
+each backward kernel's variant, in the material constants
+(``MATERIAL_FIELDS``: the surface backward's material variant) and in the
+record's ``k`` and the light tables (``LIGHT_FIELDS``: the combine
+backward's light variant); the wrappers launch a variant only where one of
+those tables needs a gradient, and every other launch is the default
+instantiation.  They return none in the texture scale, the textures, the
+env or the instance transforms.
 
 The colour table is the one ``gpuscene.color_table`` names, in one of two
 layouts (``color_layout``): the corner-packed view, f32 or bf16 [V,N,N,N,8,3]
@@ -77,7 +85,8 @@ the first design (one thread a ray over the whole grid) behind
 
 ``LAUNCHES`` counts the launches of each kernel, ``PATH_LAUNCHES`` the
 default launches of the forward pair and the combine backward again by
-path (the surface's "voxels" on the unpacked grid).
+path (the surface's "voxels" on the unpacked grid), ``VARIANT_LAUNCHES``
+the backward launches of the material and light variants again.
 """
 
 from __future__ import annotations
@@ -92,7 +101,8 @@ from vrt_torch.kernels.march import _stream
 from vrt_torch.kernels.resolve import instance_table
 from vrt_torch.march.types import (RECORD_FIELDS, RECORD_GRAD_FIELDS,
                                     MarchHit, SurfaceRecord)
-from vrt_torch.render.gpuscene import (MAX_POINT_LIGHTS, MAX_SPOT_LIGHTS,
+from vrt_torch.render.gpuscene import (LIGHT_FIELDS, MATERIAL_FIELDS,
+                                       MAX_POINT_LIGHTS, MAX_SPOT_LIGHTS,
                                        RenderMode, color_table)
 
 LAUNCHES = {"surface": 0, "combine": 0, "surface_bwd": 0, "combine_bwd": 0}
@@ -101,6 +111,9 @@ LAUNCHES = {"surface": 0, "combine": 0, "surface_bwd": 0, "combine_bwd": 0}
 PATH_LAUNCHES = {"surface v4": 0, "surface scalar": 0, "surface voxels": 0,
                  "combine v4": 0, "combine scalar": 0, "combine_bwd v4": 0,
                  "combine_bwd scalar": 0}
+# the backward launches of the material variant (the surface's) and of the
+# light variant (the combine's) again
+VARIANT_LAUNCHES = {"surface_bwd material": 0, "combine_bwd lights": 0}
 
 NVCC_FLAGS = ["--fmad=false"]
 
@@ -127,7 +140,7 @@ def _check(x, name, dtype, shape, device):
     _check_tensor(x, name, dtype, shape, device, who="shade")
 
 
-def _launch(fn, name, ptrs, ints, rays, dev, path=None):
+def _launch(fn, name, ptrs, ints, rays, dev, path=None, variant=None):
     build()
     ptr_array = (ctypes.c_void_p * len(ptrs))(*ptrs)
     int_array = (ctypes.c_int * len(ints))(*(int(v) for v in ints))
@@ -137,6 +150,8 @@ def _launch(fn, name, ptrs, ints, rays, dev, path=None):
     LAUNCHES[name] += 1
     if path is not None:
         PATH_LAUNCHES[f"{name} {path}"] += 1
+    if variant is not None:
+        VARIANT_LAUNCHES[f"{name} {variant}"] += 1
 
 
 def shade_path(tensors) -> str:
@@ -221,28 +236,37 @@ def combine_bwd_vectors(d_w, g_rgb, hit_mask, unlit_attr, rec: SurfaceRecord,
             *(g for g in outs if g is not None and g.ndim == 2)]
 
 
+def light_shapes():
+    """The shapes of the 15 light tables, in ``LIGHT_FIELDS`` order (the
+    order of ``Lights`` in shade.cu)."""
+    p, s = MAX_POINT_LIGHTS, MAX_SPOT_LIGHTS
+    return dict(zip(LIGHT_FIELDS, ((3,), (), (p, 3), (p,), (p,), (p,),
+                                   (p, 4), (s, 3), (s, 3), (s,), (s,), (s,),
+                                   (s,), (s,), (s, 4))))
+
+
 def _light_ptrs(scene, dev):
     """The 15 pointers of the light tables, in the order of ``Lights`` in
     shade.cu, each table checked."""
-    f32 = torch.float32
     p, s = MAX_POINT_LIGHTS, MAX_SPOT_LIGHTS
-    tables = (("dir_light_dir", (3,)), ("dir_light_strength", ()),
-              ("point_pos", (p, 3)), ("point_intensity", (p,)),
-              ("point_att_l", (p,)), ("point_att_e", (p,)),
-              ("point_color", (p, 4)), ("spot_pos", (s, 3)),
-              ("spot_fwd", (s, 3)), ("spot_intensity", (s,)),
-              ("spot_att_l", (s,)), ("spot_att_e", (s,)),
-              ("spot_cos_angle", (s,)), ("spot_cos_falloff", (s,)),
-              ("spot_color", (s, 4)))
     if not (0 <= scene.num_point <= p and 0 <= scene.num_spot <= s):
         raise ValueError(f"shade takes up to {p} point and {s} spot lights, "
                          f"got {scene.num_point} and {scene.num_spot}")
     ptrs = []
-    for name, shape in tables:
+    for name, shape in light_shapes().items():
         x = getattr(scene, name)
-        _check(x, name, f32, shape, dev)
+        _check(x, name, torch.float32, shape, dev)
         ptrs.append(x.data_ptr())
     return ptrs
+
+
+def light_grads(acc):
+    """The light tables' cotangents, a tuple in ``LIGHT_FIELDS`` order of
+    views of the light variant's accumulator ``acc`` (f32, the 15 tables
+    flattened one after another at their shapes)."""
+    shapes = light_shapes().values()
+    sizes = [int(torch.Size(shape).numel()) for shape in shapes]
+    return tuple(x.view(shape) for x, shape in zip(acc.split(sizes), shapes))
 
 
 def _ptr(x):
@@ -387,7 +411,8 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
                                 inst, mode: RenderMode, bounce: bool,
                                 cotangents, rays_grad: bool = True,
                                 table_grad: bool = True,
-                                _old_design: bool = False):
+                                _old_design: bool = False, g_k=None,
+                                material: bool = False):
     """Launch the surface kernel's backward on
     ``torch.cuda.current_stream()``: the cotangents of the record's
     ``RECORD_GRAD_FIELDS`` (albedo, shadow origin, world normal, roughness,
@@ -399,12 +424,16 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
     into by 16-byte atomics; the caller casts it to the table's dtype) or
     [V*N^3, 3] for the voxel grid (one f32 atomic a nonzero component), or
     None without per-voxel colours or ``table_grad``).  A miss lane gets
-    zeros.  The kernel is
-    the merged design (resident blocks striding over the rays, the colour
-    cotangents of a warp's lanes that share a row summed before the row's
-    reductions); the private ``_old_design`` launches the first design, the
-    comparator of the timing runs.  Raises on any input the kernel does not
-    take; never falls back."""
+    zeros.  ``material`` launches the material variant, which also pulls
+    ``g_k`` (the cotangent of the record's ``k``, f32 [R] or None) back and
+    returns four more: the cotangents of the material constants
+    (``MATERIAL_FIELDS``: tint [V,4], roughness, metallic, k [V]), views of
+    one f32 [V,8] accumulator that each block adds its partial sums into.
+    The kernel is the merged design (resident blocks striding over the rays,
+    the colour cotangents of a warp's lanes that share a row summed before
+    the row's reductions); the private ``_old_design`` launches the first
+    design, the comparator of the timing runs.  Raises on any input the
+    kernel does not take; never falls back."""
     dev, rays, colors, ptrs, ints = _surface_args(
         scene, o_w, d_w, t, n_obj, hit, inst, mode, bounce, False,
         "surface kernel's backward")
@@ -418,7 +447,11 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
             _check(g, f"g_{name}", f32,
                    (rays,) if name in ("roughness", "metallic") else (rays, 3),
                    dev)
-    g_o_w = g_d_w = acc = None
+    if g_k is not None:
+        if not material:
+            raise ValueError("shade: g_k is read by the material variant only")
+        _check(g_k, "g_k", f32, (rays,), dev)
+    g_o_w = g_d_w = acc = mat = None
     if rays_grad:
         g_o_w = torch.empty((rays, 3), dtype=f32, device=dev)
         g_d_w = torch.empty((rays, 3), dtype=f32, device=dev)
@@ -427,14 +460,21 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
     if colors is not None and table_grad:
         ch = colors[0, 0, 0, 0].numel()     # 24 a packed row, 3 a voxel
         acc = torch.zeros((colors.numel() // ch, ch), dtype=f32, device=dev)
+    if material:
+        # tint 4, roughness, metallic, k and a word of padding a volume
+        mat = torch.zeros((scene.tint.shape[0], 8), dtype=f32, device=dev)
+    out = (g_o_w, g_d_w, g_t, g_n, acc)
+    if material:
+        out += (mat[:, :4], mat[:, 4], mat[:, 5], mat[:, 6])
     if rays == 0:
-        return g_o_w, g_d_w, g_t, g_n, acc
+        return out
     ptrs += [_ptr(g) for g in cots] + [_ptr(g_o_w), _ptr(g_d_w),
                                        g_t.data_ptr(), g_n.data_ptr(),
-                                       _ptr(acc)]
-    ints.append(not _old_design)
-    _launch("vrt_shade_surface_bwd", "surface_bwd", ptrs, ints, rays, dev)
-    return g_o_w, g_d_w, g_t, g_n, acc
+                                       _ptr(acc), _ptr(g_k), _ptr(mat)]
+    ints += [not _old_design, material]
+    _launch("vrt_shade_surface_bwd", "surface_bwd", ptrs, ints, rays, dev,
+            variant="material" if material else None)
+    return out
 
 
 def _combine_args(scene, rec: SurfaceRecord, d_w, n_obj, hit_mask,
@@ -522,20 +562,25 @@ def shade_combine_cuda(scene, rec: SurfaceRecord, d_w, n_obj, hit_mask,
 def shade_combine_backward_cuda(scene, rec: SurfaceRecord, d_w, n_obj,
                                 hit_mask, unlit_attr, refl_rgb, blocked,
                                 mode: RenderMode, g_rgb, needs=None,
-                                _old_design: bool = False):
+                                _old_design: bool = False,
+                                lights: bool = False):
     """Launch the combine kernel's backward on
     ``torch.cuda.current_stream()`` for the cotangent ``g_rgb`` [R,3] of the
     linear radiance (``final`` has no backward): returns the cotangents of
     the record's ``RECORD_GRAD_FIELDS``, then of ``d_w``, ``n_obj`` and
     ``refl_rgb``, f32, each None where that input is None or ``needs`` (nine
-    booleans) says nobody needs it.  Recomputes the stage from its inputs;
+    booleans) says nobody needs it.  ``lights`` launches the light variant,
+    which returns two more: the cotangent of the record's ``k`` (f32 [R];
+    None unlit) and the light tables' (``light_grads``: a tuple in
+    ``LIGHT_FIELDS`` order, views of one f32 accumulator that each block
+    adds its partial sums into).  Recomputes the stage from its inputs;
     reads the record on hit lanes only.  The kernel is the redesign
     (resident blocks striding over the rays; a warp without a hit runs the
     env lookup's backward alone) on the path ``shade_path`` names for
     ``combine_bwd_vectors``; the private ``_old_design`` launches the first
     design (one thread a ray over the whole grid), the comparator of the
-    timing runs, bit-equal on every cotangent.  Raises on any input the
-    kernel does not take; never falls back."""
+    timing runs, bit-equal on every per-ray cotangent.  Raises on any input
+    the kernel does not take; never falls back."""
     dev, rays, ptrs, ints = _combine_args(
         scene, rec, d_w, n_obj, hit_mask, unlit_attr, refl_rgb, blocked,
         mode, False, "combine kernel's backward")
@@ -550,34 +595,56 @@ def shade_combine_backward_cuda(scene, rec: SurfaceRecord, d_w, n_obj,
     outs = [None if x is None or not need
             else _empty(x.shape, torch.float32, dev)
             for x, need in zip(inputs, needs)]
+    extra, g_k, acc = (), None, None
+    if lights:
+        if mode.lit:
+            g_k = _empty((rays,), torch.float32, dev)
+        acc = torch.zeros(sum(int(torch.Size(x).numel())
+                              for x in light_shapes().values()),
+                          dtype=torch.float32, device=dev)
+        extra = (g_k, light_grads(acc))
     if rays == 0:
-        return tuple(outs)
+        if g_k is not None:
+            g_k.zero_()
+        return tuple(outs) + extra
     path = shade_path(combine_bwd_vectors(d_w, g_rgb, hit_mask, unlit_attr,
                                           rec, refl_rgb, outs))
     _launch("vrt_shade_combine_bwd", "combine_bwd",
-            ptrs + [g_rgb.data_ptr()] + [_ptr(g) for g in outs],
-            ints + [_design(_old_design, path)], rays, dev,
-            None if _old_design else path)
-    return tuple(outs)
+            ptrs + [g_rgb.data_ptr()] + [_ptr(g) for g in outs]
+            + [_ptr(g_k), _ptr(acc)],
+            ints + [_design(_old_design, path), lights], rays, dev,
+            None if _old_design else path, "lights" if lights else None)
+    return tuple(outs) + extra
+
+
+def _own_tables(scene, names, tables, who):
+    for name, x in zip(names, tables):
+        if x is not getattr(scene, name):
+            raise ValueError(f"{who}: {name} must be the scene's own table")
 
 
 class ShadeSurface(torch.autograd.Function):
     """The surface stage with its gradient in ``o_w``, ``d_w``, ``t``,
-    ``n_obj`` and ``colors`` (the colour table the scene samples,
+    ``n_obj``, ``colors`` (the colour table the scene samples,
     ``gpuscene.color_table``: its corner-packed view, or the f32 voxel grid
-    where it has none; passed apart so that autograd sees it; None without
-    per-voxel colours): on
-    CUDA tensors the surface kernel and its backward kernel, on CPU tensors
-    the plain stage and its plain backward.  Returns ``SurfaceRecord.pack``'s
-    tuple; ``k``, ``gate`` and the shadow rays carry no gradient.  Saves the
-    inputs alone (the backward recomputes the stage)."""
+    where it has none; None without per-voxel colours) and the material
+    constants ``tint``, ``roughness``, ``metallic`` and ``k`` (the scene's
+    own tables, passed apart so that autograd sees them): on CUDA tensors
+    the surface kernel and its backward kernel (its material variant where
+    a material constant needs a gradient), on CPU tensors the plain stage
+    and its plain backward.  Returns ``SurfaceRecord.pack``'s tuple;
+    ``gate`` and the shadow rays carry no gradient, nor does ``k`` unless
+    the scene's ``k`` needs one.  Saves the inputs alone (the backward
+    recomputes the stage)."""
 
     @staticmethod
-    def forward(ctx, o_w, d_w, t, n_obj, colors, scene, hit, inst, mode,
-                bounce, shadows):
+    def forward(ctx, o_w, d_w, t, n_obj, colors, tint, roughness, metallic,
+                k, scene, hit, inst, mode, bounce, shadows):
         if colors is not color_table(scene):
             raise ValueError("ShadeSurface: colors must be the colour table "
                              "the scene samples (gpuscene.color_table)")
+        _own_tables(scene, MATERIAL_FIELDS, (tint, roughness, metallic, k),
+                    "ShadeSurface")
         if o_w.device.type == "cuda":
             rec = shade_surface_cuda(scene, o_w, d_w, t, n_obj, hit, inst,
                                      mode, bounce, shadows)
@@ -588,11 +655,14 @@ class ShadeSurface(torch.autograd.Function):
             rec = shade_surface_reference(scene, o_w, d_w, t, n_obj, hit,
                                           inst, mode, bounce, shadows)
         out = rec.pack()
+        # the record's k carries a gradient only towards the scene's k
+        grad_fields = RECORD_GRAD_FIELDS + (("k",) if ctx.needs_input_grad[8]
+                                            else ())
         ctx.set_materialize_grads(False)
         ctx.mark_non_differentiable(*(
             x for f, x in zip(RECORD_FIELDS + ("shadow_tmax", "shadow_dir"),
                               out)
-            if x is not None and f not in RECORD_GRAD_FIELDS))
+            if x is not None and f not in grad_fields))
         ctx.save_for_backward(o_w, d_w, t, n_obj, colors, inst, hit.hit,
                               hit.cell)
         ctx.scene, ctx.mode, ctx.bounce = scene, mode, bounce
@@ -604,23 +674,33 @@ class ShadeSurface(torch.autograd.Function):
         o_w, d_w, t, n_obj, colors, inst, hit_mask, cell = ctx.saved_tensors
         need = ctx.needs_input_grad
         cots = [grads[RECORD_FIELDS.index(f)] for f in RECORD_GRAD_FIELDS]
-        if all(g is None for g in cots):
-            return (None,) * 11
+        g_k = grads[RECORD_FIELDS.index("k")]
+        if all(g is None for g in cots) and g_k is None:
+            return (None,) * 15
         hit = MarchHit(hit=hit_mask, t=None, kind=None, cell=cell, t_in=None,
                        t_out=None, face_normal=None)
         table_grad = colors is not None and need[4]
+        material = any(need[5:9])
         if o_w.device.type == "cuda":
-            g_o_w, g_d_w, g_t, g_n, acc = shade_surface_backward_cuda(
-                ctx.scene, o_w, d_w, t, n_obj, hit, inst, ctx.mode,
-                ctx.bounce, [None if g is None else g.contiguous()
-                             for g in cots], need[0] or need[1], table_grad)
+            args = (ctx.scene, o_w, d_w, t, n_obj, hit, inst, ctx.mode,
+                    ctx.bounce, [None if g is None else g.contiguous()
+                                 for g in cots], need[0] or need[1],
+                    table_grad)
+            # the default launch as it was, the material variant with its
+            # own arguments
+            got = shade_surface_backward_cuda(*args) if not material else \
+                shade_surface_backward_cuda(
+                    *args, g_k=None if g_k is None else g_k.contiguous(),
+                    material=True)
         else:
             from vrt_torch.render.renderer import \
                 shade_surface_backward_reference
 
-            g_o_w, g_d_w, g_t, g_n, acc = shade_surface_backward_reference(
+            got = shade_surface_backward_reference(
                 ctx.scene, o_w, d_w, t, n_obj, hit, inst, ctx.mode,
-                ctx.bounce, cots)
+                ctx.bounce, cots, g_k=g_k, material=material)
+        g_o_w, g_d_w, g_t, g_n, acc = got[:5]
+        g_mat = got[5:9] if material else (None,) * 4
         g_colors = None
         if table_grad:
             # the voxel grid's accumulator is its f32 gradient as it is
@@ -628,21 +708,27 @@ class ShadeSurface(torch.autograd.Function):
             del acc
         return (g_o_w if need[0] else None, g_d_w if need[1] else None,
                 g_t if need[2] else None, g_n if need[3] else None,
-                g_colors) + (None,) * 6
+                g_colors) + tuple(g if n else None
+                                  for g, n in zip(g_mat, need[5:9])) \
+            + (None,) * 6
 
 
 class ShadeCombine(torch.autograd.Function):
     """The combine stage (linear rgb: the tonemap has no backward) with its
     gradient in the record's floats (``RECORD_GRAD_FIELDS``), ``d_w``,
-    ``n_obj`` and ``refl_rgb``: on CUDA tensors the combine kernel and its
-    backward kernel, on CPU tensors the plain stage and its plain backward.
-    ``k``, the masks and the shadow traces' booleans carry no gradient.
-    Saves the inputs alone."""
+    ``n_obj``, ``refl_rgb``, the record's ``k`` and the 15 light tables
+    (``LIGHT_FIELDS``, the scene's own, passed apart so that autograd sees
+    them): on CUDA tensors the combine kernel and its backward kernel (its
+    light variant where ``k`` or a light needs a gradient), on CPU tensors
+    the plain stage and its plain backward.  The masks and the shadow
+    traces' booleans carry no gradient.  Saves the inputs alone."""
 
     @staticmethod
     def forward(ctx, albedo, shadow_origin, n_w, roughness, metallic,
-                refl_dir, d_w, n_obj, refl_rgb, k, scene, hit_mask,
-                unlit_attr, blocked, mode):
+                refl_dir, d_w, n_obj, refl_rgb, k, *rest):
+        light_tables = rest[:len(LIGHT_FIELDS)]
+        scene, hit_mask, unlit_attr, blocked, mode = rest[len(LIGHT_FIELDS):]
+        _own_tables(scene, LIGHT_FIELDS, light_tables, "ShadeCombine")
         rec = SurfaceRecord(albedo=albedo, shadow_origin=shadow_origin,
                             n_w=n_w, roughness=roughness, metallic=metallic,
                             k=k, refl_dir=refl_dir)
@@ -675,16 +761,23 @@ class ShadeCombine(torch.autograd.Function):
                             n_w=n_w, roughness=roughness, metallic=metallic,
                             k=k, refl_dir=refl_dir)
         need = ctx.needs_input_grad[:9]
+        lit_need = ctx.needs_input_grad[9:10 + len(LIGHT_FIELDS)]
+        lights = any(lit_need)
         if d_w.device.type == "cuda":
-            grads = shade_combine_backward_cuda(
-                ctx.scene, rec, d_w, n_obj, hit_mask, unlit_attr, refl_rgb,
-                blocked, ctx.mode, g_rgb.contiguous(), need)
+            args = (ctx.scene, rec, d_w, n_obj, hit_mask, unlit_attr,
+                    refl_rgb, blocked, ctx.mode, g_rgb.contiguous(), need)
+            # the default launch as it was, the light variant with its flag
+            grads = shade_combine_backward_cuda(*args) if not lights else \
+                shade_combine_backward_cuda(*args, lights=True)
         else:
             from vrt_torch.render.renderer import \
                 shade_combine_backward_reference
 
             grads = shade_combine_backward_reference(
                 ctx.scene, rec, d_w, n_obj, hit_mask, unlit_attr, refl_rgb,
-                blocked, ctx.mode, g_rgb)
-        return tuple(g if n else None for g, n in zip(grads, need)) \
-            + (None,) * 6
+                blocked, ctx.mode, g_rgb, lights=lights)
+        extra = (grads[9], *grads[10]) if lights \
+            else (None,) * len(lit_need)
+        return tuple(g if n else None for g, n in zip(grads[:9], need)) \
+            + tuple(g if n else None for g, n in zip(extra, lit_need)) \
+            + (None,) * 5

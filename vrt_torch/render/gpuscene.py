@@ -33,6 +33,14 @@ MAX_SPOT_LIGHTS = 5
 # the reference's object cap (vrt's name; neither package enforces it:
 # the scene march takes up to kernels/march.py's MAX_INSTANCES)
 MAX_OBJECTS = 20
+# the scene's material constants (by volume) and light tables, the order in
+# which the shade kernels take them
+MATERIAL_FIELDS = ("tint", "roughness", "metallic", "k")
+LIGHT_FIELDS = ("dir_light_dir", "dir_light_strength", "point_pos",
+                "point_intensity", "point_att_l", "point_att_e",
+                "point_color", "spot_pos", "spot_fwd", "spot_intensity",
+                "spot_att_l", "spot_att_e", "spot_cos_angle",
+                "spot_cos_falloff", "spot_color")
 
 
 @dataclasses.dataclass(frozen=True)

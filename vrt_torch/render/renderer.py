@@ -16,14 +16,17 @@
   lights, the env miss lookup, and Reinhard + gamma tonemapping; with
   per-voxel colours the albedo is their trilinear sample at the hit.  A
   level shades in two stages, one on each side of the traces it spawns
-  (``shade_stages``): on CUDA tensors the two kernels of ``shade.cu``, on
-  CPU tensors and wherever a graph is recorded their plain versions
-  ``shade_surface_reference`` and ``shade_combine_reference``.
+  (``shade_stages``): on CUDA tensors the two kernels of ``shade.cu`` (with
+  a graph, through the ``autograd.Function`` pair whose backward is their
+  backward kernels), on CPU tensors their plain versions
+  ``shade_surface_reference`` and ``shade_combine_reference``, which also
+  shade a level under autograd wherever a graph is recorded through the
+  texture scale, the textures, the env or an instance transform.
 
 The frame is differentiable in the scene's tensors: the march runs under
 ``torch.no_grad()`` (its hits are piecewise constant in the SDF, as under
-``vrt``'s ``stop_gradient``), and autograd records resolve and the plain
-shading stages.
+``vrt``'s ``stop_gradient``), and autograd records resolve and the shading
+stages.
 
 Like ``vrt`` it uses the spot light's own colour (the reference's
 ``g_spotLightsCB[pi]`` indexing bug is not reproduced).
@@ -45,7 +48,8 @@ from vrt_torch.march.resolve import (_OFFS7, resolve_hits,
                                       resolve_hits_backward)
 from vrt_torch.march.types import (RECORD_GRAD_FIELDS, MarchHit,
                                     SurfaceRecord)
-from vrt_torch.render.gpuscene import GPUScene, RenderMode, color_table
+from vrt_torch.render.gpuscene import (LIGHT_FIELDS, MATERIAL_FIELDS,
+                                       GPUScene, RenderMode, color_table)
 from vrt_torch.shade import brdf as _brdf
 from vrt_torch.shade import lights as _lights
 from vrt_torch.shade import texture as _tex
@@ -429,10 +433,14 @@ def _spot_light(scene: GPUScene, si: int, shadow_origin):
     return _safe_div(delta, dist[..., None]), dist, inten
 
 
+def _take(table, idx):
+    return table[idx]
+
+
 def shade_surface_reference(scene: GPUScene, o_w, d_w, t, n_obj,
                             hit: MarchHit, inst, mode: RenderMode,
                             bounce: bool, shadows: bool,
-                            gather=None) -> SurfaceRecord:
+                            gather=None, take=None) -> SurfaceRecord:
     """The first stage of a level's shading, before the traces the level
     spawns, in plain PyTorch (the plain version of ``shade.cu``'s surface
     kernel; port of the head of ``vrt.render.renderer._shade_lit`` and of
@@ -443,22 +451,25 @@ def shade_surface_reference(scene: GPUScene, o_w, d_w, t, n_obj,
     per-voxel colour sample — and the world normal; with ``bounce`` the
     mirror direction and its gate (roughness < 0.3); with ``shadows`` the
     level's shadow rays.  In unlit mode only the albedo.  ``gather`` reads
-    the colour rows (``kernels.rows.gather_rows`` by default)."""
+    the colour rows (``kernels.rows.gather_rows`` by default), ``take`` a
+    material constant's row by volume (``table[vol_id]`` by default)."""
     dev = o_w.device
     t = torch.where(hit.hit, t, 0.0)
     n_obj = torch.where(hit.hit[..., None], n_obj,
                         torch.tensor([0.0, 0.0, 1.0], device=dev))
     pr = _per_ray_instance(scene, inst)
     vol_id = pr["vol"]
+    take = take or _take
     if not mode.lit:
         return SurfaceRecord(albedo=_unlit_albedo(scene, pr, o_w, d_w, t,
-                                                  n_obj, hit, mode, gather))
+                                                  n_obj, hit, mode, gather,
+                                                  take))
 
     hit_pos = o_w + t[..., None] * d_w
     shadow_origin = hit_pos - d_w * 0.1
 
-    tint = scene.tint[vol_id][..., :3]
-    k = scene.k[vol_id]
+    tint = take(scene.tint, vol_id)[..., :3]
+    k = take(scene.k, vol_id)
 
     if mode.textured:
         obj_pos = vq.rotate(vq.conjugate(pr["rot"]),
@@ -469,16 +480,17 @@ def shade_surface_reference(scene: GPUScene, o_w, d_w, t, n_obj,
                                         obj_pos, n_obj)
         rm = _tex.tri_sample(scene.textures, scene.tex_sizes,
                              scene.rm_tex[vol_id], tscale, obj_pos, n_obj)
-        roughness = kinks.clip(scene.roughness[vol_id] * rm[..., 0],
+        roughness = kinks.clip(take(scene.roughness, vol_id) * rm[..., 0],
                                0.0, 1.0)
-        metallic = kinks.clip(scene.metallic[vol_id] * rm[..., 1], 0.0, 1.0)
+        metallic = kinks.clip(take(scene.metallic, vol_id) * rm[..., 1],
+                              0.0, 1.0)
         n_shade = _tex.tri_sample_normal(scene.textures, scene.tex_sizes,
                                          scene.normal_tex[vol_id], tscale,
                                          obj_pos, n_obj)
     else:
         albedo = tint
-        roughness = kinks.clip(scene.roughness[vol_id], 0.0, 1.0)
-        metallic = kinks.clip(scene.metallic[vol_id], 0.0, 1.0)
+        roughness = kinks.clip(take(scene.roughness, vol_id), 0.0, 1.0)
+        metallic = kinks.clip(take(scene.metallic, vol_id), 0.0, 1.0)
         n_shade = n_obj
 
     if scene.use_voxel_colors:
@@ -502,13 +514,13 @@ def shade_surface_reference(scene: GPUScene, o_w, d_w, t, n_obj,
 
 
 def _unlit_albedo(scene: GPUScene, pr, o_w, d_w, t, n_obj, hit: MarchHit,
-                  mode: RenderMode, gather):
+                  mode: RenderMode, gather, take):
     """Unlit closest hit: tinted albedo only (the per-voxel colour
     sample where the scene has one)."""
     if scene.use_voxel_colors:
         return _voxel_color_sample(scene, pr, hit, o_w, d_w, t, gather)
     vol_id = pr["vol"]
-    tint = scene.tint[vol_id][..., :3]
+    tint = take(scene.tint, vol_id)[..., :3]
     if mode.textured:
         hit_pos = o_w + t[..., None] * d_w
         obj_pos = vq.rotate(vq.conjugate(pr["rot"]),
@@ -587,7 +599,7 @@ def _lit_radiance(scene: GPUScene, rec: SurfaceRecord, d_w, refl_rgb,
         # the surface stage's own, where it made the level's shadow rays
         sdir, _, inten = rec.lights[j] if rec.lights is not None \
             else light(scene, i, shadow_origin)
-        li = colors[i][:3] * inten[..., None]
+        li = colors[i][..., :3] * inten[..., None]
         add = _brdf.radiance(li, sdir, wo, n_w, albedo, roughness, metallic,
                              k)
         lit = inten > floor
@@ -597,10 +609,33 @@ def _lit_radiance(scene: GPUScene, rec: SurfaceRecord, d_w, refl_rgb,
     return diffuse
 
 
+def _lane_lights(scene: GPUScene, lanes: int, leaves: bool = False):
+    """``scene`` with each light table read as one row a lane: the sun's
+    [lanes, 3] and [lanes, 1], a point or spot light's table [n, lanes,
+    ...], each an expanded view that the plain stages read as they read the
+    table (with ``leaves``, of the table detached, a leaf that requires a
+    gradient).  Returns (that scene, {field: (view, its lane axis)})."""
+    views = {}
+    for f in LIGHT_FIELDS:
+        x = getattr(scene, f)
+        x = x.detach() if leaves else x
+        if f.startswith("dir_"):
+            x, axis = x.reshape(1, -1), 0
+        else:
+            x, axis = x.unsqueeze(1), 1
+        shape = list(x.shape)
+        shape[axis] = lanes
+        v = x.expand(shape)
+        views[f] = (v.requires_grad_(True) if leaves else v, axis)
+    return dataclasses.replace(
+        scene, **{f: v for f, (v, _) in views.items()}), views
+
+
 def shade_surface_backward_reference(scene: GPUScene, o_w, d_w, t, n_obj,
                                      hit: MarchHit, inst, mode: RenderMode,
                                      bounce: bool, cotangents,
-                                     acc_dtype=torch.float32):
+                                     acc_dtype=torch.float32, g_k=None,
+                                     material: bool = False):
     """The vector-Jacobian product of ``shade_surface_reference`` in the
     rays, ``t``, ``n_obj`` and the colour table: the plain version of the
     surface backward kernel.  ``cotangents`` are those of the record's
@@ -609,35 +644,52 @@ def shade_surface_backward_reference(scene: GPUScene, o_w, d_w, t, n_obj,
     f32 [R,3], g_t f32 [R], g_n_obj f32 [R,3], g_colors in ``acc_dtype``:
     [V*C^3, 24] of the packed view or [V*N^3, 3] of the voxel grid, the
     table ``gpuscene.color_table`` names, or None without per-voxel
-    colours; the caller casts it once to the table's dtype).
+    colours; the caller casts it once to the table's dtype).  With
+    ``material`` (the plain version of the kernel's material variant),
+    ``g_k`` [R] (None for zero) being the cotangent of the record's ``k``,
+    five more follow: the cotangents of the material constants
+    (``MATERIAL_FIELDS``: tint [V,4], roughness, metallic, k [V], f32, each
+    summed over the lanes in float64), then a tuple of the four tables'
+    sums of their lanes' |terms| (float64: the scale that rounding moves an
+    entry's sum by, where its terms may cancel).
 
     The stage is computed again under ``torch.enable_grad()`` on leaves of
     the inputs and differentiated by ``torch.autograd.grad``; the colour
     rows are gathered by plain indexing as leaves of their own, and their
-    gradient is added into the table by ``scatter_rows_reference``.  A miss
-    lane's record is read by no one (the combine stage selects the env
-    there, the traces the level spawns march it with t_max = -inf), so its
-    cotangents are taken as zero, as the kernel takes them."""
+    gradient is added into the table by ``scatter_rows_reference``; with
+    ``material`` each material read (``take``) is a leaf of the lanes' rows
+    too.  A miss lane's record is read by no one (the combine stage selects
+    the env there, the traces the level spawns march it with t_max = -inf),
+    so its cotangents are taken as zero, as the kernel takes them."""
     hit_mask = hit.hit
     leaves = [x.detach().requires_grad_(True) for x in (o_w, d_w, t, n_obj)]
-    taken = []
+    taken, reads = [], {f: [] for f in MATERIAL_FIELDS}
+    names = {id(getattr(scene, f)): f for f in MATERIAL_FIELDS}
 
     def gather(table, idx, ch):
         rows = gather_rows_reference(table.detach(), idx, ch)
         taken.append((rows.requires_grad_(True), idx, table.shape))
         return rows
 
+    def take(table, idx):
+        rows = table.detach()[idx]
+        if material:
+            reads[names[id(table)]].append((rows.requires_grad_(True), idx))
+        return rows
+
     with torch.enable_grad():
         rec = shade_surface_reference(scene, *leaves, hit, inst, mode, bounce,
-                                      False, gather=gather)
+                                      False, gather=gather, take=take)
     outs, cots = [], []
-    for name, g in zip(RECORD_GRAD_FIELDS, cotangents):
+    for name, g in zip(RECORD_GRAD_FIELDS + ("k",), (*cotangents, g_k)):
         x = getattr(rec, name)
         if g is not None and x is not None and x.requires_grad:
             keep = hit_mask.reshape(hit_mask.shape + (1,) * (g.ndim - 1))
             outs.append(x)
             cots.append(torch.where(keep, g, 0.0))
-    inputs = leaves + [rows for rows, _, _ in taken]
+    rows = [r for r, _, _ in taken]
+    lanes = [r for f in MATERIAL_FIELDS for r, _ in reads[f]]
+    inputs = leaves + rows + lanes
     grads = torch.autograd.grad(outs, inputs, cots, allow_unused=True) \
         if outs else [None] * len(inputs)
     grads = [torch.zeros_like(x) if g is None else g
@@ -647,31 +699,55 @@ def shade_surface_backward_reference(scene: GPUScene, o_w, d_w, t, n_obj,
         _, idx, (n_rows, ch) = taken[0]
         g_colors = scatter_rows_reference(grads[4], idx, n_rows, ch,
                                           acc_dtype)
-    return (*grads[:4], g_colors)
+    if not material:
+        return (*grads[:4], g_colors)
+    g_lanes = iter(grads[4 + len(rows):])
+    sums, terms = [], []
+    for f in MATERIAL_FIELDS:
+        table = getattr(scene, f)
+        acc = torch.zeros(table.shape, dtype=torch.float64,
+                          device=table.device)
+        acc_abs = acc.clone()
+        for _, idx in reads[f]:
+            g = next(g_lanes).double()
+            acc.index_add_(0, idx, g)
+            acc_abs.index_add_(0, idx, g.abs())
+        sums.append(acc.float())
+        terms.append(acc_abs)
+    return (*grads[:4], g_colors, *sums, tuple(terms))
 
 
 def shade_combine_backward_reference(scene: GPUScene, rec: SurfaceRecord,
                                      d_w, n_obj, hit_mask, unlit_attr,
                                      refl_rgb, blocked, mode: RenderMode,
-                                     g_rgb):
+                                     g_rgb, lights: bool = False):
     """The vector-Jacobian product of ``shade_combine_reference`` (linear
     rgb, without ``final``) for the cotangent ``g_rgb`` [R,3]: the plain
     version of the combine backward kernel.  Returns the cotangents of the
     record's ``RECORD_GRAD_FIELDS``, then of ``d_w``, ``n_obj`` and
-    ``refl_rgb``, f32, each None where that input is None.
+    ``refl_rgb``, f32, each None where that input is None.  With ``lights``
+    (the plain version of the kernel's light variant) three more follow: the
+    cotangent of the record's ``k`` (f32 [R], None where the record has
+    none), a tuple of the cotangents of the light tables (``LIGHT_FIELDS``,
+    each of its table's shape, f32, summed over the lanes in float64) and a
+    tuple of the light tables' sums of their lanes' |terms| (float64: the
+    scale that rounding moves an entry's sum by).
 
     The stage is computed again under ``torch.enable_grad()`` and
     differentiated by ``torch.autograd.grad``: on the hit lanes, where it
-    reads the record, and on the miss lanes, where it reads the direction
-    alone (the env lookup).  A miss lane's record is read by no one and may
-    hold anything (the kernel leaves it unwritten): it gets an exact zero
-    and never enters the arithmetic, where a zero cotangent times a NaN
-    would give NaN.  Each lane is shaded on its own, so the two parts are
-    the stage."""
+    reads the record (and, with ``lights``, every light table as one leaf
+    row a lane: ``_lane_lights``), and on the miss lanes, where it reads the
+    direction alone (the env lookup).  A miss lane's record is read by no
+    one and may hold anything (the kernel leaves it unwritten): it gets an
+    exact zero and never enters the arithmetic, where a zero cotangent times
+    a NaN would give NaN.  Each lane is shaded on its own, so the two parts
+    are the stage."""
     fields = [getattr(rec, f) for f in RECORD_GRAD_FIELDS]
-    inputs = fields + [d_w, n_obj, refl_rgb]
+    inputs = fields + [d_w, n_obj, refl_rgb] + ([rec.k] if lights else [])
     hits = hit_mask.nonzero().squeeze(-1)
     misses = (~hit_mask).nonzero().squeeze(-1)
+    lit_scene, views = _lane_lights(scene, hits.shape[0], True) if lights \
+        else (scene, {})
 
     def leaf(x, lanes):
         return None if x is None else \
@@ -680,33 +756,44 @@ def shade_combine_backward_reference(scene: GPUScene, rec: SurfaceRecord,
     sub = [leaf(x, hits) for x in inputs]
     sub_rec = SurfaceRecord(
         **dict(zip(RECORD_GRAD_FIELDS, sub[:len(fields)])),
-        k=None if rec.k is None else rec.k[hits])
+        k=sub[-1] if lights else None if rec.k is None else rec.k[hits])
     d_miss = leaf(d_w, misses)
     with torch.enable_grad():
         shaded = shade_combine_reference(
-            scene, sub_rec, sub[-3], sub[-2],
+            lit_scene, sub_rec, sub[len(fields)], sub[len(fields) + 1],
             torch.ones_like(hits, dtype=torch.bool), unlit_attr[hits],
-            sub[-1], None if blocked is None else [b[hits] for b in blocked],
-            mode)
+            sub[len(fields) + 2],
+            None if blocked is None else [b[hits] for b in blocked], mode)
         miss_rgb = _tex.sample_env(scene.env, d_miss)
     want = [x for x in sub if x is not None and x.requires_grad]
-    got = iter(torch.autograd.grad(shaded, want, g_rgb[hits],
+    lanes = [v for v, _ in views.values()]
+    got = iter(torch.autograd.grad(shaded, want + lanes, g_rgb[hits],
                                    allow_unused=True))
     (g_miss,) = torch.autograd.grad(miss_rgb, [d_miss], g_rgb[misses],
                                     allow_unused=True)
     out = []
-    for x, s in zip(inputs, sub):
+    for x in inputs:
         if x is None:
             out.append(None)
             continue
-        g = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-        gs = next(got) if s.requires_grad else None
-        if gs is not None:
-            g[hits] = gs
+        g = torch.zeros_like(x)
+        sub_g = next(got)
+        if sub_g is not None:
+            g[hits] = sub_g
         out.append(g)
     if g_miss is not None:
         out[len(fields)][misses] = g_miss
-    return tuple(out)
+    if not lights:
+        return tuple(out)
+    sums, terms = [], []
+    for f, (v, axis) in views.items():
+        g = next(got)
+        g = torch.zeros(v.shape, dtype=torch.float64, device=v.device) \
+            if g is None else g.double()
+        shape = getattr(scene, f).shape
+        sums.append(g.sum(dim=axis).reshape(shape).float())
+        terms.append(g.abs().sum(dim=axis).reshape(shape))
+    return (*out, tuple(sums), tuple(terms))
 
 
 def _needs_autograd(*tensors) -> bool:
@@ -716,21 +803,18 @@ def _needs_autograd(*tensors) -> bool:
 
 
 # the scene's tensors that a level's shading reads and a fit may optimize,
-# in two groups.  The colour tables: the shade Functions' backward kernels
-# return their gradient, as they return that of the rays, t and n_obj (and
-# so of the corner table behind t and n_obj): the packed view where the
-# scene has one, else the voxel grid (``gpuscene.color_table``).  The rest:
-# materials, textures, env, instance transforms and lights, whose gradient
-# the kernels do not return; a graph through one of those takes the plain
-# pair.
-_KERNEL_GRAD_FIELDS = ("voxel_colors", "voxel_color_corners")
-_PLAIN_GRAD_FIELDS = (
-    "tint", "roughness", "metallic", "k", "tex_scale", "textures", "env",
-    "inst_pos", "inst_rot", "inst_scale", "dir_light_dir",
-    "dir_light_strength", "point_color", "point_intensity", "point_att_l",
-    "point_att_e", "point_pos", "spot_color", "spot_intensity",
-    "spot_att_l", "spot_att_e", "spot_cos_angle", "spot_cos_falloff",
-    "spot_pos", "spot_fwd")
+# in two groups.  Those whose gradient the shade Functions' backward kernels
+# return, as they return that of the rays, t and n_obj (and so of the corner
+# table behind t and n_obj): the colour tables (the packed view where the
+# scene has one, else the voxel grid: ``gpuscene.color_table``), the
+# material constants and the lights (the kernels' material and light
+# variants).  The rest: the texture scale, the textures, the env and the
+# instance transforms, whose gradient the kernels do not return; a graph
+# through one of those takes the plain pair.
+_KERNEL_GRAD_FIELDS = ("voxel_colors", "voxel_color_corners") \
+    + MATERIAL_FIELDS + LIGHT_FIELDS
+_PLAIN_GRAD_FIELDS = ("tex_scale", "textures", "env", "inst_pos", "inst_rot",
+                      "inst_scale")
 _SHADED_FIELDS = _KERNEL_GRAD_FIELDS + _PLAIN_GRAD_FIELDS
 
 
@@ -738,13 +822,14 @@ def shade_stages(scene: GPUScene, o_w, d_w, t, n_obj):
     """The two stages of a level's shading, (surface, combine), picked on
     the inputs alone, among three pairs:
 
-    - a graph is recorded through a tensor of ``_PLAIN_GRAD_FIELDS`` (a
-      material constant, a texture, the env, a light, an instance
-      transform): the plain versions ``shade_surface_reference`` and
-      ``shade_combine_reference`` under autograd, on either device, since
-      the kernels return no gradient for those;
-    - else a graph through the rays, ``t``, ``n_obj``, the corner table or
-      a colour table (every fit step of the SDF and the colours): the
+    - a graph is recorded through a tensor of ``_PLAIN_GRAD_FIELDS`` (the
+      texture scale, a texture, the env, an instance transform): the plain
+      versions ``shade_surface_reference`` and ``shade_combine_reference``
+      under autograd, on either device, since the kernels return no
+      gradient for those;
+    - else a graph through the rays, ``t``, ``n_obj``, the corner table, a
+      colour table, a material constant or a light table (every fit step
+      of the SDF and the colours, and of the materials and the lights): the
       ``autograd.Function`` pair of ``kernels.shade`` (``ShadeSurface``,
       ``ShadeCombine``), whose forward and backward are the kernels on CUDA
       tensors and the plain versions on CPU tensors;
@@ -802,27 +887,30 @@ def _shade_combine_kernel(scene, rec, d_w, n_obj, hit_mask, unlit_attr,
 def _shade_surface_function(scene, o_w, d_w, t, n_obj, hit, inst, mode,
                             bounce, shadows):
     """The surface stage through ``ShadeSurface``, differentiable in the
-    rays, ``t``, ``n_obj`` and the colour table."""
+    rays, ``t``, ``n_obj``, the colour table and the material constants."""
     from vrt_torch.kernels import shade as k4
 
     return SurfaceRecord.unpack(k4.ShadeSurface.apply(
         o_w.contiguous(), d_w.contiguous(), t.contiguous(),
-        n_obj.contiguous(), color_table(scene), scene,
+        n_obj.contiguous(), color_table(scene),
+        *(getattr(scene, f) for f in MATERIAL_FIELDS), scene,
         _contiguous_hit(hit), inst.contiguous(), mode, bounce, shadows))
 
 
 def _shade_combine_function(scene, rec, d_w, n_obj, hit_mask, unlit_attr,
                             refl_rgb, blocked, mode, final=False):
     """The combine stage through ``ShadeCombine``, differentiable in the
-    record's floats, ``d_w``, ``n_obj`` and ``refl_rgb``; with ``final`` the
-    tonemap follows in eager PyTorch."""
+    record's floats (``k`` among them), ``d_w``, ``n_obj``, ``refl_rgb`` and
+    the light tables; with ``final`` the tonemap follows in eager
+    PyTorch."""
     from vrt_torch.kernels import shade as k4
 
     refl_rgb, blocked = _contiguous_combine_args(refl_rgb, blocked)
     rgb = k4.ShadeCombine.apply(
         *(getattr(rec, f) for f in RECORD_GRAD_FIELDS), d_w.contiguous(),
-        n_obj.contiguous(), refl_rgb, rec.k, scene, hit_mask.contiguous(),
-        unlit_attr.contiguous(), blocked, mode)
+        n_obj.contiguous(), refl_rgb, rec.k,
+        *(getattr(scene, f) for f in LIGHT_FIELDS), scene,
+        hit_mask.contiguous(), unlit_attr.contiguous(), blocked, mode)
     return _tonemapped(rgb) if final else rgb
 
 
