@@ -87,6 +87,18 @@ Phases, each of which raises on failure:
              with both designs' outputs filled with NaN first (all nine
              cotangents bit-equal; old, new, new, old) and its launches
              counted by path;
+             the backward kernels' variants: every launch of the material
+             and light variants in a loss on the 480x270 frames above
+             differentiated in the materials and the lights, and of the
+             texture and env variants in one differentiated in the texture
+             scale, the textures and the env, on the scene's own tables
+             (their sums in shared memory) and on the same texels in a
+             [3,256,256,3] stack with the env at twice its side (f32
+             atomics into the tables), against their plain versions (the
+             per-ray cotangents as above, each table entry within 1e-5 of
+             its lanes' sum of |terms|, the stack's padding zero) and the
+             default instantiation on the same inputs (per-ray cotangents
+             bit-equal; default, variant, variant, default);
              K3: every launch of one 1080p frame on the candidate-loop path,
              of one config6 fit step with eager shading (the colour rows:
              the default step launches no K3), and of one with resolve on the
@@ -157,6 +169,18 @@ Phases, each of which raises on failure:
              peak memory of a step on each; the card's loss and gradients at 64x36
              (through the backward kernels, launches asserted) against
              ``vrt``'s (``tests/fixtures/fit_flagship_r4_colors_64x36.npz``);
+             config6's step with the material constants and the sun among
+             its parameters, and the shading scene's 1080p step (three
+             textures, an 8x8 env, 2 point lights and a spot light;
+             chebyshev, bf16) with the texture scale, the textures, the
+             env, the material constants and the sun's strength, each on
+             the backward kernels' variants (one launch of the texture and
+             material, one of the env and light variant a level) against
+             the plain pair under autograd (old, new, new, old: the
+             kernels' medians of 3, one plain step a side), with their
+             launches, losses and gradients against the plain route's
+             float64 sums, device ops, busy time and peak memory, and every
+             variant launch of one step held as in phase 3;
              then ``python -m vrt_torch.apps.fit`` at its defaults, whose
              last loss must be under a quarter of its first,
 9. engine  -- the engine path.  A host ``Scene`` of the flagship's two 129^3
@@ -1917,20 +1941,20 @@ def _shade_bwd_calls(run, expected, tag):
     return out
 
 
-VARIANTS = ("surface_bwd material", "combine_bwd lights")
+# the flags of each backward kernel's variants (its wrapper's keywords)
+SURFACE_FLAGS, COMBINE_FLAGS = ("material", "textures"), ("lights", "env")
 
 
-def _material_light_loss(scene, w, h, mode, seed=0):
-    """A fit's loss on ``scene``'s w x h frame differentiated in the
-    material constants and the light tables (``MATERIAL_FIELDS``,
-    ``LIGHT_FIELDS``, leaves of their own): a callable that renders the
-    frame, weighs its radiance with seeded weights and runs the backward."""
+def _table_loss(scene, w, h, mode, fields, seed=0):
+    """A fit's loss on ``scene``'s w x h frame differentiated in the scene
+    tables ``fields`` (leaves of their own): a callable that renders the
+    frame, weighs its radiance with seeded weights and runs the
+    backward."""
     import dataclasses
 
     import numpy as np
     import torch
 
-    from vrt_torch.render.gpuscene import LIGHT_FIELDS, MATERIAL_FIELDS
     from vrt_torch.render.renderer import render_image
 
     weights = torch.from_numpy(np.random.default_rng(seed).normal(
@@ -1938,7 +1962,7 @@ def _material_light_loss(scene, w, h, mode, seed=0):
 
     def run():
         leaves = {f: getattr(scene, f).detach().clone().requires_grad_(True)
-                  for f in MATERIAL_FIELDS + LIGHT_FIELDS}
+                  for f in fields}
         rgb = render_image(dataclasses.replace(scene, **leaves), w, h, mode)
         return torch.autograd.grad((rgb[..., :3] * weights).sum(),
                                    list(leaves.values()), allow_unused=True)
@@ -1946,91 +1970,146 @@ def _material_light_loss(scene, w, h, mode, seed=0):
     return run
 
 
-def _variant_calls(run, expected, tag):
-    """Every launch of the surface backward's material variant
-    (``shade_surface_backward_cuda(..., material=True)``) and of the combine
-    backward's light variant (``shade_combine_backward_cuda(...,
-    lights=True)``) in ``run()``, kept with its inputs and outputs, then
-    held against its plain version on the same inputs
-    (``shade_surface_backward_reference(..., material=True)`` /
-    ``shade_combine_backward_reference(..., lights=True)``: autograd of the
-    plain stage with the tables as leaves, summed over the lanes in
-    float64): every per-ray cotangent (the record's k's among them) under
-    ``_grad_beyond``'s tolerance on every lane, the colour table within
-    ``SCATTER_RTOL`` * its largest |sum|, each entry of a material constant
-    or light table within ``SCATTER_RTOL`` * the sum of its own lanes'
-    |terms| + ``TABLE_ATOL`` (the plain versions return those sums: an
-    entry's terms may cancel, and each lane's term rounds on its own; the
-    largest error over the table's largest |sum| is reported too); and
-    against the default instantiation on the same
+def _variant_tables(surface, flags, got, want):
+    """The scene tables a variant launch returned, as (name, the kernel's,
+    the plain version's float64 sum, its lanes' |terms|, or None for the
+    colour table), from the wrapper's outputs ``got`` and the plain
+    version's ``want`` with the same ``flags``."""
+    from vrt_torch.render.gpuscene import LIGHT_FIELDS, MATERIAL_FIELDS
+
+    if surface:
+        out = [("g_colors", got[4], want[4], None)]
+        g, w = list(got[5:]), list(want[5:])
+        if "material" in flags:
+            out += [(f"g_{f}", a, b, t) for f, a, b, t in zip(
+                MATERIAL_FIELDS, g[:4], w[:4], w[4])]
+            g, w = g[4:], w[5:]
+        if "textures" in flags:
+            out += [(f"g_{f}", a, b, t) for f, a, b, t in zip(
+                ("tex_scale", "textures"), g[:2], w[:2], w[2])]
+        return out
+    out = []
+    if "lights" in flags:
+        out += [(f"g_{f}", a, b, t) for f, a, b, t in zip(
+            LIGHT_FIELDS, got[10], want[10], want[11])]
+    if "env" in flags:
+        out.append(("g_env", got[-1], want[-2], want[-1]))
+    return out
+
+
+def _variant_calls(run, expected, tag, surface=("material",),
+                   combine=("lights",)):
+    """Every launch of the surface backward with the variant flags
+    ``surface`` (``shade_surface_backward_cuda(..., material=True)``, the
+    material variant; ``textures=True``, the texture variant; both, one
+    launch of both) and of the combine backward with the flags ``combine``
+    (``lights=True``, the light variant; ``env=True``, the env variant) in
+    ``run()``, kept with its inputs and outputs, then held against its
+    plain version on the same inputs (the reference with the same flags:
+    autograd of the plain stage with the tables' reads as leaves, summed
+    over the lanes in float64): every per-ray cotangent (the record's k's
+    among them) under ``_grad_beyond``'s tolerance on every lane, the
+    colour table within ``SCATTER_RTOL`` * its largest |sum|, each entry of
+    a material constant, light table, the texture scale, the stacked
+    textures or the env cube within ``SCATTER_RTOL`` * the sum of its own
+    lanes' |terms| + ``TABLE_ATOL`` (an entry's terms may cancel, and each
+    lane's term rounds on its own; the largest error over the table's
+    largest |sum| is reported too), the padding of the stacked textures
+    exactly zero; and against the default instantiation on the same
     inputs: every per-ray cotangent the default launch returns bit-equal,
     the two timed default, variant, variant, default.  Fails unless each
-    variant launched ``expected`` times.  Returns {"surface_bwd material" |
-    "combine_bwd lights": dict(launches, max_abs_err (the largest
-    difference over its scale, per-ray outputs and tables), by_output, ms,
-    default_ms, plain_ms (lists), bound)}."""
+    launched ``expected`` times (and the texture and env variants on one
+    path, ``kernels.shade.table_path``).  Returns {"surface_bwd " +
+    "+".join(surface) | "combine_bwd " + "+".join(combine): dict(launches,
+    max_abs_err (the largest difference over its scale, per-ray outputs and
+    tables), by_output, ms, default_ms, plain_ms (lists), bound, paths
+    (the texture or env variant's launches by path))}."""
     import torch
 
     from vrt_torch.kernels import shade as k4
     from vrt_torch.kernels._timing import device_ms
-    from vrt_torch.render.gpuscene import LIGHT_FIELDS, MATERIAL_FIELDS
     from vrt_torch.render.renderer import (shade_combine_backward_reference,
                                            shade_surface_backward_reference)
 
     before = dict(k4.VARIANT_LAUNCHES)
+    tables_before = dict(k4.TABLE_LAUNCHES)
     with _recording(k4, "shade_surface_backward_cuda") as surf, \
             _recording(k4, "shade_combine_backward_cuda") as comb:
         run()
     torch.cuda.synchronize()
     launched = {k: k4.VARIANT_LAUNCHES[k] - before[k] for k in before}
-    surf = [c for c in surf if c[1].get("material")]
-    comb = [c for c in comb if c[1].get("lights")]
+    paths = {k: k4.TABLE_LAUNCHES[k] - tables_before[k]
+             for k in tables_before}
+    surf = [c for c in surf
+            if tuple(f for f in SURFACE_FLAGS if c[1].get(f)) == surface]
+    comb = [c for c in comb
+            if tuple(f for f in COMBINE_FLAGS if c[1].get(f)) == combine]
+    want_launched = {"surface_bwd material": expected * ("material"
+                                                         in surface),
+                     "combine_bwd lights": expected * ("lights" in combine)}
+    keys = ("surface_bwd " + "+".join(surface),
+            "combine_bwd " + "+".join(combine))
+    table_paths = {
+        keys[0]: {p: paths[f"surface_bwd textures {p}"]
+                  for p in ("shared", "global")},
+        keys[1]: {p: paths[f"combine_bwd env {p}"]
+                  for p in ("shared", "global")}}
+    tabled = {keys[0]: "textures" in surface, keys[1]: "env" in combine}
     if (len(surf), len(comb)) != (expected, expected) or \
-            launched != {k: expected for k in VARIANTS}:
-        raise AssertionError(f"the {tag} called the material variant "
-                             f"{len(surf)} times and the light variant "
-                             f"{len(comb)} times (launches {launched}), "
-                             f"expected {expected} each")
+            launched != want_launched or any(
+                sorted(table_paths[k].values()) != ([0, expected]
+                                                    if tabled[k] else [0, 0])
+                for k in keys):
+        raise AssertionError(f"the {tag} called the surface backward with "
+                             f"{surface} {len(surf)} times and the combine "
+                             f"backward with {combine} {len(comb)} times "
+                             f"(variant launches {launched}, by path "
+                             f"{paths}), expected {expected} each")
     out = {}
-    for key, calls in zip(VARIANTS, (surf, comb)):
+    for key, calls, flags in zip(keys, (surf, comb), (surface, combine)):
         by_output, ms, default_ms, plain_ms, bounds = {}, [], [], [], []
-        surface = key.startswith("surface")
-        kernel = k4.shade_surface_backward_cuda if surface \
+        is_surface = key.startswith("surface")
+        kernel = k4.shade_surface_backward_cuda if is_surface \
             else k4.shade_combine_backward_cuda
         for i, (args, kwargs, got) in enumerate(calls):
-            if surface:
+            scene = args[0]
+            if is_surface:
                 rays_grad, table_grad = (tuple(args[10:]) + (True, True))[:2]
 
                 def plain():
                     return shade_surface_backward_reference(
                         *args[:10], acc_dtype=torch.float64,
-                        g_k=kwargs.get("g_k"), material=True)
+                        g_k=kwargs.get("g_k"),
+                        **{f: True for f in flags})
 
                 want = plain()
                 per_ray = zip(("g_o_w", "g_d_w", "g_t", "g_n_obj"), got[:4],
                               want[:4])
-                tables = zip(("g_colors",) + tuple(f"g_{f}" for f in
-                                                   MATERIAL_FIELDS),
-                             got[4:], want[4:9], (None,) + want[9])
                 shared, hits = 4, int(args[5].hit.sum())
-                base = _surface_bwd_bound(args[0], args, rays_grad,
+                base = _surface_bwd_bound(scene, args, rays_grad,
                                           table_grad)
                 # the record's k read on the hit lanes, the [V,8]
-                # accumulator written once
-                extra = hits * 4 + args[0].tint.shape[0] * 32
+                # accumulator written once; the texture scale's and the
+                # textures' accumulators written once
+                extra = (hits * 4 + scene.tint.shape[0] * 32
+                         if "material" in flags else 0) \
+                    + ((scene.tex_scale.numel() + scene.textures.numel()) * 4
+                       if "textures" in flags else 0)
             else:
                 def plain():
                     return shade_combine_backward_reference(
-                        *args[:10], lights=True)
+                        *args[:10], **{f: True for f in flags})
 
                 want = plain()
-                per_ray = zip(COMBINE_GRADS + ("g_k",), got[:10], want[:10])
-                tables = zip(tuple(f"g_{f}" for f in LIGHT_FIELDS), got[10],
-                             want[10], want[11])
+                n = len(COMBINE_GRADS) + ("lights" in flags)
+                per_ray = zip(COMBINE_GRADS + ("g_k",), got[:n], want[:n])
                 shared = 9
-                base = _combine_bwd_bound(args[0], args, got[:10])
-                # the light tables' accumulator written once
-                extra = sum(g.numel() * 4 for g in got[10])
+                base = _combine_bwd_bound(scene, args, got[:n])
+                # the light tables' and the env cube's accumulators written
+                # once
+                extra = (sum(g.numel() * 4 for g in got[10])
+                         if "lights" in flags else 0) \
+                    + (scene.env.numel() * 4 if "env" in flags else 0)
             bounds.append(_bound(base["bytes"] + extra, base["flops"]))
             per_ray = [(n, a, b) for n, a, b in per_ray if a is not None]
             scale = max(b.abs().max().item() for _, _, b in per_ray)
@@ -2044,7 +2123,8 @@ def _variant_calls(run, expected, tag):
                         f"lanes (largest difference {worst:.3e} * "
                         f"{scale:.3e})")
                 by_output[name] = max(by_output.get(name, 0.0), worst)
-            for name, a, b, terms in tables:
+            for name, a, b, terms in _variant_tables(is_surface, flags, got,
+                                                     want):
                 if a is None:
                     continue
                 b = b.double().reshape(a.shape)
@@ -2064,8 +2144,8 @@ def _variant_calls(run, expected, tag):
                     by_output[name] = max(by_output.get(name, 0.0),
                                           e / top if top > 0 else 0.0)
                     continue
-                # a material or light table, each entry against the sum of
-                # its own lanes' |terms|
+                # a scene table, each entry against the sum of its own
+                # lanes' |terms|
                 bound = SCATTER_RTOL * terms.double().reshape(a.shape) \
                     + TABLE_ATOL
                 worst = (err / bound).max().item()
@@ -2080,6 +2160,13 @@ def _variant_calls(run, expected, tag):
                     key_max = f"{name} over max|sum|"
                     by_output[key_max] = max(by_output.get(key_max, 0.0),
                                              e / top)
+                if name == "g_textures":
+                    # the stack's padding past each texture's size
+                    for t, (h, w) in enumerate(scene.tex_sizes.tolist()):
+                        if bool(a[t, h:].any()) or bool(a[t, :, w:].any()):
+                            raise AssertionError(
+                                f"{tag} {key} {i}: the padding of texture "
+                                f"{t} got a cotangent")
             del want
             # the default instantiation on the same inputs
             default = kernel(*args)
@@ -2105,29 +2192,36 @@ def _variant_calls(run, expected, tag):
                   f"output over its scale "
                   f"{', '.join(f'{k} {v:.2e}' for k, v in by_output.items())}",
                   flush=True)
-        out[key] = dict(launches=launched[key],
+        out[key] = dict(launches=len(calls),
                         max_abs_err=max((v for k, v in by_output.items()
                                          if not k.endswith("its bound")),
                                         default=0.0),
                         by_output=by_output, ms=ms, default_ms=default_ms,
-                        plain_ms=plain_ms, bound=_sum_bounds(bounds))
+                        plain_ms=plain_ms, bound=_sum_bounds(bounds),
+                        paths=table_paths[key])
         got = out[key]
-        print(f"shade {key} on the {tag}: {got['launches']} launches, "
-              f"{_list(ms)} ms = {sum(ms):.4f} ms (the default "
-              f"instantiation on the same inputs {sum(default_ms):.4f} ms); "
-              f"plain {sum(plain_ms):.2f} ms; bound "
-              f"{got['bound']['bound_ms']:.4f} ms", flush=True)
+        print(f"shade {key} on the {tag}: {got['launches']} launches "
+              f"(texture or env path {got['paths']}), {_list(ms)} ms = "
+              f"{sum(ms):.4f} ms (the default instantiation on the same "
+              f"inputs {sum(default_ms):.4f} ms); plain {sum(plain_ms):.2f} "
+              f"ms; bound {got['bound']['bound_ms']:.4f} ms", flush=True)
     return out
 
 
 MATERIAL_STEP_KEYS = ("sdf", "voxel_colors", "tint", "roughness", "metallic",
                       "k", "dir_light_dir", "dir_light_strength")
+# the texture-and-env step's parameters (phase 8): with the material
+# constants and the sun's strength they take both backward kernels'
+# variants in one launch each
+TEXTURE_STEP_KEYS = ("sdf", "tint", "roughness", "metallic", "tex_scale",
+                     "textures", "env", "dir_light_strength")
 
 
 @contextlib.contextmanager
 def _eager_shading_by_lane(kept):
-    """``_eager_shading``, each material read of a surface stage (its
-    ``take``) and each light table of both stages read as one row a lane
+    """``_eager_shading``, each material and texture-scale read of a
+    surface stage (its ``take``), each texture and env tap (``fetch``) and
+    each light table of both stages read as one row a lane
     (``renderer._lane_lights``), so that the caller can differentiate the
     loss in those rows and sum their terms in float64: every read is kept in
     ``kept`` as (field, rows, how to sum them into the table)."""
@@ -2135,6 +2229,7 @@ def _eager_shading_by_lane(kept):
 
     from vrt_torch.render import renderer as tren
     from vrt_torch.render.gpuscene import MATERIAL_FIELDS
+    from vrt_torch.shade import texture as tex
 
     def lights(scene, lanes):
         lit, views = tren._lane_lights(scene, lanes)
@@ -2144,24 +2239,39 @@ def _eager_shading_by_lane(kept):
                     scene, f).shape: g.sum(dim=axis).reshape(shape)))
         return lit
 
+    def rows_of(name, table, rows, idx):
+        # the rows' gradient summed into the table viewed as [rows, ...]
+        if rows.requires_grad:
+            kept.append((name, rows, lambda g, shape=table.shape: torch.zeros(
+                (table.numel() // max(torch.Size(g.shape[1:]).numel(), 1),)
+                + g.shape[1:], dtype=g.dtype, device=g.device)
+                .index_add_(0, idx, g).reshape(shape)))
+        return rows
+
+    def fetcher(scene):
+        names = {id(scene.textures): "textures", id(scene.env): "env"}
+
+        def fetch(table, *index):
+            return rows_of(names[id(table)], table,
+                           tex.fetch_rows(table, *index),
+                           tex.flat_index(index, table.shape))
+        return fetch
+
     def surface(scene, o_w, *args, **kwargs):
-        names = {id(getattr(scene, f)): f for f in MATERIAL_FIELDS}
+        names = {id(getattr(scene, f)): f
+                 for f in MATERIAL_FIELDS + ("tex_scale",)}
 
         def take(table, idx):
-            rows = table[idx]
-            if rows.requires_grad:
-                kept.append((names[id(table)], rows,
-                             lambda g, shape=table.shape: torch.zeros(
-                                 shape, dtype=g.dtype, device=g.device)
-                             .index_add_(0, idx, g)))
-            return rows
+            return rows_of(names[id(table)], table, table[idx], idx)
 
         return tren.shade_surface_reference(lights(scene, o_w.shape[0]),
-                                            o_w, *args, take=take, **kwargs)
+                                            o_w, *args, take=take,
+                                            fetch=fetcher(scene), **kwargs)
 
     def combine(scene, rec, d_w, *args, **kwargs):
         return tren.shade_combine_reference(lights(scene, d_w.shape[0]),
-                                            rec, d_w, *args, **kwargs)
+                                            rec, d_w, *args,
+                                            fetch=fetcher(scene), **kwargs)
 
     saved = tren.shade_stages
     tren.shade_stages = lambda *_: (surface, combine)
@@ -2171,31 +2281,102 @@ def _eager_shading_by_lane(kept):
         tren.shade_stages = saved
 
 
-MATERIAL_STEP_KEYS = ("sdf", "voxel_colors", "tint", "roughness", "metallic",
-                      "k", "dir_light_dir", "dir_light_strength")
+@contextlib.contextmanager
+def _plain_backward(terms):
+    """The shade Functions' backward kernels replaced by their plain
+    versions on the same saved inputs (``shade_surface_backward_reference``
+    / ``shade_combine_backward_reference`` with the launch's variant flags:
+    autograd of the plain stages, each scene table summed over the lanes in
+    float64), in the wrappers' output format: a step's forward on the
+    kernels and its backward on the plain versions.  Each table's sum of its
+    lanes' |terms| is added into ``terms`` (by field, float64)."""
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.render.gpuscene import LIGHT_FIELDS, MATERIAL_FIELDS
+    from vrt_torch.render.renderer import (shade_combine_backward_reference,
+                                           shade_surface_backward_reference)
+
+    def add(fields, sums):
+        for f, t in zip(fields, sums):
+            terms[f] = terms[f] + t if f in terms else t
+
+    def surface(scene, o_w, d_w, t, n_obj, hit, inst, mode, bounce, cots,
+                rays_grad=True, table_grad=True, g_k=None, material=False,
+                textures=False):
+        want = shade_surface_backward_reference(
+            scene, o_w, d_w, t, n_obj, hit, inst, mode, bounce, cots,
+            g_k=g_k, material=material, textures=textures)
+        out, rest = list(want[:5]), list(want[5:])
+        if not rays_grad:
+            out[0] = out[1] = None
+        if not table_grad:
+            out[4] = None
+        if material:
+            out += rest[:4]
+            add(MATERIAL_FIELDS, rest[4])
+            rest = rest[5:]
+        if textures:
+            out += rest[:2]
+            add(("tex_scale", "textures"), rest[2])
+        return tuple(out)
+
+    def combine(scene, rec, d_w, n_obj, hit_mask, unlit_attr, refl_rgb,
+                blocked, mode, g_rgb, needs=None, lights=False, env=False):
+        want = shade_combine_backward_reference(
+            scene, rec, d_w, n_obj, hit_mask, unlit_attr, refl_rgb, blocked,
+            mode, g_rgb, lights=lights, env=env)
+        out = list(want[:9])
+        if lights:
+            out += [want[9], want[10]]
+            add(LIGHT_FIELDS, want[11])
+        if env:
+            out.append(want[-2])
+            add(("env",), want[-1:])
+        return tuple(out)
+
+    saved = (k4.shade_surface_backward_cuda, k4.shade_combine_backward_cuda)
+    k4.shade_surface_backward_cuda, k4.shade_combine_backward_cuda = \
+        surface, combine
+    try:
+        yield
+    finally:
+        k4.shade_surface_backward_cuda, k4.shade_combine_backward_cuda = \
+            saved
 
 
-def _material_step(dev, card, sync, zero_counts, counts, timed, sdf_step):
-    """config6's 1080p fit step with the material constants and the
-    directional light among the parameters (``MATERIAL_STEP_KEYS``): on the
-    kernels (every level through the shade Functions, the backward kernels'
-    material and light variants), and the same step forced onto the plain
-    pair (``_eager_shading``: the plain stages under autograd), old, new,
-    new, old (medians of 3), with the SDF-and-colour step ``sdf_step`` of
-    phase 8 beside it in the same order.  One step on the kernels, the
-    counts set to 0 just before it: 3 + 3 forward and 3 + 3 backward shade
-    launches, each backward a variant (its counts are the ``launches``
-    returned).  The loss and its gradients on each route (the step's loss
-    function differentiated): the losses within 1e-5, the SDF's and the
-    colours' gradients at ``FIT_COS_TOL`` / ``FIT_DIFF_TOL``, each material
-    and light gradient within ``SCATTER_RTOL`` * its largest |sum| of the
-    plain route's float64 sum (``_eager_shading_by_lane``: the lanes' terms
-    of every read summed in float64, held within 1e-3 of max|sum| of
-    autograd's own f32 sums, which shows that no read was missed).  Device
+def _table_step(dev, card, sync, zero_counts, counts, timed, scene, cams,
+                keys, what, flags, sdf_step=None, per_entry=False):
+    """A 1080p fit step of ``scene`` from ``cams`` with the scene tables
+    ``keys`` among its parameters (Adam at 1e-2 towards zero targets): on
+    the kernels (every level through the shade Functions, the backward
+    kernels' variants ``flags``: (the surface's, the combine's), one launch
+    each a level), and the same step forced onto the plain pair
+    (``_eager_shading``: the plain stages under autograd), old, new, new,
+    old (the kernels' medians of 3, one step on the plain route, which
+    takes seconds), with the SDF-and-colour
+    step ``sdf_step`` of phase 8 beside it in the same order where given.
+    One step on the kernels, the counts set to 0 just before it: 3 + 3
+    forward and 3 + 3 backward shade launches, each backward those variants
+    (its counts are the ``launches`` returned).  The loss and its gradients
+    on each route (the step's loss function differentiated): the losses
+    within 1e-5, the SDF's (and the colours') gradient at ``FIT_COS_TOL``
+    and ``FIT_DIFF_TOL`` (``BF16_DIFF_TOL`` for a bf16 corner table), each
+    other table's gradient within ``SCATTER_RTOL`` * its largest |sum| of
+    the plain route's float64 sum (``_eager_shading_by_lane``: the lanes'
+    terms of every read summed in float64, held within 1e-3 of max|sum| of
+    autograd's own f32 sums, which shows that no read was missed).  With
+    ``per_entry`` the tables are held instead against the same step with
+    the backward on the plain versions (``_plain_backward``: the kernels'
+    own forward, the tables summed in float64), each entry within
+    ``SCATTER_RTOL`` * the sum of its own lanes' |terms| + ``TABLE_ATOL``,
+    as the launches are held; the plain pair's float64 sums, whose forward
+    on the plain stages rounds otherwise (a smooth mirror's highlight turns
+    that into a relative 1e-4 of a lane's cotangent, as the per-ray gates
+    allow), are reported beside them, with the check that no read was
+    missed.  Device
     ops, busy time and peak memory of a step on each route; every variant
-    launch of one step held by ``_variant_calls``.  Returns dict(routes (ms
-    medians, peak, busy, device ops), launches, grads, held
-    (``_variant_calls``'s), loss, plain_loss)."""
+    launch of one step held by ``_variant_calls``.  Returns dict(routes (ms,
+    peak, busy, device ops), launches, grads, held (``_variant_calls``'s),
+    loss, plain_loss)."""
     import numpy as np
     import torch
 
@@ -2205,16 +2386,13 @@ def _material_step(dev, card, sync, zero_counts, counts, timed, sdf_step):
     from vrt_torch.kernels import shade as k4
     from vrt_torch.render import renderer as tren
     from vrt_torch.render.gpuscene import RenderMode
-    from vrt_torch.scenes import flagship_scene
 
-    scene = flagship_scene(6, use_colors=True, device=dev)
     params = {k: scene.volumes.sdf if k == "sdf" else getattr(scene, k)
-              for k in MATERIAL_STEP_KEYS}
-    targets = torch.zeros((len(FIT_CAMS), FRAME_W * FRAME_H, 3), device=dev)
+              for k in keys}
+    targets = torch.zeros((len(cams), FRAME_W * FRAME_H, 3), device=dev)
     opt = adam(1e-2)
     state = opt.init(params)
-    step = make_fit_step(scene, FIT_CAMS, FRAME_W, FRAME_H, RenderMode(),
-                         opt)
+    step = make_fit_step(scene, cams, FRAME_W, FRAME_H, RenderMode(), opt)
 
     def kernel_step():
         return step(params, state, targets)[2]
@@ -2228,7 +2406,7 @@ def _material_step(dev, card, sync, zero_counts, counts, timed, sdf_step):
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
         s = graft_and_rebuild(scene, leaves)
-        loss = torch.mean((render_views(s, FIT_CAMS, FRAME_W, FRAME_H,
+        loss = torch.mean((render_views(s, cams, FRAME_W, FRAME_H,
                                         RenderMode()) - targets) ** 2)
         grads = torch.autograd.grad(
             loss, list(leaves.values()) + [rows for _, rows, _ in kept],
@@ -2239,7 +2417,7 @@ def _material_step(dev, card, sync, zero_counts, counts, timed, sdf_step):
         return loss.detach(), dict(zip(leaves, grads)), grads[len(leaves):]
 
     # one step on the kernels, the counts set to 0 just before it: every
-    # level through the Function pair, every backward a variant
+    # level through the Function pair, every backward the variants
     picked, pairs = tren.shade_stages, []
 
     def spy(*args):
@@ -2249,6 +2427,7 @@ def _material_step(dev, card, sync, zero_counts, counts, timed, sdf_step):
     kernel_step()
     sync()
     zero_counts()
+    tables = dict(k4.TABLE_LAUNCHES)
     tren.shade_stages = spy
     try:
         kernel_step()
@@ -2256,37 +2435,51 @@ def _material_step(dev, card, sync, zero_counts, counts, timed, sdf_step):
     finally:
         tren.shade_stages = picked
     got, variants = counts(), dict(k4.VARIANT_LAUNCHES)
+    variants.update({k: k4.TABLE_LAUNCHES[k] - tables[k] for k in tables})
     functions = (tren._shade_surface_function, tren._shade_combine_function)
     levels = _resolves(scene)
+    surface, combine = flags
+    paths = (f"surface_bwd textures "
+             f"{k4.table_path(scene.textures, k4.TEXTURE_SHARED_BYTES)}",
+             f"combine_bwd env {k4.table_path(scene.env, k4.ENV_SHARED_BYTES)}")
+    launched = {"surface_bwd material": "material" in surface,
+                "combine_bwd lights": "lights" in combine,
+                paths[0]: "textures" in surface, paths[1]: "env" in combine}
+    want = {k: levels * launched.get(k, False) for k in variants}
     if pairs != [functions] * levels or any(
             got[k] != levels for k in ("surface", "combine", "surface_bwd",
                                        "combine_bwd")) or \
-            got["gather"] or got["scatter"] or \
-            variants != {v: levels for v in VARIANTS}:
-        raise AssertionError(f"the material-and-light step shaded on "
-                             f"{pairs} with launches {got}, variants "
-                             f"{variants}")
+            got["gather"] or got["scatter"] or variants != want:
+        raise AssertionError(f"the {what} shaded on {pairs} with launches "
+                             f"{got}, variants {variants}, expected {want}")
     loss, grads, _ = value_and_grad()
     kept = []
     with _eager_shading_by_lane(kept):
         plain_loss, plain_grads, by_lane = value_and_grad(kept)
     sync()
-    # each material and light table's gradient summed over its reads'
-    # lanes in float64
+    own_terms = {}
+    if per_entry:
+        # the same step with the backward on the plain versions, on the
+        # kernels' own forward
+        with _plain_backward(own_terms):
+            _, own_grads, _ = value_and_grad()
+        sync()
+    # each scene table's gradient summed over its reads' lanes in float64
     sums = {k: torch.zeros(params[k].shape, dtype=torch.float64,
                            device=params[k].device)
-            for k in MATERIAL_STEP_KEYS[2:]}
+            for k in keys if k not in ("sdf", "voxel_colors")}
+    terms = {k: v.clone() for k, v in sums.items()}
     for (f, rows, fold), g in zip(kept, by_lane):
         if f in sums and g is not None:
             sums[f] += fold(g.double())
+            terms[f] += fold(g.double().abs())
     del kept, by_lane
     rel = abs(float(loss) - float(plain_loss)) / abs(float(plain_loss))
     if not rel < FIT_LOSS_RTOL:
-        raise AssertionError(f"the material-and-light step's loss "
-                             f"{float(loss)} against the plain route's "
-                             f"{float(plain_loss)}")
+        raise AssertionError(f"the {what}'s loss {float(loss)} against the "
+                             f"plain route's {float(plain_loss)}")
     by_key = {}
-    for k in MATERIAL_STEP_KEYS:
+    for k in keys:
         b = grads[k].double().cpu().numpy().ravel()
         if k in sums:
             a = sums[k].cpu().numpy().ravel()
@@ -2298,61 +2491,87 @@ def _material_step(dev, card, sync, zero_counts, counts, timed, sdf_step):
         ok = np.isfinite(b).all() and (top > 0 or not b.any())
         if k in ("sdf", "voxel_colors"):
             cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
-            ok = ok and 1 - cos < FIT_COS_TOL and diff < FIT_DIFF_TOL
+            # the SDF's gradient through a bf16 corner table: one bf16 step
+            tol = BF16_DIFF_TOL if k == "sdf" and scene.volumes.corners.dtype \
+                == torch.bfloat16 else FIT_DIFF_TOL
+            ok = ok and 1 - cos < FIT_COS_TOL and diff < tol
             by_key[k] = dict(one_minus_cos=1 - cos, diff_over_max=diff)
         else:
             # the float64 sum against autograd's f32 one of the same route
             # shows that every read of the table was kept
             own = float(np.abs(a - f32).max() / top) if top > 0 else 0.0
-            ok = ok and diff <= SCATTER_RTOL and own <= 1e-3
+            ok = ok and own <= 1e-3
             by_key[k] = dict(diff_over_max=diff,
                              plain_f32_sum_diff_over_max=own)
-        print(f"  material-and-light step, grad {k} against the plain "
-              f"route: {by_key[k]}", flush=True)
+            if per_entry:
+                bound = SCATTER_RTOL * terms[k].cpu().numpy().ravel() \
+                    + TABLE_ATOL
+                c = own_grads[k].double().cpu().numpy().ravel()
+                own_bound = SCATTER_RTOL * own_terms[k].double().cpu() \
+                    .numpy().ravel() + TABLE_ATOL
+                over = float((np.abs(c - b) / own_bound).max())
+                ok = ok and over <= 1.0 and top > 0
+                by_key[k].update(
+                    diff_over_entry_bound=float(
+                        (np.abs(a - b) / bound).max()),
+                    cos=float(a @ b / (np.linalg.norm(a)
+                                       * np.linalg.norm(b))),
+                    plain_backward_over_entry_bound=over)
+            else:
+                ok = ok and diff <= SCATTER_RTOL
+        print(f"  {what}, grad {k} against the plain route: {by_key[k]}",
+              flush=True)
         if not ok:
-            raise AssertionError(f"the material-and-light step's {k} "
-                                 f"gradient disagrees with the plain route's")
-    del grads, plain_grads, sums
+            raise AssertionError(f"the {what}'s {k} gradient disagrees with "
+                                 f"the plain route's")
+    del grads, plain_grads, sums, terms, own_terms
+    if per_entry:
+        del own_grads
+
+    def plain_ms():
+        sync()
+        t0 = time.perf_counter()
+        plain_step()
+        sync()
+        return (time.perf_counter() - t0) * 1e3
 
     zero_counts()
-    meds = [statistics.median(timed(run, 3)[0]) * 1e3
-            for run in (plain_step, kernel_step, kernel_step, plain_step)]
-    print(f"config6 material-and-light fit step on {card}, the plain pair "
-          f"under autograd against the shade kernels' variants, medians of "
-          f"3 in the order old, new, new, old: "
+    meds = [plain_ms(), statistics.median(timed(kernel_step, 3)[0]) * 1e3,
+            statistics.median(timed(kernel_step, 3)[0]) * 1e3, plain_ms()]
+    print(f"{what} on {card}, the plain pair under autograd against the "
+          f"shade kernels' variants in the order old, new, new, old "
+          f"(kernels: medians of 3; plain: one step): "
           f"{', '.join(f'{t:.2f}' for t in meds)} ms", flush=True)
-    beside = [statistics.median(timed(run, 3)[0]) * 1e3
-              for run in (sdf_step, kernel_step, kernel_step, sdf_step)]
-    print(f"config6 fit step on {card}, the SDF and the colours against the "
-          f"material-and-light step on the kernels, medians of 3 in the "
-          f"order sdf, material, material, sdf: "
-          f"{', '.join(f'{t:.2f}' for t in beside)} ms", flush=True)
     routes = {"plain": dict(ms=[meds[0], meds[3]]),
-              "kernels": dict(ms=[meds[1], meds[2]]),
-              "sdf_colour_step": dict(ms=[beside[0], beside[3]]),
-              "kernels_beside_it": dict(ms=[beside[1], beside[2]])}
+              "kernels": dict(ms=[meds[1], meds[2]])}
+    if sdf_step is not None:
+        beside = [statistics.median(timed(run, 3)[0]) * 1e3
+                  for run in (sdf_step, kernel_step, kernel_step, sdf_step)]
+        print(f"config6 fit step on {card}, the SDF and the colours against "
+              f"the {what} on the kernels, medians of 3 in the order sdf, "
+              f"tables, tables, sdf: "
+              f"{', '.join(f'{t:.2f}' for t in beside)} ms", flush=True)
+        routes.update(sdf_colour_step=dict(ms=[beside[0], beside[3]]),
+                      kernels_beside_it=dict(ms=[beside[1], beside[2]]))
     for tag, run in (("plain", plain_step), ("kernels", kernel_step)):
+        # the peak of the profiled step
         sync()
         torch.cuda.reset_peak_memory_stats()
-        run()
-        sync()
-        routes[tag]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         prof = _profile(run, sync, statistics.median(routes[tag]["ms"]),
-                        what=f"one config6 material-and-light fit step "
-                             f"({tag})")
+                        what=f"one {what} ({tag})")
+        routes[tag]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         if prof is not None:
             routes[tag].update(busy_ms=prof["busy_ms"],
                                device_ops=prof["device_ops"],
                                device_records=prof["device_records"])
-        print(f"config6 material-and-light fit step on {card}, {tag}: "
-              f"median {statistics.median(routes[tag]['ms']):.2f} ms, peak "
+        print(f"{what} on {card}, {tag}: median "
+              f"{statistics.median(routes[tag]['ms']):.2f} ms, peak "
               f"max_memory_allocated {routes[tag]['peak_gib']:.2f} GiB"
               + ("" if prof is None else
                  f", device busy {prof['busy_ms']:.1f} ms in "
                  f"{prof['device_ops']} device ops"), flush=True)
     zero_counts()
-    held = _variant_calls(kernel_step, levels,
-                          "config6 material-and-light fit step")
+    held = _variant_calls(kernel_step, levels, what, *flags)
     return dict(routes=routes, launches=variants, grads=by_key, held=held,
                 loss=float(loss), plain_loss=float(plain_loss))
 
@@ -5599,7 +5818,10 @@ def main():
     from vrt_torch.render.renderer import (DIR_SHADOW_TMAX, RADIANCE_TMAX,
                                            march_scene, march_scene_any_hit,
                                            render_image, resolve_scene)
-    from vrt_torch.scenes import flagship_scene, shading_scene
+    from vrt_torch.render.gpuscene import (LIGHT_FIELDS, MATERIAL_FIELDS,
+                                           TEXTURE_FIELDS)
+    from vrt_torch.scenes import (flagship_scene, padded_sampled_tables,
+                                  shading_scene)
 
     # ---- 1. device ---------------------------------------------------------
     started = time.perf_counter()
@@ -5666,6 +5888,10 @@ def main():
             ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
              "backward (shade.cu)", "surface_bwd_kernel", 256),
             ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
+             "backward (shade.cu)", "surface_bwd_textures_kernel", 256),
+            ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
+             "backward (shade.cu)", "combine_bwd_env_kernel", 256),
+            ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
              "backward (shade.cu)", "surface_resident_kernel", 256),
             ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
              "backward (shade.cu)", "surface_voxels_kernel", 256),
@@ -5709,7 +5935,8 @@ def main():
         # material and light variants (the last template argument)
         split = kernel in ("surface_bwd_merged_kernel", "surface_bwd_kernel",
                            "combine_bwd_resident_kernel",
-                           "combine_bwd_kernel")
+                           "combine_bwd_kernel", "surface_bwd_textures_kernel",
+                           "combine_bwd_env_kernel")
         for last, key in (((False, kernel), (True, f"{kernel} variant"))
                           if split else ((None, kernel),)):
             got = ptxas_usage(logs[log], kernel, last)
@@ -5878,11 +6105,32 @@ def main():
     for tag, colors in (("lights", False), ("lights_colors", True)):
         busy = shading_scene(6, 2, 1, colors=colors, device=dev)
         variant_runs[tag] = _variant_calls(
-            _material_light_loss(busy, SMALL_W, SMALL_H, mode),
+            _table_loss(busy, SMALL_W, SMALL_H, mode,
+                        MATERIAL_FIELDS + LIGHT_FIELDS),
             _resolves(busy), f"480x270 textured frame with 2 point lights "
             f"and a spot light, colours={colors}, a loss in the materials "
             f"and the lights")
         del busy
+    # the texture and env variants: a loss on the lights frame
+    # differentiated in the texture scale, the textures and the env, with
+    # the scene's own tables (their sums in shared memory) and with the
+    # same texels in a [3,256,256,3] stack and the env at twice its side
+    # (past the shared budgets: f32 atomics into the tables)
+    table_runs = {}
+    lights_scene = shading_scene(6, 2, 1, device=dev)
+    for path, busy in (("shared", lights_scene),
+                       ("global", padded_sampled_tables(lights_scene))):
+        table_runs[path] = _variant_calls(
+            _table_loss(busy, SMALL_W, SMALL_H, mode, TEXTURE_FIELDS),
+            _resolves(busy), f"480x270 textured frame with 2 point lights "
+            f"and a spot light, a loss in the texture scale, the textures "
+            f"and the env ({path} table sums)", ("textures",), ("env",))
+        took = [v["paths"] for v in table_runs[path].values()]
+        if any(t[path] != _resolves(busy) for t in took):
+            raise AssertionError(f"the {path} tables' variant launches took "
+                                 f"the paths {took}")
+        del busy
+    del lights_scene
 
     # K3: every launch of one 1080p frame on the candidate-loop path, of one
     # config6 fit step with eager shading (the colour rows: the default step
@@ -5956,6 +6204,7 @@ def main():
         _reset(k4.LAUNCHES)
         _reset(k4.PATH_LAUNCHES)
         _reset(k4.VARIANT_LAUNCHES)
+        _reset(k4.TABLE_LAUNCHES)
         _reset(kp.LAUNCHES)
         _reset(kp.BWD_LAUNCHES)
         _reset(ka.LAUNCHES)
@@ -6423,12 +6672,35 @@ def main():
                 f"expected {FIT_STEP_OPS[0]} to {FIT_STEP_OPS[-1]}")
     # the step with the material constants and the directional light among
     # the parameters, on the kernels' variants and on the plain pair
-    mat_step = _material_step(dev, card, sync, zero_counts, counts, timed,
-                              one_step)
+    mat_step = _table_step(
+        dev, card, sync, zero_counts, counts, timed,
+        flagship_scene(6, use_colors=True, device=dev), FIT_CAMS,
+        MATERIAL_STEP_KEYS, "config6 material-and-light fit step",
+        (("material",), ("lights",)), sdf_step=one_step)
     paired["fit_materials"] = mat_step["routes"]["plain"]["ms"][:1] \
         + mat_step["routes"]["kernels"]["ms"] \
         + mat_step["routes"]["plain"]["ms"][1:]
     del fit_scene, step, params, state, targets
+    # the step with the texture scale, the textures and the env among the
+    # parameters, beside the material constants and the sun's strength:
+    # the shading scene (three seeded textures, an 8x8 env, 2 point lights
+    # and a spot light; chebyshev, a bf16 corner table) at 1080p from its
+    # own camera, on the kernels' texture and env variants (each in one
+    # launch with the material and the light variant) and on the plain
+    # pair, one plain step on each side
+    tex_scene = shading_scene(6, 2, 1, colors=False, accel_mode="chebyshev",
+                              march_dtype=torch.bfloat16, device=dev)
+    tex_step = _table_step(
+        dev, card, sync, zero_counts, counts, timed, tex_scene,
+        [dict(position=tex_scene.cam_pos, rotation=tex_scene.cam_rot,
+              fov=tex_scene.cam_fov)],
+        TEXTURE_STEP_KEYS, "1080p texture-and-env fit step",
+        (("material", "textures"), ("lights", "env")),
+        per_entry=True)
+    paired["fit_textures"] = tex_step["routes"]["plain"]["ms"][:1] \
+        + tex_step["routes"]["kernels"]["ms"] \
+        + tex_step["routes"]["plain"]["ms"][1:]
+    del tex_scene
 
     # the card's fit loss and gradients against vrt's (CPU) on the fixture
     from vrt_torch.diff.fit import (_value_and_grad, graft_and_rebuild,
@@ -7131,6 +7403,78 @@ def main():
                "_shade_lit's lights, vrt/shade/brdf.py:32-66 and "
                "vrt/shade/lights.py:8-17, in the lights and k under "
                "jax.value_and_grad of the fit step: no Pallas kernel)"))),
+        *({"name": name, "route": "cuda",
+           "source": "vrt_torch/csrc/shade.cu",
+           "replaces": replaces,
+           "path": path,
+           # the variant's launches in phase 8's one texture-and-env step
+           # on the kernels, counted from 0 just before it (each a launch
+           # of both this variant and the material or light variant)
+           "launches": tex_step["launches"][f"{alone} shared"]
+           + tex_step["launches"][f"{alone} global"],
+           "launches_by_path": {
+               "texture_and_env_step_shared":
+               tex_step["launches"][f"{alone} shared"],
+               "texture_and_env_step_global":
+               tex_step["launches"][f"{alone} global"]},
+           "max_abs_err": max(tex_step["held"][key]["max_abs_err"],
+                              *(r[alone]["max_abs_err"]
+                                for r in table_runs.values())),
+           "max_abs_err_is": "the largest difference of any per-ray output "
+                             "over the launch's largest |plain| cotangent, "
+                             "or of a table over its largest |plain sum| "
+                             "(summed in float64)",
+           "by_output": tex_step["held"][key]["by_output"],
+           "tolerance": {"rtol": SHADE_GRAD_RTOL,
+                         "atol_of_max": SHADE_GRAD_ATOL,
+                         "lanes_beyond": SHADE_GRAD_LANE_BUDGET,
+                         "table_rtol_of_its_abs_terms": SCATTER_RTOL,
+                         "table_atol": TABLE_ATOL,
+                         "step_table_rtol_of_max": SCATTER_RTOL},
+           # the 1080p texture-and-env step, its three launches (with the
+           # material or light variant in the same launch)
+           "ms": sum(tex_step["held"][key]["ms"]),
+           "per_launch_ms": tex_step["held"][key]["ms"],
+           "default_instantiation_ms": sum(tex_step["held"][key]
+                                           ["default_ms"]),
+           "plain_ms": sum(tex_step["held"][key]["plain_ms"]),
+           **bound_keys(tex_step["held"][key]["bound"]),
+           "library_ms": None,
+           "by_path": {f"480x270_{p}_alone": {
+               "ms": sum(r[alone]["ms"]),
+               "default_instantiation_ms": sum(r[alone]["default_ms"]),
+               "plain_ms": sum(r[alone]["plain_ms"]),
+               **bound_keys(r[alone]["bound"])}
+               for p, r in table_runs.items()},
+           "ptxas": {k: ptxas.get(k) for k in (kernel, f"{kernel} variant")}}
+          for name, key, alone, kernel, path, replaces in (
+              ("K4 shade surface backward (texture variant)",
+               "surface_bwd material+textures", "surface_bwd textures",
+               "surface_bwd_textures_kernel",
+               "ShadeSurface's backward where the texture scale or the "
+               "textures need a gradient: shade_surface_backward_cuda(..., "
+               "textures=True), surface_bwd_textures_kernel (the merged "
+               "kernel's body with kTex; kMat with the material variant); "
+               "the textures' sums in shared memory where the stack fits "
+               "TEXTURE_SHARED_BYTES, else f32 atomics",
+               "vrt/render/renderer.py:346-356 and :459-461 (XLA's "
+               "transpose of _shade_lit's and _shade_unlit_mode's texture "
+               "samples, vrt/shade/texture.py:25-103, in tex_scale and the "
+               "textures under jax.value_and_grad of the fit step: no "
+               "Pallas kernel)"),
+              ("K4 shade combine backward (env variant)",
+               "combine_bwd lights+env", "combine_bwd env",
+               "combine_bwd_env_kernel",
+               "ShadeCombine's backward where the env needs a gradient: "
+               "shade_combine_backward_cuda(..., env=True), "
+               "combine_bwd_env_kernel (the resident kernel's body with "
+               "kEnv; kGrad with the light variant); the cube's sums in "
+               "shared memory where it fits ENV_SHARED_BYTES, else f32 "
+               "atomics",
+               "vrt/render/renderer.py:528 (XLA's transpose of the miss "
+               "lanes' sample_env, vrt/shade/texture.py:106-152, in the env "
+               "under jax.value_and_grad of the fit step: no Pallas "
+               "kernel)"))),
         {"name": "Adam update", "route": "cuda",
          "source": "vrt_torch/csrc/optim.cu",
          "replaces": "vrt/diff/fit.py:168-169 and :217-226 "
@@ -7243,6 +7587,8 @@ def main():
         "plain_stages_under_torch_compile": compiled,
         "config6_step_old_new": sides,
         "config6_material_light_step": {k: mat_step[k] for k in (
+            "routes", "launches", "grads", "loss", "plain_loss")},
+        "texture_and_env_step": {k: tex_step[k] for k in (
             "routes", "launches", "grads", "loss", "plain_loss")},
         "engine": eng["numbers"],
         "config3": c3["numbers"],

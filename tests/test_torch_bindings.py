@@ -113,3 +113,96 @@ def test_prototype_parser_reads_each_kind():
     assert _ctype("long long rays") is ctypes.c_longlong
     assert _ctype("int planes") is ctypes.c_int
     assert _ctype("float neg_lr") is ctypes.c_float
+
+
+def _source_ints(source: str, names) -> dict:
+    """The values of the ``constexpr int`` constants ``names`` of
+    ``csrc/<source>`` (integer expressions)."""
+    text = (_build.CSRC / source).read_text()
+    out = {}
+    for name in names:
+        m = re.search(rf"\b{name} = ([0-9 *]+)[,;]", text)
+        assert m is not None, name
+        out[name] = eval(m.group(1))
+    return out
+
+
+def test_shade_backward_slots_are_the_sources():
+    """The pointer and int slots each shade backward entry point reads
+    (``kSurfaceBwdPtrs``, ``kSurfaceBwdInts``, ``kCombineBwdPtrs``,
+    ``kCombineBwdInts`` in ``csrc/shade.cu``: the texture and env variants'
+    accumulators and flags last) are the ones ``kernels.shade.SLOTS`` holds
+    every launch to, and the texture and env variants' shared-memory
+    budgets are the wrapper's (``table_path``)."""
+    from vrt_torch.kernels import shade as k4
+
+    got = _source_ints("shade.cu", (
+        "kSurfaceBwdPtrs", "kSurfaceBwdInts", "kCombineBwdPtrs",
+        "kCombineBwdInts", "kTexSharedBytes", "kEnvSharedBytes"))
+    assert k4.SLOTS == {
+        "vrt_shade_surface_bwd": (got["kSurfaceBwdPtrs"],
+                                  got["kSurfaceBwdInts"]),
+        "vrt_shade_combine_bwd": (got["kCombineBwdPtrs"],
+                                  got["kCombineBwdInts"])}
+    assert k4.TEXTURE_SHARED_BYTES == got["kTexSharedBytes"]
+    assert k4.ENV_SHARED_BYTES == got["kEnvSharedBytes"]
+
+
+@pytest.mark.parametrize("fn", ["vrt_shade_surface_bwd",
+                                "vrt_shade_combine_bwd"])
+@pytest.mark.parametrize("short", ["ptrs", "ints"])
+def test_shade_launch_refuses_short_slots(monkeypatch, fn, short):
+    """A launch of a shade backward entry point with a pointer or an int
+    too few raises before anything is built or launched."""
+    from vrt_torch.kernels import shade as k4
+
+    monkeypatch.setattr(k4, "build", lambda: pytest.fail("built"))
+    ptrs, ints = k4.SLOTS[fn]
+    if short == "ptrs":
+        ptrs -= 1
+    else:
+        ints -= 1
+    with pytest.raises(ValueError, match="reads"):
+        k4._launch(fn, "surface_bwd", [None] * ptrs, [0] * ints, 1, None)
+
+
+def test_shade_launch_counts_variants_and_table_paths(monkeypatch):
+    """``_launch`` against a library that runs nothing: each launch counted
+    once in ``LAUNCHES``, a material or light variant's again in
+    ``VARIANT_LAUNCHES`` and a texture or env variant's in
+    ``TABLE_LAUNCHES`` by its path; the pointers and ints reach the entry
+    point as passed."""
+    from vrt_torch.kernels import shade as k4
+
+    seen = []
+
+    class Library:
+        def __getattr__(self, name):
+            return lambda ptrs, ints, rays, stream: seen.append(
+                (name, len(ptrs), list(ints), rays)) or 0
+
+    monkeypatch.setattr(k4, "build", lambda: "")
+    monkeypatch.setattr(k4, "_lib", Library())
+    monkeypatch.setattr(k4, "_stream", lambda dev: None)
+    for name in ("LAUNCHES", "PATH_LAUNCHES", "VARIANT_LAUNCHES",
+                 "TABLE_LAUNCHES"):
+        monkeypatch.setattr(k4, name, dict.fromkeys(getattr(k4, name), 0))
+    ptrs, ints = k4.SLOTS["vrt_shade_surface_bwd"]
+    k4._launch("vrt_shade_surface_bwd", "surface_bwd", [None] * ptrs,
+               [0] * ints, 7, None, variants=("material",),
+               table="textures global")
+    ptrs, ints = k4.SLOTS["vrt_shade_combine_bwd"]
+    k4._launch("vrt_shade_combine_bwd", "combine_bwd", [None] * ptrs,
+               list(range(ints)), 7, None, "v4", ("lights",), "env shared")
+    assert seen == [("vrt_shade_surface_bwd", 40, [0] * 17, 7),
+                    ("vrt_shade_combine_bwd", 52, list(range(8)), 7)]
+    assert k4.LAUNCHES == dict(surface=0, combine=0, surface_bwd=1,
+                               combine_bwd=1)
+    assert {k: v for k, v in k4.PATH_LAUNCHES.items() if v} == {
+        "combine_bwd v4": 1}
+    assert k4.VARIANT_LAUNCHES == {"surface_bwd material": 1,
+                                   "combine_bwd lights": 1}
+    assert k4.TABLE_LAUNCHES == {"surface_bwd textures shared": 0,
+                                 "surface_bwd textures global": 1,
+                                 "combine_bwd env shared": 1,
+                                 "combine_bwd env global": 0}

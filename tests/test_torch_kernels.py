@@ -2595,6 +2595,133 @@ def test_shade_variants_match_plain_on_card(case, old_design):
         "surface_bwd material": 1, "combine_bwd lights": 1}
 
 
+# the levels whose texture and env variants are held: lit and textured,
+# lit with per-voxel colours (no albedo texture), unlit and textured, and
+# untextured (no texture variant runs: the texture tables' cotangents are
+# zeros)
+TABLE_VARIANT_CASES = ("lit-textured-lights", "lit-colours-f32",
+                       "unlit-textured", "untextured")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("combined", [False, True],
+                         ids=["alone", "with-material-and-lights"])
+@pytest.mark.parametrize("path", ["shared", "global"])
+@pytest.mark.parametrize("case", TABLE_VARIANT_CASES)
+def test_texture_and_env_variants_match_plain_on_card(case, path, combined):
+    """The surface backward's texture variant and the combine backward's
+    env variant (``combined``: in one launch with the material and the
+    light variant) against their plain versions on a 480x270 level, on the
+    shared-memory path (the shading scene's own tables) and on the global
+    path (``scenes.padded_sampled_tables``: the same texels in a
+    [3,256,256,3] stack, the env at twice its side), the record's miss
+    lanes NaN before the combine backward: the per-ray cotangents within
+    the per-ray tolerances and bit-equal to the launch without the
+    variant on the same inputs; each entry of ``tex_scale``, ``textures``
+    and ``env`` (and with ``combined`` of the material and light tables)
+    within ``SCATTER_RTOL`` * its lanes' |terms| (``_assert_table_close``);
+    the padding of the stack exactly zero; one launch of each, counted on
+    its path."""
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.render.gpuscene import LIGHT_FIELDS, MATERIAL_FIELDS
+    from vrt_torch.scenes import padded_sampled_tables
+
+    dev = _card()
+    lv = _shade_grad_level(case, dev)
+    scene, mode, hit = lv["scene"], lv["mode"], lv["hit"]
+    sizes = scene.tex_sizes.tolist()
+    if path == "global":
+        scene = padded_sampled_tables(scene)
+    assert k4.table_path(scene.textures, k4.TEXTURE_SHARED_BYTES) == path
+    assert k4.table_path(scene.env, k4.ENV_SHARED_BYTES) == path
+    g_k = torch.where(hit.hit, lv["g_rgb"][:, 1], 0.0) \
+        if combined and mode.lit else None
+    surf_kw = dict(g_k=g_k, material=True) if combined else {}
+    args = (scene, lv["o"], lv["d"], lv["t"], lv["n_obj"], hit, lv["inst"],
+            mode, mode.lit, lv["cots"])
+    tables, variants = dict(k4.TABLE_LAUNCHES), dict(k4.VARIANT_LAUNCHES)
+    got = k4.shade_surface_backward_cuda(*args, textures=True, **surf_kw)
+    base = k4.shade_surface_backward_cuda(*args, **surf_kw)
+    want = tren.shade_surface_backward_reference(
+        *args, acc_dtype=torch.float64, textures=True, **surf_kw)
+    torch.cuda.synchronize()
+    _assert_grads_close(("o_w", "d_w", "t", "n_obj"), got[:4], want[:4])
+    for name, a, b in zip(("o_w", "d_w", "t", "n_obj"), got, base):
+        assert torch.equal(a, b), name
+    if scene.use_voxel_colors:
+        scale = want[4].abs().max().item()
+        assert (got[4].double() - want[4]).abs().max().item() \
+            <= SCATTER_RTOL * scale
+    if combined:
+        for name, a, b, terms in zip(MATERIAL_FIELDS, got[5:9], want[5:9],
+                                     want[9]):
+            _assert_table_close(a, b.reshape(a.shape),
+                                terms.reshape(a.shape), name)
+    terms = want[-1]
+    _assert_table_close(got[-2], want[-3], terms[0], "tex_scale")
+    _assert_table_close(got[-1], want[-2], terms[1], "textures")
+    for i, (h, w) in enumerate(sizes):
+        assert not bool(got[-1][i, h:].any()), i
+        assert not bool(got[-1][i, :, w:].any()), i
+    assert bool(got[-1].any()) == mode.textured
+    assert bool(got[-2].any()) == mode.textured
+
+    rec = k4.shade_surface_cuda(*args[:9], mode.lit)
+    miss = ~hit.hit
+    for f in ("albedo", "shadow_origin", "n_w", "roughness", "metallic",
+              "k", "refl_dir"):
+        x = getattr(rec, f)
+        if x is not None:
+            x[miss] = float("nan")
+    comb_kw = dict(lights=True) if combined else {}
+    cargs = (scene, rec, lv["d"], lv["n_obj"], hit.hit, lv["unlit"],
+             lv["refl"], lv["blocked"], mode, lv["g_rgb"])
+    got = k4.shade_combine_backward_cuda(*cargs, env=True, **comb_kw)
+    base = k4.shade_combine_backward_cuda(*cargs, **comb_kw)
+    want = tren.shade_combine_backward_reference(*cargs, env=True,
+                                                 **comb_kw)
+    torch.cuda.synchronize()
+    names = COMBINE_NAMES + (("k",) if combined else ())
+    _assert_grads_close(names, got[:len(names)], want[:len(names)])
+    for name, a, b in zip(names, got, base):
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert torch.equal(a, b), name
+    if combined:
+        for name, a, b, t in zip(LIGHT_FIELDS, got[10], want[10], want[11]):
+            _assert_table_close(a, b, t, name)
+    _assert_table_close(got[-1], want[-2], want[-1], "env")
+    assert bool(got[-1].any())
+    assert {k: k4.TABLE_LAUNCHES[k] - tables[k] for k in tables} == {
+        k: int(k == f"combine_bwd env {path}" or mode.textured
+               and k == f"surface_bwd textures {path}") for k in tables}
+    assert {k: k4.VARIANT_LAUNCHES[k] - variants[k] for k in variants} == {
+        k: 2 * combined for k in variants}
+
+
+@pytest.mark.gpu
+def test_texture_and_env_variants_refuse_the_first_design_on_card():
+    """The first designs of the two backward kernels have no texture or
+    env variant: asking for one raises, and nothing is launched."""
+    from vrt_torch.kernels import shade as k4
+
+    dev = _card()
+    lv = _shade_grad_level("lit-textured-lights", dev)
+    scene, mode, hit = lv["scene"], lv["mode"], lv["hit"]
+    args = (scene, lv["o"], lv["d"], lv["t"], lv["n_obj"], hit, lv["inst"],
+            mode, mode.lit, lv["cots"])
+    rec = k4.shade_surface_cuda(*args[:9], mode.lit)
+    before = dict(k4.LAUNCHES)
+    with pytest.raises(ValueError, match="first design"):
+        k4.shade_surface_backward_cuda(*args, _old_design=True, textures=True)
+    with pytest.raises(ValueError, match="first design"):
+        k4.shade_combine_backward_cuda(
+            scene, rec, lv["d"], lv["n_obj"], hit.hit, lv["unlit"],
+            lv["refl"], lv["blocked"], mode, lv["g_rgb"], _old_design=True,
+            env=True)
+    assert k4.LAUNCHES == before
+
+
 @pytest.mark.gpu
 def test_fit_through_materials_and_lights_on_card():
     """The 64x36 fit of ``tests/fixtures/fit_flagship_r4_colors_64x36.npz``

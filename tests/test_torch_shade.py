@@ -16,14 +16,15 @@ against vrt on the CPU, and the rule that picks between the stage pairs.
 - the surface record's shapes and dtypes per flag set;
 - the dispatch rule ``shade_stages``, one case per tensor the level reads:
   a graph through the rays, t, n_obj, the corner table, a colour table, a
-  material constant or a light takes the Function pair, a graph through
-  the texture scale, a texture, the env or an instance transform the plain
-  pair, no graph the plain pair on CPU tensors and the kernel pair on CUDA
+  material constant, a light, the texture scale, a texture or the env takes
+  the Function pair, a graph through an instance transform the plain pair,
+  no graph the plain pair on CPU tensors and the kernel pair on CUDA
   tensors; another device raises;
 - a fit step of the SDF and the colours runs the Function pair, so does
   one that also optimizes the material constants and the lights, and one
-  that also optimizes the env the plain pair; all give the loss and
-  gradients of the 64x36 fixture ``chip_smoke.py`` holds the card against;
+  that also optimizes an instance's position the plain pair; all give the
+  loss and gradients of the 64x36 fixture ``chip_smoke.py`` holds the card
+  against;
 - a tracer that overrides only ``march`` and ``resolve`` renders the default
   tracer's frame through the stages;
 - the wrappers raise on a wrong device, dtype or shape.
@@ -51,7 +52,8 @@ from vrt_torch.march.types import MarchHit, SurfaceRecord
 from vrt_torch.render import renderer as tren
 from vrt_torch.render.camera import camera_rays
 from vrt_torch.render.gpuscene import (LIGHT_FIELDS, MATERIAL_FIELDS,
-                                       RenderMode, scene_from_numpy)
+                                       TEXTURE_FIELDS, RenderMode,
+                                       scene_from_numpy)
 from vrt_torch.scenes import flagship_scene
 
 torch.set_num_threads(2)
@@ -289,17 +291,17 @@ def test_shaded_fields_are_scene_tensors():
         + tren._PLAIN_GRAD_FIELDS
     assert set(tren._KERNEL_GRAD_FIELDS) == {
         "voxel_colors", "voxel_color_corners", *MATERIAL_FIELDS,
-        *LIGHT_FIELDS}
-    assert set(tren._PLAIN_GRAD_FIELDS) == {
-        "tex_scale", "textures", "env", "inst_pos", "inst_rot", "inst_scale"}
+        *LIGHT_FIELDS, *TEXTURE_FIELDS}
+    assert set(TEXTURE_FIELDS) == {"tex_scale", "textures", "env"}
+    assert tren._PLAIN_GRAD_FIELDS == ("inst_pos", "inst_rot", "inst_scale")
 
 
 @pytest.mark.parametrize("name", GRAD_CARRIERS)
 def test_dispatch_takes_autograd_for(name):
     """CUDA tensors with a graph through ``name``: the Function pair for the
     rays, ``t``, ``n_obj``, the corner table, the colour tables, the
-    material constants and the lights, the plain pair for the rest (the
-    texture scale, the textures, the env, the instance transforms); the
+    material constants, the lights, the texture scale, the textures and
+    the env, the plain pair for the rest (the instance transforms); the
     same tensors without a graph being recorded: the kernels.  On CPU
     tensors the same rule, with the plain pair where no graph is
     recorded."""
@@ -312,10 +314,12 @@ def test_dispatch_takes_autograd_for(name):
 
 
 def test_dispatch_plain_fields_win():
-    """A graph through the rays and through the env at once: the plain
-    pair, the only one that returns the env's gradient."""
-    level = _fake_level(grad_on="env")
+    """A graph through the rays, the textures and an instance's position
+    at once: the plain pair, the only one that returns the instance
+    transforms' gradient."""
+    level = _fake_level(grad_on="inst_pos")
     level[1].requires_grad = True
+    level[0].textures.requires_grad = True
     assert tren.shade_stages(*level) == PLAIN
 
 
@@ -379,13 +383,13 @@ def _fit_through(params, want_pair):
 
 
 def test_fit_step_takes_the_plain_pair_and_the_fixture():
-    """A fit step that also optimizes the env (whose gradient the kernels
-    do not return) shades every level on the plain pair under autograd, and
-    its loss and SDF and colour gradients are the fixture's (vrt's, on the
-    CPU)."""
-    grads = _fit_through(("env",), PLAIN)
-    # the miss lanes read the env
-    assert bool(grads["env"].any())
+    """A fit step that also optimizes the instances' positions (whose
+    gradient the kernels do not return) shades every level on the plain
+    pair under autograd, and its loss and SDF and colour gradients are the
+    fixture's (vrt's, on the CPU)."""
+    grads = _fit_through(("inst_pos",), PLAIN)
+    # the hit points move with the instances
+    assert bool(grads["inst_pos"].any())
 
 
 def test_fit_step_through_materials_and_lights_takes_the_function_pair():

@@ -298,22 +298,26 @@ def test_record_packs_for_the_functions():
 
 
 def test_functions_and_backward_wrappers_refuse():
-    """``ShadeSurface`` takes the scene's own colour table and material
-    constants and no others, ``ShadeCombine`` the scene's own light tables;
-    the backward wrappers refuse CPU tensors without launching."""
+    """``ShadeSurface`` takes the scene's own colour table, material
+    constants, texture scale and textures and no others, ``ShadeCombine``
+    the scene's own light tables and env; the backward wrappers refuse CPU
+    tensors without launching."""
     scene = shading_scene(3, 1, 1, colors=True, device="cpu")
     mode = RenderMode()
     o, d, hit, inst, t, n_obj, unlit = _level_inputs(scene, mode, 8, 6)
-    materials = [scene.tint, scene.roughness, scene.metallic, scene.k]
+    materials = [scene.tint, scene.roughness, scene.metallic, scene.k,
+                 scene.tex_scale, scene.textures]
     with pytest.raises(ValueError, match="colour table"):
         k4.ShadeSurface.apply(o, d, t, n_obj,
                               scene.voxel_color_corners.clone(), *materials,
                               scene, hit, inst, mode, True, True)
-    with pytest.raises(ValueError, match="roughness"):
-        k4.ShadeSurface.apply(o, d, t, n_obj, scene.voxel_color_corners,
-                              materials[0], materials[1].clone(),
-                              *materials[2:], scene, hit, inst, mode, True,
-                              True)
+    for i, name in ((1, "roughness"), (5, "textures")):
+        tables = list(materials)
+        tables[i] = tables[i].clone()
+        with pytest.raises(ValueError, match=name):
+            k4.ShadeSurface.apply(o, d, t, n_obj, scene.voxel_color_corners,
+                                  *tables, scene, hit, inst, mode, True,
+                                  True)
     rec = tren.shade_surface_reference(scene, o, d, t, n_obj, hit, inst,
                                        mode, False, False)
     lights = [getattr(scene, f) for f in k4.LIGHT_FIELDS]
@@ -321,7 +325,13 @@ def test_functions_and_backward_wrappers_refuse():
     with pytest.raises(ValueError, match="point_att_l"):
         k4.ShadeCombine.apply(
             *(getattr(rec, f) for f in RECORD_GRAD_FIELDS), d, n_obj, None,
-            rec.k, *lights, scene, hit.hit, unlit, None, mode)
+            rec.k, *lights, scene.env, scene, hit.hit, unlit, None, mode)
+    lights[4] = scene.point_att_l
+    with pytest.raises(ValueError, match="env"):
+        k4.ShadeCombine.apply(
+            *(getattr(rec, f) for f in RECORD_GRAD_FIELDS), d, n_obj, None,
+            rec.k, *lights, scene.env.clone(), scene, hit.hit, unlit, None,
+            mode)
     before = dict(k4.LAUNCHES)
     cots = [None] * len(RECORD_GRAD_FIELDS)
     with pytest.raises(ValueError, match="CUDA"):

@@ -67,11 +67,12 @@ a 1080p frame of its scene (one wave of the card and more), the resident
 kernel forced beside them, and with ``--parent DIR`` the surface launches
 of the flagship's 1080p frame, a config6 fit step, config3's and config7's
 frames and a config4 fit step on this checkout's kernels and on the
-``shade.cu`` of the checkout under DIR in turns; for ``shade_bwd --parent DIR`` the two backward kernels'
-launches of the config6 and config4 fit steps on this checkout's
-``shade.cu`` and on the parent's, parent, this, this, parent, bit-equal,
-and of the material-and-light step (this checkout's variants beside the
-parent's default launch).  Each build must give the default
+``shade.cu`` of the checkout under DIR in turns; for ``shade_bwd --parent
+DIR`` the four shade kernels' launches (forward and backward) of the 1080p
+flagship frame, the config6 and config4 fit steps and the
+material-and-light step (the backward's material and light variants) on
+this checkout's ``shade.cu`` and on the parent's, parent, this, this,
+parent, bit-equal.  Each build must give the default
 build's result (the marches
 field by field, the per-ray cotangents bit for bit (every output of the
 combine backward and of the fused resolve), the forward pair on
@@ -508,68 +509,73 @@ def _against_parent(parent, card, dev, config4_step):
         del calls
 
 
-def _bwd_against_parent(parent, card, *steps):
-    """The backward launches of the shade kernels (the surface's and the
-    combine's) of each fit step of ``steps`` (config6's, config4's and
-    config6's with the materials and the lights), each on this checkout's
-    ``shade.cu`` and on the parent checkout ``parent``'s in the order
-    parent, this, this, parent: the default launches (every launch of the
-    first two steps) must give the parent's outputs bit for bit (the
-    surface's per-ray cotangents; its colour table's atomics add in an
-    order of their own); the
-    launches of the third are this checkout's variants, timed beside the
-    parent's default launch on the same inputs."""
+def _shade_against_parent(parent, card, steps):
+    """Every launch of the four shade kernels (the surface's and the
+    combine's, forward and backward) in each run of ``steps`` ((what, run):
+    the 1080p flagship frame, config6's and config4's fit steps and
+    config6's step with the materials and the lights), each on this
+    checkout's ``shade.cu`` and on the parent checkout ``parent``'s in the
+    order parent, this, this, parent, with the same arguments: every launch
+    must give the parent's outputs bit for bit (a surface record on the
+    lanes it writes, the combine's rgb, the surface backward's per-ray
+    cotangents, every per-ray cotangent of the combine backward; the
+    tables' atomics add in an order of their own).  These are the default
+    instantiations and the material and light variants, which this
+    checkout's texture and env variants leave as they were."""
     from pathlib import Path
 
     k4.build()
     csrc = Path(parent).resolve() / "vrt_torch" / "csrc"
     old, _ = _build.build(str(csrc / "shade.cu"), k4.NVCC_FLAGS,
                           headers=[str(csrc / "scene.cuh")])
-    for name in ("vrt_shade_surface_bwd", "vrt_shade_combine_bwd"):
+    for name in ("vrt_shade_surface", "vrt_shade_combine",
+                 "vrt_shade_surface_bwd", "vrt_shade_combine_bwd"):
         fn, ref = getattr(old, name), getattr(k4._lib, name)
         fn.argtypes, fn.restype = ref.argtypes, ref.restype
     new = k4._lib
-    for what, make in zip(("the config6 fit step's",
-                           "the config4 fit step's",
-                           "the config6 material-and-light step's"), steps):
-        variants = what.startswith("the config6 material")
-        for stage in ("surface", "combine"):
-            name = f"shade_{stage}_backward_cuda"
-            calls = _recorded(k4, name, make())
+
+    def per_ray(got, want, args, label):
+        # the combine backward's nine cotangents and the light variant's k
+        return _same_bits(got[:10], want[:10], args, label)
+
+    for what, run in steps:
+        for name, same in (("shade_surface_cuda", _same_record),
+                           ("shade_combine_cuda", _same_rgb),
+                           ("shade_surface_backward_cuda", _same_cotangents),
+                           ("shade_combine_backward_cuda", per_ray)):
+            calls = _recorded(k4, name, run)
+            if not calls:
+                continue
             per = []
             try:
                 for args, kwargs, got in calls:
-                    def on(lib, kw):
-                        def run():
+                    def on(lib):
+                        def launch():
                             k4._lib = lib
-                            return getattr(k4, name)(*args, **kw)
-                        return run
+                            return getattr(k4, name)(*args, **kwargs)
+                        return launch
 
-                    # the parent knows no variant: its default launch
-                    if not variants:
-                        outs = [on(lib, kwargs)() for lib in (old, new)]
-                        torch.cuda.synchronize()
-                        same = _same_cotangents if stage == "surface" \
-                            else _same_bits
-                        if not same(outs[1], outs[0], args, "parent"):
-                            raise AssertionError(
-                                f"{what} {stage} backward: this checkout's "
-                                f"default launch differs from the parent's")
-                    per.append([device_ms(on(lib, {} if lib is old
-                                             else kwargs), REPS)
+                    outs = [on(lib)() for lib in (old, new)]
+                    torch.cuda.synchronize()
+                    if not same(outs[1], outs[0], args, "parent"):
+                        raise AssertionError(
+                            f"{what} {name}: this checkout's launch "
+                            f"{kwargs} differs from the parent's")
+                    del outs
+                    per.append([device_ms(on(lib), REPS)
                                 for lib in (old, new, new, old)])
             finally:
                 k4._lib = new
             olds = sum(t[0] + t[3] for t in per) / 2
             news = sum(t[1] + t[2] for t in per) / 2
-            print(f"{what} shade {stage} backward launches on {card}: the "
-                  f"parent checkout's default, this checkout's "
-                  f"{'variant' if variants else 'default'}, this, the "
+            flags = sorted({k for _, kw, _ in calls for k, v in kw.items()
+                            if v is True})
+            print(f"{what} {name} launches {flags or 'default'} on {card}: "
+                  f"the parent checkout's, this checkout's, this, the "
                   f"parent's "
                   f"{'; '.join(', '.join(f'{x:.4f}' for x in t) for t in per)}"
                   f" ms; sums {olds:.4f} against {news:.4f} ms "
-                  f"({news / olds - 1:+.1%})"
-                  + ("" if variants else "; every output bit-equal"),
+                  f"({news / olds - 1:+.1%}); every output bit-equal",
                   flush=True)
             del calls
 
@@ -935,8 +941,14 @@ def main(argv=None) -> int:
         return lambda: step(params, state, targets)
 
     if "shade_bwd" in probes and parent is not None:
-        _bwd_against_parent(parent, card, config6_step, config4_step,
-                            material_step)
+        flagship = flagship_scene(7, "chebyshev", torch.bfloat16, device=dev)
+        _shade_against_parent(parent, card, (
+            ("the 1080p interp frame's", lambda: render_image(
+                flagship, 1920, 1080, RenderMode())),
+            ("the config6 fit step's", config6_step()),
+            ("the config4 fit step's", config4_step()),
+            ("the config6 material-and-light step's", material_step())))
+        del flagship
 
     if "surface_voxels" in probes:
         from vrt_torch.apps import bench

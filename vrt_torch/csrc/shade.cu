@@ -1517,6 +1517,27 @@ __global__ void __launch_bounds__(kFwdThreads, kCombineMinBlocks)
 // they add to a launch: a lane's few more products and the reductions; the
 // bytes are the default's but for the record's k.
 //
+// Two more variants differentiate the sampled tables, each a kernel of its
+// own (surface_bwd_textures_kernel, combine_bwd_env_kernel: the merged and
+// the resident kernel's bodies with kTex / kEnv), so that the default
+// launches' kernels compile as they did; either joins its kernel's other
+// variant in one launch.  The surface backward's texture variant (a
+// textured mode) adds, per hit lane, the texture scale's cotangents of its
+// volume (uv = pos / scale, through every sample the lane takes: the
+// albedo's unless per-voxel colours replace it, the roughness / metallic
+// and the normal texture's) into the block's partial sums beside the
+// material's, and the cotangents of its 12 taps a sample (the bilinear
+// weights times the sample's cotangent) into the stacked textures; the
+// combine backward's env variant adds a miss lane's four taps into the env
+// cube.  Those tables are larger (the shading scene's 3 x 16 x 16 texels, a
+// cube of 6 x E x E) and a tap is a gather of its own, so a warp's lanes
+// that name one texel are summed first (add_texel: merge_peers over the
+// lanes active there) and the lowest adds the sum into the block's partial
+// sums in shared memory, added into the table once at the block's end,
+// where the table fits kTexSharedBytes / kEnvSharedBytes, else into the
+// table's f32 accumulator by f32 atomics; the padding of the stacked
+// textures gets no tap.
+//
 // Where the derivative has a kink, the kernels take vrt's side (JAX's; the
 // plain stages take it through core/kinks.py):
 //   max(x, c) / min(x, c) / clip(x, lo, hi): x's cotangent whole where x is
@@ -1533,6 +1554,95 @@ __global__ void __launch_bounds__(kFwdThreads, kCombineMinBlocks)
 // there, and the traces the level spawns march it with t_max = -inf): both
 // kernels branch on the hit flag, never multiply by it, and write exact zeros
 // into every cotangent of a lane that has none, whatever its record holds.
+
+// Sums v over the lanes of `mask` (the lanes that call it together) that
+// hold the same key (a segmented tree reduction: log2 of the largest
+// group's size rounds of N shuffles), into the group's lowest lane, which
+// is returned.  Lanes whose keys are all distinct skip the rounds.
+template <int N>
+__device__ __forceinline__ int merge_peers_in(unsigned mask, long long key,
+                                              float (&v)[N], int lane) {
+  const unsigned peers = __match_any_sync(mask, key);
+  unsigned above = peers & (0xfffffffeu << lane);
+  unsigned rank = __popc(peers & ((1u << lane) - 1u));
+  while (__any_sync(mask, above != 0u)) {
+    const int next = __ffs(above);              // 1 + the next peer's lane
+    for (int e = 0; e < N; ++e) {
+      const float o = __shfl_sync(mask, v[e], next > 0 ? next - 1 : lane);
+      if (next > 0) v[e] += o;
+    }
+    // a peer at an odd rank has handed its sum down: drop it
+    above &= ~__ballot_sync(mask, rank & 1u);
+    rank >>= 1;
+  }
+  return __ffs(peers) - 1;
+}
+
+// merge_peers_in over the whole warp: every lane of the warp calls it.
+template <int N>
+__device__ __forceinline__ int merge_peers(long long key, float (&v)[N],
+                                           int lane) {
+  return merge_peers_in(kFullWarp, key, v, lane);
+}
+
+// Where a texture or env variant adds a sampled table's cotangents: the
+// block's partial sums in shared memory (`sh`, added into the table once at
+// the block's end), or, where the table does not fit (`sh` null), the
+// table's f32 accumulator itself.
+struct TableSink {
+  float* sh;
+  float* global;
+};
+
+// One tap's cotangents (g, 3 floats) of the texel `texel` (its row in the
+// table viewed as [rows, 3]) into the sink: the lanes of the warp that make
+// this call together (divergent code: the lanes active here) and name one
+// texel summed first, the group's lowest lane adding each nonzero sum with
+// one f32 atomic.
+__device__ __forceinline__ void add_texel(const TableSink& sink,
+                                          long long texel, float g0,
+                                          float g1, float g2) {
+  const int lane = threadIdx.x & 31;
+  float v[3] = {g0, g1, g2};
+  if (merge_peers_in(__activemask(), texel, v, lane) == lane) {
+    float* dst = (sink.sh != nullptr ? sink.sh : sink.global) + 3 * texel;
+    for (int c = 0; c < 3; ++c)
+      if (v[c] != 0.0f) atomicAdd(dst + c, v[c]);
+  }
+}
+
+// The cotangents of a bilinear sample's four taps (00, 10, 01, 11 at the
+// texels t00 ... t11) for the sample's cotangent g, in autograd's order of
+// the lerps (top * (1 - fv) + bot * fv, top = c00 * (1 - fu) + c10 * fu),
+// into the sink.  Taps that fall on one texel (a wrap or a clamp) add.  A
+// lane whose g is zero (the env lookup of a bounce lane whose mirror term
+// is off: most lanes of a deeper level) adds nothing and skips the merges.
+__device__ __forceinline__ void add_taps(const TableSink& sink,
+                                         const float g[3], float fu, float fv,
+                                         long long t00, long long t10,
+                                         long long t01, long long t11) {
+  if (g[0] == 0.0f && g[1] == 0.0f && g[2] == 0.0f) return;
+  float top[3], bot[3];
+  for (int c = 0; c < 3; ++c) {
+    top[c] = g[c] * (1.0f - fv);
+    bot[c] = g[c] * fv;
+  }
+  const float gu = 1.0f - fu;
+  add_texel(sink, t00, top[0] * gu, top[1] * gu, top[2] * gu);
+  add_texel(sink, t10, top[0] * fu, top[1] * fu, top[2] * fu);
+  add_texel(sink, t01, bot[0] * gu, bot[1] * gu, bot[2] * gu);
+  add_texel(sink, t11, bot[0] * fu, bot[1] * fu, bot[2] * fu);
+}
+
+// A block's partial sums of `words` floats (the material variant's, the
+// texture and env variants' on the shared path) into the table's
+// accumulator, one f32 atomic a nonzero word.  Every thread of the block
+// calls it, after a __syncthreads.
+__device__ __forceinline__ void flush_table(float* global, const float* sh,
+                                            long long words) {
+  for (long long w = threadIdx.x; w < words; w += blockDim.x)
+    if (sh[w] != 0.0f) atomicAdd(global + w, sh[w]);
+}
 
 __device__ __forceinline__ float dabs(float x) {   // d|x|/dx, jnp.abs'
   return x >= 0.0f ? 1.0f : -1.0f;
@@ -1796,8 +1906,13 @@ __device__ void light_at_bwd(const float* row, bool spot, const float so[3],
 
 // The reverse of sample_env: the direction's cotangent (added) for that of
 // the sample.  The face, the texels and the floors are piecewise constant.
+// kEnv (the env variant) also adds the four taps' cotangents into `sink`
+// (the env cube viewed as [6 E E, 3]; at a seam the clamped taps fall on
+// one texel and add).
+template <bool kEnv = false>
 __device__ void sample_env_bwd(const float* env, int e, const float d_w[3],
-                               const float g[3], float g_d[3]) {
+                               const float g[3], float g_d[3],
+                               const TableSink* sink = nullptr) {
   const float x = d_w[0], y = d_w[2], z = d_w[1];
   const float ax = fabsf(x), ay = fabsf(y), az = fabsf(z);
   const bool x_major = ax >= ay && ax >= az;
@@ -1863,6 +1978,11 @@ __device__ void sample_env_bwd(const float* env, int e, const float d_w[3],
   const int axis[3] = {0, 2, 1};
   for (int a = 0; a < 3; ++a)
     g_d[axis[a]] += (g_ma * dma[a] + g_sc * dsc[a]) + g_tc * dtc[a];
+  if (kEnv) {
+    const long long t0 = static_cast<long long>(face) * e * e;
+    add_taps(*sink, g, fu, fv, t0 + va * e + ua, t0 + va * e + ub,
+             t0 + vb * e + ua, t0 + vb * e + ub);
+  }
 }
 
 struct CombineBwdParams {
@@ -1883,7 +2003,17 @@ struct CombineBwdParams {
   // (129 floats), added into
   float* g_k;
   float* g_lights;
+  // the env variant's: the env cube's accumulator [6,E,E,3] f32, added
+  // into; with env_shared a block sums its cotangents in shared memory
+  // first
+  float* g_env;
+  int env_shared;
 };
+
+// the largest env cube whose cotangents a block sums in shared memory
+// (kernels/shade.py ENV_SHARED_BYTES); a larger one takes f32 atomics into
+// its accumulator
+constexpr int kEnvSharedBytes = 16 * 1024;
 
 // The light tables flattened one after another at their padded shapes
 // (kernels/shade.py light_shapes): where each begins.
@@ -1961,10 +2091,12 @@ __device__ __forceinline__ void zero_light_grads(const Lights& l,
 }
 
 
-template <bool kGrad>
+template <bool kGrad, bool kEnv = false>
 __device__ __forceinline__ void combine_bwd_ray(const CombineBwdParams& q,
                                                 const float* sh, long long i,
-                                                float* sh_g);
+                                                float* sh_g,
+                                                const TableSink* env =
+                                                    nullptr);
 
 // kGrad: the light variant, every lane through the redesign's per-lane code
 // (combine_bwd_ray), each lane's light cotangents added into the block's
@@ -2269,15 +2401,17 @@ __device__ __forceinline__ void combine_bwd_lit(
 // else the lit lane's from the record the caller read.  ``converged`` (the
 // light variant's vector path, where every lane of the warp calls it) runs
 // the lit lane's code on every lane of the warp, each lane's own where it
-// is a lit hit.
-template <bool kGrad>
+// is a lit hit.  kEnv (the env variant) adds a miss lane's env taps into
+// `env`.
+template <bool kGrad, bool kEnv = false>
 __device__ __forceinline__ void combine_bwd_branch(
     const CombineParams& p, const float* sh, bool hit, bool unlit,
     const float d_w[3], const float g[3], const CombineRecord& r,
-    CombineGrads& o, float* sh_g, float& g_k, bool converged) {
+    CombineGrads& o, float* sh_g, float& g_k, bool converged,
+    const TableSink* env = nullptr) {
   if (kGrad && converged) {
     if (!hit) {
-      sample_env_bwd(p.env, p.env_side, d_w, g, o.d);
+      sample_env_bwd<kEnv>(p.env, p.env_side, d_w, g, o.d, env);
     } else if (unlit) {
       for (int c = 0; c < 3; ++c) o.nobj[c] = g[c];
     } else if (!p.lit) {
@@ -2289,7 +2423,7 @@ __device__ __forceinline__ void combine_bwd_branch(
     return;
   }
   if (!hit) {
-    sample_env_bwd(p.env, p.env_side, d_w, g, o.d);
+    sample_env_bwd<kEnv>(p.env, p.env_side, d_w, g, o.d, env);
   } else if (unlit) {
     for (int c = 0; c < 3; ++c) o.nobj[c] = g[c];
   } else if (!p.lit) {
@@ -2322,10 +2456,11 @@ __device__ __forceinline__ void combine_bwd_store(const CombineBwdParams& q,
 // tensor is off a 16-byte boundary) on its own words; a miss lane reads its
 // direction, its radiance's cotangent and its flag alone.  The light
 // variant's sums go into sh_g lane by lane.
-template <bool kGrad>
+template <bool kGrad, bool kEnv>
 __device__ __forceinline__ void combine_bwd_ray(const CombineBwdParams& q,
                                                 const float* sh, long long i,
-                                                float* sh_g) {
+                                                float* sh_g,
+                                                const TableSink* env) {
   const CombineParams& p = q.f;
   float d_w[3], g[3];
   load3(p.d_w, i, d_w);
@@ -2345,8 +2480,8 @@ __device__ __forceinline__ void combine_bwd_ray(const CombineBwdParams& q,
       load3(p.refl_dir, i, r.rdir);
     }
   }
-  combine_bwd_branch<kGrad>(p, sh, hit, unlit, d_w, g, r, o, sh_g, g_k,
-                            false);
+  combine_bwd_branch<kGrad, kEnv>(p, sh, hit, unlit, d_w, g, r, o, sh_g,
+                                  g_k, false, env);
   combine_bwd_store<kGrad>(q, i, o, g_k);
 }
 
@@ -2381,12 +2516,14 @@ __device__ __forceinline__ void combine_bwd_fetch(const CombineBwdParams& q,
 // lane of the warp calls it.  The light variant's warp with a hit runs its
 // lit lanes' code on every lane together and sums each light's cotangents
 // over the warp by a shuffle tree.
-template <bool kGrad>
+template <bool kGrad, bool kEnv = false>
 __device__ __forceinline__ void combine_bwd_warp(const CombineBwdParams& q,
                                                  const float* sh,
                                                  const CombineBwdFetch& f,
                                                  float* stage, long long w0,
-                                                 int lane, float* sh_g) {
+                                                 int lane, float* sh_g,
+                                                 const TableSink* env =
+                                                     nullptr) {
   const CombineParams& p = q.f;
   const long long i = w0 + lane;
   const bool hit = f.flags[0][lane] != 0;
@@ -2402,7 +2539,7 @@ __device__ __forceinline__ void combine_bwd_warp(const CombineBwdParams& q,
   float g_k = 0.0f;
   if (!__any_sync(kFullWarp, hit)) {
     // a warp of miss lanes: the env lookup's backward, zeros elsewhere
-    sample_env_bwd(p.env, p.env_side, d_w, g, o.d);
+    sample_env_bwd<kEnv>(p.env, p.env_side, d_w, g, o.d, env);
     if (q.g_d_w != nullptr) warp_store3(stage, q.g_d_w, w0, lane, o.d);
     const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
     float* const zeroed[6] = {q.g_albedo, q.g_shadow_origin, q.g_n_w,
@@ -2427,8 +2564,8 @@ __device__ __forceinline__ void combine_bwd_warp(const CombineBwdParams& q,
       load3(p.refl_dir, i, r.rdir);
     }
   }
-  combine_bwd_branch<kGrad>(p, sh, hit, unlit, d_w, g, r, o, sh_g, g_k,
-                            true);
+  combine_bwd_branch<kGrad, kEnv>(p, sh, hit, unlit, d_w, g, r, o, sh_g,
+                                  g_k, true, env);
   combine_bwd_store<kGrad>(q, i, o, g_k);
 }
 
@@ -2436,10 +2573,13 @@ __device__ __forceinline__ void combine_bwd_warp(const CombineBwdParams& q,
 // every whole warp (the launcher checks the alignment), else the scalar
 // path for every lane.  kGrad is the light variant: its blocks keep their
 // partial sums of the lights' cotangents in shared memory beside the
-// staged lights and add them into the tables once, at the end.
-template <bool kVec, bool kGrad>
-__global__ void __launch_bounds__(kCombineBwdThreads, kCombineBwdMinBlocks)
-    combine_bwd_resident_kernel(const CombineBwdParams q) {
+// staged lights and add them into the tables once, at the end.  kEnv is the
+// env variant: a miss lane's four env taps go into the block's partial sums
+// of the env cube after those (env_shared) or into its accumulator, a
+// warp's lanes on one texel merged first.
+template <bool kVec, bool kGrad, bool kEnv>
+__device__ __forceinline__ void combine_bwd_resident_body(
+    const CombineBwdParams& q) {
   const CombineParams& p = q.f;
   extern __shared__ float sh[];
   __shared__ __align__(16) float stages[kCombineBwdWarps][96];
@@ -2458,9 +2598,17 @@ __global__ void __launch_bounds__(kCombineBwdThreads, kCombineBwdMinBlocks)
                                 buf[k]);
     __pipeline_commit();
   }
+  // the env variant's partial sums after the staged lights and the light
+  // variant's sums
+  float* sh_env = sh + light_words(p.lights) * (kGrad ? 2 : 1);
+  const long long env_words = 18ll * p.env_side * p.env_side;
   if (p.lit) stage_lights(sh, p.lights);
   if (kGrad) zero_light_grads(p.lights, sh_g);
+  if (kEnv && q.env_shared)
+    for (long long w = threadIdx.x; w < env_words; w += blockDim.x)
+      sh_env[w] = 0.0f;
   __syncthreads();
+  const TableSink env{kEnv && q.env_shared ? sh_env : nullptr, q.g_env};
 
   for (int round = 0; base < p.rays; base += stride, ++round) {
     // every lane is done with the buffer of the round before: fetch the
@@ -2477,12 +2625,32 @@ __global__ void __launch_bounds__(kCombineBwdThreads, kCombineBwdMinBlocks)
     const long long w0 = base + 32 * warp;
     const long long i = w0 + lane;
     if (kVec && w0 + 32 <= p.rays)
-      combine_bwd_warp<kGrad>(q, sh, buf[round % kCombineBwdFetchDepth],
-                              stage, w0, lane, sh_g);
+      combine_bwd_warp<kGrad, kEnv>(q, sh,
+                                    buf[round % kCombineBwdFetchDepth],
+                                    stage, w0, lane, sh_g, &env);
     else if (i < p.rays)
-      combine_bwd_ray<kGrad>(q, sh, i, sh_g);
+      combine_bwd_ray<kGrad, kEnv>(q, sh, i, sh_g, &env);
   }
   if (kGrad) flush_light_grads(q, sh_g);
+  if (kEnv && q.env_shared) {
+    __syncthreads();
+    flush_table(q.g_env, sh_env, env_words);
+  }
+}
+
+template <bool kVec, bool kGrad>
+__global__ void __launch_bounds__(kCombineBwdThreads, kCombineBwdMinBlocks)
+    combine_bwd_resident_kernel(const CombineBwdParams q) {
+  combine_bwd_resident_body<kVec, kGrad, false>(q);
+}
+
+// The env variant of the resident kernel (kGrad as the light variant's):
+// instantiated apart, so that the default launches' kernels stay as they
+// were.
+template <bool kVec, bool kGrad>
+__global__ void __launch_bounds__(kCombineBwdThreads, kCombineBwdMinBlocks)
+    combine_bwd_env_kernel(const CombineBwdParams q) {
+  combine_bwd_resident_body<kVec, kGrad, true>(q);
 }
 
 struct SurfaceBwdParams {
@@ -2505,9 +2673,21 @@ struct SurfaceBwdParams {
   // metallic, k, a word of padding), added into
   const float* g_k;
   float* g_mat;
+  // the texture variant's: the accumulators of the texture scale [V,2] and
+  // of the stacked textures [T,TH,TW,3], f32, added into; with tex_shared
+  // a block sums the textures' cotangents in shared memory first
+  float* g_tex_scale;
+  float* g_textures;
+  int tex_shared;
 };
 
 constexpr int kMatRow = 8;
+// the texture variant's partial sums of the texture scale, a volume
+constexpr int kTexScaleRow = 2;
+// the largest stacked texture table whose cotangents a block sums in shared
+// memory (kernels/shade.py TEXTURE_SHARED_BYTES); a larger one takes f32
+// atomics into its accumulator
+constexpr int kTexSharedBytes = 32 * 1024;
 
 // The material variant's per-lane cotangents (tint's 3, roughness,
 // metallic, k) of volume vol into the block's partial sums sh_mat, one
@@ -2525,18 +2705,22 @@ __device__ __forceinline__ void add_material(float* sh_mat, int vol,
 __device__ __forceinline__ void flush_material(const SurfaceBwdParams& q,
                                                const float* sh_mat) {
   __syncthreads();
-  for (int w = threadIdx.x; w < q.f.mat.count * kMatRow; w += blockDim.x)
-    if (sh_mat[w] != 0.0f) atomicAdd(q.g_mat + w, sh_mat[w]);
+  flush_table(q.g_mat, sh_mat, q.f.mat.count * kMatRow);
 }
 
 
 // The reverse of sample_wrap: the cotangents of (u_, v_) for that of the
-// sample.
+// sample.  kTex (the texture variant) also adds the four taps' cotangents
+// into `sink` (the stacked textures viewed as [T TH TW, 3]; taps that wrap
+// onto one texel add).
+template <bool kTex = false>
 __device__ __forceinline__ void sample_wrap_bwd(const SurfaceParams& p,
                                                 const int* sizes, int id,
                                                 float u_, float v_,
                                                 const float g[3], float& g_u,
-                                                float& g_v) {
+                                                float& g_v,
+                                                const TableSink* sink =
+                                                    nullptr) {
   const int hi = sizes[2 * id], wi = sizes[2 * id + 1];
   const float h = static_cast<float>(hi), w = static_cast<float>(wi);
   const float u = u_ * w - 0.5f;
@@ -2564,16 +2748,25 @@ __device__ __forceinline__ void sample_wrap_bwd(const SurfaceParams& p,
   }
   g_u = g_fu * w;
   g_v = g_fv * h;
+  if (kTex) {
+    const long long t0 = static_cast<long long>(id) * p.tex_h * p.tex_w;
+    add_taps(*sink, g, fu, fv, t0 + va * p.tex_w + ua,
+             t0 + va * p.tex_w + ub, t0 + vb * p.tex_w + ua,
+             t0 + vb * p.tex_w + ub);
+  }
 }
 
 // The reverse of tri_sample<kNormal>: adds the cotangents of the object
 // position and of the blend weights for that of the sample; with kNormal
 // the three samples also return their values (the forward's tx, ty, tz).
-template <bool kNormal>
+// kTex (the texture variant) also adds the texture scale's cotangents into
+// g_scale (uv = pos / scale, so d uv / d scale = -uv / scale) and the 12
+// taps' into `sink`.
+template <bool kNormal, bool kTex = false>
 __device__ __forceinline__ void tri_sample_bwd(
     const SurfaceParams& p, const int* sizes, int id, const float scale[2],
     const float pos[3], const float b[3], const float g[3], float g_pos[3],
-    float g_b[3]) {
+    float g_b[3], const TableSink* sink = nullptr, float* g_scale = nullptr) {
   float s[3][3];
   const float uv[3][2] = {{pos[2] / scale[0], pos[1] / scale[1]},
                           {pos[0] / scale[0], pos[2] / scale[1]},
@@ -2588,9 +2781,14 @@ __device__ __forceinline__ void tri_sample_bwd(
     }
     g_b[a] += dot3(g, s[a]);
     float g_u, g_v;
-    sample_wrap_bwd(p, sizes, id, uv[a][0], uv[a][1], gs, g_u, g_v);
+    sample_wrap_bwd<kTex>(p, sizes, id, uv[a][0], uv[a][1], gs, g_u, g_v,
+                          sink);
     g_pos[axes[a][0]] += g_u / scale[0];
     g_pos[axes[a][1]] += g_v / scale[1];
+    if (kTex) {
+      g_scale[0] -= (g_u * uv[a][0]) / scale[0];
+      g_scale[1] -= (g_v * uv[a][1]) / scale[1];
+    }
   }
 }
 
@@ -2754,13 +2952,15 @@ __device__ __forceinline__ void add_colors(const SurfaceParams& p, float* acc,
 // colour row and the row's 24 cotangents.  The two kernels below share it.
 // kMat (the material variant) also adds the cotangents of the lane's
 // material constants into gm (tint's 3, roughness, metallic, k) and names
-// its volume in ``vol``.
-template <bool kLit, bool kTextured, bool kColors, bool kMat>
+// its volume in ``vol``; kTex (the texture variant, kTextured only) adds
+// the texture scale's into g_scale and every texture tap's into `tex`.
+template <bool kLit, bool kTextured, bool kColors, bool kMat,
+          bool kTex = false>
 __device__ __forceinline__ void surface_bwd_hit(
     const SurfaceBwdParams& q, const float* sh_inst, const float* sh_vol,
     const int* sh_sizes, long long i, float g_o[3], float g_d[3],
     float g_n[3], float& g_t, long long& row, float grow[24], float gm[6],
-    int& vol_out) {
+    int& vol_out, const TableSink* tex = nullptr, float* g_scale = nullptr) {
   const SurfaceParams& p = q.f;
   float o_w[3], d_w[3], n_obj[3];
   for (int c = 0; c < 3; ++c) {
@@ -2850,8 +3050,9 @@ __device__ __forceinline__ void surface_bwd_hit(
           gm[3] += pass_clip(xr, 0.0f, 1.0f, g_rough) * rm[0];
           gm[4] += pass_clip(xm, 0.0f, 1.0f, g_metal) * rm[1];
         }
-        tri_sample_bwd<false>(p, sh_sizes, __float_as_int(mat[13]), tscale,
-                              obj_pos, b, g_rm, g_pos, g_b);
+        tri_sample_bwd<false, kTex>(p, sh_sizes, __float_as_int(mat[13]),
+                                    tscale, obj_pos, b, g_rm, g_pos, g_b, tex,
+                                    g_scale);
       }
       // n_shade = rotate_from_x(n_obj, zxy(unit(tn)))
       float g_zxy[3] = {0.0f, 0.0f, 0.0f};
@@ -2859,13 +3060,15 @@ __device__ __forceinline__ void surface_bwd_hit(
       const float g_u[3] = {g_zxy[1], g_zxy[2], g_zxy[0]};
       float g_tn[3];
       safe_unit_bwd(tn, g_u, g_tn);
-      tri_sample_bwd<true>(p, sh_sizes, __float_as_int(mat[12]), tscale,
-                           obj_pos, b, g_tn, g_pos, g_b);
+      tri_sample_bwd<true, kTex>(p, sh_sizes, __float_as_int(mat[12]),
+                                 tscale, obj_pos, b, g_tn, g_pos, g_b, tex,
+                                 g_scale);
       if (!kColors) {
         float g_tex[3];
         for (int c = 0; c < 3; ++c) g_tex[c] = g_alb[c] * mat[3 + c];
-        tri_sample_bwd<false>(p, sh_sizes, __float_as_int(mat[11]), tscale,
-                              obj_pos, b, g_tex, g_pos, g_b);
+        tri_sample_bwd<false, kTex>(p, sh_sizes, __float_as_int(mat[11]),
+                                    tscale, obj_pos, b, g_tex, g_pos, g_b,
+                                    tex, g_scale);
         if (kMat) {
           // albedo = tint tex
           float tex[3];
@@ -2909,8 +3112,9 @@ __device__ __forceinline__ void surface_bwd_hit(
     float g_pos[3] = {0.0f, 0.0f, 0.0f}, g_b[3] = {0.0f, 0.0f, 0.0f};
     float g_tex[3];
     for (int c = 0; c < 3; ++c) g_tex[c] = g_alb[c] * mat[3 + c];
-    tri_sample_bwd<false>(p, sh_sizes, __float_as_int(mat[11]), mat + 9,
-                          obj_pos, b, g_tex, g_pos, g_b);
+    tri_sample_bwd<false, kTex>(p, sh_sizes, __float_as_int(mat[11]),
+                                mat + 9, obj_pos, b, g_tex, g_pos, g_b, tex,
+                                g_scale);
     if (kMat) {
       float tex[3];
       tri_sample<false>(p, sh_sizes, __float_as_int(mat[11]), mat + 9,
@@ -3008,29 +3212,6 @@ __global__ void __launch_bounds__(kThreads) surface_bwd_kernel(
 }
 
 
-// Sums v over the lanes of the warp that hold the same key (a segmented tree
-// reduction: log2 of the largest group's size rounds of N shuffles), into
-// the group's lowest lane, which is returned; every lane of the warp calls
-// it.  Lanes whose keys are all distinct skip the rounds.
-template <int N>
-__device__ __forceinline__ int merge_peers(long long key, float (&v)[N],
-                                           int lane) {
-  const unsigned peers = __match_any_sync(kFullWarp, key);
-  unsigned above = peers & (0xfffffffeu << lane);
-  unsigned rank = __popc(peers & ((1u << lane) - 1u));
-  while (__any_sync(kFullWarp, above != 0u)) {
-    const int next = __ffs(above);              // 1 + the next peer's lane
-    for (int e = 0; e < N; ++e) {
-      const float o = __shfl_sync(kFullWarp, v[e], next > 0 ? next - 1 : lane);
-      if (next > 0) v[e] += o;
-    }
-    // a peer at an odd rank has handed its sum down: drop it
-    above &= ~__ballot_sync(kFullWarp, rank & 1u);
-    rank >>= 1;
-  }
-  return __ffs(peers) - 1;
-}
-
 // The redesign.  Blocks stay resident and stride over the rays (the tables
 // are staged once a block, not once every 256 rays); a warp without a hit
 // writes its zeros in 16-byte stores; the lanes of a warp that hit one
@@ -3045,21 +3226,40 @@ __device__ __forceinline__ int merge_peers(long long key, float (&v)[N],
 // spills cost (vrt_torch.apps.probe_caps times the caps).
 constexpr int kSurfaceBwdMinBlocks = 3;
 
-template <bool kLit, bool kTextured, bool kColors, bool kMat>
-__global__ void __launch_bounds__(kThreads, kSurfaceBwdMinBlocks)
-    surface_bwd_merged_kernel(
-    const SurfaceBwdParams q) {
+// The merged kernel's body; kTex (the texture variant, kTextured only)
+// also keeps a block's partial sums of the texture scale's cotangents by
+// volume beside the material's (a warp's lanes merged by volume first) and
+// adds each texture tap's cotangents into the block's partial sums of the
+// stacked textures in shared memory (tex_shared) or into their accumulator,
+// a warp's lanes on one texel merged first (add_texel).
+template <bool kLit, bool kTextured, bool kColors, bool kMat, bool kTex>
+__device__ __forceinline__ void surface_bwd_merged_body(
+    const SurfaceBwdParams& q) {
   const SurfaceParams& p = q.f;
   extern __shared__ float sh[];
   float* sh_inst = sh;
   float* sh_vol = sh_inst + p.inst.count * kInstRow;
   int* sh_sizes = reinterpret_cast<int*>(sh_vol + p.mat.count * kVolRow);
   float* sh_mat = reinterpret_cast<float*>(sh_sizes + 2 * p.tex_count);
+  float* sh_scale = sh_mat + (kMat ? p.mat.count * kMatRow : 0);
+  float* sh_tex = sh_scale + p.mat.count * kTexScaleRow;
+  const long long tex_words =
+      static_cast<long long>(p.tex_count) * p.tex_h * p.tex_w * 3;
   stage_surface_tables(p, sh_inst, sh_vol, sh_sizes);
   if (kMat)
     for (int w = threadIdx.x; w < p.mat.count * kMatRow; w += blockDim.x)
       sh_mat[w] = 0.0f;
+  if (kTex) {
+    for (int w = threadIdx.x; w < p.mat.count * kTexScaleRow;
+         w += blockDim.x)
+      sh_scale[w] = 0.0f;
+    if (q.tex_shared)
+      for (long long w = threadIdx.x; w < tex_words; w += blockDim.x)
+        sh_tex[w] = 0.0f;
+  }
   __syncthreads();
+  const TableSink tex_sink{kTex && q.tex_shared ? sh_tex : nullptr,
+                           q.g_textures};
 
   const int lane = threadIdx.x & 31;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
@@ -3087,11 +3287,12 @@ __global__ void __launch_bounds__(kThreads, kSurfaceBwdMinBlocks)
     long long row = -1 - lane;                 // distinct: no peers
     float grow[24];
     float gm[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    float g_scale[2] = {0.0f, 0.0f};
     int vol = 0;
     if (is_hit)
-      surface_bwd_hit<kLit, kTextured, kColors, kMat>(
+      surface_bwd_hit<kLit, kTextured, kColors, kMat, kTex>(
           q, sh_inst, sh_vol, sh_sizes, i, g_o, g_d, g_n, g_t, row, grow, gm,
-          vol);
+          vol, &tex_sink, g_scale);
     if (kColors && q.g_colors != nullptr) {
       if (!is_hit)
         for (int e = 0; e < 24; ++e) grow[e] = 0.0f;
@@ -3104,6 +3305,13 @@ __global__ void __launch_bounds__(kThreads, kSurfaceBwdMinBlocks)
       if (merge_peers(key, gm, lane) == lane && is_hit)
         add_material(sh_mat, vol, gm);
     }
+    if (kTex) {
+      const long long key = is_hit ? vol : -1 - lane;
+      if (merge_peers(key, g_scale, lane) == lane && is_hit)
+        for (int c = 0; c < kTexScaleRow; ++c)
+          if (g_scale[c] != 0.0f)
+            atomicAdd(sh_scale + vol * kTexScaleRow + c, g_scale[c]);
+    }
     if (!in) continue;
     if (q.g_o_w != nullptr) {
       store3(q.g_o_w, i, g_o);
@@ -3113,6 +3321,26 @@ __global__ void __launch_bounds__(kThreads, kSurfaceBwdMinBlocks)
     store3(q.g_n_obj, i, g_n);
   }
   if (kMat) flush_material(q, sh_mat);
+  if (kTex) {
+    __syncthreads();
+    flush_table(q.g_tex_scale, sh_scale, p.mat.count * kTexScaleRow);
+    if (q.tex_shared) flush_table(q.g_textures, sh_tex, tex_words);
+  }
+}
+
+template <bool kLit, bool kTextured, bool kColors, bool kMat>
+__global__ void __launch_bounds__(kThreads, kSurfaceBwdMinBlocks)
+    surface_bwd_merged_kernel(const SurfaceBwdParams q) {
+  surface_bwd_merged_body<kLit, kTextured, kColors, kMat, false>(q);
+}
+
+// The texture variant of the merged kernel (kTextured; kMat as the
+// material variant's): instantiated apart, so that the default launches'
+// kernels stay as they were.
+template <bool kLit, bool kColors, bool kMat>
+__global__ void __launch_bounds__(kThreads, kSurfaceBwdMinBlocks)
+    surface_bwd_textures_kernel(const SurfaceBwdParams q) {
+  surface_bwd_merged_body<kLit, true, kColors, kMat, true>(q);
 }
 
 template <typename T>
@@ -3199,18 +3427,20 @@ struct Grid {
 
 // The SMs times the blocks of `kernel` (blocks of `threads`) that an SM holds
 // at once by their threads, registers and static shared memory (a block's
-// staged tables, at most 48 KiB, leave room for 4): the grid of a kernel
-// whose resident blocks stride over the rays.  Each caller keeps it per
-// variant, found on the card of its first launch: the grid only sizes the
+// staged tables, at most 48 KiB, leave room for 4) and `shared` bytes of
+// dynamic shared memory: the grid of a kernel whose resident blocks stride
+// over the rays.  Each caller keeps it per variant, found on the card of
+// its first launch (the texture and env variants, whose shared memory
+// follows their table, find it at each launch): the grid only sizes the
 // stride loop, and any grid gives the same result.
-Grid resident_grid(const void* kernel, int threads) {
+Grid resident_grid(const void* kernel, int threads, size_t shared = 0) {
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      threads, 0);
+                                                      threads, shared);
   return Grid{e, static_cast<long long>(max(per_sm, 1)) * sms};
 }
 
@@ -3221,6 +3451,22 @@ Grid merged_grid() {
           surface_bwd_merged_kernel<kLit, kTextured, kColors, kMat>),
       kThreads);
   return grid;
+}
+
+// One launch of the surface backward's texture variant over `blocks`
+// blocks of rays, on its resident grid for `shared` bytes.
+template <bool kLit, bool kColors, bool kMat>
+cudaError_t surface_bwd_textures(const SurfaceBwdParams& q, long long blocks,
+                                 size_t shared, cudaStream_t s) {
+  const Grid g = resident_grid(
+      reinterpret_cast<const void*>(
+          surface_bwd_textures_kernel<kLit, kColors, kMat>),
+      kThreads, shared);
+  if (g.err != cudaSuccess) return g.err;
+  surface_bwd_textures_kernel<kLit, kColors, kMat>
+      <<<static_cast<unsigned>(std::min(blocks, g.blocks)), kThreads, shared,
+         s>>>(q);
+  return cudaSuccess;
 }
 
 // One launch of a forward kernel's redesign over `rays`: its grid, or its
@@ -3301,17 +3547,37 @@ cudaError_t combine_bwd_resident(const CombineBwdParams& q, size_t shared,
   return cudaSuccess;
 }
 
+// The env variant's launch, on its resident grid for `shared` bytes.
+template <bool kVec, bool kGrad>
+cudaError_t combine_bwd_env(const CombineBwdParams& q, size_t shared,
+                            cudaStream_t s) {
+  const Grid grid = resident_grid(
+      reinterpret_cast<const void*>(combine_bwd_env_kernel<kVec, kGrad>),
+      kCombineBwdThreads, shared);
+  if (grid.err != cudaSuccess) return grid.err;
+  const long long blocks =
+      (q.f.rays + kCombineBwdThreads - 1) / kCombineBwdThreads;
+  combine_bwd_env_kernel<kVec, kGrad>
+      <<<static_cast<unsigned>(std::min(blocks, grid.blocks)),
+         kCombineBwdThreads, shared, s>>>(q);
+  return cudaSuccess;
+}
+
 // A combine backward launch of any design (vrt_shade_combine_bwd's), the
-// light variant's where kGrad.
+// light variant's where kGrad, the env variant's (the redesign alone) where
+// env.
 template <bool kGrad>
 cudaError_t combine_bwd_launch(const CombineBwdParams& q, int design,
-                               size_t shared, cudaStream_t s) {
+                               bool env, size_t shared, cudaStream_t s) {
   if (design == 0) {
     combine_bwd_kernel<kGrad>
         <<<static_cast<unsigned>((q.f.rays + kThreads - 1) / kThreads),
            kThreads, shared, s>>>(q);
     return cudaSuccess;
   }
+  if (env)
+    return design == 2 ? combine_bwd_env<true, kGrad>(q, shared, s)
+                       : combine_bwd_env<false, kGrad>(q, shared, s);
   return design == 2 ? combine_bwd_resident<true, kGrad>(q, shared, s)
                      : combine_bwd_resident<false, kGrad>(q, shared, s);
 }
@@ -3444,17 +3710,27 @@ extern "C" int vrt_shade_combine(const void* const* ptrs, const int* ints,
 // then the material variant's cotangent of the record's k [R] (null for
 // zero) and its accumulator of the material constants, [V,8] f32 (tint 4,
 // roughness, metallic, k, padding; zeroed by the caller and added into;
-// null but in the material variant).  ints: the surface kernel's 14, then
-// the design (0: the first, one thread a ray over the whole grid; 1: the
-// merged kernel, resident blocks striding over the rays), then 1 for the
-// material variant, else 0.  The merged kernel takes outputs on 16-byte
-// boundaries.  Returns cudaGetLastError().
+// null but in the material variant); then the texture variant's
+// accumulators of the texture scale [V,2] and of the stacked textures
+// [T,TH,TW,3], f32 (zeroed by the caller and added into; null but in the
+// texture variant): kSurfaceBwdPtrs pointers.  ints: the surface kernel's
+// 14, then the design (0: the first, one thread a ray over the whole grid;
+// 1: the merged kernel, resident blocks striding over the rays), then 1 for
+// the material variant, else 0, then 1 for the texture variant (the merged
+// kernel in a textured mode alone; with the material variant, one launch
+// of both), else 0: kSurfaceBwdInts ints.  The texture variant sums the
+// textures' cotangents in shared memory where the stack's f32 words fit
+// kTexSharedBytes.  The merged kernel takes outputs on 16-byte boundaries.
+// Returns cudaGetLastError().
+constexpr int kSurfaceBwdPtrs = 40, kSurfaceBwdInts = 17;
 extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
                                      long long rays, void* stream) {
   const int n_inst = ints[0], n_vol = ints[1], n_tex = ints[2];
   const bool lit = ints[7], textured = ints[8], colors = ints[9];
   const bool merged = ints[14] != 0, material = ints[15] != 0;
-  if (n_inst < 1 || n_vol < 1 || ints[6] < 0 || ints[6] > 2)
+  const bool textures = ints[kSurfaceBwdInts - 1] != 0;
+  if (n_inst < 1 || n_vol < 1 || ints[6] < 0 || ints[6] > 2 ||
+      (textures && !(merged && textured)))
     return cudaErrorInvalidValue;
   SurfaceBwdParams q;
   surface_inputs(ptrs, ints, rays, q.f);
@@ -3471,18 +3747,27 @@ extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
   q.g_colors = const_cast<float*>(at<float>(ptrs, 35));
   q.g_k = at<float>(ptrs, 36);
   q.g_mat = const_cast<float*>(at<float>(ptrs, 37));
+  q.g_tex_scale = const_cast<float*>(at<float>(ptrs, kSurfaceBwdPtrs - 2));
+  q.g_textures = const_cast<float*>(at<float>(ptrs, kSurfaceBwdPtrs - 1));
   if ((q.g_o_w == nullptr) != (q.g_d_w == nullptr) || q.g_t == nullptr ||
-      q.g_n_obj == nullptr || (material && q.g_mat == nullptr))
+      q.g_n_obj == nullptr || (material && q.g_mat == nullptr) ||
+      (textures && (q.g_tex_scale == nullptr || q.g_textures == nullptr)))
     return cudaErrorInvalidValue;
+  const long long tex_words =
+      static_cast<long long>(n_tex) * q.f.tex_h * q.f.tex_w * 3;
+  q.tex_shared = textures && 4 * tex_words <= kTexSharedBytes;
   if (merged)
     for (const float* out : {q.g_o_w, q.g_d_w, q.g_t, q.g_n_obj})
       if (reinterpret_cast<uintptr_t>(out) % 16 != 0)
         return cudaErrorInvalidValue;
   // the staged tables, and with the material variant the block's partial
-  // sums of the material constants' cotangents after them
+  // sums of the material constants' cotangents after them, then the texture
+  // variant's of the texture scale and (on the shared path) the textures
   const size_t shared =
       4 * (static_cast<size_t>(n_inst) * kInstRow + n_vol * kVolRow +
-           2 * n_tex + (material ? n_vol * kMatRow : 0));
+           2 * n_tex + (material ? n_vol * kMatRow : 0) +
+           (textures ? n_vol * kTexScaleRow : 0) +
+           (q.tex_shared ? tex_words : 0));
   if (shared > kMaxSharedBytes) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long blocks = (rays + kThreads - 1) / kThreads;
@@ -3506,23 +3791,36 @@ extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
     if (material) VRT_SURFACE_BWD_DESIGN(L, T, C, true);                    \
     else VRT_SURFACE_BWD_DESIGN(L, T, C, false);                            \
   } while (0)
+  // the texture variant: a textured mode, the merged kernel
+#define VRT_SURFACE_BWD_TEX(L, C)                                           \
+  do {                                                                      \
+    if (textures) {                                                         \
+      err = material ? surface_bwd_textures<L, C, true>(q, blocks, shared,  \
+                                                        s)                  \
+                     : surface_bwd_textures<L, C, false>(q, blocks, shared, \
+                                                         s);                \
+      break;                                                                \
+    }                                                                       \
+    VRT_SURFACE_BWD(L, true, C);                                            \
+  } while (0)
   if (lit) {
     if (textured) {
-      if (colors) VRT_SURFACE_BWD(true, true, true);
-      else VRT_SURFACE_BWD(true, true, false);
+      if (colors) VRT_SURFACE_BWD_TEX(true, true);
+      else VRT_SURFACE_BWD_TEX(true, false);
     } else {
       if (colors) VRT_SURFACE_BWD(true, false, true);
       else VRT_SURFACE_BWD(true, false, false);
     }
   } else {
     if (textured) {
-      if (colors) VRT_SURFACE_BWD(false, true, true);
-      else VRT_SURFACE_BWD(false, true, false);
+      if (colors) VRT_SURFACE_BWD_TEX(false, true);
+      else VRT_SURFACE_BWD_TEX(false, false);
     } else {
       if (colors) VRT_SURFACE_BWD(false, false, true);
       else VRT_SURFACE_BWD(false, false, false);
     }
   }
+#undef VRT_SURFACE_BWD_TEX
 #undef VRT_SURFACE_BWD
 #undef VRT_SURFACE_BWD_DESIGN
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
@@ -3533,19 +3831,27 @@ extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
 // g_n_w, g_roughness, g_metallic, g_refl_dir, g_d_w, g_n_obj, g_refl_rgb,
 // each null where nobody needs it; then the light variant's g_k [R] (null
 // unlit) and its accumulator of the light tables (129 floats,
-// zeroed by the caller and added into; null but in the light variant).
-// ints: the combine kernel's (final is not read), then the design (0: the
-// first, one thread a ray over the whole grid; 1: the redesign, resident
-// blocks, lane by lane; 2: the redesign on the vector path, which takes
-// d_w, g_rgb, hit, unlit, every [R,3] record input passed and every [R,3]
-// output on 16-byte boundaries), then 1 for the light variant, else 0.
-// Returns cudaGetLastError().
+// zeroed by the caller and added into; null but in the light variant);
+// then the env variant's accumulator of the env cube [6,E,E,3] f32 (zeroed
+// by the caller and added into; null but in the env variant):
+// kCombineBwdPtrs pointers.  ints: the combine kernel's (final is not
+// read), then the design (0: the first, one thread a ray over the whole
+// grid; 1: the redesign, resident blocks, lane by lane; 2: the redesign on
+// the vector path, which takes d_w, g_rgb, hit, unlit, every [R,3] record
+// input passed and every [R,3] output on 16-byte boundaries), then 1 for
+// the light variant, else 0, then 1 for the env variant (the redesign
+// alone; with the light variant, one launch of both), else 0:
+// kCombineBwdInts ints.  The env variant sums the cube's cotangents in
+// shared memory where its f32 words fit kEnvSharedBytes.  Returns
+// cudaGetLastError().
+constexpr int kCombineBwdPtrs = 52, kCombineBwdInts = 8;
 extern "C" int vrt_shade_combine_bwd(const void* const* ptrs, const int* ints,
                                      long long rays, void* stream) {
   const int points = ints[2], spots = ints[3], design = ints[5];
   const bool lights = ints[6] != 0;
+  const bool env = ints[kCombineBwdInts - 1] != 0;
   if (points < 0 || points > kMaxLights || spots < 0 || spots > kMaxLights ||
-      ints[4] < 1 || design < 0 || design > 2)
+      ints[4] < 1 || design < 0 || design > 2 || (env && design == 0))
     return cudaErrorInvalidValue;
   CombineBwdParams q;
   combine_inputs(ptrs, ints, rays, q.f);
@@ -3564,8 +3870,12 @@ extern "C" int vrt_shade_combine_bwd(const void* const* ptrs, const int* ints,
   q.g_refl_rgb = outs[8];
   q.g_k = const_cast<float*>(at<float>(ptrs, g + 10));
   q.g_lights = const_cast<float*>(at<float>(ptrs, g + 11));
-  if (lights && (q.g_lights == nullptr || (q.f.lit && q.g_k == nullptr)))
+  q.g_env = const_cast<float*>(at<float>(ptrs, kCombineBwdPtrs - 1));
+  if ((lights && (q.g_lights == nullptr || (q.f.lit && q.g_k == nullptr))) ||
+      (env && q.g_env == nullptr))
     return cudaErrorInvalidValue;
+  const long long env_words = 18ll * q.f.env_side * q.f.env_side;
+  q.env_shared = env && 4 * env_words <= kEnvSharedBytes;
   if (design == 2)
     for (const void* x : {static_cast<const void*>(q.f.d_w),
                           static_cast<const void*>(q.g_rgb),
@@ -3585,11 +3895,14 @@ extern "C" int vrt_shade_combine_bwd(const void* const* ptrs, const int* ints,
                           static_cast<const void*>(q.g_refl_rgb)})
       if (x != nullptr && !aligned16(x)) return cudaErrorInvalidValue;
   // the staged lights, and with the light variant the block's partial sums
-  // of their cotangents beside them
+  // of their cotangents beside them, then the env variant's of the env cube
+  // on the shared path
   const size_t shared =
-      4 * (4 + points * kPointRow + spots * kSpotRow) * (lights ? 2 : 1);
+      4 * ((4 + points * kPointRow + spots * kSpotRow) * (lights ? 2 : 1) +
+           (q.env_shared ? env_words : 0));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = lights ? combine_bwd_launch<true>(q, design, shared, s)
-                                 : combine_bwd_launch<false>(q, design, shared, s);
+  const cudaError_t err =
+      lights ? combine_bwd_launch<true>(q, design, env, shared, s)
+             : combine_bwd_launch<false>(q, design, env, shared, s);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

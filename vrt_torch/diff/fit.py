@@ -17,9 +17,11 @@ that recompute the stage and return the cotangents of the rays, ``t``,
 ``n_obj`` and the record, the surface backward adding the colour rows'
 cotangents into the colour table (16-byte atomics into a packed view, one
 f32 atomic a component into the grid).  Only the tonemap
-and the loss stay eager.  A fit that also optimizes a material constant, a
-texture, the env, a light or an instance transform shades on the plain
-stages under autograd instead (``renderer.shade_stages``).  The march runs
+and the loss stay eager.  A fit that also optimizes a material constant,
+a light, the texture scale, a texture or the env shades through the same
+Functions (their backward kernels' variants return those gradients); one
+that optimizes an instance transform shades on the plain stages under
+autograd instead (``renderer.shade_stages``).  The march runs
 under ``torch.no_grad()`` and is never re-run by the backward.  The octree
 accel is rebuilt from the current SDF on the device every step
 (``rebuild_accel``), so the fitted geometry is always marched

@@ -8,11 +8,13 @@
                                 bounce, cotangents)
         -> (g_o_w, g_d_w, g_t, g_n_obj,
             g_colors f32 [V*C^3, 24] (packed) | [V*N^3, 3] (voxel grid))
-        (material=True: and of tint, roughness, metallic, k)
+        (material=True: and of tint, roughness, metallic, k;
+         textures=True: and of tex_scale, textures)
     shade_combine_backward_cuda(scene, rec, d_w, n_obj, hit_mask, unlit_attr,
                                 refl_rgb, blocked, mode, g_rgb)
         -> cotangents of the record's floats, d_w, n_obj and refl_rgb
-        (lights=True: and of the record's k and the 15 light tables)
+        (lights=True: and of the record's k and the 15 light tables;
+         env=True: and of the env cube)
     ShadeSurface.apply / ShadeCombine.apply: the two stages, differentiable
 
 The two stages of one radiance level: the surface kernel runs between the
@@ -43,13 +45,14 @@ backward on CUDA tensors and the plain versions
 ``shade_combine_backward_reference`` (autograd of the plain stages) on CPU
 tensors.  They return the gradient in the rays, ``t``, ``n_obj``, the
 record's floats, the bounce's radiance and the colour table and, through
-each backward kernel's variant, in the material constants
-(``MATERIAL_FIELDS``: the surface backward's material variant) and in the
+each backward kernel's variants, in the material constants
+(``MATERIAL_FIELDS``: the surface backward's material variant), in the
 record's ``k`` and the light tables (``LIGHT_FIELDS``: the combine
-backward's light variant); the wrappers launch a variant only where one of
+backward's light variant), in the texture scale and the stacked textures
+(the surface backward's texture variant) and in the env cube (the combine
+backward's env variant); the wrappers launch a variant only where one of
 those tables needs a gradient, and every other launch is the default
-instantiation.  They return none in the texture scale, the textures, the
-env or the instance transforms.
+instantiation.  They return none in the instance transforms.
 
 The colour table is the one ``gpuscene.color_table`` names, in one of two
 layouts (``color_layout``): the corner-packed view, f32 or bf16 [V,N,N,N,8,3]
@@ -83,10 +86,18 @@ default, on the path ``shade_path`` names for ``combine_bwd_vectors``; and
 the first design (one thread a ray over the whole grid) behind
 ``_old_design``, bit-equal to it on every cotangent.
 
+The texture and env variants sum their table's cotangents on one of two
+paths, by the table's size alone (``table_path``): where it fits
+``TEXTURE_SHARED_BYTES`` / ``ENV_SHARED_BYTES``, each block keeps partial
+sums in shared memory and adds its nonzero words once ("shared"); else
+the lanes add into the table's f32 accumulator ("global").  On both, the
+lanes of a warp that name one texel are summed first.
+
 ``LAUNCHES`` counts the launches of each kernel, ``PATH_LAUNCHES`` the
 default launches of the forward pair and the combine backward again by
 path (the surface's "voxels" on the unpacked grid), ``VARIANT_LAUNCHES``
-the backward launches of the material and light variants again.
+the backward launches of the material and light variants again, and
+``TABLE_LAUNCHES`` those of the texture and env variants by path.
 """
 
 from __future__ import annotations
@@ -103,7 +114,8 @@ from vrt_torch.march.types import (RECORD_FIELDS, RECORD_GRAD_FIELDS,
                                     MarchHit, SurfaceRecord)
 from vrt_torch.render.gpuscene import (LIGHT_FIELDS, MATERIAL_FIELDS,
                                        MAX_POINT_LIGHTS, MAX_SPOT_LIGHTS,
-                                       RenderMode, color_table)
+                                       TEXTURE_FIELDS, RenderMode,
+                                       color_table)
 
 LAUNCHES = {"surface": 0, "combine": 0, "surface_bwd": 0, "combine_bwd": 0}
 # the default launches again, by the path ``shade_path`` (the surface's
@@ -114,6 +126,18 @@ PATH_LAUNCHES = {"surface v4": 0, "surface scalar": 0, "surface voxels": 0,
 # the backward launches of the material variant (the surface's) and of the
 # light variant (the combine's) again
 VARIANT_LAUNCHES = {"surface_bwd material": 0, "combine_bwd lights": 0}
+# the backward launches of the texture variant (the surface's) and of the
+# env variant (the combine's) again, by the path of their table's sums
+TABLE_LAUNCHES = {"surface_bwd textures shared": 0,
+                  "surface_bwd textures global": 0,
+                  "combine_bwd env shared": 0, "combine_bwd env global": 0}
+# the largest stacked texture table and env cube whose cotangents a block
+# sums in shared memory (csrc/shade.cu kTexSharedBytes, kEnvSharedBytes)
+TEXTURE_SHARED_BYTES = 32 * 1024
+ENV_SHARED_BYTES = 16 * 1024
+# the pointers and ints the backward entry points read (csrc/shade.cu
+# kSurfaceBwdPtrs, kSurfaceBwdInts, kCombineBwdPtrs, kCombineBwdInts)
+SLOTS = {"vrt_shade_surface_bwd": (40, 17), "vrt_shade_combine_bwd": (52, 8)}
 
 NVCC_FLAGS = ["--fmad=false"]
 
@@ -140,7 +164,12 @@ def _check(x, name, dtype, shape, device):
     _check_tensor(x, name, dtype, shape, device, who="shade")
 
 
-def _launch(fn, name, ptrs, ints, rays, dev, path=None, variant=None):
+def _launch(fn, name, ptrs, ints, rays, dev, path=None, variants=(),
+            table=None):
+    if fn in SLOTS and (len(ptrs), len(ints)) != SLOTS[fn]:
+        raise ValueError(f"shade {name}: {len(ptrs)} pointers and "
+                         f"{len(ints)} ints for {fn}, which reads "
+                         f"{SLOTS[fn]}")
     build()
     ptr_array = (ctypes.c_void_p * len(ptrs))(*ptrs)
     int_array = (ctypes.c_int * len(ints))(*(int(v) for v in ints))
@@ -150,8 +179,18 @@ def _launch(fn, name, ptrs, ints, rays, dev, path=None, variant=None):
     LAUNCHES[name] += 1
     if path is not None:
         PATH_LAUNCHES[f"{name} {path}"] += 1
-    if variant is not None:
+    for variant in variants:
         VARIANT_LAUNCHES[f"{name} {variant}"] += 1
+    if table is not None:
+        TABLE_LAUNCHES[f"{name} {table}"] += 1
+
+
+def table_path(table, budget: int) -> str:
+    """Where a texture or env variant sums the cotangents of ``table``
+    (the stacked textures or the env cube): "shared" where its f32 words
+    fit ``budget`` bytes (``TEXTURE_SHARED_BYTES``, ``ENV_SHARED_BYTES``),
+    else "global"."""
+    return "shared" if table.numel() * 4 <= budget else "global"
 
 
 def shade_path(tensors) -> str:
@@ -412,7 +451,8 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
                                 cotangents, rays_grad: bool = True,
                                 table_grad: bool = True,
                                 _old_design: bool = False, g_k=None,
-                                material: bool = False):
+                                material: bool = False,
+                                textures: bool = False):
     """Launch the surface kernel's backward on
     ``torch.cuda.current_stream()``: the cotangents of the record's
     ``RECORD_GRAD_FIELDS`` (albedo, shadow origin, world normal, roughness,
@@ -429,11 +469,21 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
     returns four more: the cotangents of the material constants
     (``MATERIAL_FIELDS``: tint [V,4], roughness, metallic, k [V]), views of
     one f32 [V,8] accumulator that each block adds its partial sums into.
-    The kernel is the merged design (resident blocks striding over the rays,
+    ``textures`` launches the texture variant (with ``material`` too, one
+    launch of both), which returns two more: the cotangents of
+    ``tex_scale`` [V,2] (each block's partial sums by volume, as the
+    material's) and of the stacked ``textures`` [T,TH,TW,3] (f32, on the
+    path ``table_path`` names; the padding of the stack stays zero).  In a
+    mode without textures they are zeros, and no texture variant runs.  The
+    kernel is the merged design (resident blocks striding over the rays,
     the colour cotangents of a warp's lanes that share a row summed before
     the row's reductions); the private ``_old_design`` launches the first
-    design, the comparator of the timing runs.  Raises on any input the
-    kernel does not take; never falls back."""
+    design, the comparator of the timing runs, which has no texture
+    variant.  Raises on any input the kernel does not take; never falls
+    back."""
+    if textures and _old_design:
+        raise ValueError("shade: the surface backward's first design has no "
+                         "texture variant")
     dev, rays, colors, ptrs, ints = _surface_args(
         scene, o_w, d_w, t, n_obj, hit, inst, mode, bounce, False,
         "surface kernel's backward")
@@ -451,7 +501,7 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
         if not material:
             raise ValueError("shade: g_k is read by the material variant only")
         _check(g_k, "g_k", f32, (rays,), dev)
-    g_o_w = g_d_w = acc = mat = None
+    g_o_w = g_d_w = acc = mat = g_scale = g_tex = None
     if rays_grad:
         g_o_w = torch.empty((rays, 3), dtype=f32, device=dev)
         g_d_w = torch.empty((rays, 3), dtype=f32, device=dev)
@@ -466,14 +516,23 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
     out = (g_o_w, g_d_w, g_t, g_n, acc)
     if material:
         out += (mat[:, :4], mat[:, 4], mat[:, 5], mat[:, 6])
+    if textures:
+        g_scale = torch.zeros(scene.tex_scale.shape, dtype=f32, device=dev)
+        g_tex = torch.zeros(scene.textures.shape, dtype=f32, device=dev)
+        out += (g_scale, g_tex)
     if rays == 0:
         return out
     ptrs += [_ptr(g) for g in cots] + [_ptr(g_o_w), _ptr(g_d_w),
                                        g_t.data_ptr(), g_n.data_ptr(),
-                                       _ptr(acc), _ptr(g_k), _ptr(mat)]
-    ints += [not _old_design, material]
+                                       _ptr(acc), _ptr(g_k), _ptr(mat),
+                                       _ptr(g_scale), _ptr(g_tex)]
+    # the texture variant is compiled for textured modes alone
+    textures = textures and bool(mode.textured)
+    ints += [not _old_design, material, textures]
     _launch("vrt_shade_surface_bwd", "surface_bwd", ptrs, ints, rays, dev,
-            variant="material" if material else None)
+            variants=("material",) if material else (),
+            table=f"textures {table_path(g_tex, TEXTURE_SHARED_BYTES)}"
+            if textures else None)
     return out
 
 
@@ -563,7 +622,7 @@ def shade_combine_backward_cuda(scene, rec: SurfaceRecord, d_w, n_obj,
                                 hit_mask, unlit_attr, refl_rgb, blocked,
                                 mode: RenderMode, g_rgb, needs=None,
                                 _old_design: bool = False,
-                                lights: bool = False):
+                                lights: bool = False, env: bool = False):
     """Launch the combine kernel's backward on
     ``torch.cuda.current_stream()`` for the cotangent ``g_rgb`` [R,3] of the
     linear radiance (``final`` has no backward): returns the cotangents of
@@ -573,14 +632,21 @@ def shade_combine_backward_cuda(scene, rec: SurfaceRecord, d_w, n_obj,
     which returns two more: the cotangent of the record's ``k`` (f32 [R];
     None unlit) and the light tables' (``light_grads``: a tuple in
     ``LIGHT_FIELDS`` order, views of one f32 accumulator that each block
-    adds its partial sums into).  Recomputes the stage from its inputs;
-    reads the record on hit lanes only.  The kernel is the redesign
+    adds its partial sums into).  ``env`` launches the env variant (with
+    ``lights`` too, one launch of both), which returns one more: the
+    cotangent of the env cube [6,E,E,3] (f32, the four taps of each miss
+    lane, on the path ``table_path`` names).  Recomputes the stage from its
+    inputs; reads the record on hit lanes only.  The kernel is the redesign
     (resident blocks striding over the rays; a warp without a hit runs the
     env lookup's backward alone) on the path ``shade_path`` names for
     ``combine_bwd_vectors``; the private ``_old_design`` launches the first
     design (one thread a ray over the whole grid), the comparator of the
-    timing runs, bit-equal on every per-ray cotangent.  Raises on any input
-    the kernel does not take; never falls back."""
+    timing runs, bit-equal on every per-ray cotangent, which has no env
+    variant.  Raises on any input the kernel does not take; never falls
+    back."""
+    if env and _old_design:
+        raise ValueError("shade: the combine backward's first design has no "
+                         "env variant")
     dev, rays, ptrs, ints = _combine_args(
         scene, rec, d_w, n_obj, hit_mask, unlit_attr, refl_rgb, blocked,
         mode, False, "combine kernel's backward")
@@ -603,6 +669,11 @@ def shade_combine_backward_cuda(scene, rec: SurfaceRecord, d_w, n_obj,
                               for x in light_shapes().values()),
                           dtype=torch.float32, device=dev)
         extra = (g_k, light_grads(acc))
+    g_env = None
+    if env:
+        g_env = torch.zeros(scene.env.shape, dtype=torch.float32,
+                            device=dev)
+        extra += (g_env,)
     if rays == 0:
         if g_k is not None:
             g_k.zero_()
@@ -611,9 +682,11 @@ def shade_combine_backward_cuda(scene, rec: SurfaceRecord, d_w, n_obj,
                                           rec, refl_rgb, outs))
     _launch("vrt_shade_combine_bwd", "combine_bwd",
             ptrs + [g_rgb.data_ptr()] + [_ptr(g) for g in outs]
-            + [_ptr(g_k), _ptr(acc)],
-            ints + [_design(_old_design, path), lights], rays, dev,
-            None if _old_design else path, "lights" if lights else None)
+            + [_ptr(g_k), _ptr(acc), _ptr(g_env)],
+            ints + [_design(_old_design, path), lights, env], rays, dev,
+            None if _old_design else path,
+            ("lights",) if lights else (),
+            f"env {table_path(g_env, ENV_SHARED_BYTES)}" if env else None)
     return tuple(outs) + extra
 
 
@@ -627,23 +700,27 @@ class ShadeSurface(torch.autograd.Function):
     """The surface stage with its gradient in ``o_w``, ``d_w``, ``t``,
     ``n_obj``, ``colors`` (the colour table the scene samples,
     ``gpuscene.color_table``: its corner-packed view, or the f32 voxel grid
-    where it has none; None without per-voxel colours) and the material
-    constants ``tint``, ``roughness``, ``metallic`` and ``k`` (the scene's
-    own tables, passed apart so that autograd sees them): on CUDA tensors
-    the surface kernel and its backward kernel (its material variant where
-    a material constant needs a gradient), on CPU tensors the plain stage
-    and its plain backward.  Returns ``SurfaceRecord.pack``'s tuple;
+    where it has none; None without per-voxel colours), the material
+    constants ``tint``, ``roughness``, ``metallic`` and ``k`` and the
+    texture scale and the stacked textures ``tex_scale``, ``textures`` (the
+    scene's own tables, passed apart so that autograd sees them): on CUDA
+    tensors the surface kernel and its backward kernel (its material
+    variant where a material constant needs a gradient, its texture variant
+    where the texture scale or the textures do), on CPU tensors the plain
+    stage and its plain backward.  Returns ``SurfaceRecord.pack``'s tuple;
     ``gate`` and the shadow rays carry no gradient, nor does ``k`` unless
     the scene's ``k`` needs one.  Saves the inputs alone (the backward
     recomputes the stage)."""
 
     @staticmethod
     def forward(ctx, o_w, d_w, t, n_obj, colors, tint, roughness, metallic,
-                k, scene, hit, inst, mode, bounce, shadows):
+                k, tex_scale, textures, scene, hit, inst, mode, bounce,
+                shadows):
         if colors is not color_table(scene):
             raise ValueError("ShadeSurface: colors must be the colour table "
                              "the scene samples (gpuscene.color_table)")
-        _own_tables(scene, MATERIAL_FIELDS, (tint, roughness, metallic, k),
+        _own_tables(scene, MATERIAL_FIELDS + TEXTURE_FIELDS[:2],
+                    (tint, roughness, metallic, k, tex_scale, textures),
                     "ShadeSurface")
         if o_w.device.type == "cuda":
             rec = shade_surface_cuda(scene, o_w, d_w, t, n_obj, hit, inst,
@@ -676,31 +753,41 @@ class ShadeSurface(torch.autograd.Function):
         cots = [grads[RECORD_FIELDS.index(f)] for f in RECORD_GRAD_FIELDS]
         g_k = grads[RECORD_FIELDS.index("k")]
         if all(g is None for g in cots) and g_k is None:
-            return (None,) * 15
+            return (None,) * 17
         hit = MarchHit(hit=hit_mask, t=None, kind=None, cell=cell, t_in=None,
                        t_out=None, face_normal=None)
         table_grad = colors is not None and need[4]
         material = any(need[5:9])
+        textures = any(need[9:11])
         if o_w.device.type == "cuda":
             args = (ctx.scene, o_w, d_w, t, n_obj, hit, inst, ctx.mode,
                     ctx.bounce, [None if g is None else g.contiguous()
                                  for g in cots], need[0] or need[1],
                     table_grad)
-            # the default launch as it was, the material variant with its
-            # own arguments
-            got = shade_surface_backward_cuda(*args) if not material else \
-                shade_surface_backward_cuda(
-                    *args, g_k=None if g_k is None else g_k.contiguous(),
-                    material=True)
+            # the default launch as it was, the variants with their own
+            # arguments
+            kwargs = {}
+            if material:
+                kwargs.update(g_k=None if g_k is None else g_k.contiguous(),
+                              material=True)
+            if textures:
+                kwargs.update(textures=True)
+            got = shade_surface_backward_cuda(*args, **kwargs)
         else:
             from vrt_torch.render.renderer import \
                 shade_surface_backward_reference
 
             got = shade_surface_backward_reference(
                 ctx.scene, o_w, d_w, t, n_obj, hit, inst, ctx.mode,
-                ctx.bounce, cots, g_k=g_k, material=material)
+                ctx.bounce, cots, g_k=g_k, material=material,
+                textures=textures)
         g_o_w, g_d_w, g_t, g_n, acc = got[:5]
-        g_mat = got[5:9] if material else (None,) * 4
+        rest = iter(got[5:])
+        g_mat = [next(rest) for _ in range(4)] if material else [None] * 4
+        if material and o_w.device.type != "cuda":
+            next(rest)                  # the plain version's |terms|
+        g_tables = [next(rest) for _ in range(2)] if textures \
+            else [None] * 2
         g_colors = None
         if table_grad:
             # the voxel grid's accumulator is its f32 gradient as it is
@@ -708,27 +795,29 @@ class ShadeSurface(torch.autograd.Function):
             del acc
         return (g_o_w if need[0] else None, g_d_w if need[1] else None,
                 g_t if need[2] else None, g_n if need[3] else None,
-                g_colors) + tuple(g if n else None
-                                  for g, n in zip(g_mat, need[5:9])) \
-            + (None,) * 6
+                g_colors) + tuple(g if n else None for g, n in zip(
+                    g_mat + g_tables, need[5:11])) + (None,) * 6
 
 
 class ShadeCombine(torch.autograd.Function):
     """The combine stage (linear rgb: the tonemap has no backward) with its
     gradient in the record's floats (``RECORD_GRAD_FIELDS``), ``d_w``,
-    ``n_obj``, ``refl_rgb``, the record's ``k`` and the 15 light tables
-    (``LIGHT_FIELDS``, the scene's own, passed apart so that autograd sees
-    them): on CUDA tensors the combine kernel and its backward kernel (its
-    light variant where ``k`` or a light needs a gradient), on CPU tensors
-    the plain stage and its plain backward.  The masks and the shadow
-    traces' booleans carry no gradient.  Saves the inputs alone."""
+    ``n_obj``, ``refl_rgb``, the record's ``k``, the 15 light tables
+    (``LIGHT_FIELDS``) and the env cube ``env`` (the scene's own tables,
+    passed apart so that autograd sees them): on CUDA tensors the combine
+    kernel and its backward kernel (its light variant where ``k`` or a
+    light needs a gradient, its env variant where the env does), on CPU
+    tensors the plain stage and its plain backward.  The masks and the
+    shadow traces' booleans carry no gradient.  Saves the inputs alone."""
 
     @staticmethod
     def forward(ctx, albedo, shadow_origin, n_w, roughness, metallic,
                 refl_dir, d_w, n_obj, refl_rgb, k, *rest):
         light_tables = rest[:len(LIGHT_FIELDS)]
-        scene, hit_mask, unlit_attr, blocked, mode = rest[len(LIGHT_FIELDS):]
-        _own_tables(scene, LIGHT_FIELDS, light_tables, "ShadeCombine")
+        env, scene, hit_mask, unlit_attr, blocked, mode = \
+            rest[len(LIGHT_FIELDS):]
+        _own_tables(scene, LIGHT_FIELDS + ("env",), light_tables + (env,),
+                    "ShadeCombine")
         rec = SurfaceRecord(albedo=albedo, shadow_origin=shadow_origin,
                             n_w=n_w, roughness=roughness, metallic=metallic,
                             k=k, refl_dir=refl_dir)
@@ -763,21 +852,28 @@ class ShadeCombine(torch.autograd.Function):
         need = ctx.needs_input_grad[:9]
         lit_need = ctx.needs_input_grad[9:10 + len(LIGHT_FIELDS)]
         lights = any(lit_need)
+        env = ctx.needs_input_grad[10 + len(LIGHT_FIELDS)]
         if d_w.device.type == "cuda":
             args = (ctx.scene, rec, d_w, n_obj, hit_mask, unlit_attr,
                     refl_rgb, blocked, ctx.mode, g_rgb.contiguous(), need)
-            # the default launch as it was, the light variant with its flag
-            grads = shade_combine_backward_cuda(*args) if not lights else \
-                shade_combine_backward_cuda(*args, lights=True)
+            # the default launch as it was, the variants with their flags
+            kwargs = {}
+            if lights:
+                kwargs.update(lights=True)
+            if env:
+                kwargs.update(env=True)
+            grads = shade_combine_backward_cuda(*args, **kwargs)
         else:
             from vrt_torch.render.renderer import \
                 shade_combine_backward_reference
 
             grads = shade_combine_backward_reference(
                 ctx.scene, rec, d_w, n_obj, hit_mask, unlit_attr, refl_rgb,
-                blocked, ctx.mode, g_rgb, lights=lights)
+                blocked, ctx.mode, g_rgb, lights=lights, env=env)
         extra = (grads[9], *grads[10]) if lights \
             else (None,) * len(lit_need)
+        g_env = grads[-2 if d_w.device.type != "cuda" else -1] if env \
+            else None
         return tuple(g if n else None for g, n in zip(grads[:9], need)) \
             + tuple(g if n else None for g, n in zip(extra, lit_need)) \
-            + (None,) * 5
+            + (g_env,) + (None,) * 5

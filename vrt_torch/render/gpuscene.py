@@ -33,9 +33,11 @@ MAX_SPOT_LIGHTS = 5
 # the reference's object cap (vrt's name; neither package enforces it:
 # the scene march takes up to kernels/march.py's MAX_INSTANCES)
 MAX_OBJECTS = 20
-# the scene's material constants (by volume) and light tables, the order in
-# which the shade kernels take them
+# the scene's material constants (by volume), light tables and sampled
+# tables (the texture scale by volume, the stacked textures, the env cube),
+# the order in which the shade kernels take them
 MATERIAL_FIELDS = ("tint", "roughness", "metallic", "k")
+TEXTURE_FIELDS = ("tex_scale", "textures", "env")
 LIGHT_FIELDS = ("dir_light_dir", "dir_light_strength", "point_pos",
                 "point_intensity", "point_att_l", "point_att_e",
                 "point_color", "spot_pos", "spot_fwd", "spot_intensity",

@@ -20,8 +20,8 @@
   a graph, through the ``autograd.Function`` pair whose backward is their
   backward kernels), on CPU tensors their plain versions
   ``shade_surface_reference`` and ``shade_combine_reference``, which also
-  shade a level under autograd wherever a graph is recorded through the
-  texture scale, the textures, the env or an instance transform.
+  shade a level under autograd wherever a graph is recorded through an
+  instance transform.
 
 The frame is differentiable in the scene's tensors: the march runs under
 ``torch.no_grad()`` (its hits are piecewise constant in the SDF, as under
@@ -49,7 +49,8 @@ from vrt_torch.march.resolve import (_OFFS7, resolve_hits,
 from vrt_torch.march.types import (RECORD_GRAD_FIELDS, MarchHit,
                                     SurfaceRecord)
 from vrt_torch.render.gpuscene import (LIGHT_FIELDS, MATERIAL_FIELDS,
-                                       GPUScene, RenderMode, color_table)
+                                       TEXTURE_FIELDS, GPUScene, RenderMode,
+                                       color_table)
 from vrt_torch.shade import brdf as _brdf
 from vrt_torch.shade import lights as _lights
 from vrt_torch.shade import texture as _tex
@@ -231,7 +232,9 @@ def resolve_scene(scene: GPUScene, o_w, d_w, hit: MarchHit, inst):
     transforms (``inst_pos``, ``inst_rot``, ``inst_scale``) require a
     gradient goes through ``resolve_scene_reference`` under autograd (on
     CUDA tensors over K3's row gather), because ``ResolveScene`` returns no
-    gradient for them; no entry point of the port makes them leaves.
+    gradient for them, and so does the level's shading
+    (``shade_stages``'s plain pair); no entry point of the port makes them
+    leaves.
     Everything else goes to ``kernels.resolve.ResolveScene``: on CUDA
     tensors the fused resolve kernel and, where a graph is recorded, its
     backward kernel; on CPU tensors their plain versions
@@ -440,7 +443,8 @@ def _take(table, idx):
 def shade_surface_reference(scene: GPUScene, o_w, d_w, t, n_obj,
                             hit: MarchHit, inst, mode: RenderMode,
                             bounce: bool, shadows: bool,
-                            gather=None, take=None) -> SurfaceRecord:
+                            gather=None, take=None,
+                            fetch=None) -> SurfaceRecord:
     """The first stage of a level's shading, before the traces the level
     spawns, in plain PyTorch (the plain version of ``shade.cu``'s surface
     kernel; port of the head of ``vrt.render.renderer._shade_lit`` and of
@@ -452,7 +456,9 @@ def shade_surface_reference(scene: GPUScene, o_w, d_w, t, n_obj,
     mirror direction and its gate (roughness < 0.3); with ``shadows`` the
     level's shadow rays.  In unlit mode only the albedo.  ``gather`` reads
     the colour rows (``kernels.rows.gather_rows`` by default), ``take`` a
-    material constant's row by volume (``table[vol_id]`` by default)."""
+    material constant's or the texture scale's row by volume
+    (``table[vol_id]`` by default), ``fetch`` a texture tap
+    (``shade.texture``'s seam)."""
     dev = o_w.device
     t = torch.where(hit.hit, t, 0.0)
     n_obj = torch.where(hit.hit[..., None], n_obj,
@@ -463,7 +469,7 @@ def shade_surface_reference(scene: GPUScene, o_w, d_w, t, n_obj,
     if not mode.lit:
         return SurfaceRecord(albedo=_unlit_albedo(scene, pr, o_w, d_w, t,
                                                   n_obj, hit, mode, gather,
-                                                  take))
+                                                  take, fetch))
 
     hit_pos = o_w + t[..., None] * d_w
     shadow_origin = hit_pos - d_w * 0.1
@@ -474,19 +480,20 @@ def shade_surface_reference(scene: GPUScene, o_w, d_w, t, n_obj,
     if mode.textured:
         obj_pos = vq.rotate(vq.conjugate(pr["rot"]),
                             (hit_pos - pr["pos"]) / pr["scale"])
-        tscale = scene.tex_scale[vol_id]
+        tscale = take(scene.tex_scale, vol_id)
         albedo = tint * _tex.tri_sample(scene.textures, scene.tex_sizes,
                                         scene.albedo_tex[vol_id], tscale,
-                                        obj_pos, n_obj)
+                                        obj_pos, n_obj, fetch)
         rm = _tex.tri_sample(scene.textures, scene.tex_sizes,
-                             scene.rm_tex[vol_id], tscale, obj_pos, n_obj)
+                             scene.rm_tex[vol_id], tscale, obj_pos, n_obj,
+                             fetch)
         roughness = kinks.clip(take(scene.roughness, vol_id) * rm[..., 0],
                                0.0, 1.0)
         metallic = kinks.clip(take(scene.metallic, vol_id) * rm[..., 1],
                               0.0, 1.0)
         n_shade = _tex.tri_sample_normal(scene.textures, scene.tex_sizes,
                                          scene.normal_tex[vol_id], tscale,
-                                         obj_pos, n_obj)
+                                         obj_pos, n_obj, fetch)
     else:
         albedo = tint
         roughness = kinks.clip(take(scene.roughness, vol_id), 0.0, 1.0)
@@ -514,7 +521,7 @@ def shade_surface_reference(scene: GPUScene, o_w, d_w, t, n_obj,
 
 
 def _unlit_albedo(scene: GPUScene, pr, o_w, d_w, t, n_obj, hit: MarchHit,
-                  mode: RenderMode, gather, take):
+                  mode: RenderMode, gather, take, fetch):
     """Unlit closest hit: tinted albedo only (the per-voxel colour
     sample where the scene has one)."""
     if scene.use_voxel_colors:
@@ -527,13 +534,15 @@ def _unlit_albedo(scene: GPUScene, pr, o_w, d_w, t, n_obj, hit: MarchHit,
                             (hit_pos - pr["pos"]) / pr["scale"])
         return tint * _tex.tri_sample(scene.textures, scene.tex_sizes,
                                       scene.albedo_tex[vol_id],
-                                      scene.tex_scale[vol_id], obj_pos, n_obj)
+                                      take(scene.tex_scale, vol_id), obj_pos,
+                                      n_obj, fetch)
     return tint.expand(d_w.shape)
 
 
 def shade_combine_reference(scene: GPUScene, rec: SurfaceRecord, d_w, n_obj,
                             hit_mask, unlit_attr, refl_rgb, blocked,
-                            mode: RenderMode, final: bool = False):
+                            mode: RenderMode, final: bool = False,
+                            fetch=None):
     """The second stage of a level's shading, after its traces, in plain
     PyTorch (the plain version of ``shade.cu``'s combine kernel; port of the
     tail of ``vrt.render.renderer._shade_lit``, of the selects of
@@ -544,8 +553,9 @@ def shade_combine_reference(scene: GPUScene, rec: SurfaceRecord, d_w, n_obj,
     term, the directional, point and spot lights with their shadows, the
     unlit-attribute select and the miss select with the env lookup.
     Returns linear rgb [R,3], or with ``final`` the tonemapped frame
-    [R,4] with alpha 1."""
-    miss_rgb = _tex.sample_env(scene.env, d_w)
+    [R,4] with alpha 1.  ``fetch`` reads the env's taps (``shade.texture``'s
+    seam)."""
+    miss_rgb = _tex.sample_env(scene.env, d_w, fetch)
     if mode.lit:
         shaded = _lit_radiance(scene, rec, d_w, refl_rgb, blocked)
     else:
@@ -631,11 +641,34 @@ def _lane_lights(scene: GPUScene, lanes: int, leaves: bool = False):
         scene, **{f: v for f, (v, _) in views.items()}), views
 
 
+def _summed(table, reads):
+    """A scene table's gradient from its rows' (``reads``: (the gradient of
+    the rows, their rows in the table viewed as [rows, ...]) each), summed
+    over the lanes in float64: (the f32 sum, the float64 sum of the lanes'
+    |terms|), each of the table's shape."""
+    acc = None
+    for g, idx in reads:
+        g = g.double()
+        if acc is None:
+            row = max(torch.Size(g.shape[1:]).numel(), 1)
+            acc = torch.zeros((table.numel() // row,) + g.shape[1:],
+                              dtype=torch.float64, device=table.device)
+            acc_abs = acc.clone()
+        acc.index_add_(0, idx, g)
+        acc_abs.index_add_(0, idx, g.abs())
+    if acc is None:
+        acc = acc_abs = torch.zeros(table.shape, dtype=torch.float64,
+                                    device=table.device)
+    return (acc.reshape(table.shape).float(),
+            acc_abs.reshape(table.shape))
+
+
 def shade_surface_backward_reference(scene: GPUScene, o_w, d_w, t, n_obj,
                                      hit: MarchHit, inst, mode: RenderMode,
                                      bounce: bool, cotangents,
                                      acc_dtype=torch.float32, g_k=None,
-                                     material: bool = False):
+                                     material: bool = False,
+                                     textures: bool = False):
     """The vector-Jacobian product of ``shade_surface_reference`` in the
     rays, ``t``, ``n_obj`` and the colour table: the plain version of the
     surface backward kernel.  ``cotangents`` are those of the record's
@@ -651,20 +684,29 @@ def shade_surface_backward_reference(scene: GPUScene, o_w, d_w, t, n_obj,
     (``MATERIAL_FIELDS``: tint [V,4], roughness, metallic, k [V], f32, each
     summed over the lanes in float64), then a tuple of the four tables'
     sums of their lanes' |terms| (float64: the scale that rounding moves an
-    entry's sum by, where its terms may cancel).
+    entry's sum by, where its terms may cancel).  With ``textures`` (the
+    plain version of the kernel's texture variant) three more follow: the
+    cotangents of ``tex_scale`` [V,2] and of the stacked ``textures``
+    [T,TH,TW,3] (f32, summed in float64; the padding of the stack exactly
+    zero), then a tuple of the two tables' sums of |terms|.
 
     The stage is computed again under ``torch.enable_grad()`` on leaves of
     the inputs and differentiated by ``torch.autograd.grad``; the colour
     rows are gathered by plain indexing as leaves of their own, and their
     gradient is added into the table by ``scatter_rows_reference``; with
     ``material`` each material read (``take``) is a leaf of the lanes' rows
-    too.  A miss lane's record is read by no one (the combine stage selects
-    the env there, the traces the level spawns march it with t_max = -inf),
-    so its cotangents are taken as zero, as the kernel takes them."""
+    too, with ``textures`` each read of the texture scale and each texture
+    tap (``fetch``: 12 a triplanar sample).  A miss lane's record is read
+    by no one (the combine stage selects the env there, the traces the
+    level spawns march it with t_max = -inf), so its cotangents are taken
+    as zero, as the kernel takes them."""
     hit_mask = hit.hit
     leaves = [x.detach().requires_grad_(True) for x in (o_w, d_w, t, n_obj)]
-    taken, reads = [], {f: [] for f in MATERIAL_FIELDS}
-    names = {id(getattr(scene, f)): f for f in MATERIAL_FIELDS}
+    tables = (MATERIAL_FIELDS if material else ()) \
+        + (("tex_scale",) if textures else ())
+    taken, reads, taps = [], {f: [] for f in tables}, []
+    names = {id(getattr(scene, f)): f
+             for f in MATERIAL_FIELDS + ("tex_scale",)}
 
     def gather(table, idx, ch):
         rows = gather_rows_reference(table.detach(), idx, ch)
@@ -673,13 +715,21 @@ def shade_surface_backward_reference(scene: GPUScene, o_w, d_w, t, n_obj,
 
     def take(table, idx):
         rows = table.detach()[idx]
-        if material:
+        if names[id(table)] in reads:
             reads[names[id(table)]].append((rows.requires_grad_(True), idx))
+        return rows
+
+    def fetch(table, *index):
+        rows = table.detach()[index]
+        if textures:
+            taps.append((rows.requires_grad_(True),
+                         _tex.flat_index(index, table.shape)))
         return rows
 
     with torch.enable_grad():
         rec = shade_surface_reference(scene, *leaves, hit, inst, mode, bounce,
-                                      False, gather=gather, take=take)
+                                      False, gather=gather, take=take,
+                                      fetch=fetch)
     outs, cots = [], []
     for name, g in zip(RECORD_GRAD_FIELDS + ("k",), (*cotangents, g_k)):
         x = getattr(rec, name)
@@ -688,7 +738,7 @@ def shade_surface_backward_reference(scene: GPUScene, o_w, d_w, t, n_obj,
             outs.append(x)
             cots.append(torch.where(keep, g, 0.0))
     rows = [r for r, _, _ in taken]
-    lanes = [r for f in MATERIAL_FIELDS for r, _ in reads[f]]
+    lanes = [r for f in tables for r, _ in reads[f]] + [r for r, _ in taps]
     inputs = leaves + rows + lanes
     grads = torch.autograd.grad(outs, inputs, cots, allow_unused=True) \
         if outs else [None] * len(inputs)
@@ -699,28 +749,27 @@ def shade_surface_backward_reference(scene: GPUScene, o_w, d_w, t, n_obj,
         _, idx, (n_rows, ch) = taken[0]
         g_colors = scatter_rows_reference(grads[4], idx, n_rows, ch,
                                           acc_dtype)
-    if not material:
-        return (*grads[:4], g_colors)
+    out = (*grads[:4], g_colors)
     g_lanes = iter(grads[4 + len(rows):])
-    sums, terms = [], []
-    for f in MATERIAL_FIELDS:
-        table = getattr(scene, f)
-        acc = torch.zeros(table.shape, dtype=torch.float64,
-                          device=table.device)
-        acc_abs = acc.clone()
-        for _, idx in reads[f]:
-            g = next(g_lanes).double()
-            acc.index_add_(0, idx, g)
-            acc_abs.index_add_(0, idx, g.abs())
-        sums.append(acc.float())
-        terms.append(acc_abs)
-    return (*grads[:4], g_colors, *sums, tuple(terms))
+    summed = {f: _summed(getattr(scene, f),
+                         [(next(g_lanes), idx) for _, idx in reads[f]])
+              for f in tables}
+    if material:
+        out += tuple(summed[f][0] for f in MATERIAL_FIELDS) \
+            + (tuple(summed[f][1] for f in MATERIAL_FIELDS),)
+    if textures:
+        tex = _summed(scene.textures, [(next(g_lanes), idx)
+                                       for _, idx in taps])
+        out += (summed["tex_scale"][0], tex[0],
+                (summed["tex_scale"][1], tex[1]))
+    return out
 
 
 def shade_combine_backward_reference(scene: GPUScene, rec: SurfaceRecord,
                                      d_w, n_obj, hit_mask, unlit_attr,
                                      refl_rgb, blocked, mode: RenderMode,
-                                     g_rgb, lights: bool = False):
+                                     g_rgb, lights: bool = False,
+                                     env: bool = False):
     """The vector-Jacobian product of ``shade_combine_reference`` (linear
     rgb, without ``final``) for the cotangent ``g_rgb`` [R,3]: the plain
     version of the combine backward kernel.  Returns the cotangents of the
@@ -731,16 +780,19 @@ def shade_combine_backward_reference(scene: GPUScene, rec: SurfaceRecord,
     none), a tuple of the cotangents of the light tables (``LIGHT_FIELDS``,
     each of its table's shape, f32, summed over the lanes in float64) and a
     tuple of the light tables' sums of their lanes' |terms| (float64: the
-    scale that rounding moves an entry's sum by).
+    scale that rounding moves an entry's sum by).  With ``env`` (the plain
+    version of the kernel's env variant) two more follow: the cotangent of
+    the env cube [6,E,E,3] (f32, summed in float64) and its sum of |terms|.
 
     The stage is computed again under ``torch.enable_grad()`` and
     differentiated by ``torch.autograd.grad``: on the hit lanes, where it
     reads the record (and, with ``lights``, every light table as one leaf
     row a lane: ``_lane_lights``), and on the miss lanes, where it reads the
-    direction alone (the env lookup).  A miss lane's record is read by no
-    one and may hold anything (the kernel leaves it unwritten): it gets an
-    exact zero and never enters the arithmetic, where a zero cotangent times
-    a NaN would give NaN.  Each lane is shaded on its own, so the two parts
+    direction alone (the env lookup; with ``env`` each of its four taps a
+    leaf of the lanes' rows).  A miss lane's record is read by no one and
+    may hold anything (the kernel leaves it unwritten): it gets an exact
+    zero and never enters the arithmetic, where a zero cotangent times a
+    NaN would give NaN.  Each lane is shaded on its own, so the two parts
     are the stage."""
     fields = [getattr(rec, f) for f in RECORD_GRAD_FIELDS]
     inputs = fields + [d_w, n_obj, refl_rgb] + ([rec.k] if lights else [])
@@ -748,10 +800,16 @@ def shade_combine_backward_reference(scene: GPUScene, rec: SurfaceRecord,
     misses = (~hit_mask).nonzero().squeeze(-1)
     lit_scene, views = _lane_lights(scene, hits.shape[0], True) if lights \
         else (scene, {})
+    taps = []
 
     def leaf(x, lanes):
         return None if x is None else \
             x.detach()[lanes].requires_grad_(True)
+
+    def fetch(table, *index):
+        rows = table.detach()[index].requires_grad_(True)
+        taps.append((rows, _tex.flat_index(index, table.shape)))
+        return rows
 
     sub = [leaf(x, hits) for x in inputs]
     sub_rec = SurfaceRecord(
@@ -764,13 +822,15 @@ def shade_combine_backward_reference(scene: GPUScene, rec: SurfaceRecord,
             torch.ones_like(hits, dtype=torch.bool), unlit_attr[hits],
             sub[len(fields) + 2],
             None if blocked is None else [b[hits] for b in blocked], mode)
-        miss_rgb = _tex.sample_env(scene.env, d_miss)
+        miss_rgb = _tex.sample_env(scene.env, d_miss,
+                                   fetch if env else None)
     want = [x for x in sub if x is not None and x.requires_grad]
     lanes = [v for v, _ in views.values()]
     got = iter(torch.autograd.grad(shaded, want + lanes, g_rgb[hits],
                                    allow_unused=True))
-    (g_miss,) = torch.autograd.grad(miss_rgb, [d_miss], g_rgb[misses],
-                                    allow_unused=True)
+    g_miss, *g_taps = torch.autograd.grad(
+        miss_rgb, [d_miss] + [r for r, _ in taps], g_rgb[misses],
+        allow_unused=True)
     out = []
     for x in inputs:
         if x is None:
@@ -783,17 +843,22 @@ def shade_combine_backward_reference(scene: GPUScene, rec: SurfaceRecord,
         out.append(g)
     if g_miss is not None:
         out[len(fields)][misses] = g_miss
-    if not lights:
-        return tuple(out)
-    sums, terms = [], []
-    for f, (v, axis) in views.items():
-        g = next(got)
-        g = torch.zeros(v.shape, dtype=torch.float64, device=v.device) \
-            if g is None else g.double()
-        shape = getattr(scene, f).shape
-        sums.append(g.sum(dim=axis).reshape(shape).float())
-        terms.append(g.abs().sum(dim=axis).reshape(shape))
-    return (*out, tuple(sums), tuple(terms))
+    out = tuple(out)
+    if lights:
+        sums, terms = [], []
+        for f, (v, axis) in views.items():
+            g = next(got)
+            g = torch.zeros(v.shape, dtype=torch.float64, device=v.device) \
+                if g is None else g.double()
+            shape = getattr(scene, f).shape
+            sums.append(g.sum(dim=axis).reshape(shape).float())
+            terms.append(g.abs().sum(dim=axis).reshape(shape))
+        out += (tuple(sums), tuple(terms))
+    if env:
+        out += _summed(scene.env, [
+            (torch.zeros_like(r) if g is None else g, idx)
+            for (r, idx), g in zip(taps, g_taps)])
+    return out
 
 
 def _needs_autograd(*tensors) -> bool:
@@ -807,14 +872,13 @@ def _needs_autograd(*tensors) -> bool:
 # return, as they return that of the rays, t and n_obj (and so of the corner
 # table behind t and n_obj): the colour tables (the packed view where the
 # scene has one, else the voxel grid: ``gpuscene.color_table``), the
-# material constants and the lights (the kernels' material and light
-# variants).  The rest: the texture scale, the textures, the env and the
-# instance transforms, whose gradient the kernels do not return; a graph
-# through one of those takes the plain pair.
+# material constants, the lights, the texture scale, the textures and the
+# env (the kernels' material, light, texture and env variants).  The rest:
+# the instance transforms, whose gradient the kernels do not return; a
+# graph through one of those takes the plain pair.
 _KERNEL_GRAD_FIELDS = ("voxel_colors", "voxel_color_corners") \
-    + MATERIAL_FIELDS + LIGHT_FIELDS
-_PLAIN_GRAD_FIELDS = ("tex_scale", "textures", "env", "inst_pos", "inst_rot",
-                      "inst_scale")
+    + MATERIAL_FIELDS + LIGHT_FIELDS + TEXTURE_FIELDS
+_PLAIN_GRAD_FIELDS = ("inst_pos", "inst_rot", "inst_scale")
 _SHADED_FIELDS = _KERNEL_GRAD_FIELDS + _PLAIN_GRAD_FIELDS
 
 
@@ -822,17 +886,18 @@ def shade_stages(scene: GPUScene, o_w, d_w, t, n_obj):
     """The two stages of a level's shading, (surface, combine), picked on
     the inputs alone, among three pairs:
 
-    - a graph is recorded through a tensor of ``_PLAIN_GRAD_FIELDS`` (the
-      texture scale, a texture, the env, an instance transform): the plain
+    - a graph is recorded through a tensor of ``_PLAIN_GRAD_FIELDS`` (an
+      instance transform), whatever else it runs through: the plain
       versions ``shade_surface_reference`` and ``shade_combine_reference``
       under autograd, on either device, since the kernels return no
       gradient for those;
     - else a graph through the rays, ``t``, ``n_obj``, the corner table, a
-      colour table, a material constant or a light table (every fit step
-      of the SDF and the colours, and of the materials and the lights): the
-      ``autograd.Function`` pair of ``kernels.shade`` (``ShadeSurface``,
-      ``ShadeCombine``), whose forward and backward are the kernels on CUDA
-      tensors and the plain versions on CPU tensors;
+      colour table, a material constant, a light table, the texture scale,
+      the textures or the env (every fit step of the SDF and the colours,
+      of the materials and the lights, and of the textures and the env):
+      the ``autograd.Function`` pair of ``kernels.shade``
+      (``ShadeSurface``, ``ShadeCombine``), whose forward and backward are
+      the kernels on CUDA tensors and the plain versions on CPU tensors;
     - no graph: the plain versions on CPU tensors, the two kernels of
       ``shade.cu`` on CUDA tensors.
 
@@ -887,29 +952,31 @@ def _shade_combine_kernel(scene, rec, d_w, n_obj, hit_mask, unlit_attr,
 def _shade_surface_function(scene, o_w, d_w, t, n_obj, hit, inst, mode,
                             bounce, shadows):
     """The surface stage through ``ShadeSurface``, differentiable in the
-    rays, ``t``, ``n_obj``, the colour table and the material constants."""
+    rays, ``t``, ``n_obj``, the colour table, the material constants, the
+    texture scale and the textures."""
     from vrt_torch.kernels import shade as k4
 
     return SurfaceRecord.unpack(k4.ShadeSurface.apply(
         o_w.contiguous(), d_w.contiguous(), t.contiguous(),
         n_obj.contiguous(), color_table(scene),
-        *(getattr(scene, f) for f in MATERIAL_FIELDS), scene,
-        _contiguous_hit(hit), inst.contiguous(), mode, bounce, shadows))
+        *(getattr(scene, f) for f in MATERIAL_FIELDS), scene.tex_scale,
+        scene.textures, scene, _contiguous_hit(hit), inst.contiguous(), mode,
+        bounce, shadows))
 
 
 def _shade_combine_function(scene, rec, d_w, n_obj, hit_mask, unlit_attr,
                             refl_rgb, blocked, mode, final=False):
     """The combine stage through ``ShadeCombine``, differentiable in the
-    record's floats (``k`` among them), ``d_w``, ``n_obj``, ``refl_rgb`` and
-    the light tables; with ``final`` the tonemap follows in eager
-    PyTorch."""
+    record's floats (``k`` among them), ``d_w``, ``n_obj``, ``refl_rgb``,
+    the light tables and the env; with ``final`` the tonemap follows in
+    eager PyTorch."""
     from vrt_torch.kernels import shade as k4
 
     refl_rgb, blocked = _contiguous_combine_args(refl_rgb, blocked)
     rgb = k4.ShadeCombine.apply(
         *(getattr(rec, f) for f in RECORD_GRAD_FIELDS), d_w.contiguous(),
         n_obj.contiguous(), refl_rgb, rec.k,
-        *(getattr(scene, f) for f in LIGHT_FIELDS), scene,
+        *(getattr(scene, f) for f in LIGHT_FIELDS), scene.env, scene,
         hit_mask.contiguous(), unlit_attr.contiguous(), blocked, mode)
     return _tonemapped(rgb) if final else rgb
 

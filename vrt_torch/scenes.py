@@ -178,6 +178,22 @@ def shading_scene(resolution: int = 4, points: int = 2, spots: int = 1,
         device=device)
 
 
+def padded_sampled_tables(scene, side: int = 256):
+    """``scene`` with the same texels stacked into a [T, side, side, 3]
+    table (each texture keeps its size; the rest is padding) and its env
+    cube at twice its side (each texel repeated 2 x 2): tables past the
+    shared-memory budgets of the shade backward's texture and env variants
+    (``kernels.shade.table_path``), whose cotangents then take f32 atomics
+    into the table."""
+    tex = scene.textures
+    padded = torch.zeros((tex.shape[0], side, side, 3), dtype=tex.dtype,
+                         device=tex.device)
+    padded[:, :tex.shape[1], :tex.shape[2]] = tex
+    env = scene.env.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    return dataclasses.replace(scene, textures=padded,
+                               env=env.contiguous())
+
+
 def voxelized_torus_scene(resolution: int = 8,
                           device: torch.device | str = "cuda"):
     """config3 of ``vrt/apps/bench.py``: a 9,216-triangle torus written as

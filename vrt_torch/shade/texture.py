@@ -8,6 +8,11 @@
 
 Textures live in one stacked tensor [T, TH, TW, 3] padded to the largest
 resolution, with per-texture sizes.
+
+Every sampler reads its taps through ``fetch(table, *index)`` (default
+``fetch_rows``: the rows ``table[index]``): a seam for the plain backward
+of the shading, which reads each tap as rows of its own to sum the table's
+gradient in float64.
 """
 
 from __future__ import annotations
@@ -18,11 +23,30 @@ from vrt_torch.core import kinks
 from vrt_torch.core import quat as vq
 
 
-def sample_bilinear_wrap(textures, sizes, tex_id, uv):
+def flat_index(index, shape):
+    """The row of ``index`` (one index tensor per leading axis) in a table
+    of ``shape`` viewed as [rows, last axis]."""
+    flat = index[0].long()
+    for i, n in zip(index[1:], shape[1:]):
+        flat = flat * n + i.long()
+    return flat
+
+
+def fetch_rows(table, *index):
+    """``table[index]``, read as ``index_select`` of the table's rows, whose
+    backward is an ``index_add_``: advanced indexing's backward sorts the
+    indices first, which takes seconds where millions of taps fall on a
+    few hundred texels."""
+    return table.reshape(-1, table.shape[-1]).index_select(
+        0, flat_index(index, table.shape))
+
+
+def sample_bilinear_wrap(textures, sizes, tex_id, uv, fetch=None):
     """textures [T,TH,TW,3], sizes i32 [T,2] (h,w), tex_id i32 [R], uv [R,2].
 
     D3D linear+wrap: texel centres at (i+0.5)/N; integer texel indices
     wrap with floor-mod (``torch.remainder``, as ``jnp.mod``)."""
+    fetch = fetch or fetch_rows
     tex_id = tex_id.long()
     hw = sizes[tex_id].to(torch.float32)            # [R,2] (h, w)
     h, w = hw[..., 0], hw[..., 1]
@@ -38,7 +62,7 @@ def sample_bilinear_wrap(textures, sizes, tex_id, uv):
     def tap(ui, vi):
         uw = torch.remainder(ui.to(torch.int32), wi).long()
         vw = torch.remainder(vi.to(torch.int32), hi).long()
-        return textures[tex_id, vw, uw]
+        return fetch(textures, tex_id, vw, uw)
 
     c00 = tap(u0, v0)
     c10 = tap(u0 + 1, v0)
@@ -65,12 +89,12 @@ def _blend_weights(normal):
     return torch.where(ok, b / torch.where(ok, s, 1.0), 0.0)
 
 
-def tri_sample(textures, sizes, tex_id, scale, obj_pos, normal):
+def tri_sample(textures, sizes, tex_id, scale, obj_pos, normal, fetch=None):
     """``TriSampleTexture``: triplanar blend of three axis projections."""
     uv_x, uv_y, uv_z = _triplanar_uvs(obj_pos, scale)
-    tx = sample_bilinear_wrap(textures, sizes, tex_id, uv_x)
-    ty = sample_bilinear_wrap(textures, sizes, tex_id, uv_y)
-    tz = sample_bilinear_wrap(textures, sizes, tex_id, uv_z)
+    tx = sample_bilinear_wrap(textures, sizes, tex_id, uv_x, fetch)
+    ty = sample_bilinear_wrap(textures, sizes, tex_id, uv_y, fetch)
+    tz = sample_bilinear_wrap(textures, sizes, tex_id, uv_z, fetch)
     b = _blend_weights(normal)
     return tx * b[..., 0:1] + ty * b[..., 1:2] + tz * b[..., 2:3]
 
@@ -81,13 +105,14 @@ def _quat_from_x(v):
     return vq.from_two_vectors(x, v)
 
 
-def tri_sample_normal(textures, sizes, tex_id, scale, obj_pos, normal):
+def tri_sample_normal(textures, sizes, tex_id, scale, obj_pos, normal,
+                      fetch=None):
     """``TriSampleNormal``: triplanar tangent normal, swizzled .zxy, rotated
     by the +X-to-surface-normal quaternion."""
     uv_x, uv_y, uv_z = _triplanar_uvs(obj_pos, scale)
-    tx = sample_bilinear_wrap(textures, sizes, tex_id, uv_x) * 2.0 - 1.0
-    ty = sample_bilinear_wrap(textures, sizes, tex_id, uv_y) * 2.0 - 1.0
-    tz = sample_bilinear_wrap(textures, sizes, tex_id, uv_z) * 2.0 - 1.0
+    tx = sample_bilinear_wrap(textures, sizes, tex_id, uv_x, fetch) * 2.0 - 1.0
+    ty = sample_bilinear_wrap(textures, sizes, tex_id, uv_y, fetch) * 2.0 - 1.0
+    tz = sample_bilinear_wrap(textures, sizes, tex_id, uv_z, fetch) * 2.0 - 1.0
     b = _blend_weights(normal)
     t = tx * b[..., 0:1] + ty * b[..., 1:2] + tz * b[..., 2:3]
     n2 = torch.sum(t * t, dim=-1, keepdim=True)
@@ -97,9 +122,10 @@ def tri_sample_normal(textures, sizes, tex_id, scale, obj_pos, normal):
     return vq.rotate(_quat_from_x(normal), t)
 
 
-def sample_cube(env, direction):
+def sample_cube(env, direction, fetch=None):
     """Sample a cube map [6,E,E,3] with D3D face conventions, bilinear.
     Face order +X,-X,+Y,-Y,+Z,-Z; the caller applies the ``.xzy`` swizzle."""
+    fetch = fetch or fetch_rows
     x, y, z = direction[..., 0], direction[..., 1], direction[..., 2]
     ax, ay, az = kinks.abs_(x), kinks.abs_(y), kinks.abs_(z)
 
@@ -127,7 +153,7 @@ def sample_cube(env, direction):
     def tap(ui, vi):
         uc = torch.clamp(ui.to(torch.int32), 0, e - 1).long()
         vc = torch.clamp(vi.to(torch.int32), 0, e - 1).long()
-        return env[face, vc, uc]
+        return fetch(env, face, vc, uc)
 
     c00 = tap(u0, v0)
     c10 = tap(u0 + 1, v0)
@@ -138,6 +164,6 @@ def sample_cube(env, direction):
     return top * (1 - fv) + bot * fv
 
 
-def sample_env(env, world_dir):
+def sample_env(env, world_dir, fetch=None):
     """Miss-shader env lookup: direction swizzled .xzy."""
-    return sample_cube(env, world_dir[..., [0, 2, 1]])
+    return sample_cube(env, world_dir[..., [0, 2, 1]], fetch)
