@@ -98,7 +98,13 @@ Phases, each of which raises on failure:
              per-ray cotangents as above, each table entry within 1e-5 of
              its lanes' sum of |terms|, the stack's padding zero) and the
              default instantiation on the same inputs (per-ray cotangents
-             bit-equal; default, variant, variant, default);
+             bit-equal; default, variant, variant, default); and every
+             launch of the surface and the resolve backward's instance
+             variants in a loss differentiated in the instance transforms
+             on the 480x270 lights frame and on config7's 12 instances at
+             512x512, each with its first instance posed
+             (``scenes.posed_instances``: a quaternion of norm 1.05, an
+             uneven scale), held the same way (``_instance_calls``);
              K3: every launch of one 1080p frame on the candidate-loop path,
              of one config6 fit step with eager shading (the colour rows:
              the default step launches no K3), and of one with resolve on the
@@ -180,7 +186,13 @@ Phases, each of which raises on failure:
              kernels' medians of 3, one plain step a side), with their
              launches, losses and gradients against the plain route's
              float64 sums, device ops, busy time and peak memory, and every
-             variant launch of one step held as in phase 3;
+             variant launch of one step held as in phase 3; and config6's
+             pose step (``POSE_STEP_KEYS``: the SDF, the colours and the
+             instance transforms) on the surface and the resolve backward's
+             instance variants (3 of each, no K3, no plain stage) against
+             the plain route (eager shading, resolve on the plain path
+             over K3), its transforms held entry by entry against the same
+             step with the backward on the plain versions;
              then ``python -m vrt_torch.apps.fit`` at its defaults, whose
              last loss must be under a quarter of its first,
 9. engine  -- the engine path.  A host ``Scene`` of the flagship's two 129^3
@@ -2046,7 +2058,8 @@ def _variant_calls(run, expected, tag, surface=("material",),
             if tuple(f for f in COMBINE_FLAGS if c[1].get(f)) == combine]
     want_launched = {"surface_bwd material": expected * ("material"
                                                          in surface),
-                     "combine_bwd lights": expected * ("lights" in combine)}
+                     "combine_bwd lights": expected * ("lights" in combine),
+                     "surface_bwd instances": 0}
     keys = ("surface_bwd " + "+".join(surface),
             "combine_bwd " + "+".join(combine))
     table_paths = {
@@ -2208,6 +2221,192 @@ def _variant_calls(run, expected, tag, surface=("material",),
     return out
 
 
+def _instance_calls(run, expected, tag):
+    """Every launch of the two backward kernels' instance variants in
+    ``run()`` (``shade_surface_backward_cuda(..., instances=True)`` and
+    ``resolve_scene_backward_cuda(..., instances=True)``, with the flags it
+    was given: the material or texture variant in the same surface launch),
+    kept with its inputs and outputs, then held against its plain version on
+    the same inputs (the reference with the same flags: the surface's
+    autograd of the plain stage with the transforms' reads as leaves, the
+    resolve's closed form; the transforms summed over the lanes in float64):
+    every per-ray cotangent under its tolerance on every lane (the
+    surface's ``_grad_beyond``, the resolve's ``RAY_GRAD_RTOL`` * max|g|),
+    the colour and corner tables within ``SCATTER_RTOL`` * their largest
+    |sum|, each transform entry within ``SCATTER_RTOL`` * the sum of its own
+    lanes' |terms| + ``TABLE_ATOL``; and against the default instantiation
+    on the same inputs: every per-ray cotangent bit-equal, the two timed
+    default, variant, variant, default (a resolve backward asked for
+    neither the rays' nor the table's gradient has nothing to launch on
+    the default instantiation: its time is the wrapper's return, counted
+    apart in ``default_launches``).  Fails unless each launched
+    ``expected`` times, counted as the variant.  Returns {"surface_bwd
+    instances" | "resolve_bwd instances": dict(launches, default_launches,
+    max_abs_err, by_output, ms, default_ms, plain_ms (lists), bound)}."""
+    import torch
+
+    from vrt_torch.kernels import resolve as kr
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.kernels._timing import device_ms
+    from vrt_torch.render.gpuscene import INSTANCE_FIELDS
+    from vrt_torch.render.renderer import (resolve_scene_backward_reference,
+                                           shade_surface_backward_reference)
+
+    before = (dict(k4.VARIANT_LAUNCHES), dict(kr.VARIANT_LAUNCHES))
+    with _recording(k4, "shade_surface_backward_cuda") as surf, \
+            _recording(kr, "resolve_scene_backward_cuda") as res:
+        run()
+    torch.cuda.synchronize()
+    launched = (k4.VARIANT_LAUNCHES["surface_bwd instances"]
+                - before[0]["surface_bwd instances"],
+                kr.VARIANT_LAUNCHES["backward instances"]
+                - before[1]["backward instances"])
+    surf = [c for c in surf if c[1].get("instances")]
+    res = [c for c in res if c[1].get("instances")]
+    if (len(surf), len(res)) != (expected, expected) or \
+            launched != (expected, expected):
+        raise AssertionError(f"the {tag} called the surface backward's "
+                             f"instance variant {len(surf)} times and the "
+                             f"resolve backward's {len(res)} times (variant "
+                             f"launches {launched}), expected {expected} "
+                             f"each")
+    out = {}
+    for key, calls in (("surface_bwd instances", surf),
+                       ("resolve_bwd instances", res)):
+        is_surface = key.startswith("surface")
+        kernel = k4.shade_surface_backward_cuda if is_surface \
+            else kr.resolve_scene_backward_cuda
+        by_output, ms, default_ms, plain_ms, bounds = {}, [], [], [], []
+        default_launches = 0
+        for i, (args, kwargs, got) in enumerate(calls):
+            scene = args[0]
+            flags = {k: v for k, v in kwargs.items()
+                     if k in ("material", "textures", "instances", "g_k")}
+            if is_surface:
+                rays_grad, table_grad = (tuple(args[10:]) + (True, True))[:2]
+
+                def plain():
+                    return shade_surface_backward_reference(
+                        *args[:10], acc_dtype=torch.float64, **flags)
+
+                want = plain()
+                per_ray = list(zip(("g_o_w", "g_d_w", "g_t", "g_n_obj"),
+                                   got[:4], want[:4]))
+                base = _surface_bwd_bound(scene, args, rays_grad,
+                                          table_grad)
+                table = ("g_colors", got[4], want[4])
+            else:
+                rays_grad, table_grad = (tuple(args[7:9]) + (True, True))[:2]
+
+                def plain():
+                    return resolve_scene_backward_reference(
+                        *args[:7], acc_dtype=torch.float64, instances=True)
+
+                want = plain()
+                per_ray = list(zip(("g_o_w", "g_d_w"), got[:2], want[:2]))
+                base = _resolve_bwd_bound(scene, args[3], args[4], rays_grad,
+                                          table_grad)
+                table = ("g_corners", got[2], want[2])
+            # the variant's own bytes: its [I,10] accumulator written once
+            bounds.append(_bound(base["bytes"] + scene.num_instances * 40,
+                                 base["flops"]))
+            # (the primary rays of a fixed camera ask for no ray gradient)
+            per_ray = [(n, a, b) for n, a, b in per_ray if a is not None]
+            scale = max((b.abs().max().item() for _, _, b in per_ray),
+                        default=0.0)
+            for name, a, b in per_ray:
+                if is_surface:
+                    share, worst = _grad_beyond(a, b, scale)
+                    ok = share <= SHADE_GRAD_LANE_BUDGET
+                else:
+                    e = (a - b).abs().max().item()
+                    worst = e / scale if scale > 0 else e
+                    ok = bool(torch.isfinite(a).all()) \
+                        and worst <= RAY_GRAD_RTOL
+                if not ok:
+                    raise AssertionError(f"{tag} {key} {i}: {name} differs "
+                                         f"from the plain version (largest "
+                                         f"difference {worst:.3e} * "
+                                         f"{scale:.3e})")
+                by_output[name] = max(by_output.get(name, 0.0), worst)
+            name, a, b = table
+            if a is not None:
+                top = b.abs().max().item()
+                e = (a.double() - b.double().reshape(a.shape)).abs().max() \
+                    .item()
+                if not (bool(torch.isfinite(a).all())
+                        and (e <= SCATTER_RTOL * top if top > 0
+                             else not bool(a.any()))):
+                    raise AssertionError(f"{tag} {key} {i}: {name} is off by "
+                                         f"{e:.3e} > {SCATTER_RTOL} * "
+                                         f"{top:.3e}")
+                by_output[name] = max(by_output.get(name, 0.0),
+                                      e / top if top > 0 else 0.0)
+            for name, a, b, terms in zip(INSTANCE_FIELDS, got[-3:],
+                                         want[-4:-1], want[-1]):
+                b = b.double().reshape(a.shape)
+                err = (a.double() - b).abs()
+                bound = SCATTER_RTOL * terms.double().reshape(a.shape) \
+                    + TABLE_ATOL
+                worst = (err / bound).max().item()
+                if not (bool(torch.isfinite(a).all()) and worst <= 1.0):
+                    raise AssertionError(
+                        f"{tag} {key} {i}: {name} is off by up to "
+                        f"{worst:.3e} times {SCATTER_RTOL} * its lanes' "
+                        f"|terms| + {TABLE_ATOL}")
+                top = b.abs().max().item()
+                for k, v in ((f"g_{name} over its bound", worst),
+                             (f"g_{name} over max|sum|",
+                              err.max().item() / top if top > 0 else 0.0)):
+                    by_output[k] = max(by_output.get(k, 0.0), v)
+            del want
+            # the default instantiation on the same inputs
+            default_kw = {k: v for k, v in kwargs.items()
+                          if k != "instances"}
+            default = kernel(*args, **default_kw)
+            n = 4 if is_surface else 2
+            bad = [j for j, (a, b) in enumerate(zip(got[:n], default[:n]))
+                   if (a is None) != (b is None)
+                   or a is not None and not torch.equal(a, b)]
+            if bad:
+                raise AssertionError(f"{tag} {key} {i}: outputs {bad} differ "
+                                     f"from the default instantiation's")
+            del default
+            olds, news = _paired_ms(lambda: kernel(*args, **default_kw),
+                                    lambda: kernel(*args, **kwargs), 20)
+            ms.append(sum(news) / 2)
+            default_ms.append(sum(olds) / 2)
+            plain_ms.append(device_ms(plain, 2))
+            launches_default = is_surface or rays_grad or table_grad
+            default_launches += launches_default
+            print(f"{key} [{tag} {i}]: "
+                  + ("" if launches_default else "(the default launches "
+                     "nothing: no ray or table gradient asked) ")
+                  + f"default, variant, variant, default "
+                  f"{', '.join(f'{t:.4f}' for t in (olds[0], news[0], news[1], olds[1]))}"
+                  f" ms; plain {plain_ms[-1]:.2f} ms; bound "
+                  f"{bounds[-1]['bound_ms']:.4f} ms ({bounds[-1]['bytes']} B, "
+                  f"by {bounds[-1]['bound_by']}); largest difference per "
+                  f"output "
+                  f"{', '.join(f'{k} {v:.2e}' for k, v in by_output.items())}",
+                  flush=True)
+        out[key] = dict(launches=len(calls),
+                        default_launches=default_launches,
+                        max_abs_err=max((v for k, v in by_output.items()
+                                         if not k.endswith("its bound")),
+                                        default=0.0),
+                        by_output=by_output, ms=ms, default_ms=default_ms,
+                        plain_ms=plain_ms, bound=_sum_bounds(bounds))
+        got = out[key]
+        print(f"{key} on the {tag}: {got['launches']} launches, {_list(ms)} "
+              f"ms = {sum(ms):.4f} ms (the default instantiation on the same "
+              f"inputs {sum(default_ms):.4f} ms, "
+              f"{default_launches} of them launching); plain "
+              f"{sum(plain_ms):.2f} ms; bound {got['bound']['bound_ms']:.4f} "
+              f"ms", flush=True)
+    return out
+
+
 MATERIAL_STEP_KEYS = ("sdf", "voxel_colors", "tint", "roughness", "metallic",
                       "k", "dir_light_dir", "dir_light_strength")
 # the texture-and-env step's parameters (phase 8): with the material
@@ -2215,20 +2414,27 @@ MATERIAL_STEP_KEYS = ("sdf", "voxel_colors", "tint", "roughness", "metallic",
 # variants in one launch each
 TEXTURE_STEP_KEYS = ("sdf", "tint", "roughness", "metallic", "tex_scale",
                      "textures", "env", "dir_light_strength")
+# the pose step's parameters (phase 8): config6's SDF and colours and the
+# instance transforms, through the surface and the resolve backward's
+# instance variants
+POSE_STEP_KEYS = ("sdf", "voxel_colors", "inst_pos", "inst_rot", "inst_scale")
 
 
 @contextlib.contextmanager
-def _eager_shading_by_lane(kept):
-    """``_eager_shading``, each material and texture-scale read of a
-    surface stage (its ``take``), each texture and env tap (``fetch``) and
-    each light table of both stages read as one row a lane
-    (``renderer._lane_lights``), so that the caller can differentiate the
-    loss in those rows and sum their terms in float64: every read is kept in
-    ``kept`` as (field, rows, how to sum them into the table)."""
+def _eager_shading_by_lane(kept, plain_resolve=False):
+    """``_eager_shading``, each material, texture-scale and instance
+    transform read of a surface stage (its ``take``), each texture and env
+    tap (``fetch``) and each light table of both stages read as one row a
+    lane (``renderer._lane_lights``), so that the caller can differentiate
+    the loss in those rows and sum their terms in float64: every read is
+    kept in ``kept`` as (field, rows, how to sum them into the table).
+    With ``plain_resolve`` every level also resolves on
+    ``resolve_scene_reference`` under autograd, its transform reads kept
+    the same way."""
     import torch
 
     from vrt_torch.render import renderer as tren
-    from vrt_torch.render.gpuscene import MATERIAL_FIELDS
+    from vrt_torch.render.gpuscene import INSTANCE_FIELDS, MATERIAL_FIELDS
     from vrt_torch.shade import texture as tex
 
     def lights(scene, lanes):
@@ -2257,42 +2463,56 @@ def _eager_shading_by_lane(kept):
                            tex.flat_index(index, table.shape))
         return fetch
 
-    def surface(scene, o_w, *args, **kwargs):
+    def taker(scene):
         names = {id(getattr(scene, f)): f
-                 for f in MATERIAL_FIELDS + ("tex_scale",)}
+                 for f in MATERIAL_FIELDS + ("tex_scale",) + INSTANCE_FIELDS}
 
         def take(table, idx):
             return rows_of(names[id(table)], table, table[idx], idx)
+        return take
 
+    def surface(scene, o_w, *args, **kwargs):
         return tren.shade_surface_reference(lights(scene, o_w.shape[0]),
-                                            o_w, *args, take=take,
+                                            o_w, *args, take=taker(scene),
                                             fetch=fetcher(scene), **kwargs)
+
+    def resolve(scene, o_w, d_w, hit, inst):
+        return tren.resolve_scene_reference(scene, o_w, d_w, hit, inst,
+                                            take=taker(scene))
 
     def combine(scene, rec, d_w, *args, **kwargs):
         return tren.shade_combine_reference(lights(scene, d_w.shape[0]),
                                             rec, d_w, *args,
                                             fetch=fetcher(scene), **kwargs)
 
-    saved = tren.shade_stages
+    saved = tren.shade_stages, tren.resolve_scene
     tren.shade_stages = lambda *_: (surface, combine)
+    if plain_resolve:
+        tren.resolve_scene = resolve
     try:
         yield
     finally:
-        tren.shade_stages = saved
+        tren.shade_stages, tren.resolve_scene = saved
 
 
 @contextlib.contextmanager
 def _plain_backward(terms):
-    """The shade Functions' backward kernels replaced by their plain
-    versions on the same saved inputs (``shade_surface_backward_reference``
-    / ``shade_combine_backward_reference`` with the launch's variant flags:
+    """The shade Functions' and ``ResolveScene``'s backward kernels replaced
+    by their plain versions on the same saved inputs
+    (``shade_surface_backward_reference`` /
+    ``shade_combine_backward_reference`` with the launch's variant flags:
     autograd of the plain stages, each scene table summed over the lanes in
-    float64), in the wrappers' output format: a step's forward on the
-    kernels and its backward on the plain versions.  Each table's sum of its
-    lanes' |terms| is added into ``terms`` (by field, float64)."""
+    float64; ``resolve_scene_backward_reference``, the closed form, with
+    ``instances`` where the launch had it), in the wrappers' output format:
+    a step's forward on the kernels and its backward on the plain versions.
+    Each table's sum of its lanes' |terms| is added into ``terms`` (by
+    field, float64)."""
+    from vrt_torch.kernels import resolve as kr
     from vrt_torch.kernels import shade as k4
-    from vrt_torch.render.gpuscene import LIGHT_FIELDS, MATERIAL_FIELDS
-    from vrt_torch.render.renderer import (shade_combine_backward_reference,
+    from vrt_torch.render.gpuscene import (INSTANCE_FIELDS, LIGHT_FIELDS,
+                                           MATERIAL_FIELDS)
+    from vrt_torch.render.renderer import (resolve_scene_backward_reference,
+                                           shade_combine_backward_reference,
                                            shade_surface_backward_reference)
 
     def add(fields, sums):
@@ -2301,10 +2521,11 @@ def _plain_backward(terms):
 
     def surface(scene, o_w, d_w, t, n_obj, hit, inst, mode, bounce, cots,
                 rays_grad=True, table_grad=True, g_k=None, material=False,
-                textures=False):
+                textures=False, instances=False):
         want = shade_surface_backward_reference(
             scene, o_w, d_w, t, n_obj, hit, inst, mode, bounce, cots,
-            g_k=g_k, material=material, textures=textures)
+            g_k=g_k, material=material, textures=textures,
+            instances=instances)
         out, rest = list(want[:5]), list(want[5:])
         if not rays_grad:
             out[0] = out[1] = None
@@ -2317,6 +2538,22 @@ def _plain_backward(terms):
         if textures:
             out += rest[:2]
             add(("tex_scale", "textures"), rest[2])
+            rest = rest[3:]
+        if instances:
+            out += rest[:3]
+            add(INSTANCE_FIELDS, rest[3])
+        return tuple(out)
+
+    def resolve(scene, o_w, d_w, hit, inst, g_t, g_n, rays_grad=True,
+                table_grad=True, instances=False):
+        want = resolve_scene_backward_reference(
+            scene, o_w, d_w, hit, inst, g_t, g_n, instances=instances)
+        out = [want[0] if rays_grad else None,
+               want[1] if rays_grad else None,
+               want[2] if table_grad else None]
+        if instances:
+            out += want[3:6]
+            add(INSTANCE_FIELDS, want[6])
         return tuple(out)
 
     def combine(scene, rec, d_w, n_obj, hit_mask, unlit_attr, refl_rgb,
@@ -2333,30 +2570,35 @@ def _plain_backward(terms):
             add(("env",), want[-1:])
         return tuple(out)
 
-    saved = (k4.shade_surface_backward_cuda, k4.shade_combine_backward_cuda)
-    k4.shade_surface_backward_cuda, k4.shade_combine_backward_cuda = \
-        surface, combine
+    saved = (k4.shade_surface_backward_cuda, k4.shade_combine_backward_cuda,
+             kr.resolve_scene_backward_cuda)
+    (k4.shade_surface_backward_cuda, k4.shade_combine_backward_cuda,
+     kr.resolve_scene_backward_cuda) = surface, combine, resolve
     try:
         yield
     finally:
-        k4.shade_surface_backward_cuda, k4.shade_combine_backward_cuda = \
-            saved
+        (k4.shade_surface_backward_cuda, k4.shade_combine_backward_cuda,
+         kr.resolve_scene_backward_cuda) = saved
 
 
 def _table_step(dev, card, sync, zero_counts, counts, timed, scene, cams,
-                keys, what, flags, sdf_step=None, per_entry=False):
+                keys, what, flags, sdf_step=None, per_entry=False,
+                profile_plain=True):
     """A 1080p fit step of ``scene`` from ``cams`` with the scene tables
     ``keys`` among its parameters (Adam at 1e-2 towards zero targets): on
     the kernels (every level through the shade Functions, the backward
     kernels' variants ``flags``: (the surface's, the combine's), one launch
-    each a level), and the same step forced onto the plain pair
-    (``_eager_shading``: the plain stages under autograd), old, new, new,
-    old (the kernels' medians of 3, one step on the plain route, which
-    takes seconds), with the SDF-and-colour
+    each a level; with "instances" among the surface's also the resolve
+    backward's instance variant), and the same step forced onto the plain
+    pair (``_eager_shading``: the plain stages under autograd; with
+    "instances" resolve too, on ``resolve_scene_reference`` under autograd
+    over K3), old, new, new, old (the kernels' medians of 3, one step on
+    the plain route, which takes seconds), with the SDF-and-colour
     step ``sdf_step`` of phase 8 beside it in the same order where given.
     One step on the kernels, the counts set to 0 just before it: 3 + 3
-    forward and 3 + 3 backward shade launches, each backward those variants
-    (its counts are the ``launches`` returned).  The loss and its gradients
+    forward and 3 + 3 backward shade launches and 3 + 3 fused resolve
+    launches, no K3 launch, each backward those variants (its counts are
+    the ``launches`` returned).  The loss and its gradients
     on each route (the step's loss function differentiated): the losses
     within 1e-5, the SDF's (and the colours') gradient at ``FIT_COS_TOL``
     and ``FIT_DIFF_TOL`` (``BF16_DIFF_TOL`` for a bf16 corner table), each
@@ -2373,8 +2615,10 @@ def _table_step(dev, card, sync, zero_counts, counts, timed, scene, cams,
     that into a relative 1e-4 of a lane's cotangent, as the per-ray gates
     allow), are reported beside them, with the check that no read was
     missed.  Device
-    ops, busy time and peak memory of a step on each route; every variant
-    launch of one step held by ``_variant_calls``.  Returns dict(routes (ms,
+    ops, busy time and peak memory of a step on each route (without
+    ``profile_plain`` the plain route's peak is that of its timed steps and
+    it is not profiled); every variant launch of one step held by
+    ``_variant_calls`` (the instance variants' by ``_instance_calls``).  Returns dict(routes (ms,
     peak, busy, device ops), launches, grads, held (``_variant_calls``'s),
     loss, plain_loss)."""
     import numpy as np
@@ -2383,10 +2627,12 @@ def _table_step(dev, card, sync, zero_counts, counts, timed, scene, cams,
     from vrt_torch.diff.fit import (graft_and_rebuild, make_fit_step,
                                     render_views)
     from vrt_torch.diff.optim import adam
+    from vrt_torch.kernels import resolve as kr
     from vrt_torch.kernels import shade as k4
     from vrt_torch.render import renderer as tren
     from vrt_torch.render.gpuscene import RenderMode
 
+    posed = "instances" in flags[0]
     params = {k: scene.volumes.sdf if k == "sdf" else getattr(scene, k)
               for k in keys}
     targets = torch.zeros((len(cams), FRAME_W * FRAME_H, 3), device=dev)
@@ -2398,7 +2644,8 @@ def _table_step(dev, card, sync, zero_counts, counts, timed, scene, cams,
         return step(params, state, targets)[2]
 
     def plain_step():
-        with _eager_shading():
+        with _eager_shading(), (_plain_resolve_path() if posed
+                                else contextlib.nullcontext()):
             return kernel_step()
 
     def value_and_grad(kept=()):
@@ -2436,6 +2683,8 @@ def _table_step(dev, card, sync, zero_counts, counts, timed, scene, cams,
         tren.shade_stages = picked
     got, variants = counts(), dict(k4.VARIANT_LAUNCHES)
     variants.update({k: k4.TABLE_LAUNCHES[k] - tables[k] for k in tables})
+    variants["resolve_bwd instances"] = kr.VARIANT_LAUNCHES[
+        "backward instances"]
     functions = (tren._shade_surface_function, tren._shade_combine_function)
     levels = _resolves(scene)
     surface, combine = flags
@@ -2444,17 +2693,20 @@ def _table_step(dev, card, sync, zero_counts, counts, timed, scene, cams,
              f"combine_bwd env {k4.table_path(scene.env, k4.ENV_SHARED_BYTES)}")
     launched = {"surface_bwd material": "material" in surface,
                 "combine_bwd lights": "lights" in combine,
-                paths[0]: "textures" in surface, paths[1]: "env" in combine}
+                paths[0]: "textures" in surface, paths[1]: "env" in combine,
+                "surface_bwd instances": posed,
+                "resolve_bwd instances": posed}
     want = {k: levels * launched.get(k, False) for k in variants}
     if pairs != [functions] * levels or any(
             got[k] != levels for k in ("surface", "combine", "surface_bwd",
-                                       "combine_bwd")) or \
+                                       "combine_bwd", "resolve",
+                                       "resolve_bwd")) or \
             got["gather"] or got["scatter"] or variants != want:
         raise AssertionError(f"the {what} shaded on {pairs} with launches "
                              f"{got}, variants {variants}, expected {want}")
     loss, grads, _ = value_and_grad()
     kept = []
-    with _eager_shading_by_lane(kept):
+    with _eager_shading_by_lane(kept, plain_resolve=posed):
         plain_loss, plain_grads, by_lane = value_and_grad(kept)
     sync()
     own_terms = {}
@@ -2528,11 +2780,15 @@ def _table_step(dev, card, sync, zero_counts, counts, timed, scene, cams,
     if per_entry:
         del own_grads
 
+    plain_peak = []
+
     def plain_ms():
         sync()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         plain_step()
         sync()
+        plain_peak.append(torch.cuda.max_memory_allocated() / 2**30)
         return (time.perf_counter() - t0) * 1e3
 
     zero_counts()
@@ -2554,6 +2810,13 @@ def _table_step(dev, card, sync, zero_counts, counts, timed, scene, cams,
         routes.update(sdf_colour_step=dict(ms=[beside[0], beside[3]]),
                       kernels_beside_it=dict(ms=[beside[1], beside[2]]))
     for tag, run in (("plain", plain_step), ("kernels", kernel_step)):
+        if tag == "plain" and not profile_plain:
+            routes[tag]["peak_gib"] = max(plain_peak)
+            print(f"{what} on {card}, {tag}: median "
+                  f"{statistics.median(routes[tag]['ms']):.2f} ms, peak "
+                  f"max_memory_allocated {routes[tag]['peak_gib']:.2f} GiB "
+                  f"(not profiled)", flush=True)
+            continue
         # the peak of the profiled step
         sync()
         torch.cuda.reset_peak_memory_stats()
@@ -2571,7 +2834,8 @@ def _table_step(dev, card, sync, zero_counts, counts, timed, scene, cams,
                  f", device busy {prof['busy_ms']:.1f} ms in "
                  f"{prof['device_ops']} device ops"), flush=True)
     zero_counts()
-    held = _variant_calls(kernel_step, levels, what, *flags)
+    held = _instance_calls(kernel_step, levels, what) if posed \
+        else _variant_calls(kernel_step, levels, what, *flags)
     return dict(routes=routes, launches=variants, grads=by_key, held=held,
                 loss=float(loss), plain_loss=float(plain_loss))
 
@@ -3024,7 +3288,14 @@ def _graph_yardstick(render, sync, card):
     return med
 
 
-def _compile_yardstick(render, sync, card, limit_s=420):
+# the seconds the torch.compile yardstick may take in all (its compiles of
+# the plain surface stage took 50-108 s on an NVIDIA H100 80GB HBM3 at
+# 700 W, of the combine stage 10-19 s): past it a stage prints "not
+# measured", so that the run keeps its time limit
+COMPILE_LIMIT_S = 240
+
+
+def _compile_yardstick(render, sync, card, limit_s=COMPILE_LIMIT_S):
     """The second yardstick: ``torch.compile`` of the two plain stages, each
     timed on the inputs of every launch of one 1080p frame beside the kernel
     on the same inputs.  Used nowhere in the port.  Returns {"surface" |
@@ -5892,6 +6163,8 @@ def main():
             ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
              "backward (shade.cu)", "combine_bwd_env_kernel", 256),
             ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
+             "backward (shade.cu)", "surface_bwd_instances_kernel", 256),
+            ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
              "backward (shade.cu)", "surface_resident_kernel", 256),
             ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
              "backward (shade.cu)", "surface_voxels_kernel", 256),
@@ -5913,6 +6186,8 @@ def main():
              "backward (resolve.cu)", "resolve_kernel", 256),
             ("fused resolve (resolve.cu)", "fused resolve, forward and "
              "backward (resolve.cu)", "resolve_bwd_merged_kernel", 256),
+            ("fused resolve (resolve.cu)", "fused resolve, forward and "
+             "backward (resolve.cu)", "resolve_bwd_instances_kernel", 256),
             ("fused resolve (resolve.cu)", "fused resolve, forward and "
              "backward (resolve.cu)", "resolve_bwd_kernel", 256),
             ("corner pack (pack.cu)", "corner pack and its backward "
@@ -6131,6 +6406,26 @@ def main():
                                  f"the paths {took}")
         del busy
     del lights_scene
+    # the instance variants: a loss differentiated in the instance
+    # transforms on the lights frame with its first instance posed (a
+    # quaternion of norm 1.05, an uneven scale: scenes.posed_instances) and
+    # on config7's 12 instances at 512x512 (the first posed too)
+    from vrt_torch.apps.bench import config7_scene
+    from vrt_torch.render.gpuscene import INSTANCE_FIELDS
+    from vrt_torch.scenes import posed_instances
+
+    instance_runs = {}
+    for tag, busy, w, h in (
+            ("480x270_lights", posed_instances(shading_scene(6, 2, 1,
+                                                             device=dev)),
+             SMALL_W, SMALL_H),
+            ("config7_512x512", posed_instances(config7_scene(6, 12, dev)),
+             512, 512)):
+        instance_runs[tag] = _instance_calls(
+            _table_loss(busy, w, h, mode, INSTANCE_FIELDS), _resolves(busy),
+            f"{tag} frame, its first instance posed, a loss in the instance "
+            f"transforms")
+        del busy
 
     # K3: every launch of one 1080p frame on the candidate-loop path, of one
     # config6 fit step with eager shading (the colour rows: the default step
@@ -6205,6 +6500,7 @@ def main():
         _reset(k4.PATH_LAUNCHES)
         _reset(k4.VARIANT_LAUNCHES)
         _reset(k4.TABLE_LAUNCHES)
+        _reset(kr.VARIANT_LAUNCHES)
         _reset(kp.LAUNCHES)
         _reset(kp.BWD_LAUNCHES)
         _reset(ka.LAUNCHES)
@@ -6680,6 +6976,20 @@ def main():
     paired["fit_materials"] = mat_step["routes"]["plain"]["ms"][:1] \
         + mat_step["routes"]["kernels"]["ms"] \
         + mat_step["routes"]["plain"]["ms"][1:]
+    # the pose step: config6's SDF and colours and the instance transforms
+    # among the parameters, on the surface and the resolve backward's
+    # instance variants (no plain stage, no K3) and on the plain route
+    # (eager shading, resolve on the plain path over K3), one plain step a
+    # side; its transforms held entry by entry against the same step with
+    # the backward on the plain versions
+    pose_step = _table_step(
+        dev, card, sync, zero_counts, counts, timed,
+        flagship_scene(6, use_colors=True, device=dev), FIT_CAMS,
+        POSE_STEP_KEYS, "config6 pose fit step", (("instances",), ()),
+        sdf_step=one_step, per_entry=True, profile_plain=False)
+    paired["fit_poses"] = pose_step["routes"]["plain"]["ms"][:1] \
+        + pose_step["routes"]["kernels"]["ms"] \
+        + pose_step["routes"]["plain"]["ms"][1:]
     del fit_scene, step, params, state, targets
     # the step with the texture scale, the textures and the env among the
     # parameters, beside the material constants and the sun's strength:
@@ -6796,7 +7106,8 @@ def main():
         return render_image(flagship, FRAME_W, FRAME_H, mode)
 
     graph_ms = _graph_yardstick(flagship_frame, sync, card)
-    compiled = _compile_yardstick(flagship_frame, sync, card)
+    compiled = _compile_yardstick(flagship_frame, sync, card,
+                                  limit_s=COMPILE_LIMIT_S)
     del flagship
 
     def bound_keys(b):
@@ -7475,6 +7786,79 @@ def main():
                "lanes' sample_env, vrt/shade/texture.py:106-152, in the env "
                "under jax.value_and_grad of the fit step: no Pallas "
                "kernel)"))),
+        *({"name": name, "route": "cuda", "source": source,
+           "replaces": replaces,
+           "path": path,
+           # the variant's launches in phase 8's one pose step on the
+           # kernels, counted from 0 just before it
+           "launches": pose_step["launches"][key],
+           "launches_by_path": {
+               "config6_pose_step": pose_step["launches"][key]},
+           "max_abs_err": max(pose_step["held"][key]["max_abs_err"],
+                              *(r[key]["max_abs_err"]
+                                for r in instance_runs.values())),
+           "max_abs_err_is": "the largest difference of any per-ray output "
+                             "over the launch's largest |plain| cotangent, "
+                             "of the colour or corner table over its "
+                             "largest |plain sum|, or of a transform over "
+                             "its largest |plain sum| (summed in float64)",
+           "by_output": pose_step["held"][key]["by_output"],
+           "tolerance": {"rtol": SHADE_GRAD_RTOL,
+                         "atol_of_max": SHADE_GRAD_ATOL,
+                         "lanes_beyond": SHADE_GRAD_LANE_BUDGET,
+                         "ray_rtol_of_max": RAY_GRAD_RTOL,
+                         "table_rtol_of_max": SCATTER_RTOL,
+                         "transform_rtol_of_its_abs_terms": SCATTER_RTOL,
+                         "transform_atol": TABLE_ATOL},
+           # config6's 1080p pose step, its three launches
+           "ms": sum(pose_step["held"][key]["ms"]),
+           "per_launch_ms": pose_step["held"][key]["ms"],
+           "default_instantiation_ms": sum(pose_step["held"][key]
+                                           ["default_ms"]),
+           "plain_ms": sum(pose_step["held"][key]["plain_ms"]),
+           **bound_keys(pose_step["held"][key]["bound"]),
+           "library_ms": None,
+           "by_path": {t: {
+               "ms": sum(r[key]["ms"]),
+               "default_instantiation_ms": sum(r[key]["default_ms"]),
+               "default_launches": r[key]["default_launches"],
+               "plain_ms": sum(r[key]["plain_ms"]),
+               **bound_keys(r[key]["bound"])}
+               for t, r in instance_runs.items()},
+           "ptxas": {kernel: ptxas.get(kernel)}}
+          for name, key, source, kernel, path, replaces in (
+              ("K4 shade surface backward (instance variant)",
+               "surface_bwd instances", "vrt_torch/csrc/shade.cu",
+               "surface_bwd_instances_kernel",
+               "ShadeSurface's backward where an instance transform (pos, "
+               "rot, scale) needs a gradient: shade_surface_backward_cuda("
+               "..., instances=True), surface_bwd_instances_kernel (the "
+               "merged kernel's body with kInst; kMat and kTex in the same "
+               "launch where asked): a lane's transform cotangents from "
+               "the textures' hit point, the colour sample's ray and the "
+               "world normal, a warp's lanes merged by instance, a block's "
+               "partial sums in shared memory, one atomic a block a word",
+               "vrt/render/renderer.py:62-75 (XLA's transpose of "
+               "_world_to_object and _object_normal_to_world in "
+               "_shade_lit :306-366, _voxel_color_sample :229-232 and "
+               "_shade_unlit_mode :457, through _per_ray_instance's gather "
+               ":182, in inst_pos, inst_rot, inst_scale under "
+               "jax.value_and_grad of the fit step: no Pallas kernel)"),
+              ("fused resolve backward (instance variant)",
+               "resolve_bwd instances", "vrt_torch/csrc/resolve.cu",
+               "resolve_bwd_instances_kernel",
+               "ResolveScene's backward where an instance transform needs a "
+               "gradient: resolve_scene_backward_cuda(..., instances=True), "
+               "resolve_bwd_instances_kernel (resolve_bwd_merged_kernel's "
+               "rounds with kInst on a scene's packed f32 or bf16 table): a "
+               "carrying lane's transform cotangents from its object-space "
+               "ray's, a warp's lanes merged by instance, a block's partial "
+               "sums in shared memory, one atomic a block a word",
+               "vrt/render/renderer.py:62-69 and :210-219 (XLA's transpose "
+               "of _world_to_object under resolve_scene, through "
+               "_per_ray_instance's gather :182, in inst_pos, inst_rot, "
+               "inst_scale under jax.value_and_grad of the fit step: no "
+               "Pallas kernel)"))),
         {"name": "Adam update", "route": "cuda",
          "source": "vrt_torch/csrc/optim.cu",
          "replaces": "vrt/diff/fit.py:168-169 and :217-226 "
@@ -7589,6 +7973,8 @@ def main():
         "config6_material_light_step": {k: mat_step[k] for k in (
             "routes", "launches", "grads", "loss", "plain_loss")},
         "texture_and_env_step": {k: tex_step[k] for k in (
+            "routes", "launches", "grads", "loss", "plain_loss")},
+        "config6_pose_step": {k: pose_step[k] for k in (
             "routes", "launches", "grads", "loss", "plain_loss")},
         "engine": eng["numbers"],
         "config3": c3["numbers"],

@@ -130,10 +130,10 @@ def _source_ints(source: str, names) -> dict:
 def test_shade_backward_slots_are_the_sources():
     """The pointer and int slots each shade backward entry point reads
     (``kSurfaceBwdPtrs``, ``kSurfaceBwdInts``, ``kCombineBwdPtrs``,
-    ``kCombineBwdInts`` in ``csrc/shade.cu``: the texture and env variants'
-    accumulators and flags last) are the ones ``kernels.shade.SLOTS`` holds
-    every launch to, and the texture and env variants' shared-memory
-    budgets are the wrapper's (``table_path``)."""
+    ``kCombineBwdInts`` in ``csrc/shade.cu``: the texture, env and instance
+    variants' accumulators and flags last) are the ones
+    ``kernels.shade.SLOTS`` holds every launch to, and the texture and env
+    variants' shared-memory budgets are the wrapper's (``table_path``)."""
     from vrt_torch.kernels import shade as k4
 
     got = _source_ints("shade.cu", (
@@ -194,15 +194,44 @@ def test_shade_launch_counts_variants_and_table_paths(monkeypatch):
     ptrs, ints = k4.SLOTS["vrt_shade_combine_bwd"]
     k4._launch("vrt_shade_combine_bwd", "combine_bwd", [None] * ptrs,
                list(range(ints)), 7, None, "v4", ("lights",), "env shared")
-    assert seen == [("vrt_shade_surface_bwd", 40, [0] * 17, 7),
+    assert seen == [("vrt_shade_surface_bwd", 41, [0] * 18, 7),
                     ("vrt_shade_combine_bwd", 52, list(range(8)), 7)]
     assert k4.LAUNCHES == dict(surface=0, combine=0, surface_bwd=1,
                                combine_bwd=1)
     assert {k: v for k, v in k4.PATH_LAUNCHES.items() if v} == {
         "combine_bwd v4": 1}
     assert k4.VARIANT_LAUNCHES == {"surface_bwd material": 1,
-                                   "combine_bwd lights": 1}
+                                   "combine_bwd lights": 1,
+                                   "surface_bwd instances": 0}
     assert k4.TABLE_LAUNCHES == {"surface_bwd textures shared": 0,
                                  "surface_bwd textures global": 1,
                                  "combine_bwd env shared": 1,
                                  "combine_bwd env global": 0}
+
+
+def test_instance_variants_sizes_are_the_sources():
+    """The instance variants' sizes in the wrappers: the words of one
+    instance's cotangents (``kernels.resolve.INSTANCE_WORDS``, the
+    ``kInstanceWords`` of ``csrc/scene.cuh``: pos 3, rot 4, scale 3 in
+    ``gpuscene.INSTANCE_FIELDS`` order) and the instances a block of the
+    resolve backward's variant sums (its ``kMaxInstanceGrads``: the scene
+    march's ``MAX_INSTANCES``, which both wrappers check); the
+    resolve backward takes the variant's accumulator as its last
+    parameter, after the stream."""
+    from vrt_torch.kernels import march as k1
+    from vrt_torch.kernels import resolve as kr
+    from vrt_torch.render.gpuscene import INSTANCE_FIELDS
+
+    words = _source_ints("scene.cuh", ("kInstanceWords",))["kInstanceWords"]
+    assert kr.INSTANCE_WORDS == words == 3 + 4 + 3
+    got = _source_ints("resolve.cu", ("kMaxInstanceGrads",))
+    assert got["kMaxInstanceGrads"] == k1.MAX_INSTANCES
+    acc = __import__("torch").arange(2.0 * words).reshape(2, words)
+    pos, rot, scale = kr.instance_grads(acc)
+    assert [x.shape[-1] for x in (pos, rot, scale)] == [3, 4, 3]
+    assert INSTANCE_FIELDS == ("inst_pos", "inst_rot", "inst_scale")
+    assert float(rot[1, 0]) == words + 3.0
+    params = [p.strip() for p in re.search(
+        r'extern "C" int vrt_resolve_scene_bwd\(([^)]*)\)',
+        (_build.CSRC / "resolve.cu").read_text()).group(1).split(",")]
+    assert params[-2:] == ["void* stream", "float* g_inst"]

@@ -560,8 +560,8 @@ def test_fused_resolve_matches_plain_on_card(table, offset, interp, debug):
     a scene march over 12 instances, some lanes with ``inst = -1``: equal
     bit for bit, without a graph and with one (the table requires a
     gradient).  The dispatcher takes the kernel both times and K3 never;
-    instance transforms that require a gradient take the plain path over
-    K3."""
+    instance transforms that require a gradient take the kernel too, and
+    the backward its instance variant."""
     from vrt_torch.kernels import resolve as kr
     from vrt_torch.kernels import rows as k3
 
@@ -596,11 +596,22 @@ def test_fused_resolve_matches_plain_on_card(table, offset, interp, debug):
     corners.requires_grad_(False)
     moving = dataclasses.replace(
         ts, inst_pos=ts.inst_pos.clone().requires_grad_(True))
-    before = (dict(kr.LAUNCHES), k3.LAUNCHES["K3 gather"])
+    before = (dict(kr.LAUNCHES), dict(kr.VARIANT_LAUNCHES),
+              dict(k3.LAUNCHES))
     t, _, _ = tren.resolve_scene(moving, o, d, hit, inst)
-    assert t.requires_grad
-    assert (kr.LAUNCHES, k3.LAUNCHES["K3 gather"]) == (before[0],
-                                                       before[1] + 1)
+    assert type(t.grad_fn).__name__ == "ResolveSceneBackward"
+    (g,) = torch.autograd.grad(t, [moving.inst_pos],
+                               torch.isfinite(t).float())
+    torch.cuda.synchronize()
+    assert kr.LAUNCHES == {"forward": before[0]["forward"] + 1,
+                           "backward": before[0]["backward"] + 1}
+    assert kr.VARIANT_LAUNCHES == {"backward instances":
+                                   before[1]["backward instances"] + 1}
+    assert k3.LAUNCHES == before[2]
+    # a cube hit (kind 4) carries no gradient; surface and solid-entry
+    # hits do
+    carries = bool(((hit.kind == 1) | (hit.kind == 2)).any())
+    assert bool(torch.isfinite(g).all()) and bool(g.any()) == carries
 
 
 def _off_boundary(x):
@@ -1618,10 +1629,10 @@ def test_fixture_frames_through_shade_kernels(fixture, mode, limits):
 
 @pytest.mark.gpu
 def test_shade_dispatch_on_card():
-    """CUDA tensors take the kernels; a graph through a material constant
-    takes the plain stages, launching no shade kernel; a graph through the
-    corner table takes the Function pair, whose frame is the kernels' frame
-    and whose backward launches the backward kernels."""
+    """CUDA tensors take the kernels; a graph through a material constant,
+    an instance transform or the corner table takes the Function pair,
+    whose frame is the kernels' frame and whose backward launches the
+    backward kernels: no graph shades on the plain stages on the card."""
     from vrt_torch.kernels import shade as k4
 
     dev = _card()
@@ -1637,23 +1648,34 @@ def test_shade_dispatch_on_card():
     tint = scene.tint.clone().requires_grad_(True)
     img = render_image(dataclasses.replace(scene, tint=tint), 64, 36,
                        RenderMode())
-    assert launched(3)
+    assert launched(6)
     assert img.requires_grad and not base.requires_grad
     torch.testing.assert_close(img.detach(), base, rtol=1e-4, atol=2e-5)
     with torch.no_grad():
         render_image(dataclasses.replace(scene, tint=tint), 64, 36,
                      RenderMode())
-    assert launched(6)
+    assert launched(9)
+    # a graph through an instance transform: the Function pair, its
+    # backward kernels (the surface's instance variant) launched by the
+    # backward
+    pos = scene.inst_pos.clone().requires_grad_(True)
+    img = render_image(dataclasses.replace(scene, inst_pos=pos), 64, 36,
+                       RenderMode())
+    assert launched(12)
+    torch.testing.assert_close(img.detach(), base, rtol=1e-4, atol=2e-5)
+    img.sum().backward()
+    assert launched(12, 3) and bool(torch.isfinite(pos.grad).all())
+    assert bool(pos.grad.any())
     # a graph through the corner table: the Function pair, its backward
     # kernels launched by the backward
     corners = scene.volumes.corners.clone().requires_grad_(True)
     img = render_image(dataclasses.replace(
         scene, volumes=dataclasses.replace(scene.volumes, corners=corners)),
         64, 36, RenderMode())
-    assert launched(9)
+    assert launched(15, 3)
     torch.testing.assert_close(img.detach(), base, rtol=1e-4, atol=2e-5)
     img.sum().backward()
-    assert launched(9, 3) and bool(torch.isfinite(corners.grad).all())
+    assert launched(15, 6) and bool(torch.isfinite(corners.grad).all())
 
 
 @pytest.mark.gpu
@@ -1735,9 +1757,13 @@ def test_colour_layouts_refused_on_card():
         with pytest.raises(ValueError):
             k4.shade_surface_cuda(bad, o, d, t, n_obj, hit, inst, mode, True,
                                   True)
-    with pytest.raises(ValueError):
-        k4.ShadeSurface.apply(o, d, t, n_obj, packed.voxel_color_corners,
-                              scene, hit, inst, mode, True, True)
+    with pytest.raises(ValueError, match="colour table"):
+        k4.ShadeSurface.apply(
+            o, d, t, n_obj, packed.voxel_color_corners,
+            *(getattr(scene, f) for f in k4.MATERIAL_FIELDS),
+            scene.tex_scale, scene.textures,
+            *(getattr(scene, f) for f in k4.INSTANCE_FIELDS), scene, hit,
+            inst, mode, True, True)
     cpu_hit = dataclasses.replace(hit, hit=hit.hit.cpu(), cell=hit.cell.cpu())
     with pytest.raises(ValueError):
         k4.shade_surface_cuda(scene, o.cpu(), d.cpu(), t.cpu(), n_obj.cpu(),
@@ -2299,13 +2325,17 @@ SHADE_GRAD_CASES = {
 }
 
 
-def _shade_grad_level(case, dev, width=480, height=270, seed=0):
+def _shade_grad_level(case, dev, width=480, height=270, seed=0,
+                      posed=False):
     """A level of the case's scene on ``dev``: its inputs, seeded cotangents
     (zero on miss lanes, as the chain hands them on) and the bounce's
     radiance and shadow booleans.  With ``kinks`` some lanes sit where
     ``vrt``'s derivatives have kinks: hit points on faces of their cells
     (the colour sample's weights), normals with a zero component (the
-    triplanar blend) and a black bounce (the mirror term's clamp)."""
+    triplanar blend) and a black bounce (the mirror term's clamp).
+    ``posed``: the scene's first instance posed by
+    ``scenes.posed_instances`` (a quaternion of norm 1.05, an uneven
+    scale) before the march."""
     from vrt_torch.march.types import RECORD_GRAD_FIELDS
     from vrt_torch.render.camera import camera_rays
     from vrt_torch.scenes import shading_scene
@@ -2325,6 +2355,10 @@ def _shade_grad_level(case, dev, width=480, height=270, seed=0):
         scene = shading_scene(5, device=dev, **spec)
     if unpacked:
         scene = unpacked_colors(scene)
+    if posed:
+        from vrt_torch.scenes import posed_instances
+
+        scene = posed_instances(scene)
     o, d = camera_rays(scene.cam_pos, scene.cam_rot, scene.cam_fov, width,
                        height)
     o, d = o.contiguous(), d.contiguous()
@@ -2592,7 +2626,8 @@ def test_shade_variants_match_plain_on_card(case, old_design):
     if mode.lit:
         assert bool(got[10][0].any()) and bool(got[10][1].any())
     assert {k: k4.VARIANT_LAUNCHES[k] - variants[k] for k in variants} == {
-        "surface_bwd material": 1, "combine_bwd lights": 1}
+        "surface_bwd material": 1, "combine_bwd lights": 1,
+        "surface_bwd instances": 0}
 
 
 # the levels whose texture and env variants are held: lit and textured,
@@ -2696,7 +2731,7 @@ def test_texture_and_env_variants_match_plain_on_card(case, path, combined):
         k: int(k == f"combine_bwd env {path}" or mode.textured
                and k == f"surface_bwd textures {path}") for k in tables}
     assert {k: k4.VARIANT_LAUNCHES[k] - variants[k] for k in variants} == {
-        k: 2 * combined for k in variants}
+        k: 2 * combined * (k != "surface_bwd instances") for k in variants}
 
 
 @pytest.mark.gpu
@@ -2720,6 +2755,228 @@ def test_texture_and_env_variants_refuse_the_first_design_on_card():
             lv["refl"], lv["blocked"], mode, lv["g_rgb"], _old_design=True,
             env=True)
     assert k4.LAUNCHES == before
+
+
+def _instance_variants(lv, surface_kw=None, dev=None):
+    """The two backward kernels' instance variants on a level ``lv`` of
+    ``_shade_grad_level`` (its g_rgb's first column and g_rgb as the
+    resolve's cotangents), each held against its plain version with
+    ``instances`` and against the default launch on the same inputs: the
+    per-ray cotangents (the table's) within their tolerances of the plain
+    version and bit-equal to the default's; each transform entry within
+    ``SCATTER_RTOL`` * its lanes' |terms| (``_assert_table_close``), every
+    seen instance's nonzero.  ``surface_kw`` adds the material and texture
+    variants to the surface launch.  Returns the instance cotangents of
+    both launches."""
+    from vrt_torch.kernels import resolve as kr
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.render.gpuscene import INSTANCE_FIELDS
+
+    surface_kw = dict(surface_kw or {})
+    scene, mode, hit = lv["scene"], lv["mode"], lv["hit"]
+    inst = lv["inst"]
+    args = (scene, lv["o"], lv["d"], lv["t"], lv["n_obj"], hit, inst,
+            mode, mode.lit, lv["cots"])
+    variants = dict(k4.VARIANT_LAUNCHES), dict(kr.VARIANT_LAUNCHES)
+    got = k4.shade_surface_backward_cuda(*args, instances=True, **surface_kw)
+    base = k4.shade_surface_backward_cuda(*args, **surface_kw)
+    want = tren.shade_surface_backward_reference(
+        *args, acc_dtype=torch.float64, instances=True, **surface_kw)
+    torch.cuda.synchronize()
+    _assert_grads_close(("o_w", "d_w", "t", "n_obj"), got[:4], want[:4])
+    for name, a, b in zip(("o_w", "d_w", "t", "n_obj"), got, base):
+        assert torch.equal(a, b), name
+    if scene.use_voxel_colors:
+        scale = want[4].abs().max().item()
+        assert (got[4].double() - want[4]).abs().max().item() \
+            <= SCATTER_RTOL * scale
+    seen = torch.unique(inst[hit.hit].clamp_min(0)).long()
+    for name, a, b, terms in zip(INSTANCE_FIELDS, got[-3:], want[-4:-1],
+                                 want[-1]):
+        _assert_table_close(a, b, terms, name)
+        # a seen instance's entries nonzero where the plain version's are
+        # (a flat texture moves no hit point's sample)
+        assert torch.equal((a[seen] != 0).any(-1),
+                           (b[seen] != 0).any(-1).to(a.device)), name
+        if name != "inst_pos":
+            assert bool(a[seen].any(dim=-1).all()), name
+    surface = got[-3:]
+
+    g_t = torch.where(hit.hit, lv["g_rgb"][:, 0], 0.0)
+    g_n = torch.where(hit.hit[:, None], lv["g_rgb"], 0.0)
+    rargs = (scene, lv["o"], lv["d"], hit, inst, g_t, g_n)
+    got = kr.resolve_scene_backward_cuda(*rargs, instances=True)
+    base = kr.resolve_scene_backward_cuda(*rargs)
+    want = tren.resolve_scene_backward_reference(
+        *rargs, acc_dtype=torch.float64, instances=True)
+    torch.cuda.synchronize()
+    for name, a, b, w in zip(("g_o_w", "g_d_w"), got, base, want):
+        assert _bits_equal(a, b), name
+        scale = w.abs().max().item()
+        assert (a - w).abs().max().item() <= 1e-5 * scale, name
+    scale = want[2].abs().max().item()
+    assert (got[2].double() - want[2]).abs().max().item() <= 1e-5 * scale
+    carries = (hit.kind == 1) | (hit.kind == 2)
+    seen = torch.unique(inst[carries].clamp_min(0)).long()
+    for name, a, b, terms in zip(INSTANCE_FIELDS, got[3:], want[3:6],
+                                 want[6]):
+        _assert_table_close(a, b, terms, name)
+        assert bool(a[seen].any(dim=-1).all()), name
+    assert {k: k4.VARIANT_LAUNCHES[k] - variants[0][k]
+            for k in variants[0]} == {
+        "surface_bwd material": 2 * bool(surface_kw.get("material")),
+        "combine_bwd lights": 0, "surface_bwd instances": 1}
+    assert {k: kr.VARIANT_LAUNCHES[k] - variants[1][k]
+            for k in variants[1]} == {"backward instances": 1}
+    return surface, got[3:]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SHADE_GRAD_CASES))
+def test_instance_variants_match_plain_on_card(case):
+    """The surface backward's and the resolve backward's instance variants
+    against their plain versions on a 480x270 level whose first instance is
+    posed (``scenes.posed_instances``: a quaternion of norm 1.05, an uneven
+    scale), on f32 and bf16 corner tables and both colour layouts
+    (``_instance_variants``)."""
+    _instance_variants(_shade_grad_level(case, _card(), posed=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("table", ["f32", "bf16"])
+def test_instance_variants_with_twelve_instances_on_card(table):
+    """The two instance variants on config7's 12 instances at 128x128
+    (``apps/bench.py::config7_scene``, the first posed) and on the
+    12-instance crowd of the resolve tests (overlapping, one rotated and
+    scaled, one inactive) on a bf16 table: every instance a ray hits gets
+    its own cotangents."""
+    from vrt_torch.apps.bench import config7_scene
+    from vrt_torch.scenes import posed_instances
+
+    dev = _card()
+    if table == "f32":
+        scene = posed_instances(config7_scene(5, 12, dev))
+    else:
+        scene = posed_instances(_crowd(5, "chebyshev", torch.bfloat16, 12,
+                                       dev))
+    lv = _level_of(scene, dev, 128, 128)
+    assert scene.num_instances == 12
+    assert torch.unique(lv["inst"][lv["hit"].hit]).numel() >= 6
+    _instance_variants(lv)
+
+
+def _level_of(scene, dev, width, height, seed=5):
+    """``_shade_grad_level``'s level of a given scene (lit, textured)."""
+    from vrt_torch.march.types import RECORD_GRAD_FIELDS
+
+    from vrt_torch.render.camera import camera_rays
+
+    mode = RenderMode()
+    o, d = camera_rays(scene.cam_pos, scene.cam_rot, scene.cam_fov, width,
+                       height)
+    o, d = o.contiguous(), d.contiguous()
+    hit, inst = tren.march_scene(scene, o, d, torch.full(
+        (o.shape[0],), tren.RADIANCE_TMAX, device=dev))
+    t, n_obj, unlit = tren.resolve_scene(scene, o, d, hit, inst)
+    gen = torch.Generator().manual_seed(seed)
+    rays = o.shape[0]
+
+    def seeded(*shape):
+        x = torch.randn(shape, generator=gen).to(dev)
+        return torch.where(hit.hit.reshape(hit.hit.shape + (1,)
+                                           * (x.ndim - 1)), x, 0.0)
+
+    cots = [seeded(rays) if f in ("roughness", "metallic")
+            else seeded(rays, 3) for f in RECORD_GRAD_FIELDS]
+    return dict(scene=scene, mode=mode, o=o, d=d, hit=hit, inst=inst, t=t,
+                n_obj=n_obj, unlit=unlit, cots=cots,
+                g_rgb=torch.randn((rays, 3), generator=gen).to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["lit-textured-lights", "lit-colours-f32",
+                                  "unlit-textured"])
+def test_instance_variant_with_material_and_textures_on_card(case):
+    """The surface backward's instance variant in one launch with the
+    material and the texture variant: every table of the three within its
+    entry bounds, the instance cotangents those of the launch of the
+    instance variant alone within the same bounds."""
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.render.gpuscene import MATERIAL_FIELDS
+
+    dev = _card()
+    lv = _shade_grad_level(case, dev, posed=True)
+    mode, hit = lv["mode"], lv["hit"]
+    g_k = torch.where(hit.hit, lv["g_rgb"][:, 1], 0.0) if mode.lit else None
+    kw = dict(g_k=g_k, material=True, textures=True)
+    tables = dict(k4.TABLE_LAUNCHES)
+    both, _ = _instance_variants(lv, kw)
+    args = (lv["scene"], lv["o"], lv["d"], lv["t"], lv["n_obj"], hit,
+            lv["inst"], mode, mode.lit, lv["cots"])
+    got = k4.shade_surface_backward_cuda(*args, instances=True, **kw)
+    want = tren.shade_surface_backward_reference(
+        *args, acc_dtype=torch.float64, instances=True, **kw)
+    alone = tren.shade_surface_backward_reference(
+        *args, acc_dtype=torch.float64, instances=True)
+    torch.cuda.synchronize()
+    for name, a, b, terms in zip(MATERIAL_FIELDS, got[5:9], want[5:9],
+                                 want[9]):
+        _assert_table_close(a, b.reshape(a.shape), terms.reshape(a.shape),
+                            name)
+    _assert_table_close(got[9], want[10], want[12][0], "tex_scale")
+    _assert_table_close(got[10], want[11], want[12][1], "textures")
+    for name, a, b, terms in zip(("inst_pos", "inst_rot", "inst_scale"),
+                                 both, alone[5:8], alone[8]):
+        _assert_table_close(a, b, terms, name)
+    # the helper's variant and default launches, and this one
+    assert sum(k4.TABLE_LAUNCHES[k] - tables[k] for k in tables) \
+        == 3 * bool(mode.textured)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["lit-colours-f32", "lit-colours-bf16"])
+def test_instance_variants_on_a_side_stream_on_card(case):
+    """Both instance variants launched inside ``torch.cuda.stream`` of a new
+    stream, behind a sleep queued on that stream, equal the same launches
+    on the default stream: the per-ray cotangents bit for bit, the
+    transforms' within ``SCATTER_RTOL`` * their lanes' |terms| (their
+    atomics add in any order).  A launch on another stream would run before
+    the sleep and the wrappers' zero fills, or fail."""
+    from vrt_torch.kernels import resolve as kr
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.render.gpuscene import INSTANCE_FIELDS
+
+    dev = _card()
+    lv = _shade_grad_level(case, dev, posed=True)
+    scene, mode, hit = lv["scene"], lv["mode"], lv["hit"]
+    args = (scene, lv["o"], lv["d"], lv["t"], lv["n_obj"], hit, lv["inst"],
+            mode, mode.lit, lv["cots"])
+    g_t = torch.where(hit.hit, lv["g_rgb"][:, 0], 0.0)
+    g_n = torch.where(hit.hit[:, None], lv["g_rgb"], 0.0)
+    rargs = (scene, lv["o"], lv["d"], hit, lv["inst"], g_t, g_n)
+
+    def call():
+        return (k4.shade_surface_backward_cuda(*args, instances=True),
+                kr.resolve_scene_backward_cuda(*rargs, instances=True))
+
+    want = call()
+    terms = (tren.shade_surface_backward_reference(*args, instances=True)[-1],
+             tren.resolve_scene_backward_reference(*rargs,
+                                                   instances=True)[-1])
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(device=dev)
+    assert side.cuda_stream != 0
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        got = call()
+    side.synchronize()
+    for a, b in zip(got[0][:4] + got[1][:2], want[0][:4] + want[1][:2]):
+        assert _bits_equal(a, b)
+    for g, w, t in zip(got, want, terms):
+        # two sums of the kernel's, each within its bound of the exact one
+        for name, a, b, tt in zip(INSTANCE_FIELDS, g[-3:], w[-3:], t):
+            _assert_table_close(a, b, 2 * tt.to(a.device), name)
 
 
 @pytest.mark.gpu
@@ -2759,7 +3016,8 @@ def test_fit_through_materials_and_lights_on_card():
     assert {k: k4.LAUNCHES[k] - before[k] for k in before} == dict(
         surface=3, combine=3, surface_bwd=3, combine_bwd=3)
     assert {k: k4.VARIANT_LAUNCHES[k] - variants[k] for k in variants} == {
-        "surface_bwd material": 3, "combine_bwd lights": 3}
+        "surface_bwd material": 3, "combine_bwd lights": 3,
+        "surface_bwd instances": 0}
     assert float(got) == pytest.approx(float(fixture["loss"]), rel=1e-5)
     for k in ("sdf", "voxel_colors"):
         a = fixture[f"grad_{k}"].astype(np.float64).ravel()
@@ -3131,7 +3389,10 @@ def test_shade_forward_designs_packed_record_on_card(rays):
     args = tuple(lv[k][:rays].contiguous() for k in ("o", "d", "t", "n_obj"))
     hit = dataclasses.replace(hit, hit=hit.hit[:rays].contiguous(),
                               cell=hit.cell[:rays].contiguous())
-    args += (scene.voxel_color_corners, scene, hit,
+    args += (scene.voxel_color_corners,
+             *(getattr(scene, f) for f in k4.MATERIAL_FIELDS),
+             scene.tex_scale, scene.textures,
+             *(getattr(scene, f) for f in k4.INSTANCE_FIELDS), scene, hit,
              lv["inst"][:rays].contiguous(), RenderMode(), True, True)
     paths = dict(k4.PATH_LAUNCHES)
     new = _on_design(False, lambda: k4.ShadeSurface.apply(*args))

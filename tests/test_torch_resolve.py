@@ -316,8 +316,8 @@ def test_accumulator_view_flows_through_the_corner_pack(ch):
 
 class TestDispatch:
     """``resolve_scene``: everything goes through ``ResolveScene`` (on CPU
-    tensors its plain versions) except a caller whose instance transforms
-    require a gradient."""
+    tensors its plain versions), a caller whose instance transforms require
+    a gradient too."""
 
     def _counted(self, monkeypatch):
         calls = {"forward": 0, "backward": 0}
@@ -328,9 +328,9 @@ class TestDispatch:
             calls["forward"] += 1
             return fwd(*args)
 
-        def backward(*args):
+        def backward(*args, **kwargs):
             calls["backward"] += 1
-            return bwd(*args)
+            return bwd(*args, **kwargs)
 
         monkeypatch.setattr(tren, "resolve_scene_reference", forward)
         monkeypatch.setattr(tren, "resolve_scene_backward_reference",
@@ -395,14 +395,17 @@ class TestDispatch:
         assert g_d.shape == (3,) and bool(torch.isfinite(g_d).all())
 
     def test_instance_transforms_take_the_plain_path(self, monkeypatch):
-        """``ResolveScene`` returns no gradient for the instance
-        transforms: a caller that wants one goes through autograd over
-        ``resolve_scene_reference`` and gets what autograd gives."""
+        """A caller whose instance transforms require a gradient goes
+        through ``ResolveScene`` too (on CPU tensors: the closed form with
+        ``instances``), and gets what autograd over
+        ``resolve_scene_reference`` gives, the transforms' and the table's
+        gradients within the closed form's gates."""
         ts = _scenes("octree-f32")[1]
         o, d, hit, inst, g_t, g_n = _marched(ts)
         calls = self._counted(monkeypatch)
         grads = []
-        for fn in (tren.resolve_scene, tren.resolve_scene_reference):
+        for fn, node in ((tren.resolve_scene, "ResolveSceneBackward"),
+                         (tren.resolve_scene_reference, None)):
             leaves = [ts.inst_pos.clone().requires_grad_(True),
                       ts.inst_scale.clone().requires_grad_(True),
                       ts.volumes.corners.clone().requires_grad_(True)]
@@ -410,18 +413,40 @@ class TestDispatch:
                 _with_corners(ts, leaves[2]), inst_pos=leaves[0],
                 inst_scale=leaves[1])
             t, n, _ = fn(scene, o, d, hit, inst)
-            assert type(t.grad_fn).__name__ != "ResolveSceneBackward"
+            assert (type(t.grad_fn).__name__ == "ResolveSceneBackward") \
+                == (node is not None)
             grads.append(torch.autograd.grad([t, n], leaves, [g_t, g_n]))
-        assert calls == {"forward": 2, "backward": 0}
-        for a, b in zip(*grads):
-            assert torch.equal(a, b) and bool(a.any())
+        assert calls == {"forward": 2, "backward": 1}
+        for name, a, b in zip(("inst_pos", "inst_scale", "corners"),
+                              *grads):
+            _assert_close(a, b, name)
+            assert bool(a.any()), name
 
     def test_resolve_scene_rejects_foreign_tables(self):
         ts = _scenes("octree-f32")[1]
         o, d, hit, inst, _, _ = _marched(ts)
-        with pytest.raises(ValueError):
-            kr.ResolveScene.apply(o, d, ts.volumes.corners.clone(), ts, hit,
-                                  inst)
+        transforms = [ts.inst_pos, ts.inst_rot, ts.inst_scale]
+        with pytest.raises(ValueError, match="corner"):
+            kr.ResolveScene.apply(o, d, ts.volumes.corners.clone(),
+                                  *transforms, ts, hit, inst)
+        transforms[1] = transforms[1].clone()
+        with pytest.raises(ValueError, match="inst_rot"):
+            kr.ResolveScene.apply(o, d, ts.volumes.corners, *transforms, ts,
+                                  hit, inst)
+
+
+@pytest.mark.parametrize("rays_grad", [True, False])
+def test_instance_variant_refuses_the_first_design(rays_grad):
+    """The backward's first design has no instance variant: asking for one
+    raises before anything is checked, built or launched."""
+    ts = _scenes("octree-f32")[1]
+    o, d, hit, inst, g_t, g_n = _marched(ts, size=16)
+    before = (dict(kr.LAUNCHES), dict(kr.VARIANT_LAUNCHES))
+    with pytest.raises(ValueError, match="first design has no instance"):
+        kr.resolve_scene_backward_cuda(ts, o, d, hit, inst, g_t, g_n,
+                                       rays_grad, _old_design=True,
+                                       instances=True)
+    assert (kr.LAUNCHES, kr.VARIANT_LAUNCHES) == before
 
 
 # The forward's first design stays behind ``_old_design``, the comparator

@@ -16,15 +16,14 @@ against vrt on the CPU, and the rule that picks between the stage pairs.
 - the surface record's shapes and dtypes per flag set;
 - the dispatch rule ``shade_stages``, one case per tensor the level reads:
   a graph through the rays, t, n_obj, the corner table, a colour table, a
-  material constant, a light, the texture scale, a texture or the env takes
-  the Function pair, a graph through an instance transform the plain pair,
-  no graph the plain pair on CPU tensors and the kernel pair on CUDA
-  tensors; another device raises;
-- a fit step of the SDF and the colours runs the Function pair, so does
-  one that also optimizes the material constants and the lights, and one
-  that also optimizes an instance's position the plain pair; all give the
-  loss and gradients of the 64x36 fixture ``chip_smoke.py`` holds the card
-  against;
+  material constant, a light, the texture scale, a texture, the env or an
+  instance transform takes the Function pair, no graph the plain pair on
+  CPU tensors and the kernel pair on CUDA tensors; another device raises;
+- a fit step of the SDF and the colours runs the Function pair, so do one
+  that also optimizes the material constants and the lights and one that
+  also optimizes the instance transforms (whose gradients equal the plain
+  pair's over the plain resolve); all give the loss and gradients of the
+  64x36 fixture ``chip_smoke.py`` holds the card against;
 - a tracer that overrides only ``march`` and ``resolve`` renders the default
   tracer's frame through the stages;
 - the wrappers raise on a wrong device, dtype or shape.
@@ -51,9 +50,9 @@ from vrt_torch.kernels import shade as k4
 from vrt_torch.march.types import MarchHit, SurfaceRecord
 from vrt_torch.render import renderer as tren
 from vrt_torch.render.camera import camera_rays
-from vrt_torch.render.gpuscene import (LIGHT_FIELDS, MATERIAL_FIELDS,
-                                       TEXTURE_FIELDS, RenderMode,
-                                       scene_from_numpy)
+from vrt_torch.render.gpuscene import (INSTANCE_FIELDS, LIGHT_FIELDS,
+                                       MATERIAL_FIELDS, TEXTURE_FIELDS,
+                                       RenderMode, scene_from_numpy)
 from vrt_torch.scenes import flagship_scene
 
 torch.set_num_threads(2)
@@ -267,45 +266,45 @@ def _fake_level(device="cuda", grad_on=None):
         return _fake(device, name == grad_on)
     scene = types.SimpleNamespace(
         volumes=types.SimpleNamespace(corners=make("corners")),
-        **{f: make(f) for f in tren._SHADED_FIELDS})
+        **{f: make(f) for f in tren._KERNEL_GRAD_FIELDS})
     return (scene,) + tuple(make(n) for n in ("o_w", "d_w", "t", "n_obj"))
 
 
 PLAIN = (tren.shade_surface_reference, tren.shade_combine_reference)
 KERNELS = (tren._shade_surface_kernel, tren._shade_combine_kernel)
 FUNCTIONS = (tren._shade_surface_function, tren._shade_combine_function)
-# the tensors whose gradient the Function pair returns
-FUNCTION_CARRIERS = ("o_w", "d_w", "t", "n_obj", "corners") \
+# the tensors whose gradient the Function pair returns: every tensor the
+# level reads and a fit may optimize
+GRAD_CARRIERS = ("o_w", "d_w", "t", "n_obj", "corners") \
     + tren._KERNEL_GRAD_FIELDS
-GRAD_CARRIERS = FUNCTION_CARRIERS + tren._PLAIN_GRAD_FIELDS
 
 
 def test_shaded_fields_are_scene_tensors():
     ts = flagship_scene(3, device="cpu")
-    for f in tren._SHADED_FIELDS:
+    for f in tren._KERNEL_GRAD_FIELDS:
         assert getattr(ts, f) is None or isinstance(getattr(ts, f),
                                                     torch.Tensor), f
     assert {"tint", "voxel_color_corners", "inst_rot", "point_pos",
-            "spot_fwd", "dir_light_dir", "env"} <= set(tren._SHADED_FIELDS)
-    assert tren._SHADED_FIELDS == tren._KERNEL_GRAD_FIELDS \
-        + tren._PLAIN_GRAD_FIELDS
+            "spot_fwd", "dir_light_dir", "env"} <= set(
+                tren._KERNEL_GRAD_FIELDS)
     assert set(tren._KERNEL_GRAD_FIELDS) == {
         "voxel_colors", "voxel_color_corners", *MATERIAL_FIELDS,
-        *LIGHT_FIELDS, *TEXTURE_FIELDS}
+        *LIGHT_FIELDS, *TEXTURE_FIELDS, *INSTANCE_FIELDS}
     assert set(TEXTURE_FIELDS) == {"tex_scale", "textures", "env"}
-    assert tren._PLAIN_GRAD_FIELDS == ("inst_pos", "inst_rot", "inst_scale")
+    assert INSTANCE_FIELDS == ("inst_pos", "inst_rot", "inst_scale")
+    # no tensor of the level is left to the plain pair under a graph
+    assert not hasattr(tren, "_PLAIN_GRAD_FIELDS")
 
 
 @pytest.mark.parametrize("name", GRAD_CARRIERS)
 def test_dispatch_takes_autograd_for(name):
     """CUDA tensors with a graph through ``name``: the Function pair for the
     rays, ``t``, ``n_obj``, the corner table, the colour tables, the
-    material constants, the lights, the texture scale, the textures and
-    the env, the plain pair for the rest (the instance transforms); the
-    same tensors without a graph being recorded: the kernels.  On CPU
-    tensors the same rule, with the plain pair where no graph is
-    recorded."""
-    want = FUNCTIONS if name in FUNCTION_CARRIERS else PLAIN
+    material constants, the lights, the texture scale, the textures, the
+    env and the instance transforms; the same tensors without a graph being
+    recorded: the kernels.  On CPU tensors the same rule, with the plain
+    pair where no graph is recorded."""
+    want = FUNCTIONS
     assert tren.shade_stages(*_fake_level(grad_on=name)) == want
     assert tren.shade_stages(*_fake_level("cpu", grad_on=name)) == want
     with torch.no_grad():
@@ -315,12 +314,15 @@ def test_dispatch_takes_autograd_for(name):
 
 def test_dispatch_plain_fields_win():
     """A graph through the rays, the textures and an instance's position
-    at once: the plain pair, the only one that returns the instance
-    transforms' gradient."""
+    at once: the Function pair, whose backward kernels' variants return
+    every one of those gradients (no tensor is left to the plain pair)."""
     level = _fake_level(grad_on="inst_pos")
     level[1].requires_grad = True
     level[0].textures.requires_grad = True
-    assert tren.shade_stages(*level) == PLAIN
+    assert tren.shade_stages(*level) == FUNCTIONS
+    cpu = _fake_level("cpu", grad_on="inst_scale")
+    cpu[0].tint.requires_grad = True
+    assert tren.shade_stages(*cpu) == FUNCTIONS
 
 
 def test_dispatch_by_device():
@@ -337,25 +339,33 @@ def test_dispatch_by_device():
 
 
 def test_resolve_shares_the_rule():
-    """``resolve_scene``'s test of the instance transforms is the same
-    function."""
+    """``shade_stages``' test of a graph is ``_needs_autograd``; resolve
+    needs none (every call goes through ``ResolveScene``, the instance
+    transforms among its inputs)."""
     assert tren._needs_autograd(_fake(requires_grad=True))
     assert not tren._needs_autograd(_fake(), None)
     with torch.no_grad():
         assert not tren._needs_autograd(_fake(requires_grad=True))
+    import inspect
+
+    assert "_needs_autograd" not in inspect.getsource(tren.resolve_scene)
+    assert "INSTANCE_FIELDS" in inspect.getsource(tren.resolve_scene)
 
 
-def _fit_through(params, want_pair):
+def _fit_through(params, want_pair, force_plain=False):
     """vrt's 64x36 fit loss and gradients (the fixture) at the flagship with
     colours, ``params`` naming the leaves besides the SDF and the colours;
-    every level must shade on ``want_pair``."""
+    every level must shade on ``want_pair``.  ``force_plain`` shades every
+    level on the plain pair and resolves it by autograd over
+    ``resolve_scene_reference``."""
     scene = flagship_scene(4, use_colors=True, device="cpu")
     fixture = np.load(FIT_FIXTURE)
     seen = []
-    plain = tren.shade_stages
+    plain, resolve = tren.shade_stages, tren.resolve_scene
 
     def spy(*args):
-        seen.append((plain(*args), args[3].requires_grad))
+        seen.append((PLAIN if force_plain else plain(*args),
+                     args[3].requires_grad))
         return seen[-1][0]
 
     def loss(p):
@@ -364,13 +374,15 @@ def _fit_through(params, want_pair):
                            - 0.25) ** 2)
 
     tren.shade_stages = spy
+    if force_plain:
+        tren.resolve_scene = tren.resolve_scene_reference
     try:
         got, grads = _value_and_grad(
             loss, {"sdf": scene.volumes.sdf,
                    "voxel_colors": scene.voxel_colors,
                    **{k: getattr(scene, k) for k in params}})
     finally:
-        tren.shade_stages = plain
+        tren.shade_stages, tren.resolve_scene = plain, resolve
     assert seen == [(want_pair, True)] * 3
     np.testing.assert_allclose(float(got), float(fixture["loss"]), rtol=1e-5)
     for k in ("sdf", "voxel_colors"):
@@ -383,13 +395,26 @@ def _fit_through(params, want_pair):
 
 
 def test_fit_step_takes_the_plain_pair_and_the_fixture():
-    """A fit step that also optimizes the instances' positions (whose
-    gradient the kernels do not return) shades every level on the plain
-    pair under autograd, and its loss and SDF and colour gradients are the
-    fixture's (vrt's, on the CPU)."""
-    grads = _fit_through(("inst_pos",), PLAIN)
-    # the hit points move with the instances
-    assert bool(grads["inst_pos"].any())
+    """A fit step that also optimizes the instance transforms shades every
+    level through the Function pair (their gradients come back from the
+    backward kernels' instance variants, on the CPU from the closed form
+    and the plain backward) and resolves through ``ResolveScene``; its loss
+    and SDF and colour gradients are the fixture's (vrt's, on the CPU), and
+    its gradients in the transforms equal those of the same step on the
+    plain pair over the plain resolve under autograd, at
+    ``tests/test_torch_grad.py``'s f32 gates."""
+    from tests.test_torch_grad import COS_F32, DIFF_F32
+
+    grads = _fit_through(INSTANCE_FIELDS, FUNCTIONS)
+    want = _fit_through(INSTANCE_FIELDS, PLAIN, force_plain=True)
+    for f in INSTANCE_FIELDS:
+        a = grads[f].double().numpy().ravel()
+        b = want[f].double().numpy().ravel()
+        # the hit points move with the instances
+        assert bool(grads[f].any()), f
+        cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
+        assert cos >= 1.0 - COS_F32, (f, 1.0 - cos)
+        assert np.abs(a - b).max() <= DIFF_F32 * np.abs(b).max(), f
 
 
 def test_fit_step_through_materials_and_lights_takes_the_function_pair():

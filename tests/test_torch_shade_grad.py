@@ -299,19 +299,21 @@ def test_record_packs_for_the_functions():
 
 def test_functions_and_backward_wrappers_refuse():
     """``ShadeSurface`` takes the scene's own colour table, material
-    constants, texture scale and textures and no others, ``ShadeCombine``
+    constants, texture scale, textures and instance transforms and no
+    others, ``ShadeCombine``
     the scene's own light tables and env; the backward wrappers refuse CPU
     tensors without launching."""
     scene = shading_scene(3, 1, 1, colors=True, device="cpu")
     mode = RenderMode()
     o, d, hit, inst, t, n_obj, unlit = _level_inputs(scene, mode, 8, 6)
     materials = [scene.tint, scene.roughness, scene.metallic, scene.k,
-                 scene.tex_scale, scene.textures]
+                 scene.tex_scale, scene.textures, scene.inst_pos,
+                 scene.inst_rot, scene.inst_scale]
     with pytest.raises(ValueError, match="colour table"):
         k4.ShadeSurface.apply(o, d, t, n_obj,
                               scene.voxel_color_corners.clone(), *materials,
                               scene, hit, inst, mode, True, True)
-    for i, name in ((1, "roughness"), (5, "textures")):
+    for i, name in ((1, "roughness"), (5, "textures"), (8, "inst_scale")):
         tables = list(materials)
         tables[i] = tables[i].clone()
         with pytest.raises(ValueError, match=name):
@@ -343,6 +345,24 @@ def test_functions_and_backward_wrappers_refuse():
         k4.shade_combine_backward_cuda(scene, rec, d, n_obj, hit.hit, unlit,
                                        None, None, mode, torch.zeros_like(d))
     assert k4.LAUNCHES == before
+
+
+@pytest.mark.parametrize("flags", [dict(instances=True),
+                                   dict(instances=True, material=True)])
+def test_instance_variant_refuses_the_first_design(flags):
+    """The surface backward's first design has no instance variant: asking
+    for one raises before anything is checked, built or launched, whatever
+    else is asked (the dispatch never asks: ``ShadeSurface`` launches the
+    merged kernel)."""
+    scene = shading_scene(3, 1, 1, colors=True, device="cpu")
+    mode = RenderMode()
+    o, d, hit, inst, t, n_obj, _ = _level_inputs(scene, mode, 8, 6)
+    before = (dict(k4.LAUNCHES), dict(k4.VARIANT_LAUNCHES))
+    with pytest.raises(ValueError, match="first design has no instance"):
+        k4.shade_surface_backward_cuda(
+            scene, o, d, t, n_obj, hit, inst, mode, True,
+            [None] * len(RECORD_GRAD_FIELDS), _old_design=True, **flags)
+    assert (k4.LAUNCHES, k4.VARIANT_LAUNCHES) == before
 
 
 # The combine backward's redesign moves a warp's [32,3] spans in 16-byte

@@ -22,7 +22,8 @@ in ``tex_scale``, the stacked ``textures`` and the ``env`` cube
   texel, adds both taps (the plain backward against ``jax.grad`` of
   ``vrt``'s ``sample_env``);
 - a graph through an instance's position beside the textures shades on
-  the plain pair, with the Function pair's gradient in the tables;
+  the Function pair, with its gradient in the tables as without the
+  position and the position's as the plain pair's;
 - a fit step that also optimizes the textures and the env shades through
   the Function pair and gives the 64x36 fixture's loss and gradients.
 
@@ -205,15 +206,21 @@ def test_one_texel_wide_texture_adds_both_taps():
 
 def test_instance_transform_graph_takes_the_plain_pair():
     """A graph through the textures and an instance's position at once:
-    every level shades on the plain pair (the only one that returns the
-    instance transforms' gradient), whose gradient in the sampled tables is
-    the Function pair's."""
+    every level shades on the Function pair (the surface backward's texture
+    and instance variants, on the CPU the plain backward with both), whose
+    gradient in the sampled tables is the one without the position, and in
+    the position the plain pair's."""
     _, ts, mode, o, d, weights = _case("lit-textured")
     _, want, _ = _port_grads(ts, mode, o, d, weights)
-    _, got, seen = _port_grads(ts, mode, o, d, weights,
-                               fields=TEXTURE_FIELDS + ("inst_pos",))
-    assert seen == [PLAIN] * _levels(mode)
+    fields = TEXTURE_FIELDS + ("inst_pos",)
+    _, got, seen = _port_grads(ts, mode, o, d, weights, fields=fields)
+    _, plain, plain_seen = _port_grads(ts, mode, o, d, weights, PLAIN,
+                                       fields=fields)
+    assert seen == [FUNCTIONS] * _levels(mode)
+    assert plain_seen == [PLAIN] * _levels(mode)
     assert bool(got["inst_pos"].any())
+    _assert_close(got["inst_pos"].numpy(), plain["inst_pos"].numpy(),
+                  "inst_pos")
     for f in TEXTURE_FIELDS:
         _assert_close(got[f].numpy(), want[f].numpy(), f)
 

@@ -68,11 +68,11 @@ kernel forced beside them, and with ``--parent DIR`` the surface launches
 of the flagship's 1080p frame, a config6 fit step, config3's and config7's
 frames and a config4 fit step on this checkout's kernels and on the
 ``shade.cu`` of the checkout under DIR in turns; for ``shade_bwd --parent
-DIR`` the four shade kernels' launches (forward and backward) of the 1080p
-flagship frame, the config6 and config4 fit steps and the
-material-and-light step (the backward's material and light variants) on
-this checkout's ``shade.cu`` and on the parent's, parent, this, this,
-parent, bit-equal.  Each build must give the default
+DIR`` the four shade kernels' launches (forward and backward) and the
+fused resolve backward's of the 1080p flagship frame, the config6 and
+config4 fit steps and the material-and-light step (the backward's material
+and light variants) on this checkout's ``shade.cu`` and ``resolve.cu``
+and on the parent's, parent, this, this, parent, bit-equal.  Each build must give the default
 build's result (the marches
 field by field, the per-ray cotangents bit for bit (every output of the
 combine backward and of the fused resolve), the forward pair on
@@ -509,41 +509,60 @@ def _against_parent(parent, card, dev, config4_step):
         del calls
 
 
-def _shade_against_parent(parent, card, steps):
-    """Every launch of the four shade kernels (the surface's and the
-    combine's, forward and backward) in each run of ``steps`` ((what, run):
-    the 1080p flagship frame, config6's and config4's fit steps and
-    config6's step with the materials and the lights), each on this
-    checkout's ``shade.cu`` and on the parent checkout ``parent``'s in the
-    order parent, this, this, parent, with the same arguments: every launch
-    must give the parent's outputs bit for bit (a surface record on the
-    lanes it writes, the combine's rgb, the surface backward's per-ray
-    cotangents, every per-ray cotangent of the combine backward; the
-    tables' atomics add in an order of their own).  These are the default
-    instantiations and the material and light variants, which this
-    checkout's texture and env variants leave as they were."""
+def _parent_library(module, parent, source, entries):
+    """``module``'s source as the parent checkout ``parent`` has it, built,
+    its ``entries`` typed as ``module``'s own library types them (an entry
+    that takes a new parameter last passes it on, and the parent's ignores
+    it): (the parent's library, this checkout's)."""
     from pathlib import Path
 
-    k4.build()
+    module.build()
     csrc = Path(parent).resolve() / "vrt_torch" / "csrc"
-    old, _ = _build.build(str(csrc / "shade.cu"), k4.NVCC_FLAGS,
+    old, _ = _build.build(str(csrc / source), module.NVCC_FLAGS,
                           headers=[str(csrc / "scene.cuh")])
-    for name in ("vrt_shade_surface", "vrt_shade_combine",
-                 "vrt_shade_surface_bwd", "vrt_shade_combine_bwd"):
-        fn, ref = getattr(old, name), getattr(k4._lib, name)
+    for name in entries:
+        fn, ref = getattr(old, name), getattr(module._lib, name)
         fn.argtypes, fn.restype = ref.argtypes, ref.restype
-    new = k4._lib
+    return old, module._lib
+
+
+def _shade_against_parent(parent, card, steps):
+    """Every launch of the four shade kernels (the surface's and the
+    combine's, forward and backward) and of the fused resolve's backward in
+    each run of ``steps`` ((what, run): the 1080p flagship frame, config6's
+    and config4's fit steps and config6's step with the materials and the
+    lights), each on this checkout's ``shade.cu`` / ``resolve.cu`` and on
+    the parent checkout ``parent``'s in the order parent, this, this,
+    parent, with the same arguments: every launch must give the parent's
+    outputs bit for bit (a surface record on the lanes it writes, the
+    combine's rgb, the surface backward's per-ray cotangents, every per-ray
+    cotangent of the combine backward, the resolve backward's ray
+    gradients; the tables' atomics add in an order of their own: the
+    corner table's within ``SCATTER_RTOL`` of its largest entry).  These
+    are the default instantiations and the material and light variants,
+    which this checkout's texture, env and instance variants leave as they
+    were."""
+    from vrt_torch.kernels import resolve as kr
+
+    libs = {k4: _parent_library(k4, parent, "shade.cu", (
+        "vrt_shade_surface", "vrt_shade_combine", "vrt_shade_surface_bwd",
+        "vrt_shade_combine_bwd")),
+            kr: _parent_library(kr, parent, "resolve.cu",
+                                ("vrt_resolve_scene_bwd",))}
 
     def per_ray(got, want, args, label):
         # the combine backward's nine cotangents and the light variant's k
         return _same_bits(got[:10], want[:10], args, label)
 
     for what, run in steps:
-        for name, same in (("shade_surface_cuda", _same_record),
-                           ("shade_combine_cuda", _same_rgb),
-                           ("shade_surface_backward_cuda", _same_cotangents),
-                           ("shade_combine_backward_cuda", per_ray)):
-            calls = _recorded(k4, name, run)
+        for module, name, same in (
+                (k4, "shade_surface_cuda", _same_record),
+                (k4, "shade_combine_cuda", _same_rgb),
+                (k4, "shade_surface_backward_cuda", _same_cotangents),
+                (k4, "shade_combine_backward_cuda", per_ray),
+                (kr, "resolve_scene_backward_cuda", _same_resolve_bwd)):
+            old, new = libs[module]
+            calls = _recorded(module, name, run)
             if not calls:
                 continue
             per = []
@@ -551,8 +570,8 @@ def _shade_against_parent(parent, card, steps):
                 for args, kwargs, got in calls:
                     def on(lib):
                         def launch():
-                            k4._lib = lib
-                            return getattr(k4, name)(*args, **kwargs)
+                            module._lib = lib
+                            return getattr(module, name)(*args, **kwargs)
                         return launch
 
                     outs = [on(lib)() for lib in (old, new)]
@@ -565,7 +584,7 @@ def _shade_against_parent(parent, card, steps):
                     per.append([device_ms(on(lib), REPS)
                                 for lib in (old, new, new, old)])
             finally:
-                k4._lib = new
+                module._lib = new
             olds = sum(t[0] + t[3] for t in per) / 2
             news = sum(t[1] + t[2] for t in per) / 2
             flags = sorted({k for _, kw, _ in calls for k, v in kw.items()

@@ -92,6 +92,21 @@
 // blocks' prefetch of kinds works around on the miss rounds
 // (vrt_torch.apps.probe_caps resolve_bwd times each choice).
 //
+// The instance variant (resolve_bwd_instances_kernel: the redesign's rounds
+// with kInst, a scene's packed f32 or bf16 table) also pulls the cotangents
+// back to the instance transforms, where a pose fit asks for them; vrt gets
+// them from XLA's transpose of _world_to_object and of _per_ray_instance's
+// gather.  A lane that carries a gradient forms its instance's (pos 3, rot
+// 4, scale 3; scene.cuh object_bwd of its origin and its direction, the
+// object-space cotangents the round already holds), whether or not its ray
+// gradients are asked; the lanes of a warp on one instance sum them
+// (__match_any_sync, a shuffle tree of 10 words) and the lowest adds them
+// into the block's partial sums in shared memory (up to kMaxInstanceGrads
+// instances), which the block adds into an f32 [I, 10] accumulator once at
+// its end, one atomic a nonzero word.  It adds a carrying lane's transform
+// (40 B, cached) and some 150 operations; the default instantiation is
+// compiled as before.
+//
 // ---- a slab's planes, and the first design's slab table ---------------------
 //
 // One rank of a slab-sharded volume (vrt_torch.dist.brick) resolves against
@@ -722,17 +737,18 @@ __device__ __forceinline__ void add_planes(float* g, const SlabPlanes& sp,
 
 // Sums v over each group of lanes that ``peers`` (this lane's
 // __match_any_sync mask) names, by a segmented tree reduction (log2 of the
-// largest group's size rounds of 8 shuffles), into the group's lowest lane,
+// largest group's size rounds of N shuffles), into the group's lowest lane,
 // which is returned; every lane of the warp calls it.  Lanes whose groups
 // are all single skip the rounds.
-__device__ __forceinline__ int merge_peers(unsigned peers, float v[8],
+template <int N>
+__device__ __forceinline__ int merge_peers(unsigned peers, float (&v)[N],
                                            int lane) {
   unsigned above = peers & (0xfffffffeu << lane);
   unsigned rank = __popc(peers & ((1u << lane) - 1u));
   while (__any_sync(kFullWarp, above != 0u)) {
     const int next = __ffs(above);              // 1 + the next peer's lane
     #pragma unroll
-    for (int e = 0; e < 8; ++e) {
+    for (int e = 0; e < N; ++e) {
       const float o = __shfl_sync(kFullWarp, v[e], next > 0 ? next - 1 : lane);
       if (next > 0) v[e] += o;
     }
@@ -755,12 +771,18 @@ __device__ __forceinline__ void row_values(float g, const float w[8],
 // Every lane of the warp calls it and none leaves before the merge.  With
 // kPlanes (a slab's planes; kSlab's rows are not used) rows[0] is the hit
 // cell's key on a surface lane, and the group's lowest lane adds the seven
-// merged rows into the planes' gradient by voxel.
-template <typename E, bool kV16, bool kSlab, bool kPlanes>
+// merged rows into the planes' gradient by voxel.  With kInst (the instance
+// variant) a lane that carries a gradient also forms its instance
+// transform's cotangents (object_bwd of its ray's origin and direction);
+// the lanes of one instance sum them, and the lowest adds the sums into the
+// block's partial sums sh_inst (kInstanceWords an instance).
+template <typename E, bool kV16, bool kSlab, bool kPlanes,
+          bool kInst = false>
 __device__ __forceinline__ void backward_round(const ResolveBwdParams& p,
                                                int acc_w, long long w0,
                                                int lane, int kind,
-                                               float* stage) {
+                                               float* stage,
+                                               float* sh_inst = nullptr) {
   const long long i = w0 + lane;
   const bool in = i < p.rays;
   const bool full = w0 + 32 <= p.rays;
@@ -988,6 +1010,36 @@ __device__ __forceinline__ void backward_round(const ResolveBwdParams& p,
     }
   }
 
+  if (kInst) {
+    // the transform's cotangents from the object-space ray's, after the
+    // rows' merge, the ray and the transform read again (cached), so that
+    // none of it is held through the merge
+    float gi[kInstanceWords];
+    #pragma unroll
+    for (int e = 0; e < kInstanceWords; ++e) gi[e] = 0.0f;
+    if (carries) {
+      float o_w[3], d_w[3], pos[3], rot[4], scale[3];
+      #pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        o_w[k] = p.o_w[3 * i + k];
+        d_w[k] = p.d_w[3 * i + k];
+        pos[k] = __ldg(p.inst.pos + 3 * a + k);
+        scale[k] = __ldg(p.inst.scale + 3 * a + k);
+      }
+      #pragma unroll
+      for (int k = 0; k < 4; ++k) rot[k] = __ldg(p.inst.rot + 4 * a + k);
+      object_bwd<true>(pos, rot, scale, o_w, g_o, gi);
+      object_bwd<false>(pos, rot, scale, d_w, g_d, gi);
+    }
+    // the lanes of one instance summed, the lowest adding the sums into the
+    // block's; a lane without a gradient merges alone and adds nothing
+    const unsigned peers = __match_any_sync(kFullWarp, carries ? a : -1 - lane);
+    if (merge_peers(peers, gi, lane) == lane && carries)
+      #pragma unroll
+      for (int e = 0; e < kInstanceWords; ++e)
+        if (gi[e] != 0.0f) atomicAdd(sh_inst + a * kInstanceWords + e, gi[e]);
+  }
+
   if (rays_grad) {
     // the transpose of world_to_object: rotate by rot, divide by scale;
     // exact zeros on the lanes without a gradient, as the first design
@@ -1037,11 +1089,12 @@ __device__ __forceinline__ void backward_round(const ResolveBwdParams& p,
 // (W the grid's warps: neighbouring rays, which hit together, go to
 // different warps), kBwdRounds at a time, their kinds loaded at once, and
 // loads the next kBwdRounds kinds before it works on these.  acc has rows of acc_w
-// floats (8 or 12), 16-byte aligned.
-template <typename E, bool kV16, bool kSlab, bool kPlanes = false>
-__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
-    resolve_bwd_merged_kernel(const ResolveBwdParams p, int acc_w) {
-  __shared__ __align__(16) float stage[kBwdThreads / 32][2 * 96];
+// floats (8 or 12), 16-byte aligned.  stage is the warp's row of the
+// block's stage; sh_inst the instance variant's partial sums.
+template <typename E, bool kV16, bool kSlab, bool kPlanes, bool kInst>
+__device__ __forceinline__ void merged_rounds(const ResolveBwdParams& p,
+                                              int acc_w, float* stage,
+                                              float* sh_inst) {
   const int lane = threadIdx.x & 31;
   const long long warp =
       static_cast<long long>(blockIdx.x) * (kBwdThreads / 32) +
@@ -1066,8 +1119,9 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
     for (int r = 0; r < kBwdRounds; ++r) {
       const long long w0 = (warp + (first + r) * warps) * 32;
       if (w0 >= p.rays) break;                 // the whole warp
-      backward_round<E, kV16, kSlab, kPlanes>(p, acc_w, w0, lane, kinds[0],
-                                              stage[threadIdx.x >> 5]);
+      backward_round<E, kV16, kSlab, kPlanes, kInst>(p, acc_w, w0, lane,
+                                                     kinds[0], stage,
+                                                     sh_inst);
       // the next round's kind to the front, in registers
       #pragma unroll
       for (int q = 0; q + 1 < kBwdRounds; ++q) kinds[q] = kinds[q + 1];
@@ -1077,10 +1131,43 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
   }
 }
 
-// The blocks of the merged kernel's grid: enough to cover the rays in one
-// pass of kBwdRounds rounds a warp, at most as many as the SMs hold at once
-// (found once a variant, on the card of its first launch).
-template <typename E, bool kV16, bool kSlab, bool kPlanes>
+template <typename E, bool kV16, bool kSlab, bool kPlanes = false>
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
+    resolve_bwd_merged_kernel(const ResolveBwdParams p, int acc_w) {
+  __shared__ __align__(16) float stage[kBwdThreads / 32][2 * 96];
+  merged_rounds<E, kV16, kSlab, kPlanes, false>(
+      p, acc_w, stage[threadIdx.x >> 5], nullptr);
+}
+
+// The instances whose transforms' cotangents a block of the instance
+// variant sums in shared memory (the scene march's kMaxInstances).
+constexpr int kMaxInstanceGrads = 32;
+
+// The instance variant (a scene's packed f32 or bf16 table): the merged
+// kernel's rounds with kInst, a block's partial sums of the transforms'
+// cotangents in shared memory, added into g_inst (f32 [I, kInstanceWords],
+// zeroed by the caller) at the block's end, one f32 atomic a nonzero word.
+template <typename E, bool kV16>
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
+    resolve_bwd_instances_kernel(const ResolveBwdParams p, int acc_w,
+                                 float* g_inst) {
+  __shared__ __align__(16) float stage[kBwdThreads / 32][2 * 96];
+  __shared__ float sh_inst[kMaxInstanceGrads * kInstanceWords];
+  const int words = p.inst.count * kInstanceWords;
+  for (int w = threadIdx.x; w < words; w += blockDim.x) sh_inst[w] = 0.0f;
+  __syncthreads();
+  merged_rounds<E, kV16, false, false, true>(p, acc_w,
+                                             stage[threadIdx.x >> 5], sh_inst);
+  __syncthreads();
+  for (int w = threadIdx.x; w < words; w += blockDim.x)
+    if (sh_inst[w] != 0.0f) atomicAdd(g_inst + w, sh_inst[w]);
+}
+
+// The blocks of the merged kernel's grid (with kInst, the instance
+// variant's): enough to cover the rays in one pass of kBwdRounds rounds a
+// warp, at most as many as the SMs hold at once (found once a variant, on
+// the card of its first launch).
+template <typename E, bool kV16, bool kSlab, bool kPlanes, bool kInst = false>
 long long merged_blocks(long long rays, cudaError_t& err) {
   const long long per_block = static_cast<long long>(kBwdThreads) *
                               kBwdRounds;
@@ -1092,10 +1179,13 @@ long long merged_blocks(long long rays, cudaError_t& err) {
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                    device);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, resolve_bwd_merged_kernel<E, kV16, kSlab, kPlanes>,
-          kBwdThreads,
-          0);
+      err = kInst ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        &per_sm, resolve_bwd_instances_kernel<E, kV16>,
+                        kBwdThreads, 0)
+                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        &per_sm,
+                        resolve_bwd_merged_kernel<E, kV16, kSlab, kPlanes>,
+                        kBwdThreads, 0);
     return static_cast<long long>(max(per_sm, 1)) * sms;
   }();
   return blocks < resident ? blocks : resident;
@@ -1110,6 +1200,19 @@ cudaError_t launch_merged(const ResolveBwdParams& p, int acc_w,
   if (err != cudaSuccess) return err;
   resolve_bwd_merged_kernel<E, kV16, kSlab, kPlanes>
       <<<static_cast<unsigned>(blocks), kBwdThreads, 0, s>>>(p, acc_w);
+  return cudaGetLastError();
+}
+
+template <typename E, bool kV16>
+cudaError_t launch_instances(const ResolveBwdParams& p, int acc_w,
+                             float* g_inst, cudaStream_t s) {
+  cudaError_t err = cudaSuccess;
+  const long long blocks =
+      merged_blocks<E, kV16, false, false, true>(p.rays, err);
+  if (err != cudaSuccess) return err;
+  resolve_bwd_instances_kernel<E, kV16>
+      <<<static_cast<unsigned>(blocks), kBwdThreads, 0, s>>>(p, acc_w,
+                                                             g_inst);
   return cudaGetLastError();
 }
 
@@ -1174,7 +1277,10 @@ extern "C" int vrt_resolve_scene(
 // cc) takes the kSlab variants, which read f32 tables only.  planes 1 (the
 // merged kernel only) reads a slab's planes as vrt_resolve_scene does, and
 // acc is the f32 gradient of the planes' shape (acc_w is not read).
-// Returns cudaGetLastError().
+// g_inst, last, null but in the instance variant (merged 1, a scene's
+// table, at most kMaxInstanceGrads instances): the f32 [n_inst,
+// kInstanceWords] accumulator of the instance transforms' cotangents, zeroed
+// by the caller.  Returns cudaGetLastError().
 extern "C" int vrt_resolve_scene_bwd(
     const float* o_w, const float* d_w, const int32_t* winner,
     const int32_t* kind, const float* t, const int32_t* cell,
@@ -1183,11 +1289,14 @@ extern "C" int vrt_resolve_scene_bwd(
     int n_inst, const int32_t* n, const float* cell_size,
     const float* extends, const void* corners, int cc, int ch, int bf16,
     int v16, int x0, int cx, long long rays, float* g_o_w, float* g_d_w,
-    float* acc, int acc_w, int merged, int planes, void* stream) {
+    float* acc, int acc_w, int merged, int planes, void* stream,
+    float* g_inst) {
   if (n_inst < 1 || ch < 8 || (g_o_w == nullptr) != (g_d_w == nullptr))
     return cudaErrorInvalidValue;
   const bool slab = planes || x0 != 0 || cx != cc;
   if (slab && (bf16 || cx < 1)) return cudaErrorInvalidValue;
+  if (g_inst != nullptr && (!merged || slab || n_inst > kMaxInstanceGrads))
+    return cudaErrorInvalidValue;
   if (planes && (!merged || v16)) return cudaErrorInvalidValue;
   if (planes) acc_w = 8;
   const auto misaligned = [](const void* x) {
@@ -1205,7 +1314,14 @@ extern "C" int vrt_resolve_scene_bwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (merged) {
     cudaError_t err;
-    if (planes)
+    if (g_inst != nullptr) {
+      if (bf16)
+        err = v16 ? launch_instances<uint16_t, true>(p, acc_w, g_inst, s)
+                  : launch_instances<uint16_t, false>(p, acc_w, g_inst, s);
+      else
+        err = v16 ? launch_instances<float, true>(p, acc_w, g_inst, s)
+                  : launch_instances<float, false>(p, acc_w, g_inst, s);
+    } else if (planes)
       err = launch_merged<float, false, true, true>(p, acc_w, s);
     else if (slab)
       err = v16 ? launch_merged<float, true, true>(p, acc_w, s)

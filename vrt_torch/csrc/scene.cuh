@@ -1,7 +1,8 @@
-// What the scene march (march.cu) and the fused resolve (resolve.cu) share:
-// NaN-propagating max / min and sign, the stacked-volume tables, the
-// instance table, the world -> object transform of a ray, and the corners
-// of a cell read from one rank's slab planes.  Every
+// What the scene march (march.cu), the fused resolve (resolve.cu) and the
+// shading (shade.cu) share: NaN-propagating max / min and sign, the
+// stacked-volume tables, the instance table, the world -> object transform
+// of a ray and its backward in the transform, and the corners of a cell
+// read from one rank's slab planes.  Every
 // function follows the operation order of its plain-torch version, and both
 // sources are built with --fmad=false, so each operation rounds on its own
 // as in eager PyTorch.
@@ -116,6 +117,63 @@ __device__ __forceinline__ void rotate(const float qv[3], float qw,
   for (int k = 0; k < 3; ++k) t[k] = 2.0f * t[k];
   cross3(qv, t, c);
   for (int k = 0; k < 3; ++k) out[k] = (v[k] + qw * t[k]) + c[k];
+}
+
+// rotate(qv, qw, v)'s cotangents in the quaternion and in v (added).
+__device__ __forceinline__ void rotate_bwd(const float qv[3], float qw,
+                                           const float v[3],
+                                           const float g[3], float g_qv[3],
+                                           float& g_qw, float g_v[3]) {
+  float tt[3], a[3], b[3], gt[3];
+  cross3(qv, v, tt);
+  for (int c = 0; c < 3; ++c) tt[c] = 2.0f * tt[c];
+  g_qw += (g[0] * tt[0] + g[1] * tt[1]) + g[2] * tt[2];
+  cross3(tt, g, a);            // d(qv x tt) / d qv
+  for (int c = 0; c < 3; ++c) g_qv[c] += a[c];
+  cross3(g, qv, b);            // d(qv x tt) / d tt
+  for (int c = 0; c < 3; ++c) gt[c] = 2.0f * (qw * g[c] + b[c]);
+  cross3(v, gt, a);            // d(qv x v) / d qv
+  cross3(gt, qv, b);           // d(qv x v) / d v
+  for (int c = 0; c < 3; ++c) {
+    g_qv[c] += a[c];
+    g_v[c] += g[c] + b[c];
+  }
+}
+
+// The words of an instance transform's cotangents in the instance
+// variants' sums: pos 3, rot 4, scale 3 (gpuscene.INSTANCE_FIELDS' order).
+constexpr int kInstanceWords = 10;
+
+// The cotangents of an instance transform (pos, rot, scale) for the
+// cotangent g of an object-space vector x = rotate(conj(rot), a), a =
+// (x_w - pos) / scale for a point (kPoint), x_w / scale for a direction
+// (world_to_object), added into gi (kInstanceWords).  Under rotate's formula
+// the transpose of rotate(conj(q), .) is rotate(q, .) exactly, whatever |q|:
+// x_w's cotangent is rotate(rot, g) / scale, which goes with a minus into
+// pos (a point's) and, times a, into scale; the quaternion's is rotate_bwd
+// on the conjugate, its vector part's sign flipped
+// (renderer.py _object_backward).
+template <bool kPoint>
+__device__ __forceinline__ void object_bwd(const float pos[3],
+                                           const float rot[4],
+                                           const float scale[3],
+                                           const float x_w[3],
+                                           const float g[3],
+                                           float gi[kInstanceWords]) {
+  const float qc[3] = {-rot[0], -rot[1], -rot[2]};
+  float a[3], ga[3], gq[3] = {0.0f, 0.0f, 0.0f}, g_v[3] = {0.0f, 0.0f, 0.0f};
+  float gw = 0.0f;
+  for (int k = 0; k < 3; ++k)
+    a[k] = kPoint ? (x_w[k] - pos[k]) / scale[k] : x_w[k] / scale[k];
+  rotate(rot, rot[3], g, ga);
+  rotate_bwd(qc, rot[3], a, g, gq, gw, g_v);
+  for (int k = 0; k < 3; ++k) {
+    const float gx = ga[k] / scale[k];
+    if (kPoint) gi[k] -= gx;
+    gi[3 + k] -= gq[k];
+    gi[7 + k] -= gx * a[k];
+  }
+  gi[6] += gw;
 }
 
 // renderer.py _world_to_object with instance i's transform: rotate by the

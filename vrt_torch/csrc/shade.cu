@@ -1538,6 +1538,18 @@ __global__ void __launch_bounds__(kFwdThreads, kCombineMinBlocks)
 // table's f32 accumulator by f32 atomics; the padding of the stacked
 // textures gets no tap.
 //
+// The surface backward's instance variant (surface_bwd_instances_kernel:
+// the merged kernel's body with kInst, and with kMat / kTex where the step
+// also asks for the material or the texture variant, one launch of all)
+// adds, per hit lane, the cotangents of its instance transform (pos 3, rot
+// 4, scale 3) from the three places the stage reads it: the textures'
+// object-space hit point, the colour sample's object-space ray (scene.cuh
+// object_bwd) and the world normal n_w = rotate(rot, n_shade) * scale
+// (rotate_bwd); a warp's lanes on one instance are summed (merge_peers),
+// the lowest adds the sums into the block's partial sums in shared memory
+// after the other variants', and the block adds them into an f32 [I, 10]
+// accumulator once at its end.
+//
 // Where the derivative has a kink, the kernels take vrt's side (JAX's; the
 // plain stages take it through core/kinks.py):
 //   max(x, c) / min(x, c) / clip(x, lo, hi): x's cotangent whole where x is
@@ -1680,27 +1692,6 @@ __device__ __forceinline__ void safe_unit_bwd(const float v[3],
 __device__ __forceinline__ void rotate_t(const float qv[3], float qw,
                                          const float g[3], float out[3]) {
   rotate(qv, -qw, g, out);
-}
-
-// rotate(qv, qw, v)'s cotangents in the quaternion and in v (added).
-__device__ __forceinline__ void rotate_bwd(const float qv[3], float qw,
-                                           const float v[3],
-                                           const float g[3], float g_qv[3],
-                                           float& g_qw, float g_v[3]) {
-  float tt[3], a[3], b[3], gt[3];
-  cross3(qv, v, tt);
-  for (int c = 0; c < 3; ++c) tt[c] = 2.0f * tt[c];
-  g_qw += dot3(g, tt);
-  cross3(tt, g, a);            // d(qv x tt) / d qv
-  for (int c = 0; c < 3; ++c) g_qv[c] += a[c];
-  cross3(g, qv, b);            // d(qv x tt) / d tt
-  for (int c = 0; c < 3; ++c) gt[c] = 2.0f * (qw * g[c] + b[c]);
-  cross3(v, gt, a);            // d(qv x v) / d qv
-  cross3(gt, qv, b);           // d(qv x v) / d v
-  for (int c = 0; c < 3; ++c) {
-    g_qv[c] += a[c];
-    g_v[c] += g[c] + b[c];
-  }
 }
 
 // The reverse of add_radiance for the cotangent go of its output: adds the
@@ -2679,6 +2670,9 @@ struct SurfaceBwdParams {
   float* g_tex_scale;
   float* g_textures;
   int tex_shared;
+  // the instance variant's: the accumulator of the instance transforms'
+  // cotangents [I, kInstanceWords] f32 (pos, rot, scale), added into
+  float* g_inst;
 };
 
 constexpr int kMatRow = 8;
@@ -2953,14 +2947,19 @@ __device__ __forceinline__ void add_colors(const SurfaceParams& p, float* acc,
 // kMat (the material variant) also adds the cotangents of the lane's
 // material constants into gm (tint's 3, roughness, metallic, k) and names
 // its volume in ``vol``; kTex (the texture variant, kTextured only) adds
-// the texture scale's into g_scale and every texture tap's into `tex`.
+// the texture scale's into g_scale and every texture tap's into `tex`;
+// kInst (the instance variant) adds the cotangents of the lane's instance
+// transform into gi (kInstanceWords: pos, rot, scale), from the three
+// places the stage reads it: the textures' object-space hit point, the
+// colour sample's object-space ray and the world normal.
 template <bool kLit, bool kTextured, bool kColors, bool kMat,
-          bool kTex = false>
+          bool kTex = false, bool kInst = false>
 __device__ __forceinline__ void surface_bwd_hit(
     const SurfaceBwdParams& q, const float* sh_inst, const float* sh_vol,
     const int* sh_sizes, long long i, float g_o[3], float g_d[3],
     float g_n[3], float& g_t, long long& row, float grow[24], float gm[6],
-    int& vol_out, const TableSink* tex = nullptr, float* g_scale = nullptr) {
+    int& vol_out, const TableSink* tex = nullptr, float* g_scale = nullptr,
+    float* gi = nullptr) {
   const SurfaceParams& p = q.f;
   float o_w[3], d_w[3], n_obj[3];
   for (int c = 0; c < 3; ++c) {
@@ -3029,6 +3028,13 @@ __device__ __forceinline__ void surface_bwd_hit(
     float g_rs[3];
     for (int c = 0; c < 3; ++c) g_rs[c] = g_nw[c] * scale[c];
     rotate_t(rot, rot[3], g_rs, g_ns);
+    if (kInst) {
+      // n_w = rotate(rot, n_shade) * scale
+      float rn[3], unused[3] = {0.0f, 0.0f, 0.0f};
+      rotate(rot, rot[3], n_shade, rn);
+      for (int c = 0; c < 3; ++c) gi[7 + c] += g_nw[c] * rn[c];
+      rotate_bwd(rot, rot[3], n_shade, g_rs, gi + 3, gi[6], unused);
+    }
 
     if (kTextured) {
       float g_pos[3] = {0.0f, 0.0f, 0.0f}, g_b[3] = {0.0f, 0.0f, 0.0f};
@@ -3090,6 +3096,7 @@ __device__ __forceinline__ void surface_bwd_hit(
       float g_a[3];
       rotate_t(qc, rot[3], g_pos, g_a);
       for (int c = 0; c < 3; ++c) g_hp[c] += g_a[c] / scale[c];
+      if (kInst) object_bwd<true>(pos, rot, scale, hit_pos, g_pos, gi);
     } else {
       for (int c = 0; c < 3; ++c) g_n[c] += g_ns[c];
       if (kMat) {
@@ -3129,6 +3136,7 @@ __device__ __forceinline__ void surface_bwd_hit(
     float g_a[3];
     rotate_t(qc, rot[3], g_pos, g_a);
     for (int c = 0; c < 3; ++c) g_hp[c] += g_a[c] / scale[c];
+    if (kInst) object_bwd<true>(pos, rot, scale, hit_pos, g_pos, gi);
   }
 
   // the albedo of an untextured lane without per-voxel colours: the tint
@@ -3159,6 +3167,10 @@ __device__ __forceinline__ void surface_bwd_hit(
     for (int c = 0; c < 3; ++c) {
       g_o[c] += ga[c] / scale[c];
       g_d[c] += gb[c] / scale[c];
+    }
+    if (kInst) {
+      object_bwd<true>(pos, rot, scale, o_w, g_oo, gi);
+      object_bwd<false>(pos, rot, scale, d_w, g_dd, gi);
     }
   }
 }
@@ -3231,8 +3243,12 @@ constexpr int kSurfaceBwdMinBlocks = 3;
 // volume beside the material's (a warp's lanes merged by volume first) and
 // adds each texture tap's cotangents into the block's partial sums of the
 // stacked textures in shared memory (tex_shared) or into their accumulator,
-// a warp's lanes on one texel merged first (add_texel).
-template <bool kLit, bool kTextured, bool kColors, bool kMat, bool kTex>
+// a warp's lanes on one texel merged first (add_texel); kInst (the instance
+// variant) keeps a block's partial sums of the instance transforms'
+// cotangents after them (a warp's lanes merged by instance first), added
+// into g_inst once at the block's end.
+template <bool kLit, bool kTextured, bool kColors, bool kMat, bool kTex,
+          bool kInst = false>
 __device__ __forceinline__ void surface_bwd_merged_body(
     const SurfaceBwdParams& q) {
   const SurfaceParams& p = q.f;
@@ -3245,6 +3261,11 @@ __device__ __forceinline__ void surface_bwd_merged_body(
   float* sh_tex = sh_scale + p.mat.count * kTexScaleRow;
   const long long tex_words =
       static_cast<long long>(p.tex_count) * p.tex_h * p.tex_w * 3;
+  // the instance variant's sums, after what the host allotted before them
+  float* sh_ig = sh_mat + (kMat ? p.mat.count * kMatRow : 0) +
+                 (kTex ? p.mat.count * kTexScaleRow +
+                             (q.tex_shared ? tex_words : 0)
+                       : 0);
   stage_surface_tables(p, sh_inst, sh_vol, sh_sizes);
   if (kMat)
     for (int w = threadIdx.x; w < p.mat.count * kMatRow; w += blockDim.x)
@@ -3257,6 +3278,10 @@ __device__ __forceinline__ void surface_bwd_merged_body(
       for (long long w = threadIdx.x; w < tex_words; w += blockDim.x)
         sh_tex[w] = 0.0f;
   }
+  if (kInst)
+    for (int w = threadIdx.x; w < p.inst.count * kInstanceWords;
+         w += blockDim.x)
+      sh_ig[w] = 0.0f;
   __syncthreads();
   const TableSink tex_sink{kTex && q.tex_shared ? sh_tex : nullptr,
                            q.g_textures};
@@ -3288,11 +3313,14 @@ __device__ __forceinline__ void surface_bwd_merged_body(
     float grow[24];
     float gm[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
     float g_scale[2] = {0.0f, 0.0f};
+    float gi[kInstanceWords];
+    if (kInst)
+      for (int e = 0; e < kInstanceWords; ++e) gi[e] = 0.0f;
     int vol = 0;
     if (is_hit)
-      surface_bwd_hit<kLit, kTextured, kColors, kMat, kTex>(
+      surface_bwd_hit<kLit, kTextured, kColors, kMat, kTex, kInst>(
           q, sh_inst, sh_vol, sh_sizes, i, g_o, g_d, g_n, g_t, row, grow, gm,
-          vol, &tex_sink, g_scale);
+          vol, &tex_sink, g_scale, gi);
     if (kColors && q.g_colors != nullptr) {
       if (!is_hit)
         for (int e = 0; e < 24; ++e) grow[e] = 0.0f;
@@ -3312,6 +3340,14 @@ __device__ __forceinline__ void surface_bwd_merged_body(
           if (g_scale[c] != 0.0f)
             atomicAdd(sh_scale + vol * kTexScaleRow + c, g_scale[c]);
     }
+    if (kInst) {
+      // the lanes of one instance summed first, the lowest adding the sums
+      const int a = is_hit ? max(p.winner[i], 0) : 0;
+      const long long key = is_hit ? a : -1 - lane;
+      if (merge_peers(key, gi, lane) == lane && is_hit)
+        for (int e = 0; e < kInstanceWords; ++e)
+          if (gi[e] != 0.0f) atomicAdd(sh_ig + a * kInstanceWords + e, gi[e]);
+    }
     if (!in) continue;
     if (q.g_o_w != nullptr) {
       store3(q.g_o_w, i, g_o);
@@ -3325,6 +3361,10 @@ __device__ __forceinline__ void surface_bwd_merged_body(
     __syncthreads();
     flush_table(q.g_tex_scale, sh_scale, p.mat.count * kTexScaleRow);
     if (q.tex_shared) flush_table(q.g_textures, sh_tex, tex_words);
+  }
+  if (kInst) {
+    __syncthreads();
+    flush_table(q.g_inst, sh_ig, p.inst.count * kInstanceWords);
   }
 }
 
@@ -3341,6 +3381,16 @@ template <bool kLit, bool kColors, bool kMat>
 __global__ void __launch_bounds__(kThreads, kSurfaceBwdMinBlocks)
     surface_bwd_textures_kernel(const SurfaceBwdParams q) {
   surface_bwd_merged_body<kLit, true, kColors, kMat, true>(q);
+}
+
+// The instance variant of the merged kernel (kInst; kMat and kTex as the
+// material and texture variants', so that one launch runs all three that a
+// step asks for): instantiated apart, so that the default launches' and
+// the other variants' kernels stay as they were.
+template <bool kLit, bool kTextured, bool kColors, bool kMat, bool kTex>
+__global__ void __launch_bounds__(kThreads, kSurfaceBwdMinBlocks)
+    surface_bwd_instances_kernel(const SurfaceBwdParams q) {
+  surface_bwd_merged_body<kLit, kTextured, kColors, kMat, kTex, true>(q);
 }
 
 template <typename T>
@@ -3467,6 +3517,43 @@ cudaError_t surface_bwd_textures(const SurfaceBwdParams& q, long long blocks,
       <<<static_cast<unsigned>(std::min(blocks, g.blocks)), kThreads, shared,
          s>>>(q);
   return cudaSuccess;
+}
+
+// One launch of the surface backward's instance variant (kMat and kTex by
+// `material` and `textures`; kTex in a textured mode alone) over `blocks`
+// blocks of rays, on its resident grid for `shared` bytes.
+template <bool kLit, bool kTextured, bool kColors, bool kMat, bool kTex>
+cudaError_t surface_bwd_instances_launch(const SurfaceBwdParams& q,
+                                         long long blocks, size_t shared,
+                                         cudaStream_t s) {
+  const Grid g = resident_grid(
+      reinterpret_cast<const void*>(
+          surface_bwd_instances_kernel<kLit, kTextured, kColors, kMat, kTex>),
+      kThreads, shared);
+  if (g.err != cudaSuccess) return g.err;
+  surface_bwd_instances_kernel<kLit, kTextured, kColors, kMat, kTex>
+      <<<static_cast<unsigned>(std::min(blocks, g.blocks)), kThreads, shared,
+         s>>>(q);
+  return cudaSuccess;
+}
+
+template <bool kLit, bool kTextured, bool kColors>
+cudaError_t surface_bwd_instances(const SurfaceBwdParams& q, bool material,
+                                  bool textures, long long blocks,
+                                  size_t shared, cudaStream_t s) {
+  if (kTextured && textures)
+    return material ? surface_bwd_instances_launch<kLit, kTextured, kColors,
+                                                   true, kTextured>(
+                          q, blocks, shared, s)
+                    : surface_bwd_instances_launch<kLit, kTextured, kColors,
+                                                   false, kTextured>(
+                          q, blocks, shared, s);
+  return material ? surface_bwd_instances_launch<kLit, kTextured, kColors,
+                                                 true, false>(q, blocks,
+                                                              shared, s)
+                  : surface_bwd_instances_launch<kLit, kTextured, kColors,
+                                                 false, false>(q, blocks,
+                                                               shared, s);
 }
 
 // One launch of a forward kernel's redesign over `rays`: its grid, or its
@@ -3713,24 +3800,30 @@ extern "C" int vrt_shade_combine(const void* const* ptrs, const int* ints,
 // null but in the material variant); then the texture variant's
 // accumulators of the texture scale [V,2] and of the stacked textures
 // [T,TH,TW,3], f32 (zeroed by the caller and added into; null but in the
-// texture variant): kSurfaceBwdPtrs pointers.  ints: the surface kernel's
-// 14, then the design (0: the first, one thread a ray over the whole grid;
-// 1: the merged kernel, resident blocks striding over the rays), then 1 for
-// the material variant, else 0, then 1 for the texture variant (the merged
-// kernel in a textured mode alone; with the material variant, one launch
-// of both), else 0: kSurfaceBwdInts ints.  The texture variant sums the
-// textures' cotangents in shared memory where the stack's f32 words fit
-// kTexSharedBytes.  The merged kernel takes outputs on 16-byte boundaries.
-// Returns cudaGetLastError().
-constexpr int kSurfaceBwdPtrs = 40, kSurfaceBwdInts = 17;
+// texture variant); then the instance variant's accumulator of the instance
+// transforms' cotangents [I, kInstanceWords] f32 (zeroed by the caller and
+// added into; null but in the instance variant): kSurfaceBwdPtrs pointers.
+// ints: the surface kernel's 14, then the design (0: the first, one thread
+// a ray over the whole grid; 1: the merged kernel, resident blocks striding
+// over the rays), then 1 for the material variant, else 0, then 1 for the
+// texture variant (the merged kernel in a textured mode alone; with the
+// material variant, one launch of both), else 0, then 1 for the instance
+// variant (the merged kernel alone; with the material and the texture
+// variant, one launch of all), else 0: kSurfaceBwdInts ints.  The texture
+// variant sums the textures' cotangents in shared memory where the stack's
+// f32 words fit kTexSharedBytes.  The merged kernel takes outputs on
+// 16-byte boundaries.  New slots go last, so that a caller's arrays also
+// drive a library built before them.  Returns cudaGetLastError().
+constexpr int kSurfaceBwdPtrs = 41, kSurfaceBwdInts = 18;
 extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
                                      long long rays, void* stream) {
   const int n_inst = ints[0], n_vol = ints[1], n_tex = ints[2];
   const bool lit = ints[7], textured = ints[8], colors = ints[9];
   const bool merged = ints[14] != 0, material = ints[15] != 0;
-  const bool textures = ints[kSurfaceBwdInts - 1] != 0;
+  const bool textures = ints[16] != 0;
+  const bool instances = ints[kSurfaceBwdInts - 1] != 0;
   if (n_inst < 1 || n_vol < 1 || ints[6] < 0 || ints[6] > 2 ||
-      (textures && !(merged && textured)))
+      (textures && !(merged && textured)) || (instances && !merged))
     return cudaErrorInvalidValue;
   SurfaceBwdParams q;
   surface_inputs(ptrs, ints, rays, q.f);
@@ -3747,11 +3840,13 @@ extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
   q.g_colors = const_cast<float*>(at<float>(ptrs, 35));
   q.g_k = at<float>(ptrs, 36);
   q.g_mat = const_cast<float*>(at<float>(ptrs, 37));
-  q.g_tex_scale = const_cast<float*>(at<float>(ptrs, kSurfaceBwdPtrs - 2));
-  q.g_textures = const_cast<float*>(at<float>(ptrs, kSurfaceBwdPtrs - 1));
+  q.g_tex_scale = const_cast<float*>(at<float>(ptrs, 38));
+  q.g_textures = const_cast<float*>(at<float>(ptrs, 39));
+  q.g_inst = const_cast<float*>(at<float>(ptrs, kSurfaceBwdPtrs - 1));
   if ((q.g_o_w == nullptr) != (q.g_d_w == nullptr) || q.g_t == nullptr ||
       q.g_n_obj == nullptr || (material && q.g_mat == nullptr) ||
-      (textures && (q.g_tex_scale == nullptr || q.g_textures == nullptr)))
+      (textures && (q.g_tex_scale == nullptr || q.g_textures == nullptr)) ||
+      (instances && q.g_inst == nullptr))
     return cudaErrorInvalidValue;
   const long long tex_words =
       static_cast<long long>(n_tex) * q.f.tex_h * q.f.tex_w * 3;
@@ -3762,12 +3857,14 @@ extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
         return cudaErrorInvalidValue;
   // the staged tables, and with the material variant the block's partial
   // sums of the material constants' cotangents after them, then the texture
-  // variant's of the texture scale and (on the shared path) the textures
+  // variant's of the texture scale and (on the shared path) the textures,
+  // then the instance variant's of the instance transforms
   const size_t shared =
       4 * (static_cast<size_t>(n_inst) * kInstRow + n_vol * kVolRow +
            2 * n_tex + (material ? n_vol * kMatRow : 0) +
            (textures ? n_vol * kTexScaleRow : 0) +
-           (q.tex_shared ? tex_words : 0));
+           (q.tex_shared ? tex_words : 0) +
+           (instances ? n_inst * kInstanceWords : 0));
   if (shared > kMaxSharedBytes) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long blocks = (rays + kThreads - 1) / kThreads;
@@ -3803,7 +3900,31 @@ extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
     }                                                                       \
     VRT_SURFACE_BWD(L, true, C);                                            \
   } while (0)
-  if (lit) {
+  if (instances) {
+    if (lit) {
+      if (textured)
+        err = colors ? surface_bwd_instances<true, true, true>(
+                           q, material, textures, blocks, shared, s)
+                     : surface_bwd_instances<true, true, false>(
+                           q, material, textures, blocks, shared, s);
+      else
+        err = colors ? surface_bwd_instances<true, false, true>(
+                           q, material, textures, blocks, shared, s)
+                     : surface_bwd_instances<true, false, false>(
+                           q, material, textures, blocks, shared, s);
+    } else {
+      if (textured)
+        err = colors ? surface_bwd_instances<false, true, true>(
+                           q, material, textures, blocks, shared, s)
+                     : surface_bwd_instances<false, true, false>(
+                           q, material, textures, blocks, shared, s);
+      else
+        err = colors ? surface_bwd_instances<false, false, true>(
+                           q, material, textures, blocks, shared, s)
+                     : surface_bwd_instances<false, false, false>(
+                           q, material, textures, blocks, shared, s);
+    }
+  } else if (lit) {
     if (textured) {
       if (colors) VRT_SURFACE_BWD_TEX(true, true);
       else VRT_SURFACE_BWD_TEX(true, false);

@@ -18,10 +18,10 @@ that recompute the stage and return the cotangents of the rays, ``t``,
 cotangents into the colour table (16-byte atomics into a packed view, one
 f32 atomic a component into the grid).  Only the tonemap
 and the loss stay eager.  A fit that also optimizes a material constant,
-a light, the texture scale, a texture or the env shades through the same
-Functions (their backward kernels' variants return those gradients); one
-that optimizes an instance transform shades on the plain stages under
-autograd instead (``renderer.shade_stages``).  The march runs
+a light, the texture scale, a texture, the env or an instance transform
+(``inst_pos``, ``inst_rot``, ``inst_scale``: a pose fit) shades and
+resolves through the same Functions (their backward kernels' variants
+return those gradients; ``renderer.shade_stages``).  The march runs
 under ``torch.no_grad()`` and is never re-run by the backward.  The octree
 accel is rebuilt from the current SDF on the device every step
 (``rebuild_accel``), so the fitted geometry is always marched

@@ -5,8 +5,11 @@
         -> (t f32 [R], object-space normal f32 [R,3], unlit bool [R])
     resolve_scene_backward_cuda(scene, o_w, d_w, hit, inst, g_t, g_normal)
         -> (g_o_w f32 [R,3], g_d_w f32 [R,3], g_corners f32 [V*C^3, ch])
-    ResolveScene.apply(o_w, d_w, corners, scene, hit, inst)
-        -> (t, normal, unlit), differentiable in o_w, d_w and corners
+        (instances=True: and of inst_pos, inst_rot, inst_scale)
+    ResolveScene.apply(o_w, d_w, corners, inst_pos, inst_rot, inst_scale,
+                       scene, hit, inst)
+        -> (t, normal, unlit), differentiable in o_w, d_w, corners and the
+           instance transforms
     resolve_slab_cuda(scene, slab, o_w, d_w, hit, inst)
     resolve_slab_backward_cuda(scene, slab, o_w, d_w, hit, inst, g_t,
                                g_normal)
@@ -40,11 +43,18 @@ run, so it agrees with its plain version to rounding.  Its first design
 (one scalar atomic a channel, private ``_old_design``) stays as
 ``chip_smoke.py``'s comparator; the two give bit-equal ray gradients.
 
+The backward's instance variant (``resolve_bwd_instances_kernel``, the
+merged kernel's rounds with ``kInst``; packed f32 and bf16 tables) also
+returns the cotangents of the instance transforms: each lane's from the
+object-space cotangents of its ray, the lanes of a warp on one instance
+summed first, a block's partial sums in shared memory, one f32 atomic a
+block a word into an f32 [I,10] accumulator (pos 3, rot 4, scale 3).  The
+wrapper launches it only where a transform needs a gradient; every other
+launch is the default instantiation, whose code is as it was.
+
 ``ResolveScene`` is what ``renderer.resolve_scene`` calls.  On CUDA tensors
 its forward and backward are the two kernels; on CPU tensors, and only
-there, their plain versions.  It returns no gradient for the instance
-transforms: ``renderer.resolve_scene`` keeps a caller that wants one on
-the plain path.
+there, their plain versions.
 
 ``ResolveSlab`` is the same pair over one rank's slab of a slab-sharded
 volume (``vrt_torch.dist.brick``).  By default (``slab.table ==
@@ -63,7 +73,8 @@ table's gradient reaches the planes by autograd through the pack
 
 ``LAUNCHES`` counts the launches of each kernel; ``SLAB_LAUNCHES`` the
 launches over a slab's table (``resolve_slab_cuda`` and
-``resolve_slab_backward_cuda``), which ``LAUNCHES`` counts too.
+``resolve_slab_backward_cuda``), and ``VARIANT_LAUNCHES`` the backward
+launches of the instance variant, which ``LAUNCHES`` counts too.
 """
 
 from __future__ import annotations
@@ -73,12 +84,19 @@ import ctypes
 import torch
 
 from vrt_torch.kernels import _build
+from vrt_torch.kernels.march import MAX_INSTANCES
 from vrt_torch.kernels.march import _check as _check_tensor
 from vrt_torch.kernels.march import _stream
 from vrt_torch.march.types import MarchHit
 
 LAUNCHES = {"forward": 0, "backward": 0}
 SLAB_LAUNCHES = {"forward": 0, "backward": 0}
+VARIANT_LAUNCHES = {"backward instances": 0}
+# the words of one instance's cotangents in the instance variants'
+# accumulators (csrc/scene.cuh kInstanceWords: pos 3, rot 4, scale 3); a
+# block sums those of up to the scene march's MAX_INSTANCES in shared
+# memory (csrc/resolve.cu kMaxInstanceGrads)
+INSTANCE_WORDS = 10
 
 NVCC_FLAGS = ["--fmad=false"]
 
@@ -99,7 +117,8 @@ def build() -> str:
     lib.vrt_resolve_scene.restype = i32
     lib.vrt_resolve_scene_bwd.argtypes = ([ptr] * 12 + [i32] + [ptr] * 4
                                           + [i32] * 6 + [ctypes.c_longlong]
-                                          + [ptr] * 3 + [i32] * 3 + [ptr])
+                                          + [ptr] * 3 + [i32] * 3 + [ptr]
+                                          + [ptr])
     lib.vrt_resolve_scene_bwd.restype = i32
     _lib = lib
     return log
@@ -312,10 +331,18 @@ def accumulator(rows: int, ch: int, device):
     return buf, buf[:, :ch]
 
 
+def instance_grads(acc):
+    """The instance transforms' cotangents, (pos [I,3], rot [I,4], scale
+    [I,3]) in ``INSTANCE_FIELDS`` order: views of the instance variant's f32
+    [I, INSTANCE_WORDS] accumulator ``acc``."""
+    return acc[:, :3], acc[:, 3:7], acc[:, 7:]
+
+
 def resolve_scene_backward_cuda(scene, o_w, d_w, hit: MarchHit, inst, g_t,
                                 g_normal, rays_grad: bool = True,
                                 table_grad: bool = True,
-                                _old_design: bool = False):
+                                _old_design: bool = False,
+                                instances: bool = False):
     """Launch the fused resolve's backward on
     ``torch.cuda.current_stream()``: the cotangents ``g_t`` [R] and
     ``g_normal`` [R,3] of ``resolve_scene_cuda``'s t and normal, pulled
@@ -324,11 +351,19 @@ def resolve_scene_backward_cuda(scene, o_w, d_w, hit: MarchHit, inst, g_t,
     reductions; the caller casts it to the table's dtype).  Reads
     ``hit.kind``, ``hit.t`` and ``hit.cell`` only.  ``rays_grad=False`` /
     ``table_grad=False`` skip an output nobody needs and return None for
-    it.  ``_old_design`` runs the first design (one scalar atomic a
-    channel into a contiguous [V*C^3, ch] buffer), the comparator of
-    ``chip_smoke.py``: no path of the port takes it; its ray gradients
-    equal the redesign's bit for bit.  Raises on any input the kernel does
-    not take; never falls back."""
+    it.  ``instances`` launches the instance variant, which returns three
+    more: the cotangents of the instance transforms (``instance_grads``:
+    pos [I,3], rot [I,4], scale [I,3], views of one f32 accumulator zeroed
+    here), whatever ``rays_grad`` and ``table_grad`` say; a scene without
+    instances gets empty ones and the default launch.  ``_old_design`` runs
+    the first design (one scalar atomic a channel into a contiguous
+    [V*C^3, ch] buffer), the comparator of ``chip_smoke.py``: no path of the
+    port takes it; its ray gradients equal the redesign's bit for bit; it
+    has no instance variant.  Raises on any input the kernel does not take;
+    never falls back."""
+    if instances and _old_design:
+        raise ValueError("the fused resolve backward's first design has no "
+                         "instance variant")
     dev, rays, table, n_inst = _check_inputs(scene, o_w, d_w, hit, inst,
                                              "the fused resolve's backward")
     _check(g_t, "g_t", torch.float32, (rays,), dev)
@@ -345,8 +380,19 @@ def resolve_scene_backward_cuda(scene, o_w, d_w, hit: MarchHit, inst, g_t,
                                     dtype=torch.float32, device=dev)
         else:
             buf, acc = accumulator(corners.numel() // ch, ch, dev)
-    if rays == 0 or not (rays_grad or table_grad):
-        return g_o_w, g_d_w, acc
+    extra, g_inst = (), None
+    if instances:
+        if n_inst > MAX_INSTANCES:
+            raise ValueError(f"the fused resolve backward's instance variant "
+                             f"takes up to {MAX_INSTANCES} instances, got "
+                             f"{n_inst}")
+        g_inst = torch.zeros((scene.num_instances, INSTANCE_WORDS),
+                             dtype=torch.float32, device=dev)
+        extra = instance_grads(g_inst)
+        if scene.num_instances == 0:
+            g_inst = None
+    if rays == 0 or not (rays_grad or table_grad or g_inst is not None):
+        return (g_o_w, g_d_w, acc) + extra
     build()
     err = _lib.vrt_resolve_scene_bwd(
         o_w.data_ptr(), d_w.data_ptr(), inst.data_ptr(),
@@ -357,12 +403,14 @@ def resolve_scene_backward_cuda(scene, o_w, d_w, hit: MarchHit, inst, g_t,
         g_d_w.data_ptr() if rays_grad else None,
         buf.data_ptr() if table_grad else None,
         buf.shape[1] if table_grad else 0, int(not _old_design), 0,
-        _stream(dev))
+        _stream(dev), g_inst.data_ptr() if g_inst is not None else None)
     if err != 0:
         raise RuntimeError(f"fused resolve backward launch failed: "
                            f"cudaError {err}")
     LAUNCHES["backward"] += 1
-    return g_o_w, g_d_w, acc
+    if g_inst is not None:
+        VARIANT_LAUNCHES["backward instances"] += 1
+    return (g_o_w, g_d_w, acc) + extra
 
 
 def resolve_slab_backward_cuda(scene, slab, o_w, d_w, hit: MarchHit, inst,
@@ -414,7 +462,7 @@ def resolve_slab_backward_cuda(scene, slab, o_w, d_w, hit: MarchHit, inst,
         g_o_w.data_ptr() if rays_grad else None,
         g_d_w.data_ptr() if rays_grad else None,
         acc.data_ptr() if table_grad else None, 8, int(not _old_design),
-        int(planes), _stream(dev))
+        int(planes), _stream(dev), None)
     if err != 0:
         raise RuntimeError(f"the slab resolve's backward launch failed: "
                            f"cudaError {err}")
@@ -424,17 +472,25 @@ def resolve_slab_backward_cuda(scene, slab, o_w, d_w, hit: MarchHit, inst,
 
 
 class ResolveScene(torch.autograd.Function):
-    """``resolve_scene`` with its gradient in the world rays and the
-    corner table: the two kernels on CUDA tensors, their plain versions on
-    CPU tensors.  ``corners`` is ``scene.volumes.corners`` (passed apart so
-    that autograd sees it).  Saves the rays, the table and the hit's kind,
-    t and cell: no rows, no weights."""
+    """``resolve_scene`` with its gradient in the world rays, the corner
+    table and the instance transforms: the two kernels on CUDA tensors
+    (the backward's instance variant where ``inst_pos``, ``inst_rot`` or
+    ``inst_scale`` needs a gradient), their plain versions on CPU tensors.
+    ``corners`` is ``scene.volumes.corners`` and the three transforms are
+    the scene's own (passed apart so that autograd sees them).  Saves the
+    rays, the table and the hit's kind, t and cell: no rows, no weights."""
 
     @staticmethod
-    def forward(ctx, o_w, d_w, corners, scene, hit, inst):
+    def forward(ctx, o_w, d_w, corners, inst_pos, inst_rot, inst_scale,
+                scene, hit, inst):
         if corners is not scene.volumes.corners:
             raise ValueError("ResolveScene: corners must be the scene's "
                              "corner table")
+        for name, x in (("inst_pos", inst_pos), ("inst_rot", inst_rot),
+                        ("inst_scale", inst_scale)):
+            if x is not getattr(scene, name):
+                raise ValueError(f"ResolveScene: {name} must be the scene's "
+                                 f"own table")
         if o_w.device.type == "cuda":
             t, normal, unlit = resolve_scene_cuda(scene, o_w, d_w, hit, inst)
         else:
@@ -454,26 +510,33 @@ class ResolveScene(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_t, g_normal, _g_unlit):
         o_w, d_w, corners, inst, kind, t, cell = ctx.saved_tensors
-        rays_grad = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
-        table_grad = ctx.needs_input_grad[2]
+        need = ctx.needs_input_grad
+        rays_grad = need[0] or need[1]
+        table_grad = need[2]
+        instances = any(need[3:6])
         hit = MarchHit(hit=None, t=t, kind=kind, cell=cell, t_in=None,
                        t_out=None, face_normal=None, steps=None)
+        # the default call as it was, the variant with its flag
+        kwargs = {"instances": True} if instances else {}
         if o_w.device.type == "cuda":
-            g_o_w, g_d_w, acc = resolve_scene_backward_cuda(
+            got = resolve_scene_backward_cuda(
                 ctx.scene, o_w, d_w, hit, inst, g_t.contiguous(),
-                g_normal.contiguous(), rays_grad, table_grad)
+                g_normal.contiguous(), rays_grad, table_grad, **kwargs)
         else:
             from vrt_torch.render.renderer import \
                 resolve_scene_backward_reference
 
-            g_o_w, g_d_w, acc = resolve_scene_backward_reference(
-                ctx.scene, o_w, d_w, hit, inst, g_t, g_normal)
+            got = resolve_scene_backward_reference(
+                ctx.scene, o_w, d_w, hit, inst, g_t, g_normal, **kwargs)
+        g_o_w, g_d_w, acc = got[:3]
+        g_inst = got[3:6] if instances else (None,) * 3
         g_corners = None
         if table_grad:
             g_corners = acc.to(corners.dtype).reshape(corners.shape)
-        return (g_o_w if ctx.needs_input_grad[0] else None,
-                g_d_w if ctx.needs_input_grad[1] else None, g_corners,
-                None, None, None)
+        return (g_o_w if need[0] else None, g_d_w if need[1] else None,
+                g_corners) + tuple(g if n else None
+                                   for g, n in zip(g_inst, need[3:6])) \
+            + (None, None, None)
 
 
 class ResolveSlab(torch.autograd.Function):

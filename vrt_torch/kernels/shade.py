@@ -9,7 +9,8 @@
         -> (g_o_w, g_d_w, g_t, g_n_obj,
             g_colors f32 [V*C^3, 24] (packed) | [V*N^3, 3] (voxel grid))
         (material=True: and of tint, roughness, metallic, k;
-         textures=True: and of tex_scale, textures)
+         textures=True: and of tex_scale, textures;
+         instances=True: and of inst_pos, inst_rot, inst_scale)
     shade_combine_backward_cuda(scene, rec, d_w, n_obj, hit_mask, unlit_attr,
                                 refl_rgb, blocked, mode, g_rgb)
         -> cotangents of the record's floats, d_w, n_obj and refl_rgb
@@ -49,10 +50,11 @@ each backward kernel's variants, in the material constants
 (``MATERIAL_FIELDS``: the surface backward's material variant), in the
 record's ``k`` and the light tables (``LIGHT_FIELDS``: the combine
 backward's light variant), in the texture scale and the stacked textures
-(the surface backward's texture variant) and in the env cube (the combine
-backward's env variant); the wrappers launch a variant only where one of
-those tables needs a gradient, and every other launch is the default
-instantiation.  They return none in the instance transforms.
+(the surface backward's texture variant), in the env cube (the combine
+backward's env variant) and in the instance transforms (``INSTANCE_FIELDS``:
+the surface backward's instance variant); the wrappers launch a variant
+only where one of those tables needs a gradient, and every other launch is
+the default instantiation.
 
 The colour table is the one ``gpuscene.color_table`` names, in one of two
 layouts (``color_layout``): the corner-packed view, f32 or bf16 [V,N,N,N,8,3]
@@ -96,8 +98,8 @@ lanes of a warp that name one texel are summed first.
 ``LAUNCHES`` counts the launches of each kernel, ``PATH_LAUNCHES`` the
 default launches of the forward pair and the combine backward again by
 path (the surface's "voxels" on the unpacked grid), ``VARIANT_LAUNCHES``
-the backward launches of the material and light variants again, and
-``TABLE_LAUNCHES`` those of the texture and env variants by path.
+the backward launches of the material, light and instance variants again,
+and ``TABLE_LAUNCHES`` those of the texture and env variants by path.
 """
 
 from __future__ import annotations
@@ -107,15 +109,17 @@ import ctypes
 import torch
 
 from vrt_torch.kernels import _build
+from vrt_torch.kernels.march import MAX_INSTANCES
 from vrt_torch.kernels.march import _check as _check_tensor
 from vrt_torch.kernels.march import _stream
-from vrt_torch.kernels.resolve import instance_table
+from vrt_torch.kernels.resolve import (INSTANCE_WORDS, instance_grads,
+                                       instance_table)
 from vrt_torch.march.types import (RECORD_FIELDS, RECORD_GRAD_FIELDS,
                                     MarchHit, SurfaceRecord)
-from vrt_torch.render.gpuscene import (LIGHT_FIELDS, MATERIAL_FIELDS,
-                                       MAX_POINT_LIGHTS, MAX_SPOT_LIGHTS,
-                                       TEXTURE_FIELDS, RenderMode,
-                                       color_table)
+from vrt_torch.render.gpuscene import (INSTANCE_FIELDS, LIGHT_FIELDS,
+                                       MATERIAL_FIELDS, MAX_POINT_LIGHTS,
+                                       MAX_SPOT_LIGHTS, TEXTURE_FIELDS,
+                                       RenderMode, color_table)
 
 LAUNCHES = {"surface": 0, "combine": 0, "surface_bwd": 0, "combine_bwd": 0}
 # the default launches again, by the path ``shade_path`` (the surface's
@@ -123,9 +127,10 @@ LAUNCHES = {"surface": 0, "combine": 0, "surface_bwd": 0, "combine_bwd": 0}
 PATH_LAUNCHES = {"surface v4": 0, "surface scalar": 0, "surface voxels": 0,
                  "combine v4": 0, "combine scalar": 0, "combine_bwd v4": 0,
                  "combine_bwd scalar": 0}
-# the backward launches of the material variant (the surface's) and of the
-# light variant (the combine's) again
-VARIANT_LAUNCHES = {"surface_bwd material": 0, "combine_bwd lights": 0}
+# the backward launches of the material and instance variants (the
+# surface's) and of the light variant (the combine's) again
+VARIANT_LAUNCHES = {"surface_bwd material": 0, "combine_bwd lights": 0,
+                    "surface_bwd instances": 0}
 # the backward launches of the texture variant (the surface's) and of the
 # env variant (the combine's) again, by the path of their table's sums
 TABLE_LAUNCHES = {"surface_bwd textures shared": 0,
@@ -137,7 +142,7 @@ TEXTURE_SHARED_BYTES = 32 * 1024
 ENV_SHARED_BYTES = 16 * 1024
 # the pointers and ints the backward entry points read (csrc/shade.cu
 # kSurfaceBwdPtrs, kSurfaceBwdInts, kCombineBwdPtrs, kCombineBwdInts)
-SLOTS = {"vrt_shade_surface_bwd": (40, 17), "vrt_shade_combine_bwd": (52, 8)}
+SLOTS = {"vrt_shade_surface_bwd": (41, 18), "vrt_shade_combine_bwd": (52, 8)}
 
 NVCC_FLAGS = ["--fmad=false"]
 
@@ -452,7 +457,8 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
                                 table_grad: bool = True,
                                 _old_design: bool = False, g_k=None,
                                 material: bool = False,
-                                textures: bool = False):
+                                textures: bool = False,
+                                instances: bool = False):
     """Launch the surface kernel's backward on
     ``torch.cuda.current_stream()``: the cotangents of the record's
     ``RECORD_GRAD_FIELDS`` (albedo, shadow origin, world normal, roughness,
@@ -474,16 +480,24 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
     ``tex_scale`` [V,2] (each block's partial sums by volume, as the
     material's) and of the stacked ``textures`` [T,TH,TW,3] (f32, on the
     path ``table_path`` names; the padding of the stack stays zero).  In a
-    mode without textures they are zeros, and no texture variant runs.  The
-    kernel is the merged design (resident blocks striding over the rays,
-    the colour cotangents of a warp's lanes that share a row summed before
-    the row's reductions); the private ``_old_design`` launches the first
-    design, the comparator of the timing runs, which has no texture
-    variant.  Raises on any input the kernel does not take; never falls
-    back."""
+    mode without textures they are zeros, and no texture variant runs.
+    ``instances`` launches the instance variant (with the material and the
+    texture variant too, one launch of all), which returns three more: the
+    cotangents of the instance transforms (``INSTANCE_FIELDS``, views of
+    one f32 accumulator that each block adds its partial sums into:
+    ``kernels.resolve.instance_grads``); a scene without instances gets
+    empty ones and no instance variant.  The kernel is the merged design
+    (resident blocks striding over the rays, the colour cotangents of a
+    warp's lanes that share a row summed before the row's reductions); the
+    private ``_old_design`` launches the first design, the comparator of
+    the timing runs, which has no texture or instance variant.  Raises on
+    any input the kernel does not take; never falls back."""
     if textures and _old_design:
         raise ValueError("shade: the surface backward's first design has no "
                          "texture variant")
+    if instances and _old_design:
+        raise ValueError("shade: the surface backward's first design has no "
+                         "instance variant")
     dev, rays, colors, ptrs, ints = _surface_args(
         scene, o_w, d_w, t, n_obj, hit, inst, mode, bounce, False,
         "surface kernel's backward")
@@ -520,17 +534,30 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
         g_scale = torch.zeros(scene.tex_scale.shape, dtype=f32, device=dev)
         g_tex = torch.zeros(scene.textures.shape, dtype=f32, device=dev)
         out += (g_scale, g_tex)
+    g_inst = None
+    if instances:
+        if scene.num_instances > MAX_INSTANCES:
+            raise ValueError(f"shade: the instance variant takes up to "
+                             f"{MAX_INSTANCES} instances, got "
+                             f"{scene.num_instances}")
+        g_inst = torch.zeros((scene.num_instances, INSTANCE_WORDS),
+                             dtype=f32, device=dev)
+        out += instance_grads(g_inst)
+        # a scene without instances: every lane a miss, nothing to add
+        instances = scene.num_instances > 0
     if rays == 0:
         return out
     ptrs += [_ptr(g) for g in cots] + [_ptr(g_o_w), _ptr(g_d_w),
                                        g_t.data_ptr(), g_n.data_ptr(),
                                        _ptr(acc), _ptr(g_k), _ptr(mat),
-                                       _ptr(g_scale), _ptr(g_tex)]
+                                       _ptr(g_scale), _ptr(g_tex),
+                                       _ptr(g_inst) if instances else None]
     # the texture variant is compiled for textured modes alone
     textures = textures and bool(mode.textured)
-    ints += [not _old_design, material, textures]
+    ints += [not _old_design, material, textures, instances]
     _launch("vrt_shade_surface_bwd", "surface_bwd", ptrs, ints, rays, dev,
-            variants=("material",) if material else (),
+            variants=tuple(v for v, on in (("material", material),
+                                           ("instances", instances)) if on),
             table=f"textures {table_path(g_tex, TEXTURE_SHARED_BYTES)}"
             if textures else None)
     return out
@@ -701,27 +728,30 @@ class ShadeSurface(torch.autograd.Function):
     ``n_obj``, ``colors`` (the colour table the scene samples,
     ``gpuscene.color_table``: its corner-packed view, or the f32 voxel grid
     where it has none; None without per-voxel colours), the material
-    constants ``tint``, ``roughness``, ``metallic`` and ``k`` and the
-    texture scale and the stacked textures ``tex_scale``, ``textures`` (the
+    constants ``tint``, ``roughness``, ``metallic`` and ``k``, the texture
+    scale and the stacked textures ``tex_scale``, ``textures`` and the
+    instance transforms ``inst_pos``, ``inst_rot``, ``inst_scale`` (the
     scene's own tables, passed apart so that autograd sees them): on CUDA
     tensors the surface kernel and its backward kernel (its material
     variant where a material constant needs a gradient, its texture variant
-    where the texture scale or the textures do), on CPU tensors the plain
-    stage and its plain backward.  Returns ``SurfaceRecord.pack``'s tuple;
-    ``gate`` and the shadow rays carry no gradient, nor does ``k`` unless
-    the scene's ``k`` needs one.  Saves the inputs alone (the backward
-    recomputes the stage)."""
+    where the texture scale or the textures do, its instance variant where
+    a transform does; one launch of all that are asked), on CPU tensors the
+    plain stage and its plain backward.  Returns ``SurfaceRecord.pack``'s
+    tuple; ``gate`` and the shadow rays carry no gradient, nor does ``k``
+    unless the scene's ``k`` needs one.  Saves the inputs alone (the
+    backward recomputes the stage)."""
 
     @staticmethod
     def forward(ctx, o_w, d_w, t, n_obj, colors, tint, roughness, metallic,
-                k, tex_scale, textures, scene, hit, inst, mode, bounce,
-                shadows):
+                k, tex_scale, textures, inst_pos, inst_rot, inst_scale, scene,
+                hit, inst, mode, bounce, shadows):
         if colors is not color_table(scene):
             raise ValueError("ShadeSurface: colors must be the colour table "
                              "the scene samples (gpuscene.color_table)")
-        _own_tables(scene, MATERIAL_FIELDS + TEXTURE_FIELDS[:2],
-                    (tint, roughness, metallic, k, tex_scale, textures),
-                    "ShadeSurface")
+        _own_tables(scene, MATERIAL_FIELDS + TEXTURE_FIELDS[:2]
+                    + INSTANCE_FIELDS,
+                    (tint, roughness, metallic, k, tex_scale, textures,
+                     inst_pos, inst_rot, inst_scale), "ShadeSurface")
         if o_w.device.type == "cuda":
             rec = shade_surface_cuda(scene, o_w, d_w, t, n_obj, hit, inst,
                                      mode, bounce, shadows)
@@ -753,12 +783,13 @@ class ShadeSurface(torch.autograd.Function):
         cots = [grads[RECORD_FIELDS.index(f)] for f in RECORD_GRAD_FIELDS]
         g_k = grads[RECORD_FIELDS.index("k")]
         if all(g is None for g in cots) and g_k is None:
-            return (None,) * 17
+            return (None,) * 20
         hit = MarchHit(hit=hit_mask, t=None, kind=None, cell=cell, t_in=None,
                        t_out=None, face_normal=None)
         table_grad = colors is not None and need[4]
         material = any(need[5:9])
         textures = any(need[9:11])
+        instances = any(need[11:14])
         if o_w.device.type == "cuda":
             args = (ctx.scene, o_w, d_w, t, n_obj, hit, inst, ctx.mode,
                     ctx.bounce, [None if g is None else g.contiguous()
@@ -772,6 +803,8 @@ class ShadeSurface(torch.autograd.Function):
                               material=True)
             if textures:
                 kwargs.update(textures=True)
+            if instances:
+                kwargs.update(instances=True)
             got = shade_surface_backward_cuda(*args, **kwargs)
         else:
             from vrt_torch.render.renderer import \
@@ -780,14 +813,21 @@ class ShadeSurface(torch.autograd.Function):
             got = shade_surface_backward_reference(
                 ctx.scene, o_w, d_w, t, n_obj, hit, inst, ctx.mode,
                 ctx.bounce, cots, g_k=g_k, material=material,
-                textures=textures)
+                textures=textures, instances=instances)
+        plain = o_w.device.type != "cuda"
         g_o_w, g_d_w, g_t, g_n, acc = got[:5]
         rest = iter(got[5:])
-        g_mat = [next(rest) for _ in range(4)] if material else [None] * 4
-        if material and o_w.device.type != "cuda":
-            next(rest)                  # the plain version's |terms|
-        g_tables = [next(rest) for _ in range(2)] if textures \
-            else [None] * 2
+
+        def variant(on, n):
+            # a variant's n cotangents, and the plain version's |terms|
+            out = [next(rest) for _ in range(n)] if on else [None] * n
+            if on and plain:
+                next(rest)
+            return out
+
+        g_mat = variant(material, 4)
+        g_tables = variant(textures, 2)
+        g_inst = variant(instances, 3)
         g_colors = None
         if table_grad:
             # the voxel grid's accumulator is its f32 gradient as it is
@@ -796,7 +836,7 @@ class ShadeSurface(torch.autograd.Function):
         return (g_o_w if need[0] else None, g_d_w if need[1] else None,
                 g_t if need[2] else None, g_n if need[3] else None,
                 g_colors) + tuple(g if n else None for g, n in zip(
-                    g_mat + g_tables, need[5:11])) + (None,) * 6
+                    g_mat + g_tables + g_inst, need[5:14])) + (None,) * 6
 
 
 class ShadeCombine(torch.autograd.Function):

@@ -38,6 +38,10 @@ MAX_OBJECTS = 20
 # the order in which the shade kernels take them
 MATERIAL_FIELDS = ("tint", "roughness", "metallic", "k")
 TEXTURE_FIELDS = ("tex_scale", "textures", "env")
+# the instance transforms (world = diag(scale) . R(rot) + pos), the order in
+# which the resolve and surface kernels' instance variants return their
+# cotangents
+INSTANCE_FIELDS = ("inst_pos", "inst_rot", "inst_scale")
 LIGHT_FIELDS = ("dir_light_dir", "dir_light_strength", "point_pos",
                 "point_intensity", "point_att_l", "point_att_e",
                 "point_color", "spot_pos", "spot_fwd", "spot_intensity",

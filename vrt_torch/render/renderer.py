@@ -19,9 +19,8 @@
   (``shade_stages``): on CUDA tensors the two kernels of ``shade.cu`` (with
   a graph, through the ``autograd.Function`` pair whose backward is their
   backward kernels), on CPU tensors their plain versions
-  ``shade_surface_reference`` and ``shade_combine_reference``, which also
-  shade a level under autograd wherever a graph is recorded through an
-  instance transform.
+  ``shade_surface_reference`` and ``shade_combine_reference`` (which the
+  tests also differentiate under autograd).
 
 The frame is differentiable in the scene's tensors: the march runs under
 ``torch.no_grad()`` (its hits are piecewise constant in the SDF, as under
@@ -48,9 +47,9 @@ from vrt_torch.march.resolve import (_OFFS7, resolve_hits,
                                       resolve_hits_backward)
 from vrt_torch.march.types import (RECORD_GRAD_FIELDS, MarchHit,
                                     SurfaceRecord)
-from vrt_torch.render.gpuscene import (LIGHT_FIELDS, MATERIAL_FIELDS,
-                                       TEXTURE_FIELDS, GPUScene, RenderMode,
-                                       color_table)
+from vrt_torch.render.gpuscene import (INSTANCE_FIELDS, LIGHT_FIELDS,
+                                       MATERIAL_FIELDS, TEXTURE_FIELDS,
+                                       GPUScene, RenderMode, color_table)
 from vrt_torch.shade import brdf as _brdf
 from vrt_torch.shade import lights as _lights
 from vrt_torch.shade import texture as _tex
@@ -203,8 +202,9 @@ def march_scene_reference(scene: GPUScene, o_w, d_w, t_max,
     return best, best_inst
 
 
-def _per_ray_instance(scene: GPUScene, inst):
-    """Per-ray instance transform + volume data (inst i32 [R])."""
+def _per_ray_instance(scene: GPUScene, inst, take=None):
+    """Per-ray instance transform + volume data (inst i32 [R]); ``take``
+    reads a transform's rows by instance (``table[idx]`` by default)."""
     vols = scene.volumes
     if scene.num_instances == 0:
         # every lane is a miss: identity transform, volume 0
@@ -217,56 +217,84 @@ def _per_ray_instance(scene: GPUScene, inst):
                     extends=vols.extends[vol_id])
     ic = torch.clamp_min(inst, 0).long()
     vol_id = scene.inst_volume[ic].long()
-    return dict(vol=vol_id, pos=scene.inst_pos[ic], rot=scene.inst_rot[ic],
-                scale=scene.inst_scale[ic], n=vols.n[vol_id],
+    take = take or _take
+    return dict(vol=vol_id, pos=take(scene.inst_pos, ic),
+                rot=take(scene.inst_rot, ic),
+                scale=take(scene.inst_scale, ic), n=vols.n[vol_id],
                 cell_size=vols.cell_size[vol_id],
                 extends=vols.extends[vol_id])
 
 
 def resolve_scene(scene: GPUScene, o_w, d_w, hit: MarchHit, inst):
     """(t, object-space normal, unlit) for scene hits, read from the
-    packed corner table (f32 or bf16), differentiable in the table and the
-    rays.
+    packed corner table (f32 or bf16), differentiable in the table, the
+    rays and the instance transforms (``INSTANCE_FIELDS``).
 
-    The rule of the dispatch, on the inputs alone: a caller whose instance
-    transforms (``inst_pos``, ``inst_rot``, ``inst_scale``) require a
-    gradient goes through ``resolve_scene_reference`` under autograd (on
-    CUDA tensors over K3's row gather), because ``ResolveScene`` returns no
-    gradient for them, and so does the level's shading
-    (``shade_stages``'s plain pair); no entry point of the port makes them
-    leaves.
-    Everything else goes to ``kernels.resolve.ResolveScene``: on CUDA
-    tensors the fused resolve kernel and, where a graph is recorded, its
-    backward kernel; on CPU tensors their plain versions
-    (``resolve_scene_reference`` without a graph and the closed form
-    ``resolve_scene_backward_reference``).  A build or launch that fails
-    raises; nothing falls back."""
+    Everything goes to ``kernels.resolve.ResolveScene``: on CUDA tensors
+    the fused resolve kernel and, where a graph is recorded, its backward
+    kernel (its instance variant where a transform needs a gradient); on
+    CPU tensors their plain versions (``resolve_scene_reference`` without a
+    graph and the closed form ``resolve_scene_backward_reference``).  A
+    build or launch that fails raises; nothing falls back."""
     if o_w.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no resolve for device {o_w.device}")
-    if _needs_autograd(scene.inst_pos, scene.inst_rot, scene.inst_scale):
-        return resolve_scene_reference(scene, o_w, d_w, hit, inst)
     from vrt_torch.kernels.resolve import ResolveScene
 
     return ResolveScene.apply(o_w.contiguous(), d_w.contiguous(),
-                              scene.volumes.corners, scene, hit, inst)
+                              scene.volumes.corners,
+                              *(getattr(scene, f) for f in INSTANCE_FIELDS),
+                              scene, hit, inst)
 
 
-def resolve_scene_reference(scene: GPUScene, o_w, d_w, hit: MarchHit, inst):
+def resolve_scene_reference(scene: GPUScene, o_w, d_w, hit: MarchHit, inst,
+                            take=None):
     """``resolve_scene`` in plain PyTorch, differentiable by autograd in
     the corner table, the rays and the instance transforms (port of
     ``vrt.render.renderer.resolve_scene``): the plain version of the fused
-    resolve kernel."""
-    pr = _per_ray_instance(scene, inst)
+    resolve kernel.  ``take`` reads a transform's rows by instance
+    (``table[idx]`` by default)."""
+    pr = _per_ray_instance(scene, inst, take)
     o, d = _world_to_object(pr["pos"], pr["rot"], pr["scale"], o_w, d_w)
     cfetch = iso.make_stacked_corner_fetch(scene.volumes.corners, pr["n"],
                                            pr["vol"])
     return resolve_hits(cfetch, pr["cell_size"], pr["extends"], o, d, hit)
 
 
+def _rotate_backward(q, v, g):
+    """The cotangent of the quaternion q [..., 4] of ``vq.rotate(q, v)`` for
+    the output's cotangent g, by ``vq.rotate``'s formula (t = 2 qv x v; v +
+    qw t + qv x t) for any q, in the operation order of ``shade.cu``'s
+    ``rotate_bwd``."""
+    qv, qw = q[..., :3], q[..., 3:4]
+    tt = 2.0 * vq.cross(qv, v)
+    g_qw = ((g[..., 0] * tt[..., 0] + g[..., 1] * tt[..., 1])
+            + g[..., 2] * tt[..., 2])[..., None]
+    gt = 2.0 * (qw * g + vq.cross(g, qv))
+    return torch.cat([vq.cross(tt, g) + vq.cross(v, gt), g_qw], dim=-1)
+
+
+def _object_backward(pos, rot, scale, x_w, g, point: bool):
+    """The per-lane cotangents (pos [R,3], rot [R,4], scale [R,3]) of an
+    instance transform for the cotangent g of an object-space vector x =
+    rotate(conj(rot), a), a = (x_w - pos) / scale for a ``point``, x_w /
+    scale for a direction (``_world_to_object``).  Under ``vq.rotate``'s
+    formula M(q)^T = M(conj q) exactly, so the transpose of the rotation is
+    rotate(rot, .): a's cotangent g_a = rotate(rot, g), x_w's g_a / scale,
+    -g_a / scale into pos (a point's), -(g_a / scale) a into scale; the
+    quaternion's is ``_rotate_backward`` on the conjugate with the sign of
+    its vector part flipped."""
+    a = (x_w - pos) / scale if point else x_w / scale
+    g_x = vq.rotate(rot, g) / scale
+    g_q = _rotate_backward(vq.conjugate(rot), a, g)
+    g_pos = -g_x if point else torch.zeros_like(g_x)
+    return g_pos, vq.conjugate(g_q), -(g_x * a)
+
+
 @torch.no_grad()
 def resolve_scene_backward_reference(scene: GPUScene, o_w, d_w,
                                      hit: MarchHit, inst, g_t, g_normal,
-                                     acc_dtype=torch.float32):
+                                     acc_dtype=torch.float32,
+                                     instances: bool = False):
     """The vector-Jacobian product of ``resolve_scene_reference`` in the
     rays and the corner table, in closed form: -> (g_o_w f32 [R,3], g_d_w
     f32 [R,3], g_corners [V*C^3, ch]) for the cotangents ``g_t`` [R] and
@@ -275,7 +303,12 @@ def resolve_scene_backward_reference(scene: GPUScene, o_w, d_w,
     transpose of ``_world_to_object`` for the rays, and
     ``scatter_rows_reference`` for the table (summed in ``acc_dtype``; the
     caller casts once to the table's dtype).  Only ``hit.kind``, ``hit.t``
-    and ``hit.cell`` are read."""
+    and ``hit.cell`` are read.  With ``instances`` (the plain version of
+    the kernel's instance variant) four more follow: the cotangents of the
+    instance transforms (``INSTANCE_FIELDS``: pos [I,3], rot [I,4], scale
+    [I,3], f32), each lane's (``_object_backward`` of its ray's origin and
+    direction) summed over the lanes in float64, then a tuple of the three
+    tables' sums of their lanes' |terms| (float64)."""
     pr = _per_ray_instance(scene, inst)
     o, d = _world_to_object(pr["pos"], pr["rot"], pr["scale"], o_w, d_w)
     corners = scene.volumes.corners
@@ -291,7 +324,23 @@ def resolve_scene_backward_reference(scene: GPUScene, o_w, d_w,
     g_d_w = vq.rotate(pr["rot"], g_d) / pr["scale"]
     g_corners = scatter_rows_reference(g_rows7.reshape(-1, 8), idx,
                                        flat.shape[0], ch, acc_dtype)
-    return g_o_w, g_d_w, g_corners
+    out = (g_o_w, g_d_w, g_corners)
+    if not instances:
+        return out
+    # the lanes whose kind carries a gradient (surface, solid entry)
+    carries = ((hit.kind == 1) | (hit.kind == 2))[:, None]
+    lanes = [torch.zeros(0, 3, device=o_w.device)] * 3
+    if scene.num_instances:
+        terms = [_object_backward(pr["pos"], pr["rot"], pr["scale"], x, g,
+                                  point)
+                 for x, g, point in ((o_w, g_o, True), (d_w, g_d, False))]
+        lanes = [torch.where(carries, a + b, 0.0)
+                 for a, b in zip(*terms)]
+    ic = torch.clamp_min(inst, 0).long()
+    summed = [_summed(getattr(scene, f), [(g, ic)] if scene.num_instances
+                      else [])
+              for f, g in zip(INSTANCE_FIELDS, lanes)]
+    return out + tuple(s for s, _ in summed) + (tuple(t for _, t in summed),)
 
 
 def _voxel_color_sample(scene: GPUScene, pr, hit: MarchHit, o_w, d_w, t,
@@ -456,16 +505,16 @@ def shade_surface_reference(scene: GPUScene, o_w, d_w, t, n_obj,
     mirror direction and its gate (roughness < 0.3); with ``shadows`` the
     level's shadow rays.  In unlit mode only the albedo.  ``gather`` reads
     the colour rows (``kernels.rows.gather_rows`` by default), ``take`` a
-    material constant's or the texture scale's row by volume
-    (``table[vol_id]`` by default), ``fetch`` a texture tap
-    (``shade.texture``'s seam)."""
+    material constant's or the texture scale's row by volume and an
+    instance transform's by instance (``table[idx]`` by default), ``fetch``
+    a texture tap (``shade.texture``'s seam)."""
     dev = o_w.device
     t = torch.where(hit.hit, t, 0.0)
     n_obj = torch.where(hit.hit[..., None], n_obj,
                         torch.tensor([0.0, 0.0, 1.0], device=dev))
-    pr = _per_ray_instance(scene, inst)
-    vol_id = pr["vol"]
     take = take or _take
+    pr = _per_ray_instance(scene, inst, take)
+    vol_id = pr["vol"]
     if not mode.lit:
         return SurfaceRecord(albedo=_unlit_albedo(scene, pr, o_w, d_w, t,
                                                   n_obj, hit, mode, gather,
@@ -668,7 +717,8 @@ def shade_surface_backward_reference(scene: GPUScene, o_w, d_w, t, n_obj,
                                      bounce: bool, cotangents,
                                      acc_dtype=torch.float32, g_k=None,
                                      material: bool = False,
-                                     textures: bool = False):
+                                     textures: bool = False,
+                                     instances: bool = False):
     """The vector-Jacobian product of ``shade_surface_reference`` in the
     rays, ``t``, ``n_obj`` and the colour table: the plain version of the
     surface backward kernel.  ``cotangents`` are those of the record's
@@ -688,7 +738,11 @@ def shade_surface_backward_reference(scene: GPUScene, o_w, d_w, t, n_obj,
     plain version of the kernel's texture variant) three more follow: the
     cotangents of ``tex_scale`` [V,2] and of the stacked ``textures``
     [T,TH,TW,3] (f32, summed in float64; the padding of the stack exactly
-    zero), then a tuple of the two tables' sums of |terms|.
+    zero), then a tuple of the two tables' sums of |terms|.  With
+    ``instances`` (the plain version of the kernel's instance variant)
+    four more follow: the cotangents of the instance transforms
+    (``INSTANCE_FIELDS``: pos [I,3], rot [I,4], scale [I,3], f32, summed in
+    float64), then a tuple of the three tables' sums of |terms|.
 
     The stage is computed again under ``torch.enable_grad()`` on leaves of
     the inputs and differentiated by ``torch.autograd.grad``; the colour
@@ -696,17 +750,19 @@ def shade_surface_backward_reference(scene: GPUScene, o_w, d_w, t, n_obj,
     gradient is added into the table by ``scatter_rows_reference``; with
     ``material`` each material read (``take``) is a leaf of the lanes' rows
     too, with ``textures`` each read of the texture scale and each texture
-    tap (``fetch``: 12 a triplanar sample).  A miss lane's record is read
+    tap (``fetch``: 12 a triplanar sample), with ``instances`` each read of
+    an instance transform (``take``: one row a lane of each).  A miss lane's record is read
     by no one (the combine stage selects the env there, the traces the
     level spawns march it with t_max = -inf), so its cotangents are taken
     as zero, as the kernel takes them."""
     hit_mask = hit.hit
     leaves = [x.detach().requires_grad_(True) for x in (o_w, d_w, t, n_obj)]
     tables = (MATERIAL_FIELDS if material else ()) \
-        + (("tex_scale",) if textures else ())
+        + (("tex_scale",) if textures else ()) \
+        + (INSTANCE_FIELDS if instances else ())
     taken, reads, taps = [], {f: [] for f in tables}, []
     names = {id(getattr(scene, f)): f
-             for f in MATERIAL_FIELDS + ("tex_scale",)}
+             for f in MATERIAL_FIELDS + ("tex_scale",) + INSTANCE_FIELDS}
 
     def gather(table, idx, ch):
         rows = gather_rows_reference(table.detach(), idx, ch)
@@ -762,6 +818,9 @@ def shade_surface_backward_reference(scene: GPUScene, o_w, d_w, t, n_obj,
                                        for _, idx in taps])
         out += (summed["tex_scale"][0], tex[0],
                 (summed["tex_scale"][1], tex[1]))
+    if instances:
+        out += tuple(summed[f][0] for f in INSTANCE_FIELDS) \
+            + (tuple(summed[f][1] for f in INSTANCE_FIELDS),)
     return out
 
 
@@ -868,36 +927,29 @@ def _needs_autograd(*tensors) -> bool:
 
 
 # the scene's tensors that a level's shading reads and a fit may optimize,
-# in two groups.  Those whose gradient the shade Functions' backward kernels
-# return, as they return that of the rays, t and n_obj (and so of the corner
-# table behind t and n_obj): the colour tables (the packed view where the
-# scene has one, else the voxel grid: ``gpuscene.color_table``), the
-# material constants, the lights, the texture scale, the textures and the
-# env (the kernels' material, light, texture and env variants).  The rest:
-# the instance transforms, whose gradient the kernels do not return; a
-# graph through one of those takes the plain pair.
+# whose gradient the shade Functions' backward kernels return, as they
+# return that of the rays, t and n_obj (and so of the corner table behind t
+# and n_obj): the colour tables (the packed view where the scene has one,
+# else the voxel grid: ``gpuscene.color_table``), the material constants,
+# the lights, the texture scale, the textures, the env and the instance
+# transforms (the kernels' material, light, texture, env and instance
+# variants).
 _KERNEL_GRAD_FIELDS = ("voxel_colors", "voxel_color_corners") \
-    + MATERIAL_FIELDS + LIGHT_FIELDS + TEXTURE_FIELDS
-_PLAIN_GRAD_FIELDS = ("inst_pos", "inst_rot", "inst_scale")
-_SHADED_FIELDS = _KERNEL_GRAD_FIELDS + _PLAIN_GRAD_FIELDS
+    + MATERIAL_FIELDS + LIGHT_FIELDS + TEXTURE_FIELDS + INSTANCE_FIELDS
 
 
 def shade_stages(scene: GPUScene, o_w, d_w, t, n_obj):
     """The two stages of a level's shading, (surface, combine), picked on
-    the inputs alone, among three pairs:
+    the inputs alone, between two pairs:
 
-    - a graph is recorded through a tensor of ``_PLAIN_GRAD_FIELDS`` (an
-      instance transform), whatever else it runs through: the plain
-      versions ``shade_surface_reference`` and ``shade_combine_reference``
-      under autograd, on either device, since the kernels return no
-      gradient for those;
-    - else a graph through the rays, ``t``, ``n_obj``, the corner table, a
+    - a graph through the rays, ``t``, ``n_obj``, the corner table, a
       colour table, a material constant, a light table, the texture scale,
-      the textures or the env (every fit step of the SDF and the colours,
-      of the materials and the lights, and of the textures and the env):
-      the ``autograd.Function`` pair of ``kernels.shade``
-      (``ShadeSurface``, ``ShadeCombine``), whose forward and backward are
-      the kernels on CUDA tensors and the plain versions on CPU tensors;
+      the textures, the env or an instance transform (every fit step of the
+      SDF and the colours, of the materials and the lights, of the textures
+      and the env, and of the objects' poses): the ``autograd.Function``
+      pair of ``kernels.shade`` (``ShadeSurface``, ``ShadeCombine``), whose
+      forward and backward are the kernels on CUDA tensors and the plain
+      versions on CPU tensors;
     - no graph: the plain versions on CPU tensors, the two kernels of
       ``shade.cu`` on CUDA tensors.
 
@@ -905,8 +957,6 @@ def shade_stages(scene: GPUScene, o_w, d_w, t, n_obj):
     kind = o_w.device.type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"no shading for device {o_w.device}")
-    if _needs_autograd(*(getattr(scene, f) for f in _PLAIN_GRAD_FIELDS)):
-        return shade_surface_reference, shade_combine_reference
     if _needs_autograd(o_w, d_w, t, n_obj, scene.volumes.corners,
                        *(getattr(scene, f) for f in _KERNEL_GRAD_FIELDS)):
         return _shade_surface_function, _shade_combine_function
@@ -953,15 +1003,15 @@ def _shade_surface_function(scene, o_w, d_w, t, n_obj, hit, inst, mode,
                             bounce, shadows):
     """The surface stage through ``ShadeSurface``, differentiable in the
     rays, ``t``, ``n_obj``, the colour table, the material constants, the
-    texture scale and the textures."""
+    texture scale, the textures and the instance transforms."""
     from vrt_torch.kernels import shade as k4
 
     return SurfaceRecord.unpack(k4.ShadeSurface.apply(
         o_w.contiguous(), d_w.contiguous(), t.contiguous(),
         n_obj.contiguous(), color_table(scene),
         *(getattr(scene, f) for f in MATERIAL_FIELDS), scene.tex_scale,
-        scene.textures, scene, _contiguous_hit(hit), inst.contiguous(), mode,
-        bounce, shadows))
+        scene.textures, *(getattr(scene, f) for f in INSTANCE_FIELDS), scene,
+        _contiguous_hit(hit), inst.contiguous(), mode, bounce, shadows))
 
 
 def _shade_combine_function(scene, rec, d_w, n_obj, hit_mask, unlit_attr,

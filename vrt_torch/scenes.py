@@ -178,6 +178,26 @@ def shading_scene(resolution: int = 4, points: int = 2, spots: int = 1,
         device=device)
 
 
+def posed_instances(scene):
+    """``scene`` with its first instance posed as a pose fit moves it: its
+    rotation composed with Euler (15, 25, -10) and scaled to a quaternion of
+    norm 1.05 (``core/quat.py::rotate``'s formula then also scales by
+    1.05^2, as ``vrt``'s does), its scale made uneven (1.1, 0.85, 1.2 times
+    its own).  The checks of the backward kernels' instance variants run on
+    it."""
+    from vrt_torch.core import quat as vq
+
+    dev = scene.inst_rot.device
+    turn = torch.as_tensor(vq.from_euler_degrees(15.0, 25.0, -10.0),
+                           dtype=torch.float32, device=dev)
+    rot = scene.inst_rot.clone()
+    q = vq.multiply(rot[0], turn)
+    rot[0] = q * (1.05 / torch.linalg.vector_norm(q))
+    scale = scene.inst_scale.clone()
+    scale[0] = scale[0] * torch.tensor([1.1, 0.85, 1.2], device=dev)
+    return dataclasses.replace(scene, inst_rot=rot, inst_scale=scale)
+
+
 def padded_sampled_tables(scene, side: int = 256):
     """``scene`` with the same texels stacked into a [T, side, side, 3]
     table (each texture keeps its size; the rest is padding) and its env
