@@ -20,7 +20,8 @@ Phases, each of which raises on failure:
              side by side, and for the redesigned
              kernels (the capped scene march, the merged surface backward,
              the resident surface and combine kernels, the merged resolve
-             backward, the tiled pack backward, the one-launch pyramid)
+             backward, the tiled pack backward, the one-launch pyramid,
+             the texture and env variants of the shade backward kernels)
              and their first designs and the accel and Adam kernels the
              registers, stack
              frames, spills and the warp slots the registers leave filled,
@@ -98,7 +99,11 @@ Phases, each of which raises on failure:
              per-ray cotangents as above, each table entry within 1e-5 of
              its lanes' sum of |terms|, the stack's padding zero) and the
              default instantiation on the same inputs (per-ray cotangents
-             bit-equal; default, variant, variant, default); and every
+             bit-equal; default, variant, variant, default), each texture
+             and env launch also on its first design
+             (``_old_table_design``: per-ray cotangents bit-equal, tables
+             held the same way; first design, redesign, redesign, first
+             design); and every
              launch of the surface and the resolve backward's instance
              variants in a loss differentiated in the instance transforms
              on the 480x270 lights frame and on config7's 12 instances at
@@ -185,7 +190,10 @@ Phases, each of which raises on failure:
              the plain pair under autograd (old, new, new, old: the
              kernels' medians of 3, one plain step a side), with their
              launches, losses and gradients against the plain route's
-             float64 sums, device ops, busy time and peak memory, and every
+             float64 sums, device ops, busy time and peak memory, the
+             texture-and-env step also with the texture and env variants on
+             their first designs (old, new, new, old, medians of 3, its own
+             profile), and every
              variant launch of one step held as in phase 3; and config6's
              pose step (``POSE_STEP_KEYS``: the SDF, the colours and the
              instance transforms) on the surface and the resolve backward's
@@ -2029,13 +2037,19 @@ def _variant_calls(run, expected, tag, surface=("material",),
     largest |sum| is reported too), the padding of the stacked textures
     exactly zero; and against the default instantiation on the same
     inputs: every per-ray cotangent the default launch returns bit-equal,
-    the two timed default, variant, variant, default.  Fails unless each
-    launched ``expected`` times (and the texture and env variants on one
-    path, ``kernels.shade.table_path``).  Returns {"surface_bwd " +
+    the two timed default, variant, variant, default; a texture or env
+    variant also against its first design (``_old_table_design``) on the
+    same inputs: its per-ray cotangents bit-equal, its tables held as the
+    redesign's, the two timed first design, redesign, redesign, first
+    design.  Fails unless each launched ``expected`` times (and the texture
+    and env variants on one path, ``kernels.shade.table_path``, and on
+    their redesigns).  Returns {"surface_bwd " +
     "+".join(surface) | "combine_bwd " + "+".join(combine): dict(launches,
     max_abs_err (the largest difference over its scale, per-ray outputs and
     tables), by_output, ms, default_ms, plain_ms (lists), bound, paths
-    (the texture or env variant's launches by path))}."""
+    (the texture or env variant's launches by path), first_design_ms,
+    redesign_beside_first_ms (the texture or env variant's pairs, else
+    empty))}."""
     import torch
 
     from vrt_torch.kernels import shade as k4
@@ -2045,6 +2059,7 @@ def _variant_calls(run, expected, tag, surface=("material",),
 
     before = dict(k4.VARIANT_LAUNCHES)
     tables_before = dict(k4.TABLE_LAUNCHES)
+    designs_before = dict(k4.TABLE_DESIGN_LAUNCHES)
     with _recording(k4, "shade_surface_backward_cuda") as surf, \
             _recording(k4, "shade_combine_backward_cuda") as comb:
         run()
@@ -2052,6 +2067,8 @@ def _variant_calls(run, expected, tag, surface=("material",),
     launched = {k: k4.VARIANT_LAUNCHES[k] - before[k] for k in before}
     paths = {k: k4.TABLE_LAUNCHES[k] - tables_before[k]
              for k in tables_before}
+    designs = {k: k4.TABLE_DESIGN_LAUNCHES[k] - designs_before[k]
+               for k in designs_before}
     surf = [c for c in surf
             if tuple(f for f in SURFACE_FLAGS if c[1].get(f)) == surface]
     comb = [c for c in comb
@@ -2068,8 +2085,13 @@ def _variant_calls(run, expected, tag, surface=("material",),
         keys[1]: {p: paths[f"combine_bwd env {p}"]
                   for p in ("shared", "global")}}
     tabled = {keys[0]: "textures" in surface, keys[1]: "env" in combine}
+    # the texture and env launches of the run all on the redesigns
+    want_designs = {"surface_bwd textures warp": expected * tabled[keys[0]],
+                    "surface_bwd textures first": 0,
+                    "combine_bwd env warp": expected * tabled[keys[1]],
+                    "combine_bwd env first": 0}
     if (len(surf), len(comb)) != (expected, expected) or \
-            launched != want_launched or any(
+            launched != want_launched or designs != want_designs or any(
                 sorted(table_paths[k].values()) != ([0, expected]
                                                     if tabled[k] else [0, 0])
                 for k in keys):
@@ -2077,10 +2099,12 @@ def _variant_calls(run, expected, tag, surface=("material",),
                              f"{surface} {len(surf)} times and the combine "
                              f"backward with {combine} {len(comb)} times "
                              f"(variant launches {launched}, by path "
-                             f"{paths}), expected {expected} each")
+                             f"{paths}, by design {designs}), expected "
+                             f"{expected} each")
     out = {}
     for key, calls, flags in zip(keys, (surf, comb), (surface, combine)):
         by_output, ms, default_ms, plain_ms, bounds = {}, [], [], [], []
+        first_ms, beside_ms = [], []
         is_surface = key.startswith("surface")
         kernel = k4.shade_surface_backward_cuda if is_surface \
             else k4.shade_combine_backward_cuda
@@ -2136,50 +2160,71 @@ def _variant_calls(run, expected, tag, surface=("material",),
                         f"lanes (largest difference {worst:.3e} * "
                         f"{scale:.3e})")
                 by_output[name] = max(by_output.get(name, 0.0), worst)
-            for name, a, b, terms in _variant_tables(is_surface, flags, got,
-                                                     want):
-                if a is None:
-                    continue
-                b = b.double().reshape(a.shape)
-                top = b.abs().max().item()
-                err = (a.double() - b).abs()
-                e = err.max().item()
-                if not bool(torch.isfinite(a).all()):
-                    raise AssertionError(f"{tag} {key} {i}: {name} is not "
-                                         f"finite")
-                if terms is None:
-                    # the colour table against its largest |sum|
-                    if not (e <= SCATTER_RTOL * top if top > 0
-                            else not bool(a.any())):
-                        raise AssertionError(
-                            f"{tag} {key} {i}: {name} is off by {e:.3e} > "
-                            f"{SCATTER_RTOL} * {top:.3e}")
-                    by_output[name] = max(by_output.get(name, 0.0),
-                                          e / top if top > 0 else 0.0)
-                    continue
-                # a scene table, each entry against the sum of its own
-                # lanes' |terms|
-                bound = SCATTER_RTOL * terms.double().reshape(a.shape) \
-                    + TABLE_ATOL
-                worst = (err / bound).max().item()
-                if not worst <= 1.0:
-                    raise AssertionError(
-                        f"{tag} {key} {i}: {name} is off by up to "
-                        f"{worst:.3e} times {SCATTER_RTOL} * its lanes' "
-                        f"|terms| + {TABLE_ATOL}")
-                by_output[f"{name} over its bound"] = max(
-                    by_output.get(f"{name} over its bound", 0.0), worst)
-                if top > 0:
-                    key_max = f"{name} over max|sum|"
-                    by_output[key_max] = max(by_output.get(key_max, 0.0),
-                                             e / top)
-                if name == "g_textures":
-                    # the stack's padding past each texture's size
-                    for t, (h, w) in enumerate(scene.tex_sizes.tolist()):
-                        if bool(a[t, h:].any()) or bool(a[t, :, w:].any()):
+            def hold_tables(outs, label=""):
+                # every scene table of ``outs`` against the plain version's
+                # float64 sums, the padding of the stack zero
+                where = f"{tag} {key} {i}{label}"
+                for name, a, b, terms in _variant_tables(is_surface, flags,
+                                                         outs, want):
+                    if a is None:
+                        continue
+                    b = b.double().reshape(a.shape)
+                    top = b.abs().max().item()
+                    err = (a.double() - b).abs()
+                    e = err.max().item()
+                    if not bool(torch.isfinite(a).all()):
+                        raise AssertionError(f"{where}: {name} is not finite")
+                    if terms is None:
+                        # the colour table against its largest |sum|
+                        if not (e <= SCATTER_RTOL * top if top > 0
+                                else not bool(a.any())):
                             raise AssertionError(
-                                f"{tag} {key} {i}: the padding of texture "
-                                f"{t} got a cotangent")
+                                f"{where}: {name} is off by {e:.3e} > "
+                                f"{SCATTER_RTOL} * {top:.3e}")
+                        by_output[name + label] = max(
+                            by_output.get(name + label, 0.0),
+                            e / top if top > 0 else 0.0)
+                        continue
+                    # a scene table, each entry against the sum of its own
+                    # lanes' |terms|
+                    bound = SCATTER_RTOL * terms.double().reshape(a.shape) \
+                        + TABLE_ATOL
+                    worst = (err / bound).max().item()
+                    if not worst <= 1.0:
+                        raise AssertionError(
+                            f"{where}: {name} is off by up to {worst:.3e} "
+                            f"times {SCATTER_RTOL} * its lanes' |terms| + "
+                            f"{TABLE_ATOL}")
+                    over = f"{name}{label} over its bound"
+                    by_output[over] = max(by_output.get(over, 0.0), worst)
+                    if top > 0:
+                        key_max = f"{name}{label} over max|sum|"
+                        by_output[key_max] = max(by_output.get(key_max, 0.0),
+                                                 e / top)
+                    if name == "g_textures":
+                        # the stack's padding past each texture's size
+                        for t, (h, w) in enumerate(scene.tex_sizes.tolist()):
+                            if bool(a[t, h:].any()) or bool(a[t, :, w:].any()):
+                                raise AssertionError(
+                                    f"{where}: the padding of texture {t} "
+                                    f"got a cotangent")
+
+            hold_tables(got)
+            # the texture or env variant's first design on the same inputs:
+            # per-ray cotangents bit-equal, its tables held the same way
+            tabled_here = ("textures" if is_surface else "env") in flags
+            if tabled_here:
+                first = kernel(*args, **kwargs, _old_table_design=True)
+                bad = [j for j, (a, b) in enumerate(zip(got[:shared],
+                                                        first[:shared]))
+                       if (a is None) != (b is None)
+                       or a is not None and not torch.equal(a, b)]
+                if bad:
+                    raise AssertionError(f"{tag} {key} {i}: outputs {bad} of "
+                                         f"the first design differ from the "
+                                         f"redesign's")
+                hold_tables(first, " (first design)")
+                del first
             del want
             # the default instantiation on the same inputs
             default = kernel(*args)
@@ -2196,6 +2241,17 @@ def _variant_calls(run, expected, tag, surface=("material",),
             ms.append(sum(news) / 2)
             default_ms.append(sum(olds) / 2)
             plain_ms.append(device_ms(plain, 2))
+            if tabled_here:
+                # the first design against the redesign: old, new, new, old
+                firsts, again = _paired_ms(
+                    lambda: kernel(*args, **kwargs, _old_table_design=True),
+                    lambda: kernel(*args, **kwargs), 20)
+                first_ms.append(sum(firsts) / 2)
+                beside_ms.append(sum(again) / 2)
+                print(f"shade {key} [{tag} {i}]: its first design, the "
+                      f"redesign, the redesign, its first design "
+                      f"{', '.join(f'{t:.4f}' for t in (firsts[0], again[0], again[1], firsts[1]))}"
+                      f" ms", flush=True)
             print(f"shade {key} [{tag} {i}]: default, variant, variant, "
                   f"default "
                   f"{', '.join(f'{t:.4f}' for t in (olds[0], news[0], news[1], olds[1]))}"
@@ -2211,13 +2267,18 @@ def _variant_calls(run, expected, tag, surface=("material",),
                                         default=0.0),
                         by_output=by_output, ms=ms, default_ms=default_ms,
                         plain_ms=plain_ms, bound=_sum_bounds(bounds),
-                        paths=table_paths[key])
+                        paths=table_paths[key], first_design_ms=first_ms,
+                        redesign_beside_first_ms=beside_ms)
         got = out[key]
         print(f"shade {key} on the {tag}: {got['launches']} launches "
               f"(texture or env path {got['paths']}), {_list(ms)} ms = "
               f"{sum(ms):.4f} ms (the default instantiation on the same "
-              f"inputs {sum(default_ms):.4f} ms); plain {sum(plain_ms):.2f} "
-              f"ms; bound {got['bound']['bound_ms']:.4f} ms", flush=True)
+              f"inputs {sum(default_ms):.4f} ms"
+              + (f"; the first design {sum(first_ms):.4f} ms against "
+                 f"{sum(beside_ms):.4f} ms in the same turns" if first_ms
+                 else "")
+              + f"); plain {sum(plain_ms):.2f} ms; bound "
+              f"{got['bound']['bound_ms']:.4f} ms", flush=True)
     return out
 
 
@@ -2583,7 +2644,7 @@ def _plain_backward(terms):
 
 def _table_step(dev, card, sync, zero_counts, counts, timed, scene, cams,
                 keys, what, flags, sdf_step=None, per_entry=False,
-                profile_plain=True):
+                profile_plain=True, first_designs=False):
     """A 1080p fit step of ``scene`` from ``cams`` with the scene tables
     ``keys`` among its parameters (Adam at 1e-2 towards zero targets): on
     the kernels (every level through the shade Functions, the backward
@@ -2618,9 +2679,14 @@ def _table_step(dev, card, sync, zero_counts, counts, timed, scene, cams,
     ops, busy time and peak memory of a step on each route (without
     ``profile_plain`` the plain route's peak is that of its timed steps and
     it is not profiled); every variant launch of one step held by
-    ``_variant_calls`` (the instance variants' by ``_instance_calls``).  Returns dict(routes (ms,
-    peak, busy, device ops), launches, grads, held (``_variant_calls``'s),
-    loss, plain_loss)."""
+    ``_variant_calls`` (the instance variants' by ``_instance_calls``).
+    The one step's texture and env launches are the redesigns
+    (``TABLE_DESIGN_LAUNCHES``); with ``first_designs`` the step also runs
+    with them on their first designs (``_first_table_designs``), first
+    design, redesign, redesign, first design (medians of 3), and is
+    profiled there too.  Returns dict(routes (ms, peak, busy, device ops),
+    launches, designs (the texture and env launches by design), grads,
+    held (``_variant_calls``'s), loss, plain_loss)."""
     import numpy as np
     import torch
 
@@ -2675,6 +2741,7 @@ def _table_step(dev, card, sync, zero_counts, counts, timed, scene, cams,
     sync()
     zero_counts()
     tables = dict(k4.TABLE_LAUNCHES)
+    designs = dict(k4.TABLE_DESIGN_LAUNCHES)
     tren.shade_stages = spy
     try:
         kernel_step()
@@ -2685,6 +2752,7 @@ def _table_step(dev, card, sync, zero_counts, counts, timed, scene, cams,
     variants.update({k: k4.TABLE_LAUNCHES[k] - tables[k] for k in tables})
     variants["resolve_bwd instances"] = kr.VARIANT_LAUNCHES[
         "backward instances"]
+    designs = {k: k4.TABLE_DESIGN_LAUNCHES[k] - designs[k] for k in designs}
     functions = (tren._shade_surface_function, tren._shade_combine_function)
     levels = _resolves(scene)
     surface, combine = flags
@@ -2697,13 +2765,20 @@ def _table_step(dev, card, sync, zero_counts, counts, timed, scene, cams,
                 "surface_bwd instances": posed,
                 "resolve_bwd instances": posed}
     want = {k: levels * launched.get(k, False) for k in variants}
+    want_designs = {"surface_bwd textures warp": levels * ("textures"
+                                                           in surface),
+                    "surface_bwd textures first": 0,
+                    "combine_bwd env warp": levels * ("env" in combine),
+                    "combine_bwd env first": 0}
     if pairs != [functions] * levels or any(
             got[k] != levels for k in ("surface", "combine", "surface_bwd",
                                        "combine_bwd", "resolve",
                                        "resolve_bwd")) or \
-            got["gather"] or got["scatter"] or variants != want:
+            got["gather"] or got["scatter"] or variants != want or \
+            designs != want_designs:
         raise AssertionError(f"the {what} shaded on {pairs} with launches "
-                             f"{got}, variants {variants}, expected {want}")
+                             f"{got}, variants {variants}, designs "
+                             f"{designs}, expected {want}, {want_designs}")
     loss, grads, _ = value_and_grad()
     kept = []
     with _eager_shading_by_lane(kept, plain_resolve=posed):
@@ -2800,6 +2875,31 @@ def _table_step(dev, card, sync, zero_counts, counts, timed, scene, cams,
           f"{', '.join(f'{t:.2f}' for t in meds)} ms", flush=True)
     routes = {"plain": dict(ms=[meds[0], meds[3]]),
               "kernels": dict(ms=[meds[1], meds[2]])}
+    runs = [("plain", plain_step), ("kernels", kernel_step)]
+    if first_designs:
+        def first_step():
+            with _first_table_designs():
+                return kernel_step()
+
+        d0 = dict(k4.TABLE_DESIGN_LAUNCHES)
+        first_step()
+        sync()
+        took = {k: k4.TABLE_DESIGN_LAUNCHES[k] - d0[k] for k in d0}
+        if took != {k: v for k, v in zip(
+                want_designs, (0, want_designs["surface_bwd textures warp"],
+                               0, want_designs["combine_bwd env warp"]))}:
+            raise AssertionError(f"the {what} on the first designs launched "
+                                 f"{took}")
+        beside = [statistics.median(timed(run, 3)[0]) * 1e3
+                  for run in (first_step, kernel_step, kernel_step,
+                              first_step)]
+        print(f"{what} on {card}, the texture and env variants' first "
+              f"designs against the redesigns, medians of 3 in the order "
+              f"old, new, new, old: "
+              f"{', '.join(f'{t:.2f}' for t in beside)} ms", flush=True)
+        routes.update(first_table_designs=dict(ms=[beside[0], beside[3]]),
+                      kernels_beside_first=dict(ms=[beside[1], beside[2]]))
+        runs.append(("first_table_designs", first_step))
     if sdf_step is not None:
         beside = [statistics.median(timed(run, 3)[0]) * 1e3
                   for run in (sdf_step, kernel_step, kernel_step, sdf_step)]
@@ -2809,7 +2909,7 @@ def _table_step(dev, card, sync, zero_counts, counts, timed, scene, cams,
               f"{', '.join(f'{t:.2f}' for t in beside)} ms", flush=True)
         routes.update(sdf_colour_step=dict(ms=[beside[0], beside[3]]),
                       kernels_beside_it=dict(ms=[beside[1], beside[2]]))
-    for tag, run in (("plain", plain_step), ("kernels", kernel_step)):
+    for tag, run in runs:
         if tag == "plain" and not profile_plain:
             routes[tag]["peak_gib"] = max(plain_peak)
             print(f"{what} on {card}, {tag}: median "
@@ -2836,8 +2936,9 @@ def _table_step(dev, card, sync, zero_counts, counts, timed, scene, cams,
     zero_counts()
     held = _instance_calls(kernel_step, levels, what) if posed \
         else _variant_calls(kernel_step, levels, what, *flags)
-    return dict(routes=routes, launches=variants, grads=by_key, held=held,
-                loss=float(loss), plain_loss=float(plain_loss))
+    return dict(routes=routes, launches=variants, designs=designs,
+                grads=by_key, held=held, loss=float(loss),
+                plain_loss=float(plain_loss))
 
 
 def _rebuild_calls(run, expected, tag):
@@ -3203,6 +3304,36 @@ def _eager_shading():
         yield
     finally:
         tren.shade_stages = saved
+
+
+@contextlib.contextmanager
+def _first_table_designs():
+    """The backward wrappers with the texture and env variants on their
+    first designs (``_old_table_design``; the instance variant's texture
+    path has the redesign alone): what the Functions launched before the
+    redesign."""
+    from vrt_torch.kernels import shade as k4
+
+    surface = k4.shade_surface_backward_cuda
+    combine = k4.shade_combine_backward_cuda
+
+    def old_surface(*args, **kwargs):
+        if kwargs.get("textures") and not kwargs.get("instances"):
+            kwargs["_old_table_design"] = True
+        return surface(*args, **kwargs)
+
+    def old_combine(*args, **kwargs):
+        if kwargs.get("env"):
+            kwargs["_old_table_design"] = True
+        return combine(*args, **kwargs)
+
+    k4.shade_surface_backward_cuda = old_surface
+    k4.shade_combine_backward_cuda = old_combine
+    try:
+        yield
+    finally:
+        k4.shade_surface_backward_cuda = surface
+        k4.shade_combine_backward_cuda = combine
 
 
 @contextlib.contextmanager
@@ -6163,6 +6294,10 @@ def main():
             ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
              "backward (shade.cu)", "combine_bwd_env_kernel", 256),
             ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
+             "backward (shade.cu)", "surface_bwd_textures_warp_kernel", 256),
+            ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
+             "backward (shade.cu)", "combine_bwd_env_warp_kernel", 256),
+            ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
              "backward (shade.cu)", "surface_bwd_instances_kernel", 256),
             ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
              "backward (shade.cu)", "surface_resident_kernel", 256),
@@ -6211,7 +6346,9 @@ def main():
         split = kernel in ("surface_bwd_merged_kernel", "surface_bwd_kernel",
                            "combine_bwd_resident_kernel",
                            "combine_bwd_kernel", "surface_bwd_textures_kernel",
-                           "combine_bwd_env_kernel")
+                           "combine_bwd_env_kernel",
+                           "surface_bwd_textures_warp_kernel",
+                           "combine_bwd_env_warp_kernel")
         for last, key in (((False, kernel), (True, f"{kernel} variant"))
                           if split else ((None, kernel),)):
             got = ptxas_usage(logs[log], kernel, last)
@@ -7006,7 +7143,7 @@ def main():
               fov=tex_scene.cam_fov)],
         TEXTURE_STEP_KEYS, "1080p texture-and-env fit step",
         (("material", "textures"), ("lights", "env")),
-        per_entry=True)
+        per_entry=True, first_designs=True)
     paired["fit_textures"] = tex_step["routes"]["plain"]["ms"][:1] \
         + tex_step["routes"]["kernels"]["ms"] \
         + tex_step["routes"]["plain"]["ms"][1:]
@@ -7728,6 +7865,9 @@ def main():
                tex_step["launches"][f"{alone} shared"],
                "texture_and_env_step_global":
                tex_step["launches"][f"{alone} global"]},
+           "launches_by_design": {
+               d: tex_step["designs"][f"{alone} {d}"]
+               for d in ("warp", "first")},
            "max_abs_err": max(tex_step["held"][key]["max_abs_err"],
                               *(r[alone]["max_abs_err"]
                                 for r in table_runs.values())),
@@ -7751,23 +7891,44 @@ def main():
            "plain_ms": sum(tex_step["held"][key]["plain_ms"]),
            **bound_keys(tex_step["held"][key]["bound"]),
            "library_ms": None,
+           # its first design on the same inputs, first design, redesign,
+           # redesign, first design: the three launches' sums
+           "old_design_ms": sum(tex_step["held"][key]["first_design_ms"]),
+           "redesign_beside_old_ms": sum(
+               tex_step["held"][key]["redesign_beside_first_ms"]),
+           "per_launch_old_design_ms":
+           tex_step["held"][key]["first_design_ms"],
+           "step_on_old_designs_ms":
+           tex_step["routes"]["first_table_designs"],
+           "step_on_redesigns_ms":
+           tex_step["routes"]["kernels_beside_first"],
            "by_path": {f"480x270_{p}_alone": {
                "ms": sum(r[alone]["ms"]),
                "default_instantiation_ms": sum(r[alone]["default_ms"]),
+               "old_design_ms": sum(r[alone]["first_design_ms"]),
+               "redesign_beside_old_ms": sum(
+                   r[alone]["redesign_beside_first_ms"]),
                "plain_ms": sum(r[alone]["plain_ms"]),
                **bound_keys(r[alone]["bound"])}
                for p, r in table_runs.items()},
-           "ptxas": {k: ptxas.get(k) for k in (kernel, f"{kernel} variant")}}
-          for name, key, alone, kernel, path, replaces in (
+           "ptxas": {k: ptxas.get(k) for k in (
+               kernel, f"{kernel} variant", first, f"{first} variant")}}
+          for name, key, alone, kernel, first, path, replaces in (
               ("K4 shade surface backward (texture variant)",
                "surface_bwd material+textures", "surface_bwd textures",
+               "surface_bwd_textures_warp_kernel",
                "surface_bwd_textures_kernel",
                "ShadeSurface's backward where the texture scale or the "
                "textures need a gradient: shade_surface_backward_cuda(..., "
-               "textures=True), surface_bwd_textures_kernel (the merged "
-               "kernel's body with kTex; kMat with the material variant); "
-               "the textures' sums in shared memory where the stack fits "
-               "TEXTURE_SHARED_BYTES, else f32 atomics",
+               "textures=True), surface_bwd_textures_warp_kernel (the "
+               "redesign: the merged kernel's body with kTex and kStaged, "
+               "a hit lane's taps staged and summed over the warp after "
+               "the lanes' code; kMat with the material variant); "
+               "old_design_ms: its first design, surface_bwd_textures_"
+               "kernel (each tap merged inside the lanes' code), behind "
+               "_old_table_design; the textures' sums in shared memory "
+               "where the stack fits TEXTURE_SHARED_BYTES, else f32 "
+               "atomics",
                "vrt/render/renderer.py:346-356 and :459-461 (XLA's "
                "transpose of _shade_lit's and _shade_unlit_mode's texture "
                "samples, vrt/shade/texture.py:25-103, in tex_scale and the "
@@ -7775,13 +7936,16 @@ def main():
                "Pallas kernel)"),
               ("K4 shade combine backward (env variant)",
                "combine_bwd lights+env", "combine_bwd env",
-               "combine_bwd_env_kernel",
+               "combine_bwd_env_warp_kernel", "combine_bwd_env_kernel",
                "ShadeCombine's backward where the env needs a gradient: "
                "shade_combine_backward_cuda(..., env=True), "
-               "combine_bwd_env_kernel (the resident kernel's body with "
-               "kEnv; kGrad with the light variant); the cube's sums in "
-               "shared memory where it fits ENV_SHARED_BYTES, else f32 "
-               "atomics",
+               "combine_bwd_env_warp_kernel (the redesign: the resident "
+               "kernel's body with kEnv and kWarpTaps, a warp's miss "
+               "lanes' four taps summed over the warp at once; kGrad with "
+               "the light variant); old_design_ms: its first design, "
+               "combine_bwd_env_kernel, behind _old_table_design; the "
+               "cube's sums in shared memory where it fits "
+               "ENV_SHARED_BYTES, else f32 atomics",
                "vrt/render/renderer.py:528 (XLA's transpose of the miss "
                "lanes' sample_env, vrt/shade/texture.py:106-152, in the env "
                "under jax.value_and_grad of the fit step: no Pallas "
@@ -7973,7 +8137,8 @@ def main():
         "config6_material_light_step": {k: mat_step[k] for k in (
             "routes", "launches", "grads", "loss", "plain_loss")},
         "texture_and_env_step": {k: tex_step[k] for k in (
-            "routes", "launches", "grads", "loss", "plain_loss")},
+            "routes", "launches", "designs", "grads", "loss",
+            "plain_loss")},
         "config6_pose_step": {k: pose_step[k] for k in (
             "routes", "launches", "grads", "loss", "plain_loss")},
         "engine": eng["numbers"],

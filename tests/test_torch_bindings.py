@@ -170,8 +170,9 @@ def test_shade_launch_counts_variants_and_table_paths(monkeypatch):
     """``_launch`` against a library that runs nothing: each launch counted
     once in ``LAUNCHES``, a material or light variant's again in
     ``VARIANT_LAUNCHES`` and a texture or env variant's in
-    ``TABLE_LAUNCHES`` by its path; the pointers and ints reach the entry
-    point as passed."""
+    ``TABLE_LAUNCHES`` by its path and in ``TABLE_DESIGN_LAUNCHES`` by its
+    design (the redesign unless the first is named); the pointers and ints
+    reach the entry point as passed."""
     from vrt_torch.kernels import shade as k4
 
     seen = []
@@ -185,7 +186,7 @@ def test_shade_launch_counts_variants_and_table_paths(monkeypatch):
     monkeypatch.setattr(k4, "_lib", Library())
     monkeypatch.setattr(k4, "_stream", lambda dev: None)
     for name in ("LAUNCHES", "PATH_LAUNCHES", "VARIANT_LAUNCHES",
-                 "TABLE_LAUNCHES"):
+                 "TABLE_LAUNCHES", "TABLE_DESIGN_LAUNCHES"):
         monkeypatch.setattr(k4, name, dict.fromkeys(getattr(k4, name), 0))
     ptrs, ints = k4.SLOTS["vrt_shade_surface_bwd"]
     k4._launch("vrt_shade_surface_bwd", "surface_bwd", [None] * ptrs,
@@ -193,9 +194,10 @@ def test_shade_launch_counts_variants_and_table_paths(monkeypatch):
                table="textures global")
     ptrs, ints = k4.SLOTS["vrt_shade_combine_bwd"]
     k4._launch("vrt_shade_combine_bwd", "combine_bwd", [None] * ptrs,
-               list(range(ints)), 7, None, "v4", ("lights",), "env shared")
-    assert seen == [("vrt_shade_surface_bwd", 41, [0] * 18, 7),
-                    ("vrt_shade_combine_bwd", 52, list(range(8)), 7)]
+               list(range(ints)), 7, None, "v4", ("lights",), "env shared",
+               "first")
+    assert seen == [("vrt_shade_surface_bwd", 41, [0] * 19, 7),
+                    ("vrt_shade_combine_bwd", 52, list(range(9)), 7)]
     assert k4.LAUNCHES == dict(surface=0, combine=0, surface_bwd=1,
                                combine_bwd=1)
     assert {k: v for k, v in k4.PATH_LAUNCHES.items() if v} == {
@@ -207,6 +209,10 @@ def test_shade_launch_counts_variants_and_table_paths(monkeypatch):
                                  "surface_bwd textures global": 1,
                                  "combine_bwd env shared": 1,
                                  "combine_bwd env global": 0}
+    assert k4.TABLE_DESIGN_LAUNCHES == {"surface_bwd textures warp": 1,
+                                        "surface_bwd textures first": 0,
+                                        "combine_bwd env warp": 0,
+                                        "combine_bwd env first": 1}
 
 
 def test_instance_variants_sizes_are_the_sources():

@@ -512,7 +512,8 @@ def test_warp_slots_of_registers(regs, threads, want):
     ("MARCH", "march.cu"), ("SURFACE_BWD", "shade.cu"),
     ("SHADE_FWD", "shade.cu"), ("RESOLVE_BWD", "resolve.cu"),
     ("SLAB", "march.cu"), ("COMBINE_BWD", "shade.cu"),
-    ("RESOLVE_FWD", "resolve.cu"), ("SURFACE_VOXELS", "shade.cu")])
+    ("RESOLVE_FWD", "resolve.cu"), ("SURFACE_VOXELS", "shade.cu"),
+    ("TEX_ENV", "shade.cu")])
 def test_probe_caps_variants_name_source_constants(probe, source):
     """Every variant of ``vrt_torch.apps.probe_caps`` sets constants that
     its source defines exactly once (the probe rewrites them with this
@@ -2755,6 +2756,142 @@ def test_texture_and_env_variants_refuse_the_first_design_on_card():
             lv["refl"], lv["blocked"], mode, lv["g_rgb"], _old_design=True,
             env=True)
     assert k4.LAUNCHES == before
+
+
+# the levels on which the texture and env variants' two designs are held
+# against each other (``test_texture_and_env_designs_on_card``): the
+# shading scene's coherent texture scale (a warp's lanes on a few
+# footprints), a scale of 0.5 x 0.5 units with the miss lanes' directions
+# scattered (each lane a footprint of its own: the segmented merges), and a
+# frame of 479 x 270 rays (a partial last warp: the scalar path) with the
+# cotangents zero on whole warps and on every third lane
+TABLE_DESIGN_CASES = ("coherent", "divergent", "partial-zeros")
+
+
+def _table_design_level(case, dev):
+    """``_shade_grad_level``'s lit textured level for a case of
+    ``TABLE_DESIGN_CASES``."""
+    width = 479 if case == "partial-zeros" else 480
+    lv = _shade_grad_level("lit-textured-lights", dev, width=width)
+    hit = lv["hit"].hit
+    rays = hit.shape[0]
+    if case == "divergent":
+        lv["scene"] = dataclasses.replace(
+            lv["scene"], tex_scale=torch.full_like(lv["scene"].tex_scale,
+                                                   0.5))
+        gen = torch.Generator().manual_seed(4)
+        d = torch.randn((rays, 3), generator=gen).to(dev)
+        d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+        lv["d_miss"] = torch.where(hit[:, None], lv["d"], d).contiguous()
+    if case == "partial-zeros":
+        lane = torch.arange(rays, device=dev)
+        zero = ((lane // 32) % 5 == 0) | (lane % 3 == 0)
+        lv["cots"] = [None if g is None else torch.where(
+            zero.reshape(zero.shape + (1,) * (g.ndim - 1)), 0.0, g)
+            for g in lv["cots"]]
+        lv["g_rgb"] = torch.where(zero[:, None], 0.0, lv["g_rgb"])
+    return lv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["shared", "global"])
+@pytest.mark.parametrize("case", TABLE_DESIGN_CASES)
+def test_texture_and_env_designs_on_card(case, path):
+    """The texture and env variants' redesigns (the default) and their first
+    designs (``_old_table_design``), each with the material and the light
+    variant in the same launch, on the levels of ``TABLE_DESIGN_CASES``, on
+    the shared path and on the global path
+    (``scenes.padded_sampled_tables``): every per-ray cotangent of both
+    bit-equal to the default launch's on the same inputs; each entry of
+    ``tex_scale``, ``textures`` and ``env`` of both within ``SCATTER_RTOL``
+    * its lanes' |terms| + ``TABLE_ATOL`` of the plain version's float64
+    sums (``_assert_table_close``); the padding of the stack exactly zero;
+    each launch counted on its path and its design."""
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.scenes import padded_sampled_tables
+
+    dev = _card()
+    lv = _table_design_level(case, dev)
+    scene, mode, hit = lv["scene"], lv["mode"], lv["hit"]
+    sizes = scene.tex_sizes.tolist()
+    if path == "global":
+        scene = padded_sampled_tables(scene)
+    assert k4.table_path(scene.textures, k4.TEXTURE_SHARED_BYTES) == path
+    g_k = torch.where(hit.hit, lv["g_rgb"][:, 1], 0.0)
+    args = (scene, lv["o"], lv["d"], lv["t"], lv["n_obj"], hit, lv["inst"],
+            mode, mode.lit, lv["cots"])
+    kw = dict(g_k=g_k, material=True)
+    designs = dict(k4.TABLE_DESIGN_LAUNCHES)
+    base = k4.shade_surface_backward_cuda(*args, **kw)
+    want = tren.shade_surface_backward_reference(
+        *args, acc_dtype=torch.float64, textures=True, **kw)
+    for old in (False, True):
+        got = k4.shade_surface_backward_cuda(*args, textures=True,
+                                             _old_table_design=old, **kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("o_w", "d_w", "t", "n_obj"), got, base):
+            assert torch.equal(a, b), (old, name)
+        _assert_table_close(got[-2], want[-3], want[-1][0], "tex_scale")
+        _assert_table_close(got[-1], want[-2], want[-1][1], "textures")
+        for i, (h, w) in enumerate(sizes):
+            assert not bool(got[-1][i, h:].any()), (old, i)
+            assert not bool(got[-1][i, :, w:].any()), (old, i)
+        assert bool(got[-1].any())
+
+    rec = k4.shade_surface_cuda(*args[:9], mode.lit)
+    cargs = (scene, rec, lv.get("d_miss", lv["d"]), lv["n_obj"], hit.hit,
+             lv["unlit"], lv["refl"], lv["blocked"], mode, lv["g_rgb"])
+    base = k4.shade_combine_backward_cuda(*cargs, lights=True)
+    want = tren.shade_combine_backward_reference(*cargs, env=True,
+                                                 lights=True)
+    for old in (False, True):
+        got = k4.shade_combine_backward_cuda(*cargs, env=True, lights=True,
+                                             _old_table_design=old)
+        torch.cuda.synchronize()
+        for name, a, b in zip(COMBINE_NAMES + ("k",), got, base):
+            assert (a is None) == (b is None), (old, name)
+            if a is not None:
+                assert torch.equal(a, b), (old, name)
+        _assert_table_close(got[-1], want[-2], want[-1], "env")
+        assert bool(got[-1].any())
+    assert {k: k4.TABLE_DESIGN_LAUNCHES[k] - designs[k] for k in designs} \
+        == dict.fromkeys(designs, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TABLE_DESIGN_CASES)
+def test_texture_and_env_redesign_with_the_instance_variant_on_card(case):
+    """The surface backward's instance variant with the texture and the
+    material variant in one launch (its texture path the redesign's) on the
+    levels of ``TABLE_DESIGN_CASES`` with the first instance posed: the
+    textures and the texture scale within their entry bounds, the per-ray
+    cotangents bit-equal to the default launch's; the first design refused
+    there."""
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.scenes import posed_instances
+
+    dev = _card()
+    lv = _table_design_level(case, dev)
+    lv["scene"] = posed_instances(lv["scene"])
+    scene, mode, hit = lv["scene"], lv["mode"], lv["hit"]
+    g_k = torch.where(hit.hit, lv["g_rgb"][:, 1], 0.0)
+    args = (scene, lv["o"], lv["d"], lv["t"], lv["n_obj"], hit, lv["inst"],
+            mode, mode.lit, lv["cots"])
+    kw = dict(g_k=g_k, material=True, textures=True, instances=True)
+    designs = dict(k4.TABLE_DESIGN_LAUNCHES)
+    got = k4.shade_surface_backward_cuda(*args, **kw)
+    base = k4.shade_surface_backward_cuda(*args)
+    want = tren.shade_surface_backward_reference(
+        *args, acc_dtype=torch.float64, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("o_w", "d_w", "t", "n_obj"), got, base):
+        assert torch.equal(a, b), name
+    _assert_table_close(got[9], want[10], want[12][0], "tex_scale")
+    _assert_table_close(got[10], want[11], want[12][1], "textures")
+    assert {k: k4.TABLE_DESIGN_LAUNCHES[k] - designs[k] for k in designs} \
+        == {k: int(k == "surface_bwd textures warp") for k in designs}
+    with pytest.raises(ValueError, match="first design"):
+        k4.shade_surface_backward_cuda(*args, _old_table_design=True, **kw)
 
 
 def _instance_variants(lv, surface_kw=None, dev=None):

@@ -64,16 +64,16 @@ PLAIN = (tren.shade_surface_reference, tren.shade_combine_reference)
 FUNCTIONS = (tren._shade_surface_function, tren._shade_combine_function)
 
 
-def _case(name, **tables):
+def _case(name, width=WIDTH, height=HEIGHT, **tables):
     """The case's vrt scene (with ``tables`` replacing its own), the port's
-    scene on the CPU from its leaves, the mode, the primary rays and the
-    weights of the loss."""
+    scene on the CPU from its leaves, the mode, the primary rays of a
+    ``width`` x ``height`` frame and the weights of the loss."""
     lit, colors = CASES[name]
     vs = _vrt_scene(points=2, spots=1, colors=colors)
     vs = dataclasses.replace(vs, **{k: jnp.asarray(v)
                                     for k, v in tables.items()})
     ts = scene_from_numpy(scene_fields(vs), device="cpu")
-    o, d = camera_rays(ts.cam_pos, ts.cam_rot, ts.cam_fov, WIDTH, HEIGHT)
+    o, d = camera_rays(ts.cam_pos, ts.cam_rot, ts.cam_fov, width, height)
     weights = np.random.default_rng(7).normal(
         size=(o.shape[0], 3)).astype(np.float32)
     return vs, ts, RenderMode(lit=lit), o, d, weights
@@ -118,7 +118,7 @@ def _vrt_grads(vs, mode, o, d, weights):
     return float(loss), {f: np.asarray(g) for f, g in grads.items()}
 
 
-def _assert_close(got, want, name):
+def _assert_close(got, want, name, diff=DIFF_F32):
     a = np.asarray(got, np.float64).ravel()
     b = np.asarray(want, np.float64).ravel()
     assert np.isfinite(a).all(), name
@@ -128,12 +128,58 @@ def _assert_close(got, want, name):
         return
     cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
     assert cos >= 1.0 - COS_F32, (name, 1.0 - cos)
-    assert np.abs(a - b).max() <= DIFF_F32 * scale, (
+    assert np.abs(a - b).max() <= diff * scale, (
         name, np.abs(a - b).max() / scale)
 
 
 def _levels(mode):
     return tren.MAX_RAY_RECURSION_DEPTH if mode.lit else 1
+
+
+# the texture scales of the sampled-table cases: the shading scene's (a
+# warp's lanes on a few texels, the card's shared-path merges) and half a
+# unit (every lane of a warp on a footprint of its own)
+SCALES = {"37x23": (37.0, 23.0), "0.5x0.5": (0.5, 0.5)}
+# At half a unit a texel coordinate (|pos| / 0.5 times 8 texels, less a
+# half) reaches 2^10 to 2^11, whose f32 spacing is 2^-12: XLA's fused
+# multiply-adds round each tap's weight apart from torch's separate
+# products by up to that, and a texel's gradient sums such weights, so
+# there the textures are held at 4 * 2^-12 of their largest entry (5.9e-4
+# measured); the cosine stays at COS_F32, the other tables at DIFF_F32.
+DIFF_FINE_TEXELS = 4 * 2.0 ** -12
+
+
+@pytest.mark.parametrize("side", [4, 8, 64])
+@pytest.mark.parametrize("scale", sorted(SCALES))
+def test_plain_sampled_backward_matches_vrt(scale, side):
+    """The inputs of the card's checks of the texture and env variants'
+    designs, on the CPU: a 23 x 15 frame (345 rays, not a multiple of a
+    warp), the texture scale at ``scale`` and a seeded env cube of ``side``
+    texels a face (64 past the shared-memory budget: the card's global
+    path), unlit and textured (the albedo texture and the env).  The
+    port's plain backward (through the Function pair on CPU tensors) in
+    ``tex_scale``, the textures and the env against ``jax.value_and_grad``
+    of ``vrt``'s ``trace_radiance`` on the same numpy inputs at
+    ``tests/test_torch_grad.py``'s f32 gates (``COS_F32``, ``DIFF_F32``;
+    the textures at half a unit at ``DIFF_FINE_TEXELS``): the yardstick
+    the card holds both designs to is held to ``vrt``."""
+    env = np.random.default_rng(side).uniform(
+        0.1, 1.0, size=(6, side, side, 3)).astype(np.float32)
+    vs, ts, mode, o, d, weights = _case(
+        "unlit-textured", width=23, height=15, env=env,
+        tex_scale=np.tile(np.float32(SCALES[scale]), (2, 1)))
+    assert o.shape[0] % 32 != 0
+    assert k4.table_path(ts.env, k4.ENV_SHARED_BYTES) == (
+        "global" if side == 64 else "shared")
+    loss, got, seen = _port_grads(ts, mode, o, d, weights)
+    assert seen == [FUNCTIONS]
+    want_loss, want = _vrt_grads(vs, mode, o, d, weights)
+    np.testing.assert_allclose(loss, want_loss, rtol=1e-5)
+    for f in TEXTURE_FIELDS:
+        fine = f == "textures" and scale == "0.5x0.5"
+        _assert_close(got[f].numpy(), want[f], f,
+                      DIFF_FINE_TEXELS if fine else DIFF_F32)
+        assert bool(got[f].any()), f
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -12,7 +12,7 @@ CUDA card.
                                          [resolve_bwd] [slab] [pyramid]
                                          [combine_bwd] [resolve_fwd]
                                          [surface_voxels [--parent DIR]]
-                                         [shade_bwd --parent DIR]
+                                         [shade_bwd --parent DIR] [tex_env]
 
 Each kernel's block and register cap are constants of its source
 (``kSceneThreads``, ``kSceneMinBlocks`` and ``kAnyHitMinBlocks`` in
@@ -72,7 +72,17 @@ DIR`` the four shade kernels' launches (forward and backward) and the
 fused resolve backward's of the 1080p flagship frame, the config6 and
 config4 fit steps and the material-and-light step (the backward's material
 and light variants) on this checkout's ``shade.cu`` and ``resolve.cu``
-and on the parent's, parent, this, this, parent, bit-equal.  Each build must give the default
+and on the parent's, parent, this, this, parent, bit-equal; for
+``tex_env`` the surface backward's texture variant and the combine
+backward's env variant (``_tex_env_probe``): every launch of the 1080p
+texture-and-env step and of the 480x270 lights frame's loss in the sampled
+tables, the first design against the redesign, old, new, new, old, as
+built and with the tap sums switched by ``kTapSink`` in ``shade.cu`` (the
+taps computed but nothing added, each lane's own atomics, no block's
+flush, the merges without atomics, the taps' keys and values alone), the
+default instantiation and the global path beside them, a
+census of the distinct keys each merge sees (a build with ``kTapCensus``)
+and ptxas of both designs.  Each build must give the default
 build's result (the marches
 field by field, the per-ray cotangents bit for bit (every output of the
 combine backward and of the fused resolve), the forward pair on
@@ -193,6 +203,18 @@ SURFACE_VOXELS = (
     ("colour sample compiled out", {"kFwdColorSample": "false"}, 256),
     ("miss lanes only: the hit path compiled out",
      {"kFwdHitPath": "false"}, 256))
+# the texture and env variants' table sums (tex_env), each build timing both
+# designs: as built, then with the sink switched by kTapSink
+TEX_ENV = (
+    ("as built", {}, 256),
+    ("the taps computed, nothing added", {"kTapSink": 1}, 256),
+    ("each lane's own atomics, no merge", {"kTapSink": 2}, 256),
+    ("merges and atomics, no block's flush", {"kTapSink": 3}, 256),
+    ("merges, no atomic", {"kTapSink": 4}, 256),
+    ("the taps' keys and values alone, no merge", {"kTapSink": 5}, 256))
+TEX_ENV_KERNELS = ("surface_bwd_textures_kernel",
+                   "surface_bwd_textures_warp_kernel",
+                   "combine_bwd_env_kernel", "combine_bwd_env_warp_kernel")
 SHADE_KERNELS = ("surface_resident_kernel", "combine_resident_kernel")
 # the resolve backward's table against the default build's: its sums add in
 # another order (chip_smoke.py's SCATTER_RTOL)
@@ -657,6 +679,140 @@ class _Slabs(SceneTracer):
         return tuple(out)
 
 
+def _tex_env_builds(card):
+    """``TEX_ENV``'s builds of ``shade.cu`` and the census build
+    (``kTapCensus``), in parallel, their entries typed as ``k4``'s: [(label,
+    library)] and the census library; prints ptxas' registers and spills of
+    the texture and env variants' kernels in each build, the kMat / kGrad
+    instantiations apart."""
+    k4.build()
+    variants = TEX_ENV + (("census", {"kTapCensus": "true"}, 256),)
+    paths = [_variant("shade.cu", consts, f"tex_env_{i}")
+             for i, (_, consts, _) in enumerate(variants)]
+    with ThreadPoolExecutor(len(paths)) as pool:
+        built = list(pool.map(lambda ph: _build.build(
+            str(ph[0]), k4.NVCC_FLAGS, headers=[str(ph[1])]), paths))
+    out = []
+    for (label, _, threads), (lib, log) in zip(variants, built):
+        for name in ("vrt_shade_surface", "vrt_shade_combine",
+                     "vrt_shade_surface_bwd", "vrt_shade_combine_bwd",
+                     "vrt_shade_tap_census"):
+            ref, fn = getattr(k4._lib, name), getattr(lib, name)
+            fn.argtypes, fn.restype = ref.argtypes, ref.restype
+        for kernel in TEX_ENV_KERNELS:
+            for last in (False, True):
+                usage = _build.ptxas_usage(log, kernel, last)
+                if usage is None:
+                    print(f"ptxas, {label}: {kernel} (kMat / kGrad {last}): "
+                          f"not in this run's log", flush=True)
+                    continue
+                slots = [_build.warp_slots(r, threads)
+                         for r in usage["registers"][::-1]]
+                print(f"ptxas, {label}: {kernel} (kMat / kGrad {last}): "
+                      f"{usage['variants']} variants, registers "
+                      f"{usage['registers']}, stack {usage['stack_bytes']}, "
+                      f"spills {usage['spill_bytes']} bytes, warp slots "
+                      f"filled {slots[0]:.0%}-{slots[1]:.0%}", flush=True)
+        out.append((label, lib))
+    return out[:-1], out[-1][1]
+
+
+def _tex_env_probe(card, dev, runs):
+    """The ``tex_env`` section: every launch of the surface backward's
+    texture variant and of the combine backward's env variant in each run
+    of ``runs`` ((what, run, padded): the 1080p texture-and-env step, the
+    480x270 lights frame's loss in the sampled tables on the scene's own
+    tables and on ``scenes.padded_sampled_tables``), each through the first
+    design (``_old_table_design``) and the redesign, old, new, new, old, on
+    each build of ``TEX_ENV`` (as built; the taps computed but nothing
+    added; each lane's own atomics; no flush), then on the default build the
+    default instantiation on the same inputs and, where ``padded``, both
+    designs on the padded tables (the global path); every launch's per-ray
+    cotangents bit-equal to the recorded launch's, the tables of the two
+    designs reported against each other; and each launch's census on the
+    census build: how many merges saw how many distinct keys among the
+    lanes that add (the first design a tap at a time, the redesign a
+    sample's footprint at a time)."""
+    import dataclasses
+
+    from vrt_torch.scenes import padded_sampled_tables
+
+    builds, census_lib = _tex_env_builds(card)
+    default = k4._lib
+    for what, run, padded in runs:
+        for name, flag in (("shade_surface_backward_cuda", "textures"),
+                           ("shade_combine_backward_cuda", "env")):
+            fn = getattr(k4, name)
+            calls = [c for c in _recorded(k4, name, run) if c[1].get(flag)]
+            n = 4 if flag == "textures" else 9 + bool(
+                calls and calls[0][1].get("lights"))
+            rows = {}
+            try:
+                for j, (args, kwargs, want) in enumerate(calls):
+                    def on(lib, old, a=args, kw=kwargs):
+                        def launch():
+                            k4._lib = lib
+                            return fn(*a, **kw, _old_table_design=old)
+                        return launch
+
+                    for label, lib in builds:
+                        outs = [on(lib, old)() for old in (True, False)]
+                        torch.cuda.synchronize()
+                        for o in outs:
+                            if not _same_bits(o[:n], want[:n], args, label):
+                                raise AssertionError(
+                                    f"{what} {name} {j} ({label}): the "
+                                    f"per-ray cotangents differ from the "
+                                    f"recorded launch's")
+                        if label == builds[0][0]:
+                            old_t, new_t = outs[0][-1], outs[1][-1]
+                            top = old_t.abs().max().item()
+                            diff = (old_t - new_t).abs().max().item()
+                            print(f"{what} {name} {j}: the two designs' "
+                                  f"{flag} table differ by {diff:.3e} "
+                                  f"(largest entry {top:.3e})", flush=True)
+                        del outs
+                        rows.setdefault(label, []).append(
+                            [device_ms(on(lib, old), REPS)
+                             for old in (True, False, False, True)])
+                    k4._lib = default
+                    plain_kw = {k: v for k, v in kwargs.items() if k != flag}
+                    rows.setdefault("the default instantiation", []).append(
+                        [device_ms(lambda: fn(*args, **plain_kw), REPS)] * 4)
+                    if padded:
+                        with torch.no_grad():
+                            wide = padded_sampled_tables(args[0])
+                        big = (dataclasses.replace(
+                            args[0], textures=wide.textures, env=wide.env),
+                            ) + tuple(args[1:])
+                        rows.setdefault("the padded tables (global path)",
+                                        []).append(
+                            [device_ms(on(default, old, big), REPS)
+                             for old in (True, False, False, True)])
+                    for design, old in (("first design", True),
+                                        ("redesign", False)):
+                        k4._lib = census_lib
+                        k4.tap_census(reset=True)
+                        on(census_lib, old)()
+                        hist = k4.tap_census(reset=True)
+                        merges = sum(hist)
+                        print(f"{what} {name} {j}, {design}: {merges} merges "
+                              f"by distinct keys "
+                              + ", ".join(f"{k}: {c}" for k, c in
+                                          enumerate(hist) if c), flush=True)
+            finally:
+                k4._lib = default
+            for label, per in rows.items():
+                olds = sum(t[0] + t[3] for t in per) / 2
+                news = sum(t[1] + t[2] for t in per) / 2
+                print(f"{what} {name} ({flag}) on {card}, {label}: first "
+                      f"design, redesign, redesign, first design "
+                      f"{'; '.join(', '.join(f'{x:.4f}' for x in t) for t in per)}"
+                      f" ms; sums {olds:.4f} against {news:.4f} ms",
+                      flush=True)
+            del calls
+
+
 def _simt_of(steps):
     """SIMT efficiency of warps of 32 consecutive lanes: the lane-steps
     taken over 32 times each warp's largest."""
@@ -814,7 +970,7 @@ def main(argv=None) -> int:
         del args[at:at + 2]
     probes = set(args) or {
         "march", "surface_bwd", "shade_fwd", "resolve_bwd", "slab", "pyramid",
-        "combine_bwd", "resolve_fwd", "surface_voxels"}
+        "combine_bwd", "resolve_fwd", "surface_voxels", "tex_env"}
     dev = torch.device("cuda", 0)
     card = card_name()
     entries = ("vrt_shade_surface", "vrt_shade_combine",
@@ -958,6 +1114,59 @@ def main(argv=None) -> int:
         targets = torch.zeros((1, 1920 * 1080, 3), device=dev)
         state = opt.init(params)
         return lambda: step(params, state, targets)
+
+    if "tex_env" in probes:
+        from vrt_torch.scenes import padded_sampled_tables
+
+        def texture_step():
+            # chip_smoke.py's phase 8: the shading scene at 1080p from its
+            # own camera, the texture scale, the textures and the env among
+            # the parameters beside the material constants and the sun
+            scene = shading_scene(6, 2, 1, colors=False,
+                                  accel_mode="chebyshev",
+                                  march_dtype=torch.bfloat16, device=dev)
+            keys = ("sdf", "tint", "roughness", "metallic", "tex_scale",
+                    "textures", "env", "dir_light_strength")
+            params = {k: scene.volumes.sdf if k == "sdf"
+                      else getattr(scene, k) for k in keys}
+            opt = adam(1e-2)
+            cams = [dict(position=scene.cam_pos, rotation=scene.cam_rot,
+                         fov=scene.cam_fov)]
+            step = make_fit_step(scene, cams, 1920, 1080, RenderMode(), opt)
+            targets = torch.zeros((1, 1920 * 1080, 3), device=dev)
+            state = opt.init(params)
+            return lambda: step(params, state, targets)
+
+        def table_loss(scene):
+            # chip_smoke.py's phase 3: a seeded weighting of the 480x270
+            # frame differentiated in the texture scale, the textures and
+            # the env
+            import dataclasses
+
+            import numpy as np
+
+            from vrt_torch.render.gpuscene import TEXTURE_FIELDS
+
+            weights = torch.from_numpy(np.random.default_rng(0).normal(
+                size=(270, 480, 3)).astype(np.float32)).to(dev)
+
+            def run():
+                leaves = {f: getattr(scene, f).detach().clone()
+                          .requires_grad_(True) for f in TEXTURE_FIELDS}
+                rgb = render_image(dataclasses.replace(scene, **leaves),
+                                   480, 270, RenderMode())
+                return torch.autograd.grad((rgb[..., :3] * weights).sum(),
+                                           list(leaves.values()))
+            return run
+
+        lights = shading_scene(6, 2, 1, device=dev)
+        _tex_env_probe(card, dev, (
+            ("the 1080p texture-and-env step's", texture_step(), True),
+            ("the 480x270 lights frame's (own tables)", table_loss(lights),
+             True),
+            ("the 480x270 lights frame's (padded tables)",
+             table_loss(padded_sampled_tables(lights)), False)))
+        del lights
 
     if "shade_bwd" in probes and parent is not None:
         flagship = flagship_scene(7, "chebyshev", torch.bfloat16, device=dev)

@@ -1531,12 +1531,16 @@ __global__ void __launch_bounds__(kFwdThreads, kCombineMinBlocks)
 // combine backward's env variant adds a miss lane's four taps into the env
 // cube.  Those tables are larger (the shading scene's 3 x 16 x 16 texels, a
 // cube of 6 x E x E) and a tap is a gather of its own, so a warp's lanes
-// that name one texel are summed first (add_texel: merge_peers over the
-// lanes active there) and the lowest adds the sum into the block's partial
-// sums in shared memory, added into the table once at the block's end,
-// where the table fits kTexSharedBytes / kEnvSharedBytes, else into the
-// table's f32 accumulator by f32 atomics; the padding of the stacked
-// textures gets no tap.
+// that name one texel are summed first and the lowest adds the sum into the
+// block's partial sums in shared memory, added into the table once at the
+// block's end, where the table fits kTexSharedBytes / kEnvSharedBytes, else
+// into the table's f32 accumulator by f32 atomics; the padding of the
+// stacked textures gets no tap.  The first design (surface_bwd_textures_
+// kernel, combine_bwd_env_kernel) merges each tap on its own inside the
+// lanes' code (add_texel: merge_peers over the lanes active there); the
+// redesign (surface_bwd_textures_warp_kernel, combine_bwd_env_warp_kernel,
+// the default; see "the texture and env variants' taps, the redesign")
+// sums a sample's four taps over the whole warp at once.
 //
 // The surface backward's instance variant (surface_bwd_instances_kernel:
 // the merged kernel's body with kInst, and with kMat / kTex where the step
@@ -1606,18 +1610,65 @@ struct TableSink {
   float* global;
 };
 
+// The probe's switches of the texture and env variants' table sums
+// (vrt_torch.apps.probe_caps tex_env), in both designs: 0 as designed; 1 the
+// taps computed but nothing added (no merge, no atomic, no flush); 2 each
+// lane's own atomics, no merge; 3 the merges and atomics, but no block's
+// partial sums flushed into the table; 4 the merges, no atomic; 5 the
+// taps' keys and values alone, no merge.  (4 and 5 keep what they skip
+// alive by a test that no value meets: kept().)  Every mode gives the
+// per-ray cotangents; only 0 gives the tables.
+constexpr int kTapSink = 0;
+
+// The probe's modes 4 and 5: true for no finite value the kernels compute,
+// so that the skipped sums stay computed.
+__device__ __forceinline__ bool kept(float x) { return x == -1.25e-38f; }
+// The probe's census (true in its build alone): every merge of texture or
+// env taps counts, by the number of distinct keys among the lanes that add
+// there, into g_tap_census (vrt_shade_tap_census reads it).
+constexpr bool kTapCensus = false;
+__device__ unsigned long long g_tap_census[33];
+
+// The census of one merge: `key` among the lanes of `mask` that add (`on`).
+__device__ __forceinline__ void tap_census(unsigned mask, bool on,
+                                           long long key, int lane) {
+  const unsigned ons = __ballot_sync(mask, on);
+  const unsigned peers = __match_any_sync(mask, on ? key : -1ll - lane);
+  const unsigned leads = __ballot_sync(mask, on && __ffs(peers) - 1 == lane);
+  if (ons != 0u && lane == __ffs(ons) - 1)
+    atomicAdd(&g_tap_census[__popc(leads)], 1ull);
+}
+
 // One tap's cotangents (g, 3 floats) of the texel `texel` (its row in the
 // table viewed as [rows, 3]) into the sink: the lanes of the warp that make
 // this call together (divergent code: the lanes active here) and name one
 // texel summed first, the group's lowest lane adding each nonzero sum with
-// one f32 atomic.
+// one f32 atomic.  (The first design of the texture and env variants; the
+// redesign sums a sample's four taps over the warp at once: warp_taps_add.)
 __device__ __forceinline__ void add_texel(const TableSink& sink,
                                           long long texel, float g0,
                                           float g1, float g2) {
   const int lane = threadIdx.x & 31;
   float v[3] = {g0, g1, g2};
+  if (kTapCensus) tap_census(__activemask(), true, texel, lane);
+  if (kTapSink == 1) return;
+  if (kTapSink == 5) {
+    if (kept(g0 + g1 + g2 + static_cast<float>(texel)))
+      atomicAdd(sink.global, g0);
+    return;
+  }
+  if (kTapSink == 2) {
+    float* dst = (sink.sh != nullptr ? sink.sh : sink.global) + 3 * texel;
+    for (int c = 0; c < 3; ++c)
+      if (v[c] != 0.0f) atomicAdd(dst + c, v[c]);
+    return;
+  }
   if (merge_peers_in(__activemask(), texel, v, lane) == lane) {
     float* dst = (sink.sh != nullptr ? sink.sh : sink.global) + 3 * texel;
+    if (kTapSink == 4) {
+      if (kept(v[0] + v[1] + v[2])) atomicAdd(dst, v[0]);
+      return;
+    }
     for (int c = 0; c < 3; ++c)
       if (v[c] != 0.0f) atomicAdd(dst + c, v[c]);
   }
@@ -1654,6 +1705,155 @@ __device__ __forceinline__ void flush_table(float* global, const float* sh,
                                             long long words) {
   for (long long w = threadIdx.x; w < words; w += blockDim.x)
     if (sh[w] != 0.0f) atomicAdd(global + w, sh[w]);
+}
+
+// ---- the texture and env variants' taps, the redesign ------------------------
+//
+// What held the first design back (chip_smoke.py, vrt_torch.apps.probe_caps
+// tex_env; ncu cannot run on the card's machine): its 36 taps a lit hit lane
+// and 4 a miss lane, each a merge of its own (add_texel: a match on a
+// 64-bit key, then rounds of shuffles, an any and a ballot) inside the lane's
+// divergent code, where the texture variant spilled at its 80-register cap
+// and the env variant at 128.  Its tables add no bytes to speak of (9 KB and
+// 4.6 KB): the time went to those instructions.  The redesign sums the four
+// taps of one bilinear sample under one key, the sample's footprint (its
+// texel t00, which names the other three), over the whole warp at a point
+// where every lane of it runs (warp_taps_add): where every lane that adds
+// shares the footprint (a miss warp under an env texel that spans hundreds
+// of pixels) one transposed butterfly of 16 shuffles sums the 12 floats and
+// 12 lanes add one each; elsewhere a segmented merge of the 12 floats, one
+// round of 12 shuffles a halving of the largest group.  The texture variant
+// stages what its taps need (the object position, the blend weights and the
+// three samples' cotangents: 16 words a lane in shared memory) from the hit
+// lanes' code and sums the 9 samples after it, over the whole warp
+// (stage_taps_reduce); the env variant sums an all-miss warp's taps right
+// after its lookup and a hit warp's miss lanes after the warp's lit code
+// (env_taps_warp).  Each lane's taps are the first design's products, bit
+// for bit; only the order of the sums differs.  Measured and dropped (the
+// probe's builds, PERF.md): a copy of the partial sums a warp (no gain: the
+// warps of a block barely contend), each lane's sums carried in place while
+// a warp keeps one env footprint (a warp's next round lies elsewhere in the
+// frame, and runs of adjacent rounds unbalanced the warps), the compare-and-
+// swap of a lane's 12 sums at once, and one lane adding its own.
+
+// merge_peers_in over a 32-bit key.
+template <int N>
+__device__ __forceinline__ int merge_peers32(unsigned mask, int key,
+                                             float (&v)[N], int lane) {
+  const unsigned peers = __match_any_sync(mask, key);
+  unsigned above = peers & (0xfffffffeu << lane);
+  unsigned rank = __popc(peers & ((1u << lane) - 1u));
+  while (__any_sync(mask, above != 0u)) {
+    const int next = __ffs(above);
+    for (int e = 0; e < N; ++e) {
+      const float o = __shfl_sync(mask, v[e], next > 0 ? next - 1 : lane);
+      if (next > 0) v[e] += o;
+    }
+    above &= ~__ballot_sync(mask, rank & 1u);
+    rank >>= 1;
+  }
+  return __ffs(peers) - 1;
+}
+
+// The sums over the 32 lanes of a converged warp of v[0..11] (a transposed
+// butterfly: each step a lane keeps half of what it holds and adds its
+// partner's copy of that half, 8 + 4 + 2 + 1 + 1 shuffles): lanes 2e and
+// 2e + 1 return the sum of v[e] (e < 12; lanes 24..31 return zeros).
+__device__ __forceinline__ float warp_sum12(const float (&v)[12], int lane) {
+  float a[8], b[4], c[2];
+  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4, h2 = lane & 2;
+  for (int j = 0; j < 8; ++j) {
+    const float lo = v[j], hi = j < 4 ? v[j + 8] : 0.0f;
+    a[j] = (h16 ? hi : lo) + __shfl_xor_sync(kFullWarp, h16 ? lo : hi, 16);
+  }
+  for (int j = 0; j < 4; ++j)
+    b[j] = (h8 ? a[j + 4] : a[j]) +
+           __shfl_xor_sync(kFullWarp, h8 ? a[j] : a[j + 4], 8);
+  for (int j = 0; j < 2; ++j)
+    c[j] = (h4 ? b[j + 2] : b[j]) +
+           __shfl_xor_sync(kFullWarp, h4 ? b[j] : b[j + 2], 4);
+  float d = (h2 ? c[1] : c[0]) + __shfl_xor_sync(kFullWarp, h2 ? c[0] : c[1],
+                                                 2);
+  return d + __shfl_xor_sync(kFullWarp, d, 1);
+}
+
+// One sum x of a tap's channel c at texel `texel` into the table (one f32
+// atomic where x is nonzero; the probe's kTapSink 4 adds nothing).
+__device__ __forceinline__ void tap_add(float* table, int texel, int c,
+                                        float x) {
+  if (kTapSink == 4) {
+    if (kept(x)) atomicAdd(table, x);
+  } else if (x != 0.0f) {
+    atomicAdd(table + 3 * texel + c, x);
+  }
+}
+
+// One bilinear sample's four taps (texels tex[0..3]: 00, 10, 01, 11; their
+// cotangents v, 3 floats a tap) from every lane of a converged warp that
+// adds (`on`; the others hold zeros), summed under the sample's footprint
+// `key` (equal keys name equal texels), into the sink: where every such
+// lane shares the key, one butterfly; else a segmented merge, the group's
+// lowest lane adding its 12 sums.  One f32 atomic a nonzero sum.
+__device__ __forceinline__ void warp_taps_add(const TableSink& sink, bool on,
+                                              int key, const int (&tex)[4],
+                                              const float (&v)[12],
+                                              int lane) {
+  if (kTapSink == 5) {
+    float f = static_cast<float>(key + tex[1] + tex[2] + tex[3]);
+    for (int e = 0; e < 12; ++e) f += v[e];
+    if (kept(f)) atomicAdd(sink.global, f);
+    return;
+  }
+  const unsigned ons = __ballot_sync(kFullWarp, on);
+  if (ons == 0u) return;
+  if (kTapCensus) tap_census(kFullWarp, on, key, lane);
+  if (kTapSink == 1) return;
+  float* const table = sink.sh != nullptr ? sink.sh : sink.global;
+  if (kTapSink == 2) {
+    // the probe's mode 2: each lane's own atomics
+    if (on)
+#pragma unroll
+      for (int e = 0; e < 12; ++e) tap_add(table, tex[e / 3], e % 3, v[e]);
+    return;
+  }
+  const int lead = __ffs(ons) - 1;
+  // every lane takes part in the shuffle (a full-warp sync)
+  const int lead_key = __shfl_sync(kFullWarp, key, lead);
+  if (__all_sync(kFullWarp, !on || key == lead_key)) {
+    const float s = warp_sum12(v, lane);
+    const int e = (lane >> 1) & 15;
+    const int t0 = __shfl_sync(kFullWarp, tex[0], lead);
+    const int t1 = __shfl_sync(kFullWarp, tex[1], lead);
+    const int t2 = __shfl_sync(kFullWarp, tex[2], lead);
+    const int t3 = __shfl_sync(kFullWarp, tex[3], lead);
+    if (!(lane & 1) && e < 12)
+      tap_add(table, e < 3 ? t0 : (e < 6 ? t1 : (e < 9 ? t2 : t3)),
+              e - 3 * (e / 3), s);
+    return;
+  }
+  float w[12];
+  for (int e = 0; e < 12; ++e) w[e] = v[e];
+  if (merge_peers32(kFullWarp, on ? key : -1 - lane, w, lane) == lane && on)
+#pragma unroll
+    for (int e = 0; e < 12; ++e) tap_add(table, tex[e / 3], e % 3, w[e]);
+}
+
+// The twelve cotangents of a bilinear sample's taps for the sample's
+// cotangent g, each the first design's product (add_taps), into v.
+__device__ __forceinline__ void tap_values(const float g[3], float fu,
+                                           float fv, float (&v)[12]) {
+  float top[3], bot[3];
+  for (int c = 0; c < 3; ++c) {
+    top[c] = g[c] * (1.0f - fv);
+    bot[c] = g[c] * fv;
+  }
+  const float gu = 1.0f - fu;
+  for (int c = 0; c < 3; ++c) {
+    v[c] = top[c] * gu;
+    v[3 + c] = top[c] * fu;
+    v[6 + c] = bot[c] * gu;
+    v[9 + c] = bot[c] * fu;
+  }
 }
 
 __device__ __forceinline__ float dabs(float x) {   // d|x|/dx, jnp.abs'
@@ -1974,6 +2174,78 @@ __device__ void sample_env_bwd(const float* env, int e, const float d_w[3],
     add_taps(*sink, g, fu, fv, t0 + va * e + ua, t0 + va * e + ub,
              t0 + vb * e + ua, t0 + vb * e + ub);
   }
+}
+
+// A lane's env footprint, sample_env's lookup of direction d_w (its face,
+// floors and weights line for line): the key (the face and the unclamped
+// floors, which name the four clamped texels), those texels (00, 10, 01,
+// 11 in the cube viewed as [6 E E, 3]) and the weights fu, fv.
+struct EnvFoot {
+  int key, tex[4];
+  float fu, fv;
+};
+
+__device__ __forceinline__ void env_foot(int e, const float d_w[3],
+                                         EnvFoot& f) {
+  const float x = d_w[0], y = d_w[2], z = d_w[1];
+  const float ax = fabsf(x), ay = fabsf(y), az = fabsf(z);
+  const bool x_major = ax >= ay && ax >= az;
+  const bool y_major = !x_major && ay >= az;
+  float ma, sc, tc;
+  int face;
+  if (x_major) {
+    ma = ax;
+    face = x >= 0.0f ? 0 : 1;
+    sc = x >= 0.0f ? -z : z;
+    tc = -y;
+  } else if (y_major) {
+    ma = ay;
+    face = y >= 0.0f ? 2 : 3;
+    sc = x;
+    tc = y >= 0.0f ? z : -z;
+  } else {
+    ma = az;
+    face = z >= 0.0f ? 4 : 5;
+    sc = z >= 0.0f ? x : -x;
+    tc = -y;
+  }
+  const float fe = static_cast<float>(e);
+  const float u = ((sc / ma + 1.0f) * 0.5f) * fe - 0.5f;
+  const float v = ((tc / ma + 1.0f) * 0.5f) * fe - 0.5f;
+  const float u0 = floorf(u), v0 = floorf(v);
+  const int iu = static_cast<int>(u0), iv = static_cast<int>(v0);
+  const int ua = min(max(iu, 0), e - 1);
+  const int ub = min(max(static_cast<int>(u0 + 1.0f), 0), e - 1);
+  const int va = min(max(iv, 0), e - 1);
+  const int vb = min(max(static_cast<int>(v0 + 1.0f), 0), e - 1);
+  const int t0 = face * e * e;
+  f.tex[0] = t0 + va * e + ua;
+  f.tex[1] = t0 + va * e + ub;
+  f.tex[2] = t0 + vb * e + ua;
+  f.tex[3] = t0 + vb * e + ub;
+  // the floors lie in [-1, e - 1]
+  f.key = (face * (e + 1) + (iv + 1)) * (e + 1) + (iu + 1);
+  f.fu = u - u0;
+  f.fv = v - v0;
+}
+
+// The env redesign's taps of a converged warp (miss lanes, `on`, of
+// direction d_w and cotangent g; a lane whose g is zero adds nothing),
+// summed over the warp under each lookup's footprint (warp_taps_add).
+__device__ __forceinline__ void env_taps_warp(const TableSink& sink, int e,
+                                              const float d_w[3],
+                                              const float g[3], bool on,
+                                              int lane) {
+  on = on && !(g[0] == 0.0f && g[1] == 0.0f && g[2] == 0.0f);
+  if (!__any_sync(kFullWarp, on)) return;
+  EnvFoot f = {-1, {0, 0, 0, 0}, 0.0f, 0.0f};
+  float v[12];
+  for (int k = 0; k < 12; ++k) v[k] = 0.0f;
+  if (on) {
+    env_foot(e, d_w, f);
+    tap_values(g, f.fu, f.fv, v);
+  }
+  warp_taps_add(sink, on, f.key, f.tex, v, lane);
 }
 
 struct CombineBwdParams {
@@ -2506,8 +2778,11 @@ __device__ __forceinline__ void combine_bwd_fetch(const CombineBwdParams& q,
 // stage, measured slower: vrt_torch.apps.probe_caps combine_bwd).  Every
 // lane of the warp calls it.  The light variant's warp with a hit runs its
 // lit lanes' code on every lane together and sums each light's cotangents
-// over the warp by a shuffle tree.
-template <bool kGrad, bool kEnv = false>
+// over the warp by a shuffle tree.  kWarpTaps (the env variant's redesign)
+// sums the miss lanes' env taps over the whole warp (env_taps_warp): an
+// all-miss warp's right after its lookups, a hit warp's after its lanes'
+// code.
+template <bool kGrad, bool kEnv = false, bool kWarpTaps = false>
 __device__ __forceinline__ void combine_bwd_warp(const CombineBwdParams& q,
                                                  const float* sh,
                                                  const CombineBwdFetch& f,
@@ -2530,7 +2805,9 @@ __device__ __forceinline__ void combine_bwd_warp(const CombineBwdParams& q,
   float g_k = 0.0f;
   if (!__any_sync(kFullWarp, hit)) {
     // a warp of miss lanes: the env lookup's backward, zeros elsewhere
-    sample_env_bwd<kEnv>(p.env, p.env_side, d_w, g, o.d, env);
+    sample_env_bwd<kEnv && !kWarpTaps>(p.env, p.env_side, d_w, g, o.d, env);
+    if (kEnv && kWarpTaps)
+      env_taps_warp(*env, p.env_side, d_w, g, true, lane);
     if (q.g_d_w != nullptr) warp_store3(stage, q.g_d_w, w0, lane, o.d);
     const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
     float* const zeroed[6] = {q.g_albedo, q.g_shadow_origin, q.g_n_w,
@@ -2555,9 +2832,13 @@ __device__ __forceinline__ void combine_bwd_warp(const CombineBwdParams& q,
       load3(p.refl_dir, i, r.rdir);
     }
   }
-  combine_bwd_branch<kGrad, kEnv>(p, sh, hit, unlit, d_w, g, r, o, sh_g,
-                                  g_k, true, env);
+  combine_bwd_branch<kGrad, kEnv && !kWarpTaps>(p, sh, hit, unlit, d_w, g,
+                                                r, o, sh_g, g_k, true, env);
   combine_bwd_store<kGrad>(q, i, o, g_k);
+  // read again from the ring, so the lit lanes' code holds none of them
+  if (kEnv && kWarpTaps)
+    env_taps_warp(*env, p.env_side, fd + 3 * lane, fg + 3 * lane, !hit,
+                  lane);
 }
 
 // Resident blocks striding over the rays; kVec takes the vector path for
@@ -2567,8 +2848,11 @@ __device__ __forceinline__ void combine_bwd_warp(const CombineBwdParams& q,
 // staged lights and add them into the tables once, at the end.  kEnv is the
 // env variant: a miss lane's four env taps go into the block's partial sums
 // of the env cube after those (env_shared) or into its accumulator, a
-// warp's lanes on one texel merged first.
-template <bool kVec, bool kGrad, bool kEnv>
+// warp's lanes on one texel merged first; with kWarpTaps (the redesign) a
+// whole warp's on the vector path at once, a partial warp's (the scalar
+// path) as the first design's.  The probe's kTapSink 1 adds nothing (no
+// zeroing, no flush), 3 flushes nothing.
+template <bool kVec, bool kGrad, bool kEnv, bool kWarpTaps = false>
 __device__ __forceinline__ void combine_bwd_resident_body(
     const CombineBwdParams& q) {
   const CombineParams& p = q.f;
@@ -2595,7 +2879,7 @@ __device__ __forceinline__ void combine_bwd_resident_body(
   const long long env_words = 18ll * p.env_side * p.env_side;
   if (p.lit) stage_lights(sh, p.lights);
   if (kGrad) zero_light_grads(p.lights, sh_g);
-  if (kEnv && q.env_shared)
+  if (kEnv && q.env_shared && kTapSink != 1)
     for (long long w = threadIdx.x; w < env_words; w += blockDim.x)
       sh_env[w] = 0.0f;
   __syncthreads();
@@ -2616,14 +2900,14 @@ __device__ __forceinline__ void combine_bwd_resident_body(
     const long long w0 = base + 32 * warp;
     const long long i = w0 + lane;
     if (kVec && w0 + 32 <= p.rays)
-      combine_bwd_warp<kGrad, kEnv>(q, sh,
-                                    buf[round % kCombineBwdFetchDepth],
-                                    stage, w0, lane, sh_g, &env);
+      combine_bwd_warp<kGrad, kEnv, kWarpTaps>(
+          q, sh, buf[round % kCombineBwdFetchDepth], stage, w0, lane, sh_g,
+          &env);
     else if (i < p.rays)
       combine_bwd_ray<kGrad, kEnv>(q, sh, i, sh_g, &env);
   }
   if (kGrad) flush_light_grads(q, sh_g);
-  if (kEnv && q.env_shared) {
+  if (kEnv && q.env_shared && kTapSink != 1 && kTapSink != 3) {
     __syncthreads();
     flush_table(q.g_env, sh_env, env_words);
   }
@@ -2642,6 +2926,15 @@ template <bool kVec, bool kGrad>
 __global__ void __launch_bounds__(kCombineBwdThreads, kCombineBwdMinBlocks)
     combine_bwd_env_kernel(const CombineBwdParams q) {
   combine_bwd_resident_body<kVec, kGrad, true>(q);
+}
+
+// The env variant's redesign (kGrad as the light variant's): the same body,
+// a warp's env taps summed at once (kWarpTaps), the default; the kernel
+// above, the first design, stays as its comparator.
+template <bool kVec, bool kGrad>
+__global__ void __launch_bounds__(kCombineBwdThreads, kCombineBwdMinBlocks)
+    combine_bwd_env_warp_kernel(const CombineBwdParams q) {
+  combine_bwd_resident_body<kVec, kGrad, true, true>(q);
 }
 
 struct SurfaceBwdParams {
@@ -2754,9 +3047,9 @@ __device__ __forceinline__ void sample_wrap_bwd(const SurfaceParams& p,
 // position and of the blend weights for that of the sample; with kNormal
 // the three samples also return their values (the forward's tx, ty, tz).
 // kTex (the texture variant) also adds the texture scale's cotangents into
-// g_scale (uv = pos / scale, so d uv / d scale = -uv / scale) and the 12
-// taps' into `sink`.
-template <bool kNormal, bool kTex = false>
+// g_scale (uv = pos / scale, so d uv / d scale = -uv / scale) and, with
+// kTaps (its first design), the 12 taps' into `sink`.
+template <bool kNormal, bool kTex = false, bool kTaps = kTex>
 __device__ __forceinline__ void tri_sample_bwd(
     const SurfaceParams& p, const int* sizes, int id, const float scale[2],
     const float pos[3], const float b[3], const float g[3], float g_pos[3],
@@ -2775,14 +3068,80 @@ __device__ __forceinline__ void tri_sample_bwd(
     }
     g_b[a] += dot3(g, s[a]);
     float g_u, g_v;
-    sample_wrap_bwd<kTex>(p, sizes, id, uv[a][0], uv[a][1], gs, g_u, g_v,
-                          sink);
+    sample_wrap_bwd<kTaps>(p, sizes, id, uv[a][0], uv[a][1], gs, g_u, g_v,
+                           sink);
     g_pos[axes[a][0]] += g_u / scale[0];
     g_pos[axes[a][1]] += g_v / scale[1];
     if (kTex) {
       g_scale[0] -= (g_u * uv[a][0]) / scale[0];
       g_scale[1] -= (g_v * uv[a][1]) / scale[1];
     }
+  }
+}
+
+// What the texture variant's redesign stages of a hit lane for its taps (16
+// words in shared memory): the object position and the blend weights of
+// its triplanar samples, the cotangent of each sample (0 the albedo, 1 the
+// tangent normal's unit vector, 2 roughness / metallic; zero where the lane
+// takes none) and its volume.
+struct TapStage {
+  float pos[3], b[3], g[3][3];
+  int vol;
+};
+
+// The texture variant's redesign: the 9 bilinear samples (3 samples, 3
+// planes each) of the lanes of a converged warp that staged theirs
+// (`staged`), summed over the warp sample by sample (warp_taps_add).  The
+// planes' uv, the samples' cotangents, the floors and the weights are
+// tri_sample_bwd's and sample_wrap_bwd's, line for line.
+template <bool kLit, bool kColors>
+__device__ __forceinline__ void stage_taps_reduce(const SurfaceParams& p,
+                                                  const float* sh_vol,
+                                                  const int* sh_sizes,
+                                                  const TapStage& st,
+                                                  bool staged,
+                                                  const TableSink& sink,
+                                                  int lane) {
+  const float* mat = sh_vol + (staged ? st.vol : 0) * kVolRow;
+  // a loop, not unrolled: the stage in shared memory holds what it reads
+#pragma unroll 1
+  for (int k = 0; k < 9; ++k) {
+    const int s = k / 3, a = k - 3 * s;
+    // unlit: the albedo alone; under per-voxel colours no albedo texture
+    if ((!kLit && s > 0) || (kColors && s == 0)) continue;
+    float gs[3] = {0.0f, 0.0f, 0.0f};
+    if (staged)
+      for (int c = 0; c < 3; ++c)
+        gs[c] = (st.g[s][c] * st.b[a]) * (s == 1 ? 2.0f : 1.0f);
+    const bool on = staged &&
+                    !(gs[0] == 0.0f && gs[1] == 0.0f && gs[2] == 0.0f);
+    if (!__any_sync(kFullWarp, on)) continue;
+    int key = -1, tex[4] = {0, 0, 0, 0};
+    float v[12];
+    for (int e = 0; e < 12; ++e) v[e] = 0.0f;
+    if (on) {
+      // tri_sample_bwd's uv of plane a: (z, y), (x, z), (x, y) over scale
+      const float u_ = (a == 0 ? st.pos[2] : st.pos[0]) / mat[9];
+      const float v__ = (a == 1 ? st.pos[2] : st.pos[1]) / mat[10];
+      const int id = __float_as_int(mat[11 + s]);
+      const int hi = sh_sizes[2 * id], wi = sh_sizes[2 * id + 1];
+      const float h = static_cast<float>(hi), w = static_cast<float>(wi);
+      const float u = u_ * w - 0.5f;
+      const float vv = v__ * h - 0.5f;
+      const float u0 = floorf(u), v0 = floorf(vv);
+      const int ua = floor_mod(static_cast<int>(u0), wi);
+      const int ub = floor_mod(static_cast<int>(u0 + 1.0f), wi);
+      const int va = floor_mod(static_cast<int>(v0), hi);
+      const int vb = floor_mod(static_cast<int>(v0 + 1.0f), hi);
+      const int t0 = id * p.tex_h * p.tex_w;
+      tex[0] = t0 + va * p.tex_w + ua;
+      tex[1] = t0 + va * p.tex_w + ub;
+      tex[2] = t0 + vb * p.tex_w + ua;
+      tex[3] = t0 + vb * p.tex_w + ub;
+      key = tex[0];
+      tap_values(gs, u - u0, vv - v0, v);
+    }
+    warp_taps_add(sink, on, key, tex, v, lane);
   }
 }
 
@@ -2953,13 +3312,16 @@ __device__ __forceinline__ void add_colors(const SurfaceParams& p, float* acc,
 // places the stage reads it: the textures' object-space hit point, the
 // colour sample's object-space ray and the world normal.
 template <bool kLit, bool kTextured, bool kColors, bool kMat,
-          bool kTex = false, bool kInst = false>
+          bool kTex = false, bool kInst = false, bool kStaged = false>
 __device__ __forceinline__ void surface_bwd_hit(
     const SurfaceBwdParams& q, const float* sh_inst, const float* sh_vol,
     const int* sh_sizes, long long i, float g_o[3], float g_d[3],
     float g_n[3], float& g_t, long long& row, float grow[24], float gm[6],
     int& vol_out, const TableSink* tex = nullptr, float* g_scale = nullptr,
-    float* gi = nullptr) {
+    float* gi = nullptr, TapStage* st = nullptr) {
+  // kStaged (the texture variant's redesign): the taps are not added here;
+  // what they need goes into the lane's stage `st` (TapStage)
+  constexpr bool kTaps = kTex && !kStaged;
   const SurfaceParams& p = q.f;
   float o_w[3], d_w[3], n_obj[3];
   for (int c = 0; c < 3; ++c) {
@@ -2998,6 +3360,14 @@ __device__ __forceinline__ void surface_bwd_hit(
                            fabsf(n_obj[2])};
       const float s = (ab[0] + ab[1]) + ab[2];
       for (int c = 0; c < 3; ++c) b[c] = s > 0.0f ? ab[c] / s : 0.0f;
+      if (kTex && kStaged) {
+        for (int c = 0; c < 3; ++c) {
+          st->pos[c] = obj_pos[c];
+          st->b[c] = b[c];
+          st->g[0][c] = st->g[2][c] = 0.0f;
+        }
+        st->vol = vol;
+      }
       tri_sample<true>(p, sh_sizes, __float_as_int(mat[12]), tscale,
                        obj_pos, b, tn);
       const float n2 = dot3(tn, tn);
@@ -3056,9 +3426,12 @@ __device__ __forceinline__ void surface_bwd_hit(
           gm[3] += pass_clip(xr, 0.0f, 1.0f, g_rough) * rm[0];
           gm[4] += pass_clip(xm, 0.0f, 1.0f, g_metal) * rm[1];
         }
-        tri_sample_bwd<false, kTex>(p, sh_sizes, __float_as_int(mat[13]),
-                                    tscale, obj_pos, b, g_rm, g_pos, g_b, tex,
-                                    g_scale);
+        tri_sample_bwd<false, kTex, kTaps>(p, sh_sizes,
+                                           __float_as_int(mat[13]), tscale,
+                                           obj_pos, b, g_rm, g_pos, g_b, tex,
+                                           g_scale);
+        if (kTex && kStaged)
+          for (int c = 0; c < 3; ++c) st->g[2][c] = g_rm[c];
       }
       // n_shade = rotate_from_x(n_obj, zxy(unit(tn)))
       float g_zxy[3] = {0.0f, 0.0f, 0.0f};
@@ -3066,15 +3439,21 @@ __device__ __forceinline__ void surface_bwd_hit(
       const float g_u[3] = {g_zxy[1], g_zxy[2], g_zxy[0]};
       float g_tn[3];
       safe_unit_bwd(tn, g_u, g_tn);
-      tri_sample_bwd<true, kTex>(p, sh_sizes, __float_as_int(mat[12]),
-                                 tscale, obj_pos, b, g_tn, g_pos, g_b, tex,
-                                 g_scale);
+      tri_sample_bwd<true, kTex, kTaps>(p, sh_sizes,
+                                        __float_as_int(mat[12]), tscale,
+                                        obj_pos, b, g_tn, g_pos, g_b, tex,
+                                        g_scale);
+      if (kTex && kStaged)
+        for (int c = 0; c < 3; ++c) st->g[1][c] = g_tn[c];
       if (!kColors) {
         float g_tex[3];
         for (int c = 0; c < 3; ++c) g_tex[c] = g_alb[c] * mat[3 + c];
-        tri_sample_bwd<false, kTex>(p, sh_sizes, __float_as_int(mat[11]),
-                                    tscale, obj_pos, b, g_tex, g_pos, g_b,
-                                    tex, g_scale);
+        tri_sample_bwd<false, kTex, kTaps>(p, sh_sizes,
+                                           __float_as_int(mat[11]), tscale,
+                                           obj_pos, b, g_tex, g_pos, g_b,
+                                           tex, g_scale);
+        if (kTex && kStaged)
+          for (int c = 0; c < 3; ++c) st->g[0][c] = g_tex[c];
         if (kMat) {
           // albedo = tint tex
           float tex[3];
@@ -3119,9 +3498,17 @@ __device__ __forceinline__ void surface_bwd_hit(
     float g_pos[3] = {0.0f, 0.0f, 0.0f}, g_b[3] = {0.0f, 0.0f, 0.0f};
     float g_tex[3];
     for (int c = 0; c < 3; ++c) g_tex[c] = g_alb[c] * mat[3 + c];
-    tri_sample_bwd<false, kTex>(p, sh_sizes, __float_as_int(mat[11]),
-                                mat + 9, obj_pos, b, g_tex, g_pos, g_b, tex,
-                                g_scale);
+    tri_sample_bwd<false, kTex, kTaps>(p, sh_sizes, __float_as_int(mat[11]),
+                                       mat + 9, obj_pos, b, g_tex, g_pos, g_b,
+                                       tex, g_scale);
+    if (kTex && kStaged) {
+      for (int c = 0; c < 3; ++c) {
+        st->pos[c] = obj_pos[c];
+        st->b[c] = b[c];
+        st->g[0][c] = g_tex[c];
+      }
+      st->vol = vol;
+    }
     if (kMat) {
       float tex[3];
       tri_sample<false>(p, sh_sizes, __float_as_int(mat[11]), mat + 9,
@@ -3246,13 +3633,22 @@ constexpr int kSurfaceBwdMinBlocks = 3;
 // a warp's lanes on one texel merged first (add_texel); kInst (the instance
 // variant) keeps a block's partial sums of the instance transforms'
 // cotangents after them (a warp's lanes merged by instance first), added
-// into g_inst once at the block's end.
+// into g_inst once at the block's end.  kStaged (the texture variant's
+// redesign) takes the taps out of the hit lanes' code: each hit lane stages
+// what they need (TapStage) and the warp sums its 9 samples after the lanes'
+// code (stage_taps_reduce).  The probe's kTapSink 1 adds no tap into the
+// textures (no zeroing, no flush), 3 flushes nothing of them.
 template <bool kLit, bool kTextured, bool kColors, bool kMat, bool kTex,
-          bool kInst = false>
+          bool kInst = false, bool kStaged = false>
 __device__ __forceinline__ void surface_bwd_merged_body(
     const SurfaceBwdParams& q) {
   const SurfaceParams& p = q.f;
   extern __shared__ float sh[];
+  TapStage* stage = nullptr;
+  if constexpr (kTex && kStaged) {
+    __shared__ TapStage stages[kThreads];
+    stage = stages + threadIdx.x;
+  }
   float* sh_inst = sh;
   float* sh_vol = sh_inst + p.inst.count * kInstRow;
   int* sh_sizes = reinterpret_cast<int*>(sh_vol + p.mat.count * kVolRow);
@@ -3274,7 +3670,7 @@ __device__ __forceinline__ void surface_bwd_merged_body(
     for (int w = threadIdx.x; w < p.mat.count * kTexScaleRow;
          w += blockDim.x)
       sh_scale[w] = 0.0f;
-    if (q.tex_shared)
+    if (q.tex_shared && kTapSink != 1)
       for (long long w = threadIdx.x; w < tex_words; w += blockDim.x)
         sh_tex[w] = 0.0f;
   }
@@ -3318,9 +3714,9 @@ __device__ __forceinline__ void surface_bwd_merged_body(
       for (int e = 0; e < kInstanceWords; ++e) gi[e] = 0.0f;
     int vol = 0;
     if (is_hit)
-      surface_bwd_hit<kLit, kTextured, kColors, kMat, kTex, kInst>(
+      surface_bwd_hit<kLit, kTextured, kColors, kMat, kTex, kInst, kStaged>(
           q, sh_inst, sh_vol, sh_sizes, i, g_o, g_d, g_n, g_t, row, grow, gm,
-          vol, &tex_sink, g_scale, gi);
+          vol, &tex_sink, g_scale, gi, stage);
     if (kColors && q.g_colors != nullptr) {
       if (!is_hit)
         for (int e = 0; e < 24; ++e) grow[e] = 0.0f;
@@ -3348,6 +3744,23 @@ __device__ __forceinline__ void surface_bwd_merged_body(
         for (int e = 0; e < kInstanceWords; ++e)
           if (gi[e] != 0.0f) atomicAdd(sh_ig + a * kInstanceWords + e, gi[e]);
     }
+    if (kTex && kStaged) {
+      // the lane's cotangents first, then the warp's taps (every hit lane
+      // of a textured mode staged its samples; unlit under per-voxel
+      // colours takes none)
+      if (in) {
+        if (q.g_o_w != nullptr) {
+          store3(q.g_o_w, i, g_o);
+          store3(q.g_d_w, i, g_d);
+        }
+        q.g_t[i] = g_t;
+        store3(q.g_n_obj, i, g_n);
+      }
+      if (kLit || !kColors)
+        stage_taps_reduce<kLit, kColors>(p, sh_vol, sh_sizes, *stage,
+                                         is_hit, tex_sink, lane);
+      continue;
+    }
     if (!in) continue;
     if (q.g_o_w != nullptr) {
       store3(q.g_o_w, i, g_o);
@@ -3360,7 +3773,8 @@ __device__ __forceinline__ void surface_bwd_merged_body(
   if (kTex) {
     __syncthreads();
     flush_table(q.g_tex_scale, sh_scale, p.mat.count * kTexScaleRow);
-    if (q.tex_shared) flush_table(q.g_textures, sh_tex, tex_words);
+    if (q.tex_shared && kTapSink != 1 && kTapSink != 3)
+      flush_table(q.g_textures, sh_tex, tex_words);
   }
   if (kInst) {
     __syncthreads();
@@ -3383,6 +3797,16 @@ __global__ void __launch_bounds__(kThreads, kSurfaceBwdMinBlocks)
   surface_bwd_merged_body<kLit, true, kColors, kMat, true>(q);
 }
 
+// The texture variant's redesign (kMat as the material variant's): the
+// merged body with the taps staged and summed by the warp after the hit
+// lanes' code (kStaged), the default; the kernel above, the first design,
+// stays as its comparator.
+template <bool kLit, bool kColors, bool kMat>
+__global__ void __launch_bounds__(kThreads, kSurfaceBwdMinBlocks)
+    surface_bwd_textures_warp_kernel(const SurfaceBwdParams q) {
+  surface_bwd_merged_body<kLit, true, kColors, kMat, true, false, true>(q);
+}
+
 // The instance variant of the merged kernel (kInst; kMat and kTex as the
 // material and texture variants', so that one launch runs all three that a
 // step asks for): instantiated apart, so that the default launches' and
@@ -3390,7 +3814,9 @@ __global__ void __launch_bounds__(kThreads, kSurfaceBwdMinBlocks)
 template <bool kLit, bool kTextured, bool kColors, bool kMat, bool kTex>
 __global__ void __launch_bounds__(kThreads, kSurfaceBwdMinBlocks)
     surface_bwd_instances_kernel(const SurfaceBwdParams q) {
-  surface_bwd_merged_body<kLit, kTextured, kColors, kMat, kTex, true>(q);
+  // its texture path the redesign's (kStaged)
+  surface_bwd_merged_body<kLit, kTextured, kColors, kMat, kTex, true, kTex>(
+      q);
 }
 
 template <typename T>
@@ -3504,18 +3930,26 @@ Grid merged_grid() {
 }
 
 // One launch of the surface backward's texture variant over `blocks`
-// blocks of rays, on its resident grid for `shared` bytes.
+// blocks of rays, on its resident grid for `shared` bytes: the redesign
+// (surface_bwd_textures_warp_kernel), or with `first` its first design.
 template <bool kLit, bool kColors, bool kMat>
-cudaError_t surface_bwd_textures(const SurfaceBwdParams& q, long long blocks,
-                                 size_t shared, cudaStream_t s) {
-  const Grid g = resident_grid(
-      reinterpret_cast<const void*>(
-          surface_bwd_textures_kernel<kLit, kColors, kMat>),
-      kThreads, shared);
+cudaError_t surface_bwd_textures(const SurfaceBwdParams& q, bool first,
+                                 long long blocks, size_t shared,
+                                 cudaStream_t s) {
+  const void* kernel =
+      first ? reinterpret_cast<const void*>(
+                  surface_bwd_textures_kernel<kLit, kColors, kMat>)
+            : reinterpret_cast<const void*>(
+                  surface_bwd_textures_warp_kernel<kLit, kColors, kMat>);
+  const Grid g = resident_grid(kernel, kThreads, shared);
   if (g.err != cudaSuccess) return g.err;
-  surface_bwd_textures_kernel<kLit, kColors, kMat>
-      <<<static_cast<unsigned>(std::min(blocks, g.blocks)), kThreads, shared,
-         s>>>(q);
+  const unsigned grid = static_cast<unsigned>(std::min(blocks, g.blocks));
+  if (first)
+    surface_bwd_textures_kernel<kLit, kColors, kMat>
+        <<<grid, kThreads, shared, s>>>(q);
+  else
+    surface_bwd_textures_warp_kernel<kLit, kColors, kMat>
+        <<<grid, kThreads, shared, s>>>(q);
   return cudaSuccess;
 }
 
@@ -3634,28 +4068,36 @@ cudaError_t combine_bwd_resident(const CombineBwdParams& q, size_t shared,
   return cudaSuccess;
 }
 
-// The env variant's launch, on its resident grid for `shared` bytes.
+// The env variant's launch, on its resident grid for `shared` bytes: the
+// redesign (combine_bwd_env_warp_kernel), or with `first` its first design.
 template <bool kVec, bool kGrad>
-cudaError_t combine_bwd_env(const CombineBwdParams& q, size_t shared,
-                            cudaStream_t s) {
-  const Grid grid = resident_grid(
-      reinterpret_cast<const void*>(combine_bwd_env_kernel<kVec, kGrad>),
-      kCombineBwdThreads, shared);
+cudaError_t combine_bwd_env(const CombineBwdParams& q, bool first,
+                            size_t shared, cudaStream_t s) {
+  const void* kernel =
+      first ? reinterpret_cast<const void*>(combine_bwd_env_kernel<kVec, kGrad>)
+            : reinterpret_cast<const void*>(
+                  combine_bwd_env_warp_kernel<kVec, kGrad>);
+  const Grid grid = resident_grid(kernel, kCombineBwdThreads, shared);
   if (grid.err != cudaSuccess) return grid.err;
   const long long blocks =
       (q.f.rays + kCombineBwdThreads - 1) / kCombineBwdThreads;
-  combine_bwd_env_kernel<kVec, kGrad>
-      <<<static_cast<unsigned>(std::min(blocks, grid.blocks)),
-         kCombineBwdThreads, shared, s>>>(q);
+  const unsigned g = static_cast<unsigned>(std::min(blocks, grid.blocks));
+  if (first)
+    combine_bwd_env_kernel<kVec, kGrad>
+        <<<g, kCombineBwdThreads, shared, s>>>(q);
+  else
+    combine_bwd_env_warp_kernel<kVec, kGrad>
+        <<<g, kCombineBwdThreads, shared, s>>>(q);
   return cudaSuccess;
 }
 
 // A combine backward launch of any design (vrt_shade_combine_bwd's), the
-// light variant's where kGrad, the env variant's (the redesign alone) where
-// env.
+// light variant's where kGrad, the env variant's (the resident redesign
+// alone; with `first_env` the env variant's first design) where env.
 template <bool kGrad>
 cudaError_t combine_bwd_launch(const CombineBwdParams& q, int design,
-                               bool env, size_t shared, cudaStream_t s) {
+                               bool env, bool first_env, size_t shared,
+                               cudaStream_t s) {
   if (design == 0) {
     combine_bwd_kernel<kGrad>
         <<<static_cast<unsigned>((q.f.rays + kThreads - 1) / kThreads),
@@ -3663,8 +4105,9 @@ cudaError_t combine_bwd_launch(const CombineBwdParams& q, int design,
     return cudaSuccess;
   }
   if (env)
-    return design == 2 ? combine_bwd_env<true, kGrad>(q, shared, s)
-                       : combine_bwd_env<false, kGrad>(q, shared, s);
+    return design == 2
+               ? combine_bwd_env<true, kGrad>(q, first_env, shared, s)
+               : combine_bwd_env<false, kGrad>(q, first_env, shared, s);
   return design == 2 ? combine_bwd_resident<true, kGrad>(q, shared, s)
                      : combine_bwd_resident<false, kGrad>(q, shared, s);
 }
@@ -3809,21 +4252,26 @@ extern "C" int vrt_shade_combine(const void* const* ptrs, const int* ints,
 // texture variant (the merged kernel in a textured mode alone; with the
 // material variant, one launch of both), else 0, then 1 for the instance
 // variant (the merged kernel alone; with the material and the texture
-// variant, one launch of all), else 0: kSurfaceBwdInts ints.  The texture
+// variant, one launch of all), else 0, then 1 for the texture variant's
+// first design (surface_bwd_textures_kernel, the comparator of the
+// redesign, which the texture variant launches otherwise; not with the
+// instance variant, whose texture path is the redesign's), else 0:
+// kSurfaceBwdInts ints.  The texture
 // variant sums the textures' cotangents in shared memory where the stack's
 // f32 words fit kTexSharedBytes.  The merged kernel takes outputs on
 // 16-byte boundaries.  New slots go last, so that a caller's arrays also
 // drive a library built before them.  Returns cudaGetLastError().
-constexpr int kSurfaceBwdPtrs = 41, kSurfaceBwdInts = 18;
+constexpr int kSurfaceBwdPtrs = 41, kSurfaceBwdInts = 19;
 extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
                                      long long rays, void* stream) {
   const int n_inst = ints[0], n_vol = ints[1], n_tex = ints[2];
   const bool lit = ints[7], textured = ints[8], colors = ints[9];
   const bool merged = ints[14] != 0, material = ints[15] != 0;
-  const bool textures = ints[16] != 0;
-  const bool instances = ints[kSurfaceBwdInts - 1] != 0;
+  const bool textures = ints[16] != 0, instances = ints[17] != 0;
+  const bool first_tex = ints[18] != 0;
   if (n_inst < 1 || n_vol < 1 || ints[6] < 0 || ints[6] > 2 ||
-      (textures && !(merged && textured)) || (instances && !merged))
+      (textures && !(merged && textured)) || (instances && !merged) ||
+      (first_tex && (!textures || instances)))
     return cudaErrorInvalidValue;
   SurfaceBwdParams q;
   surface_inputs(ptrs, ints, rays, q.f);
@@ -3892,10 +4340,11 @@ extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
 #define VRT_SURFACE_BWD_TEX(L, C)                                           \
   do {                                                                      \
     if (textures) {                                                         \
-      err = material ? surface_bwd_textures<L, C, true>(q, blocks, shared,  \
-                                                        s)                  \
-                     : surface_bwd_textures<L, C, false>(q, blocks, shared, \
-                                                         s);                \
+      err = material                                                        \
+                ? surface_bwd_textures<L, C, true>(q, first_tex, blocks,    \
+                                                   shared, s)               \
+                : surface_bwd_textures<L, C, false>(q, first_tex, blocks,   \
+                                                    shared, s);             \
       break;                                                                \
     }                                                                       \
     VRT_SURFACE_BWD(L, true, C);                                            \
@@ -3961,18 +4410,21 @@ extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
 // the vector path, which takes d_w, g_rgb, hit, unlit, every [R,3] record
 // input passed and every [R,3] output on 16-byte boundaries), then 1 for
 // the light variant, else 0, then 1 for the env variant (the redesign
-// alone; with the light variant, one launch of both), else 0:
-// kCombineBwdInts ints.  The env variant sums the cube's cotangents in
-// shared memory where its f32 words fit kEnvSharedBytes.  Returns
-// cudaGetLastError().
-constexpr int kCombineBwdPtrs = 52, kCombineBwdInts = 8;
+// alone; with the light variant, one launch of both), else 0, then 1 for
+// the env variant's first design (combine_bwd_env_kernel, the comparator of
+// combine_bwd_env_warp_kernel, which the env variant launches otherwise),
+// else 0: kCombineBwdInts ints.  The env variant sums the cube's
+// cotangents in shared memory where its f32 words fit kEnvSharedBytes.
+// Returns cudaGetLastError().
+constexpr int kCombineBwdPtrs = 52, kCombineBwdInts = 9;
 extern "C" int vrt_shade_combine_bwd(const void* const* ptrs, const int* ints,
                                      long long rays, void* stream) {
   const int points = ints[2], spots = ints[3], design = ints[5];
-  const bool lights = ints[6] != 0;
-  const bool env = ints[kCombineBwdInts - 1] != 0;
+  const bool lights = ints[6] != 0, env = ints[7] != 0;
+  const bool first_env = ints[8] != 0;
   if (points < 0 || points > kMaxLights || spots < 0 || spots > kMaxLights ||
-      ints[4] < 1 || design < 0 || design > 2 || (env && design == 0))
+      ints[4] < 1 || design < 0 || design > 2 || (env && design == 0) ||
+      (first_env && !env))
     return cudaErrorInvalidValue;
   CombineBwdParams q;
   combine_inputs(ptrs, ints, rays, q.f);
@@ -4023,7 +4475,22 @@ extern "C" int vrt_shade_combine_bwd(const void* const* ptrs, const int* ints,
            (q.env_shared ? env_words : 0));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      lights ? combine_bwd_launch<true>(q, design, env, shared, s)
-             : combine_bwd_launch<false>(q, design, env, shared, s);
+      lights ? combine_bwd_launch<true>(q, design, env, first_env, shared, s)
+             : combine_bwd_launch<false>(q, design, env, first_env, shared,
+                                         s);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The probe's census of the texture and env variants' merges (a build with
+// kTapCensus alone counts): copies the 33 counts (merges with k distinct
+// keys among the lanes that add, k = 0..32) into the host array `out` and,
+// where `reset`, zeroes them.  Returns the copies' error.
+extern "C" int vrt_shade_tap_census(void* out, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_tap_census,
+                                       sizeof(g_tap_census));
+  if (e == cudaSuccess && reset) {
+    const unsigned long long zero[33] = {};
+    e = cudaMemcpyToSymbol(g_tap_census, zero, sizeof(zero));
+  }
+  return static_cast<int>(e);
 }

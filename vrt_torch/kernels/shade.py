@@ -92,14 +92,25 @@ The texture and env variants sum their table's cotangents on one of two
 paths, by the table's size alone (``table_path``): where it fits
 ``TEXTURE_SHARED_BYTES`` / ``ENV_SHARED_BYTES``, each block keeps partial
 sums in shared memory and adds its nonzero words once ("shared"); else
-the lanes add into the table's f32 accumulator ("global").  On both, the
-lanes of a warp that name one texel are summed first.
+the lanes add into the table's f32 accumulator ("global").  Each has two
+designs.  The redesign, the default (``surface_bwd_textures_warp_kernel``,
+``combine_bwd_env_warp_kernel``; the instance variant's texture path too):
+a bilinear sample's four taps summed over the whole warp under the
+sample's footprint, by one butterfly where every lane that adds shares it,
+the texture variant's taps staged by the hit lanes and summed after their
+code.  The first design, behind the private ``_old_table_design``, the
+comparator of the timing runs: each tap merged on its own over the lanes
+of a warp that name its texel, inside the lanes' code.  Both give the
+default launch's per-ray cotangents bit for bit; their tables differ in
+the order of the sums.
 
 ``LAUNCHES`` counts the launches of each kernel, ``PATH_LAUNCHES`` the
 default launches of the forward pair and the combine backward again by
 path (the surface's "voxels" on the unpacked grid), ``VARIANT_LAUNCHES``
 the backward launches of the material, light and instance variants again,
-and ``TABLE_LAUNCHES`` those of the texture and env variants by path.
+``TABLE_LAUNCHES`` those of the texture and env variants by path and
+``TABLE_DESIGN_LAUNCHES`` by design ("warp" the redesign, "first" the first
+design; the instance variant's texture path counted as "warp").
 """
 
 from __future__ import annotations
@@ -136,13 +147,18 @@ VARIANT_LAUNCHES = {"surface_bwd material": 0, "combine_bwd lights": 0,
 TABLE_LAUNCHES = {"surface_bwd textures shared": 0,
                   "surface_bwd textures global": 0,
                   "combine_bwd env shared": 0, "combine_bwd env global": 0}
+# and again by design: the redesign ("warp") or the first design
+TABLE_DESIGN_LAUNCHES = {"surface_bwd textures warp": 0,
+                         "surface_bwd textures first": 0,
+                         "combine_bwd env warp": 0,
+                         "combine_bwd env first": 0}
 # the largest stacked texture table and env cube whose cotangents a block
 # sums in shared memory (csrc/shade.cu kTexSharedBytes, kEnvSharedBytes)
 TEXTURE_SHARED_BYTES = 32 * 1024
 ENV_SHARED_BYTES = 16 * 1024
 # the pointers and ints the backward entry points read (csrc/shade.cu
 # kSurfaceBwdPtrs, kSurfaceBwdInts, kCombineBwdPtrs, kCombineBwdInts)
-SLOTS = {"vrt_shade_surface_bwd": (41, 18), "vrt_shade_combine_bwd": (52, 8)}
+SLOTS = {"vrt_shade_surface_bwd": (41, 19), "vrt_shade_combine_bwd": (52, 9)}
 
 NVCC_FLAGS = ["--fmad=false"]
 
@@ -161,8 +177,24 @@ def build() -> str:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.vrt_shade_tap_census.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.vrt_shade_tap_census.restype = ctypes.c_int
     _lib = lib
     return log
+
+
+def tap_census(reset: bool = True) -> list:
+    """The texture and env variants' merges counted since the last reset,
+    by the number of distinct keys among the lanes that add (index k: k
+    keys, 0..32): counted only by a library built with the probe's
+    ``kTapCensus`` (``vrt_torch.apps.probe_caps tex_env``); ``reset`` zeroes
+    the counts.  Synchronises with the card."""
+    build()
+    out = (ctypes.c_ulonglong * 33)()
+    err = _lib.vrt_shade_tap_census(ctypes.addressof(out), int(reset))
+    if err != 0:
+        raise RuntimeError(f"shade tap census failed: cudaError {err}")
+    return list(out)
 
 
 def _check(x, name, dtype, shape, device):
@@ -170,7 +202,7 @@ def _check(x, name, dtype, shape, device):
 
 
 def _launch(fn, name, ptrs, ints, rays, dev, path=None, variants=(),
-            table=None):
+            table=None, design="warp"):
     if fn in SLOTS and (len(ptrs), len(ints)) != SLOTS[fn]:
         raise ValueError(f"shade {name}: {len(ptrs)} pointers and "
                          f"{len(ints)} ints for {fn}, which reads "
@@ -188,6 +220,7 @@ def _launch(fn, name, ptrs, ints, rays, dev, path=None, variants=(),
         VARIANT_LAUNCHES[f"{name} {variant}"] += 1
     if table is not None:
         TABLE_LAUNCHES[f"{name} {table}"] += 1
+        TABLE_DESIGN_LAUNCHES[f"{name} {table.split()[0]} {design}"] += 1
 
 
 def table_path(table, budget: int) -> str:
@@ -458,7 +491,8 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
                                 _old_design: bool = False, g_k=None,
                                 material: bool = False,
                                 textures: bool = False,
-                                instances: bool = False):
+                                instances: bool = False,
+                                _old_table_design: bool = False):
     """Launch the surface kernel's backward on
     ``torch.cuda.current_stream()``: the cotangents of the record's
     ``RECORD_GRAD_FIELDS`` (albedo, shadow origin, world normal, roughness,
@@ -490,11 +524,20 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
     (resident blocks striding over the rays, the colour cotangents of a
     warp's lanes that share a row summed before the row's reductions); the
     private ``_old_design`` launches the first design, the comparator of
-    the timing runs, which has no texture or instance variant.  Raises on
-    any input the kernel does not take; never falls back."""
+    the timing runs, which has no texture or instance variant.  The texture
+    variant is its redesign (``surface_bwd_textures_warp_kernel``: the taps
+    staged by the hit lanes and summed over the warp after their code); the
+    private ``_old_table_design`` launches its first design
+    (``surface_bwd_textures_kernel``), the comparator of the timing runs,
+    with ``textures`` alone (the instance variant's texture path is the
+    redesign's).  Raises on any input the kernel does not take; never falls
+    back."""
     if textures and _old_design:
         raise ValueError("shade: the surface backward's first design has no "
                          "texture variant")
+    if _old_table_design and (not textures or instances):
+        raise ValueError("shade: the texture variant's first design runs "
+                         "with textures=True alone")
     if instances and _old_design:
         raise ValueError("shade: the surface backward's first design has no "
                          "instance variant")
@@ -554,12 +597,13 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
                                        _ptr(g_inst) if instances else None]
     # the texture variant is compiled for textured modes alone
     textures = textures and bool(mode.textured)
-    ints += [not _old_design, material, textures, instances]
+    first = _old_table_design and textures
+    ints += [not _old_design, material, textures, instances, first]
     _launch("vrt_shade_surface_bwd", "surface_bwd", ptrs, ints, rays, dev,
             variants=tuple(v for v, on in (("material", material),
                                            ("instances", instances)) if on),
             table=f"textures {table_path(g_tex, TEXTURE_SHARED_BYTES)}"
-            if textures else None)
+            if textures else None, design="first" if first else "warp")
     return out
 
 
@@ -649,7 +693,8 @@ def shade_combine_backward_cuda(scene, rec: SurfaceRecord, d_w, n_obj,
                                 hit_mask, unlit_attr, refl_rgb, blocked,
                                 mode: RenderMode, g_rgb, needs=None,
                                 _old_design: bool = False,
-                                lights: bool = False, env: bool = False):
+                                lights: bool = False, env: bool = False,
+                                _old_table_design: bool = False):
     """Launch the combine kernel's backward on
     ``torch.cuda.current_stream()`` for the cotangent ``g_rgb`` [R,3] of the
     linear radiance (``final`` has no backward): returns the cotangents of
@@ -669,11 +714,18 @@ def shade_combine_backward_cuda(scene, rec: SurfaceRecord, d_w, n_obj,
     ``combine_bwd_vectors``; the private ``_old_design`` launches the first
     design (one thread a ray over the whole grid), the comparator of the
     timing runs, bit-equal on every per-ray cotangent, which has no env
-    variant.  Raises on any input the kernel does not take; never falls
-    back."""
+    variant.  The env variant is its redesign
+    (``combine_bwd_env_warp_kernel``: a warp's miss lanes' taps summed over
+    the warp at once); the private ``_old_table_design`` launches its first
+    design (``combine_bwd_env_kernel``), the comparator of the timing runs,
+    with ``env`` alone.  Raises on any input the kernel does not take; never
+    falls back."""
     if env and _old_design:
         raise ValueError("shade: the combine backward's first design has no "
                          "env variant")
+    if _old_table_design and not env:
+        raise ValueError("shade: the env variant's first design runs with "
+                         "env=True alone")
     dev, rays, ptrs, ints = _combine_args(
         scene, rec, d_w, n_obj, hit_mask, unlit_attr, refl_rgb, blocked,
         mode, False, "combine kernel's backward")
@@ -710,10 +762,12 @@ def shade_combine_backward_cuda(scene, rec: SurfaceRecord, d_w, n_obj,
     _launch("vrt_shade_combine_bwd", "combine_bwd",
             ptrs + [g_rgb.data_ptr()] + [_ptr(g) for g in outs]
             + [_ptr(g_k), _ptr(acc), _ptr(g_env)],
-            ints + [_design(_old_design, path), lights, env], rays, dev,
+            ints + [_design(_old_design, path), lights, env,
+                    _old_table_design], rays, dev,
             None if _old_design else path,
             ("lights",) if lights else (),
-            f"env {table_path(g_env, ENV_SHARED_BYTES)}" if env else None)
+            f"env {table_path(g_env, ENV_SHARED_BYTES)}" if env else None,
+            "first" if _old_table_design else "warp")
     return tuple(outs) + extra
 
 
