@@ -2038,18 +2038,20 @@ def _variant_calls(run, expected, tag, surface=("material",),
     exactly zero; and against the default instantiation on the same
     inputs: every per-ray cotangent the default launch returns bit-equal,
     the two timed default, variant, variant, default; a texture or env
-    variant also against its first design (``_old_table_design``) on the
-    same inputs: its per-ray cotangents bit-equal, its tables held as the
-    redesign's, the two timed first design, redesign, redesign, first
-    design.  Fails unless each launched ``expected`` times (and the texture
-    and env variants on one path, ``kernels.shade.table_path``, and on
-    their redesigns).  Returns {"surface_bwd " +
+    variant also against its first design (``_old_table_design``), the
+    material variant without the texture variant against its sums' first
+    design (``_old_sums_design``), on the same inputs: its per-ray
+    cotangents bit-equal, its tables held as the redesign's, the two timed
+    first design, redesign, redesign, first design.  Fails unless each
+    launched ``expected`` times (and the texture and env variants on one
+    path, ``kernels.shade.table_path``, and on their redesigns, the
+    material variant alone on its sums' redesign).  Returns {"surface_bwd " +
     "+".join(surface) | "combine_bwd " + "+".join(combine): dict(launches,
     max_abs_err (the largest difference over its scale, per-ray outputs and
     tables), by_output, ms, default_ms, plain_ms (lists), bound, paths
     (the texture or env variant's launches by path), first_design_ms,
-    redesign_beside_first_ms (the texture or env variant's pairs, else
-    empty))}."""
+    redesign_beside_first_ms (the texture or env variant's pairs, the
+    material variant's alone, else empty))}."""
     import torch
 
     from vrt_torch.kernels import shade as k4
@@ -2060,10 +2062,15 @@ def _variant_calls(run, expected, tag, surface=("material",),
     before = dict(k4.VARIANT_LAUNCHES)
     tables_before = dict(k4.TABLE_LAUNCHES)
     designs_before = dict(k4.TABLE_DESIGN_LAUNCHES)
+    sums_before = dict(k4.SUMS_DESIGN_LAUNCHES)
     with _recording(k4, "shade_surface_backward_cuda") as surf, \
             _recording(k4, "shade_combine_backward_cuda") as comb:
         run()
     torch.cuda.synchronize()
+    sums_designs = {k: k4.SUMS_DESIGN_LAUNCHES[k] - sums_before[k]
+                    for k in sums_before}
+    # the material variant without the texture variant: its sums' redesign
+    summed = "material" in surface and "textures" not in surface
     launched = {k: k4.VARIANT_LAUNCHES[k] - before[k] for k in before}
     paths = {k: k4.TABLE_LAUNCHES[k] - tables_before[k]
              for k in tables_before}
@@ -2091,7 +2098,9 @@ def _variant_calls(run, expected, tag, surface=("material",),
                     "combine_bwd env warp": expected * tabled[keys[1]],
                     "combine_bwd env first": 0}
     if (len(surf), len(comb)) != (expected, expected) or \
-            launched != want_launched or designs != want_designs or any(
+            launched != want_launched or designs != want_designs or \
+            sums_designs != {"surface_bwd sums warp": expected * summed,
+                             "surface_bwd sums first": 0} or any(
                 sorted(table_paths[k].values()) != ([0, expected]
                                                     if tabled[k] else [0, 0])
                 for k in keys):
@@ -2099,8 +2108,8 @@ def _variant_calls(run, expected, tag, surface=("material",),
                              f"{surface} {len(surf)} times and the combine "
                              f"backward with {combine} {len(comb)} times "
                              f"(variant launches {launched}, by path "
-                             f"{paths}, by design {designs}), expected "
-                             f"{expected} each")
+                             f"{paths}, by design {designs}, {sums_designs}),"
+                             f" expected {expected} each")
     out = {}
     for key, calls, flags in zip(keys, (surf, comb), (surface, combine)):
         by_output, ms, default_ms, plain_ms, bounds = {}, [], [], [], []
@@ -2210,11 +2219,14 @@ def _variant_calls(run, expected, tag, surface=("material",),
                                     f"got a cotangent")
 
             hold_tables(got)
-            # the texture or env variant's first design on the same inputs:
-            # per-ray cotangents bit-equal, its tables held the same way
+            # the texture or env variant's first design, the material
+            # variant's sums' first design, on the same inputs: per-ray
+            # cotangents bit-equal, its tables held the same way
             tabled_here = ("textures" if is_surface else "env") in flags
-            if tabled_here:
-                first = kernel(*args, **kwargs, _old_table_design=True)
+            first_kw = {"_old_table_design": True} if tabled_here else \
+                {"_old_sums_design": True} if is_surface and summed else None
+            if first_kw is not None:
+                first = kernel(*args, **kwargs, **first_kw)
                 bad = [j for j, (a, b) in enumerate(zip(got[:shared],
                                                         first[:shared]))
                        if (a is None) != (b is None)
@@ -2241,10 +2253,10 @@ def _variant_calls(run, expected, tag, surface=("material",),
             ms.append(sum(news) / 2)
             default_ms.append(sum(olds) / 2)
             plain_ms.append(device_ms(plain, 2))
-            if tabled_here:
+            if first_kw is not None:
                 # the first design against the redesign: old, new, new, old
                 firsts, again = _paired_ms(
-                    lambda: kernel(*args, **kwargs, _old_table_design=True),
+                    lambda: kernel(*args, **kwargs, **first_kw),
                     lambda: kernel(*args, **kwargs), 20)
                 first_ms.append(sum(firsts) / 2)
                 beside_ms.append(sum(again) / 2)
@@ -2300,10 +2312,15 @@ def _instance_calls(run, expected, tag):
     default, variant, variant, default (a resolve backward asked for
     neither the rays' nor the table's gradient has nothing to launch on
     the default instantiation: its time is the wrapper's return, counted
-    apart in ``default_launches``).  Fails unless each launched
-    ``expected`` times, counted as the variant.  Returns {"surface_bwd
+    apart in ``default_launches``); the surface's also against its sums'
+    first design (``_old_sums_design``) on the same inputs: every per-ray
+    cotangent bit-equal, its colour table and transforms held as the
+    redesign's, the two timed first design, redesign, redesign, first
+    design.  Fails unless each launched ``expected`` times, counted as the
+    variant (the surface's on its sums' redesign).  Returns {"surface_bwd
     instances" | "resolve_bwd instances": dict(launches, default_launches,
-    max_abs_err, by_output, ms, default_ms, plain_ms (lists), bound)}."""
+    max_abs_err, by_output, ms, default_ms, plain_ms, first_design_ms,
+    redesign_beside_first_ms (the surface's; lists), bound)}."""
     import torch
 
     from vrt_torch.kernels import resolve as kr
@@ -2313,7 +2330,8 @@ def _instance_calls(run, expected, tag):
     from vrt_torch.render.renderer import (resolve_scene_backward_reference,
                                            shade_surface_backward_reference)
 
-    before = (dict(k4.VARIANT_LAUNCHES), dict(kr.VARIANT_LAUNCHES))
+    before = (dict(k4.VARIANT_LAUNCHES), dict(kr.VARIANT_LAUNCHES),
+              dict(k4.SUMS_DESIGN_LAUNCHES))
     with _recording(k4, "shade_surface_backward_cuda") as surf, \
             _recording(kr, "resolve_scene_backward_cuda") as res:
         run()
@@ -2322,15 +2340,19 @@ def _instance_calls(run, expected, tag):
                 - before[0]["surface_bwd instances"],
                 kr.VARIANT_LAUNCHES["backward instances"]
                 - before[1]["backward instances"])
+    sums_designs = {k: k4.SUMS_DESIGN_LAUNCHES[k] - before[2][k]
+                    for k in before[2]}
     surf = [c for c in surf if c[1].get("instances")]
     res = [c for c in res if c[1].get("instances")]
     if (len(surf), len(res)) != (expected, expected) or \
-            launched != (expected, expected):
+            launched != (expected, expected) or \
+            sums_designs != {"surface_bwd sums warp": expected,
+                             "surface_bwd sums first": 0}:
         raise AssertionError(f"the {tag} called the surface backward's "
                              f"instance variant {len(surf)} times and the "
                              f"resolve backward's {len(res)} times (variant "
-                             f"launches {launched}), expected {expected} "
-                             f"each")
+                             f"launches {launched}, sums' designs "
+                             f"{sums_designs}), expected {expected} each")
     out = {}
     for key, calls in (("surface_bwd instances", surf),
                        ("resolve_bwd instances", res)):
@@ -2338,6 +2360,7 @@ def _instance_calls(run, expected, tag):
         kernel = k4.shade_surface_backward_cuda if is_surface \
             else kr.resolve_scene_backward_cuda
         by_output, ms, default_ms, plain_ms, bounds = {}, [], [], [], []
+        first_ms, beside_ms = [], []
         default_launches = 0
         for i, (args, kwargs, got) in enumerate(calls):
             scene = args[0]
@@ -2390,36 +2413,58 @@ def _instance_calls(run, expected, tag):
                                          f"difference {worst:.3e} * "
                                          f"{scale:.3e})")
                 by_output[name] = max(by_output.get(name, 0.0), worst)
-            name, a, b = table
-            if a is not None:
-                top = b.abs().max().item()
-                e = (a.double() - b.double().reshape(a.shape)).abs().max() \
-                    .item()
-                if not (bool(torch.isfinite(a).all())
-                        and (e <= SCATTER_RTOL * top if top > 0
-                             else not bool(a.any()))):
-                    raise AssertionError(f"{tag} {key} {i}: {name} is off by "
-                                         f"{e:.3e} > {SCATTER_RTOL} * "
-                                         f"{top:.3e}")
-                by_output[name] = max(by_output.get(name, 0.0),
-                                      e / top if top > 0 else 0.0)
-            for name, a, b, terms in zip(INSTANCE_FIELDS, got[-3:],
-                                         want[-4:-1], want[-1]):
-                b = b.double().reshape(a.shape)
-                err = (a.double() - b).abs()
-                bound = SCATTER_RTOL * terms.double().reshape(a.shape) \
-                    + TABLE_ATOL
-                worst = (err / bound).max().item()
-                if not (bool(torch.isfinite(a).all()) and worst <= 1.0):
-                    raise AssertionError(
-                        f"{tag} {key} {i}: {name} is off by up to "
-                        f"{worst:.3e} times {SCATTER_RTOL} * its lanes' "
-                        f"|terms| + {TABLE_ATOL}")
-                top = b.abs().max().item()
-                for k, v in ((f"g_{name} over its bound", worst),
-                             (f"g_{name} over max|sum|",
-                              err.max().item() / top if top > 0 else 0.0)):
-                    by_output[k] = max(by_output.get(k, 0.0), v)
+            def hold_tables(outs, label=""):
+                # the colour or corner table against its largest |sum|,
+                # each transform entry against its lanes' |terms|
+                name, b = table[0], table[2]
+                a = outs[4] if is_surface else outs[2]
+                if a is not None:
+                    top = b.abs().max().item()
+                    e = (a.double() - b.double().reshape(a.shape)).abs() \
+                        .max().item()
+                    if not (bool(torch.isfinite(a).all())
+                            and (e <= SCATTER_RTOL * top if top > 0
+                                 else not bool(a.any()))):
+                        raise AssertionError(
+                            f"{tag} {key} {i}{label}: {name} is off by "
+                            f"{e:.3e} > {SCATTER_RTOL} * {top:.3e}")
+                    by_output[name + label] = max(
+                        by_output.get(name + label, 0.0),
+                        e / top if top > 0 else 0.0)
+                for name, a, b, terms in zip(INSTANCE_FIELDS, outs[-3:],
+                                             want[-4:-1], want[-1]):
+                    b = b.double().reshape(a.shape)
+                    err = (a.double() - b).abs()
+                    bound = SCATTER_RTOL * terms.double().reshape(a.shape) \
+                        + TABLE_ATOL
+                    worst = (err / bound).max().item()
+                    if not (bool(torch.isfinite(a).all()) and worst <= 1.0):
+                        raise AssertionError(
+                            f"{tag} {key} {i}{label}: {name} is off by up to "
+                            f"{worst:.3e} times {SCATTER_RTOL} * its lanes' "
+                            f"|terms| + {TABLE_ATOL}")
+                    top = b.abs().max().item()
+                    for k, v in ((f"g_{name}{label} over its bound", worst),
+                                 (f"g_{name}{label} over max|sum|",
+                                  err.max().item() / top if top > 0
+                                  else 0.0)):
+                        by_output[k] = max(by_output.get(k, 0.0), v)
+
+            hold_tables(got)
+            if is_surface:
+                # the sums' first design on the same inputs: per-ray
+                # cotangents bit-equal, its tables held the same way
+                first = kernel(*args, **kwargs, _old_sums_design=True)
+                bad = [j for j in range(4)
+                       if (got[j] is None) != (first[j] is None)
+                       or got[j] is not None
+                       and not torch.equal(got[j], first[j])]
+                if bad:
+                    raise AssertionError(f"{tag} {key} {i}: outputs {bad} of "
+                                         f"the sums' first design differ "
+                                         f"from the redesign's")
+                hold_tables(first, " (first design)")
+                del first
             del want
             # the default instantiation on the same inputs
             default_kw = {k: v for k, v in kwargs.items()
@@ -2438,6 +2483,18 @@ def _instance_calls(run, expected, tag):
             ms.append(sum(news) / 2)
             default_ms.append(sum(olds) / 2)
             plain_ms.append(device_ms(plain, 2))
+            if is_surface:
+                # the sums' first design against the redesign: old, new,
+                # new, old
+                firsts, again = _paired_ms(
+                    lambda: kernel(*args, **kwargs, _old_sums_design=True),
+                    lambda: kernel(*args, **kwargs), 20)
+                first_ms.append(sum(firsts) / 2)
+                beside_ms.append(sum(again) / 2)
+                print(f"{key} [{tag} {i}]: its sums' first design, the "
+                      f"redesign, the redesign, the first design "
+                      f"{', '.join(f'{t:.4f}' for t in (firsts[0], again[0], again[1], firsts[1]))}"
+                      f" ms", flush=True)
             launches_default = is_surface or rays_grad or table_grad
             default_launches += launches_default
             print(f"{key} [{tag} {i}]: "
@@ -2457,14 +2514,19 @@ def _instance_calls(run, expected, tag):
                                          if not k.endswith("its bound")),
                                         default=0.0),
                         by_output=by_output, ms=ms, default_ms=default_ms,
-                        plain_ms=plain_ms, bound=_sum_bounds(bounds))
+                        plain_ms=plain_ms, first_design_ms=first_ms,
+                        redesign_beside_first_ms=beside_ms,
+                        bound=_sum_bounds(bounds))
         got = out[key]
         print(f"{key} on the {tag}: {got['launches']} launches, {_list(ms)} "
               f"ms = {sum(ms):.4f} ms (the default instantiation on the same "
               f"inputs {sum(default_ms):.4f} ms, "
-              f"{default_launches} of them launching); plain "
-              f"{sum(plain_ms):.2f} ms; bound {got['bound']['bound_ms']:.4f} "
-              f"ms", flush=True)
+              f"{default_launches} of them launching"
+              + (f"; the sums' first design {sum(first_ms):.4f} ms against "
+                 f"{sum(beside_ms):.4f} ms in the same turns" if first_ms
+                 else "")
+              + f"); plain {sum(plain_ms):.2f} ms; bound "
+              f"{got['bound']['bound_ms']:.4f} ms", flush=True)
     return out
 
 
@@ -2742,6 +2804,7 @@ def _table_step(dev, card, sync, zero_counts, counts, timed, scene, cams,
     zero_counts()
     tables = dict(k4.TABLE_LAUNCHES)
     designs = dict(k4.TABLE_DESIGN_LAUNCHES)
+    sums = dict(k4.SUMS_DESIGN_LAUNCHES)
     tren.shade_stages = spy
     try:
         kernel_step()
@@ -2753,6 +2816,7 @@ def _table_step(dev, card, sync, zero_counts, counts, timed, scene, cams,
     variants["resolve_bwd instances"] = kr.VARIANT_LAUNCHES[
         "backward instances"]
     designs = {k: k4.TABLE_DESIGN_LAUNCHES[k] - designs[k] for k in designs}
+    sums = {k: k4.SUMS_DESIGN_LAUNCHES[k] - sums[k] for k in sums}
     functions = (tren._shade_surface_function, tren._shade_combine_function)
     levels = _resolves(scene)
     surface, combine = flags
@@ -2770,6 +2834,12 @@ def _table_step(dev, card, sync, zero_counts, counts, timed, scene, cams,
                     "surface_bwd textures first": 0,
                     "combine_bwd env warp": levels * ("env" in combine),
                     "combine_bwd env first": 0}
+    # the instance variant and the material variant without the texture
+    # variant on their sums' redesign
+    want_designs["surface_bwd sums warp"] = levels * (posed or (
+        "material" in surface and "textures" not in surface))
+    want_designs["surface_bwd sums first"] = 0
+    designs.update(sums)
     if pairs != [functions] * levels or any(
             got[k] != levels for k in ("surface", "combine", "surface_bwd",
                                        "combine_bwd", "resolve",
@@ -6300,6 +6370,8 @@ def main():
             ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
              "backward (shade.cu)", "surface_bwd_instances_kernel", 256),
             ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
+             "backward (shade.cu)", "surface_bwd_sums_kernel", 256),
+            ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
              "backward (shade.cu)", "surface_resident_kernel", 256),
             ("K4 (shade.cu)", "K4 shade, surface and combine, forward and "
              "backward (shade.cu)", "surface_voxels_kernel", 256),
@@ -6348,9 +6420,14 @@ def main():
                            "combine_bwd_kernel", "surface_bwd_textures_kernel",
                            "combine_bwd_env_kernel",
                            "surface_bwd_textures_warp_kernel",
-                           "combine_bwd_env_warp_kernel")
-        for last, key in (((False, kernel), (True, f"{kernel} variant"))
-                          if split else ((None, kernel),)):
+                           "combine_bwd_env_warp_kernel",
+                           "surface_bwd_sums_kernel")
+        # the sums redesign's material-alone instantiations apart from its
+        # instance variant's (its last template argument, kInst)
+        pair = ((False, f"{kernel} material"), (True, f"{kernel} instances")) \
+            if kernel == "surface_bwd_sums_kernel" \
+            else ((False, kernel), (True, f"{kernel} variant"))
+        for last, key in (pair if split else ((None, kernel),)):
             got = ptxas_usage(logs[log], kernel, last)
             if got is None:
                 print(f"ptxas, {name} {key}: not in the log (the library "
@@ -6637,6 +6714,7 @@ def main():
         _reset(k4.PATH_LAUNCHES)
         _reset(k4.VARIANT_LAUNCHES)
         _reset(k4.TABLE_LAUNCHES)
+        _reset(k4.SUMS_DESIGN_LAUNCHES)
         _reset(kr.VARIANT_LAUNCHES)
         _reset(kp.LAUNCHES)
         _reset(kp.BWD_LAUNCHES)
@@ -7251,6 +7329,26 @@ def main():
         return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
                 "bound_bytes": b["bytes"], "bound_operations": b["flops"]}
 
+    def sums_keys(step, key, kernel):
+        # a material or instance variant's sums: its first design against
+        # the redesign (the default) over the step's 3 launches in the
+        # order first, redesign, redesign, first (per level: the primary
+        # rays first), the step's launches by sums' design, ptxas of the
+        # redesign beside the default instantiation's
+        held = step["held"][key]
+        return {
+            "first_design_ms": sum(held["first_design_ms"]),
+            "redesign_beside_first_ms": sum(held["redesign_beside_first_ms"]),
+            "per_launch_first_design_ms": held["first_design_ms"],
+            "per_launch_redesign_beside_first_ms":
+            held["redesign_beside_first_ms"],
+            "launches_by_design": {
+                d: step["designs"][f"surface_bwd sums {d}"]
+                for d in ("warp", "first")},
+            "ptxas_redesign": ptxas.get(kernel),
+            "ptxas_default_instantiation": ptxas.get(
+                "surface_bwd_merged_kernel")}
+
     gp = []
     for name, first in (("GP-A", "scripts/probe_gather.py:47"),
                         ("GP-B", "scripts/probe_gather.py:79"),
@@ -7826,8 +7924,14 @@ def main():
                "ms": sum(r[key]["ms"]),
                "default_instantiation_ms": sum(r[key]["default_ms"]),
                "plain_ms": sum(r[key]["plain_ms"]),
+               **({"first_design_ms": sum(r[key]["first_design_ms"]),
+                   "redesign_beside_first_ms": sum(
+                       r[key]["redesign_beside_first_ms"])}
+                  if r[key]["first_design_ms"] else {}),
                **bound_keys(r[key]["bound"])}
                for t, r in variant_runs.items()},
+           **(sums_keys(mat_step, key, "surface_bwd_sums_kernel material")
+              if key == "surface_bwd material" else {}),
            "ptxas": {k: ptxas.get(f"{k} variant") for k in kernels}}
           for name, key, kernels, path, replaces in (
               ("K4 shade surface backward (material variant)",
@@ -7835,8 +7939,13 @@ def main():
                ("surface_bwd_merged_kernel", "surface_bwd_kernel"),
                "ShadeSurface's backward where a material constant (tint, "
                "roughness, metallic, k) needs a gradient: "
-               "shade_surface_backward_cuda(..., material=True), the merged "
-               "kernel's kMat instantiation",
+               "shade_surface_backward_cuda(..., material=True): without "
+               "the texture variant surface_bwd_sums_kernel (the sums' "
+               "redesign: a hit lane's staged values, its cotangents formed "
+               "after its code and summed over the warp into a warp's "
+               "partial sums, one atomic a block a word); first_design_ms: "
+               "the merged kernel's kMat instantiation, behind "
+               "_old_sums_design",
                "vrt/render/renderer.py:340-360 (XLA's transpose of "
                "_shade_lit's material reads in the tint, roughness, "
                "metallic and k under jax.value_and_grad of the fit step: "
@@ -7987,8 +8096,14 @@ def main():
                "default_instantiation_ms": sum(r[key]["default_ms"]),
                "default_launches": r[key]["default_launches"],
                "plain_ms": sum(r[key]["plain_ms"]),
+               **({"first_design_ms": sum(r[key]["first_design_ms"]),
+                   "redesign_beside_first_ms": sum(
+                       r[key]["redesign_beside_first_ms"])}
+                  if r[key]["first_design_ms"] else {}),
                **bound_keys(r[key]["bound"])}
                for t, r in instance_runs.items()},
+           **(sums_keys(pose_step, key, "surface_bwd_sums_kernel instances")
+              if key == "surface_bwd instances" else {}),
            "ptxas": {kernel: ptxas.get(kernel)}}
           for name, key, source, kernel, path, replaces in (
               ("K4 shade surface backward (instance variant)",
@@ -7996,12 +8111,18 @@ def main():
                "surface_bwd_instances_kernel",
                "ShadeSurface's backward where an instance transform (pos, "
                "rot, scale) needs a gradient: shade_surface_backward_cuda("
-               "..., instances=True), surface_bwd_instances_kernel (the "
-               "merged kernel's body with kInst; kMat and kTex in the same "
-               "launch where asked): a lane's transform cotangents from "
-               "the textures' hit point, the colour sample's ray and the "
-               "world normal, a warp's lanes merged by instance, a block's "
-               "partial sums in shared memory, one atomic a block a word",
+               "..., instances=True), surface_bwd_sums_kernel (the sums' "
+               "redesign, the merged kernel's body with kInst and "
+               "kWarpSums; kMat and kTex in the same launch where asked): a "
+               "hit lane stages what its transform cotangents follow from "
+               "at the textures' hit point, the colour sample's ray and the "
+               "world normal, an epilogue forms them after its code, the "
+               "warp sums them by a butterfly (a segmented merge where its "
+               "lanes name several instances) into a warp's partial sums, "
+               "one atomic a block a word; first_design_ms: "
+               "surface_bwd_instances_kernel (each lane's cotangents "
+               "carried through its code, merged by instance, shared "
+               "atomics), behind _old_sums_design",
                "vrt/render/renderer.py:62-75 (XLA's transpose of "
                "_world_to_object and _object_normal_to_world in "
                "_shade_lit :306-366, _voxel_color_sample :229-232 and "

@@ -171,8 +171,9 @@ def test_shade_launch_counts_variants_and_table_paths(monkeypatch):
     once in ``LAUNCHES``, a material or light variant's again in
     ``VARIANT_LAUNCHES`` and a texture or env variant's in
     ``TABLE_LAUNCHES`` by its path and in ``TABLE_DESIGN_LAUNCHES`` by its
-    design (the redesign unless the first is named); the pointers and ints
-    reach the entry point as passed."""
+    design (the redesign unless the first is named), a launch of the sums'
+    designs in ``SUMS_DESIGN_LAUNCHES`` by the one named; the pointers and
+    ints reach the entry point as passed."""
     from vrt_torch.kernels import shade as k4
 
     seen = []
@@ -186,7 +187,8 @@ def test_shade_launch_counts_variants_and_table_paths(monkeypatch):
     monkeypatch.setattr(k4, "_lib", Library())
     monkeypatch.setattr(k4, "_stream", lambda dev: None)
     for name in ("LAUNCHES", "PATH_LAUNCHES", "VARIANT_LAUNCHES",
-                 "TABLE_LAUNCHES", "TABLE_DESIGN_LAUNCHES"):
+                 "TABLE_LAUNCHES", "TABLE_DESIGN_LAUNCHES",
+                 "SUMS_DESIGN_LAUNCHES"):
         monkeypatch.setattr(k4, name, dict.fromkeys(getattr(k4, name), 0))
     ptrs, ints = k4.SLOTS["vrt_shade_surface_bwd"]
     k4._launch("vrt_shade_surface_bwd", "surface_bwd", [None] * ptrs,
@@ -196,7 +198,7 @@ def test_shade_launch_counts_variants_and_table_paths(monkeypatch):
     k4._launch("vrt_shade_combine_bwd", "combine_bwd", [None] * ptrs,
                list(range(ints)), 7, None, "v4", ("lights",), "env shared",
                "first")
-    assert seen == [("vrt_shade_surface_bwd", 41, [0] * 19, 7),
+    assert seen == [("vrt_shade_surface_bwd", 41, [0] * 20, 7),
                     ("vrt_shade_combine_bwd", 52, list(range(9)), 7)]
     assert k4.LAUNCHES == dict(surface=0, combine=0, surface_bwd=1,
                                combine_bwd=1)
@@ -213,6 +215,14 @@ def test_shade_launch_counts_variants_and_table_paths(monkeypatch):
                                         "surface_bwd textures first": 0,
                                         "combine_bwd env warp": 0,
                                         "combine_bwd env first": 1}
+    # a launch of the texture variant has no sums design of its own
+    assert k4.SUMS_DESIGN_LAUNCHES == {"surface_bwd sums warp": 0,
+                                       "surface_bwd sums first": 0}
+    ptrs, ints = k4.SLOTS["vrt_shade_surface_bwd"]
+    k4._launch("vrt_shade_surface_bwd", "surface_bwd", [None] * ptrs,
+               [0] * ints, 7, None, variants=("instances",), sums="first")
+    assert k4.SUMS_DESIGN_LAUNCHES == {"surface_bwd sums warp": 0,
+                                       "surface_bwd sums first": 1}
 
 
 def test_instance_variants_sizes_are_the_sources():
@@ -241,3 +251,109 @@ def test_instance_variants_sizes_are_the_sources():
         r'extern "C" int vrt_resolve_scene_bwd\(([^)]*)\)',
         (_build.CSRC / "resolve.cu").read_text()).group(1).split(",")]
     assert params[-2:] == ["void* stream", "float* g_inst"]
+
+
+def _cpu_shade_module(seen):
+    """``kernels/shade.py`` run with its device checks on the CPU against a
+    library whose entry points record their ints and launch nothing (so
+    that the wrapper's plumbing runs on CPU tensors)."""
+    from pathlib import Path
+
+    import vrt_torch.kernels.shade as k4
+
+    src = Path(k4.__file__).read_text().replace('"cuda"', '"cpu"')
+    mod = types.ModuleType("shade_on_cpu")
+    exec(compile(src, k4.__file__, "exec"), mod.__dict__)
+
+    class Library:
+        def __getattr__(self, name):
+            def entry(ptrs, ints, rays, stream):
+                seen.append((name, list(ints)))
+                return 0
+            return entry
+
+    mod._lib = Library()
+    mod._stream = lambda dev: None
+    return mod
+
+
+_SUMS_CASES = {
+    # flags -> (the sums design counted, the last int)
+    "material": (dict(material=True), "warp"),
+    "material-first": (dict(material=True, _old_sums_design=True), "first"),
+    "instances": (dict(instances=True), "warp"),
+    "instances-material-first": (dict(instances=True, material=True,
+                                      _old_sums_design=True), "first"),
+    "instances-textures": (dict(instances=True, textures=True), "warp"),
+    "material-textures": (dict(material=True, textures=True), None),
+    "textures": (dict(textures=True), None),
+    "default": ({}, None),
+    "material-old-design": (dict(material=True, _old_design=True), None),
+    "material-past-the-volumes": (dict(material=True), "first"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SUMS_CASES))
+def test_surface_backward_picks_the_sums_design(case):
+    """The surface backward's wrapper on CPU tensors against a recording
+    library: the material variant without the texture variant and the
+    instance variant launch their sums' redesign (ints' last slot 0),
+    ``_old_sums_design`` their first design (1), as does a scene of more
+    volumes than ``SUMS_MAX_VOLUMES``; each such launch counted in
+    ``SUMS_DESIGN_LAUNCHES`` by design, any other launch not."""
+    import torch
+
+    from vrt_torch.march.types import RECORD_GRAD_FIELDS
+    from vrt_torch.render import renderer as tren
+    from vrt_torch.render.camera import camera_rays
+    from vrt_torch.render.gpuscene import RenderMode
+    from vrt_torch.scenes import flagship_scene
+
+    flags, want = _SUMS_CASES[case]
+    seen = []
+    k4 = _cpu_shade_module(seen)
+    if case == "material-past-the-volumes":
+        k4.SUMS_MAX_VOLUMES = 1
+    scene = flagship_scene(4, device="cpu")
+    mode = RenderMode()
+    o, d = camera_rays(scene.cam_pos, scene.cam_rot, scene.cam_fov, 8, 8)
+    o, d = o.contiguous(), d.contiguous()
+    hit, inst = tren.march_scene(scene, o, d,
+                                 torch.full((64,), tren.RADIANCE_TMAX))
+    t, n_obj, _ = tren.resolve_scene(scene, o, d, hit, inst)
+    cots = [torch.ones(64) if f in ("roughness", "metallic")
+            else torch.ones(64, 3) for f in RECORD_GRAD_FIELDS]
+    k4.shade_surface_backward_cuda(scene, o, d, t, n_obj, hit, inst, mode,
+                                   True, cots, **flags)
+    assert [name for name, _ in seen] == ["vrt_shade_surface_bwd"]
+    assert seen[0][1][19] == (want == "first")
+    assert k4.SUMS_DESIGN_LAUNCHES == {
+        "surface_bwd sums warp": int(want == "warp"),
+        "surface_bwd sums first": int(want == "first")}
+
+
+@pytest.mark.parametrize("flags", [
+    dict(_old_sums_design=True),
+    dict(textures=True, _old_sums_design=True),
+    dict(material=True, textures=True, _old_sums_design=True),
+    dict(material=True, _old_design=True, _old_sums_design=True)])
+def test_surface_backward_refuses_the_sums_first_design(flags):
+    """``_old_sums_design`` runs where the sums' redesign would: with the
+    instance variant, or the material variant without the texture variant,
+    on the merged kernel; elsewhere the wrapper raises before a launch."""
+    import torch
+
+    from vrt_torch.march.types import MarchHit
+    from vrt_torch.render.gpuscene import RenderMode
+    from vrt_torch.scenes import flagship_scene
+
+    seen = []
+    k4 = _cpu_shade_module(seen)
+    scene = flagship_scene(4, device="cpu")
+    o = torch.zeros(4, 3)
+    with pytest.raises(ValueError, match="sums' first design"):
+        k4.shade_surface_backward_cuda(
+            scene, o, o, torch.zeros(4), o, MarchHit.none_like(o),
+            torch.zeros(4, dtype=torch.int32), RenderMode(), True,
+            [None] * 6, **flags)
+    assert seen == []

@@ -3116,6 +3116,187 @@ def test_instance_variants_on_a_side_stream_on_card(case):
             _assert_table_close(a, b, 2 * tt.to(a.device), name)
 
 
+def _surface_tables(flags, got, want):
+    """The scene tables a surface backward launch with the variant
+    ``flags`` returned, as (name, the kernel's, the plain version's float64
+    sum, its lanes' |terms|), from the wrapper's outputs ``got`` and the
+    plain version's ``want`` with the same flags."""
+    from vrt_torch.render.gpuscene import INSTANCE_FIELDS, MATERIAL_FIELDS
+
+    out, g, w = [], 5, 5
+    for flag, names in (("material", MATERIAL_FIELDS),
+                        ("textures", ("tex_scale", "textures")),
+                        ("instances", INSTANCE_FIELDS)):
+        if flags.get(flag):
+            n = len(names)
+            out += [(name, a, b.reshape(a.shape), t.reshape(a.shape))
+                    for name, a, b, t in zip(names, got[g:g + n],
+                                             want[w:w + n], want[w + n])]
+            g, w = g + n, w + n + 1
+    return out
+
+
+def _sums_designs(lv, kw):
+    """The surface backward's launch with the variant flags ``kw`` (the
+    material variant without the texture variant, or the instance variant)
+    on a level ``lv`` on its sums' redesign (the default) and on their
+    first design (``_old_sums_design``): the per-ray cotangents of both
+    bit-equal to the default launch's (no variant) on the same inputs; the
+    colour table within ``SCATTER_RTOL`` * its largest |sum| and each
+    entry of every scene table within ``SCATTER_RTOL`` * its lanes'
+    |terms| + ``TABLE_ATOL`` (``_assert_table_close``) of the plain
+    version's float64 sums, in both; each launch counted by its sums'
+    design.  Returns both designs' tables {name: (redesign's, first's)}."""
+    from vrt_torch.kernels import shade as k4
+
+    scene, mode, hit = lv["scene"], lv["mode"], lv["hit"]
+    args = (scene, lv["o"], lv["d"], lv["t"], lv["n_obj"], hit, lv["inst"],
+            mode, mode.lit, lv["cots"])
+    kw = dict(kw)
+    if kw.get("material") and mode.lit:
+        kw["g_k"] = torch.where(hit.hit, lv["g_rgb"][:, 1], 0.0)
+    sums = dict(k4.SUMS_DESIGN_LAUNCHES)
+    base = k4.shade_surface_backward_cuda(*args)
+    want = tren.shade_surface_backward_reference(
+        *args, acc_dtype=torch.float64, **kw)
+    tables = {}
+    for old in (False, True):
+        got = k4.shade_surface_backward_cuda(*args, _old_sums_design=old,
+                                             **kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("o_w", "d_w", "t", "n_obj"), got, base):
+            assert torch.equal(a, b), (old, name)
+        if scene.use_voxel_colors:
+            scale = want[4].abs().max().item()
+            assert (got[4].double() - want[4]).abs().max().item() \
+                <= SCATTER_RTOL * scale, old
+        for name, a, b, terms in _surface_tables(kw, got, want):
+            _assert_table_close(a, b, terms.to(a.device), (old, name))
+            tables.setdefault(name, []).append(a)
+    assert {k: k4.SUMS_DESIGN_LAUNCHES[k] - sums[k] for k in sums} == {
+        "surface_bwd sums warp": 1, "surface_bwd sums first": 1}
+    return tables
+
+
+# the variant flags of the sums' designs: the material variant alone, the
+# instance variant alone and both in one launch
+SUMS_VARIANTS = {"material": dict(material=True),
+                 "instances": dict(instances=True),
+                 "instances+material": dict(instances=True, material=True)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", sorted(SUMS_VARIANTS))
+@pytest.mark.parametrize("case", sorted(SHADE_GRAD_CASES))
+def test_sums_designs_on_card(case, variant):
+    """The material and instance variants' sums redesign against their
+    first design and the plain version (``_sums_designs``) on a 480x270
+    level of every ``SHADE_GRAD_CASES`` case, its first instance posed
+    (``scenes.posed_instances``): f32 and bf16 tables, both colour layouts,
+    every mode; the rotations nonzero, and the material constants
+    somewhere but unlit under per-voxel colours (which read none)."""
+    lv = _shade_grad_level(case, _card(), posed="instances" in variant)
+    tables = _sums_designs(lv, SUMS_VARIANTS[variant])
+    for a in tables.get("inst_rot", ()):
+        assert bool(a.any())
+    if "tint" in tables:
+        read = lv["mode"].lit or not lv["scene"].use_voxel_colors
+        for j in range(2):
+            assert any(bool(tables[f][j].any()) for f in (
+                "tint", "roughness", "metallic", "k")) == read
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TABLE_DESIGN_CASES)
+def test_sums_designs_with_textures_on_card(case):
+    """The instance variant with the material and the texture variant in
+    one launch on the levels of ``TABLE_DESIGN_CASES`` (the shading scene,
+    lit and textured, the first instance posed) on both sums' designs:
+    every table of the three within its entry bounds, the per-ray
+    cotangents bit-equal; the material variant with the texture variant
+    alone has no sums redesign (``_old_sums_design`` refused)."""
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.scenes import posed_instances
+
+    lv = _table_design_level(case, _card())
+    lv["scene"] = posed_instances(lv["scene"])
+    _sums_designs(lv, dict(material=True, textures=True, instances=True))
+    args = (lv["scene"], lv["o"], lv["d"], lv["t"], lv["n_obj"], lv["hit"],
+            lv["inst"], lv["mode"], True, lv["cots"])
+    with pytest.raises(ValueError, match="sums' first design"):
+        k4.shade_surface_backward_cuda(*args, material=True, textures=True,
+                                       _old_sums_design=True)
+
+
+def _permuted(lv, seed=3):
+    """A level ``lv`` of ``_level_of`` with its lanes in a seeded random
+    order: a warp's lanes then hit many instances at once."""
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(
+        lv["o"].shape[0])).to(lv["o"].device)
+    out = dict(lv)
+    for k in ("o", "d", "inst", "t", "n_obj", "unlit", "g_rgb"):
+        out[k] = lv[k][perm].contiguous()
+    out["hit"] = MarchHit(**{f.name: getattr(lv["hit"], f.name)[perm]
+                             .contiguous()
+                             for f in dataclasses.fields(MarchHit)})
+    out["cots"] = [None if g is None else g[perm].contiguous()
+                   for g in lv["cots"]]
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_inst", [12, 20])
+def test_sums_designs_with_many_instances_on_card(n_inst):
+    """Both sums' designs on the crowd of ``n_inst`` instances (20 is
+    ``gpuscene.MAX_OBJECTS``; overlapping, one rotated and scaled, one
+    inactive) at 128x128 with the lanes in a random order: most warps' hit
+    lanes name several instances, so the segmented merge runs beside the
+    butterfly; the instance and material variants in one launch."""
+    dev = _card()
+    from vrt_torch.scenes import posed_instances
+
+    scene = posed_instances(_crowd(5, "chebyshev", torch.float32, n_inst,
+                                   dev))
+    lv = _permuted(_level_of(scene, dev, 128, 128))
+    hit, inst = lv["hit"].hit, lv["inst"]
+    keys = torch.where(hit, inst, -1).reshape(-1, 32)
+    mixed = sum(torch.unique(w[w >= 0]).numel() > 1 for w in keys)
+    assert mixed > keys.shape[0] // 4
+    assert torch.unique(inst[hit]).numel() >= 6
+    _sums_designs(lv, dict(instances=True, material=True))
+
+
+@pytest.mark.gpu
+def test_sums_designs_without_instances_on_card():
+    """A scene without instances: every lane a miss; the instance variant
+    returns empty transforms and launches the material variant alone, on
+    either sums' design, its tables zero and its per-ray cotangents
+    zero."""
+    from vrt_torch.kernels import shade as k4
+    from vrt_torch.scenes import shading_scene
+
+    dev = _card()
+    full = shading_scene(4, 1, 1, device=dev)
+    scene = dataclasses.replace(
+        full, inst_volume=full.inst_volume[:0], inst_pos=full.inst_pos[:0],
+        inst_rot=full.inst_rot[:0], inst_scale=full.inst_scale[:0],
+        inst_active=full.inst_active[:0])
+    lv = _level_of(scene, dev, 64, 48)
+    assert not bool(lv["hit"].hit.any())
+    sums = dict(k4.SUMS_DESIGN_LAUNCHES)
+    args = (scene, lv["o"], lv["d"], lv["t"], lv["n_obj"], lv["hit"],
+            lv["inst"], lv["mode"], True, lv["cots"])
+    for old in (False, True):
+        got = k4.shade_surface_backward_cuda(*args, material=True,
+                                             instances=True,
+                                             _old_sums_design=old)
+        torch.cuda.synchronize()
+        assert all(not bool(g.any()) for g in got[:4] + got[5:9])
+        assert [tuple(g.shape) for g in got[-3:]] == [(0, 3), (0, 4), (0, 3)]
+    assert {k: k4.SUMS_DESIGN_LAUNCHES[k] - sums[k] for k in sums} == {
+        "surface_bwd sums warp": 1, "surface_bwd sums first": 1}
+
+
 @pytest.mark.gpu
 def test_fit_through_materials_and_lights_on_card():
     """The 64x36 fit of ``tests/fixtures/fit_flagship_r4_colors_64x36.npz``

@@ -70,9 +70,11 @@ frames and a config4 fit step on this checkout's kernels and on the
 ``shade.cu`` of the checkout under DIR in turns; for ``shade_bwd --parent
 DIR`` the four shade kernels' launches (forward and backward) and the
 fused resolve backward's of the 1080p flagship frame, the config6 and
-config4 fit steps and the material-and-light step (the backward's material
-and light variants) on this checkout's ``shade.cu`` and ``resolve.cu``
-and on the parent's, parent, this, this, parent, bit-equal; for
+config4 fit steps, the material-and-light step (the backward's material
+and light variants), the pose step (the instance variants) and the
+texture-and-env step (the texture and env variants) on this checkout's
+``shade.cu`` and ``resolve.cu`` and on the parent's, parent, this, this,
+parent, bit-equal, with the host's median time a launch; for
 ``tex_env`` the surface backward's texture variant and the combine
 backward's env variant (``_tex_env_probe``): every launch of the 1080p
 texture-and-env step and of the 480x270 lights frame's loss in the sampled
@@ -100,7 +102,9 @@ from __future__ import annotations
 
 import re
 import shutil
+import statistics
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -221,6 +225,8 @@ SHADE_KERNELS = ("surface_resident_kernel", "combine_resident_kernel")
 SCATTER_RTOL = 1e-5
 FIELDS = ("hit", "t", "kind", "cell", "t_in", "t_out", "face_normal", "steps")
 REPS = 20
+# calls a launch's host time is the median of (_host_us)
+HOST_LAUNCHES = 50
 
 
 def _variant(source, consts, tag):
@@ -302,6 +308,8 @@ def _same_resolve_bwd(got, want, args, label):
     the largest entry of the default build's."""
     rays = all(torch.equal(a, b) for a, b in zip(got[:2], want[:2])
                if a is not None)
+    if want[2] is None:
+        return rays and got[2] is None
     scale = want[2].abs().max().item()
     return rays and (got[2] - want[2]).abs().max().item() <= \
         SCATTER_RTOL * scale
@@ -548,6 +556,21 @@ def _parent_library(module, parent, source, entries):
     return old, module._lib
 
 
+def _host_us(launch, n=HOST_LAUNCHES):
+    """The host's median microseconds of one call of ``launch`` over ``n``
+    calls queued on the stream (synchronized before and after; the
+    wrapper's checks and allocation, the entry point and the launch)."""
+    launch()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        launch()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
 def _shade_against_parent(parent, card, steps):
     """Every launch of the four shade kernels (the surface's and the
     combine's, forward and backward) and of the fused resolve's backward in
@@ -560,10 +583,12 @@ def _shade_against_parent(parent, card, steps):
     combine's rgb, the surface backward's per-ray cotangents, every per-ray
     cotangent of the combine backward, the resolve backward's ray
     gradients; the tables' atomics add in an order of their own: the
-    corner table's within ``SCATTER_RTOL`` of its largest entry).  These
-    are the default instantiations and the material and light variants,
-    which this checkout's texture, env and instance variants leave as they
-    were."""
+    corner table's within ``SCATTER_RTOL`` of its largest entry), and the
+    host's median microseconds a launch (``_host_us``) in the same order.
+    The material variant alone and the instance variant run this
+    checkout's sums redesign against the parent's first designs, whose
+    per-ray cotangents it gives bit for bit; the rest are the parent's
+    kernels, the texture and env variants on a cached occupancy."""
     from vrt_torch.kernels import resolve as kr
 
     libs = {k4: _parent_library(k4, parent, "shade.cu", (
@@ -587,7 +612,7 @@ def _shade_against_parent(parent, card, steps):
             calls = _recorded(module, name, run)
             if not calls:
                 continue
-            per = []
+            per, host = [], []
             try:
                 for args, kwargs, got in calls:
                     def on(lib):
@@ -605,6 +630,8 @@ def _shade_against_parent(parent, card, steps):
                     del outs
                     per.append([device_ms(on(lib), REPS)
                                 for lib in (old, new, new, old)])
+                    host.append([_host_us(on(lib))
+                                 for lib in (old, new, new, old)])
             finally:
                 module._lib = new
             olds = sum(t[0] + t[3] for t in per) / 2
@@ -616,7 +643,9 @@ def _shade_against_parent(parent, card, steps):
                   f"parent's "
                   f"{'; '.join(', '.join(f'{x:.4f}' for x in t) for t in per)}"
                   f" ms; sums {olds:.4f} against {news:.4f} ms "
-                  f"({news / olds - 1:+.1%}); every output bit-equal",
+                  f"({news / olds - 1:+.1%}); every output bit-equal; the "
+                  f"host's median µs a launch in the same order "
+                  f"{'; '.join(', '.join(f'{x:.1f}' for x in t) for t in host)}",
                   flush=True)
             del calls
 
@@ -1115,27 +1144,41 @@ def main(argv=None) -> int:
         state = opt.init(params)
         return lambda: step(params, state, targets)
 
+    def pose_step():
+        # chip_smoke.py's phase 8: config6's SDF, colours and instance
+        # transforms among the parameters
+        scene = flagship_scene(6, use_colors=True, device=dev)
+        keys = ("sdf", "voxel_colors", "inst_pos", "inst_rot", "inst_scale")
+        params = {k: scene.volumes.sdf if k == "sdf" else getattr(scene, k)
+                  for k in keys}
+        opt = adam(1e-2)
+        cams = [dict(position=(320.0, 0.0, 40.0),
+                     rotation=(0.0, 0.0, 1.0, 0.0), fov=60.0)]
+        step = make_fit_step(scene, cams, 1920, 1080, RenderMode(), opt)
+        targets = torch.zeros((1, 1920 * 1080, 3), device=dev)
+        state = opt.init(params)
+        return lambda: step(params, state, targets)
+
+    def texture_step():
+        # chip_smoke.py's phase 8: the shading scene at 1080p from its own
+        # camera, the texture scale, the textures and the env among the
+        # parameters beside the material constants and the sun
+        scene = shading_scene(6, 2, 1, colors=False, accel_mode="chebyshev",
+                              march_dtype=torch.bfloat16, device=dev)
+        keys = ("sdf", "tint", "roughness", "metallic", "tex_scale",
+                "textures", "env", "dir_light_strength")
+        params = {k: scene.volumes.sdf if k == "sdf" else getattr(scene, k)
+                  for k in keys}
+        opt = adam(1e-2)
+        cams = [dict(position=scene.cam_pos, rotation=scene.cam_rot,
+                     fov=scene.cam_fov)]
+        step = make_fit_step(scene, cams, 1920, 1080, RenderMode(), opt)
+        targets = torch.zeros((1, 1920 * 1080, 3), device=dev)
+        state = opt.init(params)
+        return lambda: step(params, state, targets)
+
     if "tex_env" in probes:
         from vrt_torch.scenes import padded_sampled_tables
-
-        def texture_step():
-            # chip_smoke.py's phase 8: the shading scene at 1080p from its
-            # own camera, the texture scale, the textures and the env among
-            # the parameters beside the material constants and the sun
-            scene = shading_scene(6, 2, 1, colors=False,
-                                  accel_mode="chebyshev",
-                                  march_dtype=torch.bfloat16, device=dev)
-            keys = ("sdf", "tint", "roughness", "metallic", "tex_scale",
-                    "textures", "env", "dir_light_strength")
-            params = {k: scene.volumes.sdf if k == "sdf"
-                      else getattr(scene, k) for k in keys}
-            opt = adam(1e-2)
-            cams = [dict(position=scene.cam_pos, rotation=scene.cam_rot,
-                         fov=scene.cam_fov)]
-            step = make_fit_step(scene, cams, 1920, 1080, RenderMode(), opt)
-            targets = torch.zeros((1, 1920 * 1080, 3), device=dev)
-            state = opt.init(params)
-            return lambda: step(params, state, targets)
 
         def table_loss(scene):
             # chip_smoke.py's phase 3: a seeded weighting of the 480x270
@@ -1175,7 +1218,9 @@ def main(argv=None) -> int:
                 flagship, 1920, 1080, RenderMode())),
             ("the config6 fit step's", config6_step()),
             ("the config4 fit step's", config4_step()),
-            ("the config6 material-and-light step's", material_step())))
+            ("the config6 material-and-light step's", material_step()),
+            ("the config6 pose step's", pose_step()),
+            ("the 1080p texture-and-env step's", texture_step())))
         del flagship
 
     if "surface_voxels" in probes:

@@ -75,6 +75,9 @@
 // face, the gate, a light's floor) may flip on a lane in a million.
 
 #include <algorithm>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include <cuda_pipeline.h>
 
@@ -1755,26 +1758,64 @@ __device__ __forceinline__ int merge_peers32(unsigned mask, int key,
   return __ffs(peers) - 1;
 }
 
-// The sums over the 32 lanes of a converged warp of v[0..11] (a transposed
-// butterfly: each step a lane keeps half of what it holds and adds its
-// partner's copy of that half, 8 + 4 + 2 + 1 + 1 shuffles): lanes 2e and
-// 2e + 1 return the sum of v[e] (e < 12; lanes 24..31 return zeros).
-__device__ __forceinline__ float warp_sum12(const float (&v)[12], int lane) {
-  float a[8], b[4], c[2];
-  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4, h2 = lane & 2;
-  for (int j = 0; j < 8; ++j) {
-    const float lo = v[j], hi = j < 4 ? v[j + 8] : 0.0f;
-    a[j] = (h16 ? hi : lo) + __shfl_xor_sync(kFullWarp, h16 ? lo : hi, 16);
+// One step of a transposed butterfly over the lanes `off` apart: a lane
+// keeps the half of a[0..2H-1] its lane bit `off` names and adds its
+// partner's copy of that half, into a[0..H-1] (H shuffles).
+template <int H>
+__device__ __forceinline__ void warp_halve(float* a, int lane, int off) {
+  const bool up = lane & off;
+#pragma unroll
+  for (int j = 0; j < H; ++j)
+    a[j] = (up ? a[j + H] : a[j]) +
+           __shfl_xor_sync(kFullWarp, up ? a[j] : a[j + H], off);
+}
+
+// The sums over the 32 lanes of a converged warp of v[0..N-1] (N <= 32,
+// padded with zeros to W = 32, 16 or 8 words: a transposed butterfly, each
+// step a lane keeping half of what it holds, 16 + 8 + 4 + 2 + 1 shuffles
+// for W = 32, 8 + 4 + 2 + 1 + 1 for W = 16, 4 + 2 + 1 + 1 + 1 for W = 8): a
+// lane returns the sum of v[warp_word<N>(lane)] (zero where that is N or
+// more): lane e holds word e for W = 32, lanes 2e and 2e + 1 for W = 16,
+// lanes 4e ... 4e + 3 for W = 8.
+template <int N>
+__device__ __forceinline__ float warp_sum(const float (&v)[N], int lane) {
+  static_assert(N <= 32, "warp_sum sums up to 32 words");
+  float a[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) a[j] = j < N ? v[j] : 0.0f;
+  if constexpr (N > 16) {
+    warp_halve<16>(a, lane, 16);
+    warp_halve<8>(a, lane, 8);
+    warp_halve<4>(a, lane, 4);
+    warp_halve<2>(a, lane, 2);
+    warp_halve<1>(a, lane, 1);
+    return a[0];
+  } else if constexpr (N > 8) {
+    warp_halve<8>(a, lane, 16);
+    warp_halve<4>(a, lane, 8);
+    warp_halve<2>(a, lane, 4);
+    warp_halve<1>(a, lane, 2);
+    return a[0] + __shfl_xor_sync(kFullWarp, a[0], 1);
+  } else {
+    warp_halve<4>(a, lane, 16);
+    warp_halve<2>(a, lane, 8);
+    warp_halve<1>(a, lane, 4);
+    a[0] += __shfl_xor_sync(kFullWarp, a[0], 2);
+    return a[0] + __shfl_xor_sync(kFullWarp, a[0], 1);
   }
-  for (int j = 0; j < 4; ++j)
-    b[j] = (h8 ? a[j + 4] : a[j]) +
-           __shfl_xor_sync(kFullWarp, h8 ? a[j] : a[j + 4], 8);
-  for (int j = 0; j < 2; ++j)
-    c[j] = (h4 ? b[j + 2] : b[j]) +
-           __shfl_xor_sync(kFullWarp, h4 ? b[j] : b[j + 2], 4);
-  float d = (h2 ? c[1] : c[0]) + __shfl_xor_sync(kFullWarp, h2 ? c[0] : c[1],
-                                                 2);
-  return d + __shfl_xor_sync(kFullWarp, d, 1);
+}
+
+// The word whose sum warp_sum<N> returns to `lane`.
+template <int N>
+__device__ __forceinline__ int warp_word(int lane) {
+  return N > 16 ? lane : N > 8 ? lane >> 1 : lane >> 2;
+}
+
+// Whether `lane` is the lowest of the lanes warp_sum<N> returns its word
+// to.
+template <int N>
+__device__ __forceinline__ bool warp_word_lead(int lane) {
+  return (lane & (N > 16 ? 0 : N > 8 ? 1 : 3)) == 0;
 }
 
 // One sum x of a tap's channel c at texel `texel` into the table (one f32
@@ -1820,8 +1861,8 @@ __device__ __forceinline__ void warp_taps_add(const TableSink& sink, bool on,
   // every lane takes part in the shuffle (a full-warp sync)
   const int lead_key = __shfl_sync(kFullWarp, key, lead);
   if (__all_sync(kFullWarp, !on || key == lead_key)) {
-    const float s = warp_sum12(v, lane);
-    const int e = (lane >> 1) & 15;
+    const float s = warp_sum(v, lane);
+    const int e = warp_word<12>(lane);
     const int t0 = __shfl_sync(kFullWarp, tex[0], lead);
     const int t1 = __shfl_sync(kFullWarp, tex[1], lead);
     const int t2 = __shfl_sync(kFullWarp, tex[2], lead);
@@ -2995,6 +3036,313 @@ __device__ __forceinline__ void flush_material(const SurfaceBwdParams& q,
   flush_table(q.g_mat, sh_mat, q.f.mat.count * kMatRow);
 }
 
+// ---- the material and instance variants' sums, the redesign ----------------
+//
+// What held the first design back (chip_smoke.py, vrt_torch.apps.probe_caps
+// sums): each hit lane carried its table cotangents (the material's 6, the
+// instance's 10) in registers through the whole of its code under the
+// kernel's 80-register cap, the instance variant's from the normal's
+// rotate_bwd to the colour sample's object_bwd while the colour row's 24
+// cotangents were live too (ptxas: up to 784 bytes of spills); and after
+// it a segmented merge (merge_peers: rounds of N shuffles) and one shared
+// f32 atomic a nonzero sum (a compare-and-swap loop on this card), though
+// the keys are few and most warps add under one.  The redesign
+// (surface_bwd_sums_kernel) takes both out of the lanes' code: a hit lane
+// stages the few values its table cotangents follow from (SumWords) in
+// shared memory where the stage forms them, an epilogue with little else
+// live forms the material's cotangents and the statistics of the
+// transform's after the lane's code (sums_epilogue), and the warp sums them
+// by one transposed butterfly where every lane that adds shares the key,
+// else by a segmented merge, into partial sums of its own in shared memory
+// by plain stores (warp_slots_add); the block sums its warps' partial sums
+// at its end, forms each instance's transform cotangents from its
+// statistics once (inst_from_stats), and adds each nonzero word into the
+// accumulator with one f32 atomic.
+
+// The words of the material variant's per-warp partial sums a volume: tint
+// 3, roughness, metallic, k (the accumulator's row of kMatRow without its
+// tint's fourth word and its padding).
+constexpr int kMatSumWords = 6;
+// Warps a block of the surface backward.
+constexpr int kSumWarps = kThreads / 32;
+// The largest dynamic shared memory of the sums redesign (the tables' 48
+// KiB, the warps' partial sums and the stage): its attribute, set once.
+constexpr int kSumsMaxSharedBytes = 128 * 1024;
+// A hit lane's statistics of its instance transform's cotangents: over the
+// object-space places the stage reads it at (the textures' hit point and
+// the colour sample's origin, points, and its direction) M = sum of a g^T
+// (g the place's object-space cotangent, a = (x_w - pos) / scale for a
+// point, x_w / scale for the direction) and G = the sum of the points' g;
+// at the world normal N = n_shade g_nw^T.  object_bwd and rotate_bwd are
+// bilinear in (a, g) and in (n_shade, g_nw) for a given transform, so a
+// block's sums of these give its transform cotangents exactly (but for
+// rounding).
+constexpr int kStatM = 0, kStatG = 9, kStatN = 12, kInstStatWords = 21;
+
+// What the redesign stages of a hit lane (word w of lane l at stage[w *
+// kThreads + l]): for the instance variant, the object-space cotangents
+// where the stage reads the transform (the world normal: n_shade and n_w's
+// cotangent; the textures' hit point: the object position's cotangent; the
+// colour sample's ray: the object-space origin's and direction's
+// cotangents); for the material variant the texture samples its tint,
+// roughness and metallic cotangents need (the albedo's triplanar sample,
+// the rm sample's x and y).  What the kernel can read again (o_w, d_w, t,
+// the record's cotangents) is not staged: the epilogue finds the places
+// from the ray.
+template <bool kLit, bool kTextured, bool kColors, bool kMat, bool kInst>
+struct SumWords {
+  static constexpr bool kNormal = kInst && kLit;
+  static constexpr bool kHitPos = kInst && kTextured && (kLit || !kColors);
+  static constexpr bool kRay = kInst && kColors;
+  static constexpr bool kAlbedo = kMat && kTextured && !kColors;
+  static constexpr bool kRm = kMat && kLit && kTextured;
+  static constexpr int kNShade = 0;                  // n_shade 3
+  static constexpr int kGnw = 3;                     // n_w's cotangent 3
+  static constexpr int kGpos = 6 * kNormal;          // obj_pos's cotangent 3
+  static constexpr int kGo = kGpos + 3 * kHitPos;    // object origin's 3
+  static constexpr int kGd = kGo + 3;                // object direction's 3
+  static constexpr int kAlb = kGo + 6 * kRay;        // albedo sample 3
+  static constexpr int kRmw = kAlb + 3 * kAlbedo;    // rm.x, rm.y
+  static constexpr int kCount = kRmw + 2 * kRm;
+};
+
+// Stage word w of the lane whose stage is `st` (the block's stage plus the
+// lane's thread index).
+__device__ __forceinline__ void put_sum(float* st, int w, float v) {
+  st[w * kThreads] = v;
+}
+__device__ __forceinline__ float got_sum(const float* st, int w) {
+  return st[w * kThreads];
+}
+
+// a g^T (3 x 3, row-major) added into m.
+__device__ __forceinline__ void add_outer(float* m, const float a[3],
+                                          const float g[3]) {
+  for (int j = 0; j < 3; ++j)
+    for (int k = 0; k < 3; ++k) m[3 * j + k] += a[j] * g[k];
+}
+
+// A place a and its cotangent g (staged at words w..w + 2) into the
+// statistics s: M += a g^T, and G += g for a point.
+__device__ __forceinline__ void add_place(float* s, const float* st, int w,
+                                          const float a[3], bool point) {
+  float g[3];
+  for (int c = 0; c < 3; ++c) {
+    g[c] = got_sum(st, w + c);
+    if (point) s[kStatG + c] += g[c];
+  }
+  add_outer(s + kStatM, a, g);
+}
+
+// The redesign's epilogue of hit lane i: its material cotangents (tint 3,
+// roughness, metallic, k) into gm and its instance transform's statistics
+// into si, both zeroed by the caller, from its stage `st` and what the
+// kernel reads again; `vol` is the lane's volume.  Returns the lane's
+// instance in `a` (kInst).
+template <bool kLit, bool kTextured, bool kColors, bool kMat, bool kInst>
+__device__ __forceinline__ void sums_epilogue(const SurfaceBwdParams& q,
+                                              const float* sh_inst,
+                                              const float* sh_vol,
+                                              long long i, int vol,
+                                              const float* st,
+                                              float (&gm)[kMatSumWords],
+                                              float (&si)[kInstStatWords],
+                                              int& a) {
+  using W = SumWords<kLit, kTextured, kColors, kMat, kInst>;
+  const SurfaceParams& p = q.f;
+  a = kInst ? max(p.winner[i], 0) : 0;
+  if (kInst) {
+    if (W::kNormal) {
+      float n_shade[3], g_nw[3];
+      for (int c = 0; c < 3; ++c) {
+        n_shade[c] = got_sum(st, W::kNShade + c);
+        g_nw[c] = got_sum(st, W::kGnw + c);
+      }
+      add_outer(si + kStatN, n_shade, g_nw);
+    }
+    if (W::kHitPos || W::kRay) {
+      // the places, found from the ray again
+      const float* in = sh_inst + a * kInstRow;
+      const float t = p.t[i];
+      float a_h[3], a_o[3], a_d[3];
+      for (int c = 0; c < 3; ++c) {
+        const float o_w = p.o_w[3 * i + c], d_w = p.d_w[3 * i + c];
+        const float rs = 1.0f / in[7 + c];
+        a_h[c] = ((o_w + t * d_w) - in[c]) * rs;
+        a_o[c] = (o_w - in[c]) * rs;
+        a_d[c] = d_w * rs;
+      }
+      // the textures' hit point, o_w + t d_w
+      if (W::kHitPos) add_place(si, st, W::kGpos, a_h, true);
+      // the colour sample's origin (a point) and direction
+      if (W::kRay) {
+        add_place(si, st, W::kGo, a_o, true);
+        add_place(si, st, W::kGd, a_d, false);
+      }
+    }
+  }
+  if (kMat) {
+    const float* mat = sh_vol + vol * kVolRow;
+    if (kLit) {
+      const float g_rough = q.g_roughness != nullptr ? q.g_roughness[i]
+                                                      : 0.0f;
+      const float g_metal = q.g_metallic != nullptr ? q.g_metallic[i]
+                                                     : 0.0f;
+      if (kTextured) {
+        // roughness = clip(R rm.x, 0, 1): R's is the clip's times rm.x
+        if (g_rough != 0.0f || g_metal != 0.0f) {
+          const float rm0 = got_sum(st, W::kRmw), rm1 = got_sum(st,
+                                                              W::kRmw + 1);
+          gm[3] += pass_clip(mat[6] * rm0, 0.0f, 1.0f, g_rough) * rm0;
+          gm[4] += pass_clip(mat[7] * rm1, 0.0f, 1.0f, g_metal) * rm1;
+        }
+      } else {
+        // roughness = clip(R, 0, 1), metallic = clip(M, 0, 1)
+        if (q.g_roughness != nullptr)
+          gm[3] += pass_clip(mat[6], 0.0f, 1.0f, g_rough);
+        if (q.g_metallic != nullptr)
+          gm[4] += pass_clip(mat[7], 0.0f, 1.0f, g_metal);
+      }
+      if (q.g_k != nullptr) gm[5] += q.g_k[i];
+    }
+    if (!kColors) {
+      float g_alb[3];
+      load3(q.g_albedo, i, g_alb);
+      // albedo = tint tex (textured), the tint alone (untextured)
+      for (int c = 0; c < 3; ++c)
+        gm[c] += kTextured ? g_alb[c] * got_sum(st, W::kAlb + c) : g_alb[c];
+    }
+  }
+}
+
+// The redesign's sums of v (N words) of the lanes of a converged warp that
+// add (`on`; the others hold zeros) under their `key`, into the warp's own
+// partial sums `slot` (N words a key), by plain stores: where every lane
+// that adds shares the key, one butterfly (warp_sum), the lanes that hold
+// a word's sum adding it; else a segmented merge, each group's lowest lane
+// adding its N sums.  No other warp writes the slots, and the lanes that
+// add at once name distinct words.
+template <int N>
+__device__ __forceinline__ void warp_slots_add(float* slot, bool on, int key,
+                                               const float (&v)[N],
+                                               int lane) {
+  const unsigned ons = __ballot_sync(kFullWarp, on);
+  if (ons == 0u) return;
+  const int lead_key = __shfl_sync(kFullWarp, key, __ffs(ons) - 1);
+  if (__all_sync(kFullWarp, !on || key == lead_key)) {
+    const float s = warp_sum(v, lane);
+    const int e = warp_word<N>(lane);
+    if (e < N && warp_word_lead<N>(lane)) slot[lead_key * N + e] += s;
+  } else {
+    float w[N];
+    for (int j = 0; j < N; ++j) w[j] = v[j];
+    if (merge_peers32(kFullWarp, on ? key : -1 - lane, w, lane) == lane &&
+        on)
+      for (int j = 0; j < N; ++j) slot[key * N + j] += w[j];
+  }
+  __syncwarp();
+}
+
+// rotate_bwd(qv, qw, v, g)'s cotangents in the quaternion summed over
+// lanes, from m = the sum of v g^T: with w = the sum of v x g and tr =
+// trace m, g_qw = 2 qv . w, g_qv = 2 ((m + m^T) qv - 2 tr qv + qw w).
+__device__ __forceinline__ void rotate_bwd_summed(const float qv[3], float qw,
+                                                  const float* m,
+                                                  float g_qv[3],
+                                                  float& g_qw) {
+  const float w[3] = {m[5] - m[7], m[6] - m[2], m[1] - m[3]};
+  const float tr = (m[0] + m[4]) + m[8];
+  g_qw = 2.0f * dot3(qv, w);
+  for (int j = 0; j < 3; ++j) {
+    float s = 0.0f;
+    for (int k = 0; k < 3; ++k) s += (m[3 * j + k] + m[3 * k + j]) * qv[k];
+    g_qv[j] = 2.0f * ((s - 2.0f * tr * qv[j]) + qw * w[j]);
+  }
+}
+
+// An instance transform's cotangents (pos 3, rot 4, scale 3) from the sums
+// of its lanes' statistics s (kInstStatWords; see kStatM): with R the
+// rotation rotate(rot, .) as a matrix (columns rotate(rot, e_j)), pos's is
+// -R G / scale; the object-space places' rotation cotangent rotate_bwd on
+// the conjugate, its vector part's sign flipped (object_bwd), and their
+// scale's -(R_nj M_nj summed over j) / scale_n; the normal's rotation
+// cotangent rotate_bwd(rot, n_shade, g_nw scale), its scale's R_kj N_jk
+// summed over j.
+__device__ __forceinline__ void inst_from_stats(const float* rot,
+                                                const float* scale,
+                                                const float* s,
+                                                float gi[kInstanceWords]) {
+  float r[3][3];                 // r[k][j] = rotate(rot, e_j)[k]
+  for (int j = 0; j < 3; ++j) {
+    float e[3] = {0.0f, 0.0f, 0.0f}, col[3];
+    e[j] = 1.0f;
+    rotate(rot, rot[3], e, col);
+    for (int k = 0; k < 3; ++k) r[k][j] = col[k];
+  }
+  const float* m = s + kStatM;
+  const float* g = s + kStatG;
+  const float* n = s + kStatN;
+  const float qc[3] = {-rot[0], -rot[1], -rot[2]};
+  float gq[3], gw;
+  rotate_bwd_summed(qc, rot[3], m, gq, gw);
+  // the normal's m' = n_shade (g_nw scale)^T
+  float mn[9];
+  for (int j = 0; j < 3; ++j)
+    for (int k = 0; k < 3; ++k) mn[3 * j + k] = n[3 * j + k] * scale[k];
+  float gqn[3], gwn;
+  rotate_bwd_summed(rot, rot[3], mn, gqn, gwn);
+  for (int k = 0; k < 3; ++k) {
+    gi[k] = -((r[k][0] * g[0] + r[k][1] * g[1]) + r[k][2] * g[2]) / scale[k];
+    gi[3 + k] = gqn[k] - gq[k];
+    gi[7 + k] = ((r[k][0] * n[k] + r[k][1] * n[3 + k]) + r[k][2] * n[6 + k]) -
+                ((r[k][0] * m[3 * k] + r[k][1] * m[3 * k + 1]) +
+                 r[k][2] * m[3 * k + 2]) / scale[k];
+  }
+  gi[6] = gwn + gw;
+}
+
+// The block's end of the redesign's material sums: its warps' partial sums
+// (`slots`, kMatSumWords words a volume) summed and each nonzero word added
+// into the accumulator g_mat with one f32 atomic, word e of volume v at
+// g_mat[v * kMatRow + e + (e >= 3)] (the rows skip the tint's fourth
+// word).  Every thread of the block calls it, after a __syncthreads.
+__device__ __forceinline__ void flush_warp_material(float* g_mat,
+                                                    const float* slots,
+                                                    int volumes) {
+  const int words = volumes * kMatSumWords;
+  for (int w = threadIdx.x; w < words; w += blockDim.x) {
+    float s = 0.0f;
+    for (int j = 0; j < kSumWarps; ++j) s += slots[j * words + w];
+    const int v = w / kMatSumWords, e = w - v * kMatSumWords;
+    if (s != 0.0f) atomicAdd(g_mat + v * kMatRow + e + (e >= 3), s);
+  }
+}
+
+// The block's end of the redesign's instance sums: its warps' statistics
+// (`slots`, kInstStatWords words an instance) summed into the first warp's,
+// then each instance's transform cotangents formed once from them and each
+// nonzero word added into g_inst with one f32 atomic.  Every thread of the
+// block calls it, after a __syncthreads.
+__device__ __forceinline__ void flush_warp_instances(float* g_inst,
+                                                     float* slots,
+                                                     const float* sh_inst,
+                                                     int instances) {
+  const int words = instances * kInstStatWords;
+  for (int w = threadIdx.x; w < words; w += blockDim.x)
+    for (int j = 1; j < kSumWarps; ++j) slots[w] += slots[j * words + w];
+  __syncthreads();
+  for (int k = threadIdx.x; k < instances; k += blockDim.x) {
+    const float* st = slots + k * kInstStatWords;
+    bool any = false;
+    for (int e = 0; e < kInstStatWords; ++e) any = any || st[e] != 0.0f;
+    if (!any) continue;
+    float gi[kInstanceWords];
+    const float* in = sh_inst + k * kInstRow;
+    inst_from_stats(in + 3, in + 7, st, gi);
+    for (int e = 0; e < kInstanceWords; ++e)
+      if (gi[e] != 0.0f) atomicAdd(g_inst + k * kInstanceWords + e, gi[e]);
+  }
+}
 
 // The reverse of sample_wrap: the cotangents of (u_, v_) for that of the
 // sample.  kTex (the texture variant) also adds the four taps' cotangents
@@ -3048,12 +3396,14 @@ __device__ __forceinline__ void sample_wrap_bwd(const SurfaceParams& p,
 // the three samples also return their values (the forward's tx, ty, tz).
 // kTex (the texture variant) also adds the texture scale's cotangents into
 // g_scale (uv = pos / scale, so d uv / d scale = -uv / scale) and, with
-// kTaps (its first design), the 12 taps' into `sink`.
+// kTaps (its first design), the 12 taps' into `sink`.  A `value` (kNormal
+// false) gets the sample itself, tri_sample's blend of the three.
 template <bool kNormal, bool kTex = false, bool kTaps = kTex>
 __device__ __forceinline__ void tri_sample_bwd(
     const SurfaceParams& p, const int* sizes, int id, const float scale[2],
     const float pos[3], const float b[3], const float g[3], float g_pos[3],
-    float g_b[3], const TableSink* sink = nullptr, float* g_scale = nullptr) {
+    float g_b[3], const TableSink* sink = nullptr, float* g_scale = nullptr,
+    float* value = nullptr) {
   float s[3][3];
   const float uv[3][2] = {{pos[2] / scale[0], pos[1] / scale[1]},
                           {pos[0] / scale[0], pos[2] / scale[1]},
@@ -3077,6 +3427,9 @@ __device__ __forceinline__ void tri_sample_bwd(
       g_scale[1] -= (g_v * uv[a][1]) / scale[1];
     }
   }
+  if (!kNormal && value != nullptr)
+    for (int c = 0; c < 3; ++c)
+      value[c] = (s[0][c] * b[0] + s[1][c] * b[1]) + s[2][c] * b[2];
 }
 
 // What the texture variant's redesign stages of a hit lane for its taps (16
@@ -3310,18 +3663,23 @@ __device__ __forceinline__ void add_colors(const SurfaceParams& p, float* acc,
 // kInst (the instance variant) adds the cotangents of the lane's instance
 // transform into gi (kInstanceWords: pos, rot, scale), from the three
 // places the stage reads it: the textures' object-space hit point, the
-// colour sample's object-space ray and the world normal.
+// colour sample's object-space ray and the world normal.  kSums (the
+// material and instance variants' redesign) forms neither gm nor gi: what
+// they follow from goes into the lane's stage `ss` (SumWords), and
+// sums_epilogue forms them after the lane's code.
 template <bool kLit, bool kTextured, bool kColors, bool kMat,
-          bool kTex = false, bool kInst = false, bool kStaged = false>
+          bool kTex = false, bool kInst = false, bool kStaged = false,
+          bool kSums = false>
 __device__ __forceinline__ void surface_bwd_hit(
     const SurfaceBwdParams& q, const float* sh_inst, const float* sh_vol,
     const int* sh_sizes, long long i, float g_o[3], float g_d[3],
     float g_n[3], float& g_t, long long& row, float grow[24], float gm[6],
     int& vol_out, const TableSink* tex = nullptr, float* g_scale = nullptr,
-    float* gi = nullptr, TapStage* st = nullptr) {
+    float* gi = nullptr, TapStage* st = nullptr, float* ss = nullptr) {
   // kStaged (the texture variant's redesign): the taps are not added here;
   // what they need goes into the lane's stage `st` (TapStage)
   constexpr bool kTaps = kTex && !kStaged;
+  using W = SumWords<kLit, kTextured, kColors, kMat, kInst>;
   const SurfaceParams& p = q.f;
   float o_w[3], d_w[3], n_obj[3];
   for (int c = 0; c < 3; ++c) {
@@ -3398,7 +3756,12 @@ __device__ __forceinline__ void surface_bwd_hit(
     float g_rs[3];
     for (int c = 0; c < 3; ++c) g_rs[c] = g_nw[c] * scale[c];
     rotate_t(rot, rot[3], g_rs, g_ns);
-    if (kInst) {
+    if (kInst && kSums) {
+      for (int c = 0; c < 3; ++c) {
+        put_sum(ss, W::kNShade + c, n_shade[c]);
+        put_sum(ss, W::kGnw + c, g_nw[c]);
+      }
+    } else if (kInst) {
       // n_w = rotate(rot, n_shade) * scale
       float rn[3], unused[3] = {0.0f, 0.0f, 0.0f};
       rotate(rot, rot[3], n_shade, rn);
@@ -3421,7 +3784,10 @@ __device__ __forceinline__ void surface_bwd_hit(
         const float g_rm[3] = {
             pass_clip(xr, 0.0f, 1.0f, g_rough * mat[6]),
             pass_clip(xm, 0.0f, 1.0f, g_metal * mat[7]), 0.0f};
-        if (kMat) {
+        if (kMat && kSums) {
+          put_sum(ss, W::kRmw, rm[0]);
+          put_sum(ss, W::kRmw + 1, rm[1]);
+        } else if (kMat) {
           // roughness = clip(R rm.x, 0, 1): R's is the clip's times rm.x
           gm[3] += pass_clip(xr, 0.0f, 1.0f, g_rough) * rm[0];
           gm[4] += pass_clip(xm, 0.0f, 1.0f, g_metal) * rm[1];
@@ -3446,15 +3812,18 @@ __device__ __forceinline__ void surface_bwd_hit(
       if (kTex && kStaged)
         for (int c = 0; c < 3; ++c) st->g[1][c] = g_tn[c];
       if (!kColors) {
-        float g_tex[3];
+        float g_tex[3], alb[3];
         for (int c = 0; c < 3; ++c) g_tex[c] = g_alb[c] * mat[3 + c];
         tri_sample_bwd<false, kTex, kTaps>(p, sh_sizes,
                                            __float_as_int(mat[11]), tscale,
                                            obj_pos, b, g_tex, g_pos, g_b,
-                                           tex, g_scale);
+                                           tex, g_scale,
+                                           kMat && kSums ? alb : nullptr);
         if (kTex && kStaged)
           for (int c = 0; c < 3; ++c) st->g[0][c] = g_tex[c];
-        if (kMat) {
+        if (kMat && kSums) {
+          for (int c = 0; c < 3; ++c) put_sum(ss, W::kAlb + c, alb[c]);
+        } else if (kMat) {
           // albedo = tint tex
           float tex[3];
           tri_sample<false>(p, sh_sizes, __float_as_int(mat[11]), tscale,
@@ -3475,10 +3844,14 @@ __device__ __forceinline__ void surface_bwd_hit(
       float g_a[3];
       rotate_t(qc, rot[3], g_pos, g_a);
       for (int c = 0; c < 3; ++c) g_hp[c] += g_a[c] / scale[c];
-      if (kInst) object_bwd<true>(pos, rot, scale, hit_pos, g_pos, gi);
+      if (kInst && kSums) {
+        for (int c = 0; c < 3; ++c) put_sum(ss, W::kGpos + c, g_pos[c]);
+      } else if (kInst) {
+        object_bwd<true>(pos, rot, scale, hit_pos, g_pos, gi);
+      }
     } else {
       for (int c = 0; c < 3; ++c) g_n[c] += g_ns[c];
-      if (kMat) {
+      if (kMat && !kSums) {
         // roughness = clip(R, 0, 1), metallic = clip(M, 0, 1)
         if (q.g_roughness != nullptr)
           gm[3] += pass_clip(mat[6], 0.0f, 1.0f, q.g_roughness[i]);
@@ -3486,7 +3859,7 @@ __device__ __forceinline__ void surface_bwd_hit(
           gm[4] += pass_clip(mat[7], 0.0f, 1.0f, q.g_metallic[i]);
       }
     }
-    if (kMat && q.g_k != nullptr) gm[5] += q.g_k[i];
+    if (kMat && !kSums && q.g_k != nullptr) gm[5] += q.g_k[i];
   } else if (kTextured && !kColors) {
     // unlit: the albedo alone
     float a[3], obj_pos[3], b[3];
@@ -3496,11 +3869,12 @@ __device__ __forceinline__ void surface_bwd_hit(
     const float s = (ab[0] + ab[1]) + ab[2];
     for (int c = 0; c < 3; ++c) b[c] = s > 0.0f ? ab[c] / s : 0.0f;
     float g_pos[3] = {0.0f, 0.0f, 0.0f}, g_b[3] = {0.0f, 0.0f, 0.0f};
-    float g_tex[3];
+    float g_tex[3], alb[3];
     for (int c = 0; c < 3; ++c) g_tex[c] = g_alb[c] * mat[3 + c];
     tri_sample_bwd<false, kTex, kTaps>(p, sh_sizes, __float_as_int(mat[11]),
                                        mat + 9, obj_pos, b, g_tex, g_pos, g_b,
-                                       tex, g_scale);
+                                       tex, g_scale,
+                                       kMat && kSums ? alb : nullptr);
     if (kTex && kStaged) {
       for (int c = 0; c < 3; ++c) {
         st->pos[c] = obj_pos[c];
@@ -3509,7 +3883,9 @@ __device__ __forceinline__ void surface_bwd_hit(
       }
       st->vol = vol;
     }
-    if (kMat) {
+    if (kMat && kSums) {
+      for (int c = 0; c < 3; ++c) put_sum(ss, W::kAlb + c, alb[c]);
+    } else if (kMat) {
       float tex[3];
       tri_sample<false>(p, sh_sizes, __float_as_int(mat[11]), mat + 9,
                         obj_pos, b, tex);
@@ -3523,11 +3899,15 @@ __device__ __forceinline__ void surface_bwd_hit(
     float g_a[3];
     rotate_t(qc, rot[3], g_pos, g_a);
     for (int c = 0; c < 3; ++c) g_hp[c] += g_a[c] / scale[c];
-    if (kInst) object_bwd<true>(pos, rot, scale, hit_pos, g_pos, gi);
+    if (kInst && kSums) {
+      for (int c = 0; c < 3; ++c) put_sum(ss, W::kGpos + c, g_pos[c]);
+    } else if (kInst) {
+      object_bwd<true>(pos, rot, scale, hit_pos, g_pos, gi);
+    }
   }
 
   // the albedo of an untextured lane without per-voxel colours: the tint
-  if (kMat && !kTextured && !kColors)
+  if (kMat && !kSums && !kTextured && !kColors)
     for (int c = 0; c < 3; ++c) gm[c] += g_alb[c];
 
   // hit_pos = o_w + t d_w
@@ -3555,7 +3935,12 @@ __device__ __forceinline__ void surface_bwd_hit(
       g_o[c] += ga[c] / scale[c];
       g_d[c] += gb[c] / scale[c];
     }
-    if (kInst) {
+    if (kInst && kSums) {
+      for (int c = 0; c < 3; ++c) {
+        put_sum(ss, W::kGo + c, g_oo[c]);
+        put_sum(ss, W::kGd + c, g_dd[c]);
+      }
+    } else if (kInst) {
       object_bwd<true>(pos, rot, scale, o_w, g_oo, gi);
       object_bwd<false>(pos, rot, scale, d_w, g_dd, gi);
     }
@@ -3637,9 +4022,17 @@ constexpr int kSurfaceBwdMinBlocks = 3;
 // redesign) takes the taps out of the hit lanes' code: each hit lane stages
 // what they need (TapStage) and the warp sums its 9 samples after the lanes'
 // code (stage_taps_reduce).  The probe's kTapSink 1 adds no tap into the
-// textures (no zeroing, no flush), 3 flushes nothing of them.
+// textures (no zeroing, no flush), 3 flushes nothing of them.  kWarpSums
+// (the material and instance variants' redesign, surface_bwd_sums_kernel)
+// stages what a hit lane's material and instance cotangents follow from
+// (SumWords), forms them after the lane's code (sums_epilogue) and sums
+// them over the warp into the warp's partial sums (warp_slots_add), which
+// the block adds into g_mat and g_inst at its end; shared memory after the
+// tables and the texture variant's: the warps' material sums [kSumWarps,
+// V, kMatSumWords], their instance statistics [kSumWarps, I,
+// kInstStatWords], the stage [SumWords::kCount, kThreads].
 template <bool kLit, bool kTextured, bool kColors, bool kMat, bool kTex,
-          bool kInst = false, bool kStaged = false>
+          bool kInst = false, bool kStaged = false, bool kWarpSums = false>
 __device__ __forceinline__ void surface_bwd_merged_body(
     const SurfaceBwdParams& q) {
   const SurfaceParams& p = q.f;
@@ -3653,17 +4046,30 @@ __device__ __forceinline__ void surface_bwd_merged_body(
   float* sh_vol = sh_inst + p.inst.count * kInstRow;
   int* sh_sizes = reinterpret_cast<int*>(sh_vol + p.mat.count * kVolRow);
   float* sh_mat = reinterpret_cast<float*>(sh_sizes + 2 * p.tex_count);
-  float* sh_scale = sh_mat + (kMat ? p.mat.count * kMatRow : 0);
+  // the first design's block sums of the material constants
+  const int mat_words = kMat && !kWarpSums ? p.mat.count * kMatRow : 0;
+  float* sh_scale = sh_mat + mat_words;
   float* sh_tex = sh_scale + p.mat.count * kTexScaleRow;
   const long long tex_words =
       static_cast<long long>(p.tex_count) * p.tex_h * p.tex_w * 3;
   // the instance variant's sums, after what the host allotted before them
-  float* sh_ig = sh_mat + (kMat ? p.mat.count * kMatRow : 0) +
+  float* sh_ig = sh_mat + mat_words +
                  (kTex ? p.mat.count * kTexScaleRow +
                              (q.tex_shared ? tex_words : 0)
                        : 0);
+  // the redesign's: the warps' partial sums, then the stage
+  const int wmat_words = kMat ? p.mat.count * kMatSumWords : 0;
+  const int winst_words = kInst ? p.inst.count * kInstStatWords : 0;
+  float* sh_wmat = sh_ig;
+  float* sh_winst = sh_wmat + kSumWarps * wmat_words;
+  float* sh_sums = sh_winst + kSumWarps * winst_words;
+  const int warp = threadIdx.x >> 5;
   stage_surface_tables(p, sh_inst, sh_vol, sh_sizes);
-  if (kMat)
+  if (kWarpSums)
+    for (int w = threadIdx.x; w < kSumWarps * (wmat_words + winst_words);
+         w += blockDim.x)
+      sh_wmat[w] = 0.0f;
+  if (kMat && !kWarpSums)
     for (int w = threadIdx.x; w < p.mat.count * kMatRow; w += blockDim.x)
       sh_mat[w] = 0.0f;
   if (kTex) {
@@ -3674,7 +4080,7 @@ __device__ __forceinline__ void surface_bwd_merged_body(
       for (long long w = threadIdx.x; w < tex_words; w += blockDim.x)
         sh_tex[w] = 0.0f;
   }
-  if (kInst)
+  if (kInst && !kWarpSums)
     for (int w = threadIdx.x; w < p.inst.count * kInstanceWords;
          w += blockDim.x)
       sh_ig[w] = 0.0f;
@@ -3714,16 +4120,18 @@ __device__ __forceinline__ void surface_bwd_merged_body(
       for (int e = 0; e < kInstanceWords; ++e) gi[e] = 0.0f;
     int vol = 0;
     if (is_hit)
-      surface_bwd_hit<kLit, kTextured, kColors, kMat, kTex, kInst, kStaged>(
-          q, sh_inst, sh_vol, sh_sizes, i, g_o, g_d, g_n, g_t, row, grow, gm,
-          vol, &tex_sink, g_scale, gi, stage);
+      surface_bwd_hit<kLit, kTextured, kColors, kMat, kTex, kInst, kStaged,
+                      kWarpSums>(q, sh_inst, sh_vol, sh_sizes, i, g_o, g_d,
+                                 g_n, g_t, row, grow, gm, vol, &tex_sink,
+                                 g_scale, gi, stage,
+                                 sh_sums + threadIdx.x);
     if (kColors && q.g_colors != nullptr) {
       if (!is_hit)
         for (int e = 0; e < 24; ++e) grow[e] = 0.0f;
       if (merge_peers(row, grow, lane) == lane)
         add_colors(p, q.g_colors, row, grow);
     }
-    if (kMat) {
+    if (kMat && !kWarpSums) {
       // the lanes of one volume summed first, the lowest adding the sums
       const long long key = is_hit ? vol : -1 - lane;
       if (merge_peers(key, gm, lane) == lane && is_hit)
@@ -3736,13 +4144,40 @@ __device__ __forceinline__ void surface_bwd_merged_body(
           if (g_scale[c] != 0.0f)
             atomicAdd(sh_scale + vol * kTexScaleRow + c, g_scale[c]);
     }
-    if (kInst) {
+    if (kInst && !kWarpSums) {
       // the lanes of one instance summed first, the lowest adding the sums
       const int a = is_hit ? max(p.winner[i], 0) : 0;
       const long long key = is_hit ? a : -1 - lane;
       if (merge_peers(key, gi, lane) == lane && is_hit)
         for (int e = 0; e < kInstanceWords; ++e)
           if (gi[e] != 0.0f) atomicAdd(sh_ig + a * kInstanceWords + e, gi[e]);
+    }
+    if (kWarpSums) {
+      // the lane's cotangents first, then its table cotangents formed from
+      // its stage and summed over the warp
+      if (in) {
+        if (q.g_o_w != nullptr) {
+          store3(q.g_o_w, i, g_o);
+          store3(q.g_d_w, i, g_d);
+        }
+        q.g_t[i] = g_t;
+        store3(q.g_n_obj, i, g_n);
+      }
+      float sm[kMatSumWords], si[kInstStatWords];
+      for (int e = 0; e < kMatSumWords; ++e) sm[e] = 0.0f;
+      for (int e = 0; e < kInstStatWords; ++e) si[e] = 0.0f;
+      int a = 0;
+      if (is_hit)
+        sums_epilogue<kLit, kTextured, kColors, kMat, kInst>(
+            q, sh_inst, sh_vol, i, vol, sh_sums + threadIdx.x, sm, si, a);
+      if (kMat)
+        warp_slots_add(sh_wmat + warp * wmat_words, is_hit, vol, sm, lane);
+      if (kInst)
+        warp_slots_add(sh_winst + warp * winst_words, is_hit, a, si, lane);
+      if (kTex && kStaged && (kLit || !kColors))
+        stage_taps_reduce<kLit, kColors>(p, sh_vol, sh_sizes, *stage,
+                                         is_hit, tex_sink, lane);
+      continue;
     }
     if (kTex && kStaged) {
       // the lane's cotangents first, then the warp's taps (every hit lane
@@ -3769,14 +4204,20 @@ __device__ __forceinline__ void surface_bwd_merged_body(
     q.g_t[i] = g_t;
     store3(q.g_n_obj, i, g_n);
   }
-  if (kMat) flush_material(q, sh_mat);
+  if (kWarpSums) {
+    __syncthreads();
+    if (kMat) flush_warp_material(q.g_mat, sh_wmat, p.mat.count);
+    if (kInst)
+      flush_warp_instances(q.g_inst, sh_winst, sh_inst, p.inst.count);
+  }
+  if (kMat && !kWarpSums) flush_material(q, sh_mat);
   if (kTex) {
     __syncthreads();
     flush_table(q.g_tex_scale, sh_scale, p.mat.count * kTexScaleRow);
     if (q.tex_shared && kTapSink != 1 && kTapSink != 3)
       flush_table(q.g_textures, sh_tex, tex_words);
   }
-  if (kInst) {
+  if (kInst && !kWarpSums) {
     __syncthreads();
     flush_table(q.g_inst, sh_ig, p.inst.count * kInstanceWords);
   }
@@ -3817,6 +4258,19 @@ __global__ void __launch_bounds__(kThreads, kSurfaceBwdMinBlocks)
   // its texture path the redesign's (kStaged)
   surface_bwd_merged_body<kLit, kTextured, kColors, kMat, kTex, true, kTex>(
       q);
+}
+
+// The material and instance variants' redesign (kWarpSums): the material
+// variant alone (kMat, not kInst), the instance variant (kInst; kMat and
+// kTex as the material and texture variants', one launch of all that a
+// step asks for; its texture path the texture variant's redesign).  The
+// kernels above, the first designs, stay as its comparator.
+template <bool kLit, bool kTextured, bool kColors, bool kMat, bool kTex,
+          bool kInst>
+__global__ void __launch_bounds__(kThreads, kSurfaceBwdMinBlocks)
+    surface_bwd_sums_kernel(const SurfaceBwdParams q) {
+  surface_bwd_merged_body<kLit, kTextured, kColors, kMat, kTex, kInst, kTex,
+                          true>(q);
 }
 
 template <typename T>
@@ -3906,9 +4360,9 @@ struct Grid {
 // staged tables, at most 48 KiB, leave room for 4) and `shared` bytes of
 // dynamic shared memory: the grid of a kernel whose resident blocks stride
 // over the rays.  Each caller keeps it per variant, found on the card of
-// its first launch (the texture and env variants, whose shared memory
-// follows their table, find it at each launch): the grid only sizes the
-// stride loop, and any grid gives the same result.
+// its first launch (the variants whose shared memory follows their tables
+// per kernel, dynamic shared size and card: sized_grid): the grid only
+// sizes the stride loop, and any grid gives the same result.
 Grid resident_grid(const void* kernel, int threads, size_t shared = 0) {
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&device);
@@ -3918,6 +4372,24 @@ Grid resident_grid(const void* kernel, int threads, size_t shared = 0) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       threads, shared);
   return Grid{e, static_cast<long long>(max(per_sm, 1)) * sms};
+}
+
+// resident_grid kept per kernel, dynamic shared size and card: the first
+// launch of each asks the card, later ones read it here (the launches come
+// from any host thread).
+Grid sized_grid(const void* kernel, int threads, size_t shared) {
+  static std::mutex lock;
+  static std::map<std::tuple<const void*, size_t, int>, Grid> grids;
+  int device = 0;
+  const cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return Grid{e, 0};
+  const auto key = std::make_tuple(kernel, shared, device);
+  std::lock_guard<std::mutex> hold(lock);
+  const auto found = grids.find(key);
+  if (found != grids.end()) return found->second;
+  const Grid g = resident_grid(kernel, threads, shared);
+  if (g.err == cudaSuccess) grids.emplace(key, g);
+  return g;
 }
 
 template <bool kLit, bool kTextured, bool kColors, bool kMat>
@@ -3941,7 +4413,7 @@ cudaError_t surface_bwd_textures(const SurfaceBwdParams& q, bool first,
                   surface_bwd_textures_kernel<kLit, kColors, kMat>)
             : reinterpret_cast<const void*>(
                   surface_bwd_textures_warp_kernel<kLit, kColors, kMat>);
-  const Grid g = resident_grid(kernel, kThreads, shared);
+  const Grid g = sized_grid(kernel, kThreads, shared);
   if (g.err != cudaSuccess) return g.err;
   const unsigned grid = static_cast<unsigned>(std::min(blocks, g.blocks));
   if (first)
@@ -3960,12 +4432,43 @@ template <bool kLit, bool kTextured, bool kColors, bool kMat, bool kTex>
 cudaError_t surface_bwd_instances_launch(const SurfaceBwdParams& q,
                                          long long blocks, size_t shared,
                                          cudaStream_t s) {
-  const Grid g = resident_grid(
+  const Grid g = sized_grid(
       reinterpret_cast<const void*>(
           surface_bwd_instances_kernel<kLit, kTextured, kColors, kMat, kTex>),
       kThreads, shared);
   if (g.err != cudaSuccess) return g.err;
   surface_bwd_instances_kernel<kLit, kTextured, kColors, kMat, kTex>
+      <<<static_cast<unsigned>(std::min(blocks, g.blocks)), kThreads, shared,
+         s>>>(q);
+  return cudaSuccess;
+}
+
+// One launch of the material and instance variants' redesign
+// (surface_bwd_sums_kernel) over `blocks` blocks of rays, on its resident
+// grid: `tables` bytes of dynamic shared memory (the staged tables and the
+// texture variant's sums) and its own after them.
+template <bool kLit, bool kTextured, bool kColors, bool kMat, bool kTex,
+          bool kInst>
+cudaError_t surface_bwd_sums_launch(const SurfaceBwdParams& q,
+                                    long long blocks, size_t tables,
+                                    cudaStream_t s) {
+  using W = SumWords<kLit, kTextured, kColors, kMat, kInst>;
+  const size_t shared =
+      tables + 4 * (static_cast<size_t>(kSumWarps) *
+                        ((kMat ? q.f.mat.count * kMatSumWords : 0) +
+                         (kInst ? q.f.inst.count * kInstStatWords : 0)) +
+                    static_cast<size_t>(W::kCount) * kThreads);
+  if (shared > kSumsMaxSharedBytes) return cudaErrorInvalidValue;
+  const void* kernel = reinterpret_cast<const void*>(
+      surface_bwd_sums_kernel<kLit, kTextured, kColors, kMat, kTex, kInst>);
+  // above 48 KiB only once asked for
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSumsMaxSharedBytes);
+  if (attr != cudaSuccess) return attr;
+  const Grid g = sized_grid(kernel, kThreads, shared);
+  if (g.err != cudaSuccess) return g.err;
+  surface_bwd_sums_kernel<kLit, kTextured, kColors, kMat, kTex, kInst>
       <<<static_cast<unsigned>(std::min(blocks, g.blocks)), kThreads, shared,
          s>>>(q);
   return cudaSuccess;
@@ -3988,6 +4491,43 @@ cudaError_t surface_bwd_instances(const SurfaceBwdParams& q, bool material,
                   : surface_bwd_instances_launch<kLit, kTextured, kColors,
                                                  false, false>(q, blocks,
                                                                shared, s);
+}
+
+// A launch of the material variant alone (not `instances`) or of the
+// instance variant (kMat and kTex by `material` and `textures`; kTex in a
+// textured mode alone): the redesign, or with `first` the first design
+// (surface_bwd_merged_kernel's kMat instantiation, surface_bwd_instances_
+// kernel) on `shared` bytes; the redesign takes `tables` bytes and its own.
+template <bool kLit, bool kTextured, bool kColors>
+cudaError_t surface_bwd_sums(const SurfaceBwdParams& q, bool material,
+                             bool textures, bool instances, bool first,
+                             long long blocks, size_t shared, size_t tables,
+                             cudaStream_t s) {
+  if (!instances) {
+    if (!first)
+      return surface_bwd_sums_launch<kLit, kTextured, kColors, true, false,
+                                     false>(q, blocks, tables, s);
+    const Grid g = merged_grid<kLit, kTextured, kColors, true>();
+    if (g.err != cudaSuccess) return g.err;
+    surface_bwd_merged_kernel<kLit, kTextured, kColors, true>
+        <<<static_cast<unsigned>(std::min(blocks, g.blocks)), kThreads,
+           shared, s>>>(q);
+    return cudaSuccess;
+  }
+  if (first) return surface_bwd_instances<kLit, kTextured, kColors>(
+      q, material, textures, blocks, shared, s);
+  if (kTextured && textures)
+    return material
+               ? surface_bwd_sums_launch<kLit, kTextured, kColors, true,
+                                         kTextured, true>(q, blocks, tables, s)
+               : surface_bwd_sums_launch<kLit, kTextured, kColors, false,
+                                         kTextured, true>(q, blocks, tables,
+                                                          s);
+  return material ? surface_bwd_sums_launch<kLit, kTextured, kColors, true,
+                                            false, true>(q, blocks, tables, s)
+                  : surface_bwd_sums_launch<kLit, kTextured, kColors, false,
+                                            false, true>(q, blocks, tables,
+                                                         s);
 }
 
 // One launch of a forward kernel's redesign over `rays`: its grid, or its
@@ -4077,7 +4617,7 @@ cudaError_t combine_bwd_env(const CombineBwdParams& q, bool first,
       first ? reinterpret_cast<const void*>(combine_bwd_env_kernel<kVec, kGrad>)
             : reinterpret_cast<const void*>(
                   combine_bwd_env_warp_kernel<kVec, kGrad>);
-  const Grid grid = resident_grid(kernel, kCombineBwdThreads, shared);
+  const Grid grid = sized_grid(kernel, kCombineBwdThreads, shared);
   if (grid.err != cudaSuccess) return grid.err;
   const long long blocks =
       (q.f.rays + kCombineBwdThreads - 1) / kCombineBwdThreads;
@@ -4255,23 +4795,31 @@ extern "C" int vrt_shade_combine(const void* const* ptrs, const int* ints,
 // variant, one launch of all), else 0, then 1 for the texture variant's
 // first design (surface_bwd_textures_kernel, the comparator of the
 // redesign, which the texture variant launches otherwise; not with the
-// instance variant, whose texture path is the redesign's), else 0:
-// kSurfaceBwdInts ints.  The texture
+// instance variant, whose texture path is the redesign's), else 0, then 1
+// for the material and instance variants' first design (the merged
+// kernel's kMat instantiation, surface_bwd_instances_kernel: the
+// comparators of surface_bwd_sums_kernel, which the material variant
+// without the texture variant and the instance variant launch otherwise),
+// else 0: kSurfaceBwdInts ints.  The texture
 // variant sums the textures' cotangents in shared memory where the stack's
 // f32 words fit kTexSharedBytes.  The merged kernel takes outputs on
 // 16-byte boundaries.  New slots go last, so that a caller's arrays also
 // drive a library built before them.  Returns cudaGetLastError().
-constexpr int kSurfaceBwdPtrs = 41, kSurfaceBwdInts = 19;
+constexpr int kSurfaceBwdPtrs = 41, kSurfaceBwdInts = 20;
 extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
                                      long long rays, void* stream) {
   const int n_inst = ints[0], n_vol = ints[1], n_tex = ints[2];
   const bool lit = ints[7], textured = ints[8], colors = ints[9];
   const bool merged = ints[14] != 0, material = ints[15] != 0;
   const bool textures = ints[16] != 0, instances = ints[17] != 0;
-  const bool first_tex = ints[18] != 0;
+  const bool first_tex = ints[18] != 0, first_sums = ints[19] != 0;
+  // the launches the sums' redesign (or with first_sums its first design)
+  // takes: the instance variant, the material variant without the texture
+  // variant
+  const bool sums = merged && (instances || (material && !textures));
   if (n_inst < 1 || n_vol < 1 || ints[6] < 0 || ints[6] > 2 ||
       (textures && !(merged && textured)) || (instances && !merged) ||
-      (first_tex && (!textures || instances)))
+      (first_tex && (!textures || instances)) || (first_sums && !sums))
     return cudaErrorInvalidValue;
   SurfaceBwdParams q;
   surface_inputs(ptrs, ints, rays, q.f);
@@ -4307,12 +4855,13 @@ extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
   // sums of the material constants' cotangents after them, then the texture
   // variant's of the texture scale and (on the shared path) the textures,
   // then the instance variant's of the instance transforms
-  const size_t shared =
+  const size_t tables =
       4 * (static_cast<size_t>(n_inst) * kInstRow + n_vol * kVolRow +
-           2 * n_tex + (material ? n_vol * kMatRow : 0) +
-           (textures ? n_vol * kTexScaleRow : 0) +
-           (q.tex_shared ? tex_words : 0) +
-           (instances ? n_inst * kInstanceWords : 0));
+           2 * n_tex + (textures ? n_vol * kTexScaleRow : 0) +
+           (q.tex_shared ? tex_words : 0));
+  const size_t shared =
+      tables + 4 * ((material ? static_cast<size_t>(n_vol) * kMatRow : 0) +
+                    (instances ? n_inst * kInstanceWords : 0));
   if (shared > kMaxSharedBytes) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long blocks = (rays + kThreads - 1) / kThreads;
@@ -4349,29 +4898,24 @@ extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
     }                                                                       \
     VRT_SURFACE_BWD(L, true, C);                                            \
   } while (0)
-  if (instances) {
+#define VRT_SURFACE_BWD_SUMS(L, T, C)                                       \
+  surface_bwd_sums<L, T, C>(q, material, textures, instances, first_sums,  \
+                            blocks, shared, tables, s)
+  if (sums) {
     if (lit) {
       if (textured)
-        err = colors ? surface_bwd_instances<true, true, true>(
-                           q, material, textures, blocks, shared, s)
-                     : surface_bwd_instances<true, true, false>(
-                           q, material, textures, blocks, shared, s);
+        err = colors ? VRT_SURFACE_BWD_SUMS(true, true, true)
+                     : VRT_SURFACE_BWD_SUMS(true, true, false);
       else
-        err = colors ? surface_bwd_instances<true, false, true>(
-                           q, material, textures, blocks, shared, s)
-                     : surface_bwd_instances<true, false, false>(
-                           q, material, textures, blocks, shared, s);
+        err = colors ? VRT_SURFACE_BWD_SUMS(true, false, true)
+                     : VRT_SURFACE_BWD_SUMS(true, false, false);
     } else {
       if (textured)
-        err = colors ? surface_bwd_instances<false, true, true>(
-                           q, material, textures, blocks, shared, s)
-                     : surface_bwd_instances<false, true, false>(
-                           q, material, textures, blocks, shared, s);
+        err = colors ? VRT_SURFACE_BWD_SUMS(false, true, true)
+                     : VRT_SURFACE_BWD_SUMS(false, true, false);
       else
-        err = colors ? surface_bwd_instances<false, false, true>(
-                           q, material, textures, blocks, shared, s)
-                     : surface_bwd_instances<false, false, false>(
-                           q, material, textures, blocks, shared, s);
+        err = colors ? VRT_SURFACE_BWD_SUMS(false, false, true)
+                     : VRT_SURFACE_BWD_SUMS(false, false, false);
     }
   } else if (lit) {
     if (textured) {
@@ -4390,6 +4934,7 @@ extern "C" int vrt_shade_surface_bwd(const void* const* ptrs, const int* ints,
       else VRT_SURFACE_BWD(false, false, false);
     }
   }
+#undef VRT_SURFACE_BWD_SUMS
 #undef VRT_SURFACE_BWD_TEX
 #undef VRT_SURFACE_BWD
 #undef VRT_SURFACE_BWD_DESIGN

@@ -110,7 +110,10 @@ path (the surface's "voxels" on the unpacked grid), ``VARIANT_LAUNCHES``
 the backward launches of the material, light and instance variants again,
 ``TABLE_LAUNCHES`` those of the texture and env variants by path and
 ``TABLE_DESIGN_LAUNCHES`` by design ("warp" the redesign, "first" the first
-design; the instance variant's texture path counted as "warp").
+design; the instance variant's texture path counted as "warp") and
+``SUMS_DESIGN_LAUNCHES`` the launches of the material variant without the
+texture variant and of the instance variant by the design of their sums
+("warp" the redesign, "first" the first design).
 """
 
 from __future__ import annotations
@@ -152,13 +155,21 @@ TABLE_DESIGN_LAUNCHES = {"surface_bwd textures warp": 0,
                          "surface_bwd textures first": 0,
                          "combine_bwd env warp": 0,
                          "combine_bwd env first": 0}
+# the surface backward's launches of the material variant without the
+# texture variant and of the instance variant again by the design of their
+# sums: the redesign ("warp") or the first design
+SUMS_DESIGN_LAUNCHES = {"surface_bwd sums warp": 0,
+                        "surface_bwd sums first": 0}
+# the most volumes whose material sums the redesign keeps a warp (beyond,
+# the material variant takes its first design)
+SUMS_MAX_VOLUMES = 64
 # the largest stacked texture table and env cube whose cotangents a block
 # sums in shared memory (csrc/shade.cu kTexSharedBytes, kEnvSharedBytes)
 TEXTURE_SHARED_BYTES = 32 * 1024
 ENV_SHARED_BYTES = 16 * 1024
 # the pointers and ints the backward entry points read (csrc/shade.cu
 # kSurfaceBwdPtrs, kSurfaceBwdInts, kCombineBwdPtrs, kCombineBwdInts)
-SLOTS = {"vrt_shade_surface_bwd": (41, 19), "vrt_shade_combine_bwd": (52, 9)}
+SLOTS = {"vrt_shade_surface_bwd": (41, 20), "vrt_shade_combine_bwd": (52, 9)}
 
 NVCC_FLAGS = ["--fmad=false"]
 
@@ -202,7 +213,7 @@ def _check(x, name, dtype, shape, device):
 
 
 def _launch(fn, name, ptrs, ints, rays, dev, path=None, variants=(),
-            table=None, design="warp"):
+            table=None, design="warp", sums=None):
     if fn in SLOTS and (len(ptrs), len(ints)) != SLOTS[fn]:
         raise ValueError(f"shade {name}: {len(ptrs)} pointers and "
                          f"{len(ints)} ints for {fn}, which reads "
@@ -221,6 +232,8 @@ def _launch(fn, name, ptrs, ints, rays, dev, path=None, variants=(),
     if table is not None:
         TABLE_LAUNCHES[f"{name} {table}"] += 1
         TABLE_DESIGN_LAUNCHES[f"{name} {table.split()[0]} {design}"] += 1
+    if sums is not None:
+        SUMS_DESIGN_LAUNCHES[f"{name} sums {sums}"] += 1
 
 
 def table_path(table, budget: int) -> str:
@@ -492,7 +505,8 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
                                 material: bool = False,
                                 textures: bool = False,
                                 instances: bool = False,
-                                _old_table_design: bool = False):
+                                _old_table_design: bool = False,
+                                _old_sums_design: bool = False):
     """Launch the surface kernel's backward on
     ``torch.cuda.current_stream()``: the cotangents of the record's
     ``RECORD_GRAD_FIELDS`` (albedo, shadow origin, world normal, roughness,
@@ -530,8 +544,17 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
     private ``_old_table_design`` launches its first design
     (``surface_bwd_textures_kernel``), the comparator of the timing runs,
     with ``textures`` alone (the instance variant's texture path is the
-    redesign's).  Raises on any input the kernel does not take; never falls
-    back."""
+    redesign's).  The material variant without the texture variant and the
+    instance variant are their sums' redesign (``surface_bwd_sums_kernel``:
+    a hit lane stages what its table cotangents follow from, which are
+    formed after its code and summed over the warp into a warp's partial
+    sums in shared memory; up to ``SUMS_MAX_VOLUMES`` volumes); the private
+    ``_old_sums_design`` launches their first design (the merged kernel's
+    kMat instantiation, ``surface_bwd_instances_kernel``: each lane's
+    cotangents carried through its code, merged by key and added by shared
+    atomics), the comparator of the timing runs.  Both give the per-ray
+    cotangents bit for bit; their tables differ in the order of the sums.
+    Raises on any input the kernel does not take; never falls back."""
     if textures and _old_design:
         raise ValueError("shade: the surface backward's first design has no "
                          "texture variant")
@@ -541,6 +564,11 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
     if instances and _old_design:
         raise ValueError("shade: the surface backward's first design has no "
                          "instance variant")
+    if _old_sums_design and (_old_design or not (
+            instances or (material and not textures))):
+        raise ValueError("shade: the sums' first design runs with the "
+                         "instance variant or the material variant without "
+                         "the texture variant")
     dev, rays, colors, ptrs, ints = _surface_args(
         scene, o_w, d_w, t, n_obj, hit, inst, mode, bounce, False,
         "surface kernel's backward")
@@ -598,12 +626,18 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
     # the texture variant is compiled for textured modes alone
     textures = textures and bool(mode.textured)
     first = _old_table_design and textures
-    ints += [not _old_design, material, textures, instances, first]
+    sums = None
+    if not _old_design and (instances or (material and not textures)):
+        sums = "first" if _old_sums_design or \
+            scene.tint.shape[0] > SUMS_MAX_VOLUMES else "warp"
+    ints += [not _old_design, material, textures, instances, first,
+             sums == "first"]
     _launch("vrt_shade_surface_bwd", "surface_bwd", ptrs, ints, rays, dev,
             variants=tuple(v for v, on in (("material", material),
                                            ("instances", instances)) if on),
             table=f"textures {table_path(g_tex, TEXTURE_SHARED_BYTES)}"
-            if textures else None, design="first" if first else "warp")
+            if textures else None, design="first" if first else "warp",
+            sums=sums)
     return out
 
 
