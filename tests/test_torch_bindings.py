@@ -289,7 +289,7 @@ _SUMS_CASES = {
     "textures": (dict(textures=True), None),
     "default": ({}, None),
     "material-old-design": (dict(material=True, _old_design=True), None),
-    "material-past-the-volumes": (dict(material=True), "first"),
+    "material-past-the-volumes": (dict(material=True), "warp"),
 }
 
 
@@ -298,9 +298,10 @@ def test_surface_backward_picks_the_sums_design(case):
     """The surface backward's wrapper on CPU tensors against a recording
     library: the material variant without the texture variant and the
     instance variant launch their sums' redesign (ints' last slot 0),
-    ``_old_sums_design`` their first design (1), as does a scene of more
-    volumes than ``SUMS_MAX_VOLUMES``; each such launch counted in
-    ``SUMS_DESIGN_LAUNCHES`` by design, any other launch not."""
+    ``_old_sums_design`` their first design (1); a scene of 100 volumes
+    takes the redesign too (the choice reads no count: the entry point
+    refuses a scene whose sums outgrow its shared memory); each such launch
+    counted in ``SUMS_DESIGN_LAUNCHES`` by design, any other launch not."""
     import torch
 
     from vrt_torch.march.types import RECORD_GRAD_FIELDS
@@ -312,9 +313,10 @@ def test_surface_backward_picks_the_sums_design(case):
     flags, want = _SUMS_CASES[case]
     seen = []
     k4 = _cpu_shade_module(seen)
-    if case == "material-past-the-volumes":
-        k4.SUMS_MAX_VOLUMES = 1
     scene = flagship_scene(4, device="cpu")
+    if case == "material-past-the-volumes":
+        from tests.test_torch_kernels import _many_volumes
+        scene = _many_volumes(scene, 100)
     mode = RenderMode()
     o, d = camera_rays(scene.cam_pos, scene.cam_rot, scene.cam_fov, 8, 8)
     o, d = o.contiguous(), d.contiguous()

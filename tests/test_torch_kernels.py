@@ -3297,6 +3297,40 @@ def test_sums_designs_without_instances_on_card():
         "surface_bwd sums warp": 1, "surface_bwd sums first": 1}
 
 
+def _many_volumes(scene, n):
+    """``scene`` with its volumes and their material tables repeated to
+    ``n`` volumes (the instances still name the first ones)."""
+    def rows(x):
+        return x[torch.arange(n, device=x.device) % x.shape[0]]
+
+    vols = scene.volumes
+    vols = dataclasses.replace(vols, **{
+        f.name: rows(getattr(vols, f.name))
+        for f in dataclasses.fields(vols)
+        if isinstance(getattr(vols, f.name), torch.Tensor)})
+    return dataclasses.replace(scene, volumes=vols, **{
+        name: rows(getattr(scene, name))
+        for name in ("tint", "roughness", "metallic", "k", "tex_scale",
+                     "albedo_tex", "normal_tex", "rm_tex")})
+
+
+@pytest.mark.gpu
+def test_sums_designs_with_many_volumes_on_card():
+    """The material variant on a scene of 100 volumes (the lights scene's
+    repeated; the hit lanes name the first ones) on both sums' designs
+    (``_sums_designs``); on one of 1,000, whose sums outgrow the redesign's
+    shared memory, the entry point refuses the launch."""
+    lv = _shade_grad_level("lit-textured-lights", _card(), 64, 48)
+    lv["scene"] = _many_volumes(lv["scene"], 100)
+    _sums_designs(lv, dict(material=True))
+    from vrt_torch.kernels import shade as k4
+
+    args = (_many_volumes(lv["scene"], 1000), lv["o"], lv["d"], lv["t"],
+            lv["n_obj"], lv["hit"], lv["inst"], lv["mode"], True, lv["cots"])
+    with pytest.raises(RuntimeError, match="launch failed"):
+        k4.shade_surface_backward_cuda(*args, material=True)
+
+
 @pytest.mark.gpu
 def test_fit_through_materials_and_lights_on_card():
     """The 64x36 fit of ``tests/fixtures/fit_flagship_r4_colors_64x36.npz``

@@ -77,6 +77,7 @@
 #include <algorithm>
 #include <map>
 #include <mutex>
+#include <set>
 #include <tuple>
 
 #include <cuda_pipeline.h>
@@ -4392,6 +4393,22 @@ Grid sized_grid(const void* kernel, int threads, size_t shared) {
   return g;
 }
 
+// Lets `kernel` take up to `bytes` of dynamic shared memory (above 48 KiB
+// only once asked for) on the current card: asked once a kernel and card.
+cudaError_t allow_shared(const void* kernel, int bytes) {
+  static std::mutex lock;
+  static std::set<std::pair<const void*, int>> allowed;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> hold(lock);
+  if (allowed.count({kernel, device})) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess) allowed.emplace(kernel, device);
+  return e;
+}
+
 template <bool kLit, bool kTextured, bool kColors, bool kMat>
 Grid merged_grid() {
   static const Grid grid = resident_grid(
@@ -4461,11 +4478,8 @@ cudaError_t surface_bwd_sums_launch(const SurfaceBwdParams& q,
   if (shared > kSumsMaxSharedBytes) return cudaErrorInvalidValue;
   const void* kernel = reinterpret_cast<const void*>(
       surface_bwd_sums_kernel<kLit, kTextured, kColors, kMat, kTex, kInst>);
-  // above 48 KiB only once asked for
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSumsMaxSharedBytes);
-  if (attr != cudaSuccess) return attr;
+  const cudaError_t allowed = allow_shared(kernel, kSumsMaxSharedBytes);
+  if (allowed != cudaSuccess) return allowed;
   const Grid g = sized_grid(kernel, kThreads, shared);
   if (g.err != cudaSuccess) return g.err;
   surface_bwd_sums_kernel<kLit, kTextured, kColors, kMat, kTex, kInst>

@@ -160,9 +160,6 @@ TABLE_DESIGN_LAUNCHES = {"surface_bwd textures warp": 0,
 # sums: the redesign ("warp") or the first design
 SUMS_DESIGN_LAUNCHES = {"surface_bwd sums warp": 0,
                         "surface_bwd sums first": 0}
-# the most volumes whose material sums the redesign keeps a warp (beyond,
-# the material variant takes its first design)
-SUMS_MAX_VOLUMES = 64
 # the largest stacked texture table and env cube whose cotangents a block
 # sums in shared memory (csrc/shade.cu kTexSharedBytes, kEnvSharedBytes)
 TEXTURE_SHARED_BYTES = 32 * 1024
@@ -548,7 +545,8 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
     instance variant are their sums' redesign (``surface_bwd_sums_kernel``:
     a hit lane stages what its table cotangents follow from, which are
     formed after its code and summed over the warp into a warp's partial
-    sums in shared memory; up to ``SUMS_MAX_VOLUMES`` volumes); the private
+    sums in shared memory; the entry point refuses a scene whose sums
+    outgrow its shared memory); the private
     ``_old_sums_design`` launches their first design (the merged kernel's
     kMat instantiation, ``surface_bwd_instances_kernel``: each lane's
     cotangents carried through its code, merged by key and added by shared
@@ -628,8 +626,7 @@ def shade_surface_backward_cuda(scene, o_w, d_w, t, n_obj, hit: MarchHit,
     first = _old_table_design and textures
     sums = None
     if not _old_design and (instances or (material and not textures)):
-        sums = "first" if _old_sums_design or \
-            scene.tint.shape[0] > SUMS_MAX_VOLUMES else "warp"
+        sums = "first" if _old_sums_design else "warp"
     ints += [not _old_design, material, textures, instances, first,
              sums == "first"]
     _launch("vrt_shade_surface_bwd", "surface_bwd", ptrs, ints, rays, dev,
